@@ -25,4 +25,5 @@ bench:
 
 clean:
 	rm -f nanopore_tpu/runtime/native/libseedchain.so
+	rm -rf nanopore_tpu_torch/_build
 	find . -name __pycache__ -type d | xargs rm -rf

@@ -1,0 +1,448 @@
+// Fused banded pair-HMM realign, decode mode: forward, backward and
+// reverse MEA in one kernel.
+//
+// Replaces nanopore_tpu/ops/pairhmm_pallas_realign.py::_realign_kernel
+// with emit_em=False, emit_gamma=False, emit_exp=False in its store_fwd
+// mode.  Per read: loglik, the MEA score and (k_pad + 1) x W direction
+// codes (0 diag, 1 del, 2 ins, 3 none).
+//
+// Phase A (forward) runs the five-state scaled recursion along the
+// anti-diagonals, rescaling every 2nd diagonal by the band maximum, with
+// the log-scale in a Kahan-compensated sum, and writes every diagonal's
+// states (5 x W f32) and rescale inverse to a workspace.  Phase B streams
+// them back in descending order: backward recursion (rescaled on odd
+// diagonals and diagonal 0), posteriors through the linear g-factor
+// (clamped at 3e37, seeded 1/fin(k_end)), and the reverse MEA DP, ties
+// broken diag before del before ins.  Band shifts come from bits 6/7 of
+// the codes; validity rides the sentinel code 5 (zero emission).  The
+// arithmetic, including its order, is the plain version's in
+// ops/realign.py; this file is built with -fmad=false so no multiply and
+// add fuse and the two agree to the bit.
+//
+// Bound: operations.  About 134 f32 operations per band cell per
+// diagonal against 2 bytes of codes in and 1 byte of directions out; the
+// recursion is a serial chain over ~10^4 diagonals per read.
+// Design: one warp per read, each lane owning C = W/32 adjacent band
+// cells in registers, so a band shift is one warp shuffle and the band
+// maximum a 5-step butterfly; reads are independent, so thousands of
+// warps fill the card and hide each other's latency.  The model tables
+// sit in shared memory.  Codes and stored states of the next diagonal
+// are loaded before the current one is computed.  The workspace costs
+// 5*W*4 bytes per diagonal per read of device-memory traffic each way
+// (recomputing the forward from checkpoints instead is later work).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NS = 5;
+constexpr float NEG = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 2;  // reads per block
+constexpr int NTAB = 93;  // tf 25 | emf 36 | egf 30 | gap gamma | match gamma
+
+struct Tables {
+  float v[NTAB];
+};
+
+// out[w] = a[w + s] for a warp-uniform s in {-1, 0, 1}; `fill` outside.
+template <int C>
+__device__ __forceinline__ void shift(const float (&a)[C], float (&o)[C], int s,
+                                      float fill, int lane) {
+  if (s == 0) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) o[c] = a[c];
+  } else if (s > 0) {
+    const float nb = __shfl_down_sync(FULL, a[0], 1);
+#pragma unroll
+    for (int c = 0; c < C - 1; ++c) o[c] = a[c + 1];
+    o[C - 1] = lane == 31 ? fill : nb;
+  } else {
+    const float nb = __shfl_up_sync(FULL, a[C - 1], 1);
+#pragma unroll
+    for (int c = C - 1; c > 0; --c) o[c] = a[c - 1];
+    o[0] = lane == 0 ? fill : nb;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ float band_max(const float (&v)[NS][C]) {
+  float mx = v[0][0];
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int c = 0; c < C; ++c) mx = fmaxf(mx, v[s][c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+  return mx;
+}
+
+// sum_s tf[s*5 + dest] * p[s], each product and sum rounded on its own
+template <int C>
+__device__ __forceinline__ void trans_sum(const float* tf, const float (&p)[NS][C],
+                                          int dest, float (&o)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float acc = tf[dest] * p[0][c];
+#pragma unroll
+    for (int s = 1; s < NS; ++s) acc = acc + tf[s * 5 + dest] * p[s][c];
+    o[c] = acc;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void load_codes(const uint8_t* row, int w0, uint8_t (&c)[C]) {
+  if constexpr (C == 2) {
+    const uint16_t v = *reinterpret_cast<const uint16_t*>(row + w0);
+    c[0] = (uint8_t)(v & 0xFF);
+    c[C - 1] = (uint8_t)(v >> 8);
+  } else {
+    c[0] = row[w0];
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void load_states(const float* row, int w0, float (&f)[NS][C]) {
+  constexpr int W = 32 * C;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if constexpr (C == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(row + s * W + w0);
+      f[s][0] = v.x;
+      f[s][C - 1] = v.y;
+    } else {
+      f[s][0] = row[s * W + w0];
+    }
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_states(float* row, int w0, const float (&f)[NS][C]) {
+  constexpr int W = 32 * C;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if constexpr (C == 2) {
+      *reinterpret_cast<float2*>(row + s * W + w0) = make_float2(f[s][0], f[s][C - 1]);
+    } else {
+      row[s * W + w0] = f[s][0];
+    }
+  }
+}
+
+// One forward anti-diagonal: nw from prev (k-1) and pp (k-2, scaled by r).
+template <int C>
+__device__ __forceinline__ void fwd_step(const float* tf, const float* emf,
+                                         const float* egf, const uint8_t (&code)[C],
+                                         int d1, int d2, const float (&prev)[NS][C],
+                                         const float (&pp)[NS][C], float r,
+                                         float (&nw)[NS][C], int lane) {
+  float t[NS][C], sh[NS][C];
+  trans_sum<C>(tf, pp, 0, t[0]);
+#pragma unroll
+  for (int d = 1; d < NS; ++d) trans_sum<C>(tf, prev, d, t[d]);
+  shift<C>(t[0], sh[0], d2, 0.f, lane);
+  shift<C>(t[1], sh[1], d1 - 1, 0.f, lane);
+  shift<C>(t[2], sh[2], d1, 0.f, lane);
+  shift<C>(t[3], sh[3], d1 - 1, 0.f, lane);
+  shift<C>(t[4], sh[4], d1, 0.f, lane);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int x = (code[c] >> 3) & 7;
+    const int y = code[c] & 7;
+    nw[0][c] = emf[x * 6 + y] * (sh[0][c] * r);
+    nw[1][c] = egf[6 + x] * sh[1][c];
+    nw[2][c] = egf[12 + y] * sh[2][c];
+    nw[3][c] = egf[18 + x] * sh[3][c];
+    nw[4][c] = egf[24 + y] * sh[4][c];
+  }
+}
+
+// loglik bookkeeping at the read's end diagonal (band-start mass, lane 0)
+template <int C>
+__device__ __forceinline__ void end_check(int k, int kend, const float (&nw)[NS][C],
+                                          float ls_hi, float ls_c, float& acc,
+                                          float& fin_end) {
+  float fin = nw[0][0];
+#pragma unroll
+  for (int s = 1; s < NS; ++s) fin = fin + nw[s][0];
+  fin = __shfl_sync(FULL, fin, 0);
+  if (k == kend) {
+    fin_end = fmaxf(fin, 1e-37f);
+    acc = acc + (logf(fin_end) + (ls_hi - ls_c));
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(WARPS * 32)
+realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
+               const int32_t* __restrict__ n, int nreads, int k_pad,
+               float* __restrict__ fst, float* __restrict__ sfi,
+               float* __restrict__ loglik, float* __restrict__ score,
+               int8_t* __restrict__ dirs) {
+  constexpr int W = 32 * C;
+  __shared__ float sm[NTAB];
+  for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (r >= nreads) return;
+  const float* tf = sm;
+  const float* emf = sm + 25;
+  const float* egf = sm + 61;
+  const float gg = sm[91];
+  const float mg = sm[92];
+  const int w0 = lane * C;
+  const uint8_t* xy = xyc + (size_t)r * k_pad * W;    // row k-1: diagonal k
+  float* fs = fst + (size_t)r * k_pad * NS * W;        // row k-1: diagonal k
+  float* sf = sfi + (size_t)r * (k_pad + 1);           // [k]: diagonal k
+  int8_t* dr = dirs + (size_t)r * (k_pad + 1) * W;     // row k: diagonal k
+  const int kend = m[r] + n[r];
+
+  // ---------------- phase A: forward ----------------
+  float a[NS][C], b[NS][C];  // diagonals k0 (even) and k0 - 1
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      a[s][c] = (w0 + c == 0) ? 1.0f / 5.0f : 0.f;
+      b[s][c] = 0.f;
+    }
+  float ls_hi = 0.f, ls_c = 0.f, rs = 1.f, acc = 0.f, fin_end = 1.f;
+  uint8_t c1[C];
+  load_codes<C>(xy, w0, c1);
+  for (int k0 = 0; k0 < k_pad; k0 += 2) {
+    uint8_t c2[C], c3[C];
+    load_codes<C>(xy + (size_t)(k0 + 1) * W, w0, c2);
+    if (k0 + 2 < k_pad) {
+      load_codes<C>(xy + (size_t)(k0 + 2) * W, w0, c3);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) c3[c] = 0;
+    }
+    // odd diagonal k0 + 1: no rescale
+    int top = __shfl_sync(FULL, (int)c1[0], 0);
+    int d1 = (top >> 6) & 1, d1p = (top >> 7) & 1;
+    float nb[NS][C];
+    fwd_step<C>(tf, emf, egf, c1, d1, d1 + d1p - 1, a, b, rs, nb, lane);
+    end_check<C>(k0 + 1, kend, nb, ls_hi, ls_c, acc, fin_end);
+    store_states<C>(fs + (size_t)k0 * NS * W, w0, nb);
+    // even diagonal k0 + 2: rescale by the band maximum
+    top = __shfl_sync(FULL, (int)c2[0], 0);
+    d1 = (top >> 6) & 1;
+    d1p = (top >> 7) & 1;
+    float na[NS][C];
+    fwd_step<C>(tf, emf, egf, c2, d1, d1 + d1p - 1, nb, a, 1.f, na, lane);
+    const float scale = band_max<C>(na);
+    const float safe = scale > 0.f ? scale : 1.f;
+    const float inv = 1.f / safe;
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int c = 0; c < C; ++c) na[s][c] = na[s][c] * inv;
+    {  // Kahan-compensated log-scale: value = ls_hi - ls_c
+      const float y = logf(safe) - ls_c;
+      const float t = ls_hi + y;
+      ls_c = (t - ls_hi) - y;
+      ls_hi = t;
+    }
+    end_check<C>(k0 + 2, kend, na, ls_hi, ls_c, acc, fin_end);
+    store_states<C>(fs + (size_t)(k0 + 1) * NS * W, w0, na);
+    sf[k0 + 2] = inv;  // every lane writes the same value
+    rs = inv;
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        b[s][c] = nb[s][c];
+        a[s][c] = na[s][c];
+      }
+#pragma unroll
+    for (int c = 0; c < C; ++c) c1[c] = c3[c];
+  }
+  if (lane == 0) loglik[r] = acc;
+
+  // ---------------- phase B: backward + reverse MEA ----------------
+  const float inv_fin = 1.f / fin_end;
+  float b1[NS][C], b2[NS][C];  // backward states of diagonals k+1, k+2
+  float u1[C], u2[C], gm1[C], gm2[C], gd1[C], gi1[C];
+  float ex1[C], ex3[C], ey2[C], ey4[C];  // gap emissions of diagonal k+1
+  float em1[C], em2[C];                  // match emissions of k+1, k+2
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      b1[s][c] = 0.f;
+      b2[s][c] = 0.f;
+    }
+    u1[c] = NEG;
+    u2[c] = NEG;
+    gm1[c] = gm2[c] = gd1[c] = gi1[c] = 0.f;
+    ex1[c] = ex3[c] = ey2[c] = ey4[c] = 0.f;
+    em1[c] = em2[c] = 0.f;
+  }
+  float binv = 1.f, g_next = 0.f;
+  int d1n1 = 0, d1n2 = 0;  // band deltas of diagonals k+1, k+2
+  float fh[NS][C];
+  load_states<C>(fs + (size_t)(k_pad - 1) * NS * W, w0, fh);
+  for (int k = k_pad; k >= 0; --k) {
+    // prefetch: diagonal k's codes (for the next step's emissions) and
+    // diagonal k-1's forward states
+    uint8_t ck[C];
+    float fnx[NS][C];
+    if (k >= 1) load_codes<C>(xy + (size_t)(k - 1) * W, w0, ck);
+    if (k >= 2) {
+      load_states<C>(fs + (size_t)(k - 2) * NS * W, w0, fnx);
+    } else {
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int c = 0; c < C; ++c) fnx[s][c] = (w0 + c == 0) ? 1.0f / 5.0f : 0.f;
+    }
+    const float sf_next = (k & 1) ? sf[k + 1] : 1.f;
+    const bool is_end = k == kend;
+    const int d2n2 = d1n1 + d1n2 - 1;
+
+    float p[NS][C], dest[NS][C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      p[0][c] = b2[0][c] * em2[c];
+      p[1][c] = b1[1][c] * ex1[c];
+      p[2][c] = b1[2][c] * ey2[c];
+      p[3][c] = b1[3][c] * ex3[c];
+      p[4][c] = b1[4][c] * ey4[c];
+    }
+    shift<C>(p[0], dest[0], -d2n2, 0.f, lane);
+    shift<C>(p[1], dest[1], 1 - d1n1, 0.f, lane);
+    shift<C>(p[2], dest[2], -d1n1, 0.f, lane);
+    shift<C>(p[3], dest[3], 1 - d1n1, 0.f, lane);
+    shift<C>(p[4], dest[4], -d1n1, 0.f, lane);
+#pragma unroll
+    for (int c = 0; c < C; ++c) dest[0][c] = dest[0][c] * binv;
+
+    float nw[NS][C];
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float acc_t = tf[s * 5] * dest[0][c];
+#pragma unroll
+        for (int t = 1; t < NS; ++t) acc_t = acc_t + tf[s * 5 + t] * dest[t][c];
+        nw[s][c] = is_end ? ((w0 + c == 0) ? 1.f : 0.f) : acc_t;
+      }
+    float safe = 1.f, inv = 1.f;
+    if ((k & 1) || k == 0) {
+      const float scale = band_max<C>(nw);
+      safe = scale > 0.f ? scale : 1.f;
+      inv = 1.f / safe;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int c = 0; c < C; ++c) nw[s][c] = nw[s][c] * inv;
+    }
+    float g_k = is_end ? inv_fin : (g_next * sf_next) * safe;
+    g_k = fminf(g_k, 3e37f);
+
+    float g_m[C], g_d[C], g_i[C], vd[C], vl[C], vu[C], td[C], tl[C], tu[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float gam[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) gam[s] = (fh[s][c] * nw[s][c]) * g_k;
+      g_m[c] = gam[0];
+      g_d[c] = gam[1] + gam[3];
+      g_i[c] = gam[2] + gam[4];
+      vd[c] = (u2[c] + gm2[c]) - mg;
+      vl[c] = u1[c] + gg * gd1[c];
+      vu[c] = u1[c] + gg * gi1[c];
+    }
+    shift<C>(vd, td, -d2n2, NEG, lane);
+    shift<C>(vl, tl, 1 - d1n1, NEG, lane);
+    shift<C>(vu, tu, -d1n1, NEG, lane);
+    float new_u[C];
+    uint32_t word = 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float best = fmaxf(fmaxf(td[c], tl[c]), tu[c]);
+      const int choice = best == td[c] ? 0 : (best == tl[c] ? 1 : 2);
+      new_u[c] = is_end ? ((w0 + c == 0) ? 0.f : NEG) : best;
+      const bool ok = new_u[c] > NEG / 2 && !is_end;
+      word |= (uint32_t)(ok ? choice : 3) << (8 * c);
+    }
+    int8_t* row = dr + (size_t)k * W + w0;
+    if constexpr (C == 2) {
+      *reinterpret_cast<uint16_t*>(row) = (uint16_t)word;
+    } else {
+      *row = (int8_t)word;
+    }
+    if (k == 0) {
+      if (lane == 0) score[r] = new_u[0];
+      break;
+    }
+
+    // carry down to diagonal k - 1
+    const int top = __shfl_sync(FULL, (int)ck[0], 0);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        b2[s][c] = b1[s][c];
+        b1[s][c] = nw[s][c];
+        fh[s][c] = fnx[s][c];
+      }
+      u2[c] = u1[c];
+      u1[c] = new_u[c];
+      gm2[c] = gm1[c];
+      gm1[c] = g_m[c];
+      gd1[c] = g_d[c];
+      gi1[c] = g_i[c];
+      const int x = (ck[c] >> 3) & 7;
+      const int y = ck[c] & 7;
+      em2[c] = em1[c];
+      em1[c] = emf[x * 6 + y];
+      ex1[c] = egf[6 + x];
+      ey2[c] = egf[12 + y];
+      ex3[c] = egf[18 + x];
+      ey4[c] = egf[24 + y];
+    }
+    binv = inv;
+    g_next = g_k;
+    d1n2 = d1n1;
+    d1n1 = (top >> 6) & 1;
+  }
+}
+
+}  // namespace
+
+extern "C" const char* np_cuda_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// `tables` is host memory: 91 model floats, then gap and match gamma.
+extern "C" int np_realign_launch(const float* tables, const void* xyc,
+                                 const void* m, const void* n, int nreads,
+                                 int k_pad, int W, void* fst, void* sfi,
+                                 void* loglik, void* score, void* dirs,
+                                 void* stream) {
+  if (nreads <= 0 || k_pad < 2 || k_pad % 2 != 0) return (int)cudaErrorInvalidValue;
+  Tables t;
+  for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
+  const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint8_t* x = (const uint8_t*)xyc;
+  const int32_t* mm = (const int32_t*)m;
+  const int32_t* nn = (const int32_t*)n;
+  if (W == 64) {
+    realign_kernel<2><<<grid, block, 0, s>>>(t, x, mm, nn, nreads, k_pad, (float*)fst,
+                                             (float*)sfi, (float*)loglik, (float*)score,
+                                             (int8_t*)dirs);
+  } else if (W == 32) {
+    realign_kernel<1><<<grid, block, 0, s>>>(t, x, mm, nn, nreads, k_pad, (float*)fst,
+                                             (float*)sfi, (float*)loglik, (float*)score,
+                                             (int8_t*)dirs);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

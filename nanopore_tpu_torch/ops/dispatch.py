@@ -1,0 +1,157 @@
+"""From (ref, read, guide) pairs to decoded cigars on one device.
+
+Counterpart of ``nanopore_tpu/ops/dispatch.py`` for the mapping decode:
+``prepared_from_pairs`` packs a batch on the host, uploads the byte
+stream and runs the pack kernel; ``PreparedRealign.launch()`` enqueues
+the fused realign and ``decode()`` walks the direction codes on the
+device, pulling only the (B, K1) op codes and the logliks to the host.
+
+Tensors on the card go through the CUDA kernels, tensors on the CPU
+through their plain PyTorch versions.  Every launch goes to the calling
+thread's current stream, and results reach the host through a copy
+that synchronises with it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from nanopore_tpu_torch.device import resolve_device
+from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
+from nanopore_tpu_torch.ops.pairhmm import KernelParams
+from nanopore_tpu_torch.ops.realign import realign_decode
+from nanopore_tpu_torch.ops.traceback import mea_walk, rle_ops_batch
+
+
+@dataclass
+class LitePack:
+    """Host-side metadata of a packed batch (numpy arrays)."""
+
+    offsets: np.ndarray  # (B, k_pad + 1) int32
+    m: np.ndarray
+    n: np.ndarray
+    k_end: np.ndarray
+    band_width: int
+
+
+def _pairs_k_max(pairs, k_max, step: int = 2048) -> int:
+    """Tighten k_max to the batch's real diagonal need, rounded to a
+    coarse step so the count of distinct shapes stays bounded."""
+    need = max(len(x) + len(y) for x, y, _ in pairs)
+    tight = -(-need // step) * step
+    return min(k_max, tight) if k_max else tight
+
+
+class PreparedRealign:
+    """A packed realign batch resident on its device (decode mode)."""
+
+    def __init__(self, lite: LitePack, params: KernelParams, xyc, m, n,
+                 gap_gamma: float = 0.5, match_gamma: float = 0.0,
+                 emit_em: bool = False, emit_gamma: bool = False):
+        if emit_em or emit_gamma:
+            raise NotImplementedError(
+                "the fused realign is ported in decode mode only; its EM "
+                "and gamma outputs are still to be ported"
+            )
+        self.batch = lite
+        self.params = params
+        self.xyc = xyc
+        self.m = m
+        self.n = n
+        self._gg = gap_gamma
+        self._mg = match_gamma
+        self._out = None
+
+    def launch(self) -> "PreparedRealign":
+        """Enqueue the realign kernel now (returns before it ends)."""
+        if self._out is None:
+            self._out = realign_decode(
+                self.xyc, self.m, self.n, self.params, self._gg, self._mg
+            )
+        return self
+
+    def run(self) -> dict:
+        """loglik / score (B,) and dirs (B, k_pad + 1, W) on the device."""
+        self.launch()
+        out, self._out = self._out, None
+        return out
+
+    def decode(self):
+        """(logliks (B,) float64, cigars, run output)."""
+        out = self.run()
+        ops = mea_walk(out["dirs"], self.xyc, self.m, self.n)
+        ops_h = ops.cpu().numpy()
+        loglik = out["loglik"].cpu().numpy().astype(np.float64)
+        return loglik, rle_ops_batch(ops_h), out
+
+
+def _not_ported(name: str):
+    class _NotPorted:
+        def __init__(self, *args, **kwargs):
+            raise NotImplementedError(
+                "%s is not ported to the PyTorch/CUDA package yet" % name
+            )
+
+    _NotPorted.__name__ = name
+    return _NotPorted
+
+
+PreparedViterbi = _not_ported("PreparedViterbi")
+PreparedEm = _not_ported("PreparedEm")
+PreparedPosteriors = _not_ported("PreparedPosteriors")
+
+
+def prepared_from_pairs(
+    cls_kwargs: dict,
+    pairs,
+    params: KernelParams,
+    band_width: int = 64,
+    k_max: int | None = None,
+    prepared_cls=PreparedRealign,
+    exact_k: bool = False,
+) -> PreparedRealign:
+    """Pack (ref, read, guide) pairs onto ``cls_kwargs['device']`` and
+    wrap them for the realign.  ``exact_k=True`` pins the diagonal
+    count to ``k_max`` (k-bin bucketing) instead of tightening it."""
+    if prepared_cls is not PreparedRealign:
+        raise NotImplementedError(
+            "%s is not ported to the PyTorch/CUDA package yet"
+            % getattr(prepared_cls, "__name__", prepared_cls)
+        )
+    kwargs = dict(cls_kwargs)
+    device = resolve_device(kwargs.pop("device", None))
+    if not exact_k:
+        k_max = _pairs_k_max(pairs, k_max)
+    prep = pack_stream_pairs(pairs, band_width, k_max)
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    m = put(prep["m"])
+    n = put(prep["n"])
+    xyc = pack_xyc(put(prep["stream"]), put(prep["initx"]), m, n)
+    lite = LitePack(
+        offsets=prep["offsets"], m=prep["m"], n=prep["n"],
+        k_end=prep["k_end"], band_width=band_width,
+    )
+    return PreparedRealign(lite, params, xyc, m, n, **kwargs)
+
+
+def preferred_realign_batch_size(requested: int | None = None,
+                                 device=None) -> int:
+    """Reads per realign batch.
+
+    The realign kernel runs one warp per read, a long serial chain of
+    diagonals, so the card needs several warps per SM to hide latency:
+    512 reads give ~4 warps on each of the H100's 132 SMs and keep the
+    forward-state workspace of a 5 kb read batch (~13 MB a read) under
+    the 8 GB launch cap.  On the CPU the plain version runs, and small
+    batches bound its memory.  An explicit request wins.
+    """
+    if requested:
+        return requested
+    dev = torch.device("cuda" if device is None else device)
+    return 512 if dev.type == "cuda" else 4

@@ -1,0 +1,180 @@
+"""On-device band construction: host stream pack + the pack kernel.
+
+Counterpart of ``nanopore_tpu/ops/pack_pallas.py``.  Along the
+anti-diagonal sweep the band's x-window and y-window are sliding windows
+over the raw sequences: the band is Lipschitz-1, so per diagonal exactly
+one new symbol enters (an x symbol when the band shifts, a y symbol when
+it does not):
+
+    xwin_k[w] = x[o[k] + w - 1]        (shifts up when d1[k] = 1)
+    ywin_k[w] = y[k - o[k] - w - 1]    (shifts down when d1[k] = 0)
+
+so the host streams one byte per diagonal per read:
+
+    bits 0-2  the entering symbol (x[o[k]+W-2] if d1[k] else y[k-o[k]-1])
+    bit 6     d1[k]   = o[k] - o[k-1]   (the band delta)
+    bit 7     d1[k-1]                    (the previous delta)
+
+plus a (W,) x-window seed per read.  The pack kernel
+(``csrc/pack.cu``) integrates the band offset from the delta bits,
+slides both windows, recomputes cell validity from (k, o[k], w, m, n)
+and writes the packed band codes ``xyc`` (B, k_pad, W) int8, row r =
+diagonal r + 1, byte = x*8 + y with sentinel 5 outside the lattice, N =
+4, bit 6 = d1[k], bit 7 = d1[k-1].
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from nanopore_tpu_torch.kernels import build as kb
+from nanopore_tpu_torch.ops.pairhmm import band_offsets_from_cigar
+
+# diagonal counts round up to this multiple (the JAX package's CHUNK,
+# so both packages lay out the same k_pad and compare row for row)
+K_ALIGN = 128
+SENT = (5 << 3) | 5  # all-sentinel packed code
+KERNEL_BAND_WIDTHS = (32, 64)  # W = 32 * band cells per lane
+
+LAUNCHES = kb.LaunchCounter("pack")
+_SIG = {
+    "np_pack_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 2,
+}
+
+
+def pack_stream_pairs(
+    pairs: list[tuple[np.ndarray, np.ndarray, list[tuple[int, int]]]],
+    band_width: int = 64,
+    k_max: int | None = None,
+) -> dict:
+    """Host side of the on-device pack, batch-major.
+
+    ``pairs`` are (ref window codes, read codes, guide cigar).  Returns
+    numpy ``stream`` (B, k_pad) uint8, ``initx`` (B, W) uint8, ``m``/``n``
+    /``k_end`` (B,) int32, ``offsets`` (B, k_pad + 1) int32 and the
+    sizes ``k_pad``, ``K``, ``B``, ``W``.
+    """
+    W = band_width
+    B = len(pairs)
+    ms = np.array([len(y) for _, y, _ in pairs], np.int32)
+    ns = np.array([len(x) for x, _, _ in pairs], np.int32)
+    K = int(k_max if k_max is not None else (ms + ns).max())
+    k_pad = -(-K // K_ALIGN) * K_ALIGN
+
+    stream = np.zeros((B, k_pad), np.uint8)
+    initx = np.zeros((B, W), np.uint8)
+    offsets = np.zeros((B, k_pad + 1), np.int32)
+    karr = np.arange(1, k_pad + 1, dtype=np.int64)
+    w = np.arange(W, dtype=np.int64)
+    for b, (x, y, cig) in enumerate(pairs):
+        x = np.asarray(x)
+        y = np.asarray(y)
+        m, n = len(y), len(x)
+        o = band_offsets_from_cigar(cig, m, n, W, k_pad)
+        offsets[b] = o
+        d1 = (o[1:] - o[:-1]).astype(np.uint8)
+        xq = x.astype(np.uint8) if n else np.zeros(1, np.uint8)
+        yq = y.astype(np.uint8) if m else np.zeros(1, np.uint8)
+        ix = np.clip(o[1:].astype(np.int64) + W - 2, 0, max(n - 1, 0))
+        iy = np.clip(karr - o[1:] - 1, 0, max(m - 1, 0))
+        byte = np.where(d1 == 1, xq[ix], yq[iy]) | (d1 << 6)
+        byte[1:] |= d1[:-1] << 7
+        stream[b] = byte
+        initx[b] = xq[np.clip(w - 1, 0, max(n - 1, 0))]
+    return {
+        "stream": stream,
+        "initx": initx,
+        "m": ms,
+        "n": ns,
+        "k_end": (ms + ns).astype(np.int32),
+        "offsets": offsets,
+        "k_pad": k_pad,
+        "K": K,
+        "B": B,
+        "W": W,
+    }
+
+
+def _check_inputs(stream, initx, m, n):
+    dev = stream.device
+    for name, t, dt in (("stream", stream, torch.uint8),
+                        ("initx", initx, torch.uint8),
+                        ("m", m, torch.int32), ("n", n, torch.int32)):
+        if t.device != dev:
+            raise ValueError("%s is on %s, stream on %s" % (name, t.device, dev))
+        if t.dtype != dt:
+            raise TypeError("%s must be %s, got %s" % (name, dt, t.dtype))
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+    B, k_pad = stream.shape
+    if initx.dim() != 2 or initx.shape[0] != B:
+        raise ValueError("initx must be (B, W), got %s" % (tuple(initx.shape),))
+    if tuple(m.shape) != (B,) or tuple(n.shape) != (B,):
+        raise ValueError("m and n must be (B,)")
+
+
+def pack_xyc(stream, initx, m, n) -> torch.Tensor:
+    """Packed band codes (B, k_pad, W) int8 from the stream inputs.
+
+    Runs the CUDA kernel for tensors on the card and the plain version
+    for tensors on the CPU.
+    """
+    _check_inputs(stream, initx, m, n)
+    if stream.device.type == "cpu":
+        return pack_xyc_plain(stream, initx, m, n)
+    B, k_pad = stream.shape
+    W = initx.shape[1]
+    if W not in KERNEL_BAND_WIDTHS or k_pad % 32:
+        raise ValueError(
+            "pack kernel serves W in %s and k_pad a multiple of 32, got "
+            "W=%d k_pad=%d" % (KERNEL_BAND_WIDTHS, W, k_pad)
+        )
+    out = torch.empty((B, k_pad, W), dtype=torch.int8, device=stream.device)
+    if B == 0:
+        return out
+    lib = kb.library("pack", _SIG)
+    with torch.cuda.device(stream.device):
+        rc = lib.np_pack_launch(
+            kb.ptr(stream), kb.ptr(initx), kb.ptr(m), kb.ptr(n),
+            B, k_pad, W, kb.ptr(out), kb.stream_of(stream),
+        )
+    kb.check(lib, rc, "pack")
+    LAUNCHES.add()
+    return out
+
+
+def pack_xyc_plain(stream, initx, m, n) -> torch.Tensor:
+    """The pack in plain PyTorch: vectorised over batch and band, one
+    loop step per diagonal."""
+    B, k_pad = stream.shape
+    W = initx.shape[1]
+    dev = stream.device
+    s = stream.to(torch.int32)
+    xw = initx.to(torch.int32)
+    yw = torch.full((B, W), 5, dtype=torch.int32, device=dev)
+    o = torch.zeros(B, dtype=torch.int32, device=dev)
+    w = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    mm = m[:, None]
+    nn = n[:, None]
+    five = torch.full((), 5, dtype=torch.int32, device=dev)
+    out = torch.empty((B, k_pad, W), dtype=torch.uint8, device=dev)
+    for r in range(k_pad):
+        byte = s[:, r]
+        d1 = (byte >> 6) & 1
+        ent = (byte & 7)[:, None]
+        shift = d1[:, None] == 1
+        # x window slides up when the band shifts, y window down when not
+        xw = torch.where(shift, torch.cat([xw[:, 1:], ent], 1), xw)
+        yw = torch.where(shift, yw, torch.cat([ent, yw[:, :-1]], 1))
+        o = o + d1
+        j = o[:, None] + w
+        i = (r + 1) - j
+        ok = (j <= nn) & (i >= 0) & (i <= mm)
+        xv = torch.where(ok & (j >= 1), xw, five)
+        yv = torch.where(ok & (i >= 1), yw, five)
+        out[:, r] = (xv * 8 + yv + (byte & 0xC0)[:, None]).to(torch.uint8)
+    return out.view(torch.int8)

@@ -1,0 +1,309 @@
+"""Fused banded realign in decode mode: forward, backward, reverse MEA.
+
+Counterpart of ``nanopore_tpu/ops/pairhmm_pallas_realign.py`` with
+``emit_em=False`` (no gamma, no retire stream): per read the forward
+log-likelihood, the MEA score and the (k_pad + 1, W) 2-bit direction
+codes (0 diag, 1 del, 2 ins, 3 none) that ``ops.traceback`` walks into
+a cigar.
+
+Numerics, shared by the kernel (``csrc/realign.cu``) and the plain
+version below, operation for operation:
+
+* five-state scaled f32 recursion over the anti-diagonals; the forward
+  rescales every 2nd diagonal (even k) by the band maximum and keeps the
+  running log-scale in a Kahan-compensated sum (a plain f32 sum drifts
+  by nats at K ~ 10^4);
+* per-read band shifts come from the code bits: d1 = bit 6, d1p =
+  bit 7, d2 = d1 + d1p - 1; shifted-in cells are 0 for probabilities
+  and NEG for MEA scores;
+* validity rides the sentinel code 5 (zero emission), N = 4 takes the
+  mean rows of the tables: no per-cell mask;
+* the backward rescales every odd diagonal and diagonal 0; the
+  posterior factor is the linear g-factor g_k = g_{k+1} sfinv_{k+1}
+  safe_k, clamped at 3e37 and seeded 1/fin(k_end), where fin(k_end) is
+  the forward band-start mass at the read's end diagonal;
+* the reverse MEA breaks ties diag before del before ins and emits
+  DIR_NONE where the score is unreachable or k == k_end.
+
+The forward states of every diagonal are kept (the TPU kernel's
+``store_fwd`` mode, 5 * W * 4 bytes per diagonal per read) and streamed
+back in descending order by the backward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from nanopore_tpu_torch.kernels import build as kb
+from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pairhmm import KernelParams, kernel_tables
+
+NUM_STATES = 5
+NEG = -1e30
+DIR_NONE = 3
+# forward-state workspace of one launch; larger batches launch over
+# sub-batches of reads
+WORKSPACE_BYTES = 8 << 30
+
+LAUNCHES = kb.LaunchCounter("realign")
+_SIG = {
+    "np_realign_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 6,
+}
+
+
+def workspace_bytes_per_read(k_pad: int, W: int) -> int:
+    """Forward states plus per-diagonal rescale inverses of one read."""
+    return k_pad * NUM_STATES * W * 4 + (k_pad + 1) * 4
+
+
+def _check_inputs(xyc, m, n):
+    dev = xyc.device
+    if xyc.dtype != torch.int8 or xyc.dim() != 3 or not xyc.is_contiguous():
+        raise ValueError("xyc must be a contiguous (B, k_pad, W) int8 tensor")
+    for name, t in (("m", m), ("n", n)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("%s must be contiguous int32 on %s" % (name, dev))
+        if tuple(t.shape) != (xyc.shape[0],):
+            raise ValueError("%s must be (B,)" % name)
+
+
+def realign_decode(xyc, m, n, params: KernelParams, gap_gamma: float = 0.5,
+                   match_gamma: float = 0.0) -> dict:
+    """Decode-mode fused realign over packed band codes.
+
+    xyc (B, k_pad, W) int8, m / n (B,) int32 read / window lengths.
+    Returns loglik (B,) f32, score (B,) f32 and dirs (B, k_pad + 1, W)
+    int8 (row k = diagonal k).  CUDA tensors launch the kernel, CPU
+    tensors run the plain version.
+    """
+    _check_inputs(xyc, m, n)
+    if xyc.device.type == "cpu":
+        return realign_decode_plain(xyc, m, n, params, gap_gamma, match_gamma)
+    B, k_pad, W = xyc.shape
+    if W not in KERNEL_BAND_WIDTHS or k_pad % 2:
+        raise ValueError(
+            "realign kernel serves W in %s and even k_pad, got W=%d "
+            "k_pad=%d" % (KERNEL_BAND_WIDTHS, W, k_pad)
+        )
+    dev = xyc.device
+    loglik = torch.empty(B, dtype=torch.float32, device=dev)
+    score = torch.empty(B, dtype=torch.float32, device=dev)
+    dirs = torch.empty((B, k_pad + 1, W), dtype=torch.int8, device=dev)
+    if B == 0:
+        return {"loglik": loglik, "score": score, "dirs": dirs}
+    tables = torch.cat([
+        kernel_tables(params),
+        torch.tensor([gap_gamma, match_gamma], dtype=torch.float32),
+    ]).contiguous()
+    per_read = workspace_bytes_per_read(k_pad, W)
+    chunk = max(1, min(B, WORKSPACE_BYTES // per_read))
+    fst = torch.empty((chunk, k_pad, NUM_STATES, W), dtype=torch.float32,
+                      device=dev)
+    sfi = torch.empty((chunk, k_pad + 1), dtype=torch.float32, device=dev)
+    lib = kb.library("realign", _SIG)
+    with torch.cuda.device(dev):
+        for r0 in range(0, B, chunk):
+            r1 = min(B, r0 + chunk)
+            rc = lib.np_realign_launch(
+                ctypes.c_void_p(tables.data_ptr()),
+                kb.ptr(xyc[r0:r1]), kb.ptr(m[r0:r1]), kb.ptr(n[r0:r1]),
+                r1 - r0, k_pad, W,
+                kb.ptr(fst), kb.ptr(sfi), kb.ptr(loglik[r0:r1]),
+                kb.ptr(score[r0:r1]), kb.ptr(dirs[r0:r1]),
+                kb.stream_of(xyc),
+            )
+            kb.check(lib, rc, "realign")
+            LAUNCHES.add()
+    # ``tables`` is copied into the kernel arguments at launch; the
+    # workspace returns to the caching allocator, whose reuse of it is
+    # ordered on this stream
+    return {"loglik": loglik, "score": score, "dirs": dirs}
+
+
+def _shift(arr, s, fill, base):
+    """out[b, p, w] = arr[b, p, w + s[b, p]] (``fill`` outside the band);
+    s in [-1, 1] per read and plane, ``base`` = arange(W) + 1."""
+    B, P, W = arr.shape
+    pad = torch.full((B, P, 1), fill, dtype=arr.dtype, device=arr.device)
+    padded = torch.cat([pad, arr, pad], dim=2)
+    idx = (base[None, None, :] + s[:, :, None]).expand(B, P, W)
+    return torch.gather(padded, 2, idx)
+
+
+def _seq_sum(prod):
+    """Sum over dim 2 of (B, D, 5, W) in source order 0..4, each add
+    rounded on its own (the kernel's order)."""
+    acc = prod[:, :, 0]
+    for s in range(1, NUM_STATES):
+        acc = acc + prod[:, :, s]
+    return acc
+
+
+def realign_decode_plain(xyc, m, n, params: KernelParams,
+                         gap_gamma: float = 0.5,
+                         match_gamma: float = 0.0) -> dict:
+    """The decode-mode realign in plain PyTorch: vectorised over batch
+    and band, one loop step per diagonal; the same arithmetic, in the
+    same order, as the kernel."""
+    B, k_pad, W = xyc.shape
+    dev = xyc.device
+    f32 = torch.float32
+    tab = kernel_tables(params).to(dev)
+    tf = tab[:25].reshape(5, 5)  # [from, to]
+    emf = tab[25:61]
+    egf = tab[61:91]
+    tfT = tf.t().contiguous()  # [to, from]
+    gg = float(np.float32(gap_gamma))
+    mg = float(np.float32(match_gamma))
+    kend = (m.to(torch.int64) + n.to(torch.int64))
+    base = torch.arange(W, device=dev) + 1
+    w0 = torch.zeros(W, dtype=torch.bool, device=dev)
+    w0[0] = True
+    codes = xyc.to(torch.int32) & 0xFF
+
+    def emissions(k):
+        """[e_m, gx1, gy2, gx3, gy4] (B, 5, W) and bits (d1, d1p) of
+        diagonal k >= 1."""
+        c = codes[:, k - 1]
+        x = (c >> 3) & 7
+        y = c & 7
+        E = torch.stack([
+            emf[x * 6 + y], egf[6 + x], egf[12 + y], egf[18 + x],
+            egf[24 + y],
+        ], dim=1)
+        top = c[:, 0]
+        return E, (top >> 6) & 1, (top >> 7) & 1
+
+    # ---------------- forward ----------------
+    F = torch.zeros((B, k_pad + 1, NUM_STATES, W), dtype=f32, device=dev)
+    F[:, 0, :, 0] = 1.0 / NUM_STATES  # start tile: diagonal 0
+    sfinv = torch.ones((B, k_pad + 2), dtype=f32, device=dev)
+    prev = F[:, 0]
+    prevprev = torch.zeros((B, NUM_STATES, W), dtype=f32, device=dev)
+    rs = torch.ones(B, dtype=f32, device=dev)
+    ls_hi = torch.zeros(B, dtype=f32, device=dev)
+    ls_c = torch.zeros(B, dtype=f32, device=dev)
+    acc = torch.zeros(B, dtype=f32, device=dev)
+    fin_end = torch.ones(B, dtype=f32, device=dev)
+    tiny = torch.tensor(1e-37, dtype=f32, device=dev)
+    for k in range(1, k_pad + 1):
+        rescale = k % 2 == 0
+        E, d1, d1p = emissions(k)
+        # destination 0 (match) takes the diagonal two back, the others
+        # the diagonal one back; transitions summed before the shifts
+        src = torch.cat([
+            prevprev[:, None], prev[:, None].expand(B, 4, NUM_STATES, W)
+        ], dim=1)
+        T = _seq_sum(tfT[None, :, :, None] * src)
+        S = torch.stack([d1 + d1p - 1, d1 - 1, d1, d1 - 1, d1], dim=1)
+        Ts = _shift(T, S, 0.0, base)
+        r = rs if not rescale else torch.ones_like(rs)
+        Ts = torch.cat([(Ts[:, 0] * r[:, None])[:, None], Ts[:, 1:]], dim=1)
+        new = E * Ts
+        if rescale:
+            scale = new.amax(dim=(1, 2))
+            safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+            inv = 1.0 / safe
+            new = new * inv[:, None, None]
+            y_ = torch.log(safe) - ls_c
+            t_ = ls_hi + y_
+            ls_c = (t_ - ls_hi) - y_
+            ls_hi = t_
+            sfinv[:, k] = inv
+            rs = inv
+        fin = new[:, 0, 0]
+        for s in range(1, NUM_STATES):
+            fin = fin + new[:, s, 0]
+        is_end = kend == k
+        fin_c = torch.maximum(fin, tiny)
+        fin_end = torch.where(is_end, fin_c, fin_end)
+        acc = torch.where(is_end, acc + (torch.log(fin_c) + (ls_hi - ls_c)),
+                          acc)
+        F[:, k] = new
+        prevprev, prev = prev, new
+    loglik = acc
+
+    # ---------------- backward + reverse MEA ----------------
+    inv_fin = 1.0 / fin_end
+    zeros_bw = torch.zeros((B, W), dtype=f32, device=dev)
+    b1 = torch.zeros((B, NUM_STATES, W), dtype=f32, device=dev)
+    b2 = torch.zeros((B, NUM_STATES, W), dtype=f32, device=dev)
+    binv = torch.ones(B, dtype=f32, device=dev)
+    g_next = torch.zeros(B, dtype=f32, device=dev)
+    u1 = torch.full((B, W), NEG, dtype=f32, device=dev)
+    u2 = u1.clone()
+    gm1 = gm2 = gd1 = gi1 = zeros_bw
+    # emissions of diagonal k+1 ([e_m, gx1, gy2, gx3, gy4]) and the
+    # match emission of k+2; beyond the lattice they are zero
+    E1 = torch.zeros((B, NUM_STATES, W), dtype=f32, device=dev)
+    em2 = zeros_bw
+    zi = torch.zeros(B, dtype=torch.int32, device=dev)
+    d1n1 = d1n2 = zi
+    end_band = torch.zeros((NUM_STATES, W), dtype=f32, device=dev)
+    end_band[:, 0] = 1.0
+    end_u = torch.where(w0, 0.0, NEG).to(f32)
+    dirs = torch.empty((B, k_pad + 1, W), dtype=torch.int8, device=dev)
+    score = None
+    for k in range(k_pad, -1, -1):
+        rescale = k % 2 == 1 or k == 0
+        d2n2 = d1n1 + d1n2 - 1
+        P = torch.stack([
+            b2[:, 0] * em2, b1[:, 1] * E1[:, 1], b1[:, 2] * E1[:, 2],
+            b1[:, 3] * E1[:, 3], b1[:, 4] * E1[:, 4],
+        ], dim=1)  # [M, D1, I1, D2, I2] destinations
+        S = torch.stack([-d2n2, 1 - d1n1, -d1n1, 1 - d1n1, -d1n1], dim=1)
+        dest = _shift(P, S, 0.0, base)
+        dest = torch.cat([(dest[:, 0] * binv[:, None])[:, None], dest[:, 1:]],
+                         dim=1)
+        new = _seq_sum(tf[None, :, :, None] * dest[:, None, :, :])
+        is_end = kend == k
+        new = torch.where(is_end[:, None, None], end_band[None], new)
+        if rescale:
+            scale = new.amax(dim=(1, 2))
+            safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+            inv = 1.0 / safe
+            new = new * inv[:, None, None]
+        else:
+            safe = inv = torch.ones(B, dtype=f32, device=dev)
+        sf_next = sfinv[:, k + 1]
+        g_k = torch.where(is_end, inv_fin, (g_next * sf_next) * safe)
+        g_k = torch.clamp(g_k, max=3e37)
+        gamma = (F[:, k] * new) * g_k[:, None, None]
+        g_m = gamma[:, 0]
+        g_d = gamma[:, 1] + gamma[:, 3]
+        g_i = gamma[:, 2] + gamma[:, 4]
+        V = torch.stack([(u2 + gm2) - mg, u1 + gg * gd1, u1 + gg * gi1],
+                        dim=1)
+        Vs = _shift(V, torch.stack([-d2n2, 1 - d1n1, -d1n1], dim=1), NEG,
+                    base)
+        diag_t, left_t, up_t = Vs[:, 0], Vs[:, 1], Vs[:, 2]
+        best = torch.maximum(torch.maximum(diag_t, left_t), up_t)
+        choice = torch.where(
+            best == diag_t, 0, torch.where(best == left_t, 1, 2)
+        )
+        new_u = torch.where(is_end[:, None], end_u[None], best)
+        ok = (new_u > NEG / 2) & ~is_end[:, None]
+        dirs[:, k] = torch.where(ok, choice, DIR_NONE).to(torch.int8)
+        if k == 0:
+            score = new_u[:, 0]
+            break
+        b2, b1, binv, g_next = b1, new, inv, g_k
+        u2, u1 = u1, new_u
+        gm2, gm1, gd1, gi1 = gm1, g_m, g_d, g_i
+        Ek, d1k, _ = emissions(k)
+        em2 = E1[:, 0]
+        E1 = Ek
+        d1n2, d1n1 = d1n1, d1k
+    return {"loglik": loglik, "score": score, "dirs": dirs}
+
+
+def untile(raw, B: int) -> np.ndarray:
+    """The JAX package's lane-tiled layout (NB, ..., BT) -> batch-major
+    (B, ...): read b sits in tile b // BT, lane b % BT."""
+    arr = np.asarray(raw)
+    NB, BT = arr.shape[0], arr.shape[-1]
+    return np.moveaxis(arr, -1, 1).reshape((NB * BT,) + arr.shape[1:-1])[:B]

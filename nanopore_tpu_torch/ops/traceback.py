@@ -1,0 +1,188 @@
+"""MEA walker: forward direction codes -> per-diagonal ops -> cigars.
+
+Counterpart of ``nanopore_tpu/ops/traceback_pallas.py``'s MEA walker and
+the traceback half of ``nanopore_tpu/ops/mea.py``.  The walk starts at
+cell (0, 0) and takes, on each diagonal it visits, the move the
+direction code of its cell names (0 diag, 1 del, 2 ins), falling back
+to D while reference remains, else I, where the code is 3 or points off
+the lattice.  It emits one op code per diagonal (OP_NONE where the path
+skipped the diagonal or had ended); ``rle_ops_batch`` run-length encodes
+the op rows into global cigars consuming exactly m read and n ref bases.
+
+The band offsets the walker needs are integrated from bit 6 of the
+packed band codes (``xyc``) already on the device, so no offsets upload
+is needed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from nanopore_tpu_torch.io.sam import CIG
+from nanopore_tpu_torch.kernels import build as kb
+
+DIR_DIAG, DIR_DEL, DIR_INS, DIR_NONE = 0, 1, 2, 3
+OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
+_OP_TO_CIG = {OP_M: CIG.M, OP_D: CIG.D, OP_I: CIG.I}
+
+LAUNCHES = kb.LaunchCounter("traceback")
+_SIG = {
+    "np_walk_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 2,
+}
+
+
+def _check_inputs(dirs, xyc, m, n):
+    dev = dirs.device
+    if dirs.dtype != torch.int8 or dirs.dim() != 3 or not dirs.is_contiguous():
+        raise ValueError("dirs must be a contiguous (B, K1, W) int8 tensor")
+    B, K1, W = dirs.shape
+    if (xyc.device != dev or xyc.dtype != torch.int8
+            or tuple(xyc.shape) != (B, K1 - 1, W) or not xyc.is_contiguous()):
+        raise ValueError("xyc must be a contiguous (B, K1 - 1, W) int8 "
+                         "tensor on %s" % dev)
+    for name, t in (("m", m), ("n", n)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("%s must be contiguous int32 on %s" % (name, dev))
+        if tuple(t.shape) != (B,):
+            raise ValueError("%s must be (B,)" % name)
+
+
+def mea_walk(dirs, xyc, m, n) -> torch.Tensor:
+    """(B, K1) int8 op codes from (B, K1, W) direction codes.
+
+    ``xyc`` (B, K1 - 1, W) supplies the band deltas (bit 6).  CUDA
+    tensors launch the kernel, CPU tensors run the plain walker.
+    """
+    _check_inputs(dirs, xyc, m, n)
+    if dirs.device.type == "cpu":
+        return mea_walk_plain(dirs, xyc, m, n)
+    B, K1, W = dirs.shape
+    ops = torch.empty((B, K1), dtype=torch.int8, device=dirs.device)
+    if B == 0:
+        return ops
+    lib = kb.library("traceback", _SIG)
+    with torch.cuda.device(dirs.device):
+        rc = lib.np_walk_launch(
+            kb.ptr(dirs), kb.ptr(xyc), kb.ptr(m), kb.ptr(n), B, K1 - 1, W,
+            kb.ptr(ops), kb.stream_of(dirs),
+        )
+    kb.check(lib, rc, "traceback")
+    LAUNCHES.add()
+    return ops
+
+
+def mea_walk_plain(dirs, xyc, m, n) -> torch.Tensor:
+    """The walker in plain PyTorch: vectorised over the batch, one loop
+    step per diagonal."""
+    B, K1, W = dirs.shape
+    dev = dirs.device
+    d1 = ((xyc[:, :, 0].to(torch.int32) & 0xFF) >> 6) & 1
+    offs = torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                      torch.cumsum(d1, dim=1, dtype=torch.int32)], dim=1)
+    mm = m.to(torch.int32)
+    nn = n.to(torch.int32)
+    i = torch.zeros(B, dtype=torch.int32, device=dev)
+    j = torch.zeros_like(i)
+    nk = torch.zeros_like(i)
+    rows = torch.arange(B, device=dev)
+    ops = torch.empty((B, K1), dtype=torch.int8, device=dev)
+    for k in range(K1):
+        active = (nk == k) & ((i < mm) | (j < nn))
+        b = j - offs[:, k]
+        in_band = (b >= 0) & (b < W)
+        d = dirs[rows, k, b.clamp(0, W - 1).long()].to(torch.int32)
+        d = torch.where(in_band, d, DIR_NONE)
+        can_diag = (d == DIR_DIAG) & (i < mm) & (j < nn)
+        can_del = (d == DIR_DEL) & (j < nn)
+        can_ins = (d == DIR_INS) & (i < mm)
+        fb_del = ~(can_diag | can_del | can_ins) & (j < nn)
+        op = torch.where(can_diag, OP_M,
+                         torch.where(can_del | fb_del, OP_D, OP_I))
+        op = torch.where(active, op, OP_NONE)
+        i = i + (active & (op != OP_D)).to(torch.int32)
+        j = j + (active & (op != OP_I)).to(torch.int32)
+        nk = torch.where(active, i + j, nk)
+        ops[:, k] = op.to(torch.int8)
+    return ops
+
+
+def rle_ops_batch(ops_b: np.ndarray) -> list[list[tuple[int, int]]]:
+    """Vectorised batch run-length encode: (B, K1) op codes -> cigars.
+
+    One set of full-matrix numpy passes instead of B per-row passes;
+    row boundaries break runs via the row-id stream, and per-read work
+    is O(#runs) only.
+    """
+    ops_b = np.ascontiguousarray(ops_b)
+    B = ops_b.shape[0]
+    mask = ops_b != OP_NONE
+    counts = mask.sum(axis=1)
+    flat = ops_b[mask]
+    if flat.size == 0:
+        return [[] for _ in range(B)]
+    row_id = np.repeat(np.arange(B, dtype=np.int64), counts)
+    brk = np.nonzero(
+        (flat[1:] != flat[:-1]) | (row_id[1:] != row_id[:-1])
+    )[0]
+    starts = np.concatenate([[0], brk + 1])
+    lens = np.diff(np.concatenate([starts, [flat.size]]))
+    run_ops = flat[starts]
+    run_rows = row_id[starts]
+    # map op codes with one LUT and convert both run arrays to Python
+    # lists in one pass each; never call int() per element
+    lut = np.zeros(max(_OP_TO_CIG) + 1, np.int64)
+    for k, v in _OP_TO_CIG.items():
+        lut[k] = v
+    cig_ops = lut[run_ops].tolist()
+    lens_l = lens.tolist()
+    bounds = np.searchsorted(run_rows, np.arange(B + 1)).tolist()
+    out: list[list[tuple[int, int]]] = []
+    for b in range(B):
+        lo, hi = bounds[b], bounds[b + 1]
+        out.append(list(zip(cig_ops[lo:hi], lens_l[lo:hi])))
+    return out
+
+
+def mea_traceback_fwd(
+    dirs: np.ndarray, offsets: np.ndarray, m: int, n: int
+) -> list[tuple[int, int]]:
+    """Host traceback of one read's forward direction codes into a
+    global SAM cigar consuming exactly m read / n ref bases."""
+    dirs = np.asarray(dirs)
+    offsets = np.asarray(offsets)
+    i = j = 0
+    ops: list[int] = []
+    W = dirs.shape[1]
+    while i < m or j < n:
+        k = i + j
+        b = j - offsets[k]
+        d = dirs[k, b] if 0 <= b < W else DIR_NONE
+        if d == DIR_DIAG and i < m and j < n:
+            ops.append(CIG.M)
+            i += 1
+            j += 1
+        elif d == DIR_DEL and j < n:
+            ops.append(CIG.D)
+            j += 1
+        elif d == DIR_INS and i < m:
+            ops.append(CIG.I)
+            i += 1
+        else:
+            # off-band / degenerate fallback: consume what's left
+            if j < n:
+                ops.append(CIG.D)
+                j += 1
+            else:
+                ops.append(CIG.I)
+                i += 1
+    cigar: list[tuple[int, int]] = []
+    for op in ops:
+        if cigar and cigar[-1][0] == op:
+            cigar[-1] = (op, cigar[-1][1] + 1)
+        else:
+            cigar.append((op, 1))
+    return cigar

@@ -1,0 +1,57 @@
+"""The PyTorch/CUDA port imports neither JAX nor the JAX package."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "nanopore_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        if parts[-1] == "__main__":
+            continue
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = _port_modules()
+    assert "nanopore_tpu_torch.ops.realign" in mods
+    code = (
+        "import importlib, sys\n"
+        "for m in %r:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'nanopore_tpu' or "
+        "m.startswith('nanopore_tpu.'))\n"
+        "print(repr(bad))\n" % (mods,)
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_source_names_no_jax_or_reference_import():
+    pattern = re.compile(
+        r"^\s*(import\s+jax\b|from\s+jax\b|import\s+nanopore_tpu\.|"
+        r"from\s+nanopore_tpu\.|import\s+nanopore_tpu\s*$|"
+        r"from\s+nanopore_tpu\s+import)",
+        re.M,
+    )
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [
+        str(p.relative_to(ROOT)) for p in files
+        if pattern.search(p.read_text())
+    ]
+    assert offenders == []
