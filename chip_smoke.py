@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch
-   version, and builds the three kernels from ``nanopore_tpu_torch/csrc``
-   with nvcc (one process per source, in parallel).
-2. Makes a seeded workload: a 1 Mb random reference and 512 reads of
-   5 kb (5 % deletions, 10 % substitutions, both strands, origin and
-   strand in each read name).
+   version, and builds the kernels from ``nanopore_tpu_torch/csrc`` with
+   nvcc (one process per source, in parallel; the realign source holds
+   the decode-mode and the EM-mode kernel).
+2. Makes two seeded workloads of 512 reads of 5 kb (5 % deletions, 10 %
+   substitutions, both strands, origin and strand in each read name): on
+   a 1 Mb random reference for the mapping path, and on a 48,502-bp one
+   (the length of lambda phage, the genome marginAlign's users train on)
+   for the EM path.
 3. Takes one realign batch of the mapping main path (the engine's own
    seeding, chaining and guide cigars; the preferred batch size, W = 64)
    and holds every kernel against its plain PyTorch version on the card:
@@ -22,7 +25,34 @@
    set to 0 just before the warm run and read just after; each must be
    > 0, and >= 99 % of the reads' primary records must land at their
    origin.
-5. Prints one ``{"kernels": [...]}`` line and, last,
+5. EM path, kernel rows.  On the second workload's own data (mapped by
+   the engine, chained): the pack kernel byte-identical to its plain
+   version on the EM batch and on the realign batch; the realign
+   kernel's EM mode against its plain version at W = 64 on the EM batch
+   (windows of pad 256): loglik within 1e-5 relative, trans and emis
+   within 3e-5 of each table's largest entry per read; the decode mode
+   at W = 32 on the realign stage's fullest bucket (windows of pad 128)
+   to the bars of step 3, the plain realign's cigars walked by the plain
+   walker; and the walker kernel against its plain version on those
+   W = 32 direction codes.  The plain realign and walker run on the
+   first 128 reads at the full diagonal count (a read's outputs do not
+   depend on its batch); the kernels are timed on the full batch.  A
+   chained record that ends ``<tail>D <k>I`` windows to the end of the
+   reference, and under the random start its EM sums can leave the f32
+   range (``align.em.representable``): kernel and plain version must
+   then agree on which entries are finite, and the bars hold on the
+   other reads.
+6. EM path, end to end: ``run_mapper("LastParamsRealignEm", ...)`` with
+   ``EmOptions(trials=2, iterations=10)`` twice, the second timed, every
+   counter set to 0 before it.  Every kernel of the path (pack, realign
+   decode, realign EM, walker) must have launched; the reads that
+   ``em_train`` left out of its counts are printed; each trial's running
+   likelihood must not decrease from its 2nd iteration on; the written
+   model must load with rows that sum to 1; the SAM must hold one global
+   record per read (pos 0, cigar consuming the whole reference and read)
+   and >= 99 % of them must start within 100 bp of their origin on the
+   right strand.
+7. Prints one ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -43,9 +73,12 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 REF_LEN = 1_000_000
+EM_REF_LEN = 48_502
 N_READS = 512
 READ_LEN = 5000
 W = 64
+W_REALIGN = 32  # the realign presets' band
+PLAIN_READS = 128  # reads the EM path's plain versions run on
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -54,18 +87,24 @@ F32_OPS_PER_S = 67e12
 # (amortised), backward 6 destination + 45 transition + 5 rescale + 12
 # posterior + 11 MEA
 REALIGN_OPS_PER_CELL = 56 + 79
+# EM mode: the same forward; backward 6 destination + 45 transition + 5
+# rescale + 10 posterior + 55 transition products (5 + 25 multiplies, 25
+# adds) + 5 bin adds (one gamma into one bin for each state), no MEA
+REALIGN_EM_OPS_PER_CELL = 56 + 126
 
 
 def fail(msg: str) -> None:
     raise SystemExit("chip_smoke: FAILED: " + msg)
 
 
-def write_workload(workdir: str):
-    """1 Mb reference and 512 noisy 5 kb reads (names r<i>_<start>_<strand>)."""
+def write_workload(workdir: str, ref_len: int):
+    """A random reference of ``ref_len`` and 512 noisy 5 kb reads (names
+    r<i>_<start>_<strand>)."""
     from nanopore_tpu_torch.io.encoding import decode, revcomp_codes
 
+    os.makedirs(workdir, exist_ok=True)
     rng = np.random.default_rng(SEED)
-    ref = rng.integers(0, 4, REF_LEN).astype(np.int8)
+    ref = rng.integers(0, 4, ref_len).astype(np.int8)
     fa = os.path.join(workdir, "ref.fa")
     seq = decode(ref)
     with open(fa, "w") as fh:
@@ -75,7 +114,7 @@ def write_workload(workdir: str):
     fq = os.path.join(workdir, "reads.fq")
     with open(fq, "w") as fh:
         for r in range(N_READS):
-            start = int(rng.integers(0, REF_LEN - READ_LEN))
+            start = int(rng.integers(0, ref_len - READ_LEN))
             x = ref[start:start + READ_LEN]
             y = x[rng.random(READ_LEN) > 0.05]
             sub = rng.random(len(y)) < 0.10
@@ -225,16 +264,14 @@ def kernel_phase(engine, fq: str, dev) -> dict:
         fail("%d reads' cigars differ (> 1%%)" % cig_diff)
     ms = cuda_ms(lambda: realign_decode(xyc, m, n, params, cfg.gap_gamma,
                                         cfg.match_gamma), 3)
-    nbytes = B * k_pad * W + B * (k_pad + 1) * W + 8 * B + 8 * B
-    nops = REALIGN_OPS_PER_CELL * W * need_diags
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / F32_OPS_PER_S * 1e3
+    bound, by = realign_bound(
+        REALIGN_OPS_PER_CELL, W, need_diags,
+        B * k_pad * W + B * (k_pad + 1) * W + 8 * B + 8 * B)
     res["realign"] = dict(
         per_batch=launches_per_call(realign.LAUNCHES, lambda: realign_decode(
             xyc, m, n, params, cfg.gap_gamma, cfg.match_gamma)),
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        bound_ms=bound, bound_by=by,
     )
     del out_p
     print("K2 realign: %.3f ms per batch (plain %.1f ms)" % (ms, plain_ms))
@@ -262,6 +299,316 @@ def kernel_phase(engine, fq: str, dev) -> dict:
               % (name, r["ms"], r["per_batch"], r["bound_ms"], r["bound_by"],
                  r["plain_ms"]))
     return res
+
+
+def realign_bound(ops_per_cell: int, W_: int, need_diags: int,
+                  nbytes: int) -> tuple:
+    """(bound ms, what bounds it) of a realign launch."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_per_cell * W_ * need_diags / F32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def chained_pairs(chained_sam: str, fa: str, pad: int):
+    """(window, read, guide) of every chained record, windowed at ``pad``
+    as the EM (256) and realign (128) stages window them."""
+    from nanopore_tpu_torch.align.realign import window_global_pair
+    from nanopore_tpu_torch.io.encoding import encode
+    from nanopore_tpu_torch.io.sam import SamReader
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+
+    ref = {k: encode(v) for k, v in read_fasta_dict(fa).items()}
+    pairs = []
+    for rec in SamReader(chained_sam).mapped():
+        xw, guide, _, _ = window_global_pair(ref[rec.rname], rec.cigar, pad)
+        pairs.append((xw, encode(rec.seq), guide))
+    return pairs
+
+
+def device_batch(pairs, W_: int, k_max, dev, what: str):
+    """Pack a batch as ``prepared_from_pairs`` does, and hold the pack
+    kernel against its plain version at this shape: (xyc, m, n, prep)."""
+    import torch
+
+    from nanopore_tpu_torch.ops.dispatch import _pairs_k_max
+    from nanopore_tpu_torch.ops.pack import (
+        pack_stream_pairs,
+        pack_xyc,
+        pack_xyc_plain,
+    )
+
+    prep = pack_stream_pairs(pairs, W_, _pairs_k_max(pairs, k_max))
+    m = torch.from_numpy(prep["m"]).to(dev)
+    n = torch.from_numpy(prep["n"]).to(dev)
+    stream = torch.from_numpy(prep["stream"]).to(dev)
+    initx = torch.from_numpy(prep["initx"]).to(dev)
+    xyc = pack_xyc(stream, initx, m, n)
+    xyc_p, plain_ms = timed(lambda: pack_xyc_plain(stream, initx, m, n))
+    if not torch.equal(xyc, xyc_p):
+        fail("pack kernel differs from its plain version on the %s" % what)
+    print("K1 pack on the %s: B=%d k_pad=%d W=%d byte-identical (plain "
+          "%.1f ms)" % (what, len(pairs), prep["k_pad"], W_, plain_ms))
+    return xyc, m, n, prep
+
+
+def em_kernel_phase(chained_sam: str, fa: str, dev, res: dict) -> None:
+    """The EM path's kernel rows, each kernel against its plain version
+    on the path's own batches: pack on both batches, EM mode at W = 64,
+    decode mode and walker at W = 32."""
+    import torch
+
+    from nanopore_tpu_torch.align.em import representable
+    from nanopore_tpu_torch.align.model import PairHmmModel
+    from nanopore_tpu_torch.align.realign import _next_pow2
+    from nanopore_tpu_torch.ops import realign
+    from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
+    from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+    from nanopore_tpu_torch.ops.realign import (
+        realign_decode,
+        realign_decode_plain,
+        realign_em,
+        realign_em_plain,
+    )
+    from nanopore_tpu_torch.ops.traceback import (
+        mea_walk,
+        mea_walk_plain,
+        rle_ops_batch,
+    )
+
+    B = preferred_realign_batch_size(None, dev)
+    P = PLAIN_READS
+    # the model of an EM iteration: a random restart, as em_train draws it
+    params = make_kernel_params(
+        PairHmmModel.random(np.random.default_rng(SEED)))
+
+    # ---- K2-em: realign kernel, EM mode, W = 64, EM windows ----
+    t0 = time.perf_counter()
+    pairs = chained_pairs(chained_sam, fa, 256)[:B]
+    if len(pairs) != B:
+        fail("only %d chained reads for an EM batch of %d" % (len(pairs), B))
+    xyc, m, n, prep = device_batch(pairs, W, None, dev, "EM batch")
+    k_pad = prep["k_pad"]
+    print("EM batch: B=%d K=%d k_pad=%d W=%d" % (B, prep["K"], k_pad, W))
+    out_k = realign_em(xyc, m, n, params)
+    out_p, plain_ms = timed(lambda: realign_em_plain(
+        xyc[:P].contiguous(), m[:P].contiguous(), n[:P].contiguous(), params))
+    # a window that reaches the end of the reference (a chained record
+    # ending <tail>D <k>I) can leave the f32 range under this model:
+    # em_train leaves such a read out; here kernel and plain version must
+    # agree on which entries are finite, and on the finite ones
+    held = representable(
+        out_k["trans"].double().cpu().numpy(),
+        out_k["emis"].double().cpu().numpy(), prep["m"], prep["n"])
+    if not bool(torch.isfinite(out_k["loglik"]).all()):
+        fail("non-finite EM loglik")
+    if held.sum() < 0.9 * B:
+        fail("only %d of %d reads' EM sums are representable"
+             % (held.sum(), B))
+    ll_rel = float(((out_k["loglik"][:P] - out_p["loglik"]).abs()
+                    / out_p["loglik"].abs()).max())
+    rels, err = {}, 0.0
+    for key in ("trans", "emis"):
+        a, b = out_k[key][:P].flatten(1), out_p[key].flatten(1)
+        if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+            fail("EM kernel and plain version differ in which %s entries "
+                 "are finite" % key)
+        ok = torch.from_numpy(held[:P]).to(dev)
+        a, b = a[ok], b[ok]
+        rels[key] = float(((a - b).abs().amax(1) / b.abs().amax(1)).max())
+        err = max(err, float((a - b).abs().max()))
+    print("K2-em: loglik max rel %.3g, trans max rel %.3g, emis max rel %.3g "
+          "(per read, to the table's largest entry; %d reads, %d of them "
+          "representable; %d of the batch's %d representable; %.1f s wall)"
+          % (ll_rel, rels["trans"], rels["emis"], P, held[:P].sum(),
+             held.sum(), B, time.perf_counter() - t0))
+    if ll_rel > 1e-5 or max(rels.values()) > 3e-5:
+        fail("EM kernel outside tolerance")
+    ms = cuda_ms(lambda: realign_em(xyc, m, n, params), 3)
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    bound, by = realign_bound(REALIGN_EM_OPS_PER_CELL, W, need,
+                              B * k_pad * W + 8 * B + B * 106 * 4)
+    res["realign_em"] = dict(
+        per_batch=launches_per_call(
+            realign.EM_LAUNCHES, lambda: realign_em(xyc, m, n, params)),
+        ms=ms, plain_ms=plain_ms, plain_reads=P, max_abs_err=err,
+        bound_ms=bound, bound_by=by,
+    )
+    print("K2-em: %.3f ms per batch of %d in %d launch(es) (plain %.1f ms "
+          "on %d reads)" % (ms, B, res["realign_em"]["per_batch"], plain_ms,
+                            P))
+    del xyc, out_k, out_p
+
+    # ---- K1, K2 decode and K3 at W = 32: the realign stage's fullest
+    # bucket of window shapes (windows of pad 128) ----
+    t0 = time.perf_counter()
+    buckets = {}
+    for pair in chained_pairs(chained_sam, fa, 128):
+        buckets.setdefault(
+            (_next_pow2(len(pair[0])), _next_pow2(len(pair[1]))), []
+        ).append(pair)
+    (n_pad, m_pad), pairs = max(buckets.items(), key=lambda kv: len(kv[1]))
+    pairs = pairs[:B]
+    Br = len(pairs)
+    print("realign buckets: %s" % {k: len(v) for k, v in buckets.items()})
+    if Br < P:
+        fail("the fullest realign bucket holds only %d reads" % Br)
+    xyc, m, n, prep = device_batch(pairs, W_REALIGN, n_pad + m_pad, dev,
+                                   "realign batch")
+    k_pad = prep["k_pad"]
+    print("realign batch: B=%d K=%d k_pad=%d W=%d"
+          % (Br, prep["K"], k_pad, W_REALIGN))
+    dflt = make_kernel_params(PairHmmModel.default())
+    out_k = realign_decode(xyc, m, n, dflt)
+    xs, ms_, ns = (t[:P].contiguous() for t in (xyc, m, n))
+    out_p, plain_ms = timed(lambda: realign_decode_plain(xs, ms_, ns, dflt))
+    ll_rel = float(((out_k["loglik"][:P] - out_p["loglik"]).abs()
+                    / out_p["loglik"].abs()).max())
+    sc_rel = float(((out_k["score"][:P] - out_p["score"]).abs()
+                    / out_p["score"].abs().clamp_min(1e-30)).max())
+    err = float(torch.maximum(
+        (out_k["loglik"][:P] - out_p["loglik"]).abs().max(),
+        (out_k["score"][:P] - out_p["score"]).abs().max()))
+    # the walker at this shape: kernel against plain on the kernel's
+    # direction codes; the plain realign's codes go through the plain
+    # walker, so its cigars owe nothing to either kernel
+    dirs_k = out_k["dirs"][:P].contiguous()
+    ops_k = mea_walk(dirs_k, xs, ms_, ns)
+    ops_kp, walk_plain_ms = timed(lambda: mea_walk_plain(dirs_k, xs, ms_, ns))
+    if not torch.equal(ops_k, ops_kp):
+        fail("walker kernel differs from its plain version at W=32")
+    cig_k = rle_ops_batch(ops_k.cpu().numpy())
+    cig_p = rle_ops_batch(
+        mea_walk_plain(out_p["dirs"], xs, ms_, ns).cpu().numpy())
+    cig_diff = sum(a != b for a, b in zip(cig_k, cig_p))
+    print("K3 walker W=32: ops identical on %d reads (plain %.1f ms)"
+          % (P, walk_plain_ms))
+    print("K2 realign W=32: loglik max rel %.3g, score max rel %.3g, reads "
+          "with differing cigars %d of %d (%.1f s wall)"
+          % (ll_rel, sc_rel, cig_diff, P, time.perf_counter() - t0))
+    if ll_rel > 1e-5 or sc_rel > 1e-4:
+        fail("realign kernel at W=32 outside tolerance")
+    if cig_diff > 0.01 * P:
+        fail("%d reads' cigars differ at W=32 (> 1%%)" % cig_diff)
+    ms = cuda_ms(lambda: realign_decode(xyc, m, n, dflt), 3)
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    bound, by = realign_bound(
+        REALIGN_OPS_PER_CELL, W_REALIGN, need,
+        Br * k_pad * W_REALIGN + Br * (k_pad + 1) * W_REALIGN + 16 * Br)
+    res["realign"].update(
+        ms_w32=ms, plain_ms_w32=plain_ms, plain_reads_w32=P, reads_w32=Br,
+        max_abs_err_w32=err, bound_ms_w32=bound, bound_by_w32=by,
+    )
+    print("K2 realign W=32: %.3f ms per batch of %d, bound %.4f ms (%s), "
+          "plain %.1f ms on %d reads" % (ms, Br, bound, by, plain_ms, P))
+
+
+def check_em_outputs(sam: str, hmm: str, ref_len: int) -> dict:
+    """The EM path's products: traces, model and global records."""
+    import xml.etree.ElementTree as ET
+
+    from nanopore_tpu_torch.align.model import PairHmmModel
+    from nanopore_tpu_torch.io.sam import CIG, SamReader
+
+    traces = [[float(v) for v in el.attrib["runningLikelihoods"].split()]
+              for el in ET.parse(hmm + ".xml").getroot().iter("hmm")]
+    if len(traces) != 2:
+        fail("expected 2 EM trials, found %d" % len(traces))
+    for t, trace in enumerate(traces):
+        if not trace or not np.isfinite(trace).all():
+            fail("trial %d: bad running likelihoods %s" % (t, trace))
+        for a, b in zip(trace[1:], trace[2:]):
+            if b < a - 1e-6 * abs(a):
+                fail("trial %d: likelihood fell from %r to %r" % (t, a, b))
+    for path in (hmm, hmm + "_unnormalised"):
+        model = PairHmmModel.load(path)
+        for table in (model.transitions, model.emissions):
+            if not np.isfinite(table).all() or not np.allclose(
+                    table.sum(axis=1), 1.0, atol=1e-6):
+                fail("%s: rows do not sum to 1" % path)
+    names, hits = set(), 0
+    for rec in SamReader(sam).mapped():
+        names.add(rec.qname)
+        ref_used = sum(ln for op, ln in rec.cigar if op in (CIG.M, CIG.D))
+        read_used = sum(ln for op, ln in rec.cigar if op in (CIG.M, CIG.I))
+        if rec.pos != 0 or ref_used != ref_len or read_used != len(rec.seq):
+            fail("%s is not a global record" % rec.qname)
+        _, start, strand = rec.qname[1:].split("_")
+        lead = rec.cigar[0][1] if rec.cigar[0][0] == CIG.D else 0
+        if bool(rec.flag & 0x10) == bool(int(strand)) and abs(
+                lead - int(start)) <= 100:
+            hits += 1
+    return {"records": len(names), "origin_share": hits / N_READS,
+            "iterations": [len(t) for t in traces],
+            "final_loglik": [t[-1] for t in traces]}
+
+
+def em_path_phase(workdir: str, dev, counters, res: dict) -> dict:
+    """Kernel rows and end-to-end run of the EM path; returns the warm
+    run's launch counts."""
+    import torch
+
+    from nanopore_tpu_torch.align.chain_sam import chain_sam_file
+    from nanopore_tpu_torch.align.em import EmOptions
+    from nanopore_tpu_torch.mapping.runner import run_mapper
+
+    # ---- the EM path: its kernel rows on its own data ----
+    em_dir = os.path.join(workdir, "em")
+    fa2, fq2 = write_workload(em_dir, EM_REF_LEN)
+    mapped = os.path.join(em_dir, "mapped.sam")
+    chained = os.path.join(em_dir, "chained.sam")
+    run_mapper("LastParams", fq2, "reads", fa2, mapped, device=dev)
+    chain_sam_file(mapped, chained, fq2, fa2)
+    em_kernel_phase(chained, fa2, dev, res)
+
+    # ---- the EM path end to end: cold run, then the warm one ----
+    em_sam = os.path.join(em_dir, "out.sam")
+    hmm = os.path.join(em_dir, "hmm.txt")
+    em_opts = EmOptions(trials=2, iterations=10)
+    run_mapper("LastParamsRealignEm", fq2, "reads", fa2, em_sam,
+               hmm_file_to_train=hmm, em_options=em_opts, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    warm_em = run_mapper("LastParamsRealignEm", fq2, "reads", fa2, em_sam,
+                         hmm_file_to_train=hmm, em_options=em_opts,
+                         device=dev)
+    torch.cuda.synchronize()
+    em_wall = time.perf_counter() - t0
+    em_launches = {c.name: c.count for c in counters}
+    em_peak = torch.cuda.max_memory_allocated(dev)
+    snap = warm_em.stage_stats.snapshot()
+    checks = check_em_outputs(em_sam, hmm, EM_REF_LEN)
+    its = snap["em_e_step"]["calls"]
+    print("EM path: %d reads in %.3f s warm: map %.3f s, chain %.3f s, EM "
+          "%.3f s, realign %.3f s; peak device memory %.3f GB; launches %s"
+          % (N_READS, em_wall, snap["wall"]["seconds"],
+             snap["post_chain"]["seconds"], snap["post_em"]["seconds"],
+             snap["post_realign"]["seconds"], em_peak / 1e9, em_launches))
+    print("EM path: %d iterations (per trial %s); E-step %.3f ms on the "
+          "device and %.4f s on the host clock per iteration, flank "
+          "correction %.4f s per iteration, M-step %.6f s per iteration; "
+          "final logliks %s"
+          % (its, checks["iterations"],
+             snap["em_e_step_device"]["seconds"] / its * 1e3,
+             snap["em_e_step"]["seconds"] / its,
+             snap["em_flank"]["seconds"] / its,
+             snap["em_m_step"]["seconds"] / its, checks["final_loglik"]))
+    print("EM path: %d global records, %.4f of reads at their origin; reads "
+          "left out of the EM counts, summed over the iterations: %d"
+          % (checks["records"], checks["origin_share"],
+             snap.get("em_left_out", {"calls": 0})["calls"]))
+    print("stage_stats_em " + json.dumps(snap))
+    if min(em_launches.values()) <= 0:
+        fail("a kernel of the EM path was not launched: %s" % em_launches)
+    if checks["records"] != N_READS:
+        fail("%d records for %d reads" % (checks["records"], N_READS))
+    if checks["origin_share"] < 0.99:
+        fail("only %.4f of realigned reads at their origin"
+             % checks["origin_share"])
+    return em_launches
 
 
 def origin_share(sam_path: str) -> float:
@@ -315,8 +662,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     workdir = os.path.join(build.BUILD_DIR, "smoke")
-    os.makedirs(workdir, exist_ok=True)
-    fa, fq = write_workload(workdir)
+    fa, fq = write_workload(workdir, REF_LEN)
 
     spec = MAPPER_REGISTRY["LastParams"]
     engine = MappingEngine(read_fasta_dict(fa), spec.config, device=dev)
@@ -325,7 +671,8 @@ def main() -> int:
     # ---- end to end: cold run, then the warm run that counts ----
     sam = os.path.join(workdir, "out.sam")
     run_mapper(spec, fq, "reads", fa, sam, device=dev)
-    counters = (pack.LAUNCHES, realign.LAUNCHES, traceback.LAUNCHES)
+    counters = (pack.LAUNCHES, realign.LAUNCHES, realign.EM_LAUNCHES,
+                traceback.LAUNCHES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters:
@@ -340,10 +687,13 @@ def main() -> int:
           "memory %.3f GB; primaries at origin %.4f; launches %s"
           % (N_READS, wall, N_READS / wall, peak / 1e9, share, launches))
     print("stage_stats " + json.dumps(warm.stage_stats.snapshot()))
-    if min(launches.values()) <= 0:
+    # the mapping path runs every kernel but the EM mode
+    if min(v for k, v in launches.items() if k != "realign_em") <= 0:
         fail("a kernel of the main path was not launched: %s" % launches)
     if share < 0.99:
         fail("only %.4f of primaries at their origin" % share)
+
+    em_launches = em_path_phase(workdir, dev, counters, res)
 
     meta = {
         "pack": ("csrc/pack.cu", "nanopore_tpu/ops/pack_pallas.py:61"),
@@ -351,18 +701,28 @@ def main() -> int:
                     "nanopore_tpu/ops/pairhmm_pallas_realign.py:69"),
         "traceback": ("csrc/traceback.cu",
                       "nanopore_tpu/ops/traceback_pallas.py:44"),
+        "realign_em": ("csrc/realign.cu",
+                       "nanopore_tpu/ops/pairhmm_pallas_realign.py:69"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
         r = res[name]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda",
             "source": "nanopore_tpu_torch/" + src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            # launches in the two warm runs together; each run's count,
+            # read from counters set to 0 just before it, follows
+            "launches": launches[name] + em_launches[name],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None,
-        })
+            "launches_map_path": launches[name],
+            "launches_em_path": em_launches[name],
+        }
+        row.update({k: v for k, v in r.items() if k not in row
+                    and k != "per_batch"})
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,10 @@ on-disk formats bit-compatible with the shipped trained models
   <likelihood>`` (27 whitespace-separated fields),
 - text format line 2: ``<80 emission probs>`` = 5 states x 16 (refBase*4 +
   readBase, bases ordered ACGT),
-- the XML flavour (``hmm.txt.xml``) is written after EM training,
-  which this package does not run yet.
+- XML flavour (``hmm.txt.xml``): ``<transition from to avg std>``,
+  ``<emission state x y avg std>`` and per-trial ``<hmm
+  runningLikelihoods=...>`` children (consumed by reference
+  analyses/hmm.py:31-47,82-84).
 
 State order. The reference is internally inconsistent about states 3/4
 (utils.py:617 treats {2,4} as insert states while analyses/hmm.py:27-28
@@ -143,6 +145,68 @@ class PairHmmModel:
             )
 
     # ------------------------------------------------------------------ #
+    # XML flavour (hmm.txt.xml) — written after EM, read by the Hmm
+    # analysis and HmmMetaAnalysis (reference analyses/hmm.py:15-47).
+    # ------------------------------------------------------------------ #
+    def write_xml(
+        self,
+        path: str,
+        transitions_std: np.ndarray | None = None,
+        emissions_std: np.ndarray | None = None,
+    ) -> None:
+        import xml.etree.ElementTree as ET
+
+        t_std = (
+            transitions_std
+            if transitions_std is not None
+            else np.zeros_like(self.transitions)
+        )
+        e_std = (
+            emissions_std
+            if emissions_std is not None
+            else np.zeros_like(self.emissions)
+        )
+        root = ET.Element("hmms", {"likelihood": str(self.likelihood)})
+        for i in range(NUM_STATES):
+            for j in range(NUM_STATES):
+                ET.SubElement(
+                    root,
+                    "transition",
+                    {
+                        "from": str(i),
+                        "to": str(j),
+                        "avg": str(self.transitions[i, j]),
+                        "std": str(t_std[i, j]),
+                    },
+                )
+        for state in range(NUM_STATES):
+            for x in range(SYMBOL_NUMBER):
+                for y in range(SYMBOL_NUMBER):
+                    ET.SubElement(
+                        root,
+                        "emission",
+                        {
+                            "state": str(state),
+                            "x": _BASES[x],
+                            "y": _BASES[y],
+                            "avg": str(
+                                self.emissions[state, x * SYMBOL_NUMBER + y]
+                            ),
+                            "std": str(e_std[state, x * SYMBOL_NUMBER + y]),
+                        },
+                    )
+        for trace in self.running_likelihoods:
+            ET.SubElement(
+                root,
+                "hmm",
+                {"runningLikelihoods": " ".join(str(v) for v in trace)},
+            )
+        from nanopore_tpu_torch.io.xmlio import pretty_xml
+
+        with open(path, "w") as fh:
+            fh.write(pretty_xml(root))
+
+    # ------------------------------------------------------------------ #
     # post-processing math (utils.py:614-629)
     # ------------------------------------------------------------------ #
     def normalise_by_reference_gc_content(self, gc_content: float) -> None:
@@ -219,3 +283,22 @@ class PairHmmModel:
         """
         m = self.emissions[0].reshape(4, 4).copy()
         return m / m.sum(axis=1, keepdims=True)
+
+
+def model_from_numpy(transitions, emissions, likelihood: float = 0.0,
+                     model_type: int = 1) -> PairHmmModel:
+    """A model from plain (5, 5) and (5, 16) tables, copied as float64:
+    how a model crosses between this package and the JAX package (whose
+    ``PairHmmModel`` holds the same two numpy tables), in either
+    direction."""
+    t = np.array(transitions, np.float64)
+    e = np.array(emissions, np.float64)
+    if t.shape != (NUM_STATES, NUM_STATES) or e.shape != (NUM_STATES, 16):
+        raise ValueError(
+            "transitions must be (5, 5) and emissions (5, 16), got %s and %s"
+            % (t.shape, e.shape)
+        )
+    return PairHmmModel(
+        transitions=t, emissions=e, likelihood=float(likelihood),
+        model_type=int(model_type),
+    )

@@ -1,10 +1,16 @@
-// Fused banded pair-HMM realign, decode mode: forward, backward and
-// reverse MEA in one kernel.
+// Fused banded pair-HMM realign: forward and backward in one kernel,
+// then either the reverse MEA (decode mode) or the Baum-Welch sums (EM
+// mode).
 //
 // Replaces nanopore_tpu/ops/pairhmm_pallas_realign.py::_realign_kernel
-// with emit_em=False, emit_gamma=False, emit_exp=False in its store_fwd
-// mode.  Per read: loglik, the MEA score and (k_pad + 1) x W direction
-// codes (0 diag, 1 del, 2 ins, 3 none).
+// in its store_fwd mode, with emit_gamma=False and emit_exp=False:
+//   decode mode (emit_em=False): per read loglik, the MEA score and
+//     (k_pad + 1) x W direction codes (0 diag, 1 del, 2 ins, 3 none);
+//   EM mode (emit_em=True): per read loglik, trans (5 x 5) and emis
+//     (5 x 16) expected counts.  The TPU kernel still runs the MEA DP and
+//     writes the direction codes in this mode; here the EM mode does
+//     neither, because the E-step has no use for (k_pad + 1) x W
+//     direction bytes per read per iteration.
 //
 // Phase A (forward) runs the five-state scaled recursion along the
 // anti-diagonals, rescaling every 2nd diagonal by the band maximum, with
@@ -30,6 +36,18 @@
 // are loaded before the current one is computed.  The workspace costs
 // 5*W*4 bytes per diagonal per read of device-memory traffic each way
 // (recomputing the forward from checkpoints instead is later work).
+//
+// EM mode adds 57 accumulators per lane (25 transition products, 16
+// match bins, 2 x 4 delete bins by the x code, 2 x 4 insert bins by the
+// y code): a lane adds its C cells into one register per count, so the
+// register cost is 57 at either width, and the 32 lanes are summed by an
+// xor butterfly after the last diagonal; the transition sums take their
+// tf factor only then.  Binning is a predicated add per bin (a select
+// and an add, 32 per cell): a dynamically indexed register array would go
+// to local memory.  Only codes 0-3 bin; N = 4 and the sentinel 5 bin
+// nowhere.  The backward then does about 79 - 13 + 5 + 50 + 32 = 153 f32
+// operations per cell against decode mode's 79 (no MEA, 5 + 50 for the
+// transition products, one add per bin).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -173,13 +191,23 @@ __device__ __forceinline__ void end_check(int k, int kend, const float (&nw)[NS]
   }
 }
 
-template <int C>
+// acc += value where the cell's bin is `bin`, for each of N bins
+template <int N>
+__device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = acc[i] + (bin == i ? value : 0.f);
+}
+
+// EM = false: `out1` is score (B,), `out2` the direction codes
+// (B, k_pad + 1, W) int8.  EM = true: `out1` is trans (B, 25), `out2`
+// emis (B, 80) f32.
+template <int C, bool EM>
 __global__ void __launch_bounds__(WARPS * 32)
 realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
                const int32_t* __restrict__ n, int nreads, int k_pad,
                float* __restrict__ fst, float* __restrict__ sfi,
-               float* __restrict__ loglik, float* __restrict__ score,
-               int8_t* __restrict__ dirs) {
+               float* __restrict__ loglik, float* __restrict__ out1,
+               void* __restrict__ out2) {
   constexpr int W = 32 * C;
   __shared__ float sm[NTAB];
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
@@ -196,7 +224,6 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;    // row k-1: diagonal k
   float* fs = fst + (size_t)r * k_pad * NS * W;        // row k-1: diagonal k
   float* sf = sfi + (size_t)r * (k_pad + 1);           // [k]: diagonal k
-  int8_t* dr = dirs + (size_t)r * (k_pad + 1) * W;     // row k: diagonal k
   const int kend = m[r] + n[r];
 
   // ---------------- phase A: forward ----------------
@@ -262,7 +289,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   }
   if (lane == 0) loglik[r] = acc;
 
-  // ---------------- phase B: backward + reverse MEA ----------------
+  // ------- phase B: backward + reverse MEA (or the EM sums) -------
   const float inv_fin = 1.f / fin_end;
   float b1[NS][C], b2[NS][C];  // backward states of diagonals k+1, k+2
   float u1[C], u2[C], gm1[C], gm2[C], gd1[C], gi1[C];
@@ -283,6 +310,11 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   }
   float binv = 1.f, g_next = 0.f;
   int d1n1 = 0, d1n2 = 0;  // band deltas of diagonals k+1, k+2
+  // EM sums of this lane's cells: 25 transitions | 16 match bins | delete
+  // states 1, 3 by x (8) | insert states 2, 4 by y (8)
+  float em[EM ? 57 : 1];
+#pragma unroll
+  for (int i = 0; i < (EM ? 57 : 1); ++i) em[i] = 0.f;
   float fh[NS][C];
   load_states<C>(fs + (size_t)(k_pad - 1) * NS * W, w0, fh);
   for (int k = k_pad; k >= 0; --k) {
@@ -340,44 +372,76 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
 #pragma unroll
         for (int c = 0; c < C; ++c) nw[s][c] = nw[s][c] * inv;
     }
-    float g_k = is_end ? inv_fin : (g_next * sf_next) * safe;
+    const float factor_trans = g_next * sf_next;
+    float g_k = is_end ? inv_fin : factor_trans * safe;
     g_k = fminf(g_k, 3e37f);
 
-    float g_m[C], g_d[C], g_i[C], vd[C], vl[C], vu[C], td[C], tl[C], tu[C];
+    float gam[NS][C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float gam[NS];
+    for (int c = 0; c < C; ++c)
 #pragma unroll
-      for (int s = 0; s < NS; ++s) gam[s] = (fh[s][c] * nw[s][c]) * g_k;
-      g_m[c] = gam[0];
-      g_d[c] = gam[1] + gam[3];
-      g_i[c] = gam[2] + gam[4];
-      vd[c] = (u2[c] + gm2[c]) - mg;
-      vl[c] = u1[c] + gg * gd1[c];
-      vu[c] = u1[c] + gg * gi1[c];
-    }
-    shift<C>(vd, td, -d2n2, NEG, lane);
-    shift<C>(vl, tl, 1 - d1n1, NEG, lane);
-    shift<C>(vu, tu, -d1n1, NEG, lane);
-    float new_u[C];
-    uint32_t word = 0;
+      for (int s = 0; s < NS; ++s) gam[s][c] = (fh[s][c] * nw[s][c]) * g_k;
+
+    float new_u[C], g_m[C], g_d[C], g_i[C];  // MEA carry (decode mode)
+    if constexpr (EM) {
+      // xi_k[s][t] without its tf factor.  dest is the value before the
+      // end-cell overwrite, and g_next is 0 until the read's own end
+      // diagonal has passed, so padding diagonals add nothing.
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float best = fmaxf(fmaxf(td[c], tl[c]), tu[c]);
-      const int choice = best == td[c] ? 0 : (best == tl[c] ? 1 : 2);
-      new_u[c] = is_end ? ((w0 + c == 0) ? 0.f : NEG) : best;
-      const bool ok = new_u[c] > NEG / 2 && !is_end;
-      word |= (uint32_t)(ok ? choice : 3) << (8 * c);
-    }
-    int8_t* row = dr + (size_t)k * W + w0;
-    if constexpr (C == 2) {
-      *reinterpret_cast<uint16_t*>(row) = (uint16_t)word;
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const float fsc = fh[s][c] * factor_trans;
+#pragma unroll
+          for (int t = 0; t < NS; ++t) em[s * 5 + t] = em[s * 5 + t] + fsc * dest[t][c];
+        }
+      if (k == 0) break;  // diagonal 0 holds no base: nothing to bin
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int x = (ck[c] >> 3) & 7;
+        const int y = ck[c] & 7;
+        const int xb = x < 4 ? x : -1;
+        const int yb = y < 4 ? y : -1;
+        bin_add<16>(em + 25, (xb >= 0 && yb >= 0) ? x * 4 + y : -1, gam[0][c]);
+        bin_add<4>(em + 41, xb, gam[1][c]);
+        bin_add<4>(em + 45, xb, gam[3][c]);
+        bin_add<4>(em + 49, yb, gam[2][c]);
+        bin_add<4>(em + 53, yb, gam[4][c]);
+      }
     } else {
-      *row = (int8_t)word;
-    }
-    if (k == 0) {
-      if (lane == 0) score[r] = new_u[0];
-      break;
+      float vd[C], vl[C], vu[C], td[C], tl[C], tu[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        g_m[c] = gam[0][c];
+        g_d[c] = gam[1][c] + gam[3][c];
+        g_i[c] = gam[2][c] + gam[4][c];
+        vd[c] = (u2[c] + gm2[c]) - mg;
+        vl[c] = u1[c] + gg * gd1[c];
+        vu[c] = u1[c] + gg * gi1[c];
+      }
+      shift<C>(vd, td, -d2n2, NEG, lane);
+      shift<C>(vl, tl, 1 - d1n1, NEG, lane);
+      shift<C>(vu, tu, -d1n1, NEG, lane);
+      uint32_t word = 0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float best = fmaxf(fmaxf(td[c], tl[c]), tu[c]);
+        const int choice = best == td[c] ? 0 : (best == tl[c] ? 1 : 2);
+        new_u[c] = is_end ? ((w0 + c == 0) ? 0.f : NEG) : best;
+        const bool ok = new_u[c] > NEG / 2 && !is_end;
+        word |= (uint32_t)(ok ? choice : 3) << (8 * c);
+      }
+      // row k of the read's direction codes: diagonal k
+      int8_t* row = (int8_t*)out2 + ((size_t)r * (k_pad + 1) + k) * W + w0;
+      if constexpr (C == 2) {
+        *reinterpret_cast<uint16_t*>(row) = (uint16_t)word;
+      } else {
+        *row = (int8_t)word;
+      }
+      if (k == 0) {
+        if (lane == 0) out1[r] = new_u[0];  // the MEA score
+        break;
+      }
     }
 
     // carry down to diagonal k - 1
@@ -390,12 +454,14 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
         b1[s][c] = nw[s][c];
         fh[s][c] = fnx[s][c];
       }
-      u2[c] = u1[c];
-      u1[c] = new_u[c];
-      gm2[c] = gm1[c];
-      gm1[c] = g_m[c];
-      gd1[c] = g_d[c];
-      gi1[c] = g_i[c];
+      if constexpr (!EM) {
+        u2[c] = u1[c];
+        u1[c] = new_u[c];
+        gm2[c] = gm1[c];
+        gm1[c] = g_m[c];
+        gd1[c] = g_d[c];
+        gi1[c] = g_i[c];
+      }
       const int x = (ck[c] >> 3) & 7;
       const int y = ck[c] & 7;
       em2[c] = em1[c];
@@ -410,6 +476,60 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
     d1n2 = d1n1;
     d1n1 = (top >> 6) & 1;
   }
+
+  if constexpr (EM) {
+    // sum over the band, then lay the counts out as trans [from][to] and
+    // emis [state][x * 4 + y], each gap count spread over the base its
+    // state does not read
+#pragma unroll
+    for (int i = 0; i < 57; ++i)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        em[i] = em[i] + __shfl_xor_sync(FULL, em[i], off);
+    if (lane == 0) {
+      float* tr = out1 + (size_t)r * 25;
+      float* es = (float*)out2 + (size_t)r * 80;
+#pragma unroll
+      for (int i = 0; i < 25; ++i) tr[i] = tf[i] * em[i];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) es[i] = em[25 + i];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          es[16 + a * 4 + q] = em[41 + a] / 4.0f;  // state 1: by x
+          es[48 + a * 4 + q] = em[45 + a] / 4.0f;  // state 3: by x
+          es[32 + q * 4 + a] = em[49 + a] / 4.0f;  // state 2: by y
+          es[64 + q * 4 + a] = em[53 + a] / 4.0f;  // state 4: by y
+        }
+    }
+  }
+}
+
+template <bool EM>
+int launch(const float* tables, const void* xyc, const void* m, const void* n,
+           int nreads, int k_pad, int W, void* fst, void* sfi, void* loglik,
+           void* out1, void* out2, void* stream) {
+  if (nreads <= 0 || k_pad < 2 || k_pad % 2 != 0) return (int)cudaErrorInvalidValue;
+  Tables t;
+  for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
+  const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint8_t* x = (const uint8_t*)xyc;
+  const int32_t* mm = (const int32_t*)m;
+  const int32_t* nn = (const int32_t*)n;
+  if (W == 64) {
+    realign_kernel<2, EM><<<grid, block, 0, s>>>(t, x, mm, nn, nreads, k_pad, (float*)fst,
+                                                 (float*)sfi, (float*)loglik,
+                                                 (float*)out1, out2);
+  } else if (W == 32) {
+    realign_kernel<1, EM><<<grid, block, 0, s>>>(t, x, mm, nn, nreads, k_pad, (float*)fst,
+                                                 (float*)sfi, (float*)loglik,
+                                                 (float*)out1, out2);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -425,24 +545,18 @@ extern "C" int np_realign_launch(const float* tables, const void* xyc,
                                  int k_pad, int W, void* fst, void* sfi,
                                  void* loglik, void* score, void* dirs,
                                  void* stream) {
-  if (nreads <= 0 || k_pad < 2 || k_pad % 2 != 0) return (int)cudaErrorInvalidValue;
-  Tables t;
-  for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
-  const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint8_t* x = (const uint8_t*)xyc;
-  const int32_t* mm = (const int32_t*)m;
-  const int32_t* nn = (const int32_t*)n;
-  if (W == 64) {
-    realign_kernel<2><<<grid, block, 0, s>>>(t, x, mm, nn, nreads, k_pad, (float*)fst,
-                                             (float*)sfi, (float*)loglik, (float*)score,
-                                             (int8_t*)dirs);
-  } else if (W == 32) {
-    realign_kernel<1><<<grid, block, 0, s>>>(t, x, mm, nn, nreads, k_pad, (float*)fst,
-                                             (float*)sfi, (float*)loglik, (float*)score,
-                                             (int8_t*)dirs);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(tables, xyc, m, n, nreads, k_pad, W, fst, sfi, loglik,
+                       score, dirs, stream);
+}
+
+// EM mode: trans (nreads, 25) and emis (nreads, 80) f32 in place of the
+// score and the direction codes; the two gamma entries of `tables` are
+// not read.
+extern "C" int np_realign_em_launch(const float* tables, const void* xyc,
+                                    const void* m, const void* n, int nreads,
+                                    int k_pad, int W, void* fst, void* sfi,
+                                    void* loglik, void* trans, void* emis,
+                                    void* stream) {
+  return launch<true>(tables, xyc, m, n, nreads, k_pad, W, fst, sfi, loglik,
+                      trans, emis, stream);
 }

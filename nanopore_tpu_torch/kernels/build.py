@@ -112,7 +112,7 @@ def build(names=SOURCES) -> float:
             os.replace(tmp, out)
             print("[nvcc %s] built %s" % (name, os.path.basename(out)))
             for line in log.splitlines():
-                if "ptxas" in line:
+                if "ptxas" in line or "bytes stack frame" in line:
                     print("[nvcc %s] %s" % (name, line.strip()))
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))

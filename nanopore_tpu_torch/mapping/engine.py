@@ -132,7 +132,7 @@ class MappingEngine:
         self.config = config or MapperConfig()
         if self.config.decode != "mea":
             raise NotImplementedError(
-                "decode=%r is not ported yet (only 'mea')"
+                "decode=%r is not ported yet (only 'mea'): ROADMAP A6"
                 % self.config.decode
             )
         # the card unless the caller asks for the CPU; raises when no

@@ -1,10 +1,16 @@
-"""From (ref, read, guide) pairs to decoded cigars on one device.
+"""From (ref, read, guide) pairs to decoded cigars or EM sums on one
+device.
 
-Counterpart of ``nanopore_tpu/ops/dispatch.py`` for the mapping decode:
-``prepared_from_pairs`` packs a batch on the host, uploads the byte
-stream and runs the pack kernel; ``PreparedRealign.launch()`` enqueues
-the fused realign and ``decode()`` walks the direction codes on the
-device, pulling only the (B, K1) op codes and the logliks to the host.
+Counterpart of ``nanopore_tpu/ops/dispatch.py`` for the MEA decode and
+the EM E-step: ``prepared_from_pairs`` packs a batch on the host,
+uploads the byte stream and runs the pack kernel;
+``PreparedRealign.launch()`` enqueues the fused realign and ``decode()``
+walks the direction codes on the device, pulling only the (B, K1) op
+codes and the logliks to the host; ``PreparedEm.run(params)`` launches
+the realign kernel's EM mode on the resident codes with new model
+tables.  The posterior (``emit_gamma``, ``PreparedPosteriors``: ROADMAP
+A3) and Viterbi (``PreparedViterbi``: ROADMAP A6) paths raise
+``NotImplementedError``.
 
 Tensors on the card go through the CUDA kernels, tensors on the CPU
 through their plain PyTorch versions.  Every launch goes to the calling
@@ -22,7 +28,7 @@ import torch
 from nanopore_tpu_torch.device import resolve_device
 from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
 from nanopore_tpu_torch.ops.pairhmm import KernelParams
-from nanopore_tpu_torch.ops.realign import realign_decode
+from nanopore_tpu_torch.ops.realign import realign_decode, realign_em
 from nanopore_tpu_torch.ops.traceback import mea_walk, rle_ops_batch
 
 
@@ -50,11 +56,11 @@ class PreparedRealign:
 
     def __init__(self, lite: LitePack, params: KernelParams, xyc, m, n,
                  gap_gamma: float = 0.5, match_gamma: float = 0.0,
-                 emit_em: bool = False, emit_gamma: bool = False):
-        if emit_em or emit_gamma:
+                 emit_gamma: bool = False):
+        if emit_gamma:
             raise NotImplementedError(
-                "the fused realign is ported in decode mode only; its EM "
-                "and gamma outputs are still to be ported"
+                "the fused realign's gamma output (emit_gamma) is not "
+                "ported yet: ROADMAP A3 / B2"
             )
         self.batch = lite
         self.params = params
@@ -88,20 +94,41 @@ class PreparedRealign:
         return loglik, rle_ops_batch(ops_h), out
 
 
-def _not_ported(name: str):
+class PreparedEm:
+    """An EM E-step batch resident on its device.
+
+    The packed codes and lengths are uploaded once; ``run(params)``
+    launches the realign kernel's EM mode on them with that iteration's
+    model tables (91 floats by value), so nothing is packed or uploaded
+    again between EM iterations.  The forward-state workspace lives only
+    for the duration of a ``run``.
+    """
+
+    def __init__(self, lite: LitePack, xyc, m, n):
+        self.batch = lite
+        self.xyc = xyc
+        self.m = m
+        self.n = n
+
+    def run(self, params: KernelParams) -> dict:
+        """loglik (B,), trans (B, 5, 5), emis (B, 5, 16) on the device."""
+        return realign_em(self.xyc, self.m, self.n, params)
+
+
+def _not_ported(name: str, item: str):
     class _NotPorted:
         def __init__(self, *args, **kwargs):
             raise NotImplementedError(
-                "%s is not ported to the PyTorch/CUDA package yet" % name
+                "%s is not ported to the PyTorch/CUDA package yet: "
+                "ROADMAP %s" % (name, item)
             )
 
     _NotPorted.__name__ = name
     return _NotPorted
 
 
-PreparedViterbi = _not_ported("PreparedViterbi")
-PreparedEm = _not_ported("PreparedEm")
-PreparedPosteriors = _not_ported("PreparedPosteriors")
+PreparedViterbi = _not_ported("PreparedViterbi", "A6")
+PreparedPosteriors = _not_ported("PreparedPosteriors", "A3")
 
 
 def prepared_from_pairs(
@@ -112,13 +139,16 @@ def prepared_from_pairs(
     k_max: int | None = None,
     prepared_cls=PreparedRealign,
     exact_k: bool = False,
-) -> PreparedRealign:
+):
     """Pack (ref, read, guide) pairs onto ``cls_kwargs['device']`` and
-    wrap them for the realign.  ``exact_k=True`` pins the diagonal
-    count to ``k_max`` (k-bin bucketing) instead of tightening it."""
-    if prepared_cls is not PreparedRealign:
+    wrap them as ``prepared_cls`` (``PreparedRealign`` or
+    ``PreparedEm``; ``params`` serve the former, the latter takes its
+    model at every ``run``).  ``exact_k=True`` pins the diagonal count
+    to ``k_max`` (k-bin bucketing) instead of tightening it."""
+    if prepared_cls not in (PreparedRealign, PreparedEm):
         raise NotImplementedError(
-            "%s is not ported to the PyTorch/CUDA package yet"
+            "%s is not ported to the PyTorch/CUDA package yet: ROADMAP A3 "
+            "(posteriors), A6 (Viterbi)"
             % getattr(prepared_cls, "__name__", prepared_cls)
         )
     kwargs = dict(cls_kwargs)
@@ -137,12 +167,14 @@ def prepared_from_pairs(
         offsets=prep["offsets"], m=prep["m"], n=prep["n"],
         k_end=prep["k_end"], band_width=band_width,
     )
+    if prepared_cls is PreparedEm:
+        return PreparedEm(lite, xyc, m, n, **kwargs)
     return PreparedRealign(lite, params, xyc, m, n, **kwargs)
 
 
 def preferred_realign_batch_size(requested: int | None = None,
                                  device=None) -> int:
-    """Reads per realign batch.
+    """Reads per realign or EM batch.
 
     The realign kernel runs one warp per read, a long serial chain of
     diagonals, so the card needs several warps per SM to hide latency:

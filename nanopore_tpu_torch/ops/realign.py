@@ -1,10 +1,15 @@
-"""Fused banded realign in decode mode: forward, backward, reverse MEA.
+"""Fused banded realign: forward, backward, then reverse MEA or EM sums.
 
-Counterpart of ``nanopore_tpu/ops/pairhmm_pallas_realign.py`` with
-``emit_em=False`` (no gamma, no retire stream): per read the forward
-log-likelihood, the MEA score and the (k_pad + 1, W) 2-bit direction
-codes (0 diag, 1 del, 2 ins, 3 none) that ``ops.traceback`` walks into
-a cigar.
+Counterpart of ``nanopore_tpu/ops/pairhmm_pallas_realign.py`` in two of
+its modes (no gamma band, no retire stream):
+
+* decode (``emit_em=False``): per read the forward log-likelihood, the
+  MEA score and the (k_pad + 1, W) 2-bit direction codes (0 diag, 1 del,
+  2 ins, 3 none) that ``ops.traceback`` walks into a cigar;
+* EM (``emit_em=True``): per read the log-likelihood and the Baum-Welch
+  expected counts, ``trans`` (5, 5) and ``emis`` (5, 16).  The port's EM
+  mode runs no MEA DP and writes no direction codes (the E-step has no
+  use for them).
 
 Numerics, shared by the kernel (``csrc/realign.cu``) and the plain
 version below, operation for operation:
@@ -23,7 +28,17 @@ version below, operation for operation:
   safe_k, clamped at 3e37 and seeded 1/fin(k_end), where fin(k_end) is
   the forward band-start mass at the read's end diagonal;
 * the reverse MEA breaks ties diag before del before ins and emits
-  DIR_NONE where the score is unreachable or k == k_end.
+  DIR_NONE where the score is unreachable or k == k_end;
+* EM mode sums, per backward diagonal k, the 25 transition products
+  f_k[s] * (g_{k+1} sfinv_{k+1}) * dest[t] (``dest`` the shifted
+  emission-weighted backward values, before the end-cell overwrite) and
+  bins gamma by the diagonal's base codes: the match state by (x, y)
+  into 16 counts, the delete states by x and the insert states by y
+  into 2 x 4 each; only codes 0-3 bin (N = 4 and the sentinel nowhere).
+  A lane adds its C = W / 32 cells into one accumulator per count, the
+  32 lanes are summed by an xor butterfly (offsets 16, 8, 4, 2, 1) at
+  the end, and only then do the transition sums take their ``tf``
+  factor.  The plain version adds in the same order.
 
 The forward states of every diagonal are kept (the TPU kernel's
 ``store_fwd`` mode, 5 * W * 4 bytes per diagonal per read) and streamed
@@ -49,15 +64,24 @@ DIR_NONE = 3
 WORKSPACE_BYTES = 8 << 30
 
 LAUNCHES = kb.LaunchCounter("realign")
+EM_LAUNCHES = kb.LaunchCounter("realign_em")
+_LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p] * 6
 _SIG = {
-    "np_realign_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p] * 6,
+    "np_realign_launch": _LAUNCH_ARGS,
+    "np_realign_em_launch": _LAUNCH_ARGS,
 }
 
 
 def workspace_bytes_per_read(k_pad: int, W: int) -> int:
     """Forward states plus per-diagonal rescale inverses of one read."""
     return k_pad * NUM_STATES * W * 4 + (k_pad + 1) * 4
+
+
+def max_workspace_k(W: int) -> int:
+    """The largest diagonal count at which one read's workspace still
+    fits ``WORKSPACE_BYTES``: the realign stage splits longer windows."""
+    return (WORKSPACE_BYTES - 4) // (NUM_STATES * W * 4 + 4)
 
 
 def _check_inputs(xyc, m, n):
@@ -69,6 +93,42 @@ def _check_inputs(xyc, m, n):
             raise ValueError("%s must be contiguous int32 on %s" % (name, dev))
         if tuple(t.shape) != (xyc.shape[0],):
             raise ValueError("%s must be (B,)" % name)
+
+
+def _launch(entry: str, counter, xyc, m, n, tables, outs) -> None:
+    """Launch ``entry`` over sub-batches of reads whose forward-state
+    workspace fits ``WORKSPACE_BYTES``; ``outs`` are the three per-read
+    output tensors.  One count per kernel launch."""
+    B, k_pad, W = xyc.shape
+    if W not in KERNEL_BAND_WIDTHS or k_pad % 2:
+        raise ValueError(
+            "realign kernel serves W in %s and even k_pad, got W=%d "
+            "k_pad=%d" % (KERNEL_BAND_WIDTHS, W, k_pad)
+        )
+    if B == 0:
+        return
+    dev = xyc.device
+    chunk = max(1, min(B, WORKSPACE_BYTES // workspace_bytes_per_read(k_pad, W)))
+    fst = torch.empty((chunk, k_pad, NUM_STATES, W), dtype=torch.float32,
+                      device=dev)
+    sfi = torch.empty((chunk, k_pad + 1), dtype=torch.float32, device=dev)
+    lib = kb.library("realign", _SIG)
+    fn = getattr(lib, entry)
+    with torch.cuda.device(dev):
+        for r0 in range(0, B, chunk):
+            r1 = min(B, r0 + chunk)
+            rc = fn(
+                ctypes.c_void_p(tables.data_ptr()),
+                kb.ptr(xyc[r0:r1]), kb.ptr(m[r0:r1]), kb.ptr(n[r0:r1]),
+                r1 - r0, k_pad, W, kb.ptr(fst), kb.ptr(sfi),
+                *(kb.ptr(o[r0:r1]) for o in outs),
+                kb.stream_of(xyc),
+            )
+            kb.check(lib, rc, counter.name)
+            counter.add()
+    # ``tables`` is copied into the kernel arguments at launch; the
+    # workspace returns to the caching allocator, whose reuse of it is
+    # ordered on this stream
 
 
 def realign_decode(xyc, m, n, params: KernelParams, gap_gamma: float = 0.5,
@@ -84,44 +144,42 @@ def realign_decode(xyc, m, n, params: KernelParams, gap_gamma: float = 0.5,
     if xyc.device.type == "cpu":
         return realign_decode_plain(xyc, m, n, params, gap_gamma, match_gamma)
     B, k_pad, W = xyc.shape
-    if W not in KERNEL_BAND_WIDTHS or k_pad % 2:
-        raise ValueError(
-            "realign kernel serves W in %s and even k_pad, got W=%d "
-            "k_pad=%d" % (KERNEL_BAND_WIDTHS, W, k_pad)
-        )
     dev = xyc.device
     loglik = torch.empty(B, dtype=torch.float32, device=dev)
     score = torch.empty(B, dtype=torch.float32, device=dev)
     dirs = torch.empty((B, k_pad + 1, W), dtype=torch.int8, device=dev)
-    if B == 0:
-        return {"loglik": loglik, "score": score, "dirs": dirs}
     tables = torch.cat([
         kernel_tables(params),
         torch.tensor([gap_gamma, match_gamma], dtype=torch.float32),
     ]).contiguous()
-    per_read = workspace_bytes_per_read(k_pad, W)
-    chunk = max(1, min(B, WORKSPACE_BYTES // per_read))
-    fst = torch.empty((chunk, k_pad, NUM_STATES, W), dtype=torch.float32,
-                      device=dev)
-    sfi = torch.empty((chunk, k_pad + 1), dtype=torch.float32, device=dev)
-    lib = kb.library("realign", _SIG)
-    with torch.cuda.device(dev):
-        for r0 in range(0, B, chunk):
-            r1 = min(B, r0 + chunk)
-            rc = lib.np_realign_launch(
-                ctypes.c_void_p(tables.data_ptr()),
-                kb.ptr(xyc[r0:r1]), kb.ptr(m[r0:r1]), kb.ptr(n[r0:r1]),
-                r1 - r0, k_pad, W,
-                kb.ptr(fst), kb.ptr(sfi), kb.ptr(loglik[r0:r1]),
-                kb.ptr(score[r0:r1]), kb.ptr(dirs[r0:r1]),
-                kb.stream_of(xyc),
-            )
-            kb.check(lib, rc, "realign")
-            LAUNCHES.add()
-    # ``tables`` is copied into the kernel arguments at launch; the
-    # workspace returns to the caching allocator, whose reuse of it is
-    # ordered on this stream
+    _launch("np_realign_launch", LAUNCHES, xyc, m, n, tables,
+            (loglik, score, dirs))
     return {"loglik": loglik, "score": score, "dirs": dirs}
+
+
+def realign_em(xyc, m, n, params: KernelParams) -> dict:
+    """EM-mode fused realign: the Baum-Welch E-step of one batch.
+
+    Inputs as :func:`realign_decode`.  Returns loglik (B,) f32, trans
+    (B, 5, 5) f32 expected transition counts [from, to] and emis
+    (B, 5, 16) f32 expected emission counts [state, x * 4 + y] (the gap
+    states' counts spread evenly over the base they do not read).  CUDA
+    tensors launch the kernel, CPU tensors run the plain version.
+    """
+    _check_inputs(xyc, m, n)
+    if xyc.device.type == "cpu":
+        return realign_em_plain(xyc, m, n, params)
+    B = xyc.shape[0]
+    dev = xyc.device
+    loglik = torch.empty(B, dtype=torch.float32, device=dev)
+    trans = torch.empty((B, 5, 5), dtype=torch.float32, device=dev)
+    emis = torch.empty((B, 5, 16), dtype=torch.float32, device=dev)
+    tables = torch.cat([
+        kernel_tables(params), torch.zeros(2, dtype=torch.float32),
+    ]).contiguous()
+    _launch("np_realign_em_launch", EM_LAUNCHES, xyc, m, n, tables,
+            (loglik, trans, emis))
+    return {"loglik": loglik, "trans": trans, "emis": emis}
 
 
 def _shift(arr, s, fill, base):
@@ -143,12 +201,50 @@ def _seq_sum(prod):
     return acc
 
 
+def _lane_add(acc, v):
+    """acc (B, R, L) + v (B, R, L * C): lane l adds its C adjacent band
+    cells one after the other (the kernel's order)."""
+    B, R, L = acc.shape
+    v = v.reshape(B, R, L, -1)
+    for c in range(v.shape[3]):
+        acc = acc + v[..., c]
+    return acc
+
+
+def _lane_total(acc):
+    """Sum of (B, R, L) over the lanes by the kernel's xor butterfly."""
+    L = acc.shape[2]
+    lanes = torch.arange(L, device=acc.device)
+    off = L // 2
+    while off:
+        acc = acc + acc[..., lanes ^ off]
+        off //= 2
+    return acc[..., 0]
+
+
 def realign_decode_plain(xyc, m, n, params: KernelParams,
                          gap_gamma: float = 0.5,
                          match_gamma: float = 0.0) -> dict:
     """The decode-mode realign in plain PyTorch: vectorised over batch
     and band, one loop step per diagonal; the same arithmetic, in the
     same order, as the kernel."""
+    return _realign_plain(xyc, m, n, params, gap_gamma, match_gamma, False)
+
+
+def realign_em_plain(xyc, m, n, params: KernelParams) -> dict:
+    """The EM-mode realign in plain PyTorch (the same recursion as the
+    decode mode, summing expected counts in place of the MEA DP).  W
+    must be a power of two."""
+    W = xyc.shape[2]
+    if W & (W - 1):
+        raise ValueError("EM band width must be a power of two, got %d" % W)
+    return _realign_plain(xyc, m, n, params, 0.0, 0.0, True)
+
+
+def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
+                   match_gamma: float, emit_em: bool) -> dict:
+    """Forward and backward over the packed codes; ``emit_em`` selects
+    what the backward accumulates (EM sums, else the reverse MEA)."""
     B, k_pad, W = xyc.shape
     dev = xyc.device
     f32 = torch.float32
@@ -227,7 +323,7 @@ def realign_decode_plain(xyc, m, n, params: KernelParams,
         prevprev, prev = prev, new
     loglik = acc
 
-    # ---------------- backward + reverse MEA ----------------
+    # ---------------- backward + reverse MEA or EM sums ----------------
     inv_fin = 1.0 / fin_end
     zeros_bw = torch.zeros((B, W), dtype=f32, device=dev)
     b1 = torch.zeros((B, NUM_STATES, W), dtype=f32, device=dev)
@@ -246,7 +342,17 @@ def realign_decode_plain(xyc, m, n, params: KernelParams,
     end_band = torch.zeros((NUM_STATES, W), dtype=f32, device=dev)
     end_band[:, 0] = 1.0
     end_u = torch.where(w0, 0.0, NEG).to(f32)
-    dirs = torch.empty((B, k_pad + 1, W), dtype=torch.int8, device=dev)
+    if emit_em:
+        L = min(W, 32)  # lanes; each owns W / L adjacent band cells
+        acc_t = torch.zeros((B, 25, L), dtype=f32, device=dev)
+        acc_m = torch.zeros((B, 16, L), dtype=f32, device=dev)
+        acc_d = torch.zeros((B, 8, L), dtype=f32, device=dev)  # states 1, 3 by x
+        acc_i = torch.zeros((B, 8, L), dtype=f32, device=dev)  # states 2, 4 by y
+        bins4 = torch.arange(4, device=dev)[None, :, None]
+        bins16 = torch.arange(16, device=dev)[None, :, None]
+        zero = torch.zeros((), dtype=f32, device=dev)
+    else:
+        dirs = torch.empty((B, k_pad + 1, W), dtype=torch.int8, device=dev)
     score = None
     for k in range(k_pad, -1, -1):
         rescale = k % 2 == 1 or k == 0
@@ -269,36 +375,75 @@ def realign_decode_plain(xyc, m, n, params: KernelParams,
             new = new * inv[:, None, None]
         else:
             safe = inv = torch.ones(B, dtype=f32, device=dev)
-        sf_next = sfinv[:, k + 1]
-        g_k = torch.where(is_end, inv_fin, (g_next * sf_next) * safe)
+        factor_trans = g_next * sfinv[:, k + 1]
+        if emit_em:
+            # xi_k[s, t] without its tf factor; ``dest`` is the value
+            # before the end-cell overwrite, and g_next is 0 until the
+            # read's own end diagonal has passed
+            fs = F[:, k] * factor_trans[:, None, None]
+            acc_t = _lane_add(
+                acc_t,
+                (fs[:, :, None, :] * dest[:, None, :, :]).reshape(B, 25, W),
+            )
+        g_k = torch.where(is_end, inv_fin, factor_trans * safe)
         g_k = torch.clamp(g_k, max=3e37)
         gamma = (F[:, k] * new) * g_k[:, None, None]
-        g_m = gamma[:, 0]
-        g_d = gamma[:, 1] + gamma[:, 3]
-        g_i = gamma[:, 2] + gamma[:, 4]
-        V = torch.stack([(u2 + gm2) - mg, u1 + gg * gd1, u1 + gg * gi1],
-                        dim=1)
-        Vs = _shift(V, torch.stack([-d2n2, 1 - d1n1, -d1n1], dim=1), NEG,
-                    base)
-        diag_t, left_t, up_t = Vs[:, 0], Vs[:, 1], Vs[:, 2]
-        best = torch.maximum(torch.maximum(diag_t, left_t), up_t)
-        choice = torch.where(
-            best == diag_t, 0, torch.where(best == left_t, 1, 2)
-        )
-        new_u = torch.where(is_end[:, None], end_u[None], best)
-        ok = (new_u > NEG / 2) & ~is_end[:, None]
-        dirs[:, k] = torch.where(ok, choice, DIR_NONE).to(torch.int8)
-        if k == 0:
-            score = new_u[:, 0]
-            break
+        if emit_em:
+            if k == 0:
+                break  # diagonal 0 holds no base: nothing to bin
+            c = codes[:, k - 1]
+            x = ((c >> 3) & 7)[:, None, :]
+            y = (c & 7)[:, None, :]
+            cell = torch.where((x < 4) & (y < 4), x * 4 + y, -1)
+            acc_m = _lane_add(
+                acc_m, torch.where(cell == bins16, gamma[:, 0:1], zero))
+            ohx = x == bins4
+            ohy = y == bins4
+            acc_d = _lane_add(acc_d, torch.cat([
+                torch.where(ohx, gamma[:, 1:2], zero),
+                torch.where(ohx, gamma[:, 3:4], zero)], dim=1))
+            acc_i = _lane_add(acc_i, torch.cat([
+                torch.where(ohy, gamma[:, 2:3], zero),
+                torch.where(ohy, gamma[:, 4:5], zero)], dim=1))
+        else:
+            g_m = gamma[:, 0]
+            g_d = gamma[:, 1] + gamma[:, 3]
+            g_i = gamma[:, 2] + gamma[:, 4]
+            V = torch.stack([(u2 + gm2) - mg, u1 + gg * gd1, u1 + gg * gi1],
+                            dim=1)
+            Vs = _shift(V, torch.stack([-d2n2, 1 - d1n1, -d1n1], dim=1), NEG,
+                        base)
+            diag_t, left_t, up_t = Vs[:, 0], Vs[:, 1], Vs[:, 2]
+            best = torch.maximum(torch.maximum(diag_t, left_t), up_t)
+            choice = torch.where(
+                best == diag_t, 0, torch.where(best == left_t, 1, 2)
+            )
+            new_u = torch.where(is_end[:, None], end_u[None], best)
+            ok = (new_u > NEG / 2) & ~is_end[:, None]
+            dirs[:, k] = torch.where(ok, choice, DIR_NONE).to(torch.int8)
+            if k == 0:
+                score = new_u[:, 0]
+                break
+            u2, u1 = u1, new_u
+            gm2, gm1, gd1, gi1 = gm1, g_m, g_d, g_i
         b2, b1, binv, g_next = b1, new, inv, g_k
-        u2, u1 = u1, new_u
-        gm2, gm1, gd1, gi1 = gm1, g_m, g_d, g_i
         Ek, d1k, _ = emissions(k)
         em2 = E1[:, 0]
         E1 = Ek
         d1n2, d1n1 = d1n1, d1k
-    return {"loglik": loglik, "score": score, "dirs": dirs}
+    if not emit_em:
+        return {"loglik": loglik, "score": score, "dirs": dirs}
+    trans = (tf.reshape(25)[None] * _lane_total(acc_t)).reshape(B, 5, 5)
+    dele = _lane_total(acc_d) / 4.0  # (B, 8): state 1 by x, state 3 by x
+    ins = _lane_total(acc_i) / 4.0
+    emis = torch.stack([
+        _lane_total(acc_m),
+        dele[:, 0:4].repeat_interleave(4, dim=1),
+        ins[:, 0:4].repeat(1, 4),
+        dele[:, 4:8].repeat_interleave(4, dim=1),
+        ins[:, 4:8].repeat(1, 4),
+    ], dim=1)
+    return {"loglik": loglik, "trans": trans, "emis": emis}
 
 
 def untile(raw, B: int) -> np.ndarray:

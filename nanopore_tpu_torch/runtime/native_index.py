@@ -1,8 +1,8 @@
 """ctypes bindings for the native seed/chain runtime (seedchain.cpp).
 
 Builds ``libseedchain.so`` with the system C++ compiler on first use,
-into the package's gitignored ``_build/`` directory.  Seeding and
-chaining always run here: a failed build or load raises.
+into the package's gitignored ``_build/`` directory.  Seeding, chaining
+and the EM flank corridor always run here: a failed build or load raises.
 """
 
 from __future__ import annotations
@@ -77,6 +77,10 @@ def get_lib():
             ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
             ctypes.c_double, f64p, i64p,
         ]
+        lib.seedchain_flank_corridor.restype = ctypes.c_int
+        lib.seedchain_flank_corridor.argtypes = [
+            i8p, ctypes.c_int64, f64p, f64p, f64p, f64p, f64p, f64p,
+        ]
         _lib = lib
         logger.info("native seedchain runtime loaded: %s", _SO)
     return _lib
@@ -136,3 +140,26 @@ def chain_dp(q_start, q_end, r_start, r_end, lengths, max_ref_gap,
         max_ref_gap, max_diag_drift, gap_open, gap_scale, score, parent,
     )
     return score, parent
+
+
+def flank_corridor(x, t, eg, entry):
+    """Exact pure-deletion corridor EM counts (align.flank).
+
+    Returns (trans (5,5), emis (5,16), logz).  When the corridor mass
+    underflows to exact zero (e.g. a zero gap-emission probability for a
+    base present in the flank) the result is zero counts and a -inf logz.
+    """
+    lib = get_lib()
+    x = np.ascontiguousarray(x, np.int8)
+    t = np.ascontiguousarray(t, np.float64)
+    eg = np.ascontiguousarray(eg, np.float64)
+    entry = np.ascontiguousarray(entry, np.float64)
+    trans = np.zeros(25, np.float64)
+    emis = np.zeros(80, np.float64)
+    logz = np.zeros(1, np.float64)
+    status = lib.seedchain_flank_corridor(
+        x, len(x), t, eg, entry, trans, emis, logz
+    )
+    if status != 0:
+        return np.zeros((5, 5)), np.zeros((5, 16)), float("-inf")
+    return trans.reshape(5, 5), emis.reshape(5, 16), float(logz[0])

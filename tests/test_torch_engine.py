@@ -208,22 +208,22 @@ def test_unported_paths_raise(mapped, tmp_path):
     from nanopore_tpu_torch.mapping.runner import run_mapper
     from nanopore_tpu_torch.ops import dispatch
 
-    for cls in (dispatch.PreparedViterbi, dispatch.PreparedEm,
-                dispatch.PreparedPosteriors):
-        with pytest.raises(NotImplementedError):
+    for cls, item in ((dispatch.PreparedViterbi, "A6"),
+                      (dispatch.PreparedPosteriors, "A3")):
+        with pytest.raises(NotImplementedError, match=item):
             cls()
     pairs = [(np.zeros(8, np.int8), np.zeros(8, np.int8), [(0, 8)])]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         dispatch.prepared_from_pairs(
             {"device": "cpu"}, pairs, mapped["engine"].params,
             prepared_cls=dispatch.PreparedViterbi,
         )
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A3"):
         dispatch.prepared_from_pairs(
-            {"device": "cpu", "emit_em": True}, pairs,
+            {"device": "cpu", "emit_gamma": True}, pairs,
             mapped["engine"].params,
         )
-    for name in ("LastParamsRealign", "CombinedMapper"):
+    for name in ("Viterbi", "ViterbiRealign"):
         with pytest.raises(NotImplementedError):
             run_mapper(name, mapped["fq"], "reads", mapped["fa"],
                        str(tmp_path / "x.sam"), device="cpu")
