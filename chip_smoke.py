@@ -6,7 +6,7 @@
 1. Prints the card (``nvidia-smi`` name and power limit), the torch
    version, and builds the kernels from ``nanopore_tpu_torch/csrc`` with
    nvcc (one process per source, in parallel; the realign source holds
-   the decode-mode and the EM-mode kernel).
+   the decode, EM, gamma, decode + gamma and exp modes).
 2. Makes two seeded workloads of 512 reads of 5 kb (5 % deletions, 10 %
    substitutions, both strands, origin and strand in each read name): on
    a 1 Mb random reference for the mapping path, and on a 48,502-bp one
@@ -52,8 +52,36 @@
    record per read (pos 0, cigar consuming the whole reference and read)
    and >= 99 % of them must start within 100 bp of their origin on the
    right strand.
-7. Prints one ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+7. Posterior path.  Mutates the second workload's reference at 1 %
+   (the pipeline's rate) with the port's ``mutate_reference_sequences``,
+   which writes the SNP truth ``<ref>_Index.txt``, and maps the same
+   reads (drawn from the unmutated sequence, ~53x) onto it twice:
+   ``LastParams`` (local records) and ``LastParamsRealign`` (chain and
+   realign at W = 32: global records).  Kernel rows, each kernel held
+   against its plain version on the first 64 reads of the path's own
+   batch and timed on the whole batch: the realign kernel's gamma mode
+   at AlignmentUncertainty's fullest batch (W = 64, model blasr_hmm_0)
+   and its decode + gamma mode at the rescore's fullest batch (W = 32),
+   gamma within 5e-5 (bit-identity expected), loglik within 1e-5 and
+   score within 1e-4 relative, direction codes identical on >= 99 % of
+   reads; its exp mode at the SNP caller's fullest batch (W = 64,
+   threshold 1e-3), retire rows and flush within 5e-5, and again on up to
+   3 reads of its longest bucket (the far-end windows of ROADMAP C6,
+   with the same finite pattern); every other bucket is timed at the
+   shape the SNP caller launches it; the pack kernel byte-identical on
+   each batch.  Then, each with every counter set to
+   0 just before it and read just after: ``AlignmentUncertainty`` on the
+   local SAM (the weighted average posterior finite, in (0, 1]);
+   ``MarginAlignSnpCaller`` on the realigned SAM (208 result nodes, every
+   full-coverage fScore of a call set over the posteriors, marginAlign*,
+   above 0.5; the 16 full-coverage fScores and, per model, the records
+   with non-finite expectations are printed; under the default model the
+   first 64 records of the exp check hold the plain version's
+   expectations, scattered on the host, within rtol 1e-3 and atol 2e-3);
+   ``realign_records(rescore=True)`` on 64 realigned records (every
+   score finite, in [0, 1]).  Each prints its wall time and launches.
+8. Prints the script's wall time, one ``{"kernels": [...]}`` line and,
+   last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, without a CUDA device or without the
@@ -79,6 +107,10 @@ READ_LEN = 5000
 W = 64
 W_REALIGN = 32  # the realign presets' band
 PLAIN_READS = 128  # reads the EM path's plain versions run on
+POST_PLAIN_READS = 64  # reads the posterior path's plain versions run on
+RESCORE_READS = 64  # records realign_records(rescore=True) rescores
+MUTATION_RATE = 0.01  # the pipeline's (analyses/mutate_reference.py)
+SNP_THRESHOLD = 1e-3  # analyses/snp_caller.py::POSTERIOR_THRESHOLD
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -91,6 +123,13 @@ REALIGN_OPS_PER_CELL = 56 + 79
 # rescale + 10 posterior + 55 transition products (5 + 25 multiplies, 25
 # adds) + 5 bin adds (one gamma into one bin for each state), no MEA
 REALIGN_EM_OPS_PER_CELL = 56 + 126
+# gamma mode: the same forward; backward 6 destination + 45 transition +
+# 5 rescale + 2 for the match state's posterior, no MEA (decode + gamma
+# needs no more than decode: the MEA reads that posterior too)
+REALIGN_GAMMA_OPS_PER_CELL = 56 + 58
+# exp mode: the gamma mode's backward + 3 to bin (a compare, a select,
+# one add of the gamma into its base's bin)
+REALIGN_EXP_OPS_PER_CELL = 56 + 61
 
 
 def fail(msg: str) -> None:
@@ -326,9 +365,11 @@ def chained_pairs(chained_sam: str, fa: str, pad: int):
     return pairs
 
 
-def device_batch(pairs, W_: int, k_max, dev, what: str):
-    """Pack a batch as ``prepared_from_pairs`` does, and hold the pack
-    kernel against its plain version at this shape: (xyc, m, n, prep)."""
+def device_batch(pairs, W_: int, k_max, dev, what: str,
+                 check_pack: bool = True):
+    """Pack a batch as ``prepared_from_pairs`` does, and (``check_pack``)
+    hold the pack kernel against its plain version at this shape:
+    (xyc, m, n, prep)."""
     import torch
 
     from nanopore_tpu_torch.ops.dispatch import _pairs_k_max
@@ -344,12 +385,36 @@ def device_batch(pairs, W_: int, k_max, dev, what: str):
     stream = torch.from_numpy(prep["stream"]).to(dev)
     initx = torch.from_numpy(prep["initx"]).to(dev)
     xyc = pack_xyc(stream, initx, m, n)
+    if not check_pack:
+        return xyc, m, n, prep
     xyc_p, plain_ms = timed(lambda: pack_xyc_plain(stream, initx, m, n))
     if not torch.equal(xyc, xyc_p):
         fail("pack kernel differs from its plain version on the %s" % what)
     print("K1 pack on the %s: B=%d k_pad=%d W=%d byte-identical (plain "
           "%.1f ms)" % (what, len(pairs), prep["k_pad"], W_, plain_ms))
     return xyc, m, n, prep
+
+
+def shape_buckets(pairs) -> dict:
+    """Indices of ``pairs`` by padded window shape (n_pad, m_pad), as the
+    realign stage and the analyses bucket them."""
+    from nanopore_tpu_torch.align.realign import _next_pow2
+
+    buckets = {}
+    for i, pair in enumerate(pairs):
+        buckets.setdefault(
+            (_next_pow2(len(pair[0])), _next_pow2(len(pair[1]))), []
+        ).append(i)
+    return buckets
+
+
+def fullest_bucket(pairs):
+    """The pairs of the fullest bucket of window shapes, its diagonal
+    count and every bucket's size."""
+    buckets = shape_buckets(pairs)
+    (n_pad, m_pad), best = max(buckets.items(), key=lambda kv: len(kv[1]))
+    return ([pairs[i] for i in best], n_pad + m_pad,
+            {k: len(v) for k, v in buckets.items()})
 
 
 def em_kernel_phase(chained_sam: str, fa: str, dev, res: dict) -> None:
@@ -360,7 +425,6 @@ def em_kernel_phase(chained_sam: str, fa: str, dev, res: dict) -> None:
 
     from nanopore_tpu_torch.align.em import representable
     from nanopore_tpu_torch.align.model import PairHmmModel
-    from nanopore_tpu_torch.align.realign import _next_pow2
     from nanopore_tpu_torch.ops import realign
     from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
     from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
@@ -442,18 +506,13 @@ def em_kernel_phase(chained_sam: str, fa: str, dev, res: dict) -> None:
     # ---- K1, K2 decode and K3 at W = 32: the realign stage's fullest
     # bucket of window shapes (windows of pad 128) ----
     t0 = time.perf_counter()
-    buckets = {}
-    for pair in chained_pairs(chained_sam, fa, 128):
-        buckets.setdefault(
-            (_next_pow2(len(pair[0])), _next_pow2(len(pair[1]))), []
-        ).append(pair)
-    (n_pad, m_pad), pairs = max(buckets.items(), key=lambda kv: len(kv[1]))
+    pairs, k_max, sizes = fullest_bucket(chained_pairs(chained_sam, fa, 128))
     pairs = pairs[:B]
     Br = len(pairs)
-    print("realign buckets: %s" % {k: len(v) for k, v in buckets.items()})
+    print("realign buckets: %s" % sizes)
     if Br < P:
         fail("the fullest realign bucket holds only %d reads" % Br)
-    xyc, m, n, prep = device_batch(pairs, W_REALIGN, n_pad + m_pad, dev,
+    xyc, m, n, prep = device_batch(pairs, W_REALIGN, k_max, dev,
                                    "realign batch")
     k_pad = prep["k_pad"]
     print("realign batch: B=%d K=%d k_pad=%d W=%d"
@@ -601,7 +660,8 @@ def em_path_phase(workdir: str, dev, counters, res: dict) -> dict:
           % (checks["records"], checks["origin_share"],
              snap.get("em_left_out", {"calls": 0})["calls"]))
     print("stage_stats_em " + json.dumps(snap))
-    if min(em_launches.values()) <= 0:
+    if min(em_launches[k] for k in ("pack", "realign", "realign_em",
+                                    "traceback")) <= 0:
         fail("a kernel of the EM path was not launched: %s" % em_launches)
     if checks["records"] != N_READS:
         fail("%d records for %d reads" % (checks["records"], N_READS))
@@ -609,6 +669,409 @@ def em_path_phase(workdir: str, dev, counters, res: dict) -> dict:
         fail("only %.4f of realigned reads at their origin"
              % checks["origin_share"])
     return em_launches
+
+
+def finite_err(out_k: dict, out_p: dict, keys, P: int, what: str) -> float:
+    """Largest difference of kernel and plain outputs over their first
+    ``P`` reads, on the entries finite in both; the two must agree on
+    which entries are finite."""
+    import torch
+
+    err = 0.0
+    for key in keys:
+        a, b = out_k[key][:P].float(), out_p[key].float()
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        if not torch.equal(fa, fb):
+            fail("%s: kernel and plain version differ in which %s entries "
+                 "are finite" % (what, key))
+        if bool(fa.any()):
+            err = max(err, float((a - b)[fa].abs().max()))
+    return err
+
+
+def rel_err(a, b) -> float:
+    return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+
+def posterior_kernel_phase(fq: str, local_sam: str, global_sam: str,
+                           fa: str, dev, res: dict) -> dict:
+    """The posterior path's kernel rows on its own batches: the gamma
+    mode at W = 64 (AlignmentUncertainty), the decode + gamma mode at
+    W = 32 (rescore), the exp mode at W = 64 (SNP caller), its far-end
+    buckets included.  Returns, for the SNP caller's first plain-checked
+    records, {record index: (window start, (n, 4) expectations)} from
+    the plain version under the default model."""
+    import torch
+
+    from nanopore_tpu_torch.align.model import PairHmmModel
+    from nanopore_tpu_torch.analyses.alignment_uncertainty import (
+        trained_hmm_path,
+    )
+    from nanopore_tpu_torch.analyses.common import ExperimentData
+    from nanopore_tpu_torch.io.encoding import encode
+    from nanopore_tpu_torch.io.sam import CIG
+    from nanopore_tpu_torch.ops import realign
+    from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
+    from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+    from nanopore_tpu_torch.ops.posteriors import posterior_expectations_fused
+    from nanopore_tpu_torch.ops.realign import (
+        realign_decode,
+        realign_decode_plain,
+        realign_exp,
+        realign_exp_plain,
+        realign_gamma,
+        realign_gamma_plain,
+    )
+    from nanopore_tpu_torch.align.realign import window_global_pair
+
+    B = preferred_realign_batch_size(None, dev)
+    P = POST_PLAIN_READS
+
+    def guide_of(rec):
+        return [(op, ln) for op, ln in rec.cigar
+                if op in (CIG.M, CIG.I, CIG.D)]
+
+    # ---- K2-gamma: AlignmentUncertainty's fullest batch, W = 64 ----
+    t0 = time.perf_counter()
+    data = ExperimentData(fq, fa, local_sam)
+    items = [(data.ref_codes[rec.rname][rec.pos:rec.aend], encode(rec.query),
+              guide_of(rec)) for rec in data.records]
+    pairs, k_max, sizes = fullest_bucket(items)
+    pairs = pairs[:B]
+    print("uncertainty buckets: %s" % sizes)
+    if len(pairs) < P:
+        fail("the fullest uncertainty bucket holds only %d reads" % len(pairs))
+    xyc, m, n, prep = device_batch(pairs, W, k_max, dev, "uncertainty batch")
+    Bu, k_pad = len(pairs), prep["k_pad"]
+    params0 = make_kernel_params(
+        PairHmmModel.load(trained_hmm_path("blasr_hmm_0.txt")))
+    xs, ms_, ns = (t[:P].contiguous() for t in (xyc, m, n))
+    out_k = realign_gamma(xyc, m, n, params0)
+    out_p, plain_ms = timed(lambda: realign_gamma_plain(xs, ms_, ns, params0))
+    err = finite_err(out_k, out_p, ("gamma", "loglik"), P, "K2-gamma")
+    same = torch.equal(out_k["gamma"][:P], out_p["gamma"])
+    ll_rel = rel_err(out_k["loglik"][:P], out_p["loglik"])
+    print("K2-gamma W=64: B=%d k_pad=%d; gamma max abs err %.3g (%s), loglik "
+          "max rel %.3g on %d reads (%.1f s wall)"
+          % (Bu, k_pad, err, "bit-identical" if same else "not identical",
+             ll_rel, P, time.perf_counter() - t0))
+    if err > 5e-5 or ll_rel > 1e-5:
+        fail("gamma mode outside tolerance")
+    ms = cuda_ms(lambda: realign_gamma(xyc, m, n, params0), 3)
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    bound, by = realign_bound(REALIGN_GAMMA_OPS_PER_CELL, W, need,
+                              Bu * k_pad * W + Bu * (k_pad + 1) * W * 4
+                              + 12 * Bu)
+    res["realign_gamma"] = dict(
+        per_batch=launches_per_call(realign.GAMMA_LAUNCHES,
+                                    lambda: realign_gamma(xyc, m, n, params0)),
+        ms=ms, plain_ms=plain_ms, plain_reads=P, reads=Bu, k_pad=k_pad,
+        max_abs_err=err, bound_ms=bound, bound_by=by,
+    )
+    print("K2-gamma W=64: %.3f ms per batch of %d, bound %.4f ms (%s), plain "
+          "%.1f ms on %d reads" % (ms, Bu, bound, by, plain_ms, P))
+    del xyc, out_k, out_p
+
+    # ---- K2 decode + gamma: the rescore's fullest batch, W = 32 ----
+    t0 = time.perf_counter()
+    pairs, k_max, sizes = fullest_bucket(chained_pairs(global_sam, fa, 128))
+    pairs = pairs[:B]
+    print("rescore buckets: %s" % sizes)
+    xyc, m, n, prep = device_batch(pairs, W_REALIGN, k_max, dev,
+                                   "rescore batch")
+    Br, k_pad = len(pairs), prep["k_pad"]
+    dflt = make_kernel_params(PairHmmModel.default())
+    xs, ms_, ns = (t[:P].contiguous() for t in (xyc, m, n))
+    out_k = realign_decode(xyc, m, n, dflt, emit_gamma=True)
+    out_p, plain_ms = timed(lambda: realign_decode_plain(
+        xs, ms_, ns, dflt, emit_gamma=True))
+    err = finite_err(out_k, out_p, ("gamma", "loglik", "score"), P,
+                     "K2 decode + gamma")
+    same = torch.equal(out_k["gamma"][:P], out_p["gamma"])
+    ll_rel = rel_err(out_k["loglik"][:P], out_p["loglik"])
+    sc_rel = rel_err(out_k["score"][:P], out_p["score"])
+    dirs_rows = int((out_k["dirs"][:P] != out_p["dirs"]).flatten(1).any(1)
+                    .sum())
+    print("K2 decode + gamma W=32: B=%d k_pad=%d; gamma max abs err %.3g "
+          "(%s), loglik max rel %.3g, score max rel %.3g, reads with "
+          "differing dirs %d of %d (%.1f s wall)"
+          % (Br, k_pad, err, "bit-identical" if same else "not identical",
+             ll_rel, sc_rel, dirs_rows, P, time.perf_counter() - t0))
+    if err > 5e-5 or ll_rel > 1e-5 or sc_rel > 1e-4 or dirs_rows > 0.01 * P:
+        fail("decode + gamma mode outside tolerance")
+    ms = cuda_ms(lambda: realign_decode(xyc, m, n, dflt, emit_gamma=True), 3)
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    bound, by = realign_bound(
+        REALIGN_OPS_PER_CELL, W_REALIGN, need,
+        Br * k_pad * W_REALIGN + Br * (k_pad + 1) * W_REALIGN * 5 + 16 * Br)
+    res["realign_decode_gamma"] = dict(
+        per_batch=launches_per_call(
+            realign.DECODE_GAMMA_LAUNCHES,
+            lambda: realign_decode(xyc, m, n, dflt, emit_gamma=True)),
+        ms=ms, plain_ms=plain_ms, plain_reads=P, reads=Br, k_pad=k_pad,
+        max_abs_err=err, bound_ms=bound, bound_by=by,
+    )
+    print("K2 decode + gamma W=32: %.3f ms per batch of %d, bound %.4f ms "
+          "(%s), plain %.1f ms on %d reads" % (ms, Br, bound, by, plain_ms, P))
+    del xyc, out_k, out_p
+
+    # ---- K2-exp: the SNP caller's fullest batch, W = 64 ----
+    t0 = time.perf_counter()
+    data = ExperimentData(fq, fa, global_sam)
+    items, starts = [], []
+    for rec in data.records:
+        xw, guide, j0, _ = window_global_pair(data.ref_codes[rec.rname],
+                                              guide_of(rec))
+        items.append((xw, encode(rec.query), guide))
+        starts.append(j0)
+    buckets = shape_buckets(items)
+    print("SNP caller buckets: %s"
+          % {k: len(v) for k, v in buckets.items()})
+    main_key = max(buckets, key=lambda k: len(buckets[k]))
+    sel = buckets[main_key][:B]
+    pairs = [items[i] for i in sel]
+    xyc, m, n, prep = device_batch(pairs, W, sum(main_key), dev,
+                                   "SNP caller batch")
+    Bs, k_pad = len(pairs), prep["k_pad"]
+    xs, ms_, ns = (t[:P].contiguous() for t in (xyc, m, n))
+    out_k = realign_exp(xyc, m, n, dflt, SNP_THRESHOLD)
+    out_p, plain_ms = timed(lambda: realign_exp_plain(
+        xs, ms_, ns, dflt, SNP_THRESHOLD))
+    err = finite_err(out_k, out_p, ("ret", "flush", "loglik"), P, "K2-exp")
+    same = all(torch.equal(out_k[k][:P], out_p[k]) for k in ("ret", "flush"))
+    ll_rel = rel_err(out_k["loglik"][:P], out_p["loglik"])
+    print("K2-exp W=64: B=%d k_pad=%d; retire rows and flush max abs err "
+          "%.3g (%s), loglik max rel %.3g on %d reads (%.1f s wall)"
+          % (Bs, k_pad, err, "bit-identical" if same else "not identical",
+             ll_rel, P, time.perf_counter() - t0))
+    if err > 5e-5 or ll_rel > 1e-5:
+        fail("exp mode outside tolerance")
+    ms = cuda_ms(lambda: realign_exp(xyc, m, n, dflt, SNP_THRESHOLD), 3)
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    bound, by = realign_bound(
+        REALIGN_EXP_OPS_PER_CELL, W, need,
+        Bs * k_pad * W + Bs * (k_pad + 1) * 16 + Bs * 4 * W * 4 + 12 * Bs)
+    res["realign_exp"] = dict(
+        per_batch=launches_per_call(realign.EXP_LAUNCHES, lambda: realign_exp(
+            xyc, m, n, dflt, SNP_THRESHOLD)),
+        ms=ms, plain_ms=plain_ms, plain_reads=P, reads=Bs, k_pad=k_pad,
+        max_abs_err=err, bound_ms=bound, bound_by=by,
+    )
+    print("K2-exp W=64: %.3f ms per batch of %d, bound %.4f ms (%s), plain "
+          "%.1f ms on %d reads" % (ms, Bs, bound, by, plain_ms, P))
+    # what the SNP caller's card route must return for these records
+    # under the default model: the plain streams, pulled and scattered
+    # into reference coordinates on the host
+    exps = posterior_expectations_fused(
+        out_p["ret"].cpu(), out_p["flush"].cpu(), prep["offsets"][:P],
+        prep["n"][:P], W)
+    glue_want = {sel[b]: (starts[sel[b]], e) for b, e in enumerate(exps)}
+    del xyc, out_k, out_p
+
+    # ---- K2-exp on the far-end windows (ROADMAP C6): every other bucket
+    # timed at the shape the SNP caller launches it, the longest held
+    # against the plain version on up to 3 of its reads (and the pack
+    # kernel on all of them) ----
+    far_ms = {}
+    longest = max(buckets, key=sum)
+    for key in sorted(buckets, key=sum):
+        if key == main_key:
+            continue
+        lp = [items[i] for i in buckets[key][:B]]
+        xl, ml, nl, pl = device_batch(lp, W, sum(key), dev,
+                                      "SNP caller bucket %s" % (key,),
+                                      check_pack=key == longest)
+        far_ms["%dx%d" % key] = cuda_ms(
+            lambda: realign_exp(xl, ml, nl, dflt, SNP_THRESHOLD), 3)
+        print("K2-exp W=64 bucket %s: %d reads at k_pad %d, %.3f ms per "
+              "launch" % (key, len(lp), pl["k_pad"], far_ms["%dx%d" % key]))
+        if key == longest:
+            kept = (lp, xl, ml, nl, pl)
+    res["realign_exp"]["far_end_ms"] = far_ms
+    res["realign_exp"]["far_end_ms_total"] = sum(far_ms.values())
+    if longest != main_key:
+        t0 = time.perf_counter()
+        lp, xl, ml, nl, pl = kept
+        P3 = min(3, len(lp))
+        out_k = realign_exp(xl, ml, nl, dflt, SNP_THRESHOLD)
+        out_p = realign_exp_plain(*(t[:P3].contiguous() for t in (xl, ml, nl)),
+                                  dflt, SNP_THRESHOLD)
+        err = finite_err(out_k, out_p, ("ret", "flush", "loglik"), P3,
+                         "K2-exp on the longest windows")
+        same = all(torch.equal(out_k[k][:P3], out_p[k])
+                   for k in ("ret", "flush"))
+        nonfin = int((~torch.isfinite(out_k["ret"])).flatten(1).any(1).sum())
+        print("K2-exp W=64 longest bucket %s: %d of its %d reads, windows "
+              "%s, k_pad %d; retire rows and flush max abs err %.3g (%s), "
+              "reads of the bucket with non-finite retire rows %d (%.1f s "
+              "wall)" % (longest, P3, len(lp), [len(p[0]) for p in lp[:P3]],
+                         pl["k_pad"], err,
+                         "bit-identical" if same else "not identical",
+                         nonfin, time.perf_counter() - t0))
+        if err > 5e-5:
+            fail("exp mode outside tolerance on the longest windows")
+        res["realign_exp"]["max_abs_err_longest"] = err
+        res["realign_exp"]["max_abs_err"] = max(
+            res["realign_exp"]["max_abs_err"], err)
+    return glue_want
+
+
+def posterior_path_phase(workdir: str, dev, counters, res: dict) -> dict:
+    """Kernel rows and the three posterior entry points on the second
+    workload's reads over a mutated reference; returns each run's launch
+    counts."""
+    import shutil
+    import xml.etree.ElementTree as ET
+
+    import torch
+
+    from nanopore_tpu_torch.align.realign import realign_records
+    from nanopore_tpu_torch.analyses import (
+        AlignmentUncertainty,
+        MarginAlignSnpCaller,
+    )
+    from nanopore_tpu_torch.analyses.mutate_reference import (
+        mutate_reference_sequences,
+    )
+    from nanopore_tpu_torch.analyses.snp_caller import HMM_TYPES
+    from nanopore_tpu_torch.io.sam import SamReader
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.mapping.runner import run_mapper
+
+    em_dir = os.path.join(workdir, "em")
+    post_dir = os.path.join(workdir, "post")
+    os.makedirs(post_dir, exist_ok=True)
+    ref = os.path.join(post_dir, "ref.fa")
+    shutil.copy(os.path.join(em_dir, "ref.fa"), ref)
+    fq = os.path.join(em_dir, "reads.fq")
+    _, mut_fa = mutate_reference_sequences([ref], rates=(MUTATION_RATE,),
+                                           seed=SEED)
+    local_sam = os.path.join(post_dir, "local.sam")
+    global_sam = os.path.join(post_dir, "realigned.sam")
+    t0 = time.perf_counter()
+    run_mapper("LastParams", fq, "reads", mut_fa, local_sam, device=dev)
+    run_mapper("LastParamsRealign", fq, "reads", mut_fa, global_sam,
+               device=dev)
+    print("posterior path inputs: %s, LastParams and LastParamsRealign "
+          "SAMs in %.1f s" % (os.path.basename(mut_fa),
+                              time.perf_counter() - t0))
+    glue_want = posterior_kernel_phase(fq, local_sam, global_sam, mut_fa,
+                                       dev, res)
+
+    def drive(what, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.name: c.count for c in counters}
+        print("%s: %.3f s; peak device memory %.3f GB; launches %s"
+              % (what, wall, torch.cuda.max_memory_allocated(dev) / 1e9,
+                 launches))
+        return out, launches
+
+    runs = {}
+    # ---- AlignmentUncertainty on the local records ----
+    au_dir = os.path.join(post_dir, "uncertainty")
+    os.makedirs(au_dir, exist_ok=True)
+    _, runs["uncertainty"] = drive("AlignmentUncertainty", lambda: (
+        AlignmentUncertainty(fq, "reads", mut_fa, local_sam, au_dir,
+                             device=dev).execute()))
+    root = ET.parse(os.path.join(au_dir, "alignmentUncertainty.xml")).getroot()
+    avg = float(root.attrib["averagePosteriorMatchProbability"])
+    per_read = [float(v) for v in root.attrib[
+        "averagePosteriorMatchProbabilitesPerRead"].split(",")]
+    print("AlignmentUncertainty: %d records, weighted average posterior "
+          "match probability %r, per-read mean %r, non-finite per-read "
+          "averages %d" % (len(per_read), avg, float(np.nanmean(per_read)),
+                           int((~np.isfinite(per_read)).sum())))
+    if not (np.isfinite(avg) and 0.0 < avg <= 1.0):
+        fail("AlignmentUncertainty: weighted average %r" % avg)
+
+    # ---- the SNP caller on the realigned (global) records ----
+    nonfinite, glue = {}, {}
+
+    class Counting(MarginAlignSnpCaller):
+        def _posteriors_for_hmm(self, data, model):
+            out = super()._posteriors_for_hmm(data, model)
+            i = len(nonfinite)
+            nonfinite[i] = sum(not np.isfinite(e).all() for e in out)
+            if HMM_TYPES[i] == "cactus":  # the default model
+                glue["err"], glue["ok"] = glue_err(out, glue_want)
+            return out
+
+    snp_dir = os.path.join(post_dir, "snp")
+    os.makedirs(snp_dir, exist_ok=True)
+    _, runs["snp_caller"] = drive("MarginAlignSnpCaller", lambda: (
+        Counting(fq, "reads", mut_fa, global_sam, snp_dir,
+                 device=dev).execute()))
+    nodes = list(ET.parse(os.path.join(
+        snp_dir, "marginaliseConsensus.xml")).getroot())
+    full = {nd.tag: float(nd.attrib["fScore"]) for nd in nodes
+            if nd.attrib["coverage"] == "1000000"}
+    print("MarginAlignSnpCaller: %d nodes, %s held out; full-coverage "
+          "fScores %s; records with non-finite expectations per model %s; "
+          "expectations of %d records under the default model against the "
+          "plain version's, max abs err %.3g"
+          % (len(nodes), nodes[0].attrib["totalHeldOut"] if nodes else "?",
+             json.dumps(full, sort_keys=True),
+             {HMM_TYPES[i]: c for i, c in nonfinite.items()},
+             len(glue_want), glue["err"]))
+    if len(nodes) != 208:
+        fail("SNP caller wrote %d nodes, not 208" % len(nodes))
+    # every call set over the posteriors (marginAlign*) must clear the
+    # JAX test's bar on its own: the frequency call sets do not read them
+    margin = [f for tag, f in full.items() if tag.startswith("marginAlign")]
+    if len(full) != 16 or len(margin) != 8 or min(margin) <= 0.5:
+        fail("SNP caller: full-coverage fScores %r" % full)
+    if not glue["ok"]:
+        fail("SNP caller's expectations differ from the plain version's")
+
+    # ---- realign_records(rescore=True) on realigned records ----
+    records = list(SamReader(global_sam).mapped())[:RESCORE_READS]
+    ref_seqs = read_fasta_dict(mut_fa)
+    scores, runs["rescore"] = drive(
+        "realign_records(rescore=True)", lambda: realign_records(
+            records, ref_seqs, band_width=W_REALIGN, rescore=True,
+            device=dev))
+    scores = np.asarray(scores)
+    print("rescore: %d records, scores min %r mean %r max %r"
+          % (len(scores), float(scores.min()), float(scores.mean()),
+             float(scores.max())))
+    if len(scores) != RESCORE_READS or not (
+            np.isfinite(scores).all() and (scores >= 0).all()
+            and (scores <= 1).all()):
+        fail("rescore scores outside [0, 1] or non-finite")
+
+    need = {"uncertainty": ("pack", "realign_gamma"),
+            "snp_caller": ("pack", "realign_exp"),
+            "rescore": ("pack", "realign_decode_gamma", "traceback")}
+    for what, names in need.items():
+        if min(runs[what][k] for k in names) <= 0:
+            fail("a kernel of the %s path was not launched: %s"
+                 % (what, runs[what]))
+    return runs
+
+
+def glue_err(out: list, want: dict) -> tuple:
+    """(largest difference, within the CPU tests' rtol 1e-3 and atol
+    2e-3) of the SNP caller's (n_ref, 4) matrices from ``want``
+    ({record: (window start, window matrix)}, zero outside the window);
+    the two must agree on which entries are finite."""
+    err, ok = 0.0, True
+    for idx, (j0, e) in want.items():
+        w = np.zeros_like(out[idx])
+        w[j0:j0 + len(e)] = e
+        fin = np.isfinite(w)
+        if not np.array_equal(fin, np.isfinite(out[idx])):
+            return float("inf"), False
+        if fin.any():
+            err = max(err, float(np.abs(out[idx] - w)[fin].max()))
+        ok = ok and np.allclose(out[idx][fin], w[fin], rtol=1e-3, atol=2e-3)
+    return err, ok
 
 
 def origin_share(sam_path: str) -> float:
@@ -631,6 +1094,7 @@ def origin_share(sam_path: str) -> float:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -672,7 +1136,8 @@ def main() -> int:
     sam = os.path.join(workdir, "out.sam")
     run_mapper(spec, fq, "reads", fa, sam, device=dev)
     counters = (pack.LAUNCHES, realign.LAUNCHES, realign.EM_LAUNCHES,
-                traceback.LAUNCHES)
+                realign.GAMMA_LAUNCHES, realign.DECODE_GAMMA_LAUNCHES,
+                realign.EXP_LAUNCHES, traceback.LAUNCHES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters:
@@ -687,13 +1152,14 @@ def main() -> int:
           "memory %.3f GB; primaries at origin %.4f; launches %s"
           % (N_READS, wall, N_READS / wall, peak / 1e9, share, launches))
     print("stage_stats " + json.dumps(warm.stage_stats.snapshot()))
-    # the mapping path runs every kernel but the EM mode
-    if min(v for k, v in launches.items() if k != "realign_em") <= 0:
+    # the mapping path runs pack, the decode mode and the walker
+    if min(launches[k] for k in ("pack", "realign", "traceback")) <= 0:
         fail("a kernel of the main path was not launched: %s" % launches)
     if share < 0.99:
         fail("only %.4f of primaries at their origin" % share)
 
     em_launches = em_path_phase(workdir, dev, counters, res)
+    post_launches = posterior_path_phase(workdir, dev, counters, res)
 
     meta = {
         "pack": ("csrc/pack.cu", "nanopore_tpu/ops/pack_pallas.py:61"),
@@ -703,6 +1169,13 @@ def main() -> int:
                       "nanopore_tpu/ops/traceback_pallas.py:44"),
         "realign_em": ("csrc/realign.cu",
                        "nanopore_tpu/ops/pairhmm_pallas_realign.py:69"),
+        "realign_gamma": ("csrc/realign.cu",
+                          "nanopore_tpu/ops/pairhmm_pallas_realign.py:69"),
+        "realign_decode_gamma": (
+            "csrc/realign.cu",
+            "nanopore_tpu/ops/pairhmm_pallas_realign.py:69"),
+        "realign_exp": ("csrc/realign.cu",
+                        "nanopore_tpu/ops/pairhmm_pallas_realign.py:69"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -710,9 +1183,10 @@ def main() -> int:
         row = {
             "name": name, "route": "cuda",
             "source": "nanopore_tpu_torch/" + src, "replaces": replaces,
-            # launches in the two warm runs together; each run's count,
+            # launches in the driven runs together; each run's count,
             # read from counters set to 0 just before it, follows
-            "launches": launches[name] + em_launches[name],
+            "launches": launches[name] + em_launches[name] + sum(
+                run[name] for run in post_launches.values()),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -720,9 +1194,12 @@ def main() -> int:
             "launches_map_path": launches[name],
             "launches_em_path": em_launches[name],
         }
+        for what, run in post_launches.items():
+            row["launches_%s_path" % what] = run[name]
         row.update({k: v for k, v in r.items() if k not in row
                     and k != "per_batch"})
         kernels.append(row)
+    print("chip_smoke wall: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

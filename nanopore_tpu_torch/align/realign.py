@@ -10,9 +10,11 @@ order, we chain, batch all records through the fused realign kernel in
 decode mode and the MEA walker on the device, and rewrite cigars in
 order — no process fan-out, no temp-file relay.
 
-``rescore=True`` (the posterior rescore of the new alignments) needs the
-kernel's gamma output and is not ported yet (ROADMAP A3); batches run on
-one device (the round-robin over local cards is ROADMAP A5).
+``rescore=True`` also returns each record's average posterior match
+probability along its new alignment: the decode launch writes the
+gamma_match band too (the kernel's decode + gamma mode) and the rescore
+is a reduction on the device.  Batches run on one device (the
+round-robin over local cards is ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from nanopore_tpu_torch.ops.dispatch import (
     prepared_from_pairs,
 )
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+from nanopore_tpu_torch.ops.posteriors import rescore_from_post
 from nanopore_tpu_torch.ops.realign import max_workspace_k
 from nanopore_tpu_torch.runtime.prefetch import prefetched_map
 
@@ -242,18 +245,16 @@ def realign_records(
     (:func:`split_window_pair`); ``None`` means the largest count for
     which one read's forward-state workspace fits a launch
     (ops.realign.max_workspace_k).  Runs on the card unless
-    ``device="cpu"``.  Returns an empty list (the per-record posterior
-    scores of ``rescore=True`` are not ported yet).
+    ``device="cpu"``.  Returns the per-record average posterior match
+    probability of the NEW alignment when ``rescore`` (the
+    --rescoreByPosteriorProbIgnoringGaps analogue; records are not split
+    then, as in the JAX package), else an empty list.
     """
-    if rescore:
-        raise NotImplementedError(
-            "rescore=True needs the realign kernel's gamma output, which "
-            "is not ported yet: ROADMAP A3"
-        )
     device = resolve_device(device)
     params = make_kernel_params(model or PairHmmModel.default())
     batch_size = preferred_realign_batch_size(batch_size, device)
-    split_budget = split_k or max_workspace_k(band_width)
+    scores: list[float] = [float("nan")] * len(records)
+    split_budget = None if rescore else split_k or max_workspace_k(band_width)
 
     # window each global record to its aligned ref span (the banded
     # --splitMatrixBiggerThanThis analogue: flanking pure-D runs cost a
@@ -284,7 +285,7 @@ def realign_records(
         )
         windows.append((j0, j1, guide))
         m = len(rec.seq)
-        if (j1 - j0) + m > split_budget:
+        if split_budget is not None and (j1 - j0) + m > split_budget:
             segs = split_window_pair(
                 ref_codes[rec.rname][j0:j1], enc_read(idx), guide,
                 split_budget,
@@ -325,6 +326,7 @@ def realign_records(
             {
                 "gap_gamma": gap_gamma,
                 "match_gamma": match_gamma,
+                "emit_gamma": rescore,
                 "device": device,
             },
             pairs,
@@ -364,12 +366,19 @@ def realign_records(
 
     for sub, prepared in prefetched_map(build, batch_descriptors(), depth=2):
         # the walk runs on the device; only op codes and logliks cross
-        _, cigars, _ = prepared.decode()
+        _, cigars, out = prepared.decode()
+        if rescore:
+            # the new window cigars over the same launch's gamma band;
+            # only (B,) totals cross
+            res = rescore_from_post(out, prepared.batch.offsets, cigars,
+                                    band_width)
         for b, u in enumerate(sub):
             finish(units[u][0], units[u][1], cigars[b])
+            if rescore:
+                scores[units[u][0]] = res[b]
     if pending:
         raise RuntimeError("split parts left undecoded: %s" % sorted(pending))
-    return []
+    return scores if rescore else []
 
 
 def realign_sam_file(

@@ -1,16 +1,28 @@
 // Fused banded pair-HMM realign: forward and backward in one kernel,
-// then either the reverse MEA (decode mode) or the Baum-Welch sums (EM
-// mode).
+// then the reverse MEA (decode mode), the Baum-Welch sums (EM mode), the
+// gamma_match band (gamma modes) or the SNP caller's expectation retire
+// stream (exp mode).
 //
 // Replaces nanopore_tpu/ops/pairhmm_pallas_realign.py::_realign_kernel
-// in its store_fwd mode, with emit_gamma=False and emit_exp=False:
-//   decode mode (emit_em=False): per read loglik, the MEA score and
+// in its store_fwd mode, one template mode per set of outputs:
+//   DECODE (emit_em=False): per read loglik, the MEA score and
 //     (k_pad + 1) x W direction codes (0 diag, 1 del, 2 ins, 3 none);
-//   EM mode (emit_em=True): per read loglik, trans (5 x 5) and emis
-//     (5 x 16) expected counts.  The TPU kernel still runs the MEA DP and
-//     writes the direction codes in this mode; here the EM mode does
-//     neither, because the E-step has no use for (k_pad + 1) x W
-//     direction bytes per read per iteration.
+//   EM (emit_em=True): per read loglik, trans (5 x 5) and emis (5 x 16)
+//     expected counts.  The TPU kernel still runs the MEA DP and writes
+//     the direction codes in this mode; here the EM mode does neither,
+//     because the E-step has no use for (k_pad + 1) x W direction bytes
+//     per read per iteration;
+//   DECODE_GAMMA (emit_gamma=True): DECODE plus the gamma_match band,
+//     the posterior of the match state at every band cell of every
+//     diagonal, (k_pad + 1) x W f32 per read, row k = diagonal k (the
+//     posterior rescore of realigned cigars);
+//   GAMMA (emit_gamma=True, nothing decoded): loglik and the gamma_match
+//     band only, with no MEA DP and no direction codes
+//     (AlignmentUncertainty);
+//   EXP (emit_exp=True): loglik, a (k_pad + 1) x 4 f32 retire stream and
+//     a (4, W) f32 flush of the thresholded gamma_match binned by read
+//     base (the SNP caller's per-reference-position expected base
+//     counts), with no MEA DP and no direction codes.
 //
 // Phase A (forward) runs the five-state scaled recursion along the
 // anti-diagonals, rescaling every 2nd diagonal by the band maximum, with
@@ -48,6 +60,28 @@
 // nowhere.  The backward then does about 79 - 13 + 5 + 50 + 32 = 153 f32
 // operations per cell against decode mode's 79 (no MEA, 5 + 50 for the
 // transition products, one add per bin).
+//
+// The gamma modes store gamma[0] of every band cell of every diagonal,
+// diagonal 0 included: the very value the MEA reads, under the same
+// g-factor, 3e37 clamp and rescale cadence.  A lane stores its C cells
+// as one 4 C-byte word per diagonal, so a warp writes one W * 4-byte row;
+// the band is (B, k_pad + 1, W) batch-major, (k_pad + 1) * W * 4 bytes a
+// read, and lives beside the forward-state workspace (the wrapper's
+// sub-batches share one workspace; the band is the whole batch's).
+//
+// The exp mode follows the band down the diagonals with 4 accumulators
+// per band cell (4 C registers a lane), in diagonal k's band coordinates.
+// On the k+1 -> k step it first emits column W - 1 (the last lane's last
+// cell, reference position o[k+1] + W - 2) times d1[k+1] as retire row k,
+// then moves every column up by d1[k+1] (the band shift's warp shuffle,
+// as a + d1 * (a[w-1] - a) with 0 shifted in), then adds gamma[0] where
+// it is above the threshold, times the one-hot of the cell's read base
+// (code bits 0-2: 0-3 bin, N = 4 and the sentinel 5 nowhere; diagonal 0
+// holds sentinels only).  After diagonal 0 the surviving columns are the
+// flush (positions w - 1).  Blend, threshold and binning are written as
+// the TPU kernel writes them (a multiply by a 0/1 factor), so a
+// non-finite gamma spreads as it does there.  The threshold is the 94th
+// table entry, passed by value.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,7 +91,10 @@ constexpr int NS = 5;
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 2;  // reads per block
-constexpr int NTAB = 93;  // tf 25 | emf 36 | egf 30 | gap gamma | match gamma
+// tf 25 | emf 36 | egf 30 | gap gamma | match gamma | exp threshold
+constexpr int NTAB = 94;
+// kernel modes (the ``mode`` argument of np_realign_launch)
+constexpr int DECODE = 0, EM_MODE = 1, GAMMA = 2, DECODE_GAMMA = 3, EXP = 4;
 
 struct Tables {
   float v[NTAB];
@@ -198,17 +235,24 @@ __device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
   for (int i = 0; i < N; ++i) acc[i] = acc[i] + (bin == i ? value : 0.f);
 }
 
-// EM = false: `out1` is score (B,), `out2` the direction codes
-// (B, k_pad + 1, W) int8.  EM = true: `out1` is trans (B, 25), `out2`
-// emis (B, 80) f32.
-template <int C, bool EM>
+// Outputs by mode:
+//   DECODE, DECODE_GAMMA: `out1` score (B,) f32, `out2` direction codes
+//     (B, k_pad + 1, W) int8;
+//   EM: `out1` trans (B, 25), `out2` emis (B, 80) f32;
+//   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32;
+//   GAMMA, DECODE_GAMMA: `out3` gamma_match (B, k_pad + 1, W) f32.
+template <int C, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
                const int32_t* __restrict__ n, int nreads, int k_pad,
                float* __restrict__ fst, float* __restrict__ sfi,
                float* __restrict__ loglik, float* __restrict__ out1,
-               void* __restrict__ out2) {
+               void* __restrict__ out2, float* __restrict__ out3) {
   constexpr int W = 32 * C;
+  constexpr bool EM = MODE == EM_MODE;
+  constexpr bool MEA = MODE == DECODE || MODE == DECODE_GAMMA;
+  constexpr bool GAM = MODE == GAMMA || MODE == DECODE_GAMMA;
+  constexpr bool XP = MODE == EXP;
   __shared__ float sm[NTAB];
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
   __syncthreads();
@@ -220,6 +264,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   const float* egf = sm + 61;
   const float gg = sm[91];
   const float mg = sm[92];
+  const float thr = sm[93];
   const int w0 = lane * C;
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;    // row k-1: diagonal k
   float* fs = fst + (size_t)r * k_pad * NS * W;        // row k-1: diagonal k
@@ -315,6 +360,12 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   float em[EM ? 57 : 1];
 #pragma unroll
   for (int i = 0; i < (EM ? 57 : 1); ++i) em[i] = 0.f;
+  // exp mode: expected counts of bases 0-3 at this lane's band columns
+  float ex[XP ? 4 : 1][C];
+#pragma unroll
+  for (int i = 0; i < (XP ? 4 : 1); ++i)
+#pragma unroll
+    for (int c = 0; c < C; ++c) ex[i][c] = 0.f;
   float fh[NS][C];
   load_states<C>(fs + (size_t)(k_pad - 1) * NS * W, w0, fh);
   for (int k = k_pad; k >= 0; --k) {
@@ -382,7 +433,41 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
 #pragma unroll
       for (int s = 0; s < NS; ++s) gam[s][c] = (fh[s][c] * nw[s][c]) * g_k;
 
-    float new_u[C], g_m[C], g_d[C], g_i[C];  // MEA carry (decode mode)
+    if constexpr (GAM) {  // row k of the read's gamma_match band
+      float* row = out3 + ((size_t)r * (k_pad + 1) + k) * W + w0;
+      if constexpr (C == 2) {
+        *reinterpret_cast<float2*>(row) = make_float2(gam[0][0], gam[0][C - 1]);
+      } else {
+        *row = gam[0][0];
+      }
+    }
+    if constexpr (XP) {
+      // retire column W - 1 on the k+1 -> k shift, move the band up by
+      // d1[k+1], then bin diagonal k's thresholded gamma_match
+      const float d1f = (float)d1n1;
+      if (lane == 31) {
+        *reinterpret_cast<float4*>(out1 + ((size_t)r * (k_pad + 1) + k) * 4) =
+            make_float4(ex[0][C - 1] * d1f, ex[1][C - 1] * d1f, ex[2][C - 1] * d1f,
+                        ex[3][C - 1] * d1f);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float sh[C];
+        shift<C>(ex[i], sh, -1, 0.f, lane);
+#pragma unroll
+        for (int c = 0; c < C; ++c) ex[i][c] = ex[i][c] + d1f * (sh[c] - ex[i][c]);
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float g0 = gam[0][c];
+        const float gmz = g0 * (g0 > thr ? 1.f : 0.f);
+        const int y = k >= 1 ? (ck[c] & 7) : 5;  // diagonal 0: sentinels
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ex[i][c] = ex[i][c] + gmz * (y == i ? 1.f : 0.f);
+      }
+    }
+
+    float new_u[C], g_m[C], g_d[C], g_i[C];  // MEA carry (decode modes)
     if constexpr (EM) {
       // xi_k[s][t] without its tf factor.  dest is the value before the
       // end-cell overwrite, and g_next is 0 until the read's own end
@@ -408,7 +493,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
         bin_add<4>(em + 49, yb, gam[2][c]);
         bin_add<4>(em + 53, yb, gam[4][c]);
       }
-    } else {
+    } else if constexpr (MEA) {
       float vd[C], vl[C], vu[C], td[C], tl[C], tu[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
@@ -442,6 +527,8 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
         if (lane == 0) out1[r] = new_u[0];  // the MEA score
         break;
       }
+    } else if (k == 0) {
+      break;
     }
 
     // carry down to diagonal k - 1
@@ -454,7 +541,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
         b1[s][c] = nw[s][c];
         fh[s][c] = fnx[s][c];
       }
-      if constexpr (!EM) {
+      if constexpr (MEA) {
         u2[c] = u1[c];
         u1[c] = new_u[c];
         gm2[c] = gm1[c];
@@ -477,6 +564,17 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
     d1n1 = (top >> 6) & 1;
   }
 
+  if constexpr (XP) {  // the flush: the columns left after diagonal 0
+    float* fl = (float*)out2 + (size_t)r * 4 * W + w0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (C == 2) {
+        *reinterpret_cast<float2*>(fl + i * W) = make_float2(ex[i][0], ex[i][C - 1]);
+      } else {
+        fl[i * W] = ex[i][0];
+      }
+    }
+  }
   if constexpr (EM) {
     // sum over the band, then lay the counts out as trans [from][to] and
     // emis [state][x * 4 + y], each gap count spread over the base its
@@ -506,29 +604,36 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   }
 }
 
-template <bool EM>
-int launch(const float* tables, const void* xyc, const void* m, const void* n,
-           int nreads, int k_pad, int W, void* fst, void* sfi, void* loglik,
-           void* out1, void* out2, void* stream) {
-  if (nreads <= 0 || k_pad < 2 || k_pad % 2 != 0) return (int)cudaErrorInvalidValue;
-  Tables t;
-  for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
-  const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint8_t* x = (const uint8_t*)xyc;
-  const int32_t* mm = (const int32_t*)m;
-  const int32_t* nn = (const int32_t*)n;
-  if (W == 64) {
-    realign_kernel<2, EM><<<grid, block, 0, s>>>(t, x, mm, nn, nreads, k_pad, (float*)fst,
-                                                 (float*)sfi, (float*)loglik,
-                                                 (float*)out1, out2);
-  } else if (W == 32) {
-    realign_kernel<1, EM><<<grid, block, 0, s>>>(t, x, mm, nn, nreads, k_pad, (float*)fst,
-                                                 (float*)sfi, (float*)loglik,
-                                                 (float*)out1, out2);
-  } else {
-    return (int)cudaErrorInvalidValue;
+template <int C, int MODE>
+void launch_mode(const Tables& t, dim3 grid, dim3 block, cudaStream_t s,
+                 const void* xyc, const void* m, const void* n, int nreads,
+                 int k_pad, void* fst, void* sfi, void* loglik, void* out1,
+                 void* out2, void* out3) {
+  realign_kernel<C, MODE><<<grid, block, 0, s>>>(
+      t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad,
+      (float*)fst, (float*)sfi, (float*)loglik, (float*)out1, out2, (float*)out3);
+}
+
+template <int C>
+int launch_width(int mode, const Tables& t, dim3 grid, dim3 block, cudaStream_t s,
+                 const void* xyc, const void* m, const void* n, int nreads,
+                 int k_pad, void* fst, void* sfi, void* loglik, void* out1,
+                 void* out2, void* out3) {
+#define NP_MODE(M)                                                                \
+  case M:                                                                         \
+    launch_mode<C, M>(t, grid, block, s, xyc, m, n, nreads, k_pad, fst, sfi,      \
+                      loglik, out1, out2, out3);                                  \
+    break;
+  switch (mode) {
+    NP_MODE(DECODE)
+    NP_MODE(EM_MODE)
+    NP_MODE(GAMMA)
+    NP_MODE(DECODE_GAMMA)
+    NP_MODE(EXP)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
+#undef NP_MODE
   return (int)cudaGetLastError();
 }
 
@@ -538,25 +643,26 @@ extern "C" const char* np_cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-// `tables` is host memory: 91 model floats, then gap and match gamma.
-extern "C" int np_realign_launch(const float* tables, const void* xyc,
+// Launch `mode` (DECODE 0, EM 1, GAMMA 2, DECODE_GAMMA 3, EXP 4) on
+// `stream`; returns cudaGetLastError() (0 on success).  `tables` is host
+// memory: 91 model floats, then gap gamma, match gamma and the exp
+// threshold (each mode reads what it uses).  The outputs by mode are
+// those of realign_kernel; a pointer a mode does not write may be null.
+extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
                                  const void* m, const void* n, int nreads,
                                  int k_pad, int W, void* fst, void* sfi,
-                                 void* loglik, void* score, void* dirs,
-                                 void* stream) {
-  return launch<false>(tables, xyc, m, n, nreads, k_pad, W, fst, sfi, loglik,
-                       score, dirs, stream);
-}
-
-// EM mode: trans (nreads, 25) and emis (nreads, 80) f32 in place of the
-// score and the direction codes; the two gamma entries of `tables` are
-// not read.
-extern "C" int np_realign_em_launch(const float* tables, const void* xyc,
-                                    const void* m, const void* n, int nreads,
-                                    int k_pad, int W, void* fst, void* sfi,
-                                    void* loglik, void* trans, void* emis,
-                                    void* stream) {
-  return launch<true>(tables, xyc, m, n, nreads, k_pad, W, fst, sfi, loglik,
-                      trans, emis, stream);
+                                 void* loglik, void* out1, void* out2,
+                                 void* out3, void* stream) {
+  if (nreads <= 0 || k_pad < 2 || k_pad % 2 != 0) return (int)cudaErrorInvalidValue;
+  Tables t;
+  for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
+  const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (W == 64)
+    return launch_width<2>(mode, t, grid, block, s, xyc, m, n, nreads, k_pad, fst,
+                           sfi, loglik, out1, out2, out3);
+  if (W == 32)
+    return launch_width<1>(mode, t, grid, block, s, xyc, m, n, nreads, k_pad, fst,
+                           sfi, loglik, out1, out2, out3);
+  return (int)cudaErrorInvalidValue;
 }

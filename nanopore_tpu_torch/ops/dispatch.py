@@ -1,16 +1,17 @@
-"""From (ref, read, guide) pairs to decoded cigars or EM sums on one
-device.
+"""From (ref, read, guide) pairs to decoded cigars, EM sums or
+posteriors on one device.
 
-Counterpart of ``nanopore_tpu/ops/dispatch.py`` for the MEA decode and
-the EM E-step: ``prepared_from_pairs`` packs a batch on the host,
-uploads the byte stream and runs the pack kernel;
-``PreparedRealign.launch()`` enqueues the fused realign and ``decode()``
-walks the direction codes on the device, pulling only the (B, K1) op
-codes and the logliks to the host; ``PreparedEm.run(params)`` launches
-the realign kernel's EM mode on the resident codes with new model
-tables.  The posterior (``emit_gamma``, ``PreparedPosteriors``: ROADMAP
-A3) and Viterbi (``PreparedViterbi``: ROADMAP A6) paths raise
-``NotImplementedError``.
+Counterpart of ``nanopore_tpu/ops/dispatch.py`` for the MEA decode, the
+EM E-step and the posteriors: ``prepared_from_pairs`` packs a batch on
+the host, uploads the byte stream and runs the pack kernel;
+``PreparedRealign.launch()`` enqueues the fused realign (with
+``emit_gamma`` its decode + gamma mode) and ``decode()`` walks the
+direction codes on the device, pulling only the (B, K1) op codes and the
+logliks to the host; ``PreparedEm.run(params)`` launches the realign
+kernel's EM mode on the resident codes with new model tables;
+``PreparedPosteriors`` launches its gamma or exp mode, whose outputs
+stay on the device for ``ops.posteriors``.  The Viterbi path
+(``PreparedViterbi``: ROADMAP A6) raises ``NotImplementedError``.
 
 Tensors on the card go through the CUDA kernels, tensors on the CPU
 through their plain PyTorch versions.  Every launch goes to the calling
@@ -28,7 +29,12 @@ import torch
 from nanopore_tpu_torch.device import resolve_device
 from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
 from nanopore_tpu_torch.ops.pairhmm import KernelParams
-from nanopore_tpu_torch.ops.realign import realign_decode, realign_em
+from nanopore_tpu_torch.ops.realign import (
+    realign_decode,
+    realign_em,
+    realign_exp,
+    realign_gamma,
+)
 from nanopore_tpu_torch.ops.traceback import mea_walk, rle_ops_batch
 
 
@@ -52,16 +58,12 @@ def _pairs_k_max(pairs, k_max, step: int = 2048) -> int:
 
 
 class PreparedRealign:
-    """A packed realign batch resident on its device (decode mode)."""
+    """A packed realign batch resident on its device (decode mode;
+    ``emit_gamma`` adds the gamma_match band of the same launch)."""
 
     def __init__(self, lite: LitePack, params: KernelParams, xyc, m, n,
                  gap_gamma: float = 0.5, match_gamma: float = 0.0,
                  emit_gamma: bool = False):
-        if emit_gamma:
-            raise NotImplementedError(
-                "the fused realign's gamma output (emit_gamma) is not "
-                "ported yet: ROADMAP A3 / B2"
-            )
         self.batch = lite
         self.params = params
         self.xyc = xyc
@@ -69,18 +71,26 @@ class PreparedRealign:
         self.n = n
         self._gg = gap_gamma
         self._mg = match_gamma
+        self._gamma = emit_gamma
         self._out = None
+
+    @property
+    def has_gamma(self) -> bool:
+        """True when run() includes the gamma_match band."""
+        return self._gamma
 
     def launch(self) -> "PreparedRealign":
         """Enqueue the realign kernel now (returns before it ends)."""
         if self._out is None:
             self._out = realign_decode(
-                self.xyc, self.m, self.n, self.params, self._gg, self._mg
+                self.xyc, self.m, self.n, self.params, self._gg, self._mg,
+                emit_gamma=self._gamma,
             )
         return self
 
     def run(self) -> dict:
-        """loglik / score (B,) and dirs (B, k_pad + 1, W) on the device."""
+        """loglik / score (B,) and dirs (B, k_pad + 1, W) on the device,
+        and ``gamma`` (B, k_pad + 1, W) with ``emit_gamma``."""
         self.launch()
         out, self._out = self._out, None
         return out
@@ -115,6 +125,50 @@ class PreparedEm:
         return realign_em(self.xyc, self.m, self.n, params)
 
 
+class PreparedPosteriors:
+    """Posterior outputs of a packed batch, resident on its device.
+
+    ``emit_gamma`` (AlignmentUncertainty): run() returns loglik (B,) and
+    the gamma_match band ``gamma`` (B, k_pad + 1, W) f32 for
+    ``ops.posteriors.rescore_from_post``.  ``emit_exp`` (the SNP caller):
+    loglik, the retire stream ``ret`` (B, k_pad + 1, 4) and the ``flush``
+    (B, 4, W) of the gammas above ``exp_threshold``, for
+    ``ops.posteriors.expectations_from_post``.  One of the two, one
+    launch of the realign kernel's gamma or exp mode.
+    """
+
+    def __init__(self, lite: LitePack, params: KernelParams, xyc, m, n,
+                 emit_gamma: bool = True, emit_exp: bool = False,
+                 exp_threshold: float = 1e-3):
+        if emit_gamma == emit_exp:
+            raise ValueError("PreparedPosteriors serves one of emit_gamma "
+                             "and emit_exp")
+        self.batch = lite
+        self.params = params
+        self.xyc = xyc
+        self.m = m
+        self.n = n
+        self._gamma = emit_gamma
+        self.exp_threshold = float(exp_threshold)
+        self._out = None
+
+    def launch(self) -> "PreparedPosteriors":
+        """Enqueue the kernel now (returns before it ends)."""
+        if self._out is None:
+            if self._gamma:
+                self._out = realign_gamma(self.xyc, self.m, self.n,
+                                          self.params)
+            else:
+                self._out = realign_exp(self.xyc, self.m, self.n,
+                                        self.params, self.exp_threshold)
+        return self
+
+    def run(self) -> dict:
+        self.launch()
+        out, self._out = self._out, None
+        return out
+
+
 def _not_ported(name: str, item: str):
     class _NotPorted:
         def __init__(self, *args, **kwargs):
@@ -128,7 +182,6 @@ def _not_ported(name: str, item: str):
 
 
 PreparedViterbi = _not_ported("PreparedViterbi", "A6")
-PreparedPosteriors = _not_ported("PreparedPosteriors", "A3")
 
 
 def prepared_from_pairs(
@@ -141,15 +194,15 @@ def prepared_from_pairs(
     exact_k: bool = False,
 ):
     """Pack (ref, read, guide) pairs onto ``cls_kwargs['device']`` and
-    wrap them as ``prepared_cls`` (``PreparedRealign`` or
-    ``PreparedEm``; ``params`` serve the former, the latter takes its
-    model at every ``run``).  ``exact_k=True`` pins the diagonal count
-    to ``k_max`` (k-bin bucketing) instead of tightening it."""
-    if prepared_cls not in (PreparedRealign, PreparedEm):
+    wrap them as ``prepared_cls`` (``PreparedRealign``,
+    ``PreparedPosteriors`` or ``PreparedEm``; ``params`` serve the
+    first two, the last takes its model at every ``run``).
+    ``exact_k=True`` pins the diagonal count to ``k_max`` (k-bin
+    bucketing) instead of tightening it."""
+    if prepared_cls not in (PreparedRealign, PreparedPosteriors, PreparedEm):
         raise NotImplementedError(
-            "%s is not ported to the PyTorch/CUDA package yet: ROADMAP A3 "
-            "(posteriors), A6 (Viterbi)"
-            % getattr(prepared_cls, "__name__", prepared_cls)
+            "%s is not ported to the PyTorch/CUDA package yet: ROADMAP A6 "
+            "(Viterbi)" % getattr(prepared_cls, "__name__", prepared_cls)
         )
     kwargs = dict(cls_kwargs)
     device = resolve_device(kwargs.pop("device", None))
@@ -169,7 +222,7 @@ def prepared_from_pairs(
     )
     if prepared_cls is PreparedEm:
         return PreparedEm(lite, xyc, m, n, **kwargs)
-    return PreparedRealign(lite, params, xyc, m, n, **kwargs)
+    return prepared_cls(lite, params, xyc, m, n, **kwargs)
 
 
 def preferred_realign_batch_size(requested: int | None = None,

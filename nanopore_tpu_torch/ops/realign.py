@@ -1,15 +1,27 @@
-"""Fused banded realign: forward, backward, then reverse MEA or EM sums.
+"""Fused banded realign: forward, backward, then one of five outputs.
 
-Counterpart of ``nanopore_tpu/ops/pairhmm_pallas_realign.py`` in two of
-its modes (no gamma band, no retire stream):
+Counterpart of ``nanopore_tpu/ops/pairhmm_pallas_realign.py`` in its
+modes:
 
 * decode (``emit_em=False``): per read the forward log-likelihood, the
   MEA score and the (k_pad + 1, W) 2-bit direction codes (0 diag, 1 del,
   2 ins, 3 none) that ``ops.traceback`` walks into a cigar;
+* decode + gamma (``emit_gamma=True``): the same, plus the gamma_match
+  band (k_pad + 1, W) f32 of the same launch (the rescore of realigned
+  cigars);
+* gamma: the log-likelihood and the gamma_match band only (no MEA DP, no
+  direction codes; AlignmentUncertainty);
+* exp (``emit_exp=True``): the log-likelihood, the (k_pad + 1, 4) retire
+  stream and the (4, W) flush of the thresholded gamma_match binned by
+  read base (the SNP caller's expected base counts; no MEA DP);
 * EM (``emit_em=True``): per read the log-likelihood and the Baum-Welch
   expected counts, ``trans`` (5, 5) and ``emis`` (5, 16).  The port's EM
   mode runs no MEA DP and writes no direction codes (the E-step has no
   use for them).
+
+Each mode has its own launch counter (``realign``,
+``realign_decode_gamma``, ``realign_gamma``, ``realign_exp``,
+``realign_em``).
 
 Numerics, shared by the kernel (``csrc/realign.cu``) and the plain
 version below, operation for operation:
@@ -39,6 +51,17 @@ version below, operation for operation:
   32 lanes are summed by an xor butterfly (offsets 16, 8, 4, 2, 1) at
   the end, and only then do the transition sums take their ``tf``
   factor.  The plain version adds in the same order.
+* the gamma band is gamma[0] = (f_k[0] * b_k[0]) * g_k of every band
+  cell, diagonal 0 included: the value the MEA reads;
+* the exp mode keeps 4 accumulators per band cell in diagonal k's band
+  coordinates.  On the k+1 -> k step it emits column W - 1 times d1[k+1]
+  as retire row k (reference position o[k+1] + W - 2, valid where
+  d1[k+1] = 1), moves the band up as acc + d1 * (shifted - acc) with 0
+  shifted in, then adds gamma[0] * (gamma[0] > threshold) times the
+  one-hot of the cell's read base (codes 0-3; N, the sentinel and
+  diagonal 0 bin nowhere).  The accumulator left after diagonal 0 is the
+  flush, column w = position w - 1.  The multiplies by 0/1 factors are
+  the TPU kernel's, so a non-finite gamma spreads as it does there.
 
 The forward states of every diagonal are kept (the TPU kernel's
 ``store_fwd`` mode, 5 * W * 4 bytes per diagonal per read) and streamed
@@ -65,11 +88,14 @@ WORKSPACE_BYTES = 8 << 30
 
 LAUNCHES = kb.LaunchCounter("realign")
 EM_LAUNCHES = kb.LaunchCounter("realign_em")
-_LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-    + [ctypes.c_void_p] * 6
+GAMMA_LAUNCHES = kb.LaunchCounter("realign_gamma")
+DECODE_GAMMA_LAUNCHES = kb.LaunchCounter("realign_decode_gamma")
+EXP_LAUNCHES = kb.LaunchCounter("realign_exp")
+# kernel modes (the ``mode`` argument of np_realign_launch)
+DECODE, EM, GAMMA, DECODE_GAMMA, EXP = range(5)
 _SIG = {
-    "np_realign_launch": _LAUNCH_ARGS,
-    "np_realign_em_launch": _LAUNCH_ARGS,
+    "np_realign_launch": [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7,
 }
 
 
@@ -95,10 +121,24 @@ def _check_inputs(xyc, m, n):
             raise ValueError("%s must be (B,)" % name)
 
 
-def _launch(entry: str, counter, xyc, m, n, tables, outs) -> None:
-    """Launch ``entry`` over sub-batches of reads whose forward-state
-    workspace fits ``WORKSPACE_BYTES``; ``outs`` are the three per-read
-    output tensors.  One count per kernel launch."""
+def _tables(params: KernelParams, gap_gamma: float = 0.0,
+            match_gamma: float = 0.0, exp_threshold: float = 0.0):
+    """The kernel's 94 floats: the model's 91, then gap gamma, match
+    gamma and the exp threshold."""
+    return torch.cat([
+        kernel_tables(params),
+        torch.tensor([gap_gamma, match_gamma, exp_threshold],
+                     dtype=torch.float32),
+    ]).contiguous()
+
+
+def _launch(mode: int, counter, xyc, m, n, tables, outs) -> None:
+    """Launch ``mode`` over sub-batches of reads whose forward-state
+    workspace fits ``WORKSPACE_BYTES``; ``outs`` are the four per-read
+    output tensors (loglik, out1, out2, out3; None where the mode writes
+    nothing).  The outputs are the whole batch's: a gamma band of
+    (B, k_pad + 1, W) f32 is allocated beside the workspace, not inside
+    its cap.  One count per kernel launch."""
     B, k_pad, W = xyc.shape
     if W not in KERNEL_BAND_WIDTHS or k_pad % 2:
         raise ValueError(
@@ -113,15 +153,15 @@ def _launch(entry: str, counter, xyc, m, n, tables, outs) -> None:
                       device=dev)
     sfi = torch.empty((chunk, k_pad + 1), dtype=torch.float32, device=dev)
     lib = kb.library("realign", _SIG)
-    fn = getattr(lib, entry)
     with torch.cuda.device(dev):
         for r0 in range(0, B, chunk):
             r1 = min(B, r0 + chunk)
-            rc = fn(
-                ctypes.c_void_p(tables.data_ptr()),
+            rc = lib.np_realign_launch(
+                mode, ctypes.c_void_p(tables.data_ptr()),
                 kb.ptr(xyc[r0:r1]), kb.ptr(m[r0:r1]), kb.ptr(n[r0:r1]),
                 r1 - r0, k_pad, W, kb.ptr(fst), kb.ptr(sfi),
-                *(kb.ptr(o[r0:r1]) for o in outs),
+                *(ctypes.c_void_p(None) if o is None else kb.ptr(o[r0:r1])
+                  for o in outs),
                 kb.stream_of(xyc),
             )
             kb.check(lib, rc, counter.name)
@@ -132,29 +172,32 @@ def _launch(entry: str, counter, xyc, m, n, tables, outs) -> None:
 
 
 def realign_decode(xyc, m, n, params: KernelParams, gap_gamma: float = 0.5,
-                   match_gamma: float = 0.0) -> dict:
+                   match_gamma: float = 0.0, emit_gamma: bool = False) -> dict:
     """Decode-mode fused realign over packed band codes.
 
     xyc (B, k_pad, W) int8, m / n (B,) int32 read / window lengths.
     Returns loglik (B,) f32, score (B,) f32 and dirs (B, k_pad + 1, W)
-    int8 (row k = diagonal k).  CUDA tensors launch the kernel, CPU
-    tensors run the plain version.
+    int8 (row k = diagonal k); ``emit_gamma`` adds the gamma_match band
+    ``gamma`` (B, k_pad + 1, W) f32 of the same launch.  CUDA tensors
+    launch the kernel, CPU tensors run the plain version.
     """
     _check_inputs(xyc, m, n)
     if xyc.device.type == "cpu":
-        return realign_decode_plain(xyc, m, n, params, gap_gamma, match_gamma)
+        return realign_decode_plain(xyc, m, n, params, gap_gamma, match_gamma,
+                                    emit_gamma)
     B, k_pad, W = xyc.shape
-    dev = xyc.device
-    loglik = torch.empty(B, dtype=torch.float32, device=dev)
-    score = torch.empty(B, dtype=torch.float32, device=dev)
-    dirs = torch.empty((B, k_pad + 1, W), dtype=torch.int8, device=dev)
-    tables = torch.cat([
-        kernel_tables(params),
-        torch.tensor([gap_gamma, match_gamma], dtype=torch.float32),
-    ]).contiguous()
-    _launch("np_realign_launch", LAUNCHES, xyc, m, n, tables,
-            (loglik, score, dirs))
-    return {"loglik": loglik, "score": score, "dirs": dirs}
+    out = {
+        "loglik": xyc.new_empty(B, dtype=torch.float32),
+        "score": xyc.new_empty(B, dtype=torch.float32),
+        "dirs": xyc.new_empty((B, k_pad + 1, W), dtype=torch.int8),
+    }
+    if emit_gamma:
+        out["gamma"] = xyc.new_empty((B, k_pad + 1, W), dtype=torch.float32)
+    _launch(DECODE_GAMMA if emit_gamma else DECODE,
+            DECODE_GAMMA_LAUNCHES if emit_gamma else LAUNCHES, xyc, m, n,
+            _tables(params, gap_gamma, match_gamma),
+            (out["loglik"], out["score"], out["dirs"], out.get("gamma")))
+    return out
 
 
 def realign_em(xyc, m, n, params: KernelParams) -> dict:
@@ -170,16 +213,62 @@ def realign_em(xyc, m, n, params: KernelParams) -> dict:
     if xyc.device.type == "cpu":
         return realign_em_plain(xyc, m, n, params)
     B = xyc.shape[0]
-    dev = xyc.device
-    loglik = torch.empty(B, dtype=torch.float32, device=dev)
-    trans = torch.empty((B, 5, 5), dtype=torch.float32, device=dev)
-    emis = torch.empty((B, 5, 16), dtype=torch.float32, device=dev)
-    tables = torch.cat([
-        kernel_tables(params), torch.zeros(2, dtype=torch.float32),
-    ]).contiguous()
-    _launch("np_realign_em_launch", EM_LAUNCHES, xyc, m, n, tables,
-            (loglik, trans, emis))
-    return {"loglik": loglik, "trans": trans, "emis": emis}
+    out = {
+        "loglik": xyc.new_empty(B, dtype=torch.float32),
+        "trans": xyc.new_empty((B, 5, 5), dtype=torch.float32),
+        "emis": xyc.new_empty((B, 5, 16), dtype=torch.float32),
+    }
+    _launch(EM, EM_LAUNCHES, xyc, m, n, _tables(params),
+            (out["loglik"], out["trans"], out["emis"], None))
+    return out
+
+
+def realign_gamma(xyc, m, n, params: KernelParams) -> dict:
+    """Gamma-mode fused realign: the posterior match probabilities.
+
+    Inputs as :func:`realign_decode`.  Returns loglik (B,) f32 and the
+    gamma_match band ``gamma`` (B, k_pad + 1, W) f32, row k = diagonal k,
+    column w = band cell w (reference position o[k] + w); no MEA and no
+    direction codes.  CUDA tensors launch the kernel, CPU tensors run the
+    plain version.
+    """
+    _check_inputs(xyc, m, n)
+    if xyc.device.type == "cpu":
+        return realign_gamma_plain(xyc, m, n, params)
+    B, k_pad, W = xyc.shape
+    out = {
+        "loglik": xyc.new_empty(B, dtype=torch.float32),
+        "gamma": xyc.new_empty((B, k_pad + 1, W), dtype=torch.float32),
+    }
+    _launch(GAMMA, GAMMA_LAUNCHES, xyc, m, n, _tables(params),
+            (out["loglik"], None, None, out["gamma"]))
+    return out
+
+
+def realign_exp(xyc, m, n, params: KernelParams,
+                exp_threshold: float = 1e-3) -> dict:
+    """Exp-mode fused realign: the SNP caller's expectation streams.
+
+    Inputs as :func:`realign_decode`.  Returns loglik (B,) f32, ``ret``
+    (B, k_pad + 1, 4) f32 (row k: the expected base counts of reference
+    position o[k+1] + W - 2, valid where d1[k+1] = 1) and ``flush``
+    (B, 4, W) f32 (column w: position w - 1), summing the gamma_match
+    values above ``exp_threshold`` by read base.  CUDA tensors launch the
+    kernel, CPU tensors run the plain version.
+    """
+    _check_inputs(xyc, m, n)
+    if xyc.device.type == "cpu":
+        return realign_exp_plain(xyc, m, n, params, exp_threshold)
+    B, k_pad, W = xyc.shape
+    out = {
+        "loglik": xyc.new_empty(B, dtype=torch.float32),
+        "ret": xyc.new_empty((B, k_pad + 1, 4), dtype=torch.float32),
+        "flush": xyc.new_empty((B, 4, W), dtype=torch.float32),
+    }
+    _launch(EXP, EXP_LAUNCHES, xyc, m, n, _tables(params, 0.0, 0.0,
+                                                  exp_threshold),
+            (out["loglik"], out["ret"], out["flush"], None))
+    return out
 
 
 def _shift(arr, s, fill, base):
@@ -224,11 +313,13 @@ def _lane_total(acc):
 
 def realign_decode_plain(xyc, m, n, params: KernelParams,
                          gap_gamma: float = 0.5,
-                         match_gamma: float = 0.0) -> dict:
+                         match_gamma: float = 0.0,
+                         emit_gamma: bool = False) -> dict:
     """The decode-mode realign in plain PyTorch: vectorised over batch
     and band, one loop step per diagonal; the same arithmetic, in the
-    same order, as the kernel."""
-    return _realign_plain(xyc, m, n, params, gap_gamma, match_gamma, False)
+    same order, as the kernel (``emit_gamma``: its decode + gamma mode)."""
+    return _realign_plain(xyc, m, n, params, gap_gamma, match_gamma,
+                          DECODE_GAMMA if emit_gamma else DECODE)
 
 
 def realign_em_plain(xyc, m, n, params: KernelParams) -> dict:
@@ -238,13 +329,31 @@ def realign_em_plain(xyc, m, n, params: KernelParams) -> dict:
     W = xyc.shape[2]
     if W & (W - 1):
         raise ValueError("EM band width must be a power of two, got %d" % W)
-    return _realign_plain(xyc, m, n, params, 0.0, 0.0, True)
+    return _realign_plain(xyc, m, n, params, 0.0, 0.0, EM)
+
+
+def realign_gamma_plain(xyc, m, n, params: KernelParams) -> dict:
+    """The gamma-mode realign in plain PyTorch (the same recursion,
+    storing gamma_match in place of the MEA DP)."""
+    return _realign_plain(xyc, m, n, params, 0.0, 0.0, GAMMA)
+
+
+def realign_exp_plain(xyc, m, n, params: KernelParams,
+                      exp_threshold: float = 1e-3) -> dict:
+    """The exp-mode realign in plain PyTorch (the same recursion, with
+    the kernel's retire accumulator in place of the MEA DP)."""
+    return _realign_plain(xyc, m, n, params, 0.0, 0.0, EXP, exp_threshold)
 
 
 def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
-                   match_gamma: float, emit_em: bool) -> dict:
-    """Forward and backward over the packed codes; ``emit_em`` selects
-    what the backward accumulates (EM sums, else the reverse MEA)."""
+                   match_gamma: float, mode: int,
+                   exp_threshold: float = 0.0) -> dict:
+    """Forward and backward over the packed codes; ``mode`` (one of the
+    kernel's) selects what the backward produces."""
+    emit_em = mode == EM
+    mea = mode in (DECODE, DECODE_GAMMA)
+    want_gamma = mode in (GAMMA, DECODE_GAMMA)
+    emit_exp = mode == EXP
     B, k_pad, W = xyc.shape
     dev = xyc.device
     f32 = torch.float32
@@ -323,7 +432,7 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
         prevprev, prev = prev, new
     loglik = acc
 
-    # ---------------- backward + reverse MEA or EM sums ----------------
+    # ------- backward + reverse MEA, EM sums, gamma band or retire -------
     inv_fin = 1.0 / fin_end
     zeros_bw = torch.zeros((B, W), dtype=f32, device=dev)
     b1 = torch.zeros((B, NUM_STATES, W), dtype=f32, device=dev)
@@ -351,8 +460,18 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
         bins4 = torch.arange(4, device=dev)[None, :, None]
         bins16 = torch.arange(16, device=dev)[None, :, None]
         zero = torch.zeros((), dtype=f32, device=dev)
-    else:
+    if mea:
         dirs = torch.empty((B, k_pad + 1, W), dtype=torch.int8, device=dev)
+    if want_gamma:
+        gam_band = torch.empty((B, k_pad + 1, W), dtype=f32, device=dev)
+    if emit_exp:
+        thr = torch.tensor(float(np.float32(exp_threshold)), dtype=f32,
+                           device=dev)
+        acc_e = torch.zeros((B, 4, W), dtype=f32, device=dev)
+        ret = torch.empty((B, k_pad + 1, 4), dtype=f32, device=dev)
+        col0 = torch.zeros((B, 4, 1), dtype=f32, device=dev)
+        bases = torch.arange(4, device=dev)[None, :, None]
+        sentinel = torch.full((B, W), 5, dtype=torch.int32, device=dev)
     score = None
     for k in range(k_pad, -1, -1):
         rescale = k % 2 == 1 or k == 0
@@ -388,6 +507,20 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
         g_k = torch.where(is_end, inv_fin, factor_trans * safe)
         g_k = torch.clamp(g_k, max=3e37)
         gamma = (F[:, k] * new) * g_k[:, None, None]
+        if want_gamma:
+            gam_band[:, k] = gamma[:, 0]
+        if emit_exp:
+            # retire column W - 1, move the band up by d1[k+1] (a blend,
+            # as the kernel writes it), bin diagonal k's gamma_match
+            d1f = d1n1.to(f32)[:, None, None]
+            ret[:, k] = acc_e[:, :, W - 1] * d1f[:, :, 0]
+            sh = torch.cat([col0, acc_e[:, :, :W - 1]], dim=2)
+            acc_e = acc_e + d1f * (sh - acc_e)
+            g0 = gamma[:, 0]
+            gmz = g0 * torch.where(g0 > thr, 1.0, 0.0).to(f32)
+            y = (codes[:, k - 1] & 7) if k >= 1 else sentinel
+            onehot = (y[:, None, :] == bases).to(f32)
+            acc_e = acc_e + gmz[:, None, :] * onehot
         if emit_em:
             if k == 0:
                 break  # diagonal 0 holds no base: nothing to bin
@@ -405,7 +538,7 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
             acc_i = _lane_add(acc_i, torch.cat([
                 torch.where(ohy, gamma[:, 2:3], zero),
                 torch.where(ohy, gamma[:, 4:5], zero)], dim=1))
-        else:
+        elif mea:
             g_m = gamma[:, 0]
             g_d = gamma[:, 1] + gamma[:, 3]
             g_i = gamma[:, 2] + gamma[:, 4]
@@ -426,13 +559,22 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
                 break
             u2, u1 = u1, new_u
             gm2, gm1, gd1, gi1 = gm1, g_m, g_d, g_i
+        elif k == 0:
+            break
         b2, b1, binv, g_next = b1, new, inv, g_k
         Ek, d1k, _ = emissions(k)
         em2 = E1[:, 0]
         E1 = Ek
         d1n2, d1n1 = d1n1, d1k
-    if not emit_em:
-        return {"loglik": loglik, "score": score, "dirs": dirs}
+    if mea:
+        out = {"loglik": loglik, "score": score, "dirs": dirs}
+        if want_gamma:
+            out["gamma"] = gam_band
+        return out
+    if want_gamma:
+        return {"loglik": loglik, "gamma": gam_band}
+    if emit_exp:
+        return {"loglik": loglik, "ret": ret, "flush": acc_e}
     trans = (tf.reshape(25)[None] * _lane_total(acc_t)).reshape(B, 5, 5)
     dele = _lane_total(acc_d) / 4.0  # (B, 8): state 1 by x, state 3 by x
     ins = _lane_total(acc_i) / 4.0

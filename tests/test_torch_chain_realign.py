@@ -14,6 +14,9 @@
   equal; a cigar that differs from the XLA scan's must be the one the
   Pallas kernel (interpret mode) decodes on the same window, the rule of
   tests/test_torch_engine.py for MEA moves tied in exact arithmetic.
+* ``realign_records(rescore=True)`` against the JAX package's: each
+  record's average posterior match probability of its new cigar within
+  1e-4, cigars under the same tie rule.
 """
 
 import numpy as np
@@ -375,11 +378,67 @@ def test_pallas_tie_helper_decodes_the_port_cigar(mapped):
     assert recs[0].cigar == want
 
 
-def test_rescore_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A3"):
-        realign.realign_records([], {}, rescore=True, device="cpu")
+def test_rescore_matches_jax(mapped):
+    """``rescore=True``: the decode + gamma launch, the walker and the
+    rescore of the new cigars.  Scores within 1e-4 of the JAX package's
+    (its two-pass forward_backward route on the CPU); a cigar may differ
+    only under the tie rule above, and its score then is the JAX
+    package's rescore of the port's cigar on the JAX band."""
+    d = mapped["dir"]
+    jax_chain.chain_sam_file(mapped["sam"], str(d / "guides3.sam"),
+                             mapped["fq"], mapped["fa"])
+    ref = read_fasta_dict(mapped["fa"])
+    guides = list(JaxSamReader(str(d / "guides3.sam")))
+    want = [SamRecord(qname=g.qname, flag=g.flag, rname=g.rname, pos=0,
+                      mapq=g.mapq, cigar=list(g.cigar), seq=g.seq)
+            for g in guides]
+    got = [SamRecord(qname=g.qname, flag=g.flag, rname=g.rname, pos=0,
+                     mapq=g.mapq, cigar=list(g.cigar), seq=g.seq)
+           for g in guides]
+    want_scores = jax_realign.realign_records(
+        want, ref, JaxModel.default(), band_width=32, rescore=True)
+    got_scores = realign.realign_records(
+        got, ref, PairHmmModel.default(), band_width=32, rescore=True,
+        device="cpu")
+    assert len(got_scores) == len(want_scores) == len(guides) == 8
+    ref_codes = {k: np.asarray(encode(v)) for k, v in ref.items()}
+    for g, w, gs, ws, guide in zip(got, want, got_scores, want_scores,
+                                   guides):
+        assert 0.0 < gs <= 1.0
+        if g.cigar == w.cigar:
+            assert gs == pytest.approx(ws, abs=1e-4)
+            continue
+        assert g.cigar == pallas_window_cigar(
+            guide, ref_codes[guide.rname], JaxModel.default(), 0.5, 0.0, 32)
+        assert gs == pytest.approx(
+            jax_rescore_window(guide, g.cigar, ref_codes[guide.rname]),
+            abs=1e-4)
+
+
+def jax_rescore_window(guide, cigar, ref_codes):
+    """The JAX package's rescore of a full-reference ``cigar`` over the
+    forward_backward band of ``guide``'s realign window at W = 32."""
+    from nanopore_tpu.ops.mea import rescore_by_posterior
+    from nanopore_tpu.ops.pairhmm import forward_backward
+
+    xw, gw, j0, j1 = jax_realign.window_global_pair(ref_codes, guide.cigar)
+    batch = prepare_banded_batch([(xw, np.asarray(encode(guide.seq)), gw)],
+                                 band_width=32)
+    fb = forward_backward(batch, jax_params(JaxModel.default()))
+    window = list(cigar)
+    if j0:
+        window[0] = (window[0][0], window[0][1] - j0)
+    if len(ref_codes) - j1:
+        window[-1] = (window[-1][0], window[-1][1] - (len(ref_codes) - j1))
+    window = [(op, ln) for op, ln in window if ln]
+    return rescore_by_posterior(np.asarray(fb["gamma_match"])[0],
+                                np.asarray(batch.offsets)[0], window)
+
+
+def test_realign_requires_global_records():
     with pytest.raises(ValueError):
         realign.realign_records(
             [SamRecord(qname="q", flag=0, rname="r", pos=3, mapq=0,
                        cigar=[(CIG.M, 4)], seq="ACGT")],
             {"r": "ACGTACGT"}, device="cpu")
+    assert realign.realign_records([], {}, rescore=True, device="cpu") == []

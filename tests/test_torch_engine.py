@@ -208,20 +208,13 @@ def test_unported_paths_raise(mapped, tmp_path):
     from nanopore_tpu_torch.mapping.runner import run_mapper
     from nanopore_tpu_torch.ops import dispatch
 
-    for cls, item in ((dispatch.PreparedViterbi, "A6"),
-                      (dispatch.PreparedPosteriors, "A3")):
-        with pytest.raises(NotImplementedError, match=item):
-            cls()
+    with pytest.raises(NotImplementedError, match="A6"):
+        dispatch.PreparedViterbi()
     pairs = [(np.zeros(8, np.int8), np.zeros(8, np.int8), [(0, 8)])]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dispatch.prepared_from_pairs(
             {"device": "cpu"}, pairs, mapped["engine"].params,
             prepared_cls=dispatch.PreparedViterbi,
-        )
-    with pytest.raises(NotImplementedError, match="A3"):
-        dispatch.prepared_from_pairs(
-            {"device": "cpu", "emit_gamma": True}, pairs,
-            mapped["engine"].params,
         )
     for name in ("Viterbi", "ViterbiRealign"):
         with pytest.raises(NotImplementedError):
