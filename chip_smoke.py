@@ -5,8 +5,9 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch
    version, and builds the kernels from ``nanopore_tpu_torch/csrc`` with
-   nvcc (one process per source, in parallel; the realign source holds
-   the decode, EM, gamma, decode + gamma and exp modes).
+   nvcc (one process per source, in parallel, each printing its
+   ``ptxas -v`` registers and spills; the realign source holds the
+   decode, EM, gamma, decode + gamma and exp modes).
 2. Makes two seeded workloads of 512 reads of 5 kb (5 % deletions, 10 %
    substitutions, both strands, origin and strand in each read name): on
    a 1 Mb random reference for the mapping path, and on a 48,502-bp one
@@ -80,7 +81,28 @@
    expectations, scattered on the host, within rtol 1e-3 and atol 2e-3);
    ``realign_records(rescore=True)`` on 64 realigned records (every
    score finite, in [0, 1]).  Each prints its wall time and launches.
-8. Prints the script's wall time, one ``{"kernels": [...]}`` line and,
+8. Viterbi kernels, on the mapping main path's batch (step 3's): the
+   Viterbi kernel against its plain version on the first 128 reads at
+   the full diagonal count (score within 1e-5 relative, fstate
+   identical, the backpointer plane byte-identical on every lattice
+   cell), the Viterbi walker against its plain version on the kernel's
+   plane (op codes and end cells identical; every walk of the batch
+   reaches the origin and its cigar consumes exactly m read and n
+   reference bases), the forward-only kernel against its plain version
+   (1e-5 relative) and against the realign kernel's decode loglik on the
+   whole batch (1e-5 relative), and every Viterbi score at most the
+   forward loglik (+1e-5 of it); each kernel timed on the whole batch.
+   Then the forward-only kernel through its entry point
+   (``prepared_from_pairs(..., prepared_cls=PreparedForward).run()``),
+   with every counter set to 0 just before.
+9. Viterbi path end to end: ``run_mapper("Viterbi", ...)`` on the
+   mapping workload, cold then warm, every counter set to 0 before the
+   warm run: pack, Viterbi and Viterbi walker launched, the realign and
+   the MEA walker not, >= 99 % of primaries at their origin; then
+   ``run_mapper("ViterbiRealign", ...)`` once on the 48,502-bp workload
+   (counters set to 0 before it): one global record per read, >= 99 %
+   within 100 bp of their origin on the right strand.
+10. Prints the script's wall time, one ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -130,6 +152,13 @@ REALIGN_GAMMA_OPS_PER_CELL = 56 + 58
 # exp mode: the gamma mode's backward + 3 to bin (a compare, a select,
 # one add of the gamma into its base's bin)
 REALIGN_EXP_OPS_PER_CELL = 56 + 61
+# Viterbi (csrc/viterbi.cu): 5 destinations x (5 adds, 4 compares, 4
+# maxima, 4 argmax selects) for the predecessors, then 5 validity
+# selects, 5 adds and 5 maxima for the emissions
+VITERBI_OPS_PER_CELL = 5 * 17 + 15
+# forward only (csrc/forward.cu): the realign kernel's forward, 45
+# transition + 6 emission + 5 rescale (amortised)
+FORWARD_OPS_PER_CELL = 56
 
 
 def fail(msg: str) -> None:
@@ -211,7 +240,9 @@ def main_path_batch(engine, fq: str, batch_size: int):
     return engine.candidate_pairs(cands[:batch_size])
 
 
-def kernel_phase(engine, fq: str, dev) -> dict:
+def kernel_phase(engine, fq: str, dev) -> tuple:
+    """Step 3: the kernel rows of the mapping main path; returns them and
+    the batch's (window, read, guide) pairs."""
     import torch
 
     from nanopore_tpu_torch.ops import pack, realign, traceback
@@ -337,7 +368,7 @@ def kernel_phase(engine, fq: str, dev) -> dict:
               "(%s), plain %.1f ms, library_ms null (no single PyTorch call)"
               % (name, r["ms"], r["per_batch"], r["bound_ms"], r["bound_by"],
                  r["plain_ms"]))
-    return res
+    return res, pairs
 
 
 def realign_bound(ops_per_cell: int, W_: int, need_diags: int,
@@ -567,7 +598,6 @@ def check_em_outputs(sam: str, hmm: str, ref_len: int) -> dict:
     import xml.etree.ElementTree as ET
 
     from nanopore_tpu_torch.align.model import PairHmmModel
-    from nanopore_tpu_torch.io.sam import CIG, SamReader
 
     traces = [[float(v) for v in el.attrib["runningLikelihoods"].split()]
               for el in ET.parse(hmm + ".xml").getroot().iter("hmm")]
@@ -585,6 +615,16 @@ def check_em_outputs(sam: str, hmm: str, ref_len: int) -> dict:
             if not np.isfinite(table).all() or not np.allclose(
                     table.sum(axis=1), 1.0, atol=1e-6):
                 fail("%s: rows do not sum to 1" % path)
+    return dict(check_global_records(sam, ref_len),
+                iterations=[len(t) for t in traces],
+                final_loglik=[t[-1] for t in traces])
+
+
+def check_global_records(sam: str, ref_len: int) -> dict:
+    """Every record global (pos 0, cigar consuming the whole reference
+    and read): the count of reads and the share at their origin."""
+    from nanopore_tpu_torch.io.sam import CIG, SamReader
+
     names, hits = set(), 0
     for rec in SamReader(sam).mapped():
         names.add(rec.qname)
@@ -597,9 +637,7 @@ def check_em_outputs(sam: str, hmm: str, ref_len: int) -> dict:
         if bool(rec.flag & 0x10) == bool(int(strand)) and abs(
                 lead - int(start)) <= 100:
             hits += 1
-    return {"records": len(names), "origin_share": hits / N_READS,
-            "iterations": [len(t) for t in traces],
-            "final_loglik": [t[-1] for t in traces]}
+    return {"records": len(names), "origin_share": hits / N_READS}
 
 
 def em_path_phase(workdir: str, dev, counters, res: dict) -> dict:
@@ -1056,6 +1094,249 @@ def posterior_path_phase(workdir: str, dev, counters, res: dict) -> dict:
     return runs
 
 
+def viterbi_kernel_phase(engine, pairs, dev, counters, res: dict) -> dict:
+    """Phase 8: the Viterbi kernels on the mapping main path's batch.
+    K4 and K6 against their plain versions on the first PLAIN_READS
+    reads at the full diagonal count, K5 on K4's plane, K6 against the
+    realign kernel's decode loglik and above the Viterbi score on the
+    whole batch; each kernel timed on the whole batch.  Then K6 through
+    its entry point (``PreparedForward``) with the counters set to 0
+    just before; returns that run's launch counts."""
+    import torch
+
+    from nanopore_tpu_torch.ops import forward, traceback, viterbi
+    from nanopore_tpu_torch.ops.dispatch import (
+        PreparedForward,
+        _pairs_k_max,
+        prepared_from_pairs,
+    )
+    from nanopore_tpu_torch.ops.forward import (
+        forward_loglik,
+        forward_loglik_plain,
+    )
+    from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
+    from nanopore_tpu_torch.ops.realign import realign_decode
+    from nanopore_tpu_torch.ops.traceback import (
+        rle_ops_batch,
+        viterbi_walk,
+        viterbi_walk_plain,
+    )
+    from nanopore_tpu_torch.ops.viterbi import (
+        viterbi_forward,
+        viterbi_forward_plain,
+    )
+
+    t_phase = time.perf_counter()
+    B = len(pairs)
+    P = PLAIN_READS
+    prep = pack_stream_pairs(pairs, W, _pairs_k_max(pairs, None))
+    k_pad = prep["k_pad"]
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    m, n = put(prep["m"]), put(prep["n"])
+    xyc = pack_xyc(put(prep["stream"]), put(prep["initx"]), m, n)
+    xs, ms_, ns = (t[:P].contiguous() for t in (xyc, m, n))
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    params = engine.params
+    print("Viterbi batch: B=%d K=%d k_pad=%d W=%d" % (B, prep["K"], k_pad, W))
+
+    # ---- K4 Viterbi ----
+    t0 = time.perf_counter()
+    out_k = viterbi_forward(xyc, m, n, params)
+    out_p, plain_ms = timed(lambda: viterbi_forward_plain(xs, ms_, ns, params))
+    sc_k, sc_p = out_k["score"][:P], out_p["score"]
+    if not bool(torch.isfinite(out_k["score"]).all()):
+        fail("non-finite Viterbi score")
+    sc_rel = rel_err(sc_k, sc_p)
+    err = float((sc_k - sc_p).abs().max())
+    if not torch.equal(out_k["fstate"][:P], out_p["fstate"]):
+        fail("Viterbi kernel's fstate differs from its plain version")
+    # lattice cells of the checked reads: 1 <= k <= m + n, 0 <= i <= m,
+    # 0 <= j <= n with j = o[k] + w
+    K1 = k_pad + 1
+    kk = torch.arange(K1, device=dev)[None, :, None]
+    jj = put(prep["offsets"][:P].astype(np.int64))[:, :, None] + \
+        torch.arange(W, device=dev)[None, None, :]
+    ii = kk - jj
+    lat = ((kk >= 1) & (jj >= 0) & (jj <= ns.long()[:, None, None])
+           & (ii >= 0) & (ii <= ms_.long()[:, None, None]))
+    bp_k = out_k["bp"][:P]
+    lat_diff = int(((bp_k != out_p["bp"]) & lat).sum())
+    whole = torch.equal(bp_k, out_p["bp"])
+    del lat, ii, jj, kk
+    print("K4 viterbi: score max rel %.3g (%s), fstate identical, plane cells "
+          "differing on the lattice %d (whole plane %s) on %d reads (%.1f s "
+          "wall)" % (sc_rel, "bit-identical" if torch.equal(sc_k, sc_p)
+                     else "not identical", lat_diff,
+                     "identical" if whole else "differs", P,
+                     time.perf_counter() - t0))
+    if sc_rel > 1e-5 or lat_diff:
+        fail("Viterbi kernel outside tolerance")
+    ms = cuda_ms(lambda: viterbi_forward(xyc, m, n, params), 3)
+    bound, by = realign_bound(
+        VITERBI_OPS_PER_CELL, W, need,
+        (need - B) * W + B * K1 * W + 12 * B)
+    res["viterbi"] = dict(
+        per_batch=launches_per_call(viterbi.LAUNCHES, lambda: viterbi_forward(
+            xyc, m, n, params)),
+        ms=ms, plain_ms=plain_ms, plain_reads=P, max_abs_err=err,
+        bound_ms=bound, bound_by=by,
+    )
+    print("K4 viterbi: %.3f ms per batch of %d, bound %.4f ms (%s), plain "
+          "%.1f ms on %d reads" % (ms, B, bound, by, plain_ms, P))
+    del out_p
+
+    # ---- K5 Viterbi walker on K4's plane ----
+    t0 = time.perf_counter()
+    bp, fstate = out_k["bp"], out_k["fstate"]
+    ops_k, end_k = viterbi_walk(bp, xyc, m, n, fstate)
+    (ops_p, end_p), plain_ms = timed(lambda: viterbi_walk_plain(
+        bp[:P].contiguous(), xs, ms_, ns, fstate[:P].contiguous()))
+    if not (torch.equal(ops_k[:P], ops_p) and torch.equal(end_k[:P], end_p)):
+        fail("Viterbi walker kernel differs from its plain version")
+    walk_err = float((ops_k[:P].int() - ops_p.int()).abs().max())
+    lost = int(end_k.any(1).sum())
+    cigars = rle_ops_batch(ops_k.cpu().numpy())
+    whole = 0
+    for cig, mr, nr in zip(cigars, prep["m"], prep["n"]):
+        whole += (sum(ln for op, ln in cig if op in (0, 1)) == mr
+                  and sum(ln for op, ln in cig if op in (0, 2)) == nr)
+    print("K5 viterbi walker: ops identical on %d reads; %d of %d walks reach "
+          "the origin, %d cigars consume exactly m and n (%.1f s wall)"
+          % (P, B - lost, B, whole, time.perf_counter() - t0))
+    if lost or whole != B:
+        fail("Viterbi walks: %d lost, %d of %d whole cigars" % (lost, whole, B))
+    ms = cuda_ms(lambda: viterbi_walk(bp, xyc, m, n, fstate), 10)
+    nbytes = 2 * need + B * K1 + 20 * B
+    res["viterbi_traceback"] = dict(
+        per_batch=launches_per_call(traceback.VIT_LAUNCHES, lambda: viterbi_walk(
+            bp, xyc, m, n, fstate)),
+        ms=ms, plain_ms=plain_ms, plain_reads=P, max_abs_err=walk_err,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+    )
+    print("K5 viterbi walker: %.3f ms per batch (plain %.1f ms on %d reads)"
+          % (ms, plain_ms, P))
+
+    # ---- K6 forward only ----
+    t0 = time.perf_counter()
+    ll_k = forward_loglik(xyc, m, n, params)
+    ll_p, plain_ms = timed(lambda: forward_loglik_plain(xs, ms_, ns, params))
+    if not bool(torch.isfinite(ll_k).all()):
+        fail("non-finite forward loglik")
+    ll_rel = rel_err(ll_k[:P], ll_p)
+    err = float((ll_k[:P] - ll_p).abs().max())
+    dec = realign_decode(xyc, m, n, params, engine.config.gap_gamma,
+                         engine.config.match_gamma)["loglik"]
+    k2_rel = rel_err(ll_k, dec)
+    vit = out_k["score"]
+    above = int((vit > ll_k + 1e-5 * ll_k.abs()).sum())
+    print("K6 forward: loglik max rel %.3g against its plain version on %d "
+          "reads (%s), %.3g against the realign kernel's decode loglik on %d; "
+          "reads whose Viterbi score is above the loglik %d; loglik - score "
+          "mean %.4f nats (%.1f s wall)"
+          % (ll_rel, P, "bit-identical" if torch.equal(ll_k[:P], ll_p)
+             else "not identical", k2_rel, B, above,
+             float((ll_k - vit).mean()), time.perf_counter() - t0))
+    if ll_rel > 1e-5 or k2_rel > 1e-5 or above:
+        fail("forward kernel outside tolerance")
+    ms = cuda_ms(lambda: forward_loglik(xyc, m, n, params), 3)
+    bound, by = realign_bound(FORWARD_OPS_PER_CELL, W, need,
+                              (need - B) * W + 12 * B)
+    res["forward"] = dict(
+        per_batch=launches_per_call(forward.LAUNCHES, lambda: forward_loglik(
+            xyc, m, n, params)),
+        ms=ms, plain_ms=plain_ms, plain_reads=P, max_abs_err=err,
+        bound_ms=bound, bound_by=by,
+    )
+    print("K6 forward: %.3f ms per batch of %d, bound %.4f ms (%s), plain "
+          "%.1f ms on %d reads" % (ms, B, bound, by, plain_ms, P))
+    del out_k, bp, xyc
+
+    # ---- K6 through its entry point ----
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    ll = prepared_from_pairs({"device": dev}, pairs, params, band_width=W,
+                             prepared_cls=PreparedForward).run()
+    torch.cuda.synchronize()
+    entry = {c.name: c.count for c in counters}
+    print("PreparedForward: %d reads in %.3f s; launches %s"
+          % (len(pairs), time.perf_counter() - t0, entry))
+    if not torch.equal(ll, ll_k) or entry["forward"] <= 0:
+        fail("PreparedForward did not give the forward kernel's loglik")
+    print("phase 8 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return entry
+
+
+def viterbi_path_phase(workdir: str, fa: str, fq: str, dev, counters) -> dict:
+    """Phase 9: ``run_mapper("Viterbi")`` on the mapping workload, cold
+    then warm, and ``run_mapper("ViterbiRealign")`` once on the EM
+    workload, each warm or single run with the counters set to 0 just
+    before it; returns each run's launch counts."""
+    import torch
+
+    from nanopore_tpu_torch.mapping.runner import run_mapper
+
+    t_phase = time.perf_counter()
+    runs = {}
+    sam = os.path.join(workdir, "viterbi.sam")
+    run_mapper("Viterbi", fq, "reads", fa, sam, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    warm = run_mapper("Viterbi", fq, "reads", fa, sam, device=dev)
+    wall = time.perf_counter() - t0
+    runs["viterbi"] = {c.name: c.count for c in counters}
+    share = origin_share(sam)
+    print("Viterbi path: %d reads in %.3f s warm = %.1f reads/s; peak device "
+          "memory %.3f GB; primaries at origin %.4f; launches %s"
+          % (N_READS, wall, N_READS / wall,
+             torch.cuda.max_memory_allocated(dev) / 1e9, share,
+             runs["viterbi"]))
+    print("stage_stats_viterbi " + json.dumps(warm.stage_stats.snapshot()))
+    v = runs["viterbi"]
+    if min(v[k] for k in ("pack", "viterbi", "viterbi_traceback")) <= 0:
+        fail("a kernel of the Viterbi path was not launched: %s" % v)
+    if v["realign"] or v["traceback"]:
+        fail("the Viterbi path launched the MEA decode: %s" % v)
+    if share < 0.99:
+        fail("only %.4f of Viterbi primaries at their origin" % share)
+
+    em_dir = os.path.join(workdir, "em")
+    fa2, fq2 = os.path.join(em_dir, "ref.fa"), os.path.join(em_dir, "reads.fq")
+    sam2 = os.path.join(em_dir, "viterbi_realign.sam")
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    eng = run_mapper("ViterbiRealign", fq2, "reads", fa2, sam2, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["viterbi_realign"] = {c.name: c.count for c in counters}
+    checks = check_global_records(sam2, EM_REF_LEN)
+    snap = eng.stage_stats.snapshot()
+    print("ViterbiRealign: %d reads in %.3f s (one run: cold index) = map "
+          "%.3f + chain and realign %.3f s; %d global records, %.4f at their "
+          "origin; launches %s"
+          % (N_READS, wall, snap["wall"]["seconds"],
+             snap["post_realign"]["seconds"], checks["records"],
+             checks["origin_share"], runs["viterbi_realign"]))
+    r = runs["viterbi_realign"]
+    if min(r[k] for k in ("pack", "viterbi", "viterbi_traceback", "realign",
+                          "traceback")) <= 0:
+        fail("a kernel of the ViterbiRealign path was not launched: %s" % r)
+    if checks["records"] != N_READS or checks["origin_share"] < 0.99:
+        fail("ViterbiRealign: %d records, %.4f at their origin"
+             % (checks["records"], checks["origin_share"]))
+    print("phase 9 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return runs
+
+
 def glue_err(out: list, want: dict) -> tuple:
     """(largest difference, within the CPU tests' rtol 1e-3 and atol
     2e-3) of the SNP caller's (n_ref, 4) matrices from ``want``
@@ -1108,7 +1389,7 @@ def main() -> int:
     from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
     from nanopore_tpu_torch.mapping.runner import run_mapper
     from nanopore_tpu_torch.io.seqio import read_fasta_dict
-    from nanopore_tpu_torch.ops import pack, realign, traceback
+    from nanopore_tpu_torch.ops import forward, pack, realign, traceback, viterbi
     from nanopore_tpu_torch.runtime import native_index
 
     card = subprocess.run(
@@ -1130,14 +1411,15 @@ def main() -> int:
 
     spec = MAPPER_REGISTRY["LastParams"]
     engine = MappingEngine(read_fasta_dict(fa), spec.config, device=dev)
-    res = kernel_phase(engine, fq, dev)
+    res, main_pairs = kernel_phase(engine, fq, dev)
 
     # ---- end to end: cold run, then the warm run that counts ----
     sam = os.path.join(workdir, "out.sam")
     run_mapper(spec, fq, "reads", fa, sam, device=dev)
     counters = (pack.LAUNCHES, realign.LAUNCHES, realign.EM_LAUNCHES,
                 realign.GAMMA_LAUNCHES, realign.DECODE_GAMMA_LAUNCHES,
-                realign.EXP_LAUNCHES, traceback.LAUNCHES)
+                realign.EXP_LAUNCHES, traceback.LAUNCHES, viterbi.LAUNCHES,
+                traceback.VIT_LAUNCHES, forward.LAUNCHES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters:
@@ -1160,6 +1442,11 @@ def main() -> int:
 
     em_launches = em_path_phase(workdir, dev, counters, res)
     post_launches = posterior_path_phase(workdir, dev, counters, res)
+    forward_entry = viterbi_kernel_phase(engine, main_pairs, dev, counters,
+                                         res)
+    vit_launches = viterbi_path_phase(workdir, fa, fq, dev, counters)
+    other_runs = dict(post_launches, **vit_launches)
+    other_runs["forward_entry"] = forward_entry
 
     meta = {
         "pack": ("csrc/pack.cu", "nanopore_tpu/ops/pack_pallas.py:61"),
@@ -1176,6 +1463,11 @@ def main() -> int:
             "nanopore_tpu/ops/pairhmm_pallas_realign.py:69"),
         "realign_exp": ("csrc/realign.cu",
                         "nanopore_tpu/ops/pairhmm_pallas_realign.py:69"),
+        "viterbi": ("csrc/viterbi.cu",
+                    "nanopore_tpu/ops/pairhmm_pallas_viterbi.py:72"),
+        "viterbi_traceback": ("csrc/viterbi_traceback.cu",
+                              "nanopore_tpu/ops/traceback_pallas.py:239"),
+        "forward": ("csrc/forward.cu", "nanopore_tpu/ops/pairhmm_pallas.py:92"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -1186,7 +1478,7 @@ def main() -> int:
             # launches in the driven runs together; each run's count,
             # read from counters set to 0 just before it, follows
             "launches": launches[name] + em_launches[name] + sum(
-                run[name] for run in post_launches.values()),
+                run[name] for run in other_runs.values()),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1194,8 +1486,9 @@ def main() -> int:
             "launches_map_path": launches[name],
             "launches_em_path": em_launches[name],
         }
-        for what, run in post_launches.items():
-            row["launches_%s_path" % what] = run[name]
+        for what, run in other_runs.items():
+            row["launches_%s%s" % (what, "" if what == "forward_entry"
+                                   else "_path")] = run[name]
         row.update({k: v for k, v in r.items() if k not in row
                     and k != "per_batch"})
         kernels.append(row)

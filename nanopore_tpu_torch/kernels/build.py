@@ -26,14 +26,16 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("pack", "realign", "traceback")
+SOURCES = ("pack", "realign", "traceback", "viterbi", "viterbi_traceback",
+           "forward")
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# the realign kernel keeps every multiply and add separately rounded,
-# as its plain PyTorch version does, so the two agree to the bit
-_EXTRA = {"realign": ["-fmad=false"]}
+# the realign and forward kernels keep every multiply and add separately
+# rounded, as their plain PyTorch versions do, so the two agree to the
+# bit (the Viterbi kernel only adds and takes maxima)
+_EXTRA = {"realign": ["-fmad=false"], "forward": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -4,9 +4,11 @@ Counterpart of ``nanopore_tpu/mapping/engine.py``.  One engine replaces
 the reference's four-aligner zoo (bwa mem / lastal / lastz / blasr,
 reference ``nanopore/mappers/*.py``): host-side k-mer seeding and anchor
 chaining select candidate (ref window, strand) placements, and the
-banded pair-HMM + MEA decode on the device produces the base-level
-alignment.  On a card the batch pack, the fused realign and the walker
-are CUDA kernels; with ``device="cpu"`` their plain PyTorch versions run.
+banded pair-HMM decode on the device produces the base-level
+alignment: the posterior MEA (the fused realign and its walker) or, for
+``decode="viterbi"``, the max-product Viterbi and its walker.  On a card
+the batch pack, the decode and the walker are CUDA kernels; with
+``device="cpu"`` their plain PyTorch versions run.
 
 Per-aligner behaviour differences become config presets
 (nanopore_tpu_torch.mapping.presets).
@@ -27,6 +29,7 @@ from nanopore_tpu_torch.device import resolve_device
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.dispatch import (
     PreparedRealign,
+    PreparedViterbi,
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
@@ -93,8 +96,9 @@ class MapperConfig:
     seed_stride: int = 1
     max_ref_gap: int = 5000
     max_diag_drift: int = 500
-    # extension decode: "mea" = posterior MEA (the fused realign
-    # kernel); "viterbi" (single-pass max-product) is not ported yet
+    # extension decode: "viterbi" = single-pass max-product (the Viterbi
+    # kernel and its walker); anything else = posterior MEA (the fused
+    # realign kernel)
     decode: str = "mea"
     # mixed-length batching policy: when set, candidates bucket by the
     # smallest bin >= n + m (their diagonal need) and each bucket runs
@@ -130,11 +134,6 @@ class MappingEngine:
         device=None,
     ):
         self.config = config or MapperConfig()
-        if self.config.decode != "mea":
-            raise NotImplementedError(
-                "decode=%r is not ported yet (only 'mea'): ROADMAP A6"
-                % self.config.decode
-            )
         # the card unless the caller asks for the CPU; raises when no
         # card is present
         self.device = resolve_device(device)
@@ -359,8 +358,9 @@ class MappingEngine:
         ]
 
     def _prepare_batch(self, sub, key):
-        """Host pack, upload, pack kernel and realign launch for one
-        candidate batch (runs on a prefetch worker thread).
+        """Host pack, upload, pack kernel and decode launch (the realign,
+        or the Viterbi for ``decode="viterbi"``) for one candidate batch
+        (runs on a prefetch worker thread).
 
         k_max is tightened to the batch's real diagonal need, or pinned
         to the bucket's k-bin.
@@ -370,17 +370,21 @@ class MappingEngine:
             k_max, exact_k = key[1], True
         else:
             k_max, exact_k = key[1] + key[2], False
-        prep = prepared_from_pairs(
-            {
+        if cfg.decode == "viterbi":
+            cls, kwargs = PreparedViterbi, {"device": self.device}
+        else:
+            cls, kwargs = PreparedRealign, {
                 "gap_gamma": cfg.gap_gamma,
                 "match_gamma": cfg.match_gamma,
                 "device": self.device,
-            },
+            }
+        prep = prepared_from_pairs(
+            kwargs,
             self.candidate_pairs(sub),
             self.params,
             band_width=cfg.band_width,
             k_max=k_max,
-            prepared_cls=PreparedRealign,
+            prepared_cls=cls,
             exact_k=exact_k,
         )
         return sub, prep.launch()
@@ -398,9 +402,10 @@ class MappingEngine:
         import time
 
         t0 = time.perf_counter()
-        # the walk runs on the device too: only op codes and logliks
-        # cross to the host
-        logliks, cigars, _ = prep.decode()
+        # the walk runs on the device too: only op codes and logliks (or
+        # Viterbi scores) cross to the host; the MEA decode returns its
+        # run output third
+        logliks, cigars = prep.decode()[:2]
         t1 = time.perf_counter()
         self.stage_stats.add("decode_wait", t1 - t0)
         out = []

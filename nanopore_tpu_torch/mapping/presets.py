@@ -1,8 +1,8 @@
 """Mapper-variant registry: the reference's ~50 mapper classes as presets.
 
 A copy of ``nanopore_tpu/mapping/presets.py`` (host data).  This package
-runs every preset but the Viterbi-decode ones: the engine refuses
-``decode="viterbi"`` (ROADMAP A6).
+runs every preset, the Viterbi-decode family (``decode="viterbi"``: the
+Viterbi kernel and its walker) included.
 
 The reference enumerates 4 aligners x {stock, Params} x {plain, Chain,
 Realign, RealignEm, RealignTrainedModel[20/40]} plus Combined variants as

@@ -1,8 +1,9 @@
-"""From (ref, read, guide) pairs to decoded cigars, EM sums or
-posteriors on one device.
+"""From (ref, read, guide) pairs to decoded cigars, EM sums,
+posteriors or log-likelihoods on one device.
 
-Counterpart of ``nanopore_tpu/ops/dispatch.py`` for the MEA decode, the
-EM E-step and the posteriors: ``prepared_from_pairs`` packs a batch on
+Counterpart of ``nanopore_tpu/ops/dispatch.py`` for the MEA and Viterbi
+decodes, the EM E-step, the posteriors and the forward-only
+log-likelihood: ``prepared_from_pairs`` packs a batch on
 the host, uploads the byte stream and runs the pack kernel;
 ``PreparedRealign.launch()`` enqueues the fused realign (with
 ``emit_gamma`` its decode + gamma mode) and ``decode()`` walks the
@@ -10,8 +11,11 @@ direction codes on the device, pulling only the (B, K1) op codes and the
 logliks to the host; ``PreparedEm.run(params)`` launches the realign
 kernel's EM mode on the resident codes with new model tables;
 ``PreparedPosteriors`` launches its gamma or exp mode, whose outputs
-stay on the device for ``ops.posteriors``.  The Viterbi path
-(``PreparedViterbi``: ROADMAP A6) raises ``NotImplementedError``.
+stay on the device for ``ops.posteriors``; ``PreparedViterbi.launch()``
+enqueues the Viterbi kernel and ``decode()`` walks its backpointer plane
+on the device, pulling only the op codes, end cells and scores;
+``PreparedForward.run()`` launches the forward-only kernel (the
+counterpart of the JAX package's ``PallasForwardPlan``).
 
 Tensors on the card go through the CUDA kernels, tensors on the CPU
 through their plain PyTorch versions.  Every launch goes to the calling
@@ -21,6 +25,7 @@ that synchronises with it.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,7 +40,18 @@ from nanopore_tpu_torch.ops.realign import (
     realign_exp,
     realign_gamma,
 )
-from nanopore_tpu_torch.ops.traceback import mea_walk, rle_ops_batch
+from nanopore_tpu_torch.ops.forward import forward_loglik
+from nanopore_tpu_torch.ops.traceback import (
+    mea_walk,
+    rle_ops_batch,
+    viterbi_walk,
+)
+from nanopore_tpu_torch.ops.viterbi import (
+    require_canonical_structure,
+    viterbi_forward,
+)
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -169,19 +185,65 @@ class PreparedPosteriors:
         return out
 
 
-def _not_ported(name: str, item: str):
-    class _NotPorted:
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                "%s is not ported to the PyTorch/CUDA package yet: "
-                "ROADMAP %s" % (name, item)
-            )
+class PreparedViterbi:
+    """A max-product decode batch resident on its device (the mapping
+    engine's ``decode="viterbi"`` extension).  A model outside the
+    canonical fiveState structure raises ``ValueError`` (ROADMAP C7)."""
 
-    _NotPorted.__name__ = name
-    return _NotPorted
+    def __init__(self, lite: LitePack, params: KernelParams, xyc, m, n):
+        require_canonical_structure(params)
+        self.batch = lite
+        self.params = params
+        self.xyc = xyc
+        self.m = m
+        self.n = n
+        self._out = None
+
+    def launch(self) -> "PreparedViterbi":
+        """Enqueue the Viterbi kernel now (returns before it ends)."""
+        if self._out is None:
+            self._out = viterbi_forward(self.xyc, self.m, self.n, self.params)
+        return self
+
+    def run(self) -> dict:
+        """score (B,), fstate (B,) and bp (B, k_pad + 1, W) on the
+        device."""
+        self.launch()
+        out, self._out = self._out, None
+        return out
+
+    def decode(self):
+        """(scores (B,) float64, cigars): the backpointer plane is walked
+        on the device.  A read whose walk does not reach the origin gets
+        an empty cigar (its record is dropped) and a logged error."""
+        out = self.run()
+        ops, end = viterbi_walk(out["bp"], self.xyc, self.m, self.n,
+                                out["fstate"])
+        cigars = rle_ops_batch(ops.cpu().numpy())
+        end = end.cpu().numpy()
+        for b in np.nonzero(end.any(axis=1))[0]:
+            logger.error(
+                "viterbi traceback left the band for read %d (stopped at "
+                "i=%d j=%d); emitting no alignment", b, end[b, 0], end[b, 1])
+            cigars[b] = []
+        return out["score"].cpu().numpy().astype(np.float64), cigars
 
 
-PreparedViterbi = _not_ported("PreparedViterbi", "A6")
+class PreparedForward:
+    """A forward-only batch resident on its device: ``run()`` returns
+    the log-likelihoods (B,) f32 on the device (the counterpart of the
+    JAX package's ``PallasForwardPlan``, without its uniform-band
+    requirement)."""
+
+    def __init__(self, lite: LitePack, params: KernelParams, xyc, m, n):
+        self.batch = lite
+        self.params = params
+        self.xyc = xyc
+        self.m = m
+        self.n = n
+
+    def run(self) -> torch.Tensor:
+        return forward_loglik(self.xyc, self.m, self.n, self.params)
 
 
 def prepared_from_pairs(
@@ -195,15 +257,10 @@ def prepared_from_pairs(
 ):
     """Pack (ref, read, guide) pairs onto ``cls_kwargs['device']`` and
     wrap them as ``prepared_cls`` (``PreparedRealign``,
-    ``PreparedPosteriors`` or ``PreparedEm``; ``params`` serve the
-    first two, the last takes its model at every ``run``).
-    ``exact_k=True`` pins the diagonal count to ``k_max`` (k-bin
-    bucketing) instead of tightening it."""
-    if prepared_cls not in (PreparedRealign, PreparedPosteriors, PreparedEm):
-        raise NotImplementedError(
-            "%s is not ported to the PyTorch/CUDA package yet: ROADMAP A6 "
-            "(Viterbi)" % getattr(prepared_cls, "__name__", prepared_cls)
-        )
+    ``PreparedPosteriors``, ``PreparedViterbi``, ``PreparedForward`` or
+    ``PreparedEm``; ``params`` serve all but the last, which takes its
+    model at every ``run``).  ``exact_k=True`` pins the diagonal count
+    to ``k_max`` (k-bin bucketing) instead of tightening it."""
     kwargs = dict(cls_kwargs)
     device = resolve_device(kwargs.pop("device", None))
     if not exact_k:

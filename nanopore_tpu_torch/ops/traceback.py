@@ -1,7 +1,9 @@
-"""MEA walker: forward direction codes -> per-diagonal ops -> cigars.
+"""Walkers: direction codes or Viterbi backpointers -> ops -> cigars.
 
-Counterpart of ``nanopore_tpu/ops/traceback_pallas.py``'s MEA walker and
-the traceback half of ``nanopore_tpu/ops/mea.py``.  The walk starts at
+Counterpart of ``nanopore_tpu/ops/traceback_pallas.py``'s two walkers
+and the traceback half of ``nanopore_tpu/ops/mea.py``.
+
+MEA walker (``mea_walk``).  The walk starts at
 cell (0, 0) and takes, on each diagonal it visits, the move the
 direction code of its cell names (0 diag, 1 del, 2 ins), falling back
 to D while reference remains, else I, where the code is 3 or points off
@@ -9,9 +11,20 @@ the lattice.  It emits one op code per diagonal (OP_NONE where the path
 skipped the diagonal or had ended); ``rle_ops_batch`` run-length encodes
 the op rows into global cigars consuming exactly m read and n ref bases.
 
-The band offsets the walker needs are integrated from bit 6 of the
+Viterbi walker (``viterbi_walk``): from cell (m, n) in state
+``fstate`` it walks DOWN the diagonals over the one-byte backpointer
+plane of ``ops.viterbi`` (``p = bM + 5 * (tD1 + 2 tI1 + 4 tD2 + 8 tI2)``,
+0 where the cell lies outside the band).  On the diagonal k of its cell
+it emits the op of the move into that cell (M for state 0, D for 1 and
+3, I for 2 and 4), steps back and takes the predecessor state: ``p % 5``
+from the match state, the state itself or match (its from-self bit)
+from a gap state.  It stops at the origin; a walk that does not reach
+(0, 0) leaves its end cell in the returned (i, j).
+
+The band offsets the walkers need are integrated from bit 6 of the
 packed band codes (``xyc``) already on the device, so no offsets upload
-is needed.
+is needed: the MEA walker sums them going up, the Viterbi walker sums
+them up to its start diagonal and subtracts them going down.
 """
 
 from __future__ import annotations
@@ -29,16 +42,22 @@ OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
 _OP_TO_CIG = {OP_M: CIG.M, OP_D: CIG.D, OP_I: CIG.I}
 
 LAUNCHES = kb.LaunchCounter("traceback")
+VIT_LAUNCHES = kb.LaunchCounter("viterbi_traceback")
 _SIG = {
     "np_walk_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 2,
 }
+_VIT_SIG = {
+    "np_viterbi_walk_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 3,
+}
 
 
-def _check_inputs(dirs, xyc, m, n):
+def _check_inputs(dirs, xyc, m, n, what="dirs"):
     dev = dirs.device
     if dirs.dtype != torch.int8 or dirs.dim() != 3 or not dirs.is_contiguous():
-        raise ValueError("dirs must be a contiguous (B, K1, W) int8 tensor")
+        raise ValueError("%s must be a contiguous (B, K1, W) int8 tensor"
+                         % what)
     B, K1, W = dirs.shape
     if (xyc.device != dev or xyc.dtype != torch.int8
             or tuple(xyc.shape) != (B, K1 - 1, W) or not xyc.is_contiguous()):
@@ -108,6 +127,71 @@ def mea_walk_plain(dirs, xyc, m, n) -> torch.Tensor:
         nk = torch.where(active, i + j, nk)
         ops[:, k] = op.to(torch.int8)
     return ops
+
+
+def viterbi_walk(bp, xyc, m, n, fstate):
+    """Viterbi op codes from a backpointer plane.
+
+    bp (B, K1, W) int8 (row k = diagonal k, ``ops.viterbi``), ``xyc``
+    (B, K1 - 1, W) for the band deltas, m / n / fstate (B,) int32.
+    Returns (ops (B, K1) int8 with OP_NONE off the path, end (B, 2)
+    int32: the cell (i, j) where each walk stopped, (0, 0) when it
+    reached the origin).  CUDA tensors launch the kernel, CPU tensors
+    run the plain walker.
+    """
+    _check_inputs(bp, xyc, m, n, "bp")
+    if (fstate.device != bp.device or fstate.dtype != torch.int32
+            or tuple(fstate.shape) != (bp.shape[0],)
+            or not fstate.is_contiguous()):
+        raise ValueError("fstate must be contiguous (B,) int32 on %s"
+                         % bp.device)
+    if bp.device.type == "cpu":
+        return viterbi_walk_plain(bp, xyc, m, n, fstate)
+    B, K1, W = bp.shape
+    ops = torch.empty((B, K1), dtype=torch.int8, device=bp.device)
+    end = torch.empty((B, 2), dtype=torch.int32, device=bp.device)
+    if B == 0:
+        return ops, end
+    lib = kb.library("viterbi_traceback", _VIT_SIG)
+    with torch.cuda.device(bp.device):
+        rc = lib.np_viterbi_walk_launch(
+            kb.ptr(bp), kb.ptr(xyc), kb.ptr(m), kb.ptr(n), kb.ptr(fstate),
+            B, K1 - 1, W, kb.ptr(ops), kb.ptr(end), kb.stream_of(bp),
+        )
+    kb.check(lib, rc, "viterbi_traceback")
+    VIT_LAUNCHES.add()
+    return ops, end
+
+
+def viterbi_walk_plain(bp, xyc, m, n, fstate):
+    """The Viterbi walker in plain PyTorch: vectorised over the batch,
+    one loop step per diagonal, descending."""
+    B, K1, W = bp.shape
+    dev = bp.device
+    d1 = ((xyc[:, :, 0].to(torch.int32) & 0xFF) >> 6) & 1
+    offs = torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                      torch.cumsum(d1, dim=1, dtype=torch.int32)], dim=1)
+    i = m.to(torch.int32).clone()
+    j = n.to(torch.int32).clone()
+    s = fstate.to(torch.int32).clone()
+    rows = torch.arange(B, device=dev)
+    ops = torch.empty((B, K1), dtype=torch.int8, device=dev)
+    for k in range(K1 - 1, -1, -1):
+        active = (i + j == k) & ~((i == 0) & (j == 0))
+        b = j - offs[:, k]
+        in_band = (b >= 0) & (b < W)
+        p = bp[rows, k, b.clamp(0, W - 1).long()].to(torch.int32)
+        p = torch.where(in_band, p, 0)
+        bit = ((p // 5) >> (s - 1).clamp(min=0)) & 1
+        prev = torch.where(s == 0, p % 5, s * bit)
+        is_m = s == 0
+        is_d = (s == 1) | (s == 3)
+        op = torch.where(is_m, OP_M, torch.where(is_d, OP_D, OP_I))
+        ops[:, k] = torch.where(active, op, OP_NONE).to(torch.int8)
+        i = i - (active & ~is_d).to(torch.int32)
+        j = j - (active & (is_m | is_d)).to(torch.int32)
+        s = torch.where(active, prev, s)
+    return ops, torch.stack([i, j], dim=1)
 
 
 def rle_ops_batch(ops_b: np.ndarray) -> list[list[tuple[int, int]]]:

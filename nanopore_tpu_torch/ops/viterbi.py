@@ -1,0 +1,216 @@
+"""Banded five-state Viterbi: the max-product forward over packed codes.
+
+Counterpart of the host side of ``nanopore_tpu/ops/pairhmm_pallas_viterbi.py``
+and of ``nanopore_tpu/ops/viterbi.py``: the extension decode of the
+mapping engine's ``decode="viterbi"`` presets.  One pass over the
+lattice in log space (no rescaling), emitting one backpointer byte per
+band cell per diagonal; ``ops.traceback.viterbi_walk`` walks the plane
+into op codes.
+
+Numerics, shared by the kernel (``csrc/viterbi.cu``) and the plain
+version below, operation for operation (and by the JAX package's Pallas
+kernel, to the bit):
+
+* log tables (:func:`viterbi_tables`): log transitions with the
+  structure zeros at ``NEG`` (never log(1e-37), which could win an
+  argmax from a much better predecessor), log emissions floored at
+  1e-37, computed in float32 with numpy;
+* for each destination state the max and argmax over its 5 predecessor
+  states (``pred + ltf[s * 5 + dest]``, a tie keeps the lower state),
+  taken BEFORE the band shift: the match state reads diagonal k - 2
+  shifted by d2, the delete states k - 1 by d1 - 1, the insert states
+  k - 1 by d1; shifted-in cells are ``NEG`` with backpointer 0;
+* then the emission is added and the sum clamped at ``NEG``; a cell whose
+  x (or y) code is the sentinel 5 emits ``NEG`` (N = 4 is a real code);
+* one byte per cell: ``p = bM + 5 * (tD1 + 2 tI1 + 4 tD2 + 8 tI2)``, the
+  match state's predecessor state and, for each gap state, whether it
+  came from itself (``t = bp != 0``): the canonical fiveState structure
+  enters a gap state from match or itself only
+  (:func:`viterbi_structure_ok`);
+* at band cell 0 of diagonal k_end = m + n, the score is the max over
+  the 5 states and ``fstate`` its argmax (strict ``>``);
+* diagonal 0 holds float32(log(1/5)) in cell 0 of every state, ``NEG``
+  elsewhere.
+
+A model outside the canonical structure raises ``ValueError`` on both
+devices (ROADMAP C7): the JAX package sends it to its XLA scan, which
+the port does not have.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from nanopore_tpu_torch.kernels import build as kb
+from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pairhmm import KernelParams, kernel_tables
+from nanopore_tpu_torch.ops.realign import _check_inputs, _shift
+
+NUM_STATES = 5
+NEG = -1e30
+
+LAUNCHES = kb.LaunchCounter("viterbi")
+_SIG = {
+    "np_viterbi_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 4,
+}
+
+
+def viterbi_tables(params: KernelParams) -> torch.Tensor:
+    """(91,) f32 CPU tensor of log tables: transitions (25, structure
+    zeros at ``NEG``) | match emissions (6, 6) (36) | gap emissions
+    (5, 6) (30), in the layout of ``ops.pairhmm.kernel_tables``.
+
+    Derived anew from all three tables at every call: no cache keyed on
+    a table's identity.
+    """
+    tab = kernel_tables(params).numpy()
+    tf, emf, egf = tab[:25], tab[25:61], tab[61:]
+    floor = 1e-37
+    return torch.from_numpy(np.concatenate([
+        np.where(tf > 0, np.log(np.maximum(tf, floor)), NEG)
+        .astype(np.float32),
+        np.log(np.maximum(emf, floor)).astype(np.float32),
+        np.log(np.maximum(egf, floor)).astype(np.float32),
+    ]))
+
+
+def viterbi_structure_ok(params: KernelParams) -> bool:
+    """True when every gap state is entered only from match or itself
+    (the canonical fiveState structure the one-byte backpointer
+    represents)."""
+    t = params.t.detach().to("cpu", torch.float64).reshape(5, 5).numpy()
+    for dest in range(1, NUM_STATES):
+        for src in range(NUM_STATES):
+            if src not in (0, dest) and t[src, dest] > 0:
+                return False
+    return True
+
+
+def require_canonical_structure(params: KernelParams) -> None:
+    """Raise ``ValueError`` for a model the one-byte backpointer cannot
+    represent (ROADMAP C7)."""
+    if not viterbi_structure_ok(params):
+        raise ValueError(
+            "model transition structure outside the canonical fiveState "
+            "form (gap states entered from match or self only): the "
+            "one-byte backpointer cannot represent it, and the port has no "
+            "other Viterbi (ROADMAP C7)"
+        )
+
+
+def _checked_tables(params: KernelParams) -> torch.Tensor:
+    require_canonical_structure(params)
+    return viterbi_tables(params)
+
+
+def viterbi_forward(xyc, m, n, params: KernelParams) -> dict:
+    """Banded Viterbi over packed band codes.
+
+    xyc (B, k_pad, W) int8, m / n (B,) int32 read / window lengths.
+    Returns ``score`` (B,) f32, ``fstate`` (B,) int32 and ``bp``
+    (B, k_pad + 1, W) int8, row k = diagonal k (row 0 and the rows past
+    a read's end diagonal hold zeros).  CUDA tensors launch the kernel,
+    CPU tensors run the plain version.
+    """
+    _check_inputs(xyc, m, n)
+    if xyc.device.type == "cpu":
+        return viterbi_forward_plain(xyc, m, n, params)
+    tables = _checked_tables(params)
+    B, k_pad, W = xyc.shape
+    if W not in KERNEL_BAND_WIDTHS:
+        raise ValueError("viterbi kernel serves W in %s, got %d"
+                         % (KERNEL_BAND_WIDTHS, W))
+    out = {
+        "score": xyc.new_empty(B, dtype=torch.float32),
+        "fstate": xyc.new_empty(B, dtype=torch.int32),
+        "bp": xyc.new_empty((B, k_pad + 1, W), dtype=torch.int8),
+    }
+    if B == 0:
+        return out
+    lib = kb.library("viterbi", _SIG)
+    with torch.cuda.device(xyc.device):
+        rc = lib.np_viterbi_launch(
+            ctypes.c_void_p(tables.data_ptr()), kb.ptr(xyc), kb.ptr(m),
+            kb.ptr(n), B, k_pad, W, kb.ptr(out["score"]),
+            kb.ptr(out["fstate"]), kb.ptr(out["bp"]), kb.stream_of(xyc),
+        )
+    kb.check(lib, rc, "viterbi")
+    LAUNCHES.add()
+    return out
+
+
+def viterbi_forward_plain(xyc, m, n, params: KernelParams) -> dict:
+    """The Viterbi in plain PyTorch: vectorised over batch, states and
+    band, one loop step per diagonal; the kernel's arithmetic in its
+    order."""
+    tab = _checked_tables(params).to(xyc.device)
+    B, k_pad, W = xyc.shape
+    dev = xyc.device
+    f32 = torch.float32
+    ltfT = tab[:25].reshape(5, 5).t().contiguous()  # [dest, src]
+    lemf = tab[25:61]
+    legf = tab[61:91]
+    neg = torch.tensor(NEG, dtype=f32, device=dev)
+    base = torch.arange(W, device=dev) + 1
+    kend = m.to(torch.int64) + n.to(torch.int64)
+    codes = xyc.to(torch.int32) & 0xFF
+    prev = torch.full((B, NUM_STATES, W), NEG, dtype=f32, device=dev)
+    prev[:, :, 0] = float(np.float32(np.log(1.0 / NUM_STATES)))  # diagonal 0
+    prevprev = torch.full((B, NUM_STATES, W), NEG, dtype=f32, device=dev)
+    score = torch.full((B,), NEG, dtype=f32, device=dev)
+    fstate = torch.zeros(B, dtype=torch.int32, device=dev)
+    bp = torch.zeros((B, k_pad + 1, W), dtype=torch.int8, device=dev)
+    zero_i = torch.zeros((B, NUM_STATES, W), dtype=torch.int32, device=dev)
+    gap_bits = torch.tensor([0, 5, 10, 20, 40], dtype=torch.int32,
+                            device=dev)[None, :, None]
+    for k in range(1, k_pad + 1):
+        c = codes[:, k - 1]
+        x = (c >> 3) & 7
+        y = c & 7
+        top = c[:, 0]
+        d1 = (top >> 6) & 1
+        d2 = d1 + ((top >> 7) & 1) - 1
+        okx = x < 5
+        oky = y < 5
+        xs = x.clamp(max=5)
+        ys = y.clamp(max=5)
+        emit = torch.where(
+            torch.stack([okx & oky, okx, oky, okx, oky], dim=1),
+            torch.stack([lemf[xs * 6 + ys], legf[6 + xs], legf[12 + ys],
+                         legf[18 + xs], legf[24 + ys]], dim=1),
+            neg)
+        # candidates [b, dest, src, w]: the match state reads diagonal
+        # k - 2, the gap states k - 1
+        src = torch.cat([prevprev[:, None],
+                         prev[:, None].expand(B, 4, NUM_STATES, W)], dim=1)
+        cand = src + ltfT[None, :, :, None]
+        v = cand[:, :, 0]
+        b = zero_i
+        for s in range(1, NUM_STATES):
+            b = torch.where(cand[:, :, s] > v, s, b)
+            v = torch.maximum(v, cand[:, :, s])
+        S = torch.stack([d2, d1 - 1, d1, d1 - 1, d1], dim=1)
+        v = _shift(v, S, NEG, base)
+        b = _shift(b, S, 0, base)
+        new = torch.maximum(v + emit, neg)
+        # p = bM + 5 tD1 + 10 tI1 + 20 tD2 + 40 tI2
+        p = b[:, 0] + ((b[:, 1:] != 0).to(torch.int32)
+                       * gap_bits[:, 1:]).sum(dim=1)
+        bp[:, k] = p.to(torch.int8)
+        v_end = new[:, 0, 0]
+        s_end = zero_i[:, 0, 0]
+        for s in range(1, NUM_STATES):
+            s_end = torch.where(new[:, s, 0] > v_end, s, s_end)
+            v_end = torch.maximum(v_end, new[:, s, 0])
+        is_end = kend == k
+        score = torch.where(is_end, v_end, score)
+        fstate = torch.where(is_end, s_end, fstate)
+        prevprev, prev = prev, new
+    # rows past each read's end diagonal are not part of its lattice
+    rows = torch.arange(k_pad + 1, device=dev)[None, :]
+    bp.masked_fill_((rows > kend[:, None])[:, :, None], 0)
+    return {"score": score, "fstate": fstate, "bp": bp}

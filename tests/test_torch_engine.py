@@ -196,27 +196,106 @@ def test_entry_points_raise_without_a_card(mapped, tmp_path):
                   str(tmp_path / "x.sam")])
 
 
+def _pallas_viterbi_records(jax_engine, fq, names):
+    """{(qname, flag, pos): cigar} for every candidate of the named reads,
+    decoded by the Pallas Viterbi kernel in interpret mode in one batch."""
+    import nanopore_tpu.ops.pairhmm_pallas_viterbi as ppv
+    from nanopore_tpu.io.seqio import fastq_read_raw
+
+    cands = []
+    for name, seq, _ in fastq_read_raw(fq):
+        if name in names:
+            cands.extend(jax_engine._candidates_for_read(name, seq))
+    pairs = [
+        (jax_engine.index.contig_codes(c.contig)[c.window_start:c.window_end],
+         c.read_codes, c.guide)
+        for c in cands
+    ]
+    batch = prepare_banded_batch(pairs, band_width=jax_engine.config.band_width)
+    old = ppv.CHUNK, ppv.SEG
+    ppv.CHUNK, ppv.SEG = 8, 4
+    try:
+        out = ppv.pallas_viterbi(batch, jax_engine.params, interpret=True)
+    finally:
+        ppv.CHUNK, ppv.SEG = old
+        ppv._pallas_viterbi_call.clear_cache()
+    cigars = ppv.viterbi_traceback_batch(
+        out["bp_raw"], np.asarray(batch.offsets), batch.m, batch.n,
+        out["fstate"])
+    recs = {}
+    for c, cigar in zip(cands, cigars):
+        rec = jax_engine._record_from_window_cigar(c, list(cigar), {})
+        if rec is not None:
+            recs[(rec.qname, rec.flag, rec.pos)] = rec.cigar
+    return recs
+
+
 def test_viterbi_decode_is_not_ported(mapped):
-    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    """The Viterbi decode, once refused, now maps: the port's engine with
+    ``MapperConfig(decode="viterbi")`` on the CPU against the JAX
+    package's (its XLA scan), SAM records equal field by field but for a
+    cigar that the Pallas Viterbi (interpret mode) decodes as the port
+    does: the XLA scan's tables break an exact max-product tie the other
+    way (tests/test_torch_viterbi.py)."""
+    from nanopore_tpu.mapping.engine import MapperConfig as JaxConfig
+    from nanopore_tpu.io.seqio import read_fasta_dict
 
-    with pytest.raises(NotImplementedError):
-        MappingEngine(read_fasta_dict(mapped["fa"]),
-                      MapperConfig(decode="viterbi"), device="cpu")
+    d = mapped["dir"]
+    ref = read_fasta_dict(mapped["fa"])
+    jax_engine = JaxEngine(ref, JaxConfig(decode="viterbi"))
+    jax_engine.map_fastq(mapped["fq"], str(d / "jax_vit.sam"))
+    engine = MappingEngine(ref, MapperConfig(decode="viterbi"), device="cpu")
+    engine.map_fastq(mapped["fq"], str(d / "port_vit.sam"))
+    want = _records(str(d / "jax_vit.sam"))
+    got = _records(str(d / "port_vit.sam"))
+    names = {r[0] for r in got}
+    assert len(names) == 8 and "unmappable" not in names
+    assert len(got) == len(want)
+    cigar = FIELDS.index("cigar")
+    differ = [(w, g) for w, g in zip(want, got) if w != g]
+    for w, g in differ:
+        assert w[:cigar] + w[cigar + 1:] == g[:cigar] + g[cigar + 1:]
+    if differ:
+        pallas = _pallas_viterbi_records(jax_engine, mapped["fq"],
+                                         {g[0] for _, g in differ})
+        for _, g in differ:
+            assert g[cigar] == pallas[(g[0], g[1], g[3])]
+    for qname, flag, _, pos in (r[:4] for r in got):
+        if not flag & 0x900:  # every primary at its origin
+            _, _, start, strand = qname.split("_")
+            assert bool(flag & 0x10) == bool(int(strand))
+            assert abs(pos - int(start)) <= 100
 
 
-def test_unported_paths_raise(mapped, tmp_path):
-    from nanopore_tpu_torch.mapping.runner import run_mapper
+def test_unported_paths_raise(mapped):
+    """A model outside the canonical fiveState structure (gap state 2
+    entered from gap state 1, as in tests/test_viterbi.py) raises
+    ``ValueError`` naming ROADMAP C7, in the plain Viterbi and through
+    ``prepared_from_pairs``: the port has no XLA scan to give way to."""
     from nanopore_tpu_torch.ops import dispatch
+    from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
+    from nanopore_tpu_torch.ops.viterbi import viterbi_forward_plain
 
-    with pytest.raises(NotImplementedError, match="A6"):
-        dispatch.PreparedViterbi()
-    pairs = [(np.zeros(8, np.int8), np.zeros(8, np.int8), [(0, 8)])]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    params = mapped["engine"].params
+    t = params.t.numpy().astype(np.float64).copy()
+    t[1, 2] = 0.05
+    t[1] /= t[1].sum()
+    bad = params_from_numpy(t, params.e_match_flat, params.e_gap_flat)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 4, 40).astype(np.int8)
+    pairs = [(x, x[:30].copy(), [(0, 30), (2, 10)])]
+    xyc = torch.zeros((1, 128, 8), dtype=torch.int8)
+    m = torch.tensor([30], dtype=torch.int32)
+    n = torch.tensor([40], dtype=torch.int32)
+    with pytest.raises(ValueError, match="C7"):
+        viterbi_forward_plain(xyc, m, n, bad)
+    with pytest.raises(ValueError, match="C7"):
         dispatch.prepared_from_pairs(
-            {"device": "cpu"}, pairs, mapped["engine"].params,
+            {"device": "cpu"}, pairs, bad, band_width=8,
             prepared_cls=dispatch.PreparedViterbi,
         )
-    for name in ("Viterbi", "ViterbiRealign"):
-        with pytest.raises(NotImplementedError):
-            run_mapper(name, mapped["fq"], "reads", mapped["fa"],
-                       str(tmp_path / "x.sam"), device="cpu")
+    # the canonical model passes through the same call
+    dispatch.prepared_from_pairs(
+        {"device": "cpu"}, pairs, params, band_width=8,
+        prepared_cls=dispatch.PreparedViterbi,
+    )

@@ -213,6 +213,22 @@ def test_unported_runner_paths_name_their_roadmap_item(inputs):
     with pytest.raises(NotImplementedError, match="A5"):
         run_mapper("LastParams", fq, "reads", fa, str(d / "x.sam"),
                    distributed=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_mapper("ViterbiRealign", fq, "reads", fa, str(d / "x.sam"),
-                   device="cpu")
+
+
+def test_viterbi_realign_matches_jax(inputs):
+    """``ViterbiRealign``: the Viterbi mapping, chain and MEA realign.
+    The Viterbi mapping SAMs equal; the realigned SAM equals the JAX
+    package's up to the Pallas ties of the realign, with the JAX
+    package's chain of its own Viterbi mapping as the guides."""
+    d, fa, fq = inputs["dir"], inputs["fa"], inputs["fq"]
+    port, jax_ = _run_preset(inputs, "ViterbiRealign")
+    p_map, j_map = _run_preset(inputs, "Viterbi")
+    assert sam_records(p_map) == sam_records(j_map)
+    jax_chain_sam_file(j_map, str(d / "j_vit_chain.sam"), fq, fa)
+    spec = JAX_PRESETS["ViterbiRealign"]
+    assert spec.config.decode == MAPPER_REGISTRY["ViterbiRealign"].config.decode
+    assert_sam_equal_up_to_pallas_ties(
+        port, jax_, str(d / "j_vit_chain.sam"), fa, JaxModel.default(),
+        spec.gap_gamma, spec.match_gamma, spec.band_width)
+    recs = sam_records(port)
+    assert len(recs) == 8 and all(r[3] == 0 for r in recs)

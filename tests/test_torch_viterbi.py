@@ -1,0 +1,278 @@
+"""Port's plain Viterbi and Viterbi walker vs the JAX package.
+
+The same seeded pairs (match, deletion and insertion guides, N bases,
+mixed lengths), packed by each package, at W = 8 and W = 32:
+
+* the JAX Pallas Viterbi in interpret mode (CHUNK/SEG patched small as
+  tests/test_pallas_viterbi.py does): score within 1e-5 relative,
+  fstate identical and the backpointer plane byte-identical on every
+  lattice cell;
+* the JAX XLA scan (``viterbi_decode_batch`` + ``viterbi_traceback``):
+  score within 1e-5 relative.  Its tables are per-cell logs with
+  structure zeros at log(1e-37), so an exact max-product tie (a gap
+  shifted within a homopolymer) can break the other way: a cigar may
+  differ from the scan's only where the Pallas decode gives the port's;
+* the walker: ``viterbi_walk_plain`` on the JAX interpret-mode plane
+  gives, after ``rle_ops_batch``, the cigars of ``viterbi_traceback_batch``
+  and of the Pallas walker in interpret mode;
+* the structure guard: ``viterbi_structure_ok`` agrees with the JAX
+  package's on the shipped models, and a model outside the canonical
+  fiveState structure raises ``ValueError`` (ROADMAP C7).
+
+Each test builds its JAX ``KernelParams`` afresh: the JAX package keeps a
+table cache keyed on the transition table's identity.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import nanopore_tpu.ops.pairhmm_pallas_realign as ppr
+import nanopore_tpu.ops.pairhmm_pallas_viterbi as ppv
+import nanopore_tpu.ops.traceback_pallas as tbp
+from nanopore_tpu.align.model import PairHmmModel as JaxModel
+from nanopore_tpu.io.sam import CIG
+from nanopore_tpu.mapping.runner import trained_model_path
+from nanopore_tpu.ops.pairhmm import make_kernel_params as jax_params
+from nanopore_tpu.ops.pairhmm import prepare_banded_batch
+from nanopore_tpu.ops.viterbi import viterbi_decode_batch, viterbi_traceback
+from nanopore_tpu_torch.align.model import PairHmmModel
+from nanopore_tpu_torch.ops import dispatch
+from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
+from nanopore_tpu_torch.ops.pairhmm import make_kernel_params, params_from_numpy
+from nanopore_tpu_torch.ops.realign import untile
+from nanopore_tpu_torch.ops.traceback import (
+    OP_NONE,
+    rle_ops_batch,
+    viterbi_walk,
+    viterbi_walk_plain,
+)
+from nanopore_tpu_torch.ops.viterbi import (
+    NEG,
+    viterbi_forward,
+    viterbi_forward_plain,
+    viterbi_structure_ok,
+    viterbi_tables,
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def small_kernel_geometry():
+    olds = (ppv.CHUNK, ppv.SEG, ppr.CHUNK, ppr.SEG, tbp.CHUNK)
+    ppv.CHUNK, ppv.SEG, ppr.CHUNK, ppr.SEG, tbp.CHUNK = 8, 4, 8, 4, 64
+    yield
+    ppv.CHUNK, ppv.SEG, ppr.CHUNK, ppr.SEG, tbp.CHUNK = olds
+    ppv._pallas_viterbi_call.clear_cache()
+    ppr._pallas_realign_call.clear_cache()
+    tbp._vit_tb_call.clear_cache()
+
+
+def mixed_pairs(rng):
+    """tests/test_pallas_viterbi.py's three guides, an N in the reference
+    and the read, and a longer read with both indels."""
+    pairs = []
+    x0 = rng.integers(0, 4, 18).astype(np.int8)
+    y0 = x0.copy()
+    y0[rng.integers(0, 18, 3)] = rng.integers(0, 4, 3)
+    pairs.append((x0, y0, [(CIG.M, 18)]))
+    x1 = rng.integers(0, 4, 16).astype(np.int8)
+    pairs.append((x1, x1[:10].copy(), [(CIG.M, 5), (CIG.D, 6), (CIG.M, 5)]))
+    x2 = rng.integers(0, 4, 10).astype(np.int8)
+    y2 = np.concatenate([x2[:5], rng.integers(0, 4, 6).astype(np.int8),
+                         x2[5:]])
+    pairs.append((x2, y2, [(CIG.M, 5), (CIG.I, 6), (CIG.M, 5)]))
+    x3 = rng.integers(0, 4, 20).astype(np.int8)
+    y3 = x3[:17].copy()
+    x3[4] = 4  # N in the reference
+    y3[9] = 4  # N in the read
+    pairs.append((x3, y3, [(CIG.M, 17), (CIG.D, 3)]))
+    x4 = rng.integers(0, 4, 70).astype(np.int8)
+    y4 = np.concatenate([x4[:20], x4[28:50],
+                         rng.integers(0, 4, 9).astype(np.int8), x4[50:]])
+    sub = rng.random(len(y4)) < 0.08
+    y4 = np.where(sub, rng.integers(0, 4, len(y4)), y4).astype(np.int8)
+    pairs.append((x4, y4, [(CIG.M, 20), (CIG.D, 8), (CIG.M, 22), (CIG.I, 9),
+                           (CIG.M, 20)]))
+    return pairs
+
+
+def port_run(pairs, W, K):
+    prep = pack_stream_pairs(pairs, W, K)
+    t = torch.from_numpy
+    m, n = t(prep["m"]), t(prep["n"])
+    xyc = pack_xyc(t(prep["stream"]), t(prep["initx"]), m, n)
+    out = viterbi_forward_plain(xyc, m, n,
+                                make_kernel_params(PairHmmModel.default()))
+    return out, xyc, m, n, prep
+
+
+def lattice_cells(offsets, m, n, W):
+    """(k, w) of every lattice cell of diagonals 1..m+n."""
+    cells = []
+    for k in range(1, m + n + 1):
+        for w in range(W):
+            j = int(offsets[k]) + w
+            if 0 <= j <= n and 0 <= k - j <= m:
+                cells.append((k, w))
+    return cells
+
+
+def cigar_consumes(cigar, m, n):
+    return (sum(ln for op, ln in cigar if op in (CIG.M, CIG.I)) == m
+            and sum(ln for op, ln in cigar if op in (CIG.M, CIG.D)) == n)
+
+
+@pytest.fixture(scope="module", params=[8, 32])
+def case(request):
+    W = request.param
+    pairs = mixed_pairs(np.random.default_rng(41))
+    batch = prepare_banded_batch(pairs, band_width=W)
+    want = ppv.pallas_viterbi(batch, jax_params(JaxModel.default()),
+                              interpret=True)
+    got, xyc, m, n, prep = port_run(pairs, W, batch.k_max)
+    return dict(W=W, pairs=pairs, batch=batch, want=want, got=got, xyc=xyc,
+                m=m, n=n, prep=prep)
+
+
+def test_plain_matches_pallas_interpret(case):
+    want, got, W = case["want"], case["got"], case["W"]
+    np.testing.assert_allclose(got["score"].numpy(),
+                               np.asarray(want["score"]), rtol=1e-5)
+    np.testing.assert_array_equal(got["fstate"].numpy(),
+                                  np.asarray(want["fstate"]))
+    bp_j = untile(want["bp_raw"], len(case["pairs"]))
+    bp_p = got["bp"].numpy()
+    offsets = case["prep"]["offsets"]
+    want_offsets = np.asarray(case["batch"].offsets)
+    np.testing.assert_array_equal(offsets[:, :want_offsets.shape[1]],
+                                  want_offsets)
+    for b, (x, y, _) in enumerate(case["pairs"]):
+        cells = lattice_cells(offsets[b], len(y), len(x), W)
+        ks, ws = np.array(cells).T
+        np.testing.assert_array_equal(bp_p[b, ks, ws], bp_j[b, ks, ws])
+        assert bp_p[b].max() < 80 and bp_p[b, 0].max() == 0
+
+
+def test_plain_matches_xla_scan_up_to_ties(case):
+    batch, pairs, got = case["batch"], case["pairs"], case["got"]
+    scores, fstates, bps = viterbi_decode_batch(
+        batch, jax_params(JaxModel.default()))
+    np.testing.assert_allclose(got["score"].numpy(), np.asarray(scores),
+                               rtol=1e-5)
+    ops, end = viterbi_walk_plain(got["bp"], case["xyc"], case["m"],
+                                  case["n"], got["fstate"])
+    assert not end.any()
+    cigars = rle_ops_batch(ops.numpy())
+    pallas = ppv.viterbi_traceback_batch(
+        case["want"]["bp_raw"], np.asarray(batch.offsets), batch.m, batch.n,
+        case["want"]["fstate"])
+    offsets, bps, fstates = (np.asarray(a) for a in
+                             (batch.offsets, bps, fstates))
+    for b, (x, y, _) in enumerate(pairs):
+        xla = viterbi_traceback(bps[b], offsets[b], len(y), len(x),
+                                int(fstates[b]))
+        assert cigars[b] == xla or cigars[b] == pallas[b]
+        assert cigar_consumes(cigars[b], len(y), len(x))
+
+
+def test_walker_matches_jax_walkers_on_the_pallas_plane(case):
+    """The port's plain walker on the JAX interpret-mode plane, read for
+    read: the XLA walk of the plane and the Pallas walker."""
+    batch, pairs, want = case["batch"], case["pairs"], case["want"]
+    bp_j = untile(want["bp_raw"], len(pairs))
+    K1 = case["xyc"].shape[1] + 1
+    bp = np.zeros((len(pairs), K1, case["W"]), np.int8)
+    rows = min(K1, bp_j.shape[1])
+    bp[:, :rows] = bp_j[:, :rows]
+    bp[:, 0] = 0
+    fstate = torch.from_numpy(np.asarray(want["fstate"]).astype(np.int32))
+    ops, end = viterbi_walk_plain(torch.from_numpy(bp), case["xyc"],
+                                  case["m"], case["n"], fstate)
+    assert not end.any()
+    got = rle_ops_batch(ops.numpy())
+    offsets = np.asarray(batch.offsets)
+    xla = ppv.viterbi_traceback_batch(want["bp_raw"], offsets, batch.m,
+                                      batch.n, want["fstate"])
+    pallas = tbp.viterbi_cigars_pallas(
+        want["bp_raw"], offsets, np.asarray(batch.m), np.asarray(batch.n),
+        np.asarray(want["fstate"]), interpret=True)
+    for b, (x, y, _) in enumerate(pairs):
+        assert got[b] == xla[b] == pallas[b]
+        assert cigar_consumes(got[b], len(y), len(x))
+        # one op per path diagonal, none elsewhere
+        assert (ops[b] != OP_NONE).sum() == sum(ln for _, ln in got[b])
+
+
+def test_wrappers_route_cpu_tensors_to_plain_and_check_inputs(case):
+    params = make_kernel_params(PairHmmModel.default())
+    a = viterbi_forward(case["xyc"], case["m"], case["n"], params)
+    for key in ("score", "fstate", "bp"):
+        assert torch.equal(a[key], case["got"][key])
+    with pytest.raises(ValueError):
+        viterbi_forward(case["xyc"], case["m"].long(), case["n"], params)
+    ops, end = viterbi_walk(a["bp"], case["xyc"], case["m"], case["n"],
+                            a["fstate"])
+    ops_p, end_p = viterbi_walk_plain(a["bp"], case["xyc"], case["m"],
+                                      case["n"], a["fstate"])
+    assert torch.equal(ops, ops_p) and torch.equal(end, end_p)
+    with pytest.raises(ValueError):
+        viterbi_walk(a["bp"], case["xyc"], case["m"], case["n"],
+                     a["fstate"].long())
+
+
+def test_walk_off_the_band_reports_its_end_cell(case):
+    """A plane that leads the walk out of the band: the walker stops
+    short of the origin and reports where (the decode then drops the
+    read with a logged error)."""
+    got = case["got"]
+    bp = torch.zeros_like(got["bp"])  # every state from match: all M
+    ops, end = viterbi_walk_plain(bp, case["xyc"], case["m"], case["n"],
+                                  torch.zeros_like(got["fstate"]))
+    m, n = case["m"].numpy(), case["n"].numpy()
+    lost = end.numpy().any(axis=1)
+    assert lost[m != n].all() and not lost[m == n].any()
+
+
+def test_tables_equal_the_jax_log_tables_to_the_bit():
+    for name in (None, "blasr_hmm_0.txt", "blasr_hmm_20.txt",
+                 "blasr_hmm_40.txt"):
+        jm = (JaxModel.load(trained_model_path(name)) if name
+              else JaxModel.default())
+        pm = (PairHmmModel.load(trained_model_path(name)) if name
+              else PairHmmModel.default())
+        want = np.concatenate(ppv._log_tables(jax_params(jm)))
+        got = viterbi_tables(make_kernel_params(pm)).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert (got[:25] == NEG).sum() == (pm.transitions == 0).sum() > 0
+
+
+def _noncanonical(params):
+    """tests/test_viterbi.py's model outside the fiveState structure:
+    gap state 2 entered from gap state 1."""
+    t = np.asarray(params.t, np.float64).reshape(5, 5).copy()
+    t[1, 2] = 0.05
+    t[1] /= t[1].sum()
+    return t.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", [None, "blasr_hmm_0.txt", "blasr_hmm_20.txt",
+                                  "blasr_hmm_40.txt", "noncanonical"])
+def test_structure_guard_agrees_with_jax(name):
+    if name in (None, "noncanonical"):
+        jm, pm = JaxModel.default(), PairHmmModel.default()
+    else:
+        jm = JaxModel.load(trained_model_path(name))
+        pm = PairHmmModel.load(trained_model_path(name))
+    jp, pp = jax_params(jm), make_kernel_params(pm)
+    if name == "noncanonical":
+        jp = jp._replace(t=_noncanonical(jp))
+        pp = params_from_numpy(_noncanonical(pp), pp.e_match_flat,
+                               pp.e_gap_flat)
+    assert viterbi_structure_ok(pp) is ppv.viterbi_structure_ok(jp)
+    assert viterbi_structure_ok(pp) is (name != "noncanonical")
+    if name == "noncanonical":
+        pairs = mixed_pairs(np.random.default_rng(41))[:2]
+        with pytest.raises(ValueError, match="C7"):
+            dispatch.prepared_from_pairs({"device": "cpu"}, pairs, pp,
+                                         band_width=8,
+                                         prepared_cls=dispatch.PreparedViterbi)
