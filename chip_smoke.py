@@ -7,7 +7,9 @@
    version, and builds the kernels from ``nanopore_tpu_torch/csrc`` with
    nvcc (one process per source, in parallel, each printing its
    ``ptxas -v`` registers and spills; the realign source holds the
-   decode, EM, gamma, decode + gamma and exp modes).
+   decode, EM, gamma, decode + gamma and exp modes, and each mode's
+   registers, local memory (spills) and static and dynamic shared memory
+   at W = 64 and 32 are printed from the compiled kernel).
 2. Makes two seeded workloads of 512 reads of 5 kb (5 % deletions, 10 %
    substitutions, both strands, origin and strand in each read name): on
    a 1 Mb random reference for the mapping path, and on a 48,502-bp one
@@ -42,11 +44,15 @@
    reference, and under the random start its EM sums can leave the f32
    range (``align.em.representable``): kernel and plain version must
    then agree on which entries are finite, and the bars hold on the
-   other reads.
+   other reads.  The EM batch must take one launch; its short reads
+   (m + n <= k_pad / 4), re-packed without the far-end windows, must
+   give the kernel's sums bit for bit, and so must the whole batch under
+   a quarter of the workspace cap (several launches).
 6. EM path, end to end: ``run_mapper("LastParamsRealignEm", ...)`` with
    ``EmOptions(trials=2, iterations=10)`` twice, the second timed, every
    counter set to 0 before it.  Every kernel of the path (pack, realign
-   decode, realign EM, walker) must have launched; the reads that
+   decode, realign EM, walker) must have launched; the E-step's launches
+   and device time per iteration are printed; the reads that
    ``em_train`` left out of its counts are printed; each trial's running
    likelihood must not decrease from its 2nd iteration on; the written
    model must load with rows that sum to 1; the SAM must hold one global
@@ -333,7 +339,8 @@ def kernel_phase(engine, fq: str, dev) -> tuple:
     if cig_diff > 0.01 * B:
         fail("%d reads' cigars differ (> 1%%)" % cig_diff)
     ms = cuda_ms(lambda: realign_decode(xyc, m, n, params, cfg.gap_gamma,
-                                        cfg.match_gamma), 3)
+                                        cfg.match_gamma, kend=prep["k_end"]),
+                 3)
     bound, by = realign_bound(
         REALIGN_OPS_PER_CELL, W, need_diags,
         B * k_pad * W + B * (k_pad + 1) * W + 8 * B + 8 * B)
@@ -519,7 +526,8 @@ def em_kernel_phase(chained_sam: str, fa: str, dev, res: dict) -> None:
              held.sum(), B, time.perf_counter() - t0))
     if ll_rel > 1e-5 or max(rels.values()) > 3e-5:
         fail("EM kernel outside tolerance")
-    ms = cuda_ms(lambda: realign_em(xyc, m, n, params), 3)
+    ms = cuda_ms(lambda: realign_em(xyc, m, n, params, kend=prep["k_end"]),
+                 3)
     need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     bound, by = realign_bound(REALIGN_EM_OPS_PER_CELL, W, need,
                               B * k_pad * W + 8 * B + B * 106 * 4)
@@ -532,7 +540,48 @@ def em_kernel_phase(chained_sam: str, fa: str, dev, res: dict) -> None:
     print("K2-em: %.3f ms per batch of %d in %d launch(es) (plain %.1f ms "
           "on %d reads)" % (ms, B, res["realign_em"]["per_batch"], plain_ms,
                             P))
-    del xyc, out_k, out_p
+    print("K2-em: launches per E-step %d" % res["realign_em"]["per_batch"])
+    if res["realign_em"]["per_batch"] != 1:
+        fail("the EM batch took %d launches, not 1"
+             % res["realign_em"]["per_batch"])
+    # a read's sums do not depend on its batch's diagonal count: the
+    # short reads re-packed without the far-end windows, kernel against
+    # kernel, bit for bit (NaN patterns included)
+    kend = prep["m"].astype(np.int64) + prep["n"]
+    short = np.nonzero(4 * kend <= k_pad)[0]
+    if len(short) < 0.9 * B:
+        fail("only %d of %d EM reads are short" % (len(short), B))
+    xs, ms_, ns, ps = device_batch([pairs[i] for i in short], W, None, dev,
+                                   "EM short reads", check_pack=False)
+    out_s = realign_em(xs, ms_, ns, params)
+    sel = torch.from_numpy(short).to(dev)
+    differ = [key for key in ("loglik", "trans", "emis")
+              if not torch.equal(out_k[key][sel].view(torch.int32),
+                                 out_s[key].view(torch.int32))]
+    print("K2-em: the %d short reads (m + n <= k_pad / 4) re-packed without "
+          "the other %d at k_pad %d: sums %s to the full batch's"
+          % (len(short), B - len(short), ps["k_pad"],
+             "bit-identical" if not differ else "DIFFERENT in %s" % differ))
+    if differ:
+        fail("EM sums of the short reads depend on the batch's k_pad")
+    # the plan's other branch: under a quarter of the workspace cap the
+    # batch takes several launches, with the same sums
+    cap, box = realign.WORKSPACE_BYTES, []
+    realign.WORKSPACE_BYTES = cap // 4
+    try:
+        n_split = launches_per_call(realign.EM_LAUNCHES, lambda: box.append(
+            realign_em(xyc, m, n, params, kend=prep["k_end"])))
+    finally:
+        realign.WORKSPACE_BYTES = cap
+    differ = [key for key in ("loglik", "trans", "emis")
+              if not torch.equal(out_k[key].view(torch.int32),
+                                 box[0][key].view(torch.int32))]
+    print("K2-em: under a quarter of the workspace cap, %d launches: sums %s"
+          % (n_split, "bit-identical" if not differ
+             else "DIFFERENT in %s" % differ))
+    if n_split < 2 or differ:
+        fail("the EM batch split over launches differs")
+    del xyc, out_k, out_p, xs, out_s, box
 
     # ---- K1, K2 decode and K3 at W = 32: the realign stage's fullest
     # bucket of window shapes (windows of pad 128) ----
@@ -580,7 +629,8 @@ def em_kernel_phase(chained_sam: str, fa: str, dev, res: dict) -> None:
         fail("realign kernel at W=32 outside tolerance")
     if cig_diff > 0.01 * P:
         fail("%d reads' cigars differ at W=32 (> 1%%)" % cig_diff)
-    ms = cuda_ms(lambda: realign_decode(xyc, m, n, dflt), 3)
+    ms = cuda_ms(lambda: realign_decode(xyc, m, n, dflt, kend=prep["k_end"]),
+                 3)
     need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     bound, by = realign_bound(
         REALIGN_OPS_PER_CELL, W_REALIGN, need,
@@ -685,11 +735,12 @@ def em_path_phase(workdir: str, dev, counters, res: dict) -> dict:
              snap["post_chain"]["seconds"], snap["post_em"]["seconds"],
              snap["post_realign"]["seconds"], em_peak / 1e9, em_launches))
     print("EM path: %d iterations (per trial %s); E-step %.3f ms on the "
-          "device and %.4f s on the host clock per iteration, flank "
-          "correction %.4f s per iteration, M-step %.6f s per iteration; "
-          "final logliks %s"
+          "device in %.2f launch(es) and %.4f s on the host clock per "
+          "iteration, flank correction %.4f s per iteration, M-step %.6f s "
+          "per iteration; final logliks %s"
           % (its, checks["iterations"],
              snap["em_e_step_device"]["seconds"] / its * 1e3,
+             em_launches["realign_em"] / its,
              snap["em_e_step"]["seconds"] / its,
              snap["em_flank"]["seconds"] / its,
              snap["em_m_step"]["seconds"] / its, checks["final_loglik"]))
@@ -795,7 +846,8 @@ def posterior_kernel_phase(fq: str, local_sam: str, global_sam: str,
              ll_rel, P, time.perf_counter() - t0))
     if err > 5e-5 or ll_rel > 1e-5:
         fail("gamma mode outside tolerance")
-    ms = cuda_ms(lambda: realign_gamma(xyc, m, n, params0), 3)
+    ms = cuda_ms(lambda: realign_gamma(xyc, m, n, params0,
+                                       kend=prep["k_end"]), 3)
     need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     bound, by = realign_bound(REALIGN_GAMMA_OPS_PER_CELL, W, need,
                               Bu * k_pad * W + Bu * (k_pad + 1) * W * 4
@@ -837,7 +889,8 @@ def posterior_kernel_phase(fq: str, local_sam: str, global_sam: str,
              ll_rel, sc_rel, dirs_rows, P, time.perf_counter() - t0))
     if err > 5e-5 or ll_rel > 1e-5 or sc_rel > 1e-4 or dirs_rows > 0.01 * P:
         fail("decode + gamma mode outside tolerance")
-    ms = cuda_ms(lambda: realign_decode(xyc, m, n, dflt, emit_gamma=True), 3)
+    ms = cuda_ms(lambda: realign_decode(xyc, m, n, dflt, emit_gamma=True,
+                                        kend=prep["k_end"]), 3)
     need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     bound, by = realign_bound(
         REALIGN_OPS_PER_CELL, W_REALIGN, need,
@@ -884,7 +937,8 @@ def posterior_kernel_phase(fq: str, local_sam: str, global_sam: str,
              ll_rel, P, time.perf_counter() - t0))
     if err > 5e-5 or ll_rel > 1e-5:
         fail("exp mode outside tolerance")
-    ms = cuda_ms(lambda: realign_exp(xyc, m, n, dflt, SNP_THRESHOLD), 3)
+    ms = cuda_ms(lambda: realign_exp(xyc, m, n, dflt, SNP_THRESHOLD,
+                                     kend=prep["k_end"]), 3)
     need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     bound, by = realign_bound(
         REALIGN_EXP_OPS_PER_CELL, W, need,
@@ -920,7 +974,8 @@ def posterior_kernel_phase(fq: str, local_sam: str, global_sam: str,
                                       "SNP caller bucket %s" % (key,),
                                       check_pack=key == longest)
         far_ms["%dx%d" % key] = cuda_ms(
-            lambda: realign_exp(xl, ml, nl, dflt, SNP_THRESHOLD), 3)
+            lambda: realign_exp(xl, ml, nl, dflt, SNP_THRESHOLD,
+                                kend=pl["k_end"]), 3)
         print("K2-exp W=64 bucket %s: %d reads at k_pad %d, %.3f ms per "
               "launch" % (key, len(lp), pl["k_pad"], far_ms["%dx%d" % key]))
         if key == longest:
@@ -1401,6 +1456,13 @@ def main() -> int:
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
     print("build: %.1f s" % build.build())
+    for width in (W, W_REALIGN):
+        for mode, a in realign.kernel_attributes(width).items():
+            print("realign %s W=%d: %d registers, %d bytes of local memory "
+                  "(spills) a thread, %d + %d bytes of static + dynamic "
+                  "shared memory a block"
+                  % (mode, width, a["registers"], a["local_bytes"],
+                     a["static_smem"], a["dynamic_smem"]))
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
     print("native seedchain: %s" % native_index.get_lib()._name)

@@ -37,17 +37,42 @@
 // ops/realign.py; this file is built with -fmad=false so no multiply and
 // add fuse and the two agree to the bit.
 //
-// Bound: operations.  About 134 f32 operations per band cell per
-// diagonal against 2 bytes of codes in and 1 byte of directions out; the
-// recursion is a serial chain over ~10^4 diagonals per read.
-// Design: one warp per read, each lane owning C = W/32 adjacent band
-// cells in registers, so a band shift is one warp shuffle and the band
-// maximum a 5-step butterfly; reads are independent, so thousands of
-// warps fill the card and hide each other's latency.  The model tables
-// sit in shared memory.  Codes and stored states of the next diagonal
-// are loaded before the current one is computed.  The workspace costs
-// 5*W*4 bytes per diagonal per read of device-memory traffic each way
-// (recomputing the forward from checkpoints instead is later work).
+// Bound: operations by the card's peak (135-182 f32 operations per band
+// cell per diagonal, by mode, against 2 bytes of codes in); in fact the
+// latency of each read's serial chain of diagonals.  Design:
+//  * one warp per read, each lane owning C = W/32 adjacent band cells in
+//    registers, so a band shift is one warp shuffle.  The band maximum is
+//    each lane's fmaxf over its cells, then one __reduce_max_sync over
+//    the bit patterns: the states are non-negative, so their patterns
+//    order as their values, and a lane whose cells are all NaN keys as 0,
+//    which keeps fmaxf's skipping of NaN and the "scale > 0" rule.
+//  * each read runs only its own diagonals: 1..kq in phase A and kq..0
+//    in phase B, kq = m + n rounded up to even (the rescale cadence keeps
+//    its parity).  Past its end a read's states are zero and its g-factor
+//    0, so the diagonals it skips would change nothing (the plain version
+//    runs them all; the CPU tests hold the two equal bit for bit).  The
+//    output rows past kq get what those diagonals give there: 0 in the
+//    gamma band and the retire rows, 3 (none) in the direction codes,
+//    written with 16-byte stores before phase A.
+//  * a ragged workspace: read r's forward states (kq rows of 5 x W f32,
+//    row k-1 = diagonal k) and then its rescale inverses (kq + 1 floats,
+//    padded to 16 bytes) sit at woff[r] floats, a 64-bit exclusive
+//    prefix sum that the wrapper computes from the host's m and n, so a
+//    launch holds what its reads need rather than B x k_pad rows.
+//  * no global load on the chain: each warp stages its codes (phase A,
+//    CH + 1 rows a chunk for the one-ahead emission lookup) and its
+//    stored states, codes and rescale inverses (phase B) through shared
+//    memory in chunks of CH diagonals with cp.async, double-buffered, so
+//    the next chunk is in flight while the current one is computed.
+//    Phase A looks up the emission factors of the diagonal after the one
+//    it computes; phase B carries them from the step before.  Phase A's
+//    state stores are plain coalesced stores, off the chain.
+//  * the tail: a launch lasts as long as its longest read, and once the
+//    short reads are done the long ones run one warp per scheduler with
+//    nothing to hide their latency (the EM batch's far-end windows, the
+//    SNP caller's far-end buckets of 2-3 reads).
+// The model tables sit in shared memory.  The workspace costs 5*W*4
+// bytes per diagonal per read of device-memory traffic each way.
 //
 // EM mode adds 57 accumulators per lane (25 transition products, 16
 // match bins, 2 x 4 delete bins by the x code, 2 x 4 insert bins by the
@@ -91,6 +116,7 @@ constexpr int NS = 5;
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 2;  // reads per block
+constexpr int CH = 8;     // diagonals per staged chunk (even: phase A steps in pairs)
 // tf 25 | emf 36 | egf 30 | gap gamma | match gamma | exp threshold
 constexpr int NTAB = 94;
 // kernel modes (the ``mode`` argument of np_realign_launch)
@@ -99,6 +125,55 @@ constexpr int DECODE = 0, EM_MODE = 1, GAMMA = 2, DECODE_GAMMA = 3, EXP = 4;
 struct Tables {
   float v[NTAB];
 };
+
+// One warp's staging buffers in shared memory, two chunks deep.  Chunk q
+// of phase A holds the code rows of diagonals q*CH + 1 .. q*CH + CH + 1
+// (row i: diagonal q*CH + i + 1); chunk q of phase B holds, in slot s,
+// the forward states and codes of diagonal q*CH + s and sf[q*CH + s + 1].
+template <int C>
+struct __align__(16) Stage {
+  float st[2][CH][NS * 32 * C];
+  uint8_t cd[2][CH + 1][32 * C];
+  float sf[2][CH];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait for this lane's copies; the caller's __syncwarp then shows every
+// lane's copies to the warp
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// nbytes (a multiple of 16) from global src to shared dst, 16 bytes a copy
+__device__ __forceinline__ void warp_copy(void* dst, const void* src, int nbytes, int lane) {
+  for (int i = lane * 16; i < nbytes; i += 32 * 16)
+    cp_async16((char*)dst + i, (const char*)src + i);
+}
+
+// rows kq + 1 .. k_pad of one read's (k_pad + 1) x row_bytes output, each
+// 4-byte word set to `word`; row_bytes and the row starts are 16-byte
+// multiples
+__device__ __forceinline__ void fill_rows(void* base, int kq, int k_pad, int row_bytes,
+                                          uint32_t word, int lane) {
+  char* p = (char*)base + (size_t)(kq + 1) * row_bytes;
+  const size_t nbytes = (size_t)(k_pad - kq) * row_bytes;
+  const uint4 v = make_uint4(word, word, word, word);
+  for (size_t i = (size_t)lane * 16; i < nbytes; i += 32 * 16)
+    *reinterpret_cast<uint4*>(p + i) = v;
+}
 
 // out[w] = a[w + s] for a warp-uniform s in {-1, 0, 1}; `fill` outside.
 template <int C>
@@ -120,6 +195,10 @@ __device__ __forceinline__ void shift(const float (&a)[C], float (&o)[C], int s,
   }
 }
 
+// The band maximum as fmaxf gives it: the states are non-negative, so
+// their bit patterns order as their values; a lane whose cells are all
+// NaN keys as 0 (fmaxf skips NaN, and a NaN or 0 maximum both mean
+// "no scale" to the caller).
 template <int C>
 __device__ __forceinline__ float band_max(const float (&v)[NS][C]) {
   float mx = v[0][0];
@@ -127,10 +206,8 @@ __device__ __forceinline__ float band_max(const float (&v)[NS][C]) {
   for (int s = 0; s < NS; ++s)
 #pragma unroll
     for (int c = 0; c < C; ++c) mx = fmaxf(mx, v[s][c]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-  return mx;
+  const int key = mx == mx ? __float_as_int(mx) : 0;
+  return __int_as_float(__reduce_max_sync(FULL, key));
 }
 
 // sum_s tf[s*5 + dest] * p[s], each product and sum rounded on its own
@@ -185,11 +262,27 @@ __device__ __forceinline__ void store_states(float* row, int w0, const float (&f
   }
 }
 
-// One forward anti-diagonal: nw from prev (k-1) and pp (k-2, scaled by r).
+// emission factors [e_m, gx1, gy2, gx3, gy4] of a lane's cells
 template <int C>
-__device__ __forceinline__ void fwd_step(const float* tf, const float* emf,
-                                         const float* egf, const uint8_t (&code)[C],
-                                         int d1, int d2, const float (&prev)[NS][C],
+__device__ __forceinline__ void emissions(const float* emf, const float* egf,
+                                          const uint8_t (&code)[C], float (&e)[NS][C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int x = (code[c] >> 3) & 7;
+    const int y = code[c] & 7;
+    e[0][c] = emf[x * 6 + y];
+    e[1][c] = egf[6 + x];
+    e[2][c] = egf[12 + y];
+    e[3][c] = egf[18 + x];
+    e[4][c] = egf[24 + y];
+  }
+}
+
+// One forward anti-diagonal: nw from prev (k-1) and pp (k-2, scaled by r),
+// with the diagonal's emission factors e looked up beforehand.
+template <int C>
+__device__ __forceinline__ void fwd_step(const float* tf, const float (&e)[NS][C], int d1,
+                                         int d2, const float (&prev)[NS][C],
                                          const float (&pp)[NS][C], float r,
                                          float (&nw)[NS][C], int lane) {
   float t[NS][C], sh[NS][C];
@@ -203,13 +296,9 @@ __device__ __forceinline__ void fwd_step(const float* tf, const float* emf,
   shift<C>(t[4], sh[4], d1, 0.f, lane);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const int x = (code[c] >> 3) & 7;
-    const int y = code[c] & 7;
-    nw[0][c] = emf[x * 6 + y] * (sh[0][c] * r);
-    nw[1][c] = egf[6 + x] * sh[1][c];
-    nw[2][c] = egf[12 + y] * sh[2][c];
-    nw[3][c] = egf[18 + x] * sh[3][c];
-    nw[4][c] = egf[24 + y] * sh[4][c];
+    nw[0][c] = e[0][c] * (sh[0][c] * r);
+#pragma unroll
+    for (int s = 1; s < NS; ++s) nw[s][c] = e[s][c] * sh[s][c];
   }
 }
 
@@ -218,14 +307,13 @@ template <int C>
 __device__ __forceinline__ void end_check(int k, int kend, const float (&nw)[NS][C],
                                           float ls_hi, float ls_c, float& acc,
                                           float& fin_end) {
+  if (k != kend) return;  // warp-uniform
   float fin = nw[0][0];
 #pragma unroll
   for (int s = 1; s < NS; ++s) fin = fin + nw[s][0];
   fin = __shfl_sync(FULL, fin, 0);
-  if (k == kend) {
-    fin_end = fmaxf(fin, 1e-37f);
-    acc = acc + (logf(fin_end) + (ls_hi - ls_c));
-  }
+  fin_end = fmaxf(fin, 1e-37f);
+  acc = acc + (logf(fin_end) + (ls_hi - ls_c));
 }
 
 // acc += value where the cell's bin is `bin`, for each of N bins
@@ -241,11 +329,13 @@ __device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
 //   EM: `out1` trans (B, 25), `out2` emis (B, 80) f32;
 //   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32;
 //   GAMMA, DECODE_GAMMA: `out3` gamma_match (B, k_pad + 1, W) f32.
+// `ws` is the launch's workspace and `woff[r]` read r's offset in it
+// (floats); dynamic shared memory holds WARPS Stage<C>.
 template <int C, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
                const int32_t* __restrict__ n, int nreads, int k_pad,
-               float* __restrict__ fst, float* __restrict__ sfi,
+               float* __restrict__ ws, const int64_t* __restrict__ woff,
                float* __restrict__ loglik, float* __restrict__ out1,
                void* __restrict__ out2, float* __restrict__ out3) {
   constexpr int W = 32 * C;
@@ -254,11 +344,14 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   constexpr bool GAM = MODE == GAMMA || MODE == DECODE_GAMMA;
   constexpr bool XP = MODE == EXP;
   __shared__ float sm[NTAB];
+  extern __shared__ __align__(16) unsigned char stage_raw[];
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * WARPS + warp;
   if (r >= nreads) return;
+  Stage<C>& sg = reinterpret_cast<Stage<C>*>(stage_raw)[warp];
   const float* tf = sm;
   const float* emf = sm + 25;
   const float* egf = sm + 61;
@@ -266,12 +359,19 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   const float mg = sm[92];
   const float thr = sm[93];
   const int w0 = lane * C;
-  const uint8_t* xy = xyc + (size_t)r * k_pad * W;    // row k-1: diagonal k
-  float* fs = fst + (size_t)r * k_pad * NS * W;        // row k-1: diagonal k
-  float* sf = sfi + (size_t)r * (k_pad + 1);           // [k]: diagonal k
+  const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
   const int kend = m[r] + n[r];
+  const int kq = min(kend + (kend & 1), k_pad);     // the read's last diagonal
+  float* fs = ws + woff[r];                         // row k-1: diagonal k
+  float* sf = fs + (size_t)kq * NS * W;             // [k]: diagonal k
 
-  // ---------------- phase A: forward ----------------
+  // rows past the read's own diagonals: what the skipped diagonals give
+  if constexpr (MEA)
+    fill_rows((int8_t*)out2 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W, 0x03030303u, lane);
+  if constexpr (GAM) fill_rows(out3 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W * 4, 0u, lane);
+  if constexpr (XP) fill_rows(out1 + (size_t)r * (k_pad + 1) * 4, kq, k_pad, 16, 0u, lane);
+
+  // ---------------- phase A: forward, diagonals 1..kq ----------------
   float a[NS][C], b[NS][C];  // diagonals k0 (even) and k0 - 1
 #pragma unroll
   for (int s = 0; s < NS; ++s)
@@ -281,60 +381,81 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       b[s][c] = 0.f;
     }
   float ls_hi = 0.f, ls_c = 0.f, rs = 1.f, acc = 0.f, fin_end = 1.f;
-  uint8_t c1[C];
-  load_codes<C>(xy, w0, c1);
-  for (int k0 = 0; k0 < k_pad; k0 += 2) {
-    uint8_t c2[C], c3[C];
-    load_codes<C>(xy + (size_t)(k0 + 1) * W, w0, c2);
-    if (k0 + 2 < k_pad) {
-      load_codes<C>(xy + (size_t)(k0 + 2) * W, w0, c3);
-    } else {
-#pragma unroll
-      for (int c = 0; c < C; ++c) c3[c] = 0;
+  const int nqa = (kq + CH - 1) / CH;
+  auto stage_codes = [&](int q) {
+    const int r0 = q * CH;
+    warp_copy(sg.cd[q & 1][0], xy + (size_t)r0 * W, min(CH + 1, k_pad - r0) * W, lane);
+    cp_commit();
+  };
+  float ea[NS][C];  // emission factors of the next odd diagonal
+  if (nqa > 0) {
+    stage_codes(0);
+    cp_wait_all();
+    __syncwarp();
+    uint8_t c0[C];
+    load_codes<C>(sg.cd[0][0], w0, c0);
+    emissions<C>(emf, egf, c0, ea);
+  }
+#pragma unroll 1
+  for (int q = 0; q < nqa; ++q) {
+    if (q > 0) {
+      cp_wait_all();  // chunk q has landed
+      __syncwarp();   // and every lane is done with chunk q - 1's buffer
     }
-    // odd diagonal k0 + 1: no rescale
-    int top = __shfl_sync(FULL, (int)c1[0], 0);
-    int d1 = (top >> 6) & 1, d1p = (top >> 7) & 1;
-    float nb[NS][C];
-    fwd_step<C>(tf, emf, egf, c1, d1, d1 + d1p - 1, a, b, rs, nb, lane);
-    end_check<C>(k0 + 1, kend, nb, ls_hi, ls_c, acc, fin_end);
-    store_states<C>(fs + (size_t)k0 * NS * W, w0, nb);
-    // even diagonal k0 + 2: rescale by the band maximum
-    top = __shfl_sync(FULL, (int)c2[0], 0);
-    d1 = (top >> 6) & 1;
-    d1p = (top >> 7) & 1;
-    float na[NS][C];
-    fwd_step<C>(tf, emf, egf, c2, d1, d1 + d1p - 1, nb, a, 1.f, na, lane);
-    const float scale = band_max<C>(na);
-    const float safe = scale > 0.f ? scale : 1.f;
-    const float inv = 1.f / safe;
+    if (q + 1 < nqa) stage_codes(q + 1);
+    const uint8_t(*rows)[W] = sg.cd[q & 1];
+    const int nk = min(CH, kq - q * CH);
+    for (int i = 0; i < nk; i += 2) {
+      const int k0 = q * CH + i;  // diagonals k0 + 1 (odd) and k0 + 2 (even)
+      uint8_t cb[C], cc[C];
+      load_codes<C>(rows[i + 1], w0, cb);
+      load_codes<C>(rows[i + 2], w0, cc);
+      float eb[NS][C], ec[NS][C];
+      emissions<C>(emf, egf, cb, eb);
+      // odd diagonal k0 + 1: no rescale
+      int top = rows[i][0];
+      int d1 = (top >> 6) & 1, d1p = (top >> 7) & 1;
+      float nb[NS][C];
+      fwd_step<C>(tf, ea, d1, d1 + d1p - 1, a, b, rs, nb, lane);
+      end_check<C>(k0 + 1, kend, nb, ls_hi, ls_c, acc, fin_end);
+      store_states<C>(fs + (size_t)k0 * NS * W, w0, nb);
+      emissions<C>(emf, egf, cc, ec);
+      // even diagonal k0 + 2: rescale by the band maximum
+      top = rows[i + 1][0];
+      d1 = (top >> 6) & 1;
+      d1p = (top >> 7) & 1;
+      float na[NS][C];
+      fwd_step<C>(tf, eb, d1, d1 + d1p - 1, nb, a, 1.f, na, lane);
+      const float scale = band_max<C>(na);
+      const float safe = scale > 0.f ? scale : 1.f;
+      const float inv = 1.f / safe;
 #pragma unroll
-    for (int s = 0; s < NS; ++s)
+      for (int s = 0; s < NS; ++s)
 #pragma unroll
-      for (int c = 0; c < C; ++c) na[s][c] = na[s][c] * inv;
-    {  // Kahan-compensated log-scale: value = ls_hi - ls_c
-      const float y = logf(safe) - ls_c;
-      const float t = ls_hi + y;
-      ls_c = (t - ls_hi) - y;
-      ls_hi = t;
-    }
-    end_check<C>(k0 + 2, kend, na, ls_hi, ls_c, acc, fin_end);
-    store_states<C>(fs + (size_t)(k0 + 1) * NS * W, w0, na);
-    sf[k0 + 2] = inv;  // every lane writes the same value
-    rs = inv;
-#pragma unroll
-    for (int s = 0; s < NS; ++s)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        b[s][c] = nb[s][c];
-        a[s][c] = na[s][c];
+        for (int c = 0; c < C; ++c) na[s][c] = na[s][c] * inv;
+      {  // Kahan-compensated log-scale: value = ls_hi - ls_c
+        const float y = logf(safe) - ls_c;
+        const float t = ls_hi + y;
+        ls_c = (t - ls_hi) - y;
+        ls_hi = t;
       }
+      end_check<C>(k0 + 2, kend, na, ls_hi, ls_c, acc, fin_end);
+      store_states<C>(fs + (size_t)(k0 + 1) * NS * W, w0, na);
+      if (lane == 0) sf[k0 + 2] = inv;
+      rs = inv;
 #pragma unroll
-    for (int c = 0; c < C; ++c) c1[c] = c3[c];
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          b[s][c] = nb[s][c];
+          a[s][c] = na[s][c];
+          ea[s][c] = ec[s][c];
+        }
+    }
   }
   if (lane == 0) loglik[r] = acc;
 
-  // ------- phase B: backward + reverse MEA (or the EM sums) -------
+  // ------- phase B: backward + reverse MEA (or the EM sums), kq..0 -------
   const float inv_fin = 1.f / fin_end;
   float b1[NS][C], b2[NS][C];  // backward states of diagonals k+1, k+2
   float u1[C], u2[C], gm1[C], gm2[C], gd1[C], gi1[C];
@@ -366,202 +487,223 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   for (int i = 0; i < (XP ? 4 : 1); ++i)
 #pragma unroll
     for (int c = 0; c < C; ++c) ex[i][c] = 0.f;
-  float fh[NS][C];
-  load_states<C>(fs + (size_t)(k_pad - 1) * NS * W, w0, fh);
-  for (int k = k_pad; k >= 0; --k) {
-    // prefetch: diagonal k's codes (for the next step's emissions) and
-    // diagonal k-1's forward states
-    uint8_t ck[C];
-    float fnx[NS][C];
-    if (k >= 1) load_codes<C>(xy + (size_t)(k - 1) * W, w0, ck);
-    if (k >= 2) {
-      load_states<C>(fs + (size_t)(k - 2) * NS * W, w0, fnx);
-    } else {
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-#pragma unroll
-        for (int c = 0; c < C; ++c) fnx[s][c] = (w0 + c == 0) ? 1.0f / 5.0f : 0.f;
+
+  // chunk q: slots s = 0..CH-1 hold diagonal q*CH + s (states, codes) and
+  // sf[q*CH + s + 1]; diagonal 0 has no stored row
+  auto stage_bwd = [&](int q) {
+    const int buf = q & 1;
+    const int lo = max(1, q * CH), hi = min(kq, q * CH + CH - 1);
+    if (hi >= lo) {
+      const int s0 = lo - q * CH, rows = hi - lo + 1;
+      warp_copy(sg.st[buf][s0], fs + (size_t)(lo - 1) * NS * W, rows * NS * W * 4, lane);
+      warp_copy(sg.cd[buf][s0], xy + (size_t)(lo - 1) * W, rows * W, lane);
     }
-    const float sf_next = (k & 1) ? sf[k + 1] : 1.f;
-    const bool is_end = k == kend;
-    const int d2n2 = d1n1 + d1n2 - 1;
-
-    float p[NS][C], dest[NS][C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      p[0][c] = b2[0][c] * em2[c];
-      p[1][c] = b1[1][c] * ex1[c];
-      p[2][c] = b1[2][c] * ey2[c];
-      p[3][c] = b1[3][c] * ex3[c];
-      p[4][c] = b1[4][c] * ey4[c];
-    }
-    shift<C>(p[0], dest[0], -d2n2, 0.f, lane);
-    shift<C>(p[1], dest[1], 1 - d1n1, 0.f, lane);
-    shift<C>(p[2], dest[2], -d1n1, 0.f, lane);
-    shift<C>(p[3], dest[3], 1 - d1n1, 0.f, lane);
-    shift<C>(p[4], dest[4], -d1n1, 0.f, lane);
-#pragma unroll
-    for (int c = 0; c < C; ++c) dest[0][c] = dest[0][c] * binv;
-
-    float nw[NS][C];
-#pragma unroll
-    for (int s = 0; s < NS; ++s)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float acc_t = tf[s * 5] * dest[0][c];
-#pragma unroll
-        for (int t = 1; t < NS; ++t) acc_t = acc_t + tf[s * 5 + t] * dest[t][c];
-        nw[s][c] = is_end ? ((w0 + c == 0) ? 1.f : 0.f) : acc_t;
-      }
-    float safe = 1.f, inv = 1.f;
-    if ((k & 1) || k == 0) {
-      const float scale = band_max<C>(nw);
-      safe = scale > 0.f ? scale : 1.f;
-      inv = 1.f / safe;
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-#pragma unroll
-        for (int c = 0; c < C; ++c) nw[s][c] = nw[s][c] * inv;
-    }
-    const float factor_trans = g_next * sf_next;
-    float g_k = is_end ? inv_fin : factor_trans * safe;
-    g_k = fminf(g_k, 3e37f);
-
-    float gam[NS][C];
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int s = 0; s < NS; ++s) gam[s][c] = (fh[s][c] * nw[s][c]) * g_k;
-
-    if constexpr (GAM) {  // row k of the read's gamma_match band
-      float* row = out3 + ((size_t)r * (k_pad + 1) + k) * W + w0;
-      if constexpr (C == 2) {
-        *reinterpret_cast<float2*>(row) = make_float2(gam[0][0], gam[0][C - 1]);
+    if (lane < CH && q * CH + lane + 1 <= kq) cp_async4(&sg.sf[buf][lane], sf + q * CH + lane + 1);
+    cp_commit();
+  };
+  // phase A's stores are read back by other lanes' copies
+  __threadfence_block();
+  __syncwarp();
+  stage_bwd(kq / CH);
+#pragma unroll 1
+  for (int q = kq / CH; q >= 0; --q) {
+    cp_wait_all();  // chunk q has landed
+    __syncwarp();   // and every lane is done with chunk q + 1's buffer
+    if (q > 0) stage_bwd(q - 1);
+    const int buf = q & 1;
+    for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
+      const int s = k - q * CH;
+      float fh[NS][C];  // forward states of diagonal k
+      uint8_t ck[C];    // codes of diagonal k
+      if (k >= 1) {
+        load_states<C>(sg.st[buf][s], w0, fh);
+        load_codes<C>(sg.cd[buf][s], w0, ck);
       } else {
-        *row = gam[0][0];
-      }
-    }
-    if constexpr (XP) {
-      // retire column W - 1 on the k+1 -> k shift, move the band up by
-      // d1[k+1], then bin diagonal k's thresholded gamma_match
-      const float d1f = (float)d1n1;
-      if (lane == 31) {
-        *reinterpret_cast<float4*>(out1 + ((size_t)r * (k_pad + 1) + k) * 4) =
-            make_float4(ex[0][C - 1] * d1f, ex[1][C - 1] * d1f, ex[2][C - 1] * d1f,
-                        ex[3][C - 1] * d1f);
-      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float sh[C];
-        shift<C>(ex[i], sh, -1, 0.f, lane);
+        for (int st = 0; st < NS; ++st)
 #pragma unroll
-        for (int c = 0; c < C; ++c) ex[i][c] = ex[i][c] + d1f * (sh[c] - ex[i][c]);
+          for (int c = 0; c < C; ++c) fh[st][c] = (w0 + c == 0) ? 1.0f / 5.0f : 0.f;
       }
+      const float sf_next = (k & 1) ? sg.sf[buf][s] : 1.f;
+      const bool is_end = k == kend;
+      const int d2n2 = d1n1 + d1n2 - 1;
+
+      float p[NS][C], dest[NS][C];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float g0 = gam[0][c];
-        const float gmz = g0 * (g0 > thr ? 1.f : 0.f);
-        const int y = k >= 1 ? (ck[c] & 7) : 5;  // diagonal 0: sentinels
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ex[i][c] = ex[i][c] + gmz * (y == i ? 1.f : 0.f);
+        p[0][c] = b2[0][c] * em2[c];
+        p[1][c] = b1[1][c] * ex1[c];
+        p[2][c] = b1[2][c] * ey2[c];
+        p[3][c] = b1[3][c] * ex3[c];
+        p[4][c] = b1[4][c] * ey4[c];
       }
-    }
+      shift<C>(p[0], dest[0], -d2n2, 0.f, lane);
+      shift<C>(p[1], dest[1], 1 - d1n1, 0.f, lane);
+      shift<C>(p[2], dest[2], -d1n1, 0.f, lane);
+      shift<C>(p[3], dest[3], 1 - d1n1, 0.f, lane);
+      shift<C>(p[4], dest[4], -d1n1, 0.f, lane);
+#pragma unroll
+      for (int c = 0; c < C; ++c) dest[0][c] = dest[0][c] * binv;
 
-    float new_u[C], g_m[C], g_d[C], g_i[C];  // MEA carry (decode modes)
-    if constexpr (EM) {
-      // xi_k[s][t] without its tf factor.  dest is the value before the
-      // end-cell overwrite, and g_next is 0 until the read's own end
-      // diagonal has passed, so padding diagonals add nothing.
+      float nw[NS][C];
+#pragma unroll
+      for (int st = 0; st < NS; ++st)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float acc_t = tf[st * 5] * dest[0][c];
+#pragma unroll
+          for (int t = 1; t < NS; ++t) acc_t = acc_t + tf[st * 5 + t] * dest[t][c];
+          nw[st][c] = is_end ? ((w0 + c == 0) ? 1.f : 0.f) : acc_t;
+        }
+      float safe = 1.f, inv = 1.f;
+      if ((k & 1) || k == 0) {
+        const float scale = band_max<C>(nw);
+        safe = scale > 0.f ? scale : 1.f;
+        inv = 1.f / safe;
+#pragma unroll
+        for (int st = 0; st < NS; ++st)
+#pragma unroll
+          for (int c = 0; c < C; ++c) nw[st][c] = nw[st][c] * inv;
+      }
+      const float factor_trans = g_next * sf_next;
+      float g_k = is_end ? inv_fin : factor_trans * safe;
+      g_k = fminf(g_k, 3e37f);
+
+      float gam[NS][C];
 #pragma unroll
       for (int c = 0; c < C; ++c)
 #pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          const float fsc = fh[s][c] * factor_trans;
-#pragma unroll
-          for (int t = 0; t < NS; ++t) em[s * 5 + t] = em[s * 5 + t] + fsc * dest[t][c];
+        for (int st = 0; st < NS; ++st) gam[st][c] = (fh[st][c] * nw[st][c]) * g_k;
+
+      if constexpr (GAM) {  // row k of the read's gamma_match band
+        float* row = out3 + ((size_t)r * (k_pad + 1) + k) * W + w0;
+        if constexpr (C == 2) {
+          *reinterpret_cast<float2*>(row) = make_float2(gam[0][0], gam[0][C - 1]);
+        } else {
+          *row = gam[0][0];
         }
-      if (k == 0) break;  // diagonal 0 holds no base: nothing to bin
+      }
+      if constexpr (XP) {
+        // retire column W - 1 on the k+1 -> k shift, move the band up by
+        // d1[k+1], then bin diagonal k's thresholded gamma_match
+        const float d1f = (float)d1n1;
+        if (lane == 31) {
+          *reinterpret_cast<float4*>(out1 + ((size_t)r * (k_pad + 1) + k) * 4) =
+              make_float4(ex[0][C - 1] * d1f, ex[1][C - 1] * d1f, ex[2][C - 1] * d1f,
+                          ex[3][C - 1] * d1f);
+        }
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int x = (ck[c] >> 3) & 7;
-        const int y = ck[c] & 7;
-        const int xb = x < 4 ? x : -1;
-        const int yb = y < 4 ? y : -1;
-        bin_add<16>(em + 25, (xb >= 0 && yb >= 0) ? x * 4 + y : -1, gam[0][c]);
-        bin_add<4>(em + 41, xb, gam[1][c]);
-        bin_add<4>(em + 45, xb, gam[3][c]);
-        bin_add<4>(em + 49, yb, gam[2][c]);
-        bin_add<4>(em + 53, yb, gam[4][c]);
-      }
-    } else if constexpr (MEA) {
-      float vd[C], vl[C], vu[C], td[C], tl[C], tu[C];
+        for (int i = 0; i < 4; ++i) {
+          float sh[C];
+          shift<C>(ex[i], sh, -1, 0.f, lane);
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        g_m[c] = gam[0][c];
-        g_d[c] = gam[1][c] + gam[3][c];
-        g_i[c] = gam[2][c] + gam[4][c];
-        vd[c] = (u2[c] + gm2[c]) - mg;
-        vl[c] = u1[c] + gg * gd1[c];
-        vu[c] = u1[c] + gg * gi1[c];
-      }
-      shift<C>(vd, td, -d2n2, NEG, lane);
-      shift<C>(vl, tl, 1 - d1n1, NEG, lane);
-      shift<C>(vu, tu, -d1n1, NEG, lane);
-      uint32_t word = 0;
+          for (int c = 0; c < C; ++c) ex[i][c] = ex[i][c] + d1f * (sh[c] - ex[i][c]);
+        }
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float best = fmaxf(fmaxf(td[c], tl[c]), tu[c]);
-        const int choice = best == td[c] ? 0 : (best == tl[c] ? 1 : 2);
-        new_u[c] = is_end ? ((w0 + c == 0) ? 0.f : NEG) : best;
-        const bool ok = new_u[c] > NEG / 2 && !is_end;
-        word |= (uint32_t)(ok ? choice : 3) << (8 * c);
+        for (int c = 0; c < C; ++c) {
+          const float g0 = gam[0][c];
+          const float gmz = g0 * (g0 > thr ? 1.f : 0.f);
+          const int y = k >= 1 ? (ck[c] & 7) : 5;  // diagonal 0: sentinels
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ex[i][c] = ex[i][c] + gmz * (y == i ? 1.f : 0.f);
+        }
       }
-      // row k of the read's direction codes: diagonal k
-      int8_t* row = (int8_t*)out2 + ((size_t)r * (k_pad + 1) + k) * W + w0;
-      if constexpr (C == 2) {
-        *reinterpret_cast<uint16_t*>(row) = (uint16_t)word;
-      } else {
-        *row = (int8_t)word;
-      }
-      if (k == 0) {
-        if (lane == 0) out1[r] = new_u[0];  // the MEA score
+
+      float new_u[C], g_m[C], g_d[C], g_i[C];  // MEA carry (decode modes)
+      if constexpr (EM) {
+        // xi_k[s][t] without its tf factor.  dest is the value before the
+        // end-cell overwrite, and g_next is 0 until the read's own end
+        // diagonal has passed.
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int st = 0; st < NS; ++st) {
+            const float fsc = fh[st][c] * factor_trans;
+#pragma unroll
+            for (int t = 0; t < NS; ++t) em[st * 5 + t] = em[st * 5 + t] + fsc * dest[t][c];
+          }
+        if (k == 0) break;  // diagonal 0 holds no base: nothing to bin
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int x = (ck[c] >> 3) & 7;
+          const int y = ck[c] & 7;
+          const int xb = x < 4 ? x : -1;
+          const int yb = y < 4 ? y : -1;
+          bin_add<16>(em + 25, (xb >= 0 && yb >= 0) ? x * 4 + y : -1, gam[0][c]);
+          bin_add<4>(em + 41, xb, gam[1][c]);
+          bin_add<4>(em + 45, xb, gam[3][c]);
+          bin_add<4>(em + 49, yb, gam[2][c]);
+          bin_add<4>(em + 53, yb, gam[4][c]);
+        }
+      } else if constexpr (MEA) {
+        float vd[C], vl[C], vu[C], td[C], tl[C], tu[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          g_m[c] = gam[0][c];
+          g_d[c] = gam[1][c] + gam[3][c];
+          g_i[c] = gam[2][c] + gam[4][c];
+          vd[c] = (u2[c] + gm2[c]) - mg;
+          vl[c] = u1[c] + gg * gd1[c];
+          vu[c] = u1[c] + gg * gi1[c];
+        }
+        shift<C>(vd, td, -d2n2, NEG, lane);
+        shift<C>(vl, tl, 1 - d1n1, NEG, lane);
+        shift<C>(vu, tu, -d1n1, NEG, lane);
+        uint32_t word = 0;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float best = fmaxf(fmaxf(td[c], tl[c]), tu[c]);
+          const int choice = best == td[c] ? 0 : (best == tl[c] ? 1 : 2);
+          new_u[c] = is_end ? ((w0 + c == 0) ? 0.f : NEG) : best;
+          const bool ok = new_u[c] > NEG / 2 && !is_end;
+          word |= (uint32_t)(ok ? choice : 3) << (8 * c);
+        }
+        // row k of the read's direction codes: diagonal k
+        int8_t* row = (int8_t*)out2 + ((size_t)r * (k_pad + 1) + k) * W + w0;
+        if constexpr (C == 2) {
+          *reinterpret_cast<uint16_t*>(row) = (uint16_t)word;
+        } else {
+          *row = (int8_t)word;
+        }
+        if (k == 0) {
+          if (lane == 0) out1[r] = new_u[0];  // the MEA score
+          break;
+        }
+      } else if (k == 0) {
         break;
       }
-    } else if (k == 0) {
-      break;
-    }
 
-    // carry down to diagonal k - 1
-    const int top = __shfl_sync(FULL, (int)ck[0], 0);
+      // carry down to diagonal k - 1
+      const int top = sg.cd[buf][s][0];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
+      for (int c = 0; c < C; ++c) {
 #pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        b2[s][c] = b1[s][c];
-        b1[s][c] = nw[s][c];
-        fh[s][c] = fnx[s][c];
+        for (int st = 0; st < NS; ++st) {
+          b2[st][c] = b1[st][c];
+          b1[st][c] = nw[st][c];
+        }
+        if constexpr (MEA) {
+          u2[c] = u1[c];
+          u1[c] = new_u[c];
+          gm2[c] = gm1[c];
+          gm1[c] = g_m[c];
+          gd1[c] = g_d[c];
+          gi1[c] = g_i[c];
+        }
+        const int x = (ck[c] >> 3) & 7;
+        const int y = ck[c] & 7;
+        em2[c] = em1[c];
+        em1[c] = emf[x * 6 + y];
+        ex1[c] = egf[6 + x];
+        ey2[c] = egf[12 + y];
+        ex3[c] = egf[18 + x];
+        ey4[c] = egf[24 + y];
       }
-      if constexpr (MEA) {
-        u2[c] = u1[c];
-        u1[c] = new_u[c];
-        gm2[c] = gm1[c];
-        gm1[c] = g_m[c];
-        gd1[c] = g_d[c];
-        gi1[c] = g_i[c];
-      }
-      const int x = (ck[c] >> 3) & 7;
-      const int y = ck[c] & 7;
-      em2[c] = em1[c];
-      em1[c] = emf[x * 6 + y];
-      ex1[c] = egf[6 + x];
-      ey2[c] = egf[12 + y];
-      ex3[c] = egf[18 + x];
-      ey4[c] = egf[24 + y];
+      binv = inv;
+      g_next = g_k;
+      d1n2 = d1n1;
+      d1n1 = (top >> 6) & 1;
     }
-    binv = inv;
-    g_next = g_k;
-    d1n2 = d1n1;
-    d1n1 = (top >> 6) & 1;
   }
 
   if constexpr (XP) {  // the flush: the columns left after diagonal 0
@@ -607,21 +749,50 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
 template <int C, int MODE>
 void launch_mode(const Tables& t, dim3 grid, dim3 block, cudaStream_t s,
                  const void* xyc, const void* m, const void* n, int nreads,
-                 int k_pad, void* fst, void* sfi, void* loglik, void* out1,
+                 int k_pad, void* ws, const void* woff, void* loglik, void* out1,
                  void* out2, void* out3) {
-  realign_kernel<C, MODE><<<grid, block, 0, s>>>(
+  realign_kernel<C, MODE><<<grid, block, WARPS * sizeof(Stage<C>), s>>>(
       t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad,
-      (float*)fst, (float*)sfi, (float*)loglik, (float*)out1, out2, (float*)out3);
+      (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2, (float*)out3);
+}
+
+template <int C, int MODE>
+int attrs_mode(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, realign_kernel<C, MODE>);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)(WARPS * sizeof(Stage<C>));
+  return (int)e;
+}
+
+template <int C>
+int attrs_width(int mode, int* out) {
+  switch (mode) {
+    case DECODE:
+      return attrs_mode<C, DECODE>(out);
+    case EM_MODE:
+      return attrs_mode<C, EM_MODE>(out);
+    case GAMMA:
+      return attrs_mode<C, GAMMA>(out);
+    case DECODE_GAMMA:
+      return attrs_mode<C, DECODE_GAMMA>(out);
+    case EXP:
+      return attrs_mode<C, EXP>(out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int C>
 int launch_width(int mode, const Tables& t, dim3 grid, dim3 block, cudaStream_t s,
                  const void* xyc, const void* m, const void* n, int nreads,
-                 int k_pad, void* fst, void* sfi, void* loglik, void* out1,
+                 int k_pad, void* ws, const void* woff, void* loglik, void* out1,
                  void* out2, void* out3) {
 #define NP_MODE(M)                                                                \
   case M:                                                                         \
-    launch_mode<C, M>(t, grid, block, s, xyc, m, n, nreads, k_pad, fst, sfi,      \
+    launch_mode<C, M>(t, grid, block, s, xyc, m, n, nreads, k_pad, ws, woff,      \
                       loglik, out1, out2, out3);                                  \
     break;
   switch (mode) {
@@ -643,14 +814,26 @@ extern "C" const char* np_cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
+// Registers, local memory (spill) bytes per thread, static and dynamic
+// shared memory bytes per block of `mode` at band width W, into out[4].
+extern "C" int np_realign_attrs(int mode, int W, int* out) {
+  if (W == 64) return attrs_width<2>(mode, out);
+  if (W == 32) return attrs_width<1>(mode, out);
+  return (int)cudaErrorInvalidValue;
+}
+
 // Launch `mode` (DECODE 0, EM 1, GAMMA 2, DECODE_GAMMA 3, EXP 4) on
 // `stream`; returns cudaGetLastError() (0 on success).  `tables` is host
 // memory: 91 model floats, then gap gamma, match gamma and the exp
-// threshold (each mode reads what it uses).  The outputs by mode are
-// those of realign_kernel; a pointer a mode does not write may be null.
+// threshold (each mode reads what it uses).  `ws` is the workspace and
+// `woff` (nreads,) int64 each read's offset in it, in floats: read r
+// needs kq * 5 * W floats of states and then kq + 1 rescale inverses,
+// kq = m + n rounded up to even, the offsets 16-byte aligned.  The
+// outputs by mode are those of realign_kernel; a pointer a mode does
+// not write may be null.
 extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
                                  const void* m, const void* n, int nreads,
-                                 int k_pad, int W, void* fst, void* sfi,
+                                 int k_pad, int W, void* ws, const void* woff,
                                  void* loglik, void* out1, void* out2,
                                  void* out3, void* stream) {
   if (nreads <= 0 || k_pad < 2 || k_pad % 2 != 0) return (int)cudaErrorInvalidValue;
@@ -659,10 +842,10 @@ extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
   const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
   cudaStream_t s = (cudaStream_t)stream;
   if (W == 64)
-    return launch_width<2>(mode, t, grid, block, s, xyc, m, n, nreads, k_pad, fst,
-                           sfi, loglik, out1, out2, out3);
+    return launch_width<2>(mode, t, grid, block, s, xyc, m, n, nreads, k_pad, ws,
+                           woff, loglik, out1, out2, out3);
   if (W == 32)
-    return launch_width<1>(mode, t, grid, block, s, xyc, m, n, nreads, k_pad, fst,
-                           sfi, loglik, out1, out2, out3);
+    return launch_width<1>(mode, t, grid, block, s, xyc, m, n, nreads, k_pad, ws,
+                           woff, loglik, out1, out2, out3);
   return (int)cudaErrorInvalidValue;
 }

@@ -65,6 +65,13 @@ class LitePack:
     band_width: int
 
 
+def _kend(lite: LitePack | None):
+    """The host's m + n of a packed batch, for the realign kernel's
+    launch plan (None without the metadata: the plan then reads m and n
+    back from the device)."""
+    return None if lite is None else lite.k_end
+
+
 def _pairs_k_max(pairs, k_max, step: int = 2048) -> int:
     """Tighten k_max to the batch's real diagonal need, rounded to a
     coarse step so the count of distinct shapes stays bounded."""
@@ -100,7 +107,7 @@ class PreparedRealign:
         if self._out is None:
             self._out = realign_decode(
                 self.xyc, self.m, self.n, self.params, self._gg, self._mg,
-                emit_gamma=self._gamma,
+                emit_gamma=self._gamma, kend=_kend(self.batch),
             )
         return self
 
@@ -138,7 +145,8 @@ class PreparedEm:
 
     def run(self, params: KernelParams) -> dict:
         """loglik (B,), trans (B, 5, 5), emis (B, 5, 16) on the device."""
-        return realign_em(self.xyc, self.m, self.n, params)
+        return realign_em(self.xyc, self.m, self.n, params,
+                          kend=_kend(self.batch))
 
 
 class PreparedPosteriors:
@@ -173,10 +181,12 @@ class PreparedPosteriors:
         if self._out is None:
             if self._gamma:
                 self._out = realign_gamma(self.xyc, self.m, self.n,
-                                          self.params)
+                                          self.params,
+                                          kend=_kend(self.batch))
             else:
                 self._out = realign_exp(self.xyc, self.m, self.n,
-                                        self.params, self.exp_threshold)
+                                        self.params, self.exp_threshold,
+                                        kend=_kend(self.batch))
         return self
 
     def run(self) -> dict:
@@ -288,9 +298,12 @@ def preferred_realign_batch_size(requested: int | None = None,
 
     The realign kernel runs one warp per read, a long serial chain of
     diagonals, so the card needs several warps per SM to hide latency:
-    512 reads give ~4 warps on each of the H100's 132 SMs and keep the
-    forward-state workspace of a 5 kb read batch (~13 MB a read) under
-    the 8 GB launch cap.  On the CPU the plain version runs, and small
+    512 reads give ~4 warps on each of the H100's 132 SMs.  Each read's
+    forward-state workspace is sized by its own diagonals (1,284 bytes a
+    diagonal at W = 64, ~13 MB for a 5 kb read and its window), so 512
+    such reads fit one launch under the 8 GiB cap
+    (``ops.realign.workspace_plan``); a batch that needs more launches
+    over runs of its reads.  On the CPU the plain version runs, and small
     batches bound its memory.  An explicit request wins.
     """
     if requested:

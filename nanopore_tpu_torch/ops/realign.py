@@ -65,7 +65,12 @@ version below, operation for operation:
 
 The forward states of every diagonal are kept (the TPU kernel's
 ``store_fwd`` mode, 5 * W * 4 bytes per diagonal per read) and streamed
-back in descending order by the backward.
+back in descending order by the backward.  The kernel runs each read
+over its own diagonals only (m + n rounded up to even), with its states
+at its own offset in a ragged workspace (:func:`workspace_plan`), and
+writes the rows past them as the plain version's padding diagonals
+leave them (0; DIR_NONE in the direction codes); the plain version runs
+every diagonal of the batch.
 """
 
 from __future__ import annotations
@@ -82,8 +87,8 @@ from nanopore_tpu_torch.ops.pairhmm import KernelParams, kernel_tables
 NUM_STATES = 5
 NEG = -1e30
 DIR_NONE = 3
-# forward-state workspace of one launch; larger batches launch over
-# sub-batches of reads
+# forward-state workspace of one launch; a batch whose reads need more
+# launches over runs of reads that fit
 WORKSPACE_BYTES = 8 << 30
 
 LAUNCHES = kb.LaunchCounter("realign")
@@ -96,18 +101,64 @@ DECODE, EM, GAMMA, DECODE_GAMMA, EXP = range(5)
 _SIG = {
     "np_realign_launch": [ctypes.c_int] + [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7,
+    "np_realign_attrs": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
+MODE_NAMES = {DECODE: "decode", EM: "em", GAMMA: "gamma",
+              DECODE_GAMMA: "decode_gamma", EXP: "exp"}
 
 
-def workspace_bytes_per_read(k_pad: int, W: int) -> int:
-    """Forward states plus per-diagonal rescale inverses of one read."""
-    return k_pad * NUM_STATES * W * 4 + (k_pad + 1) * 4
+def read_workspace_bytes(kend, W: int) -> np.ndarray:
+    """Workspace bytes of reads whose diagonals end at ``kend`` (m + n):
+    the kernel runs kq = kend rounded up to even diagonals and keeps
+    kq x 5 x W f32 forward states, then kq + 1 rescale inverses padded to
+    16 bytes (the next read's states start aligned)."""
+    kq = np.asarray(kend, dtype=np.int64)
+    kq = kq + (kq & 1)
+    return kq * NUM_STATES * W * 4 + ((kq + 1 + 3) // 4) * 16
+
+
+def workspace_plan(m, n, W: int, cap: int = WORKSPACE_BYTES):
+    """The launches of a batch and its ragged workspace.
+
+    Returns ``offsets`` (B + 1,) int64, the exclusive prefix sum of
+    :func:`read_workspace_bytes` over the batch (read r's workspace
+    starts ``offsets[r] - offsets[r0]`` bytes into its launch's, r0 the
+    launch's first read), and ``launches``, a list of (r0, r1) runs of
+    reads in batch order: each run's workspace fits ``cap``, except a
+    read that alone exceeds it, which launches alone.
+    """
+    nbytes = read_workspace_bytes(
+        np.asarray(m, dtype=np.int64) + np.asarray(n, dtype=np.int64), W)
+    offsets = np.zeros(len(nbytes) + 1, dtype=np.int64)
+    np.cumsum(nbytes, out=offsets[1:])
+    launches, r0 = [], 0
+    for r in range(1, len(nbytes)):
+        if offsets[r + 1] - offsets[r0] > cap:
+            launches.append((r0, r))
+            r0 = r
+    if len(nbytes):
+        launches.append((r0, len(nbytes)))
+    return offsets, launches
 
 
 def max_workspace_k(W: int) -> int:
     """The largest diagonal count at which one read's workspace still
     fits ``WORKSPACE_BYTES``: the realign stage splits longer windows."""
     return (WORKSPACE_BYTES - 4) // (NUM_STATES * W * 4 + 4)
+
+
+def kernel_attributes(W: int) -> dict:
+    """Per mode, the compiled kernel's registers, local-memory (spill)
+    bytes per thread, and static and dynamic shared memory per block at
+    band width ``W`` (needs the card: builds the kernel)."""
+    lib = kb.library("realign", _SIG)
+    out = {}
+    for mode, name in MODE_NAMES.items():
+        vals = (ctypes.c_int * 4)()
+        kb.check(lib, lib.np_realign_attrs(mode, W, vals), "realign attrs")
+        out[name] = dict(zip(("registers", "local_bytes", "static_smem",
+                              "dynamic_smem"), vals))
+    return out
 
 
 def _check_inputs(xyc, m, n):
@@ -132,13 +183,19 @@ def _tables(params: KernelParams, gap_gamma: float = 0.0,
     ]).contiguous()
 
 
-def _launch(mode: int, counter, xyc, m, n, tables, outs) -> None:
-    """Launch ``mode`` over sub-batches of reads whose forward-state
-    workspace fits ``WORKSPACE_BYTES``; ``outs`` are the four per-read
-    output tensors (loglik, out1, out2, out3; None where the mode writes
-    nothing).  The outputs are the whole batch's: a gamma band of
-    (B, k_pad + 1, W) f32 is allocated beside the workspace, not inside
-    its cap.  One count per kernel launch."""
+def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None) -> None:
+    """Launch ``mode`` over the runs of reads of :func:`workspace_plan`,
+    in batch order: each read's forward states sit in a ragged workspace
+    at its own offset, sized by its own diagonals, so a batch whose reads
+    fit ``WORKSPACE_BYTES`` together is one launch.  ``outs`` are the
+    four per-read output tensors (loglik, out1, out2, out3; None where
+    the mode writes nothing), the whole batch's; a launch writes its
+    reads' slice, and a gamma band of (B, k_pad + 1, W) f32 lies beside
+    the workspace, not inside its cap.  ``kend`` is the host's copy of
+    m + n (numpy); without it m and n are read back from the device, a
+    copy that waits for the stream's earlier work (so a caller that
+    queues batches back to back passes it).  One count per kernel
+    launch."""
     B, k_pad, W = xyc.shape
     if W not in KERNEL_BAND_WIDTHS or k_pad % 2:
         raise ValueError(
@@ -147,19 +204,25 @@ def _launch(mode: int, counter, xyc, m, n, tables, outs) -> None:
         )
     if B == 0:
         return
+    if kend is None:
+        kend = (m.to(torch.int64) + n.to(torch.int64)).cpu().numpy()
+    offsets, launches = workspace_plan(kend, 0, W, WORKSPACE_BYTES)  # m + n, 0
+    start = np.empty(B, dtype=np.int64)  # each read's launch's first offset
+    for r0, r1 in launches:
+        start[r0:r1] = offsets[r0]
     dev = xyc.device
-    chunk = max(1, min(B, WORKSPACE_BYTES // workspace_bytes_per_read(k_pad, W)))
-    fst = torch.empty((chunk, k_pad, NUM_STATES, W), dtype=torch.float32,
-                      device=dev)
-    sfi = torch.empty((chunk, k_pad + 1), dtype=torch.float32, device=dev)
+    ws = torch.empty(int((offsets[1:] - start).max()) // 4,
+                     dtype=torch.float32, device=dev)
+    # each read's offset in floats from its launch's workspace start
+    woff = torch.from_numpy((offsets[:-1] - start) // 4).pin_memory().to(
+        dev, non_blocking=True)
     lib = kb.library("realign", _SIG)
     with torch.cuda.device(dev):
-        for r0 in range(0, B, chunk):
-            r1 = min(B, r0 + chunk)
+        for r0, r1 in launches:
             rc = lib.np_realign_launch(
                 mode, ctypes.c_void_p(tables.data_ptr()),
                 kb.ptr(xyc[r0:r1]), kb.ptr(m[r0:r1]), kb.ptr(n[r0:r1]),
-                r1 - r0, k_pad, W, kb.ptr(fst), kb.ptr(sfi),
+                r1 - r0, k_pad, W, kb.ptr(ws), kb.ptr(woff[r0:r1]),
                 *(ctypes.c_void_p(None) if o is None else kb.ptr(o[r0:r1])
                   for o in outs),
                 kb.stream_of(xyc),
@@ -167,19 +230,22 @@ def _launch(mode: int, counter, xyc, m, n, tables, outs) -> None:
             kb.check(lib, rc, counter.name)
             counter.add()
     # ``tables`` is copied into the kernel arguments at launch; the
-    # workspace returns to the caching allocator, whose reuse of it is
-    # ordered on this stream
+    # workspace and offsets return to the caching allocator, whose reuse
+    # of them is ordered on this stream
 
 
 def realign_decode(xyc, m, n, params: KernelParams, gap_gamma: float = 0.5,
-                   match_gamma: float = 0.0, emit_gamma: bool = False) -> dict:
+                   match_gamma: float = 0.0, emit_gamma: bool = False,
+                   kend=None) -> dict:
     """Decode-mode fused realign over packed band codes.
 
     xyc (B, k_pad, W) int8, m / n (B,) int32 read / window lengths.
     Returns loglik (B,) f32, score (B,) f32 and dirs (B, k_pad + 1, W)
     int8 (row k = diagonal k); ``emit_gamma`` adds the gamma_match band
     ``gamma`` (B, k_pad + 1, W) f32 of the same launch.  CUDA tensors
-    launch the kernel, CPU tensors run the plain version.
+    launch the kernel, CPU tensors run the plain version.  ``kend``, the
+    host's m + n (numpy), spares the kernel's launch plan a read-back of
+    m and n from the device.
     """
     _check_inputs(xyc, m, n)
     if xyc.device.type == "cpu":
@@ -196,15 +262,17 @@ def realign_decode(xyc, m, n, params: KernelParams, gap_gamma: float = 0.5,
     _launch(DECODE_GAMMA if emit_gamma else DECODE,
             DECODE_GAMMA_LAUNCHES if emit_gamma else LAUNCHES, xyc, m, n,
             _tables(params, gap_gamma, match_gamma),
-            (out["loglik"], out["score"], out["dirs"], out.get("gamma")))
+            (out["loglik"], out["score"], out["dirs"], out.get("gamma")),
+            kend)
     return out
 
 
-def realign_em(xyc, m, n, params: KernelParams) -> dict:
+def realign_em(xyc, m, n, params: KernelParams, kend=None) -> dict:
     """EM-mode fused realign: the Baum-Welch E-step of one batch.
 
-    Inputs as :func:`realign_decode`.  Returns loglik (B,) f32, trans
-    (B, 5, 5) f32 expected transition counts [from, to] and emis
+    Inputs (and ``kend``) as :func:`realign_decode`.  Returns loglik
+    (B,) f32, trans (B, 5, 5) f32 expected transition counts [from, to]
+    and emis
     (B, 5, 16) f32 expected emission counts [state, x * 4 + y] (the gap
     states' counts spread evenly over the base they do not read).  CUDA
     tensors launch the kernel, CPU tensors run the plain version.
@@ -219,15 +287,16 @@ def realign_em(xyc, m, n, params: KernelParams) -> dict:
         "emis": xyc.new_empty((B, 5, 16), dtype=torch.float32),
     }
     _launch(EM, EM_LAUNCHES, xyc, m, n, _tables(params),
-            (out["loglik"], out["trans"], out["emis"], None))
+            (out["loglik"], out["trans"], out["emis"], None), kend)
     return out
 
 
-def realign_gamma(xyc, m, n, params: KernelParams) -> dict:
+def realign_gamma(xyc, m, n, params: KernelParams, kend=None) -> dict:
     """Gamma-mode fused realign: the posterior match probabilities.
 
-    Inputs as :func:`realign_decode`.  Returns loglik (B,) f32 and the
-    gamma_match band ``gamma`` (B, k_pad + 1, W) f32, row k = diagonal k,
+    Inputs (and ``kend``) as :func:`realign_decode`.  Returns loglik
+    (B,) f32 and the gamma_match band ``gamma`` (B, k_pad + 1, W) f32,
+    row k = diagonal k,
     column w = band cell w (reference position o[k] + w); no MEA and no
     direction codes.  CUDA tensors launch the kernel, CPU tensors run the
     plain version.
@@ -241,16 +310,17 @@ def realign_gamma(xyc, m, n, params: KernelParams) -> dict:
         "gamma": xyc.new_empty((B, k_pad + 1, W), dtype=torch.float32),
     }
     _launch(GAMMA, GAMMA_LAUNCHES, xyc, m, n, _tables(params),
-            (out["loglik"], None, None, out["gamma"]))
+            (out["loglik"], None, None, out["gamma"]), kend)
     return out
 
 
 def realign_exp(xyc, m, n, params: KernelParams,
-                exp_threshold: float = 1e-3) -> dict:
+                exp_threshold: float = 1e-3, kend=None) -> dict:
     """Exp-mode fused realign: the SNP caller's expectation streams.
 
-    Inputs as :func:`realign_decode`.  Returns loglik (B,) f32, ``ret``
-    (B, k_pad + 1, 4) f32 (row k: the expected base counts of reference
+    Inputs (and ``kend``) as :func:`realign_decode`.  Returns loglik
+    (B,) f32, ``ret`` (B, k_pad + 1, 4) f32 (row k: the expected base
+    counts of reference
     position o[k+1] + W - 2, valid where d1[k+1] = 1) and ``flush``
     (B, 4, W) f32 (column w: position w - 1), summing the gamma_match
     values above ``exp_threshold`` by read base.  CUDA tensors launch the
@@ -267,7 +337,7 @@ def realign_exp(xyc, m, n, params: KernelParams,
     }
     _launch(EXP, EXP_LAUNCHES, xyc, m, n, _tables(params, 0.0, 0.0,
                                                   exp_threshold),
-            (out["loglik"], out["ret"], out["flush"], None))
+            (out["loglik"], out["ret"], out["flush"], None), kend)
     return out
 
 

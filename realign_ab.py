@@ -1,0 +1,315 @@
+#!/usr/bin/env python3
+"""Time the realign kernel's modes of several checkouts of the port, in
+turns, on the batches that ``chip_smoke.py`` drives.
+
+    python3 realign_ab.py TREE [TREE ...] [--reps 3] [--out FILE]
+
+Each TREE is the root of a checkout that holds ``nanopore_tpu_torch/``
+(``.`` for this one); list them in the order to run them, for example
+``scratch_chip/parent . . scratch_chip/parent``.  The script first
+builds, with this checkout's package and ``chip_smoke.py``'s helpers, the
+pack inputs of the realign batches of chip_smoke's paths, all from
+``SEED = 0``:
+
+* ``decode_w64``: the mapping path's batch (B = 512, W = 64, decode);
+* ``em``: the EM path's batch (B = 512, W = 64, windows of pad 256,
+  under chip_smoke's random model), and ``em_split_<s>``, the same batch
+  in consecutive calls of s reads, the launches that a workspace of
+  k_pad rows a read gives under the 8 GiB cap;
+* ``decode_w32``: the realign stage's fullest bucket (W = 32);
+* ``gamma``: AlignmentUncertainty's fullest batch (W = 64, blasr_hmm_0);
+* ``decode_gamma``: the rescore's fullest batch (W = 32);
+* ``exp``: the SNP caller's main bucket and ``exp_far_<n>x<m>``, each of
+  its other buckets (W = 64, threshold 1e-3, default model).
+
+Then, for each TREE in turn, a child process with that TREE first on
+``sys.path`` builds its kernels, packs each batch with its own pack
+kernel and times each call with CUDA events (one warm-up call, then
+``--reps`` calls), also counting launches per call and taking a digest
+of every output.  Prints one line per tree and batch and, last, a JSON
+object with every time (also written to ``--out``); it fails if two
+trees' outputs differ on any batch.  Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _model(name: str):
+    from nanopore_tpu_torch.align.model import PairHmmModel
+    from nanopore_tpu_torch.analyses.alignment_uncertainty import (
+        trained_hmm_path,
+    )
+
+    if name == "default":
+        return PairHmmModel.default()
+    if name == "random":
+        return PairHmmModel.random(np.random.default_rng(0))
+    return PairHmmModel.load(trained_hmm_path(name))
+
+
+def build_batches(workdir: str) -> list[dict]:
+    """The pack inputs of chip_smoke's realign batches, saved as .npz
+    under ``workdir``; returns their descriptions."""
+    import torch
+
+    import chip_smoke as cs
+    from nanopore_tpu_torch.align.chain_sam import chain_sam_file
+    from nanopore_tpu_torch.analyses.common import ExperimentData
+    from nanopore_tpu_torch.analyses.mutate_reference import (
+        mutate_reference_sequences,
+    )
+    from nanopore_tpu_torch.align.realign import window_global_pair
+    from nanopore_tpu_torch.io.encoding import encode
+    from nanopore_tpu_torch.io.sam import CIG
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+    from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
+    from nanopore_tpu_torch.mapping.runner import run_mapper
+    from nanopore_tpu_torch.ops.dispatch import _pairs_k_max
+    from nanopore_tpu_torch.ops.pack import pack_stream_pairs
+
+    dev = torch.device("cuda", 0)
+    B = 512
+    out = []
+
+    def save(name, pairs, W, k_max, mode, model, **extra):
+        prep = pack_stream_pairs(pairs, W, _pairs_k_max(pairs, k_max))
+        path = os.path.join(workdir, name + ".npz")
+        np.savez(path, stream=prep["stream"], initx=prep["initx"],
+                 m=prep["m"], n=prep["n"])
+        need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+        out.append(dict(name=name, path=path, W=W, mode=mode, model=model,
+                        B=len(pairs), k_pad=prep["k_pad"], need_diags=need,
+                        **extra))
+        print("batch %s: B=%d k_pad=%d W=%d %s" % (name, len(pairs),
+                                                  prep["k_pad"], W, mode))
+
+    # the mapping path
+    fa, fq = cs.write_workload(workdir, cs.REF_LEN)
+    engine = MappingEngine(read_fasta_dict(fa),
+                           MAPPER_REGISTRY["LastParams"].config, device=dev)
+    save("decode_w64", cs.main_path_batch(engine, fq, B), 64, None, "decode",
+         "default")
+    del engine
+    # the EM path
+    em_dir = os.path.join(workdir, "em")
+    fa2, fq2 = cs.write_workload(em_dir, cs.EM_REF_LEN)
+    mapped = os.path.join(em_dir, "mapped.sam")
+    chained = os.path.join(em_dir, "chained.sam")
+    run_mapper("LastParams", fq2, "reads", fa2, mapped, device=dev)
+    chain_sam_file(mapped, chained, fq2, fa2)
+    em_pairs = cs.chained_pairs(chained, fa2, 256)[:B]
+    save("em", em_pairs, 64, None, "em", "random")
+    # the parent's plan: B x k_pad rows of workspace, cut by read count
+    k_pad = out[-1]["k_pad"]
+    split = (8 << 30) // (k_pad * 5 * 64 * 4 + (k_pad + 1) * 4)
+    out.append(dict(out[-1], name="em_split_%d" % split, split=split))
+    pairs, k_max, _ = cs.fullest_bucket(cs.chained_pairs(chained, fa2, 128))
+    save("decode_w32", pairs[:B], 32, k_max, "decode", "default")
+    # the posterior path
+    post_dir = os.path.join(workdir, "post")
+    os.makedirs(post_dir, exist_ok=True)
+    ref = os.path.join(post_dir, "ref.fa")
+    with open(fa2) as src, open(ref, "w") as dst:
+        dst.write(src.read())
+    _, mut_fa = mutate_reference_sequences([ref], rates=(cs.MUTATION_RATE,),
+                                           seed=cs.SEED)
+    local_sam = os.path.join(post_dir, "local.sam")
+    global_sam = os.path.join(post_dir, "realigned.sam")
+    run_mapper("LastParams", fq2, "reads", mut_fa, local_sam, device=dev)
+    run_mapper("LastParamsRealign", fq2, "reads", mut_fa, global_sam,
+               device=dev)
+
+    def guide_of(rec):
+        return [(op, ln) for op, ln in rec.cigar
+                if op in (CIG.M, CIG.I, CIG.D)]
+
+    data = ExperimentData(fq2, mut_fa, local_sam)
+    items = [(data.ref_codes[rec.rname][rec.pos:rec.aend], encode(rec.query),
+              guide_of(rec)) for rec in data.records]
+    pairs, k_max, _ = cs.fullest_bucket(items)
+    save("gamma", pairs[:B], 64, k_max, "gamma", "blasr_hmm_0.txt")
+    pairs, k_max, _ = cs.fullest_bucket(cs.chained_pairs(global_sam, mut_fa,
+                                                         128))
+    save("decode_gamma", pairs[:B], 32, k_max, "decode_gamma", "default")
+    data = ExperimentData(fq2, mut_fa, global_sam)
+    items = []
+    for rec in data.records:
+        xw, guide, _, _ = window_global_pair(data.ref_codes[rec.rname],
+                                             guide_of(rec))
+        items.append((xw, encode(rec.query), guide))
+    buckets = cs.shape_buckets(items)
+    main_key = max(buckets, key=lambda k: len(buckets[k]))
+    for key in sorted(buckets, key=sum):
+        name = "exp" if key == main_key else "exp_far_%dx%d" % key
+        save(name, [items[i] for i in buckets[key][:B]], 64, sum(key), "exp",
+             "default")
+    return out
+
+
+def _digest(outs: dict) -> str:
+    """A digest of every output tensor's bytes (NaN patterns included)."""
+    import torch
+
+    h = hashlib.sha1()
+    for key in sorted(outs):
+        h.update(key.encode())
+        h.update(outs[key].contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def time_tree(batches: list[dict], reps: int) -> list[dict]:
+    """Child process: time every batch with the checkout first on
+    sys.path."""
+    import inspect
+
+    import torch
+
+    from nanopore_tpu_torch.kernels import build
+    from nanopore_tpu_torch.ops import realign as R
+    from nanopore_tpu_torch.ops.pack import pack_xyc
+    from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+
+    print("tree %s: build %.1f s" % (os.path.dirname(os.path.dirname(
+        R.__file__)), build.build(("pack", "realign"))), flush=True)
+    dev = torch.device("cuda", 0)
+    takes_kend = "kend" in inspect.signature(R.realign_em).parameters
+    counters = (R.LAUNCHES, R.EM_LAUNCHES, R.GAMMA_LAUNCHES,
+                R.DECODE_GAMMA_LAUNCHES, R.EXP_LAUNCHES)
+    res = []
+    for bt in batches:
+        z = np.load(bt["path"])
+        put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        m, n = put(z["m"]), put(z["n"])
+        xyc = pack_xyc(put(z["stream"]), put(z["initx"]), m, n)
+        kend = (z["m"].astype(np.int64) + z["n"]).astype(np.int32)
+        params = make_kernel_params(_model(bt["model"]))
+        split = bt.get("split") or len(kend)
+        parts = [(xyc[r0:r0 + split], m[r0:r0 + split], n[r0:r0 + split],
+                  kend[r0:r0 + split]) for r0 in range(0, len(kend), split)]
+
+        def call(x, mm, nn, ke):
+            kw = {"kend": ke} if takes_kend else {}
+            if bt["mode"] == "decode":
+                return R.realign_decode(x, mm, nn, params, **kw)
+            if bt["mode"] == "decode_gamma":
+                return R.realign_decode(x, mm, nn, params, emit_gamma=True,
+                                        **kw)
+            if bt["mode"] == "gamma":
+                return R.realign_gamma(x, mm, nn, params, **kw)
+            if bt["mode"] == "exp":
+                return R.realign_exp(x, mm, nn, params, 1e-3, **kw)
+            return R.realign_em(x, mm, nn, params, **kw)
+
+        def run():
+            return [call(*p) for p in parts]
+
+        outs = run()
+        digest = _digest({"%d_%s" % (i, k): v for i, o in enumerate(outs)
+                          for k, v in o.items()})
+        del outs
+        before = sum(c.count for c in counters)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        launches = (sum(c.count for c in counters) - before) // reps
+        row = dict(name=bt["name"], ms=float(np.mean(times)), ms_all=times,
+                   launches=launches, digest=digest)
+        print("  %-18s %10.3f ms (%s) %d launch(es), digest %s"
+              % (bt["name"], row["ms"], " ".join("%.3f" % t for t in times),
+                 launches, digest), flush=True)
+        res.append(row)
+        del xyc
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--out", help="where to write the JSON (default: "
+                    "nanopore_tpu_torch/_build/realign_ab/result.json)")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("realign_ab: no CUDA device", file=sys.stderr)
+        return 1
+    if args.child:  # time one tree: trees[0] is its root
+        sys.path.insert(0, os.path.abspath(args.trees[0]))
+        with open(args.child) as fh:
+            batches = json.load(fh)
+        print("RESULT " + json.dumps(time_tree(batches, args.reps)))
+        return 0
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.kernels import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    t0 = time.perf_counter()
+    workdir = os.path.join(build.BUILD_DIR, "realign_ab")
+    os.makedirs(workdir, exist_ok=True)
+    out_path = args.out or os.path.join(workdir, "result.json")
+    batches = build_batches(workdir)
+    spec = os.path.join(workdir, "batches.json")
+    with open(spec, "w") as fh:
+        json.dump(batches, fh)
+    print("batches: %.1f s" % (time.perf_counter() - t0), flush=True)
+    runs = []
+    for tree in args.trees:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), tree, "--reps",
+             str(args.reps), "--child", spec],
+            capture_output=True, text=True)
+        sys.stdout.write("".join(ln + "\n" for ln in proc.stdout.splitlines()
+                                 if not ln.startswith("RESULT ")))
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-4000:])
+            print("realign_ab: tree %s failed" % tree, file=sys.stderr)
+            return 1
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("RESULT ")][-1]
+        runs.append(dict(tree=tree, rows=json.loads(line[len("RESULT "):])))
+    bad = [bt["name"] for i, bt in enumerate(batches)
+           if len({run["rows"][i]["digest"] for run in runs}) > 1]
+    result = {"card": card, "batches": batches, "runs": runs,
+              "outputs_differ": bad}
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as fh:
+        json.dump(result, fh, indent=1)
+    for i, bt in enumerate(batches):
+        print("%-18s %s" % (bt["name"], "  ".join(
+            "%s %.3f" % (run["tree"], run["rows"][i]["ms"]) for run in runs)))
+    print("realign_ab wall: %.1f s" % (time.perf_counter() - t0))
+    print(json.dumps({"outputs_differ": bad, "ms": {
+        bt["name"]: [run["rows"][i]["ms"] for run in runs]
+        for i, bt in enumerate(batches)}}))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

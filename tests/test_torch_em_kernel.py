@@ -33,7 +33,7 @@ from nanopore_tpu_torch.ops.dispatch import PreparedEm, prepared_from_pairs
 from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.realign import realign_em, realign_em_plain
-from test_torch_realign import FIXTURES, W, mixed_pairs
+from test_torch_realign import FIXTURES, W, _far_end_pairs, mixed_pairs
 
 MODELS = ("default", "random")
 
@@ -179,3 +179,15 @@ def test_prepared_em_reruns_on_resident_codes():
         want = em_expectations(batch, jax_params(jm), segment_size=8)
         _assert_em_close(prep.run(make_kernel_params(pm)), want, len(pairs))
     assert prep.xyc.data_ptr() == xyc_id
+
+
+@pytest.mark.parametrize("which", MODELS)
+def test_em_short_read_beside_one_five_times_longer(which):
+    """A read's loglik, trans and emis are bit-identical beside a read
+    five times longer and alone (the far-end ratio of the EM batch)."""
+    pairs = _far_end_pairs(3)
+    params = make_kernel_params(_models(which)[1])
+    both = realign_em(*_xyc(pairs), params)
+    alone = realign_em(*_xyc(pairs[:1]), params)
+    for key in ("loglik", "trans", "emis"):
+        assert torch.equal(both[key][0], alone[key][0])

@@ -46,6 +46,7 @@ from nanopore_tpu_torch.ops.realign import (
     realign_gamma_plain,
 )
 from nanopore_tpu_torch.ops.traceback import mea_walk, rle_ops_batch
+from test_torch_realign import _far_end_pairs
 
 W = 8
 THRESHOLDS = (0.0, 1e-3)
@@ -330,3 +331,29 @@ def test_padding_diagonals_do_not_change_posteriors():
         e_l["ret"], e_l["flush"], long_[0]["offsets"], long_[0]["n"], W)
     for a, b in zip(x_s, x_l):
         assert np.array_equal(a, b)
+
+
+def test_short_read_beside_one_five_times_longer_posteriors():
+    """A read's gamma band, retire rows and flush are bit-identical
+    beside a read five times longer and alone; its rows past m + n are
+    0 in the gamma band and the retire rows."""
+    pairs = _far_end_pairs(3)
+    params = _params()
+    prep2, *both = _packed(pairs)
+    prep1, *alone = _packed(pairs[:1])
+    kend = int(prep2["k_end"][0])
+    g2, g1 = realign_gamma(*both, params), realign_gamma(*alone, params)
+    K1 = g1["gamma"].shape[1]
+    assert torch.equal(g2["loglik"][0], g1["loglik"][0])
+    assert torch.equal(g2["gamma"][0, :K1], g1["gamma"][0])
+    assert not g2["gamma"][0, kend + 1:].any()
+    e2 = realign_exp(*both, params, 1e-3)
+    e1 = realign_exp(*alone, params, 1e-3)
+    assert torch.equal(e2["ret"][0, :K1], e1["ret"][0])
+    assert torch.equal(e2["flush"][0], e1["flush"][0])
+    assert not e2["ret"][0, kend + 1:].any()
+    d2 = realign_decode(*both, params, emit_gamma=True)
+    d1 = realign_decode(*alone, params, emit_gamma=True)
+    assert torch.equal(d2["gamma"][0, :K1], d1["gamma"][0])
+    assert torch.equal(d2["dirs"][0, :K1], d1["dirs"][0])
+    assert (d2["dirs"][0, kend + 1:] == port_realign.DIR_NONE).all()

@@ -23,6 +23,7 @@ from nanopore_tpu.ops.pairhmm import make_kernel_params as jax_params
 from nanopore_tpu.ops.pairhmm import prepare_banded_batch
 from nanopore_tpu_torch.align.model import PairHmmModel
 from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
+from nanopore_tpu_torch.ops import realign as port_realign
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.realign import (
     realign_decode,
@@ -166,3 +167,93 @@ def test_padding_diagonals_do_not_change_results():
     assert torch.equal(short["score"], long_["score"])
     K1 = short["dirs"].shape[1]
     assert torch.equal(short["dirs"], long_["dirs"][:, :K1])
+
+
+# ---- the kernel's launch plan (ops.realign.workspace_plan) ----
+
+PLAN_W = 64
+DIAG_BYTES = 5 * PLAN_W * 4  # forward states of one diagonal at W = 64
+
+
+def _plan_lengths(rng, count, lo, hi):
+    m = rng.integers(lo, hi, count)
+    return m, rng.integers(lo, hi, count)
+
+
+@pytest.mark.parametrize("cap", [10_000, 150_000, 1 << 30])
+def test_workspace_plan_offsets_are_prefix_sums_in_read_order(cap):
+    m, n = _plan_lengths(np.random.default_rng(cap), 40, 1, 60)
+    offsets, launches = port_realign.workspace_plan(m, n, PLAN_W, cap)
+    nbytes = port_realign.read_workspace_bytes(m + n, PLAN_W)
+    assert offsets[0] == 0 and offsets.dtype == np.int64
+    np.testing.assert_array_equal(np.diff(offsets), nbytes)
+    # each read: kq = m + n rounded up to even rows of states, then
+    # kq + 1 rescale inverses padded to 16 bytes
+    kq = m + n + ((m + n) & 1)
+    np.testing.assert_array_equal(
+        nbytes, kq * DIAG_BYTES + -(-(kq + 1) // 4) * 16)
+    assert (offsets % 16 == 0).all()
+    # runs of reads in batch order, covering the batch once
+    assert launches[0][0] == 0 and launches[-1][1] == len(m)
+    for (a0, a1), (b0, _) in zip(launches, launches[1:]):
+        assert a0 < a1 == b0
+    for r0, r1 in launches:
+        assert offsets[r1] - offsets[r0] <= cap or r1 - r0 == 1
+
+
+def test_workspace_plan_puts_a_read_over_the_cap_alone():
+    m = np.array([10, 10, 400, 10, 10])
+    n = np.array([10, 10, 400, 10, 10])
+    cap = 50 * DIAG_BYTES
+    offsets, launches = port_realign.workspace_plan(m, n, PLAN_W, cap)
+    assert (2, 3) in launches
+    assert launches == [(0, 2), (2, 3), (3, 5)]
+    assert offsets[3] - offsets[2] > cap
+
+
+def test_workspace_plan_fits_the_em_batch_in_one_launch():
+    """503 reads of ~10,100 diagonals and 9 far-end windows of up to
+    53,248 (chip_smoke.py's EM batch) fit one launch under the cap; the
+    workspace of B x k_pad rows a read needed 5."""
+    rng = np.random.default_rng(5)
+    m = np.concatenate([rng.integers(4700, 5000, 503),
+                        rng.integers(4700, 5000, 9)])
+    n = np.concatenate([10_100 - m[:503],
+                        np.linspace(32_000, 48_240, 9).astype(np.int64)])
+    offsets, launches = port_realign.workspace_plan(
+        m, n, PLAN_W, port_realign.WORKSPACE_BYTES)
+    assert launches == [(0, 512)]
+    assert offsets[-1] <= port_realign.WORKSPACE_BYTES
+    k_pad = 53_248
+    per_read = k_pad * DIAG_BYTES + (k_pad + 1) * 4
+    assert -(-512 // (port_realign.WORKSPACE_BYTES // per_read)) == 5
+
+
+def _far_end_pairs(seed):
+    """A short read and one five times longer beside it."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for L in (16, 80):
+        x = rng.integers(0, 4, L).astype(np.int8)
+        y = np.concatenate([x[:L // 2], x[L // 2 + 3:]]).copy()
+        y[rng.integers(0, len(y), 2)] = rng.integers(0, 4, 2)
+        pairs.append((x, y, [(CIG.M, L // 2), (CIG.D, 3),
+                             (CIG.M, L - L // 2 - 3)]))
+    return pairs
+
+
+def test_short_read_beside_one_five_times_longer_decodes_as_alone():
+    """The premise of the kernel's per-read extent: a read's loglik,
+    score and direction codes do not depend on a read five times longer
+    in its batch, and its rows past m + n are DIR_NONE."""
+    pairs = _far_end_pairs(3)
+    both, _, prep = _port(pairs, None)
+    alone, _, prep1 = _port(pairs[:1], None)
+    assert prep["k_pad"] > prep1["k_pad"] or \
+        prep["k_end"][1] >= 5 * prep["k_end"][0]
+    for key in ("loglik", "score"):
+        assert torch.equal(both[key][0], alone[key][0])
+    K1 = alone["dirs"].shape[1]
+    assert torch.equal(both["dirs"][0, :K1], alone["dirs"][0])
+    kend = int(prep["k_end"][0])
+    assert (both["dirs"][0, kend + 1:] == port_realign.DIR_NONE).all()
