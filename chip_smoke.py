@@ -9,7 +9,13 @@
    ``ptxas -v`` registers and spills; the realign source holds the
    decode, EM, gamma, decode + gamma and exp modes, and each mode's
    registers, local memory (spills) and static and dynamic shared memory
-   at W = 64 and 32 are printed from the compiled kernel).
+   at W = 64 and 32 are printed from the compiled kernel, with each
+   walker's dynamic shared memory a block).  Then the
+   realign kernel's workspace guard (ROADMAP C8), in a child process
+   (``chip_smoke.py --kend-guard``): a launch whose caller's kend is
+   m + n passes, one whose kend is half of m + n must fail at the next
+   synchronise (a trap on the device, which leaves the child's context
+   unusable).
 2. Makes two seeded workloads of 512 reads of 5 kb (5 % deletions, 10 %
    substitutions, both strands, origin and strand in each read name): on
    a 1 Mb random reference for the mapping path, and on a 48,502-bp one
@@ -22,7 +28,13 @@
    relative, cigars identical on at least 99 % of reads (a differing read
    must still agree in loglik and score: an MEA tie); walker ops
    identical.  Times each kernel with CUDA events beside its bound and
-   the plain version's time.
+   the plain version's time.  Then the MEA walker on ragged card
+   batches at W = 64 and 32 (seven reads of unequal length, one five
+   times the median of the others, so B is not a multiple of the
+   kernel's 4 reads a block; each of two reads alone; the seven with
+   one read's m raised past k_pad), on the realign kernel's direction
+   codes and on random ones (paths that leave the band): ops
+   bit-identical to the plain walker's.
 4. Maps the reads end to end with ``run_mapper("LastParams", ...)``
    twice (the second run is the warm one), with every launch counter
    set to 0 just before the warm run and read just after; each must be
@@ -37,7 +49,7 @@
    at W = 32 on the realign stage's fullest bucket (windows of pad 128)
    to the bars of step 3, the plain realign's cigars walked by the plain
    walker; and the walker kernel against its plain version on those
-   W = 32 direction codes.  The plain realign and walker run on the
+   W = 32 direction codes of the whole bucket, timed there.  The plain realign and walker run on the
    first 128 reads at the full diagonal count (a read's outputs do not
    depend on its batch); the kernels are timed on the full batch.  A
    chained record that ends ``<tail>D <k>I`` windows to the end of the
@@ -98,6 +110,10 @@
    (1e-5 relative) and against the realign kernel's decode loglik on the
    whole batch (1e-5 relative), and every Viterbi score at most the
    forward loglik (+1e-5 of it); each kernel timed on the whole batch.
+   The Viterbi walker also on step 3's ragged batches at W = 64 and 32,
+   on the Viterbi kernel's plane (every walk but the capped read's
+   reaches the origin) and on a random plane (walks that end short of
+   it): ops and end cells bit-identical to the plain walker's.
    Then the forward-only kernel through its entry point
    (``prepared_from_pairs(..., prepared_cls=PreparedForward).run()``),
    with every counter set to 0 just before.
@@ -246,6 +262,186 @@ def main_path_batch(engine, fq: str, batch_size: int):
     return engine.candidate_pairs(cands[:batch_size])
 
 
+def ragged_pairs(seed: int):
+    """Seven (window, read, guide) pairs of unequal lengths, one read
+    five times the median of the others (10 % substitutions, a run of 8
+    deletions in every read, guided by one M run then the rest as D)."""
+    from nanopore_tpu_torch.io.sam import CIG
+
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for L in (380, 410, 430, 2050, 395, 440, 415):
+        x = rng.integers(0, 4, L).astype(np.int8)
+        cut = int(rng.integers(L // 4, L // 2))
+        y = np.concatenate([x[:cut], x[cut + 8:]])
+        sub = rng.random(len(y)) < 0.10
+        y = np.where(sub, rng.integers(0, 4, len(y)), y).astype(np.int8)
+        pairs.append((x, y, [(CIG.M, len(y)), (CIG.D, L - len(y))]))
+    return pairs
+
+
+def ragged_batches(dev, W_: int):
+    """The ragged card batches of the walker checks at band width W_:
+    (name, xyc, m, n) for the seven reads of :func:`ragged_pairs`, the
+    long read alone (B = 1), a short read alone, and the seven with the
+    long read's m raised past k_pad (a capped read, cut at k_pad)."""
+    import torch
+
+    pairs = ragged_pairs(SEED + W_)
+    xyc, m, n, prep = device_batch(pairs, W_, None, dev, "ragged batch",
+                                   check_pack=False)
+    out = [("B7", xyc, m, n)]
+    for name, r in (("B1 long", 3), ("B1 short", 0)):
+        out.append((name,) + tuple(t[r:r + 1].contiguous()
+                                   for t in (xyc, m, n)))
+    capped = m.clone()
+    capped[3] += prep["k_pad"]
+    out.append(("B7 capped", xyc, capped, n))
+    return out, prep
+
+
+def mea_walk_ragged(dev, params, cfg) -> None:
+    """The MEA walker kernel against its plain version on the ragged
+    batches at W = 64 and 32, on the realign kernel's direction codes
+    and on random ones (paths that leave the band): bit for bit."""
+    import torch
+
+    from nanopore_tpu_torch.ops.realign import realign_decode
+    from nanopore_tpu_torch.ops.traceback import mea_walk, mea_walk_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for W_ in (W, W_REALIGN):
+        batches, prep = ragged_batches(dev, W_)
+        for name, xyc, m, n in batches:
+            kend = (m.long() + n.long()).clamp_max(prep["k_pad"])
+            mc = m.clamp_max(prep["k_pad"])
+            out = realign_decode(xyc, mc, n, params, cfg.gap_gamma,
+                                 cfg.match_gamma)
+            if "capped" in name:
+                # the caller's kend with the capped read's m + n above
+                # k_pad: the launch plan takes it, the kernel clamps the
+                # read's diagonals to k_pad, and nothing changes
+                host = (mc.long() + n.long()).cpu().numpy()
+                if host.max() <= prep["k_pad"]:
+                    fail("the capped ragged batch has no kend above k_pad")
+                out2 = realign_decode(xyc, mc, n, params, cfg.gap_gamma,
+                                      cfg.match_gamma, kend=host)
+                if not all(torch.equal(a.view(torch.int8), b.view(torch.int8))
+                           for a, b in ((out[k], out2[k]) for k in
+                                        ("loglik", "score", "dirs"))):
+                    fail("realign decode with a kend above k_pad differs "
+                         "from the launch without it")
+                print("K2 realign ragged %s W=%d: kend %s (k_pad %d) gives "
+                      "the outputs of the launch without it, bit for bit"
+                      % (name, W_, host.tolist(), prep["k_pad"]))
+            dirs = out["dirs"]
+            rand = torch.randint(0, 4, dirs.shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+            codes = [("realign codes", dirs), ("random codes", rand)]
+            for what, d in codes[:1 if name.startswith("B1") else 2]:
+                ops_k = mea_walk(d, xyc, m, n)
+                ops_p = mea_walk_plain(d, xyc, m, n)
+                if not torch.equal(ops_k, ops_p):
+                    fail("MEA walker kernel differs from its plain version "
+                         "on the ragged batch %s W=%d (%s)" % (name, W_, what))
+            print("K3 walker ragged %s W=%d (m + n %s, k_pad %d): ops "
+                  "identical on realign%s codes"
+                  % (name, W_, kend.tolist(), prep["k_pad"],
+                     "" if name.startswith("B1") else " and random"))
+
+
+def viterbi_walk_ragged(dev, params) -> None:
+    """The Viterbi walker kernel against its plain version on the ragged
+    batches at W = 64 and 32, on the Viterbi kernel's plane (every walk
+    but the capped read's reaches the origin) and on a random plane
+    (walks that end short of it): op codes and end cells bit for bit."""
+    import torch
+
+    from nanopore_tpu_torch.ops.traceback import (
+        viterbi_walk,
+        viterbi_walk_plain,
+    )
+    from nanopore_tpu_torch.ops.viterbi import viterbi_forward
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for W_ in (W, W_REALIGN):
+        batches, prep = ragged_batches(dev, W_)
+        for name, xyc, m, n in batches:
+            out = viterbi_forward(xyc, m.clamp_max(prep["k_pad"]), n, params)
+            rand = torch.randint(0, 80, out["bp"].shape, generator=gen,
+                                 device=dev, dtype=torch.int8)
+            rstate = torch.randint(0, 5, out["fstate"].shape, generator=gen,
+                                   device=dev, dtype=torch.int32)
+            lost = {}
+            for what, bp, fs in (("Viterbi plane", out["bp"], out["fstate"]),
+                                 ("random plane", rand, rstate)):
+                ops_k, end_k = viterbi_walk(bp, xyc, m, n, fs)
+                ops_p, end_p = viterbi_walk_plain(bp, xyc, m, n, fs)
+                if not (torch.equal(ops_k, ops_p)
+                        and torch.equal(end_k, end_p)):
+                    fail("Viterbi walker kernel differs from its plain "
+                         "version on the ragged batch %s W=%d (%s)"
+                         % (name, W_, what))
+                lost[what] = int(end_k.any(1).sum())
+            print("K5 viterbi walker ragged %s W=%d (k_pad %d): ops and end "
+                  "cells identical; walks short of the origin %s"
+                  % (name, W_, prep["k_pad"], lost))
+            capped = "capped" in name
+            if lost["Viterbi plane"] != int(capped):
+                fail("Viterbi walks on the ragged batch %s: %d lost"
+                     % (name, lost["Viterbi plane"]))
+
+
+def kend_guard_child() -> int:
+    """Run as ``chip_smoke.py --kend-guard`` in a child process: a
+    realign launch with the caller's kend equal to m + n passes, one
+    with kend below m + n must fail at the next synchronise (the
+    kernel's trap on the device leaves the context unusable, hence the
+    child).  Prints KEND_GUARD_FIRED when it did."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.align.model import PairHmmModel
+    from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+    from nanopore_tpu_torch.ops.realign import realign_decode
+
+    dev = torch.device("cuda", 0)
+    xyc, m, n, prep = device_batch(ragged_pairs(SEED), W, None, dev,
+                                   "kend guard batch", check_pack=False)
+    params = make_kernel_params(PairHmmModel.default())
+    kend = prep["m"].astype(np.int64) + prep["n"]
+    good = realign_decode(xyc, m, n, params, kend=kend)
+    torch.cuda.synchronize()
+    print("kend = m + n: loglik finite %s"
+          % bool(torch.isfinite(good["loglik"]).all()), flush=True)
+    try:
+        realign_decode(xyc, m, n, params, kend=kend // 2)
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        print("kend = (m + n) / 2: %s" % str(exc).splitlines()[0])
+        print("KEND_GUARD_FIRED", flush=True)
+        return 0
+    print("kend = (m + n) / 2: no error", flush=True)
+    return 1
+
+
+def kend_guard_check() -> None:
+    """ROADMAP C8 on the card: the realign kernel refuses a read whose
+    m + n needs more workspace than the caller's kend gave it."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--kend-guard"],
+        capture_output=True, text=True, timeout=600)
+    out = proc.stdout.strip().splitlines()
+    for line in out:
+        print("kend guard child: " + line)
+    if proc.returncode != 0 or "KEND_GUARD_FIRED" not in out:
+        sys.stdout.write(proc.stderr[-3000:])
+        fail("a kend below m + n did not fail on the card")
+    print("kend guard: a kend below m + n failed at the next synchronise "
+          "(%.1f s wall, child process)" % (time.perf_counter() - t0))
+
+
 def kernel_phase(engine, fq: str, dev) -> tuple:
     """Step 3: the kernel rows of the mapping main path; returns them and
     the batch's (window, read, guide) pairs."""
@@ -361,7 +557,10 @@ def kernel_phase(engine, fq: str, dev) -> tuple:
         fail("walker kernel differs from its plain version")
     walk_err = float((ops_k.int() - ops_p.int()).abs().max())
     ms = cuda_ms(lambda: mea_walk(dirs, xyc, m, n), 10)
-    nbytes = need_diags + B * k_pad + B * (k_pad + 1) + 8 * B
+    # a direction byte per step of the walks (their ops other than 3), a
+    # code byte per diagonal of each read, an op byte per diagonal of
+    # the batch, m and n
+    nbytes = walked_bytes(ops_k) + need_diags - B + B * (k_pad + 1) + 8 * B
     res["traceback"] = dict(
         per_batch=launches_per_call(
             traceback.LAUNCHES, lambda: mea_walk(dirs, xyc, m, n)),
@@ -370,12 +569,22 @@ def kernel_phase(engine, fq: str, dev) -> tuple:
     )
     print("K3 walker: ops identical; %.3f ms (plain %.1f ms, %.1f s wall)"
           % (ms, plain_ms, time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    mea_walk_ragged(dev, params, cfg)
+    print("K3 walker ragged batches: %.1f s wall" % (time.perf_counter() - t0))
     for name, r in res.items():
         print("%s: %.4f ms per batch, %d launch(es) per batch, bound %.4f ms "
               "(%s), plain %.1f ms, library_ms null (no single PyTorch call)"
               % (name, r["ms"], r["per_batch"], r["bound_ms"], r["bound_by"],
                  r["plain_ms"]))
     return res, pairs
+
+
+def walked_bytes(ops) -> int:
+    """The direction or backpointer bytes a walk reads: one per step, so
+    one per op other than 3 (none), which a skipped diagonal and the
+    rows past a read's end get."""
+    return int((ops != 3).sum())
 
 
 def realign_bound(ops_per_cell: int, W_: int, need_diags: int,
@@ -608,20 +817,28 @@ def em_kernel_phase(chained_sam: str, fa: str, dev, res: dict) -> None:
     err = float(torch.maximum(
         (out_k["loglik"][:P] - out_p["loglik"]).abs().max(),
         (out_k["score"][:P] - out_p["score"]).abs().max()))
-    # the walker at this shape: kernel against plain on the kernel's
-    # direction codes; the plain realign's codes go through the plain
-    # walker, so its cigars owe nothing to either kernel
-    dirs_k = out_k["dirs"][:P].contiguous()
-    ops_k = mea_walk(dirs_k, xs, ms_, ns)
-    ops_kp, walk_plain_ms = timed(lambda: mea_walk_plain(dirs_k, xs, ms_, ns))
+    # the walker at this shape, on the whole bucket: kernel against plain
+    # on the kernel's direction codes; the plain realign's codes go
+    # through the plain walker, so its cigars owe nothing to either kernel
+    dirs_k = out_k["dirs"]
+    ops_k = mea_walk(dirs_k, xyc, m, n)
+    ops_kp, walk_plain_ms = timed(lambda: mea_walk_plain(dirs_k, xyc, m, n))
     if not torch.equal(ops_k, ops_kp):
         fail("walker kernel differs from its plain version at W=32")
+    walk_ms = cuda_ms(lambda: mea_walk(dirs_k, xyc, m, n), 10)
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    res["traceback"].update(
+        ms_w32=walk_ms, plain_ms_w32=walk_plain_ms, reads_w32=Br,
+        bound_ms_w32=(walked_bytes(ops_k) + need - Br + Br * (k_pad + 1)
+                      + 8 * Br) / HBM_BYTES_PER_S * 1e3)
+    ops_k = ops_k[:P]
     cig_k = rle_ops_batch(ops_k.cpu().numpy())
     cig_p = rle_ops_batch(
         mea_walk_plain(out_p["dirs"], xs, ms_, ns).cpu().numpy())
     cig_diff = sum(a != b for a, b in zip(cig_k, cig_p))
-    print("K3 walker W=32: ops identical on %d reads (plain %.1f ms)"
-          % (P, walk_plain_ms))
+    print("K3 walker W=32: ops identical on the bucket's %d reads; %.3f ms "
+          "per batch, bound %.4f ms (bytes), plain %.1f ms"
+          % (Br, walk_ms, res["traceback"]["bound_ms_w32"], walk_plain_ms))
     print("K2 realign W=32: loglik max rel %.3g, score max rel %.3g, reads "
           "with differing cigars %d of %d (%.1f s wall)"
           % (ll_rel, sc_rel, cig_diff, P, time.perf_counter() - t0))
@@ -1264,7 +1481,10 @@ def viterbi_kernel_phase(engine, pairs, dev, counters, res: dict) -> dict:
     if lost or whole != B:
         fail("Viterbi walks: %d lost, %d of %d whole cigars" % (lost, whole, B))
     ms = cuda_ms(lambda: viterbi_walk(bp, xyc, m, n, fstate), 10)
-    nbytes = 2 * need + B * K1 + 20 * B
+    # a plane byte per step of the walks (their ops other than 3), a
+    # code byte per diagonal of each read, an op byte per diagonal of
+    # the batch, m, n, fstate and the end cell
+    nbytes = walked_bytes(ops_k) + need - B + B * K1 + 20 * B
     res["viterbi_traceback"] = dict(
         per_batch=launches_per_call(traceback.VIT_LAUNCHES, lambda: viterbi_walk(
             bp, xyc, m, n, fstate)),
@@ -1273,6 +1493,10 @@ def viterbi_kernel_phase(engine, pairs, dev, counters, res: dict) -> dict:
     )
     print("K5 viterbi walker: %.3f ms per batch (plain %.1f ms on %d reads)"
           % (ms, plain_ms, P))
+    t0 = time.perf_counter()
+    viterbi_walk_ragged(dev, params)
+    print("K5 viterbi walker ragged batches: %.1f s wall"
+          % (time.perf_counter() - t0))
 
     # ---- K6 forward only ----
     t0 = time.perf_counter()
@@ -1438,6 +1662,8 @@ def main() -> int:
         print("chip_smoke: nanopore_tpu_torch is not beside this script",
               file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--kend-guard"]:
+        return kend_guard_child()
     sys.path.insert(0, ROOT)
     from nanopore_tpu_torch.kernels import build
     from nanopore_tpu_torch.mapping.engine import MappingEngine
@@ -1463,9 +1689,13 @@ def main() -> int:
                   "shared memory a block"
                   % (mode, width, a["registers"], a["local_bytes"],
                      a["static_smem"], a["dynamic_smem"]))
+    for width in (W, W_REALIGN):
+        print("walkers W=%d: dynamic shared memory a block of 4 reads %s"
+              % (width, traceback.walker_shared_memory(width)))
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
     print("native seedchain: %s" % native_index.get_lib()._name)
+    kend_guard_check()
 
     dev = torch.device("cuda", 0)
     workdir = os.path.join(build.BUILD_DIR, "smoke")

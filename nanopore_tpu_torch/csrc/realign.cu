@@ -58,7 +58,11 @@
 //    row k-1 = diagonal k) and then its rescale inverses (kq + 1 floats,
 //    padded to 16 bytes) sit at woff[r] floats, a 64-bit exclusive
 //    prefix sum that the wrapper computes from the host's m and n, so a
-//    launch holds what its reads need rather than B x k_pad rows.
+//    launch holds what its reads need rather than B x k_pad rows.  The
+//    wrapper passes the end of the last read's slot too (nreads + 1
+//    offsets), and a read whose m + n needs more than its slot (a
+//    caller's m + n that disagrees with the device's) traps on
+//    the device before it writes anything: never a clamp.
 //  * no global load on the chain: each warp stages its codes (phase A,
 //    CH + 1 rows a chunk for the one-ahead emission lookup) and its
 //    stored states, codes and rescale inverses (phase B) through shared
@@ -330,7 +334,8 @@ __device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
 //   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32;
 //   GAMMA, DECODE_GAMMA: `out3` gamma_match (B, k_pad + 1, W) f32.
 // `ws` is the launch's workspace and `woff[r]` read r's offset in it
-// (floats); dynamic shared memory holds WARPS Stage<C>.
+// (floats), woff[r + 1] the end of its slot; dynamic shared memory holds
+// WARPS Stage<C>.
 template <int C, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
@@ -362,6 +367,9 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
   const int kend = m[r] + n[r];
   const int kq = min(kend + (kend & 1), k_pad);     // the read's last diagonal
+  // the read's states and rescale inverses must fit its slot (kend below
+  // m + n otherwise); a trap, not an assert, so no build flag removes it
+  if (woff[r] + (int64_t)kq * NS * W + (kq + 1 + 3) / 4 * 4 > woff[r + 1]) __trap();
   float* fs = ws + woff[r];                         // row k-1: diagonal k
   float* sf = fs + (size_t)kq * NS * W;             // [k]: diagonal k
 
@@ -826,9 +834,11 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 // `stream`; returns cudaGetLastError() (0 on success).  `tables` is host
 // memory: 91 model floats, then gap gamma, match gamma and the exp
 // threshold (each mode reads what it uses).  `ws` is the workspace and
-// `woff` (nreads,) int64 each read's offset in it, in floats: read r
-// needs kq * 5 * W floats of states and then kq + 1 rescale inverses,
-// kq = m + n rounded up to even, the offsets 16-byte aligned.  The
+// `woff` (nreads + 1,) int64 each read's offset in it and, last, the end
+// of the last read's slot, in floats: read r needs kq * 5 * W floats of
+// states and then kq + 1 rescale inverses padded to 4 floats, kq = m + n
+// rounded up to even (at most k_pad), the offsets 16-byte aligned; a read
+// that needs more than woff[r + 1] - woff[r] traps on the device.  The
 // outputs by mode are those of realign_kernel; a pointer a mode does
 // not write may be null.
 extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,

@@ -9,36 +9,58 @@
 // I for 2 and 4), steps back (i - 1 for M and I, j - 1 for M and D) and
 // takes the predecessor state: p % 5 from the match state, for gap
 // state s its from-self bit ((p / 5) >> (s - 1)) & 1 times s.  It stops
-// at (0, 0) and writes 3 (none) on every diagonal off the path; the cell
-// where it stopped goes to `end`, (0, 0) for a whole walk.  The rules
-// are ops/traceback.py::viterbi_walk_plain's.  The band offsets o[k] are
-// integrated from bit 6 of the packed band codes already on the card:
-// summed up to the start diagonal, then subtracted while walking down
-// (the TPU walker's descending integration), so no offsets cross the
-// bus.
+// at (0, 0), or below diagonal 0, and writes 3 (none) on every diagonal
+// off the path; the cell where it stopped goes to `end`, (0, 0) for a
+// whole walk.  A read with m + n > k_pad is not walked (its ops are all
+// 3, its end (m, n)).  The rules are ops/traceback.py::viterbi_walk_plain's.
+// The band offsets o[k] are integrated from bit 6 of the packed band
+// codes already on the card, so no offsets cross the bus.
 //
 // Bound: latency.  The useful traffic is one backpointer byte and one
-// code byte per diagonal per read, but each step's load address depends
-// on the previous step's move, a serial chain of ~10^4 dependent loads
-// per read, after a pass of ~10^4 independent code loads for the start
-// offset.  Design: csrc/traceback.cu's, one thread per read and small
-// blocks so the reads spread over many SMs and their chains overlap; the
-// code byte of each diagonal does not depend on the walk and is loaded
-// ahead by the unrolled loops.
+// code byte per path diagonal per read, and one op byte per diagonal
+// (the bytes bound is microseconds), but the walk is a serial chain:
+// each step's cell depends on the previous step's move.  Design: that
+// of csrc/traceback.cu, going down:
+//  * one warp per read, WARPS reads a block;
+//  * o[kstart] (kstart = min(m + n, k_pad)) first, as one warp-parallel
+//    sum of d1[1..kstart]: independent strided loads, then
+//    __reduce_add_sync; meanwhile the first chunks are in flight;
+//  * the warp streams the read's backpointer rows from kstart down into
+//    a shared-memory ring of chunks of CH diagonals (chunk c holds rows
+//    c*CH ..), NBUF - 1 chunks ahead of the walk, by 16-byte cp.async
+//    copies, with the column-0 code word of each diagonal by 4-byte
+//    copies (csrc/walk.cuh); one warp scan per chunk turns bit 6 of
+//    those words into the chunk's o[k], carried down from o[kstart];
+//  * one lane walks in shared memory only, jumping straight to its next
+//    diagonal (k - 1 or k - 2).  The walk is software-pipelined: the
+//    state decides the next cell before the current backpointer is
+//    decoded, so the next cell's byte is loaded (its offset from the two
+//    loaded a step ahead) while the current one is decoded.  It writes
+//    each op into a shared op row (prefilled with 3) that the warp
+//    stores with 16-byte stores;
+//  * the rows above kstart are filled with 3 by 16-byte stores.
+// Serves W = 32 and 64, the band width of the Viterbi kernel's callers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "walk.cuh"
+
 namespace {
 
-constexpr int THREADS = 32;
+using namespace walk;
 
-__global__ void __launch_bounds__(THREADS)
+template <int W>
+__global__ void __launch_bounds__(WARPS * 32)
 viterbi_walk_kernel(const int8_t* __restrict__ bp, const uint8_t* __restrict__ xyc,
                     const int32_t* __restrict__ m, const int32_t* __restrict__ n,
                     const int32_t* __restrict__ fstate, int nreads, int k_pad,
-                    int W, int8_t* __restrict__ ops, int32_t* __restrict__ end) {
-  const int r = blockIdx.x * THREADS + threadIdx.x;
+                    int8_t* __restrict__ ops, int32_t* __restrict__ end) {
+  extern __shared__ __align__(16) unsigned char stage_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * WARPS + warp;
   if (r >= nreads) return;
+  Stage<W>& sg = reinterpret_cast<Stage<W>*>(stage_raw)[warp];
   const int K1 = k_pad + 1;
   const int8_t* pr = bp + (size_t)r * K1 * W;
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
@@ -46,29 +68,74 @@ viterbi_walk_kernel(const int8_t* __restrict__ bp, const uint8_t* __restrict__ x
   int i = m[r];
   int j = n[r];
   int s = fstate[r];
-  const int kstart = i + j < k_pad ? i + j : k_pad;
-  int o = 0;  // o[kstart]
+  const bool walks = i + j <= k_pad;  // else no diagonal holds its cell
+  const int kstart = walks ? i + j : k_pad;
+  const int ctop = kstart / CH;  // chunks ctop, ctop - 1, .., 0
+  auto rows_of = [&](int c) { return c >= 0 ? min(CH, kstart + 1 - c * CH) : 0; };
+
+  fill_none(op + kstart + 1, k_pad - kstart, lane);
+#pragma unroll
+  for (int q = 0; q < NBUF - 1; ++q)
+    stage_chunk<W>(sg, pr, xy, ctop - q, rows_of(ctop - q), q, lane);
+  // o[kstart]: d1[1..kstart], independent loads spread over the lanes
+  int part = 0;
 #pragma unroll 8
-  for (int k = 1; k <= kstart; ++k) o += (xy[(size_t)(k - 1) * W] >> 6) & 1;
-  for (int k = k_pad; k > kstart; --k) op[k] = 3;
-#pragma unroll 4
-  for (int k = kstart; k >= 0; --k) {
-    int code = 3;
-    if (i + j == k && (i != 0 || j != 0)) {
-      const int b = j - o;
-      const int p = (b >= 0 && b < W) ? pr[(size_t)k * W + b] : 0;
-      const int prev = s == 0 ? p % 5 : s * (((p / 5) >> (s - 1)) & 1);
-      const bool is_d = s == 1 || s == 3;
-      code = s == 0 ? 0 : (is_d ? 1 : 2);
-      i -= !is_d;
-      j -= s == 0 || is_d;
-      s = prev;
+  for (int k = 1 + lane; k <= kstart; k += 32) part += (xy[(size_t)(k - 1) * W] >> 6) & 1;
+  int otop = __reduce_add_sync(FULL, part);  // o[top of the current chunk]
+
+  int k = kstart;  // the walk's diagonal; lane 0's
+#pragma unroll 1
+  for (int q = 0; q <= ctop; ++q) {
+    const int c = ctop - q;
+    const int slot = q % NBUF;
+    cp_wait_ring();  // chunk c has landed
+    __syncwarp();    // and every lane is done with the chunk before
+    stage_chunk<W>(sg, pr, xy, c - (NBUF - 1), rows_of(c - (NBUF - 1)), (q + NBUF - 1) % NBUF,
+                   lane);
+    const int lo = c * CH;
+    const int nrows = rows_of(c);
+    otop = scan_offsets<W>(sg, slot, lo, nrows, otop, true, lane);
+    const int phase = (int)((uintptr_t)(op + lo) & 15);
+    clear_ops<W>(sg, lane);
+    __syncwarp();
+    if (lane == 0 && walks && k >= lo && (i != 0 || j != 0)) {
+      // the walk, software-pipelined: the state decides the next cell
+      // before the backpointer of this one is decoded, so the load of
+      // the next cell's byte (its offset taken from the two loaded a
+      // step ahead) is issued first and overlaps the decode
+      const int8_t* rows = sg.rows[slot];
+      const int32_t* so = sg.o + OFF;  // so[kk]: diagonal lo + kk, kk >= -OFF
+      int kk = k - lo;
+      const int b0 = j - so[kk];
+      int p = (unsigned)b0 < (unsigned)W ? rows[kk * W + b0] : 0;
+      int om1 = so[kk - 1], om2 = so[kk - 2];
+      while (true) {
+        const int o3 = so[kk - 3], o4 = so[kk - 4];
+        const bool is_m = s == 0;
+        const bool is_d = s == 1 || s == 3;
+        sg.ops[phase + kk] = (uint8_t)(is_m ? 0 : (is_d ? 1 : 2));
+        i -= !is_d;
+        j -= is_m || is_d;
+        const int kn = kk - (is_m ? 2 : 1);
+        const int bn = j - (is_m ? om2 : om1);
+        const int pn = kn >= 0 && (unsigned)bn < (unsigned)W ? rows[kn * W + bn] : 0;
+        s = is_m ? p % 5 : s * (((p / 5) >> (s - 1)) & 1);
+        om1 = is_m ? o3 : om2;
+        om2 = is_m ? o4 : o3;
+        kk = kn;
+        p = pn;
+        if (kk < 0 || (i == 0 && j == 0)) break;
+      }
+      k = lo + kk;
     }
-    op[k] = (int8_t)code;
-    if (k >= 1) o -= (xy[(size_t)(k - 1) * W] >> 6) & 1;  // o[k-1]
+    __syncwarp();
+    store_row(op + lo, sg.ops + phase, nrows, lane);
   }
-  end[2 * r] = i;
-  end[2 * r + 1] = j;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (lane == 0) {
+    end[2 * r] = i;
+    end[2 * r + 1] = j;
+  }
 }
 
 }  // namespace
@@ -77,15 +144,26 @@ extern "C" const char* np_cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Dynamic shared memory a block takes at band width W (0 for another W).
+extern "C" int np_viterbi_walk_smem(int W) { return walk::smem_bytes(W); }
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  bp
+// (nreads, k_pad + 1, W) int8, xyc (nreads, k_pad, W) int8, m, n and
+// fstate (nreads,) int32, ops (nreads, k_pad + 1) int8 and end
+// (nreads, 2) int32 out; W is 32 or 64, and bp is 16-byte aligned.
 extern "C" int np_viterbi_walk_launch(const void* bp, const void* xyc, const void* m,
                                       const void* n, const void* fstate, int nreads,
                                       int k_pad, int W, void* ops, void* end,
                                       void* stream) {
-  if (nreads <= 0 || k_pad < 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((nreads + THREADS - 1) / THREADS), block(THREADS);
-  viterbi_walk_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)bp, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
-      (const int32_t*)fstate, nreads, k_pad, W, (int8_t*)ops, (int32_t*)end);
-  return (int)cudaGetLastError();
+  if (nreads <= 0 || k_pad < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (W == 64)
+    return launch<64>(viterbi_walk_kernel<64>, nreads, s, (const int8_t*)bp,
+                      (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
+                      (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops, (int32_t*)end);
+  if (W == 32)
+    return launch<32>(viterbi_walk_kernel<32>, nreads, s, (const int8_t*)bp,
+                      (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
+                      (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops, (int32_t*)end);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,155 @@
+// The staging shared by the two walkers (csrc/traceback.cu, the MEA
+// walker going up; csrc/viterbi_traceback.cu, the Viterbi walker going
+// down).  One warp serves one read: its rows (direction codes or
+// backpointers, W bytes a diagonal, one contiguous range a read) stream
+// into a shared-memory ring of NBUF chunks of CH diagonals, NBUF - 1
+// chunks ahead of the walk, by the lanes' cp.async copies: the rows 16
+// bytes a copy, the column-0 code word of each of the chunk's diagonals
+// (4 bytes a row of the packed band codes, W bytes apart) 4 bytes a
+// copy, one commit group a chunk.  A warp scan of bit 6 of those words
+// gives the chunk's band offsets o[k].
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace walk {
+
+constexpr int WARPS = 4;  // reads per block
+constexpr int CH = 128;   // diagonals per staged chunk
+constexpr int PER = CH / 32;
+constexpr int NBUF = 3;   // ring depth: chunks in flight ahead of the walk
+constexpr int OFF = 4;    // o[] holds diagonal lo + kk at OFF + kk, kk >= -OFF
+constexpr unsigned FULL = 0xffffffffu;
+
+template <int W>
+struct __align__(16) Stage {
+  int8_t rows[NBUF][CH * W];  // row i of a slot: diagonal c*CH + i
+  uint32_t code[NBUF][CH];    // column-0 code word of each diagonal
+  int32_t o[OFF + CH + OFF];  // band offsets of the walked chunk; the
+                              // walk's look-ahead reads OFF past each end
+  uint8_t ops[CH + 16];       // its op row, at the global row's alignment
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every chunk's group but the newest NBUF - 2 has landed (this lane's
+// copies; the caller's __syncwarp shows every lane's to the warp)
+__device__ __forceinline__ void cp_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(NBUF - 2) : "memory");
+}
+
+// Chunk c of one read into ring slot `slot`: its rows c*CH .. c*CH +
+// nrows - 1 of `src` and the column-0 code word of each of its
+// diagonals k >= 1 (code row k - 1 of `xy`).  One commit, empty or not,
+// per chunk index.
+template <int W>
+__device__ __forceinline__ void stage_chunk(Stage<W>& sg, const int8_t* src,
+                                            const uint8_t* xy, int c, int nrows, int slot,
+                                            int lane) {
+  if (nrows > 0) {
+    const int lo = c * CH;
+    const char* from = (const char*)(src + (size_t)lo * W);
+    for (int i = lane * 16; i < nrows * W; i += 32 * 16)
+      cp_async16((char*)sg.rows[slot] + i, from + i);
+    for (int i = lane; i < nrows; i += 32)
+      if (lo + i >= 1) cp_async4(&sg.code[slot][i], xy + (size_t)(lo + i - 1) * W);
+  }
+  cp_commit();
+}
+
+// The chunk's band offsets from bit 6 of its code words: lane l owns
+// diagonals lo + PER*l .. + PER - 1, one inclusive warp scan adds them
+// up.  Going up, `carry` is o[lo - 1] and the result o[lo + nrows - 1];
+// going down (`down`), the reverse.  Writes o[OFF + i] = o[lo + i].
+template <int W>
+__device__ __forceinline__ int scan_offsets(Stage<W>& sg, int slot, int lo, int nrows,
+                                            int carry, bool down, int lane) {
+  int v[PER];
+  int s = 0;
+#pragma unroll
+  for (int t = 0; t < PER; ++t) {
+    const int i = PER * lane + t;
+    s += (i < nrows && lo + i >= 1) ? (int)((sg.code[slot][i] >> 6) & 1u) : 0;
+    v[t] = s;
+  }
+  int incl = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int nb = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += nb;
+  }
+  const int total = __shfl_sync(FULL, incl, 31);
+  const int base = down ? carry - total : carry;  // o[lo - 1]
+#pragma unroll
+  for (int t = 0; t < PER; ++t) sg.o[OFF + PER * lane + t] = base + (incl - s) + v[t];
+  return down ? base : carry + total;
+}
+
+// The op row of the walked chunk, all 3 (none) before the walk
+template <int W>
+__device__ __forceinline__ void clear_ops(Stage<W>& sg, int lane) {
+  for (int t = lane; t < (CH + 16) / 4; t += 32)
+    reinterpret_cast<uint32_t*>(sg.ops)[t] = 0x03030303u;
+}
+
+// bytes [0, nbytes) of global g from shared s, where s and g lie at the
+// same address modulo 16: head and tail bytes one by one, the rest in
+// 16-byte words
+__device__ __forceinline__ void store_row(int8_t* g, const uint8_t* s, int nbytes, int lane) {
+  const int head = min(nbytes, (int)((16 - ((uintptr_t)g & 15)) & 15));
+  const int nw = (nbytes - head) >> 4;
+  if (lane < head) g[lane] = (int8_t)s[lane];
+  for (int w = lane; w < nw; w += 32)
+    *reinterpret_cast<uint4*>(g + head + 16 * w) =
+        *reinterpret_cast<const uint4*>(s + head + 16 * w);
+  for (int t = head + 16 * nw + lane; t < nbytes; t += 32) g[t] = (int8_t)s[t];
+}
+
+// bytes [0, nbytes) of global g set to 3 (none), 16-byte words between
+__device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
+  const int head = min(nbytes, (int)((16 - ((uintptr_t)g & 15)) & 15));
+  const int nw = (nbytes - head) >> 4;
+  const uint4 v = make_uint4(0x03030303u, 0x03030303u, 0x03030303u, 0x03030303u);
+  if (lane < head) g[lane] = 3;
+  for (int w = lane; w < nw; w += 32) *reinterpret_cast<uint4*>(g + head + 16 * w) = v;
+  for (int t = head + 16 * nw + lane; t < nbytes; t += 32) g[t] = 3;
+}
+
+// Dynamic shared memory a walker block takes at band width W: one Stage
+// a warp (0 for a W other than 32 and 64)
+inline int smem_bytes(int W) {
+  return W == 64 ? WARPS * (int)sizeof(Stage<64>)
+       : W == 32 ? WARPS * (int)sizeof(Stage<32>)
+                 : 0;
+}
+
+// Launch a walker kernel at its dynamic shared memory; returns
+// cudaGetLastError().
+template <int W, typename Kernel, typename... Args>
+int launch(Kernel kernel, int nreads, cudaStream_t stream, Args... args) {
+  const int smem = smem_bytes(W);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(nreads + WARPS - 1) / WARPS, WARPS * 32, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace walk

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` compiles on its own into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 for ``sm_90a``, into the package's gitignored ``_build/`` directory.  The
-library's file name carries a hash of its source and flags, so an edited
-kernel is rebuilt and a stale one is never loaded.  :func:`build` starts
+library's file name carries a hash of its source, the ``csrc/`` headers
+and its flags, so an edited kernel is rebuilt and a stale one is never
+loaded.  :func:`build` starts
 one nvcc per source, all at once; ``-Xptxas -v`` reports each kernel's
 registers, shared memory and spills, printed once per build.
 
@@ -76,12 +77,16 @@ def _flags(name: str) -> list[str]:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(
-            fh.read() + " ".join(_flags(name)).encode()
-        ).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest))
+    """The library's path: its name and a hash of its source, the
+    headers under ``csrc/`` (the walkers share one) and its flags."""
+    h = hashlib.sha1()
+    for path in [os.path.join(CSRC, name + ".cu")] + sorted(
+            os.path.join(CSRC, f) for f in os.listdir(CSRC)
+            if f.endswith(".cuh")):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(_flags(name)).encode())
+    return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, h.hexdigest()[:12]))
 
 
 def build(names=SOURCES) -> float:

@@ -141,6 +141,15 @@ def workspace_plan(m, n, W: int, cap: int = WORKSPACE_BYTES):
     return offsets, launches
 
 
+def launch_offsets(offsets, launches) -> np.ndarray:
+    """The kernel's ``woff`` for the launches of :func:`workspace_plan`:
+    launch l's r1 - r0 + 1 values at index r0 + l, each read's offset in
+    floats from the launch's workspace start and, last, the end of its
+    last read's slot (the kernel holds each read to its slot's end)."""
+    return np.concatenate([(offsets[r0:r1 + 1] - offsets[r0]) // 4
+                           for r0, r1 in launches])
+
+
 def max_workspace_k(W: int) -> int:
     """The largest diagonal count at which one read's workspace still
     fits ``WORKSPACE_BYTES``: the realign stage splits longer windows."""
@@ -172,6 +181,26 @@ def _check_inputs(xyc, m, n):
             raise ValueError("%s must be (B,)" % name)
 
 
+def check_kend(kend, B: int) -> None:
+    """``kend``, the caller's host copy of m + n, must be None or a 1-D
+    integer array of B values, none negative: the launch plan sizes
+    each read's workspace slot from it.  A value above k_pad is allowed
+    (a batch whose k_max was capped; the kernel clamps its diagonals to
+    k_pad).  A value below the device's m + n is refused by the kernel,
+    which traps on the device when a read needs more workspace
+    than its slot (it surfaces at the next synchronise)."""
+    if kend is None:
+        return
+    arr = np.asarray(kend)
+    if arr.ndim != 1 or arr.shape[0] != B:
+        raise ValueError("kend must be 1-D of length B=%d, got shape %s"
+                         % (B, arr.shape))
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise ValueError("kend must be integers, got %s" % arr.dtype)
+    if B and arr.min() < 0:
+        raise ValueError("kend must not be negative")
+
+
 def _tables(params: KernelParams, gap_gamma: float = 0.0,
             match_gamma: float = 0.0, exp_threshold: float = 0.0):
     """The kernel's 94 floats: the model's 91, then gap gamma, match
@@ -194,8 +223,9 @@ def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None) -> None:
     the workspace, not inside its cap.  ``kend`` is the host's copy of
     m + n (numpy); without it m and n are read back from the device, a
     copy that waits for the stream's earlier work (so a caller that
-    queues batches back to back passes it).  One count per kernel
-    launch."""
+    queues batches back to back passes it; :func:`check_kend` holds
+    its shape, and the kernel each read's m + n to its slot).  One count
+    per kernel launch."""
     B, k_pad, W = xyc.shape
     if W not in KERNEL_BAND_WIDTHS or k_pad % 2:
         raise ValueError(
@@ -207,22 +237,17 @@ def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None) -> None:
     if kend is None:
         kend = (m.to(torch.int64) + n.to(torch.int64)).cpu().numpy()
     offsets, launches = workspace_plan(kend, 0, W, WORKSPACE_BYTES)  # m + n, 0
-    start = np.empty(B, dtype=np.int64)  # each read's launch's first offset
-    for r0, r1 in launches:
-        start[r0:r1] = offsets[r0]
+    slots = launch_offsets(offsets, launches)
     dev = xyc.device
-    ws = torch.empty(int((offsets[1:] - start).max()) // 4,
-                     dtype=torch.float32, device=dev)
-    # each read's offset in floats from its launch's workspace start
-    woff = torch.from_numpy((offsets[:-1] - start) // 4).pin_memory().to(
-        dev, non_blocking=True)
+    ws = torch.empty(int(slots.max()), dtype=torch.float32, device=dev)
+    woff = torch.from_numpy(slots).pin_memory().to(dev, non_blocking=True)
     lib = kb.library("realign", _SIG)
     with torch.cuda.device(dev):
-        for r0, r1 in launches:
+        for l, (r0, r1) in enumerate(launches):
             rc = lib.np_realign_launch(
                 mode, ctypes.c_void_p(tables.data_ptr()),
                 kb.ptr(xyc[r0:r1]), kb.ptr(m[r0:r1]), kb.ptr(n[r0:r1]),
-                r1 - r0, k_pad, W, kb.ptr(ws), kb.ptr(woff[r0:r1]),
+                r1 - r0, k_pad, W, kb.ptr(ws), kb.ptr(woff[r0 + l:]),
                 *(ctypes.c_void_p(None) if o is None else kb.ptr(o[r0:r1])
                   for o in outs),
                 kb.stream_of(xyc),
@@ -245,9 +270,11 @@ def realign_decode(xyc, m, n, params: KernelParams, gap_gamma: float = 0.5,
     ``gamma`` (B, k_pad + 1, W) f32 of the same launch.  CUDA tensors
     launch the kernel, CPU tensors run the plain version.  ``kend``, the
     host's m + n (numpy), spares the kernel's launch plan a read-back of
-    m and n from the device.
+    m and n from the device; it must be 1-D of length B with no negative
+    value (:func:`check_kend`, on either device).
     """
     _check_inputs(xyc, m, n)
+    check_kend(kend, xyc.shape[0])
     if xyc.device.type == "cpu":
         return realign_decode_plain(xyc, m, n, params, gap_gamma, match_gamma,
                                     emit_gamma)
@@ -278,6 +305,7 @@ def realign_em(xyc, m, n, params: KernelParams, kend=None) -> dict:
     tensors launch the kernel, CPU tensors run the plain version.
     """
     _check_inputs(xyc, m, n)
+    check_kend(kend, xyc.shape[0])
     if xyc.device.type == "cpu":
         return realign_em_plain(xyc, m, n, params)
     B = xyc.shape[0]
@@ -302,6 +330,7 @@ def realign_gamma(xyc, m, n, params: KernelParams, kend=None) -> dict:
     plain version.
     """
     _check_inputs(xyc, m, n)
+    check_kend(kend, xyc.shape[0])
     if xyc.device.type == "cpu":
         return realign_gamma_plain(xyc, m, n, params)
     B, k_pad, W = xyc.shape
@@ -327,6 +356,7 @@ def realign_exp(xyc, m, n, params: KernelParams,
     kernel, CPU tensors run the plain version.
     """
     _check_inputs(xyc, m, n)
+    check_kend(kend, xyc.shape[0])
     if xyc.device.type == "cpu":
         return realign_exp_plain(xyc, m, n, params, exp_threshold)
     B, k_pad, W = xyc.shape

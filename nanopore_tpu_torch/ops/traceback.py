@@ -25,6 +25,11 @@ The band offsets the walkers need are integrated from bit 6 of the
 packed band codes (``xyc``) already on the device, so no offsets upload
 is needed: the MEA walker sums them going up, the Viterbi walker sums
 them up to its start diagonal and subtracts them going down.
+
+The kernels (``csrc/traceback.cu``, ``csrc/viterbi_traceback.cu``) run
+one warp per read, stage its rows through shared memory and walk them
+with one lane; they serve the band widths of the realign and Viterbi
+kernels (``KERNEL_BAND_WIDTHS``).  The plain versions serve any width.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 
 from nanopore_tpu_torch.io.sam import CIG
 from nanopore_tpu_torch.kernels import build as kb
+from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
 
 DIR_DIAG, DIR_DEL, DIR_INS, DIR_NONE = 0, 1, 2, 3
 OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
@@ -46,11 +52,23 @@ VIT_LAUNCHES = kb.LaunchCounter("viterbi_traceback")
 _SIG = {
     "np_walk_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 2,
+    "np_walk_smem": [ctypes.c_int],
 }
 _VIT_SIG = {
     "np_viterbi_walk_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 3,
+    "np_viterbi_walk_smem": [ctypes.c_int],
 }
+
+
+def walker_shared_memory(W: int) -> dict:
+    """Dynamic shared memory a block of each walker kernel takes at band
+    width ``W`` (bytes; builds the kernels, so it needs nvcc)."""
+    return {
+        "traceback": kb.library("traceback", _SIG).np_walk_smem(W),
+        "viterbi_traceback": kb.library(
+            "viterbi_traceback", _VIT_SIG).np_viterbi_walk_smem(W),
+    }
 
 
 def _check_inputs(dirs, xyc, m, n, what="dirs"):
@@ -68,6 +86,15 @@ def _check_inputs(dirs, xyc, m, n, what="dirs"):
             raise ValueError("%s must be contiguous int32 on %s" % (name, dev))
         if tuple(t.shape) != (B,):
             raise ValueError("%s must be (B,)" % name)
+    if dev.type != "cpu":
+        # the kernels stage rows with 16-byte and code words with 4-byte
+        # copies
+        if W not in KERNEL_BAND_WIDTHS:
+            raise ValueError("the walker kernels serve W in %s, got W=%d"
+                             % (KERNEL_BAND_WIDTHS, W))
+        if dirs.data_ptr() % 16 or xyc.data_ptr() % 4:
+            raise ValueError("%s must be 16-byte and xyc 4-byte aligned"
+                             % what)
 
 
 def mea_walk(dirs, xyc, m, n) -> torch.Tensor:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the realign kernel's modes of several checkouts of the port, in
-turns, on the batches that ``chip_smoke.py`` drives.
+"""Time the realign kernel's modes and the two walkers of several
+checkouts of the port, in turns, on the batches that ``chip_smoke.py``
+drives.
 
     python3 realign_ab.py TREE [TREE ...] [--reps 3] [--out FILE]
 
@@ -20,7 +21,11 @@ pack inputs of the realign batches of chip_smoke's paths, all from
 * ``gamma``: AlignmentUncertainty's fullest batch (W = 64, blasr_hmm_0);
 * ``decode_gamma``: the rescore's fullest batch (W = 32);
 * ``exp``: the SNP caller's main bucket and ``exp_far_<n>x<m>``, each of
-  its other buckets (W = 64, threshold 1e-3, default model).
+  its other buckets (W = 64, threshold 1e-3, default model);
+* ``walk_mea_w64`` and ``walk_mea_w32``: the MEA walker on the direction
+  codes of ``decode_w64`` and ``decode_w32`` (each tree's realign kernel
+  makes them, untimed), and ``walk_viterbi_w64``: the Viterbi walker on
+  the Viterbi kernel's plane of the ``decode_w64`` batch.
 
 Then, for each TREE in turn, a child process with that TREE first on
 ``sys.path`` builds its kernels, packs each batch with its own pack
@@ -29,6 +34,11 @@ kernel and times each call with CUDA events (one warm-up call, then
 of every output.  Prints one line per tree and batch and, last, a JSON
 object with every time (also written to ``--out``); it fails if two
 trees' outputs differ on any batch.  Needs one CUDA card.
+
+``--only PREFIX`` exists for ablation runs, where the trees differ in
+one kernel (``--only walk_`` for the walkers): it times only the batches
+whose names start with PREFIX, and the JSON lists the others under
+``left_out``.  A comparison of two commits times every batch.
 """
 
 from __future__ import annotations
@@ -102,6 +112,8 @@ def build_batches(workdir: str) -> list[dict]:
                            MAPPER_REGISTRY["LastParams"].config, device=dev)
     save("decode_w64", cs.main_path_batch(engine, fq, B), 64, None, "decode",
          "default")
+    out.append(dict(out[-1], name="walk_mea_w64", mode="walk_mea"))
+    out.append(dict(out[-1], name="walk_viterbi_w64", mode="walk_viterbi"))
     del engine
     # the EM path
     em_dir = os.path.join(workdir, "em")
@@ -118,6 +130,7 @@ def build_batches(workdir: str) -> list[dict]:
     out.append(dict(out[-1], name="em_split_%d" % split, split=split))
     pairs, k_max, _ = cs.fullest_bucket(cs.chained_pairs(chained, fa2, 128))
     save("decode_w32", pairs[:B], 32, k_max, "decode", "default")
+    out.append(dict(out[-1], name="walk_mea_w32", mode="walk_mea"))
     # the posterior path
     post_dir = os.path.join(workdir, "post")
     os.makedirs(post_dir, exist_ok=True)
@@ -180,15 +193,19 @@ def time_tree(batches: list[dict], reps: int) -> list[dict]:
 
     from nanopore_tpu_torch.kernels import build
     from nanopore_tpu_torch.ops import realign as R
+    from nanopore_tpu_torch.ops import traceback as T
     from nanopore_tpu_torch.ops.pack import pack_xyc
     from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+    from nanopore_tpu_torch.ops.viterbi import viterbi_forward
 
     print("tree %s: build %.1f s" % (os.path.dirname(os.path.dirname(
-        R.__file__)), build.build(("pack", "realign"))), flush=True)
+        R.__file__)), build.build(("pack", "realign", "traceback", "viterbi",
+                                   "viterbi_traceback"))), flush=True)
     dev = torch.device("cuda", 0)
     takes_kend = "kend" in inspect.signature(R.realign_em).parameters
     counters = (R.LAUNCHES, R.EM_LAUNCHES, R.GAMMA_LAUNCHES,
-                R.DECODE_GAMMA_LAUNCHES, R.EXP_LAUNCHES)
+                R.DECODE_GAMMA_LAUNCHES, R.EXP_LAUNCHES, T.LAUNCHES,
+                T.VIT_LAUNCHES)
     res = []
     for bt in batches:
         z = np.load(bt["path"])
@@ -201,8 +218,19 @@ def time_tree(batches: list[dict], reps: int) -> list[dict]:
         parts = [(xyc[r0:r0 + split], m[r0:r0 + split], n[r0:r0 + split],
                   kend[r0:r0 + split]) for r0 in range(0, len(kend), split)]
 
+        dirs = vit = None  # the walkers' inputs, made untimed
+        if bt["mode"] == "walk_mea":
+            dirs = R.realign_decode(xyc, m, n, params)["dirs"]
+        elif bt["mode"] == "walk_viterbi":
+            vit = viterbi_forward(xyc, m, n, params)
+
         def call(x, mm, nn, ke):
             kw = {"kend": ke} if takes_kend else {}
+            if bt["mode"] == "walk_mea":
+                return {"ops": T.mea_walk(dirs, x, mm, nn)}
+            if bt["mode"] == "walk_viterbi":
+                ops, end = T.viterbi_walk(vit["bp"], x, mm, nn, vit["fstate"])
+                return {"ops": ops, "end": end}
             if bt["mode"] == "decode":
                 return R.realign_decode(x, mm, nn, params, **kw)
             if bt["mode"] == "decode_gamma":
@@ -239,7 +267,7 @@ def time_tree(batches: list[dict], reps: int) -> list[dict]:
               % (bt["name"], row["ms"], " ".join("%.3f" % t for t in times),
                  launches, digest), flush=True)
         res.append(row)
-        del xyc
+        del xyc, dirs, vit
     return res
 
 
@@ -249,6 +277,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", help="where to write the JSON (default: "
                     "nanopore_tpu_torch/_build/realign_ab/result.json)")
+    ap.add_argument("--only", default="",
+                    help="for ablation runs: time only the batches whose "
+                    "names start so (the JSON lists the rest as left_out)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -274,7 +305,10 @@ def main() -> int:
     workdir = os.path.join(build.BUILD_DIR, "realign_ab")
     os.makedirs(workdir, exist_ok=True)
     out_path = args.out or os.path.join(workdir, "result.json")
-    batches = build_batches(workdir)
+    every = build_batches(workdir)
+    batches = [bt for bt in every if bt["name"].startswith(args.only)]
+    left_out = [bt["name"] for bt in every
+                if not bt["name"].startswith(args.only)]
     spec = os.path.join(workdir, "batches.json")
     with open(spec, "w") as fh:
         json.dump(batches, fh)
@@ -297,7 +331,7 @@ def main() -> int:
     bad = [bt["name"] for i, bt in enumerate(batches)
            if len({run["rows"][i]["digest"] for run in runs}) > 1]
     result = {"card": card, "batches": batches, "runs": runs,
-              "outputs_differ": bad}
+              "outputs_differ": bad, "left_out": left_out}
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as fh:
         json.dump(result, fh, indent=1)
@@ -305,7 +339,7 @@ def main() -> int:
         print("%-18s %s" % (bt["name"], "  ".join(
             "%s %.3f" % (run["tree"], run["rows"][i]["ms"]) for run in runs)))
     print("realign_ab wall: %.1f s" % (time.perf_counter() - t0))
-    print(json.dumps({"outputs_differ": bad, "ms": {
+    print(json.dumps({"outputs_differ": bad, "left_out": left_out, "ms": {
         bt["name"]: [run["rows"][i]["ms"] for run in runs]
         for i, bt in enumerate(batches)}}))
     return 1 if bad else 0

@@ -257,3 +257,70 @@ def test_short_read_beside_one_five_times_longer_decodes_as_alone():
     assert torch.equal(both["dirs"][0, :K1], alone["dirs"][0])
     kend = int(prep["k_end"][0])
     assert (both["dirs"][0, kend + 1:] == port_realign.DIR_NONE).all()
+
+
+@pytest.mark.parametrize("cap", [10_000, 150_000, 1 << 30])
+def test_launch_offsets_hold_each_read_to_its_own_slot(cap):
+    """The kernel's ``woff``: per launch its reads' offsets from the
+    launch's workspace start, then the end of its last slot; a slot is
+    exactly what the kernel needs for kq = m + n rounded up to even (the
+    kernel's device-side guard), and two diagonals fewer would not fit."""
+    m, n = _plan_lengths(np.random.default_rng(cap + 1), 40, 1, 60)
+    offsets, launches = port_realign.workspace_plan(m, n, PLAN_W, cap)
+    woff = port_realign.launch_offsets(offsets, launches)
+    assert woff.dtype == np.int64 and len(woff) == len(m) + len(launches)
+    kq = m + n + ((m + n) & 1)
+    need = kq * 5 * PLAN_W + (kq + 1 + 3) // 4 * 4  # floats, as the kernel
+    for l, (r0, r1) in enumerate(launches):
+        sl = woff[r0 + l:r1 + l + 1]
+        assert sl[0] == 0
+        np.testing.assert_array_equal(np.diff(sl), need[r0:r1])
+        short = (kq[r0:r1] - 2) * 5 * PLAN_W + (kq[r0:r1] - 1 + 3) // 4 * 4
+        assert ((need[r0:r1] > short)).all()
+    assert woff.max() * 4 == max(offsets[r1] - offsets[r0]
+                                 for r0, r1 in launches)
+
+
+_KEND_FUNCS = {
+    "decode": lambda x, m, n, p, k: realign_decode(x, m, n, p, kend=k),
+    "em": lambda x, m, n, p, k: port_realign.realign_em(x, m, n, p, kend=k),
+    "gamma": lambda x, m, n, p, k: port_realign.realign_gamma(x, m, n, p,
+                                                              kend=k),
+    "exp": lambda x, m, n, p, k: port_realign.realign_exp(x, m, n, p,
+                                                          kend=k),
+}
+_BAD_KEND = {
+    "wrong_length": lambda kend: kend[:-1],
+    "length_one": lambda kend: kend[:1],
+    "two_d": lambda kend: kend[None, :],
+    "float": lambda kend: kend.astype(np.float64),
+    "negative": lambda kend: np.where(np.arange(len(kend)) == 1, -1, kend),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(_BAD_KEND))
+@pytest.mark.parametrize("func", sorted(_KEND_FUNCS))
+def test_public_realign_functions_check_kend_on_the_cpu(func, bad):
+    """A ``kend`` of the wrong length or shape, of floats or with a
+    negative value raises ValueError naming it, before the functions
+    branch on the device (ROADMAP C8)."""
+    pairs = mixed_pairs(np.random.default_rng(17))
+    prep = pack_stream_pairs(pairs, W)
+    t = torch.from_numpy
+    m, n = t(prep["m"]), t(prep["n"])
+    xyc = pack_xyc(t(prep["stream"]), t(prep["initx"]), m, n)
+    params = make_kernel_params(PairHmmModel.default())
+    kend = prep["k_end"].astype(np.int64)
+    with pytest.raises(ValueError, match="kend"):
+        _KEND_FUNCS[func](xyc, m, n, params, _BAD_KEND[bad](kend))
+
+
+def test_kend_above_k_pad_is_accepted():
+    """A capped batch can hold reads with m + n above k_pad: such a kend
+    passes the check, as int32 and as int64.  (On the card,
+    ``chip_smoke.py`` passes one to the realign kernel and holds the
+    outputs to those of the launch without it.)"""
+    k_pad = 512
+    for dtype in (np.int32, np.int64):
+        port_realign.check_kend(np.array([3, k_pad + 7, k_pad], dtype), 3)
+    port_realign.check_kend(None, 3)

@@ -17,6 +17,11 @@ from nanopore_tpu.ops.mea import mea_traceback_fwd as jax_walk_host
 from nanopore_tpu.ops.mea import rle_ops_batch as jax_rle
 from nanopore_tpu_torch.ops.pairhmm import band_offsets_from_cigar
 from nanopore_tpu_torch.ops.traceback import (
+    DIR_DEL,
+    DIR_DIAG,
+    DIR_INS,
+    DIR_NONE,
+    OP_NONE,
     mea_traceback_fwd,
     mea_walk,
     mea_walk_plain,
@@ -108,3 +113,100 @@ def test_rle_of_empty_rows():
     ops = np.full((3, 7), 3, np.int8)
     ops[1, 2:5] = [0, 0, 1]
     assert rle_ops_batch(ops) == [[], [(CIG.M, 2), (CIG.D, 1)], []]
+
+
+# ---- ragged batches, as the walker kernels see them ----
+
+# (m, n) per read: unequal ends, one read about five times the others,
+# one whose path must leave the band (m far from n), and one whose
+# m + n lies above k_pad (a capped batch: its walk is cut at k_pad)
+RAGGED_MN = [(20, 22), (25, 18), (30, 30), (12, 44), (150, 140), (18, 20),
+             (200, 150)]
+RAGGED_K = 300
+
+
+def ragged_layout(rng, W):
+    """The ragged batch's m, n, random Lipschitz band offsets (o[0] = 0,
+    d1 in {0, 1}, drawn from ``rng``) and packed codes (B, RAGGED_K, W)
+    carrying the deltas in bit 6, as the walkers read them."""
+    B = len(RAGGED_MN)
+    ms = np.array([m for m, _ in RAGGED_MN], np.int32)
+    ns = np.array([n for _, n in RAGGED_MN], np.int32)
+    d1 = (rng.random((B, RAGGED_K)) < 0.5).astype(np.int32)
+    offsets = np.concatenate([np.zeros((B, 1), np.int32),
+                              np.cumsum(d1, axis=1, dtype=np.int32)], axis=1)
+    xyc = np.ascontiguousarray(np.broadcast_to(
+        (d1.astype(np.uint8) << 6)[:, :, None], (B, RAGGED_K, W)))
+    return ms, ns, offsets, xyc.view(np.int8)
+
+
+def _ragged(seed, W, p_diag):
+    """Random direction codes over :func:`ragged_layout`."""
+    rng = np.random.default_rng(seed)
+    ms, ns, offsets, xyc = ragged_layout(rng, W)
+    p = [p_diag, (1 - p_diag) * 0.4, (1 - p_diag) * 0.4,
+         (1 - p_diag) * 0.2]
+    dirs = rng.choice(4, size=(len(ms), RAGGED_K + 1, W),
+                      p=p).astype(np.int8)
+    return dirs, xyc, offsets, ms, ns
+
+
+def _off_band_steps(dirs, offsets, m, n):
+    """Steps of the walk of one read whose cell lies outside the band."""
+    W = dirs.shape[1]
+    i = j = count = 0
+    while (i < m or j < n) and i + j < len(offsets):
+        k = i + j
+        b = j - offsets[k]
+        count += not 0 <= b < W
+        d = dirs[k, b] if 0 <= b < W else DIR_NONE
+        if d == DIR_DIAG and i < m and j < n:
+            i, j = i + 1, j + 1
+        elif d == DIR_DEL and j < n:
+            j += 1
+        elif d == DIR_INS and i < m:
+            i += 1
+        elif j < n:
+            j += 1
+        else:
+            i += 1
+    return count
+
+
+@pytest.mark.parametrize("W", [32, 64])
+@pytest.mark.parametrize("p_diag", [0.9, 0.4])
+def test_ragged_batch_matches_jax_walkers(W, p_diag):
+    """Reads of unequal m + n, one five times the others, k_pad well
+    above most reads' ends, paths that leave the band, and a read cut at
+    k_pad: the plain walker gives the XLA scan's and the Pallas walker's
+    op codes, and 3 on every diagonal past each read's end."""
+    dirs, xyc, offsets, ms, ns = _ragged(7 + W, W, p_diag)
+    B, K1, _ = dirs.shape
+    t = torch.from_numpy
+    got = mea_walk_plain(t(dirs), t(xyc), t(ms), t(ns)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(_traceback_ops_jit(dirs, offsets, ms, ns)))
+    raw = np.full((1, K1, W, tbp.BT), 3, np.int8)
+    raw[0, :, :, :B] = dirs.transpose(1, 2, 0)
+    np.testing.assert_array_equal(
+        got, tbp.mea_traceback_ops_pallas(raw, offsets, ms, ns,
+                                          interpret=True))
+    ends = ms + ns
+    assert ends[4] >= 5 * np.median(np.delete(ends, [4, 6]))
+    assert ends[4] < K1 - 1 < ends[6]
+    for b in range(B):
+        assert (got[b, ends[b]:] == OP_NONE).all()
+    # the band-escaping read takes fallback moves off the band
+    assert _off_band_steps(dirs[3], offsets[3], ms[3], ns[3]) > 0
+    assert mea_walk(t(dirs), t(xyc), t(ms), t(ns)).equal(t(got))
+
+
+def test_cuda_wrapper_refuses_other_widths():
+    """The kernels serve W = 32 and 64; a non-CPU tensor of another
+    width raises before any launch (the meta device stands in for the
+    card; CPU tensors of any width take the plain walker)."""
+    dirs, xyc, _, ms, ns = _case(9, 8, 0.7)
+    t = torch.from_numpy
+    with pytest.raises(ValueError, match="serve W"):
+        mea_walk(t(dirs).to("meta"), t(xyc).to("meta"), t(ms).to("meta"),
+                 t(ns).to("meta"))

@@ -54,6 +54,7 @@ from nanopore_tpu_torch.ops.viterbi import (
     viterbi_structure_ok,
     viterbi_tables,
 )
+from test_torch_traceback import RAGGED_K, ragged_layout
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -276,3 +277,70 @@ def test_structure_guard_agrees_with_jax(name):
             dispatch.prepared_from_pairs({"device": "cpu"}, pairs, pp,
                                          band_width=8,
                                          prepared_cls=dispatch.PreparedViterbi)
+
+
+# ---- ragged batches, as the walker kernel sees them: those of
+# test_torch_traceback.py, whose last read, with m + n above k_pad, is
+# not walked (all OP_NONE, its end cell (m, n)) ----
+
+
+@pytest.mark.parametrize("W", [32, 64])
+@pytest.mark.parametrize("plane", ["random", "all_match"])
+def test_ragged_batch_walker_matches_jax_walkers(W, plane):
+    """Random Lipschitz band offsets and a random plane (walks wander
+    off the band and end short of the origin) or an all-match plane
+    from the match state (only the m == n reads reach the origin): the
+    plain walker's op codes and end cells are the XLA scan's, and its op
+    codes the Pallas walker's in interpret mode."""
+    rng = np.random.default_rng(W + len(plane))
+    ms, ns, offsets, xyc = ragged_layout(rng, W)
+    B, K1 = len(ms), RAGGED_K + 1
+    if plane == "random":
+        bp = rng.integers(0, 80, (B, K1, W)).astype(np.int8)
+        fstate = rng.integers(0, 5, B).astype(np.int32)
+    else:
+        bp = np.zeros((B, K1, W), np.int8)
+        fstate = np.zeros(B, np.int32)
+    t = torch.from_numpy
+    ops, end = viterbi_walk_plain(t(bp), t(xyc), t(ms), t(ns), t(fstate))
+    ops, end = ops.numpy(), end.numpy()
+
+    NB, BT = 1, tbp.BT
+    raw = np.zeros((NB, K1, W, BT), np.int8)
+    raw[0, :, :, :B] = bp.transpose(1, 2, 0)
+    lanes = lambda a: np.pad(a, (0, BT - B)).reshape(NB, BT)  # noqa: E731
+    offs_t = np.zeros((K1, NB, BT), np.int32)
+    offs_t[:, 0, :B] = offsets.T
+    xla_ops, fi, fj = ppv._viterbi_ops_raw_jit(
+        raw, offs_t, lanes(ms), lanes(ns), lanes(fstate))
+    xla_ops = np.asarray(xla_ops).transpose(1, 2, 0).reshape(BT, K1)[:B]
+    np.testing.assert_array_equal(ops, xla_ops)
+    np.testing.assert_array_equal(end[:, 0], np.asarray(fi).reshape(-1)[:B])
+    np.testing.assert_array_equal(end[:, 1], np.asarray(fj).reshape(-1)[:B])
+    pallas = tbp.viterbi_traceback_ops_pallas(raw, offsets, ms, ns, fstate,
+                                              interpret=True)
+    np.testing.assert_array_equal(ops, pallas)
+
+    lost = end.any(axis=1)
+    assert lost[:-1].any()  # some walk does not reach the origin
+    if plane == "all_match":
+        assert (lost[:-1] == (ms != ns)[:-1]).all()
+    # the capped read: never walked
+    assert (ops[-1] == OP_NONE).all() and tuple(end[-1]) == (ms[-1], ns[-1])
+    for b in range(B - 1):
+        assert (ops[b, ms[b] + ns[b] + 1:] == OP_NONE).all()
+    got, got_end = viterbi_walk(t(bp), t(xyc), t(ms), t(ns), t(fstate))
+    assert got.equal(t(ops)) and got_end.equal(t(end))
+
+
+def test_cuda_walker_refuses_other_widths():
+    """A non-CPU tensor of a width the kernel does not serve raises
+    before any launch (the meta device stands in for the card; CPU
+    tensors of any width take the plain walker)."""
+    B, K, W = 3, 10, 8
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="serve W"):
+        viterbi_walk(torch.zeros((B, K + 1, W), dtype=torch.int8, **meta),
+                     torch.zeros((B, K, W), dtype=torch.int8, **meta),
+                     *(torch.zeros(B, dtype=torch.int32, **meta)
+                       for _ in range(3)))
