@@ -8,9 +8,10 @@
    nvcc (one process per source, in parallel, each printing its
    ``ptxas -v`` registers and spills; the realign source holds the
    decode, EM, gamma, decode + gamma and exp modes, and each mode's
-   registers, local memory (spills) and static and dynamic shared memory
-   at W = 64 and 32 are printed from the compiled kernel, with each
-   walker's dynamic shared memory a block).  Then the
+   registers, local memory (spills), static and dynamic shared memory
+   and threads and reads a block at W = 64 and 32 are printed from the
+   compiled kernel, with the pack kernel's and each walker's dynamic
+   shared memory a block).  Then the
    realign kernel's workspace guard (ROADMAP C8), in a child process
    (``chip_smoke.py --kend-guard``): a launch whose caller's kend is
    m + n passes, one whose kend is half of m + n must fail at the next
@@ -24,7 +25,9 @@
 3. Takes one realign batch of the mapping main path (the engine's own
    seeding, chaining and guide cigars; the preferred batch size, W = 64)
    and holds every kernel against its plain PyTorch version on the card:
-   pack byte-identical; realign loglik within 1e-5 and score within 1e-4
+   pack byte-identical, also on streams of random bytes (W = 64 and 32,
+   k_pad 800: three chunks of 256 diagonals and part of a fourth);
+   realign loglik within 1e-5 and score within 1e-4
    relative, cigars identical on at least 99 % of reads (a differing read
    must still agree in loglik and score: an MEA tie); walker ops
    identical.  Times each kernel with CUDA events beside its bound and
@@ -34,7 +37,14 @@
    kernel's 4 reads a block; each of two reads alone; the seven with
    one read's m raised past k_pad), on the realign kernel's direction
    codes and on random ones (paths that leave the band): ops
-   bit-identical to the plain walker's.
+   bit-identical to the plain walker's.  The mapping batch's decode must
+   take one launch.  Then the decode modes' backward segments (8
+   diagonals, csrc/realign.cu): decode and decode + gamma at W = 64 and
+   32 on a batch whose m + n covers every residue mod 16 (odd ones end
+   one diagonal below kq), with two reads shorter than a segment and one
+   ~4x the others, and again with that read's m raised past k_pad:
+   loglik, score, direction codes and gamma band bit-identical to the
+   plain version's.
 4. Maps the reads end to end with ``run_mapper("LastParams", ...)``
    twice (the second run is the warm one), with every launch counter
    set to 0 just before the warm run and read just after; each must be
@@ -300,6 +310,99 @@ def ragged_batches(dev, W_: int):
     return out, prep
 
 
+def segment_pairs(seed: int):
+    """(window, read, guide) pairs for the decode modes' backward
+    segments of 8 diagonals: m + n = 320 - d for d = 0..15 (every residue
+    mod 16; the odd ones end at kq - 1), two reads shorter than a segment
+    (m + n = 6 and 5) and one of m + n = 1,392."""
+    from nanopore_tpu_torch.io.sam import CIG
+
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for L, d in [(160, d) for d in range(16)] + [(3, 0), (3, 1), (700, 8)]:
+        x = rng.integers(0, 4, L).astype(np.int8)
+        cut = L // 2
+        y = np.concatenate([x[:cut], x[cut + d:]])
+        sub = rng.random(len(y)) < 0.10
+        y = np.where(sub, rng.integers(0, 4, len(y)), y).astype(np.int8)
+        guide = [(CIG.M, len(y))] + ([(CIG.D, d)] if d else [])
+        pairs.append((x, y, guide))
+    return pairs
+
+
+def bits_equal(a, b) -> bool:
+    """Two tensors equal bit for bit (NaN patterns included)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def mea_segments_check(dev, params, cfg) -> None:
+    """The decode modes' segment hazards on the card: decode and decode
+    + gamma at W = 64 and 32 on :func:`segment_pairs`, and again with
+    the long read's m raised past k_pad (a capped read): every output
+    bit-identical to the plain version's."""
+    from nanopore_tpu_torch.ops.realign import (
+        realign_decode,
+        realign_decode_plain,
+    )
+
+    t0 = time.perf_counter()
+    for W_ in (W, W_REALIGN):
+        xyc, m, n, prep = device_batch(segment_pairs(SEED + W_), W_, None,
+                                       dev, "segment batch W=%d" % W_)
+        k_pad = prep["k_pad"]
+        capped = m.clone()
+        capped[-1] += k_pad
+        kend = (m.long() + n.long()).cpu().numpy()
+        if sorted(set(kend[:16] % 16)) != list(range(16)) or kend.min() >= 8:
+            fail("the segment batch misses a residue or a short read")
+        for what, mm in (("", m), (" capped", capped)):
+            for gam in (False, True):
+                args = (xyc, mm, n, params, cfg.gap_gamma, cfg.match_gamma)
+                out_k = realign_decode(*args, emit_gamma=gam)
+                out_p = realign_decode_plain(*args, emit_gamma=gam)
+                differ = [key for key in out_p
+                          if not bits_equal(out_k[key], out_p[key])]
+                name = "decode + gamma" if gam else "decode"
+                print("K2 %s segment batch%s W=%d (B=%d, m + n %d..%d, k_pad "
+                      "%d): %s" % (name, what, W_, len(kend),
+                                   int((mm.long() + n.long()).min()),
+                                   int((mm.long() + n.long()).max()), k_pad,
+                                   "bit-identical" if not differ
+                                   else "DIFFERENT in %s" % differ))
+                if differ:
+                    fail("%s differs from its plain version on the segment "
+                         "batch%s W=%d" % (name, what, W_))
+    print("K2 decode segment batches: %.1f s wall" % (time.perf_counter() - t0))
+
+
+def pack_random_bytes_check(dev) -> None:
+    """The pack kernel on streams of random bytes (every d1 pattern and
+    symbols and top bits the host never sends) at W = 64 and 32, k_pad
+    over three chunks and part of a fourth: byte-identical."""
+    import torch
+
+    from nanopore_tpu_torch.ops.pack import pack_xyc, pack_xyc_plain
+
+    rng = np.random.default_rng(SEED + 3)
+    for W_ in (W, W_REALIGN):
+        B, k_pad = 8, 800
+        stream = rng.integers(0, 256, (B, k_pad)).astype(np.uint8)
+        stream[1] &= 0xBF  # never shifts
+        stream[2] |= 0x40  # always shifts
+        args = [torch.from_numpy(a).to(dev) for a in (
+            stream, rng.integers(0, 256, (B, W_)).astype(np.uint8),
+            np.array([40, 300, k_pad + 50, 0, 7, 400, 2000, 3], np.int32),
+            np.array([90, k_pad + 9, 60, 5, 0, 400, 10, 1], np.int32))]
+        if not torch.equal(pack_xyc(*args), pack_xyc_plain(*args)):
+            fail("pack kernel differs from its plain version on random "
+                 "bytes at W=%d" % W_)
+        print("K1 pack on random bytes: B=%d k_pad=%d W=%d byte-identical"
+              % (B, k_pad, W_))
+
+
 def mea_walk_ragged(dev, params, cfg) -> None:
     """The MEA walker kernel against its plain version on the ragged
     batches at W = 64 and 32, on the realign kernel's direction codes
@@ -505,6 +608,7 @@ def kernel_phase(engine, fq: str, dev) -> tuple:
     del xyc_p
     print("K1 pack: byte-identical; %.4f ms (plain %.1f ms, %.1f s wall)"
           % (ms, plain_ms, time.perf_counter() - t0))
+    pack_random_bytes_check(dev)
 
     # ---- K2 realign ----
     t0 = time.perf_counter()
@@ -548,6 +652,9 @@ def kernel_phase(engine, fq: str, dev) -> tuple:
     )
     del out_p
     print("K2 realign: %.3f ms per batch (plain %.1f ms)" % (ms, plain_ms))
+    if res["realign"]["per_batch"] != 1:
+        fail("the mapping batch's decode took %d launches, not 1"
+             % res["realign"]["per_batch"])
 
     # ---- K3 walker ----
     dirs = out_k["dirs"]
@@ -572,6 +679,7 @@ def kernel_phase(engine, fq: str, dev) -> tuple:
     t0 = time.perf_counter()
     mea_walk_ragged(dev, params, cfg)
     print("K3 walker ragged batches: %.1f s wall" % (time.perf_counter() - t0))
+    mea_segments_check(dev, params, cfg)
     for name, r in res.items():
         print("%s: %.4f ms per batch, %d launch(es) per batch, bound %.4f ms "
               "(%s), plain %.1f ms, library_ms null (no single PyTorch call)"
@@ -1682,13 +1790,33 @@ def main() -> int:
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
     print("build: %.1f s" % build.build())
+    attrs = {}  # kernel name -> shape of its blocks, for the kernels line
     for width in (W, W_REALIGN):
+        tag = "" if width == W else "_w32"
         for mode, a in realign.kernel_attributes(width).items():
             print("realign %s W=%d: %d registers, %d bytes of local memory "
                   "(spills) a thread, %d + %d bytes of static + dynamic "
-                  "shared memory a block"
+                  "shared memory a block of %d threads and %d read(s)"
                   % (mode, width, a["registers"], a["local_bytes"],
-                     a["static_smem"], a["dynamic_smem"]))
+                     a["static_smem"], a["dynamic_smem"], a["threads"],
+                     a["reads"]))
+            name = "realign" if mode == "decode" else "realign_" + mode
+            attrs.setdefault(name, {}).update({
+                "registers" + tag: a["registers"],
+                "local_bytes" + tag: a["local_bytes"],
+                "smem_block" + tag: a["static_smem"] + a["dynamic_smem"],
+                "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
+            })
+        a = pack.kernel_attributes(width)
+        print("pack W=%d: %d registers, %d bytes of local memory a thread, "
+              "%d bytes of static shared memory a block of %d threads (one "
+              "read)" % (width, a["registers"], a["local_bytes"],
+                         a["static_smem"], a["threads"]))
+        attrs.setdefault("pack", {}).update({
+            "registers" + tag: a["registers"],
+            "smem_block" + tag: a["static_smem"],
+            "warps_per_read" + tag: a["threads"] // 32,
+        })
     for width in (W, W_REALIGN):
         print("walkers W=%d: dynamic shared memory a block of 4 reads %s"
               % (width, traceback.walker_shared_memory(width)))
@@ -1783,6 +1911,7 @@ def main() -> int:
                                    else "_path")] = run[name]
         row.update({k: v for k, v in r.items() if k not in row
                     and k != "per_batch"})
+        row.update(attrs.get(name, {}))
         kernels.append(row)
     print("chip_smoke wall: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))

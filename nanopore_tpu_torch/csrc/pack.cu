@@ -3,90 +3,149 @@
 // Replaces nanopore_tpu/ops/pack_pallas.py::_pack_kernel (the TPU's
 // on-device band build).  Per read the host streams one byte per
 // diagonal (bits 0-2 the symbol entering the band, bit 6 d1[k], bit 7
-// d1[k-1]) and a W-symbol seed of the x window; this kernel integrates
-// the band offset o[k] from bit 6, slides the x window up (d1 = 1) or the
-// y window down (d1 = 0) by the entering symbol, recomputes each cell's
-// validity from (k, o[k], w, m, n) and writes
+// d1[k-1]) and a W-symbol seed of the x window; the kernel writes
 //     xyc[r][k-1][w] = x*8 + y | bit 6 d1[k] | bit 7 d1[k-1]
 // with sentinel 5 for x or y outside the lattice.  Byte for byte the
 // output of the plain version in ops/pack.py and of the TPU kernel.
 //
 // Bound: bytes.  It reads 1 byte and writes W bytes per diagonal per
 // read and does a handful of integer operations per written byte.
-// Design: one warp per read (independent reads, no inter-block
-// communication); each lane owns C = W/32 adjacent band cells and keeps
-// its part of both windows in registers, so the one-symbol slide is a
-// single warp shuffle.  The stream is read 32 diagonals at a time, one
-// coalesced byte per lane, and broadcast by shuffle; each diagonal's row
-// is written as one coalesced W-byte store.
+//
+// Design: the windows are a pure function of the stream, so no diagonal
+// waits for the one before it.  With o_k the band offset (the inclusive
+// prefix sum of bit 6) and c_k = k - o_k,
+//     xwin_k[w] = X[o_k + w],   X = initx, then the symbol of each d1 = 1
+//                               diagonal, in order (X[W - 1 + o_k]);
+//     ywin_k[w] = Y[c_k - w],   Y[t] the symbol of the t-th d1 = 0
+//                               diagonal (read only where t >= 1),
+// for any byte stream, valid or not.  One block of 128 threads per read
+// walks its stream in chunks of 256 diagonals.  Per chunk: the stream
+// bytes are loaded coalesced; one block-wide scan of bit 6, carried
+// across chunks, gives o_k; each entering symbol is scattered into a
+// linear shared-memory buffer of X (positions X[o_base ..]) or, reversed
+// so that a row reads it ascending, of Y, each buffer headed by the last
+// W symbols of the chunks before (two buffers of each, alternating by
+// chunk); then every thread builds 16 cells of a row from two runs of 16
+// buffer bytes and stores them as one 16-byte word, neighbouring threads
+// on neighbouring words.  Two block barriers a chunk; the kernel is
+// bound by its stores.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 2;  // reads per block
+constexpr int THREADS = 128;
+constexpr int CHUNK = 2 * THREADS;  // diagonals a chunk: two a thread in the scan
+constexpr int CELLS = 16;           // band cells a thread builds per row (one 16-byte store)
 
-template <int C>
-__global__ void __launch_bounds__(WARPS * 32)
+template <int W>
+struct Smem {
+  uint8_t xb[2][CHUNK + W];  // X[o_base + p] at p
+  uint8_t yb[2][CHUNK + W];  // Y[c_base + CHUNK - p] at p
+  uint8_t sb[CHUNK];         // the chunk's stream bytes
+  int ok[CHUNK];             // the chunk's band offsets o_k
+  int wsum[THREADS / 32];    // the scan's warp totals
+};
+
+template <int W>
+__global__ void __launch_bounds__(THREADS)
 pack_kernel(const uint8_t* __restrict__ stream, const uint8_t* __restrict__ initx,
-            const int32_t* __restrict__ m, const int32_t* __restrict__ n,
-            int nreads, int k_pad, uint8_t* __restrict__ xyc) {
-  constexpr int W = 32 * C;
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (r >= nreads) return;
-  const int w0 = lane * C;
+            const int32_t* __restrict__ m, const int32_t* __restrict__ n, int k_pad,
+            uint8_t* __restrict__ xyc) {
+  __shared__ __align__(16) Smem<W> sm;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int r = blockIdx.x;
   const int mr = m[r];
   const int nr = n[r];
   const uint8_t* st = stream + (size_t)r * k_pad;
   uint8_t* out = xyc + (size_t)r * k_pad * W;
+  for (int i = t; i < W; i += THREADS) sm.xb[0][i] = initx[(size_t)r * W + i];
 
-  int xw[C], yw[C];
+  int o_base = 0, c_base = 0;  // o and c at the diagonal before the chunk
+  int o_prev = 0, c_prev = 0;  // and before the chunk before
+  for (int q = 0; q * CHUNK < k_pad; ++q) {
+    const int cur = q & 1;
+    const int base = q * CHUNK;  // the chunk holds diagonals base + 1 ..
+    const int rows = min(CHUNK, k_pad - base);  // a multiple of 32
+    // 1. two stream bytes a thread, coalesced
+    const int i0 = 2 * t;
+    uint32_t pair = 0;
+    if (i0 < rows) pair = *reinterpret_cast<const uint16_t*>(st + base + i0);
+    const int b0 = pair & 0xFF, b1 = (pair >> 8) & 0xFF;
+    const int d0 = (b0 >> 6) & 1, d1 = (b1 >> 6) & 1;
+    // 2. block-wide inclusive scan of bit 6 over the chunk
+    int v = d0 + d1;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    xw[c] = initx[(size_t)r * W + w0 + c];
-    yw[c] = 5;
-  }
-  int o = 0;
-  for (int k0 = 0; k0 < k_pad; k0 += 32) {
-    const int mine = st[k0 + lane];
-#pragma unroll 4
-    for (int t = 0; t < 32; ++t) {
-      const int byte = __shfl_sync(FULL, mine, t);
-      const int d1 = (byte >> 6) & 1;
-      const int ent = byte & 7;
-      const int top = byte & 0xC0;
-      if (d1) {  // x window slides up, the new symbol enters at w = W-1
-        const int nb = __shfl_down_sync(FULL, xw[0], 1);
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(FULL, v, off);
+      if (lane >= off) v += u;
+    }
+    if (lane == 31) sm.wsum[warp] = v;
+    __syncthreads();  // every thread is also done with the last chunk's rows
+    int before = 0, total = 0;
 #pragma unroll
-        for (int c = 0; c < C - 1; ++c) xw[c] = xw[c + 1];
-        xw[C - 1] = lane == 31 ? ent : nb;
-      } else {  // y window slides down, the new symbol enters at w = 0
-        const int nb = __shfl_up_sync(FULL, yw[C - 1], 1);
-#pragma unroll
-        for (int c = C - 1; c > 0; --c) yw[c] = yw[c - 1];
-        yw[0] = lane == 0 ? ent : nb;
-      }
-      o += d1;
-      const int k = k0 + t + 1;
-      uint32_t word = 0;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int j = o + w0 + c;
-        const int i = k - j;
-        const bool ok = j <= nr && i >= 0 && i <= mr;
-        const int xv = (ok && j >= 1) ? xw[c] : 5;
-        const int yv = (ok && i >= 1) ? yw[c] : 5;
-        word |= (uint32_t)((xv * 8 + yv + top) & 0xFF) << (8 * c);
-      }
-      uint8_t* row = out + (size_t)(k - 1) * W + w0;
-      if constexpr (C == 2) {
-        *reinterpret_cast<uint16_t*>(row) = (uint16_t)word;
-      } else {
-        *row = (uint8_t)word;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      const int s = sm.wsum[w];
+      before += w < warp ? s : 0;
+      total += s;
+    }
+    if (i0 < rows) {
+      const int oa = o_base + before + v - d1;  // o at diagonal base + i0 + 1
+      const int ob = oa + d1;                   // and at base + i0 + 2
+      const int ca = base + i0 + 1 - oa, cb = ca + 1 - d1;
+      sm.sb[i0] = (uint8_t)b0;
+      sm.sb[i0 + 1] = (uint8_t)b1;
+      sm.ok[i0] = oa;
+      sm.ok[i0 + 1] = ob;
+      // 3. scatter the entering symbols: X[W - 1 + o], Y[c]
+      if (d0)
+        sm.xb[cur][W - 1 + oa - o_base] = (uint8_t)(b0 & 7);
+      else
+        sm.yb[cur][c_base + CHUNK - ca] = (uint8_t)(b0 & 7);
+      if (d1)
+        sm.xb[cur][W - 1 + ob - o_base] = (uint8_t)(b1 & 7);
+      else
+        sm.yb[cur][c_base + CHUNK - cb] = (uint8_t)(b1 & 7);
+    }
+    // the buffers' heads, from the last chunk's: X[o_base .. o_base + W - 1]
+    // and Y[c_base - W + 1 .. c_base] (the Y entries at t <= 0 are never read)
+    if (q > 0) {
+      for (int i = t; i < W; i += THREADS) {
+        sm.xb[cur][i] = sm.xb[cur ^ 1][o_base - o_prev + i];
+        sm.yb[cur][CHUNK + i] = sm.yb[cur ^ 1][c_prev + CHUNK - c_base + i];
       }
     }
+    __syncthreads();
+    // 4. the rows: 16 cells a thread, one 16-byte store
+#pragma unroll 1
+    for (int idx = t; idx < rows * (W / CELLS); idx += THREADS) {
+      const int row = idx / (W / CELLS);
+      const int w0 = (idx % (W / CELLS)) * CELLS;
+      const int k = base + row + 1;
+      const int o = sm.ok[row];
+      const int c = k - o;
+      const int top = sm.sb[row] & 0xC0;
+      const uint8_t* xs = sm.xb[cur] + (o - o_base + w0);
+      const uint8_t* ys = sm.yb[cur] + (c_base + CHUNK - c + w0);
+      uint32_t wd[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int cc = 0; cc < CELLS; ++cc) {
+        const int j = o + w0 + cc;
+        const int i = c - w0 - cc;
+        const bool okc = j <= nr && i >= 0 && i <= mr;
+        const int xv = (okc && j >= 1) ? xs[cc] : 5;
+        const int yv = (okc && i >= 1) ? ys[cc] : 5;
+        wd[cc >> 2] |= (uint32_t)((xv * 8 + yv + top) & 0xFF) << (8 * (cc & 3));
+      }
+      *reinterpret_cast<uint4*>(out + (size_t)(base + row) * W + w0) =
+          make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+    o_prev = o_base;
+    c_prev = c_base;
+    o_base += total;
+    c_base += rows - total;
   }
 }
 
@@ -96,12 +155,31 @@ extern "C" const char* np_cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
+// Registers, local memory (spill) bytes per thread, static shared memory
+// bytes and threads per block (one block a read) at band width W, into
+// out[4].
+extern "C" int np_pack_attrs(int W, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (W == 64)
+    e = cudaFuncGetAttributes(&a, pack_kernel<64>);
+  else if (W == 32)
+    e = cudaFuncGetAttributes(&a, pack_kernel<32>);
+  else
+    return (int)cudaErrorInvalidValue;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = THREADS;
+  return (int)e;
+}
+
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
                               const void* m, const void* n, int nreads,
                               int k_pad, int W, void* xyc, void* stream) {
   if (nreads <= 0 || k_pad % 32 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
+  const dim3 grid(nreads), block(THREADS);
   cudaStream_t s = (cudaStream_t)stream;
   const uint8_t* sb = (const uint8_t*)stream_bytes;
   const uint8_t* ix = (const uint8_t*)initx;
@@ -109,9 +187,9 @@ extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
   const int32_t* nn = (const int32_t*)n;
   uint8_t* out = (uint8_t*)xyc;
   if (W == 64) {
-    pack_kernel<2><<<grid, block, 0, s>>>(sb, ix, mm, nn, nreads, k_pad, out);
+    pack_kernel<64><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, out);
   } else if (W == 32) {
-    pack_kernel<1><<<grid, block, 0, s>>>(sb, ix, mm, nn, nreads, k_pad, out);
+    pack_kernel<32><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,5 @@
 // Fused banded pair-HMM realign: forward and backward in one kernel,
-// then the reverse MEA (decode mode), the Baum-Welch sums (EM mode), the
+// then the reverse MEA (decode modes), the Baum-Welch sums (EM mode), the
 // gamma_match band (gamma modes) or the SNP caller's expectation retire
 // stream (exp mode).
 //
@@ -24,59 +24,98 @@
 //     base (the SNP caller's per-reference-position expected base
 //     counts), with no MEA DP and no direction codes.
 //
-// Phase A (forward) runs the five-state scaled recursion along the
+// The forward runs the five-state scaled recursion along the
 // anti-diagonals, rescaling every 2nd diagonal by the band maximum, with
 // the log-scale in a Kahan-compensated sum, and writes every diagonal's
-// states (5 x W f32) and rescale inverse to a workspace.  Phase B streams
-// them back in descending order: backward recursion (rescaled on odd
-// diagonals and diagonal 0), posteriors through the linear g-factor
-// (clamped at 3e37, seeded 1/fin(k_end)), and the reverse MEA DP, ties
-// broken diag before del before ins.  Band shifts come from bits 6/7 of
-// the codes; validity rides the sentinel code 5 (zero emission).  The
+// states (5 x W f32) and rescale inverse to a workspace.  The backward
+// runs kq..0 (rescaled on odd diagonals and diagonal 0); the posteriors
+// take the forward states through the linear g-factor (clamped at 3e37,
+// seeded 1/fin(k_end)), and the reverse MEA DP reads them, ties broken
+// diag before del before ins.  Band shifts come from bits 6/7 of the
+// codes; validity rides the sentinel code 5 (zero emission).  The
 // arithmetic, including its order, is the plain version's in
 // ops/realign.py; this file is built with -fmad=false so no multiply and
 // add fuse and the two agree to the bit.
 //
 // Bound: operations by the card's peak (135-182 f32 operations per band
 // cell per diagonal, by mode, against 2 bytes of codes in); in fact the
-// latency of each read's serial chain of diagonals.  Design:
-//  * one warp per read, each lane owning C = W/32 adjacent band cells in
-//    registers, so a band shift is one warp shuffle.  The band maximum is
-//    each lane's fmaxf over its cells, then one __reduce_max_sync over
-//    the bit patterns: the states are non-negative, so their patterns
-//    order as their values, and a lane whose cells are all NaN keys as 0,
-//    which keeps fmaxf's skipping of NaN and the "scale > 0" rule.
-//  * each read runs only its own diagonals: 1..kq in phase A and kq..0
-//    in phase B, kq = m + n rounded up to even (the rescale cadence keeps
-//    its parity).  Past its end a read's states are zero and its g-factor
-//    0, so the diagonals it skips would change nothing (the plain version
-//    runs them all; the CPU tests hold the two equal bit for bit).  The
-//    output rows past kq get what those diagonals give there: 0 in the
-//    gamma band and the retire rows, 3 (none) in the direction codes,
-//    written with 16-byte stores before phase A.
-//  * a ragged workspace: read r's forward states (kq rows of 5 x W f32,
-//    row k-1 = diagonal k) and then its rescale inverses (kq + 1 floats,
-//    padded to 16 bytes) sit at woff[r] floats, a 64-bit exclusive
-//    prefix sum that the wrapper computes from the host's m and n, so a
-//    launch holds what its reads need rather than B x k_pad rows.  The
-//    wrapper passes the end of the last read's slot too (nreads + 1
-//    offsets), and a read whose m + n needs more than its slot (a
-//    caller's m + n that disagrees with the device's) traps on
-//    the device before it writes anything: never a clamp.
-//  * no global load on the chain: each warp stages its codes (phase A,
-//    CH + 1 rows a chunk for the one-ahead emission lookup) and its
-//    stored states, codes and rescale inverses (phase B) through shared
-//    memory in chunks of CH diagonals with cp.async, double-buffered, so
-//    the next chunk is in flight while the current one is computed.
-//    Phase A looks up the emission factors of the diagonal after the one
-//    it computes; phase B carries them from the step before.  Phase A's
-//    state stores are plain coalesced stores, off the chain.
+// latency of each read's serial chain of diagonals, and at B = 512 (one
+// read a warp scheduler) the schedulers' issue slots too.  Design shared
+// by both kernels below:
+//  * a lane owns C = W/32 adjacent band cells in registers, so a band
+//    shift is one warp shuffle.  The band maximum is each lane's fmaxf
+//    over its cells, then one __reduce_max_sync over the bit patterns:
+//    the states are non-negative, so their patterns order as their
+//    values, and a lane whose cells are all NaN keys as 0, which keeps
+//    fmaxf's skipping of NaN and the "scale > 0" rule.
+//  * each read runs only its own diagonals, kq = m + n rounded up to even
+//    (the rescale cadence keeps its parity).  Past its end a read's
+//    states are zero and its g-factor 0, so the diagonals it skips would
+//    change nothing (the plain version runs them all; the CPU tests hold
+//    the two equal bit for bit).  The output rows past kq get what those
+//    diagonals give there: 0 in the gamma band and the retire rows, 3
+//    (none) in the direction codes, written with 16-byte stores.
+//  * a ragged workspace: read r's slot starts woff[r] floats into the
+//    launch's (a 64-bit exclusive prefix sum that the wrapper computes
+//    from the host's m and n), so a launch holds what its reads need
+//    rather than B x k_pad rows.  The wrapper passes the end of the last
+//    read's slot too (nreads + 1 offsets), and a read whose m + n needs
+//    more than its slot (a caller's m + n that disagrees with the
+//    device's) traps on the device before it writes anything: never a
+//    clamp.
+//  * no global load on a chain: codes, stored states and rescale
+//    inverses are staged through shared memory in chunks of CH diagonals
+//    with cp.async, double-buffered, so the next chunk is in flight while
+//    the current one is computed.  The forward looks up the emission
+//    factors of the diagonal after the one it computes; the backward
+//    carries them from the step before.  State stores are plain
+//    coalesced stores, off the chain.
 //  * the tail: a launch lasts as long as its longest read, and once the
-//    short reads are done the long ones run one warp per scheduler with
-//    nothing to hide their latency (the EM batch's far-end windows, the
-//    SNP caller's far-end buckets of 2-3 reads).
-// The model tables sit in shared memory.  The workspace costs 5*W*4
-// bytes per diagonal per read of device-memory traffic each way.
+//    short reads are done the long ones run alone (the EM batch's far-end
+//    windows, the SNP caller's far-end buckets of 2-3 reads).
+//  * a short step: the rescale's reciprocal is __frcp_rn (correctly
+//    rounded, as 1.f / x is, so the same bits without the division's
+//    slow path), and a step's four gap shifts branch once on d1.
+// The model tables sit in shared memory.
+//
+// realign_kernel (EM, GAMMA, EXP): one warp per read, two reads a block.
+// Phase A, the forward over 1..kq, stores its states (kq rows of 5 x W
+// f32, row k-1 = diagonal k) and then its rescale inverses (kq + 1
+// floats, padded to 16 bytes) in the read's slot; phase B streams them
+// back in descending order beside the backward.
+//
+// mea_kernel (DECODE, DECODE_GAMMA): one read a block of 3 warps.  The
+// backward recursion does not read the forward; only the posteriors and
+// the MEA do.  So the two chains run side by side and the MEA pass is
+// fed by recompute:
+//  * phase 1: warp 0 runs the forward (as phase A above); warp 1 runs the
+//    backward recursion alone over kq..0 and stores its scale `safe` at
+//    every diagonal (kq + 1 floats, after sf) and, at the top of every
+//    segment of S diagonals (diagonals jS .. jS + S - 1, the top one
+//    holding kq), the states it carries into that diagonal: b1 and the
+//    match state of b2 (6 x W f32, the checkpoint of segment j); warp 2
+//    writes the rows past kq.  One block barrier.
+//  * phase 2: warp 0 walks kq..0 once more: it stages the forward rows,
+//    codes, sf and safe with cp.async and takes the backward states of
+//    each segment from a ring of NSLOT shared-memory slots, then forms
+//    g_k, the posteriors, the MEA carry and the direction word (and the
+//    gamma row) as phase B does.  Warps 1 and 2 recompute the segments
+//    from their checkpoints, alternating, in descending order, each into
+//    the next ring slot: the emissions and band deltas come from the
+//    codes (staged per segment with cp.async), the carried rescale
+//    inverse is 1 / safe of the diagonal above, and the checkpoint for a
+//    producer's next segment is loaded into registers while it computes
+//    this one.  Slots pass between them with mbarrier arrive (release)
+//    and try_wait.parity (acquire), a full and an empty barrier a slot.
+//  The recomputed states are the stored ones bit for bit (the same
+//  operations on the same floats), so the outputs are the one-warp
+//  kernel's.  The chain becomes kq x max(t_f, t_b) + kq x max(t_mea,
+//  t_b / 2) in place of kq x (t_f + t_b + t_mea), for two more warps a
+//  read and the backward's instructions twice.  Shared memory: 54,960
+//  bytes a block at W = 64 (27,568 at W = 32), so four reads fit a SM
+//  (132 x 4 = 528 >= 512), with __launch_bounds__(96, 4) holding the
+//  registers to 168.  Workspace per read: the forward's states and sf,
+//  then safe, then kq / S + 1 checkpoints.
 //
 // EM mode adds 57 accumulators per lane (25 transition products, 16
 // match bins, 2 x 4 delete bins by the x code, 2 x 4 insert bins by the
@@ -119,8 +158,12 @@ namespace {
 constexpr int NS = 5;
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 2;  // reads per block
-constexpr int CH = 8;     // diagonals per staged chunk (even: phase A steps in pairs)
+constexpr int WARPS = 2;  // reads per block of realign_kernel
+constexpr int CH = 8;     // diagonals per staged chunk (even: the forward steps in pairs)
+constexpr int S = 8;      // diagonals per segment of mea_kernel's backward
+constexpr int NSLOT = 3;  // ring slots of mea_kernel: two producers need three
+constexpr int MEA_WARPS = 3;
+static_assert(S == CH, "mea_kernel's consumer stages one chunk per segment");
 // tf 25 | emf 36 | egf 30 | gap gamma | match gamma | exp threshold
 constexpr int NTAB = 94;
 // kernel modes (the ``mode`` argument of np_realign_launch)
@@ -139,6 +182,32 @@ struct __align__(16) Stage {
   float st[2][CH][NS * 32 * C];
   uint8_t cd[2][CH + 1][32 * C];
   float sf[2][CH];
+};
+
+// mea_kernel's shared memory: phase 1's code buffers and phase 2's
+// buffers share the space (a block barrier lies between).  Phase 2's
+// chunk q is segment q: slot s holds diagonal q*CH + s, with sf of the
+// diagonal above and safe of its own; a ring slot holds a segment's
+// recomputed backward states, row s diagonal jS + s; a producer's code
+// buffer row i holds diagonal jS + i, i < S + 2 (its carry reads the two
+// diagonals above the segment).
+template <int C>
+struct __align__(16) MeaStage {
+  union {
+    struct {
+      uint8_t fcd[2][CH + 1][32 * C];  // the forward's codes
+      uint8_t bcd[2][CH][32 * C];      // the backward's codes
+    } p1;
+    struct {
+      float st[2][CH][NS * 32 * C];
+      float ring[NSLOT][S][NS * 32 * C];
+      uint8_t cd[2][CH][32 * C];
+      uint8_t pcd[2][2][S + 2][32 * C];  // [producer][buffer][row]
+      float sf[2][CH];
+      float sa[2][CH];
+    } p2;
+  } u;
+  unsigned long long full[NSLOT], empty[NSLOT];
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -165,6 +234,38 @@ __device__ __forceinline__ void cp_wait_all() {
 __device__ __forceinline__ void warp_copy(void* dst, const void* src, int nbytes, int lane) {
   for (int i = lane * 16; i < nbytes; i += 32 * 16)
     cp_async16((char*)dst + i, (const char*)src + i);
+}
+
+// shared-memory barriers of mea_kernel's ring (one arrival a lane)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// arrive with release semantics: this lane's earlier shared-memory
+// accesses are ordered before the phase completes
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// wait (acquire) until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // rows kq + 1 .. k_pad of one read's (k_pad + 1) x row_bytes output, each
@@ -198,6 +299,52 @@ __device__ __forceinline__ void shift(const float (&a)[C], float (&o)[C], int s,
     o[0] = lane == 0 ? fill : nb;
   }
 }
+
+// out[w] = a[w + SH] for a compile-time SH in {-1, 1}; `fill` outside.
+template <int C, int SH>
+__device__ __forceinline__ void shift_by(const float (&a)[C], float (&o)[C], float fill,
+                                         int lane) {
+  if constexpr (SH > 0) {
+    const float nb = __shfl_down_sync(FULL, a[0], 1);
+#pragma unroll
+    for (int c = 0; c < C - 1; ++c) o[c] = a[c + 1];
+    o[C - 1] = lane == 31 ? fill : nb;
+  } else {
+    const float nb = __shfl_up_sync(FULL, a[C - 1], 1);
+#pragma unroll
+    for (int c = C - 1; c > 0; --c) o[c] = a[c - 1];
+    o[0] = lane == 0 ? fill : nb;
+  }
+}
+
+// The four gap destinations' shifts, one warp-uniform branch on d1: by
+// (d1 - 1, d1, d1 - 1, d1) where `up` (the forward), by (1 - d1, -d1,
+// 1 - d1, -d1) otherwise (the backward), as four calls of shift give.
+template <int C, bool UP>
+__device__ __forceinline__ void gap_shifts(const float (&a)[NS][C], float (&o)[NS][C], int d1,
+                                           int lane) {
+  constexpr int SH = UP ? 1 : -1;
+  if (d1) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      o[1][c] = a[1][c];
+      o[3][c] = a[3][c];
+    }
+    shift_by<C, SH>(a[2], o[2], 0.f, lane);
+    shift_by<C, SH>(a[4], o[4], 0.f, lane);
+  } else {
+    shift_by<C, -SH>(a[1], o[1], 0.f, lane);
+    shift_by<C, -SH>(a[3], o[3], 0.f, lane);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      o[2][c] = a[2][c];
+      o[4][c] = a[4][c];
+    }
+  }
+}
+
+// 1 / x, correctly rounded as the division is, without its slow path
+__device__ __forceinline__ float recip(float x) { return __frcp_rn(x); }
 
 // The band maximum as fmaxf gives it: the states are non-negative, so
 // their bit patterns order as their values; a lane whose cells are all
@@ -266,6 +413,27 @@ __device__ __forceinline__ void store_states(float* row, int w0, const float (&f
   }
 }
 
+// one band row of f32 (a lane's C cells)
+template <int C>
+__device__ __forceinline__ void load_row(const float* row, int w0, float (&v)[C]) {
+  if constexpr (C == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(row + w0);
+    v[0] = t.x;
+    v[C - 1] = t.y;
+  } else {
+    v[0] = row[w0];
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_row(float* row, int w0, const float (&v)[C]) {
+  if constexpr (C == 2) {
+    *reinterpret_cast<float2*>(row + w0) = make_float2(v[0], v[C - 1]);
+  } else {
+    row[w0] = v[0];
+  }
+}
+
 // emission factors [e_m, gx1, gy2, gx3, gy4] of a lane's cells
 template <int C>
 __device__ __forceinline__ void emissions(const float* emf, const float* egf,
@@ -294,10 +462,7 @@ __device__ __forceinline__ void fwd_step(const float* tf, const float (&e)[NS][C
 #pragma unroll
   for (int d = 1; d < NS; ++d) trans_sum<C>(tf, prev, d, t[d]);
   shift<C>(t[0], sh[0], d2, 0.f, lane);
-  shift<C>(t[1], sh[1], d1 - 1, 0.f, lane);
-  shift<C>(t[2], sh[2], d1, 0.f, lane);
-  shift<C>(t[3], sh[3], d1 - 1, 0.f, lane);
-  shift<C>(t[4], sh[4], d1, 0.f, lane);
+  gap_shifts<C, true>(t, sh, d1, lane);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     nw[0][c] = e[0][c] * (sh[0][c] * r);
@@ -320,66 +485,19 @@ __device__ __forceinline__ void end_check(int k, int kend, const float (&nw)[NS]
   acc = acc + (logf(fin_end) + (ls_hi - ls_c));
 }
 
-// acc += value where the cell's bin is `bin`, for each of N bins
-template <int N>
-__device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = acc[i] + (bin == i ? value : 0.f);
-}
-
-// Outputs by mode:
-//   DECODE, DECODE_GAMMA: `out1` score (B,) f32, `out2` direction codes
-//     (B, k_pad + 1, W) int8;
-//   EM: `out1` trans (B, 25), `out2` emis (B, 80) f32;
-//   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32;
-//   GAMMA, DECODE_GAMMA: `out3` gamma_match (B, k_pad + 1, W) f32.
-// `ws` is the launch's workspace and `woff[r]` read r's offset in it
-// (floats), woff[r + 1] the end of its slot; dynamic shared memory holds
-// WARPS Stage<C>.
-template <int C, int MODE>
-__global__ void __launch_bounds__(WARPS * 32)
-realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
-               const int32_t* __restrict__ n, int nreads, int k_pad,
-               float* __restrict__ ws, const int64_t* __restrict__ woff,
-               float* __restrict__ loglik, float* __restrict__ out1,
-               void* __restrict__ out2, float* __restrict__ out3) {
+// The forward over diagonals 1..kq: stores row k-1 of `fs` (diagonal k's
+// states) and sf[k] (even k's rescale inverse), returns the loglik in
+// `acc` and the band-start mass at kend in `fin_end`.  `cd` is the
+// warp's two code chunks of CH + 1 rows (row i of chunk q: diagonal
+// q*CH + i + 1, the one-ahead emission lookup).
+template <int C>
+__device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
+                                             const float* egf, uint8_t (*cd)[CH + 1][32 * C],
+                                             const uint8_t* xy, int k_pad, int kq, int kend,
+                                             float* fs, float* sf, int lane, float& acc,
+                                             float& fin_end) {
   constexpr int W = 32 * C;
-  constexpr bool EM = MODE == EM_MODE;
-  constexpr bool MEA = MODE == DECODE || MODE == DECODE_GAMMA;
-  constexpr bool GAM = MODE == GAMMA || MODE == DECODE_GAMMA;
-  constexpr bool XP = MODE == EXP;
-  __shared__ float sm[NTAB];
-  extern __shared__ __align__(16) unsigned char stage_raw[];
-  for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * WARPS + warp;
-  if (r >= nreads) return;
-  Stage<C>& sg = reinterpret_cast<Stage<C>*>(stage_raw)[warp];
-  const float* tf = sm;
-  const float* emf = sm + 25;
-  const float* egf = sm + 61;
-  const float gg = sm[91];
-  const float mg = sm[92];
-  const float thr = sm[93];
   const int w0 = lane * C;
-  const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
-  const int kend = m[r] + n[r];
-  const int kq = min(kend + (kend & 1), k_pad);     // the read's last diagonal
-  // the read's states and rescale inverses must fit its slot (kend below
-  // m + n otherwise); a trap, not an assert, so no build flag removes it
-  if (woff[r] + (int64_t)kq * NS * W + (kq + 1 + 3) / 4 * 4 > woff[r + 1]) __trap();
-  float* fs = ws + woff[r];                         // row k-1: diagonal k
-  float* sf = fs + (size_t)kq * NS * W;             // [k]: diagonal k
-
-  // rows past the read's own diagonals: what the skipped diagonals give
-  if constexpr (MEA)
-    fill_rows((int8_t*)out2 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W, 0x03030303u, lane);
-  if constexpr (GAM) fill_rows(out3 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W * 4, 0u, lane);
-  if constexpr (XP) fill_rows(out1 + (size_t)r * (k_pad + 1) * 4, kq, k_pad, 16, 0u, lane);
-
-  // ---------------- phase A: forward, diagonals 1..kq ----------------
   float a[NS][C], b[NS][C];  // diagonals k0 (even) and k0 - 1
 #pragma unroll
   for (int s = 0; s < NS; ++s)
@@ -388,11 +506,11 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       a[s][c] = (w0 + c == 0) ? 1.0f / 5.0f : 0.f;
       b[s][c] = 0.f;
     }
-  float ls_hi = 0.f, ls_c = 0.f, rs = 1.f, acc = 0.f, fin_end = 1.f;
+  float ls_hi = 0.f, ls_c = 0.f, rs = 1.f;
   const int nqa = (kq + CH - 1) / CH;
   auto stage_codes = [&](int q) {
     const int r0 = q * CH;
-    warp_copy(sg.cd[q & 1][0], xy + (size_t)r0 * W, min(CH + 1, k_pad - r0) * W, lane);
+    warp_copy(cd[q & 1][0], xy + (size_t)r0 * W, min(CH + 1, k_pad - r0) * W, lane);
     cp_commit();
   };
   float ea[NS][C];  // emission factors of the next odd diagonal
@@ -401,7 +519,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
     cp_wait_all();
     __syncwarp();
     uint8_t c0[C];
-    load_codes<C>(sg.cd[0][0], w0, c0);
+    load_codes<C>(cd[0][0], w0, c0);
     emissions<C>(emf, egf, c0, ea);
   }
 #pragma unroll 1
@@ -411,7 +529,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       __syncwarp();   // and every lane is done with chunk q - 1's buffer
     }
     if (q + 1 < nqa) stage_codes(q + 1);
-    const uint8_t(*rows)[W] = sg.cd[q & 1];
+    const uint8_t(*rows)[W] = cd[q & 1];
     const int nk = min(CH, kq - q * CH);
     for (int i = 0; i < nk; i += 2) {
       const int k0 = q * CH + i;  // diagonals k0 + 1 (odd) and k0 + 2 (even)
@@ -436,7 +554,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       fwd_step<C>(tf, eb, d1, d1 + d1p - 1, nb, a, 1.f, na, lane);
       const float scale = band_max<C>(na);
       const float safe = scale > 0.f ? scale : 1.f;
-      const float inv = 1.f / safe;
+      const float inv = recip(safe);
 #pragma unroll
       for (int s = 0; s < NS; ++s)
 #pragma unroll
@@ -461,29 +579,177 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
         }
     }
   }
-  if (lane == 0) loglik[r] = acc;
+}
 
-  // ------- phase B: backward + reverse MEA (or the EM sums), kq..0 -------
-  const float inv_fin = 1.f / fin_end;
-  float b1[NS][C], b2[NS][C];  // backward states of diagonals k+1, k+2
-  float u1[C], u2[C], gm1[C], gm2[C], gd1[C], gi1[C];
-  float ex1[C], ex3[C], ey2[C], ey4[C];  // gap emissions of diagonal k+1
-  float em1[C], em2[C];                  // match emissions of k+1, k+2
+// What the backward carries down to diagonal k: the states of k+1 and
+// the match state of k+2 (the only one of k+2 a step reads), the
+// emissions of k+1 (and k+2's match emission), the band deltas of k+1
+// and k+2 and k+1's rescale inverse.  Past kq all are zero (binv one).
+template <int C>
+struct Bwd {
+  float b1[NS][C], b2m[C];
+  float em1[C], em2[C], ex1[C], ex3[C], ey2[C], ey4[C];
+  float binv;
+  int d1n1, d1n2;
+};
+
+template <int C>
+__device__ __forceinline__ void bwd_init(Bwd<C>& bw) {
 #pragma unroll
   for (int c = 0; c < C; ++c) {
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      b1[s][c] = 0.f;
-      b2[s][c] = 0.f;
-    }
-    u1[c] = NEG;
-    u2[c] = NEG;
-    gm1[c] = gm2[c] = gd1[c] = gi1[c] = 0.f;
-    ex1[c] = ex3[c] = ey2[c] = ey4[c] = 0.f;
-    em1[c] = em2[c] = 0.f;
+    for (int s = 0; s < NS; ++s) bw.b1[s][c] = 0.f;
+    bw.b2m[c] = 0.f;
+    bw.em1[c] = bw.em2[c] = bw.ex1[c] = bw.ex3[c] = bw.ey2[c] = bw.ey4[c] = 0.f;
   }
-  float binv = 1.f, g_next = 0.f;
-  int d1n1 = 0, d1n2 = 0;  // band deltas of diagonals k+1, k+2
+  bw.binv = 1.f;
+  bw.d1n1 = bw.d1n2 = 0;
+}
+
+// One backward anti-diagonal k: `dest`, the emission-weighted states of
+// k+1 and k+2 shifted onto k (before the end-cell overwrite), `nw` and,
+// on odd k and on k = 0, the rescale by its band maximum `safe` (nw
+// comes out rescaled; safe and inv are 1 on the other diagonals).
+template <int C>
+__device__ __forceinline__ void bwd_step(const float* tf, const Bwd<C>& bw, int k,
+                                         bool is_end, int lane, float (&dest)[NS][C],
+                                         float (&nw)[NS][C], float& safe, float& inv) {
+  const int w0 = lane * C;
+  const int d2n2 = bw.d1n1 + bw.d1n2 - 1;
+  float p[NS][C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    p[0][c] = bw.b2m[c] * bw.em2[c];
+    p[1][c] = bw.b1[1][c] * bw.ex1[c];
+    p[2][c] = bw.b1[2][c] * bw.ey2[c];
+    p[3][c] = bw.b1[3][c] * bw.ex3[c];
+    p[4][c] = bw.b1[4][c] * bw.ey4[c];
+  }
+  shift<C>(p[0], dest[0], -d2n2, 0.f, lane);
+  gap_shifts<C, false>(p, dest, bw.d1n1, lane);
+#pragma unroll
+  for (int c = 0; c < C; ++c) dest[0][c] = dest[0][c] * bw.binv;
+#pragma unroll
+  for (int st = 0; st < NS; ++st)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float acc_t = tf[st * 5] * dest[0][c];
+#pragma unroll
+      for (int t = 1; t < NS; ++t) acc_t = acc_t + tf[st * 5 + t] * dest[t][c];
+      nw[st][c] = is_end ? ((w0 + c == 0) ? 1.f : 0.f) : acc_t;
+    }
+  safe = 1.f;
+  inv = 1.f;
+  if ((k & 1) || k == 0) {
+    const float scale = band_max<C>(nw);
+    safe = scale > 0.f ? scale : 1.f;
+    inv = recip(safe);
+#pragma unroll
+    for (int st = 0; st < NS; ++st)
+#pragma unroll
+      for (int c = 0; c < C; ++c) nw[st][c] = nw[st][c] * inv;
+  }
+}
+
+// the emissions and band delta of diagonal k (codes ck, top byte `top`)
+// move into the carry as those of k+1, the old ones as k+2's
+template <int C>
+__device__ __forceinline__ void bwd_codes(Bwd<C>& bw, const float* emf, const float* egf,
+                                          const uint8_t (&ck)[C], int top) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int x = (ck[c] >> 3) & 7;
+    const int y = ck[c] & 7;
+    bw.em2[c] = bw.em1[c];
+    bw.em1[c] = emf[x * 6 + y];
+    bw.ex1[c] = egf[6 + x];
+    bw.ey2[c] = egf[12 + y];
+    bw.ex3[c] = egf[18 + x];
+    bw.ey4[c] = egf[24 + y];
+  }
+  bw.d1n2 = bw.d1n1;
+  bw.d1n1 = (top >> 6) & 1;
+}
+
+// carry down to diagonal k - 1 after computing diagonal k (k >= 1)
+template <int C>
+__device__ __forceinline__ void bwd_carry(Bwd<C>& bw, const float (&nw)[NS][C], float inv,
+                                          const float* emf, const float* egf,
+                                          const uint8_t (&ck)[C], int top) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    bw.b2m[c] = bw.b1[0][c];
+#pragma unroll
+    for (int st = 0; st < NS; ++st) bw.b1[st][c] = nw[st][c];
+  }
+  bwd_codes<C>(bw, emf, egf, ck, top);
+  bw.binv = inv;
+}
+
+// acc += value where the cell's bin is `bin`, for each of N bins
+template <int N>
+__device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = acc[i] + (bin == i ? value : 0.f);
+}
+
+// Outputs by mode:
+//   EM: `out1` trans (B, 25), `out2` emis (B, 80) f32;
+//   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32;
+//   GAMMA: `out3` gamma_match (B, k_pad + 1, W) f32.
+// `ws` is the launch's workspace and `woff[r]` read r's offset in it
+// (floats), woff[r + 1] the end of its slot; dynamic shared memory holds
+// WARPS Stage<C>.
+template <int C, int MODE>
+__global__ void __launch_bounds__(WARPS * 32)
+realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
+               const int32_t* __restrict__ n, int nreads, int k_pad,
+               float* __restrict__ ws, const int64_t* __restrict__ woff,
+               float* __restrict__ loglik, float* __restrict__ out1,
+               void* __restrict__ out2, float* __restrict__ out3) {
+  constexpr int W = 32 * C;
+  constexpr bool EM = MODE == EM_MODE;
+  constexpr bool GAM = MODE == GAMMA;
+  constexpr bool XP = MODE == EXP;
+  static_assert(EM || GAM || XP, "the decode modes run mea_kernel");
+  __shared__ float sm[NTAB];
+  extern __shared__ __align__(16) unsigned char stage_raw[];
+  for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * WARPS + warp;
+  if (r >= nreads) return;
+  Stage<C>& sg = reinterpret_cast<Stage<C>*>(stage_raw)[warp];
+  const float* tf = sm;
+  const float* emf = sm + 25;
+  const float* egf = sm + 61;
+  const float thr = sm[93];
+  const int w0 = lane * C;
+  const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
+  const int kend = m[r] + n[r];
+  const int kq = min(kend + (kend & 1), k_pad);     // the read's last diagonal
+  // the read's states and rescale inverses must fit its slot (kend below
+  // m + n otherwise); a trap, not an assert, so no build flag removes it
+  if (woff[r] + (int64_t)kq * NS * W + (kq + 1 + 3) / 4 * 4 > woff[r + 1]) __trap();
+  float* fs = ws + woff[r];                         // row k-1: diagonal k
+  float* sf = fs + (size_t)kq * NS * W;             // [k]: diagonal k
+
+  // rows past the read's own diagonals: what the skipped diagonals give
+  if constexpr (GAM) fill_rows(out3 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W * 4, 0u, lane);
+  if constexpr (XP) fill_rows(out1 + (size_t)r * (k_pad + 1) * 4, kq, k_pad, 16, 0u, lane);
+
+  // ---------------- phase A: forward, diagonals 1..kq ----------------
+  float acc = 0.f, fin_end = 1.f;
+  forward_pass<C>(tf, emf, egf, sg.cd, xy, k_pad, kq, kend, fs, sf, lane, acc,
+                  fin_end);
+  if (lane == 0) loglik[r] = acc;
+
+  // ------- phase B: backward + the EM sums, gamma band or retire, kq..0 -------
+  const float inv_fin = 1.f / fin_end;
+  Bwd<C> bw;
+  bwd_init<C>(bw);
+  float g_next = 0.f;
   // EM sums of this lane's cells: 25 transitions | 16 match bins | delete
   // states 1, 3 by x (8) | insert states 2, 4 by y (8)
   float em[EM ? 57 : 1];
@@ -534,45 +800,9 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       }
       const float sf_next = (k & 1) ? sg.sf[buf][s] : 1.f;
       const bool is_end = k == kend;
-      const int d2n2 = d1n1 + d1n2 - 1;
 
-      float p[NS][C], dest[NS][C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        p[0][c] = b2[0][c] * em2[c];
-        p[1][c] = b1[1][c] * ex1[c];
-        p[2][c] = b1[2][c] * ey2[c];
-        p[3][c] = b1[3][c] * ex3[c];
-        p[4][c] = b1[4][c] * ey4[c];
-      }
-      shift<C>(p[0], dest[0], -d2n2, 0.f, lane);
-      shift<C>(p[1], dest[1], 1 - d1n1, 0.f, lane);
-      shift<C>(p[2], dest[2], -d1n1, 0.f, lane);
-      shift<C>(p[3], dest[3], 1 - d1n1, 0.f, lane);
-      shift<C>(p[4], dest[4], -d1n1, 0.f, lane);
-#pragma unroll
-      for (int c = 0; c < C; ++c) dest[0][c] = dest[0][c] * binv;
-
-      float nw[NS][C];
-#pragma unroll
-      for (int st = 0; st < NS; ++st)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float acc_t = tf[st * 5] * dest[0][c];
-#pragma unroll
-          for (int t = 1; t < NS; ++t) acc_t = acc_t + tf[st * 5 + t] * dest[t][c];
-          nw[st][c] = is_end ? ((w0 + c == 0) ? 1.f : 0.f) : acc_t;
-        }
-      float safe = 1.f, inv = 1.f;
-      if ((k & 1) || k == 0) {
-        const float scale = band_max<C>(nw);
-        safe = scale > 0.f ? scale : 1.f;
-        inv = 1.f / safe;
-#pragma unroll
-        for (int st = 0; st < NS; ++st)
-#pragma unroll
-          for (int c = 0; c < C; ++c) nw[st][c] = nw[st][c] * inv;
-      }
+      float dest[NS][C], nw[NS][C], safe, inv;
+      bwd_step<C>(tf, bw, k, is_end, lane, dest, nw, safe, inv);
       const float factor_trans = g_next * sf_next;
       float g_k = is_end ? inv_fin : factor_trans * safe;
       g_k = fminf(g_k, 3e37f);
@@ -594,7 +824,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       if constexpr (XP) {
         // retire column W - 1 on the k+1 -> k shift, move the band up by
         // d1[k+1], then bin diagonal k's thresholded gamma_match
-        const float d1f = (float)d1n1;
+        const float d1f = (float)bw.d1n1;
         if (lane == 31) {
           *reinterpret_cast<float4*>(out1 + ((size_t)r * (k_pad + 1) + k) * 4) =
               make_float4(ex[0][C - 1] * d1f, ex[1][C - 1] * d1f, ex[2][C - 1] * d1f,
@@ -617,7 +847,6 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
         }
       }
 
-      float new_u[C], g_m[C], g_d[C], g_i[C];  // MEA carry (decode modes)
       if constexpr (EM) {
         // xi_k[s][t] without its tf factor.  dest is the value before the
         // end-cell overwrite, and g_next is 0 until the read's own end
@@ -643,74 +872,13 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
           bin_add<4>(em + 49, yb, gam[2][c]);
           bin_add<4>(em + 53, yb, gam[4][c]);
         }
-      } else if constexpr (MEA) {
-        float vd[C], vl[C], vu[C], td[C], tl[C], tu[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          g_m[c] = gam[0][c];
-          g_d[c] = gam[1][c] + gam[3][c];
-          g_i[c] = gam[2][c] + gam[4][c];
-          vd[c] = (u2[c] + gm2[c]) - mg;
-          vl[c] = u1[c] + gg * gd1[c];
-          vu[c] = u1[c] + gg * gi1[c];
-        }
-        shift<C>(vd, td, -d2n2, NEG, lane);
-        shift<C>(vl, tl, 1 - d1n1, NEG, lane);
-        shift<C>(vu, tu, -d1n1, NEG, lane);
-        uint32_t word = 0;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float best = fmaxf(fmaxf(td[c], tl[c]), tu[c]);
-          const int choice = best == td[c] ? 0 : (best == tl[c] ? 1 : 2);
-          new_u[c] = is_end ? ((w0 + c == 0) ? 0.f : NEG) : best;
-          const bool ok = new_u[c] > NEG / 2 && !is_end;
-          word |= (uint32_t)(ok ? choice : 3) << (8 * c);
-        }
-        // row k of the read's direction codes: diagonal k
-        int8_t* row = (int8_t*)out2 + ((size_t)r * (k_pad + 1) + k) * W + w0;
-        if constexpr (C == 2) {
-          *reinterpret_cast<uint16_t*>(row) = (uint16_t)word;
-        } else {
-          *row = (int8_t)word;
-        }
-        if (k == 0) {
-          if (lane == 0) out1[r] = new_u[0];  // the MEA score
-          break;
-        }
       } else if (k == 0) {
         break;
       }
 
       // carry down to diagonal k - 1
-      const int top = sg.cd[buf][s][0];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-#pragma unroll
-        for (int st = 0; st < NS; ++st) {
-          b2[st][c] = b1[st][c];
-          b1[st][c] = nw[st][c];
-        }
-        if constexpr (MEA) {
-          u2[c] = u1[c];
-          u1[c] = new_u[c];
-          gm2[c] = gm1[c];
-          gm1[c] = g_m[c];
-          gd1[c] = g_d[c];
-          gi1[c] = g_i[c];
-        }
-        const int x = (ck[c] >> 3) & 7;
-        const int y = ck[c] & 7;
-        em2[c] = em1[c];
-        em1[c] = emf[x * 6 + y];
-        ex1[c] = egf[6 + x];
-        ey2[c] = egf[12 + y];
-        ex3[c] = egf[18 + x];
-        ey4[c] = egf[24 + y];
-      }
-      binv = inv;
+      bwd_carry<C>(bw, nw, inv, emf, egf, ck, sg.cd[buf][s][0]);
       g_next = g_k;
-      d1n2 = d1n1;
-      d1n1 = (top >> 6) & 1;
     }
   }
 
@@ -754,24 +922,333 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   }
 }
 
+// floats of mea_kernel's workspace slot of a read of kq diagonals: the
+// forward's states and sf, safe, then the checkpoints (b1 and b2m,
+// 6 x W f32 each)
+__device__ __forceinline__ int64_t mea_slot_floats(int kq, int W) {
+  const int64_t kp4 = (kq + 1 + 3) / 4 * 4;
+  return (int64_t)kq * NS * W + 2 * kp4 + (int64_t)(kq / S + 1) * (NS + 1) * W;
+}
+
+// Outputs: `score` (B,) f32 (the MEA score), `dirs` (B, k_pad + 1, W)
+// int8 direction codes and, in DECODE_GAMMA, `gband` (B, k_pad + 1, W)
+// f32.  `ws`, `woff` as realign_kernel's, one read a block; dynamic
+// shared memory holds one MeaStage<C>.
 template <int C, int MODE>
-void launch_mode(const Tables& t, dim3 grid, dim3 block, cudaStream_t s,
-                 const void* xyc, const void* m, const void* n, int nreads,
-                 int k_pad, void* ws, const void* woff, void* loglik, void* out1,
-                 void* out2, void* out3) {
-  realign_kernel<C, MODE><<<grid, block, WARPS * sizeof(Stage<C>), s>>>(
-      t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad,
-      (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2, (float*)out3);
+__global__ void __launch_bounds__(MEA_WARPS * 32, 4)
+mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
+           const int32_t* __restrict__ n, int k_pad, float* __restrict__ ws,
+           const int64_t* __restrict__ woff, float* __restrict__ loglik,
+           float* __restrict__ score, int8_t* __restrict__ dirs,
+           float* __restrict__ gband) {
+  constexpr int W = 32 * C;
+  constexpr bool GAM = MODE == DECODE_GAMMA;
+  __shared__ float sm[NTAB];
+  extern __shared__ __align__(16) unsigned char stage_raw[];
+  MeaStage<C>& sg = *reinterpret_cast<MeaStage<C>*>(stage_raw);
+  for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NSLOT; ++i) {
+      mbar_init(&sg.full[i], 32);
+      mbar_init(&sg.empty[i], 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x;
+  const float* tf = sm;
+  const float* emf = sm + 25;
+  const float* egf = sm + 61;
+  const float gg = sm[91];
+  const float mg = sm[92];
+  const int w0 = lane * C;
+  const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
+  const int kend = m[r] + n[r];
+  const int kq = min(kend + (kend & 1), k_pad);     // the read's last diagonal
+  const int nseg = kq / S + 1;                      // segments of diagonals 0..kq
+  // the read's slot must hold it (kend below m + n otherwise): a trap
+  if (woff[r] + mea_slot_floats(kq, W) > woff[r + 1]) __trap();
+  const int kp4 = (kq + 1 + 3) / 4 * 4;
+  float* fs = ws + woff[r];               // row k-1: diagonal k
+  float* sf = fs + (size_t)kq * NS * W;   // [k]: diagonal k (even k)
+  float* sa = sf + kp4;                   // [k]: the backward's safe at k
+  float* ckp = sa + kp4;                  // checkpoint j: b1, then b2m
+
+  // ---- phase 1: forward (warp 0) beside backward (warp 1) ----
+  float fin_end = 1.f;
+  if (warp == 0) {
+    float acc = 0.f;
+    forward_pass<C>(tf, emf, egf, sg.u.p1.fcd, xy, k_pad, kq, kend, fs, sf, lane, acc,
+                    fin_end);
+    if (lane == 0) loglik[r] = acc;
+  } else if (warp == 1) {
+    Bwd<C> bw;
+    bwd_init<C>(bw);
+    auto stage = [&](int q) {  // codes of chunk q's diagonals in 1..kq
+      const int lo = max(1, q * CH), hi = min(kq, q * CH + CH - 1);
+      if (hi >= lo)
+        warp_copy(sg.u.p1.bcd[q & 1][lo - q * CH], xy + (size_t)(lo - 1) * W,
+                  (hi - lo + 1) * W, lane);
+      cp_commit();
+    };
+    stage(kq / CH);
+#pragma unroll 1
+    for (int q = kq / CH; q >= 0; --q) {
+      cp_wait_all();  // chunk q has landed
+      __syncwarp();   // and every lane is done with chunk q + 1's buffer
+      if (q > 0) stage(q - 1);
+      const int buf = q & 1;
+      for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
+        const int s = k - q * CH;
+        if (k == kq || s == S - 1) {  // the top of segment k / S: its checkpoint
+          float* cp = ckp + (size_t)(k / S) * (NS + 1) * W;
+          store_states<C>(cp, w0, bw.b1);
+          store_row<C>(cp + NS * W, w0, bw.b2m);
+        }
+        float dest[NS][C], nw[NS][C], safe, inv;
+        bwd_step<C>(tf, bw, k, k == kend, lane, dest, nw, safe, inv);
+        if (lane == 0) sa[k] = safe;
+        if (k == 0) break;
+        uint8_t ck[C];
+        load_codes<C>(sg.u.p1.bcd[buf][s], w0, ck);
+        bwd_carry<C>(bw, nw, inv, emf, egf, ck, sg.u.p1.bcd[buf][s][0]);
+      }
+    }
+  } else {  // the rows past the read's own diagonals
+    fill_rows(dirs + (size_t)r * (k_pad + 1) * W, kq, k_pad, W, 0x03030303u, lane);
+    if constexpr (GAM) fill_rows(gband + (size_t)r * (k_pad + 1) * W, kq, k_pad, W * 4, 0u, lane);
+  }
+  __syncthreads();  // the workspace is written; phase 1's buffers are free
+
+  // ---- phase 2: the posterior + MEA pass (warp 0), fed by warps 1, 2 ----
+  if (warp == 0) {
+    const float inv_fin = 1.f / fin_end;
+    float u1[C], u2[C], gm1[C], gm2[C], gd1[C], gi1[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      u1[c] = NEG;
+      u2[c] = NEG;
+      gm1[c] = gm2[c] = gd1[c] = gi1[c] = 0.f;
+    }
+    float g_next = 0.f;
+    int d1n1 = 0, d1n2 = 0;  // band deltas of diagonals k+1, k+2
+    auto stage = [&](int q) {
+      const int buf = q & 1;
+      const int lo = max(1, q * CH), hi = min(kq, q * CH + CH - 1);
+      if (hi >= lo) {
+        const int s0 = lo - q * CH, rows = hi - lo + 1;
+        warp_copy(sg.u.p2.st[buf][s0], fs + (size_t)(lo - 1) * NS * W, rows * NS * W * 4, lane);
+        warp_copy(sg.u.p2.cd[buf][s0], xy + (size_t)(lo - 1) * W, rows * W, lane);
+      }
+      if (lane < CH && q * CH + lane + 1 <= kq)
+        cp_async4(&sg.u.p2.sf[buf][lane], sf + q * CH + lane + 1);
+      if (lane < CH && q * CH + lane <= kq) cp_async4(&sg.u.p2.sa[buf][lane], sa + q * CH + lane);
+      cp_commit();
+    };
+    stage(nseg - 1);
+#pragma unroll 1
+    for (int q = nseg - 1; q >= 0; --q) {
+      cp_wait_all();  // chunk q has landed
+      __syncwarp();   // and every lane is done with chunk q + 1's buffer
+      if (q > 0) stage(q - 1);
+      const int buf = q & 1;
+      const int t = nseg - 1 - q, slot = t % NSLOT;
+      mbar_wait(&sg.full[slot], (t / NSLOT) & 1);  // segment q's backward states
+      for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
+        const int s = k - q * CH;
+        float fh[NS][C];  // forward states of diagonal k
+        if (k >= 1) {
+          load_states<C>(sg.u.p2.st[buf][s], w0, fh);
+        } else {
+#pragma unroll
+          for (int st = 0; st < NS; ++st)
+#pragma unroll
+            for (int c = 0; c < C; ++c) fh[st][c] = (w0 + c == 0) ? 1.0f / 5.0f : 0.f;
+        }
+        float nw[NS][C];  // backward states of diagonal k
+        load_states<C>(sg.u.p2.ring[slot][s], w0, nw);
+        const float sf_next = (k & 1) ? sg.u.p2.sf[buf][s] : 1.f;
+        const float safe = sg.u.p2.sa[buf][s];
+        const bool is_end = k == kend;
+        const int d2n2 = d1n1 + d1n2 - 1;
+        const float factor_trans = g_next * sf_next;
+        float g_k = is_end ? inv_fin : factor_trans * safe;
+        g_k = fminf(g_k, 3e37f);
+
+        float gam[NS][C];
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int st = 0; st < NS; ++st) gam[st][c] = (fh[st][c] * nw[st][c]) * g_k;
+        if constexpr (GAM) {  // row k of the read's gamma_match band
+          float* row = gband + ((size_t)r * (k_pad + 1) + k) * W + w0;
+          if constexpr (C == 2) {
+            *reinterpret_cast<float2*>(row) = make_float2(gam[0][0], gam[0][C - 1]);
+          } else {
+            *row = gam[0][0];
+          }
+        }
+        float new_u[C], g_m[C], g_d[C], g_i[C];
+        float vd[C], vl[C], vu[C], td[C], tl[C], tu[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          g_m[c] = gam[0][c];
+          g_d[c] = gam[1][c] + gam[3][c];
+          g_i[c] = gam[2][c] + gam[4][c];
+          vd[c] = (u2[c] + gm2[c]) - mg;
+          vl[c] = u1[c] + gg * gd1[c];
+          vu[c] = u1[c] + gg * gi1[c];
+        }
+        shift<C>(vd, td, -d2n2, NEG, lane);
+        shift<C>(vl, tl, 1 - d1n1, NEG, lane);
+        shift<C>(vu, tu, -d1n1, NEG, lane);
+        uint32_t word = 0;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float best = fmaxf(fmaxf(td[c], tl[c]), tu[c]);
+          const int choice = best == td[c] ? 0 : (best == tl[c] ? 1 : 2);
+          new_u[c] = is_end ? ((w0 + c == 0) ? 0.f : NEG) : best;
+          const bool ok = new_u[c] > NEG / 2 && !is_end;
+          word |= (uint32_t)(ok ? choice : 3) << (8 * c);
+        }
+        // row k of the read's direction codes: diagonal k
+        int8_t* row = dirs + ((size_t)r * (k_pad + 1) + k) * W + w0;
+        if constexpr (C == 2) {
+          *reinterpret_cast<uint16_t*>(row) = (uint16_t)word;
+        } else {
+          *row = (int8_t)word;
+        }
+        if (k == 0) {
+          if (lane == 0) score[r] = new_u[0];  // the MEA score
+          break;
+        }
+        // carry down to diagonal k - 1
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          u2[c] = u1[c];
+          u1[c] = new_u[c];
+          gm2[c] = gm1[c];
+          gm1[c] = g_m[c];
+          gd1[c] = g_d[c];
+          gi1[c] = g_i[c];
+        }
+        g_next = g_k;
+        d1n2 = d1n1;
+        d1n1 = (sg.u.p2.cd[buf][s][0] >> 6) & 1;
+      }
+      mbar_arrive(&sg.empty[slot]);
+    }
+  } else {
+    // producer p recomputes segments nseg - 1 - p, nseg - 3 - p, ...
+    const int p = warp - 1;
+    uint8_t(*pc)[S + 2][W] = sg.u.p2.pcd[p];
+    auto stage = [&](int j, int buf) {  // codes of diagonals jS .. jS + S + 1 in 1..kq
+      const int lo = max(1, j * S), hi = min(kq, j * S + S + 1);
+      if (hi >= lo)
+        warp_copy(pc[buf][lo - j * S], xy + (size_t)(lo - 1) * W, (hi - lo + 1) * W, lane);
+      cp_commit();
+    };
+    float c1[NS][C], c2m[C], csafe = 1.f;  // the next segment's checkpoint
+    auto load_ck = [&](int j) {
+      const float* cp = ckp + (size_t)j * (NS + 1) * W;
+      load_states<C>(cp, w0, c1);
+      load_row<C>(cp + NS * W, w0, c2m);
+      const int above = min(kq, j * S + S - 1) + 1;  // the diagonal above the segment
+      csafe = above <= kq ? sa[above] : 1.f;
+    };
+    if (p < nseg) {
+      stage(nseg - 1 - p, 0);
+      load_ck(nseg - 1 - p);
+    }
+#pragma unroll 1
+    for (int t = p, i = 0; t < nseg; t += 2, ++i) {
+      const int j = nseg - 1 - t;
+      const int lo = j * S, hi = min(kq, lo + S - 1);
+      const int buf = i & 1, slot = t % NSLOT, use = t / NSLOT;
+      Bwd<C> bw;
+      bwd_init<C>(bw);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+#pragma unroll
+        for (int st = 0; st < NS; ++st) bw.b1[st][c] = c1[st][c];
+        bw.b2m[c] = c2m[c];
+      }
+      bw.binv = recip(csafe);  // the rescale inverse of diagonal hi + 1, as computed there
+      cp_wait_all();  // this segment's codes have landed
+      __syncwarp();   // and every lane is done with the other buffer
+      if (t + 2 < nseg) {
+        stage(j - 2, buf ^ 1);
+        load_ck(j - 2);
+      }
+      // the emissions and deltas of diagonals hi + 2, then hi + 1
+#pragma unroll
+      for (int d = 2; d >= 1; --d) {
+        if (hi + d <= kq) {
+          uint8_t ck[C];
+          load_codes<C>(pc[buf][hi + d - lo], w0, ck);
+          bwd_codes<C>(bw, emf, egf, ck, pc[buf][hi + d - lo][0]);
+        }
+      }
+      if (use > 0) mbar_wait(&sg.empty[slot], (use - 1) & 1);  // the slot is free
+      for (int k = hi; k >= lo; --k) {
+        float dest[NS][C], nw[NS][C], safe, inv;
+        bwd_step<C>(tf, bw, k, k == kend, lane, dest, nw, safe, inv);
+        store_states<C>(sg.u.p2.ring[slot][k - lo], w0, nw);
+        if (k == lo) break;
+        uint8_t ck[C];
+        load_codes<C>(pc[buf][k - lo], w0, ck);
+        bwd_carry<C>(bw, nw, inv, emf, egf, ck, pc[buf][k - lo][0]);
+      }
+      mbar_arrive(&sg.full[slot]);
+    }
+  }
 }
 
 template <int C, int MODE>
+int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, const void* m,
+                const void* n, int k_pad, void* ws, const void* woff, void* loglik,
+                void* out1, void* out2, void* out3) {
+  if constexpr (MODE == DECODE || MODE == DECODE_GAMMA) {
+    constexpr int smem = (int)sizeof(MeaStage<C>);
+    cudaError_t e = cudaFuncSetAttribute(mea_kernel<C, MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(mea_kernel<C, MODE>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    mea_kernel<C, MODE><<<nreads, MEA_WARPS * 32, smem, s>>>(
+        t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, (float*)ws,
+        (const int64_t*)woff, (float*)loglik, (float*)out1, (int8_t*)out2, (float*)out3);
+  } else {
+    realign_kernel<C, MODE>
+        <<<(nreads + WARPS - 1) / WARPS, WARPS * 32, WARPS * sizeof(Stage<C>), s>>>(
+            t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad,
+            (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2,
+            (float*)out3);
+  }
+  return (int)cudaGetLastError();
+}
+
+// registers, local bytes, static and dynamic shared memory, threads and
+// reads of a block
+template <int C, int MODE>
 int attrs_mode(int* out) {
+  constexpr bool MEA = MODE == DECODE || MODE == DECODE_GAMMA;
   cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, realign_kernel<C, MODE>);
+  cudaError_t e;
+  if constexpr (MEA)
+    e = cudaFuncGetAttributes(&a, mea_kernel<C, MODE>);
+  else
+    e = cudaFuncGetAttributes(&a, realign_kernel<C, MODE>);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
-  out[3] = (int)(WARPS * sizeof(Stage<C>));
+  out[3] = MEA ? (int)sizeof(MeaStage<C>) : (int)(WARPS * sizeof(Stage<C>));
+  out[4] = MEA ? MEA_WARPS * 32 : WARPS * 32;
+  out[5] = MEA ? 1 : WARPS;
   return (int)e;
 }
 
@@ -794,15 +1271,13 @@ int attrs_width(int mode, int* out) {
 }
 
 template <int C>
-int launch_width(int mode, const Tables& t, dim3 grid, dim3 block, cudaStream_t s,
-                 const void* xyc, const void* m, const void* n, int nreads,
-                 int k_pad, void* ws, const void* woff, void* loglik, void* out1,
-                 void* out2, void* out3) {
-#define NP_MODE(M)                                                                \
-  case M:                                                                         \
-    launch_mode<C, M>(t, grid, block, s, xyc, m, n, nreads, k_pad, ws, woff,      \
-                      loglik, out1, out2, out3);                                  \
-    break;
+int launch_width(int mode, const Tables& t, int nreads, cudaStream_t s, const void* xyc,
+                 const void* m, const void* n, int k_pad, void* ws, const void* woff,
+                 void* loglik, void* out1, void* out2, void* out3) {
+#define NP_MODE(M)                                                                       \
+  case M:                                                                                \
+    return launch_mode<C, M>(t, nreads, s, xyc, m, n, k_pad, ws, woff, loglik, out1,    \
+                             out2, out3);
   switch (mode) {
     NP_MODE(DECODE)
     NP_MODE(EM_MODE)
@@ -813,7 +1288,6 @@ int launch_width(int mode, const Tables& t, dim3 grid, dim3 block, cudaStream_t 
       return (int)cudaErrorInvalidValue;
   }
 #undef NP_MODE
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -823,7 +1297,8 @@ extern "C" const char* np_cuda_error_string(int e) {
 }
 
 // Registers, local memory (spill) bytes per thread, static and dynamic
-// shared memory bytes per block of `mode` at band width W, into out[4].
+// shared memory bytes per block, threads per block and reads per block
+// of `mode` at band width W, into out[6].
 extern "C" int np_realign_attrs(int mode, int W, int* out) {
   if (W == 64) return attrs_width<2>(mode, out);
   if (W == 32) return attrs_width<1>(mode, out);
@@ -835,12 +1310,15 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 // memory: 91 model floats, then gap gamma, match gamma and the exp
 // threshold (each mode reads what it uses).  `ws` is the workspace and
 // `woff` (nreads + 1,) int64 each read's offset in it and, last, the end
-// of the last read's slot, in floats: read r needs kq * 5 * W floats of
-// states and then kq + 1 rescale inverses padded to 4 floats, kq = m + n
-// rounded up to even (at most k_pad), the offsets 16-byte aligned; a read
-// that needs more than woff[r + 1] - woff[r] traps on the device.  The
-// outputs by mode are those of realign_kernel; a pointer a mode does
-// not write may be null.
+// of the last read's slot, in floats, the offsets 16-byte aligned; with
+// kq = m + n rounded up to even (at most k_pad) and kp4 = kq + 1 rounded
+// up to a multiple of 4, read r needs kq * 5 * W floats of states and kp4
+// rescale inverses, and in the decode modes kp4 more (the backward's
+// scales) and (kq / 8 + 1) * 6 * W of checkpoints; a read that needs
+// more than woff[r + 1] - woff[r] traps on the device.  The outputs by
+// mode are those of realign_kernel and mea_kernel (DECODE, DECODE_GAMMA:
+// `out1` score, `out2` direction codes, `out3` the gamma band); a pointer
+// a mode does not write may be null.
 extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
                                  const void* m, const void* n, int nreads,
                                  int k_pad, int W, void* ws, const void* woff,
@@ -849,13 +1327,12 @@ extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
   if (nreads <= 0 || k_pad < 2 || k_pad % 2 != 0) return (int)cudaErrorInvalidValue;
   Tables t;
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
-  const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
   cudaStream_t s = (cudaStream_t)stream;
   if (W == 64)
-    return launch_width<2>(mode, t, grid, block, s, xyc, m, n, nreads, k_pad, ws,
-                           woff, loglik, out1, out2, out3);
+    return launch_width<2>(mode, t, nreads, s, xyc, m, n, k_pad, ws, woff, loglik, out1, out2,
+                           out3);
   if (W == 32)
-    return launch_width<1>(mode, t, grid, block, s, xyc, m, n, nreads, k_pad, ws,
-                           woff, loglik, out1, out2, out3);
+    return launch_width<1>(mode, t, nreads, s, xyc, m, n, k_pad, ws, woff, loglik, out1, out2,
+                           out3);
   return (int)cudaErrorInvalidValue;
 }

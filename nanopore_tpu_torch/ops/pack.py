@@ -15,12 +15,15 @@ so the host streams one byte per diagonal per read:
     bit 6     d1[k]   = o[k] - o[k-1]   (the band delta)
     bit 7     d1[k-1]                    (the previous delta)
 
-plus a (W,) x-window seed per read.  The pack kernel
-(``csrc/pack.cu``) integrates the band offset from the delta bits,
-slides both windows, recomputes cell validity from (k, o[k], w, m, n)
-and writes the packed band codes ``xyc`` (B, k_pad, W) int8, row r =
-diagonal r + 1, byte = x*8 + y with sentinel 5 outside the lattice, N =
-4, bit 6 = d1[k], bit 7 = d1[k-1].
+plus a (W,) x-window seed per read.  The plain version slides both
+windows one diagonal at a time.  The pack kernel (``csrc/pack.cu``)
+reads them as lookups instead: with o[k] the prefix sum of the delta
+bits and c[k] = k - o[k], xwin_k[w] = X[o[k] + w] over X = the seed
+followed by the entering x symbols, and ywin_k[w] = Y[c[k] - w] over the
+entering y symbols, for any byte stream.  Both recompute cell validity
+from (k, o[k], w, m, n) and write the packed band codes ``xyc``
+(B, k_pad, W) int8, row r = diagonal r + 1, byte = x*8 + y with sentinel
+5 outside the lattice, N = 4, bit 6 = d1[k], bit 7 = d1[k-1].
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ LAUNCHES = kb.LaunchCounter("pack")
 _SIG = {
     "np_pack_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 2,
+    "np_pack_attrs": [ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -145,6 +149,17 @@ def pack_xyc(stream, initx, m, n) -> torch.Tensor:
     kb.check(lib, rc, "pack")
     LAUNCHES.add()
     return out
+
+
+def kernel_attributes(W: int) -> dict:
+    """The compiled pack kernel's registers, local-memory (spill) bytes
+    per thread, static shared memory and threads per block (one block a
+    read) at band width ``W`` (needs the card: builds the kernel)."""
+    lib = kb.library("pack", _SIG)
+    vals = (ctypes.c_int * 4)()
+    kb.check(lib, lib.np_pack_attrs(W, vals), "pack attrs")
+    return dict(zip(("registers", "local_bytes", "static_smem", "threads"),
+                    vals))
 
 
 def pack_xyc_plain(stream, initx, m, n) -> torch.Tensor:

@@ -70,7 +70,11 @@ over its own diagonals only (m + n rounded up to even), with its states
 at its own offset in a ragged workspace (:func:`workspace_plan`), and
 writes the rows past them as the plain version's padding diagonals
 leave them (0; DIR_NONE in the direction codes); the plain version runs
-every diagonal of the batch.
+every diagonal of the batch.  The decode modes run the forward and the
+backward side by side on two warps of a block: their slot also holds
+the backward's scale of every diagonal and, every ``SEGMENT`` diagonals,
+a checkpoint of the backward states it carries, from which two more
+warps recompute the backward for the MEA pass.
 """
 
 from __future__ import annotations
@@ -90,6 +94,8 @@ DIR_NONE = 3
 # forward-state workspace of one launch; a batch whose reads need more
 # launches over runs of reads that fit
 WORKSPACE_BYTES = 8 << 30
+# diagonals per backward segment of the decode modes (csrc/realign.cu S)
+SEGMENT = 8
 
 LAUNCHES = kb.LaunchCounter("realign")
 EM_LAUNCHES = kb.LaunchCounter("realign_em")
@@ -105,19 +111,29 @@ _SIG = {
 }
 MODE_NAMES = {DECODE: "decode", EM: "em", GAMMA: "gamma",
               DECODE_GAMMA: "decode_gamma", EXP: "exp"}
+MEA_MODES = (DECODE, DECODE_GAMMA)
 
 
-def read_workspace_bytes(kend, W: int) -> np.ndarray:
+def read_workspace_bytes(kend, W: int, mea: bool = False) -> np.ndarray:
     """Workspace bytes of reads whose diagonals end at ``kend`` (m + n):
     the kernel runs kq = kend rounded up to even diagonals and keeps
     kq x 5 x W f32 forward states, then kq + 1 rescale inverses padded to
-    16 bytes (the next read's states start aligned)."""
+    16 bytes (the next read's states start aligned).  ``mea`` (the decode
+    modes) adds the backward's kq + 1 scales, padded the same way, and
+    kq // SEGMENT + 1 checkpoints of 6 x W f32 (the five states the
+    backward carries and the match state of the diagonal above them),
+    one per segment of diagonals 0..kq."""
     kq = np.asarray(kend, dtype=np.int64)
     kq = kq + (kq & 1)
-    return kq * NUM_STATES * W * 4 + ((kq + 1 + 3) // 4) * 16
+    scales = ((kq + 1 + 3) // 4) * 16
+    nbytes = kq * NUM_STATES * W * 4 + scales
+    if mea:
+        nbytes = nbytes + scales + (kq // SEGMENT + 1) * (NUM_STATES + 1) * W * 4
+    return nbytes
 
 
-def workspace_plan(m, n, W: int, cap: int = WORKSPACE_BYTES):
+def workspace_plan(m, n, W: int, cap: int = WORKSPACE_BYTES,
+                   mea: bool = False):
     """The launches of a batch and its ragged workspace.
 
     Returns ``offsets`` (B + 1,) int64, the exclusive prefix sum of
@@ -125,10 +141,12 @@ def workspace_plan(m, n, W: int, cap: int = WORKSPACE_BYTES):
     starts ``offsets[r] - offsets[r0]`` bytes into its launch's, r0 the
     launch's first read), and ``launches``, a list of (r0, r1) runs of
     reads in batch order: each run's workspace fits ``cap``, except a
-    read that alone exceeds it, which launches alone.
+    read that alone exceeds it, which launches alone.  ``mea`` plans the
+    decode modes' slots.
     """
     nbytes = read_workspace_bytes(
-        np.asarray(m, dtype=np.int64) + np.asarray(n, dtype=np.int64), W)
+        np.asarray(m, dtype=np.int64) + np.asarray(n, dtype=np.int64), W,
+        mea)
     offsets = np.zeros(len(nbytes) + 1, dtype=np.int64)
     np.cumsum(nbytes, out=offsets[1:])
     launches, r0 = [], 0
@@ -150,23 +168,31 @@ def launch_offsets(offsets, launches) -> np.ndarray:
                            for r0, r1 in launches])
 
 
-def max_workspace_k(W: int) -> int:
+def max_workspace_k(W: int, mea: bool = False) -> int:
     """The largest diagonal count at which one read's workspace still
-    fits ``WORKSPACE_BYTES``: the realign stage splits longer windows."""
-    return (WORKSPACE_BYTES - 4) // (NUM_STATES * W * 4 + 4)
+    fits ``WORKSPACE_BYTES``: the realign stage (``mea``, the decode
+    modes' slot) and the SNP caller split longer windows."""
+    if not mea:
+        return (WORKSPACE_BYTES - 4) // (NUM_STATES * W * 4 + 4)
+    per_k = NUM_STATES * W * 4 + 8 + (NUM_STATES + 1) * W * 4 / SEGMENT
+    k = int(WORKSPACE_BYTES // per_k)
+    while read_workspace_bytes(k, W, mea=True) > WORKSPACE_BYTES:
+        k -= 1
+    return k
 
 
 def kernel_attributes(W: int) -> dict:
     """Per mode, the compiled kernel's registers, local-memory (spill)
-    bytes per thread, and static and dynamic shared memory per block at
-    band width ``W`` (needs the card: builds the kernel)."""
+    bytes per thread, static and dynamic shared memory per block, and
+    threads and reads per block at band width ``W`` (needs the card:
+    builds the kernel)."""
     lib = kb.library("realign", _SIG)
     out = {}
     for mode, name in MODE_NAMES.items():
-        vals = (ctypes.c_int * 4)()
+        vals = (ctypes.c_int * 6)()
         kb.check(lib, lib.np_realign_attrs(mode, W, vals), "realign attrs")
         out[name] = dict(zip(("registers", "local_bytes", "static_smem",
-                              "dynamic_smem"), vals))
+                              "dynamic_smem", "threads", "reads"), vals))
     return out
 
 
@@ -236,7 +262,8 @@ def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None) -> None:
         return
     if kend is None:
         kend = (m.to(torch.int64) + n.to(torch.int64)).cpu().numpy()
-    offsets, launches = workspace_plan(kend, 0, W, WORKSPACE_BYTES)  # m + n, 0
+    offsets, launches = workspace_plan(kend, 0, W, WORKSPACE_BYTES,  # m + n, 0
+                                       mode in MEA_MODES)
     slots = launch_offsets(offsets, launches)
     dev = xyc.device
     ws = torch.empty(int(slots.max()), dtype=torch.float32, device=dev)

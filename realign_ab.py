@@ -3,7 +3,7 @@
 checkouts of the port, in turns, on the batches that ``chip_smoke.py``
 drives.
 
-    python3 realign_ab.py TREE [TREE ...] [--reps 3] [--out FILE]
+    python3 realign_ab.py TREE [TREE ...] [--reps 3] [--repeat N] [--out FILE]
 
 Each TREE is the root of a checkout that holds ``nanopore_tpu_torch/``
 (``.`` for this one); list them in the order to run them, for example
@@ -25,7 +25,9 @@ pack inputs of the realign batches of chip_smoke's paths, all from
 * ``walk_mea_w64`` and ``walk_mea_w32``: the MEA walker on the direction
   codes of ``decode_w64`` and ``decode_w32`` (each tree's realign kernel
   makes them, untimed), and ``walk_viterbi_w64``: the Viterbi walker on
-  the Viterbi kernel's plane of the ``decode_w64`` batch.
+  the Viterbi kernel's plane of the ``decode_w64`` batch;
+* ``pack_w64`` and ``pack_w32``: the pack kernel on the streams of
+  ``decode_w64`` and ``decode_w32``.
 
 Then, for each TREE in turn, a child process with that TREE first on
 ``sys.path`` builds its kernels, packs each batch with its own pack
@@ -35,10 +37,15 @@ of every output.  Prints one line per tree and batch and, last, a JSON
 object with every time (also written to ``--out``); it fails if two
 trees' outputs differ on any batch.  Needs one CUDA card.
 
-``--only PREFIX`` exists for ablation runs, where the trees differ in
-one kernel (``--only walk_`` for the walkers): it times only the batches
-whose names start with PREFIX, and the JSON lists the others under
-``left_out``.  A comparison of two commits times every batch.
+``--repeat N`` tiles every batch's reads N times (N reads a warp
+scheduler where the batch held one: an occupancy probe) and raises the
+realign workspace cap N-fold so that each batch keeps its launches.
+
+``--only PREFIX[,PREFIX...]`` exists for ablation runs, where the trees
+differ in one kernel (``--only walk_`` for the walkers): it times only
+the batches whose names start with one of the prefixes, and the JSON
+lists the others under ``left_out``.  A comparison of two commits times
+every batch.
 """
 
 from __future__ import annotations
@@ -114,6 +121,7 @@ def build_batches(workdir: str) -> list[dict]:
          "default")
     out.append(dict(out[-1], name="walk_mea_w64", mode="walk_mea"))
     out.append(dict(out[-1], name="walk_viterbi_w64", mode="walk_viterbi"))
+    out.append(dict(out[-1], name="pack_w64", mode="pack"))
     del engine
     # the EM path
     em_dir = os.path.join(workdir, "em")
@@ -131,6 +139,7 @@ def build_batches(workdir: str) -> list[dict]:
     pairs, k_max, _ = cs.fullest_bucket(cs.chained_pairs(chained, fa2, 128))
     save("decode_w32", pairs[:B], 32, k_max, "decode", "default")
     out.append(dict(out[-1], name="walk_mea_w32", mode="walk_mea"))
+    out.append(dict(out[-1], name="pack_w32", mode="pack"))
     # the posterior path
     post_dir = os.path.join(workdir, "post")
     os.makedirs(post_dir, exist_ok=True)
@@ -184,14 +193,15 @@ def _digest(outs: dict) -> str:
     return h.hexdigest()[:16]
 
 
-def time_tree(batches: list[dict], reps: int) -> list[dict]:
+def time_tree(batches: list[dict], reps: int, repeat: int = 1) -> list[dict]:
     """Child process: time every batch with the checkout first on
-    sys.path."""
+    sys.path, each batch's reads tiled ``repeat`` times."""
     import inspect
 
     import torch
 
     from nanopore_tpu_torch.kernels import build
+    from nanopore_tpu_torch.ops import pack as P
     from nanopore_tpu_torch.ops import realign as R
     from nanopore_tpu_torch.ops import traceback as T
     from nanopore_tpu_torch.ops.pack import pack_xyc
@@ -202,16 +212,19 @@ def time_tree(batches: list[dict], reps: int) -> list[dict]:
         R.__file__)), build.build(("pack", "realign", "traceback", "viterbi",
                                    "viterbi_traceback"))), flush=True)
     dev = torch.device("cuda", 0)
+    R.WORKSPACE_BYTES *= repeat
     takes_kend = "kend" in inspect.signature(R.realign_em).parameters
-    counters = (R.LAUNCHES, R.EM_LAUNCHES, R.GAMMA_LAUNCHES,
+    counters = (P.LAUNCHES, R.LAUNCHES, R.EM_LAUNCHES, R.GAMMA_LAUNCHES,
                 R.DECODE_GAMMA_LAUNCHES, R.EXP_LAUNCHES, T.LAUNCHES,
                 T.VIT_LAUNCHES)
     res = []
     for bt in batches:
-        z = np.load(bt["path"])
+        z = {k: np.concatenate([v] * repeat)
+             for k, v in np.load(bt["path"]).items()}
         put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         m, n = put(z["m"]), put(z["n"])
-        xyc = pack_xyc(put(z["stream"]), put(z["initx"]), m, n)
+        stream, initx = put(z["stream"]), put(z["initx"])
+        xyc = pack_xyc(stream, initx, m, n)
         kend = (z["m"].astype(np.int64) + z["n"]).astype(np.int32)
         params = make_kernel_params(_model(bt["model"]))
         split = bt.get("split") or len(kend)
@@ -226,6 +239,8 @@ def time_tree(batches: list[dict], reps: int) -> list[dict]:
 
         def call(x, mm, nn, ke):
             kw = {"kend": ke} if takes_kend else {}
+            if bt["mode"] == "pack":
+                return {"xyc": pack_xyc(stream, initx, mm, nn)}
             if bt["mode"] == "walk_mea":
                 return {"ops": T.mea_walk(dirs, x, mm, nn)}
             if bt["mode"] == "walk_viterbi":
@@ -267,7 +282,7 @@ def time_tree(batches: list[dict], reps: int) -> list[dict]:
               % (bt["name"], row["ms"], " ".join("%.3f" % t for t in times),
                  launches, digest), flush=True)
         res.append(row)
-        del xyc, dirs, vit
+        del xyc, dirs, vit, stream, initx
     return res
 
 
@@ -275,11 +290,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="tile every batch's reads N times (an occupancy "
+                    "probe: N reads a warp scheduler)")
     ap.add_argument("--out", help="where to write the JSON (default: "
                     "nanopore_tpu_torch/_build/realign_ab/result.json)")
     ap.add_argument("--only", default="",
                     help="for ablation runs: time only the batches whose "
-                    "names start so (the JSON lists the rest as left_out)")
+                    "names start with one of these comma-separated prefixes "
+                    "(the JSON lists the rest as left_out)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -291,7 +310,8 @@ def main() -> int:
         sys.path.insert(0, os.path.abspath(args.trees[0]))
         with open(args.child) as fh:
             batches = json.load(fh)
-        print("RESULT " + json.dumps(time_tree(batches, args.reps)))
+        print("RESULT " + json.dumps(time_tree(batches, args.reps,
+                                               args.repeat)))
         return 0
     sys.path.insert(0, ROOT)
     from nanopore_tpu_torch.kernels import build
@@ -306,9 +326,10 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
     out_path = args.out or os.path.join(workdir, "result.json")
     every = build_batches(workdir)
-    batches = [bt for bt in every if bt["name"].startswith(args.only)]
+    only = tuple(args.only.split(","))
+    batches = [bt for bt in every if bt["name"].startswith(only)]
     left_out = [bt["name"] for bt in every
-                if not bt["name"].startswith(args.only)]
+                if not bt["name"].startswith(only)]
     spec = os.path.join(workdir, "batches.json")
     with open(spec, "w") as fh:
         json.dump(batches, fh)
@@ -317,7 +338,7 @@ def main() -> int:
     for tree in args.trees:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), tree, "--reps",
-             str(args.reps), "--child", spec],
+             str(args.reps), "--repeat", str(args.repeat), "--child", spec],
             capture_output=True, text=True)
         sys.stdout.write("".join(ln + "\n" for ln in proc.stdout.splitlines()
                                  if not ln.startswith("RESULT ")))
@@ -330,7 +351,8 @@ def main() -> int:
         runs.append(dict(tree=tree, rows=json.loads(line[len("RESULT "):])))
     bad = [bt["name"] for i, bt in enumerate(batches)
            if len({run["rows"][i]["digest"] for run in runs}) > 1]
-    result = {"card": card, "batches": batches, "runs": runs,
+    result = {"card": card, "repeat": args.repeat, "batches": batches,
+              "runs": runs,
               "outputs_differ": bad, "left_out": left_out}
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as fh:

@@ -109,3 +109,109 @@ def test_kernel_wrapper_checks_inputs():
     with pytest.raises(ValueError):
         pack_xyc(t(prep["stream"]), t(prep["initx"]), t(prep["m"][:2]),
                  t(prep["n"]))
+
+
+# ---- the identity the pack kernel rests on (csrc/pack.cu) ----
+
+CHUNK = 256  # the kernel's diagonals a chunk
+
+
+def _scan_lookup_pack(stream, initx, m, n):
+    """A numpy model of csrc/pack.cu: per chunk of 256 diagonals, the
+    band offsets o_k by a prefix sum of bit 6 carried across chunks, the
+    entering symbols scattered into the chunk's linear X and reversed Y
+    buffers headed by the last W symbols of the chunk before, and every
+    cell a lookup at X[o_k + w] and Y[c_k - w].  Each buffer is cleared
+    (-1) before the chunk writes it and every read is bounds-checked, so
+    a match shows that the kernel's lookups touch only what that chunk
+    wrote, at its shared-memory positions."""
+    B, k_pad = stream.shape
+    W = initx.shape[1]
+    size = CHUNK + W
+    w = np.arange(W)
+    out = np.empty((B, k_pad, W), np.uint8)
+
+    def at(buf, pos, used):
+        assert pos.min() >= 0 and pos.max() < size
+        vals = buf[pos]
+        assert (vals[used] >= 0).all(), "read a position the chunk never wrote"
+        return vals
+
+    for r in range(B):
+        xb = np.full((2, size), -1, np.int64)
+        yb = np.full((2, size), -1, np.int64)
+        o_base = c_base = o_prev = c_prev = 0
+        for q in range(-(-k_pad // CHUNK)):
+            cur, base = q & 1, q * CHUNK
+            rows = min(CHUNK, k_pad - base)
+            xb[cur] = -1
+            yb[cur] = -1
+            sb = stream[r, base:base + rows].astype(np.int64)
+            d1 = (sb >> 6) & 1
+            o = o_base + np.cumsum(d1)
+            c = base + 1 + np.arange(rows) - o
+            ent = sb & 7
+            xs, ys = W - 1 + o[d1 == 1] - o_base, c_base + CHUNK - c[d1 == 0]
+            for pos in (xs, ys):
+                assert pos.size == 0 or (pos.min() >= 0 and pos.max() < size)
+            xb[cur, xs] = ent[d1 == 1]
+            yb[cur, ys] = ent[d1 == 0]
+            if q == 0:
+                xb[cur, :W] = initx[r]
+            else:
+                xb[cur, :W] = xb[cur ^ 1, o_base - o_prev + w]
+                yb[cur, CHUNK + w] = yb[cur ^ 1, c_prev + CHUNK - c_base + w]
+            j = o[:, None] + w
+            i = c[:, None] - w
+            ok = (j <= n[r]) & (i >= 0) & (i <= m[r])
+            xv = np.where(ok & (j >= 1), at(xb[cur], (o - o_base)[:, None] + w,
+                                            ok & (j >= 1)), 5)
+            yv = np.where(ok & (i >= 1),
+                          at(yb[cur], (c_base + CHUNK - c)[:, None] + w,
+                             ok & (i >= 1)), 5)
+            out[r, base:base + rows] = (xv * 8 + yv + (sb & 0xC0)[:, None]) & 0xFF
+            o_prev, c_prev = o_base, c_base
+            o_base += int(d1.sum())
+            c_base += rows - int(d1.sum())
+    return out.view(np.int8)
+
+
+def _plain(stream, initx, m, n):
+    t = torch.from_numpy
+    return pack_xyc(t(stream), t(initx), t(m), t(n)).numpy()
+
+
+@pytest.mark.parametrize("W", [32, 64])
+@pytest.mark.parametrize("k_pad", [128, 896])
+def test_scan_lookup_model_matches_plain_pack_on_random_bytes(W, k_pad):
+    """Arbitrary stream bytes (every d1 pattern, symbols 0-7 and top bits
+    the host never sends), arbitrary initx bytes, reads shorter than one
+    chunk, across chunks and past k_pad: byte for byte the plain pack."""
+    rng = np.random.default_rng(W + k_pad)
+    B = 6
+    stream = rng.integers(0, 256, (B, k_pad)).astype(np.uint8)
+    stream[1] &= 0xBF  # never shifts: Y alone
+    stream[2] |= 0x40  # always shifts: X alone
+    initx = rng.integers(0, 256, (B, W)).astype(np.uint8)
+    m = np.array([40, 300, k_pad + 50, 0, 7, k_pad // 2], np.int32)
+    n = np.array([90, k_pad + 9, 60, 5, 0, k_pad // 2], np.int32)
+    np.testing.assert_array_equal(_scan_lookup_pack(stream, initx, m, n),
+                                  _plain(stream, initx, m, n))
+
+
+@pytest.mark.parametrize("W", [32, 64])
+def test_scan_lookup_model_matches_plain_pack_on_host_streams(W):
+    """The host's streams of guided pairs over several chunks, beside a
+    read shorter than one chunk."""
+    rng = np.random.default_rng(5 + W)
+    pairs = _guide_pairs(rng)
+    for L in (300, 520):
+        x = rng.integers(0, 4, L).astype(np.int8)
+        y = np.concatenate([x[:L // 3], x[L // 3 + 12:]])
+        y = np.where(rng.random(len(y)) < 0.1, 4, y).astype(np.int8)
+        pairs.append((x, y, [(CIG.M, L // 3), (CIG.D, 12),
+                             (CIG.M, len(y) - L // 3)]))
+    prep = pack_stream_pairs(pairs, band_width=W)
+    assert prep["k_pad"] > 3 * CHUNK
+    args = (prep["stream"], prep["initx"], prep["m"], prep["n"])
+    np.testing.assert_array_equal(_scan_lookup_pack(*args), _plain(*args))

@@ -281,6 +281,84 @@ def test_launch_offsets_hold_each_read_to_its_own_slot(cap):
                                  for r0, r1 in launches)
 
 
+def _mea_slot_floats(kq):
+    """csrc/realign.cu::mea_slot_floats: forward states, sf and safe
+    (kq + 1 floats each, padded to 4), kq // 8 + 1 checkpoints of 6 band
+    rows."""
+    kp4 = (kq + 1 + 3) // 4 * 4
+    return kq * 5 * PLAN_W + 2 * kp4 + (kq // 8 + 1) * 6 * PLAN_W
+
+
+@pytest.mark.parametrize("cap", [10_000, 150_000, 1 << 30])
+def test_mea_workspace_plan_holds_states_scales_and_checkpoints(cap):
+    """The decode modes' slot: the forward's states and rescale
+    inverses, the backward's scales, then one checkpoint (the five
+    states the backward carries and the match state of the diagonal
+    above them, 6 x W f32) per segment of 8 diagonals of 0..kq, so
+    ceil((kq + 1) / 8) of them; every slot 16-byte aligned, and
+    ``launch_offsets`` holds each read to its own slot."""
+    m, n = _plan_lengths(np.random.default_rng(cap + 2), 40, 1, 60)
+    m[:3], n[:3] = (1, 0, 3), (2, 0, 4)  # a read shorter than a segment
+    offsets, launches = port_realign.workspace_plan(m, n, PLAN_W, cap,
+                                                    mea=True)
+    kq = m + n + ((m + n) & 1)
+    segments = -(-(kq + 1) // port_realign.SEGMENT)
+    np.testing.assert_array_equal(segments, kq // 8 + 1)
+    nbytes = port_realign.read_workspace_bytes(m + n, PLAN_W, mea=True)
+    np.testing.assert_array_equal(
+        nbytes, kq * DIAG_BYTES + 2 * (-(-(kq + 1) // 4) * 16)
+        + segments * 6 * PLAN_W * 4)
+    np.testing.assert_array_equal(np.diff(offsets), nbytes)
+    np.testing.assert_array_equal(nbytes, _mea_slot_floats(kq) * 4)
+    assert (offsets % 16 == 0).all()
+    for r0, r1 in launches:
+        assert offsets[r1] - offsets[r0] <= cap or r1 - r0 == 1
+    woff = port_realign.launch_offsets(offsets, launches)
+    for l, (r0, r1) in enumerate(launches):
+        sl = woff[r0 + l:r1 + l + 1]
+        assert sl[0] == 0
+        np.testing.assert_array_equal(np.diff(sl), _mea_slot_floats(kq[r0:r1]))
+        assert (_mea_slot_floats(kq[r0:r1] + 2) > np.diff(sl)).all()
+    # the other modes' slots are what they were
+    np.testing.assert_array_equal(
+        port_realign.read_workspace_bytes(m + n, PLAN_W),
+        kq * DIAG_BYTES + -(-(kq + 1) // 4) * 16)
+
+
+def test_mea_workspace_plan_fits_the_mapping_batch_in_one_launch():
+    """chip_smoke.py's mapping batch (512 reads, m + n of ~9,750 and up
+    to its k_pad of 10,240, W = 64) stays one decode launch with the
+    checkpoints: two would run the chain twice."""
+    rng = np.random.default_rng(9)
+    m = rng.integers(4700, 5000, 512)
+    n = rng.integers(9_500, 10_240, 512) - m
+    n[0] = 10_240 - m[0]
+    offsets, launches = port_realign.workspace_plan(
+        m, n, PLAN_W, port_realign.WORKSPACE_BYTES, mea=True)
+    assert launches == [(0, 512)]
+    assert offsets[-1] <= port_realign.WORKSPACE_BYTES
+    assert port_realign.MEA_MODES == (port_realign.DECODE,
+                                      port_realign.DECODE_GAMMA)
+
+
+@pytest.mark.parametrize("W", [32, 64])
+def test_mea_split_budget_fits_the_workspace_cap(W):
+    """The realign stage splits its decode windows at
+    ``max_workspace_k(W, mea=True)``: a window of that many diagonals
+    plans as one launch whose slot (checkpoints and scales included)
+    fits ``WORKSPACE_BYTES``, and two diagonals more would not.  The SNP
+    caller's exp-mode budget keeps the forward-state formula."""
+    cap = port_realign.WORKSPACE_BYTES
+    k = port_realign.max_workspace_k(W, mea=True)
+    offsets, launches = port_realign.workspace_plan([k // 2], [k - k // 2],
+                                                    W, cap, mea=True)
+    assert launches == [(0, 1)] and offsets[-1] <= cap
+    assert port_realign.read_workspace_bytes(k + 2, W, mea=True) > cap
+    assert k < port_realign.max_workspace_k(W) == (cap - 4) // (5 * W * 4 + 4)
+    assert port_realign.read_workspace_bytes(
+        port_realign.max_workspace_k(W) - 1, W) <= cap
+
+
 _KEND_FUNCS = {
     "decode": lambda x, m, n, p, k: realign_decode(x, m, n, p, kend=k),
     "em": lambda x, m, n, p, k: port_realign.realign_em(x, m, n, p, kend=k),
