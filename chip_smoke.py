@@ -10,8 +10,9 @@
    decode, EM, gamma, decode + gamma and exp modes, and each mode's
    registers, local memory (spills), static and dynamic shared memory
    and threads and reads a block at W = 64 and 32 are printed from the
-   compiled kernel, with the pack kernel's and each walker's dynamic
-   shared memory a block).  Then the
+   compiled kernel, with the pack kernel's, the Viterbi kernel's (its
+   short and its 5-way step) and each walker's shared memory a
+   block).  Then the
    realign kernel's workspace guard (ROADMAP C8), in a child process
    (``chip_smoke.py --kend-guard``): a launch whose caller's kend is
    m + n passes, one whose kend is half of m + n must fail at the next
@@ -93,7 +94,9 @@
    and its decode + gamma mode at the rescore's fullest batch (W = 32),
    gamma within 5e-5 (bit-identity expected), loglik within 1e-5 and
    score within 1e-4 relative, direction codes identical on >= 99 % of
-   reads; its exp mode at the SNP caller's fullest batch (W = 64,
+   reads; the gamma mode again on step 3's ragged batches and the
+   segment batches at W = 64 and 32, loglik and the whole band
+   bit-identical to the plain version's; its exp mode at the SNP caller's fullest batch (W = 64,
    threshold 1e-3), retire rows and flush within 5e-5, and again on up to
    3 reads of its longest bucket (the far-end windows of ROADMAP C6,
    with the same finite pattern); every other bucket is timed at the
@@ -120,6 +123,14 @@
    (1e-5 relative) and against the realign kernel's decode loglik on the
    whole batch (1e-5 relative), and every Viterbi score at most the
    forward loglik (+1e-5 of it); each kernel timed on the whole batch.
+   The Viterbi kernel also on step 3's ragged batches: under the default
+   model (its short step) at W = 64 and 32, under that model with gap
+   state 2's self-transition at 0 (still the short step) at W = 64, and
+   with gap state 2 entered from nowhere (t[0 -> 2] = t[2 -> 2] = 0: its
+   5-way step) at W = 64 and 32: score, fstate and the whole plane
+   bit-identical to the plain version's (a one-read batch to its read's
+   rows of the B = 7 batch's plain outputs; so in step 7); on the last
+   model the short step, launched by hand, is shown to differ.
    The Viterbi walker also on step 3's ragged batches at W = 64 and 32,
    on the Viterbi kernel's plane (every walk but the capped read's
    reaches the origin) and on a random plane (walks that end short of
@@ -184,10 +195,15 @@ REALIGN_GAMMA_OPS_PER_CELL = 56 + 58
 # exp mode: the gamma mode's backward + 3 to bin (a compare, a select,
 # one add of the gamma into its base's bin)
 REALIGN_EXP_OPS_PER_CELL = 56 + 61
-# Viterbi (csrc/viterbi.cu): 5 destinations x (5 adds, 4 compares, 4
-# maxima, 4 argmax selects) for the predecessors, then 5 validity
-# selects, 5 adds and 5 maxima for the emissions
-VITERBI_OPS_PER_CELL = 5 * 17 + 15
+# Viterbi (csrc/viterbi.cu), 5-way step: 5 destinations x (5 adds, 4
+# compares, 4 maxima, 4 argmax selects) for the predecessors, then 5 adds
+# and 5 maxima for the emissions (their validity select depends on the
+# code alone: a lookup)
+VITERBI_OPS_PER_CELL = 5 * 17 + 10
+# the short step, which every shipped model takes (ops/viterbi.short_step):
+# the match destination as above, each gap destination 2 adds, a max and a
+# compare (its from-self bit), then the emissions
+VITERBI_SHORT_OPS_PER_CELL = 17 + 4 * 4 + 10
 # forward only (csrc/forward.cu): the realign kernel's forward, 45
 # transition + 6 emission + 5 rescale (amortised)
 FORWARD_OPS_PER_CELL = 56
@@ -228,24 +244,44 @@ def write_workload(workdir: str, ref_len: int):
     return fa, fq
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean ms of ``reps`` calls back to back, after one untimed call
+    (``warmup``), whose own time and the caching allocator's new device
+    segments (cudaMalloc) and retries during it are printed."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    first = None
+    if warmup:
+        keys = ("segment.all.allocated", "num_alloc_retries")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        first = start.elapsed_time(end)
+        after = torch.cuda.memory_stats()
+        grew = [after.get(k, 0) - before.get(k, 0) for k in keys]
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = start.elapsed_time(end) / reps
+    if warmup:
+        print("  timing: first call %.3f ms (%d new device segments, %d "
+              "allocator retries), then %.3f ms a call over %d"
+              % (first, grew[0], grew[1], ms, reps))
+    return ms
 
 
 def timed(fn):
     """(result, ms) of one call, timed with CUDA events."""
     box = []
-    ms = cuda_ms(lambda: box.append(fn()), 1)
+    ms = cuda_ms(lambda: box.append(fn()), 1, warmup=False)
     return box[0], ms
 
 
@@ -290,6 +326,10 @@ def ragged_pairs(seed: int):
     return pairs
 
 
+# the one-read ragged batches and their read's row in the B = 7 batch
+RAGGED_B1_ROWS = {"B1 long": 3, "B1 short": 0}
+
+
 def ragged_batches(dev, W_: int):
     """The ragged card batches of the walker checks at band width W_:
     (name, xyc, m, n) for the seven reads of :func:`ragged_pairs`, the
@@ -301,7 +341,7 @@ def ragged_batches(dev, W_: int):
     xyc, m, n, prep = device_batch(pairs, W_, None, dev, "ragged batch",
                                    check_pack=False)
     out = [("B7", xyc, m, n)]
-    for name, r in (("B1 long", 3), ("B1 short", 0)):
+    for name, r in RAGGED_B1_ROWS.items():
         out.append((name,) + tuple(t[r:r + 1].contiguous()
                                    for t in (xyc, m, n)))
     capped = m.clone()
@@ -493,6 +533,116 @@ def viterbi_walk_ragged(dev, params) -> None:
             if lost["Viterbi plane"] != int(capped):
                 fail("Viterbi walks on the ragged batch %s: %d lost"
                      % (name, lost["Viterbi plane"]))
+
+
+def ragged_plain(name, plain, want, args):
+    """The plain version's outputs for the ragged batch ``name``: a
+    one-read batch takes its read's rows of the B = 7 batch's outputs
+    (``want``, filled as the batches come; a read's plain outputs do not
+    depend on its batch), any other runs ``plain(*args)``."""
+    if name in RAGGED_B1_ROWS:
+        r = RAGGED_B1_ROWS[name]
+        return {k: v[r:r + 1] for k, v in want["B7"].items()}
+    want[name] = plain(*args)
+    return want[name]
+
+
+def gap_entries_zero_params(params, entries):
+    """``params`` with the transitions ``entries`` ((src, dest) pairs) set
+    to 0, their rows renormalised: still the canonical structure."""
+    from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
+
+    t = params.t.detach().cpu().double().numpy().reshape(5, 5).copy()
+    for src, dest in entries:
+        t[src, dest] = 0.0
+        t[src] /= t[src].sum()
+    return params_from_numpy(t, params.e_match_flat.cpu().numpy(),
+                             params.e_gap_flat.cpu().numpy())
+
+
+def viterbi_ragged_check(dev, params) -> None:
+    """The Viterbi kernel on the ragged batches: score, fstate and the
+    whole backpointer plane bit-identical to the plain version's under
+    ``params`` (its short step) at W = 64 and 32; at W = 64 under
+    ``params`` with gap state 2's self-transition at 0 (still the short
+    step: its match entry is positive); and at W = 64 and 32 with gap
+    state 2 entered from nowhere (t[0 -> 2] = t[2 -> 2] = 0: the 5-way
+    step).  On that last model the short step, launched by hand on the
+    B = 7 batch, is shown to differ from the plain version."""
+    from nanopore_tpu_torch.ops import viterbi as V
+
+    t0 = time.perf_counter()
+    models = (("short step", params, (W, W_REALIGN)),
+              ("short step, t[2->2] = 0",
+               gap_entries_zero_params(params, [(2, 2)]), (W,)),
+              ("5-way step, t[0->2] = t[2->2] = 0",
+               gap_entries_zero_params(params, [(0, 2), (2, 2)]),
+               (W, W_REALIGN)))
+    for what, p, _ in models:
+        if V.short_step(V.viterbi_tables(p)) != what.startswith("short"):
+            fail("the Viterbi wrapper would not take the %s" % what)
+    for W_ in (W, W_REALIGN):
+        batches, prep = ragged_batches(dev, W_)
+        for what, p, widths in models:
+            if W_ not in widths:
+                continue
+            want, names = {}, []
+            for name, xyc, m, n in batches:
+                out_k = V.viterbi_forward(xyc, m, n, p)
+                out_p = ragged_plain(name, V.viterbi_forward_plain, want,
+                                     (xyc, m, n, p))
+                differ = [key for key in out_p
+                          if not bits_equal(out_k[key], out_p[key])]
+                if differ:
+                    fail("Viterbi kernel (%s) differs from its plain version "
+                         "on the ragged batch %s W=%d in %s"
+                         % (what, name, W_, differ))
+                names.append(name)
+            print("K4 viterbi ragged W=%d (k_pad %d), %s: score, fstate and "
+                  "the whole plane bit-identical on %s"
+                  % (W_, prep["k_pad"], what, ", ".join(names)))
+            if what.startswith("5-way"):
+                _, xyc, m, n = batches[0]
+                forced = V._launch(xyc, m, n, V.viterbi_tables(p), True)
+                cells = int((forced["bp"] != want["B7"]["bp"]).sum())
+                print("K4 viterbi ragged B7 W=%d, %s: the short step, "
+                      "launched by hand, differs from the plain version in "
+                      "%d plane bytes" % (W_, what, cells))
+    print("K4 viterbi ragged batches: %.1f s wall" % (time.perf_counter() - t0))
+
+
+def gamma_ragged_check(dev, params) -> None:
+    """The gamma mode on the ragged batches and the segment batches at
+    W = 64 and 32: loglik and the whole gamma band bit-identical to the
+    plain version's."""
+    from nanopore_tpu_torch.ops.realign import (
+        realign_gamma,
+        realign_gamma_plain,
+    )
+
+    t0 = time.perf_counter()
+    for W_ in (W, W_REALIGN):
+        batches, prep = ragged_batches(dev, W_)
+        xyc, m, n, _ = device_batch(segment_pairs(SEED + W_), W_, None, dev,
+                                    "segment batch", check_pack=False)
+        batches.append(("segments", xyc, m, n))
+        want = {}
+        for name, xyc, m, n in batches:
+            out_k = realign_gamma(xyc, m, n, params)
+            out_p = ragged_plain(name, realign_gamma_plain, want,
+                                 (xyc, m, n, params))
+            differ = [key for key in out_p
+                      if not bits_equal(out_k[key], out_p[key])]
+            kend = (m.long() + n.long())
+            print("K2-gamma %s W=%d (B=%d, m + n %d..%d, k_pad %d): %s"
+                  % (name, W_, len(kend), int(kend.min()), int(kend.max()),
+                     xyc.shape[1], "bit-identical" if not differ
+                     else "DIFFERENT in %s" % differ))
+            if differ:
+                fail("gamma mode differs from its plain version on the %s "
+                     "batch W=%d" % (name, W_))
+    print("K2-gamma ragged and segment batches: %.1f s wall"
+          % (time.perf_counter() - t0))
 
 
 def kend_guard_child() -> int:
@@ -1186,6 +1336,7 @@ def posterior_kernel_phase(fq: str, local_sam: str, global_sam: str,
     print("K2-gamma W=64: %.3f ms per batch of %d, bound %.4f ms (%s), plain "
           "%.1f ms on %d reads" % (ms, Bu, bound, by, plain_ms, P))
     del xyc, out_k, out_p
+    gamma_ragged_check(dev, params0)
 
     # ---- K2 decode + gamma: the rescore's fullest batch, W = 32 ----
     t0 = time.perf_counter()
@@ -1502,8 +1653,10 @@ def viterbi_kernel_phase(engine, pairs, dev, counters, res: dict) -> dict:
         viterbi_walk_plain,
     )
     from nanopore_tpu_torch.ops.viterbi import (
+        short_step,
         viterbi_forward,
         viterbi_forward_plain,
+        viterbi_tables,
     )
 
     t_phase = time.perf_counter()
@@ -1556,7 +1709,8 @@ def viterbi_kernel_phase(engine, pairs, dev, counters, res: dict) -> dict:
         fail("Viterbi kernel outside tolerance")
     ms = cuda_ms(lambda: viterbi_forward(xyc, m, n, params), 3)
     bound, by = realign_bound(
-        VITERBI_OPS_PER_CELL, W, need,
+        VITERBI_SHORT_OPS_PER_CELL if short_step(viterbi_tables(params))
+        else VITERBI_OPS_PER_CELL, W, need,
         (need - B) * W + B * K1 * W + 12 * B)
     res["viterbi"] = dict(
         per_batch=launches_per_call(viterbi.LAUNCHES, lambda: viterbi_forward(
@@ -1567,6 +1721,7 @@ def viterbi_kernel_phase(engine, pairs, dev, counters, res: dict) -> dict:
     print("K4 viterbi: %.3f ms per batch of %d, bound %.4f ms (%s), plain "
           "%.1f ms on %d reads" % (ms, B, bound, by, plain_ms, P))
     del out_p
+    viterbi_ragged_check(dev, params)
 
     # ---- K5 Viterbi walker on K4's plane ----
     t0 = time.perf_counter()
@@ -1816,6 +1971,24 @@ def main() -> int:
             "registers" + tag: a["registers"],
             "smem_block" + tag: a["static_smem"],
             "warps_per_read" + tag: a["threads"] // 32,
+        })
+        for short in (True, False):
+            a = viterbi.kernel_attributes(width, short)
+            print("viterbi %s step W=%d: %d registers, %d bytes of local "
+                  "memory a thread, %d bytes of static shared memory a block "
+                  "of %d threads and %d reads"
+                  % ("short" if short else "5-way", width, a["registers"],
+                     a["local_bytes"], a["static_smem"], a["threads"],
+                     a["reads"]))
+            attrs.setdefault("viterbi", {}).update({
+                ("registers" if short else "registers_5way") + tag:
+                    a["registers"],
+                ("local_bytes" if short else "local_bytes_5way") + tag:
+                    a["local_bytes"],
+            })
+        attrs["viterbi"].update({
+            "smem_block" + tag: a["static_smem"],
+            "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
         })
     for width in (W, W_REALIGN):
         print("walkers W=%d: dynamic shared memory a block of 4 reads %s"

@@ -38,7 +38,7 @@ from nanopore_tpu_torch.ops.dispatch import (
 )
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.posteriors import rescore_from_post
-from nanopore_tpu_torch.ops.realign import max_workspace_k
+from nanopore_tpu_torch.ops.realign import DECODE, max_workspace_k
 from nanopore_tpu_torch.runtime.prefetch import prefetched_map
 
 
@@ -244,7 +244,7 @@ def realign_records(
     whose diagonal count exceeds ``split_k`` are split at guide anchors
     (:func:`split_window_pair`); ``None`` means the largest count for
     which one read's workspace in the decode mode fits a launch
-    (ops.realign.max_workspace_k with ``mea``).  Runs on the card unless
+    (ops.realign.max_workspace_k of ``DECODE``).  Runs on the card unless
     ``device="cpu"``.  Returns the per-record average posterior match
     probability of the NEW alignment when ``rescore`` (the
     --rescoreByPosteriorProbIgnoringGaps analogue; records are not split
@@ -254,7 +254,7 @@ def realign_records(
     params = make_kernel_params(model or PairHmmModel.default())
     batch_size = preferred_realign_batch_size(batch_size, device)
     scores: list[float] = [float("nan")] * len(records)
-    split_budget = None if rescore else split_k or max_workspace_k(band_width, mea=True)
+    split_budget = None if rescore else split_k or max_workspace_k(band_width, DECODE)
 
     # window each global record to its aligned ref span (the banded
     # --splitMatrixBiggerThanThis analogue: flanking pure-D runs cost a

@@ -78,7 +78,7 @@
 //    slow path), and a step's four gap shifts branch once on d1.
 // The model tables sit in shared memory.
 //
-// realign_kernel (EM, GAMMA, EXP): one warp per read, two reads a block.
+// realign_kernel (EM, EXP): one warp per read, two reads a block.
 // Phase A, the forward over 1..kq, stores its states (kq rows of 5 x W
 // f32, row k-1 = diagonal k) and then its rescale inverses (kq + 1
 // floats, padded to 16 bytes) in the read's slot; phase B streams them
@@ -117,6 +117,30 @@
 //  registers to 168.  Workspace per read: the forward's states and sf,
 //  then safe, then kq / S + 1 checkpoints.
 //
+// gamma_kernel (GAMMA): one read a block of 4 warps.  The band needs, of
+// each diagonal, only the forward's and the backward's match states and
+// one scalar g_k, so neither chain waits for the other and the product
+// comes last, over every cell at once:
+//  * phase 1: warp 0 runs the forward (as phase A) but stores only its
+//    match state, straight into the read's rows of the gamma band (row 0:
+//    diagonal 0's), with sf, the loglik and fin(k_end); warp 1 runs the
+//    backward recursion over kq..0 and stores its match state (after the
+//    end-cell overwrite and the rescale) and its scale `safe` at every
+//    diagonal into the read's slot; warps 2 and 3 write the band rows past
+//    kq.  One block barrier.
+//  * the g chain: g_k = min(k == k_end ? 1 / fin : (g_{k+1} sf_{k+1})
+//    safe_k, 3e37) over kq..0, one serial scalar recursion (the clamp makes
+//    it non-associative), run by warp 0 with the scales of 32 diagonals a
+//    coalesced load, the next 32 in flight, each passed along by shuffles;
+//    g_k overwrites safe_k.  One block barrier.
+//  * phase 2: every warp forms gamma = (f * b) * g_k in place in the band,
+//    16 bytes a load and a store, four in flight a thread: the same three
+//    floats in the same order as the fused step, so the same bits.
+//  The chain becomes kq x max(t_f, t_b) plus ~kq scalar steps plus a pass
+//  at memory speed (reads f and b, writes gamma: 3 x (kq + 1) x W x 4
+//  bytes), in place of kq x (t_f + t_b).  Workspace per read: (kq + 1) x W
+//  f32 match rows, then sf and safe, about a fifth of the 5-state slot.
+//
 // EM mode adds 57 accumulators per lane (25 transition products, 16
 // match bins, 2 x 4 delete bins by the x code, 2 x 4 insert bins by the
 // y code): a lane adds its C cells into one register per count, so the
@@ -131,11 +155,10 @@
 //
 // The gamma modes store gamma[0] of every band cell of every diagonal,
 // diagonal 0 included: the very value the MEA reads, under the same
-// g-factor, 3e37 clamp and rescale cadence.  A lane stores its C cells
-// as one 4 C-byte word per diagonal, so a warp writes one W * 4-byte row;
-// the band is (B, k_pad + 1, W) batch-major, (k_pad + 1) * W * 4 bytes a
-// read, and lives beside the forward-state workspace (the wrapper's
-// sub-batches share one workspace; the band is the whole batch's).
+// g-factor, 3e37 clamp and rescale cadence.  The band is (B, k_pad + 1, W)
+// batch-major, (k_pad + 1) * W * 4 bytes a read, and lives beside the
+// workspace (the wrapper's sub-batches share one workspace; the band is
+// the whole batch's).
 //
 // The exp mode follows the band down the diagonals with 4 accumulators
 // per band cell (4 C registers a lane), in diagonal k's band coordinates.
@@ -163,6 +186,7 @@ constexpr int CH = 8;     // diagonals per staged chunk (even: the forward steps
 constexpr int S = 8;      // diagonals per segment of mea_kernel's backward
 constexpr int NSLOT = 3;  // ring slots of mea_kernel: two producers need three
 constexpr int MEA_WARPS = 3;
+constexpr int GAMMA_WARPS = 4;
 static_assert(S == CH, "mea_kernel's consumer stages one chunk per segment");
 // tf 25 | emf 36 | egf 30 | gap gamma | match gamma | exp threshold
 constexpr int NTAB = 94;
@@ -208,6 +232,14 @@ struct __align__(16) MeaStage {
     } p2;
   } u;
   unsigned long long full[NSLOT], empty[NSLOT];
+};
+
+// gamma_kernel's shared memory: the forward's and the backward's code
+// chunks (as forward_pass and mea_kernel's backward stage them)
+template <int C>
+struct __align__(16) GammaStage {
+  uint8_t fcd[2][CH + 1][32 * C];
+  uint8_t bcd[2][CH][32 * C];
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -269,14 +301,14 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
 }
 
 // rows kq + 1 .. k_pad of one read's (k_pad + 1) x row_bytes output, each
-// 4-byte word set to `word`; row_bytes and the row starts are 16-byte
-// multiples
+// 4-byte word set to `word`, by thread t of nt; row_bytes and the row
+// starts are 16-byte multiples
 __device__ __forceinline__ void fill_rows(void* base, int kq, int k_pad, int row_bytes,
-                                          uint32_t word, int lane) {
+                                          uint32_t word, int t, int nt = 32) {
   char* p = (char*)base + (size_t)(kq + 1) * row_bytes;
   const size_t nbytes = (size_t)(k_pad - kq) * row_bytes;
   const uint4 v = make_uint4(word, word, word, word);
-  for (size_t i = (size_t)lane * 16; i < nbytes; i += 32 * 16)
+  for (size_t i = (size_t)t * 16; i < nbytes; i += (size_t)nt * 16)
     *reinterpret_cast<uint4*>(p + i) = v;
 }
 
@@ -486,11 +518,12 @@ __device__ __forceinline__ void end_check(int k, int kend, const float (&nw)[NS]
 }
 
 // The forward over diagonals 1..kq: stores row k-1 of `fs` (diagonal k's
-// states) and sf[k] (even k's rescale inverse), returns the loglik in
-// `acc` and the band-start mass at kend in `fin_end`.  `cd` is the
-// warp's two code chunks of CH + 1 rows (row i of chunk q: diagonal
-// q*CH + i + 1, the one-ahead emission lookup).
-template <int C>
+// states; with MATCH, row k of `fs` holds diagonal k's match state alone)
+// and sf[k] (even k's rescale inverse), returns the loglik in `acc` and
+// the band-start mass at kend in `fin_end`.  `cd` is the warp's two code
+// chunks of CH + 1 rows (row i of chunk q: diagonal q*CH + i + 1, the
+// one-ahead emission lookup).
+template <int C, bool MATCH = false>
 __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
                                              const float* egf, uint8_t (*cd)[CH + 1][32 * C],
                                              const uint8_t* xy, int k_pad, int kq, int kend,
@@ -544,7 +577,10 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
       float nb[NS][C];
       fwd_step<C>(tf, ea, d1, d1 + d1p - 1, a, b, rs, nb, lane);
       end_check<C>(k0 + 1, kend, nb, ls_hi, ls_c, acc, fin_end);
-      store_states<C>(fs + (size_t)k0 * NS * W, w0, nb);
+      if constexpr (MATCH)
+        store_row<C>(fs + (size_t)(k0 + 1) * W, w0, nb[0]);
+      else
+        store_states<C>(fs + (size_t)k0 * NS * W, w0, nb);
       emissions<C>(emf, egf, cc, ec);
       // even diagonal k0 + 2: rescale by the band maximum
       top = rows[i + 1][0];
@@ -566,7 +602,10 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
         ls_hi = t;
       }
       end_check<C>(k0 + 2, kend, na, ls_hi, ls_c, acc, fin_end);
-      store_states<C>(fs + (size_t)(k0 + 1) * NS * W, w0, na);
+      if constexpr (MATCH)
+        store_row<C>(fs + (size_t)(k0 + 2) * W, w0, na[0]);
+      else
+        store_states<C>(fs + (size_t)(k0 + 1) * NS * W, w0, na);
       if (lane == 0) sf[k0 + 2] = inv;
       rs = inv;
 #pragma unroll
@@ -695,8 +734,7 @@ __device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
 
 // Outputs by mode:
 //   EM: `out1` trans (B, 25), `out2` emis (B, 80) f32;
-//   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32;
-//   GAMMA: `out3` gamma_match (B, k_pad + 1, W) f32.
+//   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32.
 // `ws` is the launch's workspace and `woff[r]` read r's offset in it
 // (floats), woff[r + 1] the end of its slot; dynamic shared memory holds
 // WARPS Stage<C>.
@@ -706,12 +744,11 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
                const int32_t* __restrict__ n, int nreads, int k_pad,
                float* __restrict__ ws, const int64_t* __restrict__ woff,
                float* __restrict__ loglik, float* __restrict__ out1,
-               void* __restrict__ out2, float* __restrict__ out3) {
+               void* __restrict__ out2) {
   constexpr int W = 32 * C;
   constexpr bool EM = MODE == EM_MODE;
-  constexpr bool GAM = MODE == GAMMA;
   constexpr bool XP = MODE == EXP;
-  static_assert(EM || GAM || XP, "the decode modes run mea_kernel");
+  static_assert(EM || XP, "the decode modes run mea_kernel, the gamma mode gamma_kernel");
   __shared__ float sm[NTAB];
   extern __shared__ __align__(16) unsigned char stage_raw[];
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
@@ -736,7 +773,6 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   float* sf = fs + (size_t)kq * NS * W;             // [k]: diagonal k
 
   // rows past the read's own diagonals: what the skipped diagonals give
-  if constexpr (GAM) fill_rows(out3 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W * 4, 0u, lane);
   if constexpr (XP) fill_rows(out1 + (size_t)r * (k_pad + 1) * 4, kq, k_pad, 16, 0u, lane);
 
   // ---------------- phase A: forward, diagonals 1..kq ----------------
@@ -745,7 +781,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
                   fin_end);
   if (lane == 0) loglik[r] = acc;
 
-  // ------- phase B: backward + the EM sums, gamma band or retire, kq..0 -------
+  // ------- phase B: backward + the EM sums or the retire stream, kq..0 -------
   const float inv_fin = 1.f / fin_end;
   Bwd<C> bw;
   bwd_init<C>(bw);
@@ -813,14 +849,6 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
 #pragma unroll
         for (int st = 0; st < NS; ++st) gam[st][c] = (fh[st][c] * nw[st][c]) * g_k;
 
-      if constexpr (GAM) {  // row k of the read's gamma_match band
-        float* row = out3 + ((size_t)r * (k_pad + 1) + k) * W + w0;
-        if constexpr (C == 2) {
-          *reinterpret_cast<float2*>(row) = make_float2(gam[0][0], gam[0][C - 1]);
-        } else {
-          *row = gam[0][0];
-        }
-      }
       if constexpr (XP) {
         // retire column W - 1 on the k+1 -> k shift, move the band up by
         // d1[k+1], then bin diagonal k's thresholded gamma_match
@@ -1206,6 +1234,166 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
   }
 }
 
+// floats of gamma_kernel's workspace slot of a read of kq diagonals: the
+// backward's match rows of diagonals 0..kq, the forward's sf, then safe
+// (which the g chain overwrites with g)
+__device__ __forceinline__ int64_t gamma_slot_floats(int kq, int W) {
+  const int64_t kp4 = (kq + 1 + 3) / 4 * 4;
+  return (int64_t)(kq + 1) * W + 2 * kp4;
+}
+
+// Outputs: `loglik` (B,) and `gband` (B, k_pad + 1, W) f32, the
+// gamma_match band.  `ws`, `woff` as realign_kernel's, one read a block
+// of GAMMA_WARPS warps.
+template <int C>
+__global__ void __launch_bounds__(GAMMA_WARPS * 32)
+gamma_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
+             const int32_t* __restrict__ n, int k_pad, float* __restrict__ ws,
+             const int64_t* __restrict__ woff, float* __restrict__ loglik,
+             float* __restrict__ gband) {
+  constexpr int W = 32 * C;
+  __shared__ float sm[NTAB];
+  __shared__ GammaStage<C> sg;
+  for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x;
+  const float* tf = sm;
+  const float* emf = sm + 25;
+  const float* egf = sm + 61;
+  const int w0 = lane * C;
+  const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
+  const int kend = m[r] + n[r];
+  const int kq = min(kend + (kend & 1), k_pad);     // the read's last diagonal
+  // the read's slot must hold it (kend below m + n otherwise): a trap
+  if (woff[r] + gamma_slot_floats(kq, W) > woff[r + 1]) __trap();
+  const int kp4 = (kq + 1 + 3) / 4 * 4;
+  float* band = gband + (size_t)r * (k_pad + 1) * W;  // row k: diagonal k
+  float* bws = ws + woff[r];                // row k: the backward's match state
+  float* sf = bws + (size_t)(kq + 1) * W;   // [k]: diagonal k (even k)
+  float* sa = sf + kp4;                     // [k]: safe at k, then g_k
+
+  // ---- phase 1: forward (warp 0) beside backward (warp 1) ----
+  float fin_end = 1.f;
+  if (warp == 0) {
+    float f0[C];  // diagonal 0's match state
+#pragma unroll
+    for (int c = 0; c < C; ++c) f0[c] = (w0 + c == 0) ? 1.0f / 5.0f : 0.f;
+    store_row<C>(band, w0, f0);
+    float acc = 0.f;
+    forward_pass<C, true>(tf, emf, egf, sg.fcd, xy, k_pad, kq, kend, band, sf, lane, acc,
+                          fin_end);
+    if (lane == 0) loglik[r] = acc;
+  } else if (warp == 1) {
+    Bwd<C> bw;
+    bwd_init<C>(bw);
+    auto stage = [&](int q) {  // codes of chunk q's diagonals in 1..kq
+      const int lo = max(1, q * CH), hi = min(kq, q * CH + CH - 1);
+      if (hi >= lo)
+        warp_copy(sg.bcd[q & 1][lo - q * CH], xy + (size_t)(lo - 1) * W, (hi - lo + 1) * W,
+                  lane);
+      cp_commit();
+    };
+    stage(kq / CH);
+#pragma unroll 1
+    for (int q = kq / CH; q >= 0; --q) {
+      cp_wait_all();  // chunk q has landed
+      __syncwarp();   // and every lane is done with chunk q + 1's buffer
+      if (q > 0) stage(q - 1);
+      const int buf = q & 1;
+      for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
+        const int s = k - q * CH;
+        float dest[NS][C], nw[NS][C], safe, inv;
+        bwd_step<C>(tf, bw, k, k == kend, lane, dest, nw, safe, inv);
+        store_row<C>(bws + (size_t)k * W, w0, nw[0]);
+        if (lane == 0) sa[k] = safe;
+        if (k == 0) break;
+        uint8_t ck[C];
+        load_codes<C>(sg.bcd[buf][s], w0, ck);
+        bwd_carry<C>(bw, nw, inv, emf, egf, ck, sg.bcd[buf][s][0]);
+      }
+    }
+  } else {  // the rows past the read's own diagonals
+    fill_rows(band, kq, k_pad, W * 4, 0u, threadIdx.x - 64, (GAMMA_WARPS - 2) * 32);
+  }
+  __syncthreads();  // both chains' rows and scales are written
+
+  // ---- the g chain, kq..0, one serial scalar recursion (warp 0) ----
+  // g_k = min(is_end ? 1 / fin : (g_{k+1} sf_{k+1}) safe_k, 3e37), with
+  // sf_{k+1} = 1 for even k and g 0 until the end diagonal has passed.
+  // Lane j holds the scales of diagonal top - j of each 32; every lane
+  // runs the chain and lane j keeps g of its diagonal.
+  if (warp == 0) {
+    const float inv_fin = 1.f / fin_end;
+    auto fetch = [&](int top, float& sfn, float& saf) {
+      const int k = top - lane;
+      sfn = 1.f;
+      saf = 1.f;
+      if (k >= 0) {
+        if (k & 1) sfn = sf[k + 1];
+        saf = sa[k];
+      }
+    };
+    float sfn, saf;
+    fetch(kq, sfn, saf);
+    float g_next = 0.f;
+#pragma unroll 1
+    for (int top = kq; top >= 0; top -= 32) {
+      float sfn2, saf2;  // the next 32, in flight beside this chain
+      fetch(top - 32, sfn2, saf2);
+      float mine = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {  // diagonals below 0 give unused g
+        const float a = __shfl_sync(FULL, sfn, j);
+        const float b = __shfl_sync(FULL, saf, j);
+        float g = top - j == kend ? inv_fin : (g_next * a) * b;
+        g = fminf(g, 3e37f);
+        if (lane == j) mine = g;
+        g_next = g;
+      }
+      if (top - lane >= 0) sa[top - lane] = mine;
+      sfn = sfn2;
+      saf = saf2;
+    }
+  }
+  __syncthreads();  // g is written
+
+  // ---- phase 2: gamma = (f * b) * g over the read's rows, every warp ----
+  {
+    constexpr int V = W / 4;  // float4 a row
+    float4* fb = reinterpret_cast<float4*>(band);
+    const float4* bb = reinterpret_cast<const float4*>(bws);
+    const int n4 = (kq + 1) * V;
+    constexpr int NT = GAMMA_WARPS * 32, U = 4;
+#pragma unroll 1
+    for (int i0 = threadIdx.x; i0 < n4; i0 += NT * U) {
+      float4 f[U], b[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * NT;
+        if (i < n4) {
+          f[u] = fb[i];
+          b[u] = bb[i];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * NT;
+        if (i < n4) {
+          const float g = sa[i / V];
+          float4 o;
+          o.x = (f[u].x * b[u].x) * g;
+          o.y = (f[u].y * b[u].y) * g;
+          o.z = (f[u].z * b[u].z) * g;
+          o.w = (f[u].w * b[u].w) * g;
+          fb[i] = o;
+        }
+      }
+    }
+  }
+}
+
 template <int C, int MODE>
 int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, const void* m,
                 const void* n, int k_pad, void* ws, const void* woff, void* loglik,
@@ -1222,12 +1410,15 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
     mea_kernel<C, MODE><<<nreads, MEA_WARPS * 32, smem, s>>>(
         t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, (float*)ws,
         (const int64_t*)woff, (float*)loglik, (float*)out1, (int8_t*)out2, (float*)out3);
+  } else if constexpr (MODE == GAMMA) {
+    gamma_kernel<C><<<nreads, GAMMA_WARPS * 32, 0, s>>>(
+        t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, (float*)ws,
+        (const int64_t*)woff, (float*)loglik, (float*)out3);
   } else {
     realign_kernel<C, MODE>
         <<<(nreads + WARPS - 1) / WARPS, WARPS * 32, WARPS * sizeof(Stage<C>), s>>>(
             t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad,
-            (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2,
-            (float*)out3);
+            (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2);
   }
   return (int)cudaGetLastError();
 }
@@ -1239,16 +1430,25 @@ int attrs_mode(int* out) {
   constexpr bool MEA = MODE == DECODE || MODE == DECODE_GAMMA;
   cudaFuncAttributes a;
   cudaError_t e;
-  if constexpr (MEA)
+  if constexpr (MEA) {
     e = cudaFuncGetAttributes(&a, mea_kernel<C, MODE>);
-  else
+    out[3] = (int)sizeof(MeaStage<C>);
+    out[4] = MEA_WARPS * 32;
+    out[5] = 1;
+  } else if constexpr (MODE == GAMMA) {
+    e = cudaFuncGetAttributes(&a, gamma_kernel<C>);
+    out[3] = 0;
+    out[4] = GAMMA_WARPS * 32;
+    out[5] = 1;
+  } else {
     e = cudaFuncGetAttributes(&a, realign_kernel<C, MODE>);
+    out[3] = (int)(WARPS * sizeof(Stage<C>));
+    out[4] = WARPS * 32;
+    out[5] = WARPS;
+  }
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
-  out[3] = MEA ? (int)sizeof(MeaStage<C>) : (int)(WARPS * sizeof(Stage<C>));
-  out[4] = MEA ? MEA_WARPS * 32 : WARPS * 32;
-  out[5] = MEA ? 1 : WARPS;
   return (int)e;
 }
 
@@ -1314,11 +1514,13 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 // kq = m + n rounded up to even (at most k_pad) and kp4 = kq + 1 rounded
 // up to a multiple of 4, read r needs kq * 5 * W floats of states and kp4
 // rescale inverses, and in the decode modes kp4 more (the backward's
-// scales) and (kq / 8 + 1) * 6 * W of checkpoints; a read that needs
+// scales) and (kq / 8 + 1) * 6 * W of checkpoints; in GAMMA (kq + 1) * W
+// floats of match rows and 2 * kp4 scales instead; a read that needs
 // more than woff[r + 1] - woff[r] traps on the device.  The outputs by
-// mode are those of realign_kernel and mea_kernel (DECODE, DECODE_GAMMA:
-// `out1` score, `out2` direction codes, `out3` the gamma band); a pointer
-// a mode does not write may be null.
+// mode are those of realign_kernel, mea_kernel (DECODE, DECODE_GAMMA:
+// `out1` score, `out2` direction codes, `out3` the gamma band) and
+// gamma_kernel (`out3` the gamma band); a pointer a mode does not write
+// may be null.
 extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
                                  const void* m, const void* n, int nreads,
                                  int k_pad, int W, void* ws, const void* woff,

@@ -3,8 +3,8 @@
 //
 // Replaces nanopore_tpu/ops/pairhmm_pallas_viterbi.py::_viterbi_kernel.
 // Log space, no rescaling.  Per diagonal k and destination state, the
-// max and argmax over the 5 predecessor states (pred + ltf[s*5 + dest],
-// a tie keeps the lower state) are taken before the band shift (match
+// max and argmax over the predecessor states (pred + ltf[s*5 + dest], a
+// tie keeps the lower state) are taken before the band shift (match
 // from diagonal k-2 by d2, deletes from k-1 by d1 - 1, inserts from k-1
 // by d1; NEG and backpointer 0 shifted in), then the emission is added
 // and the sum clamped at NEG.  A cell whose x or y code is the sentinel
@@ -16,23 +16,57 @@
 // version's in ops/viterbi.py, in its order: adds and maxima only, so
 // the two agree to the bit.
 //
-// Bound: operations.  About 100 operations per band cell per diagonal
-// (25 adds, 20 compares, 20 maxima and 20 argmax selects for the
-// predecessors; 5 validity selects, 5 adds and 5 maxima for the
-// emissions) against one code byte in and one backpointer byte out; the
-// recursion is a serial chain over ~10^4 diagonals per read.  Design:
-// the realign kernel's (csrc/realign.cu): one warp per read, each lane owning
-// C = W/32 adjacent band cells in registers, so a band shift is one warp
-// shuffle; reads are independent, so hundreds of warps fill the card and
-// hide each other's latency.  The 91 log floats sit in shared memory.
-// The codes of the next diagonal are loaded before the current one is
-// computed; the warp writes one W-byte backpointer row per diagonal,
-// coalesced.  A read stops at its own end diagonal and zeroes the rows
-// above it.  All 5 predecessors of every state are computed, as the TPU
-// kernel does; the canonical structure needs 2 for a gap state (later
-// speed work).
+// The short step (SHORT): a gap destination g takes the max of its two
+// allowed candidates, from match and from itself, and its bit is (from
+// self > from match).  The 5-way step's bit is 1 exactly when its max
+// exceeds the match candidate, which comes first (strict >).  Every state
+// value is NEG or a real log score no more than 0 (|v| < 1e8: a diagonal
+// adds at least 2 log(1e-37)), so a disallowed candidate, v + NEG, rounds
+// to NEG or -2e30, and one through a positive transition, v + log(t)
+// with log(t) >= log(1e-37), is at least NEG (NEG - 85 rounds to NEG).
+// So where t[match -> g] > 0 or t[g -> g] > 0, one allowed candidate is
+// at least every disallowed one, the 5-way max is the max of the two
+// allowed candidates, and the value and the bit are the short step's.
+// Only a gap state that neither enters (both entries 0) can differ: where
+// its match and own predecessors are NEG beside a real disallowed one,
+// in the bit, at a value that clamps to NEG.  The wrapper takes the
+// 5-way step (the same kernel's other template path) for such a model
+// and the short step otherwise, as for every shipped model.  The match
+// destination keeps its 5 predecessors either way.
+//
+// Bound: operations, just above the bytes (one code byte in and one
+// backpointer byte out a cell).  Per band cell per diagonal the 5-way step
+// does 95 operations (25 adds, 20 compares, 20 maxima and 20 argmax
+// selects; then 5 adds and 5 maxima for the emissions, whose validity
+// select is a function of the code alone, a lookup), the short step 43
+// (17 for the match state, 2 adds, a max and a compare for each gap
+// state, 10 for the emissions).  In fact each read is a
+// serial chain of ~10^4 diagonals, so a diagonal's latency and, at B =
+// 512 (one warp a scheduler), its issue slots set the time.  Design:
+//  * one warp per read, two reads a block; a lane owns C = W/32 adjacent
+//    band cells in registers, so a band shift is one warp shuffle;
+//  * the codes are staged through shared memory in chunks of CH + 1 rows
+//    with cp.async, double-buffered (the next chunk is in flight while
+//    this one is computed), and the emissions and band deltas of the
+//    diagonal after the one computed are looked up during its step: no
+//    global load sits on the chain.  The emission tables are rebuilt in
+//    shared memory with the sentinel folded in (x or y code 5-7 gives
+//    NEG), one lookup a state and cell;
+//  * the transitions are compile-time-indexed kernel arguments, read as
+//    operands, not loaded;
+//  * the band shifts take no branch (with one warp a scheduler a branch's
+//    bubble is not hidden): states 1 and 3 shift by d1 - 1 and states 2
+//    and 4 by d1, so each pair moves one way or not at all: its two floats
+//    and its two from-self bits (pre-weighted as 5 tD1 + 20 tD2 and
+//    10 tI1 + 40 tI2, one int) are shuffled and then selected by d1; the
+//    match state and its argmax are shuffled both ways and selected by d2;
+//  * the warp writes one W-byte backpointer row per diagonal, coalesced;
+//    a read stops at its own end diagonal and zeroes the rows above it
+//    with 16-byte stores.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "walk.cuh"
 
 namespace {
 
@@ -40,87 +74,115 @@ constexpr int NS = 5;
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 2;  // reads per block
+constexpr int CH = 32;    // diagonals per staged chunk
 constexpr int NTAB = 91;  // ltf 25 | lemf 36 | legf 30
 
 struct Tables {
   float v[NTAB];
 };
 
-// out[w] = a[w + s] for a warp-uniform s in {-1, 0, 1}; `fill` outside.
+// The emissions with the sentinel folded in: em[x * 8 + y] for the match
+// state and gap[s - 1][x or y] for gap state s, NEG where a code is 5 or
+// above (the plain version's validity select, as a lookup)
+struct Emit {
+  float em[64];
+  float gap[4][8];
+};
+
+// One warp's two code chunks: row i of chunk q holds diagonal q*CH + i + 1
+// (CH + 1 rows, so the look-ahead of the chunk's last step stays in it)
+template <int C>
+struct __align__(16) Stage {
+  uint8_t cd[2][CH + 1][32 * C];
+};
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// out[w] = a[w + s] for a warp-uniform s in {-1, 0, 1}, `fill` outside:
+// both neighbours shuffled, then selected (no branch)
 template <int C, typename T>
-__device__ __forceinline__ void shift(const T (&a)[C], T (&o)[C], int s, T fill,
-                                      int lane) {
-  if (s == 0) {
+__device__ __forceinline__ void shift_sel(T (&a)[C], int s, T fill, int lane) {
+  const T up = __shfl_down_sync(FULL, a[0], 1);
+  const T dn = __shfl_up_sync(FULL, a[C - 1], 1);
+  T o[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) o[c] = a[c];
-  } else if (s > 0) {
+  for (int c = 0; c < C; ++c) {
+    const T plus = c < C - 1 ? a[c + 1] : (lane == 31 ? fill : up);
+    const T minus = c > 0 ? a[c - 1] : (lane == 0 ? fill : dn);
+    o[c] = s > 0 ? plus : (s < 0 ? minus : a[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) a[c] = o[c];
+}
+
+// out[w] = move ? a[w + SH] : a[w], `fill` outside (no branch)
+template <int C, int SH, typename T>
+__device__ __forceinline__ void shift_if(T (&a)[C], bool move, T fill, int lane) {
+  T o[C];
+  if constexpr (SH > 0) {
     const T nb = __shfl_down_sync(FULL, a[0], 1);
 #pragma unroll
-    for (int c = 0; c < C - 1; ++c) o[c] = a[c + 1];
-    o[C - 1] = lane == 31 ? fill : nb;
+    for (int c = 0; c < C; ++c)
+      o[c] = c < C - 1 ? a[c + 1] : (lane == 31 ? fill : nb);
   } else {
     const T nb = __shfl_up_sync(FULL, a[C - 1], 1);
 #pragma unroll
-    for (int c = C - 1; c > 0; --c) o[c] = a[c - 1];
-    o[0] = lane == 0 ? fill : nb;
+    for (int c = 0; c < C; ++c) o[c] = c > 0 ? a[c - 1] : (lane == 0 ? fill : nb);
   }
+#pragma unroll
+  for (int c = 0; c < C; ++c) a[c] = move ? o[c] : a[c];
 }
 
-// max / argmax over the 5 predecessor states for destination `dest`
+// the emissions and top byte of the diagonal whose codes are `row`
 template <int C>
-__device__ __forceinline__ void best(const float* ltf, const float (&p)[NS][C],
-                                     int dest, float (&v)[C], int (&b)[C]) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float bv = p[0][c] + ltf[dest];
-    int bs = 0;
-#pragma unroll
-    for (int s = 1; s < NS; ++s) {
-      const float cand = p[s][c] + ltf[s * 5 + dest];
-      if (cand > bv) bs = s;
-      bv = fmaxf(bv, cand);
-    }
-    v[c] = bv;
-    b[c] = bs;
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void load_codes(const uint8_t* row, int w0, uint8_t (&c)[C]) {
+__device__ __forceinline__ void lookup(const Emit& e, const uint8_t* row, int w0,
+                                       float (&em)[NS][C], int& top) {
+  uint8_t code[C];
   if constexpr (C == 2) {
     const uint16_t v = *reinterpret_cast<const uint16_t*>(row + w0);
-    c[0] = (uint8_t)(v & 0xFF);
-    c[C - 1] = (uint8_t)(v >> 8);
+    code[0] = (uint8_t)(v & 0xFF);
+    code[C - 1] = (uint8_t)(v >> 8);
   } else {
-    c[0] = row[w0];
+    code[0] = row[w0];
   }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int x = (code[c] >> 3) & 7;
+    const int y = code[c] & 7;
+    em[0][c] = e.em[x * 8 + y];
+    em[1][c] = e.gap[0][x];
+    em[2][c] = e.gap[1][y];
+    em[3][c] = e.gap[2][x];
+    em[4][c] = e.gap[3][y];
+  }
+  top = row[0];
 }
 
-template <int C>
-__device__ __forceinline__ void store_row(int8_t* row, int w0, uint32_t word) {
-  if constexpr (C == 2) {
-    *reinterpret_cast<uint16_t*>(row + w0) = (uint16_t)word;
-  } else {
-    row[w0] = (int8_t)word;
-  }
-}
-
-template <int C>
+template <int C, bool SHORT>
 __global__ void __launch_bounds__(WARPS * 32)
 viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
                const int32_t* __restrict__ m, const int32_t* __restrict__ n,
                int nreads, int k_pad, float* __restrict__ score,
                int32_t* __restrict__ fstate, int8_t* __restrict__ bp) {
   constexpr int W = 32 * C;
-  __shared__ float sm[NTAB];
-  for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
+  __shared__ Emit emit;
+  __shared__ Stage<C> stage[WARPS];
+  for (int i = threadIdx.x; i < 64; i += blockDim.x) {
+    const int x = i >> 3, y = i & 7;
+    emit.em[i] = (x < 5 && y < 5) ? tab.v[25 + x * 6 + y] : NEG;
+  }
+  for (int i = threadIdx.x; i < 32; i += blockDim.x) {
+    const int s = (i >> 3) + 1, v = i & 7;
+    emit.gap[s - 1][v] = v < 5 ? tab.v[61 + s * 6 + v] : NEG;
+  }
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * WARPS + warp;
   if (r >= nreads) return;
-  const float* ltf = sm;
-  const float* lemf = sm + 25;
-  const float* legf = sm + 61;
+  Stage<C>& sg = stage[warp];
   const int w0 = lane * C;
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
   int8_t* out = bp + (size_t)r * (k_pad + 1) * W;   // row k: diagonal k
@@ -136,88 +198,153 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
       a[s][c] = (w0 + c == 0) ? -1.6094379425048828f : NEG;
       b[s][c] = NEG;
     }
-  store_row<C>(out, w0, 0u);
+  if constexpr (C == 2) {
+    *reinterpret_cast<uint16_t*>(out + w0) = 0;
+  } else {
+    out[w0] = 0;
+  }
   float sc = NEG;
   int fs = 0;
-  uint8_t cur[C];
-  if (klast >= 1) load_codes<C>(xy, w0, cur);
-  for (int k = 1; k <= klast; ++k) {
-    uint8_t nxt[C];
-    if (k < klast) {
-      load_codes<C>(xy + (size_t)k * W, w0, nxt);
-    } else {
-#pragma unroll
-      for (int c = 0; c < C; ++c) nxt[c] = 0;
-    }
-    const int top = __shfl_sync(FULL, (int)cur[0], 0);
-    const int d1 = (top >> 6) & 1;
-    const int d2 = d1 + ((top >> 7) & 1) - 1;
 
-    float v[NS][C], vs[NS][C];
-    int bi[NS][C], bs[NS][C];
-    best<C>(ltf, b, 0, v[0], bi[0]);
-#pragma unroll
-    for (int d = 1; d < NS; ++d) best<C>(ltf, a, d, v[d], bi[d]);
-    shift<C, float>(v[0], vs[0], d2, NEG, lane);
-    shift<C, int>(bi[0], bs[0], d2, 0, lane);
-    shift<C, float>(v[1], vs[1], d1 - 1, NEG, lane);
-    shift<C, int>(bi[1], bs[1], d1 - 1, 0, lane);
-    shift<C, float>(v[2], vs[2], d1, NEG, lane);
-    shift<C, int>(bi[2], bs[2], d1, 0, lane);
-    shift<C, float>(v[3], vs[3], d1 - 1, NEG, lane);
-    shift<C, int>(bi[3], bs[3], d1 - 1, 0, lane);
-    shift<C, float>(v[4], vs[4], d1, NEG, lane);
-    shift<C, int>(bi[4], bs[4], d1, 0, lane);
+  const int nq = (klast + CH - 1) / CH;
+  auto stage_codes = [&](int q) {
+    const int r0 = q * CH;
+    const int nbytes = min(CH + 1, k_pad - r0) * W;
+    for (int i = lane * 16; i < nbytes; i += 32 * 16)
+      walk::cp_async16(&sg.cd[q & 1][0][0] + i, xy + (size_t)r0 * W + i);
+    walk::cp_commit();
+  };
+  float e[NS][C];  // emissions of the diagonal being computed
+  int top = 0;     // and its top byte (band deltas)
+  if (nq > 0) {
+    stage_codes(0);
+    cp_wait_all();
+    __syncwarp();
+    lookup<C>(emit, sg.cd[0][0], w0, e, top);
+  }
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q) {
+    if (q > 0) {
+      cp_wait_all();  // chunk q has landed
+      __syncwarp();   // and every lane is done with chunk q - 1's buffer
+    }
+    if (q + 1 < nq) stage_codes(q + 1);
+    const uint8_t(*rows)[W] = sg.cd[q & 1];
+    const int nk = min(CH, klast - q * CH);
+#pragma unroll 4
+    for (int i = 0; i < nk; ++i) {
+      const int k = q * CH + i + 1;
+      float en[NS][C];  // the next diagonal's, off the chain
+      int topn = 0;
+      lookup<C>(emit, rows[i + 1], w0, en, topn);  // stale past klast: unused
+      const int d1 = (top >> 6) & 1;
+      const int d2 = d1 + ((top >> 7) & 1) - 1;
 
-    float nw[NS][C];
-    uint32_t word = 0;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int x = (cur[c] >> 3) & 7;
-      const int y = cur[c] & 7;
-      const bool okx = x < 5, oky = y < 5;
-      const float em = (okx && oky) ? lemf[x * 6 + y] : NEG;
-      const float gx1 = okx ? legf[6 + x] : NEG;
-      const float gy2 = oky ? legf[12 + y] : NEG;
-      const float gx3 = okx ? legf[18 + x] : NEG;
-      const float gy4 = oky ? legf[24 + y] : NEG;
-      nw[0][c] = fmaxf(vs[0][c] + em, NEG);
-      nw[1][c] = fmaxf(vs[1][c] + gx1, NEG);
-      nw[2][c] = fmaxf(vs[2][c] + gy2, NEG);
-      nw[3][c] = fmaxf(vs[3][c] + gx3, NEG);
-      nw[4][c] = fmaxf(vs[4][c] + gy4, NEG);
-      const int p = bs[0][c] + 5 * ((bs[1][c] != 0) + 2 * (bs[2][c] != 0) +
-                                    4 * (bs[3][c] != 0) + 8 * (bs[4][c] != 0));
-      word |= (uint32_t)p << (8 * c);
-    }
-    store_row<C>(out + (size_t)k * W, w0, word);
-    if (k == kend && lane == 0) {  // cell (m, n): band cell 0
-      float ve = nw[0][0];
-      int se = 0;
-#pragma unroll
-      for (int s = 1; s < NS; ++s) {
-        if (nw[s][0] > ve) se = s;
-        ve = fmaxf(ve, nw[s][0]);
-      }
-      sc = ve;
-      fs = se;
-    }
-#pragma unroll
-    for (int s = 0; s < NS; ++s)
+      // predecessors: match from k-2 (5-way), gap states from k-1
+      float v[NS][C];
+      int bm[C], pa[C], pb[C];  // match argmax; weighted from-self bits
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        b[s][c] = a[s][c];
-        a[s][c] = nw[s][c];
+        float bv = b[0][c] + tab.v[0];
+        int bs = 0;
+#pragma unroll
+        for (int s = 1; s < NS; ++s) {
+          const float cand = b[s][c] + tab.v[s * 5];
+          if (cand > bv) bs = s;
+          bv = fmaxf(bv, cand);
+        }
+        v[0][c] = bv;
+        bm[c] = bs;
+        int t[NS];
+#pragma unroll
+        for (int g = 1; g < NS; ++g) {
+          if constexpr (SHORT) {
+            const float from_m = a[0][c] + tab.v[g];
+            const float from_g = a[g][c] + tab.v[g * 6];
+            v[g][c] = fmaxf(from_m, from_g);
+            t[g] = from_g > from_m;
+          } else {
+            float gv = a[0][c] + tab.v[g];
+            int gs = 0;
+#pragma unroll
+            for (int s = 1; s < NS; ++s) {
+              const float cand = a[s][c] + tab.v[s * 5 + g];
+              if (cand > gv) gs = s;
+              gv = fmaxf(gv, cand);
+            }
+            v[g][c] = gv;
+            t[g] = gs != 0;
+          }
+        }
+        pa[c] = 5 * t[1] + 20 * t[3];
+        pb[c] = 10 * t[2] + 40 * t[4];
+      }
+      // the band shifts: match by d2, then one branch for the gap pairs
+      shift_sel<C>(v[0], d2, NEG, lane);
+      shift_sel<C>(bm, d2, 0, lane);
+      shift_if<C, 1>(v[2], d1 != 0, NEG, lane);
+      shift_if<C, 1>(v[4], d1 != 0, NEG, lane);
+      shift_if<C, 1>(pb, d1 != 0, 0, lane);
+      shift_if<C, -1>(v[1], d1 == 0, NEG, lane);
+      shift_if<C, -1>(v[3], d1 == 0, NEG, lane);
+      shift_if<C, -1>(pa, d1 == 0, 0, lane);
+
+      uint32_t word = 0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          b[s][c] = a[s][c];
+          a[s][c] = fmaxf(v[s][c] + e[s][c], NEG);
+        }
+        word |= (uint32_t)(bm[c] + pa[c] + pb[c]) << (8 * c);
+      }
+      if constexpr (C == 2) {
+        *reinterpret_cast<uint16_t*>(out + (size_t)k * W + w0) = (uint16_t)word;
+      } else {
+        out[(size_t)k * W + w0] = (int8_t)word;
+      }
+      if (k == kend) {  // cell (m, n): band cell 0 (lane 0's)
+        float ve = a[0][0];
+        int se = 0;
+#pragma unroll
+        for (int s = 1; s < NS; ++s) {
+          if (a[s][0] > ve) se = s;
+          ve = fmaxf(ve, a[s][0]);
+        }
+        sc = ve;
+        fs = se;
       }
 #pragma unroll
-    for (int c = 0; c < C; ++c) cur[c] = nxt[c];
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int c = 0; c < C; ++c) e[s][c] = en[s][c];
+      top = topn;
+    }
   }
-  // the rows past the read's end diagonal are not part of its lattice
-  for (int k = klast + 1; k <= k_pad; ++k) store_row<C>(out + (size_t)k * W, w0, 0u);
+  // the rows past the read's end diagonal are not part of its lattice;
+  // rows are W bytes, and W and the read's base are 16-byte multiples
+  {
+    char* p = (char*)out + (size_t)(klast + 1) * W;
+    const size_t nbytes = (size_t)(k_pad - klast) * W;
+    for (size_t i = (size_t)lane * 16; i < nbytes; i += 32 * 16)
+      *reinterpret_cast<uint4*>(p + i) = make_uint4(0u, 0u, 0u, 0u);
+  }
   if (lane == 0) {
     score[r] = sc;
     fstate[r] = fs;
   }
+}
+
+template <int C>
+int launch_width(bool short_step, const Tables& t, dim3 grid, dim3 block, cudaStream_t s,
+                 const void* xyc, const void* m, const void* n, int nreads, int k_pad,
+                 void* score, void* fstate, void* bp) {
+  auto kernel = short_step ? viterbi_kernel<C, true> : viterbi_kernel<C, false>;
+  kernel<<<grid, block, 0, s>>>(t, (const uint8_t*)xyc, (const int32_t*)m,
+                                (const int32_t*)n, nreads, k_pad, (float*)score,
+                                (int32_t*)fstate, (int8_t*)bp);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -228,24 +355,43 @@ extern "C" const char* np_cuda_error_string(int e) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // `tables` is host memory: the 91 log floats of ops/viterbi.py.
+// `short_step` (0 or 1) takes the two-predecessor gap step, which the
+// caller may ask for only where every gap state g has t[0 -> g] > 0 or
+// t[g -> g] > 0.
 extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const void* m,
                                  const void* n, int nreads, int k_pad, int W,
-                                 void* score, void* fstate, void* bp, void* stream) {
+                                 int short_step, void* score, void* fstate, void* bp,
+                                 void* stream) {
   if (nreads <= 0 || k_pad < 1) return (int)cudaErrorInvalidValue;
   Tables t;
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
   const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
   cudaStream_t s = (cudaStream_t)stream;
-  if (W == 64) {
-    viterbi_kernel<2><<<grid, block, 0, s>>>(
-        t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad,
-        (float*)score, (int32_t*)fstate, (int8_t*)bp);
-  } else if (W == 32) {
-    viterbi_kernel<1><<<grid, block, 0, s>>>(
-        t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad,
-        (float*)score, (int32_t*)fstate, (int8_t*)bp);
-  } else {
+  if (W == 64)
+    return launch_width<2>(short_step != 0, t, grid, block, s, xyc, m, n, nreads, k_pad,
+                           score, fstate, bp);
+  if (W == 32)
+    return launch_width<1>(short_step != 0, t, grid, block, s, xyc, m, n, nreads, k_pad,
+                           score, fstate, bp);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Registers, local memory (spill) bytes per thread, static shared memory
+// bytes per block, threads per block and reads per block of the kernel
+// at band width W (`short_step` as for the launch), into out[5].
+extern "C" int np_viterbi_attrs(int W, int short_step, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (W == 64)
+    e = cudaFuncGetAttributes(&a, short_step ? viterbi_kernel<2, true> : viterbi_kernel<2, false>);
+  else if (W == 32)
+    e = cudaFuncGetAttributes(&a, short_step ? viterbi_kernel<1, true> : viterbi_kernel<1, false>);
+  else
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = WARPS * 32;
+  out[4] = WARPS;
+  return (int)e;
 }

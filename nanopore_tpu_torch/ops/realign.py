@@ -114,26 +114,31 @@ MODE_NAMES = {DECODE: "decode", EM: "em", GAMMA: "gamma",
 MEA_MODES = (DECODE, DECODE_GAMMA)
 
 
-def read_workspace_bytes(kend, W: int, mea: bool = False) -> np.ndarray:
-    """Workspace bytes of reads whose diagonals end at ``kend`` (m + n):
-    the kernel runs kq = kend rounded up to even diagonals and keeps
-    kq x 5 x W f32 forward states, then kq + 1 rescale inverses padded to
-    16 bytes (the next read's states start aligned).  ``mea`` (the decode
-    modes) adds the backward's kq + 1 scales, padded the same way, and
-    kq // SEGMENT + 1 checkpoints of 6 x W f32 (the five states the
-    backward carries and the match state of the diagonal above them),
-    one per segment of diagonals 0..kq."""
+def read_workspace_bytes(kend, W: int, mode: int = EM) -> np.ndarray:
+    """Workspace bytes of reads whose diagonals end at ``kend`` (m + n)
+    under kernel ``mode``: the kernel runs kq = kend rounded up to even
+    diagonals.  ``EM`` and ``EXP`` keep kq x 5 x W f32 forward states,
+    then kq + 1 rescale inverses padded to 16 bytes (the next read's
+    states start aligned).  The decode modes (``MEA_MODES``) add the
+    backward's kq + 1 scales, padded the same way, and kq // SEGMENT + 1
+    checkpoints of 6 x W f32 (the five states the backward carries and
+    the match state of the diagonal above them), one per segment of
+    diagonals 0..kq.  ``GAMMA``, whose forward writes its match state
+    into the gamma band, keeps the backward's match state alone,
+    (kq + 1) x W f32 for diagonals 0..kq, then the forward's rescale
+    inverses and the backward's scales, each padded as above."""
     kq = np.asarray(kend, dtype=np.int64)
     kq = kq + (kq & 1)
     scales = ((kq + 1 + 3) // 4) * 16
+    if mode == GAMMA:
+        return (kq + 1) * W * 4 + 2 * scales
     nbytes = kq * NUM_STATES * W * 4 + scales
-    if mea:
+    if mode in MEA_MODES:
         nbytes = nbytes + scales + (kq // SEGMENT + 1) * (NUM_STATES + 1) * W * 4
     return nbytes
 
 
-def workspace_plan(m, n, W: int, cap: int = WORKSPACE_BYTES,
-                   mea: bool = False):
+def workspace_plan(m, n, W: int, cap: int = WORKSPACE_BYTES, mode: int = EM):
     """The launches of a batch and its ragged workspace.
 
     Returns ``offsets`` (B + 1,) int64, the exclusive prefix sum of
@@ -141,12 +146,12 @@ def workspace_plan(m, n, W: int, cap: int = WORKSPACE_BYTES,
     starts ``offsets[r] - offsets[r0]`` bytes into its launch's, r0 the
     launch's first read), and ``launches``, a list of (r0, r1) runs of
     reads in batch order: each run's workspace fits ``cap``, except a
-    read that alone exceeds it, which launches alone.  ``mea`` plans the
-    decode modes' slots.
+    read that alone exceeds it, which launches alone.  ``mode`` picks
+    the slot, as for :func:`read_workspace_bytes`.
     """
     nbytes = read_workspace_bytes(
         np.asarray(m, dtype=np.int64) + np.asarray(n, dtype=np.int64), W,
-        mea)
+        mode)
     offsets = np.zeros(len(nbytes) + 1, dtype=np.int64)
     np.cumsum(nbytes, out=offsets[1:])
     launches, r0 = [], 0
@@ -168,15 +173,17 @@ def launch_offsets(offsets, launches) -> np.ndarray:
                            for r0, r1 in launches])
 
 
-def max_workspace_k(W: int, mea: bool = False) -> int:
-    """The largest diagonal count at which one read's workspace still
-    fits ``WORKSPACE_BYTES``: the realign stage (``mea``, the decode
-    modes' slot) and the SNP caller split longer windows."""
-    if not mea:
+def max_workspace_k(W: int, mode: int = EM) -> int:
+    """The largest diagonal count at which one read's workspace under
+    kernel ``mode`` still fits ``WORKSPACE_BYTES``: the realign stage
+    (``DECODE``) and the SNP caller (``EXP``) split longer windows.  A
+    mode outside ``MEA_MODES`` gets the 5-state slot's budget, which the
+    smaller ``GAMMA`` slot also fits."""
+    if mode not in MEA_MODES:
         return (WORKSPACE_BYTES - 4) // (NUM_STATES * W * 4 + 4)
     per_k = NUM_STATES * W * 4 + 8 + (NUM_STATES + 1) * W * 4 / SEGMENT
     k = int(WORKSPACE_BYTES // per_k)
-    while read_workspace_bytes(k, W, mea=True) > WORKSPACE_BYTES:
+    while read_workspace_bytes(k, W, mode) > WORKSPACE_BYTES:
         k -= 1
     return k
 
@@ -263,7 +270,7 @@ def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None) -> None:
     if kend is None:
         kend = (m.to(torch.int64) + n.to(torch.int64)).cpu().numpy()
     offsets, launches = workspace_plan(kend, 0, W, WORKSPACE_BYTES,  # m + n, 0
-                                       mode in MEA_MODES)
+                                       mode)
     slots = launch_offsets(offsets, launches)
     dev = xyc.device
     ws = torch.empty(int(slots.max()), dtype=torch.float32, device=dev)

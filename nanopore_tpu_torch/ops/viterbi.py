@@ -20,6 +20,11 @@ kernel, to the bit):
   taken BEFORE the band shift: the match state reads diagonal k - 2
   shifted by d2, the delete states k - 1 by d1 - 1, the insert states
   k - 1 by d1; shifted-in cells are ``NEG`` with backpointer 0;
+* the kernel's short step takes a gap destination's max over its two
+  allowed predecessors (match and itself) alone, the same values and
+  bits where every gap state has t[match -> g] > 0 or t[g -> g] > 0
+  (:func:`short_step`; ``csrc/viterbi.cu`` gives the argument); a model
+  with a gap state that neither enters takes its 5-way step;
 * then the emission is added and the sum clamped at ``NEG``; a cell whose
   x (or y) code is the sentinel 5 emits ``NEG`` (N = 4 is a real code);
 * one byte per cell: ``p = bM + 5 * (tD1 + 2 tI1 + 4 tD2 + 8 tI2)``, the
@@ -54,8 +59,9 @@ NEG = -1e30
 
 LAUNCHES = kb.LaunchCounter("viterbi")
 _SIG = {
-    "np_viterbi_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    "np_viterbi_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 4,
+    "np_viterbi_attrs": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -107,6 +113,34 @@ def _checked_tables(params: KernelParams) -> torch.Tensor:
     return viterbi_tables(params)
 
 
+def short_step(tables: torch.Tensor) -> bool:
+    """True when the kernel may take its short step, each gap state's
+    max over its two allowed predecessors (match and itself): every gap
+    state g has t[match -> g] > 0 or t[g -> g] > 0.  Then one of the two
+    candidates is at least NEG and a disallowed one can only tie it, so
+    the max and the from-self bit are the 5-way step's
+    (``csrc/viterbi.cu`` gives the argument).  Only a model with a gap
+    state entered from nowhere (both transitions 0) takes the kernel's
+    5-way step.  ``tables`` is :func:`viterbi_tables`' output of a model
+    in the canonical structure.  Not a user switch: both steps give the
+    same bytes where this holds."""
+    lt = tables[:25].reshape(NUM_STATES, NUM_STATES)  # [src, dest]
+    return all(bool(lt[0, g] > NEG) or bool(lt[g, g] > NEG)
+               for g in range(1, NUM_STATES))
+
+
+def kernel_attributes(W: int, short: bool = True) -> dict:
+    """The compiled kernel's registers, local-memory (spill) bytes per
+    thread, static shared memory per block, and threads and reads per
+    block at band width ``W``, for the short or the 5-way step (needs the
+    card: builds the kernel)."""
+    lib = kb.library("viterbi", _SIG)
+    vals = (ctypes.c_int * 5)()
+    kb.check(lib, lib.np_viterbi_attrs(W, int(short), vals), "viterbi attrs")
+    return dict(zip(("registers", "local_bytes", "static_smem", "threads",
+                     "reads"), vals))
+
+
 def viterbi_forward(xyc, m, n, params: KernelParams) -> dict:
     """Banded Viterbi over packed band codes.
 
@@ -120,6 +154,13 @@ def viterbi_forward(xyc, m, n, params: KernelParams) -> dict:
     if xyc.device.type == "cpu":
         return viterbi_forward_plain(xyc, m, n, params)
     tables = _checked_tables(params)
+    return _launch(xyc, m, n, tables, short_step(tables))
+
+
+def _launch(xyc, m, n, tables, short: bool) -> dict:
+    """The kernel on CUDA tensors with log ``tables``, at its short or
+    5-way step (:func:`viterbi_forward` picks it with :func:`short_step`);
+    one count per launch."""
     B, k_pad, W = xyc.shape
     if W not in KERNEL_BAND_WIDTHS:
         raise ValueError("viterbi kernel serves W in %s, got %d"
@@ -135,7 +176,7 @@ def viterbi_forward(xyc, m, n, params: KernelParams) -> dict:
     with torch.cuda.device(xyc.device):
         rc = lib.np_viterbi_launch(
             ctypes.c_void_p(tables.data_ptr()), kb.ptr(xyc), kb.ptr(m),
-            kb.ptr(n), B, k_pad, W, kb.ptr(out["score"]),
+            kb.ptr(n), B, k_pad, W, int(short), kb.ptr(out["score"]),
             kb.ptr(out["fstate"]), kb.ptr(out["bp"]), kb.stream_of(xyc),
         )
     kb.check(lib, rc, "viterbi")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the realign kernel's modes and the two walkers of several
-checkouts of the port, in turns, on the batches that ``chip_smoke.py``
-drives.
+"""Time the realign kernel's modes, the Viterbi kernel, the two walkers
+and the pack kernel of several checkouts of the port, in turns, on the
+batches that ``chip_smoke.py`` drives.
 
     python3 realign_ab.py TREE [TREE ...] [--reps 3] [--repeat N] [--out FILE]
 
@@ -13,6 +13,9 @@ pack inputs of the realign batches of chip_smoke's paths, all from
 ``SEED = 0``:
 
 * ``decode_w64``: the mapping path's batch (B = 512, W = 64, decode);
+* ``viterbi_w64``: the Viterbi kernel on ``decode_w64``'s codes under
+  the default model (the digest covers ``score``, ``fstate`` and the
+  whole backpointer plane);
 * ``em``: the EM path's batch (B = 512, W = 64, windows of pad 256,
   under chip_smoke's random model), and ``em_split_<s>``, the same batch
   in consecutive calls of s reads, the launches that a workspace of
@@ -119,6 +122,7 @@ def build_batches(workdir: str) -> list[dict]:
                            MAPPER_REGISTRY["LastParams"].config, device=dev)
     save("decode_w64", cs.main_path_batch(engine, fq, B), 64, None, "decode",
          "default")
+    out.append(dict(out[-1], name="viterbi_w64", mode="viterbi"))
     out.append(dict(out[-1], name="walk_mea_w64", mode="walk_mea"))
     out.append(dict(out[-1], name="walk_viterbi_w64", mode="walk_viterbi"))
     out.append(dict(out[-1], name="pack_w64", mode="pack"))
@@ -204,6 +208,7 @@ def time_tree(batches: list[dict], reps: int, repeat: int = 1) -> list[dict]:
     from nanopore_tpu_torch.ops import pack as P
     from nanopore_tpu_torch.ops import realign as R
     from nanopore_tpu_torch.ops import traceback as T
+    from nanopore_tpu_torch.ops import viterbi as V
     from nanopore_tpu_torch.ops.pack import pack_xyc
     from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
     from nanopore_tpu_torch.ops.viterbi import viterbi_forward
@@ -216,7 +221,7 @@ def time_tree(batches: list[dict], reps: int, repeat: int = 1) -> list[dict]:
     takes_kend = "kend" in inspect.signature(R.realign_em).parameters
     counters = (P.LAUNCHES, R.LAUNCHES, R.EM_LAUNCHES, R.GAMMA_LAUNCHES,
                 R.DECODE_GAMMA_LAUNCHES, R.EXP_LAUNCHES, T.LAUNCHES,
-                T.VIT_LAUNCHES)
+                T.VIT_LAUNCHES, V.LAUNCHES)
     res = []
     for bt in batches:
         z = {k: np.concatenate([v] * repeat)
@@ -246,6 +251,8 @@ def time_tree(batches: list[dict], reps: int, repeat: int = 1) -> list[dict]:
             if bt["mode"] == "walk_viterbi":
                 ops, end = T.viterbi_walk(vit["bp"], x, mm, nn, vit["fstate"])
                 return {"ops": ops, "end": end}
+            if bt["mode"] == "viterbi":
+                return viterbi_forward(x, mm, nn, params)
             if bt["mode"] == "decode":
                 return R.realign_decode(x, mm, nn, params, **kw)
             if bt["mode"] == "decode_gamma":

@@ -49,7 +49,8 @@ def test_source_names_no_jax_or_reference_import():
         r"from\s+nanopore_tpu\s+import)",
         re.M,
     )
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "realign_ab.py"]
     offenders = [
         str(p.relative_to(ROOT)) for p in files
         if pattern.search(p.read_text())

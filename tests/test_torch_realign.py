@@ -18,13 +18,14 @@ import torch
 import nanopore_tpu.ops.pairhmm_pallas_realign as ppr
 from nanopore_tpu.align.model import PairHmmModel as JaxModel
 from nanopore_tpu.io.sam import CIG
+from nanopore_tpu.mapping.runner import trained_model_path
 from nanopore_tpu.ops.mea import mea_traceback_fwd, realign_fused
 from nanopore_tpu.ops.pairhmm import make_kernel_params as jax_params
 from nanopore_tpu.ops.pairhmm import prepare_banded_batch
 from nanopore_tpu_torch.align.model import PairHmmModel
 from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
 from nanopore_tpu_torch.ops import realign as port_realign
-from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+from nanopore_tpu_torch.ops.pairhmm import kernel_tables, make_kernel_params
 from nanopore_tpu_torch.ops.realign import (
     realign_decode,
     realign_decode_plain,
@@ -300,11 +301,12 @@ def test_mea_workspace_plan_holds_states_scales_and_checkpoints(cap):
     m, n = _plan_lengths(np.random.default_rng(cap + 2), 40, 1, 60)
     m[:3], n[:3] = (1, 0, 3), (2, 0, 4)  # a read shorter than a segment
     offsets, launches = port_realign.workspace_plan(m, n, PLAN_W, cap,
-                                                    mea=True)
+                                                    port_realign.DECODE)
     kq = m + n + ((m + n) & 1)
     segments = -(-(kq + 1) // port_realign.SEGMENT)
     np.testing.assert_array_equal(segments, kq // 8 + 1)
-    nbytes = port_realign.read_workspace_bytes(m + n, PLAN_W, mea=True)
+    nbytes = port_realign.read_workspace_bytes(m + n, PLAN_W,
+                                             port_realign.DECODE)
     np.testing.assert_array_equal(
         nbytes, kq * DIAG_BYTES + 2 * (-(-(kq + 1) // 4) * 16)
         + segments * 6 * PLAN_W * 4)
@@ -334,7 +336,7 @@ def test_mea_workspace_plan_fits_the_mapping_batch_in_one_launch():
     n = rng.integers(9_500, 10_240, 512) - m
     n[0] = 10_240 - m[0]
     offsets, launches = port_realign.workspace_plan(
-        m, n, PLAN_W, port_realign.WORKSPACE_BYTES, mea=True)
+        m, n, PLAN_W, port_realign.WORKSPACE_BYTES, port_realign.DECODE)
     assert launches == [(0, 512)]
     assert offsets[-1] <= port_realign.WORKSPACE_BYTES
     assert port_realign.MEA_MODES == (port_realign.DECODE,
@@ -344,16 +346,16 @@ def test_mea_workspace_plan_fits_the_mapping_batch_in_one_launch():
 @pytest.mark.parametrize("W", [32, 64])
 def test_mea_split_budget_fits_the_workspace_cap(W):
     """The realign stage splits its decode windows at
-    ``max_workspace_k(W, mea=True)``: a window of that many diagonals
+    ``max_workspace_k(W, DECODE)``: a window of that many diagonals
     plans as one launch whose slot (checkpoints and scales included)
     fits ``WORKSPACE_BYTES``, and two diagonals more would not.  The SNP
     caller's exp-mode budget keeps the forward-state formula."""
     cap = port_realign.WORKSPACE_BYTES
-    k = port_realign.max_workspace_k(W, mea=True)
+    k = port_realign.max_workspace_k(W, port_realign.DECODE)
     offsets, launches = port_realign.workspace_plan([k // 2], [k - k // 2],
-                                                    W, cap, mea=True)
+                                                    W, cap, port_realign.DECODE)
     assert launches == [(0, 1)] and offsets[-1] <= cap
-    assert port_realign.read_workspace_bytes(k + 2, W, mea=True) > cap
+    assert port_realign.read_workspace_bytes(k + 2, W, port_realign.DECODE) > cap
     assert k < port_realign.max_workspace_k(W) == (cap - 4) // (5 * W * 4 + 4)
     assert port_realign.read_workspace_bytes(
         port_realign.max_workspace_k(W) - 1, W) <= cap
@@ -402,3 +404,216 @@ def test_kend_above_k_pad_is_accepted():
     for dtype in (np.int32, np.int64):
         port_realign.check_kend(np.array([3, k_pad + 7, k_pad], dtype), 3)
     port_realign.check_kend(None, 3)
+
+
+# ---- the gamma mode's split (csrc/realign.cu gamma_kernel): the forward's
+# match rows and rescale inverses, the backward's match rows and scales,
+# then the serial g chain and one product pass ----
+
+
+def _gamma_split(xyc, m, n, params):
+    """A CPU model of the gamma kernel's data flow, taken from the plain
+    version's own recursion (ops/realign.py::_realign_plain): the
+    forward keeps only each diagonal's match row, its rescale inverses
+    and the end mass; the backward, run without the forward, keeps only
+    its match row and its scale per diagonal; then g_k over k = k_pad..0
+    as one serial chain, and gamma = (f * b) * g over every cell."""
+    B, k_pad, W = xyc.shape
+    f32 = torch.float32
+    tab = kernel_tables(params)
+    tf = tab[:25].reshape(5, 5)
+    emf, egf = tab[25:61], tab[61:91]
+    tfT = tf.t().contiguous()
+    kend = m.long() + n.long()
+    base = torch.arange(W) + 1
+    codes = xyc.to(torch.int32) & 0xFF
+
+    def emissions(k):
+        c = codes[:, k - 1]
+        x, y = (c >> 3) & 7, c & 7
+        E = torch.stack([emf[x * 6 + y], egf[6 + x], egf[12 + y],
+                         egf[18 + x], egf[24 + y]], dim=1)
+        return E, (c[:, 0] >> 6) & 1, (c[:, 0] >> 7) & 1
+
+    # the forward: match rows (row 0 = diagonal 0), sf, loglik, fin_end
+    fm = torch.zeros((B, k_pad + 1, W), dtype=f32)
+    prev = torch.zeros((B, 5, W), dtype=f32)
+    prev[:, :, 0] = 1.0 / 5
+    fm[:, 0] = prev[:, 0]
+    prevprev = torch.zeros_like(prev)
+    sfinv = torch.ones((B, k_pad + 2), dtype=f32)
+    rs = torch.ones(B, dtype=f32)
+    ls_hi, ls_c, acc = (torch.zeros(B, dtype=f32) for _ in range(3))
+    fin_end = torch.ones(B, dtype=f32)
+    tiny = torch.tensor(1e-37, dtype=f32)
+    for k in range(1, k_pad + 1):
+        E, d1, d1p = emissions(k)
+        src = torch.cat([prevprev[:, None],
+                         prev[:, None].expand(B, 4, 5, W)], dim=1)
+        T = port_realign._seq_sum(tfT[None, :, :, None] * src)
+        S = torch.stack([d1 + d1p - 1, d1 - 1, d1, d1 - 1, d1], dim=1)
+        Ts = port_realign._shift(T, S, 0.0, base)
+        r = rs if k % 2 else torch.ones_like(rs)
+        Ts = torch.cat([(Ts[:, 0] * r[:, None])[:, None], Ts[:, 1:]], dim=1)
+        new = E * Ts
+        if k % 2 == 0:
+            scale = new.amax(dim=(1, 2))
+            safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+            inv = 1.0 / safe
+            new = new * inv[:, None, None]
+            y_ = torch.log(safe) - ls_c
+            t_ = ls_hi + y_
+            ls_c = (t_ - ls_hi) - y_
+            ls_hi = t_
+            sfinv[:, k] = inv
+            rs = inv
+        fin = new[:, 0, 0]
+        for s in range(1, 5):
+            fin = fin + new[:, s, 0]
+        is_end = kend == k
+        fin_c = torch.maximum(fin, tiny)
+        fin_end = torch.where(is_end, fin_c, fin_end)
+        acc = torch.where(is_end, acc + (torch.log(fin_c) + (ls_hi - ls_c)),
+                          acc)
+        fm[:, k] = new[:, 0]
+        prevprev, prev = prev, new
+
+    # the backward alone: match rows and scales
+    bm = torch.zeros((B, k_pad + 1, W), dtype=f32)
+    safes = torch.ones((B, k_pad + 1), dtype=f32)
+    b1 = torch.zeros((B, 5, W), dtype=f32)
+    b2 = torch.zeros_like(b1)
+    binv = torch.ones(B, dtype=f32)
+    E1 = torch.zeros_like(b1)
+    em2 = torch.zeros((B, W), dtype=f32)
+    d1n1 = d1n2 = torch.zeros(B, dtype=torch.int32)
+    end_band = torch.zeros((5, W), dtype=f32)
+    end_band[:, 0] = 1.0
+    for k in range(k_pad, -1, -1):
+        d2n2 = d1n1 + d1n2 - 1
+        P = torch.stack([b2[:, 0] * em2, b1[:, 1] * E1[:, 1],
+                         b1[:, 2] * E1[:, 2], b1[:, 3] * E1[:, 3],
+                         b1[:, 4] * E1[:, 4]], dim=1)
+        S = torch.stack([-d2n2, 1 - d1n1, -d1n1, 1 - d1n1, -d1n1], dim=1)
+        dest = port_realign._shift(P, S, 0.0, base)
+        dest = torch.cat([(dest[:, 0] * binv[:, None])[:, None],
+                          dest[:, 1:]], dim=1)
+        new = port_realign._seq_sum(tf[None, :, :, None]
+                                    * dest[:, None, :, :])
+        new = torch.where((kend == k)[:, None, None], end_band[None], new)
+        inv = torch.ones(B, dtype=f32)
+        if k % 2 == 1 or k == 0:
+            scale = new.amax(dim=(1, 2))
+            safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+            inv = 1.0 / safe
+            new = new * inv[:, None, None]
+            safes[:, k] = safe
+        bm[:, k] = new[:, 0]
+        if k == 0:
+            break
+        b2, b1, binv = b1, new, inv
+        Ek, d1k, _ = emissions(k)
+        em2, E1 = E1[:, 0], Ek
+        d1n2, d1n1 = d1n1, d1k
+
+    # the serial g chain, then the product
+    inv_fin = 1.0 / fin_end
+    g = torch.empty((B, k_pad + 1), dtype=f32)
+    g_next = torch.zeros(B, dtype=f32)
+    for k in range(k_pad, -1, -1):
+        g_k = torch.where(kend == k, inv_fin,
+                          (g_next * sfinv[:, k + 1]) * safes[:, k])
+        g[:, k] = g_next = torch.clamp(g_k, max=3e37)
+    return {"loglik": acc, "gamma": (fm * bm) * g[:, :, None]}
+
+
+def _gamma_ragged_pairs(seed):
+    """Four reads of unequal length: one whose m + n is the batch's
+    k_pad (K_ALIGN = 128), one window that runs to the reference's end
+    (a read-end insert after a deletion, ROADMAP C6), a short one and one
+    with a 4-base deletion."""
+    rng = np.random.default_rng(seed)
+
+    def bases(L):
+        return rng.integers(0, 4, L).astype(np.int8)
+
+    x0 = bases(64)
+    y0 = x0.copy()
+    y0[rng.integers(0, 64, 6)] = bases(6)
+    x1 = bases(70)
+    y1 = np.concatenate([x1[:40], bases(5)])
+    x2 = bases(12)
+    x3 = bases(50)
+    y3 = np.concatenate([x3[:20], x3[24:]])
+    return [
+        (x0, y0, [(CIG.M, 64)]),                            # m + n = 128
+        (x1, y1, [(CIG.M, 40), (CIG.D, 30), (CIG.I, 5)]),   # to the end
+        (x2, x2.copy(), [(CIG.M, 12)]),
+        (x3, y3, [(CIG.M, 20), (CIG.D, 4), (CIG.M, 26)]),
+    ]
+
+
+@pytest.mark.parametrize("W_", [8, 32])
+@pytest.mark.parametrize("capped", [False, True])
+def test_gamma_split_matches_the_plain_gamma_mode(W_, capped):
+    """The gamma kernel's split (forward and backward apart, each keeping
+    its match rows and scales, then the g chain and the product) gives
+    ``realign_gamma_plain``'s loglik and gamma band bit for bit, on a
+    ragged batch with a read at k_pad and a window to the reference's
+    end; ``capped`` raises one read's m past k_pad (its end diagonal
+    never comes: g stays 0)."""
+    pairs = _gamma_ragged_pairs(17 + W_)
+    prep = pack_stream_pairs(pairs, W_, None)
+    assert prep["k_pad"] == 128 and int(prep["k_end"].max()) == 128
+    t = torch.from_numpy
+    m, n = t(prep["m"]), t(prep["n"])
+    xyc = pack_xyc(t(prep["stream"]), t(prep["initx"]), m, n)
+    if capped:
+        m = m.clone()
+        m[3] += prep["k_pad"]
+    params = make_kernel_params(PairHmmModel.load(
+        trained_model_path("blasr_hmm_0.txt")))
+    want = port_realign.realign_gamma_plain(xyc, m, n, params)
+    got = _gamma_split(xyc, m, n, params)
+    for key in ("loglik", "gamma"):
+        assert torch.equal(got[key].view(torch.int32),
+                           want[key].view(torch.int32)), key
+    assert torch.isfinite(want["gamma"]).all()
+    assert (want["gamma"][:, :, 0] > 0).any()
+
+
+def _gamma_slot_floats(kq):
+    """csrc/realign.cu::gamma_slot_floats: the backward's match rows of
+    diagonals 0..kq, then sf and safe (kq + 1 floats each, padded to 4)."""
+    kp4 = (kq + 1 + 3) // 4 * 4
+    return (kq + 1) * PLAN_W + 2 * kp4
+
+
+@pytest.mark.parametrize("cap", [10_000, 150_000, 1 << 30])
+def test_gamma_workspace_plan_holds_match_rows_and_scales(cap):
+    """The gamma mode's slot through ``workspace_plan``: one band row a
+    diagonal (the backward's match state; the forward's goes to the
+    gamma band) and the two scale vectors, every slot 16-byte aligned,
+    about a fifth of the 5-state slot, and ``launch_offsets`` holding
+    each read to its own slot."""
+    m, n = _plan_lengths(np.random.default_rng(cap + 3), 40, 1, 60)
+    m[:2], n[:2] = (0, 1), (0, 2)
+    offsets, launches = port_realign.workspace_plan(m, n, PLAN_W, cap,
+                                                    port_realign.GAMMA)
+    kq = m + n + ((m + n) & 1)
+    nbytes = port_realign.read_workspace_bytes(m + n, PLAN_W,
+                                             port_realign.GAMMA)
+    np.testing.assert_array_equal(nbytes, _gamma_slot_floats(kq) * 4)
+    np.testing.assert_array_equal(np.diff(offsets), nbytes)
+    assert (offsets % 16 == 0).all()
+    full = port_realign.read_workspace_bytes(m + n, PLAN_W)
+    assert (4 * nbytes[kq > 100] < full[kq > 100]).all()
+    for r0, r1 in launches:
+        assert offsets[r1] - offsets[r0] <= cap or r1 - r0 == 1
+    woff = port_realign.launch_offsets(offsets, launches)
+    for l, (r0, r1) in enumerate(launches):
+        sl = woff[r0 + l:r1 + l + 1]
+        assert sl[0] == 0
+        np.testing.assert_array_equal(np.diff(sl),
+                                      _gamma_slot_floats(kq[r0:r1]))
+        assert (_gamma_slot_floats(kq[r0:r1] + 2) > np.diff(sl)).all()

@@ -49,6 +49,7 @@ from nanopore_tpu_torch.ops.traceback import (
 )
 from nanopore_tpu_torch.ops.viterbi import (
     NEG,
+    short_step,
     viterbi_forward,
     viterbi_forward_plain,
     viterbi_structure_ok,
@@ -344,3 +345,127 @@ def test_cuda_walker_refuses_other_widths():
                      torch.zeros((B, K, W), dtype=torch.int8, **meta),
                      *(torch.zeros(B, dtype=torch.int32, **meta)
                        for _ in range(3)))
+
+
+# ---- the kernel's short step (csrc/viterbi.cu): a gap destination's
+# max over its two allowed predecessors, match and itself, against the
+# plain version's 5-way max, in numpy f32 ----
+
+F32_NEG = np.float32(NEG)
+
+
+def _gap_step_5way(a, ltf, g):
+    """The plain version's step for gap destination g over (5, N) f32
+    predecessor states: the max and the from-self bit (argmax != 0) over
+    all five, a tie keeping the lower state."""
+    bv = a[0] + ltf[g]
+    bs = np.zeros(a.shape[1], np.int32)
+    for s in range(1, 5):
+        cand = a[s] + ltf[s * 5 + g]
+        bs = np.where(cand > bv, s, bs)
+        bv = np.maximum(bv, cand)
+    return bv, bs != 0
+
+
+def _gap_step_short(a, ltf, g):
+    """The kernel's short step: the max of the two allowed candidates
+    and whether the one from itself is strictly larger."""
+    from_m = a[0] + ltf[g]
+    from_g = a[g] + ltf[g * 6]
+    return np.maximum(from_m, from_g), from_g > from_m
+
+
+def _viterbi_states(rng, ltf, n=4096):
+    """(5, n) f32 predecessor states as the recursion holds them: NEG or
+    a real log score.  A quarter of the cells are all NEG, a share of
+    each state is NEG elsewhere, and for each gap state g some cells
+    tie exactly between its two allowed candidates (where both are
+    allowed)."""
+    a = rng.uniform(-2e6, 0, (5, n)).astype(np.float32)
+    a[:, rng.random(n) < 0.25] = F32_NEG
+    a[rng.random((5, n)) < 0.3] = F32_NEG
+    for g in range(1, 5):
+        if min(ltf[g], ltf[g * 6]) <= F32_NEG:
+            continue  # no tie between an allowed and a disallowed entry
+        idx = rng.choice(n, n // 16, replace=False)
+        idx = idx[a[0, idx] > F32_NEG]
+        a[g, idx] = (a[0, idx] + ltf[g]) - ltf[g * 6]
+    return a
+
+
+def _short_step_models():
+    rng = np.random.default_rng(5)
+    out = {"default": PairHmmModel.default()}
+    for name in ("blasr_hmm_0.txt", "blasr_hmm_20.txt", "blasr_hmm_40.txt"):
+        out[name] = PairHmmModel.load(trained_model_path(name))
+    for i in range(3):
+        out["random_%d" % i] = PairHmmModel.random(rng)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_short_step_models()))
+def test_short_step_equals_the_five_way_step(name):
+    """Every shipped model and three random canonical ones take the short
+    step, and on states with NEG cells, ties at -1e30 (a NEG match
+    predecessor beside real disallowed ones) and exact ties between the
+    two allowed candidates it gives the 5-way step's values and from-self
+    bits, bit for bit."""
+    tab = viterbi_tables(make_kernel_params(_short_step_models()[name]))
+    assert short_step(tab)
+    ltf = tab.numpy()[:25]
+    a = _viterbi_states(np.random.default_rng(sum(map(ord, name))), ltf)
+    ties = at_neg = 0
+    for g in range(1, 5):
+        v5, t5 = _gap_step_5way(a, ltf, g)
+        vs, ts = _gap_step_short(a, ltf, g)
+        np.testing.assert_array_equal(v5.view(np.int32), vs.view(np.int32))
+        np.testing.assert_array_equal(t5, ts)
+        ties += int(((a[0] + ltf[g]) == (a[g] + ltf[g * 6])).sum())
+        at_neg += int(((a[0] + ltf[g]) == F32_NEG).sum())
+    assert ties > 0 and at_neg > 0
+
+
+def _zero_gap_params(entries):
+    """The default model's kernel tables with the transitions ``entries``
+    ((from, to) pairs) set to 0, each row renormalised."""
+    pp = make_kernel_params(PairHmmModel.default())
+    t = pp.t.double().numpy().copy()
+    for i, j in entries:
+        t[i, j] = 0.0
+        t[i] /= t[i].sum()
+    return params_from_numpy(t, pp.e_match_flat, pp.e_gap_flat)
+
+
+@pytest.mark.parametrize("entries", [[(2, 2)], [(0, 2)], [(0, 2), (2, 2)]],
+                         ids=["self", "from_match", "both"])
+def test_zero_gap_transitions_and_the_step_the_host_picks(entries):
+    """Gap state 2 with one of its two entries at 0 still takes the short
+    step, and it gives the 5-way step's values and bits: the positive
+    entry's candidate is at least NEG, so no disallowed one can pass it.
+    With both at 0 (a gap state entered from nowhere) the host picks the
+    5-way step, and the two differ on cells whose match and own
+    predecessors are NEG beside a real disallowed one: the 5-way step's
+    bit points away from match while its value is one NEG, the short
+    step's stays 0 at 2 NEG.  Those cells are unreachable: both values
+    clamp to NEG once the emission is added."""
+    g = 2
+    differ = len(entries) == 2
+    tab = viterbi_tables(_zero_gap_params(entries))
+    assert short_step(tab) == (not differ)
+    ltf = tab.numpy()[:25]
+    a = _viterbi_states(np.random.default_rng(11 + len(entries)), ltf)
+    v5, t5 = _gap_step_5way(a, ltf, g)
+    vs, ts = _gap_step_short(a, ltf, g)
+    bad = t5 != ts
+    assert bad.any() == differ
+    if differ:
+        cells = (a[0] == F32_NEG) & (a[g] == F32_NEG) & (
+            a[[1, 3, 4]] > F32_NEG).any(0)
+        np.testing.assert_array_equal(bad, cells)
+        assert (v5[bad] == F32_NEG).all() and (vs[bad] < F32_NEG).all()
+    else:
+        np.testing.assert_array_equal(v5.view(np.int32), vs.view(np.int32))
+        assert ts.any() == (entries == [(0, 2)])
+    e = np.float32(-1.5)
+    np.testing.assert_array_equal(np.maximum(v5 + e, F32_NEG),
+                                  np.maximum(vs + e, F32_NEG))
