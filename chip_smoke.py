@@ -11,7 +11,8 @@
    registers, local memory (spills), static and dynamic shared memory
    and threads and reads a block at W = 64 and 32 are printed from the
    compiled kernel, with the pack kernel's, the Viterbi kernel's (its
-   short and its 5-way step) and each walker's shared memory a
+   short and its 5-way step), the forward-only kernel's (its two-term
+   and its 5-way gap sum) and each walker's shared memory a
    block).  Then the
    realign kernel's workspace guard (ROADMAP C8), in a child process
    (``chip_smoke.py --kend-guard``): a launch whose caller's kend is
@@ -70,7 +71,10 @@
    other reads.  The EM batch must take one launch; its short reads
    (m + n <= k_pad / 4), re-packed without the far-end windows, must
    give the kernel's sums bit for bit, and so must the whole batch under
-   a quarter of the workspace cap (several launches).
+   a quarter of the workspace cap (several launches).  The forward-only
+   kernel on the EM batch: its loglik on the far-end windows (m + n >
+   k_pad / 4) bit-identical to the plain version's; the reads it sent
+   to its 5-way sum are printed.
 6. EM path, end to end: ``run_mapper("LastParamsRealignEm", ...)`` with
    ``EmOptions(trials=2, iterations=10)`` twice, the second timed, every
    counter set to 0 before it.  Every kernel of the path (pack, realign
@@ -135,6 +139,16 @@
    on the Viterbi kernel's plane (every walk but the capped read's
    reaches the origin) and on a random plane (walks that end short of
    it): ops and end cells bit-identical to the plain walker's.
+   The forward-only kernel's reciprocal of the band maximum against
+   ``__frcp_rn`` on every positive float (no bit may differ); then the
+   kernel on step 3's ragged batches and the segment batches at W = 64
+   and 32 under the default model and with t[0 -> 2] = t[2 -> 2] = 0
+   (its two-term gap sum; no read may leave it) and with t[1 -> 2] > 0
+   (its 5-way sum; the two-term sum, launched by hand, is shown to
+   differ), and on reads with a run of N bases under a model whose N
+   emissions are 1e-40 (the band maximum falls subnormal: each such
+   read must go to the 5-way sum mid-read), loglik bit-identical to the
+   plain version's.
    Then the forward-only kernel through its entry point
    (``prepared_from_pairs(..., prepared_cls=PreparedForward).run()``),
    with every counter set to 0 just before.
@@ -204,9 +218,14 @@ VITERBI_OPS_PER_CELL = 5 * 17 + 10
 # the match destination as above, each gap destination 2 adds, a max and a
 # compare (its from-self bit), then the emissions
 VITERBI_SHORT_OPS_PER_CELL = 17 + 4 * 4 + 10
-# forward only (csrc/forward.cu): the realign kernel's forward, 45
-# transition + 6 emission + 5 rescale (amortised)
+# forward only (csrc/forward.cu), its 5-way gap sum: the realign kernel's
+# forward, 45 transition + 6 emission + 5 rescale (amortised)
 FORWARD_OPS_PER_CELL = 56
+# its two-term gap sum, which every shipped model takes
+# (ops/forward.two_term_sum): the match state's 9, 3 for each gap state
+# (two multiplies and an add), then the same 6 + 5 (the kernel's check of
+# each pair, 4 adds a cell a diagonal, is not the function's work)
+FORWARD_SHORT_OPS_PER_CELL = 9 + 4 * 3 + 6 + 5
 
 
 def fail(msg: str) -> None:
@@ -547,14 +566,16 @@ def ragged_plain(name, plain, want, args):
     return want[name]
 
 
-def gap_entries_zero_params(params, entries):
-    """``params`` with the transitions ``entries`` ((src, dest) pairs) set
-    to 0, their rows renormalised: still the canonical structure."""
+def edited_params(params, entries):
+    """``params`` with the transitions ``entries`` ((src, dest, value)
+    triples) set, their rows renormalised: gap entries at 0 keep the
+    canonical structure, a positive entry from one gap state to another
+    leaves it."""
     from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
 
     t = params.t.detach().cpu().double().numpy().reshape(5, 5).copy()
-    for src, dest in entries:
-        t[src, dest] = 0.0
+    for src, dest, value in entries:
+        t[src, dest] = value
         t[src] /= t[src].sum()
     return params_from_numpy(t, params.e_match_flat.cpu().numpy(),
                              params.e_gap_flat.cpu().numpy())
@@ -574,9 +595,9 @@ def viterbi_ragged_check(dev, params) -> None:
     t0 = time.perf_counter()
     models = (("short step", params, (W, W_REALIGN)),
               ("short step, t[2->2] = 0",
-               gap_entries_zero_params(params, [(2, 2)]), (W,)),
+               edited_params(params, [(2, 2, 0.0)]), (W,)),
               ("5-way step, t[0->2] = t[2->2] = 0",
-               gap_entries_zero_params(params, [(0, 2), (2, 2)]),
+               edited_params(params, [(0, 2, 0.0), (2, 2, 0.0)]),
                (W, W_REALIGN)))
     for what, p, _ in models:
         if V.short_step(V.viterbi_tables(p)) != what.startswith("short"):
@@ -609,6 +630,113 @@ def viterbi_ragged_check(dev, params) -> None:
                       "launched by hand, differs from the plain version in "
                       "%d plane bytes" % (W_, what, cells))
     print("K4 viterbi ragged batches: %.1f s wall" % (time.perf_counter() - t0))
+
+
+def n_run_case(params):
+    """Pairs whose reads hold a run of N bases (the last read none)
+    against an N-free reference, and ``params`` with every emission of
+    an N at 1e-40: once the band's last cell before the run leaves it,
+    the band maximum falls by ~1e-40 within a pair of diagonals, to a
+    subnormal whose inverse overflows (so tests/test_torch_forward.py's
+    N-run case, at the kernel's widths)."""
+    from nanopore_tpu_torch.io.sam import CIG
+    from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
+
+    rng = np.random.default_rng(SEED)
+    pairs = []
+    for L, p0, ln in ((400, 120, 150), (380, 60, 200), (420, 200, 120),
+                      (300, 100, 40), (360, 0, 0)):
+        x = rng.integers(0, 4, L).astype(np.int8)
+        y = x.copy()
+        y[p0:p0 + ln] = 4
+        pairs.append((x, y, [(CIG.M, L)]))
+    em = params.e_match_flat.cpu().numpy().reshape(5, 5).copy()
+    eg = params.e_gap_flat.cpu().numpy().reshape(5, 5).copy()
+    em[:, 4] = em[4, :] = eg[:, 4] = np.float32(1e-40)
+    return pairs, params_from_numpy(params.t.cpu().numpy(), em.reshape(-1),
+                                    eg.reshape(-1))
+
+
+def forward_ragged_check(dev, params) -> None:
+    """The forward-only kernel's reciprocal against ``__frcp_rn`` on
+    every positive float.  Then the kernel on the ragged batches and the
+    segment batches at W = 64 and 32, under ``params`` (its two-term gap
+    sum), under ``params`` with t[0 -> 2] = t[2 -> 2] = 0 (still the
+    canonical structure: the two-term sum) and with t[1 -> 2] > 0 (the
+    5-way sum): the wrapper must pick that sum, the loglik must be the
+    plain version's bit for bit, and no read may leave the two-term sum.
+    On the last model the two-term sum, launched by hand on the B = 7
+    batch, is shown to differ.  Then the N-run reads of
+    :func:`n_run_case` at both widths: bit for bit, every N-run read
+    sent to the 5-way sum mid-read, the N-free read not."""
+    from nanopore_tpu_torch.ops import forward as F
+    from nanopore_tpu_torch.ops.pairhmm import kernel_tables
+
+    t0 = time.perf_counter()
+    bad = F.reciprocal_mismatches(dev)
+    print("K6 forward: the kernel's reciprocal of the band maximum differs "
+          "from __frcp_rn on %d of the 2.1e9 positive floats (%.1f s)"
+          % (bad, time.perf_counter() - t0))
+    if bad:
+        fail("the forward kernel's call-free reciprocal is not __frcp_rn")
+    models = (("two-term sum", params, True),
+              ("two-term sum, t[0->2] = t[2->2] = 0",
+               edited_params(params, [(0, 2, 0.0), (2, 2, 0.0)]), True),
+              ("5-way sum, t[1->2] = 0.05",
+               edited_params(params, [(1, 2, 0.05)]), False))
+    for what, p, two in models:
+        if F.two_term_sum(kernel_tables(p)) != two:
+            fail("the forward wrapper would not take the %s" % what)
+
+    def plain(xyc, m, n, p):
+        return {"loglik": F.forward_loglik_plain(xyc, m, n, p)}
+
+    for W_ in (W, W_REALIGN):
+        batches, prep = ragged_batches(dev, W_)
+        xyc, m, n, _ = device_batch(segment_pairs(SEED + W_), W_, None, dev,
+                                    "segment batch", check_pack=False)
+        batches.append(("segments", xyc, m, n))
+        for what, p, two in models:
+            want, names = {}, []
+            for name, xyc, m, n in batches:
+                ll = F.forward_loglik(xyc, m, n, p)
+                switched = F._launch(xyc, m, n, kernel_tables(p),
+                                     two)["switched"]
+                out_p = ragged_plain(name, plain, want, (xyc, m, n, p))
+                if not bits_equal(ll, out_p["loglik"]):
+                    fail("forward kernel (%s) differs from its plain version "
+                         "on the batch %s W=%d" % (what, name, W_))
+                if bool((switched != -1).any()):
+                    fail("forward kernel (%s) left the two-term sum on the "
+                         "batch %s W=%d" % (what, name, W_))
+                names.append(name)
+            print("K6 forward W=%d (ragged k_pad %d), %s: loglik bit-identical "
+                  "on %s" % (W_, prep["k_pad"], what, ", ".join(names)))
+            if not two:
+                _, xyc, m, n = batches[0]
+                forced = F._launch(xyc, m, n, kernel_tables(p), True)
+                print("K6 forward B7 W=%d, %s: the two-term sum, launched by "
+                      "hand, differs from the plain version on %d of 7 reads"
+                      % (W_, what, int((forced["loglik"]
+                                        != want["B7"]["loglik"]).sum())))
+        pairs, p = n_run_case(params)
+        xyc, m, n, _ = device_batch(pairs, W_, None, dev, "N-run batch",
+                                    check_pack=False)
+        ll = F.forward_loglik(xyc, m, n, p)
+        switched = F._launch(xyc, m, n, kernel_tables(p), True)["switched"]
+        want = F.forward_loglik_plain(xyc, m, n, p)
+        kend = (m + n).long()
+        mid = ((switched > 1) & (switched < kend)).tolist()
+        print("K6 forward N-run batch W=%d: loglik %s (plain %s), first 5-way "
+              "diagonal %s of m + n %s" % (W_, ll.tolist(), want.tolist(),
+                                           switched.tolist(), kend.tolist()))
+        if not bits_equal(ll, want):
+            fail("forward kernel differs from its plain version on the N-run "
+                 "batch W=%d" % W_)
+        if mid != [True] * (len(pairs) - 1) + [False] or switched[-1] != -1:
+            fail("the N-run reads did not switch to the 5-way sum mid-read")
+    print("K6 forward ragged, segment and N-run batches: %.1f s wall"
+          % (time.perf_counter() - t0))
 
 
 def gamma_ragged_check(dev, params) -> None:
@@ -930,9 +1058,13 @@ def em_kernel_phase(chained_sam: str, fa: str, dev, res: dict) -> None:
 
     from nanopore_tpu_torch.align.em import representable
     from nanopore_tpu_torch.align.model import PairHmmModel
-    from nanopore_tpu_torch.ops import realign
+    from nanopore_tpu_torch.ops import forward, realign
     from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
-    from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+    from nanopore_tpu_torch.ops.forward import (
+        forward_loglik,
+        forward_loglik_plain,
+    )
+    from nanopore_tpu_torch.ops.pairhmm import kernel_tables, make_kernel_params
     from nanopore_tpu_torch.ops.realign import (
         realign_decode,
         realign_decode_plain,
@@ -1048,6 +1180,24 @@ def em_kernel_phase(chained_sam: str, fa: str, dev, res: dict) -> None:
              else "DIFFERENT in %s" % differ))
     if n_split < 2 or differ:
         fail("the EM batch split over launches differs")
+    # K6 on the EM batch (its two-term sum under this model), held on the
+    # far-end windows, where the band leaves the path (ROADMAP C6)
+    t0 = time.perf_counter()
+    far = torch.from_numpy(np.nonzero(4 * kend > k_pad)[0]).to(dev)
+    ll_k = forward_loglik(xyc, m, n, params)
+    switched = forward._launch(xyc, m, n, kernel_tables(params), True)[
+        "switched"]
+    ll_p = forward_loglik_plain(xyc[far].contiguous(), m[far].contiguous(),
+                                n[far].contiguous(), params)
+    print("K6 forward on the EM batch: loglik of its %d far-end windows (m + "
+          "n %s) %s to the plain version's; reads sent to the 5-way sum %d of "
+          "%d (%.1f s wall)"
+          % (len(far), kend[far.cpu().numpy()].tolist(),
+             "bit-identical" if bits_equal(ll_k[far], ll_p) else "DIFFERENT",
+             int((switched != -1).sum()), B, time.perf_counter() - t0))
+    if not bits_equal(ll_k[far], ll_p):
+        fail("forward kernel differs from its plain version on the EM "
+             "batch's far-end windows")
     del xyc, out_k, out_p, xs, out_s, box
 
     # ---- K1, K2 decode and K3 at W = 32: the realign stage's fullest
@@ -1646,6 +1796,7 @@ def viterbi_kernel_phase(engine, pairs, dev, counters, res: dict) -> dict:
         forward_loglik_plain,
     )
     from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
+    from nanopore_tpu_torch.ops.pairhmm import kernel_tables
     from nanopore_tpu_torch.ops.realign import realign_decode
     from nanopore_tpu_torch.ops.traceback import (
         rle_ops_batch,
@@ -1784,17 +1935,23 @@ def viterbi_kernel_phase(engine, pairs, dev, counters, res: dict) -> dict:
     if ll_rel > 1e-5 or k2_rel > 1e-5 or above:
         fail("forward kernel outside tolerance")
     ms = cuda_ms(lambda: forward_loglik(xyc, m, n, params), 3)
-    bound, by = realign_bound(FORWARD_OPS_PER_CELL, W, need,
-                              (need - B) * W + 12 * B)
+    two = forward.two_term_sum(kernel_tables(params))
+    # a code byte a diagonal of each read; m, n, the loglik and the
+    # switch diagonal
+    bound, by = realign_bound(
+        FORWARD_SHORT_OPS_PER_CELL if two else FORWARD_OPS_PER_CELL, W,
+        need, (need - B) * W + 16 * B)
     res["forward"] = dict(
         per_batch=launches_per_call(forward.LAUNCHES, lambda: forward_loglik(
             xyc, m, n, params)),
         ms=ms, plain_ms=plain_ms, plain_reads=P, max_abs_err=err,
-        bound_ms=bound, bound_by=by,
+        bound_ms=bound, bound_by=by, two_term=two,
     )
-    print("K6 forward: %.3f ms per batch of %d, bound %.4f ms (%s), plain "
-          "%.1f ms on %d reads" % (ms, B, bound, by, plain_ms, P))
+    print("K6 forward (%s sum): %.3f ms per batch of %d, bound %.4f ms (%s), "
+          "plain %.1f ms on %d reads" % ("two-term" if two else "5-way", ms,
+                                         B, bound, by, plain_ms, P))
     del out_k, bp, xyc
+    forward_ragged_check(dev, params)
 
     # ---- K6 through its entry point ----
     torch.cuda.synchronize()
@@ -1987,6 +2144,24 @@ def main() -> int:
                     a["local_bytes"],
             })
         attrs["viterbi"].update({
+            "smem_block" + tag: a["static_smem"],
+            "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
+        })
+        for two in (True, False):
+            a = forward.kernel_attributes(width, two)
+            print("forward %s sum W=%d: %d registers, %d bytes of local "
+                  "memory a thread, %d bytes of static shared memory a block "
+                  "of %d threads and %d reads"
+                  % ("two-term" if two else "5-way", width, a["registers"],
+                     a["local_bytes"], a["static_smem"], a["threads"],
+                     a["reads"]))
+            attrs.setdefault("forward", {}).update({
+                ("registers" if two else "registers_5way") + tag:
+                    a["registers"],
+                ("local_bytes" if two else "local_bytes_5way") + tag:
+                    a["local_bytes"],
+            })
+        attrs["forward"].update({
             "smem_block" + tag: a["static_smem"],
             "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
         })

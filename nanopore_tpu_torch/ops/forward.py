@@ -15,10 +15,25 @@ version below, operation for operation (the forward of
   summed before the band shift, match emission times (shifted sum times
   the rescale ratio r);
 * rescale on even diagonals only, by the band maximum (``safe`` = 1
-  where the band is all zero), with ``ls += log(safe)``: a plain f32
-  sum, no Kahan term (the JAX kernel's);
+  where the maximum is not above 0, or is NaN), with
+  ``ls += log(safe)``: a plain f32 sum, no Kahan term (the JAX
+  kernel's);
 * ``loglik = log(max(fin, 1e-37)) + ls`` at band cell 0 of diagonal
-  m + n, ``fin`` the sum of the 5 states there.
+  m + n, ``fin`` the sum of the 5 states there (a NaN ``fin`` stays
+  NaN).
+
+The kernel's two-term gap sum: where the 12 transitions between two
+different gap states are 0 (the canonical fiveState structure, every
+shipped model; :func:`two_term_sum`), a gap state d sums only
+``tf[0->d] p0 + tf[d->d] pd``.  The three other gap terms of the 5-way
+sum are ``0 * ps``, a zero while ``ps`` is finite, and adding a zero
+changes nothing, so the two sums agree to the bit on finite states.  A
+non-finite state (after a rescale by a subnormal band maximum, whose
+inverse overflows, or an overflow) makes ``0 * ps`` NaN; the kernel
+checks every pair of diagonals before it keeps it and, at the first
+check that fails, runs the rest of the read with the 5-way sum from
+the states before that pair (``csrc/forward.cu`` gives the argument).
+The plain version is the 5-way sum throughout.
 """
 
 from __future__ import annotations
@@ -39,9 +54,50 @@ from nanopore_tpu_torch.ops.realign import (
 
 LAUNCHES = kb.LaunchCounter("forward")
 _SIG = {
-    "np_forward_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p] * 2,
+    "np_forward_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p] * 3,
+    "np_forward_attrs": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "np_forward_rcp_check": [ctypes.c_void_p] * 2,
 }
+
+
+def two_term_sum(tables: torch.Tensor) -> bool:
+    """True when the kernel may take its two-term gap sum: every one of
+    the 12 transitions from one gap state to another, ``tf[g -> h]`` with
+    g != h in 1..4, is exactly 0 (the canonical fiveState structure).
+    ``tables`` is ``ops.pairhmm.kernel_tables``' output.  Not a user
+    switch: where this holds both sums give the same bits
+    (``csrc/forward.cu`` gives the argument)."""
+    tf = tables[:25].reshape(NUM_STATES, NUM_STATES)  # [from, to]
+    return all(bool(tf[g, h] == 0) for g in range(1, NUM_STATES)
+               for h in range(1, NUM_STATES) if g != h)
+
+
+def kernel_attributes(W: int, two_term: bool = True) -> dict:
+    """The compiled kernel's registers, local-memory (spill) bytes per
+    thread, static shared memory per block, and threads and reads per
+    block at band width ``W``, for the two-term or the 5-way gap sum
+    (needs the card: builds the kernel)."""
+    lib = kb.library("forward", _SIG)
+    vals = (ctypes.c_int * 5)()
+    kb.check(lib, lib.np_forward_attrs(W, int(two_term), vals),
+             "forward attrs")
+    return dict(zip(("registers", "local_bytes", "static_smem", "threads",
+                     "reads"), vals))
+
+
+def reciprocal_mismatches(device="cuda") -> int:
+    """How many positive floats x (subnormals and inf included) get
+    another bit pattern from the kernel's call-free reciprocal of the
+    band maximum than from ``__frcp_rn`` (needs the card: builds and
+    runs the kernel's check over all 2.1e9 of them; 0 is the claim)."""
+    lib = kb.library("forward", _SIG)
+    dev = torch.device(device)
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.np_forward_rcp_check(kb.ptr(bad), kb.stream_of(bad))
+    kb.check(lib, rc, "forward rcp check")
+    return int(bad.item())
 
 
 def forward_loglik(xyc, m, n, params: KernelParams) -> torch.Tensor:
@@ -53,25 +109,36 @@ def forward_loglik(xyc, m, n, params: KernelParams) -> torch.Tensor:
     _check_inputs(xyc, m, n)
     if xyc.device.type == "cpu":
         return forward_loglik_plain(xyc, m, n, params)
+    tables = kernel_tables(params)
+    return _launch(xyc, m, n, tables, two_term_sum(tables))["loglik"]
+
+
+def _launch(xyc, m, n, tables, two_term: bool) -> dict:
+    """The kernel on CUDA tensors with ``tables`` (``kernel_tables``), at
+    its two-term or 5-way gap sum (:func:`forward_loglik` picks it with
+    :func:`two_term_sum`); one count per launch.  Returns ``loglik`` and
+    ``switched`` (B,) int32: the first diagonal a read computed with the
+    5-way sum after a failed check of the two-term sum, or -1."""
     B, k_pad, W = xyc.shape
     if W not in KERNEL_BAND_WIDTHS or k_pad % 2:
         raise ValueError(
             "forward kernel serves W in %s and even k_pad, got W=%d k_pad=%d"
             % (KERNEL_BAND_WIDTHS, W, k_pad)
         )
-    loglik = xyc.new_empty(B, dtype=torch.float32)
+    out = {"loglik": xyc.new_empty(B, dtype=torch.float32),
+           "switched": xyc.new_empty(B, dtype=torch.int32)}
     if B == 0:
-        return loglik
-    tables = kernel_tables(params)
+        return out
     lib = kb.library("forward", _SIG)
     with torch.cuda.device(xyc.device):
         rc = lib.np_forward_launch(
             ctypes.c_void_p(tables.data_ptr()), kb.ptr(xyc), kb.ptr(m),
-            kb.ptr(n), B, k_pad, W, kb.ptr(loglik), kb.stream_of(xyc),
+            kb.ptr(n), B, k_pad, W, int(two_term), kb.ptr(out["loglik"]),
+            kb.ptr(out["switched"]), kb.stream_of(xyc),
         )
     kb.check(lib, rc, "forward")
     LAUNCHES.add()
-    return loglik
+    return out
 
 
 def forward_loglik_plain(xyc, m, n, params: KernelParams) -> torch.Tensor:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the realign kernel's modes, the Viterbi kernel, the two walkers
-and the pack kernel of several checkouts of the port, in turns, on the
-batches that ``chip_smoke.py`` drives.
+"""Time the realign kernel's modes, the Viterbi kernel, the forward-only
+kernel, the two walkers and the pack kernel of several checkouts of the
+port, in turns, on the batches that ``chip_smoke.py`` drives.
 
     python3 realign_ab.py TREE [TREE ...] [--reps 3] [--repeat N] [--out FILE]
 
@@ -16,11 +16,16 @@ pack inputs of the realign batches of chip_smoke's paths, all from
 * ``viterbi_w64``: the Viterbi kernel on ``decode_w64``'s codes under
   the default model (the digest covers ``score``, ``fstate`` and the
   whole backpointer plane);
+* ``forward_w64``: the forward-only kernel on ``decode_w64``'s codes
+  under the default model (the digest covers the loglik bits);
 * ``em``: the EM path's batch (B = 512, W = 64, windows of pad 256,
   under chip_smoke's random model), and ``em_split_<s>``, the same batch
   in consecutive calls of s reads, the launches that a workspace of
   k_pad rows a read gives under the 8 GiB cap;
-* ``decode_w32``: the realign stage's fullest bucket (W = 32);
+* ``forward_em``: the forward-only kernel on the EM batch's codes under
+  its random model (the far-end windows of ROADMAP C6 among them);
+* ``decode_w32``: the realign stage's fullest bucket (W = 32), and
+  ``forward_w32``, the forward-only kernel on its codes;
 * ``gamma``: AlignmentUncertainty's fullest batch (W = 64, blasr_hmm_0);
 * ``decode_gamma``: the rescore's fullest batch (W = 32);
 * ``exp``: the SNP caller's main bucket and ``exp_far_<n>x<m>``, each of
@@ -45,10 +50,11 @@ scheduler where the batch held one: an occupancy probe) and raises the
 realign workspace cap N-fold so that each batch keeps its launches.
 
 ``--only PREFIX[,PREFIX...]`` exists for ablation runs, where the trees
-differ in one kernel (``--only walk_`` for the walkers): it times only
-the batches whose names start with one of the prefixes, and the JSON
-lists the others under ``left_out``.  A comparison of two commits times
-every batch.
+differ in one kernel (``--only walk_`` for the walkers, ``--only
+forward_`` for the forward-only kernel): it times only the batches
+whose names start with one of the prefixes, builds only the kernels
+they launch, and the JSON lists the others under ``left_out``.  A
+comparison of two commits times every batch.
 """
 
 from __future__ import annotations
@@ -123,6 +129,7 @@ def build_batches(workdir: str) -> list[dict]:
     save("decode_w64", cs.main_path_batch(engine, fq, B), 64, None, "decode",
          "default")
     out.append(dict(out[-1], name="viterbi_w64", mode="viterbi"))
+    out.append(dict(out[-1], name="forward_w64", mode="forward"))
     out.append(dict(out[-1], name="walk_mea_w64", mode="walk_mea"))
     out.append(dict(out[-1], name="walk_viterbi_w64", mode="walk_viterbi"))
     out.append(dict(out[-1], name="pack_w64", mode="pack"))
@@ -136,14 +143,16 @@ def build_batches(workdir: str) -> list[dict]:
     chain_sam_file(mapped, chained, fq2, fa2)
     em_pairs = cs.chained_pairs(chained, fa2, 256)[:B]
     save("em", em_pairs, 64, None, "em", "random")
+    out.append(dict(out[-1], name="forward_em", mode="forward"))
     # the parent's plan: B x k_pad rows of workspace, cut by read count
-    k_pad = out[-1]["k_pad"]
+    k_pad = out[-2]["k_pad"]
     split = (8 << 30) // (k_pad * 5 * 64 * 4 + (k_pad + 1) * 4)
-    out.append(dict(out[-1], name="em_split_%d" % split, split=split))
+    out.append(dict(out[-2], name="em_split_%d" % split, split=split))
     pairs, k_max, _ = cs.fullest_bucket(cs.chained_pairs(chained, fa2, 128))
     save("decode_w32", pairs[:B], 32, k_max, "decode", "default")
-    out.append(dict(out[-1], name="walk_mea_w32", mode="walk_mea"))
-    out.append(dict(out[-1], name="pack_w32", mode="pack"))
+    out.append(dict(out[-1], name="forward_w32", mode="forward"))
+    out.append(dict(out[-2], name="walk_mea_w32", mode="walk_mea"))
+    out.append(dict(out[-3], name="pack_w32", mode="pack"))
     # the posterior path
     post_dir = os.path.join(workdir, "post")
     os.makedirs(post_dir, exist_ok=True)
@@ -205,6 +214,7 @@ def time_tree(batches: list[dict], reps: int, repeat: int = 1) -> list[dict]:
     import torch
 
     from nanopore_tpu_torch.kernels import build
+    from nanopore_tpu_torch.ops import forward as F
     from nanopore_tpu_torch.ops import pack as P
     from nanopore_tpu_torch.ops import realign as R
     from nanopore_tpu_torch.ops import traceback as T
@@ -213,15 +223,21 @@ def time_tree(batches: list[dict], reps: int, repeat: int = 1) -> list[dict]:
     from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
     from nanopore_tpu_torch.ops.viterbi import viterbi_forward
 
+    # the kernels each batch launches, its untimed inputs included
+    libs = {"pack": ("pack",), "forward": ("pack", "forward"),
+            "viterbi": ("pack", "viterbi"),
+            "walk_viterbi": ("pack", "viterbi", "viterbi_traceback"),
+            "walk_mea": ("pack", "realign", "traceback")}
+    names = sorted({lib for bt in batches
+                    for lib in libs.get(bt["mode"], ("pack", "realign"))})
     print("tree %s: build %.1f s" % (os.path.dirname(os.path.dirname(
-        R.__file__)), build.build(("pack", "realign", "traceback", "viterbi",
-                                   "viterbi_traceback"))), flush=True)
+        R.__file__)), build.build(names)), flush=True)
     dev = torch.device("cuda", 0)
     R.WORKSPACE_BYTES *= repeat
     takes_kend = "kend" in inspect.signature(R.realign_em).parameters
     counters = (P.LAUNCHES, R.LAUNCHES, R.EM_LAUNCHES, R.GAMMA_LAUNCHES,
                 R.DECODE_GAMMA_LAUNCHES, R.EXP_LAUNCHES, T.LAUNCHES,
-                T.VIT_LAUNCHES, V.LAUNCHES)
+                T.VIT_LAUNCHES, V.LAUNCHES, F.LAUNCHES)
     res = []
     for bt in batches:
         z = {k: np.concatenate([v] * repeat)
@@ -253,6 +269,8 @@ def time_tree(batches: list[dict], reps: int, repeat: int = 1) -> list[dict]:
                 return {"ops": ops, "end": end}
             if bt["mode"] == "viterbi":
                 return viterbi_forward(x, mm, nn, params)
+            if bt["mode"] == "forward":
+                return {"loglik": F.forward_loglik(x, mm, nn, params)}
             if bt["mode"] == "decode":
                 return R.realign_decode(x, mm, nn, params, **kw)
             if bt["mode"] == "decode_gamma":
