@@ -40,6 +40,12 @@ from nanopore_tpu_torch.ops.posteriors import rescore_from_post
 from nanopore_tpu_torch.runtime.prefetch import prefetched_map
 
 TRAINED_HMM_DIR = os.path.join(os.path.dirname(__file__), "..", "models")
+# The gamma band a batch keeps on its device, (B, k_pad + 1, W) f32, at
+# most this many bytes: a global record's window is the whole reference
+# (73,728 diagonals on a 48.5 kb one, 9.7 GB for 512 reads at W = 64),
+# so a bucket of them runs in smaller batches.  A read's posterior does
+# not depend on its batch.
+GAMMA_BAND_BYTES = 2 << 30
 
 
 def trained_hmm_path(name: str = "blasr_hmm_0.txt") -> str:
@@ -84,8 +90,11 @@ class AlignmentUncertainty(Analysis):
 
         def descriptors():
             for (n_pad, m_pad), idxs in buckets.items():
-                for s in range(0, len(idxs), batch_size):
-                    yield idxs[s : s + batch_size], n_pad + m_pad
+                k_max = n_pad + m_pad
+                step = max(1, min(batch_size, GAMMA_BAND_BYTES // (
+                    (k_max + 1) * self.band_width * 4)))
+                for s in range(0, len(idxs), step):
+                    yield idxs[s : s + step], k_max
 
         def build(desc):
             # pack, upload and launch on the prefetch worker pool

@@ -1,5 +1,9 @@
 """Command-line interface of the PyTorch/CUDA port.
 
+``python -m nanopore_tpu_torch run <workingDir>`` runs the whole
+pipeline on a working directory (the reference's ``make run`` /
+``pipeline.sh <workingDir>``, reference Makefile:8-12), with the
+mapper, analysis and meta-analysis lists as flags.
 ``python -m nanopore_tpu_torch map reads.fq ref.fa out.sam`` maps a FASTQ
 against a reference; ``chain``, ``realign``, ``em`` and ``modify-hmm``
 expose the post-processing building blocks.  Every subcommand that
@@ -13,6 +17,30 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+
+
+def cmd_run(args) -> int:
+    from nanopore_tpu_torch.align.em import EmOptions
+    from nanopore_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    config = PipelineConfig(device=args.device)
+    if args.mappers:
+        config.mappers = args.mappers.split(",")
+    if args.analyses:
+        config.analyses = args.analyses.split(",")
+    if args.meta_analyses is not None:
+        config.meta_analyses = (
+            args.meta_analyses.split(",") if args.meta_analyses else []
+        )
+    config.max_workers = args.max_threads
+    config.em_options = EmOptions(
+        trials=args.em_trials, iterations=args.em_iterations
+    )
+    config.mutate_references = args.mutate_references
+    config.sample_reads = args.sample_reads
+    out = run_pipeline(args.working_dir, config)
+    print("pipeline complete: %s" % out)
+    return 0
 
 
 def cmd_map(args) -> int:
@@ -91,6 +119,19 @@ def main(argv=None) -> int:
     def add_device(p):
         p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                        help="default: cuda (raises when no card is present)")
+
+    p = sub.add_parser("run", help="run the full pipeline on a working dir")
+    p.add_argument("working_dir")
+    p.add_argument("--mappers", default="", help="comma-separated mapper names")
+    p.add_argument("--analyses", default="", help="comma-separated analyses")
+    p.add_argument("--meta-analyses", default=None)
+    p.add_argument("--max-threads", type=int, default=4)
+    p.add_argument("--em-trials", type=int, default=3)
+    p.add_argument("--em-iterations", type=int, default=100)
+    p.add_argument("--mutate-references", action="store_true")
+    p.add_argument("--sample-reads", action="store_true")
+    add_device(p)
+    p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("map", help="map a FASTQ against a reference")
     p.add_argument("reads")

@@ -16,6 +16,8 @@ Conventions (matching pysam 0.7.x as consumed by the reference):
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 from dataclasses import dataclass, field
 from typing import Iterator, Optional
@@ -31,18 +33,28 @@ class CIG:
     CONSUMES_REF = (True, False, True, True, False, False, False, True, True)
 
 
+_CIGAR_RE = re.compile(r"(\d*)(\D)")  # digits (maybe none), then an op
+
+
 def parse_cigar(cigar_str: str) -> list[tuple[int, int]]:
     if cigar_str == "*" or not cigar_str:
         return []
-    ops = []
-    num = 0
-    for ch in cigar_str:
-        if ch.isdigit():
-            num = num * 10 + ord(ch) - 48
-        else:
-            ops.append((CIG.FROM_CHAR[ch], num))
-            num = 0
-    return ops
+    return [(CIG.FROM_CHAR[ch], int(num) if num else 0)
+            for num, ch in _CIGAR_RE.findall(cigar_str)]
+
+
+def cigar_columns(cigar: list[tuple[int, int]]) -> tuple[np.ndarray, np.ndarray]:
+    """Per alignment column of ``cigar`` (one for each base of its M, =,
+    X, I, D and N ops; clips and pads make none): whether it takes a
+    read base, and whether it takes a reference base."""
+    n = len(cigar)
+    ops = np.fromiter((op for op, _ in cigar), np.int64, n)
+    lens = np.fromiter((length for _, length in cigar), np.int64, n)
+    on_read = np.isin(ops, (CIG.M, CIG.EQ, CIG.X, CIG.I))
+    on_ref = np.isin(ops, (CIG.M, CIG.EQ, CIG.X, CIG.D, CIG.N))
+    cols = on_read | on_ref
+    return (np.repeat(on_read[cols], lens[cols]),
+            np.repeat(on_ref[cols], lens[cols]))
 
 
 def cigar_to_string(cigar: list[tuple[int, int]]) -> str:
@@ -146,30 +158,23 @@ class SamRecord:
             # S/H/P: excluded entirely
         return pairs
 
+    def aligned_columns(self) -> tuple[np.ndarray, np.ndarray]:
+        """``aligned_pairs`` as two int64 arrays, -1 where it has None."""
+        on_read, on_ref = cigar_columns(self.cigar)
+        read_pos = np.where(on_read, np.cumsum(on_read) - 1, -1)
+        ref_pos = np.where(on_ref, self.pos + np.cumsum(on_ref) - 1, -1)
+        return read_pos, ref_pos
+
     def aligned_pair_arrays(self) -> tuple[np.ndarray, np.ndarray]:
         """Vectorized match-pair coordinates: (readPos[int32], refPos[int32]).
 
         Only M/=/X columns (both sides aligned) — the columns AlignedPair
         iterates (utils.py:143-154) — computed without a per-base Python loop.
         """
-        n_match = sum(l for op, l in self.cigar if op in (CIG.M, CIG.EQ, CIG.X))
-        read_pos = np.empty(n_match, dtype=np.int32)
-        ref_pos = np.empty(n_match, dtype=np.int32)
-        out = 0
-        rp = 0
-        fp = self.pos
-        for op, length in self.cigar:
-            if op in (CIG.M, CIG.EQ, CIG.X):
-                ar = np.arange(length, dtype=np.int32)
-                read_pos[out : out + length] = rp + ar
-                ref_pos[out : out + length] = fp + ar
-                out += length
-                rp += length
-                fp += length
-            elif op == CIG.I:
-                rp += length
-            elif op in (CIG.D, CIG.N):
-                fp += length
+        on_read, on_ref = cigar_columns(self.cigar)
+        match = on_read & on_ref
+        read_pos = (np.cumsum(on_read) - 1)[match].astype(np.int32)
+        ref_pos = (self.pos + np.cumsum(on_ref) - 1)[match].astype(np.int32)
         return read_pos, ref_pos
 
     # --- text form -------------------------------------------------------

@@ -12,6 +12,8 @@ import os
 import logging
 from typing import Iterator, Optional
 
+import numpy as np
+
 logger = logging.getLogger("nanopore_tpu_torch")
 
 
@@ -123,7 +125,9 @@ def fastq_read(path_or_handle) -> Iterator[tuple[str, str, Optional[list[int]]]]
             plus = handle.readline().strip()
             assert plus.startswith("+"), "bad fastq separator: %r" % plus
             qual = handle.readline().strip()
-            quals = None if qual == "*" else [ord(c) - 33 for c in qual]
+            quals = None if qual == "*" else (
+                np.frombuffer(qual.encode("latin-1"), np.uint8).astype(
+                    np.int64) - 33).tolist()
             if quals is not None:
                 assert len(quals) == len(seq)
             yield header[1:], seq, quals

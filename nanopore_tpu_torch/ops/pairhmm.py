@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from nanopore_tpu_torch.align.model import PairHmmModel
-from nanopore_tpu_torch.io.sam import CIG
+from nanopore_tpu_torch.io.sam import cigar_columns
 
 DEFAULT_BAND_WIDTH = 64
 
@@ -103,19 +103,9 @@ def band_offsets_from_cigar(
     """
     if k_max is None:
         k_max = m + n
-    di, dj = [], []
-    for op, length in cigar:
-        if op in (CIG.M, CIG.EQ, CIG.X):
-            di.append(np.ones(length, np.int64)); dj.append(np.ones(length, np.int64))
-        elif op == CIG.I:
-            di.append(np.ones(length, np.int64)); dj.append(np.zeros(length, np.int64))
-        elif op in (CIG.D, CIG.N):
-            di.append(np.zeros(length, np.int64)); dj.append(np.ones(length, np.int64))
-    if di:
-        i_path = np.concatenate([[0], np.cumsum(np.concatenate(di))])
-        j_path = np.concatenate([[0], np.cumsum(np.concatenate(dj))])
-    else:
-        i_path = np.array([0]); j_path = np.array([0])
+    di, dj = cigar_columns(cigar)
+    i_path = np.concatenate([[0], np.cumsum(di)])
+    j_path = np.concatenate([[0], np.cumsum(dj)])
     if i_path[-1] > m or j_path[-1] > n:
         raise ValueError("guide cigar overruns sequences")
     k_path = i_path + j_path

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nanopore_tpu_torch.io.sam import CIG
+from nanopore_tpu_torch.io.sam import cigar_columns
 
 
 def path_band_indices(
@@ -40,26 +40,15 @@ def path_band_indices(
     posterior but still count — rescore_by_posterior semantics).
     """
     offsets = np.asarray(offsets)
-    K1 = offsets.shape[0]
-    pb = np.full(K1, -1, np.int32)
-    i = j = 0
-    count = 0
-    for op, length in cigar:
-        if op in (CIG.M, CIG.EQ, CIG.X):
-            ii = i + np.arange(1, length + 1)
-            jj = j + np.arange(1, length + 1)
-            kk = ii + jj
-            bb = jj - offsets[kk]
-            inb = (bb >= 0) & (bb < band_width)
-            pb[kk[inb]] = bb[inb]
-            count += length
-            i += length
-            j += length
-        elif op == CIG.I:
-            i += length
-        elif op in (CIG.D, CIG.N):
-            j += length
-    return pb, count
+    pb = np.full(offsets.shape[0], -1, np.int32)
+    on_read, on_ref = cigar_columns(cigar)
+    match = on_read & on_ref
+    jj = np.cumsum(on_ref)[match]  # the cell each aligned pair ends in
+    kk = np.cumsum(on_read)[match] + jj
+    bb = jj - offsets[kk]
+    inb = (bb >= 0) & (bb < band_width)
+    pb[kk[inb]] = bb[inb]
+    return pb, int(match.sum())
 
 
 def rescore_cigars(

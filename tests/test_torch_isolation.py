@@ -56,3 +56,38 @@ def test_source_names_no_jax_or_reference_import():
         if pattern.search(p.read_text())
     ]
     assert offenders == []
+
+
+PIPELINE_MODULES = [
+    "nanopore_tpu_torch.ops.reductions",
+    "nanopore_tpu_torch.analyses.substitutions",
+    "nanopore_tpu_torch.analyses.coverage",
+    "nanopore_tpu_torch.analyses.indels",
+    "nanopore_tpu_torch.analyses.kmer",
+    "nanopore_tpu_torch.analyses.channel",
+    "nanopore_tpu_torch.analyses.hmm_analysis",
+    "nanopore_tpu_torch.analyses.consensus",
+    "nanopore_tpu_torch.analyses.qc",
+    "nanopore_tpu_torch.analyses.read_sampler",
+    "nanopore_tpu_torch.meta",
+    "nanopore_tpu_torch.meta.base",
+    "nanopore_tpu_torch.meta.unmapped",
+    "nanopore_tpu_torch.meta.coverage_summary",
+    "nanopore_tpu_torch.meta.hmm_meta",
+    "nanopore_tpu_torch.runtime.scheduler",
+    "nanopore_tpu_torch.pipeline",
+]
+
+
+def test_the_pipeline_modules_are_imported_and_their_sources_checked():
+    """Both checks above walk the package, so they cover the pipeline's
+    modules; this holds that they do."""
+    mods = _port_modules()
+    missing = [m for m in PIPELINE_MODULES if m not in mods]
+    assert missing == []
+    for m in PIPELINE_MODULES:
+        rel = pathlib.Path(*m.split("."))
+        path = ROOT / rel.with_suffix(".py")
+        if not path.exists():
+            path = ROOT / rel / "__init__.py"
+        assert path in set(PKG.rglob("*.py")), m
