@@ -166,11 +166,13 @@
    5 kb, 5 % deletions, 10 % substitutions, on the 48,502-bp reference)
    in the reference layout, and ``nanopore_tpu_torch.cli.main(["run",
    wd, "--max-threads", "4", "--em-trials", "1", "--em-iterations",
-   "5"])`` in that process with every counter set to 0 just before: the
-   16 default mappers, 9 default analyses and 5 default meta-analyses;
-   the EM depth (1 trial x 5 iterations against the reference's 3 x 100)
-   is the one cut.  Every task of ``pipeline_stats.json`` done on its
-   first attempt (a retry that succeeds is no pass); every experiment's
+   "5", "--meta-analyses", ...])`` in that process with every counter
+   set to 0 just before: the 16 default mappers, 9 default analyses and
+   5 default meta-analyses, with ``CoverageDepth`` and
+   ``CustomTrackAssemblyHub`` beside them; the EM depth (1 trial x 5
+   iterations against the reference's 3 x 100) is the one cut.  Every
+   task of ``pipeline_stats.json`` done on its first attempt (a retry
+   that succeeds is no pass); every experiment's
    ``mapping.sam`` and the 9 ``DONE`` markers; each meta-analysis's data
    files; pack, realign, traceback, realign_em and realign_gamma
    launched, realign_exp, viterbi, viterbi_traceback and forward not;
@@ -183,9 +185,23 @@
    read.  Prints the pipeline's wall, its task seconds by kind and by
    analysis, the five slowest tasks, its peak device memory and its
    launches; the parent waits for it after step 9.
-11. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
-   ``launches_pipeline_path`` on every row) and, last, ``{"ok": true,
-   "device": {...}}``.
+11. ``rescue_2d`` on the card, in the same child after step 10: a
+   working directory in the reference layout holding the pipeline's
+   processed reference, its reads as both template and complement, a
+   header-only template and complement SAM, and a ``LastParams``
+   mapping of the reads (``run_mapper``; the pipeline runs no plain
+   ``LastParams`` experiment) as the 2D SAM, so every mapped read is
+   rescued in both read types; ``scripts.rescue_2d.main`` on them with
+   every counter set to 0 just before: pack, realign and traceback
+   launched, nothing else; each TSV one row per mapped 2D
+   read; the forward-strand reads' (names ending ``_0``) median
+   ``Identity`` above 0.85 (10 % substitutions, a quarter of them the
+   read's own base: 7.5 % of aligned bases differ).  Then two of the
+   jobs through ``rescue_metrics`` on the card and on the CPU as one
+   batch: rows identical to each other and to the script's.
+12. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
+   ``launches_pipeline_path`` and a ``launches_rescue_2d_path`` on every
+   row) and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, without a CUDA device or without the
@@ -2065,6 +2081,8 @@ def viterbi_path_phase(workdir: str, fa: str, fq: str, dev, counters) -> dict:
 # x 5 iterations against the reference's 3 x 100)
 PIPELINE_ARGS = ["--max-threads", "4", "--em-trials", "1",
                  "--em-iterations", "5"]
+# the five default meta-analyses, and two host ones beside them
+EXTRA_META = ["CoverageDepth", "CustomTrackAssemblyHub"]
 PIPELINE_ANALYSES = ["Hmm", "GlobalCoverage", "LocalCoverage",
                      "Substitutions", "Indels", "AlignmentUncertainty",
                      "ChannelMappability", "KmerAnalysis", "IndelKmerAnalysis"]
@@ -2089,6 +2107,15 @@ META_FILES = {
         "hmm_2d.dot", "matchEmissionsNormalisedByReference_2d.tsv",
         "matchEmissionsUnnormalised_2d.tsv",
         "matchEmissionsUnnormalisedStdErrors_2d.tsv"],
+    "CoverageDepth": [
+        "experiment_reads.fq_ref.fa_%s%s" % (mapper, tail)
+        for mapper in ("LastParamsChain", "BwaParamsRealignEm")
+        for tail in ("_Depth.txt", "_Stats.out")],
+    "CustomTrackAssemblyHub": [
+        "hub_ref/hub.txt", "hub_ref/genomes.txt", "hub_ref/ref/ref.2bit",
+        "hub_ref/ref/trackDb.txt",
+        "hub_ref/ref/experiment_reads.fq_ref.fa_LastParamsChain.bam",
+        "hub_ref/ref/experiment_reads.fq_ref.fa_LastParamsChain.bam.bai"],
 }
 # the workload's substitutions draw a random base, the read's own a
 # quarter of the time: 10 % x 3/4 = 7.5 % of aligned read bases differ
@@ -2207,11 +2234,12 @@ def pipeline_phase(workdir: str, dev, counters) -> dict:
     for sub, src in (("readFastqFiles/2d", fq), ("referenceFastaFiles", fa)):
         os.makedirs(os.path.join(wd, sub))
         shutil.copy(src, os.path.join(wd, sub))
-    argv = ["run", wd] + PIPELINE_ARGS
+    metas = DEFAULT_META_ANALYSES + EXTRA_META
+    argv = ["run", wd] + PIPELINE_ARGS + ["--meta-analyses", ",".join(metas)]
     print("pipeline: %s (%d mappers, %d analyses, %d meta-analyses; the EM "
           "depth, 1 trial x 5 iterations, is the one cut)"
           % (" ".join(argv), len(DEFAULT_MAPPERS), len(PIPELINE_ANALYSES),
-             len(DEFAULT_META_ANALYSES)))
+             len(metas)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters:
@@ -2229,7 +2257,7 @@ def pipeline_phase(workdir: str, dev, counters) -> dict:
     bad = {k: (v["status"], v["attempts"]) for k, v in stats.items()
            if v["status"] != "done" or v["attempts"] != 1}
     want_tasks = len(DEFAULT_MAPPERS) * (1 + len(PIPELINE_ANALYSES)) + len(
-        DEFAULT_META_ANALYSES)
+        metas)
     if bad or len(stats) != want_tasks:
         fail("pipeline tasks not done on their first attempt: %s (%d tasks)"
              % (bad, len(stats)))
@@ -2267,7 +2295,7 @@ def pipeline_phase(workdir: str, dev, counters) -> dict:
         posteriors[mapper] = p
         if not (np.isfinite(p) and 0.0 < p <= 1.0):
             fail("%s: weighted average posterior %r" % (mapper, p))
-    for meta in DEFAULT_META_ANALYSES:
+    for meta in metas:
         d = os.path.join(out, "metaAnalysis_" + meta)
         missing = [f for f in META_FILES[meta]
                    if not os.path.exists(os.path.join(d, f))]
@@ -2297,6 +2325,106 @@ def pipeline_phase(workdir: str, dev, counters) -> dict:
     return launches
 
 
+RESCUE_IDENTITY = 0.85  # the forward-strand reads' median Identity
+RESCUE_CPU_JOBS = 2  # jobs held card against CPU (~7 s each on the CPU)
+
+
+def rescue_phase(workdir: str, dev, counters) -> dict:
+    """Phase 11: ``rescue_2d`` on the card, its 2D SAM a ``LastParams``
+    mapping of phase 10's reads (the pipeline runs no plain
+    ``LastParams`` experiment), every counter set to 0 just before it;
+    returns its launch counts.  Then a few of its jobs on the card and
+    on the CPU."""
+    import shutil
+
+    from nanopore_tpu_torch.align.model import PairHmmModel
+    from nanopore_tpu_torch.io.sam import SamReader, SamWriter
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict, read_fastq_dict
+    from nanopore_tpu_torch.mapping.runner import run_mapper
+    from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+    from nanopore_tpu_torch.scripts import rescue_2d
+
+    t_phase = time.perf_counter()
+    out = os.path.join(workdir, "pipeline", "wd", "output")
+    fa = os.path.join(out, "processedReferenceFastaFiles", "ref.fa")
+    fq = os.path.join(out, "processedReadFastqFiles", "2d", "reads.fq")
+    wd = os.path.join(workdir, "rescue")
+    shutil.rmtree(wd, ignore_errors=True)
+    os.makedirs(wd)
+    twod = os.path.join(wd, "2d.sam")
+    run_mapper("LastParams", fq, "2d", fa, twod, device=dev)
+    os.makedirs(os.path.join(wd, "referenceFastaFiles"))
+    shutil.copy(fa, os.path.join(wd, "referenceFastaFiles"))
+    sams = []
+    for read_type in ("template", "complement"):
+        os.makedirs(os.path.join(wd, "readFastqFiles", read_type))
+        shutil.copy(fq, os.path.join(wd, "readFastqFiles", read_type))
+        sams.append(os.path.join(wd, read_type + ".sam"))
+        SamWriter(sams[-1], template=SamReader(twod)).close()
+    mapped = {r.qname: r for r in SamReader(twod).mapped()}
+    out_dir = os.path.join(wd, "output")
+    argv = sams + [twod, "--working-dir", wd, "--output-dir", out_dir]
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    if rescue_2d.main(argv) != 0:
+        fail("rescue_2d returned non-zero")
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    on = ("pack", "realign", "traceback")
+    if min(launches[k] for k in on) <= 0 or any(
+            v for k, v in launches.items() if k not in on):
+        fail("rescue_2d launches %s: want %s > 0 and the rest 0"
+             % (launches, on))
+    tables = {}
+    for read_type in ("template", "complement"):
+        with open(os.path.join(out_dir, read_type + "_metrics.tsv")) as fh:
+            lines = fh.read().splitlines()
+        if lines[0] + "\n" != rescue_2d.HEADER:
+            fail("rescue_2d %s header %r" % (read_type, lines[0]))
+        rows = {line.split("\t")[0]: line + "\n" for line in lines[1:]}
+        if len(lines) - 1 != len(mapped) or set(rows) != set(mapped):
+            fail("rescue_2d %s: %d rows for %d mapped 2D reads"
+                 % (read_type, len(lines) - 1, len(mapped)))
+        tables[read_type] = rows
+    cols = rescue_2d.HEADER.rstrip("\n").split("\t")
+    fwd = [row.split("\t") for name, row in tables["template"].items()
+           if name.endswith("_0")]
+    ident = float(np.median([float(r[cols.index("Identity")]) for r in fwd]))
+    cover = float(np.median([float(r[cols.index("ReferenceCoverage")])
+                             for r in fwd]))
+    print("rescue_2d: %d mapped 2D reads rescued as template and as "
+          "complement in %.3f s; forward-strand reads (%d): median Identity "
+          "%.5f, median ReferenceCoverage %.5f; launches %s"
+          % (len(mapped), wall, len(fwd), ident, cover, launches))
+    if not ident > RESCUE_IDENTITY:
+        fail("rescue_2d median Identity %.5f" % ident)
+
+    # a few jobs, one of each strand, as one batch on the card and the CPU
+    ref = read_fasta_dict(os.path.join(wd, "referenceFastaFiles", "ref.fa"))
+    seqs = read_fastq_dict(fq)
+    names = [next(n for n in mapped if n.endswith("_%d" % strand))
+             for strand in (0, 1)][:RESCUE_CPU_JOBS]
+    jobs = [(n, mapped[n].rname, seqs[n],
+             ref[mapped[n].rname][mapped[n].pos:mapped[n].aend])
+            for n in names]
+    t0 = time.perf_counter()
+    got = {}
+    for d in (dev, "cpu"):
+        params = make_kernel_params(PairHmmModel.default(), device=d)
+        got[str(d)] = rescue_2d.rescue_metrics(jobs, params, W, len(jobs), d)
+    want = [tables["template"][n] for n in names]
+    print("rescue_2d, card against CPU: %d jobs as one batch, rows %s "
+          "(%.1f s)" % (len(jobs), "identical" if got[str(dev)] == got["cpu"]
+                        == want else "DIFFER", time.perf_counter() - t0))
+    if not got[str(dev)] == got["cpu"] == want:
+        fail("rescue_2d rows: card %s, CPU %s, the script's %s"
+             % (got[str(dev)], got["cpu"], want))
+    print("phase 11 wall: %.1f s (rescue_2d %.1f s)"
+          % (time.perf_counter() - t_phase, wall))
+    return launches
+
+
 def launch_counters() -> tuple:
     from nanopore_tpu_torch.ops import forward, pack, realign, traceback, viterbi
 
@@ -2309,24 +2437,27 @@ def launch_counters() -> tuple:
 def pipeline_child() -> int:
     """Run as ``chip_smoke.py --pipeline`` in a child process, beside the
     parent's phases 2-9 (the pipeline's host work and the parent's plain
-    versions each hold a core; the card is idle most of either): phase
-    10, its launch counts written to ``<workdir>/pipeline/launches.json``
-    for the kernels line."""
+    versions each hold a core; the card is idle most of either): phases
+    10 and 11, their launch counts written to
+    ``<workdir>/pipeline/launches.json`` for the kernels line."""
     import torch
 
     sys.path.insert(0, ROOT)
     from nanopore_tpu_torch.kernels import build
 
     workdir = os.path.join(build.BUILD_DIR, "smoke")
-    launches = pipeline_phase(workdir, torch.device("cuda", 0),
-                              launch_counters())
+    dev = torch.device("cuda", 0)
+    counters = launch_counters()
+    runs = {"pipeline": pipeline_phase(workdir, dev, counters)}
+    runs["rescue_2d"] = rescue_phase(workdir, dev, counters)
     with open(os.path.join(workdir, "pipeline", "launches.json"), "w") as fh:
-        json.dump(launches, fh)
+        json.dump(runs, fh)
     return 0
 
 
 def start_pipeline_child(workdir: str):
-    """Start phase 10's child; it is killed at exit if still running."""
+    """Start the child of phases 10 and 11; it is killed at exit if still
+    running."""
     import atexit
 
     os.makedirs(workdir, exist_ok=True)
@@ -2346,11 +2477,12 @@ def start_pipeline_child(workdir: str):
 
 
 def finish_pipeline_child(proc, workdir: str) -> dict:
-    """Wait for phase 10's child, print its lines (not its log records)
-    and return its launch counts; its failure fails the script."""
+    """Wait for the child of phases 10 and 11, print its lines (not its
+    log records) and return each phase's launch counts; its failure
+    fails the script."""
     t0 = time.perf_counter()
     rc = proc.wait(timeout=1200)
-    print("phase 10 (a child process beside phases 2-9): waited %.1f s "
+    print("phases 10-11 (a child process beside phases 2-9): waited %.1f s "
           "after phase 9" % (time.perf_counter() - t0))
     with open(os.path.join(workdir, "pipeline_child.log")) as fh:
         lines = fh.read().splitlines()
@@ -2359,7 +2491,8 @@ def finish_pipeline_child(proc, workdir: str) -> dict:
             print(line)
     if rc != 0:
         print("\n".join(lines[-40:]))
-        fail("phase 10, the pipeline, exited with %d" % rc)
+        fail("phases 10-11, the pipeline and rescue_2d, exited with %d"
+             % rc)
     with open(os.path.join(workdir, "pipeline", "launches.json")) as fh:
         return json.load(fh)
 
@@ -2552,9 +2685,8 @@ def main() -> int:
     forward_entry = viterbi_kernel_phase(engine, main_pairs, dev, counters,
                                          res)
     vit_launches = viterbi_path_phase(workdir, fa, fq, dev, counters)
-    pipeline_launches = finish_pipeline_child(pipeline, workdir)
     other_runs = dict(post_launches, **vit_launches)
-    other_runs["pipeline"] = pipeline_launches
+    other_runs.update(finish_pipeline_child(pipeline, workdir))
     other_runs["forward_entry"] = forward_entry
 
     meta = {

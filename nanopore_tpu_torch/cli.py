@@ -6,10 +6,11 @@ pipeline on a working directory (the reference's ``make run`` /
 mapper, analysis and meta-analysis lists as flags.
 ``python -m nanopore_tpu_torch map reads.fq ref.fa out.sam`` maps a FASTQ
 against a reference; ``chain``, ``realign``, ``em`` and ``modify-hmm``
-expose the post-processing building blocks.  Every subcommand that
-computes on a device runs on the card unless ``--device cpu`` asks for
-the plain PyTorch path on the CPU.  The kernels build with nvcc on first
-use.
+expose the post-processing building blocks; ``sam2bam`` and ``bam2sam``
+convert between SAM and a sorted, indexed BAM on the host.  Every
+subcommand that computes on a device runs on the card unless ``--device
+cpu`` asks for the plain PyTorch path on the CPU.  The kernels build
+with nvcc on first use.
 """
 
 from __future__ import annotations
@@ -108,6 +109,30 @@ def cmd_modify_hmm(args) -> int:
     return 0
 
 
+def cmd_sam2bam(args) -> int:
+    """samtools view -b | sort | index equivalent (utils.py:222-230)."""
+    from nanopore_tpu_torch.io.bam import sam_to_sorted_bam
+
+    out = args.output or (args.input.rsplit(".", 1)[0] + ".bam")
+    sam_to_sorted_bam(args.input, out, out + ".bai")
+    print("wrote %s (+ .bai)" % out)
+    return 0
+
+
+def cmd_bam2sam(args) -> int:
+    """samtools view equivalent: BAM back to SAM text."""
+    from nanopore_tpu_torch.io.bam import BamReader
+    from nanopore_tpu_torch.io.sam import SamWriter
+
+    out = args.output or (args.input.rsplit(".", 1)[0] + ".sam")
+    with BamReader(args.input) as br:
+        with SamWriter(out, br.reference_lengths) as w:
+            for rec in br:
+                w.write(rec)
+    print("wrote %s" % out)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="nanopore_tpu_torch",
@@ -172,6 +197,16 @@ def main(argv=None) -> int:
     p.add_argument("--iterations", type=int, default=100)
     add_device(p)
     p.set_defaults(fn=cmd_em)
+
+    p = sub.add_parser("sam2bam", help="SAM -> sorted BAM + .bai index")
+    p.add_argument("input")
+    p.add_argument("-o", "--output", default=None)
+    p.set_defaults(fn=cmd_sam2bam)
+
+    p = sub.add_parser("bam2sam", help="BAM -> SAM text")
+    p.add_argument("input")
+    p.add_argument("-o", "--output", default=None)
+    p.set_defaults(fn=cmd_bam2sam)
 
     p = sub.add_parser(
         "modify-hmm", help="renormalise an HMM (scripts/modifyHmm.py)"

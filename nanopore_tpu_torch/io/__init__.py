@@ -18,3 +18,8 @@ from nanopore_tpu_torch.io.seqio import (
     read_fastq_dict,
 )
 from nanopore_tpu_torch.io.sam import SamRecord, SamReader, SamWriter, CIG
+from nanopore_tpu_torch.io.cigar import (
+    exonerate_cigar_string,
+    parse_exonerate_cigar,
+    ExonerateCigar,
+)

@@ -1,11 +1,8 @@
 """Cross-experiment meta-analyses (reference ``nanopore/metaAnalyses/``).
 
-``ALL_META_ANALYSES`` holds the JAX package's eight names.  Five are
-ported: the pipeline's defaults.  ``CoverageDepth``,
-``MarginAlignMetaAnalysis`` and ``CustomTrackAssemblyHub`` are not yet
-(ROADMAP A7.5; the last reads BAM and 2bit files, A7.3): their classes
-raise ``NotImplementedError``, and the pipeline refuses their names
-before any task runs.
+``ALL_META_ANALYSES`` holds the JAX package's eight names and classes:
+the pipeline's five defaults, ``CoverageDepth``,
+``MarginAlignMetaAnalysis`` and ``CustomTrackAssemblyHub``.
 """
 
 from nanopore_tpu_torch.meta.base import (
@@ -20,34 +17,9 @@ from nanopore_tpu_torch.meta.unmapped import (
     ComparePerReadMappabilityByMapper,
 )
 from nanopore_tpu_torch.meta.hmm_meta import HmmMetaAnalysis
-
-
-class NotPorted(MetaAnalysis):
-    """A meta-analysis of the JAX package that the port lacks."""
-
-    roadmap = "A7.5"
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(self.not_ported_message())
-
-    @classmethod
-    def not_ported_message(cls) -> str:
-        return "meta-analysis %s is not ported yet: ROADMAP %s" % (
-            cls.__name__, cls.roadmap,
-        )
-
-
-class CoverageDepth(NotPorted):
-    pass
-
-
-class MarginAlignMetaAnalysis(NotPorted):
-    pass
-
-
-class CustomTrackAssemblyHub(NotPorted):
-    roadmap = "A7.5, after A7.3 (it reads BAM and 2bit files)"
-
+from nanopore_tpu_torch.meta.coverage_depth import CoverageDepth
+from nanopore_tpu_torch.meta.margin_align_meta import MarginAlignMetaAnalysis
+from nanopore_tpu_torch.meta.assembly_hub import CustomTrackAssemblyHub
 
 ALL_META_ANALYSES = {
     cls.__name__: cls
@@ -64,6 +36,6 @@ ALL_META_ANALYSES = {
 }
 
 __all__ = [
-    "ALL_META_ANALYSES", "MetaAnalysis", "NotPorted", "Read",
+    "ALL_META_ANALYSES", "MetaAnalysis", "Read",
     "UnmappedMetaAnalysis",
 ] + list(ALL_META_ANALYSES)

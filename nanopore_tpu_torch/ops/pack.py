@@ -43,6 +43,21 @@ SENT = (5 << 3) | 5  # all-sentinel packed code
 KERNEL_BAND_WIDTHS = (32, 64)  # W = 32 * band cells per lane
 
 LAUNCHES = kb.LaunchCounter("pack")
+
+
+def check_band_width(band_width: int, device=None) -> None:
+    """Refuse a band width the kernels do not serve, where ``device`` is
+    not the CPU (``None`` is the card), before an entry point does any
+    work (ROADMAP C10).  The plain versions on the CPU serve any width;
+    the card gets no plain fallback."""
+    if torch.device("cuda" if device is None else device).type == "cpu":
+        return
+    if band_width not in KERNEL_BAND_WIDTHS:
+        raise ValueError(
+            "band width %d is not served on the card: its kernels take "
+            "W in %s (ROADMAP C10); pass device='cpu' to run the plain "
+            "path at any width" % (band_width, KERNEL_BAND_WIDTHS)
+        )
 _SIG = {
     "np_pack_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 2,

@@ -31,7 +31,7 @@ from nanopore_tpu_torch.io.seqio import (
 )
 from nanopore_tpu_torch.mapping.presets import DEFAULT_MAPPERS, MAPPER_REGISTRY
 from nanopore_tpu_torch.mapping.runner import run_mapper
-from nanopore_tpu_torch.meta import ALL_META_ANALYSES, NotPorted
+from nanopore_tpu_torch.meta import ALL_META_ANALYSES
 from nanopore_tpu_torch.runtime.scheduler import Scheduler
 
 logger = logging.getLogger("nanopore_tpu_torch")
@@ -197,11 +197,6 @@ def _run_pipeline_impl(
         unknown = [n for n in names if n not in registry]
         if unknown:
             raise ValueError("unknown %s %s" % (kind, ", ".join(unknown)))
-    for name in config.meta_analyses:
-        if issubclass(ALL_META_ANALYSES[name], NotPorted):
-            raise NotImplementedError(
-                ALL_META_ANALYSES[name].not_ported_message()
-            )
     check_single_process()
 
     output_dir = os.path.join(working_dir, "output")

@@ -442,3 +442,55 @@ def test_realign_requires_global_records():
                        cigar=[(CIG.M, 4)], seq="ACGT")],
             {"r": "ACGTACGT"}, device="cpu")
     assert realign.realign_records([], {}, rescore=True, device="cpu") == []
+
+
+# ---- ROADMAP C10: widths the card's kernels do not serve ------------------ #
+
+@pytest.mark.parametrize("device", [None, "cuda", "meta"])
+def test_c10_realign_refuses_an_unserved_width_off_the_cpu(
+        mapped, tmp_path, monkeypatch, device):
+    """At W = 48 off the CPU, ``realign_records`` and ``realign_sam_file``
+    raise a ``ValueError`` naming C10 before any work: before
+    ``resolve_device`` (which would raise ``RuntimeError`` here, without
+    a card, and another ``ValueError`` on ``meta``) and before the SAM
+    is chained."""
+    def no_chain(*args, **kwargs):
+        raise AssertionError("chained before the width check")
+
+    monkeypatch.setattr(realign, "chain_sam_file", no_chain)
+    recs = [SamRecord(qname="q", flag=0, rname="chrT", pos=0, mapq=0,
+                      cigar=[(CIG.M, 8)], seq="ACGTACGT")]
+    with pytest.raises(ValueError, match="C10"):
+        realign.realign_records(recs, {"chrT": "ACGTACGT"}, band_width=48,
+                                device=device)
+    out = tmp_path / "out.sam"
+    with pytest.raises(ValueError, match="C10"):
+        realign.realign_sam_file(mapped["sam"], str(out), mapped["fq"],
+                                 mapped["fa"], band_width=48, device=device)
+    assert not out.exists()
+
+
+def test_c10_realign_subcommand_refuses_an_unserved_width(mapped, tmp_path):
+    from nanopore_tpu_torch import cli
+
+    out = tmp_path / "out.sam"
+    with pytest.raises(ValueError, match="C10"):
+        cli.main(["realign", mapped["sam"], mapped["fq"], mapped["fa"],
+                  str(out), "--band-width", "48"])
+    assert not out.exists()
+
+
+def test_c10_realign_on_the_cpu_serves_w48_as_jax_does(mapped):
+    """The CPU path keeps serving any width: at W = 48 the cigars equal
+    the JAX package's (its XLA scan, which it takes for a width outside
+    its Pallas set)."""
+    d = mapped["dir"]
+    jax_realign.realign_sam_file(
+        mapped["sam"], str(d / "j_w48.sam"), mapped["fq"], mapped["fa"],
+        band_width=48)
+    realign.realign_sam_file(
+        mapped["sam"], str(d / "p_w48.sam"), mapped["fq"], mapped["fa"],
+        band_width=48, device="cpu")
+    got = sam_records(str(d / "p_w48.sam"))
+    assert len(got) == 8
+    assert got == sam_records(str(d / "j_w48.sam"))

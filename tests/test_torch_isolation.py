@@ -78,14 +78,34 @@ PIPELINE_MODULES = [
     "nanopore_tpu_torch.pipeline",
 ]
 
+# the host modules that complete the port of the JAX package's
+# io/, meta/ and scripts/
+HOST_MODULES = [
+    "nanopore_tpu_torch.io.cigar",
+    "nanopore_tpu_torch.io.bam",
+    "nanopore_tpu_torch.io.twobit",
+    "nanopore_tpu_torch.meta.coverage_depth",
+    "nanopore_tpu_torch.meta.margin_align_meta",
+    "nanopore_tpu_torch.meta.assembly_hub",
+    "nanopore_tpu_torch.scripts.textable",
+    "nanopore_tpu_torch.scripts.blast_tex",
+    "nanopore_tpu_torch.scripts.variant_table",
+    "nanopore_tpu_torch.scripts.pull_averages",
+    "nanopore_tpu_torch.scripts.extract_coverage_xmls",
+    "nanopore_tpu_torch.scripts.mappability_plots",
+    "nanopore_tpu_torch.scripts.scatter_plots",
+    "nanopore_tpu_torch.scripts.blast_unmapped",
+    "nanopore_tpu_torch.scripts.rescue_2d",
+]
+
 
 def test_the_pipeline_modules_are_imported_and_their_sources_checked():
     """Both checks above walk the package, so they cover the pipeline's
-    modules; this holds that they do."""
+    modules and the host modules; this holds that they do."""
     mods = _port_modules()
-    missing = [m for m in PIPELINE_MODULES if m not in mods]
+    missing = [m for m in PIPELINE_MODULES + HOST_MODULES if m not in mods]
     assert missing == []
-    for m in PIPELINE_MODULES:
+    for m in PIPELINE_MODULES + HOST_MODULES:
         rel = pathlib.Path(*m.split("."))
         path = ROOT / rel.with_suffix(".py")
         if not path.exists():

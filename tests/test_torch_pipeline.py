@@ -18,9 +18,12 @@
     few decimals within its last digit;
   - the resumed run skips every task.
 * ``run --device cpu`` through the CLI, with a ``torch.profiler`` trace;
-  ``run`` without a card raises; an unknown name raises ``ValueError``,
-  an unported meta-analysis name and a two-process environment
-  ``NotImplementedError``, each before any task runs.
+  ``run`` without a card raises; an unknown name raises ``ValueError``
+  and a two-process environment ``NotImplementedError``, each before
+  any task runs.
+* ``CoverageDepth``, ``MarginAlignMetaAnalysis`` and
+  ``CustomTrackAssemblyHub`` in the pipeline beside ``CoverageSummary``:
+  the files of the JAX pipeline.
 """
 
 import json
@@ -335,13 +338,27 @@ def test_cli_run_raises_without_a_card(working_dir, tmp_path):  # noqa: F811
 @pytest.mark.parametrize("name", ["CoverageDepth", "MarginAlignMetaAnalysis",
                                   "CustomTrackAssemblyHub"])
 def test_unported_meta_analysis_fails_before_any_task(
-        name, working_dir, tmp_path):  # noqa: F811
-    wd = copy_inputs(working_dir, tmp_path / "wd")
-    with pytest.raises(NotImplementedError, match="A7.5"):
-        run_pipeline(wd, PipelineConfig(
-            mappers=["LastParams"], analyses=["Substitutions"],
-            meta_analyses=["CoverageSummary", name], device="cpu"))
-    assert not os.path.exists(os.path.join(wd, "output"))
+        name, working_dir, tmp_path, monkeypatch):  # noqa: F811
+    """The name is kept from when the pipeline refused these three
+    before any task; they are ported now, and the port's pipeline run
+    with each writes the JAX pipeline's files (PDFs too, with
+    ``SOURCE_DATE_EPOCH`` pinned)."""
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", "0")
+    kw = dict(mappers=["LastParamsChain"], analyses=["Substitutions"],
+              meta_analyses=["CoverageSummary", name], max_workers=1)
+    jout = jax_run_pipeline(copy_inputs(working_dir, tmp_path / "jax"),
+                            JaxConfig(**kw))
+    pout = run_pipeline(copy_inputs(working_dir, tmp_path / "port"),
+                        PipelineConfig(device="cpu", **kw))
+    files = tree(pout)
+    assert files == tree(jout)
+    meta = [f for f in files if f.startswith("metaAnalysis_" + name)]
+    assert meta
+    for rel in files:
+        if rel == "pipeline_stats.json" or rel.endswith(".png"):
+            continue
+        got = open(os.path.join(pout, rel), "rb").read()
+        assert got == open(os.path.join(jout, rel), "rb").read(), rel
 
 
 @pytest.mark.parametrize("field,name", [("mappers", "NoSuchMapper"),
