@@ -116,8 +116,11 @@
    expectations, scattered on the host, within rtol 1e-3 and atol 2e-3);
    ``realign_records(rescore=True)`` on 64 realigned records (every
    score finite, in [0, 1]).  Each prints its wall time and launches.
-8. Viterbi kernels, on the mapping main path's batch (step 3's): the
-   Viterbi kernel against its plain version on the first 128 reads at
+8. Viterbi kernels, in a second child process (``chip_smoke.py
+   --viterbi``, its log in ``_build/smoke/viterbi_child.log``) started
+   after step 4 and run beside steps 5-7, on the mapping main path's
+   batch (step 3's, from the child's own copy of the seeded workload):
+   the Viterbi kernel against its plain version on the first 128 reads at
    the full diagonal count (score within 1e-5 relative, fstate
    identical, the backpointer plane byte-identical on every lattice
    cell), the Viterbi walker against its plain version on the kernel's
@@ -199,8 +202,29 @@
    read's own base: 7.5 % of aligned bases differ).  Then two of the
    jobs through ``rescue_metrics`` on the card and on the CPU as one
    batch: rows identical to each other and to the script's.
-12. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
-   ``launches_pipeline_path`` and a ``launches_rescue_2d_path`` on every
+12. The multi-host pipeline, in the same child after step 11: two rank
+   processes (``chip_smoke.py --rank <i> <port> <wd> <out>``), both on
+   this card, each under ``NANOPORE_TPU_COORDINATOR=localhost:<port>``,
+   ``NANOPORE_TPU_NUM_PROCESSES=2`` and its own
+   ``NANOPORE_TPU_PROCESS_ID``, each calling ``cli.main(["run", wd,
+   "--max-threads", "4", "--mappers", "LastParamsChain,
+   LastParamsRealignEm", "--analyses", "GlobalCoverage,Substitutions",
+   "--meta-analyses", "CoverageSummary", "--em-trials", "1",
+   "--em-iterations", "5"])`` with every counter set to 0 just before,
+   on a fresh working directory of step 10's reads and reference (the
+   EM depth is step 10's cut).  The mesh is dp 2 x trial 1: each rank
+   maps, trains on and realigns its half of the reads, and the E-step's
+   float64 sums all-reduce over gloo.  Both ranks exit 0; every task of
+   both ranks' stats files done on its first attempt; no shard litter;
+   ``LastParamsChain``'s ``mapping.sam`` byte-identical to step 10's;
+   the ``LastParamsRealignEm`` model (``hmm.txt_unnormalised``) within
+   1e-9 relative of step 10's and its records equal to step 10's in
+   their first four fields; on each rank pack, realign, traceback and
+   realign_em launched and nothing else.  Prints the phase's wall and
+   each rank's launches.
+13. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
+   ``launches_pipeline_path``, a ``launches_rescue_2d_path`` and a
+   ``launches_distributed_path``, the sum over the two ranks, on every
    row) and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -864,9 +888,8 @@ def kend_guard_check() -> None:
           "(%.1f s wall, child process)" % (time.perf_counter() - t0))
 
 
-def kernel_phase(engine, fq: str, dev) -> tuple:
-    """Step 3: the kernel rows of the mapping main path; returns them and
-    the batch's (window, read, guide) pairs."""
+def kernel_phase(engine, fq: str, dev) -> dict:
+    """Step 3: the kernel rows of the mapping main path."""
     import torch
 
     from nanopore_tpu_torch.ops import pack, realign, traceback
@@ -1004,7 +1027,7 @@ def kernel_phase(engine, fq: str, dev) -> tuple:
               "(%s), plain %.1f ms, library_ms null (no single PyTorch call)"
               % (name, r["ms"], r["per_batch"], r["bound_ms"], r["bound_by"],
                  r["plain_ms"]))
-    return res, pairs
+    return res
 
 
 def walked_bytes(ops) -> int:
@@ -2425,6 +2448,171 @@ def rescue_phase(workdir: str, dev, counters) -> dict:
     return launches
 
 
+# phase 12: the multi-host pipeline's arguments (the EM depth is phase
+# 10's cut)
+DIST_MAPPERS = ["LastParamsChain", "LastParamsRealignEm"]
+DIST_ARGS = ["--max-threads", "4", "--mappers", ",".join(DIST_MAPPERS),
+             "--analyses", "GlobalCoverage,Substitutions", "--meta-analyses",
+             "CoverageSummary", "--em-trials", "1", "--em-iterations", "5"]
+DIST_RANKS = 2
+DIST_TIMEOUT = 600  # seconds the ranks may take together
+
+
+def distributed_rank(rank: int, port: str, wd: str, out: str) -> int:
+    """Run as ``chip_smoke.py --rank <i> <port> <wd> <out>``: one rank of
+    phase 12, ``cli.main(["run", wd, ...])`` under the three variables of
+    the multi-host run, every counter set to 0 just before; writes its
+    launches and wall to ``out``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch import cli
+
+    os.environ.update(NANOPORE_TPU_COORDINATOR="localhost:" + port,
+                      NANOPORE_TPU_NUM_PROCESSES=str(DIST_RANKS),
+                      NANOPORE_TPU_PROCESS_ID=str(rank))
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    if cli.main(["run", wd] + DIST_ARGS) != 0:
+        fail("rank %d: the pipeline returned non-zero" % rank)
+    torch.cuda.synchronize()
+    with open(out, "w") as fh:
+        json.dump({"wall": time.perf_counter() - t0,
+                   "launches": {c.name: c.count for c in counters}}, fh)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def model_numbers(path: str) -> np.ndarray:
+    """A model file's transitions, likelihood and emissions."""
+    from nanopore_tpu_torch.align.model import PairHmmModel
+
+    m = PairHmmModel.load(path)
+    return np.concatenate([m.transitions.ravel(), [m.likelihood],
+                           m.emissions.ravel()])
+
+
+def distributed_phase(workdir: str) -> dict:
+    """Phase 12: the pipeline on two ranks over gloo, both on this card,
+    on phase 10's reads and reference; its chain SAM and its EM model
+    held against phase 10's.  Returns the launches summed over the
+    ranks."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    wd10 = os.path.join(workdir, "pipeline", "wd")
+    root = os.path.join(workdir, "distributed")
+    shutil.rmtree(root, ignore_errors=True)
+    wd = os.path.join(root, "wd")
+    for sub in ("readFastqFiles", "referenceFastaFiles"):
+        shutil.copytree(os.path.join(wd10, sub), os.path.join(wd, sub))
+    torch.cuda.empty_cache()  # phases 10-11's cached blocks
+    port = str(free_port())
+    print("distributed pipeline: %d ranks on one card, gloo at localhost:%s:"
+          " run %s %s" % (DIST_RANKS, port, wd, " ".join(DIST_ARGS)))
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(DIST_RANKS):
+        logs.append(os.path.join(root, "rank%d.log" % r))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                 port, wd, os.path.join(root, "rank%d.json" % r)],
+                stdout=log, stderr=subprocess.STDOUT, text=True))
+    try:
+        rcs = [p.wait(timeout=DIST_TIMEOUT) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if rcs != [0] * DIST_RANKS:
+        for path in logs:
+            with open(path) as fh:
+                print("".join(fh.readlines()[-30:]))
+        fail("distributed pipeline: rank exit codes %s (None: past %d s)"
+             % (rcs, DIST_TIMEOUT))
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(root, "rank%d.json" % r)) as fh:
+            ranks.append(json.load(fh))
+
+    out, out10 = os.path.join(wd, "output"), os.path.join(wd10, "output")
+    tasks = {}
+    for name in ["pipeline_stats.json"] + [
+            "pipeline_stats.host%d.json" % r for r in range(1, DIST_RANKS)]:
+        with open(os.path.join(out, name)) as fh:
+            tasks.update(json.load(fh))
+    bad = {k: (v["status"], v["attempts"]) for k, v in tasks.items()
+           if v["status"] != "done" or v["attempts"] != 1}
+    if bad or len(tasks) != len(DIST_MAPPERS) * 2:
+        fail("distributed pipeline tasks not done on their first attempt: "
+             "%s (%d tasks)" % (bad, len(tasks)))
+    base, base10 = (os.path.join(d, "analysis_2d") for d in (out, out10))
+    litter = [f for m in DIST_MAPPERS for f in os.listdir(os.path.join(
+        base, "experiment_reads.fq_ref.fa_" + m)) if ".shard" in f
+        or ".rshard" in f or f.endswith(".ckpt.npz")]
+    if litter:
+        fail("distributed pipeline left %s" % litter)
+    chain = os.path.join("experiment_reads.fq_ref.fa_LastParamsChain",
+                         "mapping.sam")
+    with open(os.path.join(base, chain), "rb") as a, \
+            open(os.path.join(base10, chain), "rb") as b:
+        chain_same = a.read() == b.read()
+    em_dir = "experiment_reads.fq_ref.fa_LastParamsRealignEm"
+    got, want = (model_numbers(os.path.join(d, em_dir, "hmm.txt_unnormalised"))
+                 for d in (base, base10))
+    nz = want != 0
+    model_err = float(np.max(np.abs(got[nz] - want[nz]) / np.abs(want[nz])))
+
+    def records(d):
+        with open(os.path.join(d, em_dir, "mapping.sam")) as fh:
+            return [ln.split("\t")[:4] for ln in fh if not ln.startswith("@")]
+
+    em_records_same = records(base) == records(base10)
+    print("distributed pipeline: %d ranks in %.3f s (rank walls %s); "
+          "LastParamsChain mapping.sam %s phase 10's; LastParamsRealignEm "
+          "model largest relative difference from phase 10's %.3g, records "
+          "%s in their first four fields; launches %s"
+          % (DIST_RANKS, wall, [round(r["wall"], 3) for r in ranks],
+             "byte-identical to" if chain_same else "DIFFERS from", model_err,
+             "equal" if em_records_same else "DIFFERENT",
+             [r["launches"] for r in ranks]))
+    if not chain_same:
+        fail("the distributed LastParamsChain mapping.sam differs")
+    if not (np.array_equal(got != 0, nz) and model_err <= 1e-9):
+        fail("the distributed EM model differs from phase 10's by %.3g"
+             % model_err)
+    if not em_records_same:
+        fail("the distributed LastParamsRealignEm records differ")
+    on = ("pack", "realign", "traceback", "realign_em")
+    for r, res in enumerate(ranks):
+        launches = res["launches"]
+        if min(launches[k] for k in on) <= 0 or any(
+                v for k, v in launches.items() if k not in on):
+            fail("rank %d launches %s: want %s > 0 and the rest 0"
+                 % (r, launches, on))
+    print("phase 12 wall: %.1f s (the ranks %.1f s)"
+          % (time.perf_counter() - t_phase, wall))
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
 def launch_counters() -> tuple:
     from nanopore_tpu_torch.ops import forward, pack, realign, traceback, viterbi
 
@@ -2438,7 +2626,7 @@ def pipeline_child() -> int:
     """Run as ``chip_smoke.py --pipeline`` in a child process, beside the
     parent's phases 2-9 (the pipeline's host work and the parent's plain
     versions each hold a core; the card is idle most of either): phases
-    10 and 11, their launch counts written to
+    10, 11 and 12, their launch counts written to
     ``<workdir>/pipeline/launches.json`` for the kernels line."""
     import torch
 
@@ -2450,20 +2638,51 @@ def pipeline_child() -> int:
     counters = launch_counters()
     runs = {"pipeline": pipeline_phase(workdir, dev, counters)}
     runs["rescue_2d"] = rescue_phase(workdir, dev, counters)
+    runs["distributed"] = distributed_phase(workdir)
     with open(os.path.join(workdir, "pipeline", "launches.json"), "w") as fh:
         json.dump(runs, fh)
     return 0
 
 
-def start_pipeline_child(workdir: str):
-    """Start the child of phases 10 and 11; it is killed at exit if still
-    running."""
+def viterbi_child() -> int:
+    """Run as ``chip_smoke.py --viterbi`` in a second child process,
+    beside the parent's phases 5-7: phase 8 on its own copy of the
+    mapping workload (the same seed, so the same batch), its kernel rows
+    and the forward entry's launch counts written to
+    ``<workdir>/viterbi/result.json`` for the kernels line."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.kernels import build
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+    from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
+    from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
+
+    workdir = os.path.join(build.BUILD_DIR, "smoke", "viterbi")
+    dev = torch.device("cuda", 0)
+    fa, fq = write_workload(workdir, REF_LEN)
+    engine = MappingEngine(read_fasta_dict(fa),
+                           MAPPER_REGISTRY["LastParams"].config, device=dev)
+    pairs = main_path_batch(engine, fq, preferred_realign_batch_size(None, dev))
+    res = {}
+    entry = viterbi_kernel_phase(engine, pairs, dev, launch_counters(), res)
+    with open(os.path.join(workdir, "result.json"), "w") as fh:
+        json.dump({"res": res, "forward_entry": entry}, fh)
+    return 0
+
+
+def start_child(workdir: str, flag: str):
+    """Start ``chip_smoke.py <flag>`` (``--pipeline``: phases 10-12;
+    ``--viterbi``: phase 8), its output in
+    ``<workdir>/<flag without dashes>_child.log``; it is killed at exit if
+    still running."""
     import atexit
 
     os.makedirs(workdir, exist_ok=True)
-    log = open(os.path.join(workdir, "pipeline_child.log"), "w")
+    log = open(os.path.join(workdir, flag.lstrip("-") + "_child.log"), "w")
     proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--pipeline"],
+        [sys.executable, os.path.abspath(__file__), flag],
         stdout=log, stderr=subprocess.STDOUT, text=True)
     log.close()
 
@@ -2476,24 +2695,24 @@ def start_pipeline_child(workdir: str):
     return proc
 
 
-def finish_pipeline_child(proc, workdir: str) -> dict:
-    """Wait for the child of phases 10 and 11, print its lines (not its
-    log records) and return each phase's launch counts; its failure
-    fails the script."""
+def finish_child(proc, workdir: str, flag: str, what: str,
+                 result: str) -> dict:
+    """Wait for the child started with ``flag``, print its lines (not its
+    log records) and return what it wrote to ``<workdir>/<result>``; its
+    failure fails the script."""
     t0 = time.perf_counter()
     rc = proc.wait(timeout=1200)
-    print("phases 10-11 (a child process beside phases 2-9): waited %.1f s "
-          "after phase 9" % (time.perf_counter() - t0))
-    with open(os.path.join(workdir, "pipeline_child.log")) as fh:
+    print("%s (a child process beside the parent's phases): waited %.1f s "
+          "after phase 9" % (what, time.perf_counter() - t0))
+    with open(os.path.join(workdir, flag.lstrip("-") + "_child.log")) as fh:
         lines = fh.read().splitlines()
     for line in lines:
         if " INFO " not in line:
             print(line)
     if rc != 0:
         print("\n".join(lines[-40:]))
-        fail("phases 10-11, the pipeline and rescue_2d, exited with %d"
-             % rc)
-    with open(os.path.join(workdir, "pipeline", "launches.json")) as fh:
+        fail("%s exited with %d" % (what, rc))
+    with open(os.path.join(workdir, result)) as fh:
         return json.load(fh)
 
 
@@ -2547,6 +2766,10 @@ def main() -> int:
         return kend_guard_child()
     if sys.argv[1:] == ["--pipeline"]:
         return pipeline_child()
+    if sys.argv[1:] == ["--viterbi"]:
+        return viterbi_child()
+    if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
+        return distributed_rank(int(sys.argv[2]), *sys.argv[3:])
     sys.path.insert(0, ROOT)
     from nanopore_tpu_torch.kernels import build
     from nanopore_tpu_torch.mapping.engine import MappingEngine
@@ -2638,7 +2861,7 @@ def main() -> int:
     workdir = os.path.join(build.BUILD_DIR, "smoke")
     counters = launch_counters()
     kend_guard_check()
-    pipeline = start_pipeline_child(workdir)
+    pipeline = start_child(workdir, "--pipeline")
     t_mark = [t_start]
 
     def mark(what):
@@ -2651,7 +2874,7 @@ def main() -> int:
 
     spec = MAPPER_REGISTRY["LastParams"]
     engine = MappingEngine(read_fasta_dict(fa), spec.config, device=dev)
-    res, main_pairs = kernel_phase(engine, fq, dev)
+    res = kernel_phase(engine, fq, dev)
     mark("phases 2-3 (workload, kernel rows)")
 
     # ---- end to end: cold run, then the warm run that counts ----
@@ -2678,16 +2901,23 @@ def main() -> int:
         fail("only %.4f of primaries at their origin" % share)
 
     mark("phase 4")
+    # phase 8 beside phases 5-7: after the main path's kernel rows and
+    # its end-to-end run, which are timed with no other process's
+    # kernels and plain versions on the card but the pipeline's
+    vit_child = start_child(workdir, "--viterbi")
     em_launches = em_path_phase(workdir, dev, counters, res)
     mark("phases 5-6")
     post_launches = posterior_path_phase(workdir, dev, counters, res)
     mark("phase 7")
-    forward_entry = viterbi_kernel_phase(engine, main_pairs, dev, counters,
-                                         res)
     vit_launches = viterbi_path_phase(workdir, fa, fq, dev, counters)
+    phase8 = finish_child(vit_child, workdir, "--viterbi", "phase 8",
+                          os.path.join("viterbi", "result.json"))
+    res.update(phase8["res"])
     other_runs = dict(post_launches, **vit_launches)
-    other_runs.update(finish_pipeline_child(pipeline, workdir))
-    other_runs["forward_entry"] = forward_entry
+    other_runs.update(finish_child(pipeline, workdir, "--pipeline",
+                                   "phases 10-12",
+                                   os.path.join("pipeline", "launches.json")))
+    other_runs["forward_entry"] = phase8["forward_entry"]
 
     meta = {
         "pack": ("csrc/pack.cu", "nanopore_tpu/ops/pack_pallas.py:61"),

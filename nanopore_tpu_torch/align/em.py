@@ -17,8 +17,9 @@ randomStart, trials=3, iterations=100, maxAlignmentLengthToSample=5e7,
 trainEmissions; post-processing flattens indel emissions and renormalises
 match emissions to GC 0.5 (utils.py:531-538).
 
-The sharded run over several devices (``use_mesh=True``) is not ported
-yet (ROADMAP A5) and raises ``NotImplementedError``.
+``use_mesh=True`` trains over the (dp, trial) mesh of the process group
+(``parallel/sharded_em.py``): each rank runs the E-step of its reads on
+its own card(s), and the float64 sums all-reduce over gloo.
 """
 
 from __future__ import annotations
@@ -43,10 +44,12 @@ from nanopore_tpu_torch.io.sam import SamReader
 from nanopore_tpu_torch.io.seqio import read_fasta_dict
 from nanopore_tpu_torch.ops.dispatch import (
     PreparedEm,
+    local_dp_devices,
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+from nanopore_tpu_torch.parallel.distributed import process_info
 
 logger = logging.getLogger("nanopore_tpu_torch")
 
@@ -65,7 +68,10 @@ class EmOptions:
     seed: int = 0
     pseudocount: float = 1e-6
     convergence_tol: float = 1e-4  # relative loglik change to stop early
-    # shard over several devices: not ported yet (ROADMAP A5); True raises
+    # train over the (dp, trial) mesh of the process group
+    # (parallel/sharded_em): None = exactly when the group has more than
+    # one rank.  A single process with several local cards instead
+    # round-robins its batches over them (ops.dispatch.local_dp_devices).
     use_mesh: bool | None = None
     # EM window pad (ref bases kept around each aligned span).  Chained
     # global records span the WHOLE reference (utils.py:491-501); on a
@@ -110,12 +116,13 @@ def save_em_checkpoint(path: str, state: dict) -> None:
             os.remove(tmp)
 
 
-def em_fingerprint(pairs, opts: EmOptions) -> dict:
+def em_fingerprint(pairs, opts: EmOptions, sharded: bool = False) -> dict:
     """Config+data fingerprint stored in checkpoints: a resume is only
     valid when it was written by a run with identical inputs (resuming
     across a changed SAM, seed or band would silently produce a model
     trained on the old configuration).  The same keys and values as the
-    JAX package's, so either package resumes the other's checkpoint."""
+    JAX package's, so either package resumes the other's checkpoint;
+    ``sharded`` marks the mesh run's format."""
     crc = 0
     for x, y, _ in pairs:
         crc = zlib.crc32(np.ascontiguousarray(x[:128]).tobytes(), crc)
@@ -124,7 +131,7 @@ def em_fingerprint(pairs, opts: EmOptions) -> dict:
             np.array([len(x), len(y)], np.int64).tobytes(), crc
         )
     return {
-        "format": "per_trial",
+        "format": "sharded" if sharded else "per_trial",
         "trials": opts.trials,
         "iterations": opts.iterations,
         "seed": opts.seed,
@@ -185,7 +192,10 @@ def _m_step(
 
 def _e_step(preps: list[PreparedEm], params, device, stats):
     """Launch every batch's E-step and bring the per-read expectations
-    to the host in float64: (trans (N,5,5), emis (N,5,16), loglik (N,))."""
+    to the host in float64: (trans (N,5,5), emis (N,5,16), loglik (N,)).
+    On several cards the CUDA events time the first card's stream."""
+    if not preps:  # a rank that holds no read
+        return np.zeros((0, 5, 5)), np.zeros((0, 5, 16)), np.zeros(0)
     on_card = device.type == "cuda"
     if on_card:
         start = torch.cuda.Event(enable_timing=True)
@@ -225,14 +235,100 @@ def representable(trans: np.ndarray, emis: np.ndarray, m: np.ndarray,
     orders of magnitude off.  The log-likelihood comes from the forward
     alone and stays right.
     """
-    flat = np.concatenate([trans.reshape(len(trans), -1),
-                           emis.reshape(len(emis), -1)], axis=1)
+    flat = np.concatenate([trans.reshape(-1, 25), emis.reshape(-1, 80)],
+                          axis=1)
     finite = np.isfinite(flat).all(axis=1)
     into = np.where(finite[:, None], trans.sum(axis=1), 0.0)  # (N, 5)
     ref_used = into[:, 0] + into[:, 1] + into[:, 3]
     read_used = into[:, 0] + into[:, 2] + into[:, 4]
     return (finite & (np.abs(ref_used - n) <= 1e-2 * np.maximum(n, 1))
             & (np.abs(read_used - m) <= 1e-2 * np.maximum(m, 1)))
+
+
+def prepare_batches(pairs, band_width: int, batch_size: int | None,
+                    device) -> list[PreparedEm]:
+    """Pack and upload the E-step's batches once for the whole training
+    (they are shape-stable across iterations).  With several local cards
+    the batches round-robin over them (``ops.dispatch.local_dp_devices``);
+    the host still sums their outputs in batch order, so the model does
+    not depend on the count of cards."""
+    devices = local_dp_devices(device)
+    batch_size = preferred_realign_batch_size(batch_size, device)
+    return [
+        prepared_from_pairs(
+            {"device": devices[i % len(devices)]}, pairs[s:s + batch_size],
+            None, band_width=band_width, prepared_cls=PreparedEm,
+        )
+        for i, s in enumerate(range(0, len(pairs), batch_size))
+    ]
+
+
+def _sum_flank_corrections(corr_pairs, window_pad: int):
+    """The summed analytic flank mass (align.flank) of windowed pairs:
+    a callable ``(model, ok) -> (ct (5,5), ce (5,16), cll)`` over
+    ``corr_pairs`` ((index of the read in ``ok``, full reference, full
+    guide)).  A pair whose read ``ok`` leaves out of the counts adds its
+    log-likelihood only."""
+
+    def correction(model, ok):
+        t_c, eg_c = corridor_tables(model)
+        ct, ce, cll = np.zeros((5, 5)), np.zeros((5, 16)), 0.0
+        for i, x_full, guide_full in corr_pairs:
+            dt, de, dll = em_flank_correction(
+                x_full, guide_full, window_pad, t_c, eg_c
+            )
+            if ok[i]:
+                ct += dt
+                ce += de
+            cll += dll
+        return ct, ce, cll
+
+    return correction
+
+
+def expectation_sums(preps, model: PairHmmModel, m_len, n_len, device,
+                     stats=None, correction=None):
+    """One E-step under ``model`` over the reads of ``preps`` (read
+    lengths ``m_len``, window lengths ``n_len``): the float64 sums of the
+    expectations of the reads :func:`representable` keeps, plus
+    ``correction(model, ok)``'s flank mass.  Returns (trans (5,5), emis
+    (5,16), loglik, kept reads); every read's log-likelihood counts."""
+    trans_r, emis_r, loglik_r = _e_step(
+        preps, make_kernel_params(model), device, stats
+    )
+    ok = representable(trans_r, emis_r, m_len, n_len)
+    if stats is not None:
+        for _ in range(int((~ok).sum())):
+            stats.add("em_left_out", 0.0)
+    trans = trans_r[ok].sum(axis=0)
+    emis = emis_r[ok].sum(axis=0)
+    loglik = float(loglik_r.sum())
+    if correction is not None:
+        t0 = time.perf_counter()
+        ct, ce, cll = correction(model, ok)
+        trans += ct
+        emis += ce
+        loglik += cll
+        if stats is not None:
+            stats.add("em_flank", time.perf_counter() - t0)
+    return trans, emis, loglik, int(ok.sum())
+
+
+def check_kept(kept: int, total: int, loglik: float, trial: int,
+               iteration: int) -> None:
+    """Raise when an iteration kept no read (or its likelihood is not
+    finite); warn when it left some out."""
+    if not kept or not np.isfinite(loglik):
+        raise FloatingPointError(
+            "the E-step gave no usable expectations (loglik %r, %d of %d "
+            "reads representable)" % (loglik, kept, total)
+        )
+    if kept < total:
+        logger.warning(
+            "EM trial %d iteration %d: %d of %d reads left out of the "
+            "counts (expectations outside the f32 range)",
+            trial, iteration, total - kept, total,
+        )
 
 
 def em_train(
@@ -249,6 +345,14 @@ def em_train(
     card), the host flank correction (``em_flank``) and the M-step
     (``em_m_step``), one call per iteration.
 
+    ``options.use_mesh`` (None: exactly when the process group has more
+    than one rank; the JAX package's None means several TPU chips) trains
+    over the (dp, trial) mesh of the process group
+    (``parallel/sharded_em.py``); every rank must call this with the same
+    pairs.  Without it the trials run one after another on ``device``,
+    whose batches round-robin over the local cards when there are several
+    (the JAX package's single path does the same).
+
     A read whose expectations :func:`representable` rejects under the
     current model is left out of that iteration's counts (its flank
     correction too) and is counted once in ``stats`` under
@@ -258,10 +362,6 @@ def em_train(
     An iteration that keeps no read raises ``FloatingPointError``.
     """
     opts = options or EmOptions()
-    if opts.use_mesh:
-        raise NotImplementedError(
-            "sharded EM (use_mesh=True) is not ported yet: ROADMAP A5"
-        )
     device = resolve_device(device)
     rng = np.random.default_rng(opts.seed)
 
@@ -278,7 +378,7 @@ def em_train(
     # window each global pair to its aligned ref span; flank mass is
     # restored analytically per iteration (EmOptions.window_pad).  The
     # fingerprint covers the ORIGINAL pairs (resume safety).
-    fingerprint = em_fingerprint(kept, opts)
+    fingerprint_pairs = kept
     corr_pairs: list = []  # (index into kept, full reference, guide)
     if opts.window_pad is not None:
         windowed = []
@@ -288,18 +388,18 @@ def em_train(
             if g0 > 0 or g1 < len(x):
                 corr_pairs.append((i, x, guide))
         kept = windowed
+    use_mesh = opts.use_mesh
+    if use_mesh is None:
+        use_mesh = process_info()[1] > 1
+    if use_mesh:
+        return _em_train_sharded(kept, opts, corr_pairs, fingerprint_pairs,
+                                 device, stats)
+    fingerprint = em_fingerprint(fingerprint_pairs, opts)
+    correction = (_sum_flank_corrections(corr_pairs, opts.window_pad)
+                  if corr_pairs else None)
     n_len = np.array([len(x) for x, _, _ in kept], np.float64)
     m_len = np.array([len(y) for _, y, _ in kept], np.float64)
-
-    # batches are shape-stable across iterations: pack and upload once
-    batch_size = preferred_realign_batch_size(opts.batch_size, device)
-    preps = [
-        prepared_from_pairs(
-            {"device": device}, kept[s:s + batch_size], None,
-            band_width=opts.band_width, prepared_cls=PreparedEm,
-        )
-        for s in range(0, len(kept), batch_size)
-    ]
+    preps = prepare_batches(kept, opts.band_width, opts.batch_size, device)
 
     trial_models: list[PairHmmModel] = []
     running: list[list[float]] = []
@@ -376,43 +476,10 @@ def em_train(
             prev_ll = None
             it0 = 0
         for it in range(it0, opts.iterations):
-            trans_r, emis_r, loglik_r = _e_step(
-                preps, make_kernel_params(model), device, stats
+            trans, emis, loglik, n_kept = expectation_sums(
+                preps, model, m_len, n_len, device, stats, correction
             )
-            ok = representable(trans_r, emis_r, m_len, n_len)
-            loglik = float(loglik_r.sum())
-            if not ok.any() or not np.isfinite(loglik):
-                raise FloatingPointError(
-                    "the E-step gave no usable expectations (loglik %r, "
-                    "%d of %d reads representable)"
-                    % (loglik, int(ok.sum()), len(ok))
-                )
-            if not ok.all():
-                logger.warning(
-                    "EM trial %d iteration %d: %d of %d reads left out of "
-                    "the counts (expectations outside the f32 range)",
-                    trial, it, int((~ok).sum()), len(ok),
-                )
-                if stats is not None:
-                    for _ in range(int((~ok).sum())):
-                        stats.add("em_left_out", 0.0)
-            trans = trans_r[ok].sum(axis=0)
-            emis = emis_r[ok].sum(axis=0)
-            if corr_pairs:
-                # analytic flank mass of the windowed pairs under the
-                # CURRENT model (align.flank)
-                t0 = time.perf_counter()
-                t_c, eg_c = corridor_tables(model)
-                for i, x_full, guide_full in corr_pairs:
-                    dt, de, dll = em_flank_correction(
-                        x_full, guide_full, opts.window_pad, t_c, eg_c
-                    )
-                    if ok[i]:
-                        trans += dt
-                        emis += de
-                    loglik += dll
-                if stats is not None:
-                    stats.add("em_flank", time.perf_counter() - t0)
+            check_kept(n_kept, len(kept), loglik, trial, it)
             trace.append(loglik)
             t0 = time.perf_counter()
             model = _m_step(model, trans, emis, opts.pseudocount)
@@ -439,6 +506,36 @@ def em_train(
     )
 
 
+def _em_train_sharded(kept, opts: EmOptions, corr_pairs, fingerprint_pairs,
+                      device, stats) -> EmResult:
+    """Mesh-sharded EM (``parallel/sharded_em``): reads over dp, trials
+    over the trial axis of the process group's mesh."""
+    from nanopore_tpu_torch.parallel.mesh import make_mesh
+    from nanopore_tpu_torch.parallel.sharded_em import sharded_em_train
+
+    model, trial_models, traces = sharded_em_train(
+        kept,
+        make_mesh(n_trials=opts.trials),
+        trials=opts.trials,
+        iterations=opts.iterations,
+        seed=opts.seed,
+        convergence_tol=opts.convergence_tol,
+        band_width=opts.band_width,
+        batch_size=opts.batch_size,
+        checkpoint_path=opts.checkpoint_path,
+        checkpoint_every=opts.checkpoint_every,
+        fingerprint=em_fingerprint(fingerprint_pairs, opts, sharded=True),
+        pseudocount=opts.pseudocount,
+        corr_pairs=corr_pairs,
+        window_pad=opts.window_pad,
+        device=device,
+        stats=stats,
+    )
+    return EmResult(
+        model=model, trial_models=trial_models, running_likelihoods=traces
+    )
+
+
 def learn_model_from_sam_file(
     sam_path: str,
     reference_fasta_path: str,
@@ -446,9 +543,11 @@ def learn_model_from_sam_file(
     options: EmOptions | None = None,
     device=None,
     stats=None,
+    write_files: bool = True,
 ) -> PairHmmModel:
     """EM on a chained SAM; write hmm.txt, hmm.txt_unnormalised and
-    hmm.txt.xml.
+    hmm.txt.xml (only with ``write_files``: over a mesh every rank
+    computes the same model and the coordinator owns the files).
 
     Semantics of learnModelFromSamFileTargetFn (+2) (utils.py:471-538):
     train on the global alignments (in alignment orientation — the
@@ -477,7 +576,8 @@ def learn_model_from_sam_file(
     result = em_train(pairs, options, device=device, stats=stats)
 
     unnormalised = result.model
-    unnormalised.write(output_model_path + "_unnormalised")
+    if write_files:
+        unnormalised.write(output_model_path + "_unnormalised")
 
     final = PairHmmModel(
         transitions=unnormalised.transitions.copy(),
@@ -487,6 +587,8 @@ def learn_model_from_sam_file(
     )
     final.set_indel_emissions_flat()
     final.normalise_by_reference_gc_content(0.5)
+    if not write_files:
+        return final
     final.write(output_model_path)
 
     t_stack = np.stack([m.transitions for m in result.trial_models])

@@ -13,12 +13,13 @@ order — no process fan-out, no temp-file relay.
 ``rescore=True`` also returns each record's average posterior match
 probability along its new alignment: the decode launch writes the
 gamma_match band too (the kernel's decode + gamma mode) and the rescore
-is a reduction on the device.  Batches run on one device (the
-round-robin over local cards is ROADMAP A5).
+is a reduction on the device.  With several local cards the batches
+round-robin over them (``ops.dispatch.local_dp_devices``).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import tempfile
 
@@ -33,6 +34,7 @@ from nanopore_tpu_torch.io.sam import SamReader, SamRecord, SamWriter
 from nanopore_tpu_torch.io.seqio import read_fasta_dict
 from nanopore_tpu_torch.ops.dispatch import (
     PreparedRealign,
+    local_dp_devices,
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
@@ -305,6 +307,11 @@ def realign_records(
             (_next_pow2(sj1 - sj0), _next_pow2(si1 - si0)), []
         ).append(u)
 
+    # several local cards: each batch is packed onto and decoded on the
+    # next one (count().__next__ is atomic on the worker threads)
+    devices = local_dp_devices(device)
+    batch_index = itertools.count()
+
     def batch_descriptors():
         for (n_pad, m_pad), idxs in buckets.items():
             for s in range(0, len(idxs), batch_size):
@@ -330,7 +337,7 @@ def realign_records(
                 "gap_gamma": gap_gamma,
                 "match_gamma": match_gamma,
                 "emit_gamma": rescore,
-                "device": device,
+                "device": devices[next(batch_index) % len(devices)],
             },
             pairs,
             params,
@@ -367,7 +374,8 @@ def realign_records(
         )
         del pending[idx]
 
-    for sub, prepared in prefetched_map(build, batch_descriptors(), depth=2):
+    for sub, prepared in prefetched_map(build, batch_descriptors(),
+                                        depth=max(2, len(devices) + 1)):
         # the walk runs on the device; only op codes and logliks cross
         _, cigars, out = prepared.decode()
         if rescore:

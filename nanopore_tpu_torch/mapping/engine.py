@@ -16,6 +16,8 @@ Per-aligner behaviour differences become config presets
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 from dataclasses import dataclass
 
@@ -30,6 +32,7 @@ from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.dispatch import (
     PreparedRealign,
     PreparedViterbi,
+    local_dp_devices,
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
@@ -146,6 +149,12 @@ class MappingEngine:
                 ref_dict, k=self.config.k, max_occ=self.config.max_occ
             )
         self.params = make_kernel_params(model or PairHmmModel.default())
+        # several local cards: batches round-robin over them, each packed
+        # onto and decoded on its own card (itertools.count: _prepare_batch
+        # runs on prefetch worker threads, and count().__next__ is atomic
+        # under CPython)
+        self._devices = local_dp_devices(self.device)
+        self._batch_counter = itertools.count()
         self.stage_stats = StageStats()
 
     # ------------------------------------------------------------------ #
@@ -360,23 +369,25 @@ class MappingEngine:
     def _prepare_batch(self, sub, key):
         """Host pack, upload, pack kernel and decode launch (the realign,
         or the Viterbi for ``decode="viterbi"``) for one candidate batch
-        (runs on a prefetch worker thread).
+        (runs on a prefetch worker thread), on this batch's round-robin
+        device.
 
         k_max is tightened to the batch's real diagonal need, or pinned
         to the bucket's k-bin.
         """
         cfg = self.config
+        dev = self._devices[next(self._batch_counter) % len(self._devices)]
         if key[0] == "k":
             k_max, exact_k = key[1], True
         else:
             k_max, exact_k = key[1] + key[2], False
         if cfg.decode == "viterbi":
-            cls, kwargs = PreparedViterbi, {"device": self.device}
+            cls, kwargs = PreparedViterbi, {"device": dev}
         else:
             cls, kwargs = PreparedRealign, {
                 "gap_gamma": cfg.gap_gamma,
                 "match_gamma": cfg.match_gamma,
-                "device": self.device,
+                "device": dev,
             }
         prep = prepared_from_pairs(
             kwargs,
@@ -560,7 +571,7 @@ class MappingEngine:
         for recs in prefetched_map(
             full_batch,
             batch_descriptors(),
-            depth=2,
+            depth=max(2, len(self._devices) + 1),
         ):
             results.extend(recs)
 

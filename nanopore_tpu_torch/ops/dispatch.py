@@ -292,6 +292,23 @@ def prepared_from_pairs(
     return prepared_cls(lite, params, xyc, m, n, **kwargs)
 
 
+def local_dp_devices(device) -> list[torch.device]:
+    """The devices a single process round-robins its batches over.
+
+    Counterpart of the JAX package's ``local_dp_devices``: it replaces
+    the reference's per-node process fan-out (batch-system maxThreads,
+    reference Makefile:1-3).  A host with several cards places each
+    prepared realign, EM or mapping batch on the next card, and its
+    kernels run there while the other cards run theirs.  Every local card
+    when ``device`` is a card and there are several, else ``[device]``.
+    """
+    device = resolve_device(device)
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 def preferred_realign_batch_size(requested: int | None = None,
                                  device=None) -> int:
     """Reads per realign or EM batch.

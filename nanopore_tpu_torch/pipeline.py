@@ -1,6 +1,6 @@
 """The pipeline: experiment cross-product over a working directory.
 
-Counterpart of ``nanopore_tpu/pipeline.py`` on one host.  It reproduces
+Counterpart of ``nanopore_tpu/pipeline.py``.  It reproduces
 the reference's pipeline (reference nanopore/pipeline.py): discover
 ``readFastqFiles/<readType>/*.fq`` and ``referenceFastaFiles/*.fa``,
 uniquify sequence names into ``output/processed*Files``, then for every
@@ -11,9 +11,11 @@ pipeline.py:98-149, 173-191).  jobTree is replaced by the host DAG
 scheduler (``runtime/scheduler.py``).
 
 Every mapping and analysis runs on ``PipelineConfig.device``: the card
-unless it is ``"cpu"``.  The cooperative multi-host run is not ported
-(ROADMAP A5): an environment that asks for more than one process raises
-``NotImplementedError``.
+unless it is ``"cpu"``.  Where ``NANOPORE_TPU_COORDINATOR``,
+``NANOPORE_TPU_NUM_PROCESSES`` (> 1) and ``NANOPORE_TPU_PROCESS_ID`` are
+set, one process per host joins a gloo process group
+(``parallel/distributed.py``) and the hosts run the pipeline together
+(:func:`_run_pipeline_distributed`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from nanopore_tpu_torch.io.seqio import (
 from nanopore_tpu_torch.mapping.presets import DEFAULT_MAPPERS, MAPPER_REGISTRY
 from nanopore_tpu_torch.mapping.runner import run_mapper
 from nanopore_tpu_torch.meta import ALL_META_ANALYSES
+from nanopore_tpu_torch.parallel import distributed as dist
 from nanopore_tpu_torch.runtime.scheduler import Scheduler
 
 logger = logging.getLogger("nanopore_tpu_torch")
@@ -147,17 +150,6 @@ def build_experiments(
     return experiments
 
 
-def check_single_process() -> None:
-    """Refuse an environment that asks for the multi-host run, read as
-    the JAX package reads it (``parallel/distributed.py``)."""
-    if os.environ.get("NANOPORE_TPU_COORDINATOR") and int(
-        os.environ.get("NANOPORE_TPU_NUM_PROCESSES", "1")
-    ) > 1:
-        raise NotImplementedError(
-            "the multi-host pipeline is not ported yet: ROADMAP A5"
-        )
-
-
 def run_pipeline(
     working_dir: str, config: PipelineConfig | None = None
 ) -> str:
@@ -166,7 +158,8 @@ def run_pipeline(
     Tracing: set ``NANOPORE_TPU_PROFILE=<dir>`` to record the whole run
     with ``torch.profiler`` (host ops, and the card's kernels when it
     runs on the card) into ``<dir>/pipeline_trace.json``, a Chrome
-    trace (Perfetto reads it); per-task wall/CPU stats land in
+    trace (Perfetto reads it), one per rank (``pipeline_trace.host<i>.json``
+    on rank i > 0); per-task wall/CPU stats land in
     output/pipeline_stats.json either way (runtime/scheduler.py).
     """
     config = config or PipelineConfig()
@@ -182,7 +175,11 @@ def run_pipeline(
     with profile(activities=activities) as prof:
         out = _run_pipeline_impl(working_dir, config, device)
     os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "pipeline_trace.json"))
+    pi = dist.process_info()[0]
+    prof.export_chrome_trace(os.path.join(
+        profile_dir,
+        "pipeline_trace.json" if pi == 0 else "pipeline_trace.host%d.json" % pi,
+    ))
     return out
 
 
@@ -197,28 +194,17 @@ def _run_pipeline_impl(
         unknown = [n for n in names if n not in registry]
         if unknown:
             raise ValueError("unknown %s %s" % (kind, ", ".join(unknown)))
-    check_single_process()
 
     output_dir = os.path.join(working_dir, "output")
     os.makedirs(output_dir, exist_ok=True)
 
-    if config.sample_reads:
-        from nanopore_tpu_torch.analyses.read_sampler import sample_reads
+    if dist.initialize_distributed()[1] > 1:
+        return _run_pipeline_distributed(working_dir, config, output_dir,
+                                         device)
 
-        sample_reads(working_dir)
-
-    read_fastq_files, reference_fasta_files = discover_inputs(
-        working_dir, output_dir
-    )
-    if config.mutate_references:
-        from nanopore_tpu_torch.analyses.mutate_reference import (
-            mutate_reference_sequences,
-        )
-
-        reference_fasta_files = mutate_reference_sequences(
-            reference_fasta_files
-        )
-
+    _sample_reads(working_dir, config)
+    read_fastq_files, reference_fasta_files = _prepare_inputs(
+        working_dir, config, output_dir)
     experiments = build_experiments(
         output_dir, read_fastq_files, reference_fasta_files, config.mappers
     )
@@ -253,31 +239,8 @@ def _run_pipeline_impl(
             skip_if=lambda exp=exp: os.path.exists(exp.sam_file),
         )
         for analysis_name in config.analyses:
-            cls = ALL_ANALYSES[analysis_name]
-            analysis_dir = os.path.join(
-                exp.experiment_dir, "analysis_" + analysis_name
-            )
-            os.makedirs(analysis_dir, exist_ok=True)
-            task_name = "analysis:%s:%s" % (analysis_name, exp.experiment_dir)
-
-            def analysis_fn(exp=exp, cls=cls, analysis_dir=analysis_dir):
-                Analysis.reset(analysis_dir)
-                cls(
-                    exp.read_fastq_file,
-                    exp.read_type,
-                    exp.reference_fasta_file,
-                    exp.sam_file,
-                    analysis_dir,
-                    device=device,
-                ).execute()
-
-            sched.add_task(
-                task_name,
-                analysis_fn,
-                deps=[map_task],
-                skip_if=lambda d=analysis_dir: Analysis.is_finished(d),
-            )
-            analysis_task_names.append(task_name)
+            analysis_task_names.append(_add_analysis_task(
+                sched, exp, analysis_name, device, deps=[map_task]))
 
     # meta-analyses run after every experiment (pipeline.py:112,144-149)
     for meta_name in config.meta_analyses:
@@ -293,4 +256,131 @@ def _run_pipeline_impl(
         )
 
     sched.run(stats_path=os.path.join(output_dir, "pipeline_stats.json"))
+    return output_dir
+
+
+def _add_analysis_task(sched: Scheduler, exp: Experiment, analysis_name: str,
+                       device, deps=()) -> str:
+    """Add the task of one analysis of one experiment (skipped when its
+    DONE marker is there); returns the task's name."""
+    cls = ALL_ANALYSES[analysis_name]
+    analysis_dir = os.path.join(exp.experiment_dir, "analysis_" + analysis_name)
+    os.makedirs(analysis_dir, exist_ok=True)
+    task_name = "analysis:%s:%s" % (analysis_name, exp.experiment_dir)
+
+    def analysis_fn():
+        Analysis.reset(analysis_dir)
+        cls(
+            exp.read_fastq_file,
+            exp.read_type,
+            exp.reference_fasta_file,
+            exp.sam_file,
+            analysis_dir,
+            device=device,
+        ).execute()
+
+    sched.add_task(
+        task_name,
+        analysis_fn,
+        deps=deps,
+        skip_if=lambda: Analysis.is_finished(analysis_dir),
+    )
+    return task_name
+
+
+def _sample_reads(working_dir: str, config: PipelineConfig) -> None:
+    """The read sampler, when configured (pipeline.py:162-163)."""
+    if config.sample_reads:
+        from nanopore_tpu_torch.analyses.read_sampler import sample_reads
+
+        sample_reads(working_dir)
+
+
+def _prepare_inputs(working_dir: str, config: PipelineConfig,
+                    output_dir: str):
+    """The uniquified inputs and, when configured, the mutated
+    references (pipeline.py:173-194)."""
+    read_fastq_files, reference_fasta_files = discover_inputs(
+        working_dir, output_dir
+    )
+    if config.mutate_references:
+        from nanopore_tpu_torch.analyses.mutate_reference import (
+            mutate_reference_sequences,
+        )
+
+        reference_fasta_files = mutate_reference_sequences(
+            reference_fasta_files
+        )
+    return read_fastq_files, reference_fasta_files
+
+
+def _run_pipeline_distributed(
+    working_dir: str, config: PipelineConfig, output_dir: str, device
+) -> str:
+    """Multi-host pipeline: every rank runs this cooperatively.
+
+    The reference places jobTree targets on cluster nodes over a shared
+    filesystem (Makefile:2, pipeline.sh:9); here the mapping, realign and
+    EM work of each experiment is read-sharded across ranks
+    (``mapping.runner._run_mapper_distributed``: EM sums all-reduce over
+    the mesh), analysis tasks are strided whole across ranks, and the
+    meta-analyses run on rank 0 after a global barrier.  Every collective
+    runs on this (main) thread: the cooperative mapping runs before the
+    scheduler starts, and the analyses under it call none.
+    """
+    pi, pc = dist.process_info()
+    logger.info("distributed pipeline: rank %d/%d on %s", pi, pc, device)
+
+    # --- inputs: rank 0 writes processed*Files, the others read them --- #
+    if pi == 0:
+        _sample_reads(working_dir, config)
+        read_fastq_files, reference_fasta_files = _prepare_inputs(
+            working_dir, config, output_dir)
+    dist.barrier("inputs")
+    if pi != 0:
+        read_fastq_files, reference_fasta_files = _prepare_inputs(
+            working_dir, config, output_dir)
+    experiments = build_experiments(
+        output_dir, read_fastq_files, reference_fasta_files, config.mappers
+    )
+
+    # --- mapping: cooperative per experiment, in one order ------------- #
+    for exp in experiments:
+        os.makedirs(exp.experiment_dir, exist_ok=True)
+        # rank 0 decides the skip, so no rank diverges on what the
+        # filesystem shows it
+        if dist.coordinator_decision(os.path.exists(exp.sam_file)):
+            continue
+        run_mapper(
+            exp.mapper_name,
+            exp.read_fastq_file,
+            exp.read_type,
+            exp.reference_fasta_file,
+            exp.sam_file,
+            exp.hmm_file,
+            config.em_options,
+            distributed=True,
+            device=device,
+        )
+    dist.barrier("mapping")
+
+    # --- analyses: whole tasks strided across ranks --------------------- #
+    tasks = [(exp, name) for exp in experiments for name in config.analyses]
+    sched = Scheduler(max_workers=config.max_workers)
+    for exp, analysis_name in dist.host_shard(tasks):
+        _add_analysis_task(sched, exp, analysis_name, device)
+    sched.run(stats_path=os.path.join(
+        output_dir,
+        "pipeline_stats.json" if pi == 0 else "pipeline_stats.host%d.json" % pi,
+    ))
+    dist.barrier("analyses")
+
+    # --- meta-analyses: rank 0, after every experiment ------------------ #
+    if pi == 0:
+        for meta_name in config.meta_analyses:
+            meta_dir = os.path.join(output_dir, "metaAnalysis_" + meta_name)
+            os.makedirs(meta_dir, exist_ok=True)
+            ALL_META_ANALYSES[meta_name](
+                meta_dir, experiments, config.analyses).run()
+    dist.barrier("meta")
     return output_dir

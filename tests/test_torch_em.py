@@ -276,9 +276,8 @@ def test_learn_model_from_sam_file_writes_the_jax_files(pairs, tmp_path):
 
 
 def test_unported_em_options_raise(pairs):
-    with pytest.raises(NotImplementedError, match="A5"):
-        port_em.em_train(pairs, port_em.EmOptions(use_mesh=True),
-                         device="cpu")
+    """The name is kept from when ``use_mesh=True`` raised (ROADMAP A5);
+    it is ported (tests/test_torch_parallel.py).  No pairs still raise."""
     with pytest.raises(ValueError):
         port_em.em_train([], device="cpu")
 

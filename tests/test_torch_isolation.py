@@ -98,14 +98,24 @@ HOST_MODULES = [
     "nanopore_tpu_torch.scripts.rescue_2d",
 ]
 
+# the parallel layer (the multi-host run)
+PARALLEL_MODULES = [
+    "nanopore_tpu_torch.parallel",
+    "nanopore_tpu_torch.parallel.distributed",
+    "nanopore_tpu_torch.parallel.mesh",
+    "nanopore_tpu_torch.parallel.sharded_em",
+]
+
 
 def test_the_pipeline_modules_are_imported_and_their_sources_checked():
     """Both checks above walk the package, so they cover the pipeline's
-    modules and the host modules; this holds that they do."""
+    modules, the host modules and the parallel layer; this holds that
+    they do."""
     mods = _port_modules()
-    missing = [m for m in PIPELINE_MODULES + HOST_MODULES if m not in mods]
+    checked = PIPELINE_MODULES + HOST_MODULES + PARALLEL_MODULES
+    missing = [m for m in checked if m not in mods]
     assert missing == []
-    for m in PIPELINE_MODULES + HOST_MODULES:
+    for m in checked:
         rel = pathlib.Path(*m.split("."))
         path = ROOT / rel.with_suffix(".py")
         if not path.exists():

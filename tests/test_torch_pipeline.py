@@ -19,8 +19,8 @@
   - the resumed run skips every task.
 * ``run --device cpu`` through the CLI, with a ``torch.profiler`` trace;
   ``run`` without a card raises; an unknown name raises ``ValueError``
-  and a two-process environment ``NotImplementedError``, each before
-  any task runs.
+  before any task runs, and a two-process environment joins a gloo
+  process group from its three variables first.
 * ``CoverageDepth``, ``MarginAlignMetaAnalysis`` and
   ``CustomTrackAssemblyHub`` in the pipeline beside ``CoverageSummary``:
   the files of the JAX pipeline.
@@ -377,11 +377,35 @@ def test_unknown_names_fail_before_any_task(field, name, working_dir,  # noqa: F
 
 def test_two_process_environment_names_a5(working_dir, tmp_path,  # noqa: F811
                                           monkeypatch):
+    """The name is kept from when a two-process environment raised
+    (ROADMAP A5).  It is ported: the pipeline joins a gloo process group
+    from the three variables, with a finite timeout, before any task (the
+    joining is stopped here; two real ranks run in
+    tests/test_torch_multihost.py)."""
+    import torch.distributed
+
     wd = copy_inputs(working_dir, tmp_path / "wd")
     monkeypatch.setenv("NANOPORE_TPU_COORDINATOR", "localhost:1234")
     monkeypatch.setenv("NANOPORE_TPU_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="A5"):
+    monkeypatch.setenv("NANOPORE_TPU_PROCESS_ID", "1")
+    calls = []
+
+    class Joined(Exception):
+        pass
+
+    def init_process_group(backend, **kwargs):
+        calls.append((backend, kwargs))
+        raise Joined()
+
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        init_process_group)
+    with pytest.raises(Joined):
         run_pipeline(wd, PipelineConfig(
             mappers=["LastParams"], analyses=["Substitutions"],
             meta_analyses=[], device="cpu"))
-    assert not os.path.exists(os.path.join(wd, "output"))
+    (backend, kwargs), = calls
+    assert backend == "gloo"
+    assert kwargs["init_method"] == "tcp://localhost:1234"
+    assert (kwargs["world_size"], kwargs["rank"]) == (2, 1)
+    assert 0 < kwargs["timeout"].total_seconds() < float("inf")
+    assert not os.listdir(os.path.join(wd, "output"))

@@ -209,10 +209,14 @@ def test_post_stages_raise_without_a_card(inputs):
 
 
 def test_unported_runner_paths_name_their_roadmap_item(inputs):
+    """The name is kept from when ``distributed=True`` raised (ROADMAP
+    A5).  It is ported: in a single process it runs the single-process
+    path, whose chained SAM equals the JAX package's (the multi-rank run
+    is tests/test_torch_multihost.py's)."""
     d, fa, fq = inputs["dir"], inputs["fa"], inputs["fq"]
-    with pytest.raises(NotImplementedError, match="A5"):
-        run_mapper("LastParams", fq, "reads", fa, str(d / "x.sam"),
-                   distributed=True, device="cpu")
+    run_mapper("LastParamsChain", fq, "reads", fa, str(d / "dist.sam"),
+               distributed=True, device="cpu")
+    assert (d / "dist.sam").read_text() == (d / "j_chain.sam").read_text()
 
 
 def test_viterbi_realign_matches_jax(inputs):
