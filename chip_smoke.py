@@ -222,10 +222,39 @@
    their first four fields; on each rank pack, realign, traceback and
    realign_em launched and nothing else.  Prints the phase's wall and
    each rank's launches.
-13. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
-   ``launches_pipeline_path``, a ``launches_rescue_2d_path`` and a
-   ``launches_distributed_path``, the sum over the two ranks, on every
-   row) and, last, ``{"ok": true, "device": {...}}``.
+13. Band widths the kernels are not built for (ROADMAP C9, C10), in
+   the child of step 8 after it (``chip_smoke.py --widths`` runs this
+   step alone): 64 reads of 700-1300 bases drawn from the 48,502-bp
+   reference (5 % deletions, 10 % substitutions), mapped with
+   ``LastParams`` and chained, in windows of pad 128 (the realign
+   stage's).  At live widths 21 (the reference's production band) and 48,
+   laid into W = 32 and W = 64 with their dead lanes sentinel, every
+   kernel against its plain version in that layout, to the bars of steps
+   3, 5, 7 and 8: the pack byte-identical (its dead lanes all sentinel);
+   decode and decode + gamma (loglik 1e-5, score 1e-4 relative,
+   direction codes identical on >= 99 % of reads and DIR_NONE in every
+   dead lane, gamma 5e-5); the MEA walker's ops identical, no walk
+   leaving the live band; the EM mode (loglik 1e-5, trans and emis 3e-5
+   of each table's largest entry per read); the gamma mode (5e-5); the
+   exp mode (retire rows and flush 5e-5, the flush 0 in the dead lanes);
+   the Viterbi kernel (score 1e-5 relative, the plane byte-identical)
+   and its walker (ops and end cells identical); the forward-only kernel
+   (loglik 1e-5 relative).  Each kernel timed with CUDA events at the
+   live width, its bound at the live width, and again on the same reads
+   as a band of the layout's full width.  Then, each with every counter
+   set to 0 just before: ``cli.main(["realign", ..., "--band-width",
+   "21"])`` on 8 of the reads (4 shorter than 1,000 bases, 4 longer:
+   two window shapes, so two batches): pack, realign and traceback
+   launched more than once, nothing else, and the SAM identical to the
+   same command's with ``--device cpu``; ``em_train`` at
+   ``EmOptions(band_width=48, trials=1, iterations=2)`` on 16 chained
+   reads: the model within 3e-5 relative of the CPU's.
+14. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
+   ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
+   ``launches_distributed_path``, the sum over the two ranks, a
+   ``launches_widths_realign_path`` and a ``launches_widths_em_path``
+   on every row, and step 13's ``*_w21`` and ``*_w48`` numbers) and,
+   last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, without a CUDA device or without the
@@ -255,6 +284,13 @@ POST_PLAIN_READS = 64  # reads the posterior path's plain versions run on
 RESCORE_READS = 64  # records realign_records(rescore=True) rescores
 MUTATION_RATE = 0.01  # the pipeline's (analyses/mutate_reference.py)
 SNP_THRESHOLD = 1e-3  # analyses/snp_caller.py::POSTERIOR_THRESHOLD
+# phase 13: live band widths laid into the W = 32 and W = 64 kernels
+LIVE_WIDTHS = (21, 48)  # the reference's production band, one above 32
+WIDTH_READS = 64  # of 80 drawn: those whose window misses the far end
+WIDTH_READ_LENS = (700, 1300)
+WIDTH_MAX_K = 4096  # m + n of a window that does not reach the far end
+WIDTH_CLI_RECORDS = 4  # reads on each side of 1,000 bases
+WIDTH_EM_READS = 16
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -297,9 +333,12 @@ def fail(msg: str) -> None:
     raise SystemExit("chip_smoke: FAILED: " + msg)
 
 
-def write_workload(workdir: str, ref_len: int):
-    """A random reference of ``ref_len`` and 512 noisy 5 kb reads (names
-    r<i>_<start>_<strand>)."""
+def write_workload(workdir: str, ref_len: int, n_reads: int = N_READS,
+                   read_lens=None):
+    """A random reference of ``ref_len`` and ``n_reads`` noisy 5 kb reads
+    (names r<i>_<start>_<strand>); with ``read_lens`` (lo, hi), reads of
+    lengths drawn uniformly from lo..hi by a second generator (the
+    reference is the same)."""
     from nanopore_tpu_torch.io.encoding import decode, revcomp_codes
 
     os.makedirs(workdir, exist_ok=True)
@@ -312,11 +351,15 @@ def write_workload(workdir: str, ref_len: int):
         for i in range(0, len(seq), 80):
             fh.write(seq[i:i + 80] + "\n")
     fq = os.path.join(workdir, "reads.fq")
+    if read_lens is not None:
+        rng = np.random.default_rng(SEED + 1)
     with open(fq, "w") as fh:
-        for r in range(N_READS):
-            start = int(rng.integers(0, ref_len - READ_LEN))
-            x = ref[start:start + READ_LEN]
-            y = x[rng.random(READ_LEN) > 0.05]
+        for r in range(n_reads):
+            length = READ_LEN if read_lens is None else int(
+                rng.integers(read_lens[0], read_lens[1] + 1))
+            start = int(rng.integers(0, ref_len - length))
+            x = ref[start:start + length]
+            y = x[rng.random(length) > 0.05]
             sub = rng.random(len(y)) < 0.10
             y = np.where(sub, rng.integers(0, 4, len(y)), y).astype(np.int8)
             strand = int(rng.integers(0, 2))
@@ -2613,6 +2656,409 @@ def distributed_phase(workdir: str) -> dict:
             for k in ranks[0]["launches"]}
 
 
+# ---- phase 13: live band widths in the W = 32 and W = 64 kernels ---- #
+
+def live_batch(pairs, w: int, dev, lanes=None):
+    """Pack ``pairs`` as a band of live width ``w`` in ``lanes`` lanes
+    (default ``padded_width(w)``), as ``prepared_from_pairs`` lays a
+    batch out: (xyc, m, n, prep, stream inputs)."""
+    import torch
+
+    from nanopore_tpu_torch.ops.pack import (
+        pack_stream_pairs,
+        pack_xyc,
+        padded_width,
+    )
+
+    prep = pack_stream_pairs(pairs, w, None, lanes=lanes or padded_width(w))
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    m, n = put(prep["m"]), put(prep["n"])
+    stream, initx = put(prep["stream"]), put(prep["initx"])
+    return pack_xyc(stream, initx, m, n, band_width=w), m, n, prep, (
+        stream, initx)
+
+
+def width_kernel_checks(pairs, w: int, dev, res: dict) -> None:
+    """Every kernel against its plain version on a band of live width
+    ``w`` in the padded layout, timed there and as a band of the
+    layout's full width; into ``res[kernel]`` under ``*_w<w>``."""
+    import torch
+
+    from nanopore_tpu_torch.align.em import representable
+    from nanopore_tpu_torch.align.model import PairHmmModel
+    from nanopore_tpu_torch.ops.forward import (
+        forward_loglik,
+        forward_loglik_plain,
+    )
+    from nanopore_tpu_torch.ops.pack import SENT, pack_xyc, pack_xyc_plain
+    from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
+    from nanopore_tpu_torch.ops.realign import (
+        DIR_NONE,
+        realign_decode,
+        realign_decode_plain,
+        realign_em,
+        realign_em_plain,
+        realign_exp,
+        realign_exp_plain,
+        realign_gamma,
+        realign_gamma_plain,
+    )
+    from nanopore_tpu_torch.ops.traceback import (
+        mea_walk,
+        mea_walk_plain,
+        viterbi_walk,
+        viterbi_walk_plain,
+    )
+    from nanopore_tpu_torch.ops.viterbi import (
+        viterbi_forward,
+        viterbi_forward_plain,
+    )
+
+    t0 = time.perf_counter()
+    tag = "_w%d" % w
+    xyc, m, n, prep, (stream, initx) = live_batch(pairs, w, dev)
+    B, k_pad, W_ = xyc.shape
+    kend = prep["k_end"]
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    # the same reads as a band of the layout's full width
+    fx, fm, fn_, fprep, (fstream, finitx) = live_batch(pairs, W_, dev)
+    print("phase 13, w = %d in W = %d: B=%d k_pad=%d (full width: k_pad %d)"
+          % (w, W_, B, k_pad, fprep["k_pad"]))
+    dflt = make_kernel_params(PairHmmModel.default())
+    # EM under a random restart, as em_train draws it
+    rand = make_kernel_params(PairHmmModel.random(np.random.default_rng(SEED)))
+    rows = {}
+
+    def row(name, ms, ms_full, plain_ms, err, ops_per_cell, nbytes):
+        if ops_per_cell:
+            bound, by = realign_bound(ops_per_cell, w, need, nbytes)
+        else:
+            bound, by = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+        rows[name] = {"ms" + tag: ms, "ms_full" + tag: ms_full,
+                      "plain_ms" + tag: plain_ms, "max_abs_err" + tag: err,
+                      "bound_ms" + tag: bound, "bound_by" + tag: by,
+                      "reads" + tag: B, "k_pad" + tag: k_pad}
+        print("  %s w=%d: %.3f ms (%.3f ms at the full W = %d), bound %.4f ms "
+              "(%s), plain %.1f ms, max abs err %.3g"
+              % (name, w, ms, ms_full, W_, bound, by, plain_ms, err))
+
+    # K1: byte for byte, every dead lane the sentinel with its row's bits
+    xyc_p, plain_ms = timed(lambda: pack_xyc_plain(stream, initx, m, n, w))
+    codes = xyc.view(torch.uint8)
+    dead = codes[:, :, w:]
+    if not torch.equal(xyc, xyc_p) or not bool(
+            ((dead & 0x3F) == SENT).all()
+            and ((dead & 0xC0) == (codes[:, :, :1] & 0xC0)).all()):
+        fail("pack kernel at w=%d differs from its plain version or writes "
+             "a live code in a dead lane" % w)
+    row("pack", cuda_ms(lambda: pack_xyc(stream, initx, m, n, w), 5),
+        cuda_ms(lambda: pack_xyc(fstream, finitx, fm, fn_), 5, warmup=False),
+        plain_ms, 0.0, 0, B * k_pad + B * W_ + 8 * B + B * k_pad * w)
+
+    # K2 decode and decode + gamma; K3 on the kernel's direction codes
+    for name, gam in (("realign", False), ("realign_decode_gamma", True)):
+        out_k = realign_decode(xyc, m, n, dflt, emit_gamma=gam, kend=kend,
+                               band_width=w)
+        out_p, plain_ms = timed(lambda: realign_decode_plain(
+            xyc, m, n, dflt, emit_gamma=gam, band_width=w))
+        ll_rel = rel_err(out_k["loglik"], out_p["loglik"])
+        sc_rel = rel_err(out_k["score"], out_p["score"])
+        dirs_rows = int((out_k["dirs"] != out_p["dirs"]).flatten(1).any(1)
+                        .sum())
+        err = float(torch.maximum(
+            (out_k["loglik"] - out_p["loglik"]).abs().max(),
+            (out_k["score"] - out_p["score"]).abs().max()))
+        if gam:
+            err = max(err, finite_err(out_k, out_p, ("gamma",), B, name))
+        dead_none = bool((out_k["dirs"][:, :, w:] == DIR_NONE).all())
+        print("  %s w=%d: loglik max rel %.3g, score max rel %.3g, reads "
+              "with differing direction codes %d of %d, dead lanes DIR_NONE "
+              "%s%s" % (name, w, ll_rel, sc_rel, dirs_rows, B, dead_none,
+                        ", gamma max abs err %.3g" % err if gam else ""))
+        if (ll_rel > 1e-5 or sc_rel > 1e-4 or dirs_rows > 0.01 * B
+                or not dead_none or err > (5e-5 if gam else np.inf)):
+            fail("%s at w=%d outside tolerance" % (name, w))
+        out_bytes = B * (k_pad + 1) * w * (5 if gam else 1)
+        row(name, cuda_ms(lambda: realign_decode(
+                xyc, m, n, dflt, emit_gamma=gam, kend=kend, band_width=w), 3),
+            cuda_ms(lambda: realign_decode(fx, fm, fn_, dflt, emit_gamma=gam,
+                                           kend=fprep["k_end"]), 3,
+                    warmup=False),
+            plain_ms, err, REALIGN_OPS_PER_CELL,
+            B * k_pad * w + out_bytes + 16 * B)
+        if gam:
+            continue
+        dirs_k = out_k["dirs"]
+        ops_k = mea_walk(dirs_k, xyc, m, n)
+        ops_p, plain_ms = timed(lambda: mea_walk_plain(dirs_k, xyc, m, n))
+        if not torch.equal(ops_k, ops_p):
+            fail("MEA walker at w=%d differs from its plain version" % w)
+        left = walks_leaving(ops_k.cpu().numpy(), prep["offsets"], w)
+        print("  traceback w=%d: ops identical, walks leaving the live band "
+              "%d" % (w, left))
+        if left:
+            fail("%d MEA walks leave the live band at w=%d" % (left, w))
+        fdirs = realign_decode(fx, fm, fn_, dflt, kend=fprep["k_end"])["dirs"]
+        row("traceback", cuda_ms(lambda: mea_walk(dirs_k, xyc, m, n), 10),
+            cuda_ms(lambda: mea_walk(fdirs, fx, fm, fn_), 10, warmup=False),
+            plain_ms, 0.0, 0, walked_bytes(ops_k) + need - B
+            + B * (k_pad + 1) + 8 * B)
+
+    # K2-em, K2-gamma, K2-exp
+    out_k = realign_em(xyc, m, n, rand, kend=kend, band_width=w)
+    out_p, plain_ms = timed(lambda: realign_em_plain(xyc, m, n, rand, w))
+    held = torch.from_numpy(representable(
+        out_k["trans"].double().cpu().numpy(),
+        out_k["emis"].double().cpu().numpy(), prep["m"], prep["n"])).to(dev)
+    rels, err = [rel_err(out_k["loglik"], out_p["loglik"])], 0.0
+    for key in ("trans", "emis"):
+        a, b = out_k[key].flatten(1)[held], out_p[key].flatten(1)[held]
+        rels.append(float(((a - b).abs().amax(1) / b.abs().amax(1)).max()))
+        err = max(err, float((a - b).abs().max()))
+    print("  realign_em w=%d: loglik max rel %.3g, trans and emis max rel "
+          "to the table's largest entry %.3g, %.3g (%d of %d reads "
+          "representable)" % (w, *rels, int(held.sum()), B))
+    if rels[0] > 1e-5 or max(rels[1:]) > 3e-5 or int(held.sum()) < 0.9 * B:
+        fail("EM mode at w=%d outside tolerance" % w)
+    row("realign_em", cuda_ms(lambda: realign_em(
+            xyc, m, n, rand, kend=kend, band_width=w), 3),
+        cuda_ms(lambda: realign_em(fx, fm, fn_, rand, kend=fprep["k_end"]),
+                3, warmup=False),
+        plain_ms, err, REALIGN_EM_OPS_PER_CELL,
+        B * k_pad * w + 8 * B + B * 106 * 4)
+    out_k = realign_gamma(xyc, m, n, dflt, kend=kend, band_width=w)
+    out_p, plain_ms = timed(lambda: realign_gamma_plain(xyc, m, n, dflt, w))
+    err = finite_err(out_k, out_p, ("loglik", "gamma"), B, "realign_gamma")
+    ll_rel = rel_err(out_k["loglik"], out_p["loglik"])
+    dead_zero = bool((out_k["gamma"][:, :, w:] == 0).all())
+    print("  realign_gamma w=%d: loglik max rel %.3g, gamma max abs err "
+          "%.3g, dead lanes 0 %s" % (w, ll_rel, err, dead_zero))
+    if ll_rel > 1e-5 or err > 5e-5 or not dead_zero:
+        fail("gamma mode at w=%d outside tolerance" % w)
+    row("realign_gamma", cuda_ms(lambda: realign_gamma(
+            xyc, m, n, dflt, kend=kend, band_width=w), 3),
+        cuda_ms(lambda: realign_gamma(fx, fm, fn_, dflt, kend=fprep["k_end"]),
+                3, warmup=False),
+        plain_ms, err, REALIGN_GAMMA_OPS_PER_CELL,
+        B * k_pad * w + B * (k_pad + 1) * w * 4 + 12 * B)
+    out_k = realign_exp(xyc, m, n, dflt, SNP_THRESHOLD, kend=kend,
+                        band_width=w)
+    out_p, plain_ms = timed(lambda: realign_exp_plain(
+        xyc, m, n, dflt, SNP_THRESHOLD, w))
+    err = finite_err(out_k, out_p, ("ret", "flush"), B, "realign_exp")
+    ll_rel = rel_err(out_k["loglik"], out_p["loglik"])
+    dead_zero = bool((out_k["flush"][:, :, w:] == 0).all())
+    print("  realign_exp w=%d: loglik max rel %.3g, retire rows and flush "
+          "max abs err %.3g, dead flush columns 0 %s"
+          % (w, ll_rel, err, dead_zero))
+    if ll_rel > 1e-5 or err > 5e-5 or not dead_zero:
+        fail("exp mode at w=%d outside tolerance" % w)
+    row("realign_exp", cuda_ms(lambda: realign_exp(
+            xyc, m, n, dflt, SNP_THRESHOLD, kend=kend, band_width=w), 3),
+        cuda_ms(lambda: realign_exp(fx, fm, fn_, dflt, SNP_THRESHOLD,
+                                    kend=fprep["k_end"]), 3, warmup=False),
+        plain_ms, err, REALIGN_EXP_OPS_PER_CELL,
+        B * k_pad * w + B * (k_pad + 1) * 16 + B * 4 * w * 4 + 12 * B)
+
+    # K4 and K5; K6
+    out_k = viterbi_forward(xyc, m, n, dflt)
+    out_p, plain_ms = timed(lambda: viterbi_forward_plain(xyc, m, n, dflt))
+    sc_rel = rel_err(out_k["score"], out_p["score"])
+    same = (torch.equal(out_k["bp"], out_p["bp"])
+            and torch.equal(out_k["fstate"], out_p["fstate"]))
+    print("  viterbi w=%d: score max rel %.3g, plane and fstate %s"
+          % (w, sc_rel, "byte-identical" if same else "DIFFERENT"))
+    if sc_rel > 1e-5 or not same:
+        fail("Viterbi kernel at w=%d outside tolerance" % w)
+    row("viterbi", cuda_ms(lambda: viterbi_forward(xyc, m, n, dflt), 5),
+        cuda_ms(lambda: viterbi_forward(fx, fm, fn_, dflt), 5, warmup=False),
+        plain_ms, float((out_k["score"] - out_p["score"]).abs().max()),
+        VITERBI_SHORT_OPS_PER_CELL, B * k_pad * w + B * (k_pad + 1) * w
+        + 8 * B)
+    bp, fs = out_k["bp"], out_k["fstate"]
+    walk_k = viterbi_walk(bp, xyc, m, n, fs)
+    walk_p, plain_ms = timed(lambda: viterbi_walk_plain(bp, xyc, m, n, fs))
+    if not all(torch.equal(a, b) for a, b in zip(walk_k, walk_p)):
+        fail("Viterbi walker at w=%d differs from its plain version" % w)
+    left = walks_leaving(walk_k[0].cpu().numpy(), prep["offsets"], w)
+    print("  viterbi_traceback w=%d: ops and end cells identical, walks "
+          "short of the origin %d, walks leaving the live band %d"
+          % (w, int(walk_k[1].any(1).sum()), left))
+    if left or bool(walk_k[1].any()):
+        fail("Viterbi walks at w=%d leave the live band or stop short" % w)
+    fvit = viterbi_forward(fx, fm, fn_, dflt)
+    row("viterbi_traceback",
+        cuda_ms(lambda: viterbi_walk(bp, xyc, m, n, fs), 10),
+        cuda_ms(lambda: viterbi_walk(fvit["bp"], fx, fm, fn_, fvit["fstate"]),
+                10, warmup=False),
+        plain_ms, 0.0, 0, walked_bytes(walk_k[0]) + need - B
+        + B * (k_pad + 1) + 16 * B)
+    ll_k = forward_loglik(xyc, m, n, dflt)
+    ll_p, plain_ms = timed(lambda: forward_loglik_plain(xyc, m, n, dflt))
+    ll_rel = rel_err(ll_k, ll_p)
+    print("  forward w=%d: loglik max rel %.3g (%s)"
+          % (w, ll_rel, "bit-identical" if bits_equal(ll_k, ll_p)
+             else "not bit-identical"))
+    if ll_rel > 1e-5:
+        fail("forward kernel at w=%d outside tolerance" % w)
+    row("forward", cuda_ms(lambda: forward_loglik(xyc, m, n, dflt), 5),
+        cuda_ms(lambda: forward_loglik(fx, fm, fn_, dflt), 5, warmup=False),
+        plain_ms, float((ll_k - ll_p).abs().max()),
+        FORWARD_SHORT_OPS_PER_CELL, B * k_pad * w + 12 * B)
+    for name, r in rows.items():
+        res.setdefault(name, {}).update(r)
+    print("phase 13, w = %d: %.1f s" % (w, time.perf_counter() - t0))
+
+
+def walks_leaving(ops, offsets, w: int) -> int:
+    """Walks of op codes (0 match, 1 delete, 2 insert, 3 none; from the
+    origin, ``ops.traceback``'s order) that visit a band lane outside
+    0..w-1."""
+    left = 0
+    for b in range(ops.shape[0]):
+        row = ops[b][ops[b] != 3]
+        di = (row != 1).astype(np.int64)  # match and insert take a read base
+        dj = (row != 2).astype(np.int64)  # match and delete a reference base
+        j = np.concatenate([[0], np.cumsum(dj)])
+        k = np.concatenate([[0], np.cumsum(di + dj)])
+        lanes = j - offsets[b][k]
+        left += int(((lanes < 0) | (lanes >= w)).any())
+    return left
+
+
+def widths_phase(workdir: str, dev, counters) -> dict:
+    """Phase 13 (its checks in the docstring's step 13): returns the
+    kernels' ``*_w<w>`` numbers and the launches of the ``realign`` and
+    ``em_train`` runs."""
+    import torch
+
+    from nanopore_tpu_torch import cli
+    from nanopore_tpu_torch.align.chain_sam import chain_sam_file
+    from nanopore_tpu_torch.align.em import EmOptions, em_train
+    from nanopore_tpu_torch.io.encoding import encode
+    from nanopore_tpu_torch.io.sam import SamReader
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.mapping.runner import run_mapper
+
+    t_phase = time.perf_counter()
+    wdir = os.path.join(workdir, "widths")
+    fa, fq = write_workload(wdir, EM_REF_LEN, WIDTH_READS + 16,
+                            WIDTH_READ_LENS)
+    sam = os.path.join(wdir, "mapping.sam")
+    run_mapper("LastParams", fq, "reads", fa, sam, device=dev)
+    chained = os.path.join(wdir, "chained.sam")
+    chain_sam_file(sam, chained, fq, fa)
+    # a window that reaches the reference's end (ROADMAP C6) would set
+    # every batch's diagonal count: the reads whose windows do not
+    pairs = chained_pairs(chained, fa, 128)
+    near = [i for i, (x, y, _) in enumerate(pairs)
+            if len(x) + len(y) <= WIDTH_MAX_K][:WIDTH_READS]
+    if len(near) != WIDTH_READS:
+        fail("phase 13: %d of %d chained reads off the far end"
+             % (len(near), len(pairs)))
+    every = list(SamReader(chained).mapped())
+    recs = [every[i] for i in near]
+    pairs = [pairs[i] for i in near]
+    res = {}
+    for w in LIVE_WIDTHS:
+        width_kernel_checks(pairs, w, dev, res)
+
+    # the realign subcommand at the reference's production band, on reads
+    # on both sides of 1,000 bases (two window shapes: two batches)
+    short = [r.qname for r in recs if len(r.seq) < 1000][:WIDTH_CLI_RECORDS]
+    long_ = [r.qname for r in recs if len(r.seq) > 1100][:WIDTH_CLI_RECORDS]
+    keep = set(short + long_)
+    sub = os.path.join(wdir, "subset.sam")
+    with open(sam) as src, open(sub, "w") as dst:
+        for line in src:
+            if line.startswith("@") or line.split("\t", 1)[0] in keep:
+                dst.write(line)
+    out_k, out_c = (os.path.join(wdir, "realign_w21_%s.sam" % d)
+                    for d in ("card", "cpu"))
+    runs = {}
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    cli.main(["realign", sub, fq, fa, out_k, "--band-width", "21"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["widths_realign"] = r = {c.name: c.count for c in counters}
+    t0 = time.perf_counter()
+    cli.main(["realign", sub, fq, fa, out_c, "--band-width", "21",
+              "--device", "cpu"])
+    cpu_wall = time.perf_counter() - t0
+    got, want = (list(SamReader(p)) for p in (out_k, out_c))
+    same = [(a.qname, a.pos, a.cigar) for a in got] == [
+        (a.qname, a.pos, a.cigar) for a in want]
+    print("phase 13: realign --band-width 21 on %d records (%d short, %d "
+          "long): %.3f s on the card, %.1f s on the CPU; records %s; "
+          "launches %s" % (len(got), len(short), len(long_), wall, cpu_wall,
+                           "identical" if same else "DIFFERENT", r))
+    if len(got) != len(keep) or not same:
+        fail("realign --band-width 21: the card's records differ from the "
+             "CPU's")
+    if min(r[k] for k in ("pack", "realign", "traceback")) < 2 or any(
+            v for k, v in r.items() if k not in ("pack", "realign",
+                                                 "traceback")):
+        fail("realign --band-width 21 launches: %s" % r)
+
+    # EM at w = 48 on the card against the CPU
+    ref = {k: encode(v) for k, v in read_fasta_dict(fa).items()}
+    em_pairs = [(ref[rec.rname], encode(rec.seq), rec.cigar)
+                for rec in recs[:WIDTH_EM_READS]]
+    opts = EmOptions(band_width=48, trials=1, iterations=2,
+                     batch_size=WIDTH_EM_READS)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    card = em_train(em_pairs, opts, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["widths_em"] = r = {c.name: c.count for c in counters}
+    t0 = time.perf_counter()
+    host = em_train(em_pairs, opts, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    diff = max(
+        float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+        for a, b in ((card.model.transitions, host.model.transitions),
+                     (card.model.emissions, host.model.emissions)))
+    print("phase 13: em_train at w = 48 (1 trial x 2 iterations, %d reads): "
+          "%.3f s on the card, %.1f s on the CPU; model max relative "
+          "difference %.3g; running likelihoods %s and %s; launches %s"
+          % (len(em_pairs), wall, cpu_wall, diff,
+             card.running_likelihoods[0], host.running_likelihoods[0], r))
+    if diff > 3e-5:
+        fail("EM at w = 48: the card's model differs from the CPU's by %.3g"
+             % diff)
+    if min(r[k] for k in ("pack", "realign_em")) <= 0:
+        fail("EM at w = 48 launches: %s" % r)
+    print("phase 13 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return {"res": res, "runs": runs}
+
+
+def widths_alone() -> int:
+    """Run as ``chip_smoke.py --widths``: the kernels' build, then phase
+    13 alone (what a change to the live width's handling needs)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.kernels import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    print("build: %.1f s" % build.build())
+    out = widths_phase(os.path.join(build.BUILD_DIR, "smoke"),
+                       torch.device("cuda", 0), launch_counters())
+    print(card)
+    print(json.dumps(out))
+    return 0
+
+
 def launch_counters() -> tuple:
     from nanopore_tpu_torch.ops import forward, pack, realign, traceback, viterbi
 
@@ -2647,9 +3093,9 @@ def pipeline_child() -> int:
 def viterbi_child() -> int:
     """Run as ``chip_smoke.py --viterbi`` in a second child process,
     beside the parent's phases 5-7: phase 8 on its own copy of the
-    mapping workload (the same seed, so the same batch), its kernel rows
-    and the forward entry's launch counts written to
-    ``<workdir>/viterbi/result.json`` for the kernels line."""
+    mapping workload (the same seed, so the same batch), then phase 13;
+    their kernel rows, the forward entry's and phase 13's launch counts
+    written to ``<workdir>/viterbi/result.json`` for the kernels line."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -2667,14 +3113,15 @@ def viterbi_child() -> int:
     pairs = main_path_batch(engine, fq, preferred_realign_batch_size(None, dev))
     res = {}
     entry = viterbi_kernel_phase(engine, pairs, dev, launch_counters(), res)
+    widths = widths_phase(os.path.dirname(workdir), dev, launch_counters())
     with open(os.path.join(workdir, "result.json"), "w") as fh:
-        json.dump({"res": res, "forward_entry": entry}, fh)
+        json.dump({"res": res, "forward_entry": entry, "widths": widths}, fh)
     return 0
 
 
 def start_child(workdir: str, flag: str):
     """Start ``chip_smoke.py <flag>`` (``--pipeline``: phases 10-12;
-    ``--viterbi``: phase 8), its output in
+    ``--viterbi``: phases 8 and 13), its output in
     ``<workdir>/<flag without dashes>_child.log``; it is killed at exit if
     still running."""
     import atexit
@@ -2768,6 +3215,8 @@ def main() -> int:
         return pipeline_child()
     if sys.argv[1:] == ["--viterbi"]:
         return viterbi_child()
+    if sys.argv[1:] == ["--widths"]:
+        return widths_alone()
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
         return distributed_rank(int(sys.argv[2]), *sys.argv[3:])
     sys.path.insert(0, ROOT)
@@ -2910,10 +3359,13 @@ def main() -> int:
     post_launches = posterior_path_phase(workdir, dev, counters, res)
     mark("phase 7")
     vit_launches = viterbi_path_phase(workdir, fa, fq, dev, counters)
-    phase8 = finish_child(vit_child, workdir, "--viterbi", "phase 8",
+    phase8 = finish_child(vit_child, workdir, "--viterbi", "phases 8 and 13",
                           os.path.join("viterbi", "result.json"))
     res.update(phase8["res"])
+    for name, rows in phase8["widths"]["res"].items():
+        res[name].update(rows)
     other_runs = dict(post_launches, **vit_launches)
+    other_runs.update(phase8["widths"]["runs"])
     other_runs.update(finish_child(pipeline, workdir, "--pipeline",
                                    "phases 10-12",
                                    os.path.join("pipeline", "launches.json")))

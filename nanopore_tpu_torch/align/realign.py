@@ -38,7 +38,7 @@ from nanopore_tpu_torch.ops.dispatch import (
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
-from nanopore_tpu_torch.ops.pack import check_band_width
+from nanopore_tpu_torch.ops.pack import check_band_width, padded_width
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.posteriors import rescore_from_post
 from nanopore_tpu_torch.ops.realign import DECODE, max_workspace_k
@@ -252,14 +252,16 @@ def realign_records(
     probability of the NEW alignment when ``rescore`` (the
     --rescoreByPosteriorProbIgnoringGaps analogue; records are not split
     then, as in the JAX package), else an empty list.  On the card the
-    band width must be one the kernels serve (ROADMAP C10).
+    band width must be one the kernels serve, 2 to 64 (ROADMAP C10).
     """
     check_band_width(band_width, device)
     device = resolve_device(device)
     params = make_kernel_params(model or PairHmmModel.default())
     batch_size = preferred_realign_batch_size(batch_size, device)
     scores: list[float] = [float("nan")] * len(records)
-    split_budget = None if rescore else split_k or max_workspace_k(band_width, DECODE)
+    # the budget of the lanes the band is laid into (ops.pack.padded_width)
+    split_budget = None if rescore else split_k or max_workspace_k(
+        padded_width(band_width), DECODE)
 
     # window each global record to its aligned ref span (the banded
     # --splitMatrixBiggerThanThis analogue: flanking pure-D runs cost a

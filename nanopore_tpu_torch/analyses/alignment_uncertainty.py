@@ -35,6 +35,7 @@ from nanopore_tpu_torch.ops.dispatch import (
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
+from nanopore_tpu_torch.ops.pack import padded_width
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.posteriors import rescore_from_post
 from nanopore_tpu_torch.runtime.prefetch import prefetched_map
@@ -92,7 +93,7 @@ class AlignmentUncertainty(Analysis):
             for (n_pad, m_pad), idxs in buckets.items():
                 k_max = n_pad + m_pad
                 step = max(1, min(batch_size, GAMMA_BAND_BYTES // (
-                    (k_max + 1) * self.band_width * 4)))
+                    (k_max + 1) * padded_width(self.band_width) * 4)))
                 for s in range(0, len(idxs), step):
                     yield idxs[s : s + step], k_max
 

@@ -52,6 +52,7 @@ from nanopore_tpu_torch.ops.dispatch import (
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
+from nanopore_tpu_torch.ops.pack import padded_width
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.posteriors import expectations_from_post
 from nanopore_tpu_torch.ops.realign import max_workspace_k
@@ -159,7 +160,9 @@ class MarginAlignSnpCaller(Analysis):
         # like realign (align.realign.split_window_pair): each segment
         # owns a disjoint ref slice, so segment expectations scatter
         # independently.
-        split_budget = self.split_k or max_workspace_k(self.band_width)
+        # the budget of the lanes the band is laid into
+        split_budget = self.split_k or max_workspace_k(
+            padded_width(self.band_width))
         windows: list = [None] * len(data.records)
         # encoded queries, one encode per RECORD (a split read's
         # segments share it)

@@ -5,8 +5,11 @@
 // diagonal (bits 0-2 the symbol entering the band, bit 6 d1[k], bit 7
 // d1[k-1]) and a W-symbol seed of the x window; the kernel writes
 //     xyc[r][k-1][w] = x*8 + y | bit 6 d1[k] | bit 7 d1[k-1]
-// with sentinel 5 for x or y outside the lattice.  Byte for byte the
-// output of the plain version in ops/pack.py and of the TPU kernel.
+// with sentinel 5 for x or y outside the lattice, and in lanes at and
+// above the live width wl <= W (a narrower band laid into the W-lane
+// layout: its dead lanes emit nothing downstream).  Byte for byte the
+// output of the plain version in ops/pack.py and, at wl = W, of the TPU
+// kernel.
 //
 // Bound: bytes.  It reads 1 byte and writes W bytes per diagonal per
 // read and does a handful of integer operations per written byte.
@@ -52,7 +55,7 @@ template <int W>
 __global__ void __launch_bounds__(THREADS)
 pack_kernel(const uint8_t* __restrict__ stream, const uint8_t* __restrict__ initx,
             const int32_t* __restrict__ m, const int32_t* __restrict__ n, int k_pad,
-            uint8_t* __restrict__ xyc) {
+            int wl, uint8_t* __restrict__ xyc) {
   __shared__ __align__(16) Smem<W> sm;
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
@@ -134,7 +137,7 @@ pack_kernel(const uint8_t* __restrict__ stream, const uint8_t* __restrict__ init
       for (int cc = 0; cc < CELLS; ++cc) {
         const int j = o + w0 + cc;
         const int i = c - w0 - cc;
-        const bool okc = j <= nr && i >= 0 && i <= mr;
+        const bool okc = j <= nr && i >= 0 && i <= mr && w0 + cc < wl;
         const int xv = (okc && j >= 1) ? xs[cc] : 5;
         const int yv = (okc && i >= 1) ? ys[cc] : 5;
         wd[cc >> 2] |= (uint32_t)((xv * 8 + yv + top) & 0xFF) << (8 * (cc & 3));
@@ -174,11 +177,12 @@ extern "C" int np_pack_attrs(int W, int* out) {
   return (int)e;
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  `wl`
+// is the live band width, 1 <= wl <= W.
 extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
                               const void* m, const void* n, int nreads,
-                              int k_pad, int W, void* xyc, void* stream) {
-  if (nreads <= 0 || k_pad % 32 != 0) return (int)cudaErrorInvalidValue;
+                              int k_pad, int W, int wl, void* xyc, void* stream) {
+  if (nreads <= 0 || k_pad % 32 != 0 || wl < 1 || wl > W) return (int)cudaErrorInvalidValue;
   const dim3 grid(nreads), block(THREADS);
   cudaStream_t s = (cudaStream_t)stream;
   const uint8_t* sb = (const uint8_t*)stream_bytes;
@@ -187,9 +191,9 @@ extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
   const int32_t* nn = (const int32_t*)n;
   uint8_t* out = (uint8_t*)xyc;
   if (W == 64) {
-    pack_kernel<64><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, out);
+    pack_kernel<64><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
   } else if (W == 32) {
-    pack_kernel<32><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, out);
+    pack_kernel<32><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -32,7 +32,13 @@
 // take the forward states through the linear g-factor (clamped at 3e37,
 // seeded 1/fin(k_end)), and the reverse MEA DP reads them, ties broken
 // diag before del before ins.  Band shifts come from bits 6/7 of the
-// codes; validity rides the sentinel code 5 (zero emission).  The
+// codes; validity rides the sentinel code 5 (zero emission).  A band of
+// live width wl < W lies in the first wl lanes of the W-lane layout, its
+// dead lanes all sentinel (ops/pack.py): they hold no forward mass, the
+// backward holds 0 in them (as it shifts 0 in from outside the band), the
+// MEA NEG (as it shifts NEG in), and the exp mode retires column wl - 1,
+// the live band's top.  So the live lanes compute what a band of width
+// wl computes, bit for bit, and the dead ones add +0 to every sum.  The
 // arithmetic, including its order, is the plain version's in
 // ops/realign.py; this file is built with -fmad=false so no multiply and
 // add fuse and the two agree to the bit.
@@ -162,10 +168,12 @@
 //
 // The exp mode follows the band down the diagonals with 4 accumulators
 // per band cell (4 C registers a lane), in diagonal k's band coordinates.
-// On the k+1 -> k step it first emits column W - 1 (the last lane's last
-// cell, reference position o[k+1] + W - 2) times d1[k+1] as retire row k,
-// then moves every column up by d1[k+1] (the band shift's warp shuffle,
-// as a + d1 * (a[w-1] - a) with 0 shifted in), then adds gamma[0] where
+// On the k+1 -> k step it first emits column wl - 1 (the top of the live
+// band: at wl = W the last lane's last cell; reference position
+// o[k+1] + wl - 2) times d1[k+1] as retire row k, then moves every column
+// up by d1[k+1] (the band shift's warp shuffle, as a + d1 * (a[w-1] - a)
+// with 0 shifted in) and zeroes the columns at and above wl, so nothing
+// is carried out of the live band, then adds gamma[0] where
 // it is above the threshold, times the one-hot of the cell's read base
 // (code bits 0-2: 0-3 bin, N = 4 and the sentinel 5 nowhere; diagonal 0
 // holds sentinels only).  After diagonal 0 the surviving columns are the
@@ -646,12 +654,13 @@ __device__ __forceinline__ void bwd_init(Bwd<C>& bw) {
 }
 
 // One backward anti-diagonal k: `dest`, the emission-weighted states of
-// k+1 and k+2 shifted onto k (before the end-cell overwrite), `nw` and,
-// on odd k and on k = 0, the rescale by its band maximum `safe` (nw
-// comes out rescaled; safe and inv are 1 on the other diagonals).
+// k+1 and k+2 shifted onto k (before the end-cell overwrite), `nw` (0 in
+// the dead lanes, at and above the live width wl) and, on odd k and on
+// k = 0, the rescale by its band maximum `safe` (nw comes out rescaled;
+// safe and inv are 1 on the other diagonals).
 template <int C>
 __device__ __forceinline__ void bwd_step(const float* tf, const Bwd<C>& bw, int k,
-                                         bool is_end, int lane, float (&dest)[NS][C],
+                                         bool is_end, int lane, int wl, float (&dest)[NS][C],
                                          float (&nw)[NS][C], float& safe, float& inv) {
   const int w0 = lane * C;
   const int d2n2 = bw.d1n1 + bw.d1n2 - 1;
@@ -675,7 +684,8 @@ __device__ __forceinline__ void bwd_step(const float* tf, const Bwd<C>& bw, int 
       float acc_t = tf[st * 5] * dest[0][c];
 #pragma unroll
       for (int t = 1; t < NS; ++t) acc_t = acc_t + tf[st * 5 + t] * dest[t][c];
-      nw[st][c] = is_end ? ((w0 + c == 0) ? 1.f : 0.f) : acc_t;
+      const float v = is_end ? ((w0 + c == 0) ? 1.f : 0.f) : acc_t;
+      nw[st][c] = w0 + c < wl ? v : 0.f;
     }
   safe = 1.f;
   inv = 1.f;
@@ -741,7 +751,7 @@ __device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
 template <int C, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
-               const int32_t* __restrict__ n, int nreads, int k_pad,
+               const int32_t* __restrict__ n, int nreads, int k_pad, int wl,
                float* __restrict__ ws, const int64_t* __restrict__ woff,
                float* __restrict__ loglik, float* __restrict__ out1,
                void* __restrict__ out2) {
@@ -838,7 +848,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       const bool is_end = k == kend;
 
       float dest[NS][C], nw[NS][C], safe, inv;
-      bwd_step<C>(tf, bw, k, is_end, lane, dest, nw, safe, inv);
+      bwd_step<C>(tf, bw, k, is_end, lane, wl, dest, nw, safe, inv);
       const float factor_trans = g_next * sf_next;
       float g_k = is_end ? inv_fin : factor_trans * safe;
       g_k = fminf(g_k, 3e37f);
@@ -850,20 +860,31 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
         for (int st = 0; st < NS; ++st) gam[st][c] = (fh[st][c] * nw[st][c]) * g_k;
 
       if constexpr (XP) {
-        // retire column W - 1 on the k+1 -> k shift, move the band up by
-        // d1[k+1], then bin diagonal k's thresholded gamma_match
+        // retire column wl - 1 on the k+1 -> k shift, move the band up by
+        // d1[k+1] within the live columns, then bin diagonal k's
+        // thresholded gamma_match
         const float d1f = (float)bw.d1n1;
-        if (lane == 31) {
+        if (lane == (wl - 1) / C) {
+          const int tc = (wl - 1) % C;  // the top column's cell in its lane
+          float top[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            top[i] = ex[i][0];
+#pragma unroll
+            for (int c = 1; c < C; ++c) top[i] = c == tc ? ex[i][c] : top[i];
+          }
           *reinterpret_cast<float4*>(out1 + ((size_t)r * (k_pad + 1) + k) * 4) =
-              make_float4(ex[0][C - 1] * d1f, ex[1][C - 1] * d1f, ex[2][C - 1] * d1f,
-                          ex[3][C - 1] * d1f);
+              make_float4(top[0] * d1f, top[1] * d1f, top[2] * d1f, top[3] * d1f);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float sh[C];
           shift<C>(ex[i], sh, -1, 0.f, lane);
 #pragma unroll
-          for (int c = 0; c < C; ++c) ex[i][c] = ex[i][c] + d1f * (sh[c] - ex[i][c]);
+          for (int c = 0; c < C; ++c) {
+            const float v = ex[i][c] + d1f * (sh[c] - ex[i][c]);
+            ex[i][c] = w0 + c < wl ? v : 0.f;
+          }
         }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
@@ -965,7 +986,7 @@ __device__ __forceinline__ int64_t mea_slot_floats(int kq, int W) {
 template <int C, int MODE>
 __global__ void __launch_bounds__(MEA_WARPS * 32, 4)
 mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
-           const int32_t* __restrict__ n, int k_pad, float* __restrict__ ws,
+           const int32_t* __restrict__ n, int k_pad, int wl, float* __restrict__ ws,
            const int64_t* __restrict__ woff, float* __restrict__ loglik,
            float* __restrict__ score, int8_t* __restrict__ dirs,
            float* __restrict__ gband) {
@@ -1036,7 +1057,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
           store_row<C>(cp + NS * W, w0, bw.b2m);
         }
         float dest[NS][C], nw[NS][C], safe, inv;
-        bwd_step<C>(tf, bw, k, k == kend, lane, dest, nw, safe, inv);
+        bwd_step<C>(tf, bw, k, k == kend, lane, wl, dest, nw, safe, inv);
         if (lane == 0) sa[k] = safe;
         if (k == 0) break;
         uint8_t ck[C];
@@ -1137,7 +1158,8 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
         for (int c = 0; c < C; ++c) {
           const float best = fmaxf(fmaxf(td[c], tl[c]), tu[c]);
           const int choice = best == td[c] ? 0 : (best == tl[c] ? 1 : 2);
-          new_u[c] = is_end ? ((w0 + c == 0) ? 0.f : NEG) : best;
+          // a dead lane (at or above wl) stays unreachable, as outside
+          new_u[c] = is_end ? ((w0 + c == 0) ? 0.f : NEG) : (w0 + c < wl ? best : NEG);
           const bool ok = new_u[c] > NEG / 2 && !is_end;
           word |= (uint32_t)(ok ? choice : 3) << (8 * c);
         }
@@ -1222,7 +1244,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
       if (use > 0) mbar_wait(&sg.empty[slot], (use - 1) & 1);  // the slot is free
       for (int k = hi; k >= lo; --k) {
         float dest[NS][C], nw[NS][C], safe, inv;
-        bwd_step<C>(tf, bw, k, k == kend, lane, dest, nw, safe, inv);
+        bwd_step<C>(tf, bw, k, k == kend, lane, wl, dest, nw, safe, inv);
         store_states<C>(sg.u.p2.ring[slot][k - lo], w0, nw);
         if (k == lo) break;
         uint8_t ck[C];
@@ -1248,7 +1270,7 @@ __device__ __forceinline__ int64_t gamma_slot_floats(int kq, int W) {
 template <int C>
 __global__ void __launch_bounds__(GAMMA_WARPS * 32)
 gamma_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
-             const int32_t* __restrict__ n, int k_pad, float* __restrict__ ws,
+             const int32_t* __restrict__ n, int k_pad, int wl, float* __restrict__ ws,
              const int64_t* __restrict__ woff, float* __restrict__ loglik,
              float* __restrict__ gband) {
   constexpr int W = 32 * C;
@@ -1305,7 +1327,7 @@ gamma_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restr
       for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
         const int s = k - q * CH;
         float dest[NS][C], nw[NS][C], safe, inv;
-        bwd_step<C>(tf, bw, k, k == kend, lane, dest, nw, safe, inv);
+        bwd_step<C>(tf, bw, k, k == kend, lane, wl, dest, nw, safe, inv);
         store_row<C>(bws + (size_t)k * W, w0, nw[0]);
         if (lane == 0) sa[k] = safe;
         if (k == 0) break;
@@ -1396,7 +1418,7 @@ gamma_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restr
 
 template <int C, int MODE>
 int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, const void* m,
-                const void* n, int k_pad, void* ws, const void* woff, void* loglik,
+                const void* n, int k_pad, int wl, void* ws, const void* woff, void* loglik,
                 void* out1, void* out2, void* out3) {
   if constexpr (MODE == DECODE || MODE == DECODE_GAMMA) {
     constexpr int smem = (int)sizeof(MeaStage<C>);
@@ -1408,16 +1430,16 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
                                (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     mea_kernel<C, MODE><<<nreads, MEA_WARPS * 32, smem, s>>>(
-        t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, (float*)ws,
+        t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, wl, (float*)ws,
         (const int64_t*)woff, (float*)loglik, (float*)out1, (int8_t*)out2, (float*)out3);
   } else if constexpr (MODE == GAMMA) {
     gamma_kernel<C><<<nreads, GAMMA_WARPS * 32, 0, s>>>(
-        t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, (float*)ws,
+        t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, wl, (float*)ws,
         (const int64_t*)woff, (float*)loglik, (float*)out3);
   } else {
     realign_kernel<C, MODE>
         <<<(nreads + WARPS - 1) / WARPS, WARPS * 32, WARPS * sizeof(Stage<C>), s>>>(
-            t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad,
+            t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad, wl,
             (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2);
   }
   return (int)cudaGetLastError();
@@ -1472,11 +1494,11 @@ int attrs_width(int mode, int* out) {
 
 template <int C>
 int launch_width(int mode, const Tables& t, int nreads, cudaStream_t s, const void* xyc,
-                 const void* m, const void* n, int k_pad, void* ws, const void* woff,
+                 const void* m, const void* n, int k_pad, int wl, void* ws, const void* woff,
                  void* loglik, void* out1, void* out2, void* out3) {
 #define NP_MODE(M)                                                                       \
   case M:                                                                                \
-    return launch_mode<C, M>(t, nreads, s, xyc, m, n, k_pad, ws, woff, loglik, out1,    \
+    return launch_mode<C, M>(t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1, \
                              out2, out3);
   switch (mode) {
     NP_MODE(DECODE)
@@ -1506,7 +1528,8 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 }
 
 // Launch `mode` (DECODE 0, EM 1, GAMMA 2, DECODE_GAMMA 3, EXP 4) on
-// `stream`; returns cudaGetLastError() (0 on success).  `tables` is host
+// `stream`; returns cudaGetLastError() (0 on success).  `wl` is the live
+// band width, 1 <= wl <= W.  `tables` is host
 // memory: 91 model floats, then gap gamma, match gamma and the exp
 // threshold (each mode reads what it uses).  `ws` is the workspace and
 // `woff` (nreads + 1,) int64 each read's offset in it and, last, the end
@@ -1523,18 +1546,19 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 // may be null.
 extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
                                  const void* m, const void* n, int nreads,
-                                 int k_pad, int W, void* ws, const void* woff,
+                                 int k_pad, int W, int wl, void* ws, const void* woff,
                                  void* loglik, void* out1, void* out2,
                                  void* out3, void* stream) {
-  if (nreads <= 0 || k_pad < 2 || k_pad % 2 != 0) return (int)cudaErrorInvalidValue;
+  if (nreads <= 0 || k_pad < 2 || k_pad % 2 != 0 || wl < 1 || wl > W)
+    return (int)cudaErrorInvalidValue;
   Tables t;
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
   cudaStream_t s = (cudaStream_t)stream;
   if (W == 64)
-    return launch_width<2>(mode, t, nreads, s, xyc, m, n, k_pad, ws, woff, loglik, out1, out2,
-                           out3);
+    return launch_width<2>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1,
+                           out2, out3);
   if (W == 32)
-    return launch_width<1>(mode, t, nreads, s, xyc, m, n, k_pad, ws, woff, loglik, out1, out2,
-                           out3);
+    return launch_width<1>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1,
+                           out2, out3);
   return (int)cudaErrorInvalidValue;
 }

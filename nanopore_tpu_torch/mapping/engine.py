@@ -28,6 +28,7 @@ from nanopore_tpu_torch.io.seqio import fastq_read_raw
 from nanopore_tpu_torch.mapping.index import KmerIndex
 from nanopore_tpu_torch.mapping.chain import merge_hits_to_anchors, chain_anchors, Chain
 from nanopore_tpu_torch.device import resolve_device
+from nanopore_tpu_torch.ops.pack import check_band_width
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.dispatch import (
     PreparedRealign,
@@ -137,6 +138,7 @@ class MappingEngine:
         device=None,
     ):
         self.config = config or MapperConfig()
+        check_band_width(self.config.band_width, device)
         # the card unless the caller asks for the CPU; raises when no
         # card is present
         self.device = resolve_device(device)

@@ -17,6 +17,15 @@ on the device, pulling only the op codes, end cells and scores;
 ``PreparedForward.run()`` launches the forward-only kernel (the
 counterpart of the JAX package's ``PallasForwardPlan``).
 
+A band of live width w (``band_width``) is laid into W = 32 lanes if
+w <= 32, else W = 64 (``ops.pack.padded_width``; the CPU keeps a wider
+band unpadded), its dead lanes all sentinel, on either device: so the
+CPU runs exactly the layout the card runs.  The batch carries w
+(``LitePack.band_width``) to the realign kernel's launches, and
+``run()`` gives the gamma band and the flush sliced to the w live
+lanes; the direction codes and the Viterbi plane keep W lanes beside
+the codes, which the walkers read.
+
 Tensors on the card go through the CUDA kernels, tensors on the CPU
 through their plain PyTorch versions.  Every launch goes to the calling
 thread's current stream, and results reach the host through a copy
@@ -32,7 +41,12 @@ import numpy as np
 import torch
 
 from nanopore_tpu_torch.device import resolve_device
-from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
+from nanopore_tpu_torch.ops.pack import (
+    check_band_width,
+    pack_stream_pairs,
+    pack_xyc,
+    padded_width,
+)
 from nanopore_tpu_torch.ops.pairhmm import KernelParams
 from nanopore_tpu_torch.ops.realign import (
     realign_decode,
@@ -62,7 +76,22 @@ class LitePack:
     m: np.ndarray
     n: np.ndarray
     k_end: np.ndarray
-    band_width: int
+    band_width: int  # the live width w; the codes' lanes are xyc.shape[2]
+
+
+def _live_width(lite: LitePack | None, xyc) -> int:
+    """The live band width of a packed batch (every lane without the
+    metadata)."""
+    return xyc.shape[2] if lite is None else lite.band_width
+
+
+def _live_lanes(out: dict, wl: int) -> dict:
+    """A run output with its gamma band and flush sliced (as views) to
+    the ``wl`` live lanes."""
+    for key in ("gamma", "flush"):
+        if key in out:
+            out[key] = out[key][..., :wl]
+    return out
 
 
 def _kend(lite: LitePack | None):
@@ -108,15 +137,17 @@ class PreparedRealign:
             self._out = realign_decode(
                 self.xyc, self.m, self.n, self.params, self._gg, self._mg,
                 emit_gamma=self._gamma, kend=_kend(self.batch),
+                band_width=_live_width(self.batch, self.xyc),
             )
         return self
 
     def run(self) -> dict:
         """loglik / score (B,) and dirs (B, k_pad + 1, W) on the device,
-        and ``gamma`` (B, k_pad + 1, W) with ``emit_gamma``."""
+        and ``gamma`` (B, k_pad + 1, w) with ``emit_gamma`` (w the live
+        width)."""
         self.launch()
         out, self._out = self._out, None
-        return out
+        return _live_lanes(out, _live_width(self.batch, self.xyc))
 
     def decode(self):
         """(logliks (B,) float64, cigars, run output)."""
@@ -146,17 +177,18 @@ class PreparedEm:
     def run(self, params: KernelParams) -> dict:
         """loglik (B,), trans (B, 5, 5), emis (B, 5, 16) on the device."""
         return realign_em(self.xyc, self.m, self.n, params,
-                          kend=_kend(self.batch))
+                          kend=_kend(self.batch),
+                          band_width=_live_width(self.batch, self.xyc))
 
 
 class PreparedPosteriors:
     """Posterior outputs of a packed batch, resident on its device.
 
     ``emit_gamma`` (AlignmentUncertainty): run() returns loglik (B,) and
-    the gamma_match band ``gamma`` (B, k_pad + 1, W) f32 for
-    ``ops.posteriors.rescore_from_post``.  ``emit_exp`` (the SNP caller):
-    loglik, the retire stream ``ret`` (B, k_pad + 1, 4) and the ``flush``
-    (B, 4, W) of the gammas above ``exp_threshold``, for
+    the gamma_match band ``gamma`` (B, k_pad + 1, w) f32 (w the live
+    width) for ``ops.posteriors.rescore_from_post``.  ``emit_exp`` (the
+    SNP caller): loglik, the retire stream ``ret`` (B, k_pad + 1, 4) and
+    the ``flush`` (B, 4, w) of the gammas above ``exp_threshold``, for
     ``ops.posteriors.expectations_from_post``.  One of the two, one
     launch of the realign kernel's gamma or exp mode.
     """
@@ -180,19 +212,21 @@ class PreparedPosteriors:
         """Enqueue the kernel now (returns before it ends)."""
         if self._out is None:
             if self._gamma:
-                self._out = realign_gamma(self.xyc, self.m, self.n,
-                                          self.params,
-                                          kend=_kend(self.batch))
+                self._out = realign_gamma(
+                    self.xyc, self.m, self.n, self.params,
+                    kend=_kend(self.batch),
+                    band_width=_live_width(self.batch, self.xyc))
             else:
-                self._out = realign_exp(self.xyc, self.m, self.n,
-                                        self.params, self.exp_threshold,
-                                        kend=_kend(self.batch))
+                self._out = realign_exp(
+                    self.xyc, self.m, self.n, self.params,
+                    self.exp_threshold, kend=_kend(self.batch),
+                    band_width=_live_width(self.batch, self.xyc))
         return self
 
     def run(self) -> dict:
         self.launch()
         out, self._out = self._out, None
-        return out
+        return _live_lanes(out, _live_width(self.batch, self.xyc))
 
 
 class PreparedViterbi:
@@ -270,19 +304,26 @@ def prepared_from_pairs(
     ``PreparedPosteriors``, ``PreparedViterbi``, ``PreparedForward`` or
     ``PreparedEm``; ``params`` serve all but the last, which takes its
     model at every ``run``).  ``exact_k=True`` pins the diagonal count
-    to ``k_max`` (k-bin bucketing) instead of tightening it."""
+    to ``k_max`` (k-bin bucketing) instead of tightening it.  The band of
+    live width ``band_width`` is laid into ``padded_width(band_width)``
+    lanes; the card refuses a width its kernels do not serve before any
+    work (``check_band_width``, ROADMAP C10)."""
     kwargs = dict(cls_kwargs)
-    device = resolve_device(kwargs.pop("device", None))
+    device = kwargs.pop("device", None)
+    check_band_width(band_width, device)
+    device = resolve_device(device)
     if not exact_k:
         k_max = _pairs_k_max(pairs, k_max)
-    prep = pack_stream_pairs(pairs, band_width, k_max)
+    prep = pack_stream_pairs(pairs, band_width, k_max,
+                             lanes=padded_width(band_width))
 
     def put(a):
         return torch.from_numpy(a).to(device)
 
     m = put(prep["m"])
     n = put(prep["n"])
-    xyc = pack_xyc(put(prep["stream"]), put(prep["initx"]), m, n)
+    xyc = pack_xyc(put(prep["stream"]), put(prep["initx"]), m, n,
+                   band_width=band_width)
     lite = LitePack(
         offsets=prep["offsets"], m=prep["m"], n=prep["n"],
         k_end=prep["k_end"], band_width=band_width,

@@ -15,7 +15,11 @@ so the host streams one byte per diagonal per read:
     bit 6     d1[k]   = o[k] - o[k-1]   (the band delta)
     bit 7     d1[k-1]                    (the previous delta)
 
-plus a (W,) x-window seed per read.  The plain version slides both
+plus a (W,) x-window seed per read.  A band of live width w <= W lies
+in the first w lanes of a W-lane layout (``padded_width``): its offsets
+are those of width w, its windows those of all W lanes, and lanes w..W-1
+carry the sentinel in bits 0-5 (bits 6-7 as in every lane), so they
+emit nothing.  The plain version slides both
 windows one diagonal at a time.  The pack kernel (``csrc/pack.cu``)
 reads them as lookups instead: with o[k] the prefix sum of the delta
 bits and c[k] = k - o[k], xwin_k[w] = X[o[k] + w] over X = the seed
@@ -41,25 +45,38 @@ from nanopore_tpu_torch.ops.pairhmm import band_offsets_from_cigar
 K_ALIGN = 128
 SENT = (5 << 3) | 5  # all-sentinel packed code
 KERNEL_BAND_WIDTHS = (32, 64)  # W = 32 * band cells per lane
+MIN_BAND_WIDTH = 2  # the narrowest live width the card serves
 
 LAUNCHES = kb.LaunchCounter("pack")
+
+
+def padded_width(band_width: int) -> int:
+    """The lanes a band of live width ``band_width`` is laid into: the
+    narrowest kernel width that holds it (32 or 64); a wider band, which
+    only the CPU serves, keeps its own width."""
+    for W in KERNEL_BAND_WIDTHS:
+        if band_width <= W:
+            return W
+    return band_width
 
 
 def check_band_width(band_width: int, device=None) -> None:
     """Refuse a band width the kernels do not serve, where ``device`` is
     not the CPU (``None`` is the card), before an entry point does any
-    work (ROADMAP C10).  The plain versions on the CPU serve any width;
-    the card gets no plain fallback."""
+    work (ROADMAP C10): the card serves every live width from 2 to 64,
+    laid into the W = 32 or W = 64 kernels.  The plain versions on the
+    CPU serve any width; the card gets no plain fallback."""
     if torch.device("cuda" if device is None else device).type == "cpu":
         return
-    if band_width not in KERNEL_BAND_WIDTHS:
+    if not MIN_BAND_WIDTH <= band_width <= KERNEL_BAND_WIDTHS[-1]:
         raise ValueError(
             "band width %d is not served on the card: its kernels take "
-            "W in %s (ROADMAP C10); pass device='cpu' to run the plain "
-            "path at any width" % (band_width, KERNEL_BAND_WIDTHS)
+            "widths %d to %d (ROADMAP C10); pass device='cpu' to run the "
+            "plain path at any width"
+            % (band_width, MIN_BAND_WIDTH, KERNEL_BAND_WIDTHS[-1])
         )
 _SIG = {
-    "np_pack_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    "np_pack_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 2,
     "np_pack_attrs": [ctypes.c_int, ctypes.c_void_p],
 }
@@ -69,15 +86,22 @@ def pack_stream_pairs(
     pairs: list[tuple[np.ndarray, np.ndarray, list[tuple[int, int]]]],
     band_width: int = 64,
     k_max: int | None = None,
+    lanes: int | None = None,
 ) -> dict:
     """Host side of the on-device pack, batch-major.
 
-    ``pairs`` are (ref window codes, read codes, guide cigar).  Returns
-    numpy ``stream`` (B, k_pad) uint8, ``initx`` (B, W) uint8, ``m``/``n``
-    /``k_end`` (B,) int32, ``offsets`` (B, k_pad + 1) int32 and the
-    sizes ``k_pad``, ``K``, ``B``, ``W``.
+    ``pairs`` are (ref window codes, read codes, guide cigar).  The band
+    offsets are those of live width ``band_width``; the windows span
+    ``lanes`` >= ``band_width`` lanes (default ``band_width``: no dead
+    lanes), so the entering x symbol is the one of lane ``lanes`` - 1.
+    Returns numpy ``stream`` (B, k_pad) uint8, ``initx`` (B, W) uint8,
+    ``m``/``n``/``k_end`` (B,) int32, ``offsets`` (B, k_pad + 1) int32
+    and the sizes ``k_pad``, ``K``, ``B``, ``W`` (= ``lanes``) and
+    ``band_width``.
     """
-    W = band_width
+    W = band_width if lanes is None else lanes
+    if W < band_width:
+        raise ValueError("lanes %d below the band width %d" % (W, band_width))
     B = len(pairs)
     ms = np.array([len(y) for _, y, _ in pairs], np.int32)
     ns = np.array([len(x) for x, _, _ in pairs], np.int32)
@@ -93,7 +117,7 @@ def pack_stream_pairs(
         x = np.asarray(x)
         y = np.asarray(y)
         m, n = len(y), len(x)
-        o = band_offsets_from_cigar(cig, m, n, W, k_pad)
+        o = band_offsets_from_cigar(cig, m, n, band_width, k_pad)
         offsets[b] = o
         d1 = (o[1:] - o[:-1]).astype(np.uint8)
         xq = x.astype(np.uint8) if n else np.zeros(1, np.uint8)
@@ -115,6 +139,7 @@ def pack_stream_pairs(
         "K": K,
         "B": B,
         "W": W,
+        "band_width": band_width,
     }
 
 
@@ -136,15 +161,28 @@ def _check_inputs(stream, initx, m, n):
         raise ValueError("m and n must be (B,)")
 
 
-def pack_xyc(stream, initx, m, n) -> torch.Tensor:
-    """Packed band codes (B, k_pad, W) int8 from the stream inputs.
+def live_width(band_width, W: int) -> int:
+    """The live width of a W-lane layout (``None``: all W lanes), held
+    to 1..W."""
+    wl = W if band_width is None else int(band_width)
+    if not 1 <= wl <= W:
+        raise ValueError("live band width %d outside 1..%d" % (wl, W))
+    return wl
+
+
+def pack_xyc(stream, initx, m, n, band_width: int | None = None
+             ) -> torch.Tensor:
+    """Packed band codes (B, k_pad, W) int8 from the stream inputs, W the
+    width of ``initx``; lanes at and above ``band_width`` (the live
+    width; ``None``: W) hold the sentinel.
 
     Runs the CUDA kernel for tensors on the card and the plain version
     for tensors on the CPU.
     """
     _check_inputs(stream, initx, m, n)
+    wl = live_width(band_width, initx.shape[1])
     if stream.device.type == "cpu":
-        return pack_xyc_plain(stream, initx, m, n)
+        return pack_xyc_plain(stream, initx, m, n, wl)
     B, k_pad = stream.shape
     W = initx.shape[1]
     if W not in KERNEL_BAND_WIDTHS or k_pad % 32:
@@ -159,7 +197,7 @@ def pack_xyc(stream, initx, m, n) -> torch.Tensor:
     with torch.cuda.device(stream.device):
         rc = lib.np_pack_launch(
             kb.ptr(stream), kb.ptr(initx), kb.ptr(m), kb.ptr(n),
-            B, k_pad, W, kb.ptr(out), kb.stream_of(stream),
+            B, k_pad, W, wl, kb.ptr(out), kb.stream_of(stream),
         )
     kb.check(lib, rc, "pack")
     LAUNCHES.add()
@@ -177,11 +215,13 @@ def kernel_attributes(W: int) -> dict:
                     vals))
 
 
-def pack_xyc_plain(stream, initx, m, n) -> torch.Tensor:
+def pack_xyc_plain(stream, initx, m, n, band_width: int | None = None
+                   ) -> torch.Tensor:
     """The pack in plain PyTorch: vectorised over batch and band, one
     loop step per diagonal."""
     B, k_pad = stream.shape
     W = initx.shape[1]
+    wl = live_width(band_width, W)
     dev = stream.device
     s = stream.to(torch.int32)
     xw = initx.to(torch.int32)
@@ -203,7 +243,7 @@ def pack_xyc_plain(stream, initx, m, n) -> torch.Tensor:
         o = o + d1
         j = o[:, None] + w
         i = (r + 1) - j
-        ok = (j <= nn) & (i >= 0) & (i <= mm)
+        ok = (j <= nn) & (i >= 0) & (i <= mm) & (w < wl)
         xv = torch.where(ok & (j >= 1), xw, five)
         yv = torch.where(ok & (i >= 1), yw, five)
         out[:, r] = (xv * 8 + yv + (byte & 0xC0)[:, None]).to(torch.uint8)

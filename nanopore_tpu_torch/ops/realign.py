@@ -34,7 +34,13 @@ version below, operation for operation:
   bit 7, d2 = d1 + d1p - 1; shifted-in cells are 0 for probabilities
   and NEG for MEA scores;
 * validity rides the sentinel code 5 (zero emission), N = 4 takes the
-  mean rows of the tables: no per-cell mask;
+  mean rows of the tables: no per-cell mask.  A band of live width
+  w < W (``band_width``) lies in the first w lanes, its dead lanes all
+  sentinel (``ops.pack``): they hold no forward mass, the backward holds
+  0 in them and the MEA NEG (what each shifts in from outside the band),
+  and the exp mode retires column w - 1.  So the live lanes compute what
+  a band of width w computes, bit for bit, and the dead ones add +0 to
+  every sum;
 * the backward rescales every odd diagonal and diagonal 0; the
   posterior factor is the linear g-factor g_k = g_{k+1} sfinv_{k+1}
   safe_k, clamped at 3e37 and seeded 1/fin(k_end), where fin(k_end) is
@@ -54,14 +60,15 @@ version below, operation for operation:
 * the gamma band is gamma[0] = (f_k[0] * b_k[0]) * g_k of every band
   cell, diagonal 0 included: the value the MEA reads;
 * the exp mode keeps 4 accumulators per band cell in diagonal k's band
-  coordinates.  On the k+1 -> k step it emits column W - 1 times d1[k+1]
-  as retire row k (reference position o[k+1] + W - 2, valid where
+  coordinates.  On the k+1 -> k step it emits column w - 1 times d1[k+1]
+  as retire row k (reference position o[k+1] + w - 2, valid where
   d1[k+1] = 1), moves the band up as acc + d1 * (shifted - acc) with 0
-  shifted in, then adds gamma[0] * (gamma[0] > threshold) times the
-  one-hot of the cell's read base (codes 0-3; N, the sentinel and
-  diagonal 0 bin nowhere).  The accumulator left after diagonal 0 is the
-  flush, column w = position w - 1.  The multiplies by 0/1 factors are
-  the TPU kernel's, so a non-finite gamma spreads as it does there.
+  shifted in and zeroes the columns at and above w, then adds gamma[0] *
+  (gamma[0] > threshold) times the one-hot of the cell's read base
+  (codes 0-3; N, the sentinel and diagonal 0 bin nowhere).  The
+  accumulator left after diagonal 0 is the flush, column w = position
+  w - 1.  The multiplies by 0/1 factors are the TPU kernel's, so a
+  non-finite gamma spreads as it does there.
 
 The forward states of every diagonal are kept (the TPU kernel's
 ``store_fwd`` mode, 5 * W * 4 bytes per diagonal per read) and streamed
@@ -85,7 +92,7 @@ import numpy as np
 import torch
 
 from nanopore_tpu_torch.kernels import build as kb
-from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS, SENT, live_width
 from nanopore_tpu_torch.ops.pairhmm import KernelParams, kernel_tables
 
 NUM_STATES = 5
@@ -106,7 +113,7 @@ EXP_LAUNCHES = kb.LaunchCounter("realign_exp")
 DECODE, EM, GAMMA, DECODE_GAMMA, EXP = range(5)
 _SIG = {
     "np_realign_launch": [ctypes.c_int] + [ctypes.c_void_p] * 4
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7,
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7,
     "np_realign_attrs": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 MODE_NAMES = {DECODE: "decode", EM: "em", GAMMA: "gamma",
@@ -245,7 +252,8 @@ def _tables(params: KernelParams, gap_gamma: float = 0.0,
     ]).contiguous()
 
 
-def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None) -> None:
+def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None,
+            wl: int | None = None) -> None:
     """Launch ``mode`` over the runs of reads of :func:`workspace_plan`,
     in batch order: each read's forward states sit in a ragged workspace
     at its own offset, sized by its own diagonals, so a batch whose reads
@@ -257,14 +265,15 @@ def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None) -> None:
     m + n (numpy); without it m and n are read back from the device, a
     copy that waits for the stream's earlier work (so a caller that
     queues batches back to back passes it; :func:`check_kend` holds
-    its shape, and the kernel each read's m + n to its slot).  One count
-    per kernel launch."""
+    its shape, and the kernel each read's m + n to its slot).  ``wl`` is
+    the live band width (``None``: W).  One count per kernel launch."""
     B, k_pad, W = xyc.shape
     if W not in KERNEL_BAND_WIDTHS or k_pad % 2:
         raise ValueError(
             "realign kernel serves W in %s and even k_pad, got W=%d "
             "k_pad=%d" % (KERNEL_BAND_WIDTHS, W, k_pad)
         )
+    wl = live_width(wl, W)
     if B == 0:
         return
     if kend is None:
@@ -281,7 +290,7 @@ def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None) -> None:
             rc = lib.np_realign_launch(
                 mode, ctypes.c_void_p(tables.data_ptr()),
                 kb.ptr(xyc[r0:r1]), kb.ptr(m[r0:r1]), kb.ptr(n[r0:r1]),
-                r1 - r0, k_pad, W, kb.ptr(ws), kb.ptr(woff[r0 + l:]),
+                r1 - r0, k_pad, W, wl, kb.ptr(ws), kb.ptr(woff[r0 + l:]),
                 *(ctypes.c_void_p(None) if o is None else kb.ptr(o[r0:r1])
                   for o in outs),
                 kb.stream_of(xyc),
@@ -295,7 +304,7 @@ def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None) -> None:
 
 def realign_decode(xyc, m, n, params: KernelParams, gap_gamma: float = 0.5,
                    match_gamma: float = 0.0, emit_gamma: bool = False,
-                   kend=None) -> dict:
+                   kend=None, band_width: int | None = None) -> dict:
     """Decode-mode fused realign over packed band codes.
 
     xyc (B, k_pad, W) int8, m / n (B,) int32 read / window lengths.
@@ -305,13 +314,16 @@ def realign_decode(xyc, m, n, params: KernelParams, gap_gamma: float = 0.5,
     launch the kernel, CPU tensors run the plain version.  ``kend``, the
     host's m + n (numpy), spares the kernel's launch plan a read-back of
     m and n from the device; it must be 1-D of length B with no negative
-    value (:func:`check_kend`, on either device).
+    value (:func:`check_kend`, on either device).  ``band_width`` is the
+    live width of the codes' band (``None``: W); the lanes at and above
+    it are dead (the module's numerics).
     """
     _check_inputs(xyc, m, n)
     check_kend(kend, xyc.shape[0])
+    wl = live_width(band_width, xyc.shape[2])
     if xyc.device.type == "cpu":
         return realign_decode_plain(xyc, m, n, params, gap_gamma, match_gamma,
-                                    emit_gamma)
+                                    emit_gamma, wl)
     B, k_pad, W = xyc.shape
     out = {
         "loglik": xyc.new_empty(B, dtype=torch.float32),
@@ -324,15 +336,16 @@ def realign_decode(xyc, m, n, params: KernelParams, gap_gamma: float = 0.5,
             DECODE_GAMMA_LAUNCHES if emit_gamma else LAUNCHES, xyc, m, n,
             _tables(params, gap_gamma, match_gamma),
             (out["loglik"], out["score"], out["dirs"], out.get("gamma")),
-            kend)
+            kend, wl)
     return out
 
 
-def realign_em(xyc, m, n, params: KernelParams, kend=None) -> dict:
+def realign_em(xyc, m, n, params: KernelParams, kend=None,
+               band_width: int | None = None) -> dict:
     """EM-mode fused realign: the Baum-Welch E-step of one batch.
 
-    Inputs (and ``kend``) as :func:`realign_decode`.  Returns loglik
-    (B,) f32, trans (B, 5, 5) f32 expected transition counts [from, to]
+    Inputs (``kend``, ``band_width``) as :func:`realign_decode`.  Returns
+    loglik (B,) f32, trans (B, 5, 5) f32 expected transition counts [from, to]
     and emis
     (B, 5, 16) f32 expected emission counts [state, x * 4 + y] (the gap
     states' counts spread evenly over the base they do not read).  CUDA
@@ -340,8 +353,9 @@ def realign_em(xyc, m, n, params: KernelParams, kend=None) -> dict:
     """
     _check_inputs(xyc, m, n)
     check_kend(kend, xyc.shape[0])
+    wl = live_width(band_width, xyc.shape[2])
     if xyc.device.type == "cpu":
-        return realign_em_plain(xyc, m, n, params)
+        return realign_em_plain(xyc, m, n, params, wl)
     B = xyc.shape[0]
     out = {
         "loglik": xyc.new_empty(B, dtype=torch.float32),
@@ -349,14 +363,15 @@ def realign_em(xyc, m, n, params: KernelParams, kend=None) -> dict:
         "emis": xyc.new_empty((B, 5, 16), dtype=torch.float32),
     }
     _launch(EM, EM_LAUNCHES, xyc, m, n, _tables(params),
-            (out["loglik"], out["trans"], out["emis"], None), kend)
+            (out["loglik"], out["trans"], out["emis"], None), kend, wl)
     return out
 
 
-def realign_gamma(xyc, m, n, params: KernelParams, kend=None) -> dict:
+def realign_gamma(xyc, m, n, params: KernelParams, kend=None,
+                  band_width: int | None = None) -> dict:
     """Gamma-mode fused realign: the posterior match probabilities.
 
-    Inputs (and ``kend``) as :func:`realign_decode`.  Returns loglik
+    Inputs (``kend``, ``band_width``) as :func:`realign_decode`.  Returns loglik
     (B,) f32 and the gamma_match band ``gamma`` (B, k_pad + 1, W) f32,
     row k = diagonal k,
     column w = band cell w (reference position o[k] + w); no MEA and no
@@ -365,34 +380,37 @@ def realign_gamma(xyc, m, n, params: KernelParams, kend=None) -> dict:
     """
     _check_inputs(xyc, m, n)
     check_kend(kend, xyc.shape[0])
+    wl = live_width(band_width, xyc.shape[2])
     if xyc.device.type == "cpu":
-        return realign_gamma_plain(xyc, m, n, params)
+        return realign_gamma_plain(xyc, m, n, params, wl)
     B, k_pad, W = xyc.shape
     out = {
         "loglik": xyc.new_empty(B, dtype=torch.float32),
         "gamma": xyc.new_empty((B, k_pad + 1, W), dtype=torch.float32),
     }
     _launch(GAMMA, GAMMA_LAUNCHES, xyc, m, n, _tables(params),
-            (out["loglik"], None, None, out["gamma"]), kend)
+            (out["loglik"], None, None, out["gamma"]), kend, wl)
     return out
 
 
 def realign_exp(xyc, m, n, params: KernelParams,
-                exp_threshold: float = 1e-3, kend=None) -> dict:
+                exp_threshold: float = 1e-3, kend=None,
+                band_width: int | None = None) -> dict:
     """Exp-mode fused realign: the SNP caller's expectation streams.
 
-    Inputs (and ``kend``) as :func:`realign_decode`.  Returns loglik
-    (B,) f32, ``ret`` (B, k_pad + 1, 4) f32 (row k: the expected base
-    counts of reference
-    position o[k+1] + W - 2, valid where d1[k+1] = 1) and ``flush``
-    (B, 4, W) f32 (column w: position w - 1), summing the gamma_match
-    values above ``exp_threshold`` by read base.  CUDA tensors launch the
-    kernel, CPU tensors run the plain version.
+    Inputs (``kend``, ``band_width``) as :func:`realign_decode`.  Returns
+    loglik (B,) f32, ``ret`` (B, k_pad + 1, 4) f32 (row k: the expected
+    base counts of reference position o[k+1] + w - 2, valid where
+    d1[k+1] = 1, w the live width) and ``flush`` (B, 4, W) f32 (column
+    w: position w - 1; 0 at and above the live width), summing the
+    gamma_match values above ``exp_threshold`` by read base.  CUDA
+    tensors launch the kernel, CPU tensors run the plain version.
     """
     _check_inputs(xyc, m, n)
     check_kend(kend, xyc.shape[0])
+    wl = live_width(band_width, xyc.shape[2])
     if xyc.device.type == "cpu":
-        return realign_exp_plain(xyc, m, n, params, exp_threshold)
+        return realign_exp_plain(xyc, m, n, params, exp_threshold, wl)
     B, k_pad, W = xyc.shape
     out = {
         "loglik": xyc.new_empty(B, dtype=torch.float32),
@@ -401,7 +419,7 @@ def realign_exp(xyc, m, n, params: KernelParams,
     }
     _launch(EXP, EXP_LAUNCHES, xyc, m, n, _tables(params, 0.0, 0.0,
                                                   exp_threshold),
-            (out["loglik"], out["ret"], out["flush"], None), kend)
+            (out["loglik"], out["ret"], out["flush"], None), kend, wl)
     return out
 
 
@@ -448,47 +466,70 @@ def _lane_total(acc):
 def realign_decode_plain(xyc, m, n, params: KernelParams,
                          gap_gamma: float = 0.5,
                          match_gamma: float = 0.0,
-                         emit_gamma: bool = False) -> dict:
+                         emit_gamma: bool = False,
+                         band_width: int | None = None) -> dict:
     """The decode-mode realign in plain PyTorch: vectorised over batch
     and band, one loop step per diagonal; the same arithmetic, in the
     same order, as the kernel (``emit_gamma``: its decode + gamma mode)."""
     return _realign_plain(xyc, m, n, params, gap_gamma, match_gamma,
-                          DECODE_GAMMA if emit_gamma else DECODE)
+                          DECODE_GAMMA if emit_gamma else DECODE,
+                          band_width=band_width)
 
 
-def realign_em_plain(xyc, m, n, params: KernelParams) -> dict:
+def pad_lanes(xyc, W: int):
+    """The codes (B, k_pad, w) laid into W >= w lanes: each dead lane the
+    all-sentinel code with its row's bits 6-7."""
+    w = xyc.shape[2]
+    if W == w:
+        return xyc
+    top = (xyc[:, :, :1].to(torch.int32) & 0xC0) | SENT
+    dead = top.to(torch.uint8).view(torch.int8).expand(-1, -1, W - w)
+    return torch.cat([xyc, dead], dim=2).contiguous()
+
+
+def realign_em_plain(xyc, m, n, params: KernelParams,
+                     band_width: int | None = None) -> dict:
     """The EM-mode realign in plain PyTorch (the same recursion as the
-    decode mode, summing expected counts in place of the MEA DP).  W
-    must be a power of two."""
+    decode mode, summing expected counts in place of the MEA DP).  The
+    lane butterfly wants a power-of-two width: codes of another width
+    are laid into the next power of two, their new lanes dead (all
+    sentinel), which add +0.0 to every count."""
     W = xyc.shape[2]
-    if W & (W - 1):
-        raise ValueError("EM band width must be a power of two, got %d" % W)
-    return _realign_plain(xyc, m, n, params, 0.0, 0.0, EM)
+    wl = live_width(band_width, W)
+    xyc = pad_lanes(xyc, 1 << (W - 1).bit_length())
+    return _realign_plain(xyc, m, n, params, 0.0, 0.0, EM, band_width=wl)
 
 
-def realign_gamma_plain(xyc, m, n, params: KernelParams) -> dict:
+def realign_gamma_plain(xyc, m, n, params: KernelParams,
+                        band_width: int | None = None) -> dict:
     """The gamma-mode realign in plain PyTorch (the same recursion,
     storing gamma_match in place of the MEA DP)."""
-    return _realign_plain(xyc, m, n, params, 0.0, 0.0, GAMMA)
+    return _realign_plain(xyc, m, n, params, 0.0, 0.0, GAMMA,
+                          band_width=band_width)
 
 
 def realign_exp_plain(xyc, m, n, params: KernelParams,
-                      exp_threshold: float = 1e-3) -> dict:
+                      exp_threshold: float = 1e-3,
+                      band_width: int | None = None) -> dict:
     """The exp-mode realign in plain PyTorch (the same recursion, with
     the kernel's retire accumulator in place of the MEA DP)."""
-    return _realign_plain(xyc, m, n, params, 0.0, 0.0, EXP, exp_threshold)
+    return _realign_plain(xyc, m, n, params, 0.0, 0.0, EXP, exp_threshold,
+                          band_width)
 
 
 def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
                    match_gamma: float, mode: int,
-                   exp_threshold: float = 0.0) -> dict:
+                   exp_threshold: float = 0.0,
+                   band_width: int | None = None) -> dict:
     """Forward and backward over the packed codes; ``mode`` (one of the
-    kernel's) selects what the backward produces."""
+    kernel's) selects what the backward produces; ``band_width`` is the
+    live width (``None``: W)."""
     emit_em = mode == EM
     mea = mode in (DECODE, DECODE_GAMMA)
     want_gamma = mode in (GAMMA, DECODE_GAMMA)
     emit_exp = mode == EXP
     B, k_pad, W = xyc.shape
+    wl = live_width(band_width, W)
     dev = xyc.device
     f32 = torch.float32
     tab = kernel_tables(params).to(dev)
@@ -502,6 +543,7 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
     base = torch.arange(W, device=dev) + 1
     w0 = torch.zeros(W, dtype=torch.bool, device=dev)
     w0[0] = True
+    live = torch.arange(W, device=dev) < wl
     codes = xyc.to(torch.int32) & 0xFF
 
     def emissions(k):
@@ -621,6 +663,7 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
         new = _seq_sum(tf[None, :, :, None] * dest[:, None, :, :])
         is_end = kend == k
         new = torch.where(is_end[:, None, None], end_band[None], new)
+        new = torch.where(live, new, 0.0)
         if rescale:
             scale = new.amax(dim=(1, 2))
             safe = torch.where(scale > 0, scale, torch.ones_like(scale))
@@ -644,12 +687,13 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
         if want_gamma:
             gam_band[:, k] = gamma[:, 0]
         if emit_exp:
-            # retire column W - 1, move the band up by d1[k+1] (a blend,
-            # as the kernel writes it), bin diagonal k's gamma_match
+            # retire column wl - 1, move the band up by d1[k+1] (a blend,
+            # as the kernel writes it) within the live columns, bin
+            # diagonal k's gamma_match
             d1f = d1n1.to(f32)[:, None, None]
-            ret[:, k] = acc_e[:, :, W - 1] * d1f[:, :, 0]
+            ret[:, k] = acc_e[:, :, wl - 1] * d1f[:, :, 0]
             sh = torch.cat([col0, acc_e[:, :, :W - 1]], dim=2)
-            acc_e = acc_e + d1f * (sh - acc_e)
+            acc_e = torch.where(live, acc_e + d1f * (sh - acc_e), 0.0)
             g0 = gamma[:, 0]
             gmz = g0 * torch.where(g0 > thr, 1.0, 0.0).to(f32)
             y = (codes[:, k - 1] & 7) if k >= 1 else sentinel
@@ -685,7 +729,8 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
             choice = torch.where(
                 best == diag_t, 0, torch.where(best == left_t, 1, 2)
             )
-            new_u = torch.where(is_end[:, None], end_u[None], best)
+            new_u = torch.where(is_end[:, None], end_u[None],
+                                torch.where(live, best, NEG))
             ok = (new_u > NEG / 2) & ~is_end[:, None]
             dirs[:, k] = torch.where(ok, choice, DIR_NONE).to(torch.int8)
             if k == 0:

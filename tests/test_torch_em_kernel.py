@@ -32,7 +32,11 @@ from nanopore_tpu_torch.ops import realign as port_realign
 from nanopore_tpu_torch.ops.dispatch import PreparedEm, prepared_from_pairs
 from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
-from nanopore_tpu_torch.ops.realign import realign_em, realign_em_plain
+from nanopore_tpu_torch.ops.realign import (
+    pad_lanes,
+    realign_em,
+    realign_em_plain,
+)
 from test_torch_realign import FIXTURES, W, _far_end_pairs, mixed_pairs
 
 MODELS = ("default", "random")
@@ -140,8 +144,13 @@ def test_em_wrapper_routes_cpu_tensors_to_plain():
         realign_em(xyc, m.to(torch.int64), n, params)
     with pytest.raises(ValueError):
         realign_em(xyc.to(torch.int32), m, n, params)
-    with pytest.raises(ValueError):
-        realign_em(xyc[:, :, :6].contiguous(), m, n, params)  # W = 6
+    # W = 6, no power of two: the plain version lays the codes into 8
+    # lanes, the two new ones dead, and gives that layout's sums
+    narrow = xyc[:, :, :6].contiguous()
+    padded = realign_em(pad_lanes(narrow, 8), m, n, params, band_width=6)
+    got = realign_em(narrow, m, n, params)
+    for key in ("loglik", "trans", "emis"):
+        assert torch.equal(got[key], padded[key])
 
 
 def test_em_padding_diagonals_do_not_change_results():

@@ -14,8 +14,8 @@ localhost, each on the CPU (``device="cpu"``).
   ``test_two_process_pipeline_e2e`` for the port: its three reads and its
   configuration, each rank the real entry point ``python -m
   nanopore_tpu_torch run <wd> --device cpu`` under the three environment
-  variables.  Its EM runs at band width 64 (the port's EM serves
-  power-of-two widths, ROADMAP C9) with 1 trial x 3 iterations, so the
+  variables.  Its EM runs at the ``run`` subcommand's band width (the
+  ``EmOptions`` default, 64) with 1 trial x 3 iterations, so the
   E-step's sums cross the process boundary (the trial split is the EM
   test's).  No shard litter; the DONE markers, the model files and the
   meta directory; the chain experiment's ``mapping.sam`` byte-identical
