@@ -11,9 +11,10 @@
    registers, local memory (spills), static and dynamic shared memory
    and threads and reads a block at W = 64 and 32 are printed from the
    compiled kernel, with the pack kernel's, the Viterbi kernel's (its
-   short and its 5-way step), the forward-only kernel's (its two-term
-   and its 5-way gap sum) and each walker's shared memory a
-   block).  Then the
+   short and 5-way steps on the byte plane, and its full-plane step),
+   the forward-only kernel's (its two-term and its 5-way gap sum) and
+   each walker's shared memory a block, the Viterbi walker's for each
+   plane).  Then the
    realign kernel's workspace guard (ROADMAP C8), in a child process
    (``chip_smoke.py --kend-guard``): a launch whose caller's kend is
    m + n passes, one whose kend is half of m + n must fail at the next
@@ -249,11 +250,33 @@
    same command's with ``--device cpu``; ``em_train`` at
    ``EmOptions(band_width=48, trials=1, iterations=2)`` on 16 chained
    reads: the model within 3e-5 relative of the CPU's.
-14. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
+14. The full plane (a model outside the canonical fiveState structure,
+   ROADMAP C7), in the child of step 8 after step 13 (``chip_smoke.py
+   --full-plane`` runs this step alone), under two non-canonical models:
+   tests/test_viterbi.py's (the default with t[1 -> 2] = 0.05, its row
+   renormalised) and a dense random one (every transition > 0).  The
+   Viterbi kernel's full-plane step against ``viterbi_forward_full_plain``
+   on the first 128 reads of step 3's mapping batch (W = 64) and on step
+   3's ragged batches at W = 32: score, fstate and the whole int16 plane
+   bit-identical; the walker's full-plane walk of the kernel's plane
+   against the plain walker (ops and end cells identical; every walk of
+   the mapping batch reaches the origin, its cigar consuming exactly m
+   and n), and on random full planes of the ragged batch at W = 64 and
+   32.  Both timed on the whole mapping batch under the first model,
+   beside their bounds and the plain versions' times.  Then
+   ``MappingEngine(model=<the first model>, decode="viterbi")`` on 32
+   reads of the mapping workload, on the card (every counter set to 0
+   just before) and with ``device="cpu"``: records equal; pack and the
+   full-plane Viterbi and walk launched, nothing else (the byte-plane
+   Viterbi and walker 0).  In every earlier run the full-plane counters
+   must be 0: no canonical model takes the full plane.
+15. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
    ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
    ``launches_distributed_path``, the sum over the two ranks, a
-   ``launches_widths_realign_path`` and a ``launches_widths_em_path``
-   on every row, and step 13's ``*_w21`` and ``*_w48`` numbers) and,
+   ``launches_widths_realign_path``, a ``launches_widths_em_path`` and a
+   ``launches_full_plane_path`` on every row, and step 13's ``*_w21``
+   and ``*_w48`` numbers; ``viterbi_full`` and ``viterbi_traceback_full``
+   the full-plane modes of the Viterbi kernel and its walker) and,
    last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -291,6 +314,9 @@ WIDTH_READ_LENS = (700, 1300)
 WIDTH_MAX_K = 4096  # m + n of a window that does not reach the far end
 WIDTH_CLI_RECORDS = 4  # reads on each side of 1,000 bases
 WIDTH_EM_READS = 16
+# phase 14: reads of the mapping workload the Viterbi engine maps with a
+# non-canonical model, card against CPU
+FULL_ENGINE_READS = 32
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -3038,6 +3064,290 @@ def widths_phase(workdir: str, dev, counters) -> dict:
     return {"res": res, "runs": runs}
 
 
+# ---- phase 14: the full plane (a model outside the canonical structure) ---- #
+
+def full_plane_models(params) -> dict:
+    """The two non-canonical models of phase 14 over ``params``'
+    emissions: tests/test_viterbi.py's (t[1 -> 2] = 0.05, its row
+    renormalised; the kernels are timed under it) and a dense random one
+    (every transition > 0)."""
+    from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
+
+    t = np.random.default_rng(SEED + 14).uniform(0.02, 1.0, (5, 5))
+    return {
+        "t[1->2] = 0.05": edited_params(params, [(1, 2, 0.05)]),
+        "dense": params_from_numpy(t / t.sum(axis=1, keepdims=True),
+                                   params.e_match_flat.cpu().numpy(),
+                                   params.e_gap_flat.cpu().numpy()),
+    }
+
+
+def full_plane_check(name, xyc, m, n, p, plain_args, want=None) -> dict:
+    """K4's full plane against its plain version (score, fstate and the
+    whole plane bit for bit; ``plain_args`` (xyc, m, n) a prefix of the
+    batch's reads, or ``want`` the plain outputs already made), then K5's
+    full-plane walk of the kernel's plane against the plain walker (ops
+    and end cells).  Returns the kernel's outputs and the plain times."""
+    import torch
+
+    from nanopore_tpu_torch.ops import viterbi as V
+    from nanopore_tpu_torch.ops.traceback import (
+        viterbi_walk,
+        viterbi_walk_plain,
+    )
+
+    out_k = V.viterbi_forward(xyc, m, n, p)
+    if out_k["bp"].dtype != torch.int16:
+        fail("phase 14, %s: the Viterbi did not take the full plane" % name)
+    P = plain_args[0].shape[0]
+    plain_ms = None
+    if want is None:
+        want, plain_ms = timed(lambda: V.viterbi_forward_full_plain(
+            *plain_args, p))
+    differ = [key for key in want
+              if not bits_equal(out_k[key][:P], want[key])]
+    if differ:
+        fail("phase 14, %s: the full-plane Viterbi kernel differs from its "
+             "plain version in %s" % (name, differ))
+    args = (xyc, m, n, out_k["fstate"])
+    ops_k, end_k = viterbi_walk(out_k["bp"], *args)
+    (ops_p, end_p), walk_ms = timed(lambda: viterbi_walk_plain(
+        out_k["bp"][:P].contiguous(), *plain_args,
+        out_k["fstate"][:P].contiguous()))
+    if not (torch.equal(ops_k[:P], ops_p) and torch.equal(end_k[:P], end_p)):
+        fail("phase 14, %s: the full-plane walk differs from the plain "
+             "walker" % name)
+    return dict(out=out_k, want=want, ops=ops_k, end=end_k,
+                plain_ms=plain_ms, walk_ms=walk_ms)
+
+
+def full_plane_phase(engine, pairs, fa: str, fq: str, dev, counters,
+                     res: dict) -> dict:
+    """Phase 14 (its checks in the docstring's step 14): the full-plane
+    K4 and K5 against their plain versions on the mapping batch and the
+    W = 32 ragged batches under two non-canonical models, timed; then
+    ``MappingEngine(model=<non-canonical>, decode="viterbi")`` on the
+    card against the CPU, its launches read from counters set to 0 just
+    before.  Returns those launches."""
+    import dataclasses
+
+    import torch
+
+    from nanopore_tpu_torch.align.model import PairHmmModel
+    from nanopore_tpu_torch.io.sam import SamReader
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+    from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.ops import traceback, viterbi as V
+    from nanopore_tpu_torch.ops.traceback import (
+        rle_ops_batch,
+        viterbi_walk,
+        viterbi_walk_plain,
+    )
+
+    t_phase = time.perf_counter()
+    models = full_plane_models(engine.params)
+    for name, p in models.items():
+        if V.viterbi_structure_ok(p):
+            fail("phase 14: the %s model is canonical" % name)
+    B, P = len(pairs), PLAIN_READS
+    xyc, m, n, prep = device_batch(pairs, W, None, dev, "full-plane batch",
+                                   check_pack=False)
+    K1 = prep["k_pad"] + 1
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    plain_args = tuple(t[:P].contiguous() for t in (xyc, m, n))
+    timed_name = next(iter(models))
+    for name, p in models.items():
+        t0 = time.perf_counter()
+        r = full_plane_check(name, xyc, m, n, p, plain_args)
+        lost = int(r["end"].any(1).sum())
+        cigars = rle_ops_batch(r["ops"].cpu().numpy())
+        whole = sum(
+            sum(ln for op, ln in cig if op in (0, 1)) == mr
+            and sum(ln for op, ln in cig if op in (0, 2)) == nr
+            for cig, mr, nr in zip(cigars, prep["m"], prep["n"]))
+        print("phase 14, %s, mapping batch W=%d (B=%d, k_pad %d): K4 full "
+              "plane score, fstate and plane bit-identical on %d reads "
+              "(plain %.1f ms); K5 full walk ops and end cells identical "
+              "(plain %.1f ms); %d of %d walks reach the origin, %d cigars "
+              "consume exactly m and n; score mean %.2f (%.1f s wall)"
+              % (name, W, B, K1 - 1, P, r["plain_ms"], r["walk_ms"], B - lost,
+                 B, whole, float(r["out"]["score"].mean()),
+                 time.perf_counter() - t0))
+        if lost or whole != B:
+            fail("phase 14, %s: %d walks lost, %d of %d whole cigars"
+                 % (name, lost, whole, B))
+        if name == timed_name:
+            kept, p_row = r, p
+    # timed under the JAX test's model on the whole batch
+    bp, fstate = kept["out"]["bp"], kept["out"]["fstate"]
+    ms = cuda_ms(lambda: V.viterbi_forward(xyc, m, n, p_row), 3)
+    bound, by = realign_bound(VITERBI_OPS_PER_CELL, W, need,
+                              (need - B) * W + B * K1 * W * 2 + 12 * B)
+    res["viterbi_full"] = dict(
+        per_batch=launches_per_call(V.FULL_LAUNCHES, lambda: V.viterbi_forward(
+            xyc, m, n, p_row)),
+        ms=ms, plain_ms=kept["plain_ms"], plain_reads=P, max_abs_err=0.0,
+        bound_ms=bound, bound_by=by,
+    )
+    print("K4 viterbi full plane: %.3f ms per batch of %d, bound %.4f ms (%s), "
+          "plain %.1f ms on %d reads" % (ms, B, bound, by, kept["plain_ms"], P))
+    ms = cuda_ms(lambda: viterbi_walk(bp, xyc, m, n, fstate), 10)
+    # two plane bytes a walk step, a code byte a diagonal of each read, an
+    # op byte a diagonal of the batch, m, n, fstate and the end cell
+    nbytes = 2 * walked_bytes(kept["ops"]) + need - B + B * K1 + 20 * B
+    res["viterbi_traceback_full"] = dict(
+        per_batch=launches_per_call(traceback.VIT_FULL_LAUNCHES,
+                                    lambda: viterbi_walk(bp, xyc, m, n, fstate)),
+        ms=ms, plain_ms=kept["walk_ms"], plain_reads=P, max_abs_err=0.0,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+    )
+    print("K5 viterbi walker, full plane: %.3f ms per batch, bound %.4f ms "
+          "(bytes), plain %.1f ms on %d reads"
+          % (ms, res["viterbi_traceback_full"]["bound_ms"], kept["walk_ms"], P))
+    # beside them, in this process on the same reads: the byte plane's two
+    # steps (the default model's tables) and the byte walk of its plane
+    byte = V.viterbi_tables(engine.params)
+    step_ms = {what: cuda_ms(lambda: V._launch(xyc, m, n, byte, step), 3,
+                             warmup=False)
+               for what, step in (("short", V.SHORT), ("5-way", V.FIVE_WAY))}
+    out_b = V._launch(xyc, m, n, byte, V.SHORT)
+    walk_b = cuda_ms(lambda: viterbi_walk(out_b["bp"], xyc, m, n,
+                                          out_b["fstate"]), 10, warmup=False)
+    print("phase 14, the same batch: K4 full plane %.3f ms against the byte "
+          "plane's short step %.3f ms and 5-way step %.3f ms; K5 full walk "
+          "%.3f ms against the byte walk %.3f ms"
+          % (res["viterbi_full"]["ms"], step_ms["short"], step_ms["5-way"],
+             ms, walk_b))
+    del out_b
+    del kept, bp, fstate, xyc, m, n, plain_args
+
+    # ---- the W = 32 ragged batches; random full planes at 64 and 32 ----
+    t0 = time.perf_counter()
+    batches, rprep = ragged_batches(dev, W_REALIGN)
+    for name, p in models.items():
+        want = {}
+        for bname, x_, m_, n_ in batches:
+            plain = ragged_plain(bname, V.viterbi_forward_full_plain, want,
+                                 (x_, m_, n_, p))
+            r = full_plane_check(name, x_, m_, n_, p, (x_, m_, n_), plain)
+            if int(r["end"].any(1).sum()) != int("capped" in bname):
+                fail("phase 14, %s, ragged %s W=%d: walks lost"
+                     % (name, bname, W_REALIGN))
+        print("phase 14, %s, ragged W=%d (k_pad %d): K4 full plane "
+              "bit-identical, K5 full walk identical on %s"
+              % (name, W_REALIGN, rprep["k_pad"],
+                 ", ".join(b[0] for b in batches)))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    shifts = torch.arange(0, 15, 3, device=dev, dtype=torch.int32)
+    for W_ in (W, W_REALIGN):
+        _, x_, m_, n_ = ragged_batches(dev, W_)[0][0]
+        fields = torch.randint(0, 5, (x_.shape[0], x_.shape[1] + 1, W_, 5),
+                               generator=gen, device=dev, dtype=torch.int32)
+        rand = (fields << shifts).sum(-1).to(torch.int16)
+        rstate = torch.randint(0, 5, (x_.shape[0],), generator=gen,
+                               device=dev, dtype=torch.int32)
+        ops_k, end_k = viterbi_walk(rand, x_, m_, n_, rstate)
+        ops_p, end_p = viterbi_walk_plain(rand, x_, m_, n_, rstate)
+        if not (torch.equal(ops_k, ops_p) and torch.equal(end_k, end_p)):
+            fail("phase 14: the full-plane walk differs from the plain walker "
+                 "on a random plane at W=%d" % W_)
+        print("phase 14, random full plane, ragged B7 W=%d: K5 full walk ops "
+              "and end cells identical; walks short of the origin %d"
+              % (W_, int(end_k.any(1).sum())))
+    print("phase 14 ragged and random batches: %.1f s wall"
+          % (time.perf_counter() - t0))
+
+    # ---- MappingEngine with a non-canonical model, card against CPU ----
+    wdir = os.path.join(os.path.dirname(fq), "full_plane")
+    os.makedirs(wdir, exist_ok=True)
+    fq32 = os.path.join(wdir, "reads.fq")
+    with open(fq) as src, open(fq32, "w") as dst:
+        for _ in range(4 * FULL_ENGINE_READS):
+            dst.write(src.readline())
+    base = PairHmmModel.default()
+    t = np.array(base.transitions, np.float64)
+    t[1, 2] = 0.05
+    t[1] /= t[1].sum()
+    model = PairHmmModel(t, np.array(base.emissions, np.float64))
+    cfg = dataclasses.replace(MAPPER_REGISTRY["Viterbi"].config,
+                              batch_size=2 * FULL_ENGINE_READS)
+    ref = read_fasta_dict(fa)
+    sams = {}
+    for where in ("cuda", "cpu"):
+        eng = MappingEngine(ref, cfg, model=model, index=engine.index,
+                            device=dev if where == "cuda" else "cpu")
+        if V.viterbi_structure_ok(eng.params):
+            fail("phase 14: the engine's model is canonical")
+        sams[where] = os.path.join(wdir, where + ".sam")
+        if where == "cuda":
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+        t0 = time.perf_counter()
+        eng.map_fastq(fq32, sams[where])
+        if where == "cuda":
+            torch.cuda.synchronize()
+            run = {c.name: c.count for c in counters}
+        print("phase 14: MappingEngine(model=t[1->2] = 0.05, "
+              "decode=\"viterbi\") on %d reads, %s: %.3f s"
+              % (FULL_ENGINE_READS, where, time.perf_counter() - t0))
+
+    def records(path):
+        return [(r.qname, r.flag, r.rname, r.pos, r.mapq, r.cigar, r.seq,
+                 dict((tg[0], tg[2]) for tg in r.tags).get("AS"))
+                for r in SamReader(path)]
+
+    got, want = records(sams["cuda"]), records(sams["cpu"])
+    share = sum(1 for r in got if not r[1] & 0x904 and bool(r[1] & 0x10) == bool(
+        int(r[0].split("_")[2])) and abs(r[3] - int(r[0].split("_")[1])) <= 100)
+    print("phase 14: %d records on the card, %s the CPU's; primaries at their "
+          "origin %d of %d; launches %s"
+          % (len(got), "equal to" if got == want else "DIFFERENT from", share,
+             FULL_ENGINE_READS, run))
+    if got != want or not got:
+        fail("phase 14: the engine's records on the card differ from the CPU's")
+    if min(run[k] for k in ("pack", "viterbi_full",
+                            "viterbi_traceback_full")) <= 0 or any(
+            v for k, v in run.items()
+            if k not in ("pack", "viterbi_full", "viterbi_traceback_full")):
+        fail("phase 14 launches %s: want pack and the full-plane Viterbi and "
+             "walker > 0, the rest 0" % run)
+    print("phase 14 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return run
+
+
+def full_plane_alone() -> int:
+    """Run as ``chip_smoke.py --full-plane``: the kernels' build, then
+    phase 14 alone on the mapping workload."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.kernels import build
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+    from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
+    from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    print("build: %.1f s" % build.build())
+    dev = torch.device("cuda", 0)
+    workdir = os.path.join(build.BUILD_DIR, "smoke", "full_plane_alone")
+    fa, fq = write_workload(workdir, REF_LEN)
+    engine = MappingEngine(read_fasta_dict(fa),
+                           MAPPER_REGISTRY["LastParams"].config, device=dev)
+    pairs = main_path_batch(engine, fq, preferred_realign_batch_size(None, dev))
+    res = {}
+    run = full_plane_phase(engine, pairs, fa, fq, dev, launch_counters(), res)
+    print(card)
+    print(json.dumps({"res": res, "run": run}))
+    return 0
+
+
 def widths_alone() -> int:
     """Run as ``chip_smoke.py --widths``: the kernels' build, then phase
     13 alone (what a change to the live width's handling needs)."""
@@ -3065,7 +3375,8 @@ def launch_counters() -> tuple:
     return (pack.LAUNCHES, realign.LAUNCHES, realign.EM_LAUNCHES,
             realign.GAMMA_LAUNCHES, realign.DECODE_GAMMA_LAUNCHES,
             realign.EXP_LAUNCHES, traceback.LAUNCHES, viterbi.LAUNCHES,
-            traceback.VIT_LAUNCHES, forward.LAUNCHES)
+            traceback.VIT_LAUNCHES, viterbi.FULL_LAUNCHES,
+            traceback.VIT_FULL_LAUNCHES, forward.LAUNCHES)
 
 
 def pipeline_child() -> int:
@@ -3093,9 +3404,10 @@ def pipeline_child() -> int:
 def viterbi_child() -> int:
     """Run as ``chip_smoke.py --viterbi`` in a second child process,
     beside the parent's phases 5-7: phase 8 on its own copy of the
-    mapping workload (the same seed, so the same batch), then phase 13;
-    their kernel rows, the forward entry's and phase 13's launch counts
-    written to ``<workdir>/viterbi/result.json`` for the kernels line."""
+    mapping workload (the same seed, so the same batch), then phases 13
+    and 14; their kernel rows, the forward entry's and phases 13's and
+    14's launch counts written to ``<workdir>/viterbi/result.json`` for
+    the kernels line."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -3114,14 +3426,17 @@ def viterbi_child() -> int:
     res = {}
     entry = viterbi_kernel_phase(engine, pairs, dev, launch_counters(), res)
     widths = widths_phase(os.path.dirname(workdir), dev, launch_counters())
+    full = full_plane_phase(engine, pairs, fa, fq, dev, launch_counters(),
+                            res)
     with open(os.path.join(workdir, "result.json"), "w") as fh:
-        json.dump({"res": res, "forward_entry": entry, "widths": widths}, fh)
+        json.dump({"res": res, "forward_entry": entry, "widths": widths,
+                   "full_plane": full}, fh)
     return 0
 
 
 def start_child(workdir: str, flag: str):
     """Start ``chip_smoke.py <flag>`` (``--pipeline``: phases 10-12;
-    ``--viterbi``: phases 8 and 13), its output in
+    ``--viterbi``: phases 8, 13 and 14), its output in
     ``<workdir>/<flag without dashes>_child.log``; it is killed at exit if
     still running."""
     import atexit
@@ -3217,6 +3532,8 @@ def main() -> int:
         return viterbi_child()
     if sys.argv[1:] == ["--widths"]:
         return widths_alone()
+    if sys.argv[1:] == ["--full-plane"]:
+        return full_plane_alone()
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
         return distributed_rank(int(sys.argv[2]), *sys.argv[3:])
     sys.path.insert(0, ROOT)
@@ -3264,24 +3581,22 @@ def main() -> int:
             "smem_block" + tag: a["static_smem"],
             "warps_per_read" + tag: a["threads"] // 32,
         })
-        for short in (True, False):
-            a = viterbi.kernel_attributes(width, short)
+        for step, what, row, sfx in (
+                (viterbi.SHORT, "short", "viterbi", ""),
+                (viterbi.FIVE_WAY, "5-way", "viterbi", "_5way"),
+                (viterbi.FULL, "full-plane", "viterbi_full", "")):
+            a = viterbi.kernel_attributes(width, step)
             print("viterbi %s step W=%d: %d registers, %d bytes of local "
                   "memory a thread, %d bytes of static shared memory a block "
                   "of %d threads and %d reads"
-                  % ("short" if short else "5-way", width, a["registers"],
-                     a["local_bytes"], a["static_smem"], a["threads"],
-                     a["reads"]))
-            attrs.setdefault("viterbi", {}).update({
-                ("registers" if short else "registers_5way") + tag:
-                    a["registers"],
-                ("local_bytes" if short else "local_bytes_5way") + tag:
-                    a["local_bytes"],
+                  % (what, width, a["registers"], a["local_bytes"],
+                     a["static_smem"], a["threads"], a["reads"]))
+            attrs.setdefault(row, {}).update({
+                "registers" + sfx + tag: a["registers"],
+                "local_bytes" + sfx + tag: a["local_bytes"],
+                "smem_block" + tag: a["static_smem"],
+                "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
             })
-        attrs["viterbi"].update({
-            "smem_block" + tag: a["static_smem"],
-            "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
-        })
         for two in (True, False):
             a = forward.kernel_attributes(width, two)
             print("forward %s sum W=%d: %d registers, %d bytes of local "
@@ -3301,8 +3616,12 @@ def main() -> int:
             "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
         })
     for width in (W, W_REALIGN):
+        smem = traceback.walker_shared_memory(width)
         print("walkers W=%d: dynamic shared memory a block of 4 reads %s"
-              % (width, traceback.walker_shared_memory(width)))
+              % (width, smem))
+        tag = "" if width == W else "_w32"
+        for name, b in smem.items():
+            attrs.setdefault(name, {})["smem_block" + tag] = b
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
     print("native seedchain: %s" % native_index.get_lib()._name)
@@ -3359,7 +3678,8 @@ def main() -> int:
     post_launches = posterior_path_phase(workdir, dev, counters, res)
     mark("phase 7")
     vit_launches = viterbi_path_phase(workdir, fa, fq, dev, counters)
-    phase8 = finish_child(vit_child, workdir, "--viterbi", "phases 8 and 13",
+    phase8 = finish_child(vit_child, workdir, "--viterbi",
+                          "phases 8, 13 and 14",
                           os.path.join("viterbi", "result.json"))
     res.update(phase8["res"])
     for name, rows in phase8["widths"]["res"].items():
@@ -3370,6 +3690,15 @@ def main() -> int:
                                    "phases 10-12",
                                    os.path.join("pipeline", "launches.json")))
     other_runs["forward_entry"] = phase8["forward_entry"]
+    # no canonical model may take the full plane: its counters are 0 in
+    # every driven run but phase 14's
+    earlier = dict(other_runs, map=launches, em=em_launches)
+    took = {what: (run["viterbi_full"], run["viterbi_traceback_full"])
+            for what, run in earlier.items()
+            if run["viterbi_full"] or run["viterbi_traceback_full"]}
+    if took:
+        fail("runs before phase 14 launched the full plane: %s" % took)
+    other_runs["full_plane"] = phase8["full_plane"]
 
     meta = {
         "pack": ("csrc/pack.cu", "nanopore_tpu/ops/pack_pallas.py:61"),
@@ -3390,6 +3719,9 @@ def main() -> int:
                     "nanopore_tpu/ops/pairhmm_pallas_viterbi.py:72"),
         "viterbi_traceback": ("csrc/viterbi_traceback.cu",
                               "nanopore_tpu/ops/traceback_pallas.py:239"),
+        "viterbi_full": ("csrc/viterbi.cu", "nanopore_tpu/ops/viterbi.py:51"),
+        "viterbi_traceback_full": ("csrc/viterbi_traceback.cu",
+                                   "nanopore_tpu/ops/viterbi.py:135"),
         "forward": ("csrc/forward.cu", "nanopore_tpu/ops/pairhmm_pallas.py:92"),
     }
     kernels = []

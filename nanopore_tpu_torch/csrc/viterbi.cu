@@ -1,22 +1,34 @@
 // Banded five-state Viterbi: the max-product forward over packed band
-// codes, one backpointer byte per band cell per diagonal.
+// codes, one backpointer cell per band cell per diagonal.
 //
-// Replaces nanopore_tpu/ops/pairhmm_pallas_viterbi.py::_viterbi_kernel.
-// Log space, no rescaling.  Per diagonal k and destination state, the
-// max and argmax over the predecessor states (pred + ltf[s*5 + dest], a
-// tie keeps the lower state) are taken before the band shift (match
-// from diagonal k-2 by d2, deletes from k-1 by d1 - 1, inserts from k-1
-// by d1; NEG and backpointer 0 shifted in), then the emission is added
-// and the sum clamped at NEG.  A cell whose x or y code is the sentinel
-// 5 emits NEG; N = 4 is a real code.  The backpointer byte is
-// p = bM + 5 * (tD1 + 2 tI1 + 4 tD2 + 8 tI2), the gap states collapsed
-// to from-self bits (the canonical fiveState structure, checked by the
-// wrapper).  At band cell 0 of diagonal k_end = m + n the score and its
-// argmax state (strict >) are captured.  The arithmetic is the plain
-// version's in ops/viterbi.py, in its order: adds and maxima only, so
-// the two agree to the bit.
+// Replaces nanopore_tpu/ops/pairhmm_pallas_viterbi.py::_viterbi_kernel
+// (the byte plane) and, for a model outside the canonical fiveState
+// structure, nanopore_tpu/ops/viterbi.py::_viterbi_scan_single (the full
+// plane).  Log space, no rescaling.  Per diagonal k and destination
+// state, the max and argmax over the predecessor states (pred +
+// ltf[s*5 + dest], a tie keeps the lower state) are taken before the band
+// shift (match from diagonal k-2 by d2, deletes from k-1 by d1 - 1,
+// inserts from k-1 by d1; NEG and backpointer 0 shifted in), then the
+// emission is added and the sum clamped at NEG.  A cell whose x or y code
+// is the sentinel 5 emits NEG; N = 4 is a real code.  At band cell 0 of
+// diagonal k_end = m + n the score and its argmax state (strict >) are
+// captured.  The arithmetic is the plain version's in ops/viterbi.py, in
+// its order: adds and maxima only, so the two agree to the bit.
 //
-// The short step (SHORT): a gap destination g takes the max of its two
+// Two planes; the wrapper picks one by the model's structure:
+//  * the byte plane (int8), for a model in the canonical fiveState
+//    structure, where a gap state is entered only from match or itself:
+//    p = bM + 5 * (tD1 + 2 tI1 + 4 tD2 + 8 tI2), the gap states collapsed
+//    to from-self bits.  Its tables put structure zeros at NEG.  Two
+//    steps serve it, STEP_SHORT and STEP_FIVE_WAY below;
+//  * the full plane (int16, STEP_FULL), for every other model:
+//    p = bM + (bD1 << 3) + (bI1 << 6) + (bD2 << 9) + (bI2 << 12), each
+//    state's predecessor state.  Its tables take log(max(t, 1e-37)) of
+//    every transition, as the JAX package's XLA scan does (a structure
+//    zero is about -85.2 and may decide a cell).  Its step is the 5-way
+//    step keeping each gap destination's argmax state.
+//
+// The short step (STEP_SHORT): a gap destination g takes the max of its two
 // allowed candidates, from match and from itself, and its bit is (from
 // self > from match).  The 5-way step's bit is 1 exactly when its max
 // exceeds the match candidate, which comes first (strict >).  Every state
@@ -35,14 +47,14 @@
 // destination keeps its 5 predecessors either way.
 //
 // Bound: operations, just above the bytes (one code byte in and one
-// backpointer byte out a cell).  Per band cell per diagonal the 5-way step
-// does 95 operations (25 adds, 20 compares, 20 maxima and 20 argmax
-// selects; then 5 adds and 5 maxima for the emissions, whose validity
-// select is a function of the code alone, a lookup), the short step 43
-// (17 for the match state, 2 adds, a max and a compare for each gap
-// state, 10 for the emissions).  In fact each read is a
-// serial chain of ~10^4 diagonals, so a diagonal's latency and, at B =
-// 512 (one warp a scheduler), its issue slots set the time.  Design:
+// backpointer byte out a cell; two for the full plane).  Per band cell
+// per diagonal the 5-way and full steps do 95 operations (25 adds, 20
+// compares, 20 maxima and 20 argmax selects; then 5 adds and 5 maxima for
+// the emissions, whose validity select is a function of the code alone,
+// a lookup), the short step 43 (17 for the match state, 2 adds, a max and
+// a compare for each gap state, 10 for the emissions).  In fact each read
+// is a serial chain of ~10^4 diagonals, so a diagonal's latency and, at
+// B = 512 (one warp a scheduler), its issue slots set the time.  Design:
 //  * one warp per read, two reads a block; a lane owns C = W/32 adjacent
 //    band cells in registers, so a band shift is one warp shuffle;
 //  * the codes are staged through shared memory in chunks of CH + 1 rows
@@ -57,14 +69,18 @@
 //  * the band shifts take no branch (with one warp a scheduler a branch's
 //    bubble is not hidden): states 1 and 3 shift by d1 - 1 and states 2
 //    and 4 by d1, so each pair moves one way or not at all: its two floats
-//    and its two from-self bits (pre-weighted as 5 tD1 + 20 tD2 and
-//    10 tI1 + 40 tI2, one int) are shuffled and then selected by d1; the
-//    match state and its argmax are shuffled both ways and selected by d2;
-//  * the warp writes one W-byte backpointer row per diagonal, coalesced;
+//    and its two plane fields (pre-weighted as 5 tD1 + 20 tD2 and
+//    10 tI1 + 40 tI2, or bD1 << 3 | bD2 << 9 and bI1 << 6 | bI2 << 12, one
+//    int) are shuffled and then selected by d1; the match state and its
+//    argmax are shuffled both ways and selected by d2;
+//  * the warp writes one backpointer row per diagonal, coalesced (W bytes,
+//    2W for the full plane: a lane stores its C cells as one word);
 //    a read stops at its own end diagonal and zeroes the rows above it
 //    with 16-byte stores.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "walk.cuh"
 
@@ -76,6 +92,13 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 2;  // reads per block
 constexpr int CH = 32;    // diagonals per staged chunk
 constexpr int NTAB = 91;  // ltf 25 | lemf 36 | legf 30
+// the steps (ops/viterbi.py: FIVE_WAY, SHORT, FULL)
+constexpr int STEP_FIVE_WAY = 0, STEP_SHORT = 1, STEP_FULL = 2;
+
+// a lane's C plane cells, stored as one word
+template <int C, typename Cell>
+using Word = std::conditional_t<C * sizeof(Cell) == 4, uint32_t,
+                                std::conditional_t<C * sizeof(Cell) == 2, uint16_t, uint8_t>>;
 
 struct Tables {
   float v[NTAB];
@@ -160,13 +183,15 @@ __device__ __forceinline__ void lookup(const Emit& e, const uint8_t* row, int w0
   top = row[0];
 }
 
-template <int C, bool SHORT>
+template <int C, int STEP>
 __global__ void __launch_bounds__(WARPS * 32)
 viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
                const int32_t* __restrict__ m, const int32_t* __restrict__ n,
                int nreads, int k_pad, float* __restrict__ score,
-               int32_t* __restrict__ fstate, int8_t* __restrict__ bp) {
+               int32_t* __restrict__ fstate, void* __restrict__ bp) {
   constexpr int W = 32 * C;
+  using Cell = std::conditional_t<STEP == STEP_FULL, uint16_t, uint8_t>;
+  using Out = Word<C, Cell>;
   __shared__ Emit emit;
   __shared__ Stage<C> stage[WARPS];
   for (int i = threadIdx.x; i < 64; i += blockDim.x) {
@@ -185,7 +210,7 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
   Stage<C>& sg = stage[warp];
   const int w0 = lane * C;
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
-  int8_t* out = bp + (size_t)r * (k_pad + 1) * W;   // row k: diagonal k
+  Cell* out = (Cell*)bp + (size_t)r * (k_pad + 1) * W;  // row k: diagonal k
   const int kend = m[r] + n[r];
   const int klast = kend < k_pad ? kend : k_pad;
 
@@ -198,11 +223,7 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
       a[s][c] = (w0 + c == 0) ? -1.6094379425048828f : NEG;
       b[s][c] = NEG;
     }
-  if constexpr (C == 2) {
-    *reinterpret_cast<uint16_t*>(out + w0) = 0;
-  } else {
-    out[w0] = 0;
-  }
+  *reinterpret_cast<Out*>(out + w0) = 0;
   float sc = NEG;
   int fs = 0;
 
@@ -242,7 +263,7 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
 
       // predecessors: match from k-2 (5-way), gap states from k-1
       float v[NS][C];
-      int bm[C], pa[C], pb[C];  // match argmax; weighted from-self bits
+      int bm[C], pa[C], pb[C];  // match argmax; weighted gap fields
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         float bv = b[0][c] + tab.v[0];
@@ -258,7 +279,7 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
         int t[NS];
 #pragma unroll
         for (int g = 1; g < NS; ++g) {
-          if constexpr (SHORT) {
+          if constexpr (STEP == STEP_SHORT) {
             const float from_m = a[0][c] + tab.v[g];
             const float from_g = a[g][c] + tab.v[g * 6];
             v[g][c] = fmaxf(from_m, from_g);
@@ -273,11 +294,16 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
               gv = fmaxf(gv, cand);
             }
             v[g][c] = gv;
-            t[g] = gs != 0;
+            t[g] = STEP == STEP_FULL ? gs : gs != 0;
           }
         }
-        pa[c] = 5 * t[1] + 20 * t[3];
-        pb[c] = 10 * t[2] + 40 * t[4];
+        if constexpr (STEP == STEP_FULL) {
+          pa[c] = (t[1] << 3) | (t[3] << 9);
+          pb[c] = (t[2] << 6) | (t[4] << 12);
+        } else {
+          pa[c] = 5 * t[1] + 20 * t[3];
+          pb[c] = 10 * t[2] + 40 * t[4];
+        }
       }
       // the band shifts: match by d2, then one branch for the gap pairs
       shift_sel<C>(v[0], d2, NEG, lane);
@@ -297,13 +323,9 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
           b[s][c] = a[s][c];
           a[s][c] = fmaxf(v[s][c] + e[s][c], NEG);
         }
-        word |= (uint32_t)(bm[c] + pa[c] + pb[c]) << (8 * c);
+        word |= (uint32_t)(bm[c] + pa[c] + pb[c]) << (8 * sizeof(Cell) * c);
       }
-      if constexpr (C == 2) {
-        *reinterpret_cast<uint16_t*>(out + (size_t)k * W + w0) = (uint16_t)word;
-      } else {
-        out[(size_t)k * W + w0] = (int8_t)word;
-      }
+      *reinterpret_cast<Out*>(out + (size_t)k * W + w0) = (Out)word;
       if (k == kend) {  // cell (m, n): band cell 0 (lane 0's)
         float ve = a[0][0];
         int se = 0;
@@ -323,10 +345,10 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
     }
   }
   // the rows past the read's end diagonal are not part of its lattice;
-  // rows are W bytes, and W and the read's base are 16-byte multiples
+  // rows are W cells, and a row and the read's base are 16-byte multiples
   {
-    char* p = (char*)out + (size_t)(klast + 1) * W;
-    const size_t nbytes = (size_t)(k_pad - klast) * W;
+    char* p = (char*)(out + (size_t)(klast + 1) * W);
+    const size_t nbytes = (size_t)(k_pad - klast) * W * sizeof(Cell);
     for (size_t i = (size_t)lane * 16; i < nbytes; i += 32 * 16)
       *reinterpret_cast<uint4*>(p + i) = make_uint4(0u, 0u, 0u, 0u);
   }
@@ -337,14 +359,23 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
 }
 
 template <int C>
-int launch_width(bool short_step, const Tables& t, dim3 grid, dim3 block, cudaStream_t s,
+int launch_width(int step, const Tables& t, dim3 grid, dim3 block, cudaStream_t s,
                  const void* xyc, const void* m, const void* n, int nreads, int k_pad,
                  void* score, void* fstate, void* bp) {
-  auto kernel = short_step ? viterbi_kernel<C, true> : viterbi_kernel<C, false>;
+  auto kernel = step == STEP_FULL    ? viterbi_kernel<C, STEP_FULL>
+                : step == STEP_SHORT ? viterbi_kernel<C, STEP_SHORT>
+                                : viterbi_kernel<C, STEP_FIVE_WAY>;
   kernel<<<grid, block, 0, s>>>(t, (const uint8_t*)xyc, (const int32_t*)m,
                                 (const int32_t*)n, nreads, k_pad, (float*)score,
-                                (int32_t*)fstate, (int8_t*)bp);
+                                (int32_t*)fstate, bp);
   return (int)cudaGetLastError();
+}
+
+template <int C>
+cudaError_t attrs_width(int step, cudaFuncAttributes* a) {
+  return cudaFuncGetAttributes(a, step == STEP_FULL    ? viterbi_kernel<C, STEP_FULL>
+                                  : step == STEP_SHORT ? viterbi_kernel<C, STEP_SHORT>
+                                                  : viterbi_kernel<C, STEP_FIVE_WAY>);
 }
 
 }  // namespace
@@ -354,38 +385,43 @@ extern "C" const char* np_cuda_error_string(int e) {
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
-// `tables` is host memory: the 91 log floats of ops/viterbi.py.
-// `short_step` (0 or 1) takes the two-predecessor gap step, which the
-// caller may ask for only where every gap state g has t[0 -> g] > 0 or
-// t[g -> g] > 0.
+// `tables` is host memory: the 91 log floats of ops/viterbi.py (the byte
+// plane's for STEP_SHORT and STEP_FIVE_WAY, the full plane's for
+// STEP_FULL).  `step`: STEP_FIVE_WAY (0) or STEP_SHORT (1) write the byte
+// plane, bp (nreads, k_pad + 1, W) int8, and the caller may ask for
+// STEP_SHORT only where every gap state g has t[0 -> g] > 0 or
+// t[g -> g] > 0; STEP_FULL (2) writes the full plane, bp int16.
 extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const void* m,
                                  const void* n, int nreads, int k_pad, int W,
-                                 int short_step, void* score, void* fstate, void* bp,
+                                 int step, void* score, void* fstate, void* bp,
                                  void* stream) {
-  if (nreads <= 0 || k_pad < 1) return (int)cudaErrorInvalidValue;
+  if (nreads <= 0 || k_pad < 1 || step < STEP_FIVE_WAY || step > STEP_FULL)
+    return (int)cudaErrorInvalidValue;
   Tables t;
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
   const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
   cudaStream_t s = (cudaStream_t)stream;
   if (W == 64)
-    return launch_width<2>(short_step != 0, t, grid, block, s, xyc, m, n, nreads, k_pad,
-                           score, fstate, bp);
+    return launch_width<2>(step, t, grid, block, s, xyc, m, n, nreads, k_pad, score,
+                           fstate, bp);
   if (W == 32)
-    return launch_width<1>(short_step != 0, t, grid, block, s, xyc, m, n, nreads, k_pad,
-                           score, fstate, bp);
+    return launch_width<1>(step, t, grid, block, s, xyc, m, n, nreads, k_pad, score,
+                           fstate, bp);
   return (int)cudaErrorInvalidValue;
 }
 
 // Registers, local memory (spill) bytes per thread, static shared memory
 // bytes per block, threads per block and reads per block of the kernel
-// at band width W (`short_step` as for the launch), into out[5].
-extern "C" int np_viterbi_attrs(int W, int short_step, int* out) {
+// at band width W (`step` as for the launch), into out[5].
+extern "C" int np_viterbi_attrs(int W, int step, int* out) {
   cudaFuncAttributes a;
   cudaError_t e;
+  if (step < STEP_FIVE_WAY || step > STEP_FULL)
+    return (int)cudaErrorInvalidValue;
   if (W == 64)
-    e = cudaFuncGetAttributes(&a, short_step ? viterbi_kernel<2, true> : viterbi_kernel<2, false>);
+    e = attrs_width<2>(step, &a);
   else if (W == 32)
-    e = cudaFuncGetAttributes(&a, short_step ? viterbi_kernel<1, true> : viterbi_kernel<1, false>);
+    e = attrs_width<1>(step, &a);
   else
     return (int)cudaErrorInvalidValue;
   out[0] = a.numRegs;

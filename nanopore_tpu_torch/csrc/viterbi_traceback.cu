@@ -1,14 +1,22 @@
 // Viterbi walker: walks a read's backpointer plane down the diagonals
 // into per-diagonal ops.
 //
-// Replaces nanopore_tpu/ops/traceback_pallas.py::_vit_tb_kernel.  From
-// cell (m, n) in state fstate the walk visits at most one cell per
+// Replaces nanopore_tpu/ops/traceback_pallas.py::_vit_tb_kernel (the
+// byte plane) and, for the full plane of a model outside the canonical
+// fiveState structure, nanopore_tpu/ops/viterbi.py::viterbi_traceback.
+// From cell (m, n) in state fstate the walk visits at most one cell per
 // diagonal, descending.  On the diagonal k = i + j of its cell it reads
-// the backpointer byte p at band index j - o[k] (0 outside the band),
-// emits the op of the move into the cell (M for state 0, D for 1 and 3,
-// I for 2 and 4), steps back (i - 1 for M and I, j - 1 for M and D) and
-// takes the predecessor state: p % 5 from the match state, for gap
-// state s its from-self bit ((p / 5) >> (s - 1)) & 1 times s.  It stops
+// the backpointer p at band index j - o[k] (0 outside the band), emits
+// the op of the move into the cell (M for state 0, D for 1 and 3, I for
+// 2 and 4), steps back (i - 1 for M and I, j - 1 for M and D) and takes
+// the predecessor state.  The two planes of csrc/viterbi.cu, one kernel
+// instantiation each:
+//  * the byte plane (int8 rows, p = bM + 5 * (tD1 + 2 tI1 + 4 tD2 +
+//    8 tI2), a canonical model): p % 5 from the match state, for gap
+//    state s its from-self bit ((p / 5) >> (s - 1)) & 1 times s;
+//  * the full plane (int16 rows, p = sum_s b_s << 3s, any other model):
+//    (p >> 3s) & 7 from state s.
+// It stops
 // at (0, 0), or below diagonal 0, and writes 3 (none) on every diagonal
 // off the path; the cell where it stopped goes to `end`, (0, 0) for a
 // whole walk.  A read with m + n > k_pad is not walked (its ops are all
@@ -16,9 +24,10 @@
 // The band offsets o[k] are integrated from bit 6 of the packed band
 // codes already on the card, so no offsets cross the bus.
 //
-// Bound: latency.  The useful traffic is one backpointer byte and one
-// code byte per path diagonal per read, and one op byte per diagonal
-// (the bytes bound is microseconds), but the walk is a serial chain:
+// Bound: latency.  The useful traffic is one backpointer cell (1 or 2
+// bytes) and one code byte per path diagonal per read, and one op byte
+// per diagonal (the bytes bound is microseconds), but the walk is a
+// serial chain:
 // each step's cell depends on the previous step's move.  Design: that
 // of csrc/traceback.cu, going down:
 //  * one warp per read, WARPS reads a block;
@@ -30,7 +39,10 @@
 //    c*CH ..), NBUF - 1 chunks ahead of the walk, by 16-byte cp.async
 //    copies, with the column-0 code word of each diagonal by 4-byte
 //    copies (csrc/walk.cuh); one warp scan per chunk turns bit 6 of
-//    those words into the chunk's o[k], carried down from o[kstart];
+//    those words into the chunk's o[k], carried down from o[kstart].
+//    The full plane's ring is twice the bytes: 205,504 B a block of 4
+//    reads at W = 64, within the 227 KB a block may take (one block an
+//    SM either way at B = 512: 128 blocks on 132 SMs);
 //  * one lane walks in shared memory only, jumping straight to its next
 //    diagonal (k - 1 or k - 2).  The walk is software-pipelined: the
 //    state decides the next cell before the current backpointer is
@@ -49,9 +61,9 @@ namespace {
 
 using namespace walk;
 
-template <int W>
+template <int W, typename T>
 __global__ void __launch_bounds__(WARPS * 32)
-viterbi_walk_kernel(const int8_t* __restrict__ bp, const uint8_t* __restrict__ xyc,
+viterbi_walk_kernel(const T* __restrict__ bp, const uint8_t* __restrict__ xyc,
                     const int32_t* __restrict__ m, const int32_t* __restrict__ n,
                     const int32_t* __restrict__ fstate, int nreads, int k_pad,
                     int8_t* __restrict__ ops, int32_t* __restrict__ end) {
@@ -60,9 +72,9 @@ viterbi_walk_kernel(const int8_t* __restrict__ bp, const uint8_t* __restrict__ x
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * WARPS + warp;
   if (r >= nreads) return;
-  Stage<W>& sg = reinterpret_cast<Stage<W>*>(stage_raw)[warp];
+  Stage<W, T>& sg = reinterpret_cast<Stage<W, T>*>(stage_raw)[warp];
   const int K1 = k_pad + 1;
-  const int8_t* pr = bp + (size_t)r * K1 * W;
+  const T* pr = bp + (size_t)r * K1 * W;
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
   int8_t* op = ops + (size_t)r * K1;
   int i = m[r];
@@ -103,7 +115,7 @@ viterbi_walk_kernel(const int8_t* __restrict__ bp, const uint8_t* __restrict__ x
       // before the backpointer of this one is decoded, so the load of
       // the next cell's byte (its offset taken from the two loaded a
       // step ahead) is issued first and overlaps the decode
-      const int8_t* rows = sg.rows[slot];
+      const T* rows = sg.rows[slot];
       const int32_t* so = sg.o + OFF;  // so[kk]: diagonal lo + kk, kk >= -OFF
       int kk = k - lo;
       const int b0 = j - so[kk];
@@ -119,7 +131,10 @@ viterbi_walk_kernel(const int8_t* __restrict__ bp, const uint8_t* __restrict__ x
         const int kn = kk - (is_m ? 2 : 1);
         const int bn = j - (is_m ? om2 : om1);
         const int pn = kn >= 0 && (unsigned)bn < (unsigned)W ? rows[kn * W + bn] : 0;
-        s = is_m ? p % 5 : s * (((p / 5) >> (s - 1)) & 1);
+        if constexpr (sizeof(T) == 2)
+          s = (p >> (3 * s)) & 7;
+        else
+          s = is_m ? p % 5 : s * (((p / 5) >> (s - 1)) & 1);
         om1 = is_m ? o3 : om2;
         om2 = is_m ? o4 : o3;
         kk = kn;
@@ -144,26 +159,44 @@ extern "C" const char* np_cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// Dynamic shared memory a block takes at band width W (0 for another W).
-extern "C" int np_viterbi_walk_smem(int W) { return walk::smem_bytes(W); }
+// Dynamic shared memory a block takes at band width W (0 for another W),
+// over the full plane's 16-bit rows if `full`, else the byte plane's.
+extern "C" int np_viterbi_walk_smem(int W, int full) {
+  return full ? walk::smem_bytes<int16_t>(W) : walk::smem_bytes<int8_t>(W);
+}
+
+namespace {
+
+template <typename T>
+int launch_plane(const void* bp, const void* xyc, const void* m, const void* n,
+                 const void* fstate, int nreads, int k_pad, int W, void* ops, void* end,
+                 cudaStream_t s) {
+  if (W == 64)
+    return walk::launch<64, T>(viterbi_walk_kernel<64, T>, nreads, s, (const T*)bp,
+                               (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
+                               (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops,
+                               (int32_t*)end);
+  if (W == 32)
+    return walk::launch<32, T>(viterbi_walk_kernel<32, T>, nreads, s, (const T*)bp,
+                               (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
+                               (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops,
+                               (int32_t*)end);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  bp
-// (nreads, k_pad + 1, W) int8, xyc (nreads, k_pad, W) int8, m, n and
-// fstate (nreads,) int32, ops (nreads, k_pad + 1) int8 and end
-// (nreads, 2) int32 out; W is 32 or 64, and bp is 16-byte aligned.
+// (nreads, k_pad + 1, W): the byte plane, int8, or (`full`) the full
+// plane, int16; xyc (nreads, k_pad, W) int8, m, n and fstate (nreads,)
+// int32, ops (nreads, k_pad + 1) int8 and end (nreads, 2) int32 out; W is
+// 32 or 64, and bp is 16-byte aligned.
 extern "C" int np_viterbi_walk_launch(const void* bp, const void* xyc, const void* m,
                                       const void* n, const void* fstate, int nreads,
-                                      int k_pad, int W, void* ops, void* end,
+                                      int k_pad, int W, int full, void* ops, void* end,
                                       void* stream) {
   if (nreads <= 0 || k_pad < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (W == 64)
-    return launch<64>(viterbi_walk_kernel<64>, nreads, s, (const int8_t*)bp,
-                      (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
-                      (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops, (int32_t*)end);
-  if (W == 32)
-    return launch<32>(viterbi_walk_kernel<32>, nreads, s, (const int8_t*)bp,
-                      (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
-                      (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops, (int32_t*)end);
-  return (int)cudaErrorInvalidValue;
+  return full ? launch_plane<int16_t>(bp, xyc, m, n, fstate, nreads, k_pad, W, ops, end, s)
+              : launch_plane<int8_t>(bp, xyc, m, n, fstate, nreads, k_pad, W, ops, end, s);
 }

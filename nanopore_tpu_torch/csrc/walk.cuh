@@ -1,7 +1,8 @@
 // The staging shared by the two walkers (csrc/traceback.cu, the MEA
 // walker going up; csrc/viterbi_traceback.cu, the Viterbi walker going
 // down).  One warp serves one read: its rows (direction codes or
-// backpointers, W bytes a diagonal, one contiguous range a read) stream
+// backpointers, W cells of type T a diagonal: bytes, or the Viterbi full
+// plane's 16-bit cells; one contiguous range a read) stream
 // into a shared-memory ring of NBUF chunks of CH diagonals, NBUF - 1
 // chunks ahead of the walk, by the lanes' cp.async copies: the rows 16
 // bytes a copy, the column-0 code word of each of the chunk's diagonals
@@ -22,9 +23,9 @@ constexpr int NBUF = 3;   // ring depth: chunks in flight ahead of the walk
 constexpr int OFF = 4;    // o[] holds diagonal lo + kk at OFF + kk, kk >= -OFF
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int W>
+template <int W, typename T = int8_t>
 struct __align__(16) Stage {
-  int8_t rows[NBUF][CH * W];  // row i of a slot: diagonal c*CH + i
+  T rows[NBUF][CH * W];       // row i of a slot: diagonal c*CH + i
   uint32_t code[NBUF][CH];    // column-0 code word of each diagonal
   int32_t o[OFF + CH + OFF];  // band offsets of the walked chunk; the
                               // walk's look-ahead reads OFF past each end
@@ -59,14 +60,14 @@ __device__ __forceinline__ void cp_wait_ring() {
 // nrows - 1 of `src` and the column-0 code word of each of its
 // diagonals k >= 1 (code row k - 1 of `xy`).  One commit, empty or not,
 // per chunk index.
-template <int W>
-__device__ __forceinline__ void stage_chunk(Stage<W>& sg, const int8_t* src,
+template <int W, typename T>
+__device__ __forceinline__ void stage_chunk(Stage<W, T>& sg, const T* src,
                                             const uint8_t* xy, int c, int nrows, int slot,
                                             int lane) {
   if (nrows > 0) {
     const int lo = c * CH;
     const char* from = (const char*)(src + (size_t)lo * W);
-    for (int i = lane * 16; i < nrows * W; i += 32 * 16)
+    for (int i = lane * 16; i < nrows * W * (int)sizeof(T); i += 32 * 16)
       cp_async16((char*)sg.rows[slot] + i, from + i);
     for (int i = lane; i < nrows; i += 32)
       if (lo + i >= 1) cp_async4(&sg.code[slot][i], xy + (size_t)(lo + i - 1) * W);
@@ -78,8 +79,8 @@ __device__ __forceinline__ void stage_chunk(Stage<W>& sg, const int8_t* src,
 // diagonals lo + PER*l .. + PER - 1, one inclusive warp scan adds them
 // up.  Going up, `carry` is o[lo - 1] and the result o[lo + nrows - 1];
 // going down (`down`), the reverse.  Writes o[OFF + i] = o[lo + i].
-template <int W>
-__device__ __forceinline__ int scan_offsets(Stage<W>& sg, int slot, int lo, int nrows,
+template <int W, typename T>
+__device__ __forceinline__ int scan_offsets(Stage<W, T>& sg, int slot, int lo, int nrows,
                                             int carry, bool down, int lane) {
   int v[PER];
   int s = 0;
@@ -103,8 +104,8 @@ __device__ __forceinline__ int scan_offsets(Stage<W>& sg, int slot, int lo, int 
 }
 
 // The op row of the walked chunk, all 3 (none) before the walk
-template <int W>
-__device__ __forceinline__ void clear_ops(Stage<W>& sg, int lane) {
+template <int W, typename T>
+__device__ __forceinline__ void clear_ops(Stage<W, T>& sg, int lane) {
   for (int t = lane; t < (CH + 16) / 4; t += 32)
     reinterpret_cast<uint32_t*>(sg.ops)[t] = 0x03030303u;
 }
@@ -132,19 +133,20 @@ __device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
   for (int t = head + 16 * nw + lane; t < nbytes; t += 32) g[t] = 3;
 }
 
-// Dynamic shared memory a walker block takes at band width W: one Stage
-// a warp (0 for a W other than 32 and 64)
+// Dynamic shared memory a walker block takes at band width W with rows
+// of T: one Stage a warp (0 for a W other than 32 and 64)
+template <typename T = int8_t>
 inline int smem_bytes(int W) {
-  return W == 64 ? WARPS * (int)sizeof(Stage<64>)
-       : W == 32 ? WARPS * (int)sizeof(Stage<32>)
+  return W == 64 ? WARPS * (int)sizeof(Stage<64, T>)
+       : W == 32 ? WARPS * (int)sizeof(Stage<32, T>)
                  : 0;
 }
 
-// Launch a walker kernel at its dynamic shared memory; returns
-// cudaGetLastError().
-template <int W, typename Kernel, typename... Args>
+// Launch a walker kernel over rows of T at its dynamic shared memory;
+// returns cudaGetLastError().
+template <int W, typename T = int8_t, typename Kernel, typename... Args>
 int launch(Kernel kernel, int nreads, cudaStream_t stream, Args... args) {
-  const int smem = smem_bytes(W);
+  const int smem = smem_bytes<T>(W);
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

@@ -101,8 +101,9 @@ class MapperConfig:
     max_ref_gap: int = 5000
     max_diag_drift: int = 500
     # extension decode: "viterbi" = single-pass max-product (the Viterbi
-    # kernel and its walker); anything else = posterior MEA (the fused
-    # realign kernel)
+    # kernel and its walker, on the byte plane for a model in the
+    # canonical fiveState structure, else on the full plane: any model
+    # decodes); anything else = posterior MEA (the fused realign kernel)
     decode: str = "mea"
     # mixed-length batching policy: when set, candidates bucket by the
     # smallest bin >= n + m (their diagonal need) and each bucket runs

@@ -13,7 +13,9 @@ kernel's EM mode on the resident codes with new model tables;
 ``PreparedPosteriors`` launches its gamma or exp mode, whose outputs
 stay on the device for ``ops.posteriors``; ``PreparedViterbi.launch()``
 enqueues the Viterbi kernel and ``decode()`` walks its backpointer plane
-on the device, pulling only the op codes, end cells and scores;
+on the device, pulling only the op codes, end cells and scores (the
+byte plane for a model in the canonical fiveState structure, the full
+plane for any other; ``ops.viterbi``);
 ``PreparedForward.run()`` launches the forward-only kernel (the
 counterpart of the JAX package's ``PallasForwardPlan``).
 
@@ -60,10 +62,7 @@ from nanopore_tpu_torch.ops.traceback import (
     rle_ops_batch,
     viterbi_walk,
 )
-from nanopore_tpu_torch.ops.viterbi import (
-    require_canonical_structure,
-    viterbi_forward,
-)
+from nanopore_tpu_torch.ops.viterbi import viterbi_forward
 
 logger = logging.getLogger(__name__)
 
@@ -231,11 +230,12 @@ class PreparedPosteriors:
 
 class PreparedViterbi:
     """A max-product decode batch resident on its device (the mapping
-    engine's ``decode="viterbi"`` extension).  A model outside the
-    canonical fiveState structure raises ``ValueError`` (ROADMAP C7)."""
+    engine's ``decode="viterbi"`` extension), for a model of any
+    transition structure: one in the canonical fiveState structure (gap
+    states entered from match or themselves only) takes the byte plane,
+    any other the full plane, on either device (``ops.viterbi``)."""
 
     def __init__(self, lite: LitePack, params: KernelParams, xyc, m, n):
-        require_canonical_structure(params)
         self.batch = lite
         self.params = params
         self.xyc = xyc
@@ -251,7 +251,7 @@ class PreparedViterbi:
 
     def run(self) -> dict:
         """score (B,), fstate (B,) and bp (B, k_pad + 1, W) on the
-        device."""
+        device (int8 byte plane or int16 full plane)."""
         self.launch()
         out, self._out = self._out, None
         return out

@@ -12,24 +12,28 @@ skipped the diagonal or had ended); ``rle_ops_batch`` run-length encodes
 the op rows into global cigars consuming exactly m read and n ref bases.
 
 Viterbi walker (``viterbi_walk``): from cell (m, n) in state
-``fstate`` it walks DOWN the diagonals over the one-byte backpointer
-plane of ``ops.viterbi`` (``p = bM + 5 * (tD1 + 2 tI1 + 4 tD2 + 8 tI2)``,
-0 where the cell lies outside the band).  On the diagonal k of its cell
-it emits the op of the move into that cell (M for state 0, D for 1 and
-3, I for 2 and 4), steps back and takes the predecessor state: ``p % 5``
-from the match state, the state itself or match (its from-self bit)
-from a gap state.  It stops at the origin; a walk that does not reach
-(0, 0) leaves its end cell in the returned (i, j).
+``fstate`` it walks DOWN the diagonals over a backpointer plane of
+``ops.viterbi`` (0 where the cell lies outside the band).  On the
+diagonal k of its cell it emits the op of the move into that cell (M
+for state 0, D for 1 and 3, I for 2 and 4), steps back and takes the
+predecessor state.  On the int8 byte plane of a canonical model
+(``p = bM + 5 * (tD1 + 2 tI1 + 4 tD2 + 8 tI2)``) that is ``p % 5`` from
+the match state, the state itself or match (its from-self bit) from a
+gap state; on the int16 full plane of any other model
+(``p = sum_s b_s << 3s``) it is ``(p >> 3s) & 7`` from state s.  It
+stops at the origin; a walk that does not reach (0, 0) leaves its end
+cell in the returned (i, j).
 
 The band offsets the walkers need are integrated from bit 6 of the
 packed band codes (``xyc``) already on the device, so no offsets upload
 is needed: the MEA walker sums them going up, the Viterbi walker sums
 them up to its start diagonal and subtracts them going down.
 
-The kernels (``csrc/traceback.cu``, ``csrc/viterbi_traceback.cu``) run
-one warp per read, stage its rows through shared memory and walk them
-with one lane; they serve the band widths of the realign and Viterbi
-kernels (``KERNEL_BAND_WIDTHS``).  The plain versions serve any width.
+The kernels (``csrc/traceback.cu``, ``csrc/viterbi_traceback.cu``, the
+latter with a walk of each plane) run one warp per read, stage its rows
+through shared memory and walk them with one lane; they serve the band
+widths of the realign and Viterbi kernels (``KERNEL_BAND_WIDTHS``).
+The plain versions serve any width.
 """
 
 from __future__ import annotations
@@ -49,33 +53,35 @@ _OP_TO_CIG = {OP_M: CIG.M, OP_D: CIG.D, OP_I: CIG.I}
 
 LAUNCHES = kb.LaunchCounter("traceback")
 VIT_LAUNCHES = kb.LaunchCounter("viterbi_traceback")
+VIT_FULL_LAUNCHES = kb.LaunchCounter("viterbi_traceback_full")
 _SIG = {
     "np_walk_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 2,
     "np_walk_smem": [ctypes.c_int],
 }
 _VIT_SIG = {
-    "np_viterbi_walk_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    "np_viterbi_walk_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 3,
-    "np_viterbi_walk_smem": [ctypes.c_int],
+    "np_viterbi_walk_smem": [ctypes.c_int] * 2,
 }
 
 
 def walker_shared_memory(W: int) -> dict:
     """Dynamic shared memory a block of each walker kernel takes at band
     width ``W`` (bytes; builds the kernels, so it needs nvcc)."""
+    vit = kb.library("viterbi_traceback", _VIT_SIG)
     return {
         "traceback": kb.library("traceback", _SIG).np_walk_smem(W),
-        "viterbi_traceback": kb.library(
-            "viterbi_traceback", _VIT_SIG).np_viterbi_walk_smem(W),
+        "viterbi_traceback": vit.np_viterbi_walk_smem(W, 0),
+        "viterbi_traceback_full": vit.np_viterbi_walk_smem(W, 1),
     }
 
 
-def _check_inputs(dirs, xyc, m, n, what="dirs"):
+def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,)):
     dev = dirs.device
-    if dirs.dtype != torch.int8 or dirs.dim() != 3 or not dirs.is_contiguous():
-        raise ValueError("%s must be a contiguous (B, K1, W) int8 tensor"
-                         % what)
+    if dirs.dtype not in dtypes or dirs.dim() != 3 or not dirs.is_contiguous():
+        raise ValueError("%s must be a contiguous (B, K1, W) tensor of %s"
+                         % (what, " or ".join(map(str, dtypes))))
     B, K1, W = dirs.shape
     if (xyc.device != dev or xyc.dtype != torch.int8
             or tuple(xyc.shape) != (B, K1 - 1, W) or not xyc.is_contiguous()):
@@ -159,14 +165,15 @@ def mea_walk_plain(dirs, xyc, m, n) -> torch.Tensor:
 def viterbi_walk(bp, xyc, m, n, fstate):
     """Viterbi op codes from a backpointer plane.
 
-    bp (B, K1, W) int8 (row k = diagonal k, ``ops.viterbi``), ``xyc``
-    (B, K1 - 1, W) for the band deltas, m / n / fstate (B,) int32.
-    Returns (ops (B, K1) int8 with OP_NONE off the path, end (B, 2)
-    int32: the cell (i, j) where each walk stopped, (0, 0) when it
-    reached the origin).  CUDA tensors launch the kernel, CPU tensors
-    run the plain walker.
+    bp (B, K1, W), row k = diagonal k: the int8 byte plane or the int16
+    full plane of ``ops.viterbi``; ``xyc`` (B, K1 - 1, W) for the band
+    deltas, m / n / fstate (B,) int32.  Returns (ops (B, K1) int8 with
+    OP_NONE off the path, end (B, 2) int32: the cell (i, j) where each
+    walk stopped, (0, 0) when it reached the origin).  CUDA tensors
+    launch the kernel's walk of that plane, CPU tensors run the plain
+    walker.
     """
-    _check_inputs(bp, xyc, m, n, "bp")
+    _check_inputs(bp, xyc, m, n, "bp", (torch.int8, torch.int16))
     if (fstate.device != bp.device or fstate.dtype != torch.int32
             or tuple(fstate.shape) != (bp.shape[0],)
             or not fstate.is_contiguous()):
@@ -179,25 +186,29 @@ def viterbi_walk(bp, xyc, m, n, fstate):
     end = torch.empty((B, 2), dtype=torch.int32, device=bp.device)
     if B == 0:
         return ops, end
+    full = bp.dtype == torch.int16
     lib = kb.library("viterbi_traceback", _VIT_SIG)
     with torch.cuda.device(bp.device):
         rc = lib.np_viterbi_walk_launch(
             kb.ptr(bp), kb.ptr(xyc), kb.ptr(m), kb.ptr(n), kb.ptr(fstate),
-            B, K1 - 1, W, kb.ptr(ops), kb.ptr(end), kb.stream_of(bp),
+            B, K1 - 1, W, int(full), kb.ptr(ops), kb.ptr(end),
+            kb.stream_of(bp),
         )
     kb.check(lib, rc, "viterbi_traceback")
-    VIT_LAUNCHES.add()
+    (VIT_FULL_LAUNCHES if full else VIT_LAUNCHES).add()
     return ops, end
 
 
 def viterbi_walk_plain(bp, xyc, m, n, fstate):
     """The Viterbi walker in plain PyTorch: vectorised over the batch,
-    one loop step per diagonal, descending."""
+    one loop step per diagonal, descending; the plane's rule by its
+    dtype (int16: the full plane)."""
     B, K1, W = bp.shape
     dev = bp.device
     d1 = ((xyc[:, :, 0].to(torch.int32) & 0xFF) >> 6) & 1
     offs = torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=dev),
                       torch.cumsum(d1, dim=1, dtype=torch.int32)], dim=1)
+    full = bp.dtype == torch.int16
     i = m.to(torch.int32).clone()
     j = n.to(torch.int32).clone()
     s = fstate.to(torch.int32).clone()
@@ -209,8 +220,11 @@ def viterbi_walk_plain(bp, xyc, m, n, fstate):
         in_band = (b >= 0) & (b < W)
         p = bp[rows, k, b.clamp(0, W - 1).long()].to(torch.int32)
         p = torch.where(in_band, p, 0)
-        bit = ((p // 5) >> (s - 1).clamp(min=0)) & 1
-        prev = torch.where(s == 0, p % 5, s * bit)
+        if full:
+            prev = (p >> (3 * s)) & 7
+        else:
+            bit = ((p // 5) >> (s - 1).clamp(min=0)) & 1
+            prev = torch.where(s == 0, p % 5, s * bit)
         is_m = s == 0
         is_d = (s == 1) | (s == 3)
         op = torch.where(is_m, OP_M, torch.where(is_d, OP_D, OP_I))

@@ -3,43 +3,60 @@
 Counterpart of the host side of ``nanopore_tpu/ops/pairhmm_pallas_viterbi.py``
 and of ``nanopore_tpu/ops/viterbi.py``: the extension decode of the
 mapping engine's ``decode="viterbi"`` presets.  One pass over the
-lattice in log space (no rescaling), emitting one backpointer byte per
+lattice in log space (no rescaling), emitting one backpointer cell per
 band cell per diagonal; ``ops.traceback.viterbi_walk`` walks the plane
 into op codes.
 
-Numerics, shared by the kernel (``csrc/viterbi.cu``) and the plain
-version below, operation for operation (and by the JAX package's Pallas
-kernel, to the bit):
+Two planes, picked by the model's transition structure
+(:func:`viterbi_structure_ok`):
 
-* log tables (:func:`viterbi_tables`): log transitions with the
+* the byte plane (int8), for a model in the canonical fiveState
+  structure, where each gap state is entered only from match or itself
+  (every shipped model, and every model EM trains from one):
+  ``p = bM + 5 * (tD1 + 2 tI1 + 4 tD2 + 8 tI2)``, the match state's
+  predecessor state and, for each gap state, whether it came from itself
+  (``t = bp != 0``).  Its tables (:func:`viterbi_tables`) put the
   structure zeros at ``NEG`` (never log(1e-37), which could win an
-  argmax from a much better predecessor), log emissions floored at
-  1e-37, computed in float32 with numpy;
+  argmax from a much better predecessor), as the JAX package's Pallas
+  kernel does, to the bit;
+* the full plane (int16), for any other model: ``p = sum_s b_s << 3s``,
+  the predecessor state (0-4) of each of the five states.  Its tables
+  (:func:`viterbi_full_tables`) take ``log(max(t, 1e-37))`` of every
+  transition, as the JAX package's XLA scan (``viterbi_decode_batch``),
+  which serves such a model there, does: a structure zero is about
+  -85.2 and may decide a cell.
+
+Numerics, shared by the kernel (``csrc/viterbi.cu``) and the plain
+version below, operation for operation:
+
+* log tables computed in float32 with numpy, log emissions floored at
+  1e-37;
 * for each destination state the max and argmax over its 5 predecessor
-  states (``pred + ltf[s * 5 + dest]``, a tie keeps the lower state),
-  taken BEFORE the band shift: the match state reads diagonal k - 2
-  shifted by d2, the delete states k - 1 by d1 - 1, the insert states
-  k - 1 by d1; shifted-in cells are ``NEG`` with backpointer 0;
-* the kernel's short step takes a gap destination's max over its two
-  allowed predecessors (match and itself) alone, the same values and
+  states (``pred + ltf[s * 5 + dest]``, a tie keeps the lower state, as
+  ``jnp.argmax``), taken BEFORE the band shift: the match state reads
+  diagonal k - 2 shifted by d2, the delete states k - 1 by d1 - 1, the
+  insert states k - 1 by d1; shifted-in cells are ``NEG`` with
+  backpointer 0 (the scan's shift-then-max gives the same there: every
+  candidate is ``NEG + log t``, which rounds to ``NEG``);
+* the byte plane's short step takes a gap destination's max over its
+  two allowed predecessors (match and itself) alone, the same values and
   bits where every gap state has t[match -> g] > 0 or t[g -> g] > 0
   (:func:`short_step`; ``csrc/viterbi.cu`` gives the argument); a model
   with a gap state that neither enters takes its 5-way step;
 * then the emission is added and the sum clamped at ``NEG``; a cell whose
-  x (or y) code is the sentinel 5 emits ``NEG`` (N = 4 is a real code);
-* one byte per cell: ``p = bM + 5 * (tD1 + 2 tI1 + 4 tD2 + 8 tI2)``, the
-  match state's predecessor state and, for each gap state, whether it
-  came from itself (``t = bp != 0``): the canonical fiveState structure
-  enters a gap state from match or itself only
-  (:func:`viterbi_structure_ok`);
+  x (or y) code is the sentinel 5 emits ``NEG`` (N = 4 is a real code).
+  Off the lattice that gives the scan's ``NEG`` mask, and on its
+  boundary cells (j = 0 or i = 0), whose sentinel the scan reads as an
+  N, both give ``NEG``: their predecessors lie off the lattice;
 * at band cell 0 of diagonal k_end = m + n, the score is the max over
   the 5 states and ``fstate`` its argmax (strict ``>``);
 * diagonal 0 holds float32(log(1/5)) in cell 0 of every state, ``NEG``
   elsewhere.
 
-A model outside the canonical structure raises ``ValueError`` on both
-devices (ROADMAP C7): the JAX package sends it to its XLA scan, which
-the port does not have.
+The full plane's arithmetic is the scan's, so with the scan's tables it
+gives the scan's scores and backpointers bit for bit; the scan takes
+each log with XLA's ``log``, which may round a table entry one ulp away
+from numpy's (``tests/test_torch_viterbi_full.py`` counts them).
 """
 
 from __future__ import annotations
@@ -56,8 +73,13 @@ from nanopore_tpu_torch.ops.realign import _check_inputs, _shift
 
 NUM_STATES = 5
 NEG = -1e30
+FLOOR = 1e-37  # the log tables' floor
+# the kernel's steps (csrc/viterbi.cu): the byte plane's 5-way and short
+# steps, and the full plane's
+FIVE_WAY, SHORT, FULL = 0, 1, 2
 
 LAUNCHES = kb.LaunchCounter("viterbi")
+FULL_LAUNCHES = kb.LaunchCounter("viterbi_full")
 _SIG = {
     "np_viterbi_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 4,
@@ -65,52 +87,47 @@ _SIG = {
 }
 
 
+def _log_tables(params: KernelParams, structure_zeros_at_neg: bool):
+    tab = kernel_tables(params).numpy()
+    tf, emf, egf = tab[:25], tab[25:61], tab[61:]
+    ltf = np.log(np.maximum(tf, FLOOR))
+    if structure_zeros_at_neg:
+        ltf = np.where(tf > 0, ltf, NEG)
+    return torch.from_numpy(np.concatenate([
+        ltf.astype(np.float32),
+        np.log(np.maximum(emf, FLOOR)).astype(np.float32),
+        np.log(np.maximum(egf, FLOOR)).astype(np.float32),
+    ]))
+
+
 def viterbi_tables(params: KernelParams) -> torch.Tensor:
-    """(91,) f32 CPU tensor of log tables: transitions (25, structure
-    zeros at ``NEG``) | match emissions (6, 6) (36) | gap emissions
-    (5, 6) (30), in the layout of ``ops.pairhmm.kernel_tables``.
+    """(91,) f32 CPU tensor of the byte plane's log tables: transitions
+    (25, structure zeros at ``NEG``) | match emissions (6, 6) (36) | gap
+    emissions (5, 6) (30), in the layout of ``ops.pairhmm.kernel_tables``.
 
     Derived anew from all three tables at every call: no cache keyed on
     a table's identity.
     """
-    tab = kernel_tables(params).numpy()
-    tf, emf, egf = tab[:25], tab[25:61], tab[61:]
-    floor = 1e-37
-    return torch.from_numpy(np.concatenate([
-        np.where(tf > 0, np.log(np.maximum(tf, floor)), NEG)
-        .astype(np.float32),
-        np.log(np.maximum(emf, floor)).astype(np.float32),
-        np.log(np.maximum(egf, floor)).astype(np.float32),
-    ]))
+    return _log_tables(params, True)
+
+
+def viterbi_full_tables(params: KernelParams) -> torch.Tensor:
+    """(91,) f32 CPU tensor of the full plane's log tables: those of
+    :func:`viterbi_tables` with every transition ``log(max(t, 1e-37))``,
+    a structure zero included (the XLA scan's)."""
+    return _log_tables(params, False)
 
 
 def viterbi_structure_ok(params: KernelParams) -> bool:
     """True when every gap state is entered only from match or itself
-    (the canonical fiveState structure the one-byte backpointer
-    represents)."""
+    (the canonical fiveState structure the byte plane represents); the
+    full plane serves every other model."""
     t = params.t.detach().to("cpu", torch.float64).reshape(5, 5).numpy()
     for dest in range(1, NUM_STATES):
         for src in range(NUM_STATES):
             if src not in (0, dest) and t[src, dest] > 0:
                 return False
     return True
-
-
-def require_canonical_structure(params: KernelParams) -> None:
-    """Raise ``ValueError`` for a model the one-byte backpointer cannot
-    represent (ROADMAP C7)."""
-    if not viterbi_structure_ok(params):
-        raise ValueError(
-            "model transition structure outside the canonical fiveState "
-            "form (gap states entered from match or self only): the "
-            "one-byte backpointer cannot represent it, and the port has no "
-            "other Viterbi (ROADMAP C7)"
-        )
-
-
-def _checked_tables(params: KernelParams) -> torch.Tensor:
-    require_canonical_structure(params)
-    return viterbi_tables(params)
 
 
 def short_step(tables: torch.Tensor) -> bool:
@@ -129,14 +146,14 @@ def short_step(tables: torch.Tensor) -> bool:
                for g in range(1, NUM_STATES))
 
 
-def kernel_attributes(W: int, short: bool = True) -> dict:
+def kernel_attributes(W: int, step: int = SHORT) -> dict:
     """The compiled kernel's registers, local-memory (spill) bytes per
     thread, static shared memory per block, and threads and reads per
-    block at band width ``W``, for the short or the 5-way step (needs the
-    card: builds the kernel)."""
+    block at band width ``W``, for its ``step`` (``SHORT``, ``FIVE_WAY``
+    or ``FULL``; needs the card: builds the kernel)."""
     lib = kb.library("viterbi", _SIG)
     vals = (ctypes.c_int * 5)()
-    kb.check(lib, lib.np_viterbi_attrs(W, int(short), vals), "viterbi attrs")
+    kb.check(lib, lib.np_viterbi_attrs(W, int(step), vals), "viterbi attrs")
     return dict(zip(("registers", "local_bytes", "static_smem", "threads",
                      "reads"), vals))
 
@@ -146,21 +163,25 @@ def viterbi_forward(xyc, m, n, params: KernelParams) -> dict:
 
     xyc (B, k_pad, W) int8, m / n (B,) int32 read / window lengths.
     Returns ``score`` (B,) f32, ``fstate`` (B,) int32 and ``bp``
-    (B, k_pad + 1, W) int8, row k = diagonal k (row 0 and the rows past
-    a read's end diagonal hold zeros).  CUDA tensors launch the kernel,
-    CPU tensors run the plain version.
+    (B, k_pad + 1, W), row k = diagonal k (row 0 and the rows past a
+    read's end diagonal hold zeros): the int8 byte plane for a model in
+    the canonical structure, else the int16 full plane.  CUDA tensors
+    launch the kernel, CPU tensors run the plain version.
     """
     _check_inputs(xyc, m, n)
     if xyc.device.type == "cpu":
         return viterbi_forward_plain(xyc, m, n, params)
-    tables = _checked_tables(params)
-    return _launch(xyc, m, n, tables, short_step(tables))
+    if viterbi_structure_ok(params):
+        tables = viterbi_tables(params)
+        return _launch(xyc, m, n, tables,
+                       SHORT if short_step(tables) else FIVE_WAY)
+    return _launch(xyc, m, n, viterbi_full_tables(params), FULL)
 
 
-def _launch(xyc, m, n, tables, short: bool) -> dict:
-    """The kernel on CUDA tensors with log ``tables``, at its short or
-    5-way step (:func:`viterbi_forward` picks it with :func:`short_step`);
-    one count per launch."""
+def _launch(xyc, m, n, tables, step: int) -> dict:
+    """The kernel on CUDA tensors with log ``tables`` at its ``step``
+    (:func:`viterbi_forward` picks it); one count per launch, on
+    ``FULL_LAUNCHES`` for the full plane, else on ``LAUNCHES``."""
     B, k_pad, W = xyc.shape
     if W not in KERNEL_BAND_WIDTHS:
         raise ValueError("viterbi kernel serves W in %s, got %d"
@@ -168,7 +189,8 @@ def _launch(xyc, m, n, tables, short: bool) -> dict:
     out = {
         "score": xyc.new_empty(B, dtype=torch.float32),
         "fstate": xyc.new_empty(B, dtype=torch.int32),
-        "bp": xyc.new_empty((B, k_pad + 1, W), dtype=torch.int8),
+        "bp": xyc.new_empty((B, k_pad + 1, W), dtype=torch.int16
+                            if step == FULL else torch.int8),
     }
     if B == 0:
         return out
@@ -176,19 +198,41 @@ def _launch(xyc, m, n, tables, short: bool) -> dict:
     with torch.cuda.device(xyc.device):
         rc = lib.np_viterbi_launch(
             ctypes.c_void_p(tables.data_ptr()), kb.ptr(xyc), kb.ptr(m),
-            kb.ptr(n), B, k_pad, W, int(short), kb.ptr(out["score"]),
+            kb.ptr(n), B, k_pad, W, int(step), kb.ptr(out["score"]),
             kb.ptr(out["fstate"]), kb.ptr(out["bp"]), kb.stream_of(xyc),
         )
     kb.check(lib, rc, "viterbi")
-    LAUNCHES.add()
+    (FULL_LAUNCHES if step == FULL else LAUNCHES).add()
     return out
 
 
 def viterbi_forward_plain(xyc, m, n, params: KernelParams) -> dict:
-    """The Viterbi in plain PyTorch: vectorised over batch, states and
-    band, one loop step per diagonal; the kernel's arithmetic in its
-    order."""
-    tab = _checked_tables(params).to(xyc.device)
+    """The Viterbi in plain PyTorch, on the plane :func:`viterbi_forward`
+    picks: the byte plane for a model in the canonical structure, else
+    :func:`viterbi_forward_full_plain`."""
+    if viterbi_structure_ok(params):
+        return plain_forward(xyc, m, n, viterbi_tables(params), full=False)
+    return viterbi_forward_full_plain(xyc, m, n, params)
+
+
+def viterbi_forward_full_plain(xyc, m, n, params: KernelParams) -> dict:
+    """The full plane in plain PyTorch, for any model: the XLA scan's
+    arithmetic in its order, on :func:`viterbi_full_tables`."""
+    return plain_forward(xyc, m, n, viterbi_full_tables(params), full=True)
+
+
+# the full plane's field of each state: p = sum_s b_s << 3s
+_FULL_SHIFTS = (0, 3, 6, 9, 12)
+# the byte plane's weight of each gap state's from-self bit
+_GAP_BITS = (0, 5, 10, 20, 40)
+
+
+def plain_forward(xyc, m, n, tables: torch.Tensor, full: bool) -> dict:
+    """The Viterbi recursion on log ``tables`` (:func:`viterbi_tables` or
+    :func:`viterbi_full_tables`), vectorised over batch, states and band,
+    one loop step per diagonal: the kernel's arithmetic in its order,
+    writing the full plane (``full``) or the byte plane."""
+    tab = tables.to(xyc.device)
     B, k_pad, W = xyc.shape
     dev = xyc.device
     f32 = torch.float32
@@ -204,10 +248,11 @@ def viterbi_forward_plain(xyc, m, n, params: KernelParams) -> dict:
     prevprev = torch.full((B, NUM_STATES, W), NEG, dtype=f32, device=dev)
     score = torch.full((B,), NEG, dtype=f32, device=dev)
     fstate = torch.zeros(B, dtype=torch.int32, device=dev)
-    bp = torch.zeros((B, k_pad + 1, W), dtype=torch.int8, device=dev)
+    bp = torch.zeros((B, k_pad + 1, W),
+                     dtype=torch.int16 if full else torch.int8, device=dev)
     zero_i = torch.zeros((B, NUM_STATES, W), dtype=torch.int32, device=dev)
-    gap_bits = torch.tensor([0, 5, 10, 20, 40], dtype=torch.int32,
-                            device=dev)[None, :, None]
+    weights = torch.tensor(_FULL_SHIFTS if full else _GAP_BITS,
+                           dtype=torch.int32, device=dev)[None, :, None]
     for k in range(1, k_pad + 1):
         c = codes[:, k - 1]
         x = (c >> 3) & 7
@@ -238,10 +283,12 @@ def viterbi_forward_plain(xyc, m, n, params: KernelParams) -> dict:
         v = _shift(v, S, NEG, base)
         b = _shift(b, S, 0, base)
         new = torch.maximum(v + emit, neg)
-        # p = bM + 5 tD1 + 10 tI1 + 20 tD2 + 40 tI2
-        p = b[:, 0] + ((b[:, 1:] != 0).to(torch.int32)
-                       * gap_bits[:, 1:]).sum(dim=1)
-        bp[:, k] = p.to(torch.int8)
+        if full:  # p = bM + bD1 << 3 + bI1 << 6 + bD2 << 9 + bI2 << 12
+            p = (b << weights).sum(dim=1)
+        else:  # p = bM + 5 tD1 + 10 tI1 + 20 tD2 + 40 tI2
+            p = b[:, 0] + ((b[:, 1:] != 0).to(torch.int32)
+                           * weights[:, 1:]).sum(dim=1)
+        bp[:, k] = p.to(bp.dtype)
         v_end = new[:, 0, 0]
         s_end = zero_i[:, 0, 0]
         for s in range(1, NUM_STATES):

@@ -269,10 +269,17 @@ def test_viterbi_decode_is_not_ported(mapped):
 
 def test_unported_paths_raise(mapped):
     """A model outside the canonical fiveState structure (gap state 2
-    entered from gap state 1, as in tests/test_viterbi.py) raises
-    ``ValueError`` naming ROADMAP C7, in the plain Viterbi and through
-    ``prepared_from_pairs``: the port has no XLA scan to give way to."""
+    entered from gap state 1, as in tests/test_viterbi.py) is served (the
+    name is the one this test had when it checked the refusal of ROADMAP
+    C7): the plain Viterbi gives it the int16 full plane, and through
+    ``prepared_from_pairs`` it decodes to the JAX package's XLA route
+    (scores 1e-5 relative, the same cigars).  The canonical model passes
+    through the same call on the int8 byte plane."""
+    from nanopore_tpu.ops import dispatch as jax_dispatch
+    from nanopore_tpu.ops.pairhmm import make_kernel_params as jax_params
+    from nanopore_tpu.align.model import PairHmmModel as JaxModel
     from nanopore_tpu_torch.ops import dispatch
+    from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
     from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
     from nanopore_tpu_torch.ops.viterbi import viterbi_forward_plain
 
@@ -281,21 +288,29 @@ def test_unported_paths_raise(mapped):
     t[1, 2] = 0.05
     t[1] /= t[1].sum()
     bad = params_from_numpy(t, params.e_match_flat, params.e_gap_flat)
+    jp = jax_params(JaxModel.default())
+    jp = jp._replace(t=np.asarray(t, np.float32))
     rng = np.random.default_rng(0)
     x = rng.integers(0, 4, 40).astype(np.int8)
     pairs = [(x, x[:30].copy(), [(0, 30), (2, 10)])]
-    xyc = torch.zeros((1, 128, 8), dtype=torch.int8)
-    m = torch.tensor([30], dtype=torch.int32)
-    n = torch.tensor([40], dtype=torch.int32)
-    with pytest.raises(ValueError, match="C7"):
-        viterbi_forward_plain(xyc, m, n, bad)
-    with pytest.raises(ValueError, match="C7"):
-        dispatch.prepared_from_pairs(
-            {"device": "cpu"}, pairs, bad, band_width=8,
-            prepared_cls=dispatch.PreparedViterbi,
-        )
+    prep = pack_stream_pairs(pairs, 8, 128)
+    m, n = torch.from_numpy(prep["m"]), torch.from_numpy(prep["n"])
+    xyc = pack_xyc(torch.from_numpy(prep["stream"]),
+                   torch.from_numpy(prep["initx"]), m, n)
+    assert viterbi_forward_plain(xyc, m, n, bad)["bp"].dtype == torch.int16
+    scores, cigars = dispatch.prepared_from_pairs(
+        {"device": "cpu"}, pairs, bad, band_width=8,
+        prepared_cls=dispatch.PreparedViterbi,
+    ).decode()
+    want_scores, want = jax_dispatch.prepared_from_pairs(
+        {}, pairs, jp, band_width=8,
+        prepared_cls=jax_dispatch.PreparedViterbi,
+    ).decode()
+    np.testing.assert_allclose(scores, want_scores, rtol=1e-5)
+    assert [list(c) for c in cigars] == [list(c) for c in want]
     # the canonical model passes through the same call
-    dispatch.prepared_from_pairs(
+    out = dispatch.prepared_from_pairs(
         {"device": "cpu"}, pairs, params, band_width=8,
         prepared_cls=dispatch.PreparedViterbi,
-    )
+    ).run()
+    assert out["bp"].dtype == torch.int8

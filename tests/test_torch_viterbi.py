@@ -16,8 +16,11 @@ mixed lengths), packed by each package, at W = 8 and W = 32:
   gives, after ``rle_ops_batch``, the cigars of ``viterbi_traceback_batch``
   and of the Pallas walker in interpret mode;
 * the structure guard: ``viterbi_structure_ok`` agrees with the JAX
-  package's on the shipped models, and a model outside the canonical
-  fiveState structure raises ``ValueError`` (ROADMAP C7).
+  package's on the shipped models and on a model outside the canonical
+  fiveState structure, and picks the plane: the int8 byte plane for a
+  canonical model (its bits those held above), the int16 full plane for
+  the other (``tests/test_torch_viterbi_full.py`` holds that plane
+  against the XLA scan).
 
 Each test builds its JAX ``KernelParams`` afresh: the JAX package keeps a
 table cache keyed on the transition table's identity.
@@ -205,6 +208,35 @@ def test_walker_matches_jax_walkers_on_the_pallas_plane(case):
         assert (ops[b] != OP_NONE).sum() == sum(ln for _, ln in got[b])
 
 
+def test_canonical_model_keeps_the_byte_plane(case):
+    """The default model (canonical) takes the int8 byte plane through
+    every route (``viterbi_forward``, ``PreparedViterbi``), the bits
+    ``test_plain_matches_pallas_interpret`` holds against the Pallas
+    kernel, and the full plane's tables are not its tables."""
+    from nanopore_tpu_torch.ops.viterbi import viterbi_full_tables
+
+    params = make_kernel_params(PairHmmModel.default())
+    assert viterbi_structure_ok(params)
+    got = case["got"]
+    assert got["bp"].dtype == torch.int8
+    a = viterbi_forward(case["xyc"], case["m"], case["n"], params)
+    prep = dispatch.prepared_from_pairs(
+        {"device": "cpu"}, case["pairs"], params, band_width=case["W"],
+        k_max=case["batch"].k_max, prepared_cls=dispatch.PreparedViterbi)
+    b = prep.run()
+    for key in ("score", "fstate", "bp"):
+        assert torch.equal(a[key], got[key])
+    # the dispatch lays a band of width 8 into 32 lanes: the live lanes
+    # hold the unpadded band's bits
+    W, K1 = case["W"], got["bp"].shape[1]
+    assert b["bp"].dtype == torch.int8
+    assert torch.equal(b["score"], got["score"])
+    assert torch.equal(b["fstate"], got["fstate"])
+    assert torch.equal(b["bp"][:, :K1, :W], got["bp"])
+    assert (viterbi_tables(params)[:25] == NEG).any()
+    assert not (viterbi_full_tables(params)[:25] == NEG).any()
+
+
 def test_wrappers_route_cpu_tensors_to_plain_and_check_inputs(case):
     params = make_kernel_params(PairHmmModel.default())
     a = viterbi_forward(case["xyc"], case["m"], case["n"], params)
@@ -260,6 +292,13 @@ def _noncanonical(params):
 @pytest.mark.parametrize("name", [None, "blasr_hmm_0.txt", "blasr_hmm_20.txt",
                                   "blasr_hmm_40.txt", "noncanonical"])
 def test_structure_guard_agrees_with_jax(name):
+    """The guard agrees with the JAX package's, and where the JAX package
+    sends a model to its Pallas kernel (canonical) or its XLA scan (the
+    other) the port takes the byte plane or the full plane: through
+    ``prepared_from_pairs`` on the CPU, the plane of that dtype, and the
+    non-canonical model's cigars those of the JAX package's route."""
+    from nanopore_tpu.ops import dispatch as jax_dispatch
+
     if name in (None, "noncanonical"):
         jm, pm = JaxModel.default(), PairHmmModel.default()
     else:
@@ -272,12 +311,19 @@ def test_structure_guard_agrees_with_jax(name):
                                pp.e_gap_flat)
     assert viterbi_structure_ok(pp) is ppv.viterbi_structure_ok(jp)
     assert viterbi_structure_ok(pp) is (name != "noncanonical")
+    pairs = mixed_pairs(np.random.default_rng(41))[:2]
+    prep = dispatch.prepared_from_pairs({"device": "cpu"}, pairs, pp,
+                                        band_width=8,
+                                        prepared_cls=dispatch.PreparedViterbi)
+    bp = prep.run()["bp"]
+    assert bp.dtype == (torch.int16 if name == "noncanonical" else torch.int8)
     if name == "noncanonical":
-        pairs = mixed_pairs(np.random.default_rng(41))[:2]
-        with pytest.raises(ValueError, match="C7"):
-            dispatch.prepared_from_pairs({"device": "cpu"}, pairs, pp,
-                                         band_width=8,
-                                         prepared_cls=dispatch.PreparedViterbi)
+        scores, cigars = prep.decode()
+        want_scores, want = jax_dispatch.prepared_from_pairs(
+            {}, pairs, jp, band_width=8,
+            prepared_cls=jax_dispatch.PreparedViterbi).decode()
+        np.testing.assert_allclose(scores, want_scores, rtol=1e-5)
+        assert [list(c) for c in cigars] == [list(c) for c in want]
 
 
 # ---- ragged batches, as the walker kernel sees them: those of
