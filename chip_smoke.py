@@ -270,14 +270,43 @@
    full-plane Viterbi and walk launched, nothing else (the byte-plane
    Viterbi and walker 0).  In every earlier run the full-plane counters
    must be 0: no canonical model takes the full plane.
-15. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
+15. Band widths 65 to 128 (ROADMAP C10), in the child of step 8 after
+   step 14 (``chip_smoke.py --wide`` runs this step alone): the MEA
+   path's kernels at W = 128 (C = 4 band cells a lane); the Viterbi and
+   forward-only kernels serve 2 to 64.  The W = 128 instantiations'
+   registers, local memory and shared memory are printed after the
+   build.  On step 3's mapping batch (512 reads, the full band of 128
+   lanes): the pack byte-identical and the walker's ops identical on
+   every read, the decode to step 3's bars on the first 128 reads at the
+   full diagonal count, in as many launches as its workspace plan (the
+   8 GiB cap: two at this width); each timed on the whole batch.
+   ``MappingEngine(band_width=128)`` (MEA decode) on the mapping
+   workload, cold then warm, every counter set to 0 before the warm run:
+   >= 99 % of primaries at their origin; pack, realign and traceback
+   launched, nothing else; and on 32 of its reads on the card and with
+   ``device="cpu"``: records equal, the same launches.  On step 13's 64
+   reads at live width 96 in W = 128: every realign mode, the pack and
+   the MEA walker against their plain versions to step 13's bars, the
+   dead lanes checked, each timed at w = 96 and on the same reads at the
+   full 128.  Then, each with every counter set to 0 just before:
+   ``cli realign --band-width 96`` on step 13's 8 records against
+   ``--device cpu`` (records identical; pack, realign and traceback
+   launched, nothing else); ``em_train`` at ``EmOptions(band_width=96,
+   trials=1, iterations=2)`` on 16 chained reads against the CPU (3e-5
+   relative); ``MappingEngine(band_width=96, decode="viterbi")`` on the
+   card must raise naming C10 with every counter still 0.
+16. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
    ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
    ``launches_distributed_path``, the sum over the two ranks, a
-   ``launches_widths_realign_path``, a ``launches_widths_em_path`` and a
-   ``launches_full_plane_path`` on every row, and step 13's ``*_w21``
-   and ``*_w48`` numbers; ``viterbi_full`` and ``viterbi_traceback_full``
-   the full-plane modes of the Viterbi kernel and its walker) and,
-   last, ``{"ok": true, "device": {...}}``.
+   ``launches_widths_realign_path``, a ``launches_widths_em_path``, a
+   ``launches_full_plane_path`` and step 15's ``launches_wide_map_path``,
+   ``launches_wide_engine_path``, ``launches_wide_realign_path``,
+   ``launches_wide_em_path`` and ``launches_wide_viterbi_refusal_path``
+   on every row, step 13's ``*_w21`` and ``*_w48`` numbers and step
+   15's ``*_w96`` and ``*_w128`` numbers and W = 128 attributes;
+   ``viterbi_full`` and ``viterbi_traceback_full`` the full-plane modes
+   of the Viterbi kernel and its walker) and, last, ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, without a CUDA device or without the
@@ -317,6 +346,10 @@ WIDTH_EM_READS = 16
 # phase 14: reads of the mapping workload the Viterbi engine maps with a
 # non-canonical model, card against CPU
 FULL_ENGINE_READS = 32
+# phase 15: band widths 65 to 128 in the W = 128 kernels of the MEA path
+WIDE_W = 128
+WIDE_LIVE = 96  # a live width with dead lanes (96..127)
+WIDE_ENGINE_READS = 32  # reads the engine maps on the card and the CPU
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -2704,19 +2737,23 @@ def live_batch(pairs, w: int, dev, lanes=None):
         stream, initx)
 
 
-def width_kernel_checks(pairs, w: int, dev, res: dict) -> None:
+def width_kernel_checks(pairs, w: int, dev, res: dict,
+                        phase: str = "phase 13") -> None:
     """Every kernel against its plain version on a band of live width
     ``w`` in the padded layout, timed there and as a band of the
-    layout's full width; into ``res[kernel]`` under ``*_w<w>``."""
+    layout's full width; into ``res[kernel]`` under ``*_w<w>``.  Above
+    64 (the W = 128 layout) only the MEA path's kernels: the card's
+    Viterbi and forward-only kernels serve W = 32 and 64 (ROADMAP C10)."""
     import torch
 
     from nanopore_tpu_torch.align.em import representable
     from nanopore_tpu_torch.align.model import PairHmmModel
-    from nanopore_tpu_torch.ops.forward import (
-        forward_loglik,
-        forward_loglik_plain,
+    from nanopore_tpu_torch.ops.pack import (
+        SENT,
+        VITERBI_BAND_WIDTHS,
+        pack_xyc,
+        pack_xyc_plain,
     )
-    from nanopore_tpu_torch.ops.pack import SENT, pack_xyc, pack_xyc_plain
     from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
     from nanopore_tpu_torch.ops.realign import (
         DIR_NONE,
@@ -2729,16 +2766,7 @@ def width_kernel_checks(pairs, w: int, dev, res: dict) -> None:
         realign_gamma,
         realign_gamma_plain,
     )
-    from nanopore_tpu_torch.ops.traceback import (
-        mea_walk,
-        mea_walk_plain,
-        viterbi_walk,
-        viterbi_walk_plain,
-    )
-    from nanopore_tpu_torch.ops.viterbi import (
-        viterbi_forward,
-        viterbi_forward_plain,
-    )
+    from nanopore_tpu_torch.ops.traceback import mea_walk, mea_walk_plain
 
     t0 = time.perf_counter()
     tag = "_w%d" % w
@@ -2748,8 +2776,8 @@ def width_kernel_checks(pairs, w: int, dev, res: dict) -> None:
     need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     # the same reads as a band of the layout's full width
     fx, fm, fn_, fprep, (fstream, finitx) = live_batch(pairs, W_, dev)
-    print("phase 13, w = %d in W = %d: B=%d k_pad=%d (full width: k_pad %d)"
-          % (w, W_, B, k_pad, fprep["k_pad"]))
+    print("%s, w = %d in W = %d: B=%d k_pad=%d (full width: k_pad %d)"
+          % (phase, w, W_, B, k_pad, fprep["k_pad"]))
     dflt = make_kernel_params(PairHmmModel.default())
     # EM under a random restart, as em_train draws it
     rand = make_kernel_params(PairHmmModel.random(np.random.default_rng(SEED)))
@@ -2886,7 +2914,36 @@ def width_kernel_checks(pairs, w: int, dev, res: dict) -> None:
         plain_ms, err, REALIGN_EXP_OPS_PER_CELL,
         B * k_pad * w + B * (k_pad + 1) * 16 + B * 4 * w * 4 + 12 * B)
 
-    # K4 and K5; K6
+    if w <= VITERBI_BAND_WIDTHS[-1]:
+        viterbi_width_rows(xyc, m, n, dflt, w, need, prep["offsets"],
+                           (fx, fm, fn_), row)
+    for name, r in rows.items():
+        res.setdefault(name, {}).update(r)
+    print("%s, w = %d: %.1f s" % (phase, w, time.perf_counter() - t0))
+
+
+def viterbi_width_rows(xyc, m, n, dflt, w: int, need: int, offsets, full,
+                       row) -> None:
+    """K4, K5 and K6 against their plain versions on phase 13's band of
+    live width ``w``, timed there and on ``full`` (the same reads as a
+    band of the layout's full width); each row through ``row``."""
+    import torch
+
+    from nanopore_tpu_torch.ops.forward import (
+        forward_loglik,
+        forward_loglik_plain,
+    )
+    from nanopore_tpu_torch.ops.traceback import (
+        viterbi_walk,
+        viterbi_walk_plain,
+    )
+    from nanopore_tpu_torch.ops.viterbi import (
+        viterbi_forward,
+        viterbi_forward_plain,
+    )
+
+    B, k_pad = xyc.shape[:2]
+    fx, fm, fn_ = full
     out_k = viterbi_forward(xyc, m, n, dflt)
     out_p, plain_ms = timed(lambda: viterbi_forward_plain(xyc, m, n, dflt))
     sc_rel = rel_err(out_k["score"], out_p["score"])
@@ -2906,7 +2963,7 @@ def width_kernel_checks(pairs, w: int, dev, res: dict) -> None:
     walk_p, plain_ms = timed(lambda: viterbi_walk_plain(bp, xyc, m, n, fs))
     if not all(torch.equal(a, b) for a, b in zip(walk_k, walk_p)):
         fail("Viterbi walker at w=%d differs from its plain version" % w)
-    left = walks_leaving(walk_k[0].cpu().numpy(), prep["offsets"], w)
+    left = walks_leaving(walk_k[0].cpu().numpy(), offsets, w)
     print("  viterbi_traceback w=%d: ops and end cells identical, walks "
           "short of the origin %d, walks leaving the live band %d"
           % (w, int(walk_k[1].any(1).sum()), left))
@@ -2931,9 +2988,6 @@ def width_kernel_checks(pairs, w: int, dev, res: dict) -> None:
         cuda_ms(lambda: forward_loglik(fx, fm, fn_, dflt), 5, warmup=False),
         plain_ms, float((ll_k - ll_p).abs().max()),
         FORWARD_SHORT_OPS_PER_CELL, B * k_pad * w + 12 * B)
-    for name, r in rows.items():
-        res.setdefault(name, {}).update(r)
-    print("phase 13, w = %d: %.1f s" % (w, time.perf_counter() - t0))
 
 
 def walks_leaving(ops, offsets, w: int) -> int:
@@ -2952,21 +3006,17 @@ def walks_leaving(ops, offsets, w: int) -> int:
     return left
 
 
-def widths_phase(workdir: str, dev, counters) -> dict:
-    """Phase 13 (its checks in the docstring's step 13): returns the
-    kernels' ``*_w<w>`` numbers and the launches of the ``realign`` and
-    ``em_train`` runs."""
-    import torch
-
-    from nanopore_tpu_torch import cli
+def width_workload(workdir: str, dev) -> dict:
+    """Phase 13's reads (its checks in the docstring's step 13), which
+    phase 15 takes too: 80 reads of 700-1300 bases on the 48,502-bp
+    reference, mapped with ``LastParams`` and chained; the 64 whose
+    windows of pad 128 miss the reference's far end.  Returns the paths
+    (``fa``, ``fq``, the mapping ``sam``), their chained records and
+    their (window, read, guide) pairs."""
     from nanopore_tpu_torch.align.chain_sam import chain_sam_file
-    from nanopore_tpu_torch.align.em import EmOptions, em_train
-    from nanopore_tpu_torch.io.encoding import encode
     from nanopore_tpu_torch.io.sam import SamReader
-    from nanopore_tpu_torch.io.seqio import read_fasta_dict
     from nanopore_tpu_torch.mapping.runner import run_mapper
 
-    t_phase = time.perf_counter()
     wdir = os.path.join(workdir, "widths")
     fa, fq = write_workload(wdir, EM_REF_LEN, WIDTH_READS + 16,
                             WIDTH_READ_LENS)
@@ -2983,57 +3033,79 @@ def widths_phase(workdir: str, dev, counters) -> dict:
         fail("phase 13: %d of %d chained reads off the far end"
              % (len(near), len(pairs)))
     every = list(SamReader(chained).mapped())
-    recs = [every[i] for i in near]
-    pairs = [pairs[i] for i in near]
-    res = {}
-    for w in LIVE_WIDTHS:
-        width_kernel_checks(pairs, w, dev, res)
+    return {"dir": wdir, "fa": fa, "fq": fq, "sam": sam,
+            "recs": [every[i] for i in near],
+            "pairs": [pairs[i] for i in near]}
 
-    # the realign subcommand at the reference's production band, on reads
-    # on both sides of 1,000 bases (two window shapes: two batches)
+
+def realign_cli_check(wl: dict, w: int, counters, phase: str) -> dict:
+    """``cli realign --band-width w`` on 8 of the workload's records (4
+    shorter than 1,000 bases, 4 longer: two window shapes, so two
+    batches), every counter set to 0 just before, against the same
+    command with ``--device cpu``: records identical; pack, realign and
+    traceback launched more than once, nothing else.  Returns the
+    launches."""
+    import torch
+
+    from nanopore_tpu_torch import cli
+    from nanopore_tpu_torch.io.sam import SamReader
+
+    recs, wdir = wl["recs"], wl["dir"]
     short = [r.qname for r in recs if len(r.seq) < 1000][:WIDTH_CLI_RECORDS]
     long_ = [r.qname for r in recs if len(r.seq) > 1100][:WIDTH_CLI_RECORDS]
     keep = set(short + long_)
     sub = os.path.join(wdir, "subset.sam")
-    with open(sam) as src, open(sub, "w") as dst:
+    with open(wl["sam"]) as src, open(sub, "w") as dst:
         for line in src:
             if line.startswith("@") or line.split("\t", 1)[0] in keep:
                 dst.write(line)
-    out_k, out_c = (os.path.join(wdir, "realign_w21_%s.sam" % d)
+    out_k, out_c = (os.path.join(wdir, "realign_w%d_%s.sam" % (w, d))
                     for d in ("card", "cpu"))
-    runs = {}
+    args = [sub, wl["fq"], wl["fa"]]
     torch.cuda.synchronize()
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
-    cli.main(["realign", sub, fq, fa, out_k, "--band-width", "21"])
+    cli.main(["realign", *args, out_k, "--band-width", str(w)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    runs["widths_realign"] = r = {c.name: c.count for c in counters}
+    r = {c.name: c.count for c in counters}
     t0 = time.perf_counter()
-    cli.main(["realign", sub, fq, fa, out_c, "--band-width", "21",
+    cli.main(["realign", *args, out_c, "--band-width", str(w),
               "--device", "cpu"])
     cpu_wall = time.perf_counter() - t0
     got, want = (list(SamReader(p)) for p in (out_k, out_c))
     same = [(a.qname, a.pos, a.cigar) for a in got] == [
         (a.qname, a.pos, a.cigar) for a in want]
-    print("phase 13: realign --band-width 21 on %d records (%d short, %d "
-          "long): %.3f s on the card, %.1f s on the CPU; records %s; "
-          "launches %s" % (len(got), len(short), len(long_), wall, cpu_wall,
-                           "identical" if same else "DIFFERENT", r))
+    print("%s: realign --band-width %d on %d records (%d short, %d long): "
+          "%.3f s on the card, %.1f s on the CPU; records %s; launches %s"
+          % (phase, w, len(got), len(short), len(long_), wall, cpu_wall,
+             "identical" if same else "DIFFERENT", r))
     if len(got) != len(keep) or not same:
-        fail("realign --band-width 21: the card's records differ from the "
-             "CPU's")
+        fail("realign --band-width %d: the card's records differ from the "
+             "CPU's" % w)
     if min(r[k] for k in ("pack", "realign", "traceback")) < 2 or any(
             v for k, v in r.items() if k not in ("pack", "realign",
                                                  "traceback")):
-        fail("realign --band-width 21 launches: %s" % r)
+        fail("realign --band-width %d launches: %s" % (w, r))
+    return r
 
-    # EM at w = 48 on the card against the CPU
-    ref = {k: encode(v) for k, v in read_fasta_dict(fa).items()}
+
+def em_width_check(wl: dict, w: int, dev, counters, phase: str) -> dict:
+    """``em_train`` at ``EmOptions(band_width=w, trials=1,
+    iterations=2)`` on 16 of the workload's chained reads, every counter
+    set to 0 just before, against the CPU: the model within 3e-5
+    relative.  Returns the launches."""
+    import torch
+
+    from nanopore_tpu_torch.align.em import EmOptions, em_train
+    from nanopore_tpu_torch.io.encoding import encode
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+
+    ref = {k: encode(v) for k, v in read_fasta_dict(wl["fa"]).items()}
     em_pairs = [(ref[rec.rname], encode(rec.seq), rec.cigar)
-                for rec in recs[:WIDTH_EM_READS]]
-    opts = EmOptions(band_width=48, trials=1, iterations=2,
+                for rec in wl["recs"][:WIDTH_EM_READS]]
+    opts = EmOptions(band_width=w, trials=1, iterations=2,
                      batch_size=WIDTH_EM_READS)
     torch.cuda.synchronize()
     for c in counters:
@@ -3042,7 +3114,7 @@ def widths_phase(workdir: str, dev, counters) -> dict:
     card = em_train(em_pairs, opts, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    runs["widths_em"] = r = {c.name: c.count for c in counters}
+    r = {c.name: c.count for c in counters}
     t0 = time.perf_counter()
     host = em_train(em_pairs, opts, device="cpu")
     cpu_wall = time.perf_counter() - t0
@@ -3050,16 +3122,32 @@ def widths_phase(workdir: str, dev, counters) -> dict:
         float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
         for a, b in ((card.model.transitions, host.model.transitions),
                      (card.model.emissions, host.model.emissions)))
-    print("phase 13: em_train at w = 48 (1 trial x 2 iterations, %d reads): "
+    print("%s: em_train at w = %d (1 trial x 2 iterations, %d reads): "
           "%.3f s on the card, %.1f s on the CPU; model max relative "
           "difference %.3g; running likelihoods %s and %s; launches %s"
-          % (len(em_pairs), wall, cpu_wall, diff,
+          % (phase, w, len(em_pairs), wall, cpu_wall, diff,
              card.running_likelihoods[0], host.running_likelihoods[0], r))
     if diff > 3e-5:
-        fail("EM at w = 48: the card's model differs from the CPU's by %.3g"
-             % diff)
+        fail("EM at w = %d: the card's model differs from the CPU's by %.3g"
+             % (w, diff))
     if min(r[k] for k in ("pack", "realign_em")) <= 0:
-        fail("EM at w = 48 launches: %s" % r)
+        fail("EM at w = %d launches: %s" % (w, r))
+    return r
+
+
+def widths_phase(wl: dict, dev, counters) -> dict:
+    """Phase 13 (its checks in the docstring's step 13) on
+    :func:`width_workload`'s reads: returns the kernels' ``*_w<w>``
+    numbers and the launches of the ``realign`` and ``em_train`` runs."""
+    t_phase = time.perf_counter()
+    res = {}
+    for w in LIVE_WIDTHS:
+        width_kernel_checks(wl["pairs"], w, dev, res)
+    runs = {
+        # the realign subcommand at the reference's production band
+        "widths_realign": realign_cli_check(wl, 21, counters, "phase 13"),
+        "widths_em": em_width_check(wl, 48, dev, counters, "phase 13"),
+    }
     print("phase 13 wall: %.1f s" % (time.perf_counter() - t_phase))
     return {"res": res, "runs": runs}
 
@@ -3134,7 +3222,6 @@ def full_plane_phase(engine, pairs, fa: str, fq: str, dev, counters,
     import torch
 
     from nanopore_tpu_torch.align.model import PairHmmModel
-    from nanopore_tpu_torch.io.sam import SamReader
     from nanopore_tpu_torch.mapping.engine import MappingEngine
     from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
     from nanopore_tpu_torch.io.seqio import read_fasta_dict
@@ -3293,12 +3380,7 @@ def full_plane_phase(engine, pairs, fa: str, fq: str, dev, counters,
               "decode=\"viterbi\") on %d reads, %s: %.3f s"
               % (FULL_ENGINE_READS, where, time.perf_counter() - t0))
 
-    def records(path):
-        return [(r.qname, r.flag, r.rname, r.pos, r.mapq, r.cigar, r.seq,
-                 dict((tg[0], tg[2]) for tg in r.tags).get("AS"))
-                for r in SamReader(path)]
-
-    got, want = records(sams["cuda"]), records(sams["cpu"])
+    got, want = engine_records(sams["cuda"]), engine_records(sams["cpu"])
     share = sum(1 for r in got if not r[1] & 0x904 and bool(r[1] & 0x10) == bool(
         int(r[0].split("_")[2])) and abs(r[3] - int(r[0].split("_")[1])) <= 100)
     print("phase 14: %d records on the card, %s the CPU's; primaries at their "
@@ -3315,6 +3397,306 @@ def full_plane_phase(engine, pairs, fa: str, fq: str, dev, counters,
              "walker > 0, the rest 0" % run)
     print("phase 14 wall: %.1f s" % (time.perf_counter() - t_phase))
     return run
+
+
+# ---- phase 15: band widths 65 to 128 in the W = 128 kernels (MEA path) ---- #
+
+def wide_attributes() -> dict:
+    """Print the W = 128 instantiations' registers, local-memory (spill)
+    bytes, shared memory a block and warps a read (pack, each realign
+    mode, the MEA walker); returns them under ``*_w128`` by kernel."""
+    from nanopore_tpu_torch.ops import pack, realign, traceback
+
+    tag = "_w%d" % WIDE_W
+    attrs = {}
+    for mode, a in realign.kernel_attributes(WIDE_W).items():
+        print("realign %s W=%d: %d registers, %d bytes of local memory "
+              "(spills) a thread, %d + %d bytes of static + dynamic shared "
+              "memory a block of %d threads and %d read(s)"
+              % (mode, WIDE_W, a["registers"], a["local_bytes"],
+                 a["static_smem"], a["dynamic_smem"], a["threads"],
+                 a["reads"]))
+        attrs["realign" if mode == "decode" else "realign_" + mode] = {
+            "registers" + tag: a["registers"],
+            "local_bytes" + tag: a["local_bytes"],
+            "smem_block" + tag: a["static_smem"] + a["dynamic_smem"],
+            "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
+        }
+    a = pack.kernel_attributes(WIDE_W)
+    print("pack W=%d: %d registers, %d bytes of local memory a thread, %d "
+          "bytes of static shared memory a block of %d threads (one read)"
+          % (WIDE_W, a["registers"], a["local_bytes"], a["static_smem"],
+             a["threads"]))
+    attrs["pack"] = {"registers" + tag: a["registers"],
+                     "local_bytes" + tag: a["local_bytes"],
+                     "smem_block" + tag: a["static_smem"],
+                     "warps_per_read" + tag: a["threads"] // 32}
+    smem = traceback.walker_shared_memory(WIDE_W)["traceback"]
+    print("MEA walker W=%d: %d bytes of dynamic shared memory a block of 4 "
+          "reads" % (WIDE_W, smem))
+    attrs["traceback"] = {"smem_block" + tag: smem}
+    return attrs
+
+
+def wide_batch_checks(pairs, params, dev, res: dict) -> None:
+    """K1, K2 decode and K3 at W = 128 on the mapping main path's batch
+    (its 512 reads as a band of all 128 lanes, the diagonal count the
+    engine gives it), each against its plain version to the bars of step
+    3: the pack and the walker on every read, the decode on the first
+    PLAIN_READS at the full diagonal count (a read's outputs do not
+    depend on its batch); each timed on the whole batch, into
+    ``res[kernel]`` under ``*_w128``."""
+    import torch
+
+    from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
+    from nanopore_tpu_torch.ops import realign
+    from nanopore_tpu_torch.ops.dispatch import _pairs_k_max
+    from nanopore_tpu_torch.ops.pack import (
+        pack_stream_pairs,
+        pack_xyc,
+        pack_xyc_plain,
+    )
+    from nanopore_tpu_torch.ops.traceback import (
+        mea_walk,
+        mea_walk_plain,
+        rle_ops_batch,
+    )
+
+    t0 = time.perf_counter()
+    tag = "_w%d" % WIDE_W
+    cfg = MAPPER_REGISTRY["LastParams"].config
+    gg, mg = cfg.gap_gamma, cfg.match_gamma
+    prep = pack_stream_pairs(pairs, WIDE_W, _pairs_k_max(pairs, None))
+    B, k_pad, P = prep["B"], prep["k_pad"], PLAIN_READS
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    m, n = put(prep["m"]), put(prep["n"])
+    stream, initx = put(prep["stream"]), put(prep["initx"])
+    kend = prep["k_end"]
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    rows = {}
+
+    def row(name, ms, plain_ms, plain_reads, err, bound, by, per_batch):
+        rows[name] = {"ms" + tag: ms, "plain_ms" + tag: plain_ms,
+                      "plain_reads" + tag: plain_reads,
+                      "max_abs_err" + tag: err, "bound_ms" + tag: bound,
+                      "bound_by" + tag: by, "per_batch" + tag: per_batch,
+                      "reads" + tag: B, "k_pad" + tag: k_pad}
+        print("  %s W=%d: %.3f ms per batch of %d in %d launch(es), bound "
+              "%.4f ms (%s), plain %.1f ms on %d reads, max abs err %.3g"
+              % (name, WIDE_W, ms, B, per_batch, bound, by, plain_ms,
+                 plain_reads, err))
+
+    print("phase 15, the mapping batch at W = %d: B=%d k_pad=%d"
+          % (WIDE_W, B, k_pad))
+    xyc = pack_xyc(stream, initx, m, n)
+    xyc_p, plain_ms = timed(lambda: pack_xyc_plain(stream, initx, m, n))
+    if not torch.equal(xyc, xyc_p):
+        fail("pack kernel at W=%d differs from its plain version" % WIDE_W)
+    del xyc_p
+    row("pack", cuda_ms(lambda: pack_xyc(stream, initx, m, n), 10), plain_ms,
+        B, 0.0, (B * k_pad + B * WIDE_W + 8 * B + B * k_pad * WIDE_W)
+        / HBM_BYTES_PER_S * 1e3, "bytes", 1)
+
+    out_k = realign.realign_decode(xyc, m, n, params, gg, mg, kend=kend)
+    out_p, plain_ms = timed(lambda: realign.realign_decode_plain(
+        xyc[:P], m[:P], n[:P], params, gg, mg))
+    for key in ("loglik", "score"):
+        if not bool(torch.isfinite(out_k[key]).all()):
+            fail("non-finite realign %s at W=%d" % (key, WIDE_W))
+    ll_rel = rel_err(out_k["loglik"][:P], out_p["loglik"])
+    sc_rel = rel_err(out_k["score"][:P], out_p["score"])
+    err = float(torch.maximum(
+        (out_k["loglik"][:P] - out_p["loglik"]).abs().max(),
+        (out_k["score"][:P] - out_p["score"]).abs().max()))
+    dirs = out_k["dirs"]
+    dirs_rows = int((dirs[:P] != out_p["dirs"]).flatten(1).any(1).sum())
+    ops_k = mea_walk(dirs, xyc, m, n)
+    cig_k = rle_ops_batch(ops_k[:P].cpu().numpy())
+    cig_p = rle_ops_batch(mea_walk(out_p["dirs"], xyc[:P], m[:P], n[:P])
+                          .cpu().numpy())
+    cig_diff = sum(a != b for a, b in zip(cig_k, cig_p))
+    del out_p
+    print("  realign W=%d: loglik max rel %.3g, score max rel %.3g, reads "
+          "with differing direction codes %d, with differing cigars %d of %d"
+          % (WIDE_W, ll_rel, sc_rel, dirs_rows, cig_diff, P))
+    if ll_rel > 1e-5 or sc_rel > 1e-4 or cig_diff > 0.01 * P:
+        fail("realign kernel at W=%d outside tolerance" % WIDE_W)
+    plan = realign.workspace_plan(kend, 0, WIDE_W, mode=realign.DECODE)[1]
+    per_batch = launches_per_call(
+        realign.LAUNCHES,
+        lambda: realign.realign_decode(xyc, m, n, params, gg, mg, kend=kend))
+    if per_batch != len(plan):
+        fail("the decode at W=%d took %d launches, its plan %d"
+             % (WIDE_W, per_batch, len(plan)))
+    bound, by = realign_bound(
+        REALIGN_OPS_PER_CELL, WIDE_W, need,
+        B * k_pad * WIDE_W + B * (k_pad + 1) * WIDE_W + 16 * B)
+    row("realign", cuda_ms(lambda: realign.realign_decode(
+        xyc, m, n, params, gg, mg, kend=kend), 3), plain_ms, P, err, bound,
+        by, per_batch)
+
+    ops_p, plain_ms = timed(lambda: mea_walk_plain(dirs, xyc, m, n))
+    if not torch.equal(ops_k, ops_p):
+        fail("walker kernel at W=%d differs from its plain version" % WIDE_W)
+    nbytes = walked_bytes(ops_k) + need - B + B * (k_pad + 1) + 8 * B
+    row("traceback", cuda_ms(lambda: mea_walk(dirs, xyc, m, n), 10), plain_ms,
+        B, 0.0, nbytes / HBM_BYTES_PER_S * 1e3, "bytes", 1)
+    for name, r in rows.items():
+        res.setdefault(name, {}).update(r)
+    print("phase 15, the mapping batch: %.1f s" % (time.perf_counter() - t0))
+
+
+def engine_records(path: str) -> list:
+    """A SAM's records as the engine checks compare them (with AS)."""
+    from nanopore_tpu_torch.io.sam import SamReader
+
+    return [(r.qname, r.flag, r.rname, r.pos, r.mapq, r.cigar, r.seq,
+             dict((tg[0], tg[2]) for tg in r.tags).get("AS"))
+            for r in SamReader(path)]
+
+
+def wide_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
+               ) -> dict:
+    """Phase 15 (its checks in the docstring's step 15): the W = 128
+    kernels on the mapping batch and at live width 96 on phase 13's
+    reads, the engine at W = 128, ``realign`` and EM at 96 card against
+    CPU, and the Viterbi engine's refusal at 96.  Returns the kernels'
+    ``*_w128`` and ``*_w96`` numbers and each run's launches."""
+    import dataclasses
+
+    import torch
+
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+
+    t_phase = time.perf_counter()
+    res, runs = {}, {}
+    wide_batch_checks(pairs, engine.params, dev, res)
+
+    # ---- the engine at W = 128 on the mapping workload ----
+    wdir = os.path.join(os.path.dirname(fq), "wide")
+    os.makedirs(wdir, exist_ok=True)
+    ref = read_fasta_dict(fa)
+    cfg = dataclasses.replace(engine.config, band_width=WIDE_W)
+    if cfg.decode != "mea":
+        fail("phase 15: the engine does not take the MEA decode")
+    eng = MappingEngine(ref, cfg, index=engine.index, device=dev)
+    sam = os.path.join(wdir, "map_w128.sam")
+    eng.map_fastq(fq, sam)  # cold
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    eng.map_fastq(fq, sam)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["wide_map"] = run = {c.name: c.count for c in counters}
+    share = origin_share(sam)
+    print("phase 15: MappingEngine(band_width=%d) on %d reads: %.3f s warm = "
+          "%.1f reads/s; primaries at origin %.4f; launches %s"
+          % (WIDE_W, N_READS, wall, N_READS / wall, share, run))
+    if share < 0.99:
+        fail("phase 15: only %.4f of primaries at their origin" % share)
+    mea = ("pack", "realign", "traceback")
+    if min(run[k] for k in mea) <= 0 or any(
+            v for k, v in run.items() if k not in mea):
+        fail("phase 15 launches %s: want pack, realign and traceback > 0, "
+             "the rest 0" % run)
+
+    # ---- the engine on 32 reads, card against CPU ----
+    fq32 = os.path.join(wdir, "reads.fq")
+    with open(fq) as src, open(fq32, "w") as dst:
+        for _ in range(4 * WIDE_ENGINE_READS):
+            dst.write(src.readline())
+    cfg32 = dataclasses.replace(cfg, batch_size=2 * WIDE_ENGINE_READS)
+    sams = {}
+    for where in ("cuda", "cpu"):
+        e = MappingEngine(ref, cfg32, index=engine.index,
+                          device=dev if where == "cuda" else "cpu")
+        sams[where] = os.path.join(wdir, where + ".sam")
+        if where == "cuda":
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+        t0 = time.perf_counter()
+        e.map_fastq(fq32, sams[where])
+        if where == "cuda":
+            torch.cuda.synchronize()
+            runs["wide_engine"] = run = {c.name: c.count for c in counters}
+        print("phase 15: MappingEngine(band_width=%d) on %d reads, %s: %.3f s"
+              % (WIDE_W, WIDE_ENGINE_READS, where, time.perf_counter() - t0))
+    got, want = engine_records(sams["cuda"]), engine_records(sams["cpu"])
+    print("phase 15: %d records on the card, %s the CPU's; launches %s"
+          % (len(got), "equal to" if got == want else "DIFFERENT from", run))
+    if got != want or not got:
+        fail("phase 15: the engine's records on the card differ from the "
+             "CPU's")
+    if min(run[k] for k in mea) <= 0 or any(
+            v for k, v in run.items() if k not in mea):
+        fail("phase 15 launches %s: want pack, realign and traceback > 0, "
+             "the rest 0" % run)
+
+    # ---- live width 96 in W = 128 on phase 13's reads ----
+    width_kernel_checks(wl["pairs"], WIDE_LIVE, dev, res, "phase 15")
+    runs["wide_realign"] = realign_cli_check(wl, WIDE_LIVE, counters,
+                                             "phase 15")
+    runs["wide_em"] = em_width_check(wl, WIDE_LIVE, dev, counters, "phase 15")
+
+    # ---- the Viterbi path refuses 96 on the card, before any work ----
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    try:
+        MappingEngine(ref, dataclasses.replace(cfg, band_width=WIDE_LIVE,
+                                               decode="viterbi"),
+                      index=engine.index, device=dev)
+        refusal = "none"
+    except ValueError as err:
+        refusal = str(err)
+    torch.cuda.synchronize()
+    runs["wide_viterbi_refusal"] = run = {c.name: c.count for c in counters}
+    print("phase 15: MappingEngine(band_width=%d, decode=\"viterbi\") on the "
+          "card: %s; launches %s" % (WIDE_LIVE, refusal, run))
+    if "C10" not in refusal or any(run.values()):
+        fail("phase 15: the Viterbi engine at w = %d was not refused before "
+             "any work" % WIDE_LIVE)
+    print("phase 15 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return {"res": res, "runs": runs}
+
+
+def wide_alone() -> int:
+    """Run as ``chip_smoke.py --wide``: the kernels' build and the
+    W = 128 attributes, then phase 15 alone (with the mapping workload
+    and phase 13's reads it takes)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.kernels import build
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+    from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
+    from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    print("build: %.1f s" % build.build())
+    attrs = wide_attributes()
+    dev = torch.device("cuda", 0)
+    workdir = os.path.join(build.BUILD_DIR, "smoke", "wide_alone")
+    fa, fq = write_workload(workdir, REF_LEN)
+    engine = MappingEngine(read_fasta_dict(fa),
+                           MAPPER_REGISTRY["LastParams"].config, device=dev)
+    pairs = main_path_batch(engine, fq, preferred_realign_batch_size(None, dev))
+    wl = width_workload(workdir, dev)
+    out = wide_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
+    for name, a in attrs.items():
+        out["res"].setdefault(name, {}).update(a)
+    print(card)
+    print(json.dumps(out))
+    return 0
 
 
 def full_plane_alone() -> int:
@@ -3362,8 +3744,9 @@ def widths_alone() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card)
     print("build: %.1f s" % build.build())
-    out = widths_phase(os.path.join(build.BUILD_DIR, "smoke"),
-                       torch.device("cuda", 0), launch_counters())
+    dev = torch.device("cuda", 0)
+    wl = width_workload(os.path.join(build.BUILD_DIR, "smoke"), dev)
+    out = widths_phase(wl, dev, launch_counters())
     print(card)
     print(json.dumps(out))
     return 0
@@ -3404,10 +3787,10 @@ def pipeline_child() -> int:
 def viterbi_child() -> int:
     """Run as ``chip_smoke.py --viterbi`` in a second child process,
     beside the parent's phases 5-7: phase 8 on its own copy of the
-    mapping workload (the same seed, so the same batch), then phases 13
-    and 14; their kernel rows, the forward entry's and phases 13's and
-    14's launch counts written to ``<workdir>/viterbi/result.json`` for
-    the kernels line."""
+    mapping workload (the same seed, so the same batch), then phases 13,
+    14 and 15; their kernel rows, the forward entry's and phases 13's,
+    14's and 15's launch counts written to
+    ``<workdir>/viterbi/result.json`` for the kernels line."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -3425,18 +3808,20 @@ def viterbi_child() -> int:
     pairs = main_path_batch(engine, fq, preferred_realign_batch_size(None, dev))
     res = {}
     entry = viterbi_kernel_phase(engine, pairs, dev, launch_counters(), res)
-    widths = widths_phase(os.path.dirname(workdir), dev, launch_counters())
+    wl = width_workload(os.path.dirname(workdir), dev)
+    widths = widths_phase(wl, dev, launch_counters())
     full = full_plane_phase(engine, pairs, fa, fq, dev, launch_counters(),
                             res)
+    wide = wide_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
     with open(os.path.join(workdir, "result.json"), "w") as fh:
         json.dump({"res": res, "forward_entry": entry, "widths": widths,
-                   "full_plane": full}, fh)
+                   "full_plane": full, "wide": wide}, fh)
     return 0
 
 
 def start_child(workdir: str, flag: str):
     """Start ``chip_smoke.py <flag>`` (``--pipeline``: phases 10-12;
-    ``--viterbi``: phases 8, 13 and 14), its output in
+    ``--viterbi``: phases 8, 13, 14 and 15), its output in
     ``<workdir>/<flag without dashes>_child.log``; it is killed at exit if
     still running."""
     import atexit
@@ -3534,6 +3919,8 @@ def main() -> int:
         return widths_alone()
     if sys.argv[1:] == ["--full-plane"]:
         return full_plane_alone()
+    if sys.argv[1:] == ["--wide"]:
+        return wide_alone()
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
         return distributed_rank(int(sys.argv[2]), *sys.argv[3:])
     sys.path.insert(0, ROOT)
@@ -3622,6 +4009,8 @@ def main() -> int:
         tag = "" if width == W else "_w32"
         for name, b in smem.items():
             attrs.setdefault(name, {})["smem_block" + tag] = b
+    for name, a in wide_attributes().items():
+        attrs.setdefault(name, {}).update(a)
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
     print("native seedchain: %s" % native_index.get_lib()._name)
@@ -3679,13 +4068,15 @@ def main() -> int:
     mark("phase 7")
     vit_launches = viterbi_path_phase(workdir, fa, fq, dev, counters)
     phase8 = finish_child(vit_child, workdir, "--viterbi",
-                          "phases 8, 13 and 14",
+                          "phases 8, 13, 14 and 15",
                           os.path.join("viterbi", "result.json"))
     res.update(phase8["res"])
-    for name, rows in phase8["widths"]["res"].items():
-        res[name].update(rows)
+    for phase in ("widths", "wide"):
+        for name, rows in phase8[phase]["res"].items():
+            res[name].update(rows)
     other_runs = dict(post_launches, **vit_launches)
     other_runs.update(phase8["widths"]["runs"])
+    other_runs.update(phase8["wide"]["runs"])
     other_runs.update(finish_child(pipeline, workdir, "--pipeline",
                                    "phases 10-12",
                                    os.path.join("pipeline", "launches.json")))
@@ -3697,7 +4088,7 @@ def main() -> int:
             for what, run in earlier.items()
             if run["viterbi_full"] or run["viterbi_traceback_full"]}
     if took:
-        fail("runs before phase 14 launched the full plane: %s" % took)
+        fail("runs other than phase 14's launched the full plane: %s" % took)
     other_runs["full_plane"] = phase8["full_plane"]
 
     meta = {

@@ -252,7 +252,8 @@ def realign_records(
     probability of the NEW alignment when ``rescore`` (the
     --rescoreByPosteriorProbIgnoringGaps analogue; records are not split
     then, as in the JAX package), else an empty list.  On the card the
-    band width must be one the kernels serve, 2 to 64 (ROADMAP C10).
+    band width must be one the MEA path's kernels serve, 2 to 128
+    (ROADMAP C10).
     """
     check_band_width(band_width, device)
     device = resolve_device(device)

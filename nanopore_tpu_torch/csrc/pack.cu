@@ -164,7 +164,9 @@ extern "C" const char* np_cuda_error_string(int e) {
 extern "C" int np_pack_attrs(int W, int* out) {
   cudaFuncAttributes a;
   cudaError_t e;
-  if (W == 64)
+  if (W == 128)
+    e = cudaFuncGetAttributes(&a, pack_kernel<128>);
+  else if (W == 64)
     e = cudaFuncGetAttributes(&a, pack_kernel<64>);
   else if (W == 32)
     e = cudaFuncGetAttributes(&a, pack_kernel<32>);
@@ -190,7 +192,9 @@ extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
   const int32_t* mm = (const int32_t*)m;
   const int32_t* nn = (const int32_t*)n;
   uint8_t* out = (uint8_t*)xyc;
-  if (W == 64) {
+  if (W == 128) {
+    pack_kernel<128><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
+  } else if (W == 64) {
     pack_kernel<64><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
   } else if (W == 32) {
     pack_kernel<32><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);

@@ -48,8 +48,9 @@
 // latency of each read's serial chain of diagonals, and at B = 512 (one
 // read a warp scheduler) the schedulers' issue slots too.  Design shared
 // by both kernels below:
-//  * a lane owns C = W/32 adjacent band cells in registers, so a band
-//    shift is one warp shuffle.  The band maximum is each lane's fmaxf
+//  * a lane owns C = W/32 adjacent band cells in registers (C = 1, 2
+//    or 4: W = 32, 64 or 128), moved as one 1-, 2- or 4-cell access, so
+//    a band shift is one warp shuffle.  The band maximum is each lane's fmaxf
 //    over its cells, then one __reduce_max_sync over the bit patterns:
 //    the states are non-negative, so their patterns order as their
 //    values, and a lane whose cells are all NaN keys as 0, which keeps
@@ -84,7 +85,9 @@
 //    slow path), and a step's four gap shifts branch once on d1.
 // The model tables sit in shared memory.
 //
-// realign_kernel (EM, EXP): one warp per read, two reads a block.
+// realign_kernel (EM, EXP): one warp per read, two reads a block (its
+// staging 43,328 bytes a read at W = 128, so that width opts in to more
+// than the default 48 KB of dynamic shared memory).
 // Phase A, the forward over 1..kq, stores its states (kq rows of 5 x W
 // f32, row k-1 = diagonal k) and then its rescale inverses (kq + 1
 // floats, padded to 16 bytes) in the read's slot; phase B streams them
@@ -120,7 +123,8 @@
 //  read and the backward's instructions twice.  Shared memory: 54,960
 //  bytes a block at W = 64 (27,568 at W = 32), so four reads fit a SM
 //  (132 x 4 = 528 >= 512), with __launch_bounds__(96, 4) holding the
-//  registers to 168.  Workspace per read: the forward's states and sf,
+//  registers to 168; 110,120 at W = 128, so two fit (264 reads at once)
+//  and the bound is (96, 2), which leaves the registers at 255.  Workspace per read: the forward's states and sf,
 //  then safe, then kq / S + 1 checkpoints.
 //
 // gamma_kernel (GAMMA): one read a block of 4 warps.  The band needs, of
@@ -194,6 +198,9 @@ constexpr int CH = 8;     // diagonals per staged chunk (even: the forward steps
 constexpr int S = 8;      // diagonals per segment of mea_kernel's backward
 constexpr int NSLOT = 3;  // ring slots of mea_kernel: two producers need three
 constexpr int MEA_WARPS = 3;
+// mea_kernel's blocks an SM: as many as its shared memory lets in (four
+// at W <= 64, two at W = 128), the register cap of __launch_bounds__
+constexpr int mea_blocks(int C) { return C == 4 ? 2 : 4; }
 constexpr int GAMMA_WARPS = 4;
 static_assert(S == CH, "mea_kernel's consumer stages one chunk per segment");
 // tf 25 | emf 36 | egf 30 | gap gamma | match gamma | exp threshold
@@ -414,52 +421,49 @@ __device__ __forceinline__ void trans_sum(const float* tf, const float (&p)[NS][
   }
 }
 
+// A lane's C adjacent cells move as one access of C bytes of codes or
+// C floats (aligned to its size: w0 = lane * C, and every row starts at
+// a multiple of 16 bytes).
 template <int C>
 __device__ __forceinline__ void load_codes(const uint8_t* row, int w0, uint8_t (&c)[C]) {
-  if constexpr (C == 2) {
+  if constexpr (C == 4) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(row + w0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] = (uint8_t)(v >> (8 * i));
+  } else if constexpr (C == 2) {
     const uint16_t v = *reinterpret_cast<const uint16_t*>(row + w0);
     c[0] = (uint8_t)(v & 0xFF);
-    c[C - 1] = (uint8_t)(v >> 8);
+    c[1] = (uint8_t)(v >> 8);
   } else {
     c[0] = row[w0];
   }
 }
 
+// one band row of direction codes: byte c of `word` is cell c's
 template <int C>
-__device__ __forceinline__ void load_states(const float* row, int w0, float (&f)[NS][C]) {
-  constexpr int W = 32 * C;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    if constexpr (C == 2) {
-      const float2 v = *reinterpret_cast<const float2*>(row + s * W + w0);
-      f[s][0] = v.x;
-      f[s][C - 1] = v.y;
-    } else {
-      f[s][0] = row[s * W + w0];
-    }
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void store_states(float* row, int w0, const float (&f)[NS][C]) {
-  constexpr int W = 32 * C;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    if constexpr (C == 2) {
-      *reinterpret_cast<float2*>(row + s * W + w0) = make_float2(f[s][0], f[s][C - 1]);
-    } else {
-      row[s * W + w0] = f[s][0];
-    }
+__device__ __forceinline__ void store_codes(int8_t* row, int w0, uint32_t word) {
+  if constexpr (C == 4) {
+    *reinterpret_cast<uint32_t*>(row + w0) = word;
+  } else if constexpr (C == 2) {
+    *reinterpret_cast<uint16_t*>(row + w0) = (uint16_t)word;
+  } else {
+    row[w0] = (int8_t)word;
   }
 }
 
 // one band row of f32 (a lane's C cells)
 template <int C>
 __device__ __forceinline__ void load_row(const float* row, int w0, float (&v)[C]) {
-  if constexpr (C == 2) {
+  if constexpr (C == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(row + w0);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (C == 2) {
     const float2 t = *reinterpret_cast<const float2*>(row + w0);
     v[0] = t.x;
-    v[C - 1] = t.y;
+    v[1] = t.y;
   } else {
     v[0] = row[w0];
   }
@@ -467,11 +471,26 @@ __device__ __forceinline__ void load_row(const float* row, int w0, float (&v)[C]
 
 template <int C>
 __device__ __forceinline__ void store_row(float* row, int w0, const float (&v)[C]) {
-  if constexpr (C == 2) {
-    *reinterpret_cast<float2*>(row + w0) = make_float2(v[0], v[C - 1]);
+  if constexpr (C == 4) {
+    *reinterpret_cast<float4*>(row + w0) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (C == 2) {
+    *reinterpret_cast<float2*>(row + w0) = make_float2(v[0], v[1]);
   } else {
     row[w0] = v[0];
   }
+}
+
+// the five states of a lane's cells: row s of W floats each
+template <int C>
+__device__ __forceinline__ void load_states(const float* row, int w0, float (&f)[NS][C]) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) load_row<C>(row + s * 32 * C, w0, f[s]);
+}
+
+template <int C>
+__device__ __forceinline__ void store_states(float* row, int w0, const float (&f)[NS][C]) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) store_row<C>(row + s * 32 * C, w0, f[s]);
 }
 
 // emission factors [e_m, gx1, gy2, gx3, gy4] of a lane's cells
@@ -932,15 +951,9 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   }
 
   if constexpr (XP) {  // the flush: the columns left after diagonal 0
-    float* fl = (float*)out2 + (size_t)r * 4 * W + w0;
+    float* fl = (float*)out2 + (size_t)r * 4 * W;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (C == 2) {
-        *reinterpret_cast<float2*>(fl + i * W) = make_float2(ex[i][0], ex[i][C - 1]);
-      } else {
-        fl[i * W] = ex[i][0];
-      }
-    }
+    for (int i = 0; i < 4; ++i) store_row<C>(fl + i * W, w0, ex[i]);
   }
   if constexpr (EM) {
     // sum over the band, then lay the counts out as trans [from][to] and
@@ -984,7 +997,7 @@ __device__ __forceinline__ int64_t mea_slot_floats(int kq, int W) {
 // f32.  `ws`, `woff` as realign_kernel's, one read a block; dynamic
 // shared memory holds one MeaStage<C>.
 template <int C, int MODE>
-__global__ void __launch_bounds__(MEA_WARPS * 32, 4)
+__global__ void __launch_bounds__(MEA_WARPS * 32, mea_blocks(C))
 mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
            const int32_t* __restrict__ n, int k_pad, int wl, float* __restrict__ ws,
            const int64_t* __restrict__ woff, float* __restrict__ loglik,
@@ -1131,14 +1144,8 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
         for (int c = 0; c < C; ++c)
 #pragma unroll
           for (int st = 0; st < NS; ++st) gam[st][c] = (fh[st][c] * nw[st][c]) * g_k;
-        if constexpr (GAM) {  // row k of the read's gamma_match band
-          float* row = gband + ((size_t)r * (k_pad + 1) + k) * W + w0;
-          if constexpr (C == 2) {
-            *reinterpret_cast<float2*>(row) = make_float2(gam[0][0], gam[0][C - 1]);
-          } else {
-            *row = gam[0][0];
-          }
-        }
+        if constexpr (GAM)  // row k of the read's gamma_match band
+          store_row<C>(gband + ((size_t)r * (k_pad + 1) + k) * W, w0, gam[0]);
         float new_u[C], g_m[C], g_d[C], g_i[C];
         float vd[C], vl[C], vu[C], td[C], tl[C], tu[C];
 #pragma unroll
@@ -1164,12 +1171,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
           word |= (uint32_t)(ok ? choice : 3) << (8 * c);
         }
         // row k of the read's direction codes: diagonal k
-        int8_t* row = dirs + ((size_t)r * (k_pad + 1) + k) * W + w0;
-        if constexpr (C == 2) {
-          *reinterpret_cast<uint16_t*>(row) = (uint16_t)word;
-        } else {
-          *row = (int8_t)word;
-        }
+        store_codes<C>(dirs + ((size_t)r * (k_pad + 1) + k) * W, w0, word);
         if (k == 0) {
           if (lane == 0) score[r] = new_u[0];  // the MEA score
           break;
@@ -1266,17 +1268,18 @@ __device__ __forceinline__ int64_t gamma_slot_floats(int kq, int W) {
 
 // Outputs: `loglik` (B,) and `gband` (B, k_pad + 1, W) f32, the
 // gamma_match band.  `ws`, `woff` as realign_kernel's, one read a block
-// of GAMMA_WARPS warps.
+// of GAMMA_WARPS warps.  `sm` holds the model tables, which the entry
+// point (gamma_kernel, or gamma_kernel_w128 at W = 128) has copied in.
 template <int C>
-__global__ void __launch_bounds__(GAMMA_WARPS * 32)
-gamma_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
-             const int32_t* __restrict__ n, int k_pad, int wl, float* __restrict__ ws,
-             const int64_t* __restrict__ woff, float* __restrict__ loglik,
-             float* __restrict__ gband) {
+__device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __restrict__ xyc,
+                                           const int32_t* __restrict__ m,
+                                           const int32_t* __restrict__ n, int k_pad, int wl,
+                                           float* __restrict__ ws,
+                                           const int64_t* __restrict__ woff,
+                                           float* __restrict__ loglik,
+                                           float* __restrict__ gband) {
   constexpr int W = 32 * C;
-  __shared__ float sm[NTAB];
   __shared__ GammaStage<C> sg;
-  for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -1416,6 +1419,38 @@ gamma_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restr
   }
 }
 
+template <int C>
+__global__ void __launch_bounds__(GAMMA_WARPS * 32)
+gamma_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
+             const int32_t* __restrict__ n, int k_pad, int wl, float* __restrict__ ws,
+             const int64_t* __restrict__ woff, float* __restrict__ loglik,
+             float* __restrict__ gband) {
+  __shared__ float sm[NTAB];
+  for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
+  gamma_read<C>(sm, xyc, m, n, k_pad, wl, ws, woff, loglik, gband);
+}
+
+// W = 128 (C = 4): under gamma_kernel's bound ptxas held it to 128
+// registers and spilled; at two blocks an SM it takes what it needs
+__global__ void __launch_bounds__(GAMMA_WARPS * 32, 2)
+gamma_kernel_w128(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
+                  const int32_t* __restrict__ n, int k_pad, int wl, float* __restrict__ ws,
+                  const int64_t* __restrict__ woff, float* __restrict__ loglik,
+                  float* __restrict__ gband) {
+  __shared__ float sm[NTAB];
+  for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
+  gamma_read<4>(sm, xyc, m, n, k_pad, wl, ws, woff, loglik, gband);
+}
+
+// gamma_kernel at W = 32 and 64, gamma_kernel_w128 at W = 128
+template <int C>
+auto gamma_entry() {
+  if constexpr (C == 4)
+    return gamma_kernel_w128;
+  else
+    return gamma_kernel<C>;
+}
+
 template <int C, int MODE>
 int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, const void* m,
                 const void* n, int k_pad, int wl, void* ws, const void* woff, void* loglik,
@@ -1433,12 +1468,23 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
         t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, wl, (float*)ws,
         (const int64_t*)woff, (float*)loglik, (float*)out1, (int8_t*)out2, (float*)out3);
   } else if constexpr (MODE == GAMMA) {
-    gamma_kernel<C><<<nreads, GAMMA_WARPS * 32, 0, s>>>(
+    const auto kernel = gamma_entry<C>();
+    kernel<<<nreads, GAMMA_WARPS * 32, 0, s>>>(
         t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, wl, (float*)ws,
         (const int64_t*)woff, (float*)loglik, (float*)out3);
   } else {
+    constexpr int smem = WARPS * (int)sizeof(Stage<C>);
+    if constexpr (smem > 48 * 1024) {  // W = 128: above the default's 48 KB
+      cudaError_t e = cudaFuncSetAttribute(realign_kernel<C, MODE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(realign_kernel<C, MODE>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+      if (e != cudaSuccess) return (int)e;
+    }
     realign_kernel<C, MODE>
-        <<<(nreads + WARPS - 1) / WARPS, WARPS * 32, WARPS * sizeof(Stage<C>), s>>>(
+        <<<(nreads + WARPS - 1) / WARPS, WARPS * 32, smem, s>>>(
             t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad, wl,
             (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2);
   }
@@ -1458,7 +1504,7 @@ int attrs_mode(int* out) {
     out[4] = MEA_WARPS * 32;
     out[5] = 1;
   } else if constexpr (MODE == GAMMA) {
-    e = cudaFuncGetAttributes(&a, gamma_kernel<C>);
+    e = cudaFuncGetAttributes(&a, gamma_entry<C>());
     out[3] = 0;
     out[4] = GAMMA_WARPS * 32;
     out[5] = 1;
@@ -1522,6 +1568,7 @@ extern "C" const char* np_cuda_error_string(int e) {
 // shared memory bytes per block, threads per block and reads per block
 // of `mode` at band width W, into out[6].
 extern "C" int np_realign_attrs(int mode, int W, int* out) {
+  if (W == 128) return attrs_width<4>(mode, out);
   if (W == 64) return attrs_width<2>(mode, out);
   if (W == 32) return attrs_width<1>(mode, out);
   return (int)cudaErrorInvalidValue;
@@ -1554,6 +1601,9 @@ extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
   Tables t;
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
   cudaStream_t s = (cudaStream_t)stream;
+  if (W == 128)
+    return launch_width<4>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1,
+                           out2, out3);
   if (W == 64)
     return launch_width<2>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1,
                            out2, out3);

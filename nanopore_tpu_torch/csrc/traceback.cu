@@ -37,7 +37,7 @@
 //    words);
 //  * each read stops at its own end: it walks diagonals 0..m + n and
 //    fills the rows past them with 3 by 16-byte stores.
-// Serves W = 32 and 64, the band widths of the realign kernel.
+// Serves W = 32, 64 and 128, the band widths of the realign kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -139,13 +139,16 @@ extern "C" int np_walk_smem(int W) { return walk::smem_bytes(W); }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  dirs
 // (nreads, k_pad + 1, W) int8, xyc (nreads, k_pad, W) int8, m and n
-// (nreads,) int32, ops (nreads, k_pad + 1) int8 out; W is 32 or 64, and
+// (nreads,) int32, ops (nreads, k_pad + 1) int8 out; W is 32, 64 or 128, and
 // dirs is 16-byte aligned.
 extern "C" int np_walk_launch(const void* dirs, const void* xyc, const void* m,
                               const void* n, int nreads, int k_pad, int W,
                               void* ops, void* stream) {
   if (nreads <= 0 || k_pad < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (W == 128)
+    return launch<128>(walk_kernel<128>, nreads, s, (const int8_t*)dirs, (const uint8_t*)xyc,
+                       (const int32_t*)m, (const int32_t*)n, nreads, k_pad, (int8_t*)ops);
   if (W == 64)
     return launch<64>(walk_kernel<64>, nreads, s, (const int8_t*)dirs, (const uint8_t*)xyc,
                       (const int32_t*)m, (const int32_t*)n, nreads, k_pad, (int8_t*)ops);

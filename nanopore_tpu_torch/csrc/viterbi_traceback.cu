@@ -159,8 +159,9 @@ extern "C" const char* np_cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// Dynamic shared memory a block takes at band width W (0 for another W),
-// over the full plane's 16-bit rows if `full`, else the byte plane's.
+// Dynamic shared memory a block takes at band width W (0 for a W other
+// than 32, 64 and 128; the walker launches at 32 and 64 only), over the
+// full plane's 16-bit rows if `full`, else the byte plane's.
 extern "C" int np_viterbi_walk_smem(int W, int full) {
   return full ? walk::smem_bytes<int16_t>(W) : walk::smem_bytes<int8_t>(W);
 }

@@ -134,10 +134,13 @@ __device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
 }
 
 // Dynamic shared memory a walker block takes at band width W with rows
-// of T: one Stage a warp (0 for a W other than 32 and 64)
+// of T: one Stage a warp (0 for a W other than 32, 64 and 128).  The
+// byte rows take 205,504 bytes at W = 128, under the 232,448 a block may
+// opt into; 16-bit rows would take twice that.
 template <typename T = int8_t>
 inline int smem_bytes(int W) {
-  return W == 64 ? WARPS * (int)sizeof(Stage<64, T>)
+  return W == 128 ? WARPS * (int)sizeof(Stage<128, T>)
+       : W == 64 ? WARPS * (int)sizeof(Stage<64, T>)
        : W == 32 ? WARPS * (int)sizeof(Stage<32, T>)
                  : 0;
 }

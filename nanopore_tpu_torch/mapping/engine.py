@@ -139,7 +139,11 @@ class MappingEngine:
         device=None,
     ):
         self.config = config or MapperConfig()
-        check_band_width(self.config.band_width, device)
+        # the MEA decode serves widths to 128 on the card, the Viterbi
+        # to 64 (ROADMAP C10)
+        check_band_width(self.config.band_width, device,
+                         "viterbi" if self.config.decode == "viterbi"
+                         else "mea")
         # the card unless the caller asks for the CPU; raises when no
         # card is present
         self.device = resolve_device(device)

@@ -20,13 +20,15 @@ plane for any other; ``ops.viterbi``);
 counterpart of the JAX package's ``PallasForwardPlan``).
 
 A band of live width w (``band_width``) is laid into W = 32 lanes if
-w <= 32, else W = 64 (``ops.pack.padded_width``; the CPU keeps a wider
-band unpadded), its dead lanes all sentinel, on either device: so the
-CPU runs exactly the layout the card runs.  The batch carries w
-(``LitePack.band_width``) to the realign kernel's launches, and
-``run()`` gives the gamma band and the flush sliced to the w live
-lanes; the direction codes and the Viterbi plane keep W lanes beside
-the codes, which the walkers read.
+w <= 32, W = 64 if w <= 64, else W = 128 (``ops.pack.padded_width``; the
+CPU keeps a band wider than 128 unpadded), its dead lanes all sentinel,
+on either device: so the CPU runs exactly the layout the card runs.  On
+the card the Viterbi and the forward-only kernel serve W = 32 and 64
+only (``check_band_width``'s ``"viterbi"`` path, ROADMAP C10).  The
+batch carries w (``LitePack.band_width``) to the realign kernel's
+launches, and ``run()`` gives the gamma band and the flush sliced to
+the w live lanes; the direction codes and the Viterbi plane keep W
+lanes beside the codes, which the walkers read.
 
 Tensors on the card go through the CUDA kernels, tensors on the CPU
 through their plain PyTorch versions.  Every launch goes to the calling
@@ -306,11 +308,14 @@ def prepared_from_pairs(
     model at every ``run``).  ``exact_k=True`` pins the diagonal count
     to ``k_max`` (k-bin bucketing) instead of tightening it.  The band of
     live width ``band_width`` is laid into ``padded_width(band_width)``
-    lanes; the card refuses a width its kernels do not serve before any
-    work (``check_band_width``, ROADMAP C10)."""
+    lanes; the card refuses a width the kernels of ``prepared_cls`` do
+    not serve before any work (``check_band_width``, ROADMAP C10: 2 to
+    128 for the MEA path's classes, 2 to 64 for ``PreparedViterbi`` and
+    ``PreparedForward``)."""
     kwargs = dict(cls_kwargs)
     device = kwargs.pop("device", None)
-    check_band_width(band_width, device)
+    check_band_width(band_width, device, "viterbi" if prepared_cls in (
+        PreparedViterbi, PreparedForward) else "mea")
     device = resolve_device(device)
     if not exact_k:
         k_max = _pairs_k_max(pairs, k_max)

@@ -44,7 +44,11 @@ from nanopore_tpu_torch.ops.pairhmm import band_offsets_from_cigar
 # so both packages lay out the same k_pad and compare row for row)
 K_ALIGN = 128
 SENT = (5 << 3) | 5  # all-sentinel packed code
-KERNEL_BAND_WIDTHS = (32, 64)  # W = 32 * band cells per lane
+# W = 32 * band cells per lane: the layouts of the MEA path's kernels
+# (pack, realign in every mode, MEA walker)
+KERNEL_BAND_WIDTHS = (32, 64, 128)
+# the Viterbi, its walker and the forward-only kernel (ROADMAP C10)
+VITERBI_BAND_WIDTHS = (32, 64)
 MIN_BAND_WIDTH = 2  # the narrowest live width the card serves
 
 LAUNCHES = kb.LaunchCounter("pack")
@@ -52,28 +56,34 @@ LAUNCHES = kb.LaunchCounter("pack")
 
 def padded_width(band_width: int) -> int:
     """The lanes a band of live width ``band_width`` is laid into: the
-    narrowest kernel width that holds it (32 or 64); a wider band, which
-    only the CPU serves, keeps its own width."""
+    narrowest kernel width that holds it (32, 64 or 128); a wider band,
+    which only the CPU serves, keeps its own width."""
     for W in KERNEL_BAND_WIDTHS:
         if band_width <= W:
             return W
     return band_width
 
 
-def check_band_width(band_width: int, device=None) -> None:
-    """Refuse a band width the kernels do not serve, where ``device`` is
-    not the CPU (``None`` is the card), before an entry point does any
-    work (ROADMAP C10): the card serves every live width from 2 to 64,
-    laid into the W = 32 or W = 64 kernels.  The plain versions on the
-    CPU serve any width; the card gets no plain fallback."""
+def check_band_width(band_width: int, device=None, path: str = "mea"
+                     ) -> None:
+    """Refuse a band width the kernels of ``path`` do not serve, where
+    ``device`` is not the CPU (``None`` is the card), before an entry
+    point does any work (ROADMAP C10).  On the card the MEA path
+    (``"mea"``: pack, realign in every mode, MEA walker) serves every
+    live width from 2 to 128, laid into its W = 32, 64 or 128 kernels;
+    the Viterbi path (``"viterbi"``: pack, Viterbi, Viterbi walker, and
+    the forward-only kernel) every width from 2 to 64.  The plain
+    versions on the CPU serve any width; the card gets no plain
+    fallback."""
+    widths = {"mea": KERNEL_BAND_WIDTHS, "viterbi": VITERBI_BAND_WIDTHS}[path]
     if torch.device("cuda" if device is None else device).type == "cpu":
         return
-    if not MIN_BAND_WIDTH <= band_width <= KERNEL_BAND_WIDTHS[-1]:
+    if not MIN_BAND_WIDTH <= band_width <= widths[-1]:
         raise ValueError(
-            "band width %d is not served on the card: its kernels take "
-            "widths %d to %d (ROADMAP C10); pass device='cpu' to run the "
-            "plain path at any width"
-            % (band_width, MIN_BAND_WIDTH, KERNEL_BAND_WIDTHS[-1])
+            "band width %d is not served on the card by the %s path: its "
+            "kernels take widths %d to %d (ROADMAP C10); pass device='cpu' "
+            "to run the plain path at any width"
+            % (band_width, path, MIN_BAND_WIDTH, widths[-1])
         )
 _SIG = {
     "np_pack_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4

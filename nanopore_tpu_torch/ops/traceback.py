@@ -31,9 +31,11 @@ them up to its start diagonal and subtracts them going down.
 
 The kernels (``csrc/traceback.cu``, ``csrc/viterbi_traceback.cu``, the
 latter with a walk of each plane) run one warp per read, stage its rows
-through shared memory and walk them with one lane; they serve the band
-widths of the realign and Viterbi kernels (``KERNEL_BAND_WIDTHS``).
-The plain versions serve any width.
+through shared memory and walk them with one lane; each serves the band
+widths of the kernel whose rows it walks: the MEA walker the realign
+kernel's (``KERNEL_BAND_WIDTHS``, 32, 64 and 128), the Viterbi walker
+the Viterbi kernel's (``VITERBI_BAND_WIDTHS``, 32 and 64).  The plain
+versions serve any width.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import torch
 
 from nanopore_tpu_torch.io.sam import CIG
 from nanopore_tpu_torch.kernels import build as kb
-from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS, VITERBI_BAND_WIDTHS
 
 DIR_DIAG, DIR_DEL, DIR_INS, DIR_NONE = 0, 1, 2, 3
 OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
@@ -77,7 +79,8 @@ def walker_shared_memory(W: int) -> dict:
     }
 
 
-def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,)):
+def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,),
+                  widths=KERNEL_BAND_WIDTHS):
     dev = dirs.device
     if dirs.dtype not in dtypes or dirs.dim() != 3 or not dirs.is_contiguous():
         raise ValueError("%s must be a contiguous (B, K1, W) tensor of %s"
@@ -95,9 +98,9 @@ def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,)):
     if dev.type != "cpu":
         # the kernels stage rows with 16-byte and code words with 4-byte
         # copies
-        if W not in KERNEL_BAND_WIDTHS:
+        if W not in widths:
             raise ValueError("the walker kernels serve W in %s, got W=%d"
-                             % (KERNEL_BAND_WIDTHS, W))
+                             % (widths, W))
         if dirs.data_ptr() % 16 or xyc.data_ptr() % 4:
             raise ValueError("%s must be 16-byte and xyc 4-byte aligned"
                              % what)
@@ -173,7 +176,8 @@ def viterbi_walk(bp, xyc, m, n, fstate):
     launch the kernel's walk of that plane, CPU tensors run the plain
     walker.
     """
-    _check_inputs(bp, xyc, m, n, "bp", (torch.int8, torch.int16))
+    _check_inputs(bp, xyc, m, n, "bp", (torch.int8, torch.int16),
+                  VITERBI_BAND_WIDTHS)
     if (fstate.device != bp.device or fstate.dtype != torch.int32
             or tuple(fstate.shape) != (bp.shape[0],)
             or not fstate.is_contiguous()):

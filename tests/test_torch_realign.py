@@ -343,7 +343,7 @@ def test_mea_workspace_plan_fits_the_mapping_batch_in_one_launch():
                                       port_realign.DECODE_GAMMA)
 
 
-@pytest.mark.parametrize("W", [32, 64])
+@pytest.mark.parametrize("W", [32, 64, 128])
 def test_mea_split_budget_fits_the_workspace_cap(W):
     """The realign stage splits its decode windows at
     ``max_workspace_k(W, DECODE)``: a window of that many diagonals

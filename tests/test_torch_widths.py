@@ -30,14 +30,15 @@ and at 32 and 64, where the layout has no dead lane:
   (``forward_loglik``);
 * the E-step's batch (``PreparedEm``): each read's EM sums within 3e-5
   of each table's largest entry (``em_expectations``), at those widths
-  and at 96, which the CPU keeps unpadded and the EM lays into 128
-  lanes; ``em_train`` at w = 21 and 48: the trained transitions and
+  and at 96, which both devices lay into W = 128 (the wide band's own
+  tests are tests/test_torch_wide.py); ``em_train`` at w = 21 and 48: the trained transitions and
   emissions within 3e-5 relative of the JAX package's ``em_train``;
 * ``realign_sam_file`` at w = 21, 33 and 48: every record equal to the
   JAX package's;
 * on random codes at w = 21 no MEA or Viterbi op leaves the live band,
   and every dead lane's direction code is DIR_NONE;
-* ``check_band_width``: the card serves 2 to 64, the CPU any width.
+* ``check_band_width``: on the card the MEA path serves 2 to 128 and
+  the Viterbi path 2 to 64, the CPU any width on either.
 """
 
 import numpy as np
@@ -473,16 +474,23 @@ def test_no_op_leaves_the_live_band_on_random_codes():
 
 # ---- the widths the card serves (ROADMAP C10) ---------------------------- #
 
-def test_check_band_width_serves_2_to_64_on_the_card():
-    for w in (2, 21, 32, 33, 48, 64):
-        check_band_width(w, "cuda")
-        check_band_width(w, None)
-    check_band_width(96, "cpu")  # the CPU serves any width
-    check_band_width(1, "cpu")
-    for w in (1, 65, 96):
-        with pytest.raises(ValueError, match="C10"):
-            check_band_width(w, "cuda")
-    with pytest.raises(ValueError, match="C10"):
-        check_band_width(96, None)
-    assert [padded_width(w) for w in (2, 21, 32, 33, 48, 64, 96)] == [
-        32, 32, 32, 64, 64, 64, 96]
+GUARD_WIDTHS = (1, 2, 21, 32, 33, 48, 64, 65, 96, 128, 129, 160)
+
+
+@pytest.mark.parametrize("path", ["mea", "viterbi"])
+@pytest.mark.parametrize("w", GUARD_WIDTHS)
+def test_check_band_width_serves_each_path_on_the_card(path, w):
+    """The MEA path (pack, realign, MEA walker) serves 2 to 128 on the
+    card, the Viterbi path (pack, Viterbi, its walker, forward-only) 2
+    to 64; the CPU serves any width on either; each live width is laid
+    into the narrowest of 32, 64 and 128 lanes that holds it."""
+    served = 2 <= w <= (128 if path == "mea" else 64)
+    for device in ("cuda", None):
+        if served:
+            check_band_width(w, device, path)
+        else:
+            with pytest.raises(ValueError, match="C10"):
+                check_band_width(w, device, path)
+    check_band_width(w, "cpu", path)
+    want = next((W for W in (32, 64, 128) if w <= W), w)
+    assert padded_width(w) == want
