@@ -271,38 +271,48 @@
    Viterbi and walker 0).  In every earlier run the full-plane counters
    must be 0: no canonical model takes the full plane.
 15. Band widths 65 to 128 (ROADMAP C10), in the child of step 8 after
-   step 14 (``chip_smoke.py --wide`` runs this step alone): the MEA
-   path's kernels at W = 128 (C = 4 band cells a lane); the Viterbi and
-   forward-only kernels serve 2 to 64.  The W = 128 instantiations'
-   registers, local memory and shared memory are printed after the
-   build.  On step 3's mapping batch (512 reads, the full band of 128
-   lanes): the pack byte-identical and the walker's ops identical on
-   every read, the decode to step 3's bars on the first 128 reads at the
-   full diagonal count, in as many launches as its workspace plan (the
-   8 GiB cap: two at this width); each timed on the whole batch.
+   step 14 (``chip_smoke.py --wide`` runs this step alone): every
+   kernel at W = 128 (C = 4 band cells a lane).  The W = 128
+   instantiations' registers, local memory and shared memory are
+   printed after the build.  On step 3's mapping batch (512 reads, the
+   full band of 128 lanes): the pack byte-identical and the walker's ops
+   identical on every read, the decode to step 3's bars on the first 128
+   reads at the full diagonal count, in as many launches as its
+   workspace plan (the 8 GiB cap: two at this width); the Viterbi
+   kernel's short and 5-way steps (the default model) and its full plane
+   (step 14's first model) with score, fstate and the whole plane
+   bit-identical to the plain version's on the first 128 reads, the
+   walker on each plane with ops and end cells identical on every read
+   (every walk reaching the origin), the forward-only kernel's two-term
+   and 5-way sums with the loglik within 1e-5 relative of the plain
+   version's on the first 128 reads; each timed on the whole batch.
    ``MappingEngine(band_width=128)`` (MEA decode) on the mapping
    workload, cold then warm, every counter set to 0 before the warm run:
    >= 99 % of primaries at their origin; pack, realign and traceback
    launched, nothing else; and on 32 of its reads on the card and with
    ``device="cpu"``: records equal, the same launches.  On step 13's 64
-   reads at live width 96 in W = 128: every realign mode, the pack and
-   the MEA walker against their plain versions to step 13's bars, the
-   dead lanes checked, each timed at w = 96 and on the same reads at the
-   full 128.  Then, each with every counter set to 0 just before:
+   reads at live width 96 in W = 128: every kernel (every realign mode,
+   the pack, both walkers, the Viterbi and the forward-only kernel)
+   against its plain version to step 13's bars, the dead lanes checked,
+   each timed at w = 96 and on the same reads at the full 128.  Then, each with every counter set to 0 just before:
    ``cli realign --band-width 96`` on step 13's 8 records against
    ``--device cpu`` (records identical; pack, realign and traceback
    launched, nothing else); ``em_train`` at ``EmOptions(band_width=96,
    trials=1, iterations=2)`` on 16 chained reads against the CPU (3e-5
-   relative); ``MappingEngine(band_width=96, decode="viterbi")`` on the
-   card must raise naming C10 with every counter still 0.
+   relative); ``MappingEngine(band_width=96, decode="viterbi")`` on 32
+   reads on the card and with ``device="cpu"``: records equal; pack,
+   viterbi and viterbi_traceback launched, nothing else; and
+   ``MappingEngine(band_width=128, decode="viterbi")`` on the mapping
+   workload, cold then warm: >= 99 % of primaries at their origin, the
+   same launches.
 16. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
    ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
    ``launches_distributed_path``, the sum over the two ranks, a
    ``launches_widths_realign_path``, a ``launches_widths_em_path``, a
    ``launches_full_plane_path`` and step 15's ``launches_wide_map_path``,
    ``launches_wide_engine_path``, ``launches_wide_realign_path``,
-   ``launches_wide_em_path`` and ``launches_wide_viterbi_refusal_path``
-   on every row, step 13's ``*_w21`` and ``*_w48`` numbers and step
+   ``launches_wide_em_path``, ``launches_wide_viterbi_engine_path`` and
+   ``launches_wide_viterbi_map_path`` on every row, step 13's ``*_w21`` and ``*_w48`` numbers and step
    15's ``*_w96`` and ``*_w128`` numbers and W = 128 attributes;
    ``viterbi_full`` and ``viterbi_traceback_full`` the full-plane modes
    of the Viterbi kernel and its walker) and, last, ``{"ok": true,
@@ -2741,19 +2751,12 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
                         phase: str = "phase 13") -> None:
     """Every kernel against its plain version on a band of live width
     ``w`` in the padded layout, timed there and as a band of the
-    layout's full width; into ``res[kernel]`` under ``*_w<w>``.  Above
-    64 (the W = 128 layout) only the MEA path's kernels: the card's
-    Viterbi and forward-only kernels serve W = 32 and 64 (ROADMAP C10)."""
+    layout's full width; into ``res[kernel]`` under ``*_w<w>``."""
     import torch
 
     from nanopore_tpu_torch.align.em import representable
     from nanopore_tpu_torch.align.model import PairHmmModel
-    from nanopore_tpu_torch.ops.pack import (
-        SENT,
-        VITERBI_BAND_WIDTHS,
-        pack_xyc,
-        pack_xyc_plain,
-    )
+    from nanopore_tpu_torch.ops.pack import SENT, pack_xyc, pack_xyc_plain
     from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
     from nanopore_tpu_torch.ops.realign import (
         DIR_NONE,
@@ -2914,9 +2917,8 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
         plain_ms, err, REALIGN_EXP_OPS_PER_CELL,
         B * k_pad * w + B * (k_pad + 1) * 16 + B * 4 * w * 4 + 12 * B)
 
-    if w <= VITERBI_BAND_WIDTHS[-1]:
-        viterbi_width_rows(xyc, m, n, dflt, w, need, prep["offsets"],
-                           (fx, fm, fn_), row)
+    viterbi_width_rows(xyc, m, n, dflt, w, need, prep["offsets"],
+                       (fx, fm, fn_), row)
     for name, r in rows.items():
         res.setdefault(name, {}).update(r)
     print("%s, w = %d: %.1f s" % (phase, w, time.perf_counter() - t0))
@@ -3401,10 +3403,65 @@ def full_plane_phase(engine, pairs, fa: str, fq: str, dev, counters,
 
 # ---- phase 15: band widths 65 to 128 in the W = 128 kernels (MEA path) ---- #
 
+def viterbi_path_attributes(width: int, tag: str) -> dict:
+    """Print the registers, local-memory (spill) bytes and shared memory
+    a block at band width ``width`` of the Viterbi kernel's three steps,
+    the forward-only kernel's two gap sums and the Viterbi walker on both
+    planes; returns them under ``*<tag>`` by kernel."""
+    from nanopore_tpu_torch.ops import forward, traceback, viterbi
+
+    attrs = {}
+    for step, what, name, sfx in (
+            (viterbi.SHORT, "short", "viterbi", ""),
+            (viterbi.FIVE_WAY, "5-way", "viterbi", "_5way"),
+            (viterbi.FULL, "full-plane", "viterbi_full", "")):
+        a = viterbi.kernel_attributes(width, step)
+        print("viterbi %s step W=%d: %d registers, %d bytes of local memory "
+              "(spills) a thread, %d bytes of static shared memory a block "
+              "of %d threads and %d reads"
+              % (what, width, a["registers"], a["local_bytes"],
+                 a["static_smem"], a["threads"], a["reads"]))
+        attrs.setdefault(name, {}).update({
+            "registers" + sfx + tag: a["registers"],
+            "local_bytes" + sfx + tag: a["local_bytes"],
+            "smem_block" + tag: a["static_smem"],
+            "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
+        })
+    for two, sfx in ((True, ""), (False, "_5way")):
+        a = forward.kernel_attributes(width, two)
+        print("forward %s sum W=%d: %d registers, %d bytes of local memory "
+              "(spills) a thread, %d bytes of static shared memory a block "
+              "of %d threads and %d reads"
+              % ("two-term" if two else "5-way", width, a["registers"],
+                 a["local_bytes"], a["static_smem"], a["threads"],
+                 a["reads"]))
+        attrs.setdefault("forward", {}).update({
+            "registers" + sfx + tag: a["registers"],
+            "local_bytes" + sfx + tag: a["local_bytes"],
+            "smem_block" + tag: a["static_smem"],
+            "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
+        })
+    for full, name in ((False, "viterbi_traceback"),
+                       (True, "viterbi_traceback_full")):
+        a = traceback.viterbi_walker_attributes(width, full)
+        print("viterbi walker, %s plane W=%d: %d registers, %d bytes of local "
+              "memory (spills) a thread, %d bytes of dynamic shared memory a "
+              "block of %d threads and %d reads"
+              % ("full" if full else "byte", width, a["registers"],
+                 a["local_bytes"], a["dynamic_smem"], a["threads"],
+                 a["reads"]))
+        attrs[name] = {"registers" + tag: a["registers"],
+                       "local_bytes" + tag: a["local_bytes"],
+                       "reads_per_block" + tag: a["reads"]}
+    return attrs
+
+
 def wide_attributes() -> dict:
     """Print the W = 128 instantiations' registers, local-memory (spill)
     bytes, shared memory a block and warps a read (pack, each realign
-    mode, the MEA walker); returns them under ``*_w128`` by kernel."""
+    mode, the walkers' shared memory, and the Viterbi path's kernels
+    through :func:`viterbi_path_attributes`); returns them under
+    ``*_w128`` by kernel."""
     from nanopore_tpu_torch.ops import pack, realign, traceback
 
     tag = "_w%d" % WIDE_W
@@ -3431,10 +3488,12 @@ def wide_attributes() -> dict:
                      "local_bytes" + tag: a["local_bytes"],
                      "smem_block" + tag: a["static_smem"],
                      "warps_per_read" + tag: a["threads"] // 32}
-    smem = traceback.walker_shared_memory(WIDE_W)["traceback"]
-    print("MEA walker W=%d: %d bytes of dynamic shared memory a block of 4 "
-          "reads" % (WIDE_W, smem))
-    attrs["traceback"] = {"smem_block" + tag: smem}
+    smem = traceback.walker_shared_memory(WIDE_W)
+    print("walkers W=%d: dynamic shared memory a block %s" % (WIDE_W, smem))
+    for name, b in smem.items():
+        attrs[name] = {"smem_block" + tag: b}
+    for name, a in viterbi_path_attributes(WIDE_W, tag).items():
+        attrs.setdefault(name, {}).update(a)
     return attrs
 
 
@@ -3444,7 +3503,8 @@ def wide_batch_checks(pairs, params, dev, res: dict) -> None:
     engine gives it), each against its plain version to the bars of step
     3: the pack and the walker on every read, the decode on the first
     PLAIN_READS at the full diagonal count (a read's outputs do not
-    depend on its batch); each timed on the whole batch, into
+    depend on its batch); then the Viterbi path's kernels
+    (:func:`wide_viterbi_checks`); each timed on the whole batch, into
     ``res[kernel]`` under ``*_w128``."""
     import torch
 
@@ -3475,15 +3535,17 @@ def wide_batch_checks(pairs, params, dev, res: dict) -> None:
     need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     rows = {}
 
-    def row(name, ms, plain_ms, plain_reads, err, bound, by, per_batch):
-        rows[name] = {"ms" + tag: ms, "plain_ms" + tag: plain_ms,
-                      "plain_reads" + tag: plain_reads,
-                      "max_abs_err" + tag: err, "bound_ms" + tag: bound,
-                      "bound_by" + tag: by, "per_batch" + tag: per_batch,
-                      "reads" + tag: B, "k_pad" + tag: k_pad}
-        print("  %s W=%d: %.3f ms per batch of %d in %d launch(es), bound "
+    def row(name, ms, plain_ms, plain_reads, err, bound, by, per_batch,
+            sfx=""):
+        t = sfx + tag
+        rows.setdefault(name, {}).update({
+            "ms" + t: ms, "plain_ms" + t: plain_ms,
+            "plain_reads" + t: plain_reads, "max_abs_err" + t: err,
+            "bound_ms" + t: bound, "bound_by" + t: by,
+            "per_batch" + t: per_batch, "reads" + tag: B, "k_pad" + tag: k_pad})
+        print("  %s%s W=%d: %.3f ms per batch of %d in %d launch(es), bound "
               "%.4f ms (%s), plain %.1f ms on %d reads, max abs err %.3g"
-              % (name, WIDE_W, ms, B, per_batch, bound, by, plain_ms,
+              % (name, sfx, WIDE_W, ms, B, per_batch, bound, by, plain_ms,
                  plain_reads, err))
 
     print("phase 15, the mapping batch at W = %d: B=%d k_pad=%d"
@@ -3541,9 +3603,128 @@ def wide_batch_checks(pairs, params, dev, res: dict) -> None:
     nbytes = walked_bytes(ops_k) + need - B + B * (k_pad + 1) + 8 * B
     row("traceback", cuda_ms(lambda: mea_walk(dirs, xyc, m, n), 10), plain_ms,
         B, 0.0, nbytes / HBM_BYTES_PER_S * 1e3, "bytes", 1)
+    del out_k, dirs, ops_k, ops_p
+    wide_viterbi_checks(xyc, m, n, prep, params, row)
     for name, r in rows.items():
         res.setdefault(name, {}).update(r)
     print("phase 15, the mapping batch: %.1f s" % (time.perf_counter() - t0))
+
+
+def wide_viterbi_checks(xyc, m, n, prep, params, row) -> None:
+    """K4 (short and 5-way steps), K4-full (under phase 14's first
+    model), K5 on each plane and K6 (both gap sums) at W = 128 on the
+    mapping batch ``xyc``, each against its plain version: the Viterbi's
+    score, fstate and whole plane bit for bit on the first PLAIN_READS
+    reads, the walks' ops and end cells on every read, the loglik
+    bit-identical (1e-5 relative the bar) on the first PLAIN_READS; each
+    timed on the whole batch beside its bound, through ``row``."""
+    import torch
+
+    from nanopore_tpu_torch.ops import forward as F
+    from nanopore_tpu_torch.ops import traceback as T
+    from nanopore_tpu_torch.ops import viterbi as V
+    from nanopore_tpu_torch.ops.pairhmm import kernel_tables
+
+    t0 = time.perf_counter()
+    B, k_pad, P = xyc.shape[0], xyc.shape[1], PLAIN_READS
+    K1 = k_pad + 1
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
+    xs, ms_, ns = (t[:P].contiguous() for t in (xyc, m, n))
+    full_p = next(iter(full_plane_models(params).values()))
+    byte = V.viterbi_tables(params)
+    if not V.short_step(byte) or V.viterbi_structure_ok(full_p):
+        fail("phase 15: the models do not take the steps checked")
+
+    def held(what, out_k, want):
+        differ = [key for key in want
+                  if not bits_equal(out_k[key][:P], want[key])]
+        if differ:
+            fail("phase 15: %s at W=%d differs from its plain version in %s"
+                 % (what, WIDE_W, differ))
+
+    # K4, its two steps against one plain run (both give its bytes)
+    want, plain_ms = timed(lambda: V.viterbi_forward_plain(xs, ms_, ns, params))
+    steps = {}
+    for step, sfx, ops in ((V.SHORT, "", VITERBI_SHORT_OPS_PER_CELL),
+                           (V.FIVE_WAY, "_5way", VITERBI_OPS_PER_CELL)):
+        out = V._launch(xyc, m, n, byte, step)
+        held("K4 (%s step)" % ("short" if step == V.SHORT else "5-way"), out,
+             want)
+        steps[step] = out
+        bound, by = realign_bound(ops, WIDE_W, need,
+                                  (need - B) * WIDE_W + B * K1 * WIDE_W
+                                  + 12 * B)
+        row("viterbi", cuda_ms(lambda: V._launch(xyc, m, n, byte, step), 3),
+            plain_ms, P, 0.0, bound, by, 1, sfx)
+    if not all(torch.equal(steps[V.SHORT][key], steps[V.FIVE_WAY][key])
+               for key in want):
+        fail("phase 15: K4's two steps differ at W=%d" % WIDE_W)
+    print("  viterbi W=%d: both steps' score, fstate and whole plane "
+          "bit-identical to the plain version's on %d reads"
+          % (WIDE_W, P))
+    del want, steps[V.FIVE_WAY]
+    out_b = steps.pop(V.SHORT)
+    # K4-full
+    want, plain_ms = timed(lambda: V.viterbi_forward_full_plain(
+        xs, ms_, ns, full_p))
+    out_f = V.viterbi_forward(xyc, m, n, full_p)
+    if out_f["bp"].dtype != torch.int16:
+        fail("phase 15: the Viterbi did not take the full plane")
+    held("K4-full", out_f, want)
+    del want
+    bound, by = realign_bound(VITERBI_OPS_PER_CELL, WIDE_W, need,
+                              (need - B) * WIDE_W + B * K1 * WIDE_W * 2
+                              + 12 * B)
+    row("viterbi_full", cuda_ms(lambda: V.viterbi_forward(xyc, m, n, full_p),
+                                3),
+        plain_ms, P, 0.0, bound, by, 1)
+    print("  viterbi_full W=%d: score, fstate and whole int16 plane "
+          "bit-identical on %d reads" % (WIDE_W, P))
+    # K5 on each plane, every read
+    for name, out, per_step in (("viterbi_traceback", out_b, 1),
+                                ("viterbi_traceback_full", out_f, 2)):
+        args = (out["bp"], xyc, m, n, out["fstate"])
+        (ops_k, end_k) = T.viterbi_walk(*args)
+        (ops_p, end_p), plain_ms = timed(lambda: T.viterbi_walk_plain(*args))
+        if not (torch.equal(ops_k, ops_p) and torch.equal(end_k, end_p)):
+            fail("phase 15: %s at W=%d differs from the plain walker"
+                 % (name, WIDE_W))
+        lost = int(end_k.any(1).sum())
+        print("  %s W=%d: ops and end cells identical on %d reads; walks "
+              "short of the origin %d" % (name, WIDE_W, B, lost))
+        if lost:
+            fail("phase 15: %d %s walks stop short" % (lost, name))
+        nbytes = (per_step * walked_bytes(ops_k) + need - B + B * K1
+                  + 20 * B)
+        row(name, cuda_ms(lambda: T.viterbi_walk(*args), 10), plain_ms, B,
+            0.0, nbytes / HBM_BYTES_PER_S * 1e3, "bytes", 1)
+        del ops_k, ops_p
+    del out_b, out_f
+    # K6, its two gap sums against one plain run
+    ll_p, plain_ms = timed(lambda: F.forward_loglik_plain(xs, ms_, ns, params))
+    tab = kernel_tables(params)
+    if not F.two_term_sum(tab):
+        fail("phase 15: the default model does not take the two-term sum")
+    for two, sfx, ops in ((True, "", FORWARD_SHORT_OPS_PER_CELL),
+                          (False, "_5way", FORWARD_OPS_PER_CELL)):
+        ll_k = F._launch(xyc, m, n, tab, two)["loglik"]
+        if not bool(torch.isfinite(ll_k).all()):
+            fail("phase 15: non-finite forward loglik at W=%d" % WIDE_W)
+        ll_rel = rel_err(ll_k[:P], ll_p)
+        same = bits_equal(ll_k[:P], ll_p)
+        print("  forward (%s sum) W=%d: loglik max rel %.3g (%s) on %d reads"
+              % ("two-term" if two else "5-way", WIDE_W, ll_rel,
+                 "bit-identical" if same else "not bit-identical", P))
+        if ll_rel > 1e-5:
+            fail("phase 15: forward kernel at W=%d outside tolerance"
+                 % WIDE_W)
+        bound, by = realign_bound(ops, WIDE_W, need,
+                                  (need - B) * WIDE_W + 16 * B)
+        row("forward", cuda_ms(lambda: F._launch(xyc, m, n, tab, two), 3),
+            plain_ms, P, float((ll_k[:P] - ll_p).abs().max()), bound, by, 1,
+            sfx)
+    print("phase 15, the Viterbi path on the mapping batch: %.1f s"
+          % (time.perf_counter() - t0))
 
 
 def engine_records(path: str) -> list:
@@ -3560,8 +3741,9 @@ def wide_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
     """Phase 15 (its checks in the docstring's step 15): the W = 128
     kernels on the mapping batch and at live width 96 on phase 13's
     reads, the engine at W = 128, ``realign`` and EM at 96 card against
-    CPU, and the Viterbi engine's refusal at 96.  Returns the kernels'
-    ``*_w128`` and ``*_w96`` numbers and each run's launches."""
+    CPU, and the Viterbi engine at 96 card against CPU and at 128.
+    Returns the kernels' ``*_w128`` and ``*_w96`` numbers and each run's
+    launches."""
     import dataclasses
 
     import torch
@@ -3642,24 +3824,63 @@ def wide_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
                                              "phase 15")
     runs["wide_em"] = em_width_check(wl, WIDE_LIVE, dev, counters, "phase 15")
 
-    # ---- the Viterbi path refuses 96 on the card, before any work ----
+    # ---- the Viterbi engine at 96 on 32 reads, card against CPU ----
+    vit = ("pack", "viterbi", "viterbi_traceback")
+    cfg96 = dataclasses.replace(cfg32, band_width=WIDE_LIVE,
+                                decode="viterbi")
+    for where in ("cuda", "cpu"):
+        e = MappingEngine(ref, cfg96, index=engine.index,
+                          device=dev if where == "cuda" else "cpu")
+        sams[where] = os.path.join(wdir, "viterbi_%s.sam" % where)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+        t0 = time.perf_counter()
+        e.map_fastq(fq32, sams[where])
+        if where == "cuda":
+            torch.cuda.synchronize()
+            runs["wide_viterbi_engine"] = run = {c.name: c.count
+                                                 for c in counters}
+        print("phase 15: MappingEngine(band_width=%d, decode=\"viterbi\") on "
+              "%d reads, %s: %.3f s" % (WIDE_LIVE, WIDE_ENGINE_READS, where,
+                                        time.perf_counter() - t0))
+    got, want = engine_records(sams["cuda"]), engine_records(sams["cpu"])
+    print("phase 15: %d Viterbi records at w = %d on the card, %s the CPU's; "
+          "launches %s" % (len(got), WIDE_LIVE, "equal to" if got == want
+                           else "DIFFERENT from", run))
+    if got != want or not got:
+        fail("phase 15: the Viterbi engine's records at w = %d on the card "
+             "differ from the CPU's" % WIDE_LIVE)
+    if min(run[k] for k in vit) <= 0 or any(
+            v for k, v in run.items() if k not in vit):
+        fail("phase 15 launches %s: want pack, viterbi and viterbi_traceback "
+             "> 0, the rest 0" % run)
+
+    # ---- the Viterbi engine at W = 128 on the mapping workload ----
+    eng = MappingEngine(ref, dataclasses.replace(cfg, decode="viterbi"),
+                        index=engine.index, device=dev)
+    sam = os.path.join(wdir, "viterbi_w128.sam")
+    eng.map_fastq(fq, sam)  # cold
     torch.cuda.synchronize()
     for c in counters:
         c.reset()
-    try:
-        MappingEngine(ref, dataclasses.replace(cfg, band_width=WIDE_LIVE,
-                                               decode="viterbi"),
-                      index=engine.index, device=dev)
-        refusal = "none"
-    except ValueError as err:
-        refusal = str(err)
+    t0 = time.perf_counter()
+    eng.map_fastq(fq, sam)
     torch.cuda.synchronize()
-    runs["wide_viterbi_refusal"] = run = {c.name: c.count for c in counters}
-    print("phase 15: MappingEngine(band_width=%d, decode=\"viterbi\") on the "
-          "card: %s; launches %s" % (WIDE_LIVE, refusal, run))
-    if "C10" not in refusal or any(run.values()):
-        fail("phase 15: the Viterbi engine at w = %d was not refused before "
-             "any work" % WIDE_LIVE)
+    wall = time.perf_counter() - t0
+    runs["wide_viterbi_map"] = run = {c.name: c.count for c in counters}
+    share = origin_share(sam)
+    print("phase 15: MappingEngine(band_width=%d, decode=\"viterbi\") on %d "
+          "reads: %.3f s warm = %.1f reads/s; primaries at origin %.4f; "
+          "launches %s" % (WIDE_W, N_READS, wall, N_READS / wall, share, run))
+    if share < 0.99:
+        fail("phase 15: only %.4f of the Viterbi engine's primaries at their "
+             "origin" % share)
+    if min(run[k] for k in vit) <= 0 or any(
+            v for k, v in run.items() if k not in vit):
+        fail("phase 15 launches %s: want pack, viterbi and viterbi_traceback "
+             "> 0, the rest 0" % run)
     print("phase 15 wall: %.1f s" % (time.perf_counter() - t_phase))
     return {"res": res, "runs": runs}
 
@@ -3929,7 +4150,7 @@ def main() -> int:
     from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
     from nanopore_tpu_torch.mapping.runner import run_mapper
     from nanopore_tpu_torch.io.seqio import read_fasta_dict
-    from nanopore_tpu_torch.ops import forward, pack, realign, traceback, viterbi
+    from nanopore_tpu_torch.ops import pack, realign, traceback
     from nanopore_tpu_torch.runtime import native_index
 
     card = subprocess.run(
@@ -3968,40 +4189,8 @@ def main() -> int:
             "smem_block" + tag: a["static_smem"],
             "warps_per_read" + tag: a["threads"] // 32,
         })
-        for step, what, row, sfx in (
-                (viterbi.SHORT, "short", "viterbi", ""),
-                (viterbi.FIVE_WAY, "5-way", "viterbi", "_5way"),
-                (viterbi.FULL, "full-plane", "viterbi_full", "")):
-            a = viterbi.kernel_attributes(width, step)
-            print("viterbi %s step W=%d: %d registers, %d bytes of local "
-                  "memory a thread, %d bytes of static shared memory a block "
-                  "of %d threads and %d reads"
-                  % (what, width, a["registers"], a["local_bytes"],
-                     a["static_smem"], a["threads"], a["reads"]))
-            attrs.setdefault(row, {}).update({
-                "registers" + sfx + tag: a["registers"],
-                "local_bytes" + sfx + tag: a["local_bytes"],
-                "smem_block" + tag: a["static_smem"],
-                "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
-            })
-        for two in (True, False):
-            a = forward.kernel_attributes(width, two)
-            print("forward %s sum W=%d: %d registers, %d bytes of local "
-                  "memory a thread, %d bytes of static shared memory a block "
-                  "of %d threads and %d reads"
-                  % ("two-term" if two else "5-way", width, a["registers"],
-                     a["local_bytes"], a["static_smem"], a["threads"],
-                     a["reads"]))
-            attrs.setdefault("forward", {}).update({
-                ("registers" if two else "registers_5way") + tag:
-                    a["registers"],
-                ("local_bytes" if two else "local_bytes_5way") + tag:
-                    a["local_bytes"],
-            })
-        attrs["forward"].update({
-            "smem_block" + tag: a["static_smem"],
-            "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
-        })
+        for name, a in viterbi_path_attributes(width, tag).items():
+            attrs.setdefault(name, {}).update(a)
     for width in (W, W_REALIGN):
         smem = traceback.walker_shared_memory(width)
         print("walkers W=%d: dynamic shared memory a block of 4 reads %s"

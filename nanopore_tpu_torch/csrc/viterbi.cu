@@ -56,7 +56,8 @@
 // is a serial chain of ~10^4 diagonals, so a diagonal's latency and, at
 // B = 512 (one warp a scheduler), its issue slots set the time.  Design:
 //  * one warp per read, two reads a block; a lane owns C = W/32 adjacent
-//    band cells in registers, so a band shift is one warp shuffle;
+//    band cells in registers (W = 32, 64 or 128), so a band shift is one
+//    warp shuffle;
 //  * the codes are staged through shared memory in chunks of CH + 1 rows
 //    with cp.async, double-buffered (the next chunk is in flight while
 //    this one is computed), and the emissions and band deltas of the
@@ -74,7 +75,8 @@
 //    int) are shuffled and then selected by d1; the match state and its
 //    argmax are shuffled both ways and selected by d2;
 //  * the warp writes one backpointer row per diagonal, coalesced (W bytes,
-//    2W for the full plane: a lane stores its C cells as one word);
+//    2W for the full plane: a lane stores its C cells as one word, 8
+//    bytes for the full plane at W = 128);
 //    a read stops at its own end diagonal and zeroes the rows above it
 //    with 16-byte stores.
 #include <cuda_runtime.h>
@@ -95,10 +97,13 @@ constexpr int NTAB = 91;  // ltf 25 | lemf 36 | legf 30
 // the steps (ops/viterbi.py: FIVE_WAY, SHORT, FULL)
 constexpr int STEP_FIVE_WAY = 0, STEP_SHORT = 1, STEP_FULL = 2;
 
-// a lane's C plane cells, stored as one word
+// a lane's C plane cells, stored as one word (8 bytes: the full plane
+// at C = 4)
 template <int C, typename Cell>
-using Word = std::conditional_t<C * sizeof(Cell) == 4, uint32_t,
-                                std::conditional_t<C * sizeof(Cell) == 2, uint16_t, uint8_t>>;
+using Word = std::conditional_t<
+    C * sizeof(Cell) == 8, uint64_t,
+    std::conditional_t<C * sizeof(Cell) == 4, uint32_t,
+                       std::conditional_t<C * sizeof(Cell) == 2, uint16_t, uint8_t>>>;
 
 struct Tables {
   float v[NTAB];
@@ -158,12 +163,18 @@ __device__ __forceinline__ void shift_if(T (&a)[C], bool move, T fill, int lane)
   for (int c = 0; c < C; ++c) a[c] = move ? o[c] : a[c];
 }
 
-// the emissions and top byte of the diagonal whose codes are `row`
+// the emissions and top byte of the diagonal whose codes are `row`; a
+// lane's C code bytes are one aligned load (w0 = lane * C, a row is a
+// multiple of 16 bytes)
 template <int C>
 __device__ __forceinline__ void lookup(const Emit& e, const uint8_t* row, int w0,
                                        float (&em)[NS][C], int& top) {
   uint8_t code[C];
-  if constexpr (C == 2) {
+  if constexpr (C == 4) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(row + w0);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) code[c] = (uint8_t)(v >> (8 * c));
+  } else if constexpr (C == 2) {
     const uint16_t v = *reinterpret_cast<const uint16_t*>(row + w0);
     code[0] = (uint8_t)(v & 0xFF);
     code[C - 1] = (uint8_t)(v >> 8);
@@ -192,6 +203,7 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
   constexpr int W = 32 * C;
   using Cell = std::conditional_t<STEP == STEP_FULL, uint16_t, uint8_t>;
   using Out = Word<C, Cell>;
+  using Acc = std::conditional_t<sizeof(Out) == 8, uint64_t, uint32_t>;
   __shared__ Emit emit;
   __shared__ Stage<C> stage[WARPS];
   for (int i = threadIdx.x; i < 64; i += blockDim.x) {
@@ -315,7 +327,7 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
       shift_if<C, -1>(v[3], d1 == 0, NEG, lane);
       shift_if<C, -1>(pa, d1 == 0, 0, lane);
 
-      uint32_t word = 0;
+      Acc word = 0;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
 #pragma unroll
@@ -323,7 +335,7 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
           b[s][c] = a[s][c];
           a[s][c] = fmaxf(v[s][c] + e[s][c], NEG);
         }
-        word |= (uint32_t)(bm[c] + pa[c] + pb[c]) << (8 * sizeof(Cell) * c);
+        word |= (Acc)(bm[c] + pa[c] + pb[c]) << (8 * sizeof(Cell) * c);
       }
       *reinterpret_cast<Out*>(out + (size_t)k * W + w0) = (Out)word;
       if (k == kend) {  // cell (m, n): band cell 0 (lane 0's)
@@ -401,6 +413,9 @@ extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const voi
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
   const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
   cudaStream_t s = (cudaStream_t)stream;
+  if (W == 128)
+    return launch_width<4>(step, t, grid, block, s, xyc, m, n, nreads, k_pad, score,
+                           fstate, bp);
   if (W == 64)
     return launch_width<2>(step, t, grid, block, s, xyc, m, n, nreads, k_pad, score,
                            fstate, bp);
@@ -418,7 +433,9 @@ extern "C" int np_viterbi_attrs(int W, int step, int* out) {
   cudaError_t e;
   if (step < STEP_FIVE_WAY || step > STEP_FULL)
     return (int)cudaErrorInvalidValue;
-  if (W == 64)
+  if (W == 128)
+    e = attrs_width<4>(step, &a);
+  else if (W == 64)
     e = attrs_width<2>(step, &a);
   else if (W == 32)
     e = attrs_width<1>(step, &a);

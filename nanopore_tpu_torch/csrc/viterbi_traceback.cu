@@ -30,7 +30,8 @@
 // serial chain:
 // each step's cell depends on the previous step's move.  Design: that
 // of csrc/traceback.cu, going down:
-//  * one warp per read, WARPS reads a block;
+//  * one warp per read, WARPS = 4 reads a block, but 2 for the full
+//    plane at W = 128 (walk::reads_per_block);
 //  * o[kstart] (kstart = min(m + n, k_pad)) first, as one warp-parallel
 //    sum of d1[1..kstart]: independent strided loads, then
 //    __reduce_add_sync; meanwhile the first chunks are in flight;
@@ -42,7 +43,10 @@
 //    those words into the chunk's o[k], carried down from o[kstart].
 //    The full plane's ring is twice the bytes: 205,504 B a block of 4
 //    reads at W = 64, within the 227 KB a block may take (one block an
-//    SM either way at B = 512: 128 blocks on 132 SMs);
+//    SM either way at B = 512: 128 blocks on 132 SMs); at W = 128 a read's
+//    int16 ring is 100,528 B, so a block holds 2 reads (201,056 B), one
+//    block an SM, 256 blocks at B = 512 (the byte ring, 205,504 B a
+//    block of 4, as K3's);
 //  * one lane walks in shared memory only, jumping straight to its next
 //    diagonal (k - 1 or k - 2).  The walk is software-pipelined: the
 //    state decides the next cell before the current backpointer is
@@ -51,7 +55,7 @@
 //    each op into a shared op row (prefilled with 3) that the warp
 //    stores with 16-byte stores;
 //  * the rows above kstart are filled with 3 by 16-byte stores.
-// Serves W = 32 and 64, the band width of the Viterbi kernel's callers.
+// Serves W = 32, 64 and 128, the Viterbi kernel's widths.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,7 +66,7 @@ namespace {
 using namespace walk;
 
 template <int W, typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(reads_per_block<W, T>() * 32)
 viterbi_walk_kernel(const T* __restrict__ bp, const uint8_t* __restrict__ xyc,
                     const int32_t* __restrict__ m, const int32_t* __restrict__ n,
                     const int32_t* __restrict__ fstate, int nreads, int k_pad,
@@ -70,7 +74,7 @@ viterbi_walk_kernel(const T* __restrict__ bp, const uint8_t* __restrict__ xyc,
   extern __shared__ __align__(16) unsigned char stage_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * WARPS + warp;
+  const int r = blockIdx.x * reads_per_block<W, T>() + warp;
   if (r >= nreads) return;
   Stage<W, T>& sg = reinterpret_cast<Stage<W, T>*>(stage_raw)[warp];
   const int K1 = k_pad + 1;
@@ -159,11 +163,36 @@ extern "C" const char* np_cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// Dynamic shared memory a block takes at band width W (0 for a W other
-// than 32, 64 and 128; the walker launches at 32 and 64 only), over the
-// full plane's 16-bit rows if `full`, else the byte plane's.
-extern "C" int np_viterbi_walk_smem(int W, int full) {
-  return full ? walk::smem_bytes<int16_t>(W) : walk::smem_bytes<int8_t>(W);
+namespace {
+
+template <int W, typename T>
+int attrs_width(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, viterbi_walk_kernel<W, T>);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = walk::stage_bytes<W, T>();
+  out[3] = walk::reads_per_block<W, T>() * 32;
+  out[4] = walk::reads_per_block<W, T>();
+  return (int)e;
+}
+
+template <typename T>
+int attrs_plane(int W, int* out) {
+  if (W == 128) return attrs_width<128, T>(out);
+  if (W == 64) return attrs_width<64, T>(out);
+  if (W == 32) return attrs_width<32, T>(out);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Registers, local memory (spill) bytes per thread, dynamic shared memory
+// bytes per block, threads per block and reads per block of the walk at
+// band width W over the full plane's 16-bit rows if `full`, else the
+// byte plane's, into out[5].
+extern "C" int np_viterbi_walk_attrs(int W, int full, int* out) {
+  return full ? attrs_plane<int16_t>(W, out) : attrs_plane<int8_t>(W, out);
 }
 
 namespace {
@@ -172,6 +201,11 @@ template <typename T>
 int launch_plane(const void* bp, const void* xyc, const void* m, const void* n,
                  const void* fstate, int nreads, int k_pad, int W, void* ops, void* end,
                  cudaStream_t s) {
+  if (W == 128)
+    return walk::launch<128, T>(viterbi_walk_kernel<128, T>, nreads, s, (const T*)bp,
+                                (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
+                                (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops,
+                                (int32_t*)end);
   if (W == 64)
     return walk::launch<64, T>(viterbi_walk_kernel<64, T>, nreads, s, (const T*)bp,
                                (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
@@ -191,7 +225,7 @@ int launch_plane(const void* bp, const void* xyc, const void* m, const void* n,
 // (nreads, k_pad + 1, W): the byte plane, int8, or (`full`) the full
 // plane, int16; xyc (nreads, k_pad, W) int8, m, n and fstate (nreads,)
 // int32, ops (nreads, k_pad + 1) int8 and end (nreads, 2) int32 out; W is
-// 32 or 64, and bp is 16-byte aligned.
+// 32, 64 or 128, and bp is 16-byte aligned.
 extern "C" int np_viterbi_walk_launch(const void* bp, const void* xyc, const void* m,
                                       const void* n, const void* fstate, int nreads,
                                       int k_pad, int W, int full, void* ops, void* end,

@@ -16,7 +16,7 @@
 
 namespace walk {
 
-constexpr int WARPS = 4;  // reads per block
+constexpr int WARPS = 4;  // reads per block, but see reads_per_block
 constexpr int CH = 128;   // diagonals per staged chunk
 constexpr int PER = CH / 32;
 constexpr int NBUF = 3;   // ring depth: chunks in flight ahead of the walk
@@ -31,6 +31,15 @@ struct __align__(16) Stage {
                               // walk's look-ahead reads OFF past each end
   uint8_t ops[CH + 16];       // its op row, at the global row's alignment
 };
+
+// Reads (warps) a block of a walker over rows of T at band width W:
+// WARPS, but 2 where a row is 256 bytes (the full plane's 16-bit rows at
+// W = 128), whose ring of 4 reads (402,112 bytes) would not fit in the
+// 232,448 a block may opt into
+template <int W, typename T>
+__host__ __device__ constexpr int reads_per_block() {
+  return W * (int)sizeof(T) > 128 ? 2 : WARPS;
+}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -134,26 +143,32 @@ __device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
 }
 
 // Dynamic shared memory a walker block takes at band width W with rows
-// of T: one Stage a warp (0 for a W other than 32, 64 and 128).  The
-// byte rows take 205,504 bytes at W = 128, under the 232,448 a block may
-// opt into; 16-bit rows would take twice that.
+// of T: one Stage a read of the block (0 for a W other than 32, 64 and
+// 128).  The byte rows take 205,504 bytes at W = 128 (4 reads), the
+// 16-bit rows 201,056 (2 reads), under the 232,448 a block may opt into.
+template <int W, typename T>
+constexpr int stage_bytes() {
+  return reads_per_block<W, T>() * (int)sizeof(Stage<W, T>);
+}
+
 template <typename T = int8_t>
 inline int smem_bytes(int W) {
-  return W == 128 ? WARPS * (int)sizeof(Stage<128, T>)
-       : W == 64 ? WARPS * (int)sizeof(Stage<64, T>)
-       : W == 32 ? WARPS * (int)sizeof(Stage<32, T>)
+  return W == 128 ? stage_bytes<128, T>()
+       : W == 64 ? stage_bytes<64, T>()
+       : W == 32 ? stage_bytes<32, T>()
                  : 0;
 }
 
-// Launch a walker kernel over rows of T at its dynamic shared memory;
-// returns cudaGetLastError().
+// Launch a walker kernel over rows of T at its dynamic shared memory,
+// reads_per_block<W, T>() reads a block; returns cudaGetLastError().
 template <int W, typename T = int8_t, typename Kernel, typename... Args>
 int launch(Kernel kernel, int nreads, cudaStream_t stream, Args... args) {
-  const int smem = smem_bytes<T>(W);
+  constexpr int R = reads_per_block<W, T>();
+  const int smem = stage_bytes<W, T>();
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(nreads + WARPS - 1) / WARPS, WARPS * 32, smem, stream>>>(args...);
+  kernel<<<(nreads + R - 1) / R, R * 32, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

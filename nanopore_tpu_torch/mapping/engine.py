@@ -139,11 +139,8 @@ class MappingEngine:
         device=None,
     ):
         self.config = config or MapperConfig()
-        # the MEA decode serves widths to 128 on the card, the Viterbi
-        # to 64 (ROADMAP C10)
-        check_band_width(self.config.band_width, device,
-                         "viterbi" if self.config.decode == "viterbi"
-                         else "mea")
+        # both decodes serve widths 2 to 128 on the card (ROADMAP C10)
+        check_band_width(self.config.band_width, device)
         # the card unless the caller asks for the CPU; raises when no
         # card is present
         self.device = resolve_device(device)

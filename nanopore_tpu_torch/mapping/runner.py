@@ -263,8 +263,12 @@ def _run_mapper_distributed(
         if spec.post == "realign_trained":
             model = PairHmmModel.load(trained_model_path(spec.trained_model))
         elif spec.post == "realign_em":
-            opts = dataclasses.replace(em_options or EmOptions(),
-                                       use_mesh=True)
+            # EM at the preset's band width, as the JAX package's
+            # multi-host path trains (its single-process path, like this
+            # package's, keeps EmOptions())
+            opts = dataclasses.replace(
+                em_options or EmOptions(band_width=spec.band_width),
+                use_mesh=True)
             if opts.checkpoint_path is None:
                 # a shared-filesystem path: every rank resumes in lockstep
                 opts = dataclasses.replace(

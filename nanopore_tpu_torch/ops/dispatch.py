@@ -23,8 +23,8 @@ A band of live width w (``band_width``) is laid into W = 32 lanes if
 w <= 32, W = 64 if w <= 64, else W = 128 (``ops.pack.padded_width``; the
 CPU keeps a band wider than 128 unpadded), its dead lanes all sentinel,
 on either device: so the CPU runs exactly the layout the card runs.  On
-the card the Viterbi and the forward-only kernel serve W = 32 and 64
-only (``check_band_width``'s ``"viterbi"`` path, ROADMAP C10).  The
+the card every kernel serves W = 32, 64 and 128, so every class takes
+the live widths 2 to 128 (``check_band_width``, ROADMAP C10).  The
 batch carries w (``LitePack.band_width``) to the realign kernel's
 launches, and ``run()`` gives the gamma band and the flush sliced to
 the w live lanes; the direction codes and the Viterbi plane keep W
@@ -308,14 +308,12 @@ def prepared_from_pairs(
     model at every ``run``).  ``exact_k=True`` pins the diagonal count
     to ``k_max`` (k-bin bucketing) instead of tightening it.  The band of
     live width ``band_width`` is laid into ``padded_width(band_width)``
-    lanes; the card refuses a width the kernels of ``prepared_cls`` do
-    not serve before any work (``check_band_width``, ROADMAP C10: 2 to
-    128 for the MEA path's classes, 2 to 64 for ``PreparedViterbi`` and
-    ``PreparedForward``)."""
+    lanes; the card refuses a width its kernels do not serve before any
+    work (``check_band_width``, ROADMAP C10: 2 to 128 for every
+    class)."""
     kwargs = dict(cls_kwargs)
     device = kwargs.pop("device", None)
-    check_band_width(band_width, device, "viterbi" if prepared_cls in (
-        PreparedViterbi, PreparedForward) else "mea")
+    check_band_width(band_width, device)
     device = resolve_device(device)
     if not exact_k:
         k_max = _pairs_k_max(pairs, k_max)

@@ -44,11 +44,9 @@ from nanopore_tpu_torch.ops.pairhmm import band_offsets_from_cigar
 # so both packages lay out the same k_pad and compare row for row)
 K_ALIGN = 128
 SENT = (5 << 3) | 5  # all-sentinel packed code
-# W = 32 * band cells per lane: the layouts of the MEA path's kernels
-# (pack, realign in every mode, MEA walker)
+# W = 32 * band cells per lane: the layouts of every kernel (pack,
+# realign in every mode, the walkers, the Viterbi, forward-only)
 KERNEL_BAND_WIDTHS = (32, 64, 128)
-# the Viterbi, its walker and the forward-only kernel (ROADMAP C10)
-VITERBI_BAND_WIDTHS = (32, 64)
 MIN_BAND_WIDTH = 2  # the narrowest live width the card serves
 
 LAUNCHES = kb.LaunchCounter("pack")
@@ -64,27 +62,26 @@ def padded_width(band_width: int) -> int:
     return band_width
 
 
-def check_band_width(band_width: int, device=None, path: str = "mea"
-                     ) -> None:
-    """Refuse a band width the kernels of ``path`` do not serve, where
-    ``device`` is not the CPU (``None`` is the card), before an entry
-    point does any work (ROADMAP C10).  On the card the MEA path
-    (``"mea"``: pack, realign in every mode, MEA walker) serves every
-    live width from 2 to 128, laid into its W = 32, 64 or 128 kernels;
-    the Viterbi path (``"viterbi"``: pack, Viterbi, Viterbi walker, and
-    the forward-only kernel) every width from 2 to 64.  The plain
-    versions on the CPU serve any width; the card gets no plain
-    fallback."""
-    widths = {"mea": KERNEL_BAND_WIDTHS, "viterbi": VITERBI_BAND_WIDTHS}[path]
+def check_band_width(band_width: int, device=None) -> None:
+    """Refuse a band width the kernels do not serve, where ``device`` is
+    not the CPU (``None`` is the card), before an entry point does any
+    work (ROADMAP C10).  On the card every path (the MEA path: pack,
+    realign in every mode, MEA walker; the Viterbi path: pack, Viterbi,
+    its walker, and the forward-only kernel) serves every live width
+    from 2 to 128, laid into its W = 32, 64 or 128 kernels; a wider band
+    is ROADMAP C11.  The plain versions on the CPU serve any width; the
+    card gets no plain fallback."""
     if torch.device("cuda" if device is None else device).type == "cpu":
         return
-    if not MIN_BAND_WIDTH <= band_width <= widths[-1]:
+    if not MIN_BAND_WIDTH <= band_width <= KERNEL_BAND_WIDTHS[-1]:
         raise ValueError(
-            "band width %d is not served on the card by the %s path: its "
-            "kernels take widths %d to %d (ROADMAP C10); pass device='cpu' "
-            "to run the plain path at any width"
-            % (band_width, path, MIN_BAND_WIDTH, widths[-1])
+            "band width %d is not served on the card: its kernels take "
+            "widths %d to %d (ROADMAP C10; wider bands are C11); pass "
+            "device='cpu' to run the plain path at any width"
+            % (band_width, MIN_BAND_WIDTH, KERNEL_BAND_WIDTHS[-1])
         )
+
+
 _SIG = {
     "np_pack_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 2,

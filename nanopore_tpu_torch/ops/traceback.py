@@ -31,11 +31,9 @@ them up to its start diagonal and subtracts them going down.
 
 The kernels (``csrc/traceback.cu``, ``csrc/viterbi_traceback.cu``, the
 latter with a walk of each plane) run one warp per read, stage its rows
-through shared memory and walk them with one lane; each serves the band
-widths of the kernel whose rows it walks: the MEA walker the realign
-kernel's (``KERNEL_BAND_WIDTHS``, 32, 64 and 128), the Viterbi walker
-the Viterbi kernel's (``VITERBI_BAND_WIDTHS``, 32 and 64).  The plain
-versions serve any width.
+through shared memory and walk them with one lane; both serve the
+kernels' band widths (``KERNEL_BAND_WIDTHS``, 32, 64 and 128).  The
+plain versions serve any width.
 """
 
 from __future__ import annotations
@@ -47,7 +45,7 @@ import torch
 
 from nanopore_tpu_torch.io.sam import CIG
 from nanopore_tpu_torch.kernels import build as kb
-from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS, VITERBI_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
 
 DIR_DIAG, DIR_DEL, DIR_INS, DIR_NONE = 0, 1, 2, 3
 OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
@@ -64,23 +62,36 @@ _SIG = {
 _VIT_SIG = {
     "np_viterbi_walk_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 3,
-    "np_viterbi_walk_smem": [ctypes.c_int] * 2,
+    "np_viterbi_walk_attrs": [ctypes.c_int] * 2 + [ctypes.c_void_p],
 }
+
+
+def viterbi_walker_attributes(W: int, full: bool = False) -> dict:
+    """The compiled Viterbi walker's registers, local-memory (spill)
+    bytes per thread, dynamic shared memory per block, and threads and
+    reads per block at band width ``W``, walking the full plane
+    (``full``) or the byte plane (needs the card: builds the kernel)."""
+    lib = kb.library("viterbi_traceback", _VIT_SIG)
+    vals = (ctypes.c_int * 5)()
+    kb.check(lib, lib.np_viterbi_walk_attrs(W, int(full), vals),
+             "viterbi_traceback attrs")
+    return dict(zip(("registers", "local_bytes", "dynamic_smem", "threads",
+                     "reads"), vals))
 
 
 def walker_shared_memory(W: int) -> dict:
     """Dynamic shared memory a block of each walker kernel takes at band
-    width ``W`` (bytes; builds the kernels, so it needs nvcc)."""
-    vit = kb.library("viterbi_traceback", _VIT_SIG)
+    width ``W`` (bytes: 4 reads a block, 2 for the full plane at
+    W = 128; needs the card: builds the kernels)."""
     return {
         "traceback": kb.library("traceback", _SIG).np_walk_smem(W),
-        "viterbi_traceback": vit.np_viterbi_walk_smem(W, 0),
-        "viterbi_traceback_full": vit.np_viterbi_walk_smem(W, 1),
+        "viterbi_traceback": viterbi_walker_attributes(W)["dynamic_smem"],
+        "viterbi_traceback_full": viterbi_walker_attributes(
+            W, True)["dynamic_smem"],
     }
 
 
-def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,),
-                  widths=KERNEL_BAND_WIDTHS):
+def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,)):
     dev = dirs.device
     if dirs.dtype not in dtypes or dirs.dim() != 3 or not dirs.is_contiguous():
         raise ValueError("%s must be a contiguous (B, K1, W) tensor of %s"
@@ -98,9 +109,9 @@ def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,),
     if dev.type != "cpu":
         # the kernels stage rows with 16-byte and code words with 4-byte
         # copies
-        if W not in widths:
+        if W not in KERNEL_BAND_WIDTHS:
             raise ValueError("the walker kernels serve W in %s, got W=%d"
-                             % (widths, W))
+                             % (KERNEL_BAND_WIDTHS, W))
         if dirs.data_ptr() % 16 or xyc.data_ptr() % 4:
             raise ValueError("%s must be 16-byte and xyc 4-byte aligned"
                              % what)
@@ -176,8 +187,7 @@ def viterbi_walk(bp, xyc, m, n, fstate):
     launch the kernel's walk of that plane, CPU tensors run the plain
     walker.
     """
-    _check_inputs(bp, xyc, m, n, "bp", (torch.int8, torch.int16),
-                  VITERBI_BAND_WIDTHS)
+    _check_inputs(bp, xyc, m, n, "bp", (torch.int8, torch.int16))
     if (fstate.device != bp.device or fstate.dtype != torch.int32
             or tuple(fstate.shape) != (bp.shape[0],)
             or not fstate.is_contiguous()):

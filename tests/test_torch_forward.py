@@ -47,7 +47,11 @@ from nanopore_tpu_torch.ops.realign import _seq_sum, _shift, realign_decode_plai
 from nanopore_tpu_torch.ops.viterbi import viterbi_forward_plain
 
 from test_pallas import uniform_pairs
-from test_torch_viterbi import mixed_pairs
+from test_torch_viterbi import (
+    _past_the_width_check,
+    _PastTheWidthCheck,
+    mixed_pairs,
+)
 
 
 def _uniform(rng, B, L):
@@ -170,16 +174,26 @@ def test_padding_diagonals_do_not_change_the_loglik(mixed):
     assert torch.equal(long_, mixed["loglik"])
 
 
-def test_cuda_wrapper_refuses_other_widths_and_odd_k_pad():
+def test_cuda_wrapper_refuses_other_widths_and_odd_k_pad(monkeypatch):
     """A non-CPU tensor of a width the kernel does not serve, or of odd
-    k_pad, raises before any launch (the meta device stands in for the
-    card; CPU tensors of any shape take the plain version)."""
+    k_pad, raises before any launch; W = 32, 64 and 128 at even k_pad
+    pass the check, to the kernel's build (the meta device stands in for
+    the card; CPU tensors of any shape take the plain version)."""
+    monkeypatch.setattr("nanopore_tpu_torch.kernels.build.library",
+                        _past_the_width_check)
     meta = dict(device="meta")
-    for K, W in ((10, 8), (11, 64)):
+
+    def call(K, W):
+        forward_loglik(torch.zeros((3, K, W), dtype=torch.int8, **meta),
+                       *(torch.zeros(3, dtype=torch.int32, **meta)
+                         for _ in range(2)), _params())
+
+    for K, W in ((10, 8), (11, 64), (11, 128)):
         with pytest.raises(ValueError, match="serves W"):
-            forward_loglik(torch.zeros((3, K, W), dtype=torch.int8, **meta),
-                           *(torch.zeros(3, dtype=torch.int32, **meta)
-                             for _ in range(2)), _params())
+            call(K, W)
+    for W in (32, 64, 128):
+        with pytest.raises(_PastTheWidthCheck):
+            call(10, W)
 
 
 # ---- the kernel's two-term gap sum (csrc/forward.cu) ----

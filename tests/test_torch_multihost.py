@@ -23,9 +23,16 @@ localhost, each on the CPU (``device="cpu"``).
   runs that experiment alone); the EM experiment's records equal to the
   single-process run's in their first four fields, as the JAX test
   requires, and its trained model within 1e-9 relative.
+* ``run_mapper("LastParamsRealignEm", ..., em_options=None,
+  distributed=True)`` on two ranks trains at the preset's band width,
+  32, as the JAX package's multi-host runner does (ROADMAP C12): its
+  model within 1e-9 relative of one process's run with
+  ``EmOptions(band_width=32)``, and apart from the one at 64 (the
+  ``EmOptions`` default).  The runner's own ``EmOptions`` is cut to 1
+  trial x 2 iterations in the ranks; its band width stays the runner's.
 
-The EM worker is this file (``python tests/test_torch_multihost.py em
-<rank> <world> <port> <out>``).  Every wait for the ranks has a time
+The workers are this file (``python tests/test_torch_multihost.py em
+<rank> <world> <port> <out>``, and ``c12 <rank> <world> <port> <wd>``).  Every wait for the ranks has a time
 limit that kills them all, so a hung rank fails its test.
 """
 
@@ -345,8 +352,86 @@ def test_two_rank_pipeline_em_experiment(two_rank_pipeline):
     assert rel(a[b != 0], b[b != 0]) <= 1e-9
 
 
+# ---- run_mapper's EM band width on two ranks (ROADMAP C12) ------------- #
+
+C12_DEPTH = dict(trials=1, iterations=2, batch_size=8)
+
+
+def _c12_paths(wd):
+    return (os.path.join(wd, "readFastqFiles", "2d", "reads.fq"),
+            os.path.join(wd, "referenceFastaFiles", "ref.fa"))
+
+
+def c12_worker(rank: int, world: int, port: int, wd: str) -> int:
+    import functools
+
+    from nanopore_tpu_torch.align.em import EmOptions
+    from nanopore_tpu_torch.mapping import runner
+    from nanopore_tpu_torch.parallel import distributed as dist
+
+    dist.initialize_distributed("localhost:%d" % port, world, rank)
+    # the runner builds its own options where em_options is None: only
+    # their depth is cut, the band width stays the runner's choice
+    runner.EmOptions = functools.partial(EmOptions, **C12_DEPTH)
+    fq, fa = _c12_paths(wd)
+    runner.run_mapper("LastParamsRealignEm", fq, "reads", fa,
+                      os.path.join(wd, "ranks.sam"),
+                      hmm_file_to_train=os.path.join(wd, "ranks_hmm.txt"),
+                      em_options=None, distributed=True, device="cpu")
+    dist.barrier("done")
+    return 0
+
+
+@pytest.fixture(scope="module")
+def c12_models(tmp_path_factory):
+    """The two ranks' model (em_options=None), and one process's at band
+    widths 32 and 64 (computed while the ranks run)."""
+    from test_multihost import _make_working_dir
+
+    from nanopore_tpu_torch.align.em import EmOptions
+    from nanopore_tpu_torch.mapping.runner import run_mapper
+
+    wd = _make_working_dir(tmp_path_factory.mktemp("c12"))
+    fq, fa = _c12_paths(wd)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "c12", str(r), "2",
+         str(port), wd],
+        env=rank_env(), cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        solo = {}
+        for bw in (32, 64):
+            hmm = os.path.join(wd, "solo%d_hmm.txt" % bw)
+            run_mapper("LastParamsRealignEm", fq, "reads", fa,
+                       os.path.join(wd, "solo%d.sam" % bw),
+                       hmm_file_to_train=hmm,
+                       em_options=EmOptions(band_width=bw, **C12_DEPTH),
+                       device="cpu")
+            solo[bw] = _model_numbers(hmm + "_unnormalised")
+    finally:
+        wait_all(procs)
+    return _model_numbers(os.path.join(wd, "ranks_hmm.txt_unnormalised")), \
+        solo
+
+
+def test_two_rank_em_without_options_trains_at_the_preset_band(c12_models):
+    """Within 1e-9 relative of one process at band width 32 (float64
+    sums all-reduced in another order); apart from the model at 64."""
+    got, solo = c12_models
+    want = solo[32]
+    assert got.shape == want.shape == (25 + 1 + 80,)
+    assert np.array_equal(got != 0, want != 0)
+    assert rel(got[want != 0], want[want != 0]) <= 1e-9
+    nz = solo[64] != 0
+    assert rel(got[nz], solo[64][nz]) > 1e-6
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "em":
         sys.exit(em_worker(int(sys.argv[2]), int(sys.argv[3]),
                            int(sys.argv[4]), sys.argv[5]))
+    if sys.argv[1] == "c12":
+        sys.exit(c12_worker(int(sys.argv[2]), int(sys.argv[3]),
+                            int(sys.argv[4]), sys.argv[5]))
     sys.exit("unknown worker %r" % sys.argv[1])

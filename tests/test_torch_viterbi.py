@@ -380,17 +380,44 @@ def test_ragged_batch_walker_matches_jax_walkers(W, plane):
     assert got.equal(t(ops)) and got_end.equal(t(end))
 
 
-def test_cuda_walker_refuses_other_widths():
-    """A non-CPU tensor of a width the kernel does not serve raises
-    before any launch (the meta device stands in for the card; CPU
-    tensors of any width take the plain walker)."""
-    B, K, W = 3, 10, 8
+class _PastTheWidthCheck(Exception):
+    """Raised by a stand-in for a kernel's build, the first step after a
+    wrapper's width check (here and in the other tests of the wrappers'
+    width checks)."""
+
+
+def _past_the_width_check(*args, **kwargs):
+    raise _PastTheWidthCheck()
+
+
+def test_cuda_walker_refuses_other_widths(monkeypatch):
+    """A non-CPU tensor of a width the kernels do not serve raises
+    before any launch, in the walker and the Viterbi; W = 32, 64 and 128
+    pass the check, to the kernel's build (the meta device stands in for
+    the card; CPU tensors of any width take the plain versions)."""
+    monkeypatch.setattr("nanopore_tpu_torch.kernels.build.library",
+                        _past_the_width_check)
+    B, K = 3, 10
     meta = dict(device="meta")
-    with pytest.raises(ValueError, match="serve W"):
+
+    def walk(W):
         viterbi_walk(torch.zeros((B, K + 1, W), dtype=torch.int8, **meta),
                      torch.zeros((B, K, W), dtype=torch.int8, **meta),
                      *(torch.zeros(B, dtype=torch.int32, **meta)
                        for _ in range(3)))
+
+    def forward(W):
+        viterbi_forward(torch.zeros((B, K, W), dtype=torch.int8, **meta),
+                        *(torch.zeros(B, dtype=torch.int32, **meta)
+                          for _ in range(2)),
+                        make_kernel_params(PairHmmModel.default()))
+
+    for call in (walk, forward):
+        with pytest.raises(ValueError, match="serves? W"):
+            call(8)
+        for W in (32, 64, 128):
+            with pytest.raises(_PastTheWidthCheck):
+                call(W)
 
 
 # ---- the kernel's short step (csrc/viterbi.cu): a gap destination's

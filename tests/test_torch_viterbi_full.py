@@ -56,7 +56,13 @@ from nanopore_tpu_torch.ops.traceback import (
     viterbi_walk,
     viterbi_walk_plain,
 )
-from test_torch_viterbi import cigar_consumes, lattice_cells, mixed_pairs
+from test_torch_viterbi import (
+    _past_the_width_check,
+    _PastTheWidthCheck,
+    cigar_consumes,
+    lattice_cells,
+    mixed_pairs,
+)
 
 WIDTHS = (8, 32, 64)
 MODELS = ("i", "ii", "iii")
@@ -300,11 +306,12 @@ def test_prepared_viterbi_serves_every_structure():
         assert [list(c) for c in cigars] == [list(c) for c in want]
 
 
-def test_walker_wrapper_takes_both_planes_and_checks_them():
+def test_walker_wrapper_takes_both_planes_and_checks_them(monkeypatch):
     """``viterbi_walk`` takes the int8 and the int16 plane; another
     dtype raises, and a non-CPU int16 plane of a width the kernel does
-    not serve raises before any launch (the meta device stands in for
-    the card)."""
+    not serve raises before any launch, while W = 32, 64 and 128 pass
+    the check, to the kernel's build (the meta device stands in for the
+    card)."""
     B, K, W = 3, 10, 8
     m = torch.full((B,), 4, dtype=torch.int32)
     xyc = torch.zeros((B, K, W), dtype=torch.int8)
@@ -316,11 +323,20 @@ def test_walker_wrapper_takes_both_planes_and_checks_them():
         viterbi_walk(torch.zeros((B, K + 1, W), dtype=torch.int32), xyc, m,
                      m, torch.zeros_like(m))
     meta = dict(device="meta")
-    with pytest.raises(ValueError, match="serve W"):
+
+    def walk(W):
         viterbi_walk(torch.zeros((B, K + 1, W), dtype=torch.int16, **meta),
                      torch.zeros((B, K, W), dtype=torch.int8, **meta),
                      *(torch.zeros(B, dtype=torch.int32, **meta)
                        for _ in range(3)))
+
+    with pytest.raises(ValueError, match="serve W"):
+        walk(W)
+    monkeypatch.setattr("nanopore_tpu_torch.kernels.build.library",
+                        _past_the_width_check)
+    for wide in (32, 64, 128):
+        with pytest.raises(_PastTheWidthCheck):
+            walk(wide)
 
 
 def test_random_full_plane_walks_field_by_field():

@@ -4,10 +4,10 @@ on the CPU, against the JAX package's XLA-scan route at the same width.
 A band of live width 64 < w <= 128 lies in the first w lanes of W = 128
 lanes (``ops.pack.padded_width``), its dead lanes all sentinel, on
 either device, as tests/test_torch_widths.py holds the W = 32 and W = 64
-layouts.  On the card the MEA path's kernels (pack, realign in every
-mode, MEA walker) serve these widths; the Viterbi, its walker and the
-forward-only kernel serve 2 to 64 (ROADMAP C10).  At w = 96 (dead
-lanes) and w = 128 (none):
+layouts.  On the card every kernel (pack, realign in every mode, both
+walkers, the Viterbi and the forward-only kernel) serves these widths;
+tests/test_torch_wide_viterbi.py holds the Viterbi path at them.  At
+w = 96 (dead lanes) and w = 128 (none):
 
 * the packed codes: lanes < w those of the JAX package's packs at w,
   lanes >= w the sentinel with the row's bits 6-7;
@@ -24,9 +24,9 @@ lanes) and w = 128 (none):
   ``realign_sam_file`` (records equal), ``MappingEngine(decode="mea")``
   (records equal to the JAX engine's), and on random codes no MEA op
   leaving the live band, every dead lane's direction code DIR_NONE;
-* the width guard without a card: every MEA-path entry point takes
-  65..128 past the guard, the Viterbi and forward-only paths refuse them
-  naming C10 before any work, every path refuses 160 so, and the CPU
+* the width guard without a card: every entry point of the MEA, the
+  Viterbi and the forward-only paths takes 65..128 past the guard, every
+  path refuses 1, 129 and 160 naming C10 before any work, and the CPU
   serves 160.
 """
 
@@ -413,13 +413,22 @@ def test_mea_entry_points_take_65_to_128_past_the_guard(
 
 @pytest.mark.parametrize("w", [65, 96, 128])
 def test_viterbi_paths_refuse_65_to_128_naming_c10(monkeypatch, w):
-    """Before any work: the engine builds no index, nothing is packed."""
+    """The Viterbi paths once refused these widths on the card (the
+    name keeps the case); now they serve them (ROADMAP C10): each entry
+    point takes 65, 96 and 128 past the guard, to the device check
+    (``meta``: ``unsupported device``; ``None`` without a card: no CUDA
+    device) or to the stand-in pack and index build."""
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
     monkeypatch.setattr("nanopore_tpu_torch.mapping.engine.KmerIndex.build",
                         _past_the_guard)
     for name, call in _viterbi_entry_points(w).items():
-        with pytest.raises(ValueError, match="C10"):
+        with pytest.raises((ValueError, RuntimeError, _PastTheGuard)) as err:
             call()
+        assert "C10" not in str(err.value), name
+        if err.type is ValueError:
+            assert "unsupported device" in str(err.value), name
+        elif err.type is RuntimeError:
+            assert "no CUDA device" in str(err.value), name
 
 
 @pytest.mark.parametrize("w", [1, 129, 160])

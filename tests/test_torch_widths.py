@@ -37,8 +37,9 @@ and at 32 and 64, where the layout has no dead lane:
   JAX package's;
 * on random codes at w = 21 no MEA or Viterbi op leaves the live band,
   and every dead lane's direction code is DIR_NONE;
-* ``check_band_width``: on the card the MEA path serves 2 to 128 and
-  the Viterbi path 2 to 64, the CPU any width on either.
+* ``check_band_width``: on the card the MEA path and the Viterbi path
+  serve 2 to 128, and their kernel wrappers take the layout a served
+  width is laid into; the CPU serves any width on either.
 """
 
 import numpy as np
@@ -90,6 +91,7 @@ from nanopore_tpu_torch.ops.traceback import (
 from nanopore_tpu_torch.ops.viterbi import viterbi_forward
 from test_torch_chain_realign import mapped, sam_records  # noqa: F401
 from test_torch_em import _global_pairs
+from test_torch_viterbi import _past_the_width_check, _PastTheWidthCheck
 
 PADDED = (21, 33, 48)
 IDENTITY = (32, 64)
@@ -477,20 +479,55 @@ def test_no_op_leaves_the_live_band_on_random_codes():
 GUARD_WIDTHS = (1, 2, 21, 32, 33, 48, 64, 65, 96, 128, 129, 160)
 
 
+def _path_wrappers(path, W):
+    """The kernel wrappers of ``path`` on a ``meta`` batch of W lanes (the
+    meta device stands in for the card), as callables: the MEA path's
+    pack and walker, the Viterbi path's Viterbi, walker and forward-only
+    kernel."""
+    meta = dict(device="meta")
+    xyc = torch.zeros((2, 64, W), dtype=torch.int8, **meta)
+    rows = torch.zeros((2, 65, W), dtype=torch.int8, **meta)
+
+    def i32():
+        return torch.zeros(2, dtype=torch.int32, **meta)
+
+    if path == "mea":
+        return [lambda: pack_xyc(torch.zeros((2, 64), dtype=torch.uint8,
+                                             **meta),
+                                 torch.zeros((2, W), dtype=torch.uint8,
+                                             **meta), i32(), i32()),
+                lambda: mea_walk(rows, xyc, i32(), i32())]
+    return [lambda: viterbi_forward(xyc, i32(), i32(), _params()),
+            lambda: viterbi_walk(rows, xyc, i32(), i32(), i32()),
+            lambda: forward_loglik(xyc, i32(), i32(), _params())]
+
+
 @pytest.mark.parametrize("path", ["mea", "viterbi"])
 @pytest.mark.parametrize("w", GUARD_WIDTHS)
-def test_check_band_width_serves_each_path_on_the_card(path, w):
-    """The MEA path (pack, realign, MEA walker) serves 2 to 128 on the
-    card, the Viterbi path (pack, Viterbi, its walker, forward-only) 2
-    to 64; the CPU serves any width on either; each live width is laid
-    into the narrowest of 32, 64 and 128 lanes that holds it."""
-    served = 2 <= w <= (128 if path == "mea" else 64)
+def test_check_band_width_serves_each_path_on_the_card(path, w,
+                                                       monkeypatch):
+    """On the card every path serves 2 to 128 (the MEA path: pack,
+    realign, MEA walker; the Viterbi path: pack, Viterbi, its walker,
+    forward-only), and its kernel wrappers take the layout a served
+    width is laid into past their width check, and refuse a wider band's;
+    the CPU serves any width on either; each live width is laid into the
+    narrowest of 32, 64 and 128 lanes that holds it."""
+    monkeypatch.setattr("nanopore_tpu_torch.kernels.build.library",
+                        _past_the_width_check)
+    served = 2 <= w <= 128
     for device in ("cuda", None):
         if served:
-            check_band_width(w, device, path)
+            check_band_width(w, device)
         else:
             with pytest.raises(ValueError, match="C10"):
-                check_band_width(w, device, path)
-    check_band_width(w, "cpu", path)
+                check_band_width(w, device)
+    check_band_width(w, "cpu")
     want = next((W for W in (32, 64, 128) if w <= W), w)
     assert padded_width(w) == want
+    for call in _path_wrappers(path, want):
+        if w <= 128:
+            with pytest.raises(_PastTheWidthCheck):
+                call()
+        else:
+            with pytest.raises(ValueError, match="serves? W"):
+                call()
