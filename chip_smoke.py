@@ -305,15 +305,50 @@
    ``MappingEngine(band_width=128, decode="viterbi")`` on the mapping
    workload, cold then warm: >= 99 % of primaries at their origin, the
    same launches.
-16. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
+16. Band widths 129 to 256 (ROADMAP C11, first half: the MEA path), in
+   the child of step 10 after step 12 (that process's cached card
+   memory released first: the card is shared by three processes), on
+   its own copies of the seeded mapping workload and of step 13's reads
+   (``chip_smoke.py --wider`` runs this step alone after the build):
+   the W = 256 builds of the
+   pack, the realign kernel in every mode (the band held by a pair of
+   warps) and the MEA walker, whose registers, local memory and shared
+   memory are printed after the build.  On step 3's mapping batch (512
+   reads, the full band of 256 lanes): the pack byte-identical and the
+   walker's ops identical on every read, the decode to step 3's bars on
+   the first 32 reads at the full diagonal count, in as many launches as
+   its workspace plan (the 8 GiB cap: four at this width); each timed on
+   the whole batch.  ``MappingEngine(band_width=256)`` (MEA decode) on
+   the mapping workload, cold then warm, every counter set to 0 before
+   the warm run: >= 99 % of primaries at their origin; pack, realign and
+   traceback launched, nothing else.  On step 13's 64 reads at live
+   width 200 in W = 256 and at the full 256: the pack, every realign
+   mode and the MEA walker against their plain versions to step 13's
+   bars, the dead lanes checked, each timed there and as the same reads'
+   full 256-lane band.  Then, each with every counter set to 0 just
+   before: ``MappingEngine(band_width=200)`` on 32 reads of the mapping
+   workload on the card and with ``device="cpu"`` (records equal; pack,
+   realign and traceback launched, nothing else); ``cli realign
+   --band-width 200`` on step 13's 8 records against ``--device cpu``
+   (records identical; the same launches); ``em_train`` at
+   ``EmOptions(band_width=200, trials=1, iterations=2)`` on 16 chained
+   reads against the CPU (3e-5 relative).  ``MappingEngine(band_width=
+   200, decode="viterbi")`` on the card must raise, naming C11 (the
+   Viterbi path serves 2 to 128).
+17. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
    ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
    ``launches_distributed_path``, the sum over the two ranks, a
    ``launches_widths_realign_path``, a ``launches_widths_em_path``, a
    ``launches_full_plane_path`` and step 15's ``launches_wide_map_path``,
    ``launches_wide_engine_path``, ``launches_wide_realign_path``,
-   ``launches_wide_em_path``, ``launches_wide_viterbi_engine_path`` and
-   ``launches_wide_viterbi_map_path`` on every row, step 13's ``*_w21`` and ``*_w48`` numbers and step
-   15's ``*_w96`` and ``*_w128`` numbers and W = 128 attributes;
+   ``launches_wide_em_path``, ``launches_wide_viterbi_engine_path``,
+   ``launches_wide_viterbi_map_path`` and step 16's
+   ``launches_wider_map_path``, ``launches_wider_engine_path``,
+   ``launches_wider_realign_path`` and ``launches_wider_em_path`` on
+   every row, step 13's ``*_w21`` and ``*_w48`` numbers, step 15's
+   ``*_w96`` and ``*_w128`` numbers and W = 128 attributes, and step
+   16's ``*_w200`` and ``*_w256`` numbers and W = 256 attributes on the
+   MEA path's rows;
    ``viterbi_full`` and ``viterbi_traceback_full`` the full-plane modes
    of the Viterbi kernel and its walker) and, last, ``{"ok": true,
    "device": {...}}``.
@@ -360,6 +395,10 @@ FULL_ENGINE_READS = 32
 WIDE_W = 128
 WIDE_LIVE = 96  # a live width with dead lanes (96..127)
 WIDE_ENGINE_READS = 32  # reads the engine maps on the card and the CPU
+# phase 16: band widths 129 to 256 in the W = 256 kernels of the MEA path
+WIDER_W = 256
+WIDER_LIVE = 200  # a live width with dead lanes (200..255)
+WIDER_PLAIN_READS = 32  # reads of the mapping batch the plain decode runs on
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -572,6 +611,16 @@ def bits_equal(a, b) -> bool:
 
     return a.shape == b.shape and torch.equal(
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def nan_equal(a, b) -> bool:
+    """Two float tensors equal bit for bit where neither is NaN, and NaN
+    in the same places (whatever the NaN's payload)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return a.shape == b.shape and torch.equal(na, nb) and bits_equal(
+        torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
 
 
 def mea_segments_check(dev, params, cfg) -> None:
@@ -2748,10 +2797,13 @@ def live_batch(pairs, w: int, dev, lanes=None):
 
 
 def width_kernel_checks(pairs, w: int, dev, res: dict,
-                        phase: str = "phase 13") -> None:
+                        phase: str = "phase 13", viterbi: bool = True
+                        ) -> None:
     """Every kernel against its plain version on a band of live width
     ``w`` in the padded layout, timed there and as a band of the
-    layout's full width; into ``res[kernel]`` under ``*_w<w>``."""
+    layout's full width; into ``res[kernel]`` under ``*_w<w>``.  With
+    ``viterbi=False`` the MEA path's kernels alone (a width only they
+    serve)."""
     import torch
 
     from nanopore_tpu_torch.align.em import representable
@@ -2872,10 +2924,19 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
         a, b = out_k[key].flatten(1)[held], out_p[key].flatten(1)[held]
         rels.append(float(((a - b).abs().amax(1) / b.abs().amax(1)).max()))
         err = max(err, float((a - b).abs().max()))
+    # every read, representable or not: the plain version's values, NaN
+    # where it has NaN (what the kernel reaches); a band so wide that the
+    # f32 recursion loses most reads' sums under the random start (the
+    # JAX package's XLA scan loses them too) is held to that instead of
+    # to its representable reads alone
+    same = all(nan_equal(out_k[key], out_p[key])
+               for key in ("loglik", "trans", "emis"))
     print("  realign_em w=%d: loglik max rel %.3g, trans and emis max rel "
           "to the table's largest entry %.3g, %.3g (%d of %d reads "
-          "representable)" % (w, *rels, int(held.sum()), B))
-    if rels[0] > 1e-5 or max(rels[1:]) > 3e-5 or int(held.sum()) < 0.9 * B:
+          "representable); every read's outputs the plain version's %s"
+          % (w, *rels, int(held.sum()), B, same))
+    if rels[0] > 1e-5 or max(rels[1:]) > 3e-5 or (
+            int(held.sum()) < 0.9 * B and not same):
         fail("EM mode at w=%d outside tolerance" % w)
     row("realign_em", cuda_ms(lambda: realign_em(
             xyc, m, n, rand, kend=kend, band_width=w), 3),
@@ -2917,8 +2978,9 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
         plain_ms, err, REALIGN_EXP_OPS_PER_CELL,
         B * k_pad * w + B * (k_pad + 1) * 16 + B * 4 * w * 4 + 12 * B)
 
-    viterbi_width_rows(xyc, m, n, dflt, w, need, prep["offsets"],
-                       (fx, fm, fn_), row)
+    if viterbi:
+        viterbi_width_rows(xyc, m, n, dflt, w, need, prep["offsets"],
+                           (fx, fm, fn_), row)
     for name, r in rows.items():
         res.setdefault(name, {}).update(r)
     print("%s, w = %d: %.1f s" % (phase, w, time.perf_counter() - t0))
@@ -3456,21 +3518,20 @@ def viterbi_path_attributes(width: int, tag: str) -> dict:
     return attrs
 
 
-def wide_attributes() -> dict:
-    """Print the W = 128 instantiations' registers, local-memory (spill)
-    bytes, shared memory a block and warps a read (pack, each realign
-    mode, the walkers' shared memory, and the Viterbi path's kernels
-    through :func:`viterbi_path_attributes`); returns them under
-    ``*_w128`` by kernel."""
+def mea_path_attributes(width: int) -> dict:
+    """Print the registers, local-memory (spill) bytes, shared memory a
+    block and warps a read of the MEA path's kernels at band width
+    ``width`` (each realign mode, the pack, the walkers' shared memory);
+    returns them under ``*_w<width>`` by kernel."""
     from nanopore_tpu_torch.ops import pack, realign, traceback
 
-    tag = "_w%d" % WIDE_W
+    tag = "_w%d" % width
     attrs = {}
-    for mode, a in realign.kernel_attributes(WIDE_W).items():
+    for mode, a in realign.kernel_attributes(width).items():
         print("realign %s W=%d: %d registers, %d bytes of local memory "
               "(spills) a thread, %d + %d bytes of static + dynamic shared "
               "memory a block of %d threads and %d read(s)"
-              % (mode, WIDE_W, a["registers"], a["local_bytes"],
+              % (mode, width, a["registers"], a["local_bytes"],
                  a["static_smem"], a["dynamic_smem"], a["threads"],
                  a["reads"]))
         attrs["realign" if mode == "decode" else "realign_" + mode] = {
@@ -3479,33 +3540,44 @@ def wide_attributes() -> dict:
             "smem_block" + tag: a["static_smem"] + a["dynamic_smem"],
             "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
         }
-    a = pack.kernel_attributes(WIDE_W)
+    a = pack.kernel_attributes(width)
     print("pack W=%d: %d registers, %d bytes of local memory a thread, %d "
           "bytes of static shared memory a block of %d threads (one read)"
-          % (WIDE_W, a["registers"], a["local_bytes"], a["static_smem"],
+          % (width, a["registers"], a["local_bytes"], a["static_smem"],
              a["threads"]))
     attrs["pack"] = {"registers" + tag: a["registers"],
                      "local_bytes" + tag: a["local_bytes"],
                      "smem_block" + tag: a["static_smem"],
                      "warps_per_read" + tag: a["threads"] // 32}
-    smem = traceback.walker_shared_memory(WIDE_W)
-    print("walkers W=%d: dynamic shared memory a block %s" % (WIDE_W, smem))
+    smem = traceback.walker_shared_memory(width)
+    print("walkers W=%d: dynamic shared memory a block %s" % (width, smem))
     for name, b in smem.items():
         attrs[name] = {"smem_block" + tag: b}
-    for name, a in viterbi_path_attributes(WIDE_W, tag).items():
+    return attrs
+
+
+def wide_attributes() -> dict:
+    """The W = 128 builds' attributes (:func:`mea_path_attributes`, and
+    the Viterbi path's through :func:`viterbi_path_attributes`) under
+    ``*_w128`` by kernel."""
+    attrs = mea_path_attributes(WIDE_W)
+    for name, a in viterbi_path_attributes(WIDE_W, "_w%d" % WIDE_W).items():
         attrs.setdefault(name, {}).update(a)
     return attrs
 
 
-def wide_batch_checks(pairs, params, dev, res: dict) -> None:
-    """K1, K2 decode and K3 at W = 128 on the mapping main path's batch
-    (its 512 reads as a band of all 128 lanes, the diagonal count the
-    engine gives it), each against its plain version to the bars of step
-    3: the pack and the walker on every read, the decode on the first
-    PLAIN_READS at the full diagonal count (a read's outputs do not
-    depend on its batch); then the Viterbi path's kernels
+def mapping_batch_checks(pairs, params, dev, res: dict, width: int,
+                         plain_reads: int, phase: str,
+                         viterbi: bool = False) -> None:
+    """K1, K2 decode and K3 at W = ``width`` on the mapping main path's
+    batch (its 512 reads as a band of all ``width`` lanes, the diagonal
+    count the engine gives it), each against its plain version to the
+    bars of step 3: the pack and the walker on every read, the decode on
+    the first ``plain_reads`` at the full diagonal count (a read's
+    outputs do not depend on its batch), in its workspace plan's
+    launches; with ``viterbi``, then the Viterbi path's kernels
     (:func:`wide_viterbi_checks`); each timed on the whole batch, into
-    ``res[kernel]`` under ``*_w128``."""
+    ``res[kernel]`` under ``*_w<width>``."""
     import torch
 
     from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
@@ -3523,11 +3595,11 @@ def wide_batch_checks(pairs, params, dev, res: dict) -> None:
     )
 
     t0 = time.perf_counter()
-    tag = "_w%d" % WIDE_W
+    tag = "_w%d" % width
     cfg = MAPPER_REGISTRY["LastParams"].config
     gg, mg = cfg.gap_gamma, cfg.match_gamma
-    prep = pack_stream_pairs(pairs, WIDE_W, _pairs_k_max(pairs, None))
-    B, k_pad, P = prep["B"], prep["k_pad"], PLAIN_READS
+    prep = pack_stream_pairs(pairs, width, _pairs_k_max(pairs, None))
+    B, k_pad, P = prep["B"], prep["k_pad"], plain_reads
     put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     m, n = put(prep["m"]), put(prep["n"])
     stream, initx = put(prep["stream"]), put(prep["initx"])
@@ -3545,18 +3617,18 @@ def wide_batch_checks(pairs, params, dev, res: dict) -> None:
             "per_batch" + t: per_batch, "reads" + tag: B, "k_pad" + tag: k_pad})
         print("  %s%s W=%d: %.3f ms per batch of %d in %d launch(es), bound "
               "%.4f ms (%s), plain %.1f ms on %d reads, max abs err %.3g"
-              % (name, sfx, WIDE_W, ms, B, per_batch, bound, by, plain_ms,
+              % (name, sfx, width, ms, B, per_batch, bound, by, plain_ms,
                  plain_reads, err))
 
-    print("phase 15, the mapping batch at W = %d: B=%d k_pad=%d"
-          % (WIDE_W, B, k_pad))
+    print("%s, the mapping batch at W = %d: B=%d k_pad=%d"
+          % (phase, width, B, k_pad))
     xyc = pack_xyc(stream, initx, m, n)
     xyc_p, plain_ms = timed(lambda: pack_xyc_plain(stream, initx, m, n))
     if not torch.equal(xyc, xyc_p):
-        fail("pack kernel at W=%d differs from its plain version" % WIDE_W)
+        fail("pack kernel at W=%d differs from its plain version" % width)
     del xyc_p
     row("pack", cuda_ms(lambda: pack_xyc(stream, initx, m, n), 10), plain_ms,
-        B, 0.0, (B * k_pad + B * WIDE_W + 8 * B + B * k_pad * WIDE_W)
+        B, 0.0, (B * k_pad + B * width + 8 * B + B * k_pad * width)
         / HBM_BYTES_PER_S * 1e3, "bytes", 1)
 
     out_k = realign.realign_decode(xyc, m, n, params, gg, mg, kend=kend)
@@ -3564,7 +3636,7 @@ def wide_batch_checks(pairs, params, dev, res: dict) -> None:
         xyc[:P], m[:P], n[:P], params, gg, mg))
     for key in ("loglik", "score"):
         if not bool(torch.isfinite(out_k[key]).all()):
-            fail("non-finite realign %s at W=%d" % (key, WIDE_W))
+            fail("non-finite realign %s at W=%d" % (key, width))
     ll_rel = rel_err(out_k["loglik"][:P], out_p["loglik"])
     sc_rel = rel_err(out_k["score"][:P], out_p["score"])
     err = float(torch.maximum(
@@ -3580,34 +3652,37 @@ def wide_batch_checks(pairs, params, dev, res: dict) -> None:
     del out_p
     print("  realign W=%d: loglik max rel %.3g, score max rel %.3g, reads "
           "with differing direction codes %d, with differing cigars %d of %d"
-          % (WIDE_W, ll_rel, sc_rel, dirs_rows, cig_diff, P))
+          % (width, ll_rel, sc_rel, dirs_rows, cig_diff, P))
     if ll_rel > 1e-5 or sc_rel > 1e-4 or cig_diff > 0.01 * P:
-        fail("realign kernel at W=%d outside tolerance" % WIDE_W)
-    plan = realign.workspace_plan(kend, 0, WIDE_W, mode=realign.DECODE)[1]
+        fail("realign kernel at W=%d outside tolerance" % width)
+    plan = realign.workspace_plan(kend, 0, width, mode=realign.DECODE)[1]
     per_batch = launches_per_call(
         realign.LAUNCHES,
         lambda: realign.realign_decode(xyc, m, n, params, gg, mg, kend=kend))
     if per_batch != len(plan):
         fail("the decode at W=%d took %d launches, its plan %d"
-             % (WIDE_W, per_batch, len(plan)))
+             % (width, per_batch, len(plan)))
     bound, by = realign_bound(
-        REALIGN_OPS_PER_CELL, WIDE_W, need,
-        B * k_pad * WIDE_W + B * (k_pad + 1) * WIDE_W + 16 * B)
+        REALIGN_OPS_PER_CELL, width, need,
+        B * k_pad * width + B * (k_pad + 1) * width + 16 * B)
     row("realign", cuda_ms(lambda: realign.realign_decode(
         xyc, m, n, params, gg, mg, kend=kend), 3), plain_ms, P, err, bound,
         by, per_batch)
 
     ops_p, plain_ms = timed(lambda: mea_walk_plain(dirs, xyc, m, n))
     if not torch.equal(ops_k, ops_p):
-        fail("walker kernel at W=%d differs from its plain version" % WIDE_W)
+        fail("walker kernel at W=%d differs from its plain version" % width)
     nbytes = walked_bytes(ops_k) + need - B + B * (k_pad + 1) + 8 * B
     row("traceback", cuda_ms(lambda: mea_walk(dirs, xyc, m, n), 10), plain_ms,
         B, 0.0, nbytes / HBM_BYTES_PER_S * 1e3, "bytes", 1)
     del out_k, dirs, ops_k, ops_p
-    wide_viterbi_checks(xyc, m, n, prep, params, row)
+    if viterbi:
+        wide_viterbi_checks(xyc, m, n, prep, params, row)
+    del xyc
+    torch.cuda.empty_cache()  # the other processes on the card share it
     for name, r in rows.items():
         res.setdefault(name, {}).update(r)
-    print("phase 15, the mapping batch: %.1f s" % (time.perf_counter() - t0))
+    print("%s, the mapping batch: %.1f s" % (phase, time.perf_counter() - t0))
 
 
 def wide_viterbi_checks(xyc, m, n, prep, params, row) -> None:
@@ -3736,6 +3811,101 @@ def engine_records(path: str) -> list:
             for r in SamReader(path)]
 
 
+MEA_KERNELS = ("pack", "realign", "traceback")
+VITERBI_KERNELS = ("pack", "viterbi", "viterbi_traceback")
+
+
+def only_launched(run: dict, want, what: str) -> None:
+    """Fail unless each kernel of ``want`` launched in ``run`` and no
+    other did."""
+    if min(run[k] for k in want) <= 0 or any(
+            v for k, v in run.items() if k not in want):
+        fail("%s launches %s: want %s > 0, the rest 0"
+             % (what, run, ", ".join(want)))
+
+
+def engine_name(cfg) -> str:
+    return "MappingEngine(band_width=%d%s)" % (
+        cfg.band_width, "" if cfg.decode == "mea" else ', decode="viterbi"')
+
+
+def warm_engine_run(ref, cfg, engine, fq: str, sam: str, dev, counters,
+                    phase: str, want) -> dict:
+    """``MappingEngine(cfg)`` (``engine``'s index) on the mapping workload
+    ``fq``, cold then warm, every counter set to 0 before the warm run:
+    >= 99 % of primaries at their origin, the kernels ``want`` launched
+    and no other.  Returns the warm run's launches."""
+    import torch
+
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+
+    eng = MappingEngine(ref, cfg, index=engine.index, device=dev)
+    eng.map_fastq(fq, sam)  # cold
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    eng.map_fastq(fq, sam)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = {c.name: c.count for c in counters}
+    share = origin_share(sam)
+    print("%s: %s on %d reads: %.3f s warm = %.1f reads/s; primaries at "
+          "origin %.4f; launches %s" % (phase, engine_name(cfg), N_READS,
+                                        wall, N_READS / wall, share, run))
+    if share < 0.99:
+        fail("%s: only %.4f of %s's primaries at their origin"
+             % (phase, share, engine_name(cfg)))
+    only_launched(run, want, "%s %s" % (phase, engine_name(cfg)))
+    return run
+
+
+def engine_card_vs_cpu(ref, cfg, engine, fq: str, wdir: str, dev, counters,
+                       phase: str, want) -> dict:
+    """``MappingEngine(cfg)`` on the first WIDE_ENGINE_READS reads of
+    ``fq`` on the card (every counter set to 0 just before) and with
+    ``device="cpu"``: records equal, the kernels ``want`` launched and no
+    other.  Returns the card run's launches."""
+    import dataclasses
+
+    import torch
+
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+
+    fq32 = os.path.join(wdir, "reads.fq")
+    with open(fq) as src, open(fq32, "w") as dst:
+        for _ in range(4 * WIDE_ENGINE_READS):
+            dst.write(src.readline())
+    cfg = dataclasses.replace(cfg, batch_size=2 * WIDE_ENGINE_READS)
+    sams = {}
+    for where in ("cuda", "cpu"):
+        e = MappingEngine(ref, cfg, index=engine.index,
+                          device=dev if where == "cuda" else "cpu")
+        sams[where] = os.path.join(wdir, "%s_w%d_%s.sam"
+                                   % (cfg.decode, cfg.band_width, where))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+        t0 = time.perf_counter()
+        e.map_fastq(fq32, sams[where])
+        if where == "cuda":
+            torch.cuda.synchronize()
+            run = {c.name: c.count for c in counters}
+        print("%s: %s on %d reads, %s: %.3f s"
+              % (phase, engine_name(cfg), WIDE_ENGINE_READS, where,
+                 time.perf_counter() - t0))
+    got, want_recs = engine_records(sams["cuda"]), engine_records(sams["cpu"])
+    print("%s: %d records of %s on the card, %s the CPU's; launches %s"
+          % (phase, len(got), engine_name(cfg),
+             "equal to" if got == want_recs else "DIFFERENT from", run))
+    if got != want_recs or not got:
+        fail("%s: %s's records on the card differ from the CPU's"
+             % (phase, engine_name(cfg)))
+    only_launched(run, want, "%s %s" % (phase, engine_name(cfg)))
+    return run
+
+
 def wide_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
                ) -> dict:
     """Phase 15 (its checks in the docstring's step 15): the W = 128
@@ -3746,77 +3916,23 @@ def wide_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
     launches."""
     import dataclasses
 
-    import torch
-
     from nanopore_tpu_torch.io.seqio import read_fasta_dict
-    from nanopore_tpu_torch.mapping.engine import MappingEngine
 
     t_phase = time.perf_counter()
     res, runs = {}, {}
-    wide_batch_checks(pairs, engine.params, dev, res)
-
-    # ---- the engine at W = 128 on the mapping workload ----
+    mapping_batch_checks(pairs, engine.params, dev, res, WIDE_W, PLAIN_READS,
+                         "phase 15", viterbi=True)
     wdir = os.path.join(os.path.dirname(fq), "wide")
     os.makedirs(wdir, exist_ok=True)
     ref = read_fasta_dict(fa)
     cfg = dataclasses.replace(engine.config, band_width=WIDE_W)
     if cfg.decode != "mea":
         fail("phase 15: the engine does not take the MEA decode")
-    eng = MappingEngine(ref, cfg, index=engine.index, device=dev)
-    sam = os.path.join(wdir, "map_w128.sam")
-    eng.map_fastq(fq, sam)  # cold
-    torch.cuda.synchronize()
-    for c in counters:
-        c.reset()
-    t0 = time.perf_counter()
-    eng.map_fastq(fq, sam)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    runs["wide_map"] = run = {c.name: c.count for c in counters}
-    share = origin_share(sam)
-    print("phase 15: MappingEngine(band_width=%d) on %d reads: %.3f s warm = "
-          "%.1f reads/s; primaries at origin %.4f; launches %s"
-          % (WIDE_W, N_READS, wall, N_READS / wall, share, run))
-    if share < 0.99:
-        fail("phase 15: only %.4f of primaries at their origin" % share)
-    mea = ("pack", "realign", "traceback")
-    if min(run[k] for k in mea) <= 0 or any(
-            v for k, v in run.items() if k not in mea):
-        fail("phase 15 launches %s: want pack, realign and traceback > 0, "
-             "the rest 0" % run)
-
-    # ---- the engine on 32 reads, card against CPU ----
-    fq32 = os.path.join(wdir, "reads.fq")
-    with open(fq) as src, open(fq32, "w") as dst:
-        for _ in range(4 * WIDE_ENGINE_READS):
-            dst.write(src.readline())
-    cfg32 = dataclasses.replace(cfg, batch_size=2 * WIDE_ENGINE_READS)
-    sams = {}
-    for where in ("cuda", "cpu"):
-        e = MappingEngine(ref, cfg32, index=engine.index,
-                          device=dev if where == "cuda" else "cpu")
-        sams[where] = os.path.join(wdir, where + ".sam")
-        if where == "cuda":
-            torch.cuda.synchronize()
-            for c in counters:
-                c.reset()
-        t0 = time.perf_counter()
-        e.map_fastq(fq32, sams[where])
-        if where == "cuda":
-            torch.cuda.synchronize()
-            runs["wide_engine"] = run = {c.name: c.count for c in counters}
-        print("phase 15: MappingEngine(band_width=%d) on %d reads, %s: %.3f s"
-              % (WIDE_W, WIDE_ENGINE_READS, where, time.perf_counter() - t0))
-    got, want = engine_records(sams["cuda"]), engine_records(sams["cpu"])
-    print("phase 15: %d records on the card, %s the CPU's; launches %s"
-          % (len(got), "equal to" if got == want else "DIFFERENT from", run))
-    if got != want or not got:
-        fail("phase 15: the engine's records on the card differ from the "
-             "CPU's")
-    if min(run[k] for k in mea) <= 0 or any(
-            v for k, v in run.items() if k not in mea):
-        fail("phase 15 launches %s: want pack, realign and traceback > 0, "
-             "the rest 0" % run)
+    runs["wide_map"] = warm_engine_run(
+        ref, cfg, engine, fq, os.path.join(wdir, "map_w128.sam"), dev,
+        counters, "phase 15", MEA_KERNELS)
+    runs["wide_engine"] = engine_card_vs_cpu(
+        ref, cfg, engine, fq, wdir, dev, counters, "phase 15", MEA_KERNELS)
 
     # ---- live width 96 in W = 128 on phase 13's reads ----
     width_kernel_checks(wl["pairs"], WIDE_LIVE, dev, res, "phase 15")
@@ -3824,63 +3940,14 @@ def wide_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
                                              "phase 15")
     runs["wide_em"] = em_width_check(wl, WIDE_LIVE, dev, counters, "phase 15")
 
-    # ---- the Viterbi engine at 96 on 32 reads, card against CPU ----
-    vit = ("pack", "viterbi", "viterbi_traceback")
-    cfg96 = dataclasses.replace(cfg32, band_width=WIDE_LIVE,
-                                decode="viterbi")
-    for where in ("cuda", "cpu"):
-        e = MappingEngine(ref, cfg96, index=engine.index,
-                          device=dev if where == "cuda" else "cpu")
-        sams[where] = os.path.join(wdir, "viterbi_%s.sam" % where)
-        if where == "cuda":
-            torch.cuda.synchronize()
-            for c in counters:
-                c.reset()
-        t0 = time.perf_counter()
-        e.map_fastq(fq32, sams[where])
-        if where == "cuda":
-            torch.cuda.synchronize()
-            runs["wide_viterbi_engine"] = run = {c.name: c.count
-                                                 for c in counters}
-        print("phase 15: MappingEngine(band_width=%d, decode=\"viterbi\") on "
-              "%d reads, %s: %.3f s" % (WIDE_LIVE, WIDE_ENGINE_READS, where,
-                                        time.perf_counter() - t0))
-    got, want = engine_records(sams["cuda"]), engine_records(sams["cpu"])
-    print("phase 15: %d Viterbi records at w = %d on the card, %s the CPU's; "
-          "launches %s" % (len(got), WIDE_LIVE, "equal to" if got == want
-                           else "DIFFERENT from", run))
-    if got != want or not got:
-        fail("phase 15: the Viterbi engine's records at w = %d on the card "
-             "differ from the CPU's" % WIDE_LIVE)
-    if min(run[k] for k in vit) <= 0 or any(
-            v for k, v in run.items() if k not in vit):
-        fail("phase 15 launches %s: want pack, viterbi and viterbi_traceback "
-             "> 0, the rest 0" % run)
-
-    # ---- the Viterbi engine at W = 128 on the mapping workload ----
-    eng = MappingEngine(ref, dataclasses.replace(cfg, decode="viterbi"),
-                        index=engine.index, device=dev)
-    sam = os.path.join(wdir, "viterbi_w128.sam")
-    eng.map_fastq(fq, sam)  # cold
-    torch.cuda.synchronize()
-    for c in counters:
-        c.reset()
-    t0 = time.perf_counter()
-    eng.map_fastq(fq, sam)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    runs["wide_viterbi_map"] = run = {c.name: c.count for c in counters}
-    share = origin_share(sam)
-    print("phase 15: MappingEngine(band_width=%d, decode=\"viterbi\") on %d "
-          "reads: %.3f s warm = %.1f reads/s; primaries at origin %.4f; "
-          "launches %s" % (WIDE_W, N_READS, wall, N_READS / wall, share, run))
-    if share < 0.99:
-        fail("phase 15: only %.4f of the Viterbi engine's primaries at their "
-             "origin" % share)
-    if min(run[k] for k in vit) <= 0 or any(
-            v for k, v in run.items() if k not in vit):
-        fail("phase 15 launches %s: want pack, viterbi and viterbi_traceback "
-             "> 0, the rest 0" % run)
+    # ---- the Viterbi engine at 96 on 32 reads and at 128 ----
+    vit = dataclasses.replace(cfg, decode="viterbi")
+    runs["wide_viterbi_engine"] = engine_card_vs_cpu(
+        ref, dataclasses.replace(vit, band_width=WIDE_LIVE), engine, fq,
+        wdir, dev, counters, "phase 15", VITERBI_KERNELS)
+    runs["wide_viterbi_map"] = warm_engine_run(
+        ref, vit, engine, fq, os.path.join(wdir, "viterbi_w128.sam"), dev,
+        counters, "phase 15", VITERBI_KERNELS)
     print("phase 15 wall: %.1f s" % (time.perf_counter() - t_phase))
     return {"res": res, "runs": runs}
 
@@ -3913,6 +3980,107 @@ def wide_alone() -> int:
     pairs = main_path_batch(engine, fq, preferred_realign_batch_size(None, dev))
     wl = width_workload(workdir, dev)
     out = wide_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
+    for name, a in attrs.items():
+        out["res"].setdefault(name, {}).update(a)
+    print(card)
+    print(json.dumps(out))
+    return 0
+
+
+def wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
+                ) -> dict:
+    """Phase 16 (its checks in the docstring's step 16): the W = 256
+    builds on the mapping batch and at live widths 200 and 256 on phase
+    13's reads, the engine at W = 256, the engine, ``realign`` and EM at
+    200 card against CPU, and the Viterbi engine's refusal of 200.
+    Returns the kernels' ``*_w256`` and ``*_w200`` numbers and each
+    run's launches."""
+    import dataclasses
+
+    import torch
+
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+
+    t_phase = time.perf_counter()
+    res, runs = {}, {}
+    mapping_batch_checks(pairs, engine.params, dev, res, WIDER_W,
+                         WIDER_PLAIN_READS, "phase 16")
+    wdir = os.path.join(os.path.dirname(fq), "wider")
+    os.makedirs(wdir, exist_ok=True)
+    ref = read_fasta_dict(fa)
+    cfg = dataclasses.replace(engine.config, band_width=WIDER_W)
+    if cfg.decode != "mea":
+        fail("phase 16: the engine does not take the MEA decode")
+    runs["wider_map"] = warm_engine_run(
+        ref, cfg, engine, fq, os.path.join(wdir, "map_w256.sam"), dev,
+        counters, "phase 16", MEA_KERNELS)
+    torch.cuda.empty_cache()
+
+    # ---- live widths 200 and 256 on phase 13's reads ----
+    for w in (WIDER_LIVE, WIDER_W):
+        width_kernel_checks(wl["pairs"], w, dev, res, "phase 16",
+                            viterbi=False)
+
+    # ---- the engine, realign and EM at 200, card against CPU ----
+    live = dataclasses.replace(cfg, band_width=WIDER_LIVE)
+    runs["wider_engine"] = engine_card_vs_cpu(
+        ref, live, engine, fq, wdir, dev, counters, "phase 16", MEA_KERNELS)
+    runs["wider_realign"] = realign_cli_check(wl, WIDER_LIVE, counters,
+                                              "phase 16")
+    runs["wider_em"] = em_width_check(wl, WIDER_LIVE, dev, counters,
+                                      "phase 16")
+
+    # ---- the Viterbi path refuses 200 on the card (C11's next step) ----
+    try:
+        MappingEngine(ref, dataclasses.replace(live, decode="viterbi"),
+                      index=engine.index, device=dev)
+    except ValueError as err:
+        print("phase 16: MappingEngine(band_width=%d, decode=\"viterbi\") on "
+              "the card: %s" % (WIDER_LIVE, err))
+        if "C11" not in str(err):
+            fail("phase 16: the Viterbi engine's refusal does not name C11")
+    else:
+        fail("phase 16: the Viterbi engine took band width %d on the card"
+             % WIDER_LIVE)
+    print("phase 16 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return {"res": res, "runs": runs}
+
+
+def wider_workloads(workdir: str, dev):
+    """Phase 16's own copies of the seeded mapping workload (engine, main
+    path batch) and of phase 13's reads, under ``workdir``."""
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+    from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
+    from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
+
+    fa, fq = write_workload(workdir, REF_LEN)
+    engine = MappingEngine(read_fasta_dict(fa),
+                           MAPPER_REGISTRY["LastParams"].config, device=dev)
+    pairs = main_path_batch(engine, fq, preferred_realign_batch_size(None, dev))
+    return engine, pairs, fa, fq, width_workload(workdir, dev)
+
+
+def wider_alone() -> int:
+    """Run as ``chip_smoke.py --wider``: the kernels' build and the
+    W = 256 attributes, then phase 16 alone."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.kernels import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    print("build: %.1f s" % build.build())
+    attrs = mea_path_attributes(WIDER_W)
+    dev = torch.device("cuda", 0)
+    workdir = os.path.join(build.BUILD_DIR, "smoke", "wider_alone")
+    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
+    out = wider_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
     for name, a in attrs.items():
         out["res"].setdefault(name, {}).update(a)
     print(card)
@@ -3987,8 +4155,9 @@ def pipeline_child() -> int:
     """Run as ``chip_smoke.py --pipeline`` in a child process, beside the
     parent's phases 2-9 (the pipeline's host work and the parent's plain
     versions each hold a core; the card is idle most of either): phases
-    10, 11 and 12, their launch counts written to
-    ``<workdir>/pipeline/launches.json`` for the kernels line."""
+    10, 11, 12 and 16, their launch counts written to
+    ``<workdir>/pipeline/launches.json`` and phase 16's kernel rows to
+    ``<workdir>/wider/result.json`` for the kernels line."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -4000,6 +4169,14 @@ def pipeline_child() -> int:
     runs = {"pipeline": pipeline_phase(workdir, dev, counters)}
     runs["rescue_2d"] = rescue_phase(workdir, dev, counters)
     runs["distributed"] = distributed_phase(workdir)
+    # phase 16 last: the card's memory is shared by three processes, so
+    # this one's cached blocks go back before the W = 256 workspaces
+    torch.cuda.empty_cache()
+    wider = wider_phase(*wider_workloads(os.path.join(workdir, "wider"), dev),
+                        dev, counters)
+    runs.update(wider["runs"])
+    with open(os.path.join(workdir, "wider", "result.json"), "w") as fh:
+        json.dump(wider, fh)
     with open(os.path.join(workdir, "pipeline", "launches.json"), "w") as fh:
         json.dump(runs, fh)
     return 0
@@ -4142,6 +4319,8 @@ def main() -> int:
         return full_plane_alone()
     if sys.argv[1:] == ["--wide"]:
         return wide_alone()
+    if sys.argv[1:] == ["--wider"]:
+        return wider_alone()
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
         return distributed_rank(int(sys.argv[2]), *sys.argv[3:])
     sys.path.insert(0, ROOT)
@@ -4199,6 +4378,8 @@ def main() -> int:
         for name, b in smem.items():
             attrs.setdefault(name, {})["smem_block" + tag] = b
     for name, a in wide_attributes().items():
+        attrs.setdefault(name, {}).update(a)
+    for name, a in mea_path_attributes(WIDER_W).items():
         attrs.setdefault(name, {}).update(a)
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
@@ -4260,15 +4441,17 @@ def main() -> int:
                           "phases 8, 13, 14 and 15",
                           os.path.join("viterbi", "result.json"))
     res.update(phase8["res"])
-    for phase in ("widths", "wide"):
-        for name, rows in phase8[phase]["res"].items():
-            res[name].update(rows)
     other_runs = dict(post_launches, **vit_launches)
-    other_runs.update(phase8["widths"]["runs"])
-    other_runs.update(phase8["wide"]["runs"])
+    for out in (phase8["widths"], phase8["wide"]):
+        for name, rows in out["res"].items():
+            res[name].update(rows)
+        other_runs.update(out["runs"])
     other_runs.update(finish_child(pipeline, workdir, "--pipeline",
-                                   "phases 10-12",
+                                   "phases 10-12 and 16",
                                    os.path.join("pipeline", "launches.json")))
+    with open(os.path.join(workdir, "wider", "result.json")) as fh:
+        for name, rows in json.load(fh)["res"].items():
+            res[name].update(rows)
     other_runs["forward_entry"] = phase8["forward_entry"]
     # no canonical model may take the full plane: its counters are 0 in
     # every driven run but phase 14's

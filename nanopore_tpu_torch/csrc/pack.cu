@@ -164,7 +164,9 @@ extern "C" const char* np_cuda_error_string(int e) {
 extern "C" int np_pack_attrs(int W, int* out) {
   cudaFuncAttributes a;
   cudaError_t e;
-  if (W == 128)
+  if (W == 256)
+    e = cudaFuncGetAttributes(&a, pack_kernel<256>);
+  else if (W == 128)
     e = cudaFuncGetAttributes(&a, pack_kernel<128>);
   else if (W == 64)
     e = cudaFuncGetAttributes(&a, pack_kernel<64>);
@@ -179,8 +181,8 @@ extern "C" int np_pack_attrs(int W, int* out) {
   return (int)e;
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  `wl`
-// is the live band width, 1 <= wl <= W.
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  W is
+// 32, 64, 128 or 256 and `wl` the live band width, 1 <= wl <= W.
 extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
                               const void* m, const void* n, int nreads,
                               int k_pad, int W, int wl, void* xyc, void* stream) {
@@ -192,7 +194,9 @@ extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
   const int32_t* mm = (const int32_t*)m;
   const int32_t* nn = (const int32_t*)n;
   uint8_t* out = (uint8_t*)xyc;
-  if (W == 128) {
+  if (W == 256) {
+    pack_kernel<256><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
+  } else if (W == 128) {
     pack_kernel<128><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
   } else if (W == 64) {
     pack_kernel<64><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);

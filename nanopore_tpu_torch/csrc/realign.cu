@@ -48,13 +48,24 @@
 // latency of each read's serial chain of diagonals, and at B = 512 (one
 // read a warp scheduler) the schedulers' issue slots too.  Design shared
 // by both kernels below:
-//  * a lane owns C = W/32 adjacent band cells in registers (C = 1, 2
-//    or 4: W = 32, 64 or 128), moved as one 1-, 2- or 4-cell access, so
-//    a band shift is one warp shuffle.  The band maximum is each lane's fmaxf
-//    over its cells, then one __reduce_max_sync over the bit patterns:
-//    the states are non-negative, so their patterns order as their
-//    values, and a lane whose cells are all NaN keys as 0, which keeps
-//    fmaxf's skipping of NaN and the "scale > 0" rule.
+//  * a lane owns C adjacent band cells in registers (C = 1, 2 or 4:
+//    W = 32, 64 or 128, one warp a band), moved as one 1-, 2- or 4-cell
+//    access, so a band shift is one warp shuffle.  The band maximum is
+//    each lane's fmaxf over its cells, then one __reduce_max_sync over
+//    the bit patterns: the states are non-negative, so their patterns
+//    order as their values, and a lane whose cells are all NaN keys as
+//    0, which keeps fmaxf's skipping of NaN and the "scale > 0" rule.
+//  * at W = 256 a band is held by a group of G = 2 warps of C = 4 cells
+//    a lane (the register budget of W = 128), warp wg owning cells
+//    128 wg .. 128 wg + 127.  Each band shift moves one cell across the
+//    seam between the warps, and each band maximum meets the other
+//    warp's: both pass through a few words of shared memory, one named
+//    barrier for the group's 64 threads (bar.sync id, 64) an exchange
+//    (struct Grp, seam(), band_max()).  A forward step (and a backward
+//    step) is one exchange, a rescale one more, an MEA step one, an exp
+//    step one.  The group stages its chunks together and syncs on the
+//    same barrier.  The cells and their arithmetic are W = 128's, so
+//    the bits are the plain version's.
 //  * each read runs only its own diagonals, kq = m + n rounded up to even
 //    (the rescale cadence keeps its parity).  Past its end a read's
 //    states are zero and its g-factor 0, so the diagonals it skips would
@@ -87,7 +98,8 @@
 //
 // realign_kernel (EM, EXP): one warp per read, two reads a block (its
 // staging 43,328 bytes a read at W = 128, so that width opts in to more
-// than the default 48 KB of dynamic shared memory).
+// than the default 48 KB of dynamic shared memory); at W = 256 one read a
+// block of one group (86,592 bytes).
 // Phase A, the forward over 1..kq, stores its states (kq rows of 5 x W
 // f32, row k-1 = diagonal k) and then its rescale inverses (kq + 1
 // floats, padded to 16 bytes) in the read's slot; phase B streams them
@@ -124,10 +136,14 @@
 //  bytes a block at W = 64 (27,568 at W = 32), so four reads fit a SM
 //  (132 x 4 = 528 >= 512), with __launch_bounds__(96, 4) holding the
 //  registers to 168; 110,120 at W = 128, so two fit (264 reads at once)
-//  and the bound is (96, 2), which leaves the registers at 255.  Workspace per read: the forward's states and sf,
-//  then safe, then kq / S + 1 checkpoints.
+//  and the bound is (96, 2), which leaves the registers at 255.  At
+//  W = 256 each role is a group of two warps (a block of 6 warps, a
+//  slot's full and empty barriers take 64 arrivals) and the stage takes
+//  219,312 bytes, one block an SM.  Workspace per read: the forward's
+//  states and sf, then safe, then kq / S + 1 checkpoints.
 //
-// gamma_kernel (GAMMA): one read a block of 4 warps.  The band needs, of
+// gamma_kernel (GAMMA): one read a block of 4 warps (4 groups of two at
+// W = 256: the chains are groups, the g chain stays on warp 0).  The band needs, of
 // each diagonal, only the forward's and the backward's match states and
 // one scalar g_k, so neither chain waits for the other and the product
 // comes last, over every cell at once:
@@ -154,9 +170,10 @@
 // EM mode adds 57 accumulators per lane (25 transition products, 16
 // match bins, 2 x 4 delete bins by the x code, 2 x 4 insert bins by the
 // y code): a lane adds its C cells into one register per count, so the
-// register cost is 57 at either width, and the 32 lanes are summed by an
-// xor butterfly after the last diagonal; the transition sums take their
-// tf factor only then.  Binning is a predicated add per bin (a select
+// register cost is 57 at any width, and the 32 G lanes are summed by an
+// xor butterfly after the last diagonal (at G = 2 its first step, lane l
+// plus lane l + 32, is the cross-warp add, through shared memory); the
+// transition sums take their tf factor only then.  Binning is a predicated add per bin (a select
 // and an add, 32 per cell): a dynamically indexed register array would go
 // to local memory.  Only codes 0-3 bin; N = 4 and the sentinel 5 bin
 // nowhere.  The backward then does about 79 - 13 + 5 + 50 + 32 = 153 f32
@@ -193,15 +210,17 @@ namespace {
 constexpr int NS = 5;
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 2;  // reads per block of realign_kernel
+constexpr int WARPS = 2;  // warps a block of realign_kernel: a read each, or a pair's read
 constexpr int CH = 8;     // diagonals per staged chunk (even: the forward steps in pairs)
 constexpr int S = 8;      // diagonals per segment of mea_kernel's backward
 constexpr int NSLOT = 3;  // ring slots of mea_kernel: two producers need three
-constexpr int MEA_WARPS = 3;
+constexpr int MEA_WARPS = 3;  // roles of mea_kernel (a warp each, or a group each)
 // mea_kernel's blocks an SM: as many as its shared memory lets in (four
-// at W <= 64, two at W = 128), the register cap of __launch_bounds__
-constexpr int mea_blocks(int C) { return C == 4 ? 2 : 4; }
-constexpr int GAMMA_WARPS = 4;
+// at W <= 64, two at W = 128, one at W = 256), the register cap of
+// __launch_bounds__
+constexpr int mea_blocks(int C, int G) { return G > 1 ? 1 : (C == 4 ? 2 : 4); }
+constexpr int GAMMA_WARPS = 4;  // roles of gamma_kernel (a warp each, or a group each)
+constexpr int XA = 8;           // arrays one seam exchange carries at most
 static_assert(S == CH, "mea_kernel's consumer stages one chunk per segment");
 // tf 25 | emf 36 | egf 30 | gap gamma | match gamma | exp threshold
 constexpr int NTAB = 94;
@@ -212,14 +231,54 @@ struct Tables {
   float v[NTAB];
 };
 
-// One warp's staging buffers in shared memory, two chunks deep.  Chunk q
+// The warps that hold one read's band: G warps (G = W / 128 above
+// W = 128, else 1), warp wg of them owning band cells 32 C wg ..
+// 32 C (wg + 1) - 1, lane l of it C adjacent cells.  Across the seams
+// between the warps, values pass through a small shared buffer,
+// x[2][G][2][XA] (two alternating halves; per warp its lane 0's first
+// cell and its lane 31's last cell of each array), one named barrier
+// (`bar`, 32 G threads) an exchange.  An exchange writes the half that
+// the one before it did not, so one barrier an exchange orders both the
+// reads of the last and the writes of the next.  At G = 1 the group is
+// one warp and every exchange compiles to nothing.
+template <int G>
+struct Grp {
+  int lane;  // lane in its warp
+  int wg;    // warp in the group
+  int gl;    // lane in the group: wg * 32 + lane
+  int bar;   // named barrier id (G > 1)
+  float* x;  // exchange buffer (G > 1)
+  int ph;    // the half the next exchange writes
+};
+
+template <int G>
+__device__ __forceinline__ Grp<G> make_grp(int warp, int bar, float* x) {
+  const int lane = threadIdx.x & 31;
+  const int wg = G == 1 ? 0 : warp % G;
+  return Grp<G>{lane, wg, wg * 32 + lane, bar, x, 0};
+}
+
+__device__ __forceinline__ void bar_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// the group's barrier: __syncwarp for one warp
+template <int G>
+__device__ __forceinline__ void grp_sync(const Grp<G>& g) {
+  if constexpr (G == 1)
+    __syncwarp();
+  else
+    bar_sync(g.bar, 32 * G);
+}
+
+// One Stage a read in realign_kernel, staged by the read's warps.  Chunk q
 // of phase A holds the code rows of diagonals q*CH + 1 .. q*CH + CH + 1
 // (row i: diagonal q*CH + i + 1); chunk q of phase B holds, in slot s,
 // the forward states and codes of diagonal q*CH + s and sf[q*CH + s + 1].
-template <int C>
+template <int W>
 struct __align__(16) Stage {
-  float st[2][CH][NS * 32 * C];
-  uint8_t cd[2][CH + 1][32 * C];
+  float st[2][CH][NS * W];
+  uint8_t cd[2][CH + 1][W];
   float sf[2][CH];
 };
 
@@ -230,18 +289,18 @@ struct __align__(16) Stage {
 // recomputed backward states, row s diagonal jS + s; a producer's code
 // buffer row i holds diagonal jS + i, i < S + 2 (its carry reads the two
 // diagonals above the segment).
-template <int C>
+template <int W>
 struct __align__(16) MeaStage {
   union {
     struct {
-      uint8_t fcd[2][CH + 1][32 * C];  // the forward's codes
-      uint8_t bcd[2][CH][32 * C];      // the backward's codes
+      uint8_t fcd[2][CH + 1][W];  // the forward's codes
+      uint8_t bcd[2][CH][W];      // the backward's codes
     } p1;
     struct {
-      float st[2][CH][NS * 32 * C];
-      float ring[NSLOT][S][NS * 32 * C];
-      uint8_t cd[2][CH][32 * C];
-      uint8_t pcd[2][2][S + 2][32 * C];  // [producer][buffer][row]
+      float st[2][CH][NS * W];
+      float ring[NSLOT][S][NS * W];
+      uint8_t cd[2][CH][W];
+      uint8_t pcd[2][2][S + 2][W];  // [producer][buffer][row]
       float sf[2][CH];
       float sa[2][CH];
     } p2;
@@ -251,10 +310,10 @@ struct __align__(16) MeaStage {
 
 // gamma_kernel's shared memory: the forward's and the backward's code
 // chunks (as forward_pass and mea_kernel's backward stage them)
-template <int C>
+template <int W>
 struct __align__(16) GammaStage {
-  uint8_t fcd[2][CH + 1][32 * C];
-  uint8_t bcd[2][CH][32 * C];
+  uint8_t fcd[2][CH + 1][W];
+  uint8_t bcd[2][CH][W];
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -271,15 +330,17 @@ __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// wait for this lane's copies; the caller's __syncwarp then shows every
-// lane's copies to the warp
+// wait for this lane's copies; the caller's group barrier then shows
+// every lane's copies to the group
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// nbytes (a multiple of 16) from global src to shared dst, 16 bytes a copy
-__device__ __forceinline__ void warp_copy(void* dst, const void* src, int nbytes, int lane) {
-  for (int i = lane * 16; i < nbytes; i += 32 * 16)
+// nbytes (a multiple of 16) from global src to shared dst, 16 bytes a
+// copy, by thread t of nt
+__device__ __forceinline__ void warp_copy(void* dst, const void* src, int nbytes, int t,
+                                          int nt = 32) {
+  for (int i = t * 16; i < nbytes; i += nt * 16)
     cp_async16((char*)dst + i, (const char*)src + i);
 }
 
@@ -327,10 +388,45 @@ __device__ __forceinline__ void fill_rows(void* base, int kq, int k_pad, int row
     *reinterpret_cast<uint4*>(p + i) = v;
 }
 
-// out[w] = a[w + s] for a warp-uniform s in {-1, 0, 1}; `fill` outside.
+// The cells across the seams of N arrays (a lane's C cells each):
+// hi[i], the cell above a[i]'s last (for the warp's lane 31: the next
+// warp's lane 0's first cell, `fill` above the group's top warp), and
+// lo[i], the cell below a[i]'s first (for lane 0: the previous warp's
+// lane 31's last cell, `fill` below warp 0).  One exchange at G > 1.
+template <int C, int G, int N>
+__device__ __forceinline__ void seam(Grp<G>& g, const float (&a)[N][C], float fill,
+                                     float (&hi)[N], float (&lo)[N]) {
+  static_assert(N <= XA, "one exchange carries XA arrays");
+  if constexpr (G == 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) hi[i] = lo[i] = fill;
+  } else {
+    float* x = g.x + g.ph * (G * 2 * XA);
+    if (g.lane == 0) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[(g.wg * 2) * XA + i] = a[i][0];
+    } else if (g.lane == 31) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[(g.wg * 2 + 1) * XA + i] = a[i][C - 1];
+    }
+    bar_sync(g.bar, 32 * G);
+    const bool top = g.wg == G - 1, bottom = g.wg == 0;
+    const int above = top ? g.wg : g.wg + 1, below = bottom ? g.wg : g.wg - 1;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      hi[i] = top ? fill : x[(above * 2) * XA + i];
+      lo[i] = bottom ? fill : x[(below * 2 + 1) * XA + i];
+    }
+    g.ph ^= 1;
+  }
+}
+
+// out[w] = a[w + s] for a warp-uniform s in {-1, 0, 1}; at the warp's
+// top `hi` comes in (s = 1), at its bottom `lo` (s = -1): the fill at
+// the band's edges, the neighbouring warp's cell at a seam (seam()).
 template <int C>
-__device__ __forceinline__ void shift(const float (&a)[C], float (&o)[C], int s,
-                                      float fill, int lane) {
+__device__ __forceinline__ void shift(const float (&a)[C], float (&o)[C], int s, float hi,
+                                      float lo, int lane) {
   if (s == 0) {
 #pragma unroll
     for (int c = 0; c < C; ++c) o[c] = a[c];
@@ -338,37 +434,40 @@ __device__ __forceinline__ void shift(const float (&a)[C], float (&o)[C], int s,
     const float nb = __shfl_down_sync(FULL, a[0], 1);
 #pragma unroll
     for (int c = 0; c < C - 1; ++c) o[c] = a[c + 1];
-    o[C - 1] = lane == 31 ? fill : nb;
+    o[C - 1] = lane == 31 ? hi : nb;
   } else {
     const float nb = __shfl_up_sync(FULL, a[C - 1], 1);
 #pragma unroll
     for (int c = C - 1; c > 0; --c) o[c] = a[c - 1];
-    o[0] = lane == 0 ? fill : nb;
+    o[0] = lane == 0 ? lo : nb;
   }
 }
 
-// out[w] = a[w + SH] for a compile-time SH in {-1, 1}; `fill` outside.
+// out[w] = a[w + SH] for a compile-time SH in {-1, 1}; `hi` or `lo` in
+// as shift() takes them.
 template <int C, int SH>
-__device__ __forceinline__ void shift_by(const float (&a)[C], float (&o)[C], float fill,
-                                         int lane) {
+__device__ __forceinline__ void shift_by(const float (&a)[C], float (&o)[C], float hi,
+                                         float lo, int lane) {
   if constexpr (SH > 0) {
     const float nb = __shfl_down_sync(FULL, a[0], 1);
 #pragma unroll
     for (int c = 0; c < C - 1; ++c) o[c] = a[c + 1];
-    o[C - 1] = lane == 31 ? fill : nb;
+    o[C - 1] = lane == 31 ? hi : nb;
   } else {
     const float nb = __shfl_up_sync(FULL, a[C - 1], 1);
 #pragma unroll
     for (int c = C - 1; c > 0; --c) o[c] = a[c - 1];
-    o[0] = lane == 0 ? fill : nb;
+    o[0] = lane == 0 ? lo : nb;
   }
 }
 
 // The four gap destinations' shifts, one warp-uniform branch on d1: by
 // (d1 - 1, d1, d1 - 1, d1) where `up` (the forward), by (1 - d1, -d1,
-// 1 - d1, -d1) otherwise (the backward), as four calls of shift give.
+// 1 - d1, -d1) otherwise (the backward), as four calls of shift give;
+// hi and lo are seam()'s over the five arrays.
 template <int C, bool UP>
 __device__ __forceinline__ void gap_shifts(const float (&a)[NS][C], float (&o)[NS][C], int d1,
+                                           const float (&hi)[NS], const float (&lo)[NS],
                                            int lane) {
   constexpr int SH = UP ? 1 : -1;
   if (d1) {
@@ -377,11 +476,11 @@ __device__ __forceinline__ void gap_shifts(const float (&a)[NS][C], float (&o)[N
       o[1][c] = a[1][c];
       o[3][c] = a[3][c];
     }
-    shift_by<C, SH>(a[2], o[2], 0.f, lane);
-    shift_by<C, SH>(a[4], o[4], 0.f, lane);
+    shift_by<C, SH>(a[2], o[2], hi[2], lo[2], lane);
+    shift_by<C, SH>(a[4], o[4], hi[4], lo[4], lane);
   } else {
-    shift_by<C, -SH>(a[1], o[1], 0.f, lane);
-    shift_by<C, -SH>(a[3], o[3], 0.f, lane);
+    shift_by<C, -SH>(a[1], o[1], hi[1], lo[1], lane);
+    shift_by<C, -SH>(a[3], o[3], hi[3], lo[3], lane);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       o[2][c] = a[2][c];
@@ -396,16 +495,40 @@ __device__ __forceinline__ float recip(float x) { return __frcp_rn(x); }
 // The band maximum as fmaxf gives it: the states are non-negative, so
 // their bit patterns order as their values; a lane whose cells are all
 // NaN keys as 0 (fmaxf skips NaN, and a NaN or 0 maximum both mean
-// "no scale" to the caller).
-template <int C>
-__device__ __forceinline__ float band_max(const float (&v)[NS][C]) {
+// "no scale" to the caller).  At G > 1 the warps' maxima meet in one
+// exchange (the largest key of any order of them).
+template <int C, int G>
+__device__ __forceinline__ float band_max(const float (&v)[NS][C], Grp<G>& g) {
   float mx = v[0][0];
 #pragma unroll
   for (int s = 0; s < NS; ++s)
 #pragma unroll
     for (int c = 0; c < C; ++c) mx = fmaxf(mx, v[s][c]);
   const int key = mx == mx ? __float_as_int(mx) : 0;
-  return __int_as_float(__reduce_max_sync(FULL, key));
+  int best = __reduce_max_sync(FULL, key);
+  if constexpr (G > 1) {
+    int* x = reinterpret_cast<int*>(g.x + g.ph * (G * 2 * XA));
+    if (g.lane == 0) x[g.wg * 2 * XA] = best;
+    bar_sync(g.bar, 32 * G);
+#pragma unroll
+    for (int j = 0; j < G; ++j) best = max(best, x[j * 2 * XA]);
+    g.ph ^= 1;
+  }
+  return __int_as_float(best);
+}
+
+// group lane 0's value to every lane of the group (every lane calls)
+template <int G>
+__device__ __forceinline__ float from_lane0(float v, Grp<G>& g) {
+  v = __shfl_sync(FULL, v, 0);
+  if constexpr (G > 1) {
+    float* x = g.x + g.ph * (G * 2 * XA);
+    if (g.gl == 0) x[0] = v;
+    bar_sync(g.bar, 32 * G);
+    v = x[0];
+    g.ph ^= 1;
+  }
+  return v;
 }
 
 // sum_s tf[s*5 + dest] * p[s], each product and sum rounded on its own
@@ -422,8 +545,8 @@ __device__ __forceinline__ void trans_sum(const float* tf, const float (&p)[NS][
 }
 
 // A lane's C adjacent cells move as one access of C bytes of codes or
-// C floats (aligned to its size: w0 = lane * C, and every row starts at
-// a multiple of 16 bytes).
+// C floats (aligned to its size: w0 = (group lane) * C, and every row
+// starts at a multiple of 16 bytes).
 template <int C>
 __device__ __forceinline__ void load_codes(const uint8_t* row, int w0, uint8_t (&c)[C]) {
   if constexpr (C == 4) {
@@ -481,16 +604,16 @@ __device__ __forceinline__ void store_row(float* row, int w0, const float (&v)[C
 }
 
 // the five states of a lane's cells: row s of W floats each
-template <int C>
+template <int C, int W>
 __device__ __forceinline__ void load_states(const float* row, int w0, float (&f)[NS][C]) {
 #pragma unroll
-  for (int s = 0; s < NS; ++s) load_row<C>(row + s * 32 * C, w0, f[s]);
+  for (int s = 0; s < NS; ++s) load_row<C>(row + s * W, w0, f[s]);
 }
 
-template <int C>
+template <int C, int W>
 __device__ __forceinline__ void store_states(float* row, int w0, const float (&f)[NS][C]) {
 #pragma unroll
-  for (int s = 0; s < NS; ++s) store_row<C>(row + s * 32 * C, w0, f[s]);
+  for (int s = 0; s < NS; ++s) store_row<C>(row + s * W, w0, f[s]);
 }
 
 // emission factors [e_m, gx1, gy2, gx3, gy4] of a lane's cells
@@ -511,17 +634,18 @@ __device__ __forceinline__ void emissions(const float* emf, const float* egf,
 
 // One forward anti-diagonal: nw from prev (k-1) and pp (k-2, scaled by r),
 // with the diagonal's emission factors e looked up beforehand.
-template <int C>
+template <int C, int G>
 __device__ __forceinline__ void fwd_step(const float* tf, const float (&e)[NS][C], int d1,
                                          int d2, const float (&prev)[NS][C],
                                          const float (&pp)[NS][C], float r,
-                                         float (&nw)[NS][C], int lane) {
-  float t[NS][C], sh[NS][C];
+                                         float (&nw)[NS][C], Grp<G>& g) {
+  float t[NS][C], sh[NS][C], hi[NS], lo[NS];
   trans_sum<C>(tf, pp, 0, t[0]);
 #pragma unroll
   for (int d = 1; d < NS; ++d) trans_sum<C>(tf, prev, d, t[d]);
-  shift<C>(t[0], sh[0], d2, 0.f, lane);
-  gap_shifts<C, true>(t, sh, d1, lane);
+  seam<C, G, NS>(g, t, 0.f, hi, lo);
+  shift<C>(t[0], sh[0], d2, hi[0], lo[0], g.lane);
+  gap_shifts<C, true>(t, sh, d1, hi, lo, g.lane);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     nw[0][c] = e[0][c] * (sh[0][c] * r);
@@ -530,16 +654,17 @@ __device__ __forceinline__ void fwd_step(const float* tf, const float (&e)[NS][C
   }
 }
 
-// loglik bookkeeping at the read's end diagonal (band-start mass, lane 0)
-template <int C>
+// loglik bookkeeping at the read's end diagonal (band-start mass, group
+// lane 0)
+template <int C, int G>
 __device__ __forceinline__ void end_check(int k, int kend, const float (&nw)[NS][C],
                                           float ls_hi, float ls_c, float& acc,
-                                          float& fin_end) {
-  if (k != kend) return;  // warp-uniform
+                                          float& fin_end, Grp<G>& g) {
+  if (k != kend) return;  // group-uniform
   float fin = nw[0][0];
 #pragma unroll
   for (int s = 1; s < NS; ++s) fin = fin + nw[s][0];
-  fin = __shfl_sync(FULL, fin, 0);
+  fin = from_lane0<G>(fin, g);
   fin_end = fmaxf(fin, 1e-37f);
   acc = acc + (logf(fin_end) + (ls_hi - ls_c));
 }
@@ -547,17 +672,18 @@ __device__ __forceinline__ void end_check(int k, int kend, const float (&nw)[NS]
 // The forward over diagonals 1..kq: stores row k-1 of `fs` (diagonal k's
 // states; with MATCH, row k of `fs` holds diagonal k's match state alone)
 // and sf[k] (even k's rescale inverse), returns the loglik in `acc` and
-// the band-start mass at kend in `fin_end`.  `cd` is the warp's two code
+// the band-start mass at kend in `fin_end`.  `cd` is the group's two code
 // chunks of CH + 1 rows (row i of chunk q: diagonal q*CH + i + 1, the
 // one-ahead emission lookup).
-template <int C, bool MATCH = false>
+template <int C, int G, bool MATCH = false>
 __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
-                                             const float* egf, uint8_t (*cd)[CH + 1][32 * C],
+                                             const float* egf,
+                                             uint8_t (*cd)[CH + 1][32 * C * G],
                                              const uint8_t* xy, int k_pad, int kq, int kend,
-                                             float* fs, float* sf, int lane, float& acc,
+                                             float* fs, float* sf, Grp<G>& g, float& acc,
                                              float& fin_end) {
-  constexpr int W = 32 * C;
-  const int w0 = lane * C;
+  constexpr int W = 32 * C * G;
+  const int w0 = g.gl * C;
   float a[NS][C], b[NS][C];  // diagonals k0 (even) and k0 - 1
 #pragma unroll
   for (int s = 0; s < NS; ++s)
@@ -570,14 +696,14 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
   const int nqa = (kq + CH - 1) / CH;
   auto stage_codes = [&](int q) {
     const int r0 = q * CH;
-    warp_copy(cd[q & 1][0], xy + (size_t)r0 * W, min(CH + 1, k_pad - r0) * W, lane);
+    warp_copy(cd[q & 1][0], xy + (size_t)r0 * W, min(CH + 1, k_pad - r0) * W, g.gl, 32 * G);
     cp_commit();
   };
   float ea[NS][C];  // emission factors of the next odd diagonal
   if (nqa > 0) {
     stage_codes(0);
     cp_wait_all();
-    __syncwarp();
+    grp_sync(g);
     uint8_t c0[C];
     load_codes<C>(cd[0][0], w0, c0);
     emissions<C>(emf, egf, c0, ea);
@@ -586,7 +712,7 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
   for (int q = 0; q < nqa; ++q) {
     if (q > 0) {
       cp_wait_all();  // chunk q has landed
-      __syncwarp();   // and every lane is done with chunk q - 1's buffer
+      grp_sync(g);    // and every lane is done with chunk q - 1's buffer
     }
     if (q + 1 < nqa) stage_codes(q + 1);
     const uint8_t(*rows)[W] = cd[q & 1];
@@ -602,20 +728,20 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
       int top = rows[i][0];
       int d1 = (top >> 6) & 1, d1p = (top >> 7) & 1;
       float nb[NS][C];
-      fwd_step<C>(tf, ea, d1, d1 + d1p - 1, a, b, rs, nb, lane);
-      end_check<C>(k0 + 1, kend, nb, ls_hi, ls_c, acc, fin_end);
+      fwd_step<C, G>(tf, ea, d1, d1 + d1p - 1, a, b, rs, nb, g);
+      end_check<C, G>(k0 + 1, kend, nb, ls_hi, ls_c, acc, fin_end, g);
       if constexpr (MATCH)
         store_row<C>(fs + (size_t)(k0 + 1) * W, w0, nb[0]);
       else
-        store_states<C>(fs + (size_t)k0 * NS * W, w0, nb);
+        store_states<C, W>(fs + (size_t)k0 * NS * W, w0, nb);
       emissions<C>(emf, egf, cc, ec);
       // even diagonal k0 + 2: rescale by the band maximum
       top = rows[i + 1][0];
       d1 = (top >> 6) & 1;
       d1p = (top >> 7) & 1;
       float na[NS][C];
-      fwd_step<C>(tf, eb, d1, d1 + d1p - 1, nb, a, 1.f, na, lane);
-      const float scale = band_max<C>(na);
+      fwd_step<C, G>(tf, eb, d1, d1 + d1p - 1, nb, a, 1.f, na, g);
+      const float scale = band_max<C, G>(na, g);
       const float safe = scale > 0.f ? scale : 1.f;
       const float inv = recip(safe);
 #pragma unroll
@@ -628,12 +754,12 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
         ls_c = (t - ls_hi) - y;
         ls_hi = t;
       }
-      end_check<C>(k0 + 2, kend, na, ls_hi, ls_c, acc, fin_end);
+      end_check<C, G>(k0 + 2, kend, na, ls_hi, ls_c, acc, fin_end, g);
       if constexpr (MATCH)
         store_row<C>(fs + (size_t)(k0 + 2) * W, w0, na[0]);
       else
-        store_states<C>(fs + (size_t)(k0 + 1) * NS * W, w0, na);
-      if (lane == 0) sf[k0 + 2] = inv;
+        store_states<C, W>(fs + (size_t)(k0 + 1) * NS * W, w0, na);
+      if (g.gl == 0) sf[k0 + 2] = inv;
       rs = inv;
 #pragma unroll
       for (int s = 0; s < NS; ++s)
@@ -677,13 +803,14 @@ __device__ __forceinline__ void bwd_init(Bwd<C>& bw) {
 // the dead lanes, at and above the live width wl) and, on odd k and on
 // k = 0, the rescale by its band maximum `safe` (nw comes out rescaled;
 // safe and inv are 1 on the other diagonals).
-template <int C>
+template <int C, int G>
 __device__ __forceinline__ void bwd_step(const float* tf, const Bwd<C>& bw, int k,
-                                         bool is_end, int lane, int wl, float (&dest)[NS][C],
-                                         float (&nw)[NS][C], float& safe, float& inv) {
-  const int w0 = lane * C;
+                                         bool is_end, Grp<G>& g, int wl,
+                                         float (&dest)[NS][C], float (&nw)[NS][C],
+                                         float& safe, float& inv) {
+  const int w0 = g.gl * C;
   const int d2n2 = bw.d1n1 + bw.d1n2 - 1;
-  float p[NS][C];
+  float p[NS][C], hi[NS], lo[NS];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     p[0][c] = bw.b2m[c] * bw.em2[c];
@@ -692,8 +819,9 @@ __device__ __forceinline__ void bwd_step(const float* tf, const Bwd<C>& bw, int 
     p[3][c] = bw.b1[3][c] * bw.ex3[c];
     p[4][c] = bw.b1[4][c] * bw.ey4[c];
   }
-  shift<C>(p[0], dest[0], -d2n2, 0.f, lane);
-  gap_shifts<C, false>(p, dest, bw.d1n1, lane);
+  seam<C, G, NS>(g, p, 0.f, hi, lo);
+  shift<C>(p[0], dest[0], -d2n2, hi[0], lo[0], g.lane);
+  gap_shifts<C, false>(p, dest, bw.d1n1, hi, lo, g.lane);
 #pragma unroll
   for (int c = 0; c < C; ++c) dest[0][c] = dest[0][c] * bw.binv;
 #pragma unroll
@@ -709,7 +837,7 @@ __device__ __forceinline__ void bwd_step(const float* tf, const Bwd<C>& bw, int 
   safe = 1.f;
   inv = 1.f;
   if ((k & 1) || k == 0) {
-    const float scale = band_max<C>(nw);
+    const float scale = band_max<C, G>(nw, g);
     safe = scale > 0.f ? scale : 1.f;
     inv = recip(safe);
 #pragma unroll
@@ -766,32 +894,40 @@ __device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
 //   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32.
 // `ws` is the launch's workspace and `woff[r]` read r's offset in it
 // (floats), woff[r + 1] the end of its slot; dynamic shared memory holds
-// WARPS Stage<C>.
-template <int C, int MODE>
+// one Stage<W> a read of the block (WARPS / G reads).
+template <int C, int G, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
                const int32_t* __restrict__ n, int nreads, int k_pad, int wl,
                float* __restrict__ ws, const int64_t* __restrict__ woff,
                float* __restrict__ loglik, float* __restrict__ out1,
                void* __restrict__ out2) {
-  constexpr int W = 32 * C;
+  constexpr int W = 32 * C * G;
+  constexpr int RB = WARPS / G;  // reads a block
   constexpr bool EM = MODE == EM_MODE;
   constexpr bool XP = MODE == EXP;
   static_assert(EM || XP, "the decode modes run mea_kernel, the gamma mode gamma_kernel");
+  static_assert(RB * G == WARPS, "a block holds whole groups");
   __shared__ float sm[NTAB];
   extern __shared__ __align__(16) unsigned char stage_raw[];
+  float* xbuf = nullptr;
+  if constexpr (G > 1) {
+    __shared__ float xs[2 * G * 2 * XA];
+    xbuf = xs;
+  }
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
   __syncthreads();
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * WARPS + warp;
-  if (r >= nreads) return;
-  Stage<C>& sg = reinterpret_cast<Stage<C>*>(stage_raw)[warp];
+  Grp<G> g = make_grp<G>(warp, 1, xbuf);
+  const int lane = g.lane;
+  const int r = blockIdx.x * RB + warp / G;
+  if (r >= nreads) return;  // only at G = 1 (RB = 1 otherwise)
+  Stage<W>& sg = reinterpret_cast<Stage<W>*>(stage_raw)[warp / G];
   const float* tf = sm;
   const float* emf = sm + 25;
   const float* egf = sm + 61;
   const float thr = sm[93];
-  const int w0 = lane * C;
+  const int w0 = g.gl * C;
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
   const int kend = m[r] + n[r];
   const int kq = min(kend + (kend & 1), k_pad);     // the read's last diagonal
@@ -802,13 +938,13 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   float* sf = fs + (size_t)kq * NS * W;             // [k]: diagonal k
 
   // rows past the read's own diagonals: what the skipped diagonals give
-  if constexpr (XP) fill_rows(out1 + (size_t)r * (k_pad + 1) * 4, kq, k_pad, 16, 0u, lane);
+  if constexpr (XP)
+    fill_rows(out1 + (size_t)r * (k_pad + 1) * 4, kq, k_pad, 16, 0u, g.gl, 32 * G);
 
   // ---------------- phase A: forward, diagonals 1..kq ----------------
   float acc = 0.f, fin_end = 1.f;
-  forward_pass<C>(tf, emf, egf, sg.cd, xy, k_pad, kq, kend, fs, sf, lane, acc,
-                  fin_end);
-  if (lane == 0) loglik[r] = acc;
+  forward_pass<C, G>(tf, emf, egf, sg.cd, xy, k_pad, kq, kend, fs, sf, g, acc, fin_end);
+  if (g.gl == 0) loglik[r] = acc;
 
   // ------- phase B: backward + the EM sums or the retire stream, kq..0 -------
   const float inv_fin = 1.f / fin_end;
@@ -834,20 +970,22 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
     const int lo = max(1, q * CH), hi = min(kq, q * CH + CH - 1);
     if (hi >= lo) {
       const int s0 = lo - q * CH, rows = hi - lo + 1;
-      warp_copy(sg.st[buf][s0], fs + (size_t)(lo - 1) * NS * W, rows * NS * W * 4, lane);
-      warp_copy(sg.cd[buf][s0], xy + (size_t)(lo - 1) * W, rows * W, lane);
+      warp_copy(sg.st[buf][s0], fs + (size_t)(lo - 1) * NS * W, rows * NS * W * 4, g.gl,
+                32 * G);
+      warp_copy(sg.cd[buf][s0], xy + (size_t)(lo - 1) * W, rows * W, g.gl, 32 * G);
     }
-    if (lane < CH && q * CH + lane + 1 <= kq) cp_async4(&sg.sf[buf][lane], sf + q * CH + lane + 1);
+    if (g.gl < CH && q * CH + g.gl + 1 <= kq)
+      cp_async4(&sg.sf[buf][g.gl], sf + q * CH + g.gl + 1);
     cp_commit();
   };
   // phase A's stores are read back by other lanes' copies
   __threadfence_block();
-  __syncwarp();
+  grp_sync(g);
   stage_bwd(kq / CH);
 #pragma unroll 1
   for (int q = kq / CH; q >= 0; --q) {
     cp_wait_all();  // chunk q has landed
-    __syncwarp();   // and every lane is done with chunk q + 1's buffer
+    grp_sync(g);    // and every lane is done with chunk q + 1's buffer
     if (q > 0) stage_bwd(q - 1);
     const int buf = q & 1;
     for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
@@ -855,7 +993,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       float fh[NS][C];  // forward states of diagonal k
       uint8_t ck[C];    // codes of diagonal k
       if (k >= 1) {
-        load_states<C>(sg.st[buf][s], w0, fh);
+        load_states<C, W>(sg.st[buf][s], w0, fh);
         load_codes<C>(sg.cd[buf][s], w0, ck);
       } else {
 #pragma unroll
@@ -867,7 +1005,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       const bool is_end = k == kend;
 
       float dest[NS][C], nw[NS][C], safe, inv;
-      bwd_step<C>(tf, bw, k, is_end, lane, wl, dest, nw, safe, inv);
+      bwd_step<C, G>(tf, bw, k, is_end, g, wl, dest, nw, safe, inv);
       const float factor_trans = g_next * sf_next;
       float g_k = is_end ? inv_fin : factor_trans * safe;
       g_k = fminf(g_k, 3e37f);
@@ -883,7 +1021,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
         // d1[k+1] within the live columns, then bin diagonal k's
         // thresholded gamma_match
         const float d1f = (float)bw.d1n1;
-        if (lane == (wl - 1) / C) {
+        if (g.gl == (wl - 1) / C) {
           const int tc = (wl - 1) % C;  // the top column's cell in its lane
           float top[4];
 #pragma unroll
@@ -895,10 +1033,12 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
           *reinterpret_cast<float4*>(out1 + ((size_t)r * (k_pad + 1) + k) * 4) =
               make_float4(top[0] * d1f, top[1] * d1f, top[2] * d1f, top[3] * d1f);
         }
+        float hi[4], lo[4];
+        seam<C, G, 4>(g, ex, 0.f, hi, lo);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float sh[C];
-          shift<C>(ex[i], sh, -1, 0.f, lane);
+          shift<C>(ex[i], sh, -1, hi[i], lo[i], lane);
 #pragma unroll
           for (int c = 0; c < C; ++c) {
             const float v = ex[i][c] + d1f * (sh[c] - ex[i][c]);
@@ -956,15 +1096,37 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
     for (int i = 0; i < 4; ++i) store_row<C>(fl + i * W, w0, ex[i]);
   }
   if constexpr (EM) {
-    // sum over the band, then lay the counts out as trans [from][to] and
+    // sum over the band by the xor butterfly over its 32 G lanes (the
+    // plain version's order, ops/realign.py::_lane_total): at G > 1 its
+    // steps across warps first (lane l plus lane l + 32 h, h = G / 2, ..,
+    // 1: warp wg < h adds warp wg + h's sums, lane for lane, through the
+    // staging buffer, free once every warp is past the last chunk), then
+    // one warp's five; then lay the counts out as trans [from][to] and
     // emis [state][x * 4 + y], each gap count spread over the base its
     // state does not read
+    if constexpr (G > 1) {
+      float* red = reinterpret_cast<float*>(&sg);  // [warp - h][count][lane]
+      static_assert(G / 2 * 57 * 32 * 4 <= (int)sizeof(Stage<W>), "the sums fit the stage");
+#pragma unroll 1
+      for (int h = G / 2; h >= 1; h >>= 1) {
+        grp_sync(g);  // the buffer is free
+        if (g.wg >= h && g.wg < 2 * h) {
+#pragma unroll
+          for (int i = 0; i < 57; ++i) red[((g.wg - h) * 57 + i) * 32 + lane] = em[i];
+        }
+        grp_sync(g);
+        if (g.wg < h) {
+#pragma unroll
+          for (int i = 0; i < 57; ++i) em[i] = em[i] + red[(g.wg * 57 + i) * 32 + lane];
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 57; ++i)
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         em[i] = em[i] + __shfl_xor_sync(FULL, em[i], off);
-    if (lane == 0) {
+    if (g.gl == 0) {
       float* tr = out1 + (size_t)r * 25;
       float* es = (float*)out2 + (size_t)r * 80;
 #pragma unroll
@@ -994,38 +1156,46 @@ __device__ __forceinline__ int64_t mea_slot_floats(int kq, int W) {
 
 // Outputs: `score` (B,) f32 (the MEA score), `dirs` (B, k_pad + 1, W)
 // int8 direction codes and, in DECODE_GAMMA, `gband` (B, k_pad + 1, W)
-// f32.  `ws`, `woff` as realign_kernel's, one read a block; dynamic
-// shared memory holds one MeaStage<C>.
-template <int C, int MODE>
-__global__ void __launch_bounds__(MEA_WARPS * 32, mea_blocks(C))
+// f32.  `ws`, `woff` as realign_kernel's, one read a block of MEA_WARPS
+// groups of G warps (role = warp / G); dynamic shared memory holds one
+// MeaStage<W>.
+template <int C, int G, int MODE>
+__global__ void __launch_bounds__(MEA_WARPS * 32 * G, mea_blocks(C, G))
 mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
            const int32_t* __restrict__ n, int k_pad, int wl, float* __restrict__ ws,
            const int64_t* __restrict__ woff, float* __restrict__ loglik,
            float* __restrict__ score, int8_t* __restrict__ dirs,
            float* __restrict__ gband) {
-  constexpr int W = 32 * C;
+  constexpr int W = 32 * C * G;
   constexpr bool GAM = MODE == DECODE_GAMMA;
   __shared__ float sm[NTAB];
   extern __shared__ __align__(16) unsigned char stage_raw[];
-  MeaStage<C>& sg = *reinterpret_cast<MeaStage<C>*>(stage_raw);
+  MeaStage<W>& sg = *reinterpret_cast<MeaStage<W>*>(stage_raw);
+  const int warp = threadIdx.x >> 5;
+  const int role = warp / G;
+  float* xbuf = nullptr;
+  if constexpr (G > 1) {
+    __shared__ float xs[MEA_WARPS][2 * G * 2 * XA];
+    xbuf = xs[role];
+  }
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
   if (threadIdx.x == 0) {
-    for (int i = 0; i < NSLOT; ++i) {
-      mbar_init(&sg.full[i], 32);
-      mbar_init(&sg.empty[i], 32);
+    for (int i = 0; i < NSLOT; ++i) {  // one arrival a lane of a group
+      mbar_init(&sg.full[i], 32 * G);
+      mbar_init(&sg.empty[i], 32 * G);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  Grp<G> g = make_grp<G>(warp, role + 1, xbuf);
   const int r = blockIdx.x;
   const float* tf = sm;
   const float* emf = sm + 25;
   const float* egf = sm + 61;
   const float gg = sm[91];
   const float mg = sm[92];
-  const int w0 = lane * C;
+  const int lane = g.lane;
+  const int w0 = g.gl * C;
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
   const int kend = m[r] + n[r];
   const int kq = min(kend + (kend & 1), k_pad);     // the read's last diagonal
@@ -1038,40 +1208,40 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
   float* sa = sf + kp4;                   // [k]: the backward's safe at k
   float* ckp = sa + kp4;                  // checkpoint j: b1, then b2m
 
-  // ---- phase 1: forward (warp 0) beside backward (warp 1) ----
+  // ---- phase 1: forward (role 0) beside backward (role 1) ----
   float fin_end = 1.f;
-  if (warp == 0) {
+  if (role == 0) {
     float acc = 0.f;
-    forward_pass<C>(tf, emf, egf, sg.u.p1.fcd, xy, k_pad, kq, kend, fs, sf, lane, acc,
-                    fin_end);
-    if (lane == 0) loglik[r] = acc;
-  } else if (warp == 1) {
+    forward_pass<C, G>(tf, emf, egf, sg.u.p1.fcd, xy, k_pad, kq, kend, fs, sf, g, acc,
+                       fin_end);
+    if (g.gl == 0) loglik[r] = acc;
+  } else if (role == 1) {
     Bwd<C> bw;
     bwd_init<C>(bw);
     auto stage = [&](int q) {  // codes of chunk q's diagonals in 1..kq
       const int lo = max(1, q * CH), hi = min(kq, q * CH + CH - 1);
       if (hi >= lo)
         warp_copy(sg.u.p1.bcd[q & 1][lo - q * CH], xy + (size_t)(lo - 1) * W,
-                  (hi - lo + 1) * W, lane);
+                  (hi - lo + 1) * W, g.gl, 32 * G);
       cp_commit();
     };
     stage(kq / CH);
 #pragma unroll 1
     for (int q = kq / CH; q >= 0; --q) {
       cp_wait_all();  // chunk q has landed
-      __syncwarp();   // and every lane is done with chunk q + 1's buffer
+      grp_sync(g);    // and every lane is done with chunk q + 1's buffer
       if (q > 0) stage(q - 1);
       const int buf = q & 1;
       for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
         const int s = k - q * CH;
         if (k == kq || s == S - 1) {  // the top of segment k / S: its checkpoint
           float* cp = ckp + (size_t)(k / S) * (NS + 1) * W;
-          store_states<C>(cp, w0, bw.b1);
+          store_states<C, W>(cp, w0, bw.b1);
           store_row<C>(cp + NS * W, w0, bw.b2m);
         }
         float dest[NS][C], nw[NS][C], safe, inv;
-        bwd_step<C>(tf, bw, k, k == kend, lane, wl, dest, nw, safe, inv);
-        if (lane == 0) sa[k] = safe;
+        bwd_step<C, G>(tf, bw, k, k == kend, g, wl, dest, nw, safe, inv);
+        if (g.gl == 0) sa[k] = safe;
         if (k == 0) break;
         uint8_t ck[C];
         load_codes<C>(sg.u.p1.bcd[buf][s], w0, ck);
@@ -1079,13 +1249,14 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
       }
     }
   } else {  // the rows past the read's own diagonals
-    fill_rows(dirs + (size_t)r * (k_pad + 1) * W, kq, k_pad, W, 0x03030303u, lane);
-    if constexpr (GAM) fill_rows(gband + (size_t)r * (k_pad + 1) * W, kq, k_pad, W * 4, 0u, lane);
+    fill_rows(dirs + (size_t)r * (k_pad + 1) * W, kq, k_pad, W, 0x03030303u, g.gl, 32 * G);
+    if constexpr (GAM)
+      fill_rows(gband + (size_t)r * (k_pad + 1) * W, kq, k_pad, W * 4, 0u, g.gl, 32 * G);
   }
   __syncthreads();  // the workspace is written; phase 1's buffers are free
 
-  // ---- phase 2: the posterior + MEA pass (warp 0), fed by warps 1, 2 ----
-  if (warp == 0) {
+  // ---- phase 2: the posterior + MEA pass (role 0), fed by roles 1, 2 ----
+  if (role == 0) {
     const float inv_fin = 1.f / fin_end;
     float u1[C], u2[C], gm1[C], gm2[C], gd1[C], gi1[C];
 #pragma unroll
@@ -1101,19 +1272,21 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
       const int lo = max(1, q * CH), hi = min(kq, q * CH + CH - 1);
       if (hi >= lo) {
         const int s0 = lo - q * CH, rows = hi - lo + 1;
-        warp_copy(sg.u.p2.st[buf][s0], fs + (size_t)(lo - 1) * NS * W, rows * NS * W * 4, lane);
-        warp_copy(sg.u.p2.cd[buf][s0], xy + (size_t)(lo - 1) * W, rows * W, lane);
+        warp_copy(sg.u.p2.st[buf][s0], fs + (size_t)(lo - 1) * NS * W, rows * NS * W * 4,
+                  g.gl, 32 * G);
+        warp_copy(sg.u.p2.cd[buf][s0], xy + (size_t)(lo - 1) * W, rows * W, g.gl, 32 * G);
       }
-      if (lane < CH && q * CH + lane + 1 <= kq)
-        cp_async4(&sg.u.p2.sf[buf][lane], sf + q * CH + lane + 1);
-      if (lane < CH && q * CH + lane <= kq) cp_async4(&sg.u.p2.sa[buf][lane], sa + q * CH + lane);
+      if (g.gl < CH && q * CH + g.gl + 1 <= kq)
+        cp_async4(&sg.u.p2.sf[buf][g.gl], sf + q * CH + g.gl + 1);
+      if (g.gl < CH && q * CH + g.gl <= kq)
+        cp_async4(&sg.u.p2.sa[buf][g.gl], sa + q * CH + g.gl);
       cp_commit();
     };
     stage(nseg - 1);
 #pragma unroll 1
     for (int q = nseg - 1; q >= 0; --q) {
       cp_wait_all();  // chunk q has landed
-      __syncwarp();   // and every lane is done with chunk q + 1's buffer
+      grp_sync(g);    // and every lane is done with chunk q + 1's buffer
       if (q > 0) stage(q - 1);
       const int buf = q & 1;
       const int t = nseg - 1 - q, slot = t % NSLOT;
@@ -1122,7 +1295,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
         const int s = k - q * CH;
         float fh[NS][C];  // forward states of diagonal k
         if (k >= 1) {
-          load_states<C>(sg.u.p2.st[buf][s], w0, fh);
+          load_states<C, W>(sg.u.p2.st[buf][s], w0, fh);
         } else {
 #pragma unroll
           for (int st = 0; st < NS; ++st)
@@ -1130,7 +1303,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
             for (int c = 0; c < C; ++c) fh[st][c] = (w0 + c == 0) ? 1.0f / 5.0f : 0.f;
         }
         float nw[NS][C];  // backward states of diagonal k
-        load_states<C>(sg.u.p2.ring[slot][s], w0, nw);
+        load_states<C, W>(sg.u.p2.ring[slot][s], w0, nw);
         const float sf_next = (k & 1) ? sg.u.p2.sf[buf][s] : 1.f;
         const float safe = sg.u.p2.sa[buf][s];
         const bool is_end = k == kend;
@@ -1147,19 +1320,20 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
         if constexpr (GAM)  // row k of the read's gamma_match band
           store_row<C>(gband + ((size_t)r * (k_pad + 1) + k) * W, w0, gam[0]);
         float new_u[C], g_m[C], g_d[C], g_i[C];
-        float vd[C], vl[C], vu[C], td[C], tl[C], tu[C];
+        float v[3][C], td[C], tl[C], tu[C], hi[3], lo[3];  // v: diag, left, up
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           g_m[c] = gam[0][c];
           g_d[c] = gam[1][c] + gam[3][c];
           g_i[c] = gam[2][c] + gam[4][c];
-          vd[c] = (u2[c] + gm2[c]) - mg;
-          vl[c] = u1[c] + gg * gd1[c];
-          vu[c] = u1[c] + gg * gi1[c];
+          v[0][c] = (u2[c] + gm2[c]) - mg;
+          v[1][c] = u1[c] + gg * gd1[c];
+          v[2][c] = u1[c] + gg * gi1[c];
         }
-        shift<C>(vd, td, -d2n2, NEG, lane);
-        shift<C>(vl, tl, 1 - d1n1, NEG, lane);
-        shift<C>(vu, tu, -d1n1, NEG, lane);
+        seam<C, G, 3>(g, v, NEG, hi, lo);
+        shift<C>(v[0], td, -d2n2, hi[0], lo[0], lane);
+        shift<C>(v[1], tl, 1 - d1n1, hi[1], lo[1], lane);
+        shift<C>(v[2], tu, -d1n1, hi[2], lo[2], lane);
         uint32_t word = 0;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
@@ -1173,7 +1347,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
         // row k of the read's direction codes: diagonal k
         store_codes<C>(dirs + ((size_t)r * (k_pad + 1) + k) * W, w0, word);
         if (k == 0) {
-          if (lane == 0) score[r] = new_u[0];  // the MEA score
+          if (g.gl == 0) score[r] = new_u[0];  // the MEA score
           break;
         }
         // carry down to diagonal k - 1
@@ -1194,18 +1368,19 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
     }
   } else {
     // producer p recomputes segments nseg - 1 - p, nseg - 3 - p, ...
-    const int p = warp - 1;
+    const int p = role - 1;
     uint8_t(*pc)[S + 2][W] = sg.u.p2.pcd[p];
     auto stage = [&](int j, int buf) {  // codes of diagonals jS .. jS + S + 1 in 1..kq
       const int lo = max(1, j * S), hi = min(kq, j * S + S + 1);
       if (hi >= lo)
-        warp_copy(pc[buf][lo - j * S], xy + (size_t)(lo - 1) * W, (hi - lo + 1) * W, lane);
+        warp_copy(pc[buf][lo - j * S], xy + (size_t)(lo - 1) * W, (hi - lo + 1) * W, g.gl,
+                  32 * G);
       cp_commit();
     };
     float c1[NS][C], c2m[C], csafe = 1.f;  // the next segment's checkpoint
     auto load_ck = [&](int j) {
       const float* cp = ckp + (size_t)j * (NS + 1) * W;
-      load_states<C>(cp, w0, c1);
+      load_states<C, W>(cp, w0, c1);
       load_row<C>(cp + NS * W, w0, c2m);
       const int above = min(kq, j * S + S - 1) + 1;  // the diagonal above the segment
       csafe = above <= kq ? sa[above] : 1.f;
@@ -1229,7 +1404,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
       }
       bw.binv = recip(csafe);  // the rescale inverse of diagonal hi + 1, as computed there
       cp_wait_all();  // this segment's codes have landed
-      __syncwarp();   // and every lane is done with the other buffer
+      grp_sync(g);    // and every lane is done with the other buffer
       if (t + 2 < nseg) {
         stage(j - 2, buf ^ 1);
         load_ck(j - 2);
@@ -1246,8 +1421,8 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
       if (use > 0) mbar_wait(&sg.empty[slot], (use - 1) & 1);  // the slot is free
       for (int k = hi; k >= lo; --k) {
         float dest[NS][C], nw[NS][C], safe, inv;
-        bwd_step<C>(tf, bw, k, k == kend, lane, wl, dest, nw, safe, inv);
-        store_states<C>(sg.u.p2.ring[slot][k - lo], w0, nw);
+        bwd_step<C, G>(tf, bw, k, k == kend, g, wl, dest, nw, safe, inv);
+        store_states<C, W>(sg.u.p2.ring[slot][k - lo], w0, nw);
         if (k == lo) break;
         uint8_t ck[C];
         load_codes<C>(pc[buf][k - lo], w0, ck);
@@ -1268,9 +1443,10 @@ __device__ __forceinline__ int64_t gamma_slot_floats(int kq, int W) {
 
 // Outputs: `loglik` (B,) and `gband` (B, k_pad + 1, W) f32, the
 // gamma_match band.  `ws`, `woff` as realign_kernel's, one read a block
-// of GAMMA_WARPS warps.  `sm` holds the model tables, which the entry
-// point (gamma_kernel, or gamma_kernel_w128 at W = 128) has copied in.
-template <int C>
+// of GAMMA_WARPS groups of G warps (role = warp / G).  `sm` holds the
+// model tables, which the entry point (gamma_kernel, or gamma_kernel_c4
+// at W >= 128) has copied in.
+template <int C, int G>
 __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __restrict__ xyc,
                                            const int32_t* __restrict__ m,
                                            const int32_t* __restrict__ n, int k_pad, int wl,
@@ -1278,16 +1454,23 @@ __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __res
                                            const int64_t* __restrict__ woff,
                                            float* __restrict__ loglik,
                                            float* __restrict__ gband) {
-  constexpr int W = 32 * C;
-  __shared__ GammaStage<C> sg;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
+  constexpr int W = 32 * C * G;
+  __shared__ GammaStage<W> sg;
   const int warp = threadIdx.x >> 5;
+  const int role = warp / G;
+  float* xbuf = nullptr;
+  if constexpr (G > 1) {
+    __shared__ float xs[2][2 * G * 2 * XA];  // the forward's and the backward's
+    xbuf = xs[role & 1];
+  }
+  __syncthreads();
+  Grp<G> g = make_grp<G>(warp, role + 1, xbuf);
+  const int lane = g.lane;
   const int r = blockIdx.x;
   const float* tf = sm;
   const float* emf = sm + 25;
   const float* egf = sm + 61;
-  const int w0 = lane * C;
+  const int w0 = g.gl * C;
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
   const int kend = m[r] + n[r];
   const int kq = min(kend + (kend & 1), k_pad);     // the read's last diagonal
@@ -1299,40 +1482,40 @@ __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __res
   float* sf = bws + (size_t)(kq + 1) * W;   // [k]: diagonal k (even k)
   float* sa = sf + kp4;                     // [k]: safe at k, then g_k
 
-  // ---- phase 1: forward (warp 0) beside backward (warp 1) ----
+  // ---- phase 1: forward (role 0) beside backward (role 1) ----
   float fin_end = 1.f;
-  if (warp == 0) {
+  if (role == 0) {
     float f0[C];  // diagonal 0's match state
 #pragma unroll
     for (int c = 0; c < C; ++c) f0[c] = (w0 + c == 0) ? 1.0f / 5.0f : 0.f;
     store_row<C>(band, w0, f0);
     float acc = 0.f;
-    forward_pass<C, true>(tf, emf, egf, sg.fcd, xy, k_pad, kq, kend, band, sf, lane, acc,
-                          fin_end);
-    if (lane == 0) loglik[r] = acc;
-  } else if (warp == 1) {
+    forward_pass<C, G, true>(tf, emf, egf, sg.fcd, xy, k_pad, kq, kend, band, sf, g, acc,
+                             fin_end);
+    if (g.gl == 0) loglik[r] = acc;
+  } else if (role == 1) {
     Bwd<C> bw;
     bwd_init<C>(bw);
     auto stage = [&](int q) {  // codes of chunk q's diagonals in 1..kq
       const int lo = max(1, q * CH), hi = min(kq, q * CH + CH - 1);
       if (hi >= lo)
         warp_copy(sg.bcd[q & 1][lo - q * CH], xy + (size_t)(lo - 1) * W, (hi - lo + 1) * W,
-                  lane);
+                  g.gl, 32 * G);
       cp_commit();
     };
     stage(kq / CH);
 #pragma unroll 1
     for (int q = kq / CH; q >= 0; --q) {
       cp_wait_all();  // chunk q has landed
-      __syncwarp();   // and every lane is done with chunk q + 1's buffer
+      grp_sync(g);    // and every lane is done with chunk q + 1's buffer
       if (q > 0) stage(q - 1);
       const int buf = q & 1;
       for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
         const int s = k - q * CH;
         float dest[NS][C], nw[NS][C], safe, inv;
-        bwd_step<C>(tf, bw, k, k == kend, lane, wl, dest, nw, safe, inv);
+        bwd_step<C, G>(tf, bw, k, k == kend, g, wl, dest, nw, safe, inv);
         store_row<C>(bws + (size_t)k * W, w0, nw[0]);
-        if (lane == 0) sa[k] = safe;
+        if (g.gl == 0) sa[k] = safe;
         if (k == 0) break;
         uint8_t ck[C];
         load_codes<C>(sg.bcd[buf][s], w0, ck);
@@ -1340,7 +1523,7 @@ __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __res
       }
     }
   } else {  // the rows past the read's own diagonals
-    fill_rows(band, kq, k_pad, W * 4, 0u, threadIdx.x - 64, (GAMMA_WARPS - 2) * 32);
+    fill_rows(band, kq, k_pad, W * 4, 0u, threadIdx.x - 64 * G, (GAMMA_WARPS - 2) * 32 * G);
   }
   __syncthreads();  // both chains' rows and scales are written
 
@@ -1372,10 +1555,10 @@ __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __res
       for (int j = 0; j < 32; ++j) {  // diagonals below 0 give unused g
         const float a = __shfl_sync(FULL, sfn, j);
         const float b = __shfl_sync(FULL, saf, j);
-        float g = top - j == kend ? inv_fin : (g_next * a) * b;
-        g = fminf(g, 3e37f);
-        if (lane == j) mine = g;
-        g_next = g;
+        float gv = top - j == kend ? inv_fin : (g_next * a) * b;
+        gv = fminf(gv, 3e37f);
+        if (lane == j) mine = gv;
+        g_next = gv;
       }
       if (top - lane >= 0) sa[top - lane] = mine;
       sfn = sfn2;
@@ -1390,7 +1573,7 @@ __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __res
     float4* fb = reinterpret_cast<float4*>(band);
     const float4* bb = reinterpret_cast<const float4*>(bws);
     const int n4 = (kq + 1) * V;
-    constexpr int NT = GAMMA_WARPS * 32, U = 4;
+    constexpr int NT = GAMMA_WARPS * 32 * G, U = 4;
 #pragma unroll 1
     for (int i0 = threadIdx.x; i0 < n4; i0 += NT * U) {
       float4 f[U], b[U];
@@ -1406,12 +1589,12 @@ __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __res
       for (int u = 0; u < U; ++u) {
         const int i = i0 + u * NT;
         if (i < n4) {
-          const float g = sa[i / V];
+          const float gv = sa[i / V];
           float4 o;
-          o.x = (f[u].x * b[u].x) * g;
-          o.y = (f[u].y * b[u].y) * g;
-          o.z = (f[u].z * b[u].z) * g;
-          o.w = (f[u].w * b[u].w) * g;
+          o.x = (f[u].x * b[u].x) * gv;
+          o.y = (f[u].y * b[u].y) * gv;
+          o.z = (f[u].z * b[u].z) * gv;
+          o.w = (f[u].w * b[u].w) * gv;
           fb[i] = o;
         }
       }
@@ -1427,64 +1610,67 @@ gamma_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restr
              float* __restrict__ gband) {
   __shared__ float sm[NTAB];
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
-  gamma_read<C>(sm, xyc, m, n, k_pad, wl, ws, woff, loglik, gband);
+  gamma_read<C, 1>(sm, xyc, m, n, k_pad, wl, ws, woff, loglik, gband);
 }
 
-// W = 128 (C = 4): under gamma_kernel's bound ptxas held it to 128
-// registers and spilled; at two blocks an SM it takes what it needs
-__global__ void __launch_bounds__(GAMMA_WARPS * 32, 2)
-gamma_kernel_w128(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
-                  const int32_t* __restrict__ n, int k_pad, int wl, float* __restrict__ ws,
-                  const int64_t* __restrict__ woff, float* __restrict__ loglik,
-                  float* __restrict__ gband) {
+// C = 4 (W = 128 G): under gamma_kernel's bound ptxas held W = 128 to
+// 128 registers and spilled; at 2 / G blocks an SM it takes what it needs
+template <int G>
+__global__ void __launch_bounds__(GAMMA_WARPS * 32 * G, 2 / G)
+gamma_kernel_c4(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
+                const int32_t* __restrict__ n, int k_pad, int wl, float* __restrict__ ws,
+                const int64_t* __restrict__ woff, float* __restrict__ loglik,
+                float* __restrict__ gband) {
   __shared__ float sm[NTAB];
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
-  gamma_read<4>(sm, xyc, m, n, k_pad, wl, ws, woff, loglik, gband);
+  gamma_read<4, G>(sm, xyc, m, n, k_pad, wl, ws, woff, loglik, gband);
 }
 
-// gamma_kernel at W = 32 and 64, gamma_kernel_w128 at W = 128
-template <int C>
+// gamma_kernel at W = 32 and 64, gamma_kernel_c4 at W = 128 and 256
+template <int C, int G>
 auto gamma_entry() {
   if constexpr (C == 4)
-    return gamma_kernel_w128;
+    return gamma_kernel_c4<G>;
   else
     return gamma_kernel<C>;
 }
 
-template <int C, int MODE>
+template <int C, int G, int MODE>
 int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, const void* m,
                 const void* n, int k_pad, int wl, void* ws, const void* woff, void* loglik,
                 void* out1, void* out2, void* out3) {
+  constexpr int W = 32 * C * G;
   if constexpr (MODE == DECODE || MODE == DECODE_GAMMA) {
-    constexpr int smem = (int)sizeof(MeaStage<C>);
-    cudaError_t e = cudaFuncSetAttribute(mea_kernel<C, MODE>,
+    constexpr int smem = (int)sizeof(MeaStage<W>);
+    cudaError_t e = cudaFuncSetAttribute(mea_kernel<C, G, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(mea_kernel<C, MODE>,
+      e = cudaFuncSetAttribute(mea_kernel<C, G, MODE>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
-    mea_kernel<C, MODE><<<nreads, MEA_WARPS * 32, smem, s>>>(
+    mea_kernel<C, G, MODE><<<nreads, MEA_WARPS * 32 * G, smem, s>>>(
         t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, wl, (float*)ws,
         (const int64_t*)woff, (float*)loglik, (float*)out1, (int8_t*)out2, (float*)out3);
   } else if constexpr (MODE == GAMMA) {
-    const auto kernel = gamma_entry<C>();
-    kernel<<<nreads, GAMMA_WARPS * 32, 0, s>>>(
+    const auto kernel = gamma_entry<C, G>();
+    kernel<<<nreads, GAMMA_WARPS * 32 * G, 0, s>>>(
         t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, wl, (float*)ws,
         (const int64_t*)woff, (float*)loglik, (float*)out3);
   } else {
-    constexpr int smem = WARPS * (int)sizeof(Stage<C>);
-    if constexpr (smem > 48 * 1024) {  // W = 128: above the default's 48 KB
-      cudaError_t e = cudaFuncSetAttribute(realign_kernel<C, MODE>,
+    constexpr int RB = WARPS / G;  // reads a block
+    constexpr int smem = RB * (int)sizeof(Stage<W>);
+    if constexpr (smem > 48 * 1024) {  // W >= 128: above the default's 48 KB
+      cudaError_t e = cudaFuncSetAttribute(realign_kernel<C, G, MODE>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(realign_kernel<C, MODE>,
+        e = cudaFuncSetAttribute(realign_kernel<C, G, MODE>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
       if (e != cudaSuccess) return (int)e;
     }
-    realign_kernel<C, MODE>
-        <<<(nreads + WARPS - 1) / WARPS, WARPS * 32, smem, s>>>(
+    realign_kernel<C, G, MODE>
+        <<<(nreads + RB - 1) / RB, WARPS * 32, smem, s>>>(
             t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad, wl,
             (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2);
   }
@@ -1493,26 +1679,27 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
 
 // registers, local bytes, static and dynamic shared memory, threads and
 // reads of a block
-template <int C, int MODE>
+template <int C, int G, int MODE>
 int attrs_mode(int* out) {
+  constexpr int W = 32 * C * G;
   constexpr bool MEA = MODE == DECODE || MODE == DECODE_GAMMA;
   cudaFuncAttributes a;
   cudaError_t e;
   if constexpr (MEA) {
-    e = cudaFuncGetAttributes(&a, mea_kernel<C, MODE>);
-    out[3] = (int)sizeof(MeaStage<C>);
-    out[4] = MEA_WARPS * 32;
+    e = cudaFuncGetAttributes(&a, mea_kernel<C, G, MODE>);
+    out[3] = (int)sizeof(MeaStage<W>);
+    out[4] = MEA_WARPS * 32 * G;
     out[5] = 1;
   } else if constexpr (MODE == GAMMA) {
-    e = cudaFuncGetAttributes(&a, gamma_entry<C>());
+    e = cudaFuncGetAttributes(&a, gamma_entry<C, G>());
     out[3] = 0;
-    out[4] = GAMMA_WARPS * 32;
+    out[4] = GAMMA_WARPS * 32 * G;
     out[5] = 1;
   } else {
-    e = cudaFuncGetAttributes(&a, realign_kernel<C, MODE>);
-    out[3] = (int)(WARPS * sizeof(Stage<C>));
+    e = cudaFuncGetAttributes(&a, realign_kernel<C, G, MODE>);
+    out[3] = (int)(WARPS / G * sizeof(Stage<W>));
     out[4] = WARPS * 32;
-    out[5] = WARPS;
+    out[5] = WARPS / G;
   }
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -1520,32 +1707,32 @@ int attrs_mode(int* out) {
   return (int)e;
 }
 
-template <int C>
+template <int C, int G>
 int attrs_width(int mode, int* out) {
   switch (mode) {
     case DECODE:
-      return attrs_mode<C, DECODE>(out);
+      return attrs_mode<C, G, DECODE>(out);
     case EM_MODE:
-      return attrs_mode<C, EM_MODE>(out);
+      return attrs_mode<C, G, EM_MODE>(out);
     case GAMMA:
-      return attrs_mode<C, GAMMA>(out);
+      return attrs_mode<C, G, GAMMA>(out);
     case DECODE_GAMMA:
-      return attrs_mode<C, DECODE_GAMMA>(out);
+      return attrs_mode<C, G, DECODE_GAMMA>(out);
     case EXP:
-      return attrs_mode<C, EXP>(out);
+      return attrs_mode<C, G, EXP>(out);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int C>
+template <int C, int G>
 int launch_width(int mode, const Tables& t, int nreads, cudaStream_t s, const void* xyc,
                  const void* m, const void* n, int k_pad, int wl, void* ws, const void* woff,
                  void* loglik, void* out1, void* out2, void* out3) {
-#define NP_MODE(M)                                                                       \
-  case M:                                                                                \
-    return launch_mode<C, M>(t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1, \
-                             out2, out3);
+#define NP_MODE(M)                                                                          \
+  case M:                                                                                   \
+    return launch_mode<C, G, M>(t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1, \
+                                out2, out3);
   switch (mode) {
     NP_MODE(DECODE)
     NP_MODE(EM_MODE)
@@ -1568,15 +1755,16 @@ extern "C" const char* np_cuda_error_string(int e) {
 // shared memory bytes per block, threads per block and reads per block
 // of `mode` at band width W, into out[6].
 extern "C" int np_realign_attrs(int mode, int W, int* out) {
-  if (W == 128) return attrs_width<4>(mode, out);
-  if (W == 64) return attrs_width<2>(mode, out);
-  if (W == 32) return attrs_width<1>(mode, out);
+  if (W == 256) return attrs_width<4, 2>(mode, out);
+  if (W == 128) return attrs_width<4, 1>(mode, out);
+  if (W == 64) return attrs_width<2, 1>(mode, out);
+  if (W == 32) return attrs_width<1, 1>(mode, out);
   return (int)cudaErrorInvalidValue;
 }
 
 // Launch `mode` (DECODE 0, EM 1, GAMMA 2, DECODE_GAMMA 3, EXP 4) on
-// `stream`; returns cudaGetLastError() (0 on success).  `wl` is the live
-// band width, 1 <= wl <= W.  `tables` is host
+// `stream`; returns cudaGetLastError() (0 on success).  W is 32, 64, 128
+// or 256 and `wl` the live band width, 1 <= wl <= W.  `tables` is host
 // memory: 91 model floats, then gap gamma, match gamma and the exp
 // threshold (each mode reads what it uses).  `ws` is the workspace and
 // `woff` (nreads + 1,) int64 each read's offset in it and, last, the end
@@ -1601,14 +1789,14 @@ extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
   Tables t;
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
   cudaStream_t s = (cudaStream_t)stream;
-  if (W == 128)
-    return launch_width<4>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1,
-                           out2, out3);
-  if (W == 64)
-    return launch_width<2>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1,
-                           out2, out3);
-  if (W == 32)
-    return launch_width<1>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1,
-                           out2, out3);
+#define NP_WIDTH(WIDTH, C, G)                                                              \
+  if (W == WIDTH)                                                                          \
+    return launch_width<C, G>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, \
+                              out1, out2, out3);
+  NP_WIDTH(256, 4, 2)
+  NP_WIDTH(128, 4, 1)
+  NP_WIDTH(64, 2, 1)
+  NP_WIDTH(32, 1, 1)
+#undef NP_WIDTH
   return (int)cudaErrorInvalidValue;
 }

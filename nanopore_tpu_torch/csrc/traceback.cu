@@ -17,7 +17,8 @@
 // 10^4 diagonals.  A load of device memory on that chain costs its full
 // latency at every step.  Design:
 //  * one warp per read, WARPS reads a block, so a batch of 512 reads
-//    spreads over 128 blocks and every SM;
+//    spreads over 128 blocks and every SM (2 reads a block at W = 256,
+//    whose ring of 4 reads would not fit a block: walk::reads_per_block);
 //  * the warp streams the read's direction rows (one contiguous range
 //    of (m + n + 1) x W bytes) into a shared-memory ring of chunks of
 //    CH diagonals, NBUF - 1 chunks ahead of the walk, by 16-byte cp.async
@@ -37,7 +38,7 @@
 //    words);
 //  * each read stops at its own end: it walks diagonals 0..m + n and
 //    fills the rows past them with 3 by 16-byte stores.
-// Serves W = 32, 64 and 128, the band widths of the realign kernel.
+// Serves W = 32, 64, 128 and 256, the band widths of the realign kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,14 +49,14 @@ namespace {
 using namespace walk;
 
 template <int W>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(reads_per_block<W, int8_t>() * 32)
 walk_kernel(const int8_t* __restrict__ dirs, const uint8_t* __restrict__ xyc,
             const int32_t* __restrict__ m, const int32_t* __restrict__ n,
             int nreads, int k_pad, int8_t* __restrict__ ops) {
   extern __shared__ __align__(16) unsigned char stage_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * WARPS + warp;
+  const int r = blockIdx.x * reads_per_block<W, int8_t>() + warp;
   if (r >= nreads) return;
   Stage<W>& sg = reinterpret_cast<Stage<W>*>(stage_raw)[warp];
   const int K1 = k_pad + 1;
@@ -139,13 +140,16 @@ extern "C" int np_walk_smem(int W) { return walk::smem_bytes(W); }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  dirs
 // (nreads, k_pad + 1, W) int8, xyc (nreads, k_pad, W) int8, m and n
-// (nreads,) int32, ops (nreads, k_pad + 1) int8 out; W is 32, 64 or 128, and
+// (nreads,) int32, ops (nreads, k_pad + 1) int8 out; W is 32, 64, 128 or 256, and
 // dirs is 16-byte aligned.
 extern "C" int np_walk_launch(const void* dirs, const void* xyc, const void* m,
                               const void* n, int nreads, int k_pad, int W,
                               void* ops, void* stream) {
   if (nreads <= 0 || k_pad < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (W == 256)
+    return launch<256>(walk_kernel<256>, nreads, s, (const int8_t*)dirs, (const uint8_t*)xyc,
+                       (const int32_t*)m, (const int32_t*)n, nreads, k_pad, (int8_t*)ops);
   if (W == 128)
     return launch<128>(walk_kernel<128>, nreads, s, (const int8_t*)dirs, (const uint8_t*)xyc,
                        (const int32_t*)m, (const int32_t*)n, nreads, k_pad, (int8_t*)ops);

@@ -34,8 +34,8 @@ struct __align__(16) Stage {
 
 // Reads (warps) a block of a walker over rows of T at band width W:
 // WARPS, but 2 where a row is 256 bytes (the full plane's 16-bit rows at
-// W = 128), whose ring of 4 reads (402,112 bytes) would not fit in the
-// 232,448 a block may opt into
+// W = 128, the byte rows at W = 256), whose ring of 4 reads (402,112
+// bytes either) would not fit in the 232,448 a block may opt into
 template <int W, typename T>
 __host__ __device__ constexpr int reads_per_block() {
   return W * (int)sizeof(T) > 128 ? 2 : WARPS;
@@ -143,9 +143,10 @@ __device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
 }
 
 // Dynamic shared memory a walker block takes at band width W with rows
-// of T: one Stage a read of the block (0 for a W other than 32, 64 and
-// 128).  The byte rows take 205,504 bytes at W = 128 (4 reads), the
-// 16-bit rows 201,056 (2 reads), under the 232,448 a block may opt into.
+// of T: one Stage a read of the block (0 for a W other than 32, 64, 128
+// and 256).  The byte rows take 205,504 bytes at W = 128 (4 reads) and
+// 201,056 at W = 256 (2 reads), as the 16-bit rows at W = 128 (2 reads),
+// under the 232,448 a block may opt into.
 template <int W, typename T>
 constexpr int stage_bytes() {
   return reads_per_block<W, T>() * (int)sizeof(Stage<W, T>);
@@ -153,7 +154,8 @@ constexpr int stage_bytes() {
 
 template <typename T = int8_t>
 inline int smem_bytes(int W) {
-  return W == 128 ? stage_bytes<128, T>()
+  return W == 256 ? stage_bytes<256, T>()
+       : W == 128 ? stage_bytes<128, T>()
        : W == 64 ? stage_bytes<64, T>()
        : W == 32 ? stage_bytes<32, T>()
                  : 0;

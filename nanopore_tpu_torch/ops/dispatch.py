@@ -20,11 +20,14 @@ plane for any other; ``ops.viterbi``);
 counterpart of the JAX package's ``PallasForwardPlan``).
 
 A band of live width w (``band_width``) is laid into W = 32 lanes if
-w <= 32, W = 64 if w <= 64, else W = 128 (``ops.pack.padded_width``; the
-CPU keeps a band wider than 128 unpadded), its dead lanes all sentinel,
-on either device: so the CPU runs exactly the layout the card runs.  On
-the card every kernel serves W = 32, 64 and 128, so every class takes
-the live widths 2 to 128 (``check_band_width``, ROADMAP C10).  The
+w <= 32, W = 64 if w <= 64, W = 128 if w <= 128, else W = 256
+(``ops.pack.padded_width``; the CPU keeps a band wider than 256
+unpadded), its dead lanes all sentinel, on either device: so the CPU
+runs exactly the layout the card runs.  On the card the MEA path's
+kernels serve W = 32 to 256 and the Viterbi path's W = 32 to 128, so
+``PreparedRealign``, ``PreparedEm`` and ``PreparedPosteriors`` take the
+live widths 2 to 256 and ``PreparedViterbi`` and ``PreparedForward`` 2
+to 128 (``check_band_width``, ROADMAP C10, C11).  The
 batch carries w (``LitePack.band_width``) to the realign kernel's
 launches, and ``run()`` gives the gamma band and the flush sliced to
 the w live lanes; the direction codes and the Viterbi plane keep W
@@ -46,6 +49,8 @@ import torch
 
 from nanopore_tpu_torch.device import resolve_device
 from nanopore_tpu_torch.ops.pack import (
+    MEA,
+    VITERBI,
     check_band_width,
     pack_stream_pairs,
     pack_xyc,
@@ -309,11 +314,15 @@ def prepared_from_pairs(
     to ``k_max`` (k-bin bucketing) instead of tightening it.  The band of
     live width ``band_width`` is laid into ``padded_width(band_width)``
     lanes; the card refuses a width its kernels do not serve before any
-    work (``check_band_width``, ROADMAP C10: 2 to 128 for every
-    class)."""
+    work (``check_band_width``, ROADMAP C10, C11: 2 to 256 for the MEA
+    path's classes, 2 to 128 for ``PreparedViterbi`` and
+    ``PreparedForward``)."""
     kwargs = dict(cls_kwargs)
     device = kwargs.pop("device", None)
-    check_band_width(band_width, device)
+    check_band_width(band_width, device,
+                     VITERBI if issubclass(prepared_cls, (PreparedViterbi,
+                                                          PreparedForward))
+                     else MEA)
     device = resolve_device(device)
     if not exact_k:
         k_max = _pairs_k_max(pairs, k_max)

@@ -53,10 +53,13 @@ version below, operation for operation:
   bins gamma by the diagonal's base codes: the match state by (x, y)
   into 16 counts, the delete states by x and the insert states by y
   into 2 x 4 each; only codes 0-3 bin (N = 4 and the sentinel nowhere).
-  A lane adds its C = W / 32 cells into one accumulator per count, the
-  32 lanes are summed by an xor butterfly (offsets 16, 8, 4, 2, 1) at
+  A lane adds its C adjacent cells into one accumulator per count, the
+  L lanes are summed by an xor butterfly (offsets L / 2, .., 2, 1) at
   the end, and only then do the transition sums take their ``tf``
-  factor.  The plain version adds in the same order.
+  factor (:func:`em_lanes`: up to W = 128 one warp, L = 32 lanes of
+  W / 32 cells; at W = 256 two warps, L = 64 lanes of 4, the first
+  butterfly step being the add across the warps).  The plain version
+  adds in the same order.
 * the gamma band is gamma[0] = (f_k[0] * b_k[0]) * g_k of every band
   cell, diagonal 0 included: the value the MEA reads;
 * the exp mode keeps 4 accumulators per band cell in diagonal k's band
@@ -442,6 +445,15 @@ def _seq_sum(prod):
     return acc
 
 
+def em_lanes(W: int) -> int:
+    """The lanes L of the EM mode's sums at band width ``W``, each
+    owning W / L adjacent band cells: one warp's 32 up to W = 128 (a lane
+    a cell below 32, the CPU's), then W / 4, the kernel's groups of
+    W / 128 warps of 4 cells a lane (64 at W = 256; the CPU's wider
+    bands, laid into the next power of two, follow the same rule)."""
+    return min(W, 32) if W <= 128 else W // 4
+
+
 def _lane_add(acc, v):
     """acc (B, R, L) + v (B, R, L * C): lane l adds its C adjacent band
     cells one after the other (the kernel's order)."""
@@ -493,7 +505,9 @@ def realign_em_plain(xyc, m, n, params: KernelParams,
     decode mode, summing expected counts in place of the MEA DP).  The
     lane butterfly wants a power-of-two width: codes of another width
     are laid into the next power of two, their new lanes dead (all
-    sentinel), which add +0.0 to every count."""
+    sentinel), which add +0.0 to every count (a band of 129 to 256 in
+    256 lanes, as the card lays it; above 256, which only the CPU
+    serves, 512 or more lanes, summed over ``em_lanes`` of them)."""
     W = xyc.shape[2]
     wl = live_width(band_width, W)
     xyc = pad_lanes(xyc, 1 << (W - 1).bit_length())
@@ -628,7 +642,7 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
     end_band[:, 0] = 1.0
     end_u = torch.where(w0, 0.0, NEG).to(f32)
     if emit_em:
-        L = min(W, 32)  # lanes; each owns W / L adjacent band cells
+        L = em_lanes(W)  # lanes; each owns W / L adjacent band cells
         acc_t = torch.zeros((B, 25, L), dtype=f32, device=dev)
         acc_m = torch.zeros((B, 16, L), dtype=f32, device=dev)
         acc_d = torch.zeros((B, 8, L), dtype=f32, device=dev)  # states 1, 3 by x

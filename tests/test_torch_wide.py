@@ -25,9 +25,11 @@ w = 96 (dead lanes) and w = 128 (none):
   (records equal to the JAX engine's), and on random codes no MEA op
   leaving the live band, every dead lane's direction code DIR_NONE;
 * the width guard without a card: every entry point of the MEA, the
-  Viterbi and the forward-only paths takes 65..128 past the guard, every
-  path refuses 1, 129 and 160 naming C10 before any work, and the CPU
-  serves 160.
+  Viterbi and the forward-only paths takes 65..128 past the guard; at
+  1 every path refuses naming C10 before any work, and at 129 and 160
+  the Viterbi path does (the MEA path serves them since ROADMAP C11's
+  first step: tests/test_torch_wider.py); the CPU serves 160, laid into
+  256 lanes.
 """
 
 import dataclasses
@@ -434,27 +436,43 @@ def test_viterbi_paths_refuse_65_to_128_naming_c10(monkeypatch, w):
 @pytest.mark.parametrize("w", [1, 129, 160])
 def test_every_path_refuses_widths_outside_2_to_128_naming_c10(
         mapped, tmp_path, monkeypatch, w):  # noqa: F811
+    """Every path once refused 129 and 160 on the card (the name keeps
+    the case).  Every entry point still refuses 1 naming C10 before any
+    work, and the Viterbi path's refuse 129 and 160 naming C10 and C11;
+    the MEA path's take 129 and 160 past the guard since ROADMAP C11's
+    first step (its W = 256 kernels), to the device check (``meta``:
+    ``unsupported device``) or to the stand-in chain."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
-    calls = dict(_mea_entry_points(mapped, tmp_path, w),
-                 **_viterbi_entry_points(w))
-    for name, call in calls.items():
-        with pytest.raises(ValueError, match="C10"):
+    refused = _viterbi_entry_points(w)
+    if w == 1:
+        refused.update(_mea_entry_points(mapped, tmp_path, w))
+    else:
+        for name, call in _mea_entry_points(mapped, tmp_path, w).items():
+            with pytest.raises((ValueError, _PastTheGuard)) as err:
+                call()
+            assert "C1" not in str(err.value), name
+            if err.type is ValueError:
+                assert "unsupported device" in str(err.value), name
+    for name, call in refused.items():
+        with pytest.raises(ValueError, match="C10") as err:
             call()
+        assert "C11" in str(err.value), name
     assert not (tmp_path / "out.sam").exists()
     assert not (tmp_path / "r").exists()
 
 
 def test_the_cpu_serves_160(pairs):
-    """Above 128 the CPU keeps the band unpadded and runs the plain
-    versions: the MEA decode and the Viterbi against the JAX package's
-    XLA scans at the same width."""
+    """Above 128 the CPU runs the plain versions, the band laid into
+    the card's W = 256 layout since ROADMAP C11's first step (the Viterbi
+    too, which only the CPU serves at this width): the MEA decode and
+    the Viterbi against the JAX package's XLA scans at the same width."""
     w = 160
     pairs = pairs[:2]
-    assert padded_width(w) == w
+    assert padded_width(w) == 256
     rea = _prepared(pairs, w, {})
-    assert rea.xyc.shape[2] == w
+    assert rea.xyc.shape[2] == 256
     loglik, cigars, _ = rea.decode()
     batch = prepare_banded_batch(pairs, band_width=w, k_max=rea.xyc.shape[1])
     want = realign_fused(batch, _jparams(), segment_size=8)
