@@ -332,10 +332,49 @@
    --band-width 200`` on step 13's 8 records against ``--device cpu``
    (records identical; the same launches); ``em_train`` at
    ``EmOptions(band_width=200, trials=1, iterations=2)`` on 16 chained
-   reads against the CPU (3e-5 relative).  ``MappingEngine(band_width=
-   200, decode="viterbi")`` on the card must raise, naming C11 (the
-   Viterbi path serves 2 to 128).
-17. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
+   reads against the CPU (3e-5 relative).  On the card every path
+   refuses 257, naming C11 (``MappingEngine`` with either decode and
+   ``PreparedForward``).
+17. Band widths 129 to 256 on the Viterbi path (ROADMAP C11, second
+   step), in the parent after step 9 while it waits for its children
+   (its cached card memory released first), on its own copy of step
+   13's reads (``chip_smoke.py --viterbi-wider`` runs this step alone
+   after the build and the W = 256 attributes, on its own copy of the
+   mapping workload too): the W = 256 builds of the Viterbi kernel
+   (its short and 5-way steps and its full plane, the band held by a
+   pair of warps), the Viterbi walker on both planes and the
+   forward-only kernel (both gap sums, the band on a pair of warps),
+   whose registers, local memory and shared memory are printed after
+   the build.  On step 3's mapping batch (512 reads, the full band of
+   256 lanes), as in step 15: the Viterbi's two steps (the default
+   model) and its full plane (step 14's first model) with score, fstate
+   and the whole plane bit-identical to the plain version's on the first
+   32 reads, the walker on each plane with ops and end cells identical
+   on every read (every walk reaching the origin), the forward-only
+   kernel's two sums within 1e-5 relative of the plain version's loglik
+   on the first 32 reads; each timed on the whole batch.  On step 13's
+   64 reads at live width 200 and at the full 256: the Viterbi, its
+   walker and the forward-only kernel to step 13's bars, each timed
+   there and as the same reads' full 256-lane band.  The forward-only
+   kernel's pair vote: reads whose N in the window, under a model whose
+   first delete state emits an N with NaN, fail the two-term check
+   first in the upper warp's cells alone (a plain two-term recursion
+   checked warp by warp shows it); the kernel must send each whole read
+   to the 5-way sum from that chunk's start and give the plain
+   version's loglik (NaN where it is NaN: a non-finite gap state keeps
+   a NaN at the band's top in the 5-way sum, so no such read ends
+   finite).  Its finite switch: reads with runs of N, under N emissions
+   of 1e-37, whose band maximum (the pair's) falls to a subnormal with a
+   finite inverse; at least three reads switch mid-read, both warps roll
+   back and go on with the 5-way sum together, and every loglik is
+   finite and the plain version's bit for bit.  Then, each with every
+   counter set to 0 just before: ``MappingEngine(band_width=256,
+   decode="viterbi")`` on the mapping workload, cold then warm: >= 99 %
+   of primaries at their origin; pack, viterbi and viterbi_traceback
+   launched, nothing else; and ``MappingEngine(band_width=200,
+   decode="viterbi")`` on 32 reads on the card and with
+   ``device="cpu"``: records equal, the same launches.
+18. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
    ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
    ``launches_distributed_path``, the sum over the two ranks, a
    ``launches_widths_realign_path``, a ``launches_widths_em_path``, a
@@ -344,11 +383,13 @@
    ``launches_wide_em_path``, ``launches_wide_viterbi_engine_path``,
    ``launches_wide_viterbi_map_path`` and step 16's
    ``launches_wider_map_path``, ``launches_wider_engine_path``,
-   ``launches_wider_realign_path`` and ``launches_wider_em_path`` on
-   every row, step 13's ``*_w21`` and ``*_w48`` numbers, step 15's
-   ``*_w96`` and ``*_w128`` numbers and W = 128 attributes, and step
-   16's ``*_w200`` and ``*_w256`` numbers and W = 256 attributes on the
-   MEA path's rows;
+   ``launches_wider_realign_path``, ``launches_wider_em_path`` and step
+   17's ``launches_viterbi_wider_map_path`` and
+   ``launches_viterbi_wider_engine_path`` on every row, step 13's
+   ``*_w21`` and ``*_w48`` numbers, step 15's ``*_w96`` and ``*_w128``
+   numbers and W = 128 attributes, and steps 16's and 17's ``*_w200``,
+   ``*_w256`` (the mapping batch) and ``*_live256`` (step 13's reads at
+   the full 256) numbers and W = 256 attributes on each path's rows;
    ``viterbi_full`` and ``viterbi_traceback_full`` the full-plane modes
    of the Viterbi kernel and its walker) and, last, ``{"ok": true,
    "device": {...}}``.
@@ -858,27 +899,35 @@ def viterbi_ragged_check(dev, params) -> None:
     print("K4 viterbi ragged batches: %.1f s wall" % (time.perf_counter() - t0))
 
 
-def n_run_case(params):
+N_RUNS = ((400, 120, 150), (380, 60, 200), (420, 200, 120), (300, 100, 40),
+          (360, 0, 0))
+# runs of N long enough for a band of 256 (length, start, run length)
+N_RUNS_WIDER = ((600, 150, 250), (560, 100, 300), (640, 200, 220),
+                (500, 120, 200), (520, 0, 0))
+
+
+def n_run_case(params, runs=N_RUNS, e_n: float = 1e-40):
     """Pairs whose reads hold a run of N bases (the last read none)
     against an N-free reference, and ``params`` with every emission of
-    an N at 1e-40: once the band's last cell before the run leaves it,
-    the band maximum falls by ~1e-40 within a pair of diagonals, to a
-    subnormal whose inverse overflows (so tests/test_torch_forward.py's
-    N-run case, at the kernel's widths)."""
+    an N at ``e_n``: once the band's last cell before the run leaves it,
+    the band maximum falls by ~e_n within a pair of diagonals, to a
+    subnormal.  At 1e-40 its inverse overflows and the loglik turns NaN
+    (so tests/test_torch_forward.py's N-run case, at the kernel's
+    widths); at 1e-37, on :data:`N_RUNS_WIDER` in 256 lanes, the
+    maximum's inverse stays finite, and so does the loglik."""
     from nanopore_tpu_torch.io.sam import CIG
     from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
 
     rng = np.random.default_rng(SEED)
     pairs = []
-    for L, p0, ln in ((400, 120, 150), (380, 60, 200), (420, 200, 120),
-                      (300, 100, 40), (360, 0, 0)):
+    for L, p0, ln in runs:
         x = rng.integers(0, 4, L).astype(np.int8)
         y = x.copy()
         y[p0:p0 + ln] = 4
         pairs.append((x, y, [(CIG.M, L)]))
     em = params.e_match_flat.cpu().numpy().reshape(5, 5).copy()
     eg = params.e_gap_flat.cpu().numpy().reshape(5, 5).copy()
-    em[:, 4] = em[4, :] = eg[:, 4] = np.float32(1e-40)
+    em[:, 4] = em[4, :] = eg[:, 4] = np.float32(e_n)
     return pairs, params_from_numpy(params.t.cpu().numpy(), em.reshape(-1),
                                     eg.reshape(-1))
 
@@ -945,24 +994,35 @@ def forward_ragged_check(dev, params) -> None:
                       "hand, differs from the plain version on %d of 7 reads"
                       % (W_, what, int((forced["loglik"]
                                         != want["B7"]["loglik"]).sum())))
-        pairs, p = n_run_case(params)
-        xyc, m, n, _ = device_batch(pairs, W_, None, dev, "N-run batch",
-                                    check_pack=False)
-        ll = F.forward_loglik(xyc, m, n, p)
-        switched = F._launch(xyc, m, n, kernel_tables(p), True)["switched"]
-        want = F.forward_loglik_plain(xyc, m, n, p)
-        kend = (m + n).long()
-        mid = ((switched > 1) & (switched < kend)).tolist()
-        print("K6 forward N-run batch W=%d: loglik %s (plain %s), first 5-way "
-              "diagonal %s of m + n %s" % (W_, ll.tolist(), want.tolist(),
-                                           switched.tolist(), kend.tolist()))
-        if not bits_equal(ll, want):
-            fail("forward kernel differs from its plain version on the N-run "
-                 "batch W=%d" % W_)
-        if mid != [True] * (len(pairs) - 1) + [False] or switched[-1] != -1:
-            fail("the N-run reads did not switch to the 5-way sum mid-read")
+        forward_n_run_check(dev, params, W_)
     print("K6 forward ragged, segment and N-run batches: %.1f s wall"
           % (time.perf_counter() - t0))
+
+
+def forward_n_run_check(dev, params, W_: int) -> None:
+    """The forward-only kernel on the N-run reads of :func:`n_run_case`
+    in W_ lanes: the loglik bit for bit the plain version's, every N-run
+    read sent to the 5-way sum mid-read, the N-free read not."""
+    from nanopore_tpu_torch.ops import forward as F
+    from nanopore_tpu_torch.ops.pairhmm import kernel_tables
+
+    pairs, p = n_run_case(params)
+    xyc, m, n, _ = device_batch(pairs, W_, None, dev, "N-run batch",
+                                check_pack=False)
+    ll = F.forward_loglik(xyc, m, n, p)
+    switched = F._launch(xyc, m, n, kernel_tables(p), True)["switched"]
+    want = F.forward_loglik_plain(xyc, m, n, p)
+    kend = (m + n).long()
+    mid = ((switched > 1) & (switched < kend)).tolist()
+    print("K6 forward N-run batch W=%d: loglik %s (plain %s), first 5-way "
+          "diagonal %s of m + n %s" % (W_, ll.tolist(), want.tolist(),
+                                       switched.tolist(), kend.tolist()))
+    if not bits_equal(ll, want):
+        fail("forward kernel differs from its plain version on the N-run "
+             "batch W=%d" % W_)
+    if mid != [True] * (len(pairs) - 1) + [False] or switched[-1] != -1:
+        fail("the N-run reads did not switch to the 5-way sum mid-read "
+             "at W=%d" % W_)
 
 
 def gamma_ragged_check(dev, params) -> None:
@@ -2797,13 +2857,15 @@ def live_batch(pairs, w: int, dev, lanes=None):
 
 
 def width_kernel_checks(pairs, w: int, dev, res: dict,
-                        phase: str = "phase 13", viterbi: bool = True
-                        ) -> None:
+                        phase: str = "phase 13", viterbi: bool = True,
+                        mea: bool = True) -> None:
     """Every kernel against its plain version on a band of live width
     ``w`` in the padded layout, timed there and as a band of the
-    layout's full width; into ``res[kernel]`` under ``*_w<w>``.  With
-    ``viterbi=False`` the MEA path's kernels alone (a width only they
-    serve)."""
+    layout's full width; into ``res[kernel]`` under ``*_w<w>`` (under
+    ``*_live<w>`` where w is the layout's full width, whose ``*_w<w>``
+    keys are the mapping batch's).  With ``viterbi=False`` the MEA
+    path's kernels alone, with ``mea=False`` the Viterbi path's alone
+    (the other path's phase times them at this width)."""
     import torch
 
     from nanopore_tpu_torch.align.em import representable
@@ -2824,9 +2886,9 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
     from nanopore_tpu_torch.ops.traceback import mea_walk, mea_walk_plain
 
     t0 = time.perf_counter()
-    tag = "_w%d" % w
     xyc, m, n, prep, (stream, initx) = live_batch(pairs, w, dev)
     B, k_pad, W_ = xyc.shape
+    tag = ("_w%d" if w < W_ else "_live%d") % w
     kend = prep["k_end"]
     need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     # the same reads as a band of the layout's full width
@@ -2851,6 +2913,15 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
               "(%s), plain %.1f ms, max abs err %.3g"
               % (name, w, ms, ms_full, W_, bound, by, plain_ms, err))
 
+    def finish():
+        for name, r in rows.items():
+            res.setdefault(name, {}).update(r)
+        print("%s, w = %d: %.1f s" % (phase, w, time.perf_counter() - t0))
+
+    if not mea:
+        viterbi_width_rows(xyc, m, n, dflt, w, need, prep["offsets"],
+                           (fx, fm, fn_), row)
+        return finish()
     # K1: byte for byte, every dead lane the sentinel with its row's bits
     xyc_p, plain_ms = timed(lambda: pack_xyc_plain(stream, initx, m, n, w))
     codes = xyc.view(torch.uint8)
@@ -2981,9 +3052,7 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
     if viterbi:
         viterbi_width_rows(xyc, m, n, dflt, w, need, prep["offsets"],
                            (fx, fm, fn_), row)
-    for name, r in rows.items():
-        res.setdefault(name, {}).update(r)
-    print("%s, w = %d: %.1f s" % (phase, w, time.perf_counter() - t0))
+    finish()
 
 
 def viterbi_width_rows(xyc, m, n, dflt, w: int, need: int, offsets, full,
@@ -3568,7 +3637,7 @@ def wide_attributes() -> dict:
 
 def mapping_batch_checks(pairs, params, dev, res: dict, width: int,
                          plain_reads: int, phase: str,
-                         viterbi: bool = False) -> None:
+                         viterbi: bool = False, mea: bool = True) -> None:
     """K1, K2 decode and K3 at W = ``width`` on the mapping main path's
     batch (its 512 reads as a band of all ``width`` lanes, the diagonal
     count the engine gives it), each against its plain version to the
@@ -3576,35 +3645,22 @@ def mapping_batch_checks(pairs, params, dev, res: dict, width: int,
     the first ``plain_reads`` at the full diagonal count (a read's
     outputs do not depend on its batch), in its workspace plan's
     launches; with ``viterbi``, then the Viterbi path's kernels
-    (:func:`wide_viterbi_checks`); each timed on the whole batch, into
-    ``res[kernel]`` under ``*_w<width>``."""
+    (:func:`wide_viterbi_checks`, its plain versions on the first
+    ``plain_reads``); with ``mea=False`` those alone (on the pack's
+    codes); each timed on the whole batch, into ``res[kernel]`` under
+    ``*_w<width>``."""
     import torch
 
-    from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
-    from nanopore_tpu_torch.ops import realign
     from nanopore_tpu_torch.ops.dispatch import _pairs_k_max
-    from nanopore_tpu_torch.ops.pack import (
-        pack_stream_pairs,
-        pack_xyc,
-        pack_xyc_plain,
-    )
-    from nanopore_tpu_torch.ops.traceback import (
-        mea_walk,
-        mea_walk_plain,
-        rle_ops_batch,
-    )
+    from nanopore_tpu_torch.ops.pack import pack_stream_pairs, pack_xyc
 
     t0 = time.perf_counter()
     tag = "_w%d" % width
-    cfg = MAPPER_REGISTRY["LastParams"].config
-    gg, mg = cfg.gap_gamma, cfg.match_gamma
     prep = pack_stream_pairs(pairs, width, _pairs_k_max(pairs, None))
     B, k_pad, P = prep["B"], prep["k_pad"], plain_reads
     put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     m, n = put(prep["m"]), put(prep["n"])
     stream, initx = put(prep["stream"]), put(prep["initx"])
-    kend = prep["k_end"]
-    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     rows = {}
 
     def row(name, ms, plain_ms, plain_reads, err, bound, by, per_batch,
@@ -3623,6 +3679,38 @@ def mapping_batch_checks(pairs, params, dev, res: dict, width: int,
     print("%s, the mapping batch at W = %d: B=%d k_pad=%d"
           % (phase, width, B, k_pad))
     xyc = pack_xyc(stream, initx, m, n)
+    if mea:
+        mea_batch_checks(xyc, m, n, stream, initx, prep, params, row, width,
+                         P, phase)
+    if viterbi:
+        wide_viterbi_checks(xyc, m, n, prep, params, row, width, P, phase)
+    del xyc
+    torch.cuda.empty_cache()  # the other processes on the card share it
+    for name, r in rows.items():
+        res.setdefault(name, {}).update(r)
+    print("%s, the mapping batch: %.1f s" % (phase, time.perf_counter() - t0))
+
+
+def mea_batch_checks(xyc, m, n, stream, initx, prep, params, row,
+                     width: int, P: int, phase: str) -> None:
+    """The MEA path's rows of :func:`mapping_batch_checks`: K1 on every
+    read, K2 decode on the first ``P``, K3 on every read."""
+    import torch
+
+    from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
+    from nanopore_tpu_torch.ops import realign
+    from nanopore_tpu_torch.ops.pack import pack_xyc, pack_xyc_plain
+    from nanopore_tpu_torch.ops.traceback import (
+        mea_walk,
+        mea_walk_plain,
+        rle_ops_batch,
+    )
+
+    cfg = MAPPER_REGISTRY["LastParams"].config
+    gg, mg = cfg.gap_gamma, cfg.match_gamma
+    B, k_pad = xyc.shape[:2]
+    kend = prep["k_end"]
+    need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     xyc_p, plain_ms = timed(lambda: pack_xyc_plain(stream, initx, m, n))
     if not torch.equal(xyc, xyc_p):
         fail("pack kernel at W=%d differs from its plain version" % width)
@@ -3676,22 +3764,16 @@ def mapping_batch_checks(pairs, params, dev, res: dict, width: int,
     row("traceback", cuda_ms(lambda: mea_walk(dirs, xyc, m, n), 10), plain_ms,
         B, 0.0, nbytes / HBM_BYTES_PER_S * 1e3, "bytes", 1)
     del out_k, dirs, ops_k, ops_p
-    if viterbi:
-        wide_viterbi_checks(xyc, m, n, prep, params, row)
-    del xyc
-    torch.cuda.empty_cache()  # the other processes on the card share it
-    for name, r in rows.items():
-        res.setdefault(name, {}).update(r)
-    print("%s, the mapping batch: %.1f s" % (phase, time.perf_counter() - t0))
 
 
-def wide_viterbi_checks(xyc, m, n, prep, params, row) -> None:
+def wide_viterbi_checks(xyc, m, n, prep, params, row, width: int, P: int,
+                        phase: str) -> None:
     """K4 (short and 5-way steps), K4-full (under phase 14's first
-    model), K5 on each plane and K6 (both gap sums) at W = 128 on the
-    mapping batch ``xyc``, each against its plain version: the Viterbi's
-    score, fstate and whole plane bit for bit on the first PLAIN_READS
-    reads, the walks' ops and end cells on every read, the loglik
-    bit-identical (1e-5 relative the bar) on the first PLAIN_READS; each
+    model), K5 on each plane and K6 (both gap sums) at W = ``width`` on
+    the mapping batch ``xyc``, each against its plain version: the
+    Viterbi's score, fstate and whole plane bit for bit on the first
+    ``P`` reads, the walks' ops and end cells on every read, the loglik
+    bit-identical (1e-5 relative the bar) on the first ``P``; each
     timed on the whole batch beside its bound, through ``row``."""
     import torch
 
@@ -3701,21 +3783,21 @@ def wide_viterbi_checks(xyc, m, n, prep, params, row) -> None:
     from nanopore_tpu_torch.ops.pairhmm import kernel_tables
 
     t0 = time.perf_counter()
-    B, k_pad, P = xyc.shape[0], xyc.shape[1], PLAIN_READS
+    B, k_pad = xyc.shape[:2]
     K1 = k_pad + 1
     need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
     xs, ms_, ns = (t[:P].contiguous() for t in (xyc, m, n))
     full_p = next(iter(full_plane_models(params).values()))
     byte = V.viterbi_tables(params)
     if not V.short_step(byte) or V.viterbi_structure_ok(full_p):
-        fail("phase 15: the models do not take the steps checked")
+        fail(phase + ": the models do not take the steps checked")
 
     def held(what, out_k, want):
         differ = [key for key in want
                   if not bits_equal(out_k[key][:P], want[key])]
         if differ:
-            fail("phase 15: %s at W=%d differs from its plain version in %s"
-                 % (what, WIDE_W, differ))
+            fail(phase + ": %s at W=%d differs from its plain version in %s"
+                 % (what, width, differ))
 
     # K4, its two steps against one plain run (both give its bytes)
     want, plain_ms = timed(lambda: V.viterbi_forward_plain(xs, ms_, ns, params))
@@ -3726,17 +3808,17 @@ def wide_viterbi_checks(xyc, m, n, prep, params, row) -> None:
         held("K4 (%s step)" % ("short" if step == V.SHORT else "5-way"), out,
              want)
         steps[step] = out
-        bound, by = realign_bound(ops, WIDE_W, need,
-                                  (need - B) * WIDE_W + B * K1 * WIDE_W
+        bound, by = realign_bound(ops, width, need,
+                                  (need - B) * width + B * K1 * width
                                   + 12 * B)
         row("viterbi", cuda_ms(lambda: V._launch(xyc, m, n, byte, step), 3),
             plain_ms, P, 0.0, bound, by, 1, sfx)
     if not all(torch.equal(steps[V.SHORT][key], steps[V.FIVE_WAY][key])
                for key in want):
-        fail("phase 15: K4's two steps differ at W=%d" % WIDE_W)
+        fail(phase + ": K4's two steps differ at W=%d" % width)
     print("  viterbi W=%d: both steps' score, fstate and whole plane "
           "bit-identical to the plain version's on %d reads"
-          % (WIDE_W, P))
+          % (width, P))
     del want, steps[V.FIVE_WAY]
     out_b = steps.pop(V.SHORT)
     # K4-full
@@ -3744,17 +3826,17 @@ def wide_viterbi_checks(xyc, m, n, prep, params, row) -> None:
         xs, ms_, ns, full_p))
     out_f = V.viterbi_forward(xyc, m, n, full_p)
     if out_f["bp"].dtype != torch.int16:
-        fail("phase 15: the Viterbi did not take the full plane")
+        fail(phase + ": the Viterbi did not take the full plane")
     held("K4-full", out_f, want)
     del want
-    bound, by = realign_bound(VITERBI_OPS_PER_CELL, WIDE_W, need,
-                              (need - B) * WIDE_W + B * K1 * WIDE_W * 2
+    bound, by = realign_bound(VITERBI_OPS_PER_CELL, width, need,
+                              (need - B) * width + B * K1 * width * 2
                               + 12 * B)
     row("viterbi_full", cuda_ms(lambda: V.viterbi_forward(xyc, m, n, full_p),
                                 3),
         plain_ms, P, 0.0, bound, by, 1)
     print("  viterbi_full W=%d: score, fstate and whole int16 plane "
-          "bit-identical on %d reads" % (WIDE_W, P))
+          "bit-identical on %d reads" % (width, P))
     # K5 on each plane, every read
     for name, out, per_step in (("viterbi_traceback", out_b, 1),
                                 ("viterbi_traceback_full", out_f, 2)):
@@ -3762,13 +3844,13 @@ def wide_viterbi_checks(xyc, m, n, prep, params, row) -> None:
         (ops_k, end_k) = T.viterbi_walk(*args)
         (ops_p, end_p), plain_ms = timed(lambda: T.viterbi_walk_plain(*args))
         if not (torch.equal(ops_k, ops_p) and torch.equal(end_k, end_p)):
-            fail("phase 15: %s at W=%d differs from the plain walker"
-                 % (name, WIDE_W))
+            fail(phase + ": %s at W=%d differs from the plain walker"
+                 % (name, width))
         lost = int(end_k.any(1).sum())
         print("  %s W=%d: ops and end cells identical on %d reads; walks "
-              "short of the origin %d" % (name, WIDE_W, B, lost))
+              "short of the origin %d" % (name, width, B, lost))
         if lost:
-            fail("phase 15: %d %s walks stop short" % (lost, name))
+            fail(phase + ": %d %s walks stop short" % (lost, name))
         nbytes = (per_step * walked_bytes(ops_k) + need - B + B * K1
                   + 20 * B)
         row(name, cuda_ms(lambda: T.viterbi_walk(*args), 10), plain_ms, B,
@@ -3779,27 +3861,27 @@ def wide_viterbi_checks(xyc, m, n, prep, params, row) -> None:
     ll_p, plain_ms = timed(lambda: F.forward_loglik_plain(xs, ms_, ns, params))
     tab = kernel_tables(params)
     if not F.two_term_sum(tab):
-        fail("phase 15: the default model does not take the two-term sum")
+        fail(phase + ": the default model does not take the two-term sum")
     for two, sfx, ops in ((True, "", FORWARD_SHORT_OPS_PER_CELL),
                           (False, "_5way", FORWARD_OPS_PER_CELL)):
         ll_k = F._launch(xyc, m, n, tab, two)["loglik"]
         if not bool(torch.isfinite(ll_k).all()):
-            fail("phase 15: non-finite forward loglik at W=%d" % WIDE_W)
+            fail(phase + ": non-finite forward loglik at W=%d" % width)
         ll_rel = rel_err(ll_k[:P], ll_p)
         same = bits_equal(ll_k[:P], ll_p)
         print("  forward (%s sum) W=%d: loglik max rel %.3g (%s) on %d reads"
-              % ("two-term" if two else "5-way", WIDE_W, ll_rel,
+              % ("two-term" if two else "5-way", width, ll_rel,
                  "bit-identical" if same else "not bit-identical", P))
         if ll_rel > 1e-5:
-            fail("phase 15: forward kernel at W=%d outside tolerance"
-                 % WIDE_W)
-        bound, by = realign_bound(ops, WIDE_W, need,
-                                  (need - B) * WIDE_W + 16 * B)
+            fail(phase + ": forward kernel at W=%d outside tolerance"
+                 % width)
+        bound, by = realign_bound(ops, width, need,
+                                  (need - B) * width + 16 * B)
         row("forward", cuda_ms(lambda: F._launch(xyc, m, n, tab, two), 3),
             plain_ms, P, float((ll_k[:P] - ll_p).abs().max()), bound, by, 1,
             sfx)
-    print("phase 15, the Viterbi path on the mapping batch: %.1f s"
-          % (time.perf_counter() - t0))
+    print("%s, the Viterbi path on the mapping batch: %.1f s"
+          % (phase, time.perf_counter() - t0))
 
 
 def engine_records(path: str) -> list:
@@ -3992,8 +4074,7 @@ def wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
     """Phase 16 (its checks in the docstring's step 16): the W = 256
     builds on the mapping batch and at live widths 200 and 256 on phase
     13's reads, the engine at W = 256, the engine, ``realign`` and EM at
-    200 card against CPU, and the Viterbi engine's refusal of 200.
-    Returns the kernels' ``*_w256`` and ``*_w200`` numbers and each
+    200 card against CPU, and every path's refusal of 257.  Returns the kernels' ``*_w256`` and ``*_w200`` numbers and each
     run's launches."""
     import dataclasses
 
@@ -4001,6 +4082,10 @@ def wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
 
     from nanopore_tpu_torch.io.seqio import read_fasta_dict
     from nanopore_tpu_torch.mapping.engine import MappingEngine
+    from nanopore_tpu_torch.ops.dispatch import (
+        PreparedForward,
+        prepared_from_pairs,
+    )
 
     t_phase = time.perf_counter()
     res, runs = {}, {}
@@ -4031,18 +4116,25 @@ def wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
     runs["wider_em"] = em_width_check(wl, WIDER_LIVE, dev, counters,
                                       "phase 16")
 
-    # ---- the Viterbi path refuses 200 on the card (C11's next step) ----
-    try:
-        MappingEngine(ref, dataclasses.replace(live, decode="viterbi"),
-                      index=engine.index, device=dev)
-    except ValueError as err:
-        print("phase 16: MappingEngine(band_width=%d, decode=\"viterbi\") on "
-              "the card: %s" % (WIDER_LIVE, err))
-        if "C11" not in str(err):
-            fail("phase 16: the Viterbi engine's refusal does not name C11")
-    else:
-        fail("phase 16: the Viterbi engine took band width %d on the card"
-             % WIDER_LIVE)
+    # ---- every path refuses 257 on the card (the rest of C11) ----
+    wider = WIDER_W + 1
+    calls = {
+        engine_name(dataclasses.replace(cfg, band_width=wider, decode=d)):
+        (lambda d=d: MappingEngine(ref, dataclasses.replace(
+            cfg, band_width=wider, decode=d), index=engine.index, device=dev))
+        for d in ("mea", "viterbi")}
+    calls["PreparedForward"] = lambda: prepared_from_pairs(
+        {"device": dev}, pairs[:2], engine.params, band_width=wider,
+        prepared_cls=PreparedForward)
+    for what, call in calls.items():
+        try:
+            call()
+        except ValueError as err:
+            print("phase 16: %s on the card: %s" % (what, err))
+            if "C11" not in str(err):
+                fail("phase 16: the refusal of %s does not name C11" % what)
+        else:
+            fail("phase 16: %s took band width %d on the card" % (what, wider))
     print("phase 16 wall: %.1f s" % (time.perf_counter() - t_phase))
     return {"res": res, "runs": runs}
 
@@ -4081,6 +4173,251 @@ def wider_alone() -> int:
     workdir = os.path.join(build.BUILD_DIR, "smoke", "wider_alone")
     engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
     out = wider_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
+    for name, a in attrs.items():
+        out["res"].setdefault(name, {}).update(a)
+    print(card)
+    print(json.dumps(out))
+    return 0
+
+
+# ---- phase 17: band widths 129 to 256 on the Viterbi path ---- #
+
+def pair_vote_case(params):
+    """Reads of 500 bases against their windows (8 % substitutions), each
+    but the last with one N in its window at a position where it enters
+    the live band of width 200 at its top, and ``params`` with the first
+    delete state's emission of an N set to NaN: that state turns NaN
+    at the N's cell, in the upper warp's cells (128-199) of a band on
+    two warps, and the NaN spreads at most one cell a diagonal, so the
+    chunk of 64 diagonals where the two-term sum's check first fails
+    fails in the upper warp alone (:func:`half_checks`).  The last read
+    keeps a finite loglik."""
+    from nanopore_tpu_torch.io.sam import CIG
+    from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
+
+    rng = np.random.default_rng(SEED + 17)
+    pairs = []
+    for pos in (300, 350, 400, 440, 480, None):
+        x = rng.integers(0, 4, 500).astype(np.int8)
+        y = np.where(rng.random(500) < 0.08, rng.integers(0, 4, 500),
+                     x).astype(np.int8)
+        if pos is not None:
+            x[pos] = 4
+        pairs.append((x, y, [(CIG.M, 500)]))
+    eg = params.e_gap_flat.cpu().numpy().reshape(5, 5).copy()
+    eg[1, 4] = np.nan
+    return pairs, params_from_numpy(params.t.cpu().numpy(),
+                                    params.e_match_flat.cpu().numpy(),
+                                    eg.reshape(-1))
+
+
+def half_checks(xyc, m, n, p, chunk: int = 64, half: int = 128):
+    """The forward-only kernel's two-term check (csrc/forward.cu) on each
+    warp's cells of a band on two warps, chunk by chunk, from a plain
+    two-term recursion: for each read its first failing chunk's first
+    diagonal and whether the lower (cells < ``half``) and the upper
+    warp's checks fail there (every gap state before the rescale
+    finite, the band maximum in [FLT_MIN, 2^126))."""
+    import torch
+
+    from nanopore_tpu_torch.ops.pairhmm import kernel_tables
+    from nanopore_tpu_torch.ops.realign import _shift
+
+    B, k_pad, W_ = xyc.shape
+    dev = xyc.device
+    tab = kernel_tables(p).to(dev)
+    tf, emf, egf = tab[:25].reshape(5, 5), tab[25:61], tab[61:91]
+    codes = xyc.to(torch.int32) & 0xFF
+    base = torch.arange(W_, device=dev) + 1
+    a = torch.zeros((B, 5, W_), device=dev)
+    a[:, :, 0] = 0.2
+    b, rs = torch.zeros_like(a), torch.ones(B, device=dev)
+    klast = torch.clamp(m.long() + n.long(), max=k_pad)
+    first = [None] * B
+
+    def step(k, prev, pp, r):
+        c = codes[:, k - 1]
+        x, y = (c >> 3) & 7, c & 7
+        e = torch.stack([emf[x * 6 + y], egf[6 + x], egf[12 + y],
+                         egf[18 + x], egf[24 + y]], 1)
+        d1, d1p = (c[:, 0] >> 6) & 1, (c[:, 0] >> 7) & 1
+        t0 = pp[:, 0] * tf[0, 0]
+        for s in range(1, 5):
+            t0 = t0 + tf[s, 0] * pp[:, s]
+        t = torch.stack([t0] + [tf[0, g] * prev[:, 0] + tf[g, g] * prev[:, g]
+                                for g in range(1, 5)], 1)
+        t = _shift(t, torch.stack([d1 + d1p - 1, d1 - 1, d1, d1 - 1, d1], 1),
+                   0.0, base)
+        t = torch.cat([(t[:, 0] * r[:, None])[:, None], t[:, 1:]], 1)
+        return e * t
+
+    for q0 in range(0, k_pad, chunk):
+        bad = torch.zeros((B, 2), dtype=torch.bool, device=dev)
+        for k0 in range(q0, min(q0 + chunk, k_pad), 2):
+            nb = step(k0 + 1, a, b, rs)
+            na = step(k0 + 2, nb, a, torch.ones_like(rs))
+            scale = na.amax(dim=(1, 2))
+            safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+            out = ~((safe >= 1.17549435e-38) & (safe < 2.0 ** 126))
+            nf = ~torch.isfinite(torch.stack([nb[:, 1:], na[:, 1:]], 1))
+            fails = torch.stack([nf[..., :half].flatten(1).any(1),
+                                 nf[..., half:].flatten(1).any(1)], 1)
+            bad |= (fails | out[:, None]) & (k0 < klast)[:, None]
+            a, b, rs = na * (1.0 / safe)[:, None, None], nb, 1.0 / safe
+        for r, (lo, hi) in enumerate(bad.tolist()):
+            if first[r] is None and (lo or hi):
+                first[r] = (q0 + 1, lo, hi)
+    return first
+
+
+def forward_pair_vote_check(dev, params) -> None:
+    """K6 at W = 256 (live width 200) on :func:`pair_vote_case`: in each
+    N read the two-term check first fails in a chunk where only the
+    upper warp's cells fail it; the pair's vote must send the whole read
+    to the 5-way sum from that chunk's start (``switched``), and the
+    loglik must be the plain version's (NaN where the NaN reaches the
+    end cell, bit for bit where finite)."""
+    import torch
+
+    from nanopore_tpu_torch.ops import forward as F
+    from nanopore_tpu_torch.ops.pairhmm import kernel_tables
+
+    t0 = time.perf_counter()
+    pairs, p = pair_vote_case(params)
+    xyc, m, n, prep, _ = live_batch(pairs, WIDER_LIVE, dev)
+    tab = kernel_tables(p)
+    if not F.two_term_sum(tab) or xyc.shape[2] != WIDER_W:
+        fail("phase 17: the pair vote case does not take the two-term sum "
+             "at W = %d" % WIDER_W)
+    out = F._launch(xyc, m, n, tab, True)
+    ll = F.forward_loglik(xyc, m, n, p)
+    want = F.forward_loglik_plain(xyc, m, n, p)
+    first = half_checks(xyc, m, n, p)
+    switched = out["switched"].tolist()
+    print("K6 forward W=%d, the pair vote case (w = %d, k_pad %d): first "
+          "failing chunk (diagonal, lower warp fails, upper warp fails) %s; "
+          "the kernel's first 5-way diagonal %s; loglik %s (plain %s)"
+          % (WIDER_W, WIDER_LIVE, prep["k_pad"], first, switched,
+             ll.tolist(), want.tolist()))
+    upper_only = [f is not None and not f[1] and f[2] for f in first]
+    if upper_only != [True] * (len(pairs) - 1) + [False]:
+        fail("phase 17: the pair vote case does not fail the upper warp's "
+             "check alone")
+    if switched != [f[0] if f else -1 for f in first]:
+        fail("phase 17: the forward kernel did not send each read to the "
+             "5-way sum at its chunk whose upper warp failed")
+    if not (nan_equal(ll, want) and nan_equal(out["loglik"], want)
+            and bool(torch.isfinite(want[-1]))):
+        fail("phase 17: the forward kernel's loglik on the pair vote case "
+             "differs from its plain version's")
+    print("K6 forward pair vote case: loglik the plain version's (%s), "
+          "%.1f s" % ("bit-identical" if bits_equal(ll, want)
+                      else "NaN where it is NaN", time.perf_counter() - t0))
+
+
+def forward_finite_switch_check(dev, params) -> None:
+    """K6 at W = 256 on :func:`n_run_case`'s reads of :data:`N_RUNS_WIDER`
+    with N emissions of 1e-37: where the two-term check first fails, the
+    band maximum (the pair's) is a subnormal with a finite inverse, so
+    both warps roll back a, b, rs, ls and acc, rerun the chunk with the
+    5-way sum across the seam, and end finite.  ``switched`` must be the
+    first failing chunk of :func:`half_checks` for every read, at least
+    three reads must switch mid-read, and every loglik must be finite
+    and the plain version's bit for bit."""
+    import torch
+
+    from nanopore_tpu_torch.ops import forward as F
+    from nanopore_tpu_torch.ops.pairhmm import kernel_tables
+
+    t0 = time.perf_counter()
+    pairs, p = n_run_case(params, N_RUNS_WIDER, 1e-37)
+    xyc, m, n, _ = device_batch(pairs, WIDER_W, None, dev,
+                                "finite switch batch", check_pack=False)
+    out = F._launch(xyc, m, n, kernel_tables(p), True)
+    ll = F.forward_loglik(xyc, m, n, p)
+    want = F.forward_loglik_plain(xyc, m, n, p)
+    first = half_checks(xyc, m, n, p)
+    switched = out["switched"].tolist()
+    kend = (m + n).tolist()
+    print("K6 forward W=%d, the finite switch case: first failing chunk "
+          "(diagonal, lower warp fails, upper warp fails) %s; the kernel's "
+          "first 5-way diagonal %s of m + n %s; loglik %s (plain %s)"
+          % (WIDER_W, first, switched, kend, ll.tolist(), want.tolist()))
+    if switched != [f[0] if f else -1 for f in first]:
+        fail("phase 17: the forward kernel's switches on the finite switch "
+             "case are not its check's")
+    if sum(1 < s < k for s, k in zip(switched, kend)) < 3:
+        fail("phase 17: fewer than three reads of the finite switch case "
+             "switched mid-read")
+    if not (bits_equal(ll, want) and bits_equal(out["loglik"], want)
+            and bool(torch.isfinite(want).all())):
+        fail("phase 17: the forward kernel's loglik on the finite switch "
+             "case is not the plain version's finite bits")
+    print("K6 forward finite switch case: every loglik finite and "
+          "bit-identical, %.1f s" % (time.perf_counter() - t0))
+
+
+def viterbi_wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
+                        counters) -> dict:
+    """Phase 17 (its checks in the docstring's step 17): the Viterbi
+    path's W = 256 builds on the mapping batch and at live widths 200
+    and 256 on phase 13's reads, the pair vote case, the Viterbi engine
+    at W = 256 and at 200 card against CPU.  Returns the kernels'
+    ``*_w256``, ``*_w200`` and ``*_live256`` numbers and each run's
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+
+    t_phase = time.perf_counter()
+    res, runs = {}, {}
+    mapping_batch_checks(pairs, engine.params, dev, res, WIDER_W,
+                         WIDER_PLAIN_READS, "phase 17", viterbi=True,
+                         mea=False)
+    for w in (WIDER_LIVE, WIDER_W):
+        width_kernel_checks(wl["pairs"], w, dev, res, "phase 17", mea=False)
+    forward_pair_vote_check(dev, engine.params)
+    forward_finite_switch_check(dev, engine.params)
+    torch.cuda.empty_cache()
+
+    wdir = os.path.join(os.path.dirname(fq), "viterbi_wider")
+    os.makedirs(wdir, exist_ok=True)
+    ref = read_fasta_dict(fa)
+    vit = dataclasses.replace(engine.config, band_width=WIDER_W,
+                              decode="viterbi")
+    runs["viterbi_wider_map"] = warm_engine_run(
+        ref, vit, engine, fq, os.path.join(wdir, "viterbi_w256.sam"), dev,
+        counters, "phase 17", VITERBI_KERNELS)
+    runs["viterbi_wider_engine"] = engine_card_vs_cpu(
+        ref, dataclasses.replace(vit, band_width=WIDER_LIVE), engine, fq,
+        wdir, dev, counters, "phase 17", VITERBI_KERNELS)
+    print("phase 17 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return {"res": res, "runs": runs}
+
+
+def viterbi_wider_alone() -> int:
+    """Run as ``chip_smoke.py --viterbi-wider``: the kernels' build and
+    the Viterbi path's W = 256 attributes, then phase 17 alone on its
+    own copies of the mapping workload and of phase 13's reads."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.kernels import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    print("build: %.1f s" % build.build())
+    attrs = viterbi_path_attributes(WIDER_W, "_w%d" % WIDER_W)
+    dev = torch.device("cuda", 0)
+    workdir = os.path.join(build.BUILD_DIR, "smoke", "viterbi_wider_alone")
+    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
+    out = viterbi_wider_phase(engine, pairs, fa, fq, wl, dev,
+                              launch_counters())
     for name, a in attrs.items():
         out["res"].setdefault(name, {}).update(a)
     print(card)
@@ -4218,7 +4555,7 @@ def viterbi_child() -> int:
 
 
 def start_child(workdir: str, flag: str):
-    """Start ``chip_smoke.py <flag>`` (``--pipeline``: phases 10-12;
+    """Start ``chip_smoke.py <flag>`` (``--pipeline``: phases 10-12 and 16;
     ``--viterbi``: phases 8, 13, 14 and 15), its output in
     ``<workdir>/<flag without dashes>_child.log``; it is killed at exit if
     still running."""
@@ -4248,7 +4585,7 @@ def finish_child(proc, workdir: str, flag: str, what: str,
     t0 = time.perf_counter()
     rc = proc.wait(timeout=1200)
     print("%s (a child process beside the parent's phases): waited %.1f s "
-          "after phase 9" % (what, time.perf_counter() - t0))
+          "after the parent's last phase" % (what, time.perf_counter() - t0))
     with open(os.path.join(workdir, flag.lstrip("-") + "_child.log")) as fh:
         lines = fh.read().splitlines()
     for line in lines:
@@ -4321,6 +4658,8 @@ def main() -> int:
         return wide_alone()
     if sys.argv[1:] == ["--wider"]:
         return wider_alone()
+    if sys.argv[1:] == ["--viterbi-wider"]:
+        return viterbi_wider_alone()
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
         return distributed_rank(int(sys.argv[2]), *sys.argv[3:])
     sys.path.insert(0, ROOT)
@@ -4330,6 +4669,7 @@ def main() -> int:
     from nanopore_tpu_torch.mapping.runner import run_mapper
     from nanopore_tpu_torch.io.seqio import read_fasta_dict
     from nanopore_tpu_torch.ops import pack, realign, traceback
+    from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
     from nanopore_tpu_torch.runtime import native_index
 
     card = subprocess.run(
@@ -4380,6 +4720,9 @@ def main() -> int:
     for name, a in wide_attributes().items():
         attrs.setdefault(name, {}).update(a)
     for name, a in mea_path_attributes(WIDER_W).items():
+        attrs.setdefault(name, {}).update(a)
+    for name, a in viterbi_path_attributes(WIDER_W,
+                                           "_w%d" % WIDER_W).items():
         attrs.setdefault(name, {}).update(a)
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
@@ -4437,12 +4780,23 @@ def main() -> int:
     post_launches = posterior_path_phase(workdir, dev, counters, res)
     mark("phase 7")
     vit_launches = viterbi_path_phase(workdir, fa, fq, dev, counters)
+    mark("phase 9")
+    # phase 17 while the children run on: this process's cached blocks
+    # go back first (the card's memory is shared by three processes)
+    torch.cuda.empty_cache()
+    phase17 = viterbi_wider_phase(
+        engine, main_path_batch(engine, fq,
+                                preferred_realign_batch_size(None, dev)),
+        fa, fq, width_workload(os.path.join(workdir, "viterbi_wider"), dev),
+        dev, counters)
+    torch.cuda.empty_cache()
+    mark("phase 17")
     phase8 = finish_child(vit_child, workdir, "--viterbi",
                           "phases 8, 13, 14 and 15",
                           os.path.join("viterbi", "result.json"))
     res.update(phase8["res"])
     other_runs = dict(post_launches, **vit_launches)
-    for out in (phase8["widths"], phase8["wide"]):
+    for out in (phase8["widths"], phase8["wide"], phase17):
         for name, rows in out["res"].items():
             res[name].update(rows)
         other_runs.update(out["runs"])

@@ -61,7 +61,7 @@
 //    seam between the warps, and each band maximum meets the other
 //    warp's: both pass through a few words of shared memory, one named
 //    barrier for the group's 64 threads (bar.sync id, 64) an exchange
-//    (struct Grp, seam(), band_max()).  A forward step (and a backward
+//    (csrc/group.cuh, seam(), band_max()).  A forward step (and a backward
 //    step) is one exchange, a rescale one more, an MEA step one, an exp
 //    step one.  The group stages its chunks together and syncs on the
 //    same barrier.  The cells and their arithmetic are W = 128's, so
@@ -205,6 +205,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "group.cuh"
+
 namespace {
 
 constexpr int NS = 5;
@@ -231,45 +233,11 @@ struct Tables {
   float v[NTAB];
 };
 
-// The warps that hold one read's band: G warps (G = W / 128 above
-// W = 128, else 1), warp wg of them owning band cells 32 C wg ..
-// 32 C (wg + 1) - 1, lane l of it C adjacent cells.  Across the seams
-// between the warps, values pass through a small shared buffer,
-// x[2][G][2][XA] (two alternating halves; per warp its lane 0's first
-// cell and its lane 31's last cell of each array), one named barrier
-// (`bar`, 32 G threads) an exchange.  An exchange writes the half that
-// the one before it did not, so one barrier an exchange orders both the
-// reads of the last and the writes of the next.  At G = 1 the group is
-// one warp and every exchange compiles to nothing.
+// The warps that hold one read's band (csrc/group.cuh): G warps (G =
+// W / 128 above W = 128, else 1); a seam exchange carries a lane 0's
+// first cell and a lane 31's last cell of at most XA arrays.
 template <int G>
-struct Grp {
-  int lane;  // lane in its warp
-  int wg;    // warp in the group
-  int gl;    // lane in the group: wg * 32 + lane
-  int bar;   // named barrier id (G > 1)
-  float* x;  // exchange buffer (G > 1)
-  int ph;    // the half the next exchange writes
-};
-
-template <int G>
-__device__ __forceinline__ Grp<G> make_grp(int warp, int bar, float* x) {
-  const int lane = threadIdx.x & 31;
-  const int wg = G == 1 ? 0 : warp % G;
-  return Grp<G>{lane, wg, wg * 32 + lane, bar, x, 0};
-}
-
-__device__ __forceinline__ void bar_sync(int id, int nthreads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
-}
-
-// the group's barrier: __syncwarp for one warp
-template <int G>
-__device__ __forceinline__ void grp_sync(const Grp<G>& g) {
-  if constexpr (G == 1)
-    __syncwarp();
-  else
-    bar_sync(g.bar, 32 * G);
-}
+using Grp = grp::Group<G, XA>;
 
 // One Stage a read in realign_kernel, staged by the read's warps.  Chunk q
 // of phase A holds the code rows of diagonals q*CH + 1 .. q*CH + CH + 1
@@ -396,28 +364,18 @@ __device__ __forceinline__ void fill_rows(void* base, int kq, int k_pad, int row
 template <int C, int G, int N>
 __device__ __forceinline__ void seam(Grp<G>& g, const float (&a)[N][C], float fill,
                                      float (&hi)[N], float (&lo)[N]) {
-  static_assert(N <= XA, "one exchange carries XA arrays");
   if constexpr (G == 1) {
 #pragma unroll
     for (int i = 0; i < N; ++i) hi[i] = lo[i] = fill;
   } else {
-    float* x = g.x + g.ph * (G * 2 * XA);
-    if (g.lane == 0) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) x[(g.wg * 2) * XA + i] = a[i][0];
-    } else if (g.lane == 31) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) x[(g.wg * 2 + 1) * XA + i] = a[i][C - 1];
-    }
-    bar_sync(g.bar, 32 * G);
-    const bool top = g.wg == G - 1, bottom = g.wg == 0;
-    const int above = top ? g.wg : g.wg + 1, below = bottom ? g.wg : g.wg - 1;
+    float bottom[N], top[N], f[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      hi[i] = top ? fill : x[(above * 2) * XA + i];
-      lo[i] = bottom ? fill : x[(below * 2 + 1) * XA + i];
+      bottom[i] = a[i][0];
+      top[i] = a[i][C - 1];
+      f[i] = fill;
     }
-    g.ph ^= 1;
+    grp::exchange(g, bottom, top, f, hi, lo);
   }
 }
 
@@ -505,30 +463,13 @@ __device__ __forceinline__ float band_max(const float (&v)[NS][C], Grp<G>& g) {
 #pragma unroll
     for (int c = 0; c < C; ++c) mx = fmaxf(mx, v[s][c]);
   const int key = mx == mx ? __float_as_int(mx) : 0;
-  int best = __reduce_max_sync(FULL, key);
-  if constexpr (G > 1) {
-    int* x = reinterpret_cast<int*>(g.x + g.ph * (G * 2 * XA));
-    if (g.lane == 0) x[g.wg * 2 * XA] = best;
-    bar_sync(g.bar, 32 * G);
-#pragma unroll
-    for (int j = 0; j < G; ++j) best = max(best, x[j * 2 * XA]);
-    g.ph ^= 1;
-  }
-  return __int_as_float(best);
+  return __int_as_float(grp::max(g, __reduce_max_sync(FULL, key)));
 }
 
 // group lane 0's value to every lane of the group (every lane calls)
 template <int G>
 __device__ __forceinline__ float from_lane0(float v, Grp<G>& g) {
-  v = __shfl_sync(FULL, v, 0);
-  if constexpr (G > 1) {
-    float* x = g.x + g.ph * (G * 2 * XA);
-    if (g.gl == 0) x[0] = v;
-    bar_sync(g.bar, 32 * G);
-    v = x[0];
-    g.ph ^= 1;
-  }
-  return v;
+  return grp::from_lane0(g, v);
 }
 
 // sum_s tf[s*5 + dest] * p[s], each product and sum rounded on its own
@@ -703,7 +644,7 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
   if (nqa > 0) {
     stage_codes(0);
     cp_wait_all();
-    grp_sync(g);
+    grp::sync(g);
     uint8_t c0[C];
     load_codes<C>(cd[0][0], w0, c0);
     emissions<C>(emf, egf, c0, ea);
@@ -712,7 +653,7 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
   for (int q = 0; q < nqa; ++q) {
     if (q > 0) {
       cp_wait_all();  // chunk q has landed
-      grp_sync(g);    // and every lane is done with chunk q - 1's buffer
+      grp::sync(g);    // and every lane is done with chunk q - 1's buffer
     }
     if (q + 1 < nqa) stage_codes(q + 1);
     const uint8_t(*rows)[W] = cd[q & 1];
@@ -910,15 +851,15 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   static_assert(RB * G == WARPS, "a block holds whole groups");
   __shared__ float sm[NTAB];
   extern __shared__ __align__(16) unsigned char stage_raw[];
-  float* xbuf = nullptr;
+  uint32_t* xbuf = nullptr;
   if constexpr (G > 1) {
-    __shared__ float xs[2 * G * 2 * XA];
+    __shared__ uint32_t xs[grp::buffer_words<G, XA>()];
     xbuf = xs;
   }
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
   __syncthreads();
   const int warp = threadIdx.x >> 5;
-  Grp<G> g = make_grp<G>(warp, 1, xbuf);
+  Grp<G> g = grp::make<G, XA>(warp, 1, xbuf);
   const int lane = g.lane;
   const int r = blockIdx.x * RB + warp / G;
   if (r >= nreads) return;  // only at G = 1 (RB = 1 otherwise)
@@ -980,12 +921,12 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   };
   // phase A's stores are read back by other lanes' copies
   __threadfence_block();
-  grp_sync(g);
+  grp::sync(g);
   stage_bwd(kq / CH);
 #pragma unroll 1
   for (int q = kq / CH; q >= 0; --q) {
     cp_wait_all();  // chunk q has landed
-    grp_sync(g);    // and every lane is done with chunk q + 1's buffer
+    grp::sync(g);    // and every lane is done with chunk q + 1's buffer
     if (q > 0) stage_bwd(q - 1);
     const int buf = q & 1;
     for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
@@ -1109,12 +1050,12 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       static_assert(G / 2 * 57 * 32 * 4 <= (int)sizeof(Stage<W>), "the sums fit the stage");
 #pragma unroll 1
       for (int h = G / 2; h >= 1; h >>= 1) {
-        grp_sync(g);  // the buffer is free
+        grp::sync(g);  // the buffer is free
         if (g.wg >= h && g.wg < 2 * h) {
 #pragma unroll
           for (int i = 0; i < 57; ++i) red[((g.wg - h) * 57 + i) * 32 + lane] = em[i];
         }
-        grp_sync(g);
+        grp::sync(g);
         if (g.wg < h) {
 #pragma unroll
           for (int i = 0; i < 57; ++i) em[i] = em[i] + red[(g.wg * 57 + i) * 32 + lane];
@@ -1173,9 +1114,9 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
   MeaStage<W>& sg = *reinterpret_cast<MeaStage<W>*>(stage_raw);
   const int warp = threadIdx.x >> 5;
   const int role = warp / G;
-  float* xbuf = nullptr;
+  uint32_t* xbuf = nullptr;
   if constexpr (G > 1) {
-    __shared__ float xs[MEA_WARPS][2 * G * 2 * XA];
+    __shared__ uint32_t xs[MEA_WARPS][grp::buffer_words<G, XA>()];
     xbuf = xs[role];
   }
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
@@ -1187,7 +1128,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  Grp<G> g = make_grp<G>(warp, role + 1, xbuf);
+  Grp<G> g = grp::make<G, XA>(warp, role + 1, xbuf);
   const int r = blockIdx.x;
   const float* tf = sm;
   const float* emf = sm + 25;
@@ -1229,7 +1170,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
 #pragma unroll 1
     for (int q = kq / CH; q >= 0; --q) {
       cp_wait_all();  // chunk q has landed
-      grp_sync(g);    // and every lane is done with chunk q + 1's buffer
+      grp::sync(g);    // and every lane is done with chunk q + 1's buffer
       if (q > 0) stage(q - 1);
       const int buf = q & 1;
       for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
@@ -1286,7 +1227,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
 #pragma unroll 1
     for (int q = nseg - 1; q >= 0; --q) {
       cp_wait_all();  // chunk q has landed
-      grp_sync(g);    // and every lane is done with chunk q + 1's buffer
+      grp::sync(g);    // and every lane is done with chunk q + 1's buffer
       if (q > 0) stage(q - 1);
       const int buf = q & 1;
       const int t = nseg - 1 - q, slot = t % NSLOT;
@@ -1404,7 +1345,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
       }
       bw.binv = recip(csafe);  // the rescale inverse of diagonal hi + 1, as computed there
       cp_wait_all();  // this segment's codes have landed
-      grp_sync(g);    // and every lane is done with the other buffer
+      grp::sync(g);    // and every lane is done with the other buffer
       if (t + 2 < nseg) {
         stage(j - 2, buf ^ 1);
         load_ck(j - 2);
@@ -1458,13 +1399,13 @@ __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __res
   __shared__ GammaStage<W> sg;
   const int warp = threadIdx.x >> 5;
   const int role = warp / G;
-  float* xbuf = nullptr;
+  uint32_t* xbuf = nullptr;
   if constexpr (G > 1) {
-    __shared__ float xs[2][2 * G * 2 * XA];  // the forward's and the backward's
+    __shared__ uint32_t xs[2][grp::buffer_words<G, XA>()];  // the forward's and the backward's
     xbuf = xs[role & 1];
   }
   __syncthreads();
-  Grp<G> g = make_grp<G>(warp, role + 1, xbuf);
+  Grp<G> g = grp::make<G, XA>(warp, role + 1, xbuf);
   const int lane = g.lane;
   const int r = blockIdx.x;
   const float* tf = sm;
@@ -1507,7 +1448,7 @@ __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __res
 #pragma unroll 1
     for (int q = kq / CH; q >= 0; --q) {
       cp_wait_all();  // chunk q has landed
-      grp_sync(g);    // and every lane is done with chunk q + 1's buffer
+      grp::sync(g);    // and every lane is done with chunk q + 1's buffer
       if (q > 0) stage(q - 1);
       const int buf = q & 1;
       for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {

@@ -58,6 +58,21 @@
 //  * one warp per read, two reads a block; a lane owns C = W/32 adjacent
 //    band cells in registers (W = 32, 64 or 128), so a band shift is one
 //    warp shuffle;
+//  * at W = 256 a read's band is held by a group of G = 2 warps of C = 4
+//    cells a lane (W = 128's registers a thread), warp wg owning cells
+//    128 wg .. 128 wg + 127 (csrc/group.cuh), one read a block of 64
+//    threads (17 KB of static shared memory, so all 512 reads of the
+//    mapping batch are resident at once).  A diagonal's band shifts move
+//    one cell of eight arrays across the seam between the two warps (the
+//    match state and its argmax by d2, states 2 and 4 and their field
+//    upward, states 1 and 3 and theirs downward): each warp's lane 0
+//    publishes its first cells and lane 31 its last, in one exchange
+//    through shared memory, one named barrier (bar.sync id, 64) a
+//    diagonal.  The shift is the kernel's only exchange (no rescale, no
+//    band maximum).  The group stages its chunks together and syncs on
+//    the same barrier; warp 0's lane 0 holds band cell 0 and so the end
+//    cell, the score and fstate.  The cells and their arithmetic are
+//    W = 128's, so the bits are the plain version's;
 //  * the codes are staged through shared memory in chunks of CH + 1 rows
 //    with cp.async, double-buffered (the next chunk is in flight while
 //    this one is computed), and the emissions and band deltas of the
@@ -74,9 +89,9 @@
 //    10 tI1 + 40 tI2, or bD1 << 3 | bD2 << 9 and bI1 << 6 | bI2 << 12, one
 //    int) are shuffled and then selected by d1; the match state and its
 //    argmax are shuffled both ways and selected by d2;
-//  * the warp writes one backpointer row per diagonal, coalesced (W bytes,
-//    2W for the full plane: a lane stores its C cells as one word, 8
-//    bytes for the full plane at W = 128);
+//  * the group writes one backpointer row per diagonal, coalesced (W
+//    bytes, 2W for the full plane: a lane stores its C cells as one word,
+//    8 bytes for the full plane at C = 4);
 //    a read stops at its own end diagonal and zeroes the rows above it
 //    with 16-byte stores.
 #include <cuda_runtime.h>
@@ -84,6 +99,7 @@
 
 #include <type_traits>
 
+#include "group.cuh"
 #include "walk.cuh"
 
 namespace {
@@ -91,9 +107,9 @@ namespace {
 constexpr int NS = 5;
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 2;  // reads per block
 constexpr int CH = 32;    // diagonals per staged chunk
 constexpr int NTAB = 91;  // ltf 25 | lemf 36 | legf 30
+constexpr int XW = 5;     // words a warp edge gives the seam each diagonal
 // the steps (ops/viterbi.py: FIVE_WAY, SHORT, FULL)
 constexpr int STEP_FIVE_WAY = 0, STEP_SHORT = 1, STEP_FULL = 2;
 
@@ -117,55 +133,59 @@ struct Emit {
   float gap[4][8];
 };
 
-// One warp's two code chunks: row i of chunk q holds diagonal q*CH + i + 1
-// (CH + 1 rows, so the look-ahead of the chunk's last step stays in it)
-template <int C>
+// One read's two code chunks of W-byte rows: row i of chunk q holds
+// diagonal q*CH + i + 1 (CH + 1 rows, so the look-ahead of the chunk's
+// last step stays in it)
+template <int W>
 struct __align__(16) Stage {
-  uint8_t cd[2][CH + 1][32 * C];
+  uint8_t cd[2][CH + 1][W];
 };
 
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// out[w] = a[w + s] for a warp-uniform s in {-1, 0, 1}, `fill` outside:
-// both neighbours shuffled, then selected (no branch)
+// out[w] = a[w + s] for a group-uniform s in {-1, 0, 1}: both neighbours
+// shuffled, then selected (no branch); at the warp's top `hi` comes in,
+// at its bottom `lo` (the fill at the band's edges, the other warp's cell
+// at a seam)
 template <int C, typename T>
-__device__ __forceinline__ void shift_sel(T (&a)[C], int s, T fill, int lane) {
+__device__ __forceinline__ void shift_sel(T (&a)[C], int s, T hi, T lo, int lane) {
   const T up = __shfl_down_sync(FULL, a[0], 1);
   const T dn = __shfl_up_sync(FULL, a[C - 1], 1);
   T o[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const T plus = c < C - 1 ? a[c + 1] : (lane == 31 ? fill : up);
-    const T minus = c > 0 ? a[c - 1] : (lane == 0 ? fill : dn);
+    const T plus = c < C - 1 ? a[c + 1] : (lane == 31 ? hi : up);
+    const T minus = c > 0 ? a[c - 1] : (lane == 0 ? lo : dn);
     o[c] = s > 0 ? plus : (s < 0 ? minus : a[c]);
   }
 #pragma unroll
   for (int c = 0; c < C; ++c) a[c] = o[c];
 }
 
-// out[w] = move ? a[w + SH] : a[w], `fill` outside (no branch)
+// out[w] = move ? a[w + SH] : a[w] (no branch); `edge` comes in at the
+// warp's top (SH = 1) or bottom (SH = -1), as for shift_sel
 template <int C, int SH, typename T>
-__device__ __forceinline__ void shift_if(T (&a)[C], bool move, T fill, int lane) {
+__device__ __forceinline__ void shift_if(T (&a)[C], bool move, T edge, int lane) {
   T o[C];
   if constexpr (SH > 0) {
     const T nb = __shfl_down_sync(FULL, a[0], 1);
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      o[c] = c < C - 1 ? a[c + 1] : (lane == 31 ? fill : nb);
+      o[c] = c < C - 1 ? a[c + 1] : (lane == 31 ? edge : nb);
   } else {
     const T nb = __shfl_up_sync(FULL, a[C - 1], 1);
 #pragma unroll
-    for (int c = 0; c < C; ++c) o[c] = c > 0 ? a[c - 1] : (lane == 0 ? fill : nb);
+    for (int c = 0; c < C; ++c) o[c] = c > 0 ? a[c - 1] : (lane == 0 ? edge : nb);
   }
 #pragma unroll
   for (int c = 0; c < C; ++c) a[c] = move ? o[c] : a[c];
 }
 
 // the emissions and top byte of the diagonal whose codes are `row`; a
-// lane's C code bytes are one aligned load (w0 = lane * C, a row is a
-// multiple of 16 bytes)
+// lane's C code bytes are one aligned load (w0 = group lane * C, a row is
+// a multiple of 16 bytes)
 template <int C>
 __device__ __forceinline__ void lookup(const Emit& e, const uint8_t* row, int w0,
                                        float (&em)[NS][C], int& top) {
@@ -194,18 +214,19 @@ __device__ __forceinline__ void lookup(const Emit& e, const uint8_t* row, int w0
   top = row[0];
 }
 
-template <int C, int STEP>
-__global__ void __launch_bounds__(WARPS * 32)
+template <int C, int STEP, int G>
+__global__ void __launch_bounds__(grp::reads_per_block(G) * G * 32)
 viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
                const int32_t* __restrict__ m, const int32_t* __restrict__ n,
                int nreads, int k_pad, float* __restrict__ score,
                int32_t* __restrict__ fstate, void* __restrict__ bp) {
-  constexpr int W = 32 * C;
+  constexpr int R = grp::reads_per_block(G);
+  constexpr int W = 32 * C * G;
   using Cell = std::conditional_t<STEP == STEP_FULL, uint16_t, uint8_t>;
   using Out = Word<C, Cell>;
   using Acc = std::conditional_t<sizeof(Out) == 8, uint64_t, uint32_t>;
   __shared__ Emit emit;
-  __shared__ Stage<C> stage[WARPS];
+  __shared__ Stage<W> stage[R];
   for (int i = threadIdx.x; i < 64; i += blockDim.x) {
     const int x = i >> 3, y = i & 7;
     emit.em[i] = (x < 5 && y < 5) ? tab.v[25 + x * 6 + y] : NEG;
@@ -217,10 +238,17 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * WARPS + warp;
-  if (r >= nreads) return;
-  Stage<C>& sg = stage[warp];
-  const int w0 = lane * C;
+  const int rb = warp / G;  // the read's index in the block
+  const int r = blockIdx.x * R + rb;
+  if (r >= nreads) return;  // the read's whole group
+  uint32_t* xb = nullptr;  // the seam's exchange buffer (G > 1)
+  if constexpr (G > 1) {
+    __shared__ uint32_t xbuf[R][grp::buffer_words<G, XW>()];
+    xb = xbuf[rb];
+  }
+  auto gp = grp::make<G, XW>(warp, 1 + rb, xb);
+  Stage<W>& sg = stage[rb];
+  const int w0 = gp.gl * C;
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
   Cell* out = (Cell*)bp + (size_t)r * (k_pad + 1) * W;  // row k: diagonal k
   const int kend = m[r] + n[r];
@@ -243,7 +271,7 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
   auto stage_codes = [&](int q) {
     const int r0 = q * CH;
     const int nbytes = min(CH + 1, k_pad - r0) * W;
-    for (int i = lane * 16; i < nbytes; i += 32 * 16)
+    for (int i = gp.gl * 16; i < nbytes; i += G * 32 * 16)
       walk::cp_async16(&sg.cd[q & 1][0][0] + i, xy + (size_t)r0 * W + i);
     walk::cp_commit();
   };
@@ -252,14 +280,14 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
   if (nq > 0) {
     stage_codes(0);
     cp_wait_all();
-    __syncwarp();
+    grp::sync(gp);
     lookup<C>(emit, sg.cd[0][0], w0, e, top);
   }
 #pragma unroll 1
   for (int q = 0; q < nq; ++q) {
     if (q > 0) {
       cp_wait_all();  // chunk q has landed
-      __syncwarp();   // and every lane is done with chunk q - 1's buffer
+      grp::sync(gp);   // and every lane is done with chunk q - 1's buffer
     }
     if (q + 1 < nq) stage_codes(q + 1);
     const uint8_t(*rows)[W] = sg.cd[q & 1];
@@ -317,15 +345,42 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
           pb[c] = 10 * t[2] + 40 * t[4];
         }
       }
+      // the cells shifted in at the warp's edges: NEG and backpointer 0
+      // outside the band; across the seam, the other warp's
+      float hv0 = NEG, lv0 = NEG, hv2 = NEG, hv4 = NEG, lv1 = NEG, lv3 = NEG;
+      int hbm = 0, lbm = 0, hpb = 0, lpa = 0;
+      if constexpr (G > 1) {
+        // hi: v0, bm, v2, v4, pb from above; lo: v0, bm, v1, v3, pa from below
+        const uint32_t bottom[XW] = {__float_as_uint(v[0][0]), (uint32_t)bm[0],
+                                     __float_as_uint(v[2][0]), __float_as_uint(v[4][0]),
+                                     (uint32_t)pb[0]};
+        const uint32_t topw[XW] = {__float_as_uint(v[0][C - 1]), (uint32_t)bm[C - 1],
+                                   __float_as_uint(v[1][C - 1]),
+                                   __float_as_uint(v[3][C - 1]), (uint32_t)pa[C - 1]};
+        const uint32_t fill[XW] = {__float_as_uint(NEG), 0u, __float_as_uint(NEG),
+                                   __float_as_uint(NEG), 0u};
+        uint32_t hi[XW], lo[XW];
+        grp::exchange(gp, bottom, topw, fill, hi, lo);
+        hv0 = __uint_as_float(hi[0]);
+        lv0 = __uint_as_float(lo[0]);
+        hbm = (int)hi[1];
+        lbm = (int)lo[1];
+        hv2 = __uint_as_float(hi[2]);
+        hv4 = __uint_as_float(hi[3]);
+        hpb = (int)hi[4];
+        lv1 = __uint_as_float(lo[2]);
+        lv3 = __uint_as_float(lo[3]);
+        lpa = (int)lo[4];
+      }
       // the band shifts: match by d2, then one branch for the gap pairs
-      shift_sel<C>(v[0], d2, NEG, lane);
-      shift_sel<C>(bm, d2, 0, lane);
-      shift_if<C, 1>(v[2], d1 != 0, NEG, lane);
-      shift_if<C, 1>(v[4], d1 != 0, NEG, lane);
-      shift_if<C, 1>(pb, d1 != 0, 0, lane);
-      shift_if<C, -1>(v[1], d1 == 0, NEG, lane);
-      shift_if<C, -1>(v[3], d1 == 0, NEG, lane);
-      shift_if<C, -1>(pa, d1 == 0, 0, lane);
+      shift_sel<C>(v[0], d2, hv0, lv0, lane);
+      shift_sel<C>(bm, d2, hbm, lbm, lane);
+      shift_if<C, 1>(v[2], d1 != 0, hv2, lane);
+      shift_if<C, 1>(v[4], d1 != 0, hv4, lane);
+      shift_if<C, 1>(pb, d1 != 0, hpb, lane);
+      shift_if<C, -1>(v[1], d1 == 0, lv1, lane);
+      shift_if<C, -1>(v[3], d1 == 0, lv3, lane);
+      shift_if<C, -1>(pa, d1 == 0, lpa, lane);
 
       Acc word = 0;
 #pragma unroll
@@ -338,7 +393,7 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
         word |= (Acc)(bm[c] + pa[c] + pb[c]) << (8 * sizeof(Cell) * c);
       }
       *reinterpret_cast<Out*>(out + (size_t)k * W + w0) = (Out)word;
-      if (k == kend) {  // cell (m, n): band cell 0 (lane 0's)
+      if (k == kend) {  // cell (m, n): band cell 0 (warp 0's lane 0's)
         float ve = a[0][0];
         int se = 0;
 #pragma unroll
@@ -361,33 +416,36 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
   {
     char* p = (char*)(out + (size_t)(klast + 1) * W);
     const size_t nbytes = (size_t)(k_pad - klast) * W * sizeof(Cell);
-    for (size_t i = (size_t)lane * 16; i < nbytes; i += 32 * 16)
+    for (size_t i = (size_t)gp.gl * 16; i < nbytes; i += G * 32 * 16)
       *reinterpret_cast<uint4*>(p + i) = make_uint4(0u, 0u, 0u, 0u);
   }
-  if (lane == 0) {
+  if (gp.gl == 0) {
     score[r] = sc;
     fstate[r] = fs;
   }
 }
 
-template <int C>
-int launch_width(int step, const Tables& t, dim3 grid, dim3 block, cudaStream_t s,
-                 const void* xyc, const void* m, const void* n, int nreads, int k_pad,
-                 void* score, void* fstate, void* bp) {
-  auto kernel = step == STEP_FULL    ? viterbi_kernel<C, STEP_FULL>
-                : step == STEP_SHORT ? viterbi_kernel<C, STEP_SHORT>
-                                : viterbi_kernel<C, STEP_FIVE_WAY>;
-  kernel<<<grid, block, 0, s>>>(t, (const uint8_t*)xyc, (const int32_t*)m,
-                                (const int32_t*)n, nreads, k_pad, (float*)score,
-                                (int32_t*)fstate, bp);
+template <int C, int G>
+int launch_width(int step, const Tables& t, int nreads, cudaStream_t s, const void* xyc,
+                 const void* m, const void* n, int k_pad, void* score, void* fstate,
+                 void* bp) {
+  constexpr int R = grp::reads_per_block(G);
+  auto kernel = step == STEP_FULL    ? viterbi_kernel<C, STEP_FULL, G>
+                : step == STEP_SHORT ? viterbi_kernel<C, STEP_SHORT, G>
+                                : viterbi_kernel<C, STEP_FIVE_WAY, G>;
+  kernel<<<(nreads + R - 1) / R, R * G * 32, 0, s>>>(
+      t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad,
+      (float*)score, (int32_t*)fstate, bp);
   return (int)cudaGetLastError();
 }
 
-template <int C>
-cudaError_t attrs_width(int step, cudaFuncAttributes* a) {
-  return cudaFuncGetAttributes(a, step == STEP_FULL    ? viterbi_kernel<C, STEP_FULL>
-                                  : step == STEP_SHORT ? viterbi_kernel<C, STEP_SHORT>
-                                                  : viterbi_kernel<C, STEP_FIVE_WAY>);
+template <int C, int G>
+cudaError_t attrs_width(int step, cudaFuncAttributes* a, int* out) {
+  out[3] = grp::reads_per_block(G) * G * 32;
+  out[4] = grp::reads_per_block(G);
+  return cudaFuncGetAttributes(a, step == STEP_FULL    ? viterbi_kernel<C, STEP_FULL, G>
+                                  : step == STEP_SHORT ? viterbi_kernel<C, STEP_SHORT, G>
+                                                  : viterbi_kernel<C, STEP_FIVE_WAY, G>);
 }
 
 }  // namespace
@@ -402,7 +460,8 @@ extern "C" const char* np_cuda_error_string(int e) {
 // STEP_FULL).  `step`: STEP_FIVE_WAY (0) or STEP_SHORT (1) write the byte
 // plane, bp (nreads, k_pad + 1, W) int8, and the caller may ask for
 // STEP_SHORT only where every gap state g has t[0 -> g] > 0 or
-// t[g -> g] > 0; STEP_FULL (2) writes the full plane, bp int16.
+// t[g -> g] > 0; STEP_FULL (2) writes the full plane, bp int16.  W is 32,
+// 64, 128 or 256.
 extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const void* m,
                                  const void* n, int nreads, int k_pad, int W,
                                  int step, void* score, void* fstate, void* bp,
@@ -411,17 +470,15 @@ extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const voi
     return (int)cudaErrorInvalidValue;
   Tables t;
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
-  const dim3 grid((nreads + WARPS - 1) / WARPS), block(WARPS * 32);
   cudaStream_t s = (cudaStream_t)stream;
+  if (W == 256)
+    return launch_width<4, 2>(step, t, nreads, s, xyc, m, n, k_pad, score, fstate, bp);
   if (W == 128)
-    return launch_width<4>(step, t, grid, block, s, xyc, m, n, nreads, k_pad, score,
-                           fstate, bp);
+    return launch_width<4, 1>(step, t, nreads, s, xyc, m, n, k_pad, score, fstate, bp);
   if (W == 64)
-    return launch_width<2>(step, t, grid, block, s, xyc, m, n, nreads, k_pad, score,
-                           fstate, bp);
+    return launch_width<2, 1>(step, t, nreads, s, xyc, m, n, k_pad, score, fstate, bp);
   if (W == 32)
-    return launch_width<1>(step, t, grid, block, s, xyc, m, n, nreads, k_pad, score,
-                           fstate, bp);
+    return launch_width<1, 1>(step, t, nreads, s, xyc, m, n, k_pad, score, fstate, bp);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -433,18 +490,18 @@ extern "C" int np_viterbi_attrs(int W, int step, int* out) {
   cudaError_t e;
   if (step < STEP_FIVE_WAY || step > STEP_FULL)
     return (int)cudaErrorInvalidValue;
-  if (W == 128)
-    e = attrs_width<4>(step, &a);
+  if (W == 256)
+    e = attrs_width<4, 2>(step, &a, out);
+  else if (W == 128)
+    e = attrs_width<4, 1>(step, &a, out);
   else if (W == 64)
-    e = attrs_width<2>(step, &a);
+    e = attrs_width<2, 1>(step, &a, out);
   else if (W == 32)
-    e = attrs_width<1>(step, &a);
+    e = attrs_width<1, 1>(step, &a, out);
   else
     return (int)cudaErrorInvalidValue;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
-  out[3] = WARPS * 32;
-  out[4] = WARPS;
   return (int)e;
 }

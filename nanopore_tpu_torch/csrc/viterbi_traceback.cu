@@ -31,7 +31,8 @@
 // each step's cell depends on the previous step's move.  Design: that
 // of csrc/traceback.cu, going down:
 //  * one warp per read, WARPS = 4 reads a block, but 2 for the full
-//    plane at W = 128 (walk::reads_per_block);
+//    plane at W = 128 and the byte plane at W = 256, and 1 for the full
+//    plane at W = 256 (walk::reads_per_block);
 //  * o[kstart] (kstart = min(m + n, k_pad)) first, as one warp-parallel
 //    sum of d1[1..kstart]: independent strided loads, then
 //    __reduce_add_sync; meanwhile the first chunks are in flight;
@@ -46,7 +47,9 @@
 //    SM either way at B = 512: 128 blocks on 132 SMs); at W = 128 a read's
 //    int16 ring is 100,528 B, so a block holds 2 reads (201,056 B), one
 //    block an SM, 256 blocks at B = 512 (the byte ring, 205,504 B a
-//    block of 4, as K3's);
+//    block of 4, as K3's); at W = 256 the byte ring is 100,528 B too (2
+//    reads a block, as K3's at 256) and the int16 ring 198,832 B, one
+//    read a block and an SM, 512 blocks at B = 512;
 //  * one lane walks in shared memory only, jumping straight to its next
 //    diagonal (k - 1 or k - 2).  The walk is software-pipelined: the
 //    state decides the next cell before the current backpointer is
@@ -55,7 +58,7 @@
 //    each op into a shared op row (prefilled with 3) that the warp
 //    stores with 16-byte stores;
 //  * the rows above kstart are filled with 3 by 16-byte stores.
-// Serves W = 32, 64 and 128, the Viterbi kernel's widths.
+// Serves W = 32, 64, 128 and 256, the Viterbi kernel's widths.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -179,6 +182,7 @@ int attrs_width(int* out) {
 
 template <typename T>
 int attrs_plane(int W, int* out) {
+  if (W == 256) return attrs_width<256, T>(out);
   if (W == 128) return attrs_width<128, T>(out);
   if (W == 64) return attrs_width<64, T>(out);
   if (W == 32) return attrs_width<32, T>(out);
@@ -201,6 +205,11 @@ template <typename T>
 int launch_plane(const void* bp, const void* xyc, const void* m, const void* n,
                  const void* fstate, int nreads, int k_pad, int W, void* ops, void* end,
                  cudaStream_t s) {
+  if (W == 256)
+    return walk::launch<256, T>(viterbi_walk_kernel<256, T>, nreads, s, (const T*)bp,
+                                (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
+                                (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops,
+                                (int32_t*)end);
   if (W == 128)
     return walk::launch<128, T>(viterbi_walk_kernel<128, T>, nreads, s, (const T*)bp,
                                 (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
@@ -225,7 +234,7 @@ int launch_plane(const void* bp, const void* xyc, const void* m, const void* n,
 // (nreads, k_pad + 1, W): the byte plane, int8, or (`full`) the full
 // plane, int16; xyc (nreads, k_pad, W) int8, m, n and fstate (nreads,)
 // int32, ops (nreads, k_pad + 1) int8 and end (nreads, 2) int32 out; W is
-// 32, 64 or 128, and bp is 16-byte aligned.
+// 32, 64, 128 or 256, and bp is 16-byte aligned.
 extern "C" int np_viterbi_walk_launch(const void* bp, const void* xyc, const void* m,
                                       const void* n, const void* fstate, int nreads,
                                       int k_pad, int W, int full, void* ops, void* end,

@@ -35,10 +35,12 @@ struct __align__(16) Stage {
 // Reads (warps) a block of a walker over rows of T at band width W:
 // WARPS, but 2 where a row is 256 bytes (the full plane's 16-bit rows at
 // W = 128, the byte rows at W = 256), whose ring of 4 reads (402,112
-// bytes either) would not fit in the 232,448 a block may opt into
+// bytes either) would not fit in the 232,448 a block may opt into, and 1
+// where a row is 512 bytes (the full plane at W = 256: 198,832 bytes a
+// read)
 template <int W, typename T>
 __host__ __device__ constexpr int reads_per_block() {
-  return W * (int)sizeof(T) > 128 ? 2 : WARPS;
+  return W * (int)sizeof(T) > 256 ? 1 : W * (int)sizeof(T) > 128 ? 2 : WARPS;
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -145,8 +147,9 @@ __device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
 // Dynamic shared memory a walker block takes at band width W with rows
 // of T: one Stage a read of the block (0 for a W other than 32, 64, 128
 // and 256).  The byte rows take 205,504 bytes at W = 128 (4 reads) and
-// 201,056 at W = 256 (2 reads), as the 16-bit rows at W = 128 (2 reads),
-// under the 232,448 a block may opt into.
+// 201,056 at W = 256 (2 reads), as the 16-bit rows at W = 128 (2 reads);
+// the 16-bit rows at W = 256 198,832 (1 read); all under the 232,448 a
+// block may opt into.
 template <int W, typename T>
 constexpr int stage_bytes() {
   return reads_per_block<W, T>() * (int)sizeof(Stage<W, T>);

@@ -25,7 +25,8 @@ pack inputs of the realign batches of chip_smoke's paths, all from
 * ``forward_em``: the forward-only kernel on the EM batch's codes under
   its random model (the far-end windows of ROADMAP C6 among them);
 * ``decode_w32``: the realign stage's fullest bucket (W = 32), and
-  ``forward_w32``, the forward-only kernel on its codes;
+  ``forward_w32`` and ``viterbi_w32``, the forward-only and the Viterbi
+  kernel on its codes;
 * ``gamma``: AlignmentUncertainty's fullest batch (W = 64, blasr_hmm_0);
 * ``decode_gamma``: the rescore's fullest batch (W = 32);
 * ``exp``: the SNP caller's main bucket and ``exp_far_<n>x<m>``, each of
@@ -55,6 +56,21 @@ forward_`` for the forward-only kernel): it times only the batches
 whose names start with one of the prefixes, builds only the kernels
 they launch, and the JSON lists the others under ``left_out``.  A
 comparison of two commits times every batch.
+
+``--summary FILE`` times nothing: it reads a JSON this script wrote and
+prints, per batch, each tree's median time, its change against the
+first tree's and its spread (the interquartile range); for two trees
+run in pairs (A B, then B A, ...) also the pairs the second tree won
+(faster) and lost: the figures a claim of no change or of a gain rests
+on.
+
+``--sass`` times nothing: it compiles every ``csrc/*.cu`` of each TREE
+with that tree's nvcc flags into a cubin, disassembles it
+(``cuobjdump -sass``), and reports, for each kernel of the first TREE,
+whether a kernel of each other TREE has the same machine code (the
+instructions, without names or encodings), so that an edit that must
+leave a build unchanged can be shown to.  Needs the CUDA toolkit, not a
+card.
 """
 
 from __future__ import annotations
@@ -153,6 +169,7 @@ def build_batches(workdir: str) -> list[dict]:
     out.append(dict(out[-1], name="forward_w32", mode="forward"))
     out.append(dict(out[-2], name="walk_mea_w32", mode="walk_mea"))
     out.append(dict(out[-3], name="pack_w32", mode="pack"))
+    out.append(dict(out[-4], name="viterbi_w32", mode="viterbi"))
     # the posterior path
     post_dir = os.path.join(workdir, "post")
     os.makedirs(post_dir, exist_ok=True)
@@ -311,21 +328,154 @@ def time_tree(batches: list[dict], reps: int, repeat: int = 1) -> list[dict]:
     return res
 
 
+def _sass(tree: str, workdir: str) -> dict:
+    """{source: {kernel: its instructions}} of every csrc/*.cu of TREE,
+    built with that tree's flags."""
+    import importlib.util
+    import re
+
+    spec = importlib.util.spec_from_file_location(
+        "build_%d" % abs(hash(tree)),
+        os.path.join(tree, "nanopore_tpu_torch", "kernels", "build.py"))
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    tools = os.path.dirname(build.nvcc())
+    procs = []
+    for name in build.SOURCES:  # one nvcc a source, all at once
+        flags = [f for f in build._flags(name) if f not in (
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+        cubin = os.path.join(workdir, "%s-%s.cubin" % (
+            name, hashlib.sha1(tree.encode()).hexdigest()[:8]))
+        procs.append((name, cubin, subprocess.Popen(
+            [build.nvcc()] + flags + [
+                "-cubin", os.path.join(build.CSRC, name + ".cu"), "-o", cubin],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    out = {}
+    for name, cubin, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for %s:\n%s" % (name, log))
+        dump = subprocess.run([os.path.join(tools, "cuobjdump"), "-sass",
+                               cubin], check=True, capture_output=True,
+                              text=True).stdout
+        kernels, cur = {}, None
+        for line in dump.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                cur = kernels.setdefault(m.group(1), [])
+                continue
+            # no encodings, and no anonymous namespace's per-file hash
+            body = re.sub(r"_GLOBAL__N__\w+", "_ANON", re.sub(
+                r"/\*.*?\*/", "", line)).strip()
+            if cur is not None and body and not body.startswith(
+                    (".", "-", "=")):
+                cur.append(" ".join(body.split()))
+        out[name] = kernels
+    return out
+
+
+def sass_compare(trees: list[str], out_dir: str | None = None) -> int:
+    """Print, for each kernel of trees[0], whether each other tree has a
+    kernel of the same machine code; the JSON summary last.  With
+    ``out_dir``, every kernel's instructions are written to
+    ``out_dir/<tree index>/<source>/<kernel>.sass``, one a line."""
+    workdir = os.path.join(ROOT, "nanopore_tpu_torch", "_build", "sass_ab")
+    os.makedirs(workdir, exist_ok=True)
+    dumps = [_sass(os.path.abspath(t), workdir) for t in trees]
+    mangled = sorted({k for d in dumps for ks in d.values() for k in ks})
+    try:
+        filt = subprocess.run(["c++filt"], input="\n".join(mangled),
+                              capture_output=True,
+                              text=True).stdout.splitlines()
+    except OSError:  # no demangler: the mangled names
+        filt = []
+    plain = dict(zip(mangled, (f.replace("(anonymous namespace)::", "")
+                               for f in filt))) if len(filt) == len(
+        mangled) else {k: k for k in mangled}
+    if out_dir:
+        for i, d in enumerate(dumps):
+            for name, kernels in d.items():
+                os.makedirs(os.path.join(out_dir, str(i), name), exist_ok=True)
+                for kernel, body in kernels.items():
+                    label = plain[kernel].split("(")[0].replace(" ", "")
+                    with open(os.path.join(out_dir, str(i), name,
+                                           label + ".sass"), "w") as fh:
+                        fh.write("\n".join(body) + "\n")
+    summary = {}
+    for name, kernels in dumps[0].items():
+        for kernel, body in sorted(kernels.items()):
+            same = [any(b == body for b in d.get(name, {}).values())
+                    for d in dumps[1:]]
+            label = plain[kernel].split("(")[0]
+            summary.setdefault(name, {})[label] = same
+            print("%-18s %-50s %5d %s" % (name, label, len(body), " ".join(
+                "same" if x else "DIFFERS" for x in same)))
+    print(json.dumps({"trees": trees, "same_machine_code": summary}))
+    return 0
+
+
+def pair_summary(path: str) -> int:
+    """Per batch: each tree's median and interquartile range, and its
+    median against the first tree's; for two trees run in pairs, also
+    the second tree's wins and losses over the consecutive pairs."""
+    with open(path) as fh:
+        result = json.load(fh)
+    runs = result["runs"]
+    trees = list(dict.fromkeys(run["tree"] for run in runs))
+    paired = len(trees) == 2 and len(runs) % 2 == 0
+    print(result.get("card", ""), "|", " / ".join(
+        "%s (%d runs)" % (t, sum(r["tree"] == t for r in runs))
+        for t in trees))
+    for i, bt in enumerate(result["batches"]):
+        ms = {t: [r["rows"][i]["ms"] for r in runs if r["tree"] == t]
+              for t in trees}
+        med = {t: float(np.median(v)) for t, v in ms.items()}
+        iqr = {t: float(np.subtract(*np.percentile(v, [75, 25])))
+               for t, v in ms.items()}
+        line = "%-20s %s" % (bt["name"], "  ".join(
+            "%.3f ms (%+.1f %%, IQR %.3f)" % (
+                med[t], 100 * (med[t] / med[trees[0]] - 1), iqr[t])
+            for t in trees))
+        if paired:
+            pairs = [{r["tree"]: r["rows"][i]["ms"] for r in runs[j:j + 2]}
+                     for j in range(0, len(runs), 2)]
+            a, b = trees
+            line += ", won %d lost %d of %d" % (
+                sum(p[b] < p[a] for p in pairs),
+                sum(p[b] > p[a] for p in pairs), len(pairs))
+        print(line)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("trees", nargs="+")
+    ap.add_argument("trees", nargs="*")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--repeat", type=int, default=1,
                     help="tile every batch's reads N times (an occupancy "
                     "probe: N reads a warp scheduler)")
     ap.add_argument("--out", help="where to write the JSON (default: "
-                    "nanopore_tpu_torch/_build/realign_ab/result.json)")
+                    "nanopore_tpu_torch/_build/realign_ab/result.json); "
+                    "with --sass, a directory for each kernel's "
+                    "instructions")
     ap.add_argument("--only", default="",
                     help="for ablation runs: time only the batches whose "
                     "names start with one of these comma-separated prefixes "
                     "(the JSON lists the rest as left_out)")
+    ap.add_argument("--summary", metavar="FILE",
+                    help="summarise a JSON of two trees run in pairs, "
+                    "and time nothing")
+    ap.add_argument("--sass", action="store_true",
+                    help="compare the trees' machine code, kernel by "
+                    "kernel, and time nothing")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.summary:
+        return pair_summary(args.summary)
+    if not args.trees:
+        ap.error("name at least one TREE")
+    if args.sass:
+        return sass_compare(args.trees, args.out)
     import torch
 
     if not torch.cuda.is_available():

@@ -26,10 +26,10 @@ w = 96 (dead lanes) and w = 128 (none):
   leaving the live band, every dead lane's direction code DIR_NONE;
 * the width guard without a card: every entry point of the MEA, the
   Viterbi and the forward-only paths takes 65..128 past the guard; at
-  1 every path refuses naming C10 before any work, and at 129 and 160
-  the Viterbi path does (the MEA path serves them since ROADMAP C11's
-  first step: tests/test_torch_wider.py); the CPU serves 160, laid into
-  256 lanes.
+  1 every path refuses naming C10 before any work, and every path takes
+  129 and 160 past the guard (since ROADMAP C11's first step the MEA
+  path, since its second the Viterbi path: tests/test_torch_wider.py);
+  the CPU serves 160, laid into 256 lanes.
 """
 
 import dataclasses
@@ -438,27 +438,30 @@ def test_every_path_refuses_widths_outside_2_to_128_naming_c10(
         mapped, tmp_path, monkeypatch, w):  # noqa: F811
     """Every path once refused 129 and 160 on the card (the name keeps
     the case).  Every entry point still refuses 1 naming C10 before any
-    work, and the Viterbi path's refuse 129 and 160 naming C10 and C11;
-    the MEA path's take 129 and 160 past the guard since ROADMAP C11's
-    first step (its W = 256 kernels), to the device check (``meta``:
-    ``unsupported device``) or to the stand-in chain."""
+    work; every entry point takes 129 and 160 past the guard (the MEA
+    path's since ROADMAP C11's first step, the Viterbi path's since its
+    second: their W = 256 kernels), to the device check (``meta``:
+    ``unsupported device``; ``None`` without a card: no CUDA device) or
+    to the stand-in chain, pack or index build."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
-    refused = _viterbi_entry_points(w)
-    if w == 1:
-        refused.update(_mea_entry_points(mapped, tmp_path, w))
-    else:
-        for name, call in _mea_entry_points(mapped, tmp_path, w).items():
-            with pytest.raises((ValueError, _PastTheGuard)) as err:
-                call()
-            assert "C1" not in str(err.value), name
-            if err.type is ValueError:
-                assert "unsupported device" in str(err.value), name
-    for name, call in refused.items():
-        with pytest.raises(ValueError, match="C10") as err:
+    monkeypatch.setattr("nanopore_tpu_torch.mapping.engine.KmerIndex.build",
+                        _past_the_guard)
+    calls = dict(_mea_entry_points(mapped, tmp_path, w),
+                 **_viterbi_entry_points(w))
+    for name, call in calls.items():
+        with pytest.raises((ValueError, RuntimeError, _PastTheGuard)) as err:
             call()
-        assert "C11" in str(err.value), name
+        if w == 1:
+            assert err.type is ValueError, name
+            assert "C10" in str(err.value) and "C11" in str(err.value), name
+            continue
+        assert "C1" not in str(err.value), name
+        if err.type is ValueError:
+            assert "unsupported device" in str(err.value), name
+        elif err.type is RuntimeError:
+            assert "no CUDA device" in str(err.value), name
     assert not (tmp_path / "out.sam").exists()
     assert not (tmp_path / "r").exists()
 
@@ -466,7 +469,7 @@ def test_every_path_refuses_widths_outside_2_to_128_naming_c10(
 def test_the_cpu_serves_160(pairs):
     """Above 128 the CPU runs the plain versions, the band laid into
     the card's W = 256 layout since ROADMAP C11's first step (the Viterbi
-    too, which only the CPU serves at this width): the MEA decode and
+    too, which the card serves there since its second): the MEA decode and
     the Viterbi against the JAX package's XLA scans at the same width."""
     w = 160
     pairs = pairs[:2]

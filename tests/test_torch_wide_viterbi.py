@@ -103,13 +103,13 @@ def _cigars(out, xyc, m, n):
 
 # ---- the byte plane and the forward-only loglik -------------------------- #
 
-@pytest.mark.parametrize("w", WIDE)
-def test_viterbi_matches_viterbi_decode_batch(pairs, layouts, w):
-    """Score <= 1e-5 relative, fstate and cigars identical."""
+def viterbi_matches_jax(pairs, layouts, w):
+    """Score <= 1e-5 relative, fstate and cigars identical (the byte
+    plane in w's padded layout)."""
     batch = layouts[w]["jax"]
     scores, fstates, bps = viterbi_decode_batch(batch, _jparams())
     prep, xyc, m, n = layouts[w]["pad"]
-    assert xyc.shape[2] == 128
+    assert xyc.shape[2] == padded_width(w)
     got = V.viterbi_forward(xyc, m, n, _params())
     assert got["bp"].dtype == torch.int8
     np.testing.assert_allclose(got["score"].numpy(), np.asarray(scores),
@@ -119,10 +119,14 @@ def test_viterbi_matches_viterbi_decode_batch(pairs, layouts, w):
 
 
 @pytest.mark.parametrize("w", WIDE)
-def test_forward_loglik_matches_jax(pairs, layouts, w):
-    """Loglik <= 1e-5 relative of ``forward_loglik``, under the default
-    model (the kernel's two-term gap sum) and model (i) (its 5-way
-    sum)."""
+def test_viterbi_matches_viterbi_decode_batch(pairs, layouts, w):
+    """Score <= 1e-5 relative, fstate and cigars identical."""
+    viterbi_matches_jax(pairs, layouts, w)
+
+
+def forward_matches_jax(layouts, w):
+    """Loglik <= 1e-5 relative of ``forward_loglik`` in w's padded
+    layout, under both gap sums' models."""
     for name in (None, "i"):
         if name is None:
             jp, pp = _jparams(), _params()
@@ -133,6 +137,14 @@ def test_forward_loglik_matches_jax(pairs, layouts, w):
         _, xyc, m, n = layouts[w]["pad"]
         got = forward_loglik(xyc, m, n, pp).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("w", WIDE)
+def test_forward_loglik_matches_jax(pairs, layouts, w):
+    """Loglik <= 1e-5 relative of ``forward_loglik``, under the default
+    model (the kernel's two-term gap sum) and model (i) (its 5-way
+    sum)."""
+    forward_matches_jax(layouts, w)
 
 
 # ---- the full plane (a model outside the canonical structure) ------------ #
@@ -164,12 +176,9 @@ def full_cases():
     return pairs, jp, pp, {w: _case(pairs, w) for w in WIDE}
 
 
-@pytest.mark.parametrize("w", WIDE)
-def test_full_plane_matches_the_xla_scan(full_cases, w):
-    """tests/test_torch_viterbi_full.py's bar at w: on the scan's own
-    tables the scan's scores bit for bit, its fstates and backpointers;
-    on the port's tables score 1e-5 relative, fstate, the plane on every
-    lattice cell and the cigars identical."""
+def full_plane_matches_jax(full_cases, w):
+    """tests/test_torch_viterbi_full.py's bar at w (in its padded
+    layout)."""
     pairs, jp, pp, cases = full_cases
     batch = cases[w]["jax"]
     scores, fstates, bps = (np.asarray(a) for a in
@@ -196,6 +205,15 @@ def test_full_plane_matches_the_xla_scan(full_cases, w):
     assert _cigars(got, xyc, m, n) == _xla_cigars(pairs, batch, fstates, bps)
 
 
+@pytest.mark.parametrize("w", WIDE)
+def test_full_plane_matches_the_xla_scan(full_cases, w):
+    """tests/test_torch_viterbi_full.py's bar at w: on the scan's own
+    tables the scan's scores bit for bit, its fstates and backpointers;
+    on the port's tables score 1e-5 relative, fstate, the plane on every
+    lattice cell and the cigars identical."""
+    full_plane_matches_jax(full_cases, w)
+
+
 # ---- the padded layout --------------------------------------------------- #
 
 def _path_outputs(batch, pp):
@@ -207,35 +225,40 @@ def _path_outputs(batch, pp):
     return dict(vit, ops=ops, end=end, loglik=forward_loglik(xyc, m, n, pp))
 
 
+def padded_gives_unpadded(full_cases, w):
+    """Both planes in w's padded layout against the unpadded band."""
+    pairs, _, pp_full, cases = full_cases
+    for pp, dtype in ((_params(), torch.int8), (pp_full, torch.int16)):
+        got = _path_outputs(cases[w]["pad"], pp)
+        want = _path_outputs(cases[w]["bare"], pp)
+        assert got["bp"].dtype == dtype
+        assert got["bp"].shape[2] == padded_width(w)
+        assert torch.equal(got["bp"][:, :, :w], want["bp"])
+        for key in ("score", "fstate", "ops", "end", "loglik"):
+            assert torch.equal(got[key], want[key]), key
+
+
 @pytest.mark.parametrize("w", WIDE)
 def test_padded_layout_gives_the_unpadded_bits(full_cases, w):
     """Both planes: the live lanes of the plane and every other output
     bit for bit the unpadded band's (a dead lane's backpointer may be
     set: lane w reads lane w - 1 through a delete's shift; its value
     clamps to NEG and no walk visits it)."""
-    pairs, _, pp_full, cases = full_cases
-    for pp, dtype in ((_params(), torch.int8), (pp_full, torch.int16)):
-        got = _path_outputs(cases[w]["pad"], pp)
-        want = _path_outputs(cases[w]["bare"], pp)
-        assert got["bp"].dtype == dtype and got["bp"].shape[2] == 128
-        assert torch.equal(got["bp"][:, :, :w], want["bp"])
-        for key in ("score", "fstate", "ops", "end", "loglik"):
-            assert torch.equal(got[key], want[key]), key
+    padded_gives_unpadded(full_cases, w)
 
 
 # ---- end to end ---------------------------------------------------------- #
 
-def test_viterbi_engine_matches_the_jax_engine_at_96(tmp_path):
-    """``MappingEngine(band_width=96, decode="viterbi")`` on the CPU:
-    every record equal to the JAX engine's at the same width (its XLA
-    scan), field by field."""
+def engine_matches_jax(tmp_path, w):
+    """``MappingEngine(band_width=w, decode="viterbi")`` on the CPU
+    against the JAX engine at w: every record equal."""
     fa, fq = write_small_inputs(tmp_path, 5, n_reads=4)
     jax_sam, port_sam = str(tmp_path / "jax.sam"), str(tmp_path / "port.sam")
     JaxEngine(jax_read_fasta_dict(fa), dataclasses.replace(
-        JAX_PRESETS["Viterbi"].config, band_width=96)).map_fastq(
+        JAX_PRESETS["Viterbi"].config, band_width=w)).map_fastq(
             fq, jax_sam)
     cfg = dataclasses.replace(MAPPER_REGISTRY["Viterbi"].config,
-                              band_width=96)
+                              band_width=w)
     assert cfg.decode == "viterbi"
     MappingEngine(read_fasta_dict(fa), cfg, device="cpu").map_fastq(
         fq, port_sam)
@@ -244,24 +267,37 @@ def test_viterbi_engine_matches_the_jax_engine_at_96(tmp_path):
     assert got == sam_records(jax_sam)
 
 
-def test_no_viterbi_walk_leaves_the_live_band_on_random_codes():
-    """Unrelated random sequences under random guides at w = 96: the
-    paths press on the band's edges, and no walk on either plane leaves
-    lanes 0..95 of its 128."""
-    rng = np.random.default_rng(96)
-    w = 96
+def test_viterbi_engine_matches_the_jax_engine_at_96(tmp_path):
+    """``MappingEngine(band_width=96, decode="viterbi")`` on the CPU:
+    every record equal to the JAX engine's at the same width (its XLA
+    scan), field by field."""
+    engine_matches_jax(tmp_path, 96)
+
+
+def no_walk_leaves_the_live_band(w):
+    """Unrelated random sequences under random guides at live width w
+    (seeded by w): no Viterbi walk on either plane leaves lanes
+    0..w-1 of its padded layout."""
+    rng = np.random.default_rng(w)
     pairs = []
+    lo, hi = w * 5 // 4, w * 23 // 10  # 120 to 220 at w = 96
     for _ in range(4):
-        n, m = int(rng.integers(120, 220)), int(rng.integers(120, 220))
+        n, m = int(rng.integers(lo, hi)), int(rng.integers(lo, hi))
         d = int(rng.integers(0, min(n, m)))
         guide = [(CIG.M, d), (CIG.D, n - d), (CIG.I, m - d)]
         pairs.append((rng.integers(0, 5, n).astype(np.int8),
                       rng.integers(0, 5, m).astype(np.int8), guide))
     prep, xyc, m, n = _packed(pairs, w, padded_width(w))
-    assert xyc.shape[2] == 128
     for pp in (_params(), both_params("i")[1]):
         cigars = _cigars(V.viterbi_forward(xyc, m, n, pp), xyc, m, n)
         for b, (x, y, _) in enumerate(pairs):
             lanes = _lanes_walked(cigars[b], prep["offsets"][b], len(y),
                                   len(x))
             assert lanes.min() >= 0 and lanes.max() < w
+
+
+def test_no_viterbi_walk_leaves_the_live_band_on_random_codes():
+    """Unrelated random sequences under random guides at w = 96: the
+    paths press on the band's edges, and no walk on either plane leaves
+    lanes 0..95 of its 128."""
+    no_walk_leaves_the_live_band(96)

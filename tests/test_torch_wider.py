@@ -5,9 +5,10 @@ A band of live width 128 < w <= 256 lies in the first w lanes of
 W = 256 lanes (``ops.pack.padded_width``), its dead lanes all sentinel,
 on either device.  On the card the MEA path's kernels (pack, realign in
 every mode with the band held by two warps, the MEA walker) serve these
-widths; the Viterbi path's (the Viterbi, its walker, the forward-only
-kernel) refuse them (ROADMAP C11's next step).  At w = 200 (dead lanes)
-and w = 256 (none):
+widths, and so do the Viterbi path's (the Viterbi and the forward-only
+kernel with the band on two warps, the Viterbi walker), which
+tests/test_torch_wider_viterbi.py holds at them.  At w = 200 (dead
+lanes) and w = 256 (none):
 
 * the packed codes: lanes < w those of the JAX package's packs at w,
   lanes >= w the sentinel with the row's bits 6-7; and a numpy model of
@@ -28,10 +29,9 @@ and w = 256 (none):
   butterfly;
 * the decode's workspace plan puts the card's mapping batch at W = 256
   into four launches;
-* the width guard without a card: every MEA entry point takes 129, 200
-  and 256 past the guard, every Viterbi entry point refuses them naming
-  C11, every path refuses 1, 257 and 300 naming C11, and the CPU serves
-  300 against the JAX package.
+* the width guard without a card: every entry point of either path
+  takes 129, 200 and 256 past the guard, every path refuses 1, 257 and
+  300 naming C11, and the CPU serves 300 against the JAX package.
 """
 
 import numpy as np
@@ -329,7 +329,7 @@ def test_mea_entry_points_take_129_to_256_past_the_guard(
         mapped, tmp_path, monkeypatch, w):  # noqa: F811
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
-    check_band_width(w, "cuda", "mea")
+    check_band_width(w, "cuda")
     for name, call in _mea_entry_points(mapped, tmp_path, w).items():
         with pytest.raises((ValueError, _PastTheGuard)) as err:
             call()
@@ -340,19 +340,24 @@ def test_mea_entry_points_take_129_to_256_past_the_guard(
 
 
 @pytest.mark.parametrize("w", [129, 200, 256])
-def test_viterbi_entry_points_refuse_129_to_256_naming_c11(monkeypatch, w):
-    """The Viterbi path serves 2 to 128 on the card: each of its entry
-    points refuses 129-256 before any work, naming C11 (the MEA path
-    serves these widths)."""
+def test_viterbi_entry_points_take_129_to_256_past_the_guard(monkeypatch, w):
+    """The Viterbi path serves 2 to 256 on the card (since ROADMAP C11's
+    second step): each of its entry points takes 129-256 past the guard,
+    to the device check (``meta``: ``unsupported device``; ``None``
+    without a card: no CUDA device) or to the stand-in pack and index
+    build."""
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
     monkeypatch.setattr("nanopore_tpu_torch.mapping.engine.KmerIndex.build",
                         _past_the_guard)
     for name, call in _viterbi_entry_points(w).items():
-        with pytest.raises(ValueError, match="C11") as err:
+        with pytest.raises((ValueError, RuntimeError, _PastTheGuard)) as err:
             call()
-        assert "Viterbi path" in str(err.value), name
-    with pytest.raises(ValueError, match="C11"):
-        check_band_width(w, None)
+        assert "C1" not in str(err.value), name
+        if err.type is ValueError:
+            assert "unsupported device" in str(err.value), name
+        elif err.type is RuntimeError:
+            assert "no CUDA device" in str(err.value), name
+    check_band_width(w, None)
     check_band_width(w, "cpu")
 
 
@@ -367,9 +372,9 @@ def test_every_path_refuses_1_and_257_and_above_naming_c11(
     for name, call in calls.items():
         with pytest.raises(ValueError, match="C11"):
             call()
-    for path in ("mea", "viterbi"):
+    for device in ("cuda", None):
         with pytest.raises(ValueError, match="C11"):
-            check_band_width(w, "cuda", path)
+            check_band_width(w, device)
     assert not (tmp_path / "out.sam").exists()
     assert not (tmp_path / "r").exists()
 
