@@ -19,7 +19,17 @@
    (``chip_smoke.py --kend-guard``): a launch whose caller's kend is
    m + n passes, one whose kend is half of m + n must fail at the next
    synchronise (a trap on the device, which leaves the child's context
-   unusable).
+   unusable).  Then the CPU halves' process (``chip_smoke.py
+   --cpu-halves 13,15,16,17,18``, no card visible, its log in
+   ``_build/smoke/cpu_halves/cpu-halves_child.log``), started here and
+   run beside every card phase: phase 13's reads are mapped on the card
+   into its directory, and it runs, on its own copies of the seeded
+   inputs, the CPU halves of steps 13 and 15-18's card-against-CPU
+   checks (``MappingEngine(device="cpu")``, ``realign --device cpu``,
+   ``em_train(device="cpu")``), in the order the card phases reach
+   them, each leaving its output as a file there that the card phase
+   compares against (the same reads, widths and bars; a failure in that
+   process fails the script).
 2. Makes two seeded workloads of 512 reads of 5 kb (5 % deletions, 10 %
    substitutions, both strands, origin and strand in each read name): on
    a 1 Mb random reference for the mapping path, and on a 48,502-bp one
@@ -249,7 +259,8 @@
    launched more than once, nothing else, and the SAM identical to the
    same command's with ``--device cpu``; ``em_train`` at
    ``EmOptions(band_width=48, trials=1, iterations=2)`` on 16 chained
-   reads: the model within 3e-5 relative of the CPU's.
+   reads: the model within 3e-5 relative of the CPU's (both CPU runs in
+   the CPU halves' process, as those of steps 15-18).
 14. The full plane (a model outside the canonical fiveState structure,
    ROADMAP C7), in the child of step 8 after step 13 (``chip_smoke.py
    --full-plane`` runs this step alone), under two non-canonical models:
@@ -332,15 +343,17 @@
    --band-width 200`` on step 13's 8 records against ``--device cpu``
    (records identical; the same launches); ``em_train`` at
    ``EmOptions(band_width=200, trials=1, iterations=2)`` on 16 chained
-   reads against the CPU (3e-5 relative).  On the card every path
-   refuses 257, naming C11 (``MappingEngine`` with either decode and
-   ``PreparedForward``).
+   reads against the CPU (3e-5 relative).  On the card the MEA path
+   refuses 513 (``MappingEngine`` with the MEA decode,
+   ``PreparedRealign``) and the Viterbi path 257
+   (``MappingEngine(decode="viterbi")``, ``PreparedForward``), naming
+   C11 (257 on the MEA path until ROADMAP C11's third step).
 17. Band widths 129 to 256 on the Viterbi path (ROADMAP C11, second
-   step), in the parent after step 9 while it waits for its children
-   (its cached card memory released first), on its own copy of step
-   13's reads (``chip_smoke.py --viterbi-wider`` runs this step alone
-   after the build and the W = 256 attributes, on its own copy of the
-   mapping workload too): the W = 256 builds of the Viterbi kernel
+   step), in the child of step 8 after step 15 (its cached card memory
+   released first), on that child's copies of the mapping workload and
+   of step 13's reads (``chip_smoke.py --viterbi-wider`` runs this step
+   alone after the build and the W = 256 attributes, on its own
+   copies): the W = 256 builds of the Viterbi kernel
    (its short and 5-way steps and its full plane, the band held by a
    pair of warps), the Viterbi walker on both planes and the
    forward-only kernel (both gap sums, the band on a pair of warps),
@@ -374,7 +387,40 @@
    launched, nothing else; and ``MappingEngine(band_width=200,
    decode="viterbi")`` on 32 reads on the card and with
    ``device="cpu"``: records equal, the same launches.
-18. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
+18. Band widths 257 to 512 (ROADMAP C11, third step: the MEA path), in
+   the child of step 10 after step 16 (its cached card memory released
+   first; on step 16's copies of the mapping workload and of step 13's
+   reads), but for its live widths 450 and 512, which the child of step
+   8 checks after step 17 (on its copy of step 13's reads: the child of
+   step 10 runs the pipeline, the longest phase); ``chip_smoke.py
+   --widest`` runs this step alone after the build and the W = 384 and
+   512 attributes, on its own copies: the W = 384 and 512
+   builds of the pack, the realign kernel in every mode (the band held
+   by a group of three or four warps; the decode's backward segment 4
+   diagonals) and the MEA walker (one read a block), whose registers,
+   local memory and shared memory are printed after the build.  On step
+   3's mapping batch (512 reads, the full band of 512 lanes): the pack
+   byte-identical and the walker's ops identical on every read, the
+   decode to step 3's bars on the first 16 reads at the full diagonal
+   count, in as many launches as its workspace plan (the 8 GiB cap:
+   eight at this width); each timed on the whole batch.
+   ``MappingEngine(band_width=512)`` (MEA decode) on the mapping
+   workload, cold then warm, every counter set to 0 before the warm
+   run: >= 99 % of primaries at their origin; pack, realign and
+   traceback launched, nothing else.  On step 13's 64 reads at live
+   widths 300 (in W = 384), 384, 450 (in W = 512) and 512: the pack,
+   every realign mode and the MEA walker against their plain versions
+   to step 13's bars, the dead lanes checked, each timed there and as
+   the same reads' full band of the layout.  Then, each with every
+   counter set to 0 just before: ``MappingEngine(band_width=450)`` on 32
+   reads on the card against ``device="cpu"`` (records equal; pack,
+   realign and traceback launched, nothing else); ``cli realign
+   --band-width 450`` on step 13's 8 records against ``--device cpu``
+   (records identical; the same launches); ``em_train`` at
+   ``EmOptions(band_width=450, trials=1, iterations=2)`` on 16 chained
+   reads against the CPU (3e-5 relative); and step 16's refusals (the
+   MEA path 513, the Viterbi path 257, naming C11).
+19. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
    ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
    ``launches_distributed_path``, the sum over the two ranks, a
    ``launches_widths_realign_path``, a ``launches_widths_em_path``, a
@@ -385,11 +431,17 @@
    ``launches_wider_map_path``, ``launches_wider_engine_path``,
    ``launches_wider_realign_path``, ``launches_wider_em_path`` and step
    17's ``launches_viterbi_wider_map_path`` and
-   ``launches_viterbi_wider_engine_path`` on every row, step 13's
+   ``launches_viterbi_wider_engine_path`` and step 18's
+   ``launches_widest_map_path``, ``launches_widest_engine_path``,
+   ``launches_widest_realign_path`` and ``launches_widest_em_path`` on
+   every row, step 13's
    ``*_w21`` and ``*_w48`` numbers, step 15's ``*_w96`` and ``*_w128``
-   numbers and W = 128 attributes, and steps 16's and 17's ``*_w200``,
+   numbers and W = 128 attributes, steps 16's and 17's ``*_w200``,
    ``*_w256`` (the mapping batch) and ``*_live256`` (step 13's reads at
-   the full 256) numbers and W = 256 attributes on each path's rows;
+   the full 256) numbers and W = 256 attributes on each path's rows,
+   and step 18's ``*_w300``, ``*_w450``, ``*_live384``, ``*_live512``
+   (step 13's reads) and ``*_w512`` (the mapping batch) numbers and
+   W = 384 and 512 attributes on the MEA path's rows;
    ``viterbi_full`` and ``viterbi_traceback_full`` the full-plane modes
    of the Viterbi kernel and its walker) and, last, ``{"ok": true,
    "device": {...}}``.
@@ -440,6 +492,17 @@ WIDE_ENGINE_READS = 32  # reads the engine maps on the card and the CPU
 WIDER_W = 256
 WIDER_LIVE = 200  # a live width with dead lanes (200..255)
 WIDER_PLAIN_READS = 32  # reads of the mapping batch the plain decode runs on
+# phase 18: band widths 257 to 512 in the W = 384 and 512 kernels of the
+# MEA path
+WIDEST_W = (384, 512)
+WIDEST_LIVE = (300, 384, 450, 512)  # dead lanes in the top warp; none; ...
+WIDEST_CPU = 450  # the live width of its card-against-CPU checks
+WIDEST_PLAIN_READS = 16  # reads of the mapping batch the plain decode runs on
+# em_train's window pad above W = 256: at the default 256 no read's sums
+# stay in f32 under the random start (0 of 16 at 300, 384 and 450, on
+# either device, as the JAX package's scan loses them), and an iteration
+# that keeps no read raises; at the CPU tests' 32 some reads are kept
+EM_WIDEST_PAD = 32
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -2993,6 +3056,9 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
     rels, err = [rel_err(out_k["loglik"], out_p["loglik"])], 0.0
     for key in ("trans", "emis"):
         a, b = out_k[key].flatten(1)[held], out_p[key].flatten(1)[held]
+        if not len(a):  # no read representable (every read held below)
+            rels.append(0.0)
+            continue
         rels.append(float(((a - b).abs().amax(1) / b.abs().amax(1)).max()))
         err = max(err, float((a - b).abs().max()))
     # every read, representable or not: the plain version's values, NaN
@@ -3139,24 +3205,26 @@ def walks_leaving(ops, offsets, w: int) -> int:
     return left
 
 
-def width_workload(workdir: str, dev) -> dict:
+def width_workload(workdir: str, dev=None) -> dict:
     """Phase 13's reads (its checks in the docstring's step 13), which
-    phase 15 takes too: 80 reads of 700-1300 bases on the 48,502-bp
-    reference, mapped with ``LastParams`` and chained; the 64 whose
-    windows of pad 128 miss the reference's far end.  Returns the paths
-    (``fa``, ``fq``, the mapping ``sam``), their chained records and
-    their (window, read, guide) pairs."""
+    phases 15-18 take too: 80 reads of 700-1300 bases on the 48,502-bp
+    reference, mapped with ``LastParams`` on ``dev`` and chained; the 64
+    whose windows of pad 128 miss the reference's far end.  With no
+    ``dev`` (the CPU halves' process) the workload a card run wrote
+    under ``workdir`` is read back.  Returns the paths (``fa``, ``fq``,
+    the mapping ``sam``), their chained records and their (window,
+    read, guide) pairs."""
     from nanopore_tpu_torch.align.chain_sam import chain_sam_file
     from nanopore_tpu_torch.io.sam import SamReader
     from nanopore_tpu_torch.mapping.runner import run_mapper
 
     wdir = os.path.join(workdir, "widths")
-    fa, fq = write_workload(wdir, EM_REF_LEN, WIDTH_READS + 16,
-                            WIDTH_READ_LENS)
-    sam = os.path.join(wdir, "mapping.sam")
-    run_mapper("LastParams", fq, "reads", fa, sam, device=dev)
-    chained = os.path.join(wdir, "chained.sam")
-    chain_sam_file(sam, chained, fq, fa)
+    fa, fq, sam, chained = (os.path.join(wdir, f) for f in (
+        "ref.fa", "reads.fq", "mapping.sam", "chained.sam"))
+    if dev is not None:
+        write_workload(wdir, EM_REF_LEN, WIDTH_READS + 16, WIDTH_READ_LENS)
+        run_mapper("LastParams", fq, "reads", fa, sam, device=dev)
+        chain_sam_file(sam, chained, fq, fa)
     # a window that reaches the reference's end (ROADMAP C6) would set
     # every batch's diagonal count: the reads whose windows do not
     pairs = chained_pairs(chained, fa, 128)
@@ -3171,18 +3239,11 @@ def width_workload(workdir: str, dev) -> dict:
             "pairs": [pairs[i] for i in near]}
 
 
-def realign_cli_check(wl: dict, w: int, counters, phase: str) -> dict:
-    """``cli realign --band-width w`` on 8 of the workload's records (4
+def realign_subset(wl: dict):
+    """The ``realign`` checks' input: 8 of the workload's records (4
     shorter than 1,000 bases, 4 longer: two window shapes, so two
-    batches), every counter set to 0 just before, against the same
-    command with ``--device cpu``: records identical; pack, realign and
-    traceback launched more than once, nothing else.  Returns the
-    launches."""
-    import torch
-
-    from nanopore_tpu_torch import cli
-    from nanopore_tpu_torch.io.sam import SamReader
-
+    batches) as a SAM in the workload's directory.  Returns the
+    ``realign`` subcommand's input paths and the records' names."""
     recs, wdir = wl["recs"], wl["dir"]
     short = [r.qname for r in recs if len(r.seq) < 1000][:WIDTH_CLI_RECORDS]
     long_ = [r.qname for r in recs if len(r.seq) > 1100][:WIDTH_CLI_RECORDS]
@@ -3192,9 +3253,22 @@ def realign_cli_check(wl: dict, w: int, counters, phase: str) -> dict:
         for line in src:
             if line.startswith("@") or line.split("\t", 1)[0] in keep:
                 dst.write(line)
-    out_k, out_c = (os.path.join(wdir, "realign_w%d_%s.sam" % (w, d))
-                    for d in ("card", "cpu"))
-    args = [sub, wl["fq"], wl["fa"]]
+    return [sub, wl["fq"], wl["fa"]], keep, len(short), len(long_)
+
+
+def realign_cli_check(wl: dict, w: int, counters, phase: str) -> dict:
+    """``cli realign --band-width w`` on :func:`realign_subset`'s 8
+    records, every counter set to 0 just before, against the same
+    command with ``--device cpu`` (run by the CPU halves' process):
+    records identical; pack, realign and traceback launched more than
+    once, nothing else.  Returns the launches."""
+    import torch
+
+    from nanopore_tpu_torch import cli
+    from nanopore_tpu_torch.io.sam import SamReader
+
+    args, keep, n_short, n_long = realign_subset(wl)
+    out_k = os.path.join(wl["dir"], "realign_w%d_card.sam" % w)
     torch.cuda.synchronize()
     for c in counters:
         c.reset()
@@ -3203,16 +3277,14 @@ def realign_cli_check(wl: dict, w: int, counters, phase: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     r = {c.name: c.count for c in counters}
-    t0 = time.perf_counter()
-    cli.main(["realign", *args, out_c, "--band-width", str(w),
-              "--device", "cpu"])
-    cpu_wall = time.perf_counter() - t0
+    half = cpu_half(half_key("realign", w))
+    out_c, cpu_wall = half["path"], half["wall"]
     got, want = (list(SamReader(p)) for p in (out_k, out_c))
     same = [(a.qname, a.pos, a.cigar) for a in got] == [
         (a.qname, a.pos, a.cigar) for a in want]
     print("%s: realign --band-width %d on %d records (%d short, %d long): "
           "%.3f s on the card, %.1f s on the CPU; records %s; launches %s"
-          % (phase, w, len(got), len(short), len(long_), wall, cpu_wall,
+          % (phase, w, len(got), n_short, n_long, wall, cpu_wall,
              "identical" if same else "DIFFERENT", r))
     if len(got) != len(keep) or not same:
         fail("realign --band-width %d: the card's records differ from the "
@@ -3224,13 +3296,10 @@ def realign_cli_check(wl: dict, w: int, counters, phase: str) -> dict:
     return r
 
 
-def em_width_check(wl: dict, w: int, dev, counters, phase: str) -> dict:
+def em_width_run(wl: dict, w: int, device):
     """``em_train`` at ``EmOptions(band_width=w, trials=1,
-    iterations=2)`` on 16 of the workload's chained reads, every counter
-    set to 0 just before, against the CPU: the model within 3e-5
-    relative.  Returns the launches."""
-    import torch
-
+    iterations=2)`` on 16 of the workload's chained reads on ``device``
+    (above W = 256 with ``window_pad=EM_WIDEST_PAD``)."""
     from nanopore_tpu_torch.align.em import EmOptions, em_train
     from nanopore_tpu_torch.io.encoding import encode
     from nanopore_tpu_torch.io.seqio import read_fasta_dict
@@ -3239,27 +3308,45 @@ def em_width_check(wl: dict, w: int, dev, counters, phase: str) -> dict:
     em_pairs = [(ref[rec.rname], encode(rec.seq), rec.cigar)
                 for rec in wl["recs"][:WIDTH_EM_READS]]
     opts = EmOptions(band_width=w, trials=1, iterations=2,
-                     batch_size=WIDTH_EM_READS)
+                     batch_size=WIDTH_EM_READS, window_pad=em_pad(w))
+    return em_train(em_pairs, opts, device=device)
+
+
+def em_pad(w: int) -> int:
+    """:func:`em_width_run`'s window pad at band width ``w``."""
+    from nanopore_tpu_torch.align.em import EmOptions
+
+    return EM_WIDEST_PAD if w > WIDER_W else EmOptions.window_pad
+
+
+def em_width_check(wl: dict, w: int, dev, counters, phase: str) -> dict:
+    """:func:`em_width_run` on the card, every counter set to 0 just
+    before, against its run on the CPU (by the CPU halves' process): the
+    model within 3e-5 relative.  Returns the launches."""
+    import torch
+
     torch.cuda.synchronize()
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
-    card = em_train(em_pairs, opts, device=dev)
+    card = em_width_run(wl, w, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     r = {c.name: c.count for c in counters}
-    t0 = time.perf_counter()
-    host = em_train(em_pairs, opts, device="cpu")
-    cpu_wall = time.perf_counter() - t0
+    half = cpu_half(half_key("em", w))
+    with np.load(half["path"]) as host:
+        trans, emis, running = (host[k] for k in (
+            "transitions", "emissions", "running"))
     diff = max(
         float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
-        for a, b in ((card.model.transitions, host.model.transitions),
-                     (card.model.emissions, host.model.emissions)))
-    print("%s: em_train at w = %d (1 trial x 2 iterations, %d reads): "
+        for a, b in ((card.model.transitions, trans),
+                     (card.model.emissions, emis)))
+    print("%s: em_train at w = %d (1 trial x 2 iterations, %d reads, "
+          "window pad %d): "
           "%.3f s on the card, %.1f s on the CPU; model max relative "
           "difference %.3g; running likelihoods %s and %s; launches %s"
-          % (phase, w, len(em_pairs), wall, cpu_wall, diff,
-             card.running_likelihoods[0], host.running_likelihoods[0], r))
+          % (phase, w, WIDTH_EM_READS, em_pad(w), wall, half["wall"], diff,
+             card.running_likelihoods[0], list(running), r))
     if diff > 3e-5:
         fail("EM at w = %d: the card's model differs from the CPU's by %.3g"
              % (w, diff))
@@ -3942,15 +4029,11 @@ def warm_engine_run(ref, cfg, engine, fq: str, sam: str, dev, counters,
     return run
 
 
-def engine_card_vs_cpu(ref, cfg, engine, fq: str, wdir: str, dev, counters,
-                       phase: str, want) -> dict:
-    """``MappingEngine(cfg)`` on the first WIDE_ENGINE_READS reads of
-    ``fq`` on the card (every counter set to 0 just before) and with
-    ``device="cpu"``: records equal, the kernels ``want`` launched and no
-    other.  Returns the card run's launches."""
+def engine_run(ref, cfg, fq: str, wdir: str, device, index=None) -> str:
+    """``MappingEngine(cfg)`` (``index``: another engine's, else its own)
+    on the first WIDE_ENGINE_READS reads of ``fq``, in one batch, on
+    ``device``; returns the SAM it wrote in ``wdir``."""
     import dataclasses
-
-    import torch
 
     from nanopore_tpu_torch.mapping.engine import MappingEngine
 
@@ -3959,25 +4042,34 @@ def engine_card_vs_cpu(ref, cfg, engine, fq: str, wdir: str, dev, counters,
         for _ in range(4 * WIDE_ENGINE_READS):
             dst.write(src.readline())
     cfg = dataclasses.replace(cfg, batch_size=2 * WIDE_ENGINE_READS)
-    sams = {}
-    for where in ("cuda", "cpu"):
-        e = MappingEngine(ref, cfg, index=engine.index,
-                          device=dev if where == "cuda" else "cpu")
-        sams[where] = os.path.join(wdir, "%s_w%d_%s.sam"
-                                   % (cfg.decode, cfg.band_width, where))
-        if where == "cuda":
-            torch.cuda.synchronize()
-            for c in counters:
-                c.reset()
-        t0 = time.perf_counter()
-        e.map_fastq(fq32, sams[where])
-        if where == "cuda":
-            torch.cuda.synchronize()
-            run = {c.name: c.count for c in counters}
-        print("%s: %s on %d reads, %s: %.3f s"
-              % (phase, engine_name(cfg), WIDE_ENGINE_READS, where,
-                 time.perf_counter() - t0))
-    got, want_recs = engine_records(sams["cuda"]), engine_records(sams["cpu"])
+    sam = os.path.join(wdir, "%s_w%d_%s.sam" % (
+        cfg.decode, cfg.band_width, "cpu" if device == "cpu" else "cuda"))
+    MappingEngine(ref, cfg, index=index, device=device).map_fastq(fq32, sam)
+    return sam
+
+
+def engine_card_vs_cpu(ref, cfg, engine, fq: str, wdir: str, dev, counters,
+                       phase: str, want) -> dict:
+    """:func:`engine_run` on the card (``engine``'s index, every counter
+    set to 0 just before) against its run with ``device="cpu"`` (by the
+    CPU halves' process): records equal, the kernels ``want`` launched
+    and no other.  Returns the card run's launches."""
+    import torch
+
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    sam = engine_run(ref, cfg, fq, wdir, dev, engine.index)
+    torch.cuda.synchronize()
+    run = {c.name: c.count for c in counters}
+    print("%s: %s on %d reads on the card: %.3f s"
+          % (phase, engine_name(cfg), WIDE_ENGINE_READS,
+             time.perf_counter() - t0))
+    half = cpu_half(half_key("engine", cfg.band_width, cfg.decode))
+    print("%s: %s on %d reads on the CPU: %.1f s"
+          % (phase, engine_name(cfg), WIDE_ENGINE_READS, half["wall"]))
+    got, want_recs = engine_records(sam), engine_records(half["path"])
     print("%s: %d records of %s on the card, %s the CPU's; launches %s"
           % (phase, len(got), engine_name(cfg),
              "equal to" if got == want_recs else "DIFFERENT from", run))
@@ -4055,6 +4147,7 @@ def wide_alone() -> int:
     print("build: %.1f s" % build.build())
     attrs = wide_attributes()
     dev = torch.device("cuda", 0)
+    cpu = start_cpu_halves([15], dev)
     workdir = os.path.join(build.BUILD_DIR, "smoke", "wide_alone")
     fa, fq = write_workload(workdir, REF_LEN)
     engine = MappingEngine(read_fasta_dict(fa),
@@ -4062,6 +4155,7 @@ def wide_alone() -> int:
     pairs = main_path_batch(engine, fq, preferred_realign_batch_size(None, dev))
     wl = width_workload(workdir, dev)
     out = wide_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
+    finish_cpu_halves(cpu)
     for name, a in attrs.items():
         out["res"].setdefault(name, {}).update(a)
     print(card)
@@ -4074,18 +4168,14 @@ def wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
     """Phase 16 (its checks in the docstring's step 16): the W = 256
     builds on the mapping batch and at live widths 200 and 256 on phase
     13's reads, the engine at W = 256, the engine, ``realign`` and EM at
-    200 card against CPU, and every path's refusal of 257.  Returns the kernels' ``*_w256`` and ``*_w200`` numbers and each
-    run's launches."""
+    200 card against CPU, and the refusals of :func:`refusal_check`.
+    Returns the kernels' ``*_w256``, ``*_w200`` and ``*_live256`` numbers
+    and each run's launches."""
     import dataclasses
 
     import torch
 
     from nanopore_tpu_torch.io.seqio import read_fasta_dict
-    from nanopore_tpu_torch.mapping.engine import MappingEngine
-    from nanopore_tpu_torch.ops.dispatch import (
-        PreparedForward,
-        prepared_from_pairs,
-    )
 
     t_phase = time.perf_counter()
     res, runs = {}, {}
@@ -4116,27 +4206,45 @@ def wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
     runs["wider_em"] = em_width_check(wl, WIDER_LIVE, dev, counters,
                                       "phase 16")
 
-    # ---- every path refuses 257 on the card (the rest of C11) ----
-    wider = WIDER_W + 1
-    calls = {
-        engine_name(dataclasses.replace(cfg, band_width=wider, decode=d)):
-        (lambda d=d: MappingEngine(ref, dataclasses.replace(
-            cfg, band_width=wider, decode=d), index=engine.index, device=dev))
-        for d in ("mea", "viterbi")}
-    calls["PreparedForward"] = lambda: prepared_from_pairs(
-        {"device": dev}, pairs[:2], engine.params, band_width=wider,
-        prepared_cls=PreparedForward)
-    for what, call in calls.items():
+    refusal_check(ref, cfg, engine, pairs, dev, "phase 16")
+    print("phase 16 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return {"res": res, "runs": runs}
+
+
+def refusal_check(ref, cfg, engine, pairs, dev, phase: str) -> None:
+    """On the card the MEA path refuses 513 (``MappingEngine`` with the
+    MEA decode, ``PreparedRealign``) and the Viterbi path 257
+    (``MappingEngine(decode="viterbi")``, ``PreparedForward``), each
+    naming C11 before any work (the rest of C11)."""
+    import dataclasses
+
+    from nanopore_tpu_torch.mapping.engine import MappingEngine
+    from nanopore_tpu_torch.ops.dispatch import (
+        PreparedForward,
+        PreparedRealign,
+        prepared_from_pairs,
+    )
+
+    calls = {}
+    for d, w in (("mea", WIDEST_W[-1] + 1), ("viterbi", WIDER_W + 1)):
+        c = dataclasses.replace(cfg, band_width=w, decode=d)
+        calls[engine_name(c)] = (w, lambda c=c: MappingEngine(
+            ref, c, index=engine.index, device=dev))
+    for cls, w in ((PreparedRealign, WIDEST_W[-1] + 1),
+                   (PreparedForward, WIDER_W + 1)):
+        calls["%s at %d" % (cls.__name__, w)] = (
+            w, lambda cls=cls, w=w: prepared_from_pairs(
+                {"device": dev}, pairs[:2], engine.params, band_width=w,
+                prepared_cls=cls))
+    for what, (w, call) in calls.items():
         try:
             call()
         except ValueError as err:
-            print("phase 16: %s on the card: %s" % (what, err))
+            print("%s: %s on the card: %s" % (phase, what, err))
             if "C11" not in str(err):
-                fail("phase 16: the refusal of %s does not name C11" % what)
+                fail("%s: the refusal of %s does not name C11" % (phase, what))
         else:
-            fail("phase 16: %s took band width %d on the card" % (what, wider))
-    print("phase 16 wall: %.1f s" % (time.perf_counter() - t_phase))
-    return {"res": res, "runs": runs}
+            fail("%s: %s took band width %d on the card" % (phase, what, w))
 
 
 def wider_workloads(workdir: str, dev):
@@ -4170,9 +4278,103 @@ def wider_alone() -> int:
     print("build: %.1f s" % build.build())
     attrs = mea_path_attributes(WIDER_W)
     dev = torch.device("cuda", 0)
+    cpu = start_cpu_halves([16], dev)
     workdir = os.path.join(build.BUILD_DIR, "smoke", "wider_alone")
     engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
     out = wider_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
+    finish_cpu_halves(cpu)
+    for name, a in attrs.items():
+        out["res"].setdefault(name, {}).update(a)
+    print(card)
+    print(json.dumps(out))
+    return 0
+
+
+# ---- phase 18: band widths 257 to 512 in the W = 384 and 512 kernels ---- #
+
+def widest_attributes() -> dict:
+    """The MEA path's W = 384 and 512 builds' attributes
+    (:func:`mea_path_attributes`) under ``*_w384`` and ``*_w512`` by
+    kernel."""
+    attrs = {}
+    for width in WIDEST_W:
+        for name, a in mea_path_attributes(width).items():
+            attrs.setdefault(name, {}).update(a)
+    return attrs
+
+
+def widest_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters,
+                 widths=WIDEST_LIVE) -> dict:
+    """Phase 18 (its checks in the docstring's step 18): the W = 512
+    builds on the mapping batch, the engine at W = 512, the W = 384 and
+    512 builds at the live ``widths`` (of 300, 384, 450 and 512) on phase
+    13's reads, the engine, ``realign`` and EM at 450 card against CPU,
+    and the refusals of :func:`refusal_check`.  Returns the kernels'
+    ``*_w512`` (the mapping batch) and live widths' (``*_w300``,
+    ``*_live384``, ...) numbers and each run's launches."""
+    import dataclasses
+
+    import torch
+
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+
+    t_phase = time.perf_counter()
+    res, runs = {}, {}
+    top = WIDEST_W[-1]
+    mapping_batch_checks(pairs, engine.params, dev, res, top,
+                         WIDEST_PLAIN_READS, "phase 18")
+    wdir = os.path.join(os.path.dirname(fq), "widest")
+    os.makedirs(wdir, exist_ok=True)
+    ref = read_fasta_dict(fa)
+    cfg = dataclasses.replace(engine.config, band_width=top)
+    if cfg.decode != "mea":
+        fail("phase 18: the engine does not take the MEA decode")
+    runs["widest_map"] = warm_engine_run(
+        ref, cfg, engine, fq, os.path.join(wdir, "map_w%d.sam" % top), dev,
+        counters, "phase 18", MEA_KERNELS)
+    torch.cuda.empty_cache()
+
+    # ---- live widths of 300, 384, 450 and 512 on phase 13's reads ----
+    for w in widths:
+        width_kernel_checks(wl["pairs"], w, dev, res, "phase 18",
+                            viterbi=False)
+
+    # ---- the engine, realign and EM at 450, card against CPU ----
+    live = dataclasses.replace(cfg, band_width=WIDEST_CPU)
+    runs["widest_engine"] = engine_card_vs_cpu(
+        ref, live, engine, fq, wdir, dev, counters, "phase 18", MEA_KERNELS)
+    runs["widest_realign"] = realign_cli_check(wl, WIDEST_CPU, counters,
+                                               "phase 18")
+    runs["widest_em"] = em_width_check(wl, WIDEST_CPU, dev, counters,
+                                       "phase 18")
+    refusal_check(ref, cfg, engine, pairs, dev, "phase 18")
+    print("phase 18 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return {"res": res, "runs": runs}
+
+
+def widest_alone() -> int:
+    """Run as ``chip_smoke.py --widest``: the kernels' build and the
+    W = 384 and 512 attributes, then phase 18 alone on its own copies of
+    the mapping workload and of phase 13's reads, its CPU halves in
+    their own process."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.kernels import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    print("build: %.1f s" % build.build())
+    attrs = widest_attributes()
+    dev = torch.device("cuda", 0)
+    cpu = start_cpu_halves([18], dev)
+    workdir = os.path.join(build.BUILD_DIR, "smoke", "widest_alone")
+    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
+    out = widest_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
+    finish_cpu_halves(cpu)
     for name, a in attrs.items():
         out["res"].setdefault(name, {}).update(a)
     print(card)
@@ -4414,10 +4616,12 @@ def viterbi_wider_alone() -> int:
     print("build: %.1f s" % build.build())
     attrs = viterbi_path_attributes(WIDER_W, "_w%d" % WIDER_W)
     dev = torch.device("cuda", 0)
+    cpu = start_cpu_halves([17], dev)
     workdir = os.path.join(build.BUILD_DIR, "smoke", "viterbi_wider_alone")
     engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
     out = viterbi_wider_phase(engine, pairs, fa, fq, wl, dev,
                               launch_counters())
+    finish_cpu_halves(cpu)
     for name, a in attrs.items():
         out["res"].setdefault(name, {}).update(a)
     print(card)
@@ -4471,11 +4675,163 @@ def widths_alone() -> int:
     print(card)
     print("build: %.1f s" % build.build())
     dev = torch.device("cuda", 0)
+    cpu = start_cpu_halves([13], dev)
     wl = width_workload(os.path.join(build.BUILD_DIR, "smoke"), dev)
     out = widths_phase(wl, dev, launch_counters())
+    finish_cpu_halves(cpu)
     print(card)
     print(json.dumps(out))
     return 0
+
+
+# ---- the CPU halves of the card-against-CPU checks (their own process) ---- #
+
+# per phase, the CPU halves of its card-against-CPU checks, in the order
+# the card phases reach them: ("engine", w, decode) for engine_run,
+# ("realign", w) for the realign subcommand, ("em", w) for em_width_run
+CPU_HALVES = {
+    13: (("realign", LIVE_WIDTHS[0]), ("em", LIVE_WIDTHS[1])),
+    15: (("engine", WIDE_W, "mea"), ("realign", WIDE_LIVE), ("em", WIDE_LIVE),
+         ("engine", WIDE_LIVE, "viterbi")),
+    16: (("engine", WIDER_LIVE, "mea"), ("realign", WIDER_LIVE),
+         ("em", WIDER_LIVE)),
+    17: (("engine", WIDER_LIVE, "viterbi"),),
+    18: (("engine", WIDEST_CPU, "mea"), ("realign", WIDEST_CPU),
+         ("em", WIDEST_CPU)),
+}
+CPU_HALF_WAIT = 900  # seconds a card phase waits for a CPU half
+# torch threads of the CPU halves: their plain versions are bound by
+# the cost of each small op, so more threads only take cores from the
+# card phases' host work
+CPU_HALF_THREADS = 1
+
+
+def cpu_dir() -> str:
+    """The CPU halves' process's directory: its inputs and outputs."""
+    return os.path.join(ROOT, "nanopore_tpu_torch", "_build", "smoke",
+                        "cpu_halves")
+
+
+def half_key(kind: str, w: int, decode: str = "") -> str:
+    return "%s_%sw%d" % (kind, decode + "_" if decode else "", w)
+
+
+def start_cpu_halves(phases, dev):
+    """Clear :func:`cpu_dir`, map phase 13's reads there on the card (the
+    CPU halves' process maps nothing) and start ``chip_smoke.py
+    --cpu-halves <phases>`` with no card visible, its log in
+    ``<dir>/cpu-halves_child.log``; it is killed at exit if still
+    running."""
+    import shutil
+
+    shutil.rmtree(cpu_dir(), ignore_errors=True)
+    width_workload(cpu_dir(), dev)
+    return start_child(cpu_dir(), "--cpu-halves",
+                       [",".join(str(p) for p in phases)],
+                       dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def cpu_halves_child(phases) -> int:
+    """Run as ``chip_smoke.py --cpu-halves 13,15,...`` with no card
+    visible, beside the card phases: the CPU halves of those phases'
+    card-against-CPU checks (``CPU_HALVES``), in order, on their own
+    copy of the seeded mapping workload and on the mapping of phase
+    13's reads that :func:`start_cpu_halves` wrote.  Each writes its
+    output, then ``<key>.json`` (its path and wall seconds), into
+    :func:`cpu_dir`, where :func:`cpu_half` waits for it; a failure
+    writes ``FAILED`` (the traceback) there and exits non-zero.  It runs
+    at a lower priority (nice 10) on CPU_HALF_THREADS torch threads: the
+    card phases' host work, which sets their times, shares the cores."""
+    import traceback
+
+    import torch
+
+    os.nice(10)
+    torch.set_num_threads(CPU_HALF_THREADS)
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+    from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
+
+    d = cpu_dir()
+    try:
+        fa, fq = write_workload(os.path.join(d, "mapping"), REF_LEN)
+        ref = read_fasta_dict(fa)
+        cfg = MAPPER_REGISTRY["LastParams"].config
+        wl = width_workload(d)
+        for phase in phases:
+            for spec in CPU_HALVES[phase]:
+                t0 = time.perf_counter()
+                kind, w = spec[:2]
+                key = half_key(*spec)
+                if kind == "engine":
+                    import dataclasses
+
+                    path = engine_run(ref, dataclasses.replace(
+                        cfg, band_width=w, decode=spec[2]), fq, d, "cpu")
+                elif kind == "realign":
+                    from nanopore_tpu_torch import cli
+
+                    path = os.path.join(d, key + ".sam")
+                    cli.main(["realign", *realign_subset(wl)[0], path,
+                              "--band-width", str(w), "--device", "cpu"])
+                else:
+                    host = em_width_run(wl, w, "cpu")
+                    path = os.path.join(d, key + ".npz")
+                    with open(path, "wb") as fh:
+                        np.savez(fh, transitions=host.model.transitions,
+                                 emissions=host.model.emissions,
+                                 running=np.asarray(
+                                     host.running_likelihoods[0]))
+                rec = {"phase": phase, "path": path,
+                       "wall": time.perf_counter() - t0}
+                with open(os.path.join(d, key + ".tmp"), "w") as fh:
+                    json.dump(rec, fh)
+                os.replace(os.path.join(d, key + ".tmp"),
+                           os.path.join(d, key + ".json"))
+                print("phase %d's CPU half %s: %.1f s" % (phase, key,
+                                                          rec["wall"]),
+                      flush=True)
+    except BaseException:
+        with open(os.path.join(d, "FAILED"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+    return 0
+
+
+def cpu_half(key: str) -> dict:
+    """Wait for the CPU halves' process to write ``key``'s record (its
+    output's ``path``, its ``wall`` seconds); its failure, or a wait of
+    CPU_HALF_WAIT seconds, fails the script."""
+    done = os.path.join(cpu_dir(), key + ".json")
+    failed = os.path.join(cpu_dir(), "FAILED")
+    t0 = time.perf_counter()
+    while not os.path.exists(done):
+        if os.path.exists(failed):
+            with open(failed) as fh:
+                fail("the CPU halves' process failed:\n" + fh.read()[-3000:])
+        if time.perf_counter() - t0 > CPU_HALF_WAIT:
+            fail("no CPU half %s after %d s" % (key, CPU_HALF_WAIT))
+        time.sleep(0.5)
+    with open(done) as fh:
+        rec = json.load(fh)
+    print("  the CPU half %s (%.1f s in the CPU process): waited %.1f s"
+          % (key, rec["wall"], time.perf_counter() - t0))
+    return rec
+
+
+def finish_cpu_halves(proc) -> None:
+    """Wait for the CPU halves' process; its failure fails the script."""
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=CPU_HALF_WAIT)
+    with open(os.path.join(cpu_dir(), "cpu-halves_child.log")) as fh:
+        lines = fh.read().splitlines()
+    print("the CPU halves' process (beside the card phases): waited %.1f s "
+          "after the last card phase; its lines:" % (time.perf_counter() - t0))
+    for line in lines:
+        if " INFO " not in line:
+            print("  " + line)
+    if rc != 0:
+        fail("the CPU halves' process exited with %d" % rc)
 
 
 def launch_counters() -> tuple:
@@ -4492,9 +4848,10 @@ def pipeline_child() -> int:
     """Run as ``chip_smoke.py --pipeline`` in a child process, beside the
     parent's phases 2-9 (the pipeline's host work and the parent's plain
     versions each hold a core; the card is idle most of either): phases
-    10, 11, 12 and 16, their launch counts written to
-    ``<workdir>/pipeline/launches.json`` and phase 16's kernel rows to
-    ``<workdir>/wider/result.json`` for the kernels line."""
+    10, 11, 12, 16 and 18 (but for its live widths 450 and 512, which
+    the ``--viterbi`` child checks), their launch counts written to
+    ``<workdir>/pipeline/launches.json`` and phases 16's and 18's kernel
+    rows to ``<workdir>/wider/result.json`` for the kernels line."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -4506,14 +4863,20 @@ def pipeline_child() -> int:
     runs = {"pipeline": pipeline_phase(workdir, dev, counters)}
     runs["rescue_2d"] = rescue_phase(workdir, dev, counters)
     runs["distributed"] = distributed_phase(workdir)
-    # phase 16 last: the card's memory is shared by three processes, so
-    # this one's cached blocks go back before the W = 256 workspaces
+    # phases 16 and 18 last: the card's memory is shared by three
+    # processes, so this one's cached blocks go back before the W = 256,
+    # 384 and 512 workspaces; phase 18 takes phase 16's workloads
     torch.cuda.empty_cache()
-    wider = wider_phase(*wider_workloads(os.path.join(workdir, "wider"), dev),
-                        dev, counters)
-    runs.update(wider["runs"])
+    loads = wider_workloads(os.path.join(workdir, "wider"), dev)
+    wider = wider_phase(*loads, dev, counters)
+    torch.cuda.empty_cache()
+    widest = widest_phase(*loads, dev, counters, WIDEST_LIVE[:2])
+    for out in (wider, widest):
+        runs.update(out["runs"])
+    for name, rows in widest["res"].items():
+        wider["res"].setdefault(name, {}).update(rows)
     with open(os.path.join(workdir, "wider", "result.json"), "w") as fh:
-        json.dump(wider, fh)
+        json.dump({"res": wider["res"]}, fh)
     with open(os.path.join(workdir, "pipeline", "launches.json"), "w") as fh:
         json.dump(runs, fh)
     return 0
@@ -4523,9 +4886,11 @@ def viterbi_child() -> int:
     """Run as ``chip_smoke.py --viterbi`` in a second child process,
     beside the parent's phases 5-7: phase 8 on its own copy of the
     mapping workload (the same seed, so the same batch), then phases 13,
-    14 and 15; their kernel rows, the forward entry's and phases 13's,
-    14's and 15's launch counts written to
-    ``<workdir>/viterbi/result.json`` for the kernels line."""
+    14, 15, 17 and phase 18's live widths 450 and 512 (this process's
+    cached card memory released before each of the last two); their
+    kernel rows, the forward entry's and phases 13's, 14's, 15's and
+    17's launch counts written to ``<workdir>/viterbi/result.json`` for
+    the kernels line."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -4548,24 +4913,37 @@ def viterbi_child() -> int:
     full = full_plane_phase(engine, pairs, fa, fq, dev, launch_counters(),
                             res)
     wide = wide_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
+    torch.cuda.empty_cache()  # the card's memory is shared by three processes
+    viterbi_wider = viterbi_wider_phase(engine, pairs, fa, fq, wl, dev,
+                                        launch_counters())
+    # phase 18's live widths 450 and 512 (the rest of it in the pipeline
+    # child, whose phase 10 takes longest)
+    torch.cuda.empty_cache()
+    widest = {"res": {}, "runs": {}}
+    for w in WIDEST_LIVE[2:]:
+        width_kernel_checks(wl["pairs"], w, dev, widest["res"], "phase 18",
+                            viterbi=False)
     with open(os.path.join(workdir, "result.json"), "w") as fh:
         json.dump({"res": res, "forward_entry": entry, "widths": widths,
-                   "full_plane": full, "wide": wide}, fh)
+                   "full_plane": full, "wide": wide,
+                   "viterbi_wider": viterbi_wider, "widest": widest}, fh)
     return 0
 
 
-def start_child(workdir: str, flag: str):
-    """Start ``chip_smoke.py <flag>`` (``--pipeline``: phases 10-12 and 16;
-    ``--viterbi``: phases 8, 13, 14 and 15), its output in
-    ``<workdir>/<flag without dashes>_child.log``; it is killed at exit if
-    still running."""
+def start_child(workdir: str, flag: str, args=(), env=None):
+    """Start ``chip_smoke.py <flag> <args>`` (``--pipeline``: phases
+    10-12, 16 and most of 18; ``--viterbi``: phases 8, 13, 14, 15, 17 and
+    phase 18's live widths 450 and 512;
+    ``--cpu-halves``: the CPU halves), its output in ``<workdir>/<flag
+    without dashes>_child.log``, under ``env`` (default: this process's);
+    it is killed at exit if still running."""
     import atexit
 
     os.makedirs(workdir, exist_ok=True)
     log = open(os.path.join(workdir, flag.lstrip("-") + "_child.log"), "w")
     proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), flag],
-        stdout=log, stderr=subprocess.STDOUT, text=True)
+        [sys.executable, os.path.abspath(__file__), flag, *args],
+        stdout=log, stderr=subprocess.STDOUT, text=True, env=env)
     log.close()
 
     def stop():
@@ -4637,6 +5015,8 @@ def main() -> int:
     import torch
 
     t_start = time.perf_counter()
+    if sys.argv[1:2] == ["--cpu-halves"] and len(sys.argv) == 3:
+        return cpu_halves_child([int(p) for p in sys.argv[2].split(",")])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4660,6 +5040,8 @@ def main() -> int:
         return wider_alone()
     if sys.argv[1:] == ["--viterbi-wider"]:
         return viterbi_wider_alone()
+    if sys.argv[1:] == ["--widest"]:
+        return widest_alone()
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
         return distributed_rank(int(sys.argv[2]), *sys.argv[3:])
     sys.path.insert(0, ROOT)
@@ -4669,7 +5051,6 @@ def main() -> int:
     from nanopore_tpu_torch.mapping.runner import run_mapper
     from nanopore_tpu_torch.io.seqio import read_fasta_dict
     from nanopore_tpu_torch.ops import pack, realign, traceback
-    from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
     from nanopore_tpu_torch.runtime import native_index
 
     card = subprocess.run(
@@ -4724,12 +5105,16 @@ def main() -> int:
     for name, a in viterbi_path_attributes(WIDER_W,
                                            "_w%d" % WIDER_W).items():
         attrs.setdefault(name, {}).update(a)
+    for name, a in widest_attributes().items():
+        attrs.setdefault(name, {}).update(a)
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
     print("native seedchain: %s" % native_index.get_lib()._name)
     dev = torch.device("cuda", 0)
     workdir = os.path.join(build.BUILD_DIR, "smoke")
     counters = launch_counters()
+    # the CPU halves of phases 13 and 15-18 beside every card phase
+    cpu = start_cpu_halves(sorted(CPU_HALVES), dev)
     kend_guard_check()
     pipeline = start_child(workdir, "--pipeline")
     t_mark = [t_start]
@@ -4781,28 +5166,20 @@ def main() -> int:
     mark("phase 7")
     vit_launches = viterbi_path_phase(workdir, fa, fq, dev, counters)
     mark("phase 9")
-    # phase 17 while the children run on: this process's cached blocks
-    # go back first (the card's memory is shared by three processes)
-    torch.cuda.empty_cache()
-    phase17 = viterbi_wider_phase(
-        engine, main_path_batch(engine, fq,
-                                preferred_realign_batch_size(None, dev)),
-        fa, fq, width_workload(os.path.join(workdir, "viterbi_wider"), dev),
-        dev, counters)
-    torch.cuda.empty_cache()
-    mark("phase 17")
     phase8 = finish_child(vit_child, workdir, "--viterbi",
-                          "phases 8, 13, 14 and 15",
+                          "phases 8, 13, 14, 15, 17 and part of 18",
                           os.path.join("viterbi", "result.json"))
     res.update(phase8["res"])
     other_runs = dict(post_launches, **vit_launches)
-    for out in (phase8["widths"], phase8["wide"], phase17):
+    for out in (phase8["widths"], phase8["wide"], phase8["viterbi_wider"],
+                phase8["widest"]):
         for name, rows in out["res"].items():
             res[name].update(rows)
         other_runs.update(out["runs"])
     other_runs.update(finish_child(pipeline, workdir, "--pipeline",
-                                   "phases 10-12 and 16",
+                                   "phases 10-12, 16 and most of 18",
                                    os.path.join("pipeline", "launches.json")))
+    finish_cpu_halves(cpu)
     with open(os.path.join(workdir, "wider", "result.json")) as fh:
         for name, rows in json.load(fh)["res"].items():
             res[name].update(rows)

@@ -31,7 +31,11 @@
 // chunk); then every thread builds 16 cells of a row from two runs of 16
 // buffer bytes and stores them as one 16-byte word, neighbouring threads
 // on neighbouring words.  Two block barriers a chunk; the kernel is
-// bound by its stores.
+// bound by its stores.  At W = 384 and 512 a head of W symbols reaches
+// back past the chunk before: it is copied from the last chunk's buffer,
+// whose own head held the W symbols before that chunk, so every
+// window's lookup stays inside what the two buffers keep (CHUNK + W
+// bytes each).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -164,7 +168,11 @@ extern "C" const char* np_cuda_error_string(int e) {
 extern "C" int np_pack_attrs(int W, int* out) {
   cudaFuncAttributes a;
   cudaError_t e;
-  if (W == 256)
+  if (W == 512)
+    e = cudaFuncGetAttributes(&a, pack_kernel<512>);
+  else if (W == 384)
+    e = cudaFuncGetAttributes(&a, pack_kernel<384>);
+  else if (W == 256)
     e = cudaFuncGetAttributes(&a, pack_kernel<256>);
   else if (W == 128)
     e = cudaFuncGetAttributes(&a, pack_kernel<128>);
@@ -182,7 +190,7 @@ extern "C" int np_pack_attrs(int W, int* out) {
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  W is
-// 32, 64, 128 or 256 and `wl` the live band width, 1 <= wl <= W.
+// 32, 64, 128, 256, 384 or 512 and `wl` the live band width, 1 <= wl <= W.
 extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
                               const void* m, const void* n, int nreads,
                               int k_pad, int W, int wl, void* xyc, void* stream) {
@@ -194,7 +202,11 @@ extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
   const int32_t* mm = (const int32_t*)m;
   const int32_t* nn = (const int32_t*)n;
   uint8_t* out = (uint8_t*)xyc;
-  if (W == 256) {
+  if (W == 512) {
+    pack_kernel<512><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
+  } else if (W == 384) {
+    pack_kernel<384><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
+  } else if (W == 256) {
     pack_kernel<256><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
   } else if (W == 128) {
     pack_kernel<128><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);

@@ -55,12 +55,13 @@
 //    the bit patterns: the states are non-negative, so their patterns
 //    order as their values, and a lane whose cells are all NaN keys as
 //    0, which keeps fmaxf's skipping of NaN and the "scale > 0" rule.
-//  * at W = 256 a band is held by a group of G = 2 warps of C = 4 cells
-//    a lane (the register budget of W = 128), warp wg owning cells
-//    128 wg .. 128 wg + 127.  Each band shift moves one cell across the
-//    seam between the warps, and each band maximum meets the other
-//    warp's: both pass through a few words of shared memory, one named
-//    barrier for the group's 64 threads (bar.sync id, 64) an exchange
+//  * above W = 128 a band is held by a group of G = W / 128 warps of
+//    C = 4 cells a lane (the register budget of W = 128; G = 2, 3 and 4
+//    at W = 256, 384 and 512), warp wg owning cells 128 wg .. 128 wg +
+//    127.  Each band shift moves one cell across each seam between the
+//    warps, and each band maximum meets the other warps': both pass
+//    through a few words of shared memory, one named barrier for the
+//    group's 32 G threads (bar.sync id, 32 G) an exchange
 //    (csrc/group.cuh, seam(), band_max()).  A forward step (and a backward
 //    step) is one exchange, a rescale one more, an MEA step one, an exp
 //    step one.  The group stages its chunks together and syncs on the
@@ -98,8 +99,9 @@
 //
 // realign_kernel (EM, EXP): one warp per read, two reads a block (its
 // staging 43,328 bytes a read at W = 128, so that width opts in to more
-// than the default 48 KB of dynamic shared memory); at W = 256 one read a
-// block of one group (86,592 bytes).
+// than the default 48 KB of dynamic shared memory); above W = 128 one
+// read a block of one group (86,592 bytes at W = 256, 129,856 at 384,
+// 173,120 at 512).
 // Phase A, the forward over 1..kq, stores its states (kq rows of 5 x W
 // f32, row k-1 = diagonal k) and then its rescale inverses (kq + 1
 // floats, padded to 16 bytes) in the read's slot; phase B streams them
@@ -136,14 +138,22 @@
 //  bytes a block at W = 64 (27,568 at W = 32), so four reads fit a SM
 //  (132 x 4 = 528 >= 512), with __launch_bounds__(96, 4) holding the
 //  registers to 168; 110,120 at W = 128, so two fit (264 reads at once)
-//  and the bound is (96, 2), which leaves the registers at 255.  At
-//  W = 256 each role is a group of two warps (a block of 6 warps, a
-//  slot's full and empty barriers take 64 arrivals) and the stage takes
-//  219,312 bytes, one block an SM.  Workspace per read: the forward's
-//  states and sf, then safe, then kq / S + 1 checkpoints.
+//  and the bound is (96, 2), which leaves the registers at 255.  Above
+//  W = 128 each role is a group of G warps (a block of 3 G warps, a
+//  slot's full and empty barriers take 32 G arrivals) and the stage
+//  takes 219,312 bytes at W = 256, one block an SM.  At W = 384 and 512
+//  a segment (and phase 2's chunk) of 8 diagonals would not fit (the
+//  stage grows as ~856 W bytes: 438,272 at 512), so there it is 4
+//  diagonals (~432 W: 165,984 and 221,296 bytes; mea_segment); the
+//  recomputed states do not depend on it, so neither do the outputs.
+//  The block of 12 warps at W = 512 caps a thread at 168 registers.
+//  Workspace per read: the forward's states and sf, then safe, then
+//  kq / S + 1 checkpoints (S the segment).
 //
-// gamma_kernel (GAMMA): one read a block of 4 warps (4 groups of two at
-// W = 256: the chains are groups, the g chain stays on warp 0).  The band needs, of
+// gamma_kernel (GAMMA): one read a block of 4 warps (4 groups of G above
+// W = 128, 3 at W = 512, whose 16 warps would cap a thread at 128
+// registers: the chains are groups, the g chain stays on warp 0, the
+// other roles write the rows past kq).  The band needs, of
 // each diagonal, only the forward's and the backward's match states and
 // one scalar g_k, so neither chain waits for the other and the product
 // comes last, over every cell at once:
@@ -170,9 +180,11 @@
 // EM mode adds 57 accumulators per lane (25 transition products, 16
 // match bins, 2 x 4 delete bins by the x code, 2 x 4 insert bins by the
 // y code): a lane adds its C cells into one register per count, so the
-// register cost is 57 at any width, and the 32 G lanes are summed by an
-// xor butterfly after the last diagonal (at G = 2 its first step, lane l
-// plus lane l + 32, is the cross-warp add, through shared memory); the
+// register cost is 57 at any width, and the 32 G lanes are summed after
+// the last diagonal: at G > 1 the warps first fold onto warp 0 through
+// shared memory, the upper ceil(G / 2) onto the lower, lane for lane
+// (at G = 2 and 4 the xor butterfly's steps across warps; at G = 3 warp
+// 2 onto warp 0, then warp 1), then one warp's xor butterfly; the
 // transition sums take their tf factor only then.  Binning is a predicated add per bin (a select
 // and an add, 32 per cell): a dynamically indexed register array would go
 // to local memory.  Only codes 0-3 bin; N = 4 and the sentinel 5 bin
@@ -218,10 +230,19 @@ constexpr int S = 8;      // diagonals per segment of mea_kernel's backward
 constexpr int NSLOT = 3;  // ring slots of mea_kernel: two producers need three
 constexpr int MEA_WARPS = 3;  // roles of mea_kernel (a warp each, or a group each)
 // mea_kernel's blocks an SM: as many as its shared memory lets in (four
-// at W <= 64, two at W = 128, one at W = 256), the register cap of
+// at W <= 64, two at W = 128, one above), the register cap of
 // __launch_bounds__
 constexpr int mea_blocks(int C, int G) { return G > 1 ? 1 : (C == 4 ? 2 : 4); }
+// mea_kernel's segment (and phase 2's chunk): S, but half of it above
+// W = 256, where a stage of S-diagonal chunks would not fit a block
+__host__ __device__ constexpr int mea_segment(int G) { return G > 2 ? S / 2 : S; }
 constexpr int GAMMA_WARPS = 4;  // roles of gamma_kernel (a warp each, or a group each)
+// gamma_kernel's roles: three at G = 4, whose block of 16 warps would cap
+// a thread at 128 registers (the two chains and one writer of the rows
+// past kq; the product pass takes every warp either way)
+__host__ __device__ constexpr int gamma_roles(int G) { return G > 3 ? 3 : GAMMA_WARPS; }
+// warps a block of realign_kernel: WARPS, or one group of G > WARPS
+__host__ __device__ constexpr int realign_warps(int G) { return G > WARPS ? G : WARPS; }
 constexpr int XA = 8;           // arrays one seam exchange carries at most
 static_assert(S == CH, "mea_kernel's consumer stages one chunk per segment");
 // tf 25 | emf 36 | egf 30 | gap gamma | match gamma | exp threshold
@@ -252,12 +273,13 @@ struct __align__(16) Stage {
 
 // mea_kernel's shared memory: phase 1's code buffers and phase 2's
 // buffers share the space (a block barrier lies between).  Phase 2's
-// chunk q is segment q: slot s holds diagonal q*CH + s, with sf of the
-// diagonal above and safe of its own; a ring slot holds a segment's
-// recomputed backward states, row s diagonal jS + s; a producer's code
-// buffer row i holds diagonal jS + i, i < S + 2 (its carry reads the two
-// diagonals above the segment).
-template <int W>
+// chunk q is segment q of MS diagonals (mea_segment): slot s holds
+// diagonal q*MS + s, with sf of the diagonal above and safe of its own;
+// a ring slot holds a segment's recomputed backward states, row s
+// diagonal j*MS + s; a producer's code buffer row i holds diagonal
+// j*MS + i, i < MS + 2 (its carry reads the two diagonals above the
+// segment).  Phase 1 stages chunks of CH diagonals at every width.
+template <int W, int MS>
 struct __align__(16) MeaStage {
   union {
     struct {
@@ -265,12 +287,12 @@ struct __align__(16) MeaStage {
       uint8_t bcd[2][CH][W];      // the backward's codes
     } p1;
     struct {
-      float st[2][CH][NS * W];
-      float ring[NSLOT][S][NS * W];
-      uint8_t cd[2][CH][W];
-      uint8_t pcd[2][2][S + 2][W];  // [producer][buffer][row]
-      float sf[2][CH];
-      float sa[2][CH];
+      float st[2][MS][NS * W];
+      float ring[NSLOT][MS][NS * W];
+      uint8_t cd[2][MS][W];
+      uint8_t pcd[2][2][MS + 2][W];  // [producer][buffer][row]
+      float sf[2][MS];
+      float sa[2][MS];
     } p2;
   } u;
   unsigned long long full[NSLOT], empty[NSLOT];
@@ -835,20 +857,20 @@ __device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
 //   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32.
 // `ws` is the launch's workspace and `woff[r]` read r's offset in it
 // (floats), woff[r + 1] the end of its slot; dynamic shared memory holds
-// one Stage<W> a read of the block (WARPS / G reads).
+// one Stage<W> a read of the block (realign_warps(G) / G reads).
 template <int C, int G, int MODE>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(realign_warps(G) * 32)
 realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
                const int32_t* __restrict__ n, int nreads, int k_pad, int wl,
                float* __restrict__ ws, const int64_t* __restrict__ woff,
                float* __restrict__ loglik, float* __restrict__ out1,
                void* __restrict__ out2) {
   constexpr int W = 32 * C * G;
-  constexpr int RB = WARPS / G;  // reads a block
+  constexpr int RB = realign_warps(G) / G;  // reads a block
   constexpr bool EM = MODE == EM_MODE;
   constexpr bool XP = MODE == EXP;
   static_assert(EM || XP, "the decode modes run mea_kernel, the gamma mode gamma_kernel");
-  static_assert(RB * G == WARPS, "a block holds whole groups");
+  static_assert(RB * G == realign_warps(G), "a block holds whole groups");
   __shared__ float sm[NTAB];
   extern __shared__ __align__(16) unsigned char stage_raw[];
   uint32_t* xbuf = nullptr;
@@ -1037,26 +1059,29 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
     for (int i = 0; i < 4; ++i) store_row<C>(fl + i * W, w0, ex[i]);
   }
   if constexpr (EM) {
-    // sum over the band by the xor butterfly over its 32 G lanes (the
-    // plain version's order, ops/realign.py::_lane_total): at G > 1 its
-    // steps across warps first (lane l plus lane l + 32 h, h = G / 2, ..,
-    // 1: warp wg < h adds warp wg + h's sums, lane for lane, through the
-    // staging buffer, free once every warp is past the last chunk), then
-    // one warp's five; then lay the counts out as trans [from][to] and
+    // sum over the band's 32 G lanes (the plain version's order,
+    // ops/realign.py::_lane_total): at G > 1 the warps first fold onto
+    // warp 0, of the nw still holding sums warps h = ceil(nw / 2) .. nw - 1
+    // onto warps 0 .. nw - h - 1, lane for lane, through the staging
+    // buffer (free once every warp is past the last chunk): at G = 2 and
+    // 4 the xor butterfly's steps across warps (lane l plus lane l + 32 h),
+    // at G = 3 warp 2 onto warp 0, then warp 1; then one warp's five
+    // butterfly steps; then lay the counts out as trans [from][to] and
     // emis [state][x * 4 + y], each gap count spread over the base its
     // state does not read
     if constexpr (G > 1) {
       float* red = reinterpret_cast<float*>(&sg);  // [warp - h][count][lane]
       static_assert(G / 2 * 57 * 32 * 4 <= (int)sizeof(Stage<W>), "the sums fit the stage");
 #pragma unroll 1
-      for (int h = G / 2; h >= 1; h >>= 1) {
+      for (int nw = G; nw > 1; nw = (nw + 1) / 2) {
+        const int h = (nw + 1) / 2;
         grp::sync(g);  // the buffer is free
-        if (g.wg >= h && g.wg < 2 * h) {
+        if (g.wg >= h && g.wg < nw) {
 #pragma unroll
           for (int i = 0; i < 57; ++i) red[((g.wg - h) * 57 + i) * 32 + lane] = em[i];
         }
         grp::sync(g);
-        if (g.wg < h) {
+        if (g.wg < nw - h) {
 #pragma unroll
           for (int i = 0; i < 57; ++i) em[i] = em[i] + red[(g.wg * 57 + i) * 32 + lane];
         }
@@ -1087,19 +1112,19 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   }
 }
 
-// floats of mea_kernel's workspace slot of a read of kq diagonals: the
-// forward's states and sf, safe, then the checkpoints (b1 and b2m,
-// 6 x W f32 each)
-__device__ __forceinline__ int64_t mea_slot_floats(int kq, int W) {
+// floats of mea_kernel's workspace slot of a read of kq diagonals in
+// segments of ms: the forward's states and sf, safe, then the
+// checkpoints (b1 and b2m, 6 x W f32 each)
+__device__ __forceinline__ int64_t mea_slot_floats(int kq, int W, int ms) {
   const int64_t kp4 = (kq + 1 + 3) / 4 * 4;
-  return (int64_t)kq * NS * W + 2 * kp4 + (int64_t)(kq / S + 1) * (NS + 1) * W;
+  return (int64_t)kq * NS * W + 2 * kp4 + (int64_t)(kq / ms + 1) * (NS + 1) * W;
 }
 
 // Outputs: `score` (B,) f32 (the MEA score), `dirs` (B, k_pad + 1, W)
 // int8 direction codes and, in DECODE_GAMMA, `gband` (B, k_pad + 1, W)
 // f32.  `ws`, `woff` as realign_kernel's, one read a block of MEA_WARPS
 // groups of G warps (role = warp / G); dynamic shared memory holds one
-// MeaStage<W>.
+// MeaStage<W, mea_segment(G)>.
 template <int C, int G, int MODE>
 __global__ void __launch_bounds__(MEA_WARPS * 32 * G, mea_blocks(C, G))
 mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
@@ -1108,10 +1133,11 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
            float* __restrict__ score, int8_t* __restrict__ dirs,
            float* __restrict__ gband) {
   constexpr int W = 32 * C * G;
+  constexpr int MS = mea_segment(G);  // segment: phase 2's chunk
   constexpr bool GAM = MODE == DECODE_GAMMA;
   __shared__ float sm[NTAB];
   extern __shared__ __align__(16) unsigned char stage_raw[];
-  MeaStage<W>& sg = *reinterpret_cast<MeaStage<W>*>(stage_raw);
+  MeaStage<W, MS>& sg = *reinterpret_cast<MeaStage<W, MS>*>(stage_raw);
   const int warp = threadIdx.x >> 5;
   const int role = warp / G;
   uint32_t* xbuf = nullptr;
@@ -1140,9 +1166,9 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
   const int kend = m[r] + n[r];
   const int kq = min(kend + (kend & 1), k_pad);     // the read's last diagonal
-  const int nseg = kq / S + 1;                      // segments of diagonals 0..kq
+  const int nseg = kq / MS + 1;                     // segments of diagonals 0..kq
   // the read's slot must hold it (kend below m + n otherwise): a trap
-  if (woff[r] + mea_slot_floats(kq, W) > woff[r + 1]) __trap();
+  if (woff[r] + mea_slot_floats(kq, W, MS) > woff[r + 1]) __trap();
   const int kp4 = (kq + 1 + 3) / 4 * 4;
   float* fs = ws + woff[r];               // row k-1: diagonal k
   float* sf = fs + (size_t)kq * NS * W;   // [k]: diagonal k (even k)
@@ -1175,8 +1201,10 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
       const int buf = q & 1;
       for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
         const int s = k - q * CH;
-        if (k == kq || s == S - 1) {  // the top of segment k / S: its checkpoint
-          float* cp = ckp + (size_t)(k / S) * (NS + 1) * W;
+        // the top of segment k / MS: its checkpoint (at MS = CH the
+        // chunk's last diagonal)
+        if (k == kq || (MS == CH ? s == MS - 1 : k % MS == MS - 1)) {
+          float* cp = ckp + (size_t)(k / MS) * (NS + 1) * W;
           store_states<C, W>(cp, w0, bw.b1);
           store_row<C>(cp + NS * W, w0, bw.b2m);
         }
@@ -1210,17 +1238,17 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
     int d1n1 = 0, d1n2 = 0;  // band deltas of diagonals k+1, k+2
     auto stage = [&](int q) {
       const int buf = q & 1;
-      const int lo = max(1, q * CH), hi = min(kq, q * CH + CH - 1);
+      const int lo = max(1, q * MS), hi = min(kq, q * MS + MS - 1);
       if (hi >= lo) {
-        const int s0 = lo - q * CH, rows = hi - lo + 1;
+        const int s0 = lo - q * MS, rows = hi - lo + 1;
         warp_copy(sg.u.p2.st[buf][s0], fs + (size_t)(lo - 1) * NS * W, rows * NS * W * 4,
                   g.gl, 32 * G);
         warp_copy(sg.u.p2.cd[buf][s0], xy + (size_t)(lo - 1) * W, rows * W, g.gl, 32 * G);
       }
-      if (g.gl < CH && q * CH + g.gl + 1 <= kq)
-        cp_async4(&sg.u.p2.sf[buf][g.gl], sf + q * CH + g.gl + 1);
-      if (g.gl < CH && q * CH + g.gl <= kq)
-        cp_async4(&sg.u.p2.sa[buf][g.gl], sa + q * CH + g.gl);
+      if (g.gl < MS && q * MS + g.gl + 1 <= kq)
+        cp_async4(&sg.u.p2.sf[buf][g.gl], sf + q * MS + g.gl + 1);
+      if (g.gl < MS && q * MS + g.gl <= kq)
+        cp_async4(&sg.u.p2.sa[buf][g.gl], sa + q * MS + g.gl);
       cp_commit();
     };
     stage(nseg - 1);
@@ -1232,8 +1260,8 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
       const int buf = q & 1;
       const int t = nseg - 1 - q, slot = t % NSLOT;
       mbar_wait(&sg.full[slot], (t / NSLOT) & 1);  // segment q's backward states
-      for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
-        const int s = k - q * CH;
+      for (int k = min(kq, q * MS + MS - 1); k >= q * MS; --k) {
+        const int s = k - q * MS;
         float fh[NS][C];  // forward states of diagonal k
         if (k >= 1) {
           load_states<C, W>(sg.u.p2.st[buf][s], w0, fh);
@@ -1310,11 +1338,11 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
   } else {
     // producer p recomputes segments nseg - 1 - p, nseg - 3 - p, ...
     const int p = role - 1;
-    uint8_t(*pc)[S + 2][W] = sg.u.p2.pcd[p];
-    auto stage = [&](int j, int buf) {  // codes of diagonals jS .. jS + S + 1 in 1..kq
-      const int lo = max(1, j * S), hi = min(kq, j * S + S + 1);
+    uint8_t(*pc)[MS + 2][W] = sg.u.p2.pcd[p];
+    auto stage = [&](int j, int buf) {  // codes of diagonals jMS .. jMS + MS + 1 in 1..kq
+      const int lo = max(1, j * MS), hi = min(kq, j * MS + MS + 1);
       if (hi >= lo)
-        warp_copy(pc[buf][lo - j * S], xy + (size_t)(lo - 1) * W, (hi - lo + 1) * W, g.gl,
+        warp_copy(pc[buf][lo - j * MS], xy + (size_t)(lo - 1) * W, (hi - lo + 1) * W, g.gl,
                   32 * G);
       cp_commit();
     };
@@ -1323,7 +1351,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
       const float* cp = ckp + (size_t)j * (NS + 1) * W;
       load_states<C, W>(cp, w0, c1);
       load_row<C>(cp + NS * W, w0, c2m);
-      const int above = min(kq, j * S + S - 1) + 1;  // the diagonal above the segment
+      const int above = min(kq, j * MS + MS - 1) + 1;  // the diagonal above the segment
       csafe = above <= kq ? sa[above] : 1.f;
     };
     if (p < nseg) {
@@ -1333,7 +1361,7 @@ mea_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restric
 #pragma unroll 1
     for (int t = p, i = 0; t < nseg; t += 2, ++i) {
       const int j = nseg - 1 - t;
-      const int lo = j * S, hi = min(kq, lo + S - 1);
+      const int lo = j * MS, hi = min(kq, lo + MS - 1);
       const int buf = i & 1, slot = t % NSLOT, use = t / NSLOT;
       Bwd<C> bw;
       bwd_init<C>(bw);
@@ -1384,7 +1412,7 @@ __device__ __forceinline__ int64_t gamma_slot_floats(int kq, int W) {
 
 // Outputs: `loglik` (B,) and `gband` (B, k_pad + 1, W) f32, the
 // gamma_match band.  `ws`, `woff` as realign_kernel's, one read a block
-// of GAMMA_WARPS groups of G warps (role = warp / G).  `sm` holds the
+// of gamma_roles(G) groups of G warps (role = warp / G).  `sm` holds the
 // model tables, which the entry point (gamma_kernel, or gamma_kernel_c4
 // at W >= 128) has copied in.
 template <int C, int G>
@@ -1464,7 +1492,8 @@ __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __res
       }
     }
   } else {  // the rows past the read's own diagonals
-    fill_rows(band, kq, k_pad, W * 4, 0u, threadIdx.x - 64 * G, (GAMMA_WARPS - 2) * 32 * G);
+    fill_rows(band, kq, k_pad, W * 4, 0u, threadIdx.x - 64 * G,
+              (gamma_roles(G) - 2) * 32 * G);
   }
   __syncthreads();  // both chains' rows and scales are written
 
@@ -1514,7 +1543,7 @@ __device__ __forceinline__ void gamma_read(const float* sm, const uint8_t* __res
     float4* fb = reinterpret_cast<float4*>(band);
     const float4* bb = reinterpret_cast<const float4*>(bws);
     const int n4 = (kq + 1) * V;
-    constexpr int NT = GAMMA_WARPS * 32 * G, U = 4;
+    constexpr int NT = gamma_roles(G) * 32 * G, U = 4;
 #pragma unroll 1
     for (int i0 = threadIdx.x; i0 < n4; i0 += NT * U) {
       float4 f[U], b[U];
@@ -1555,9 +1584,10 @@ gamma_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restr
 }
 
 // C = 4 (W = 128 G): under gamma_kernel's bound ptxas held W = 128 to
-// 128 registers and spilled; at 2 / G blocks an SM it takes what it needs
+// 128 registers and spilled; at 2 blocks an SM (1 above W = 128) it
+// takes what it needs, up to 168 registers in the 12 warps of G = 3 and 4
 template <int G>
-__global__ void __launch_bounds__(GAMMA_WARPS * 32 * G, 2 / G)
+__global__ void __launch_bounds__(gamma_roles(G) * 32 * G, G == 1 ? 2 : 1)
 gamma_kernel_c4(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
                 const int32_t* __restrict__ n, int k_pad, int wl, float* __restrict__ ws,
                 const int64_t* __restrict__ woff, float* __restrict__ loglik,
@@ -1567,7 +1597,7 @@ gamma_kernel_c4(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __re
   gamma_read<4, G>(sm, xyc, m, n, k_pad, wl, ws, woff, loglik, gband);
 }
 
-// gamma_kernel at W = 32 and 64, gamma_kernel_c4 at W = 128 and 256
+// gamma_kernel at W = 32 and 64, gamma_kernel_c4 from W = 128
 template <int C, int G>
 auto gamma_entry() {
   if constexpr (C == 4)
@@ -1582,7 +1612,7 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
                 void* out1, void* out2, void* out3) {
   constexpr int W = 32 * C * G;
   if constexpr (MODE == DECODE || MODE == DECODE_GAMMA) {
-    constexpr int smem = (int)sizeof(MeaStage<W>);
+    constexpr int smem = (int)sizeof(MeaStage<W, mea_segment(G)>);
     cudaError_t e = cudaFuncSetAttribute(mea_kernel<C, G, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
@@ -1595,11 +1625,11 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
         (const int64_t*)woff, (float*)loglik, (float*)out1, (int8_t*)out2, (float*)out3);
   } else if constexpr (MODE == GAMMA) {
     const auto kernel = gamma_entry<C, G>();
-    kernel<<<nreads, GAMMA_WARPS * 32 * G, 0, s>>>(
+    kernel<<<nreads, gamma_roles(G) * 32 * G, 0, s>>>(
         t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, wl, (float*)ws,
         (const int64_t*)woff, (float*)loglik, (float*)out3);
   } else {
-    constexpr int RB = WARPS / G;  // reads a block
+    constexpr int RB = realign_warps(G) / G;  // reads a block
     constexpr int smem = RB * (int)sizeof(Stage<W>);
     if constexpr (smem > 48 * 1024) {  // W >= 128: above the default's 48 KB
       cudaError_t e = cudaFuncSetAttribute(realign_kernel<C, G, MODE>,
@@ -1611,7 +1641,7 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
       if (e != cudaSuccess) return (int)e;
     }
     realign_kernel<C, G, MODE>
-        <<<(nreads + RB - 1) / RB, WARPS * 32, smem, s>>>(
+        <<<(nreads + RB - 1) / RB, realign_warps(G) * 32, smem, s>>>(
             t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad, wl,
             (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2);
   }
@@ -1628,19 +1658,19 @@ int attrs_mode(int* out) {
   cudaError_t e;
   if constexpr (MEA) {
     e = cudaFuncGetAttributes(&a, mea_kernel<C, G, MODE>);
-    out[3] = (int)sizeof(MeaStage<W>);
+    out[3] = (int)sizeof(MeaStage<W, mea_segment(G)>);
     out[4] = MEA_WARPS * 32 * G;
     out[5] = 1;
   } else if constexpr (MODE == GAMMA) {
     e = cudaFuncGetAttributes(&a, gamma_entry<C, G>());
     out[3] = 0;
-    out[4] = GAMMA_WARPS * 32 * G;
+    out[4] = gamma_roles(G) * 32 * G;
     out[5] = 1;
   } else {
     e = cudaFuncGetAttributes(&a, realign_kernel<C, G, MODE>);
-    out[3] = (int)(WARPS / G * sizeof(Stage<W>));
-    out[4] = WARPS * 32;
-    out[5] = WARPS / G;
+    out[3] = (int)(realign_warps(G) / G * sizeof(Stage<W>));
+    out[4] = realign_warps(G) * 32;
+    out[5] = realign_warps(G) / G;
   }
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -1696,6 +1726,8 @@ extern "C" const char* np_cuda_error_string(int e) {
 // shared memory bytes per block, threads per block and reads per block
 // of `mode` at band width W, into out[6].
 extern "C" int np_realign_attrs(int mode, int W, int* out) {
+  if (W == 512) return attrs_width<4, 4>(mode, out);
+  if (W == 384) return attrs_width<4, 3>(mode, out);
   if (W == 256) return attrs_width<4, 2>(mode, out);
   if (W == 128) return attrs_width<4, 1>(mode, out);
   if (W == 64) return attrs_width<2, 1>(mode, out);
@@ -1704,8 +1736,8 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 }
 
 // Launch `mode` (DECODE 0, EM 1, GAMMA 2, DECODE_GAMMA 3, EXP 4) on
-// `stream`; returns cudaGetLastError() (0 on success).  W is 32, 64, 128
-// or 256 and `wl` the live band width, 1 <= wl <= W.  `tables` is host
+// `stream`; returns cudaGetLastError() (0 on success).  W is 32, 64, 128,
+// 256, 384 or 512 and `wl` the live band width, 1 <= wl <= W.  `tables` is host
 // memory: 91 model floats, then gap gamma, match gamma and the exp
 // threshold (each mode reads what it uses).  `ws` is the workspace and
 // `woff` (nreads + 1,) int64 each read's offset in it and, last, the end
@@ -1713,7 +1745,8 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 // kq = m + n rounded up to even (at most k_pad) and kp4 = kq + 1 rounded
 // up to a multiple of 4, read r needs kq * 5 * W floats of states and kp4
 // rescale inverses, and in the decode modes kp4 more (the backward's
-// scales) and (kq / 8 + 1) * 6 * W of checkpoints; in GAMMA (kq + 1) * W
+// scales) and (kq / S + 1) * 6 * W of checkpoints (S = 8, 4 above
+// W = 256: mea_segment); in GAMMA (kq + 1) * W
 // floats of match rows and 2 * kp4 scales instead; a read that needs
 // more than woff[r + 1] - woff[r] traps on the device.  The outputs by
 // mode are those of realign_kernel, mea_kernel (DECODE, DECODE_GAMMA:
@@ -1734,6 +1767,8 @@ extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
   if (W == WIDTH)                                                                          \
     return launch_width<C, G>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, \
                               out1, out2, out3);
+  NP_WIDTH(512, 4, 4)
+  NP_WIDTH(384, 4, 3)
   NP_WIDTH(256, 4, 2)
   NP_WIDTH(128, 4, 1)
   NP_WIDTH(64, 2, 1)

@@ -18,7 +18,8 @@
 // latency at every step.  Design:
 //  * one warp per read, WARPS reads a block, so a batch of 512 reads
 //    spreads over 128 blocks and every SM (2 reads a block at W = 256,
-//    whose ring of 4 reads would not fit a block: walk::reads_per_block);
+//    whose ring of 4 reads would not fit a block, and 1 at W = 384 and
+//    512: walk::reads_per_block);
 //  * the warp streams the read's direction rows (one contiguous range
 //    of (m + n + 1) x W bytes) into a shared-memory ring of chunks of
 //    CH diagonals, NBUF - 1 chunks ahead of the walk, by 16-byte cp.async
@@ -38,7 +39,8 @@
 //    words);
 //  * each read stops at its own end: it walks diagonals 0..m + n and
 //    fills the rows past them with 3 by 16-byte stores.
-// Serves W = 32, 64, 128 and 256, the band widths of the realign kernel.
+// Serves W = 32, 64, 128, 256, 384 and 512, the band widths of the
+// realign kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -140,13 +142,19 @@ extern "C" int np_walk_smem(int W) { return walk::smem_bytes(W); }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  dirs
 // (nreads, k_pad + 1, W) int8, xyc (nreads, k_pad, W) int8, m and n
-// (nreads,) int32, ops (nreads, k_pad + 1) int8 out; W is 32, 64, 128 or 256, and
-// dirs is 16-byte aligned.
+// (nreads,) int32, ops (nreads, k_pad + 1) int8 out; W is 32, 64, 128,
+// 256, 384 or 512, and dirs is 16-byte aligned.
 extern "C" int np_walk_launch(const void* dirs, const void* xyc, const void* m,
                               const void* n, int nreads, int k_pad, int W,
                               void* ops, void* stream) {
   if (nreads <= 0 || k_pad < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (W == 512)
+    return launch<512>(walk_kernel<512>, nreads, s, (const int8_t*)dirs, (const uint8_t*)xyc,
+                       (const int32_t*)m, (const int32_t*)n, nreads, k_pad, (int8_t*)ops);
+  if (W == 384)
+    return launch<384>(walk_kernel<384>, nreads, s, (const int8_t*)dirs, (const uint8_t*)xyc,
+                       (const int32_t*)m, (const int32_t*)n, nreads, k_pad, (int8_t*)ops);
   if (W == 256)
     return launch<256>(walk_kernel<256>, nreads, s, (const int8_t*)dirs, (const uint8_t*)xyc,
                        (const int32_t*)m, (const int32_t*)n, nreads, k_pad, (int8_t*)ops);

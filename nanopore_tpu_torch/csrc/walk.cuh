@@ -36,8 +36,8 @@ struct __align__(16) Stage {
 // WARPS, but 2 where a row is 256 bytes (the full plane's 16-bit rows at
 // W = 128, the byte rows at W = 256), whose ring of 4 reads (402,112
 // bytes either) would not fit in the 232,448 a block may opt into, and 1
-// where a row is 512 bytes (the full plane at W = 256: 198,832 bytes a
-// read)
+// where a row is more (the full plane at W = 256 and the byte rows at
+// W = 512: 198,832 bytes a read; the byte rows at W = 384: 149,680)
 template <int W, typename T>
 __host__ __device__ constexpr int reads_per_block() {
   return W * (int)sizeof(T) > 256 ? 1 : W * (int)sizeof(T) > 128 ? 2 : WARPS;
@@ -145,11 +145,12 @@ __device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
 }
 
 // Dynamic shared memory a walker block takes at band width W with rows
-// of T: one Stage a read of the block (0 for a W other than 32, 64, 128
-// and 256).  The byte rows take 205,504 bytes at W = 128 (4 reads) and
-// 201,056 at W = 256 (2 reads), as the 16-bit rows at W = 128 (2 reads);
-// the 16-bit rows at W = 256 198,832 (1 read); all under the 232,448 a
-// block may opt into.
+// of T: one Stage a read of the block (0 for a W other than 32, 64, 128,
+// 256, 384 and 512).  The byte rows take 205,504 bytes at W = 128 (4
+// reads), 201,056 at W = 256 (2 reads), 149,680 at W = 384 and 198,832
+// at W = 512 (1 read), as the 16-bit rows at W = 128 (2 reads) and
+// W = 256 (1 read); every walker launched under the 232,448 a block may
+// opt into (the 16-bit rows at W = 384 and 512 have no launch).
 template <int W, typename T>
 constexpr int stage_bytes() {
   return reads_per_block<W, T>() * (int)sizeof(Stage<W, T>);
@@ -157,7 +158,9 @@ constexpr int stage_bytes() {
 
 template <typename T = int8_t>
 inline int smem_bytes(int W) {
-  return W == 256 ? stage_bytes<256, T>()
+  return W == 512 ? stage_bytes<512, T>()
+       : W == 384 ? stage_bytes<384, T>()
+       : W == 256 ? stage_bytes<256, T>()
        : W == 128 ? stage_bytes<128, T>()
        : W == 64 ? stage_bytes<64, T>()
        : W == 32 ? stage_bytes<32, T>()

@@ -7,7 +7,8 @@ library's file name carries a hash of its source, the ``csrc/`` headers
 and its flags, so an edited kernel is rebuilt and a stale one is never
 loaded.  :func:`build` starts
 one nvcc per source, all at once; ``-Xptxas -v`` reports each kernel's
-registers, shared memory and spills, printed once per build.
+registers, shared memory and spills, printed once per build with each
+source's build seconds.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0.  There is no fallback: a kernel
@@ -110,14 +111,27 @@ def build(names=SOURCES) -> float:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
             )))
+        done = {}  # name -> (log, seconds), each read on its own thread
+
+        def wait(name, proc):
+            log, _ = proc.communicate()
+            done[name] = (log, time.perf_counter() - t0)
+
+        waiters = [threading.Thread(target=wait, args=(name, proc))
+                   for name, _, _, proc in procs]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         failed = []
         for name, out, tmp, proc in procs:
-            log, _ = proc.communicate()
+            log, secs = done[name]
             if proc.returncode != 0:
                 failed.append("%s:\n%s" % (name, log))
                 continue
             os.replace(tmp, out)
-            print("[nvcc %s] built %s" % (name, os.path.basename(out)))
+            print("[nvcc %s] built %s in %.1f s" % (name, os.path.basename(out),
+                                                  secs))
             for line in log.splitlines():
                 if "ptxas" in line or "bytes stack frame" in line:
                     print("[nvcc %s] %s" % (name, line.strip()))

@@ -19,13 +19,15 @@ plane for any other; ``ops.viterbi``);
 ``PreparedForward.run()`` launches the forward-only kernel (the
 counterpart of the JAX package's ``PallasForwardPlan``).
 
-A band of live width w (``band_width``) is laid into W = 32 lanes if
-w <= 32, W = 64 if w <= 64, W = 128 if w <= 128, else W = 256
-(``ops.pack.padded_width``; the CPU keeps a band wider than 256
+A band of live width w (``band_width``) is laid into the narrowest of
+W = 32, 64, 128, 256, 384 and 512 lanes that holds it
+(``ops.pack.padded_width``; the CPU keeps a band wider than 512
 unpadded), its dead lanes all sentinel, on either device: so the CPU
-runs exactly the layout the card runs.  On the card the kernels of
-both paths serve W = 32 to 256, so every ``Prepared*`` class takes the
-live widths 2 to 256 (``check_band_width``, ROADMAP C10, C11).  The
+runs exactly the layout the card runs.  On the card the MEA path's
+kernels serve W = 32 to 512 and the Viterbi path's W = 32 to 256, so
+``PreparedRealign``, ``PreparedEm`` and ``PreparedPosteriors`` take the
+live widths 2 to 512 and ``PreparedViterbi`` and ``PreparedForward`` 2
+to 256 (``check_band_width``, ROADMAP C10, C11).  The
 batch carries w (``LitePack.band_width``) to the realign kernel's
 launches, and ``run()`` gives the gamma band and the flush sliced to
 the w live lanes; the direction codes and the Viterbi plane keep W
@@ -47,6 +49,8 @@ import torch
 
 from nanopore_tpu_torch.device import resolve_device
 from nanopore_tpu_torch.ops.pack import (
+    MEA,
+    VITERBI,
     check_band_width,
     pack_stream_pairs,
     pack_xyc,
@@ -310,10 +314,15 @@ def prepared_from_pairs(
     to ``k_max`` (k-bin bucketing) instead of tightening it.  The band of
     live width ``band_width`` is laid into ``padded_width(band_width)``
     lanes; the card refuses a width its kernels do not serve before any
-    work (``check_band_width``, ROADMAP C10, C11: 2 to 256)."""
+    work (``check_band_width``, ROADMAP C10, C11: 2 to 512 for the MEA
+    path's classes, 2 to 256 for ``PreparedViterbi`` and
+    ``PreparedForward``)."""
     kwargs = dict(cls_kwargs)
     device = kwargs.pop("device", None)
-    check_band_width(band_width, device)
+    check_band_width(band_width, device,
+                     VITERBI if issubclass(prepared_cls, (PreparedViterbi,
+                                                          PreparedForward))
+                     else MEA)
     device = resolve_device(device)
     if not exact_k:
         k_max = _pairs_k_max(pairs, k_max)

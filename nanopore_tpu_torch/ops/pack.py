@@ -44,43 +44,55 @@ from nanopore_tpu_torch.ops.pairhmm import band_offsets_from_cigar
 # so both packages lay out the same k_pad and compare row for row)
 K_ALIGN = 128
 SENT = (5 << 3) | 5  # all-sentinel packed code
-# W = 32 * band cells per lane (up to 4; at W = 256 a band is held by
-# two warps of 4): the layouts of every kernel (pack, realign in every
-# mode, the MEA walker, the Viterbi, its walker, forward-only)
-KERNEL_BAND_WIDTHS = (32, 64, 128, 256)
+# W = 32 * band cells per lane (up to 4; above W = 128 a band is held
+# by a group of W / 128 warps of 4): the layouts of the MEA path (pack,
+# realign in every mode, the MEA walker)
+KERNEL_BAND_WIDTHS = (32, 64, 128, 256, 384, 512)
+# the layouts of the Viterbi path (the Viterbi, its walker, forward-only)
+VITERBI_BAND_WIDTHS = (32, 64, 128, 256)
 MIN_BAND_WIDTH = 2  # the narrowest live width the card serves
+# the paths of ``check_band_width``, as ``MapperConfig.decode`` names them
+# (any path but VITERBI is the MEA path's)
+MEA, VITERBI = "mea", "viterbi"
 
 LAUNCHES = kb.LaunchCounter("pack")
 
 
 def padded_width(band_width: int) -> int:
     """The lanes a band of live width ``band_width`` is laid into, on
-    either device: the narrowest kernel width that holds it (32, 64, 128
-    or 256); a wider band, which only the CPU serves, keeps its own
-    width."""
+    either device: the narrowest kernel width that holds it (32, 64, 128,
+    256, 384 or 512); a wider band, which only the CPU serves, keeps its
+    own width."""
     for W in KERNEL_BAND_WIDTHS:
         if band_width <= W:
             return W
     return band_width
 
 
-def check_band_width(band_width: int, device=None) -> None:
-    """Refuse a band width the kernels do not serve, where ``device`` is
-    not the CPU (``None`` is the card), before an entry point does any
-    work (ROADMAP C10, C11).  On the card every path (the MEA path: pack,
-    realign in every mode, the MEA walker; the Viterbi path: pack, the
-    Viterbi, its walker and the forward-only kernel) serves every live
-    width from 2 to 256, laid into its W = 32, 64, 128 or 256 kernels; a
-    band above 256 is the rest of C11.  The plain versions on the CPU
+def check_band_width(band_width: int, device=None, path: str = VITERBI
+                     ) -> None:
+    """Refuse a band width the kernels of ``path`` do not serve, where
+    ``device`` is not the CPU (``None`` is the card), before an entry
+    point does any work (ROADMAP C10, C11).  On the card the MEA path
+    (``MEA``: pack, realign in every mode, the MEA walker) serves every
+    live width from 2 to 512, laid into its W = 32, 64, 128, 256, 384 or
+    512 kernels; the Viterbi path (``VITERBI``, the default: pack, the
+    Viterbi, its walker and the forward-only kernel) serves 2 to 256,
+    its widths 257 to 512 being C11's next step; every path refuses a
+    band above 512 (the rest of C11).  The plain versions on the CPU
     serve any width; the card gets no plain fallback."""
     if torch.device("cuda" if device is None else device).type == "cpu":
         return
-    if not MIN_BAND_WIDTH <= band_width <= KERNEL_BAND_WIDTHS[-1]:
+    top = (VITERBI_BAND_WIDTHS if path == VITERBI else KERNEL_BAND_WIDTHS)[-1]
+    if not MIN_BAND_WIDTH <= band_width <= top:
         raise ValueError(
-            "band width %d is not served on the card: the kernels take "
-            "widths %d to %d (ROADMAP C10; wider bands are C11); pass "
-            "device='cpu' to run the plain path at any width"
-            % (band_width, MIN_BAND_WIDTH, KERNEL_BAND_WIDTHS[-1]))
+            "band width %d is not served on the card by the %s path: the "
+            "MEA path's kernels take widths %d to %d, the Viterbi path's %d "
+            "to %d (ROADMAP C10; wider bands are C11); pass device='cpu' "
+            "to run the plain path at any width"
+            % (band_width, "Viterbi" if path == VITERBI else "MEA",
+               MIN_BAND_WIDTH, KERNEL_BAND_WIDTHS[-1], MIN_BAND_WIDTH,
+               VITERBI_BAND_WIDTHS[-1]))
 
 
 _SIG = {

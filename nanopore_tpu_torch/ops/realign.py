@@ -57,9 +57,11 @@ version below, operation for operation:
   L lanes are summed by an xor butterfly (offsets L / 2, .., 2, 1) at
   the end, and only then do the transition sums take their ``tf``
   factor (:func:`em_lanes`: up to W = 128 one warp, L = 32 lanes of
-  W / 32 cells; at W = 256 two warps, L = 64 lanes of 4, the first
-  butterfly step being the add across the warps).  The plain version
-  adds in the same order.
+  W / 32 cells; above, a group of G = W / 128 warps, L = 32 G lanes of
+  4, whose warps first fold onto warp 0, the upper ceil(G / 2) onto the
+  lower, lane for lane, until one is left: at G = 2 and 4 the
+  butterfly's steps across warps, at G = 3 warp 2 onto warp 0, then
+  warp 1).  The plain version adds in the same order.
 * the gamma band is gamma[0] = (f_k[0] * b_k[0]) * g_k of every band
   cell, diagonal 0 included: the value the MEA reads;
 * the exp mode keeps 4 accumulators per band cell in diagonal k's band
@@ -82,9 +84,9 @@ writes the rows past them as the plain version's padding diagonals
 leave them (0; DIR_NONE in the direction codes); the plain version runs
 every diagonal of the batch.  The decode modes run the forward and the
 backward side by side on two warps of a block: their slot also holds
-the backward's scale of every diagonal and, every ``SEGMENT`` diagonals,
-a checkpoint of the backward states it carries, from which two more
-warps recompute the backward for the MEA pass.
+the backward's scale of every diagonal and, every :func:`segment`
+diagonals, a checkpoint of the backward states it carries, from which
+two more warps recompute the backward for the MEA pass.
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ DIR_NONE = 3
 # launches over runs of reads that fit
 WORKSPACE_BYTES = 8 << 30
 # diagonals per backward segment of the decode modes (csrc/realign.cu S)
+# up to W = 256; half that above (:func:`segment`)
 SEGMENT = 8
 
 LAUNCHES = kb.LaunchCounter("realign")
@@ -124,15 +127,23 @@ MODE_NAMES = {DECODE: "decode", EM: "em", GAMMA: "gamma",
 MEA_MODES = (DECODE, DECODE_GAMMA)
 
 
+def segment(W: int) -> int:
+    """Diagonals per backward segment of the decode modes at band width
+    ``W``: ``SEGMENT``, but half of it above W = 256, where the
+    kernel's staging of a segment at 8 diagonals would not fit a block
+    (csrc/realign.cu, ``mea_segment``)."""
+    return SEGMENT if W <= 256 else SEGMENT // 2
+
+
 def read_workspace_bytes(kend, W: int, mode: int = EM) -> np.ndarray:
     """Workspace bytes of reads whose diagonals end at ``kend`` (m + n)
     under kernel ``mode``: the kernel runs kq = kend rounded up to even
     diagonals.  ``EM`` and ``EXP`` keep kq x 5 x W f32 forward states,
     then kq + 1 rescale inverses padded to 16 bytes (the next read's
     states start aligned).  The decode modes (``MEA_MODES``) add the
-    backward's kq + 1 scales, padded the same way, and kq // SEGMENT + 1
-    checkpoints of 6 x W f32 (the five states the backward carries and
-    the match state of the diagonal above them), one per segment of
+    backward's kq + 1 scales, padded the same way, and kq // segment(W)
+    + 1 checkpoints of 6 x W f32 (the five states the backward carries
+    and the match state of the diagonal above them), one per segment of
     diagonals 0..kq.  ``GAMMA``, whose forward writes its match state
     into the gamma band, keeps the backward's match state alone,
     (kq + 1) x W f32 for diagonals 0..kq, then the forward's rescale
@@ -144,7 +155,8 @@ def read_workspace_bytes(kend, W: int, mode: int = EM) -> np.ndarray:
         return (kq + 1) * W * 4 + 2 * scales
     nbytes = kq * NUM_STATES * W * 4 + scales
     if mode in MEA_MODES:
-        nbytes = nbytes + scales + (kq // SEGMENT + 1) * (NUM_STATES + 1) * W * 4
+        nbytes = nbytes + scales + (kq // segment(W) + 1) * (
+            NUM_STATES + 1) * W * 4
     return nbytes
 
 
@@ -191,7 +203,7 @@ def max_workspace_k(W: int, mode: int = EM) -> int:
     smaller ``GAMMA`` slot also fits."""
     if mode not in MEA_MODES:
         return (WORKSPACE_BYTES - 4) // (NUM_STATES * W * 4 + 4)
-    per_k = NUM_STATES * W * 4 + 8 + (NUM_STATES + 1) * W * 4 / SEGMENT
+    per_k = NUM_STATES * W * 4 + 8 + (NUM_STATES + 1) * W * 4 / segment(W)
     k = int(WORKSPACE_BYTES // per_k)
     while read_workspace_bytes(k, W, mode) > WORKSPACE_BYTES:
         k -= 1
@@ -449,9 +461,18 @@ def em_lanes(W: int) -> int:
     """The lanes L of the EM mode's sums at band width ``W``, each
     owning W / L adjacent band cells: one warp's 32 up to W = 128 (a lane
     a cell below 32, the CPU's), then W / 4, the kernel's groups of
-    W / 128 warps of 4 cells a lane (64 at W = 256; the CPU's wider
-    bands, laid into the next power of two, follow the same rule)."""
+    W / 128 warps of 4 cells a lane (64 at W = 256, 96 at 384, 128 at
+    512; the CPU's wider bands, laid into the next power of two, follow
+    the same rule)."""
     return min(W, 32) if W <= 128 else W // 4
+
+
+def em_width(W: int) -> int:
+    """The lanes the EM mode's plain version lays a band of ``W`` lanes
+    into: the next power of two, but 384 for 257 to 384, the kernel's
+    layout (``ops.pack.padded_width``), so the lane sums add in the
+    kernel's order."""
+    return 384 if 256 < W <= 384 else 1 << (W - 1).bit_length()
 
 
 def _lane_add(acc, v):
@@ -465,8 +486,19 @@ def _lane_add(acc, v):
 
 
 def _lane_total(acc):
-    """Sum of (B, R, L) over the lanes by the kernel's xor butterfly."""
-    L = acc.shape[2]
+    """Sum of (B, R, L) over the lanes in the kernel's order: above one
+    warp (L = 32 G) the warps fold onto warp 0, warps h .. G' - 1 onto
+    warps 0 .. G' - h - 1 lane for lane with h = ceil(G' / 2), G' the
+    warps left (G' = 2 and 4: the xor butterfly's steps across warps);
+    then one warp's xor butterfly over its lanes."""
+    B, R, L = acc.shape
+    if L > 32:
+        warps = list(acc.reshape(B, R, L // 32, 32).unbind(2))
+        while len(warps) > 1:
+            h = (len(warps) + 1) // 2
+            warps = [w + warps[h + i] if h + i < len(warps) else w
+                     for i, w in enumerate(warps[:h])]
+        acc, L = warps[0], 32
     lanes = torch.arange(L, device=acc.device)
     off = L // 2
     while off:
@@ -503,14 +535,15 @@ def realign_em_plain(xyc, m, n, params: KernelParams,
                      band_width: int | None = None) -> dict:
     """The EM-mode realign in plain PyTorch (the same recursion as the
     decode mode, summing expected counts in place of the MEA DP).  The
-    lane butterfly wants a power-of-two width: codes of another width
-    are laid into the next power of two, their new lanes dead (all
-    sentinel), which add +0.0 to every count (a band of 129 to 256 in
-    256 lanes, as the card lays it; above 256, which only the CPU
-    serves, 512 or more lanes, summed over ``em_lanes`` of them)."""
+    lane sums want the kernel's layout: codes of another width are laid
+    into :func:`em_width` lanes, their new lanes dead (all sentinel),
+    which add +0.0 to every count (a band of 129 to 256 in 256 lanes,
+    257 to 384 in 384 and 385 to 512 in 512, as the card lays them;
+    above 512, which only the CPU serves, 1,024 or more lanes, summed
+    over ``em_lanes`` of them)."""
     W = xyc.shape[2]
     wl = live_width(band_width, W)
-    xyc = pad_lanes(xyc, 1 << (W - 1).bit_length())
+    xyc = pad_lanes(xyc, em_width(W))
     return _realign_plain(xyc, m, n, params, 0.0, 0.0, EM, band_width=wl)
 
 

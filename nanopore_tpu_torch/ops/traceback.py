@@ -31,10 +31,12 @@ them up to its start diagonal and subtracts them going down.
 
 The kernels (``csrc/traceback.cu``, ``csrc/viterbi_traceback.cu``, the
 latter with a walk of each plane) run one warp per read, stage its rows
-through shared memory and walk them with one lane; each serves the
-kernels' band widths, ``KERNEL_BAND_WIDTHS``: 32, 64, 128 and 256 (two
-reads a block where a row is 256 bytes, one where it is 512: the full
-plane at 256).  The plain versions serve any width.
+through shared memory and walk them with one lane; each serves its
+path's band widths (the MEA walker ``KERNEL_BAND_WIDTHS``: 32, 64, 128,
+256, 384 and 512; the Viterbi walker ``VITERBI_BAND_WIDTHS``: 32, 64,
+128 and 256), four reads a block, two where a row is 256 bytes and one
+where it is more (the full plane at 256, the byte rows at 384 and
+512).  The plain versions serve any width.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ import torch
 
 from nanopore_tpu_torch.io.sam import CIG
 from nanopore_tpu_torch.kernels import build as kb
-from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS, VITERBI_BAND_WIDTHS
 
 DIR_DIAG, DIR_DEL, DIR_INS, DIR_NONE = 0, 1, 2, 3
 OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
@@ -84,16 +86,20 @@ def walker_shared_memory(W: int) -> dict:
     """Dynamic shared memory a block of each walker kernel built at band
     width ``W`` takes (bytes: 4 reads a block, 2 where a row is 256
     bytes, the full plane at W = 128 and the byte rows at W = 256, 1
-    for the full plane at W = 256; needs the card: builds the
-    kernels)."""
-    return {"traceback": kb.library("traceback", _SIG).np_walk_smem(W),
-            "viterbi_traceback": viterbi_walker_attributes(W)[
-                "dynamic_smem"],
-            "viterbi_traceback_full": viterbi_walker_attributes(
-                W, True)["dynamic_smem"]}
+    where it is more, the full plane at W = 256 and the byte rows at
+    W = 384 and 512, where the Viterbi walker has no build; needs the
+    card: builds the kernels)."""
+    out = {"traceback": kb.library("traceback", _SIG).np_walk_smem(W)}
+    if W in VITERBI_BAND_WIDTHS:
+        out["viterbi_traceback"] = viterbi_walker_attributes(W)[
+            "dynamic_smem"]
+        out["viterbi_traceback_full"] = viterbi_walker_attributes(
+            W, True)["dynamic_smem"]
+    return out
 
 
-def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,)):
+def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,),
+                  widths=KERNEL_BAND_WIDTHS):
     dev = dirs.device
     if dirs.dtype not in dtypes or dirs.dim() != 3 or not dirs.is_contiguous():
         raise ValueError("%s must be a contiguous (B, K1, W) tensor of %s"
@@ -111,9 +117,9 @@ def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,)):
     if dev.type != "cpu":
         # the kernels stage rows with 16-byte and code words with 4-byte
         # copies
-        if W not in KERNEL_BAND_WIDTHS:
+        if W not in widths:
             raise ValueError("the walker kernels serve W in %s, got W=%d"
-                             % (KERNEL_BAND_WIDTHS, W))
+                             % (widths, W))
         if dirs.data_ptr() % 16 or xyc.data_ptr() % 4:
             raise ValueError("%s must be 16-byte and xyc 4-byte aligned"
                              % what)
@@ -189,7 +195,8 @@ def viterbi_walk(bp, xyc, m, n, fstate):
     launch the kernel's walk of that plane, CPU tensors run the plain
     walker.
     """
-    _check_inputs(bp, xyc, m, n, "bp", (torch.int8, torch.int16))
+    _check_inputs(bp, xyc, m, n, "bp", (torch.int8, torch.int16),
+                  VITERBI_BAND_WIDTHS)
     if (fstate.device != bp.device or fstate.dtype != torch.int32
             or tuple(fstate.shape) != (bp.shape[0],)
             or not fstate.is_contiguous()):

@@ -20,7 +20,7 @@ tests/test_scripts.py:
   mode decodes the port's cigar for that job (the MEA tie rule of
   tests/test_torch_chain_realign.py).  Its rows do not depend on the
   batch size (4, the CPU default and the JAX script's, against 512, the
-  card's).  On the card a width above 256 is refused before any work
+  card's).  On the card a width above 512 is refused before any work
   (ROADMAP C10, C11), and the default device raises without a card.
 """
 
@@ -444,7 +444,7 @@ def test_rescue_2d_refuses_an_unserved_width_off_the_cpu(rescue_dir,
     t, c, twod = rescue_dir["sams"]
     with pytest.raises(ValueError, match="C10"):
         rescue_2d.rescue(t, c, twod, str(rescue_dir["dir"]),
-                         str(tmp_path / "out"), band_width=300, device=device)
+                         str(tmp_path / "out"), band_width=513, device=device)
     assert not os.path.exists(tmp_path / "out")
 
 

@@ -30,8 +30,10 @@ lanes) and w = 256 (none):
 * the decode's workspace plan puts the card's mapping batch at W = 256
   into four launches;
 * the width guard without a card: every entry point of either path
-  takes 129, 200 and 256 past the guard, every path refuses 1, 257 and
-  300 naming C11, and the CPU serves 300 against the JAX package.
+  takes 129, 200 and 256 past the guard, the Viterbi path refuses 257
+  and 300 and every path 1 and 513 naming C11 (the MEA path serves 257
+  to 512 since ROADMAP C11's third step, tests/test_torch_widest.py),
+  and the CPU serves a band above 512, 600, against the JAX package.
 """
 
 import numpy as np
@@ -50,7 +52,13 @@ from nanopore_tpu_torch.align import em as port_em
 from nanopore_tpu_torch.align import realign as port_realign_stage
 from nanopore_tpu_torch.ops import dispatch
 from nanopore_tpu_torch.ops import realign as port_realign
-from nanopore_tpu_torch.ops.pack import SENT, check_band_width, padded_width
+from nanopore_tpu_torch.ops.pack import (
+    MEA,
+    SENT,
+    VITERBI,
+    check_band_width,
+    padded_width,
+)
 from nanopore_tpu_torch.ops.realign import (
     DIR_NONE,
     em_lanes,
@@ -361,20 +369,27 @@ def test_viterbi_entry_points_take_129_to_256_past_the_guard(monkeypatch, w):
     check_band_width(w, "cpu")
 
 
-@pytest.mark.parametrize("w", [1, 257, 300])
+@pytest.mark.parametrize("path, w", [(VITERBI, 257), (VITERBI, 300),
+                                     (None, 1), (None, 513)])
 def test_every_path_refuses_1_and_257_and_above_naming_c11(
-        mapped, tmp_path, monkeypatch, w):  # noqa: F811
+        mapped, tmp_path, monkeypatch, path, w):  # noqa: F811
+    """The Viterbi path (``path`` VITERBI) refuses 257 and 300 on the
+    card and every path (``None``) refuses 1 and 513, each entry point
+    naming C11 before any work (since ROADMAP C11's third step the MEA
+    path serves 257 to 512: tests/test_torch_widest.py)."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
-    calls = dict(_mea_entry_points(mapped, tmp_path, w),
-                 **_viterbi_entry_points(w))
+    calls = dict(_viterbi_entry_points(w))
+    if path is None:
+        calls.update(_mea_entry_points(mapped, tmp_path, w))
     for name, call in calls.items():
         with pytest.raises(ValueError, match="C11"):
             call()
     for device in ("cuda", None):
-        with pytest.raises(ValueError, match="C11"):
-            check_band_width(w, device)
+        for p in ((MEA, VITERBI) if path is None else (path,)):
+            with pytest.raises(ValueError, match="C11"):
+                check_band_width(w, device, p)
     assert not (tmp_path / "out.sam").exists()
     assert not (tmp_path / "r").exists()
 
@@ -382,14 +397,15 @@ def test_every_path_refuses_1_and_257_and_above_naming_c11(
 @pytest.mark.parametrize("w", [129, 200, 255, 256])
 def test_padded_width_lays_129_to_256_into_256(w):
     assert padded_width(w) == 256
-    assert padded_width(257) == 257
+    assert padded_width(257) == 384  # the W = 384 layout (C11's third step)
 
 
 def test_the_cpu_serves_300(pairs):
-    """Above 256 the CPU keeps the band unpadded and runs the plain
-    versions: the MEA decode and the Viterbi against the JAX package's
-    XLA scans at the same width."""
-    w = 300
+    """Above 512 (the case once used 300, which the W = 384 layout now
+    takes) the CPU keeps the band unpadded and runs the plain versions:
+    the MEA decode and the Viterbi at 600 against the JAX package's XLA
+    scans at the same width."""
+    w = 600
     pairs = pairs[:2]
     rea = _prepared(pairs, w, {})
     assert rea.xyc.shape[2] == w
