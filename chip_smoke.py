@@ -20,11 +20,11 @@
    m + n passes, one whose kend is half of m + n must fail at the next
    synchronise (a trap on the device, which leaves the child's context
    unusable).  Then the CPU halves' process (``chip_smoke.py
-   --cpu-halves 13,15,16,17,18``, no card visible, its log in
+   --cpu-halves 13,15,16,17,18,19``, no card visible, its log in
    ``_build/smoke/cpu_halves/cpu-halves_child.log``), started here and
    run beside every card phase: phase 13's reads are mapped on the card
    into its directory, and it runs, on its own copies of the seeded
-   inputs, the CPU halves of steps 13 and 15-18's card-against-CPU
+   inputs, the CPU halves of steps 13 and 15-19's card-against-CPU
    checks (``MappingEngine(device="cpu")``, ``realign --device cpu``,
    ``em_train(device="cpu")``), in the order the card phases reach
    them, each leaving its output as a file there that the card phase
@@ -176,15 +176,17 @@
 10. The pipeline, in a child process (``chip_smoke.py --pipeline``)
    started after step 1 and run beside steps 2-9 (its host work and
    their plain versions each hold a core; the card is idle most of
-   either): a working directory of the second workload (512 reads of
-   5 kb, 5 % deletions, 10 % substitutions, on the 48,502-bp reference)
+   either): a working directory of the second workload (its first 256
+   reads of 5 kb, 5 % deletions, 10 % substitutions, on the 48,502-bp
+   reference)
    in the reference layout, and ``nanopore_tpu_torch.cli.main(["run",
    wd, "--max-threads", "4", "--em-trials", "1", "--em-iterations",
    "5", "--meta-analyses", ...])`` in that process with every counter
    set to 0 just before: the 16 default mappers, 9 default analyses and
    5 default meta-analyses, with ``CoverageDepth`` and
-   ``CustomTrackAssemblyHub`` beside them; the EM depth (1 trial x 5
-   iterations against the reference's 3 x 100) is the one cut.  Every
+   ``CustomTrackAssemblyHub`` beside them; the reads (256 where the
+   other phases take 512) and the EM depth (1 trial x 5 iterations
+   against the reference's 3 x 100) are the cuts.  Every
    task of ``pipeline_stats.json`` done on its first attempt (a retry
    that succeeds is no pass); every experiment's
    ``mapping.sam`` and the 9 ``DONE`` markers; each meta-analysis's data
@@ -260,7 +262,7 @@
    same command's with ``--device cpu``; ``em_train`` at
    ``EmOptions(band_width=48, trials=1, iterations=2)`` on 16 chained
    reads: the model within 3e-5 relative of the CPU's (both CPU runs in
-   the CPU halves' process, as those of steps 15-18).
+   the CPU halves' process, as those of steps 15-19).
 14. The full plane (a model outside the canonical fiveState structure,
    ROADMAP C7), in the child of step 8 after step 13 (``chip_smoke.py
    --full-plane`` runs this step alone), under two non-canonical models:
@@ -343,11 +345,10 @@
    --band-width 200`` on step 13's 8 records against ``--device cpu``
    (records identical; the same launches); ``em_train`` at
    ``EmOptions(band_width=200, trials=1, iterations=2)`` on 16 chained
-   reads against the CPU (3e-5 relative).  On the card the MEA path
-   refuses 513 (``MappingEngine`` with the MEA decode,
-   ``PreparedRealign``) and the Viterbi path 257
-   (``MappingEngine(decode="viterbi")``, ``PreparedForward``), naming
-   C11 (257 on the MEA path until ROADMAP C11's third step).
+   reads against the CPU (3e-5 relative).  On the card every path
+   refuses 513 (``MappingEngine`` with either decode,
+   ``PreparedRealign``, ``PreparedViterbi``, ``PreparedForward``),
+   naming C11.
 17. Band widths 129 to 256 on the Viterbi path (ROADMAP C11, second
    step), in the child of step 8 after step 15 (its cached card memory
    released first), on that child's copies of the mapping workload and
@@ -390,10 +391,7 @@
 18. Band widths 257 to 512 (ROADMAP C11, third step: the MEA path), in
    the child of step 10 after step 16 (its cached card memory released
    first; on step 16's copies of the mapping workload and of step 13's
-   reads), but for its live widths 450 and 512, which the child of step
-   8 checks after step 17 (on its copy of step 13's reads: the child of
-   step 10 runs the pipeline, the longest phase); ``chip_smoke.py
-   --widest`` runs this step alone after the build and the W = 384 and
+   reads); ``chip_smoke.py --widest`` runs this step alone after the build and the W = 384 and
    512 attributes, on its own copies: the W = 384 and 512
    builds of the pack, the realign kernel in every mode (the band held
    by a group of three or four warps; the decode's backward segment 4
@@ -418,9 +416,50 @@
    --band-width 450`` on step 13's 8 records against ``--device cpu``
    (records identical; the same launches); ``em_train`` at
    ``EmOptions(band_width=450, trials=1, iterations=2)`` on 16 chained
-   reads against the CPU (3e-5 relative); and step 16's refusals (the
-   MEA path 513, the Viterbi path 257, naming C11).
-19. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
+   reads against the CPU (3e-5 relative); and step 16's refusals (every
+   path 513, naming C11).
+19. Band widths 257 to 512 on the Viterbi path (ROADMAP C11, fourth
+   step), in the child of step 10 after step 18 (its cached card memory
+   released first; on step 16's copies of the mapping workload and of
+   step 13's reads; ``chip_smoke.py --viterbi-widest`` runs this step
+   alone after the build and the W = 384 and 512 attributes, on its own
+   copies): the W = 384 and 512 builds of the Viterbi kernel (its
+   short and 5-way steps and its full plane, the band held by a group of
+   three or four warps), the Viterbi walker on both planes (one read a
+   block; the full plane's rows in chunks of 64 diagonals) and the
+   forward-only kernel (both gap sums, the band on a group of warps, its
+   stage in dynamic shared memory), whose registers, local memory,
+   static and dynamic shared memory and threads and reads a block are
+   printed after the build.  On step 3's mapping batch (512 reads, the
+   full band of 512 lanes), as in step 17: the Viterbi's two steps (the
+   default model) and its full plane (step 14's first model) with score,
+   fstate and the whole plane bit-identical to the plain version's on
+   the first 16 reads, the walker on each plane with ops and end cells
+   identical on every read (every walk reaching the origin), the
+   forward-only kernel's two sums within 1e-5 relative of the plain
+   version's loglik on the first 16 reads; each timed on the whole
+   batch.  On step 13's 64 reads at live widths 300 (in W = 384) and
+   450 (in W = 512), dead lanes in the top warp: the Viterbi's short
+   step, its walker and the forward-only kernel's two-term sum (the
+   default model) to step 13's bars, and the Viterbi's 5-way step and
+   the forward-only kernel's 5-way sum against the same plain runs, the
+   full plane and its walk (step 14's first model) bit for bit, every
+   walk checked to stay in the live band; each timed there and as the
+   same reads' full band of the layout (so every W = 384 build is held
+   to its plain version here, every W = 512 one on the mapping batch
+   too).  The forward-only kernel's group
+   vote at w = 300 and 450 (step 17's pair vote case built for the
+   width: its NaN starts in the top warp's live cells, 256-299 and
+   384-449, and the two-term check first fails there alone) and its
+   finite switch in 512 lanes (:data:`N_RUNS_WIDEST`), as in step 17.
+   Then, each with every counter set to 0 just before:
+   ``MappingEngine(band_width=512, decode="viterbi")`` on the mapping
+   workload, cold then warm: >= 99 % of primaries at their origin; pack,
+   viterbi and viterbi_traceback launched, nothing else;
+   ``MappingEngine(band_width=450, decode="viterbi")`` on 32 reads on
+   the card and with ``device="cpu"``: records equal, the same
+   launches; and step 16's refusals (every path 513, naming C11).
+20. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
    ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
    ``launches_distributed_path``, the sum over the two ranks, a
    ``launches_widths_realign_path``, a ``launches_widths_em_path``, a
@@ -433,15 +472,18 @@
    17's ``launches_viterbi_wider_map_path`` and
    ``launches_viterbi_wider_engine_path`` and step 18's
    ``launches_widest_map_path``, ``launches_widest_engine_path``,
-   ``launches_widest_realign_path`` and ``launches_widest_em_path`` on
-   every row, step 13's
+   ``launches_widest_realign_path`` and ``launches_widest_em_path`` and
+   step 19's ``launches_viterbi_widest_map_path`` and
+   ``launches_viterbi_widest_engine_path`` on every row, step 13's
    ``*_w21`` and ``*_w48`` numbers, step 15's ``*_w96`` and ``*_w128``
    numbers and W = 128 attributes, steps 16's and 17's ``*_w200``,
    ``*_w256`` (the mapping batch) and ``*_live256`` (step 13's reads at
    the full 256) numbers and W = 256 attributes on each path's rows,
-   and step 18's ``*_w300``, ``*_w450``, ``*_live384``, ``*_live512``
-   (step 13's reads) and ``*_w512`` (the mapping batch) numbers and
-   W = 384 and 512 attributes on the MEA path's rows;
+   and steps 18's and 19's ``*_w300`` and ``*_w450`` (step 13's reads;
+   their ``ms_full_*`` the full band of 384 and 512 lanes), step 18's
+   ``*_live384`` and ``*_live512`` and both steps' ``*_w512`` (the
+   mapping batch) numbers and W = 384 and 512 attributes on each path's
+   rows (``*_5way_*`` the other step or sum);
    ``viterbi_full`` and ``viterbi_traceback_full`` the full-plane modes
    of the Viterbi kernel and its walker) and, last, ``{"ok": true,
    "device": {...}}``.
@@ -466,6 +508,7 @@ SEED = 0
 REF_LEN = 1_000_000
 EM_REF_LEN = 48_502
 N_READS = 512
+PIPELINE_READS = 256  # phase 10's reads (its depth cut: the script's time)
 READ_LEN = 5000
 W = 64
 W_REALIGN = 32  # the realign presets' band
@@ -496,6 +539,7 @@ WIDER_PLAIN_READS = 32  # reads of the mapping batch the plain decode runs on
 # MEA path
 WIDEST_W = (384, 512)
 WIDEST_LIVE = (300, 384, 450, 512)  # dead lanes in the top warp; none; ...
+WIDEST_DEAD = (300, 450)  # of those, the two with dead lanes
 WIDEST_CPU = 450  # the live width of its card-against-CPU checks
 WIDEST_PLAIN_READS = 16  # reads of the mapping batch the plain decode runs on
 # em_train's window pad above W = 256: at the default 256 no read's sums
@@ -967,6 +1011,9 @@ N_RUNS = ((400, 120, 150), (380, 60, 200), (420, 200, 120), (300, 100, 40),
 # runs of N long enough for a band of 256 (length, start, run length)
 N_RUNS_WIDER = ((600, 150, 250), (560, 100, 300), (640, 200, 220),
                 (500, 120, 200), (520, 0, 0))
+# and for a band of 512
+N_RUNS_WIDEST = ((1200, 300, 500), (1120, 200, 520), (1000, 240, 460),
+                 (1100, 300, 540), (1040, 0, 0))
 
 
 def n_run_case(params, runs=N_RUNS, e_n: float = 1e-40):
@@ -976,8 +1023,9 @@ def n_run_case(params, runs=N_RUNS, e_n: float = 1e-40):
     the band maximum falls by ~e_n within a pair of diagonals, to a
     subnormal.  At 1e-40 its inverse overflows and the loglik turns NaN
     (so tests/test_torch_forward.py's N-run case, at the kernel's
-    widths); at 1e-37, on :data:`N_RUNS_WIDER` in 256 lanes, the
-    maximum's inverse stays finite, and so does the loglik."""
+    widths); at 1e-37, on :data:`N_RUNS_WIDER` in 256 lanes and
+    :data:`N_RUNS_WIDEST` in 512, the maximum's inverse stays finite, and
+    so does the loglik."""
     from nanopore_tpu_torch.io.sam import CIG
     from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
 
@@ -2536,17 +2584,18 @@ def pipeline_phase(workdir: str, dev, counters) -> dict:
     t_phase = time.perf_counter()
     root = os.path.join(workdir, "pipeline")
     shutil.rmtree(root, ignore_errors=True)
-    fa, fq = write_workload(os.path.join(root, "inputs"), EM_REF_LEN)
+    fa, fq = write_workload(os.path.join(root, "inputs"), EM_REF_LEN,
+                            PIPELINE_READS)
     wd = os.path.join(root, "wd")
     for sub, src in (("readFastqFiles/2d", fq), ("referenceFastaFiles", fa)):
         os.makedirs(os.path.join(wd, sub))
         shutil.copy(src, os.path.join(wd, sub))
     metas = DEFAULT_META_ANALYSES + EXTRA_META
     argv = ["run", wd] + PIPELINE_ARGS + ["--meta-analyses", ",".join(metas)]
-    print("pipeline: %s (%d mappers, %d analyses, %d meta-analyses; the EM "
-          "depth, 1 trial x 5 iterations, is the one cut)"
-          % (" ".join(argv), len(DEFAULT_MAPPERS), len(PIPELINE_ANALYSES),
-             len(metas)))
+    print("pipeline: %s (%d mappers, %d analyses, %d meta-analyses on %d "
+          "reads; the reads and the EM depth, 1 trial x 5 iterations, are "
+          "the cuts)" % (" ".join(argv), len(DEFAULT_MAPPERS),
+                         len(PIPELINE_ANALYSES), len(metas), PIPELINE_READS))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters:
@@ -2921,14 +2970,15 @@ def live_batch(pairs, w: int, dev, lanes=None):
 
 def width_kernel_checks(pairs, w: int, dev, res: dict,
                         phase: str = "phase 13", viterbi: bool = True,
-                        mea: bool = True) -> None:
+                        mea: bool = True, every_step: bool = False) -> None:
     """Every kernel against its plain version on a band of live width
     ``w`` in the padded layout, timed there and as a band of the
     layout's full width; into ``res[kernel]`` under ``*_w<w>`` (under
     ``*_live<w>`` where w is the layout's full width, whose ``*_w<w>``
     keys are the mapping batch's).  With ``viterbi=False`` the MEA
     path's kernels alone, with ``mea=False`` the Viterbi path's alone
-    (the other path's phase times them at this width)."""
+    (the other path's phase times them at this width); ``every_step``
+    adds the Viterbi path's other steps (:func:`viterbi_width_rows`)."""
     import torch
 
     from nanopore_tpu_torch.align.em import representable
@@ -2963,18 +3013,20 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
     rand = make_kernel_params(PairHmmModel.random(np.random.default_rng(SEED)))
     rows = {}
 
-    def row(name, ms, ms_full, plain_ms, err, ops_per_cell, nbytes):
+    def row(name, ms, ms_full, plain_ms, err, ops_per_cell, nbytes,
+            sfx=""):
         if ops_per_cell:
             bound, by = realign_bound(ops_per_cell, w, need, nbytes)
         else:
             bound, by = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
-        rows[name] = {"ms" + tag: ms, "ms_full" + tag: ms_full,
-                      "plain_ms" + tag: plain_ms, "max_abs_err" + tag: err,
-                      "bound_ms" + tag: bound, "bound_by" + tag: by,
-                      "reads" + tag: B, "k_pad" + tag: k_pad}
-        print("  %s w=%d: %.3f ms (%.3f ms at the full W = %d), bound %.4f ms "
-              "(%s), plain %.1f ms, max abs err %.3g"
-              % (name, w, ms, ms_full, W_, bound, by, plain_ms, err))
+        t = sfx + tag
+        rows.setdefault(name, {}).update({
+            "ms" + t: ms, "ms_full" + t: ms_full, "plain_ms" + t: plain_ms,
+            "max_abs_err" + t: err, "bound_ms" + t: bound,
+            "bound_by" + t: by, "reads" + tag: B, "k_pad" + tag: k_pad})
+        print("  %s%s w=%d: %.3f ms (%.3f ms at the full W = %d), bound "
+              "%.4f ms (%s), plain %.1f ms, max abs err %.3g"
+              % (name, sfx, w, ms, ms_full, W_, bound, by, plain_ms, err))
 
     def finish():
         for name, r in rows.items():
@@ -2983,7 +3035,7 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
 
     if not mea:
         viterbi_width_rows(xyc, m, n, dflt, w, need, prep["offsets"],
-                           (fx, fm, fn_), row)
+                           (fx, fm, fn_), row, every_step)
         return finish()
     # K1: byte for byte, every dead lane the sentinel with its row's bits
     xyc_p, plain_ms = timed(lambda: pack_xyc_plain(stream, initx, m, n, w))
@@ -3117,34 +3169,33 @@ def width_kernel_checks(pairs, w: int, dev, res: dict,
 
     if viterbi:
         viterbi_width_rows(xyc, m, n, dflt, w, need, prep["offsets"],
-                           (fx, fm, fn_), row)
+                           (fx, fm, fn_), row, every_step)
     finish()
 
 
 def viterbi_width_rows(xyc, m, n, dflt, w: int, need: int, offsets, full,
-                       row) -> None:
+                       row, every_step: bool = False) -> None:
     """K4, K5 and K6 against their plain versions on phase 13's band of
     live width ``w``, timed there and on ``full`` (the same reads as a
-    band of the layout's full width); each row through ``row``."""
+    band of the layout's full width); each row through ``row``.  The
+    default model takes K4's short step and K6's two-term sum; with
+    ``every_step`` also K4's 5-way step and K6's 5-way sum (each against
+    the same plain run, bit for bit), and K4-full and K5-full under
+    phase 14's first model (:func:`full_plane_models`)."""
     import torch
 
-    from nanopore_tpu_torch.ops.forward import (
-        forward_loglik,
-        forward_loglik_plain,
-    )
+    from nanopore_tpu_torch.ops import forward as F
+    from nanopore_tpu_torch.ops import viterbi as V
+    from nanopore_tpu_torch.ops.pairhmm import kernel_tables
     from nanopore_tpu_torch.ops.traceback import (
         viterbi_walk,
         viterbi_walk_plain,
     )
-    from nanopore_tpu_torch.ops.viterbi import (
-        viterbi_forward,
-        viterbi_forward_plain,
-    )
 
     B, k_pad = xyc.shape[:2]
     fx, fm, fn_ = full
-    out_k = viterbi_forward(xyc, m, n, dflt)
-    out_p, plain_ms = timed(lambda: viterbi_forward_plain(xyc, m, n, dflt))
+    out_k = V.viterbi_forward(xyc, m, n, dflt)
+    out_p, plain_ms = timed(lambda: V.viterbi_forward_plain(xyc, m, n, dflt))
     sc_rel = rel_err(out_k["score"], out_p["score"])
     same = (torch.equal(out_k["bp"], out_p["bp"])
             and torch.equal(out_k["fstate"], out_p["fstate"]))
@@ -3152,41 +3203,104 @@ def viterbi_width_rows(xyc, m, n, dflt, w: int, need: int, offsets, full,
           % (w, sc_rel, "byte-identical" if same else "DIFFERENT"))
     if sc_rel > 1e-5 or not same:
         fail("Viterbi kernel at w=%d outside tolerance" % w)
-    row("viterbi", cuda_ms(lambda: viterbi_forward(xyc, m, n, dflt), 5),
-        cuda_ms(lambda: viterbi_forward(fx, fm, fn_, dflt), 5, warmup=False),
+    plane = B * k_pad * w + B * (k_pad + 1) * w + 8 * B
+    row("viterbi", cuda_ms(lambda: V.viterbi_forward(xyc, m, n, dflt), 5),
+        cuda_ms(lambda: V.viterbi_forward(fx, fm, fn_, dflt), 5,
+                warmup=False),
         plain_ms, float((out_k["score"] - out_p["score"]).abs().max()),
-        VITERBI_SHORT_OPS_PER_CELL, B * k_pad * w + B * (k_pad + 1) * w
-        + 8 * B)
-    bp, fs = out_k["bp"], out_k["fstate"]
-    walk_k = viterbi_walk(bp, xyc, m, n, fs)
-    walk_p, plain_ms = timed(lambda: viterbi_walk_plain(bp, xyc, m, n, fs))
-    if not all(torch.equal(a, b) for a, b in zip(walk_k, walk_p)):
-        fail("Viterbi walker at w=%d differs from its plain version" % w)
-    left = walks_leaving(walk_k[0].cpu().numpy(), offsets, w)
-    print("  viterbi_traceback w=%d: ops and end cells identical, walks "
-          "short of the origin %d, walks leaving the live band %d"
-          % (w, int(walk_k[1].any(1).sum()), left))
-    if left or bool(walk_k[1].any()):
-        fail("Viterbi walks at w=%d leave the live band or stop short" % w)
-    fvit = viterbi_forward(fx, fm, fn_, dflt)
-    row("viterbi_traceback",
-        cuda_ms(lambda: viterbi_walk(bp, xyc, m, n, fs), 10),
-        cuda_ms(lambda: viterbi_walk(fvit["bp"], fx, fm, fn_, fvit["fstate"]),
-                10, warmup=False),
-        plain_ms, 0.0, 0, walked_bytes(walk_k[0]) + need - B
-        + B * (k_pad + 1) + 16 * B)
-    ll_k = forward_loglik(xyc, m, n, dflt)
-    ll_p, plain_ms = timed(lambda: forward_loglik_plain(xyc, m, n, dflt))
+        VITERBI_SHORT_OPS_PER_CELL, plane)
+
+    def bits_of(what, got, want):
+        differ = [key for key in want if not bits_equal(got[key], want[key])]
+        print("  %s w=%d: score, fstate and whole plane %s"
+              % (what, w, "bit-identical" if not differ
+                 else "DIFFERENT in %s" % differ))
+        if differ:
+            fail("%s at w=%d differs from its plain version" % (what, w))
+
+    if every_step:
+        byte = V.viterbi_tables(dflt)
+        if not V.short_step(byte):
+            fail("the default model does not take K4's short step")
+        bits_of("viterbi (5-way step)",
+                V._launch(xyc, m, n, byte, V.FIVE_WAY), out_p)
+        row("viterbi",
+            cuda_ms(lambda: V._launch(xyc, m, n, byte, V.FIVE_WAY), 5),
+            cuda_ms(lambda: V._launch(fx, fm, fn_, byte, V.FIVE_WAY), 5,
+                    warmup=False),
+            plain_ms, 0.0, VITERBI_OPS_PER_CELL, plane, "_5way")
+    del out_p
+
+    def walk_rows(name, out, fout, per_step):
+        args = (out["bp"], xyc, m, n, out["fstate"])
+        walk_k = viterbi_walk(*args)
+        walk_p, walk_ms = timed(lambda: viterbi_walk_plain(*args))
+        if not all(torch.equal(a, b) for a, b in zip(walk_k, walk_p)):
+            fail("%s at w=%d differs from its plain version" % (name, w))
+        left = walks_leaving(walk_k[0].cpu().numpy(), offsets, w)
+        print("  %s w=%d: ops and end cells identical, walks short of the "
+              "origin %d, walks leaving the live band %d"
+              % (name, w, int(walk_k[1].any(1).sum()), left))
+        if left or bool(walk_k[1].any()):
+            fail("%s walks at w=%d leave the live band or stop short"
+                 % (name, w))
+        row(name, cuda_ms(lambda: viterbi_walk(*args), 10),
+            cuda_ms(lambda: viterbi_walk(fout["bp"], fx, fm, fn_,
+                                         fout["fstate"]), 10, warmup=False),
+            walk_ms, 0.0, 0, per_step * walked_bytes(walk_k[0]) + need - B
+            + B * (k_pad + 1) + 16 * B)
+
+    walk_rows("viterbi_traceback", out_k,
+              V.viterbi_forward(fx, fm, fn_, dflt), 1)
+    del out_k
+    if every_step:
+        full_p = next(iter(full_plane_models(dflt).values()))
+        if V.viterbi_structure_ok(full_p):
+            fail("phase 14's first model does not take the full plane")
+        out_f = V.viterbi_forward(xyc, m, n, full_p)
+        if out_f["bp"].dtype != torch.int16:
+            fail("the Viterbi did not take the full plane at w=%d" % w)
+        want, plain_ms = timed(lambda: V.viterbi_forward_full_plain(
+            xyc, m, n, full_p))
+        bits_of("viterbi_full", out_f, want)
+        del want
+        row("viterbi_full",
+            cuda_ms(lambda: V.viterbi_forward(xyc, m, n, full_p), 5),
+            cuda_ms(lambda: V.viterbi_forward(fx, fm, fn_, full_p), 5,
+                    warmup=False),
+            plain_ms, 0.0, VITERBI_OPS_PER_CELL,
+            B * k_pad * w + B * (k_pad + 1) * w * 2 + 8 * B)
+        walk_rows("viterbi_traceback_full", out_f,
+                  V.viterbi_forward(fx, fm, fn_, full_p), 2)
+        del out_f
+    ll_k = F.forward_loglik(xyc, m, n, dflt)
+    ll_p, plain_ms = timed(lambda: F.forward_loglik_plain(xyc, m, n, dflt))
     ll_rel = rel_err(ll_k, ll_p)
     print("  forward w=%d: loglik max rel %.3g (%s)"
           % (w, ll_rel, "bit-identical" if bits_equal(ll_k, ll_p)
              else "not bit-identical"))
     if ll_rel > 1e-5:
         fail("forward kernel at w=%d outside tolerance" % w)
-    row("forward", cuda_ms(lambda: forward_loglik(xyc, m, n, dflt), 5),
-        cuda_ms(lambda: forward_loglik(fx, fm, fn_, dflt), 5, warmup=False),
+    row("forward", cuda_ms(lambda: F.forward_loglik(xyc, m, n, dflt), 5),
+        cuda_ms(lambda: F.forward_loglik(fx, fm, fn_, dflt), 5, warmup=False),
         plain_ms, float((ll_k - ll_p).abs().max()),
         FORWARD_SHORT_OPS_PER_CELL, B * k_pad * w + 12 * B)
+    if every_step:
+        tab = kernel_tables(dflt)
+        if not F.two_term_sum(tab):
+            fail("the default model does not take K6's two-term sum")
+        ll_5 = F._launch(xyc, m, n, tab, False)["loglik"]
+        ll_rel = rel_err(ll_5, ll_p)
+        print("  forward (5-way sum) w=%d: loglik max rel %.3g (%s)"
+              % (w, ll_rel, "bit-identical" if bits_equal(ll_5, ll_p)
+                 else "not bit-identical"))
+        if ll_rel > 1e-5:
+            fail("forward kernel's 5-way sum at w=%d outside tolerance" % w)
+        row("forward", cuda_ms(lambda: F._launch(xyc, m, n, tab, False), 5),
+            cuda_ms(lambda: F._launch(fx, fm, fn_, tab, False), 5,
+                    warmup=False),
+            plain_ms, float((ll_5 - ll_p).abs().max()),
+            FORWARD_OPS_PER_CELL, B * k_pad * w + 12 * B, "_5way")
 
 
 def walks_leaving(ops, offsets, w: int) -> int:
@@ -3622,55 +3736,42 @@ def full_plane_phase(engine, pairs, fa: str, fq: str, dev, counters,
 # ---- phase 15: band widths 65 to 128 in the W = 128 kernels (MEA path) ---- #
 
 def viterbi_path_attributes(width: int, tag: str) -> dict:
-    """Print the registers, local-memory (spill) bytes and shared memory
-    a block at band width ``width`` of the Viterbi kernel's three steps,
-    the forward-only kernel's two gap sums and the Viterbi walker on both
-    planes; returns them under ``*<tag>`` by kernel."""
+    """Print the registers, local-memory (spill) bytes, static and
+    dynamic shared memory and threads and reads a block at band width
+    ``width`` of the Viterbi kernel's three steps, the forward-only
+    kernel's two gap sums and the Viterbi walker on both planes; returns
+    them under ``*<tag>`` by kernel."""
     from nanopore_tpu_torch.ops import forward, traceback, viterbi
 
+    builds = [("viterbi %s step" % what, name, sfx,
+               viterbi.kernel_attributes(width, step))
+              for step, what, name, sfx in (
+                  (viterbi.SHORT, "short", "viterbi", ""),
+                  (viterbi.FIVE_WAY, "5-way", "viterbi", "_5way"),
+                  (viterbi.FULL, "full-plane", "viterbi_full", ""))]
+    builds += [("forward %s sum" % ("two-term" if two else "5-way"),
+                "forward", sfx, forward.kernel_attributes(width, two))
+               for two, sfx in ((True, ""), (False, "_5way"))]
+    builds += [("viterbi walker, %s plane" % what, name, "",
+                traceback.viterbi_walker_attributes(width, full))
+               for full, what, name in (
+                   (False, "byte", "viterbi_traceback"),
+                   (True, "full", "viterbi_traceback_full"))]
     attrs = {}
-    for step, what, name, sfx in (
-            (viterbi.SHORT, "short", "viterbi", ""),
-            (viterbi.FIVE_WAY, "5-way", "viterbi", "_5way"),
-            (viterbi.FULL, "full-plane", "viterbi_full", "")):
-        a = viterbi.kernel_attributes(width, step)
-        print("viterbi %s step W=%d: %d registers, %d bytes of local memory "
-              "(spills) a thread, %d bytes of static shared memory a block "
-              "of %d threads and %d reads"
+    for what, name, sfx, a in builds:
+        print("%s W=%d: %d registers, %d bytes of local memory (spills) a "
+              "thread, %d + %d bytes of static + dynamic shared memory a "
+              "block of %d threads and %d read(s)"
               % (what, width, a["registers"], a["local_bytes"],
-                 a["static_smem"], a["threads"], a["reads"]))
+                 a["static_smem"], a["dynamic_smem"], a["threads"],
+                 a["reads"]))
         attrs.setdefault(name, {}).update({
             "registers" + sfx + tag: a["registers"],
             "local_bytes" + sfx + tag: a["local_bytes"],
-            "smem_block" + tag: a["static_smem"],
+            "smem_block" + tag: a["static_smem"] + a["dynamic_smem"],
             "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
+            "reads_per_block" + tag: a["reads"],
         })
-    for two, sfx in ((True, ""), (False, "_5way")):
-        a = forward.kernel_attributes(width, two)
-        print("forward %s sum W=%d: %d registers, %d bytes of local memory "
-              "(spills) a thread, %d bytes of static shared memory a block "
-              "of %d threads and %d reads"
-              % ("two-term" if two else "5-way", width, a["registers"],
-                 a["local_bytes"], a["static_smem"], a["threads"],
-                 a["reads"]))
-        attrs.setdefault("forward", {}).update({
-            "registers" + sfx + tag: a["registers"],
-            "local_bytes" + sfx + tag: a["local_bytes"],
-            "smem_block" + tag: a["static_smem"],
-            "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
-        })
-    for full, name in ((False, "viterbi_traceback"),
-                       (True, "viterbi_traceback_full")):
-        a = traceback.viterbi_walker_attributes(width, full)
-        print("viterbi walker, %s plane W=%d: %d registers, %d bytes of local "
-              "memory (spills) a thread, %d bytes of dynamic shared memory a "
-              "block of %d threads and %d reads"
-              % ("full" if full else "byte", width, a["registers"],
-                 a["local_bytes"], a["dynamic_smem"], a["threads"],
-                 a["reads"]))
-        attrs[name] = {"registers" + tag: a["registers"],
-                       "local_bytes" + tag: a["local_bytes"],
-                       "reads_per_block" + tag: a["reads"]}
     return attrs
 
 
@@ -4212,28 +4313,30 @@ def wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
 
 
 def refusal_check(ref, cfg, engine, pairs, dev, phase: str) -> None:
-    """On the card the MEA path refuses 513 (``MappingEngine`` with the
-    MEA decode, ``PreparedRealign``) and the Viterbi path 257
-    (``MappingEngine(decode="viterbi")``, ``PreparedForward``), each
-    naming C11 before any work (the rest of C11)."""
+    """On the card every path refuses 513: the MEA path
+    (``MappingEngine`` with the MEA decode, ``PreparedRealign``) and the
+    Viterbi path (``MappingEngine(decode="viterbi")``,
+    ``PreparedViterbi``, ``PreparedForward``), each naming C11 before any
+    work (the rest of C11)."""
     import dataclasses
 
     from nanopore_tpu_torch.mapping.engine import MappingEngine
     from nanopore_tpu_torch.ops.dispatch import (
         PreparedForward,
         PreparedRealign,
+        PreparedViterbi,
         prepared_from_pairs,
     )
 
     calls = {}
-    for d, w in (("mea", WIDEST_W[-1] + 1), ("viterbi", WIDER_W + 1)):
+    w = WIDEST_W[-1] + 1
+    for d in ("mea", "viterbi"):
         c = dataclasses.replace(cfg, band_width=w, decode=d)
         calls[engine_name(c)] = (w, lambda c=c: MappingEngine(
             ref, c, index=engine.index, device=dev))
-    for cls, w in ((PreparedRealign, WIDEST_W[-1] + 1),
-                   (PreparedForward, WIDER_W + 1)):
+    for cls in (PreparedRealign, PreparedViterbi, PreparedForward):
         calls["%s at %d" % (cls.__name__, w)] = (
-            w, lambda cls=cls, w=w: prepared_from_pairs(
+            w, lambda cls=cls: prepared_from_pairs(
                 {"device": dev}, pairs[:2], engine.params, band_width=w,
                 prepared_cls=cls))
     for what, (w, call) in calls.items():
@@ -4303,8 +4406,8 @@ def widest_attributes() -> dict:
     return attrs
 
 
-def widest_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters,
-                 widths=WIDEST_LIVE) -> dict:
+def widest_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
+                 counters) -> dict:
     """Phase 18 (its checks in the docstring's step 18): the W = 512
     builds on the mapping batch, the engine at W = 512, the W = 384 and
     512 builds at the live ``widths`` (of 300, 384, 450 and 512) on phase
@@ -4335,7 +4438,7 @@ def widest_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters,
     torch.cuda.empty_cache()
 
     # ---- live widths of 300, 384, 450 and 512 on phase 13's reads ----
-    for w in widths:
+    for w in WIDEST_LIVE:
         width_kernel_checks(wl["pairs"], w, dev, res, "phase 18",
                             viterbi=False)
 
@@ -4384,28 +4487,31 @@ def widest_alone() -> int:
 
 # ---- phase 17: band widths 129 to 256 on the Viterbi path ---- #
 
-def pair_vote_case(params):
-    """Reads of 500 bases against their windows (8 % substitutions), each
-    but the last with one N in its window at a position where it enters
-    the live band of width 200 at its top, and ``params`` with the first
-    delete state's emission of an N set to NaN: that state turns NaN
-    at the N's cell, in the upper warp's cells (128-199) of a band on
-    two warps, and the NaN spreads at most one cell a diagonal, so the
-    chunk of 64 diagonals where the two-term sum's check first fails
-    fails in the upper warp alone (:func:`half_checks`).  The last read
-    keeps a finite loglik."""
+def pair_vote_case(params, w: int = WIDER_LIVE):
+    """Reads of w + 300 bases against their windows (8 % substitutions),
+    each but the last with one N in its window at a position (w + 100 to
+    w + 280) where it enters the live band of width w at its top, and
+    ``params`` with the first delete state's emission of an N set to
+    NaN: that state turns NaN at the N's cell, in the top warp's cells
+    of a band on a group of warps (128-199 at w = 200 in 256 lanes,
+    256-299 at 300 in 384, 384-449 at 450 in 512), and the NaN spreads
+    down about half a cell a diagonal, so the chunk of 64 diagonals
+    where the two-term sum's check first fails fails in the top warp
+    alone (:func:`warp_checks`).  The last read keeps a finite
+    loglik."""
     from nanopore_tpu_torch.io.sam import CIG
     from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
 
     rng = np.random.default_rng(SEED + 17)
     pairs = []
-    for pos in (300, 350, 400, 440, 480, None):
-        x = rng.integers(0, 4, 500).astype(np.int8)
-        y = np.where(rng.random(500) < 0.08, rng.integers(0, 4, 500),
+    L = w + 300
+    for pos in (w + 100, w + 150, w + 200, w + 240, w + 280, None):
+        x = rng.integers(0, 4, L).astype(np.int8)
+        y = np.where(rng.random(L) < 0.08, rng.integers(0, 4, L),
                      x).astype(np.int8)
         if pos is not None:
             x[pos] = 4
-        pairs.append((x, y, [(CIG.M, 500)]))
+        pairs.append((x, y, [(CIG.M, L)]))
     eg = params.e_gap_flat.cpu().numpy().reshape(5, 5).copy()
     eg[1, 4] = np.nan
     return pairs, params_from_numpy(params.t.cpu().numpy(),
@@ -4413,13 +4519,13 @@ def pair_vote_case(params):
                                     eg.reshape(-1))
 
 
-def half_checks(xyc, m, n, p, chunk: int = 64, half: int = 128):
+def warp_checks(xyc, m, n, p, chunk: int = 64, cells: int = 128):
     """The forward-only kernel's two-term check (csrc/forward.cu) on each
-    warp's cells of a band on two warps, chunk by chunk, from a plain
-    two-term recursion: for each read its first failing chunk's first
-    diagonal and whether the lower (cells < ``half``) and the upper
-    warp's checks fail there (every gap state before the rescale
-    finite, the band maximum in [FLT_MIN, 2^126))."""
+    warp's cells of a band on a group of warps (``cells`` each), chunk by
+    chunk, from a plain two-term recursion: for each read its first
+    failing chunk's first diagonal and, warp by warp from the bottom,
+    whether its check fails there (every gap state before the rescale
+    finite, the band maximum, the group's, in [FLT_MIN, 2^126))."""
     import torch
 
     from nanopore_tpu_torch.ops.pairhmm import kernel_tables
@@ -4453,8 +4559,9 @@ def half_checks(xyc, m, n, p, chunk: int = 64, half: int = 128):
         t = torch.cat([(t[:, 0] * r[:, None])[:, None], t[:, 1:]], 1)
         return e * t
 
+    G = -(-W_ // cells)
     for q0 in range(0, k_pad, chunk):
-        bad = torch.zeros((B, 2), dtype=torch.bool, device=dev)
+        bad = torch.zeros((B, G), dtype=torch.bool, device=dev)
         for k0 in range(q0, min(q0 + chunk, k_pad), 2):
             nb = step(k0 + 1, a, b, rs)
             na = step(k0 + 2, nb, a, torch.ones_like(rs))
@@ -4462,101 +4569,109 @@ def half_checks(xyc, m, n, p, chunk: int = 64, half: int = 128):
             safe = torch.where(scale > 0, scale, torch.ones_like(scale))
             out = ~((safe >= 1.17549435e-38) & (safe < 2.0 ** 126))
             nf = ~torch.isfinite(torch.stack([nb[:, 1:], na[:, 1:]], 1))
-            fails = torch.stack([nf[..., :half].flatten(1).any(1),
-                                 nf[..., half:].flatten(1).any(1)], 1)
+            fails = torch.stack([nf[..., g * cells:(g + 1) * cells]
+                                 .flatten(1).any(1) for g in range(G)], 1)
             bad |= (fails | out[:, None]) & (k0 < klast)[:, None]
             a, b, rs = na * (1.0 / safe)[:, None, None], nb, 1.0 / safe
-        for r, (lo, hi) in enumerate(bad.tolist()):
-            if first[r] is None and (lo or hi):
-                first[r] = (q0 + 1, lo, hi)
+        for r, warps in enumerate(bad.tolist()):
+            if first[r] is None and any(warps):
+                first[r] = (q0 + 1, tuple(warps))
     return first
 
 
-def forward_pair_vote_check(dev, params) -> None:
-    """K6 at W = 256 (live width 200) on :func:`pair_vote_case`: in each
-    N read the two-term check first fails in a chunk where only the
-    upper warp's cells fail it; the pair's vote must send the whole read
-    to the 5-way sum from that chunk's start (``switched``), and the
-    loglik must be the plain version's (NaN where the NaN reaches the
-    end cell, bit for bit where finite)."""
+def forward_pair_vote_check(dev, params, w: int = WIDER_LIVE,
+                            phase: str = "phase 17") -> None:
+    """K6 at live width ``w`` in its layout (a group of G = W / 128
+    warps) on :func:`pair_vote_case`: in each N read the two-term check
+    first fails in a chunk where only the top warp's cells fail it; the
+    group's vote must send the whole read to the 5-way sum from that
+    chunk's start (``switched``), and the loglik must be the plain
+    version's (NaN where the NaN reaches the end cell, bit for bit where
+    finite)."""
     import torch
 
     from nanopore_tpu_torch.ops import forward as F
     from nanopore_tpu_torch.ops.pairhmm import kernel_tables
 
     t0 = time.perf_counter()
-    pairs, p = pair_vote_case(params)
-    xyc, m, n, prep, _ = live_batch(pairs, WIDER_LIVE, dev)
+    pairs, p = pair_vote_case(params, w)
+    xyc, m, n, prep, _ = live_batch(pairs, w, dev)
+    W_ = xyc.shape[2]
+    G = W_ // 128
     tab = kernel_tables(p)
-    if not F.two_term_sum(tab) or xyc.shape[2] != WIDER_W:
-        fail("phase 17: the pair vote case does not take the two-term sum "
-             "at W = %d" % WIDER_W)
+    if not F.two_term_sum(tab) or G < 2:
+        fail("%s: the pair vote case does not take the two-term sum on a "
+             "group of warps at W = %d" % (phase, W_))
     out = F._launch(xyc, m, n, tab, True)
     ll = F.forward_loglik(xyc, m, n, p)
     want = F.forward_loglik_plain(xyc, m, n, p)
-    first = half_checks(xyc, m, n, p)
+    first = warp_checks(xyc, m, n, p)
     switched = out["switched"].tolist()
     print("K6 forward W=%d, the pair vote case (w = %d, k_pad %d): first "
-          "failing chunk (diagonal, lower warp fails, upper warp fails) %s; "
-          "the kernel's first 5-way diagonal %s; loglik %s (plain %s)"
-          % (WIDER_W, WIDER_LIVE, prep["k_pad"], first, switched,
-             ll.tolist(), want.tolist()))
-    upper_only = [f is not None and not f[1] and f[2] for f in first]
-    if upper_only != [True] * (len(pairs) - 1) + [False]:
-        fail("phase 17: the pair vote case does not fail the upper warp's "
-             "check alone")
+          "failing chunk (diagonal, each warp's check fails) %s; the "
+          "kernel's first 5-way diagonal %s; loglik %s (plain %s)"
+          % (W_, w, prep["k_pad"], first, switched, ll.tolist(),
+             want.tolist()))
+    top_only = [f is not None and f[1] == (False,) * (G - 1) + (True,)
+                for f in first]
+    if top_only != [True] * (len(pairs) - 1) + [False]:
+        fail("%s: the pair vote case does not fail the top warp's check "
+             "alone at W = %d" % (phase, W_))
     if switched != [f[0] if f else -1 for f in first]:
-        fail("phase 17: the forward kernel did not send each read to the "
-             "5-way sum at its chunk whose upper warp failed")
+        fail("%s: the forward kernel did not send each read to the 5-way "
+             "sum at its chunk whose top warp failed (W = %d)" % (phase, W_))
     if not (nan_equal(ll, want) and nan_equal(out["loglik"], want)
             and bool(torch.isfinite(want[-1]))):
-        fail("phase 17: the forward kernel's loglik on the pair vote case "
-             "differs from its plain version's")
-    print("K6 forward pair vote case: loglik the plain version's (%s), "
-          "%.1f s" % ("bit-identical" if bits_equal(ll, want)
+        fail("%s: the forward kernel's loglik on the pair vote case "
+             "differs from its plain version's at W = %d" % (phase, W_))
+    print("K6 forward pair vote case W=%d: loglik the plain version's (%s), "
+          "%.1f s" % (W_, "bit-identical" if bits_equal(ll, want)
                       else "NaN where it is NaN", time.perf_counter() - t0))
 
 
-def forward_finite_switch_check(dev, params) -> None:
-    """K6 at W = 256 on :func:`n_run_case`'s reads of :data:`N_RUNS_WIDER`
-    with N emissions of 1e-37: where the two-term check first fails, the
-    band maximum (the pair's) is a subnormal with a finite inverse, so
-    both warps roll back a, b, rs, ls and acc, rerun the chunk with the
-    5-way sum across the seam, and end finite.  ``switched`` must be the
-    first failing chunk of :func:`half_checks` for every read, at least
-    three reads must switch mid-read, and every loglik must be finite
-    and the plain version's bit for bit."""
+def forward_finite_switch_check(dev, params, runs=N_RUNS_WIDER,
+                                lanes: int = WIDER_W,
+                                phase: str = "phase 17") -> None:
+    """K6 in ``lanes`` lanes (a group of warps) on :func:`n_run_case`'s
+    reads of ``runs`` with N emissions of 1e-37: where the two-term
+    check first fails, the band maximum (the group's) is a subnormal
+    with a finite inverse, so every warp rolls back a, b, rs, ls and
+    acc, reruns the chunk with the 5-way sum across the seams, and ends
+    finite.  ``switched`` must be the first failing chunk of
+    :func:`warp_checks` for every read, at least three reads must switch
+    mid-read, and every loglik must be finite and the plain version's
+    bit for bit."""
     import torch
 
     from nanopore_tpu_torch.ops import forward as F
     from nanopore_tpu_torch.ops.pairhmm import kernel_tables
 
     t0 = time.perf_counter()
-    pairs, p = n_run_case(params, N_RUNS_WIDER, 1e-37)
-    xyc, m, n, _ = device_batch(pairs, WIDER_W, None, dev,
+    pairs, p = n_run_case(params, runs, 1e-37)
+    xyc, m, n, _ = device_batch(pairs, lanes, None, dev,
                                 "finite switch batch", check_pack=False)
     out = F._launch(xyc, m, n, kernel_tables(p), True)
     ll = F.forward_loglik(xyc, m, n, p)
     want = F.forward_loglik_plain(xyc, m, n, p)
-    first = half_checks(xyc, m, n, p)
+    first = warp_checks(xyc, m, n, p)
     switched = out["switched"].tolist()
     kend = (m + n).tolist()
     print("K6 forward W=%d, the finite switch case: first failing chunk "
-          "(diagonal, lower warp fails, upper warp fails) %s; the kernel's "
-          "first 5-way diagonal %s of m + n %s; loglik %s (plain %s)"
-          % (WIDER_W, first, switched, kend, ll.tolist(), want.tolist()))
+          "(diagonal, each warp's check fails) %s; the kernel's first 5-way "
+          "diagonal %s of m + n %s; loglik %s (plain %s)"
+          % (lanes, first, switched, kend, ll.tolist(), want.tolist()))
     if switched != [f[0] if f else -1 for f in first]:
-        fail("phase 17: the forward kernel's switches on the finite switch "
-             "case are not its check's")
+        fail("%s: the forward kernel's switches on the finite switch case "
+             "are not its check's (W = %d)" % (phase, lanes))
     if sum(1 < s < k for s, k in zip(switched, kend)) < 3:
-        fail("phase 17: fewer than three reads of the finite switch case "
-             "switched mid-read")
+        fail("%s: fewer than three reads of the finite switch case "
+             "switched mid-read (W = %d)" % (phase, lanes))
     if not (bits_equal(ll, want) and bits_equal(out["loglik"], want)
             and bool(torch.isfinite(want).all())):
-        fail("phase 17: the forward kernel's loglik on the finite switch "
-             "case is not the plain version's finite bits")
-    print("K6 forward finite switch case: every loglik finite and "
-          "bit-identical, %.1f s" % (time.perf_counter() - t0))
+        fail("%s: the forward kernel's loglik on the finite switch case is "
+             "not the plain version's finite bits (W = %d)" % (phase, lanes))
+    print("K6 forward finite switch case W=%d: every loglik finite and "
+          "bit-identical, %.1f s" % (lanes, time.perf_counter() - t0))
 
 
 def viterbi_wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
@@ -4621,6 +4736,100 @@ def viterbi_wider_alone() -> int:
     engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
     out = viterbi_wider_phase(engine, pairs, fa, fq, wl, dev,
                               launch_counters())
+    finish_cpu_halves(cpu)
+    for name, a in attrs.items():
+        out["res"].setdefault(name, {}).update(a)
+    print(card)
+    print(json.dumps(out))
+    return 0
+
+
+# ---- phase 19: band widths 257 to 512 on the Viterbi path ---- #
+
+def viterbi_widest_attributes() -> dict:
+    """The Viterbi path's W = 384 and 512 builds' attributes
+    (:func:`viterbi_path_attributes`) under ``*_w384`` and ``*_w512`` by
+    kernel."""
+    attrs = {}
+    for width in WIDEST_W:
+        for name, a in viterbi_path_attributes(width,
+                                               "_w%d" % width).items():
+            attrs.setdefault(name, {}).update(a)
+    return attrs
+
+
+def viterbi_widest_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
+                         counters) -> dict:
+    """Phase 19 (its checks in the docstring's step 19): the Viterbi
+    path's W = 512 builds on the mapping batch ``pairs``, its W = 384
+    and 512 builds in every step at live widths 300 and 450 on phase
+    13's reads (``wl``), the group vote at 300 and 450 and the finite
+    switch in 512 lanes, the Viterbi engine at W = 512 and at 450 card
+    against CPU, and the refusals of :func:`refusal_check`.  Returns the
+    kernels' ``*_w512`` (the mapping batch), ``*_w300`` and ``*_w450``
+    numbers and each run's launches."""
+    import dataclasses
+
+    import torch
+
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+
+    t_phase = time.perf_counter()
+    res, runs = {}, {}
+    top = WIDEST_W[-1]
+    mapping_batch_checks(pairs, engine.params, dev, res, top,
+                         WIDEST_PLAIN_READS, "phase 19", viterbi=True,
+                         mea=False)
+    # every step at 300 (in 384) and 450 (in 512); the full band of the
+    # 512 layout is the mapping batch's, and each row times the full
+    # band of its layout too
+    for w in WIDEST_DEAD:
+        width_kernel_checks(wl["pairs"], w, dev, res, "phase 19", mea=False,
+                            every_step=True)
+        forward_pair_vote_check(dev, engine.params, w, "phase 19")
+    forward_finite_switch_check(dev, engine.params, N_RUNS_WIDEST, top,
+                                "phase 19")
+    torch.cuda.empty_cache()
+
+    wdir = os.path.join(os.path.dirname(fq), "viterbi_widest")
+    os.makedirs(wdir, exist_ok=True)
+    ref = read_fasta_dict(fa)
+    vit = dataclasses.replace(engine.config, band_width=top,
+                              decode="viterbi")
+    runs["viterbi_widest_map"] = warm_engine_run(
+        ref, vit, engine, fq, os.path.join(wdir, "viterbi_w%d.sam" % top),
+        dev, counters, "phase 19", VITERBI_KERNELS)
+    runs["viterbi_widest_engine"] = engine_card_vs_cpu(
+        ref, dataclasses.replace(vit, band_width=WIDEST_CPU), engine, fq,
+        wdir, dev, counters, "phase 19", VITERBI_KERNELS)
+    refusal_check(ref, engine.config, engine, pairs, dev, "phase 19")
+    print("phase 19 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return {"res": res, "runs": runs}
+
+
+def viterbi_widest_alone() -> int:
+    """Run as ``chip_smoke.py --viterbi-widest``: the kernels' build and
+    the Viterbi path's W = 384 and 512 attributes, then phase 19 alone on
+    its own copies of the mapping workload and of phase 13's reads, its
+    CPU half in its own process."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.kernels import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    print("build: %.1f s" % build.build())
+    attrs = viterbi_widest_attributes()
+    dev = torch.device("cuda", 0)
+    cpu = start_cpu_halves([19], dev)
+    workdir = os.path.join(build.BUILD_DIR, "smoke", "viterbi_widest_alone")
+    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
+    out = viterbi_widest_phase(engine, pairs, fa, fq, wl, dev,
+                               launch_counters())
     finish_cpu_halves(cpu)
     for name, a in attrs.items():
         out["res"].setdefault(name, {}).update(a)
@@ -4698,6 +4907,7 @@ CPU_HALVES = {
     17: (("engine", WIDER_LIVE, "viterbi"),),
     18: (("engine", WIDEST_CPU, "mea"), ("realign", WIDEST_CPU),
          ("em", WIDEST_CPU)),
+    19: (("engine", WIDEST_CPU, "viterbi"),),
 }
 CPU_HALF_WAIT = 900  # seconds a card phase waits for a CPU half
 # torch threads of the CPU halves: their plain versions are bound by
@@ -4848,10 +5058,10 @@ def pipeline_child() -> int:
     """Run as ``chip_smoke.py --pipeline`` in a child process, beside the
     parent's phases 2-9 (the pipeline's host work and the parent's plain
     versions each hold a core; the card is idle most of either): phases
-    10, 11, 12, 16 and 18 (but for its live widths 450 and 512, which
-    the ``--viterbi`` child checks), their launch counts written to
-    ``<workdir>/pipeline/launches.json`` and phases 16's and 18's kernel
-    rows to ``<workdir>/wider/result.json`` for the kernels line."""
+    10, 11, 12, 16, 18 and 19, their launch counts written to
+    ``<workdir>/pipeline/launches.json`` and phases 16's, 18's and 19's
+    kernel rows to ``<workdir>/wider/result.json`` for the kernels
+    line."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -4863,18 +5073,21 @@ def pipeline_child() -> int:
     runs = {"pipeline": pipeline_phase(workdir, dev, counters)}
     runs["rescue_2d"] = rescue_phase(workdir, dev, counters)
     runs["distributed"] = distributed_phase(workdir)
-    # phases 16 and 18 last: the card's memory is shared by three
+    # phases 16, 18 and 19 last: the card's memory is shared by three
     # processes, so this one's cached blocks go back before the W = 256,
-    # 384 and 512 workspaces; phase 18 takes phase 16's workloads
+    # 384 and 512 workspaces; phases 18 and 19 take phase 16's workloads
     torch.cuda.empty_cache()
     loads = wider_workloads(os.path.join(workdir, "wider"), dev)
     wider = wider_phase(*loads, dev, counters)
     torch.cuda.empty_cache()
-    widest = widest_phase(*loads, dev, counters, WIDEST_LIVE[:2])
-    for out in (wider, widest):
+    widest = widest_phase(*loads, dev, counters)
+    torch.cuda.empty_cache()
+    viterbi_widest = viterbi_widest_phase(*loads, dev, counters)
+    for out in (wider, widest, viterbi_widest):
         runs.update(out["runs"])
-    for name, rows in widest["res"].items():
-        wider["res"].setdefault(name, {}).update(rows)
+    for out in (widest, viterbi_widest):
+        for name, rows in out["res"].items():
+            wider["res"].setdefault(name, {}).update(rows)
     with open(os.path.join(workdir, "wider", "result.json"), "w") as fh:
         json.dump({"res": wider["res"]}, fh)
     with open(os.path.join(workdir, "pipeline", "launches.json"), "w") as fh:
@@ -4886,8 +5099,8 @@ def viterbi_child() -> int:
     """Run as ``chip_smoke.py --viterbi`` in a second child process,
     beside the parent's phases 5-7: phase 8 on its own copy of the
     mapping workload (the same seed, so the same batch), then phases 13,
-    14, 15, 17 and phase 18's live widths 450 and 512 (this process's
-    cached card memory released before each of the last two); their
+    14, 15 and 17 (this process's cached card memory released before
+    the last); their
     kernel rows, the forward entry's and phases 13's, 14's, 15's and
     17's launch counts written to ``<workdir>/viterbi/result.json`` for
     the kernels line."""
@@ -4916,24 +5129,16 @@ def viterbi_child() -> int:
     torch.cuda.empty_cache()  # the card's memory is shared by three processes
     viterbi_wider = viterbi_wider_phase(engine, pairs, fa, fq, wl, dev,
                                         launch_counters())
-    # phase 18's live widths 450 and 512 (the rest of it in the pipeline
-    # child, whose phase 10 takes longest)
-    torch.cuda.empty_cache()
-    widest = {"res": {}, "runs": {}}
-    for w in WIDEST_LIVE[2:]:
-        width_kernel_checks(wl["pairs"], w, dev, widest["res"], "phase 18",
-                            viterbi=False)
     with open(os.path.join(workdir, "result.json"), "w") as fh:
         json.dump({"res": res, "forward_entry": entry, "widths": widths,
                    "full_plane": full, "wide": wide,
-                   "viterbi_wider": viterbi_wider, "widest": widest}, fh)
+                   "viterbi_wider": viterbi_wider}, fh)
     return 0
 
 
 def start_child(workdir: str, flag: str, args=(), env=None):
     """Start ``chip_smoke.py <flag> <args>`` (``--pipeline``: phases
-    10-12, 16 and most of 18; ``--viterbi``: phases 8, 13, 14, 15, 17 and
-    phase 18's live widths 450 and 512;
+    10-12, 16, 18 and 19; ``--viterbi``: phases 8, 13, 14, 15 and 17;
     ``--cpu-halves``: the CPU halves), its output in ``<workdir>/<flag
     without dashes>_child.log``, under ``env`` (default: this process's);
     it is killed at exit if still running."""
@@ -4955,16 +5160,26 @@ def start_child(workdir: str, flag: str, args=(), env=None):
     return proc
 
 
-def finish_child(proc, workdir: str, flag: str, what: str,
+def script_time(path: str, t_start: float) -> float:
+    """Seconds from the script's start (``t_start``, on
+    ``time.perf_counter``) to ``path``'s last write."""
+    return os.path.getmtime(path) - time.time() + (time.perf_counter()
+                                                   - t_start)
+
+
+def finish_child(proc, workdir: str, flag: str, what: str, t_start: float,
                  result: str) -> dict:
     """Wait for the child started with ``flag``, print its lines (not its
     log records) and return what it wrote to ``<workdir>/<result>``; its
     failure fails the script."""
     t0 = time.perf_counter()
     rc = proc.wait(timeout=1200)
+    log = os.path.join(workdir, flag.lstrip("-") + "_child.log")
     print("%s (a child process beside the parent's phases): waited %.1f s "
-          "after the parent's last phase" % (what, time.perf_counter() - t0))
-    with open(os.path.join(workdir, flag.lstrip("-") + "_child.log")) as fh:
+          "after the parent's last phase; its last line at %.1f s of the "
+          "script" % (what, time.perf_counter() - t0,
+                      script_time(log, t_start)))
+    with open(log) as fh:
         lines = fh.read().splitlines()
     for line in lines:
         if " INFO " not in line:
@@ -5042,6 +5257,8 @@ def main() -> int:
         return viterbi_wider_alone()
     if sys.argv[1:] == ["--widest"]:
         return widest_alone()
+    if sys.argv[1:] == ["--viterbi-widest"]:
+        return viterbi_widest_alone()
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
         return distributed_rank(int(sys.argv[2]), *sys.argv[3:])
     sys.path.insert(0, ROOT)
@@ -5107,6 +5324,8 @@ def main() -> int:
         attrs.setdefault(name, {}).update(a)
     for name, a in widest_attributes().items():
         attrs.setdefault(name, {}).update(a)
+    for name, a in viterbi_widest_attributes().items():
+        attrs.setdefault(name, {}).update(a)
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
     print("native seedchain: %s" % native_index.get_lib()._name)
@@ -5167,17 +5386,16 @@ def main() -> int:
     vit_launches = viterbi_path_phase(workdir, fa, fq, dev, counters)
     mark("phase 9")
     phase8 = finish_child(vit_child, workdir, "--viterbi",
-                          "phases 8, 13, 14, 15, 17 and part of 18",
+                          "phases 8, 13, 14, 15 and 17", t_start,
                           os.path.join("viterbi", "result.json"))
     res.update(phase8["res"])
     other_runs = dict(post_launches, **vit_launches)
-    for out in (phase8["widths"], phase8["wide"], phase8["viterbi_wider"],
-                phase8["widest"]):
+    for out in (phase8["widths"], phase8["wide"], phase8["viterbi_wider"]):
         for name, rows in out["res"].items():
             res[name].update(rows)
         other_runs.update(out["runs"])
     other_runs.update(finish_child(pipeline, workdir, "--pipeline",
-                                   "phases 10-12, 16 and most of 18",
+                                   "phases 10-12, 16, 18 and 19", t_start,
                                    os.path.join("pipeline", "launches.json")))
     finish_cpu_halves(cpu)
     with open(os.path.join(workdir, "wider", "result.json")) as fh:

@@ -55,6 +55,7 @@ __global__ void __launch_bounds__(reads_per_block<W, int8_t>() * 32)
 walk_kernel(const int8_t* __restrict__ dirs, const uint8_t* __restrict__ xyc,
             const int32_t* __restrict__ m, const int32_t* __restrict__ n,
             int nreads, int k_pad, int8_t* __restrict__ ops) {
+  constexpr int CH = chunk<W, int8_t>();  // diagonals a staged chunk
   extern __shared__ __align__(16) unsigned char stage_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;

@@ -58,21 +58,26 @@
 //  * one warp per read, two reads a block; a lane owns C = W/32 adjacent
 //    band cells in registers (W = 32, 64 or 128), so a band shift is one
 //    warp shuffle;
-//  * at W = 256 a read's band is held by a group of G = 2 warps of C = 4
-//    cells a lane (W = 128's registers a thread), warp wg owning cells
-//    128 wg .. 128 wg + 127 (csrc/group.cuh), one read a block of 64
-//    threads (17 KB of static shared memory, so all 512 reads of the
-//    mapping batch are resident at once).  A diagonal's band shifts move
-//    one cell of eight arrays across the seam between the two warps (the
+//  * above W = 128 a read's band is held by a group of G = W / 128
+//    warps of C = 4 cells a lane (W = 128's registers a thread), warp wg
+//    owning cells 128 wg .. 128 wg + 127 (csrc/group.cuh), one read a
+//    block of 32 G threads: G = 2 at W = 256 (17 KB of static shared
+//    memory, so all 512 reads of the mapping batch are resident at
+//    once), G = 3 at W = 384 and G = 4 at W = 512 (a stage of 25,344 and
+//    33,792 B, still static; at ~168 registers a thread three blocks of
+//    128 threads fit an SM, so 396 of 512 reads are resident at W = 512
+//    and the rest run in a second wave).  A diagonal's band shifts move
+//    one cell of eight arrays across each seam between two warps (the
 //    match state and its argmax by d2, states 2 and 4 and their field
 //    upward, states 1 and 3 and theirs downward): each warp's lane 0
 //    publishes its first cells and lane 31 its last, in one exchange
-//    through shared memory, one named barrier (bar.sync id, 64) a
-//    diagonal.  The shift is the kernel's only exchange (no rescale, no
-//    band maximum).  The group stages its chunks together and syncs on
-//    the same barrier; warp 0's lane 0 holds band cell 0 and so the end
-//    cell, the score and fstate.  The cells and their arithmetic are
-//    W = 128's, so the bits are the plain version's;
+//    through shared memory (a middle warp reads both neighbours' edges),
+//    one named barrier (bar.sync id, 32 G) a diagonal.  The shift is the
+//    kernel's only exchange (no rescale, no band maximum).  The group
+//    stages its chunks together and syncs on the same barrier; warp 0's
+//    lane 0 holds band cell 0 and so the end cell, the score and fstate.
+//    The cells and their arithmetic are W = 128's, so the bits are the
+//    plain version's;
 //  * the codes are staged through shared memory in chunks of CH + 1 rows
 //    with cp.async, double-buffered (the next chunk is in flight while
 //    this one is computed), and the emissions and band deltas of the
@@ -441,8 +446,9 @@ int launch_width(int step, const Tables& t, int nreads, cudaStream_t s, const vo
 
 template <int C, int G>
 cudaError_t attrs_width(int step, cudaFuncAttributes* a, int* out) {
-  out[3] = grp::reads_per_block(G) * G * 32;
-  out[4] = grp::reads_per_block(G);
+  out[3] = 0;
+  out[4] = grp::reads_per_block(G) * G * 32;
+  out[5] = grp::reads_per_block(G);
   return cudaFuncGetAttributes(a, step == STEP_FULL    ? viterbi_kernel<C, STEP_FULL, G>
                                   : step == STEP_SHORT ? viterbi_kernel<C, STEP_SHORT, G>
                                                   : viterbi_kernel<C, STEP_FIVE_WAY, G>);
@@ -461,7 +467,7 @@ extern "C" const char* np_cuda_error_string(int e) {
 // plane, bp (nreads, k_pad + 1, W) int8, and the caller may ask for
 // STEP_SHORT only where every gap state g has t[0 -> g] > 0 or
 // t[g -> g] > 0; STEP_FULL (2) writes the full plane, bp int16.  W is 32,
-// 64, 128 or 256.
+// 64, 128, 256, 384 or 512.
 extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const void* m,
                                  const void* n, int nreads, int k_pad, int W,
                                  int step, void* score, void* fstate, void* bp,
@@ -471,6 +477,10 @@ extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const voi
   Tables t;
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
   cudaStream_t s = (cudaStream_t)stream;
+  if (W == 512)
+    return launch_width<4, 4>(step, t, nreads, s, xyc, m, n, k_pad, score, fstate, bp);
+  if (W == 384)
+    return launch_width<4, 3>(step, t, nreads, s, xyc, m, n, k_pad, score, fstate, bp);
   if (W == 256)
     return launch_width<4, 2>(step, t, nreads, s, xyc, m, n, k_pad, score, fstate, bp);
   if (W == 128)
@@ -482,15 +492,20 @@ extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// Registers, local memory (spill) bytes per thread, static shared memory
-// bytes per block, threads per block and reads per block of the kernel
-// at band width W (`step` as for the launch), into out[5].
+// Registers, local memory (spill) bytes per thread, static and dynamic
+// shared memory bytes per block (no dynamic: the stage is static at
+// every width), threads per block and reads per block of the kernel at
+// band width W (`step` as for the launch), into out[6].
 extern "C" int np_viterbi_attrs(int W, int step, int* out) {
   cudaFuncAttributes a;
   cudaError_t e;
   if (step < STEP_FIVE_WAY || step > STEP_FULL)
     return (int)cudaErrorInvalidValue;
-  if (W == 256)
+  if (W == 512)
+    e = attrs_width<4, 4>(step, &a, out);
+  else if (W == 384)
+    e = attrs_width<4, 3>(step, &a, out);
+  else if (W == 256)
     e = attrs_width<4, 2>(step, &a, out);
   else if (W == 128)
     e = attrs_width<4, 1>(step, &a, out);

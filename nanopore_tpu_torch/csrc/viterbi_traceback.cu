@@ -32,16 +32,19 @@
 // of csrc/traceback.cu, going down:
 //  * one warp per read, WARPS = 4 reads a block, but 2 for the full
 //    plane at W = 128 and the byte plane at W = 256, and 1 for the full
-//    plane at W = 256 (walk::reads_per_block);
+//    plane at W = 256 and for both planes at W = 384 and 512
+//    (walk::reads_per_block);
 //  * o[kstart] (kstart = min(m + n, k_pad)) first, as one warp-parallel
 //    sum of d1[1..kstart]: independent strided loads, then
 //    __reduce_add_sync; meanwhile the first chunks are in flight;
 //  * the warp streams the read's backpointer rows from kstart down into
 //    a shared-memory ring of chunks of CH diagonals (chunk c holds rows
-//    c*CH ..), NBUF - 1 chunks ahead of the walk, by 16-byte cp.async
-//    copies, with the column-0 code word of each diagonal by 4-byte
-//    copies (csrc/walk.cuh); one warp scan per chunk turns bit 6 of
-//    those words into the chunk's o[k], carried down from o[kstart].
+//    c*CH ..; CH = walk::chunk<W, T>(): 128, but 64 for the full plane's
+//    rows of more than 512 bytes), NBUF - 1 chunks ahead of the walk, by
+//    16-byte cp.async copies, with the column-0 code word of each
+//    diagonal by 4-byte copies (csrc/walk.cuh); one warp scan per chunk
+//    turns bit 6 of those words into the chunk's o[k], carried down from
+//    o[kstart].
 //    The full plane's ring is twice the bytes: 205,504 B a block of 4
 //    reads at W = 64, within the 227 KB a block may take (one block an
 //    SM either way at B = 512: 128 blocks on 132 SMs); at W = 128 a read's
@@ -49,7 +52,11 @@
 //    block an SM, 256 blocks at B = 512 (the byte ring, 205,504 B a
 //    block of 4, as K3's); at W = 256 the byte ring is 100,528 B too (2
 //    reads a block, as K3's at 256) and the int16 ring 198,832 B, one
-//    read a block and an SM, 512 blocks at B = 512;
+//    read a block and an SM, 512 blocks at B = 512; at W = 384 and 512
+//    the byte ring is K3's (149,680 and 198,832 B, one read a block), and
+//    the int16 ring, whose three chunks of 128 rows of 768 or 1,024 B
+//    would take 294,912 or 393,216 B, stages chunks of 64 diagonals:
+//    148,592 and 197,744 B, one read a block;
 //  * one lane walks in shared memory only, jumping straight to its next
 //    diagonal (k - 1 or k - 2).  The walk is software-pipelined: the
 //    state decides the next cell before the current backpointer is
@@ -58,7 +65,7 @@
 //    each op into a shared op row (prefilled with 3) that the warp
 //    stores with 16-byte stores;
 //  * the rows above kstart are filled with 3 by 16-byte stores.
-// Serves W = 32, 64, 128 and 256, the Viterbi kernel's widths.
+// Serves W = 32, 64, 128, 256, 384 and 512, the Viterbi kernel's widths.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,6 +81,7 @@ viterbi_walk_kernel(const T* __restrict__ bp, const uint8_t* __restrict__ xyc,
                     const int32_t* __restrict__ m, const int32_t* __restrict__ n,
                     const int32_t* __restrict__ fstate, int nreads, int k_pad,
                     int8_t* __restrict__ ops, int32_t* __restrict__ end) {
+  constexpr int CH = chunk<W, T>();  // diagonals a staged chunk
   extern __shared__ __align__(16) unsigned char stage_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -174,14 +182,17 @@ int attrs_width(int* out) {
   const cudaError_t e = cudaFuncGetAttributes(&a, viterbi_walk_kernel<W, T>);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = walk::stage_bytes<W, T>();
-  out[3] = walk::reads_per_block<W, T>() * 32;
-  out[4] = walk::reads_per_block<W, T>();
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = walk::stage_bytes<W, T>();
+  out[4] = walk::reads_per_block<W, T>() * 32;
+  out[5] = walk::reads_per_block<W, T>();
   return (int)e;
 }
 
 template <typename T>
 int attrs_plane(int W, int* out) {
+  if (W == 512) return attrs_width<512, T>(out);
+  if (W == 384) return attrs_width<384, T>(out);
   if (W == 256) return attrs_width<256, T>(out);
   if (W == 128) return attrs_width<128, T>(out);
   if (W == 64) return attrs_width<64, T>(out);
@@ -191,41 +202,39 @@ int attrs_plane(int W, int* out) {
 
 }  // namespace
 
-// Registers, local memory (spill) bytes per thread, dynamic shared memory
-// bytes per block, threads per block and reads per block of the walk at
-// band width W over the full plane's 16-bit rows if `full`, else the
-// byte plane's, into out[5].
+// Registers, local memory (spill) bytes per thread, static and dynamic
+// shared memory bytes per block, threads per block and reads per block
+// of the walk at band width W over the full plane's 16-bit rows if
+// `full`, else the byte plane's, into out[6].
 extern "C" int np_viterbi_walk_attrs(int W, int full, int* out) {
   return full ? attrs_plane<int16_t>(W, out) : attrs_plane<int8_t>(W, out);
 }
 
 namespace {
 
+template <int W, typename T>
+int launch_at(const void* bp, const void* xyc, const void* m, const void* n,
+              const void* fstate, int nreads, int k_pad, void* ops, void* end,
+              cudaStream_t s) {
+  return walk::launch<W, T>(viterbi_walk_kernel<W, T>, nreads, s, (const T*)bp,
+                            (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
+                            (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops,
+                            (int32_t*)end);
+}
+
 template <typename T>
 int launch_plane(const void* bp, const void* xyc, const void* m, const void* n,
                  const void* fstate, int nreads, int k_pad, int W, void* ops, void* end,
                  cudaStream_t s) {
-  if (W == 256)
-    return walk::launch<256, T>(viterbi_walk_kernel<256, T>, nreads, s, (const T*)bp,
-                                (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
-                                (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops,
-                                (int32_t*)end);
-  if (W == 128)
-    return walk::launch<128, T>(viterbi_walk_kernel<128, T>, nreads, s, (const T*)bp,
-                                (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
-                                (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops,
-                                (int32_t*)end);
-  if (W == 64)
-    return walk::launch<64, T>(viterbi_walk_kernel<64, T>, nreads, s, (const T*)bp,
-                               (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
-                               (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops,
-                               (int32_t*)end);
-  if (W == 32)
-    return walk::launch<32, T>(viterbi_walk_kernel<32, T>, nreads, s, (const T*)bp,
-                               (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n,
-                               (const int32_t*)fstate, nreads, k_pad, (int8_t*)ops,
-                               (int32_t*)end);
-  return (int)cudaErrorInvalidValue;
+  auto fn = W == 512   ? launch_at<512, T>
+            : W == 384 ? launch_at<384, T>
+            : W == 256 ? launch_at<256, T>
+            : W == 128 ? launch_at<128, T>
+            : W == 64  ? launch_at<64, T>
+            : W == 32  ? launch_at<32, T>
+                       : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(bp, xyc, m, n, fstate, nreads, k_pad, ops, end, s);
 }
 
 }  // namespace
@@ -234,7 +243,7 @@ int launch_plane(const void* bp, const void* xyc, const void* m, const void* n,
 // (nreads, k_pad + 1, W): the byte plane, int8, or (`full`) the full
 // plane, int16; xyc (nreads, k_pad, W) int8, m, n and fstate (nreads,)
 // int32, ops (nreads, k_pad + 1) int8 and end (nreads, 2) int32 out; W is
-// 32, 64, 128 or 256, and bp is 16-byte aligned.
+// 32, 64, 128, 256, 384 or 512, and bp is 16-byte aligned.
 extern "C" int np_viterbi_walk_launch(const void* bp, const void* xyc, const void* m,
                                       const void* n, const void* fstate, int nreads,
                                       int k_pad, int W, int full, void* ops, void* end,

@@ -3,7 +3,8 @@
 // down).  One warp serves one read: its rows (direction codes or
 // backpointers, W cells of type T a diagonal: bytes, or the Viterbi full
 // plane's 16-bit cells; one contiguous range a read) stream
-// into a shared-memory ring of NBUF chunks of CH diagonals, NBUF - 1
+// into a shared-memory ring of NBUF chunks of chunk<W, T>() diagonals
+// (CH, or CH / 2 where a row is more than 512 bytes), NBUF - 1
 // chunks ahead of the walk, by the lanes' cp.async copies: the rows 16
 // bytes a copy, the column-0 code word of each of the chunk's diagonals
 // (4 bytes a row of the packed band codes, W bytes apart) 4 bytes a
@@ -17,27 +18,39 @@
 namespace walk {
 
 constexpr int WARPS = 4;  // reads per block, but see reads_per_block
-constexpr int CH = 128;   // diagonals per staged chunk
-constexpr int PER = CH / 32;
+constexpr int CH = 128;   // diagonals per staged chunk, but see chunk
 constexpr int NBUF = 3;   // ring depth: chunks in flight ahead of the walk
 constexpr int OFF = 4;    // o[] holds diagonal lo + kk at OFF + kk, kk >= -OFF
 constexpr unsigned FULL = 0xffffffffu;
 
+// Diagonals a staged chunk of a walker over rows of T at band width W:
+// CH, but CH / 2 where a row is more than 512 bytes (the full plane's
+// 16-bit rows at W = 384 and 512), whose ring of three chunks of CH
+// (294,912 and 393,216 bytes of rows) would not fit in the 232,448 a
+// block may opt into
+template <int W, typename T>
+__host__ __device__ constexpr int chunk() {
+  return W * (int)sizeof(T) > 512 ? CH / 2 : CH;
+}
+
 template <int W, typename T = int8_t>
 struct __align__(16) Stage {
-  T rows[NBUF][CH * W];       // row i of a slot: diagonal c*CH + i
-  uint32_t code[NBUF][CH];    // column-0 code word of each diagonal
-  int32_t o[OFF + CH + OFF];  // band offsets of the walked chunk; the
-                              // walk's look-ahead reads OFF past each end
-  uint8_t ops[CH + 16];       // its op row, at the global row's alignment
+  static constexpr int K = chunk<W, T>();
+  T rows[NBUF][K * W];       // row i of a slot: diagonal c*K + i
+  uint32_t code[NBUF][K];    // column-0 code word of each diagonal
+  int32_t o[OFF + K + OFF];  // band offsets of the walked chunk; the
+                             // walk's look-ahead reads OFF past each end
+  uint8_t ops[K + 16];       // its op row, at the global row's alignment
 };
 
 // Reads (warps) a block of a walker over rows of T at band width W:
 // WARPS, but 2 where a row is 256 bytes (the full plane's 16-bit rows at
 // W = 128, the byte rows at W = 256), whose ring of 4 reads (402,112
 // bytes either) would not fit in the 232,448 a block may opt into, and 1
-// where a row is more (the full plane at W = 256 and the byte rows at
-// W = 512: 198,832 bytes a read; the byte rows at W = 384: 149,680)
+// where a row is more: the full plane at W = 256 and the byte rows at
+// W = 512 (198,832 bytes a read), the byte rows at W = 384 (149,680), and
+// the full plane at W = 384 and 512 on chunks of CH / 2 (148,592 and
+// 197,744)
 template <int W, typename T>
 __host__ __device__ constexpr int reads_per_block() {
   return W * (int)sizeof(T) > 256 ? 1 : W * (int)sizeof(T) > 128 ? 2 : WARPS;
@@ -67,16 +80,16 @@ __device__ __forceinline__ void cp_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(NBUF - 2) : "memory");
 }
 
-// Chunk c of one read into ring slot `slot`: its rows c*CH .. c*CH +
-// nrows - 1 of `src` and the column-0 code word of each of its
-// diagonals k >= 1 (code row k - 1 of `xy`).  One commit, empty or not,
-// per chunk index.
+// Chunk c of one read into ring slot `slot`: its rows c*K .. c*K +
+// nrows - 1 of `src` (K = chunk<W, T>()) and the column-0 code word of
+// each of its diagonals k >= 1 (code row k - 1 of `xy`).  One commit,
+// empty or not, per chunk index.
 template <int W, typename T>
 __device__ __forceinline__ void stage_chunk(Stage<W, T>& sg, const T* src,
                                             const uint8_t* xy, int c, int nrows, int slot,
                                             int lane) {
   if (nrows > 0) {
-    const int lo = c * CH;
+    const int lo = c * Stage<W, T>::K;
     const char* from = (const char*)(src + (size_t)lo * W);
     for (int i = lane * 16; i < nrows * W * (int)sizeof(T); i += 32 * 16)
       cp_async16((char*)sg.rows[slot] + i, from + i);
@@ -93,6 +106,7 @@ __device__ __forceinline__ void stage_chunk(Stage<W, T>& sg, const T* src,
 template <int W, typename T>
 __device__ __forceinline__ int scan_offsets(Stage<W, T>& sg, int slot, int lo, int nrows,
                                             int carry, bool down, int lane) {
+  constexpr int PER = Stage<W, T>::K / 32;
   int v[PER];
   int s = 0;
 #pragma unroll
@@ -117,7 +131,7 @@ __device__ __forceinline__ int scan_offsets(Stage<W, T>& sg, int slot, int lo, i
 // The op row of the walked chunk, all 3 (none) before the walk
 template <int W, typename T>
 __device__ __forceinline__ void clear_ops(Stage<W, T>& sg, int lane) {
-  for (int t = lane; t < (CH + 16) / 4; t += 32)
+  for (int t = lane; t < (Stage<W, T>::K + 16) / 4; t += 32)
     reinterpret_cast<uint32_t*>(sg.ops)[t] = 0x03030303u;
 }
 
@@ -149,8 +163,9 @@ __device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
 // 256, 384 and 512).  The byte rows take 205,504 bytes at W = 128 (4
 // reads), 201,056 at W = 256 (2 reads), 149,680 at W = 384 and 198,832
 // at W = 512 (1 read), as the 16-bit rows at W = 128 (2 reads) and
-// W = 256 (1 read); every walker launched under the 232,448 a block may
-// opt into (the 16-bit rows at W = 384 and 512 have no launch).
+// W = 256 (1 read); the 16-bit rows at W = 384 and 512, on chunks of
+// CH / 2, 148,592 and 197,744 (1 read): every walker launches under the
+// 232,448 a block may opt into.
 template <int W, typename T>
 constexpr int stage_bytes() {
   return reads_per_block<W, T>() * (int)sizeof(Stage<W, T>);

@@ -75,15 +75,16 @@ def two_term_sum(tables: torch.Tensor) -> bool:
 
 def kernel_attributes(W: int, two_term: bool = True) -> dict:
     """The compiled kernel's registers, local-memory (spill) bytes per
-    thread, static shared memory per block, and threads and reads per
-    block at band width ``W``, for the two-term or the 5-way gap sum
-    (needs the card: builds the kernel)."""
+    thread, static and dynamic shared memory per block (its staged
+    chunks are dynamic above W = 256), and threads and reads per block at
+    band width ``W`` (32, 64, 128, 256, 384 or 512), for the two-term or
+    the 5-way gap sum (needs the card: builds the kernel)."""
     lib = kb.library("forward", _SIG)
-    vals = (ctypes.c_int * 5)()
+    vals = (ctypes.c_int * 6)()
     kb.check(lib, lib.np_forward_attrs(W, int(two_term), vals),
              "forward attrs")
-    return dict(zip(("registers", "local_bytes", "static_smem", "threads",
-                     "reads"), vals))
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "dynamic_smem", "threads", "reads"), vals))
 
 
 def reciprocal_mismatches(device="cuda") -> int:

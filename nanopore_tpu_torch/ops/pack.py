@@ -48,8 +48,10 @@ SENT = (5 << 3) | 5  # all-sentinel packed code
 # by a group of W / 128 warps of 4): the layouts of the MEA path (pack,
 # realign in every mode, the MEA walker)
 KERNEL_BAND_WIDTHS = (32, 64, 128, 256, 384, 512)
-# the layouts of the Viterbi path (the Viterbi, its walker, forward-only)
-VITERBI_BAND_WIDTHS = (32, 64, 128, 256)
+# the layouts of the Viterbi path (the Viterbi, its walker, forward-only):
+# the MEA path's, kept apart as C11's next step (widths above 512) may
+# take one path at a time
+VITERBI_BAND_WIDTHS = (32, 64, 128, 256, 384, 512)
 MIN_BAND_WIDTH = 2  # the narrowest live width the card serves
 # the paths of ``check_band_width``, as ``MapperConfig.decode`` names them
 # (any path but VITERBI is the MEA path's)
@@ -73,26 +75,25 @@ def check_band_width(band_width: int, device=None, path: str = VITERBI
                      ) -> None:
     """Refuse a band width the kernels of ``path`` do not serve, where
     ``device`` is not the CPU (``None`` is the card), before an entry
-    point does any work (ROADMAP C10, C11).  On the card the MEA path
-    (``MEA``: pack, realign in every mode, the MEA walker) serves every
-    live width from 2 to 512, laid into its W = 32, 64, 128, 256, 384 or
-    512 kernels; the Viterbi path (``VITERBI``, the default: pack, the
-    Viterbi, its walker and the forward-only kernel) serves 2 to 256,
-    its widths 257 to 512 being C11's next step; every path refuses a
-    band above 512 (the rest of C11).  The plain versions on the CPU
-    serve any width; the card gets no plain fallback."""
+    point does any work (ROADMAP C10, C11).  On the card both paths
+    serve every live width from 2 to 512, laid into their W = 32, 64,
+    128, 256, 384 or 512 kernels: the MEA path (``MEA``: pack, realign in
+    every mode, the MEA walker) and the Viterbi path (``VITERBI``, the
+    default: pack, the Viterbi, its walker and the forward-only kernel);
+    every path refuses a band above 512 (the rest of C11).  The plain
+    versions on the CPU serve any width; the card gets no plain
+    fallback."""
     if torch.device("cuda" if device is None else device).type == "cpu":
         return
     top = (VITERBI_BAND_WIDTHS if path == VITERBI else KERNEL_BAND_WIDTHS)[-1]
     if not MIN_BAND_WIDTH <= band_width <= top:
         raise ValueError(
             "band width %d is not served on the card by the %s path: the "
-            "MEA path's kernels take widths %d to %d, the Viterbi path's %d "
+            "MEA path's kernels and the Viterbi path's both take widths %d "
             "to %d (ROADMAP C10; wider bands are C11); pass device='cpu' "
             "to run the plain path at any width"
             % (band_width, "Viterbi" if path == VITERBI else "MEA",
-               MIN_BAND_WIDTH, KERNEL_BAND_WIDTHS[-1], MIN_BAND_WIDTH,
-               VITERBI_BAND_WIDTHS[-1]))
+               MIN_BAND_WIDTH, top))
 
 
 _SIG = {

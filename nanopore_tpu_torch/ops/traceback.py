@@ -32,11 +32,12 @@ them up to its start diagonal and subtracts them going down.
 The kernels (``csrc/traceback.cu``, ``csrc/viterbi_traceback.cu``, the
 latter with a walk of each plane) run one warp per read, stage its rows
 through shared memory and walk them with one lane; each serves its
-path's band widths (the MEA walker ``KERNEL_BAND_WIDTHS``: 32, 64, 128,
-256, 384 and 512; the Viterbi walker ``VITERBI_BAND_WIDTHS``: 32, 64,
-128 and 256), four reads a block, two where a row is 256 bytes and one
-where it is more (the full plane at 256, the byte rows at 384 and
-512).  The plain versions serve any width.
+path's band widths (the MEA walker ``KERNEL_BAND_WIDTHS``, the Viterbi
+walker ``VITERBI_BAND_WIDTHS``: 32, 64, 128, 256, 384 and 512), four
+reads a block, two where a row is 256 bytes and one where it is more
+(the full plane at 256 to 512, the byte rows at 384 and 512; the full
+plane's rows above 512 bytes, at 384 and 512, in chunks of 64
+diagonals, the others 128).  The plain versions serve any width.
 """
 
 from __future__ import annotations
@@ -71,31 +72,28 @@ _VIT_SIG = {
 
 def viterbi_walker_attributes(W: int, full: bool = False) -> dict:
     """The compiled Viterbi walker's registers, local-memory (spill)
-    bytes per thread, dynamic shared memory per block, and threads and
-    reads per block at band width ``W``, walking the full plane
-    (``full``) or the byte plane (needs the card: builds the kernel)."""
+    bytes per thread, static and dynamic shared memory per block, and
+    threads and reads per block at band width ``W``, walking the full
+    plane (``full``) or the byte plane (needs the card: builds the
+    kernel)."""
     lib = kb.library("viterbi_traceback", _VIT_SIG)
-    vals = (ctypes.c_int * 5)()
+    vals = (ctypes.c_int * 6)()
     kb.check(lib, lib.np_viterbi_walk_attrs(W, int(full), vals),
              "viterbi_traceback attrs")
-    return dict(zip(("registers", "local_bytes", "dynamic_smem", "threads",
-                     "reads"), vals))
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "dynamic_smem", "threads", "reads"), vals))
 
 
 def walker_shared_memory(W: int) -> dict:
     """Dynamic shared memory a block of each walker kernel built at band
     width ``W`` takes (bytes: 4 reads a block, 2 where a row is 256
     bytes, the full plane at W = 128 and the byte rows at W = 256, 1
-    where it is more, the full plane at W = 256 and the byte rows at
-    W = 384 and 512, where the Viterbi walker has no build; needs the
-    card: builds the kernels)."""
-    out = {"traceback": kb.library("traceback", _SIG).np_walk_smem(W)}
-    if W in VITERBI_BAND_WIDTHS:
-        out["viterbi_traceback"] = viterbi_walker_attributes(W)[
-            "dynamic_smem"]
-        out["viterbi_traceback_full"] = viterbi_walker_attributes(
-            W, True)["dynamic_smem"]
-    return out
+    where it is more, the full plane at W = 256 to 512 and the byte rows
+    at W = 384 and 512; needs the card: builds the kernels)."""
+    return {"traceback": kb.library("traceback", _SIG).np_walk_smem(W),
+            "viterbi_traceback": viterbi_walker_attributes(W)["dynamic_smem"],
+            "viterbi_traceback_full": viterbi_walker_attributes(
+                W, True)["dynamic_smem"]}
 
 
 def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,),

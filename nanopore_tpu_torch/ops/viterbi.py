@@ -148,14 +148,16 @@ def short_step(tables: torch.Tensor) -> bool:
 
 def kernel_attributes(W: int, step: int = SHORT) -> dict:
     """The compiled kernel's registers, local-memory (spill) bytes per
-    thread, static shared memory per block, and threads and reads per
-    block at band width ``W``, for its ``step`` (``SHORT``, ``FIVE_WAY``
-    or ``FULL``; needs the card: builds the kernel)."""
+    thread, static and dynamic shared memory per block (no dynamic: its
+    stage is static at every width), and threads and reads per block at
+    band width ``W`` (32, 64, 128, 256, 384 or 512), for its ``step``
+    (``SHORT``, ``FIVE_WAY`` or ``FULL``; needs the card: builds the
+    kernel)."""
     lib = kb.library("viterbi", _SIG)
-    vals = (ctypes.c_int * 5)()
+    vals = (ctypes.c_int * 6)()
     kb.check(lib, lib.np_viterbi_attrs(W, int(step), vals), "viterbi attrs")
-    return dict(zip(("registers", "local_bytes", "static_smem", "threads",
-                     "reads"), vals))
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "dynamic_smem", "threads", "reads"), vals))
 
 
 def viterbi_forward(xyc, m, n, params: KernelParams) -> dict:

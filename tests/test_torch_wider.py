@@ -30,10 +30,11 @@ lanes) and w = 256 (none):
 * the decode's workspace plan puts the card's mapping batch at W = 256
   into four launches;
 * the width guard without a card: every entry point of either path
-  takes 129, 200 and 256 past the guard, the Viterbi path refuses 257
-  and 300 and every path 1 and 513 naming C11 (the MEA path serves 257
-  to 512 since ROADMAP C11's third step, tests/test_torch_widest.py),
-  and the CPU serves a band above 512, 600, against the JAX package.
+  takes 129, 200 and 256 past the guard, every path refuses 1, 513,
+  600 and 1024 naming C11 (the MEA path serves 257 to 512 since ROADMAP
+  C11's third step, tests/test_torch_widest.py, the Viterbi path since
+  its fourth, tests/test_torch_widest_viterbi.py), and the CPU serves a
+  band above 512, 600, against the JAX package.
 """
 
 import numpy as np
@@ -347,13 +348,11 @@ def test_mea_entry_points_take_129_to_256_past_the_guard(
             assert "unsupported device" in str(err.value), name
 
 
-@pytest.mark.parametrize("w", [129, 200, 256])
-def test_viterbi_entry_points_take_129_to_256_past_the_guard(monkeypatch, w):
-    """The Viterbi path serves 2 to 256 on the card (since ROADMAP C11's
-    second step): each of its entry points takes 129-256 past the guard,
-    to the device check (``meta``: ``unsupported device``; ``None``
-    without a card: no CUDA device) or to the stand-in pack and index
-    build."""
+def viterbi_entry_points_take(w, monkeypatch):
+    """Each Viterbi entry point (``MappingEngine(decode="viterbi")``,
+    ``PreparedViterbi``, ``PreparedForward``) takes w past the guard, to
+    the device check (``meta``: ``unsupported device``; ``None`` without
+    a card: no CUDA device) or to the stand-in pack and index build."""
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
     monkeypatch.setattr("nanopore_tpu_torch.mapping.engine.KmerIndex.build",
                         _past_the_guard)
@@ -365,18 +364,29 @@ def test_viterbi_entry_points_take_129_to_256_past_the_guard(monkeypatch, w):
             assert "unsupported device" in str(err.value), name
         elif err.type is RuntimeError:
             assert "no CUDA device" in str(err.value), name
-    check_band_width(w, None)
-    check_band_width(w, "cpu")
+    for device in ("cuda", None, "cpu"):
+        check_band_width(w, device, VITERBI)
 
 
-@pytest.mark.parametrize("path, w", [(VITERBI, 257), (VITERBI, 300),
+@pytest.mark.parametrize("w", [129, 200, 256])
+def test_viterbi_entry_points_take_129_to_256_past_the_guard(monkeypatch, w):
+    """The Viterbi path serves 129-256 on the card (since ROADMAP C11's
+    second step; to 512 since its fourth): each of its entry points
+    takes 129-256 past the guard."""
+    viterbi_entry_points_take(w, monkeypatch)
+
+
+@pytest.mark.parametrize("path, w", [(None, 600), (None, 1024),
                                      (None, 1), (None, 513)])
 def test_every_path_refuses_1_and_257_and_above_naming_c11(
         mapped, tmp_path, monkeypatch, path, w):  # noqa: F811
-    """The Viterbi path (``path`` VITERBI) refuses 257 and 300 on the
-    card and every path (``None``) refuses 1 and 513, each entry point
-    naming C11 before any work (since ROADMAP C11's third step the MEA
-    path serves 257 to 512: tests/test_torch_widest.py)."""
+    """Every path (``path`` None) refuses 1, 513, 600 and 1024 on the
+    card, each entry point naming C11 before any work.  The name keeps
+    the cases this test once held: the Viterbi path refused 257 and 300
+    until ROADMAP C11's fourth step, and the MEA path until its third
+    (both serve 257 to 512 now: tests/test_torch_widest.py and
+    tests/test_torch_widest_viterbi.py), so two widths above 512 take
+    their places."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)

@@ -139,20 +139,22 @@ def test_no_viterbi_walk_leaves_the_live_band_on_random_codes():
 
 # ---- the forward-only kernel's pair vote (W = 256) ----------------------- #
 
-def _pair_vote_case():
-    """Reads of 500 bases against their windows, each but the last with
-    one N in its window where it enters the live band of width 200 at
-    its top, under the default model with the first delete state's
-    emission of an N at NaN (as chip_smoke.py's pair vote case)."""
+def _pair_vote_case(w=200):
+    """Reads of w + 300 bases against their windows, each but the last
+    with one N in its window where it enters the live band of width w at
+    its top (w + 100 to w + 280), under the default model with the first
+    delete state's emission of an N at NaN (as chip_smoke.py's pair vote
+    case)."""
     rng = np.random.default_rng(17)
     pairs = []
-    for pos in (300, 350, 400, 440, 480, None):
-        x = rng.integers(0, 4, 500).astype(np.int8)
-        y = np.where(rng.random(500) < 0.08, rng.integers(0, 4, 500),
+    L = w + 300
+    for pos in (w + 100, w + 150, w + 200, w + 240, w + 280, None):
+        x = rng.integers(0, 4, L).astype(np.int8)
+        y = np.where(rng.random(L) < 0.08, rng.integers(0, 4, L),
                      x).astype(np.int8)
         if pos is not None:
             x[pos] = 4
-        pairs.append((x, y, [(CIG.M, 500)]))
+        pairs.append((x, y, [(CIG.M, L)]))
     pp = _params()
     eg = pp.e_gap_flat.numpy().reshape(5, 5).copy()
     eg[1, 4] = np.nan
@@ -188,15 +190,19 @@ def test_the_pair_vote_fails_the_upper_warp_alone_and_keeps_the_plain_bits():
     assert switched[-1] == -1 and not bad[:, -1].any()
 
 
-def _finite_switch_case():
-    """Reads with a run of N (chip_smoke.py's ``N_RUNS_WIDER``, the
-    last read none) under the default model with every emission of an N
-    at 1e-37: the band maximum falls to a subnormal whose inverse is
-    finite (as chip_smoke.py's finite switch case)."""
+N_RUNS_WIDER = ((600, 150, 250), (560, 100, 300), (640, 200, 220),
+                (500, 120, 200), (520, 0, 0))
+
+
+def _finite_switch_case(runs=N_RUNS_WIDER):
+    """Reads with a run of N (chip_smoke.py's ``N_RUNS_WIDER`` by
+    default, the last read none; (length, start, run length) each) under
+    the default model with every emission of an N at 1e-37: the band
+    maximum falls to a subnormal whose inverse is finite (as
+    chip_smoke.py's finite switch case)."""
     rng = np.random.default_rng(0)
     pairs = []
-    for L, p0, ln in ((600, 150, 250), (560, 100, 300), (640, 200, 220),
-                      (500, 120, 200), (520, 0, 0)):
+    for L, p0, ln in runs:
         x = rng.integers(0, 4, L).astype(np.int8)
         y = x.copy()
         y[p0:p0 + ln] = 4

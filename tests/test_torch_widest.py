@@ -6,8 +6,9 @@ A band of live width 256 < w <= 384 lies in the first w lanes of
 W = 384 lanes, and 384 < w <= 512 in W = 512 (``ops.pack.padded_width``),
 its dead lanes all sentinel, on either device.  On the card the MEA
 path's kernels (pack, realign in every mode with the band held by a
-group of three or four warps, the MEA walker) serve these widths; the
-Viterbi path stops at 256 (ROADMAP C11's next step).  At w = 300 (dead
+group of three or four warps, the MEA walker) serve these widths;
+tests/test_torch_widest_viterbi.py holds the Viterbi path there (since
+ROADMAP C11's fourth step).  At w = 300 (dead
 lanes in the top warp of W = 384), 384 (none), 450 (in W = 512) and 512
 (none), on the first three of ``width_pairs()``' reads (a pure match, a
 long deletion, a long insertion; the five take the file past its time):
@@ -36,11 +37,12 @@ long deletion, a long insertion; the five take the file past its time):
   above W = 256 (8 below): a model of its checkpoints, recomputed
   segment by segment, gives the continuous backward's states bit for
   bit at either segment;
-* the width guard without a card: every MEA entry point takes 257,
-  300, 384 and 512 past the guard; the Viterbi entry points and
-  ``PreparedForward`` refuse 257 naming C11; every path refuses 513
-  naming C11; and the CPU serves 600 (the EM sums against the JAX
-  package's, in 1,024 lanes).
+* the width guard without a card: every entry point of the MEA path
+  takes 257, 300, 384 and 512 past the guard (the Viterbi path's are
+  tests/test_torch_widest_viterbi.py's), and the Viterbi path's kernel
+  wrappers take the W = 384 and 512 layouts and refuse 257 and 513
+  lanes; every path refuses 513 naming C11; and the CPU serves 600 (the
+  EM sums against the JAX package's, in 1,024 lanes).
 """
 
 import numpy as np
@@ -485,18 +487,41 @@ def test_mea_entry_points_take_257_to_512_past_the_guard(
             assert "unsupported device" in str(err.value), name
 
 
-def test_viterbi_entry_points_refuse_257_naming_c11(monkeypatch):
-    """The Viterbi path (``MappingEngine(decode="viterbi")``,
-    ``PreparedViterbi``, ``PreparedForward``) stays at 2 to 256 on the
-    card: 257 is refused naming C11 before any work (no pack)."""
-    monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
-    for name, call in _viterbi_entry_points(257).items():
-        with pytest.raises(ValueError, match="C11"):
+def test_viterbi_entry_points_refuse_257_naming_c11():
+    """The name keeps the case this test once held: the Viterbi path's
+    entry points refused a band of 257 on the card, naming C11.  Since
+    ROADMAP C11's fourth step they serve 257 to 512
+    (tests/test_torch_widest_viterbi.py holds their guard), so this
+    holds the level below them: the Viterbi path's kernel wrappers (K4
+    at each step, K5 on both planes, K6 at both sums) take a batch in
+    the W = 384 and 512 layouts, and refuse one of 257 or 513 lanes,
+    which no layout has (a band of live width 257 lies in 384 lanes)."""
+    from nanopore_tpu_torch.ops import forward as port_forward
+    from nanopore_tpu_torch.ops import viterbi as port_viterbi
+    from nanopore_tpu_torch.ops.traceback import viterbi_walk
+
+    def wrappers(W):
+        xyc = torch.empty((0, 4, W), dtype=torch.int8, device="meta")
+        m = torch.empty(0, dtype=torch.int32, device="meta")
+        tab = torch.empty(0, device="meta")
+        calls = [lambda two=two: port_forward._launch(xyc, m, m, tab, two)
+                 for two in (True, False)]
+        for step, dtype in ((port_viterbi.SHORT, torch.int8),
+                            (port_viterbi.FIVE_WAY, torch.int8),
+                            (port_viterbi.FULL, torch.int16)):
+            bp = torch.empty((0, 5, W), dtype=dtype, device="meta")
+            calls += [lambda step=step: port_viterbi._launch(xyc, m, m, tab,
+                                                            step),
+                      lambda bp=bp: viterbi_walk(bp, xyc, m, m, m)]
+        return calls
+
+    for W in (384, 512):
+        for call in wrappers(W):
             call()
-    for device in ("cuda", None):
-        with pytest.raises(ValueError, match="C11"):
-            check_band_width(257, device, VITERBI)
-    check_band_width(257, "cpu", VITERBI)
+    for W in (257, 513):
+        for call in wrappers(W):
+            with pytest.raises(ValueError, match="serves? W in"):
+                call()
 
 
 def test_every_path_refuses_513_naming_c11(mapped, tmp_path,

@@ -37,8 +37,8 @@ and at 32 and 64, where the layout has no dead lane:
   JAX package's;
 * on random codes at w = 21 no MEA or Viterbi op leaves the live band,
   and every dead lane's direction code is DIR_NONE;
-* ``check_band_width``: on the card the MEA path serves 2 to 512 and
-  the Viterbi path 2 to 256, and their kernel wrappers take the layout
+* ``check_band_width``: on the card the MEA path and the Viterbi path
+  serve 2 to 512, and their kernel wrappers take the layout
   a served width is laid into and refuse a wider band's; the CPU serves
   any width on either.
 """
@@ -510,14 +510,15 @@ def test_check_band_width_serves_each_path_on_the_card(path, w,
                                                        monkeypatch):
     """On the card the MEA path (pack, realign, MEA walker) serves 2 to
     512 (since ROADMAP C11's third step) and the Viterbi path (pack,
-    Viterbi, its walker, forward-only) 2 to 256 (since its second step;
-    2 to 128 before), and each path's kernel wrappers take the layout a
-    served width is laid into past their width check, and refuse a wider
-    band's; the CPU serves any width; each live width is laid into the
-    narrowest of 32, 64, 128, 256, 384 and 512 lanes that holds it."""
+    Viterbi, its walker, forward-only) 2 to 512 too (since its fourth
+    step; 2 to 256 before, 2 to 128 before its second), and each path's
+    kernel wrappers take the layout a served width is laid into past
+    their width check, and refuse a wider band's; the CPU serves any
+    width; each live width is laid into the narrowest of 32, 64, 128,
+    256, 384 and 512 lanes that holds it."""
     monkeypatch.setattr("nanopore_tpu_torch.kernels.build.library",
                         _past_the_width_check)
-    top = 512 if path == "mea" else 256
+    top = 512
     served = 2 <= w <= top
     for device in ("cuda", None):
         if served:
