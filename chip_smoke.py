@@ -19,17 +19,18 @@
    (``chip_smoke.py --kend-guard``): a launch whose caller's kend is
    m + n passes, one whose kend is half of m + n must fail at the next
    synchronise (a trap on the device, which leaves the child's context
-   unusable).  Then the CPU halves' process (``chip_smoke.py
-   --cpu-halves 13,15,16,17,18,19``, no card visible, its log in
-   ``_build/smoke/cpu_halves/cpu-halves_child.log``), started here and
-   run beside every card phase: phase 13's reads are mapped on the card
-   into its directory, and it runs, on its own copies of the seeded
-   inputs, the CPU halves of steps 13 and 15-19's card-against-CPU
+   unusable).  Then the CPU halves' two processes (``chip_smoke.py
+   --cpu-halves 13,15,16,17,18,19`` and ``--cpu-halves 21``, no card
+   visible, their logs in
+   ``_build/smoke/cpu_halves/cpu-halves-<phases>_child.log``), started
+   here and run beside every card phase: phase 13's reads are mapped on
+   the card into their directory, and each runs, on its own copies of
+   the seeded inputs, the CPU halves of its steps' card-against-CPU
    checks (``MappingEngine(device="cpu")``, ``realign --device cpu``,
    ``em_train(device="cpu")``), in the order the card phases reach
    them, each leaving its output as a file there that the card phase
-   compares against (the same reads, widths and bars; a failure in that
-   process fails the script).
+   compares against (the same reads, widths and bars; a failure in
+   either process fails the script).
 2. Makes two seeded workloads of 512 reads of 5 kb (5 % deletions, 10 %
    substitutions, both strands, origin and strand in each read name): on
    a 1 Mb random reference for the mapping path, and on a 48,502-bp one
@@ -345,10 +346,10 @@
    --band-width 200`` on step 13's 8 records against ``--device cpu``
    (records identical; the same launches); ``em_train`` at
    ``EmOptions(band_width=200, trials=1, iterations=2)`` on 16 chained
-   reads against the CPU (3e-5 relative).  On the card every path
-   refuses 513 (``MappingEngine`` with either decode,
-   ``PreparedRealign``, ``PreparedViterbi``, ``PreparedForward``),
-   naming C11.
+   reads against the CPU (3e-5 relative).  On the card the MEA path
+   refuses 1025 (``MappingEngine`` with the MEA decode,
+   ``PreparedRealign``) and the Viterbi path 513 (``MappingEngine`` with
+   its decode, ``PreparedViterbi``, ``PreparedForward``), naming C11.
 17. Band widths 129 to 256 on the Viterbi path (ROADMAP C11, second
    step), in the child of step 8 after step 15 (its cached card memory
    released first), on that child's copies of the mapping workload and
@@ -416,8 +417,7 @@
    --band-width 450`` on step 13's 8 records against ``--device cpu``
    (records identical; the same launches); ``em_train`` at
    ``EmOptions(band_width=450, trials=1, iterations=2)`` on 16 chained
-   reads against the CPU (3e-5 relative); and step 16's refusals (every
-   path 513, naming C11).
+   reads against the CPU (3e-5 relative); and step 16's refusals.
 19. Band widths 257 to 512 on the Viterbi path (ROADMAP C11, fourth
    step), in the child of step 10 after step 18 (its cached card memory
    released first; on step 16's copies of the mapping workload and of
@@ -458,7 +458,39 @@
    viterbi and viterbi_traceback launched, nothing else;
    ``MappingEngine(band_width=450, decode="viterbi")`` on 32 reads on
    the card and with ``device="cpu"``: records equal, the same
-   launches; and step 16's refusals (every path 513, naming C11).
+   launches; and step 16's refusals.
+21. Band widths 513 to 1024 (ROADMAP C11, fifth step: the MEA path), in
+   this process after step 9 (its cached card memory released first; on
+   step 3's mapping batch and a copy of step 13's reads);
+   ``chip_smoke.py --widest-1024`` runs this step alone after the build
+   and the W = 768 and 1024 attributes, on its own copies: the W = 768
+   and 1024 builds of the pack (a row of 1024 cells is 64 threads' 16),
+   the realign kernel in every mode (above 512 each mode runs the
+   forward, then the backward, on one group of six or eight warps, in
+   chunks of 4 diagonals, the decode's MEA step and the gamma rows
+   formed in the backward) and the MEA walker (one read a block, chunks
+   of 64 diagonals), whose registers, local memory and shared memory
+   are printed after the build.  On step 3's mapping batch (512 reads,
+   the full band of 1024 lanes): the pack byte-identical and the
+   walker's ops identical on every read, the decode to step 3's bars on
+   the first 8 reads at the full diagonal count, in as many launches as
+   its workspace plan (the 8 GiB cap over the EM mode's slot: 13 at
+   this width); each timed on the whole batch.
+   ``MappingEngine(band_width=1024)`` on the mapping workload, cold then
+   warm, every counter set to 0 before the warm run: >= 99 % of
+   primaries at their origin; pack, realign and traceback launched,
+   nothing else.  On step 13's 64 reads at live widths 600 (in
+   W = 768), 768, 900 (in W = 1024) and 1024: the pack, every realign
+   mode and the MEA walker against their plain versions to step 13's
+   bars, the dead lanes checked, each timed there and as the same
+   reads' full band of the layout.  Then, each with every counter set
+   to 0 just before: ``MappingEngine(band_width=900)`` on 32 reads on
+   the card against ``device="cpu"`` (records equal; pack, realign and
+   traceback launched, nothing else); ``cli realign --band-width 900``
+   on step 13's 8 records against ``--device cpu`` (records identical;
+   the same launches); ``em_train`` at ``EmOptions(band_width=900,
+   trials=1, iterations=2)`` (window pad 32) on 16 chained reads against
+   the CPU (3e-5 relative); and step 16's refusals.
 20. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
    ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
    ``launches_distributed_path``, the sum over the two ranks, a
@@ -474,7 +506,10 @@
    ``launches_widest_map_path``, ``launches_widest_engine_path``,
    ``launches_widest_realign_path`` and ``launches_widest_em_path`` and
    step 19's ``launches_viterbi_widest_map_path`` and
-   ``launches_viterbi_widest_engine_path`` on every row, step 13's
+   ``launches_viterbi_widest_engine_path`` and step 21's
+   ``launches_w1024_map_path``, ``launches_w1024_engine_path``,
+   ``launches_w1024_realign_path`` and ``launches_w1024_em_path`` on
+   every row, step 13's
    ``*_w21`` and ``*_w48`` numbers, step 15's ``*_w96`` and ``*_w128``
    numbers and W = 128 attributes, steps 16's and 17's ``*_w200``,
    ``*_w256`` (the mapping batch) and ``*_live256`` (step 13's reads at
@@ -483,7 +518,10 @@
    their ``ms_full_*`` the full band of 384 and 512 lanes), step 18's
    ``*_live384`` and ``*_live512`` and both steps' ``*_w512`` (the
    mapping batch) numbers and W = 384 and 512 attributes on each path's
-   rows (``*_5way_*`` the other step or sum);
+   rows (``*_5way_*`` the other step or sum), step 21's ``*_w600``,
+   ``*_w900``, ``*_live768``, ``*_live1024`` and ``*_w1024`` (the
+   mapping batch) numbers and W = 768 and 1024 attributes on the MEA
+   path's rows;
    ``viterbi_full`` and ``viterbi_traceback_full`` the full-plane modes
    of the Viterbi kernel and its walker) and, last, ``{"ok": true,
    "device": {...}}``.
@@ -542,6 +580,12 @@ WIDEST_LIVE = (300, 384, 450, 512)  # dead lanes in the top warp; none; ...
 WIDEST_DEAD = (300, 450)  # of those, the two with dead lanes
 WIDEST_CPU = 450  # the live width of its card-against-CPU checks
 WIDEST_PLAIN_READS = 16  # reads of the mapping batch the plain decode runs on
+# phase 21: band widths 513 to 1024 in the W = 768 and 1024 kernels of
+# the MEA path (every realign mode on one group of 6 or 8 warps)
+W1024 = (768, 1024)
+W1024_LIVE = (600, 768, 900, 1024)  # dead lanes in W = 768; none; ...
+W1024_CPU = 900  # the live width of its card-against-CPU checks
+W1024_PLAIN_READS = 8  # reads of the mapping batch the plain decode runs on
 # em_train's window pad above W = 256: at the default 256 no read's sums
 # stay in f32 under the random start (0 of 16 at 300, 384 and 450, on
 # either device, as the JAX package's scan loses them), and an iteration
@@ -4248,7 +4292,7 @@ def wide_alone() -> int:
     print("build: %.1f s" % build.build())
     attrs = wide_attributes()
     dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([15], dev)
+    cpu = start_cpu_halves([(15,)], dev)
     workdir = os.path.join(build.BUILD_DIR, "smoke", "wide_alone")
     fa, fq = write_workload(workdir, REF_LEN)
     engine = MappingEngine(read_fasta_dict(fa),
@@ -4313,11 +4357,11 @@ def wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
 
 
 def refusal_check(ref, cfg, engine, pairs, dev, phase: str) -> None:
-    """On the card every path refuses 513: the MEA path
-    (``MappingEngine`` with the MEA decode, ``PreparedRealign``) and the
-    Viterbi path (``MappingEngine(decode="viterbi")``,
-    ``PreparedViterbi``, ``PreparedForward``), each naming C11 before any
-    work (the rest of C11)."""
+    """On the card the MEA path refuses 1025 (``MappingEngine`` with the
+    MEA decode, ``PreparedRealign``) and the Viterbi path 513
+    (``MappingEngine(decode="viterbi")``, ``PreparedViterbi``,
+    ``PreparedForward``), each naming C11 before any work (the rest of
+    C11)."""
     import dataclasses
 
     from nanopore_tpu_torch.mapping.engine import MappingEngine
@@ -4329,12 +4373,13 @@ def refusal_check(ref, cfg, engine, pairs, dev, phase: str) -> None:
     )
 
     calls = {}
-    w = WIDEST_W[-1] + 1
-    for d in ("mea", "viterbi"):
+    tops = {"mea": W1024[-1] + 1, "viterbi": WIDEST_W[-1] + 1}
+    for d, w in tops.items():
         c = dataclasses.replace(cfg, band_width=w, decode=d)
         calls[engine_name(c)] = (w, lambda c=c: MappingEngine(
             ref, c, index=engine.index, device=dev))
     for cls in (PreparedRealign, PreparedViterbi, PreparedForward):
+        w = tops["mea" if cls is PreparedRealign else "viterbi"]
         calls["%s at %d" % (cls.__name__, w)] = (
             w, lambda cls=cls: prepared_from_pairs(
                 {"device": dev}, pairs[:2], engine.params, band_width=w,
@@ -4381,7 +4426,7 @@ def wider_alone() -> int:
     print("build: %.1f s" % build.build())
     attrs = mea_path_attributes(WIDER_W)
     dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([16], dev)
+    cpu = start_cpu_halves([(16,)], dev)
     workdir = os.path.join(build.BUILD_DIR, "smoke", "wider_alone")
     engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
     out = wider_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
@@ -4473,7 +4518,7 @@ def widest_alone() -> int:
     print("build: %.1f s" % build.build())
     attrs = widest_attributes()
     dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([18], dev)
+    cpu = start_cpu_halves([(18,)], dev)
     workdir = os.path.join(build.BUILD_DIR, "smoke", "widest_alone")
     engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
     out = widest_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
@@ -4731,7 +4776,7 @@ def viterbi_wider_alone() -> int:
     print("build: %.1f s" % build.build())
     attrs = viterbi_path_attributes(WIDER_W, "_w%d" % WIDER_W)
     dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([17], dev)
+    cpu = start_cpu_halves([(17,)], dev)
     workdir = os.path.join(build.BUILD_DIR, "smoke", "viterbi_wider_alone")
     engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
     out = viterbi_wider_phase(engine, pairs, fa, fq, wl, dev,
@@ -4825,11 +4870,103 @@ def viterbi_widest_alone() -> int:
     print("build: %.1f s" % build.build())
     attrs = viterbi_widest_attributes()
     dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([19], dev)
+    cpu = start_cpu_halves([(19,)], dev)
     workdir = os.path.join(build.BUILD_DIR, "smoke", "viterbi_widest_alone")
     engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
     out = viterbi_widest_phase(engine, pairs, fa, fq, wl, dev,
                                launch_counters())
+    finish_cpu_halves(cpu)
+    for name, a in attrs.items():
+        out["res"].setdefault(name, {}).update(a)
+    print(card)
+    print(json.dumps(out))
+    return 0
+
+
+# ---- phase 21: band widths 513 to 1024 in the W = 768 and 1024 kernels ---- #
+
+def w1024_attributes() -> dict:
+    """The MEA path's W = 768 and 1024 builds' attributes
+    (:func:`mea_path_attributes`) under ``*_w768`` and ``*_w1024`` by
+    kernel."""
+    attrs = {}
+    for width in W1024:
+        for name, a in mea_path_attributes(width).items():
+            attrs.setdefault(name, {}).update(a)
+    return attrs
+
+
+def w1024_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
+                counters) -> dict:
+    """Phase 21 (its checks in the docstring's step 21): the W = 1024
+    builds on the mapping batch, the engine at W = 1024, the W = 768 and
+    1024 builds at the live widths 600, 768, 900 and 1024 on phase 13's
+    reads, the engine, ``realign`` and EM at 900 card against CPU, and
+    the refusals of :func:`refusal_check`.  Returns the kernels'
+    ``*_w1024`` (the mapping batch) and live widths' (``*_w600``,
+    ``*_live768``, ...) numbers and each run's launches."""
+    import dataclasses
+
+    import torch
+
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+
+    t_phase = time.perf_counter()
+    res, runs = {}, {}
+    top = W1024[-1]
+    mapping_batch_checks(pairs, engine.params, dev, res, top,
+                         W1024_PLAIN_READS, "phase 21")
+    wdir = os.path.join(os.path.dirname(fq), "w1024")
+    os.makedirs(wdir, exist_ok=True)
+    ref = read_fasta_dict(fa)
+    cfg = dataclasses.replace(engine.config, band_width=top)
+    if cfg.decode != "mea":
+        fail("phase 21: the engine does not take the MEA decode")
+    runs["w1024_map"] = warm_engine_run(
+        ref, cfg, engine, fq, os.path.join(wdir, "map_w%d.sam" % top), dev,
+        counters, "phase 21", MEA_KERNELS)
+    torch.cuda.empty_cache()
+
+    # ---- live widths of 600, 768, 900 and 1024 on phase 13's reads ----
+    for w in W1024_LIVE:
+        width_kernel_checks(wl["pairs"], w, dev, res, "phase 21",
+                            viterbi=False)
+
+    # ---- the engine, realign and EM at 900, card against CPU ----
+    live = dataclasses.replace(cfg, band_width=W1024_CPU)
+    runs["w1024_engine"] = engine_card_vs_cpu(
+        ref, live, engine, fq, wdir, dev, counters, "phase 21", MEA_KERNELS)
+    runs["w1024_realign"] = realign_cli_check(wl, W1024_CPU, counters,
+                                              "phase 21")
+    runs["w1024_em"] = em_width_check(wl, W1024_CPU, dev, counters,
+                                      "phase 21")
+    refusal_check(ref, cfg, engine, pairs, dev, "phase 21")
+    print("phase 21 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return {"res": res, "runs": runs}
+
+
+def w1024_alone() -> int:
+    """Run as ``chip_smoke.py --widest-1024``: the kernels' build and
+    the W = 768 and 1024 attributes, then phase 21 alone on its own
+    copies of the mapping workload and of phase 13's reads, its CPU
+    halves in their own process."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.kernels import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    print("build: %.1f s" % build.build())
+    attrs = w1024_attributes()
+    dev = torch.device("cuda", 0)
+    cpu = start_cpu_halves([(21,)], dev)
+    workdir = os.path.join(build.BUILD_DIR, "smoke", "w1024_alone")
+    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
+    out = w1024_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
     finish_cpu_halves(cpu)
     for name, a in attrs.items():
         out["res"].setdefault(name, {}).update(a)
@@ -4884,7 +5021,7 @@ def widths_alone() -> int:
     print(card)
     print("build: %.1f s" % build.build())
     dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([13], dev)
+    cpu = start_cpu_halves([(13,)], dev)
     wl = width_workload(os.path.join(build.BUILD_DIR, "smoke"), dev)
     out = widths_phase(wl, dev, launch_counters())
     finish_cpu_halves(cpu)
@@ -4908,7 +5045,12 @@ CPU_HALVES = {
     18: (("engine", WIDEST_CPU, "mea"), ("realign", WIDEST_CPU),
          ("em", WIDEST_CPU)),
     19: (("engine", WIDEST_CPU, "viterbi"),),
+    21: (("engine", W1024_CPU, "mea"), ("realign", W1024_CPU),
+         ("em", W1024_CPU)),
 }
+# the CPU halves' processes of a whole run: phase 21's at W = 1024 (~300 s
+# on one thread) in a second process, beside the first's ~600 s
+CPU_HALF_GROUPS = ((13, 15, 16, 17, 18, 19), (21,))
 CPU_HALF_WAIT = 900  # seconds a card phase waits for a CPU half
 # torch threads of the CPU halves: their plain versions are bound by
 # the cost of each small op, so more threads only take cores from the
@@ -4926,19 +5068,25 @@ def half_key(kind: str, w: int, decode: str = "") -> str:
     return "%s_%sw%d" % (kind, decode + "_" if decode else "", w)
 
 
-def start_cpu_halves(phases, dev):
+def group_name(phases) -> str:
+    """A CPU halves' process's name: ``cpu-halves-13-15-...``."""
+    return "cpu-halves-" + "-".join(str(p) for p in phases)
+
+
+def start_cpu_halves(groups, dev) -> list:
     """Clear :func:`cpu_dir`, map phase 13's reads there on the card (the
-    CPU halves' process maps nothing) and start ``chip_smoke.py
-    --cpu-halves <phases>`` with no card visible, its log in
-    ``<dir>/cpu-halves_child.log``; it is killed at exit if still
-    running."""
+    CPU halves' processes map nothing) and start, for each group of
+    phases, ``chip_smoke.py --cpu-halves <phases>`` with no card visible,
+    its log in ``<dir>/<group_name>_child.log``; each is killed at exit
+    if still running."""
     import shutil
 
     shutil.rmtree(cpu_dir(), ignore_errors=True)
     width_workload(cpu_dir(), dev)
-    return start_child(cpu_dir(), "--cpu-halves",
-                       [",".join(str(p) for p in phases)],
-                       dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return [(phases, start_child(
+        cpu_dir(), "--cpu-halves", [",".join(str(p) for p in phases)],
+        dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        log=group_name(phases))) for phases in groups]
 
 
 def cpu_halves_child(phases) -> int:
@@ -4947,8 +5095,9 @@ def cpu_halves_child(phases) -> int:
     card-against-CPU checks (``CPU_HALVES``), in order, on their own
     copy of the seeded mapping workload and on the mapping of phase
     13's reads that :func:`start_cpu_halves` wrote.  Each writes its
-    output, then ``<key>.json`` (its path and wall seconds), into
-    :func:`cpu_dir`, where :func:`cpu_half` waits for it; a failure
+    output under its own directory there, then ``<key>.json`` (the
+    output's path and wall seconds) into :func:`cpu_dir`, where
+    :func:`cpu_half` waits for it; a failure
     writes ``FAILED`` (the traceback) there and exits non-zero.  It runs
     at a lower priority (nice 10) on CPU_HALF_THREADS torch threads: the
     card phases' host work, which sets their times, shares the cores."""
@@ -4963,8 +5112,9 @@ def cpu_halves_child(phases) -> int:
     from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
 
     d = cpu_dir()
+    own = os.path.join(d, group_name(phases))
     try:
-        fa, fq = write_workload(os.path.join(d, "mapping"), REF_LEN)
+        fa, fq = write_workload(os.path.join(own, "mapping"), REF_LEN)
         ref = read_fasta_dict(fa)
         cfg = MAPPER_REGISTRY["LastParams"].config
         wl = width_workload(d)
@@ -4977,16 +5127,16 @@ def cpu_halves_child(phases) -> int:
                     import dataclasses
 
                     path = engine_run(ref, dataclasses.replace(
-                        cfg, band_width=w, decode=spec[2]), fq, d, "cpu")
+                        cfg, band_width=w, decode=spec[2]), fq, own, "cpu")
                 elif kind == "realign":
                     from nanopore_tpu_torch import cli
 
-                    path = os.path.join(d, key + ".sam")
+                    path = os.path.join(own, key + ".sam")
                     cli.main(["realign", *realign_subset(wl)[0], path,
                               "--band-width", str(w), "--device", "cpu"])
                 else:
                     host = em_width_run(wl, w, "cpu")
-                    path = os.path.join(d, key + ".npz")
+                    path = os.path.join(own, key + ".npz")
                     with open(path, "wb") as fh:
                         np.savez(fh, transitions=host.model.transitions,
                                  emissions=host.model.emissions,
@@ -5029,19 +5179,23 @@ def cpu_half(key: str) -> dict:
     return rec
 
 
-def finish_cpu_halves(proc) -> None:
-    """Wait for the CPU halves' process; its failure fails the script."""
-    t0 = time.perf_counter()
-    rc = proc.wait(timeout=CPU_HALF_WAIT)
-    with open(os.path.join(cpu_dir(), "cpu-halves_child.log")) as fh:
-        lines = fh.read().splitlines()
-    print("the CPU halves' process (beside the card phases): waited %.1f s "
-          "after the last card phase; its lines:" % (time.perf_counter() - t0))
-    for line in lines:
-        if " INFO " not in line:
-            print("  " + line)
-    if rc != 0:
-        fail("the CPU halves' process exited with %d" % rc)
+def finish_cpu_halves(procs) -> None:
+    """Wait for the CPU halves' processes; a failure fails the script."""
+    for phases, proc in procs:
+        t0 = time.perf_counter()
+        rc = proc.wait(timeout=CPU_HALF_WAIT)
+        with open(os.path.join(cpu_dir(),
+                               group_name(phases) + "_child.log")) as fh:
+            lines = fh.read().splitlines()
+        print("the CPU halves' process of phases %s (beside the card "
+              "phases): waited %.1f s after the last card phase; its lines:"
+              % (", ".join(map(str, phases)), time.perf_counter() - t0))
+        for line in lines:
+            if " INFO " not in line:
+                print("  " + line)
+        if rc != 0:
+            fail("the CPU halves' process of phases %s exited with %d"
+                 % (", ".join(map(str, phases)), rc))
 
 
 def launch_counters() -> tuple:
@@ -5136,16 +5290,17 @@ def viterbi_child() -> int:
     return 0
 
 
-def start_child(workdir: str, flag: str, args=(), env=None):
+def start_child(workdir: str, flag: str, args=(), env=None, log=None):
     """Start ``chip_smoke.py <flag> <args>`` (``--pipeline``: phases
     10-12, 16, 18 and 19; ``--viterbi``: phases 8, 13, 14, 15 and 17;
-    ``--cpu-halves``: the CPU halves), its output in ``<workdir>/<flag
-    without dashes>_child.log``, under ``env`` (default: this process's);
-    it is killed at exit if still running."""
+    ``--cpu-halves``: CPU halves), its output in ``<workdir>/<log, by
+    default the flag without dashes>_child.log``, under ``env``
+    (default: this process's); it is killed at exit if still running."""
     import atexit
 
     os.makedirs(workdir, exist_ok=True)
-    log = open(os.path.join(workdir, flag.lstrip("-") + "_child.log"), "w")
+    log = open(os.path.join(workdir, (log or flag.lstrip("-"))
+                            + "_child.log"), "w")
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, *args],
         stdout=log, stderr=subprocess.STDOUT, text=True, env=env)
@@ -5259,6 +5414,8 @@ def main() -> int:
         return widest_alone()
     if sys.argv[1:] == ["--viterbi-widest"]:
         return viterbi_widest_alone()
+    if sys.argv[1:] == ["--widest-1024"]:
+        return w1024_alone()
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
         return distributed_rank(int(sys.argv[2]), *sys.argv[3:])
     sys.path.insert(0, ROOT)
@@ -5326,14 +5483,16 @@ def main() -> int:
         attrs.setdefault(name, {}).update(a)
     for name, a in viterbi_widest_attributes().items():
         attrs.setdefault(name, {}).update(a)
+    for name, a in w1024_attributes().items():
+        attrs.setdefault(name, {}).update(a)
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
     print("native seedchain: %s" % native_index.get_lib()._name)
     dev = torch.device("cuda", 0)
     workdir = os.path.join(build.BUILD_DIR, "smoke")
     counters = launch_counters()
-    # the CPU halves of phases 13 and 15-18 beside every card phase
-    cpu = start_cpu_halves(sorted(CPU_HALVES), dev)
+    # the CPU halves of phases 13, 15-19 and 21 beside every card phase
+    cpu = start_cpu_halves(CPU_HALF_GROUPS, dev)
     kend_guard_check()
     pipeline = start_child(workdir, "--pipeline")
     t_mark = [t_start]
@@ -5385,12 +5544,24 @@ def main() -> int:
     mark("phase 7")
     vit_launches = viterbi_path_phase(workdir, fa, fq, dev, counters)
     mark("phase 9")
+    # phase 21 last in this process, which ends first without it; its
+    # cached card memory released first (three processes share the card)
+    from nanopore_tpu_torch.ops.dispatch import preferred_realign_batch_size
+
+    torch.cuda.empty_cache()
+    w1024 = w1024_phase(
+        engine, main_path_batch(engine, fq,
+                                preferred_realign_batch_size(None, dev)),
+        fa, fq, width_workload(os.path.join(workdir, "w1024"), dev), dev,
+        counters)
+    mark("phase 21")
     phase8 = finish_child(vit_child, workdir, "--viterbi",
                           "phases 8, 13, 14, 15 and 17", t_start,
                           os.path.join("viterbi", "result.json"))
     res.update(phase8["res"])
     other_runs = dict(post_launches, **vit_launches)
-    for out in (phase8["widths"], phase8["wide"], phase8["viterbi_wider"]):
+    for out in (phase8["widths"], phase8["wide"], phase8["viterbi_wider"],
+                w1024):
         for name, rows in out["res"].items():
             res[name].update(rows)
         other_runs.update(out["runs"])

@@ -252,7 +252,7 @@ def realign_records(
     probability of the NEW alignment when ``rescore`` (the
     --rescoreByPosteriorProbIgnoringGaps analogue; records are not split
     then, as in the JAX package), else an empty list.  On the card the
-    band width must be one the MEA path's kernels serve, 2 to 512
+    band width must be one the MEA path's kernels serve, 2 to 1024
     (ROADMAP C10, C11).
     """
     check_band_width(band_width, device, MEA)
@@ -413,7 +413,7 @@ def realign_sam_file(
     ``shard=(i, n)``: chain deterministically (same result on every
     host), realign and write only every n-th chained record starting at
     i.  Runs on the card unless ``device="cpu"``; there the band width
-    is checked before the SAM is chained (ROADMAP C10, C11).
+    (2 to 1024) is checked before the SAM is chained (ROADMAP C10, C11).
     """
     check_band_width(band_width, device, MEA)
     with tempfile.TemporaryDirectory() as tmp:

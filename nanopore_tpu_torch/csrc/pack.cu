@@ -31,11 +31,12 @@
 // chunk); then every thread builds 16 cells of a row from two runs of 16
 // buffer bytes and stores them as one 16-byte word, neighbouring threads
 // on neighbouring words.  Two block barriers a chunk; the kernel is
-// bound by its stores.  At W = 384 and 512 a head of W symbols reaches
-// back past the chunk before: it is copied from the last chunk's buffer,
-// whose own head held the W symbols before that chunk, so every
-// window's lookup stays inside what the two buffers keep (CHUNK + W
-// bytes each).
+// bound by its stores.  At W = 384 to 1024 a head of W symbols reaches
+// back past the chunk before (at 1024 four chunks back): it is copied
+// from the last chunk's buffer, whose own head held the W symbols before
+// that chunk, so every window's lookup stays inside what the two
+// buffers keep (CHUNK + W bytes each).  At W = 1024 a row is 64 threads'
+// 16 cells, so a pass of the block builds two rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -168,7 +169,11 @@ extern "C" const char* np_cuda_error_string(int e) {
 extern "C" int np_pack_attrs(int W, int* out) {
   cudaFuncAttributes a;
   cudaError_t e;
-  if (W == 512)
+  if (W == 1024)
+    e = cudaFuncGetAttributes(&a, pack_kernel<1024>);
+  else if (W == 768)
+    e = cudaFuncGetAttributes(&a, pack_kernel<768>);
+  else if (W == 512)
     e = cudaFuncGetAttributes(&a, pack_kernel<512>);
   else if (W == 384)
     e = cudaFuncGetAttributes(&a, pack_kernel<384>);
@@ -190,7 +195,8 @@ extern "C" int np_pack_attrs(int W, int* out) {
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  W is
-// 32, 64, 128, 256, 384 or 512 and `wl` the live band width, 1 <= wl <= W.
+// 32, 64, 128, 256, 384, 512, 768 or 1024 and `wl` the live band width,
+// 1 <= wl <= W.
 extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
                               const void* m, const void* n, int nreads,
                               int k_pad, int W, int wl, void* xyc, void* stream) {
@@ -202,7 +208,11 @@ extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
   const int32_t* mm = (const int32_t*)m;
   const int32_t* nn = (const int32_t*)n;
   uint8_t* out = (uint8_t*)xyc;
-  if (W == 512) {
+  if (W == 1024) {
+    pack_kernel<1024><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
+  } else if (W == 768) {
+    pack_kernel<768><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
+  } else if (W == 512) {
     pack_kernel<512><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
   } else if (W == 384) {
     pack_kernel<384><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);

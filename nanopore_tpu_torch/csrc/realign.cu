@@ -106,6 +106,19 @@
 // f32, row k-1 = diagonal k) and then its rescale inverses (kq + 1
 // floats, padded to 16 bytes) in the read's slot; phase B streams them
 // back in descending order beside the backward.
+// Above W = 512 (G = 6 and 8 warps: W = 768 and 1024) it runs every
+// mode (two_phase): the layouts below do not fit an SM there (mea_kernel
+// 3 G warps at ~160 registers, 92,160 and 122,880 registers a block; its
+// stage ~432 W bytes).  Phase B then also forms, from the same g_k and
+// posteriors, mea_kernel's MEA step (DECODE, DECODE_GAMMA) with the same
+// operations in the same order, and stores the gamma row (DECODE_GAMMA,
+// GAMMA; gamma_kernel's (f * b) * g); the states it reads are the ones
+// mea_kernel recomputes and gamma_kernel stores, bit for bit, so every
+// mode's outputs are the plain version's at any G.  Its chunk is 4
+// diagonals there (realign_chunk: 130,592 and 174,112 bytes a block; 8
+// would take 327,680 of states at 1024, past the 232,448 a block may
+// opt into), and the decode and gamma modes keep this slot: no
+// checkpoints, no backward scales.
 //
 // mea_kernel (DECODE, DECODE_GAMMA): one read a block of 3 warps.  The
 // backward recursion does not read the forward; only the posteriors and
@@ -243,6 +256,14 @@ constexpr int GAMMA_WARPS = 4;  // roles of gamma_kernel (a warp each, or a grou
 __host__ __device__ constexpr int gamma_roles(int G) { return G > 3 ? 3 : GAMMA_WARPS; }
 // warps a block of realign_kernel: WARPS, or one group of G > WARPS
 __host__ __device__ constexpr int realign_warps(int G) { return G > WARPS ? G : WARPS; }
+// above W = 512 (G = 6 and 8) every mode runs realign_kernel's two
+// phases on one group: mea_kernel's 3 G warps and gamma_kernel's 3 to 4 G
+// would not fit an SM's registers (18 / 24 warps at 160 a thread)
+__host__ __device__ constexpr bool two_phase(int G) { return G > 4; }
+// realign_kernel's chunk: CH diagonals, but half of it above W = 512,
+// where a Stage of CH (327,680 bytes of states at W = 1024) would not
+// fit a block; even either way, as the forward steps in pairs
+__host__ __device__ constexpr int realign_chunk(int G) { return two_phase(G) ? CH / 2 : CH; }
 constexpr int XA = 8;           // arrays one seam exchange carries at most
 static_assert(S == CH, "mea_kernel's consumer stages one chunk per segment");
 // tf 25 | emf 36 | egf 30 | gap gamma | match gamma | exp threshold
@@ -260,15 +281,16 @@ struct Tables {
 template <int G>
 using Grp = grp::Group<G, XA>;
 
-// One Stage a read in realign_kernel, staged by the read's warps.  Chunk q
-// of phase A holds the code rows of diagonals q*CH + 1 .. q*CH + CH + 1
-// (row i: diagonal q*CH + i + 1); chunk q of phase B holds, in slot s,
-// the forward states and codes of diagonal q*CH + s and sf[q*CH + s + 1].
-template <int W>
+// One Stage a read in realign_kernel, staged by the read's warps, in
+// chunks of K diagonals (realign_chunk).  Chunk q of phase A holds the
+// code rows of diagonals q*K + 1 .. q*K + K + 1 (row i: diagonal q*K +
+// i + 1); chunk q of phase B holds, in slot s, the forward states and
+// codes of diagonal q*K + s and sf[q*K + s + 1].
+template <int W, int K = CH>
 struct __align__(16) Stage {
-  float st[2][CH][NS * W];
-  uint8_t cd[2][CH + 1][W];
-  float sf[2][CH];
+  float st[2][K][NS * W];
+  uint8_t cd[2][K + 1][W];
+  float sf[2][K];
 };
 
 // mea_kernel's shared memory: phase 1's code buffers and phase 2's
@@ -636,16 +658,17 @@ __device__ __forceinline__ void end_check(int k, int kend, const float (&nw)[NS]
 // states; with MATCH, row k of `fs` holds diagonal k's match state alone)
 // and sf[k] (even k's rescale inverse), returns the loglik in `acc` and
 // the band-start mass at kend in `fin_end`.  `cd` is the group's two code
-// chunks of CH + 1 rows (row i of chunk q: diagonal q*CH + i + 1, the
+// chunks of K + 1 rows (row i of chunk q: diagonal q*K + i + 1, the
 // one-ahead emission lookup).
-template <int C, int G, bool MATCH = false>
+template <int C, int G, bool MATCH = false, int K = CH>
 __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
                                              const float* egf,
-                                             uint8_t (*cd)[CH + 1][32 * C * G],
+                                             uint8_t (*cd)[K + 1][32 * C * G],
                                              const uint8_t* xy, int k_pad, int kq, int kend,
                                              float* fs, float* sf, Grp<G>& g, float& acc,
                                              float& fin_end) {
   constexpr int W = 32 * C * G;
+  static_assert(K % 2 == 0, "the forward steps in pairs of diagonals");
   const int w0 = g.gl * C;
   float a[NS][C], b[NS][C];  // diagonals k0 (even) and k0 - 1
 #pragma unroll
@@ -656,10 +679,10 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
       b[s][c] = 0.f;
     }
   float ls_hi = 0.f, ls_c = 0.f, rs = 1.f;
-  const int nqa = (kq + CH - 1) / CH;
+  const int nqa = (kq + K - 1) / K;
   auto stage_codes = [&](int q) {
-    const int r0 = q * CH;
-    warp_copy(cd[q & 1][0], xy + (size_t)r0 * W, min(CH + 1, k_pad - r0) * W, g.gl, 32 * G);
+    const int r0 = q * K;
+    warp_copy(cd[q & 1][0], xy + (size_t)r0 * W, min(K + 1, k_pad - r0) * W, g.gl, 32 * G);
     cp_commit();
   };
   float ea[NS][C];  // emission factors of the next odd diagonal
@@ -679,9 +702,9 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
     }
     if (q + 1 < nqa) stage_codes(q + 1);
     const uint8_t(*rows)[W] = cd[q & 1];
-    const int nk = min(CH, kq - q * CH);
+    const int nk = min(K, kq - q * K);
     for (int i = 0; i < nk; i += 2) {
-      const int k0 = q * CH + i;  // diagonals k0 + 1 (odd) and k0 + 2 (even)
+      const int k0 = q * K + i;  // diagonals k0 + 1 (odd) and k0 + 2 (even)
       uint8_t cb[C], cc[C];
       load_codes<C>(rows[i + 1], w0, cb);
       load_codes<C>(rows[i + 2], w0, cc);
@@ -854,22 +877,30 @@ __device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
 
 // Outputs by mode:
 //   EM: `out1` trans (B, 25), `out2` emis (B, 80) f32;
-//   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32.
+//   EXP: `out1` retire rows (B, k_pad + 1, 4), `out2` flush (B, 4, W) f32;
+//   above W = 512 (two_phase), the decode modes mea_kernel's (`out1` the
+//   MEA score, `out2` the direction codes, `out3` in DECODE_GAMMA the
+//   gamma band) and GAMMA gamma_kernel's (`out3` the gamma band).
 // `ws` is the launch's workspace and `woff[r]` read r's offset in it
 // (floats), woff[r + 1] the end of its slot; dynamic shared memory holds
-// one Stage<W> a read of the block (realign_warps(G) / G reads).
+// one Stage<W, realign_chunk(G)> a read of the block (realign_warps(G) /
+// G reads).
 template <int C, int G, int MODE>
 __global__ void __launch_bounds__(realign_warps(G) * 32)
 realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
                const int32_t* __restrict__ n, int nreads, int k_pad, int wl,
                float* __restrict__ ws, const int64_t* __restrict__ woff,
                float* __restrict__ loglik, float* __restrict__ out1,
-               void* __restrict__ out2) {
+               void* __restrict__ out2, float* __restrict__ out3) {
   constexpr int W = 32 * C * G;
+  constexpr int K = realign_chunk(G);       // diagonals a staged chunk
   constexpr int RB = realign_warps(G) / G;  // reads a block
   constexpr bool EM = MODE == EM_MODE;
   constexpr bool XP = MODE == EXP;
-  static_assert(EM || XP, "the decode modes run mea_kernel, the gamma mode gamma_kernel");
+  constexpr bool MEA = MODE == DECODE || MODE == DECODE_GAMMA;
+  constexpr bool GAM = MODE == GAMMA || MODE == DECODE_GAMMA;
+  static_assert(EM || XP || two_phase(G),
+                "up to W = 512 the decode modes run mea_kernel, the gamma mode gamma_kernel");
   static_assert(RB * G == realign_warps(G), "a block holds whole groups");
   __shared__ float sm[NTAB];
   extern __shared__ __align__(16) unsigned char stage_raw[];
@@ -885,10 +916,12 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   const int lane = g.lane;
   const int r = blockIdx.x * RB + warp / G;
   if (r >= nreads) return;  // only at G = 1 (RB = 1 otherwise)
-  Stage<W>& sg = reinterpret_cast<Stage<W>*>(stage_raw)[warp / G];
+  Stage<W, K>& sg = reinterpret_cast<Stage<W, K>*>(stage_raw)[warp / G];
   const float* tf = sm;
   const float* emf = sm + 25;
   const float* egf = sm + 61;
+  const float gg = sm[91];
+  const float mg = sm[92];
   const float thr = sm[93];
   const int w0 = g.gl * C;
   const uint8_t* xy = xyc + (size_t)r * k_pad * W;  // row k-1: diagonal k
@@ -903,10 +936,16 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   // rows past the read's own diagonals: what the skipped diagonals give
   if constexpr (XP)
     fill_rows(out1 + (size_t)r * (k_pad + 1) * 4, kq, k_pad, 16, 0u, g.gl, 32 * G);
+  if constexpr (MEA)
+    fill_rows((int8_t*)out2 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W, 0x03030303u, g.gl,
+              32 * G);
+  if constexpr (GAM)
+    fill_rows(out3 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W * 4, 0u, g.gl, 32 * G);
 
   // ---------------- phase A: forward, diagonals 1..kq ----------------
   float acc = 0.f, fin_end = 1.f;
-  forward_pass<C, G>(tf, emf, egf, sg.cd, xy, k_pad, kq, kend, fs, sf, g, acc, fin_end);
+  forward_pass<C, G, false, K>(tf, emf, egf, sg.cd, xy, k_pad, kq, kend, fs, sf, g, acc,
+                               fin_end);
   if (g.gl == 0) loglik[r] = acc;
 
   // ------- phase B: backward + the EM sums or the retire stream, kq..0 -------
@@ -925,34 +964,44 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   for (int i = 0; i < (XP ? 4 : 1); ++i)
 #pragma unroll
     for (int c = 0; c < C; ++c) ex[i][c] = 0.f;
+  // the MEA scores of diagonals k+1 and k+2 and the posteriors it reads
+  // of k+1 and k+2 (the decode modes, above W = 512: mea_kernel's phase 2)
+  float u1[MEA ? C : 1], u2[MEA ? C : 1], gm1[MEA ? C : 1], gm2[MEA ? C : 1],
+      gd1[MEA ? C : 1], gi1[MEA ? C : 1];
+#pragma unroll
+  for (int c = 0; c < (MEA ? C : 1); ++c) {
+    u1[c] = NEG;
+    u2[c] = NEG;
+    gm1[c] = gm2[c] = gd1[c] = gi1[c] = 0.f;
+  }
 
-  // chunk q: slots s = 0..CH-1 hold diagonal q*CH + s (states, codes) and
-  // sf[q*CH + s + 1]; diagonal 0 has no stored row
+  // chunk q: slots s = 0..K-1 hold diagonal q*K + s (states, codes) and
+  // sf[q*K + s + 1]; diagonal 0 has no stored row
   auto stage_bwd = [&](int q) {
     const int buf = q & 1;
-    const int lo = max(1, q * CH), hi = min(kq, q * CH + CH - 1);
+    const int lo = max(1, q * K), hi = min(kq, q * K + K - 1);
     if (hi >= lo) {
-      const int s0 = lo - q * CH, rows = hi - lo + 1;
+      const int s0 = lo - q * K, rows = hi - lo + 1;
       warp_copy(sg.st[buf][s0], fs + (size_t)(lo - 1) * NS * W, rows * NS * W * 4, g.gl,
                 32 * G);
       warp_copy(sg.cd[buf][s0], xy + (size_t)(lo - 1) * W, rows * W, g.gl, 32 * G);
     }
-    if (g.gl < CH && q * CH + g.gl + 1 <= kq)
-      cp_async4(&sg.sf[buf][g.gl], sf + q * CH + g.gl + 1);
+    if (g.gl < K && q * K + g.gl + 1 <= kq)
+      cp_async4(&sg.sf[buf][g.gl], sf + q * K + g.gl + 1);
     cp_commit();
   };
   // phase A's stores are read back by other lanes' copies
   __threadfence_block();
   grp::sync(g);
-  stage_bwd(kq / CH);
+  stage_bwd(kq / K);
 #pragma unroll 1
-  for (int q = kq / CH; q >= 0; --q) {
+  for (int q = kq / K; q >= 0; --q) {
     cp_wait_all();  // chunk q has landed
     grp::sync(g);    // and every lane is done with chunk q + 1's buffer
     if (q > 0) stage_bwd(q - 1);
     const int buf = q & 1;
-    for (int k = min(kq, q * CH + CH - 1); k >= q * CH; --k) {
-      const int s = k - q * CH;
+    for (int k = min(kq, q * K + K - 1); k >= q * K; --k) {
+      const int s = k - q * K;
       float fh[NS][C];  // forward states of diagonal k
       uint8_t ck[C];    // codes of diagonal k
       if (k >= 1) {
@@ -978,6 +1027,56 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       for (int c = 0; c < C; ++c)
 #pragma unroll
         for (int st = 0; st < NS; ++st) gam[st][c] = (fh[st][c] * nw[st][c]) * g_k;
+      if constexpr (GAM)  // row k of the read's gamma_match band
+        store_row<C>(out3 + ((size_t)r * (k_pad + 1) + k) * W, w0, gam[0]);
+
+      if constexpr (MEA) {
+        // mea_kernel's phase 2 step on the same floats: the MEA carry and
+        // the direction word, ties diag before del before ins (written
+        // out as there: a shared device function moved mea_kernel's
+        // machine code)
+        const int d2n2 = bw.d1n1 + bw.d1n2 - 1;
+        float new_u[C], g_m[C], g_d[C], g_i[C];
+        float v[3][C], td[C], tl[C], tu[C], hi[3], lo[3];  // v: diag, left, up
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          g_m[c] = gam[0][c];
+          g_d[c] = gam[1][c] + gam[3][c];
+          g_i[c] = gam[2][c] + gam[4][c];
+          v[0][c] = (u2[c] + gm2[c]) - mg;
+          v[1][c] = u1[c] + gg * gd1[c];
+          v[2][c] = u1[c] + gg * gi1[c];
+        }
+        seam<C, G, 3>(g, v, NEG, hi, lo);
+        shift<C>(v[0], td, -d2n2, hi[0], lo[0], lane);
+        shift<C>(v[1], tl, 1 - bw.d1n1, hi[1], lo[1], lane);
+        shift<C>(v[2], tu, -bw.d1n1, hi[2], lo[2], lane);
+        uint32_t word = 0;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float best = fmaxf(fmaxf(td[c], tl[c]), tu[c]);
+          const int choice = best == td[c] ? 0 : (best == tl[c] ? 1 : 2);
+          // a dead lane (at or above wl) stays unreachable, as outside
+          new_u[c] = is_end ? ((w0 + c == 0) ? 0.f : NEG) : (w0 + c < wl ? best : NEG);
+          const bool ok = new_u[c] > NEG / 2 && !is_end;
+          word |= (uint32_t)(ok ? choice : 3) << (8 * c);
+        }
+        // row k of the read's direction codes: diagonal k
+        store_codes<C>((int8_t*)out2 + ((size_t)r * (k_pad + 1) + k) * W, w0, word);
+        if (k == 0) {
+          if (g.gl == 0) out1[r] = new_u[0];  // the MEA score
+          break;
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          u2[c] = u1[c];
+          u1[c] = new_u[c];
+          gm2[c] = gm1[c];
+          gm1[c] = g_m[c];
+          gd1[c] = g_d[c];
+          gi1[c] = g_i[c];
+        }
+      }
 
       if constexpr (XP) {
         // retire column wl - 1 on the k+1 -> k shift, move the band up by
@@ -1071,7 +1170,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
     // state does not read
     if constexpr (G > 1) {
       float* red = reinterpret_cast<float*>(&sg);  // [warp - h][count][lane]
-      static_assert(G / 2 * 57 * 32 * 4 <= (int)sizeof(Stage<W>), "the sums fit the stage");
+      static_assert(G / 2 * 57 * 32 * 4 <= (int)sizeof(Stage<W, K>), "the sums fit the stage");
 #pragma unroll 1
       for (int nw = G; nw > 1; nw = (nw + 1) / 2) {
         const int h = (nw + 1) / 2;
@@ -1611,7 +1710,7 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
                 const void* n, int k_pad, int wl, void* ws, const void* woff, void* loglik,
                 void* out1, void* out2, void* out3) {
   constexpr int W = 32 * C * G;
-  if constexpr (MODE == DECODE || MODE == DECODE_GAMMA) {
+  if constexpr ((MODE == DECODE || MODE == DECODE_GAMMA) && !two_phase(G)) {
     constexpr int smem = (int)sizeof(MeaStage<W, mea_segment(G)>);
     cudaError_t e = cudaFuncSetAttribute(mea_kernel<C, G, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1623,14 +1722,14 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
     mea_kernel<C, G, MODE><<<nreads, MEA_WARPS * 32 * G, smem, s>>>(
         t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, wl, (float*)ws,
         (const int64_t*)woff, (float*)loglik, (float*)out1, (int8_t*)out2, (float*)out3);
-  } else if constexpr (MODE == GAMMA) {
+  } else if constexpr (MODE == GAMMA && !two_phase(G)) {
     const auto kernel = gamma_entry<C, G>();
     kernel<<<nreads, gamma_roles(G) * 32 * G, 0, s>>>(
         t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, k_pad, wl, (float*)ws,
         (const int64_t*)woff, (float*)loglik, (float*)out3);
   } else {
     constexpr int RB = realign_warps(G) / G;  // reads a block
-    constexpr int smem = RB * (int)sizeof(Stage<W>);
+    constexpr int smem = RB * (int)sizeof(Stage<W, realign_chunk(G)>);
     if constexpr (smem > 48 * 1024) {  // W >= 128: above the default's 48 KB
       cudaError_t e = cudaFuncSetAttribute(realign_kernel<C, G, MODE>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1643,7 +1742,8 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
     realign_kernel<C, G, MODE>
         <<<(nreads + RB - 1) / RB, realign_warps(G) * 32, smem, s>>>(
             t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad, wl,
-            (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2);
+            (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1, out2,
+            (float*)out3);
   }
   return (int)cudaGetLastError();
 }
@@ -1653,7 +1753,7 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
 template <int C, int G, int MODE>
 int attrs_mode(int* out) {
   constexpr int W = 32 * C * G;
-  constexpr bool MEA = MODE == DECODE || MODE == DECODE_GAMMA;
+  constexpr bool MEA = (MODE == DECODE || MODE == DECODE_GAMMA) && !two_phase(G);
   cudaFuncAttributes a;
   cudaError_t e;
   if constexpr (MEA) {
@@ -1661,14 +1761,14 @@ int attrs_mode(int* out) {
     out[3] = (int)sizeof(MeaStage<W, mea_segment(G)>);
     out[4] = MEA_WARPS * 32 * G;
     out[5] = 1;
-  } else if constexpr (MODE == GAMMA) {
+  } else if constexpr (MODE == GAMMA && !two_phase(G)) {
     e = cudaFuncGetAttributes(&a, gamma_entry<C, G>());
     out[3] = 0;
     out[4] = gamma_roles(G) * 32 * G;
     out[5] = 1;
   } else {
     e = cudaFuncGetAttributes(&a, realign_kernel<C, G, MODE>);
-    out[3] = (int)(realign_warps(G) / G * sizeof(Stage<W>));
+    out[3] = (int)(realign_warps(G) / G * sizeof(Stage<W, realign_chunk(G)>));
     out[4] = realign_warps(G) * 32;
     out[5] = realign_warps(G) / G;
   }
@@ -1726,6 +1826,8 @@ extern "C" const char* np_cuda_error_string(int e) {
 // shared memory bytes per block, threads per block and reads per block
 // of `mode` at band width W, into out[6].
 extern "C" int np_realign_attrs(int mode, int W, int* out) {
+  if (W == 1024) return attrs_width<4, 8>(mode, out);
+  if (W == 768) return attrs_width<4, 6>(mode, out);
   if (W == 512) return attrs_width<4, 4>(mode, out);
   if (W == 384) return attrs_width<4, 3>(mode, out);
   if (W == 256) return attrs_width<4, 2>(mode, out);
@@ -1737,7 +1839,7 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 
 // Launch `mode` (DECODE 0, EM 1, GAMMA 2, DECODE_GAMMA 3, EXP 4) on
 // `stream`; returns cudaGetLastError() (0 on success).  W is 32, 64, 128,
-// 256, 384 or 512 and `wl` the live band width, 1 <= wl <= W.  `tables` is host
+// 256, 384, 512, 768 or 1024 and `wl` the live band width, 1 <= wl <= W.  `tables` is host
 // memory: 91 model floats, then gap gamma, match gamma and the exp
 // threshold (each mode reads what it uses).  `ws` is the workspace and
 // `woff` (nreads + 1,) int64 each read's offset in it and, last, the end
@@ -1747,7 +1849,9 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 // rescale inverses, and in the decode modes kp4 more (the backward's
 // scales) and (kq / S + 1) * 6 * W of checkpoints (S = 8, 4 above
 // W = 256: mea_segment); in GAMMA (kq + 1) * W
-// floats of match rows and 2 * kp4 scales instead; a read that needs
+// floats of match rows and 2 * kp4 scales instead; above W = 512 every
+// mode runs realign_kernel and takes its slot (the states and the
+// rescale inverses); a read that needs
 // more than woff[r + 1] - woff[r] traps on the device.  The outputs by
 // mode are those of realign_kernel, mea_kernel (DECODE, DECODE_GAMMA:
 // `out1` score, `out2` direction codes, `out3` the gamma band) and
@@ -1767,6 +1871,8 @@ extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
   if (W == WIDTH)                                                                          \
     return launch_width<C, G>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, \
                               out1, out2, out3);
+  NP_WIDTH(1024, 4, 8)
+  NP_WIDTH(768, 4, 6)
   NP_WIDTH(512, 4, 4)
   NP_WIDTH(384, 4, 3)
   NP_WIDTH(256, 4, 2)

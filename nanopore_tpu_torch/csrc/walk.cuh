@@ -25,9 +25,10 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // Diagonals a staged chunk of a walker over rows of T at band width W:
 // CH, but CH / 2 where a row is more than 512 bytes (the full plane's
-// 16-bit rows at W = 384 and 512), whose ring of three chunks of CH
-// (294,912 and 393,216 bytes of rows) would not fit in the 232,448 a
-// block may opt into
+// 16-bit rows at W = 384 and 512, the byte rows at W = 768 and 1024),
+// whose ring of three chunks of CH (294,912 and 393,216 bytes of rows at
+// W = 384 and 512's 16-bit rows, as many at 768 and 1024's bytes) would
+// not fit in the 232,448 a block may opt into
 template <int W, typename T>
 __host__ __device__ constexpr int chunk() {
   return W * (int)sizeof(T) > 512 ? CH / 2 : CH;
@@ -49,8 +50,8 @@ struct __align__(16) Stage {
 // bytes either) would not fit in the 232,448 a block may opt into, and 1
 // where a row is more: the full plane at W = 256 and the byte rows at
 // W = 512 (198,832 bytes a read), the byte rows at W = 384 (149,680), and
-// the full plane at W = 384 and 512 on chunks of CH / 2 (148,592 and
-// 197,744)
+// the full plane at W = 384 and 512 and the byte rows at W = 768 and
+// 1024 on chunks of CH / 2 (148,592 and 197,744 either)
 template <int W, typename T>
 __host__ __device__ constexpr int reads_per_block() {
   return W * (int)sizeof(T) > 256 ? 1 : W * (int)sizeof(T) > 128 ? 2 : WARPS;
@@ -160,12 +161,12 @@ __device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
 
 // Dynamic shared memory a walker block takes at band width W with rows
 // of T: one Stage a read of the block (0 for a W other than 32, 64, 128,
-// 256, 384 and 512).  The byte rows take 205,504 bytes at W = 128 (4
+// 256, 384, 512, 768 and 1024).  The byte rows take 205,504 bytes at W = 128 (4
 // reads), 201,056 at W = 256 (2 reads), 149,680 at W = 384 and 198,832
 // at W = 512 (1 read), as the 16-bit rows at W = 128 (2 reads) and
 // W = 256 (1 read); the 16-bit rows at W = 384 and 512, on chunks of
-// CH / 2, 148,592 and 197,744 (1 read): every walker launches under the
-// 232,448 a block may opt into.
+// CH / 2, 148,592 and 197,744 (1 read), as the byte rows at W = 768 and
+// 1024: every walker launches under the 232,448 a block may opt into.
 template <int W, typename T>
 constexpr int stage_bytes() {
   return reads_per_block<W, T>() * (int)sizeof(Stage<W, T>);
@@ -173,7 +174,9 @@ constexpr int stage_bytes() {
 
 template <typename T = int8_t>
 inline int smem_bytes(int W) {
-  return W == 512 ? stage_bytes<512, T>()
+  return W == 1024 ? stage_bytes<1024, T>()
+       : W == 768 ? stage_bytes<768, T>()
+       : W == 512 ? stage_bytes<512, T>()
        : W == 384 ? stage_bytes<384, T>()
        : W == 256 ? stage_bytes<256, T>()
        : W == 128 ? stage_bytes<128, T>()

@@ -139,8 +139,8 @@ class MappingEngine:
         device=None,
     ):
         self.config = config or MapperConfig()
-        # on the card the MEA decode and the Viterbi both serve widths 2
-        # to 512 (ROADMAP C10, C11): the decode names its path
+        # on the card the MEA decode serves widths 2 to 1024 and the
+        # Viterbi 2 to 512 (ROADMAP C10, C11): the decode names its path
         check_band_width(self.config.band_width, device, self.config.decode)
         # the card unless the caller asks for the CPU; raises when no
         # card is present

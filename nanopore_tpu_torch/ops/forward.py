@@ -48,8 +48,9 @@ from nanopore_tpu_torch.ops.pairhmm import KernelParams, kernel_tables
 from nanopore_tpu_torch.ops.realign import (
     NUM_STATES,
     _check_inputs,
+    _forward_lookups,
     _seq_sum,
-    _shift,
+    _shift_at,
 )
 
 LAUNCHES = kb.LaunchCounter("forward")
@@ -154,38 +155,30 @@ def forward_loglik_plain(xyc, m, n, params: KernelParams) -> torch.Tensor:
     egf = tab[61:91]
     kend = m.to(torch.int64) + n.to(torch.int64)
     base = torch.arange(W, device=dev) + 1
-    codes = xyc.to(torch.int32) & 0xFF
+    lookup = _forward_lookups(xyc.to(torch.int32) & 0xFF, emf, egf, base)
     prev = torch.zeros((B, NUM_STATES, W), dtype=f32, device=dev)
     prev[:, :, 0] = 1.0 / NUM_STATES  # diagonal 0
     prevprev = torch.zeros((B, NUM_STATES, W), dtype=f32, device=dev)
     rs = torch.ones(B, dtype=f32, device=dev)
+    ones = torch.ones(B, dtype=f32, device=dev)
+    pad = torch.zeros((B, NUM_STATES, 1), dtype=f32, device=dev)
     ls = torch.zeros(B, dtype=f32, device=dev)
     acc = torch.zeros(B, dtype=f32, device=dev)
     tiny = torch.tensor(1e-37, dtype=f32, device=dev)
     for k in range(1, k_pad + 1):
         rescale = k % 2 == 0
-        c = codes[:, k - 1]
-        x = (c >> 3) & 7
-        y = c & 7
-        E = torch.stack([
-            emf[x * 6 + y], egf[6 + x], egf[12 + y], egf[18 + x],
-            egf[24 + y],
-        ], dim=1)
-        top = c[:, 0]
-        d1 = (top >> 6) & 1
-        d1p = (top >> 7) & 1
+        E, idx = lookup(k)
         src = torch.cat([
             prevprev[:, None], prev[:, None].expand(B, 4, NUM_STATES, W)
         ], dim=1)
         T = _seq_sum(tfT[None, :, :, None] * src)
-        S = torch.stack([d1 + d1p - 1, d1 - 1, d1, d1 - 1, d1], dim=1)
-        Ts = _shift(T, S, 0.0, base)
-        r = rs if not rescale else torch.ones_like(rs)
+        Ts = _shift_at(T, idx, pad)
+        r = rs if not rescale else ones
         Ts = torch.cat([(Ts[:, 0] * r[:, None])[:, None], Ts[:, 1:]], dim=1)
         new = E * Ts
         if rescale:
             scale = new.amax(dim=(1, 2))
-            safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+            safe = torch.where(scale > 0, scale, ones)
             inv = 1.0 / safe
             new = new * inv[:, None, None]
             ls = ls + torch.log(safe)

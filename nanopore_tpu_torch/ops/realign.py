@@ -59,8 +59,9 @@ version below, operation for operation:
   factor (:func:`em_lanes`: up to W = 128 one warp, L = 32 lanes of
   W / 32 cells; above, a group of G = W / 128 warps, L = 32 G lanes of
   4, whose warps first fold onto warp 0, the upper ceil(G / 2) onto the
-  lower, lane for lane, until one is left: at G = 2 and 4 the
+  lower, lane for lane, until one is left: at G = 2, 4 and 8 the
   butterfly's steps across warps, at G = 3 warp 2 onto warp 0, then
+  warp 1, at G = 6 warps 3-5 onto 0-2, then warp 2 onto warp 0, then
   warp 1).  The plain version adds in the same order.
 * the gamma band is gamma[0] = (f_k[0] * b_k[0]) * g_k of every band
   cell, diagonal 0 included: the value the MEA reads;
@@ -82,11 +83,14 @@ over its own diagonals only (m + n rounded up to even), with its states
 at its own offset in a ragged workspace (:func:`workspace_plan`), and
 writes the rows past them as the plain version's padding diagonals
 leave them (0; DIR_NONE in the direction codes); the plain version runs
-every diagonal of the batch.  The decode modes run the forward and the
-backward side by side on two warps of a block: their slot also holds
-the backward's scale of every diagonal and, every :func:`segment`
-diagonals, a checkpoint of the backward states it carries, from which
-two more warps recompute the backward for the MEA pass.
+every diagonal of the batch.  Up to W = 512 the decode modes run the
+forward and the backward side by side on two warps (or groups) of a
+block: their slot also holds the backward's scale of every diagonal
+and, every :func:`segment` diagonals, a checkpoint of the backward
+states it carries, from which two more warps recompute the backward for
+the MEA pass.  Above W = 512 (768 and 1024) every mode runs the forward,
+then the backward, on one group of W / 128 warps (:func:`two_phase`),
+in the EM mode's slot.
 """
 
 from __future__ import annotations
@@ -97,7 +101,12 @@ import numpy as np
 import torch
 
 from nanopore_tpu_torch.kernels import build as kb
-from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS, SENT, live_width
+from nanopore_tpu_torch.ops.pack import (
+    KERNEL_BAND_WIDTHS,
+    SENT,
+    live_width,
+    padded_width,
+)
 from nanopore_tpu_torch.ops.pairhmm import KernelParams, kernel_tables
 
 NUM_STATES = 5
@@ -109,6 +118,13 @@ WORKSPACE_BYTES = 8 << 30
 # diagonals per backward segment of the decode modes (csrc/realign.cu S)
 # up to W = 256; half that above (:func:`segment`)
 SEGMENT = 8
+# diagonals whose code lookups (emission factors, band deltas, shift
+# indices) the plain versions take in one batch of operations (a plain
+# version is bound by its count of operations); but one at a time on the
+# CPU with more than one intra-op thread, where a batch crosses torch's
+# grain for threads whose spinning workers then take the cores of every
+# other process (a parallel test run's workers)
+LOOKUP_DIAGS = 64
 
 LAUNCHES = kb.LaunchCounter("realign")
 EM_LAUNCHES = kb.LaunchCounter("realign_em")
@@ -125,6 +141,14 @@ _SIG = {
 MODE_NAMES = {DECODE: "decode", EM: "em", GAMMA: "gamma",
               DECODE_GAMMA: "decode_gamma", EXP: "exp"}
 MEA_MODES = (DECODE, DECODE_GAMMA)
+
+
+def two_phase(W: int) -> bool:
+    """Whether every mode runs the kernel's forward-then-backward layout
+    on one group at band width ``W``, with the EM mode's workspace slot:
+    above 512 (csrc/realign.cu, ``two_phase``), where the decode modes'
+    three roles and the gamma mode's would not fit an SM."""
+    return W > 512
 
 
 def segment(W: int) -> int:
@@ -147,10 +171,13 @@ def read_workspace_bytes(kend, W: int, mode: int = EM) -> np.ndarray:
     diagonals 0..kq.  ``GAMMA``, whose forward writes its match state
     into the gamma band, keeps the backward's match state alone,
     (kq + 1) x W f32 for diagonals 0..kq, then the forward's rescale
-    inverses and the backward's scales, each padded as above."""
+    inverses and the backward's scales, each padded as above.  Above
+    W = 512 (:func:`two_phase`) every mode keeps the ``EM`` slot."""
     kq = np.asarray(kend, dtype=np.int64)
     kq = kq + (kq & 1)
     scales = ((kq + 1 + 3) // 4) * 16
+    if two_phase(W):
+        mode = EM
     if mode == GAMMA:
         return (kq + 1) * W * 4 + 2 * scales
     nbytes = kq * NUM_STATES * W * 4 + scales
@@ -200,8 +227,9 @@ def max_workspace_k(W: int, mode: int = EM) -> int:
     kernel ``mode`` still fits ``WORKSPACE_BYTES``: the realign stage
     (``DECODE``) and the SNP caller (``EXP``) split longer windows.  A
     mode outside ``MEA_MODES`` gets the 5-state slot's budget, which the
-    smaller ``GAMMA`` slot also fits."""
-    if mode not in MEA_MODES:
+    smaller ``GAMMA`` slot also fits, and so does every mode above
+    W = 512 (:func:`two_phase`)."""
+    if mode not in MEA_MODES or two_phase(W):
         return (WORKSPACE_BYTES - 4) // (NUM_STATES * W * 4 + 4)
     per_k = NUM_STATES * W * 4 + 8 + (NUM_STATES + 1) * W * 4 / segment(W)
     k = int(WORKSPACE_BYTES // per_k)
@@ -448,6 +476,54 @@ def _shift(arr, s, fill, base):
     return torch.gather(padded, 2, idx)
 
 
+def _shift_at(arr, idx, pad):
+    """:func:`_shift` with its gather index ``idx`` (B, P, W) and its
+    fill column ``pad`` (B, P, 1) made beforehand."""
+    return torch.gather(torch.cat([pad, arr, pad], dim=2), 2, idx)
+
+
+def _by_chunk(make, first: int, device):
+    """``lookup(k)``: the k-th entries (dim 1) of the tensors ``make(k0,
+    k1)`` gives for diagonals k0 .. k1 - 1, made for LOOKUP_DIAGS
+    diagonals at a time from ``first`` on (one at a time on the CPU with
+    more than one intra-op thread) and read as views: the values one
+    diagonal at a time gives, in a fraction of the operations."""
+    one = torch.device(device).type == "cpu" and torch.get_num_threads() > 1
+    n = 1 if one else LOOKUP_DIAGS
+    held = [None]
+
+    def lookup(k):
+        q = (k - first) // n
+        if held[0] is None or held[0][0] != q:
+            k0 = first + q * n
+            held[0] = (q, k0, make(k0, k0 + n))
+        return tuple(t[:, k - held[0][1]] for t in held[0][2])
+
+    return lookup
+
+
+def _forward_lookups(codes, emf, egf, base):
+    """The per-diagonal lookups of a forward over ``codes`` (B, k_pad, W)
+    int32 (:func:`_by_chunk`): ``lookup(k)`` gives diagonal k's (k >= 1)
+    emission factors [e_m, gx1, gy2, gx3, gy4] (B, 5, W) and the gather
+    index (B, 5, W) of :func:`_shift` by its shifts (d1 + d1p - 1,
+    d1 - 1, d1, d1 - 1, d1), bits 6-7 of its top code."""
+    def make(k0, k1):
+        c = codes[:, k0 - 1:k1 - 1]
+        x = (c >> 3) & 7
+        y = c & 7
+        E = torch.stack([
+            emf[x * 6 + y], egf[6 + x], egf[12 + y], egf[18 + x],
+            egf[24 + y],
+        ], dim=2)
+        top = c[:, :, 0]
+        d1, d1p = (top >> 6) & 1, (top >> 7) & 1
+        S = torch.stack([d1 + d1p - 1, d1 - 1, d1, d1 - 1, d1], dim=2)
+        return E, base + S[..., None]
+
+    return _by_chunk(make, 1, codes.device)
+
+
 def _seq_sum(prod):
     """Sum over dim 2 of (B, D, 5, W) in source order 0..4, each add
     rounded on its own (the kernel's order)."""
@@ -462,17 +538,20 @@ def em_lanes(W: int) -> int:
     owning W / L adjacent band cells: one warp's 32 up to W = 128 (a lane
     a cell below 32, the CPU's), then W / 4, the kernel's groups of
     W / 128 warps of 4 cells a lane (64 at W = 256, 96 at 384, 128 at
-    512; the CPU's wider bands, laid into the next power of two, follow
-    the same rule)."""
+    512, 192 at 768, 256 at 1024; the CPU's wider bands, laid into the
+    next power of two, follow the same rule)."""
     return min(W, 32) if W <= 128 else W // 4
 
 
 def em_width(W: int) -> int:
     """The lanes the EM mode's plain version lays a band of ``W`` lanes
-    into: the next power of two, but 384 for 257 to 384, the kernel's
-    layout (``ops.pack.padded_width``), so the lane sums add in the
-    kernel's order."""
-    return 384 if 256 < W <= 384 else 1 << (W - 1).bit_length()
+    into: from 129 to 1024 the kernel's layout (``ops.pack.padded_width``:
+    384 for 257 to 384, 768 for 513 to 768), so the lane sums add in the
+    kernel's order; elsewhere (a lane a cell up to 32, and the CPU's
+    bands above 1024) the next power of two."""
+    if 128 < W <= KERNEL_BAND_WIDTHS[-1]:
+        return padded_width(W)
+    return 1 << (W - 1).bit_length()
 
 
 def _lane_add(acc, v):
@@ -538,9 +617,9 @@ def realign_em_plain(xyc, m, n, params: KernelParams,
     lane sums want the kernel's layout: codes of another width are laid
     into :func:`em_width` lanes, their new lanes dead (all sentinel),
     which add +0.0 to every count (a band of 129 to 256 in 256 lanes,
-    257 to 384 in 384 and 385 to 512 in 512, as the card lays them;
-    above 512, which only the CPU serves, 1,024 or more lanes, summed
-    over ``em_lanes`` of them)."""
+    257 to 384 in 384, 385 to 512 in 512, 513 to 768 in 768 and 769 to
+    1024 in 1024, as the card lays them; above 1024, which only the CPU
+    serves, 2,048 or more lanes, summed over ``em_lanes`` of them)."""
     W = xyc.shape[2]
     wl = live_width(band_width, W)
     xyc = pad_lanes(xyc, em_width(W))
@@ -592,19 +671,38 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
     w0[0] = True
     live = torch.arange(W, device=dev) < wl
     codes = xyc.to(torch.int32) & 0xFF
+    ones = torch.ones(B, dtype=f32, device=dev)
+    pad0 = torch.zeros((B, NUM_STATES, 1), dtype=f32, device=dev)
+    pad_neg = torch.full((B, 3, 1), NEG, dtype=f32, device=dev)
+    # d1 (bit 6) of every diagonal, 0 past k_pad
+    d1_all = torch.zeros((B, k_pad + 3), dtype=torch.int32, device=dev)
+    d1_all[:, 1:k_pad + 1] = (codes[:, :, 0] >> 6) & 1
+    emissions = _forward_lookups(codes, emf, egf, base)
 
-    def emissions(k):
-        """[e_m, gx1, gy2, gx3, gy4] (B, 5, W) and bits (d1, d1p) of
-        diagonal k >= 1."""
-        c = codes[:, k - 1]
-        x = (c >> 3) & 7
-        y = c & 7
-        E = torch.stack([
-            emf[x * 6 + y], egf[6 + x], egf[12 + y], egf[18 + x],
-            egf[24 + y],
-        ], dim=1)
-        top = c[:, 0]
-        return E, (top >> 6) & 1, (top >> 7) & 1
+    def em_bin_masks(k0, k1):
+        """The bins of the EM sums of diagonals k0 .. k1 - 1 (>= 1):
+        (B, n, 16, W), (B, n, 4, W) and (B, n, 4, W) masks, the match
+        state's by (x, y), the delete states' by x, the insert states' by
+        y (codes 0-3 only)."""
+        c = codes[:, k0 - 1:k1 - 1]
+        x = ((c >> 3) & 7)[:, :, None, :]
+        y = (c & 7)[:, :, None, :]
+        cell = torch.where((x < 4) & (y < 4), x * 4 + y, -1)
+        return cell == bins16[:, None], x == bins4[:, None], y == bins4[:, None]
+
+    def bwd_indices(k0, k1):
+        """The backward's gather indices (B, n, 5, W) onto diagonals
+        k0 .. k1 - 1 (>= 0), by the deltas d1n1, d1n2 of the two
+        diagonals above each, and d1n1 (B, n)."""
+        k1 = min(k1, k_pad + 1)
+        d1n1 = d1_all[:, k0 + 1:k1 + 1]
+        d1n2 = d1_all[:, k0 + 2:k1 + 2]
+        d2n2 = d1n1 + d1n2 - 1
+        S = torch.stack([-d2n2, 1 - d1n1, -d1n1, 1 - d1n1, -d1n1], dim=2)
+        return base + S[..., None], d1n1
+
+    em_bins = _by_chunk(em_bin_masks, 1, dev)
+    bwd_index = _by_chunk(bwd_indices, 0, dev)
 
     # ---------------- forward ----------------
     F = torch.zeros((B, k_pad + 1, NUM_STATES, W), dtype=f32, device=dev)
@@ -620,21 +718,21 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
     tiny = torch.tensor(1e-37, dtype=f32, device=dev)
     for k in range(1, k_pad + 1):
         rescale = k % 2 == 0
-        E, d1, d1p = emissions(k)
+        # shifts (d1 + d1p - 1, d1 - 1, d1, d1 - 1, d1), as _shift takes
+        E, idx = emissions(k)
         # destination 0 (match) takes the diagonal two back, the others
         # the diagonal one back; transitions summed before the shifts
         src = torch.cat([
             prevprev[:, None], prev[:, None].expand(B, 4, NUM_STATES, W)
         ], dim=1)
         T = _seq_sum(tfT[None, :, :, None] * src)
-        S = torch.stack([d1 + d1p - 1, d1 - 1, d1, d1 - 1, d1], dim=1)
-        Ts = _shift(T, S, 0.0, base)
-        r = rs if not rescale else torch.ones_like(rs)
+        Ts = _shift_at(T, idx, pad0)
+        r = rs if not rescale else ones
         Ts = torch.cat([(Ts[:, 0] * r[:, None])[:, None], Ts[:, 1:]], dim=1)
         new = E * Ts
         if rescale:
             scale = new.amax(dim=(1, 2))
-            safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+            safe = torch.where(scale > 0, scale, ones)
             inv = 1.0 / safe
             new = new * inv[:, None, None]
             y_ = torch.log(safe) - ls_c
@@ -669,8 +767,6 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
     # match emission of k+2; beyond the lattice they are zero
     E1 = torch.zeros((B, NUM_STATES, W), dtype=f32, device=dev)
     em2 = zeros_bw
-    zi = torch.zeros(B, dtype=torch.int32, device=dev)
-    d1n1 = d1n2 = zi
     end_band = torch.zeros((NUM_STATES, W), dtype=f32, device=dev)
     end_band[:, 0] = 1.0
     end_u = torch.where(w0, 0.0, NEG).to(f32)
@@ -698,13 +794,14 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
     score = None
     for k in range(k_pad, -1, -1):
         rescale = k % 2 == 1 or k == 0
-        d2n2 = d1n1 + d1n2 - 1
+        # shifts (-d2n2, 1 - d1n1, -d1n1, 1 - d1n1, -d1n1) by the deltas
+        # d1n1, d1n2 of diagonals k+1, k+2, with d2n2 = d1n1 + d1n2 - 1
+        idx, d1n1 = bwd_index(k)
         P = torch.stack([
             b2[:, 0] * em2, b1[:, 1] * E1[:, 1], b1[:, 2] * E1[:, 2],
             b1[:, 3] * E1[:, 3], b1[:, 4] * E1[:, 4],
         ], dim=1)  # [M, D1, I1, D2, I2] destinations
-        S = torch.stack([-d2n2, 1 - d1n1, -d1n1, 1 - d1n1, -d1n1], dim=1)
-        dest = _shift(P, S, 0.0, base)
+        dest = _shift_at(P, idx, pad0)
         dest = torch.cat([(dest[:, 0] * binv[:, None])[:, None], dest[:, 1:]],
                          dim=1)
         new = _seq_sum(tf[None, :, :, None] * dest[:, None, :, :])
@@ -713,11 +810,11 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
         new = torch.where(live, new, 0.0)
         if rescale:
             scale = new.amax(dim=(1, 2))
-            safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+            safe = torch.where(scale > 0, scale, ones)
             inv = 1.0 / safe
             new = new * inv[:, None, None]
         else:
-            safe = inv = torch.ones(B, dtype=f32, device=dev)
+            safe = inv = ones
         factor_trans = g_next * sfinv[:, k + 1]
         if emit_em:
             # xi_k[s, t] without its tf factor; ``dest`` is the value
@@ -749,14 +846,8 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
         if emit_em:
             if k == 0:
                 break  # diagonal 0 holds no base: nothing to bin
-            c = codes[:, k - 1]
-            x = ((c >> 3) & 7)[:, None, :]
-            y = (c & 7)[:, None, :]
-            cell = torch.where((x < 4) & (y < 4), x * 4 + y, -1)
-            acc_m = _lane_add(
-                acc_m, torch.where(cell == bins16, gamma[:, 0:1], zero))
-            ohx = x == bins4
-            ohy = y == bins4
+            m16, ohx, ohy = em_bins(k)
+            acc_m = _lane_add(acc_m, torch.where(m16, gamma[:, 0:1], zero))
             acc_d = _lane_add(acc_d, torch.cat([
                 torch.where(ohx, gamma[:, 1:2], zero),
                 torch.where(ohx, gamma[:, 3:4], zero)], dim=1))
@@ -769,8 +860,7 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
             g_i = gamma[:, 2] + gamma[:, 4]
             V = torch.stack([(u2 + gm2) - mg, u1 + gg * gd1, u1 + gg * gi1],
                             dim=1)
-            Vs = _shift(V, torch.stack([-d2n2, 1 - d1n1, -d1n1], dim=1), NEG,
-                        base)
+            Vs = _shift_at(V, idx[:, :3], pad_neg)
             diag_t, left_t, up_t = Vs[:, 0], Vs[:, 1], Vs[:, 2]
             best = torch.maximum(torch.maximum(diag_t, left_t), up_t)
             choice = torch.where(
@@ -788,10 +878,8 @@ def _realign_plain(xyc, m, n, params: KernelParams, gap_gamma: float,
         elif k == 0:
             break
         b2, b1, binv, g_next = b1, new, inv, g_k
-        Ek, d1k, _ = emissions(k)
         em2 = E1[:, 0]
-        E1 = Ek
-        d1n2, d1n1 = d1n1, d1k
+        E1 = emissions(k)[0]
     if mea:
         out = {"loglik": loglik, "score": score, "dirs": dirs}
         if want_gamma:

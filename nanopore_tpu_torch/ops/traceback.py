@@ -32,12 +32,13 @@ them up to its start diagonal and subtracts them going down.
 The kernels (``csrc/traceback.cu``, ``csrc/viterbi_traceback.cu``, the
 latter with a walk of each plane) run one warp per read, stage its rows
 through shared memory and walk them with one lane; each serves its
-path's band widths (the MEA walker ``KERNEL_BAND_WIDTHS``, the Viterbi
-walker ``VITERBI_BAND_WIDTHS``: 32, 64, 128, 256, 384 and 512), four
-reads a block, two where a row is 256 bytes and one where it is more
-(the full plane at 256 to 512, the byte rows at 384 and 512; the full
-plane's rows above 512 bytes, at 384 and 512, in chunks of 64
-diagonals, the others 128).  The plain versions serve any width.
+path's band widths (the MEA walker ``KERNEL_BAND_WIDTHS``: 32, 64, 128,
+256, 384, 512, 768 and 1024; the Viterbi walker ``VITERBI_BAND_WIDTHS``:
+the same to 512), four reads a block, two where a row is 256 bytes and
+one where it is more (the full plane at 256 to 512, the byte rows at
+384 to 1024; the rows above 512 bytes, the full plane's at 384 and 512
+and the bytes at 768 and 1024, in chunks of 64 diagonals, the others
+128).  The plain versions serve any width.
 """
 
 from __future__ import annotations
@@ -89,11 +90,16 @@ def walker_shared_memory(W: int) -> dict:
     width ``W`` takes (bytes: 4 reads a block, 2 where a row is 256
     bytes, the full plane at W = 128 and the byte rows at W = 256, 1
     where it is more, the full plane at W = 256 to 512 and the byte rows
-    at W = 384 and 512; needs the card: builds the kernels)."""
-    return {"traceback": kb.library("traceback", _SIG).np_walk_smem(W),
-            "viterbi_traceback": viterbi_walker_attributes(W)["dynamic_smem"],
-            "viterbi_traceback_full": viterbi_walker_attributes(
-                W, True)["dynamic_smem"]}
+    at W = 384 to 1024; needs the card: builds the kernels).  Above 512
+    only the MEA walker has a build: the Viterbi walkers' entries are
+    then absent."""
+    out = {"traceback": kb.library("traceback", _SIG).np_walk_smem(W)}
+    if W in VITERBI_BAND_WIDTHS:
+        out["viterbi_traceback"] = viterbi_walker_attributes(W)[
+            "dynamic_smem"]
+        out["viterbi_traceback_full"] = viterbi_walker_attributes(
+            W, True)["dynamic_smem"]
+    return out
 
 
 def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,),

@@ -75,6 +75,18 @@ def process_info() -> tuple[int, int]:
     return 0, 1
 
 
+def shutdown_distributed() -> None:
+    """Leave the process group: ``destroy_process_group()`` when a group
+    exists, nothing otherwise.  Whoever joined the group calls it after
+    the last barrier (the multi-host ``run``, or a rank's own code
+    around ``run_mapper(distributed=True)`` or sharded EM, which use the
+    caller's group and leave it to the caller): a group left to the
+    interpreter's exit can abort the process there, "terminate called
+    without an active exception" (ROADMAP C13)."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def is_coordinator() -> bool:
     return process_info()[0] == 0
 

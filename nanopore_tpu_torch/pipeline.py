@@ -164,6 +164,18 @@ def run_pipeline(
     """
     config = config or PipelineConfig()
     device = resolve_device(config.device)
+    # the group a multi-host run joins (``_run_pipeline_impl``) it leaves
+    # after its last barrier and its trace; a caller's group stays
+    joins = dist.process_info()[1] == 1
+    try:
+        return _run_pipeline_traced(working_dir, config, device)
+    finally:
+        if joins:
+            dist.shutdown_distributed()
+
+
+def _run_pipeline_traced(working_dir: str, config: PipelineConfig,
+                         device) -> str:
     profile_dir = os.environ.get("NANOPORE_TPU_PROFILE")
     if not profile_dir:
         return _run_pipeline_impl(working_dir, config, device)

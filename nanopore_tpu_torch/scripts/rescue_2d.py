@@ -9,7 +9,7 @@ runs through the pack kernel, the fused realign kernel in decode mode
 and the MEA walker (the realigner's path), and the metrics match the
 reference's gapped-column walk (muscle_compare_2d.py:72-88).  It runs on
 the card unless ``device="cpu"`` (``--device cpu``) asks for the plain
-PyTorch path; on the card the band width must be 2 to 512 (ROADMAP C10,
+PyTorch path; on the card the band width must be 2 to 1024 (ROADMAP C10,
 C11).
 
 Usage: python -m nanopore_tpu_torch.scripts.rescue_2d \\

@@ -55,6 +55,9 @@ PIPELINE_ARGS = ["--mappers", ",".join(PIPELINE_MAPPERS),
                  "--meta-analyses", "CoverageSummary", "--max-threads", "2",
                  "--em-trials", "1", "--em-iterations", "3"]
 RANK_TIMEOUT = 240  # seconds a group of ranks may take
+# what a rank prints when a process group is left to the interpreter's
+# exit and one of its threads is still joinable (ROADMAP C13)
+ABORT = "terminate called without an active exception"
 
 
 def em_pairs(seed=5, count=4, n_ref=400):
@@ -103,6 +106,7 @@ def wait_all(procs, timeout=RANK_TIMEOUT) -> list:
         logs.append(out)
     for p, log in zip(procs, logs):
         assert p.returncode == 0, "rank failed:\n" + log[-4000:]
+        assert ABORT not in log, "a rank aborted at exit:\n" + log[-4000:]
     return logs
 
 
@@ -173,6 +177,7 @@ def em_worker(rank: int, world: int, port: int, out: str) -> int:
             "traces": arrays["traces"], "best": arrays["best"],
         }
     dist.barrier("done")
+    dist.shutdown_distributed()
     with open(out, "w") as fh:
         json.dump(result, fh)
     return 0
@@ -379,6 +384,7 @@ def c12_worker(rank: int, world: int, port: int, wd: str) -> int:
                       hmm_file_to_train=os.path.join(wd, "ranks_hmm.txt"),
                       em_options=None, distributed=True, device="cpu")
     dist.barrier("done")
+    dist.shutdown_distributed()
     return 0
 
 
@@ -425,6 +431,60 @@ def test_two_rank_em_without_options_trains_at_the_preset_band(c12_models):
     assert rel(got[want != 0], want[want != 0]) <= 1e-9
     nz = solo[64] != 0
     assert rel(got[nz], solo[64][nz]) > 1e-6
+
+
+# ---- the group left at the end of a multi-host run (ROADMAP C13) ------ #
+
+def test_shutdown_distributed_without_a_group_does_nothing():
+    import torch.distributed
+
+    from nanopore_tpu_torch.parallel import distributed as dist
+
+    assert not torch.distributed.is_initialized()
+    dist.shutdown_distributed()
+    dist.shutdown_distributed()
+    assert dist.process_info() == (0, 1)
+
+
+def test_two_ranks_of_run_leave_the_group_and_exit_cleanly(tmp_path):
+    """Two ranks of ``python -m nanopore_tpu_torch run --device cpu``
+    (one mapper, one analysis), each with its own stderr: both exit 0,
+    neither aborts at exit (``run_pipeline`` joins the gloo group and
+    ``shutdown_distributed`` leaves it after the last barrier), and the
+    experiment's SAM is there."""
+    from test_multihost import _make_working_dir
+
+    wd = _make_working_dir(tmp_path)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "nanopore_tpu_torch", "run", wd,
+         "--device", "cpu", "--mappers", "LastParamsChain",
+         "--analyses", "GlobalCoverage", "--meta-analyses", "",
+         "--max-threads", "1"],
+        env=rank_env(NANOPORE_TPU_COORDINATOR="localhost:%d" % port,
+                     NANOPORE_TPU_NUM_PROCESSES="2",
+                     NANOPORE_TPU_PROCESS_ID=str(r)),
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    errs = []
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=RANK_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.communicate()
+            pytest.fail("a rank did not finish within %d s" % RANK_TIMEOUT)
+        errs.append(err)
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        assert ABORT not in err, "rank %d aborted at exit:\n%s" % (
+            r, err[-4000:])
+        assert p.returncode == 0, "rank %d exited %d:\n%s" % (
+            r, p.returncode, err[-4000:])
+    sam = os.path.join(wd, "output", "analysis_2d",
+                       "experiment_reads.fq_ref.fa_LastParamsChain",
+                       "mapping.sam")
+    assert os.path.exists(sam)
 
 
 if __name__ == "__main__":

@@ -170,6 +170,49 @@ def test_padding_diagonals_do_not_change_results():
     assert torch.equal(short["dirs"], long_["dirs"][:, :K1])
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_plain_lookups_in_batches_give_the_one_at_a_time_bits(monkeypatch,
+                                                             chunk):
+    """The plain versions take their code lookups (emission factors,
+    shift indices, EM bins) ``LOOKUP_DIAGS`` diagonals at a time on one
+    intra-op thread and one at a time on several: every mode and the
+    forward-only loglik give the same bits either way, at a chunk that
+    divides nothing (7) and at the card's 64, on a live width with dead
+    lanes over several chunks."""
+    from nanopore_tpu_torch.ops import forward as port_forward
+
+    pairs = mixed_pairs(np.random.default_rng(29))
+    prep = pack_stream_pairs(pairs, 48, lanes=64)
+    t = torch.from_numpy
+    m, n = t(prep["m"]), t(prep["n"])
+    xyc = pack_xyc(t(prep["stream"]), t(prep["initx"]), m, n, 48)
+    params = make_kernel_params(PairHmmModel.random(np.random.default_rng(5)))
+
+    def outputs():
+        return [
+            port_realign.realign_decode_plain(xyc, m, n, params, 0.5, 0.1,
+                                              True, 48),
+            port_realign.realign_em_plain(xyc, m, n, params, 48),
+            port_realign.realign_gamma_plain(xyc, m, n, params, 48),
+            port_realign.realign_exp_plain(xyc, m, n, params, 1e-3, 48),
+            {"loglik": port_forward.forward_loglik_plain(xyc, m, n, params)},
+        ]
+
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(2)  # one diagonal at a time
+        want = outputs()
+        torch.set_num_threads(1)
+        monkeypatch.setattr(port_realign, "LOOKUP_DIAGS", chunk)
+        got = outputs()
+    finally:
+        torch.set_num_threads(before)
+    for g, w in zip(got, want):
+        for key in w:
+            assert torch.equal(g[key].isnan(), w[key].isnan()), key
+            assert torch.equal(g[key].nan_to_num(7.0), w[key].nan_to_num(7.0)), key
+
+
 # ---- the kernel's launch plan (ops.realign.workspace_plan) ----
 
 PLAN_W = 64

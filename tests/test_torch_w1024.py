@@ -1,0 +1,393 @@
+"""Band widths 513 to 1024 in the port's W = 768 and W = 1024 layouts (the
+MEA path), on the CPU, against the JAX package's XLA-scan route at the
+same width.
+
+A band of live width 512 < w <= 768 lies in the first w lanes of
+W = 768 lanes, and 768 < w <= 1024 in W = 1024
+(``ops.pack.padded_width``), its dead lanes all sentinel, on either
+device.  On the card the MEA path's kernels serve these widths: the
+pack, the MEA walker, and the realign kernel's five modes on one group
+of six or eight warps in two phases (csrc/realign.cu ``two_phase``).
+At w = 600 (dead lanes in W = 768), 768 (none), 900 (in W = 1024) and
+1024 (none), on the first two of ``width_pairs()``' reads (a pure
+match, a long deletion):
+
+* the packed codes: lanes < w those of the JAX package's packs at w,
+  lanes >= w the sentinel with the row's bits 6-7; and a numpy model of
+  csrc/pack.cu's chunks at W = 768 and 1024 (a buffer's head of W
+  symbols reaching three and four chunks of 256 back) byte for byte
+  the plain pack;
+* against the JAX package at w: realign loglik <= 1e-5 relative with
+  identical MEA cigars (``realign_fused``); the gamma band <= 5e-5
+  (``forward_backward``); the retire rows and flush <= 5e-5 (the XLA
+  retire scan); EM sums within 3e-5 of each table's largest entry
+  (``em_expectations``);
+* at w = 600 and 900, every realign mode in the padded layout gives,
+  bit for bit in the live lanes, what the plain versions give on the
+  unpadded band;
+* the kernels' own rules: the EM mode's lane sums over six warps
+  (W = 768: warps 3-5 onto 0-2, then warp 2 onto warp 0, then warp 1)
+  and eight (W = 1024: the xor butterfly's three steps across the
+  warps), then one warp's butterfly, in a numpy model; ``em_width``
+  lays 513-768 into 768; the workspace plan of the card's mapping batch
+  at W = 1024 (every mode in the EM mode's slot: 13 launches under the
+  8 GiB cap), each read within ``max_workspace_k``;
+* the width guard without a card: every entry point of the MEA path
+  takes 513, 768 and 1024 past the guard, and refuses 1025 naming C11;
+  the Viterbi path's refuse 513 (tests/test_torch_widest_viterbi.py
+  holds them at 600).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nanopore_tpu.ops import posteriors as jax_post
+from nanopore_tpu.ops.mea import mea_traceback_fwd, realign_fused
+from nanopore_tpu.ops.pairhmm import em_expectations, forward_backward
+from nanopore_tpu.ops.pairhmm import prepare_banded_batch
+from nanopore_tpu.ops.pairhmm_pallas_realign import pack_pallas_pairs
+from nanopore_tpu_torch.align import realign as port_realign_stage
+from nanopore_tpu_torch.ops import dispatch
+from nanopore_tpu_torch.ops import realign as port_realign
+from nanopore_tpu_torch.ops.pack import (
+    MEA,
+    SENT,
+    VITERBI,
+    check_band_width,
+    padded_width,
+)
+from nanopore_tpu_torch.ops.realign import (
+    DIR_NONE,
+    em_lanes,
+    realign_decode,
+    realign_gamma,
+    untile,
+)
+from nanopore_tpu_torch.ops.traceback import mea_walk, rle_ops_batch
+from test_torch_chain_realign import mapped  # noqa: F401
+from test_torch_pack import _plain, _scan_lookup_pack
+from test_torch_wide import (
+    _mea_entry_points,
+    _past_the_guard,
+    _PastTheGuard,
+    _viterbi_entry_points,
+)
+from test_torch_wider_viterbi import one_thread  # noqa: F401
+from test_torch_widths import (
+    EXP_KW,
+    THRESHOLD,
+    _expectations_f32,
+    _jparams,
+    _modes,
+    _packed,
+    _params,
+    _prepared,
+    _valid_cells,
+    width_pairs,
+)
+
+W1024 = (600, 768, 900, 1024)  # dead lanes in W = 768; none; in 1024; none
+PADDED = (600, 900)
+
+
+@pytest.fixture(scope="module")
+def pairs():
+    return width_pairs()[:2]
+
+
+@pytest.fixture(scope="module")
+def layouts(pairs):
+    """Per width: the padded batch, the JAX package's banded batch over
+    the same diagonals and its ``forward_backward`` (the gamma band's
+    and the retire scan's reference)."""
+    out = {}
+    for w in W1024:
+        pad = _packed(pairs, w, padded_width(w))
+        batch = prepare_banded_batch(pairs, band_width=w,
+                                     k_max=pad[0]["k_pad"])
+        out[w] = {"pad": pad, "jax": batch,
+                  "fb": forward_backward(batch, _jparams())}
+    return out
+
+
+# ---- the layout ---------------------------------------------------------- #
+
+@pytest.mark.parametrize("w", W1024)
+def test_packed_codes_are_jax_codes_then_sentinel_lanes(pairs, layouts, w):
+    prep, xyc, _, _ = layouts[w]["pad"]
+    W = 768 if w <= 768 else 1024
+    assert padded_width(w) == W and prep["W"] == W
+    assert prep["band_width"] == w
+    codes = xyc.numpy().view(np.uint8)
+    B, k_pad = len(pairs), prep["k_pad"]
+    assert codes.shape == (B, k_pad, W)
+    host = untile(pack_pallas_pairs(pairs, _jparams(), band_width=w,
+                                    k_max=k_pad)["xyc"], B).view(np.uint8)
+    np.testing.assert_array_equal(codes[:, :, :w], host)
+    np.testing.assert_array_equal(
+        prep["offsets"], np.asarray(layouts[w]["jax"].offsets))
+    dead = codes[:, :, w:]
+    assert dead.shape[2] == W - w
+    assert (dead & 0x3F == SENT).all()
+    assert (dead & 0xC0 == codes[:, :, :1] & 0xC0).all()
+    disp = dispatch.prepared_from_pairs({"device": "cpu"}, pairs, _params(),
+                                        band_width=w, k_max=k_pad,
+                                        exact_k=True)
+    assert disp.batch.band_width == w
+    assert torch.equal(disp.xyc, xyc)
+
+
+@pytest.mark.parametrize("W", [768, 1024])
+def test_pack_kernel_model_wider_than_three_chunks_matches_the_plain_pack(W):
+    """csrc/pack.cu at W = 768 and 1024, bands three and four times its
+    chunk of 256 diagonals, so a buffer's head of W symbols, copied from
+    the last chunk's buffer, reaches back three or four chunks: the
+    numpy model of its buffers (each lookup inside what its chunk and
+    its head wrote) byte for byte the plain pack on random bytes over
+    four chunks, reads shorter than one, across chunks and past k_pad."""
+    rng = np.random.default_rng(W)
+    B, k_pad = 5, 1024
+    stream = rng.integers(0, 256, (B, k_pad)).astype(np.uint8)
+    stream[1] &= 0xBF  # never shifts: Y alone
+    stream[2] |= 0x40  # always shifts: X alone
+    initx = rng.integers(0, 256, (B, W)).astype(np.uint8)
+    m = np.array([40, 300, k_pad + 50, 7, k_pad // 2], np.int32)
+    n = np.array([90, k_pad + 9, 60, 0, k_pad // 2], np.int32)
+    np.testing.assert_array_equal(_scan_lookup_pack(stream, initx, m, n),
+                                  _plain(stream, initx, m, n))
+
+
+@pytest.mark.parametrize("w", PADDED)
+def test_padded_layout_gives_the_unpadded_bits(pairs, layouts, w):
+    """Each output's live lanes are the unpadded band's, bit for bit;
+    the dead lanes hold DIR_NONE in the direction codes and 0 in the
+    gamma band and the flush.  (The plain EM mode lays the unpadded band
+    into the kernel's layout too: ``ops.realign.em_width``.)"""
+    bare = _packed(pairs, w)
+    assert torch.equal(layouts[w]["pad"][1][:, :, :w], bare[1])
+    got = _modes(layouts[w]["pad"], w)
+    want = _modes(bare)
+    for mode in ("decode", "gamma", "exp", "em"):
+        for key, a in got[mode].items():
+            if key in ("dirs", "gamma", "flush"):
+                a = a[:, :, :w]
+            assert torch.equal(a, want[mode][key]), (mode, key)
+    assert (got["decode"]["dirs"][:, :, w:] == DIR_NONE).all()
+    assert (got["decode"]["gamma"][:, :, w:] == 0).all()
+    assert (got["gamma"]["gamma"][:, :, w:] == 0).all()
+    assert (got["exp"]["flush"][:, :, w:] == 0).all()
+
+
+# ---- against the JAX package's XLA scan at the same width ---------------- #
+
+@pytest.mark.parametrize("w", W1024)
+def test_realign_matches_jax_realign_fused(pairs, layouts, w):
+    batch = layouts[w]["jax"]
+    want = realign_fused(batch, _jparams(), segment_size=8)
+    prep, xyc, m, n = layouts[w]["pad"]
+    got = realign_decode(xyc, m, n, _params(), band_width=w)
+    np.testing.assert_allclose(got["loglik"].numpy(),
+                               np.asarray(want["loglik"]), rtol=1e-5)
+    cigars = rle_ops_batch(mea_walk(got["dirs"], xyc, m, n).numpy())
+    offsets = np.asarray(batch.offsets)
+    want_dirs = np.asarray(want["dirs"])
+    for b, (x, y, _) in enumerate(pairs):
+        assert cigars[b] == mea_traceback_fwd(want_dirs[b], offsets[b],
+                                              len(y), len(x))
+
+
+@pytest.mark.parametrize("w", W1024)
+def test_gamma_band_matches_forward_backward(pairs, layouts, w):
+    batch, fb = layouts[w]["jax"], layouts[w]["fb"]
+    want = np.asarray(fb["gamma_match"])
+    prep, xyc, m, n = layouts[w]["pad"]
+    got = realign_gamma(xyc, m, n, _params(), band_width=w)
+    np.testing.assert_allclose(got["loglik"].numpy(),
+                               np.asarray(fb["loglik"]), rtol=1e-5)
+    band = got["gamma"].numpy()[:, :, :w]
+    offsets = np.asarray(batch.offsets)
+    K1 = want.shape[1]
+    for b, (x, y, _) in enumerate(pairs):
+        valid = _valid_cells(offsets[b], K1, w, len(y), len(x))
+        assert np.abs(band[b][:K1][valid] - want[b][valid]).max() <= 5e-5
+
+
+@pytest.mark.parametrize("w", W1024)
+def test_retire_rows_and_flush_match_the_xla_retire_scan(pairs, layouts, w):
+    batch, fb = layouts[w]["jax"], layouts[w]["fb"]
+    want = jax_post.posterior_expectations_batch(
+        fb["gamma_match"], batch.yc, np.asarray(batch.offsets),
+        np.asarray(batch.n), threshold=THRESHOLD)
+    prepared = _prepared(pairs, w, EXP_KW,
+                         prepared_cls=dispatch.PreparedPosteriors)
+    assert prepared.xyc.shape[2] == padded_width(w)
+    out = prepared.run()  # ret and the flush sliced to the live width
+    assert out["flush"].shape[2] == w
+    lite = prepared.batch
+    got = _expectations_f32(out["ret"], out["flush"], lite.offsets, lite.n,
+                            w)
+    for g, e in zip(got, want):
+        assert g.shape == e.shape
+        assert np.abs(g - e).max() <= 5e-5
+
+
+@pytest.mark.parametrize("w", W1024)
+def test_em_sums_match_em_expectations(pairs, w):
+    prepared = _prepared(pairs, w, {}, prepared_cls=dispatch.PreparedEm)
+    assert prepared.xyc.shape[2] == padded_width(w)
+    got = prepared.run(_params())
+    batch = prepare_banded_batch(pairs, band_width=w,
+                                 k_max=prepared.xyc.shape[1])
+    want = em_expectations(batch, _jparams(), segment_size=8)
+    np.testing.assert_allclose(got["loglik"].numpy(),
+                               np.asarray(want["loglik"]), rtol=1e-5)
+    for key in ("trans", "emis"):
+        e = np.asarray(want[key]).reshape(len(pairs), -1)
+        g = got[key].numpy().reshape(len(pairs), -1)
+        assert (np.abs(g - e).max(axis=1) / np.abs(e).max(axis=1)).max() \
+            <= 3e-5, key
+
+
+# ---- the kernels' own rules at W = 768 and 1024 -------------------------- #
+
+def _warp_fold(acc, G):
+    """csrc/realign.cu's fold of the EM sums over G warps in numpy: of
+    the nw warps still holding sums, warps h = ceil(nw / 2) .. nw - 1
+    add onto warps 0 .. nw - h - 1, lane for lane, until one is left;
+    then one warp's xor butterfly (16, 8, 4, 2, 1)."""
+    warps = [acc[..., 32 * i:32 * (i + 1)] for i in range(G)]
+    nw = G
+    while nw > 1:
+        h = (nw + 1) // 2
+        for i in range(nw - h):
+            warps[i] = warps[i] + warps[h + i]
+        nw = h
+    warp = warps[0]
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        warp = warp + warp[..., lanes ^ off]
+    return warp[..., 0]
+
+
+@pytest.mark.parametrize("W", [768, 1024])
+def test_lane_total_folds_six_and_eight_warps_then_one_warps_butterfly(W):
+    """The EM sums lie in W / 4 lanes of 4 cells (the kernel's G = W / 128
+    warps of 32).  At W = 768 warps 3-5 add onto warps 0-2, then warp 2
+    onto warp 0, then warp 1 onto warp 0; at W = 1024 the xor
+    butterfly's three steps across the warps (4-7 onto 0-3, 2-3 onto
+    0-1, 1 onto 0); then one warp's butterfly.  ``_lane_total`` is the
+    numpy model of that order bit for bit, and warps added in turn sum
+    otherwise."""
+    G = W // 128
+    assert em_lanes(W) == 32 * G
+    rng = np.random.default_rng(W)
+    acc = (rng.standard_normal((3, 57, 32 * G))
+           * 10.0 ** rng.uniform(-6, 6, (3, 57, 32 * G))).astype(np.float32)
+    got = port_realign._lane_total(torch.from_numpy(acc)).numpy()
+    want = _warp_fold(acc, G)
+    assert np.array_equal(got, want)
+    if G == 6:
+        w = [acc[..., 32 * i:32 * (i + 1)] for i in range(6)]
+        warp = ((w[0] + w[3]) + (w[2] + w[5])) + (w[1] + w[4])
+        lanes = np.arange(32)
+        for off in (16, 8, 4, 2, 1):
+            warp = warp + warp[..., lanes ^ off]
+        assert np.array_equal(got, warp[..., 0])
+    else:  # the 256-lane xor butterfly is the fold
+        full = acc
+        lanes = np.arange(256)
+        for off in (128, 64, 32, 16, 8, 4, 2, 1):
+            full = full + full[..., lanes ^ off]
+        assert np.array_equal(got, full[..., 0])
+    seq = acc[..., :32]
+    for i in range(1, G):
+        seq = seq + acc[..., 32 * i:32 * (i + 1)]
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        seq = seq + seq[..., lanes ^ off]
+    assert not np.array_equal(got, seq[..., 0])
+
+
+def test_em_width_lays_513_to_768_into_768():
+    assert [port_realign.em_width(w) for w in (512, 513, 600, 768, 769,
+                                               900, 1024, 1025)] == [
+        512, 768, 768, 768, 1024, 1024, 1024, 2048]
+    assert [em_lanes(port_realign.em_width(w)) for w in (600, 900)] == [
+        192, 256]
+
+
+def test_decode_plan_fits_the_mapping_batch_at_1024_in_its_launches():
+    """chip_smoke.py's mapping batch (512 reads, m + n of ~9,750 and up
+    to its k_pad of 10,240) at W = 1024: above 512 the decode and gamma
+    modes keep the EM mode's slot (kq x 5 x W f32 states and the rescale
+    inverses, no checkpoints), ~210 MB a read, so the 8 GiB cap takes 13
+    launches of whole reads, each within the cap and each read within
+    ``max_workspace_k``."""
+    rng = np.random.default_rng(9)
+    m = rng.integers(4700, 5000, 512)
+    n = rng.integers(9_500, 10_240, 512) - m
+    n[0] = 10_240 - m[0]
+    cap = port_realign.WORKSPACE_BYTES
+    kq = 10_240
+    for mode in (port_realign.DECODE, port_realign.DECODE_GAMMA,
+                 port_realign.GAMMA, port_realign.EXP, port_realign.EM):
+        assert port_realign.read_workspace_bytes(kq, 1024, mode) == (
+            kq * 5 * 1024 * 4 + (kq + 4) // 4 * 16)
+    assert port_realign.two_phase(768) and not port_realign.two_phase(512)
+    offsets, launches = port_realign.workspace_plan(
+        m, n, 1024, cap, port_realign.DECODE)
+    assert len(launches) == 13
+    assert launches[0][0] == 0 and launches[-1][1] == 512
+    for (r0, r1), (s0, _) in zip(launches, launches[1:]):
+        assert r1 == s0
+        assert offsets[r1 + 1] - offsets[r0] > cap  # the next read would not fit
+    for r0, r1 in launches:
+        assert offsets[r1] - offsets[r0] <= cap
+    k_max = port_realign.max_workspace_k(1024, port_realign.DECODE)
+    assert (m + n).max() <= k_max
+    assert port_realign.read_workspace_bytes(k_max, 1024,
+                                             port_realign.DECODE) <= cap
+    assert port_realign.read_workspace_bytes(k_max + 2, 1024,
+                                             port_realign.DECODE) > cap
+
+
+# ---- the width guard (ROADMAP C10, C11), without a card ------------------ #
+
+@pytest.mark.parametrize("w", [513, 768, 1024])
+def test_mea_entry_points_take_513_to_1024_past_the_guard(
+        mapped, tmp_path, monkeypatch, w):  # noqa: F811
+    monkeypatch.setattr(port_realign_stage, "chain_sam_file",
+                        _past_the_guard)
+    check_band_width(w, "cuda", MEA)
+    for name, call in _mea_entry_points(mapped, tmp_path, w).items():
+        with pytest.raises((ValueError, _PastTheGuard)) as err:
+            call()
+        assert "C10" not in str(err.value), name
+        assert "C11" not in str(err.value), name
+        if err.type is ValueError:
+            assert "unsupported device" in str(err.value), name
+
+
+def test_the_mea_path_refuses_1025_and_the_viterbi_path_513_naming_c11(
+        mapped, tmp_path, monkeypatch):  # noqa: F811
+    """Each entry point refuses its path's width above the top before any
+    work (no chain, no pack), naming C11; the message gives both tops;
+    the CPU serves either width."""
+    monkeypatch.setattr(port_realign_stage, "chain_sam_file",
+                        _past_the_guard)
+    monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
+    calls = dict(_mea_entry_points(mapped, tmp_path, 1025),
+                 **_viterbi_entry_points(513))
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="C11") as err:
+            call()
+        assert "the MEA path's kernels take widths 2 to 1024" in str(
+            err.value), name
+    for path, w in ((MEA, 1025), (VITERBI, 513)):
+        for device in ("cuda", None):
+            with pytest.raises(ValueError, match="C11"):
+                check_band_width(w, device, path)
+        check_band_width(w, "cpu", path)
+    assert not (tmp_path / "out.sam").exists()
+    assert not (tmp_path / "r").exists()

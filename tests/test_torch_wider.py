@@ -30,11 +30,13 @@ lanes) and w = 256 (none):
 * the decode's workspace plan puts the card's mapping batch at W = 256
   into four launches;
 * the width guard without a card: every entry point of either path
-  takes 129, 200 and 256 past the guard, every path refuses 1, 513,
-  600 and 1024 naming C11 (the MEA path serves 257 to 512 since ROADMAP
-  C11's third step, tests/test_torch_widest.py, the Viterbi path since
-  its fourth, tests/test_torch_widest_viterbi.py), and the CPU serves a
-  band above 512, 600, against the JAX package.
+  takes 129, 200 and 256 past the guard, every path refuses 1, 1025 and
+  2048 and the Viterbi path 513, naming C11 (the MEA path serves 257 to
+  512 since ROADMAP C11's third step, tests/test_torch_widest.py, and
+  513 to 1024 since its fifth, tests/test_torch_w1024.py; the Viterbi
+  path 257 to 512 since its fourth, tests/test_torch_widest_viterbi.py),
+  and the CPU serves 600, in the W = 768 layout, on the Viterbi path too,
+  against the JAX package.
 """
 
 import numpy as np
@@ -376,17 +378,18 @@ def test_viterbi_entry_points_take_129_to_256_past_the_guard(monkeypatch, w):
     viterbi_entry_points_take(w, monkeypatch)
 
 
-@pytest.mark.parametrize("path, w", [(None, 600), (None, 1024),
-                                     (None, 1), (None, 513)])
+@pytest.mark.parametrize("path, w", [(None, 1025), (None, 2048),
+                                     (None, 1), (VITERBI, 513)])
 def test_every_path_refuses_1_and_257_and_above_naming_c11(
         mapped, tmp_path, monkeypatch, path, w):  # noqa: F811
-    """Every path (``path`` None) refuses 1, 513, 600 and 1024 on the
-    card, each entry point naming C11 before any work.  The name keeps
-    the cases this test once held: the Viterbi path refused 257 and 300
-    until ROADMAP C11's fourth step, and the MEA path until its third
-    (both serve 257 to 512 now: tests/test_torch_widest.py and
-    tests/test_torch_widest_viterbi.py), so two widths above 512 take
-    their places."""
+    """Every path (``path`` None) refuses 1, 1025 and 2048 on the card,
+    and the Viterbi path 513, each entry point naming C11 before any
+    work.  The name keeps the cases this test once held: the Viterbi
+    path refused 257 and 300 until ROADMAP C11's fourth step, and the
+    MEA path until its third (both serve 257 to 512 now:
+    tests/test_torch_widest.py and tests/test_torch_widest_viterbi.py;
+    the MEA path 513 to 1024 since the fifth, tests/test_torch_w1024.py),
+    so widths above each path's top take their places."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
@@ -411,14 +414,15 @@ def test_padded_width_lays_129_to_256_into_256(w):
 
 
 def test_the_cpu_serves_300(pairs):
-    """Above 512 (the case once used 300, which the W = 384 layout now
-    takes) the CPU keeps the band unpadded and runs the plain versions:
-    the MEA decode and the Viterbi at 600 against the JAX package's XLA
-    scans at the same width."""
+    """The CPU serves a band the card's Viterbi path does not (the case
+    once used 300, which the W = 384 layout now takes): the MEA decode
+    and the Viterbi at 600, laid into the W = 768 layout on either
+    device (the card's MEA path serves it since ROADMAP C11's fifth
+    step), against the JAX package's XLA scans at the same width."""
     w = 600
     pairs = pairs[:2]
     rea = _prepared(pairs, w, {})
-    assert rea.xyc.shape[2] == w
+    assert rea.xyc.shape[2] == padded_width(w) == 768
     loglik, cigars, _ = rea.decode()
     batch = prepare_banded_batch(pairs, band_width=w, k_max=rea.xyc.shape[1])
     want = realign_fused(batch, _jparams(), segment_size=8)

@@ -41,8 +41,9 @@ long deletion, a long insertion; the five take the file past its time):
   takes 257, 300, 384 and 512 past the guard (the Viterbi path's are
   tests/test_torch_widest_viterbi.py's), and the Viterbi path's kernel
   wrappers take the W = 384 and 512 layouts and refuse 257 and 513
-  lanes; every path refuses 513 naming C11; and the CPU serves 600 (the
-  EM sums against the JAX package's, in 1,024 lanes).
+  lanes; the MEA path refuses 1025 and the Viterbi path 513, naming
+  C11; and the CPU serves 600 (the EM sums against the JAX package's,
+  in the 768 lanes of the card's layout).
 """
 
 import numpy as np
@@ -335,7 +336,7 @@ def test_lane_total_folds_the_warps_then_one_warps_butterfly(W):
 def test_em_width_lays_257_to_384_into_384():
     assert [port_realign.em_width(w) for w in (200, 256, 257, 300, 384,
                                                385, 450, 512, 600)] == [
-        256, 256, 384, 384, 384, 512, 512, 512, 1024]
+        256, 256, 384, 384, 384, 512, 512, 512, 768]
 
 
 def test_decode_plan_fits_the_mapping_batch_at_512_in_its_launches():
@@ -526,17 +527,21 @@ def test_viterbi_entry_points_refuse_257_naming_c11():
 
 def test_every_path_refuses_513_naming_c11(mapped, tmp_path,
                                            monkeypatch):  # noqa: F811
+    """The name keeps the case this test once held, every path's refusal
+    of 513: since ROADMAP C11's fifth step the MEA path serves 513 to
+    1024 (tests/test_torch_w1024.py), so each path is held to its own
+    top, the MEA path refusing 1025 and the Viterbi path 513."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
-    calls = dict(_mea_entry_points(mapped, tmp_path, 513),
+    calls = dict(_mea_entry_points(mapped, tmp_path, 1025),
                  **_viterbi_entry_points(513))
     for name, call in calls.items():
         with pytest.raises(ValueError, match="C11"):
             call()
-    for path in (MEA, VITERBI):
+    for path, w in ((MEA, 1025), (VITERBI, 513)):
         with pytest.raises(ValueError, match="C11"):
-            check_band_width(513, "cuda", path)
+            check_band_width(w, "cuda", path)
     assert not (tmp_path / "out.sam").exists()
     assert not (tmp_path / "r").exists()
 
@@ -544,14 +549,14 @@ def test_every_path_refuses_513_naming_c11(mapped, tmp_path,
 @pytest.mark.parametrize("w", [257, 300, 384, 385, 450, 512])
 def test_padded_width_lays_257_to_512_into_384_and_512(w):
     assert padded_width(w) == (384 if w <= 384 else 512)
-    assert padded_width(513) == 513
+    assert padded_width(513) == 768  # the W = 768 layout (C11's fifth step)
 
 
 def test_the_cpu_serves_600(pairs):
-    """Above 512 the CPU keeps the band unpadded and runs the plain
-    versions: the EM sums at 600, laid into 1,024 lanes (256 lanes of 4
-    cells, the kernel's rule at the next power of two), against the JAX
+    """The CPU runs the plain versions at 600 in the card's W = 768
+    layout (since ROADMAP C11's fifth step; unpadded before): the EM
+    sums, in 192 lanes of 4 cells (six warps' fold), against the JAX
     package's ``em_expectations`` at the same width."""
-    assert padded_width(600) == 600
-    assert port_realign.em_width(600) == 1024 and em_lanes(1024) == 256
+    assert padded_width(600) == 768
+    assert port_realign.em_width(600) == 768 and em_lanes(768) == 192
     _em_against_jax(pairs[:2], 600)

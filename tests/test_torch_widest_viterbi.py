@@ -46,7 +46,7 @@ W = 512) and 512 (none), on tests/test_torch_widths.py's reads:
   the plain walker's ops and end cells, whatever the ring held before;
 * the width guard without a card: every Viterbi entry point takes 257,
   300, 384 and 512 past the guard, and refuses 513 and 600 naming C11,
-  its message giving 2 to 512 for both paths.
+  its message giving the Viterbi path's 2 to 512.
 """
 
 import numpy as np
@@ -338,19 +338,20 @@ def test_viterbi_entry_points_take_257_to_512_past_the_guard(w, monkeypatch):
     """``MappingEngine(decode="viterbi")``, ``PreparedViterbi`` and
     ``PreparedForward`` take w past the guard on the card (the Viterbi
     path's layouts are the MEA path's, to 512)."""
-    assert VITERBI_BAND_WIDTHS == KERNEL_BAND_WIDTHS
+    assert VITERBI_BAND_WIDTHS == KERNEL_BAND_WIDTHS[:6]
     viterbi_entry_points_take(w, monkeypatch)
 
 
 @pytest.mark.parametrize("w", [513, 600])
 def test_the_viterbi_path_refuses_513_and_above_naming_c11(w, monkeypatch):
     """Above 512 every Viterbi entry point refuses the band on the card
-    before any work (no pack), naming C11, and the message gives both
-    paths' 2 to 512; the CPU serves it."""
+    before any work (no pack), naming C11, and the message gives the
+    Viterbi path's 2 to 512 (and the MEA path's 2 to 1024); the CPU
+    serves it."""
     monkeypatch.setattr("nanopore_tpu_torch.ops.dispatch.pack_stream_pairs",
                         _past_the_guard)
     for name, call in _viterbi_entry_points(w).items():
         with pytest.raises(ValueError, match="C11") as err:
             call()
-        assert "both take widths 2 to 512" in str(err.value), name
+        assert "the Viterbi path's 2 to 512" in str(err.value), name
     check_band_width(w, "cpu", VITERBI)
