@@ -20,7 +20,7 @@
    m + n passes, one whose kend is half of m + n must fail at the next
    synchronise (a trap on the device, which leaves the child's context
    unusable).  Then the CPU halves' two processes (``chip_smoke.py
-   --cpu-halves 13,15,16,17,18,19`` and ``--cpu-halves 21``, no card
+   --cpu-halves 13,15,16,17,18,19`` and ``--cpu-halves 21,22``, no card
    visible, their logs in
    ``_build/smoke/cpu_halves/cpu-halves-<phases>_child.log``), started
    here and run beside every card phase: phase 13's reads are mapped on
@@ -346,10 +346,10 @@
    --band-width 200`` on step 13's 8 records against ``--device cpu``
    (records identical; the same launches); ``em_train`` at
    ``EmOptions(band_width=200, trials=1, iterations=2)`` on 16 chained
-   reads against the CPU (3e-5 relative).  On the card the MEA path
+   reads against the CPU (3e-5 relative).  On the card every path
    refuses 1025 (``MappingEngine`` with the MEA decode,
-   ``PreparedRealign``) and the Viterbi path 513 (``MappingEngine`` with
-   its decode, ``PreparedViterbi``, ``PreparedForward``), naming C11.
+   ``PreparedRealign``; ``MappingEngine`` with the Viterbi decode,
+   ``PreparedViterbi``, ``PreparedForward``), naming C11.
 17. Band widths 129 to 256 on the Viterbi path (ROADMAP C11, second
    step), in the child of step 8 after step 15 (its cached card memory
    released first), on that child's copies of the mapping workload and
@@ -491,6 +491,39 @@
    the same launches); ``em_train`` at ``EmOptions(band_width=900,
    trials=1, iterations=2)`` (window pad 32) on 16 chained reads against
    the CPU (3e-5 relative); and step 16's refusals.
+22. Band widths 513 to 1024 on the Viterbi path (ROADMAP C11, sixth
+   step), in the child of step 8 after step 17 (its cached card memory
+   released first; on that child's copies of the mapping workload and
+   of step 13's reads; ``chip_smoke.py --viterbi-w1024`` runs this step
+   alone after the build and the W = 768 and 1024 attributes, on its own
+   copies): the W = 768 and 1024 builds of the Viterbi kernel (its short
+   and 5-way steps and its full plane, the band held by a group of six
+   or eight warps, its stage in dynamic shared memory), the Viterbi
+   walker on both planes (one read a block; the byte rows in chunks of
+   64 diagonals, the full plane's 16-bit rows in chunks of 32) and the
+   forward-only kernel (both gap sums on a group of six or eight warps),
+   whose registers, local memory, static and dynamic shared memory and
+   threads and reads a block are printed after the build.  On step 3's
+   mapping batch (512 reads, the full band of 1024 lanes), as in step
+   19: the Viterbi's two steps and its full plane bit-identical to the
+   plain version's on the first 8 reads, the walker on each plane on
+   every read, the forward-only kernel's two sums on the first 8 reads;
+   each timed on the whole batch, the card's peak memory printed.  On
+   step 13's 64 reads at live widths 600 (in W = 768, its top warp all
+   dead lanes), 768, 900 (in W = 1024, one live lane in the top warp)
+   and 1024, every step against the same plain runs as in step 19, every
+   walk checked to stay in the live band, each timed there and as the
+   same reads' full band of the layout.  The forward-only kernel's group
+   vote at 600 and 900 (the NaN starting in the top live warp's cells,
+   512-599 and 896-899, which alone fail the first failing chunk's
+   check) and its finite switch in 1024 lanes (:data:`N_RUNS_W1024`).
+   Then, each with every counter set to 0 just before:
+   ``MappingEngine(band_width=1024, decode="viterbi")`` on the mapping
+   workload, cold then warm: >= 99 % of primaries at their origin; pack,
+   viterbi and viterbi_traceback launched, nothing else;
+   ``MappingEngine(band_width=900, decode="viterbi")`` on 32 reads on
+   the card and with ``device="cpu"``: records equal, the same
+   launches; and step 16's refusals.
 20. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
    ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
    ``launches_distributed_path``, the sum over the two ranks, a
@@ -508,8 +541,9 @@
    step 19's ``launches_viterbi_widest_map_path`` and
    ``launches_viterbi_widest_engine_path`` and step 21's
    ``launches_w1024_map_path``, ``launches_w1024_engine_path``,
-   ``launches_w1024_realign_path`` and ``launches_w1024_em_path`` on
-   every row, step 13's
+   ``launches_w1024_realign_path`` and ``launches_w1024_em_path`` and
+   step 22's ``launches_viterbi_w1024_map_path`` and
+   ``launches_viterbi_w1024_engine_path`` on every row, step 13's
    ``*_w21`` and ``*_w48`` numbers, step 15's ``*_w96`` and ``*_w128``
    numbers and W = 128 attributes, steps 16's and 17's ``*_w200``,
    ``*_w256`` (the mapping batch) and ``*_live256`` (step 13's reads at
@@ -518,9 +552,9 @@
    their ``ms_full_*`` the full band of 384 and 512 lanes), step 18's
    ``*_live384`` and ``*_live512`` and both steps' ``*_w512`` (the
    mapping batch) numbers and W = 384 and 512 attributes on each path's
-   rows (``*_5way_*`` the other step or sum), step 21's ``*_w600``,
-   ``*_w900``, ``*_live768``, ``*_live1024`` and ``*_w1024`` (the
-   mapping batch) numbers and W = 768 and 1024 attributes on the MEA
+   rows (``*_5way_*`` the other step or sum), steps 21's and 22's
+   ``*_w600``, ``*_w900``, ``*_live768``, ``*_live1024`` and ``*_w1024``
+   (the mapping batch) numbers and W = 768 and 1024 attributes on each
    path's rows;
    ``viterbi_full`` and ``viterbi_traceback_full`` the full-plane modes
    of the Viterbi kernel and its walker) and, last, ``{"ok": true,
@@ -586,6 +620,9 @@ W1024 = (768, 1024)
 W1024_LIVE = (600, 768, 900, 1024)  # dead lanes in W = 768; none; ...
 W1024_CPU = 900  # the live width of its card-against-CPU checks
 W1024_PLAIN_READS = 8  # reads of the mapping batch the plain decode runs on
+# phase 22: the Viterbi path at 513 to 1024 (K4 and K6 on one group of 6
+# or 8 warps); its live widths and plain reads are phase 21's
+W1024_DEAD = (600, 900)  # the top warp all dead; one live lane in it
 # em_train's window pad above W = 256: at the default 256 no read's sums
 # stay in f32 under the random start (0 of 16 at 300, 384 and 450, on
 # either device, as the JAX package's scan loses them), and an iteration
@@ -1058,6 +1095,9 @@ N_RUNS_WIDER = ((600, 150, 250), (560, 100, 300), (640, 200, 220),
 # and for a band of 512
 N_RUNS_WIDEST = ((1200, 300, 500), (1120, 200, 520), (1000, 240, 460),
                  (1100, 300, 540), (1040, 0, 0))
+# and for a band of 1024 (four reads switch mid-read)
+N_RUNS_W1024 = ((2400, 600, 1000), (2240, 400, 1040), (2000, 480, 920),
+                (2200, 600, 1080), (2080, 0, 0))
 
 
 def n_run_case(params, runs=N_RUNS, e_n: float = 1e-40):
@@ -3779,13 +3819,15 @@ def full_plane_phase(engine, pairs, fa: str, fq: str, dev, counters,
 
 # ---- phase 15: band widths 65 to 128 in the W = 128 kernels (MEA path) ---- #
 
-def viterbi_path_attributes(width: int, tag: str) -> dict:
+def viterbi_path_attributes(width: int, tag: str | None = None) -> dict:
     """Print the registers, local-memory (spill) bytes, static and
     dynamic shared memory and threads and reads a block at band width
     ``width`` of the Viterbi kernel's three steps, the forward-only
     kernel's two gap sums and the Viterbi walker on both planes; returns
-    them under ``*<tag>`` by kernel."""
+    them under ``*<tag>`` (by default ``*_w<width>``) by kernel."""
     from nanopore_tpu_torch.ops import forward, traceback, viterbi
+
+    tag = "_w%d" % width if tag is None else tag
 
     builds = [("viterbi %s step" % what, name, sfx,
                viterbi.kernel_attributes(width, step))
@@ -3857,13 +3899,16 @@ def mea_path_attributes(width: int) -> dict:
     return attrs
 
 
-def wide_attributes() -> dict:
-    """The W = 128 builds' attributes (:func:`mea_path_attributes`, and
-    the Viterbi path's through :func:`viterbi_path_attributes`) under
-    ``*_w128`` by kernel."""
-    attrs = mea_path_attributes(WIDE_W)
-    for name, a in viterbi_path_attributes(WIDE_W, "_w%d" % WIDE_W).items():
-        attrs.setdefault(name, {}).update(a)
+def widths_attributes(widths, paths) -> dict:
+    """The attributes of each path's builds at each band width of
+    ``widths`` (``paths``: :func:`mea_path_attributes`,
+    :func:`viterbi_path_attributes` or both) under ``*_w<width>`` by
+    kernel."""
+    attrs = {}
+    for width in widths:
+        for path_attributes in paths:
+            for name, a in path_attributes(width).items():
+                attrs.setdefault(name, {}).update(a)
     return attrs
 
 
@@ -4053,9 +4098,10 @@ def wide_viterbi_checks(xyc, m, n, prep, params, row, width: int, P: int,
           % (width, P))
     del want, steps[V.FIVE_WAY]
     out_b = steps.pop(V.SHORT)
-    # K4-full
+    # K4-full, timed before its plane is held (10.7 GB at W = 1024)
     want, plain_ms = timed(lambda: V.viterbi_forward_full_plain(
         xs, ms_, ns, full_p))
+    ms = cuda_ms(lambda: V.viterbi_forward(xyc, m, n, full_p), 3)
     out_f = V.viterbi_forward(xyc, m, n, full_p)
     if out_f["bp"].dtype != torch.int16:
         fail(phase + ": the Viterbi did not take the full plane")
@@ -4064,9 +4110,7 @@ def wide_viterbi_checks(xyc, m, n, prep, params, row, width: int, P: int,
     bound, by = realign_bound(VITERBI_OPS_PER_CELL, width, need,
                               (need - B) * width + B * K1 * width * 2
                               + 12 * B)
-    row("viterbi_full", cuda_ms(lambda: V.viterbi_forward(xyc, m, n, full_p),
-                                3),
-        plain_ms, P, 0.0, bound, by, 1)
+    row("viterbi_full", ms, plain_ms, P, 0.0, bound, by, 1)
     print("  viterbi_full W=%d: score, fstate and whole int16 plane "
           "bit-identical on %d reads" % (width, P))
     # K5 on each plane, every read
@@ -4290,7 +4334,8 @@ def wide_alone() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card)
     print("build: %.1f s" % build.build())
-    attrs = wide_attributes()
+    attrs = widths_attributes((WIDE_W,), (mea_path_attributes,
+                                          viterbi_path_attributes))
     dev = torch.device("cuda", 0)
     cpu = start_cpu_halves([(15,)], dev)
     workdir = os.path.join(build.BUILD_DIR, "smoke", "wide_alone")
@@ -4357,11 +4402,11 @@ def wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
 
 
 def refusal_check(ref, cfg, engine, pairs, dev, phase: str) -> None:
-    """On the card the MEA path refuses 1025 (``MappingEngine`` with the
-    MEA decode, ``PreparedRealign``) and the Viterbi path 513
-    (``MappingEngine(decode="viterbi")``, ``PreparedViterbi``,
-    ``PreparedForward``), each naming C11 before any work (the rest of
-    C11)."""
+    """On the card every path refuses 1025: the MEA path
+    (``MappingEngine`` with the MEA decode, ``PreparedRealign``) and the
+    Viterbi path (``MappingEngine(decode="viterbi")``,
+    ``PreparedViterbi``, ``PreparedForward``), each naming C11 before any
+    work (the rest of C11)."""
     import dataclasses
 
     from nanopore_tpu_torch.mapping.engine import MappingEngine
@@ -4373,7 +4418,7 @@ def refusal_check(ref, cfg, engine, pairs, dev, phase: str) -> None:
     )
 
     calls = {}
-    tops = {"mea": W1024[-1] + 1, "viterbi": WIDEST_W[-1] + 1}
+    tops = {"mea": W1024[-1] + 1, "viterbi": W1024[-1] + 1}
     for d, w in tops.items():
         c = dataclasses.replace(cfg, band_width=w, decode=d)
         calls[engine_name(c)] = (w, lambda c=c: MappingEngine(
@@ -4410,46 +4455,7 @@ def wider_workloads(workdir: str, dev):
     return engine, pairs, fa, fq, width_workload(workdir, dev)
 
 
-def wider_alone() -> int:
-    """Run as ``chip_smoke.py --wider``: the kernels' build and the
-    W = 256 attributes, then phase 16 alone."""
-    import torch
-
-    sys.path.insert(0, ROOT)
-    from nanopore_tpu_torch.kernels import build
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(card)
-    print("build: %.1f s" % build.build())
-    attrs = mea_path_attributes(WIDER_W)
-    dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([(16,)], dev)
-    workdir = os.path.join(build.BUILD_DIR, "smoke", "wider_alone")
-    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
-    out = wider_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
-    finish_cpu_halves(cpu)
-    for name, a in attrs.items():
-        out["res"].setdefault(name, {}).update(a)
-    print(card)
-    print(json.dumps(out))
-    return 0
-
-
 # ---- phase 18: band widths 257 to 512 in the W = 384 and 512 kernels ---- #
-
-def widest_attributes() -> dict:
-    """The MEA path's W = 384 and 512 builds' attributes
-    (:func:`mea_path_attributes`) under ``*_w384`` and ``*_w512`` by
-    kernel."""
-    attrs = {}
-    for width in WIDEST_W:
-        for name, a in mea_path_attributes(width).items():
-            attrs.setdefault(name, {}).update(a)
-    return attrs
-
 
 def widest_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
                  counters) -> dict:
@@ -4500,57 +4506,35 @@ def widest_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
     return {"res": res, "runs": runs}
 
 
-def widest_alone() -> int:
-    """Run as ``chip_smoke.py --widest``: the kernels' build and the
-    W = 384 and 512 attributes, then phase 18 alone on its own copies of
-    the mapping workload and of phase 13's reads, its CPU halves in
-    their own process."""
-    import torch
-
-    sys.path.insert(0, ROOT)
-    from nanopore_tpu_torch.kernels import build
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(card)
-    print("build: %.1f s" % build.build())
-    attrs = widest_attributes()
-    dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([(18,)], dev)
-    workdir = os.path.join(build.BUILD_DIR, "smoke", "widest_alone")
-    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
-    out = widest_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
-    finish_cpu_halves(cpu)
-    for name, a in attrs.items():
-        out["res"].setdefault(name, {}).update(a)
-    print(card)
-    print(json.dumps(out))
-    return 0
-
-
 # ---- phase 17: band widths 129 to 256 on the Viterbi path ---- #
+
+# the N's position in each read of the pair vote case, above the live
+# width w: w + 100 to w + 280, but at w = 900 (one live lane in the top
+# warp of 1024 lanes) where the N enters that lane in the last few
+# diagonals of a chunk of 64, before the NaN spreads into the warp below
+PAIR_VOTE_AT = {900: (122, 154, 186, 218, 250)}
+
 
 def pair_vote_case(params, w: int = WIDER_LIVE):
     """Reads of w + 300 bases against their windows (8 % substitutions),
     each but the last with one N in its window at a position (w + 100 to
-    w + 280) where it enters the live band of width w at its top, and
-    ``params`` with the first delete state's emission of an N set to
-    NaN: that state turns NaN at the N's cell, in the top warp's cells
-    of a band on a group of warps (128-199 at w = 200 in 256 lanes,
-    256-299 at 300 in 384, 384-449 at 450 in 512), and the NaN spreads
-    down about half a cell a diagonal, so the chunk of 64 diagonals
-    where the two-term sum's check first fails fails in the top warp
-    alone (:func:`warp_checks`).  The last read keeps a finite
-    loglik."""
+    w + 280, :data:`PAIR_VOTE_AT`) where it enters the live band of width
+    w at its top, and ``params`` with the first delete state's emission
+    of an N set to NaN: that state turns NaN at the N's cell, in the top
+    live warp's cells of a band on a group of warps (128-199 at w = 200
+    in 256 lanes, 256-299 at 300 in 384, 384-449 at 450 in 512, 512-599
+    at 600 in 768, 896-899 at 900 in 1024), and the NaN spreads down
+    about half a cell a diagonal, so the chunk of 64 diagonals where the
+    two-term sum's check first fails fails in that warp alone
+    (:func:`warp_checks`).  The last read keeps a finite loglik."""
     from nanopore_tpu_torch.io.sam import CIG
     from nanopore_tpu_torch.ops.pairhmm import params_from_numpy
 
     rng = np.random.default_rng(SEED + 17)
     pairs = []
     L = w + 300
-    for pos in (w + 100, w + 150, w + 200, w + 240, w + 280, None):
+    for at in PAIR_VOTE_AT.get(w, (100, 150, 200, 240, 280)) + (None,):
+        pos = None if at is None else w + at
         x = rng.integers(0, 4, L).astype(np.int8)
         y = np.where(rng.random(L) < 0.08, rng.integers(0, 4, L),
                      x).astype(np.int8)
@@ -4628,7 +4612,9 @@ def forward_pair_vote_check(dev, params, w: int = WIDER_LIVE,
                             phase: str = "phase 17") -> None:
     """K6 at live width ``w`` in its layout (a group of G = W / 128
     warps) on :func:`pair_vote_case`: in each N read the two-term check
-    first fails in a chunk where only the top warp's cells fail it; the
+    first fails in a chunk where only the top live warp's cells fail it
+    (the top warp's but at w = 600 in 768 lanes, whose top warp is all
+    dead lanes); the
     group's vote must send the whole read to the 5-way sum from that
     chunk's start (``switched``), and the loglik must be the plain
     version's (NaN where the NaN reaches the end cell, bit for bit where
@@ -4657,11 +4643,12 @@ def forward_pair_vote_check(dev, params, w: int = WIDER_LIVE,
           "kernel's first 5-way diagonal %s; loglik %s (plain %s)"
           % (W_, w, prep["k_pad"], first, switched, ll.tolist(),
              want.tolist()))
-    top_only = [f is not None and f[1] == (False,) * (G - 1) + (True,)
-                for f in first]
+    top = (w - 1) // 128  # the top live warp
+    alone = (False,) * top + (True,) + (False,) * (G - 1 - top)
+    top_only = [f is not None and f[1] == alone for f in first]
     if top_only != [True] * (len(pairs) - 1) + [False]:
-        fail("%s: the pair vote case does not fail the top warp's check "
-             "alone at W = %d" % (phase, W_))
+        fail("%s: the pair vote case does not fail the top live warp's "
+             "check alone at W = %d" % (phase, W_))
     if switched != [f[0] if f else -1 for f in first]:
         fail("%s: the forward kernel did not send each read to the 5-way "
              "sum at its chunk whose top warp failed (W = %d)" % (phase, W_))
@@ -4759,49 +4746,7 @@ def viterbi_wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
     return {"res": res, "runs": runs}
 
 
-def viterbi_wider_alone() -> int:
-    """Run as ``chip_smoke.py --viterbi-wider``: the kernels' build and
-    the Viterbi path's W = 256 attributes, then phase 17 alone on its
-    own copies of the mapping workload and of phase 13's reads."""
-    import torch
-
-    sys.path.insert(0, ROOT)
-    from nanopore_tpu_torch.kernels import build
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(card)
-    print("build: %.1f s" % build.build())
-    attrs = viterbi_path_attributes(WIDER_W, "_w%d" % WIDER_W)
-    dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([(17,)], dev)
-    workdir = os.path.join(build.BUILD_DIR, "smoke", "viterbi_wider_alone")
-    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
-    out = viterbi_wider_phase(engine, pairs, fa, fq, wl, dev,
-                              launch_counters())
-    finish_cpu_halves(cpu)
-    for name, a in attrs.items():
-        out["res"].setdefault(name, {}).update(a)
-    print(card)
-    print(json.dumps(out))
-    return 0
-
-
 # ---- phase 19: band widths 257 to 512 on the Viterbi path ---- #
-
-def viterbi_widest_attributes() -> dict:
-    """The Viterbi path's W = 384 and 512 builds' attributes
-    (:func:`viterbi_path_attributes`) under ``*_w384`` and ``*_w512`` by
-    kernel."""
-    attrs = {}
-    for width in WIDEST_W:
-        for name, a in viterbi_path_attributes(width,
-                                               "_w%d" % width).items():
-            attrs.setdefault(name, {}).update(a)
-    return attrs
-
 
 def viterbi_widest_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
                          counters) -> dict:
@@ -4852,49 +4797,7 @@ def viterbi_widest_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
     return {"res": res, "runs": runs}
 
 
-def viterbi_widest_alone() -> int:
-    """Run as ``chip_smoke.py --viterbi-widest``: the kernels' build and
-    the Viterbi path's W = 384 and 512 attributes, then phase 19 alone on
-    its own copies of the mapping workload and of phase 13's reads, its
-    CPU half in its own process."""
-    import torch
-
-    sys.path.insert(0, ROOT)
-    from nanopore_tpu_torch.kernels import build
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(card)
-    print("build: %.1f s" % build.build())
-    attrs = viterbi_widest_attributes()
-    dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([(19,)], dev)
-    workdir = os.path.join(build.BUILD_DIR, "smoke", "viterbi_widest_alone")
-    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
-    out = viterbi_widest_phase(engine, pairs, fa, fq, wl, dev,
-                               launch_counters())
-    finish_cpu_halves(cpu)
-    for name, a in attrs.items():
-        out["res"].setdefault(name, {}).update(a)
-    print(card)
-    print(json.dumps(out))
-    return 0
-
-
 # ---- phase 21: band widths 513 to 1024 in the W = 768 and 1024 kernels ---- #
-
-def w1024_attributes() -> dict:
-    """The MEA path's W = 768 and 1024 builds' attributes
-    (:func:`mea_path_attributes`) under ``*_w768`` and ``*_w1024`` by
-    kernel."""
-    attrs = {}
-    for width in W1024:
-        for name, a in mea_path_attributes(width).items():
-            attrs.setdefault(name, {}).update(a)
-    return attrs
-
 
 def w1024_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
                 counters) -> dict:
@@ -4945,34 +4848,57 @@ def w1024_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
     return {"res": res, "runs": runs}
 
 
-def w1024_alone() -> int:
-    """Run as ``chip_smoke.py --widest-1024``: the kernels' build and
-    the W = 768 and 1024 attributes, then phase 21 alone on its own
-    copies of the mapping workload and of phase 13's reads, its CPU
-    halves in their own process."""
+# ---- phase 22: band widths 513 to 1024 on the Viterbi path ---- #
+
+def viterbi_w1024_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
+                        counters) -> dict:
+    """Phase 22 (its checks in the docstring's step 22): the Viterbi
+    path's W = 1024 builds on the mapping batch ``pairs``, its W = 768
+    and 1024 builds in every step at live widths 600, 768, 900 and 1024
+    on phase 13's reads (``wl``), the group vote at 600 and 900 and the
+    finite switch in 1024 lanes, the Viterbi engine at W = 1024 and at
+    900 card against CPU, and the refusals of :func:`refusal_check`.
+    Returns the kernels' ``*_w1024`` (the mapping batch) and live
+    widths' (``*_w600``, ``*_live768``, ...) numbers and each run's
+    launches."""
+    import dataclasses
+
     import torch
 
-    sys.path.insert(0, ROOT)
-    from nanopore_tpu_torch.kernels import build
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(card)
-    print("build: %.1f s" % build.build())
-    attrs = w1024_attributes()
-    dev = torch.device("cuda", 0)
-    cpu = start_cpu_halves([(21,)], dev)
-    workdir = os.path.join(build.BUILD_DIR, "smoke", "w1024_alone")
-    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
-    out = w1024_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
-    finish_cpu_halves(cpu)
-    for name, a in attrs.items():
-        out["res"].setdefault(name, {}).update(a)
-    print(card)
-    print(json.dumps(out))
-    return 0
+    t_phase = time.perf_counter()
+    res, runs = {}, {}
+    top = W1024[-1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    mapping_batch_checks(pairs, engine.params, dev, res, top,
+                         W1024_PLAIN_READS, "phase 22", viterbi=True,
+                         mea=False)
+    print("phase 22: peak device memory of this process on the mapping "
+          "batch %.3f GB" % (torch.cuda.max_memory_allocated(dev) / 1e9))
+    for w in W1024_LIVE:
+        width_kernel_checks(wl["pairs"], w, dev, res, "phase 22", mea=False,
+                            every_step=True)
+    for w in W1024_DEAD:
+        forward_pair_vote_check(dev, engine.params, w, "phase 22")
+    forward_finite_switch_check(dev, engine.params, N_RUNS_W1024, top,
+                                "phase 22")
+    torch.cuda.empty_cache()
+
+    wdir = os.path.join(os.path.dirname(fq), "viterbi_w1024")
+    os.makedirs(wdir, exist_ok=True)
+    ref = read_fasta_dict(fa)
+    vit = dataclasses.replace(engine.config, band_width=top,
+                              decode="viterbi")
+    runs["viterbi_w1024_map"] = warm_engine_run(
+        ref, vit, engine, fq, os.path.join(wdir, "viterbi_w%d.sam" % top),
+        dev, counters, "phase 22", VITERBI_KERNELS)
+    runs["viterbi_w1024_engine"] = engine_card_vs_cpu(
+        ref, dataclasses.replace(vit, band_width=W1024_CPU), engine, fq,
+        wdir, dev, counters, "phase 22", VITERBI_KERNELS)
+    refusal_check(ref, engine.config, engine, pairs, dev, "phase 22")
+    print("phase 22 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return {"res": res, "runs": runs}
 
 
 def full_plane_alone() -> int:
@@ -5030,6 +4956,56 @@ def widths_alone() -> int:
     return 0
 
 
+# ---- the wide phases alone ---- #
+
+def phase_alone(phase: int, run_phase, paths, widths) -> int:
+    """Run as ``chip_smoke.py <flag>`` (:data:`PHASE_ALONE`): the kernels'
+    build and the attributes of ``paths``' builds at ``widths``
+    (:func:`widths_attributes`), then ``run_phase`` (phase ``phase``)
+    alone on its own copies of the mapping workload and of phase 13's
+    reads (:func:`wider_workloads`, under ``smoke/<name>_alone``), its CPU
+    halves in their own process."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from nanopore_tpu_torch.kernels import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    print("build: %.1f s" % build.build())
+    attrs = widths_attributes(widths, paths)
+    dev = torch.device("cuda", 0)
+    cpu = start_cpu_halves([(phase,)], dev)
+    workdir = os.path.join(build.BUILD_DIR, "smoke", run_phase.__name__
+                           .replace("_phase", "_alone"))
+    engine, pairs, fa, fq, wl = wider_workloads(workdir, dev)
+    out = run_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
+    finish_cpu_halves(cpu)
+    for name, a in attrs.items():
+        out["res"].setdefault(name, {}).update(a)
+    print(card)
+    print(json.dumps(out))
+    return 0
+
+
+# the phases that run alone through :func:`phase_alone`: flag -> (phase,
+# its function, the paths and widths of the builds it holds)
+PHASE_ALONE = {
+    "--wider": (16, wider_phase, (mea_path_attributes,), (WIDER_W,)),
+    "--viterbi-wider": (17, viterbi_wider_phase, (viterbi_path_attributes,),
+                        (WIDER_W,)),
+    "--widest": (18, widest_phase, (mea_path_attributes,), WIDEST_W),
+    "--viterbi-widest": (19, viterbi_widest_phase,
+                         (viterbi_path_attributes,), WIDEST_W),
+    "--widest-1024": (21, w1024_phase, (mea_path_attributes,), W1024),
+    "--viterbi-w1024": (22, viterbi_w1024_phase, (viterbi_path_attributes,),
+                        W1024),
+}
+
+
 # ---- the CPU halves of the card-against-CPU checks (their own process) ---- #
 
 # per phase, the CPU halves of its card-against-CPU checks, in the order
@@ -5047,10 +5023,12 @@ CPU_HALVES = {
     19: (("engine", WIDEST_CPU, "viterbi"),),
     21: (("engine", W1024_CPU, "mea"), ("realign", W1024_CPU),
          ("em", W1024_CPU)),
+    22: (("engine", W1024_CPU, "viterbi"),),
 }
-# the CPU halves' processes of a whole run: phase 21's at W = 1024 (~300 s
-# on one thread) in a second process, beside the first's ~600 s
-CPU_HALF_GROUPS = ((13, 15, 16, 17, 18, 19), (21,))
+# the CPU halves' processes of a whole run: phases 21's and 22's at
+# W = 1024 (~300 s on one thread, then the Viterbi engine's) in a second
+# process, beside the first's ~600 s
+CPU_HALF_GROUPS = ((13, 15, 16, 17, 18, 19), (21, 22))
 CPU_HALF_WAIT = 900  # seconds a card phase waits for a CPU half
 # torch threads of the CPU halves: their plain versions are bound by
 # the cost of each small op, so more threads only take cores from the
@@ -5253,11 +5231,11 @@ def viterbi_child() -> int:
     """Run as ``chip_smoke.py --viterbi`` in a second child process,
     beside the parent's phases 5-7: phase 8 on its own copy of the
     mapping workload (the same seed, so the same batch), then phases 13,
-    14, 15 and 17 (this process's cached card memory released before
-    the last); their
-    kernel rows, the forward entry's and phases 13's, 14's, 15's and
-    17's launch counts written to ``<workdir>/viterbi/result.json`` for
-    the kernels line."""
+    14, 15, 17 and 22 (this process's cached card memory released before
+    each of the last two); their
+    kernel rows, the forward entry's and phases 13's, 14's, 15's, 17's
+    and 22's launch counts written to ``<workdir>/viterbi/result.json``
+    for the kernels line."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -5283,16 +5261,20 @@ def viterbi_child() -> int:
     torch.cuda.empty_cache()  # the card's memory is shared by three processes
     viterbi_wider = viterbi_wider_phase(engine, pairs, fa, fq, wl, dev,
                                         launch_counters())
+    torch.cuda.empty_cache()  # before the W = 1024 planes
+    viterbi_w1024 = viterbi_w1024_phase(engine, pairs, fa, fq, wl, dev,
+                                        launch_counters())
     with open(os.path.join(workdir, "result.json"), "w") as fh:
         json.dump({"res": res, "forward_entry": entry, "widths": widths,
                    "full_plane": full, "wide": wide,
-                   "viterbi_wider": viterbi_wider}, fh)
+                   "viterbi_wider": viterbi_wider,
+                   "viterbi_w1024": viterbi_w1024}, fh)
     return 0
 
 
 def start_child(workdir: str, flag: str, args=(), env=None, log=None):
     """Start ``chip_smoke.py <flag> <args>`` (``--pipeline``: phases
-    10-12, 16, 18 and 19; ``--viterbi``: phases 8, 13, 14, 15 and 17;
+    10-12, 16, 18 and 19; ``--viterbi``: phases 8, 13, 14, 15, 17 and 22;
     ``--cpu-halves``: CPU halves), its output in ``<workdir>/<log, by
     default the flag without dashes>_child.log``, under ``env``
     (default: this process's); it is killed at exit if still running."""
@@ -5406,16 +5388,8 @@ def main() -> int:
         return full_plane_alone()
     if sys.argv[1:] == ["--wide"]:
         return wide_alone()
-    if sys.argv[1:] == ["--wider"]:
-        return wider_alone()
-    if sys.argv[1:] == ["--viterbi-wider"]:
-        return viterbi_wider_alone()
-    if sys.argv[1:] == ["--widest"]:
-        return widest_alone()
-    if sys.argv[1:] == ["--viterbi-widest"]:
-        return viterbi_widest_alone()
-    if sys.argv[1:] == ["--widest-1024"]:
-        return w1024_alone()
+    if len(sys.argv) == 2 and sys.argv[1] in PHASE_ALONE:
+        return phase_alone(*PHASE_ALONE[sys.argv[1]])
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
         return distributed_rank(int(sys.argv[2]), *sys.argv[3:])
     sys.path.insert(0, ROOT)
@@ -5472,18 +5446,9 @@ def main() -> int:
         tag = "" if width == W else "_w32"
         for name, b in smem.items():
             attrs.setdefault(name, {})["smem_block" + tag] = b
-    for name, a in wide_attributes().items():
-        attrs.setdefault(name, {}).update(a)
-    for name, a in mea_path_attributes(WIDER_W).items():
-        attrs.setdefault(name, {}).update(a)
-    for name, a in viterbi_path_attributes(WIDER_W,
-                                           "_w%d" % WIDER_W).items():
-        attrs.setdefault(name, {}).update(a)
-    for name, a in widest_attributes().items():
-        attrs.setdefault(name, {}).update(a)
-    for name, a in viterbi_widest_attributes().items():
-        attrs.setdefault(name, {}).update(a)
-    for name, a in w1024_attributes().items():
+    for name, a in widths_attributes(
+            (WIDE_W, WIDER_W) + WIDEST_W + W1024,
+            (mea_path_attributes, viterbi_path_attributes)).items():
         attrs.setdefault(name, {}).update(a)
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
@@ -5491,7 +5456,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     workdir = os.path.join(build.BUILD_DIR, "smoke")
     counters = launch_counters()
-    # the CPU halves of phases 13, 15-19 and 21 beside every card phase
+    # the CPU halves of phases 13, 15-19, 21 and 22 beside every card phase
     cpu = start_cpu_halves(CPU_HALF_GROUPS, dev)
     kend_guard_check()
     pipeline = start_child(workdir, "--pipeline")
@@ -5556,12 +5521,12 @@ def main() -> int:
         counters)
     mark("phase 21")
     phase8 = finish_child(vit_child, workdir, "--viterbi",
-                          "phases 8, 13, 14, 15 and 17", t_start,
+                          "phases 8, 13, 14, 15, 17 and 22", t_start,
                           os.path.join("viterbi", "result.json"))
     res.update(phase8["res"])
     other_runs = dict(post_launches, **vit_launches)
     for out in (phase8["widths"], phase8["wide"], phase8["viterbi_wider"],
-                w1024):
+                w1024, phase8["viterbi_w1024"]):
         for name, rows in out["res"].items():
             res[name].update(rows)
         other_runs.update(out["runs"])

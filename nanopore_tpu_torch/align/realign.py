@@ -38,7 +38,7 @@ from nanopore_tpu_torch.ops.dispatch import (
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
-from nanopore_tpu_torch.ops.pack import MEA, check_band_width, padded_width
+from nanopore_tpu_torch.ops.pack import check_band_width, padded_width
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.posteriors import rescore_from_post
 from nanopore_tpu_torch.ops.realign import DECODE, max_workspace_k
@@ -255,7 +255,7 @@ def realign_records(
     band width must be one the MEA path's kernels serve, 2 to 1024
     (ROADMAP C10, C11).
     """
-    check_band_width(band_width, device, MEA)
+    check_band_width(band_width, device)
     device = resolve_device(device)
     params = make_kernel_params(model or PairHmmModel.default())
     batch_size = preferred_realign_batch_size(batch_size, device)
@@ -415,7 +415,7 @@ def realign_sam_file(
     i.  Runs on the card unless ``device="cpu"``; there the band width
     (2 to 1024) is checked before the SAM is chained (ROADMAP C10, C11).
     """
-    check_band_width(band_width, device, MEA)
+    check_band_width(band_width, device)
     with tempfile.TemporaryDirectory() as tmp:
         chained = os.path.join(tmp, "chained.sam")
         chain_sam_file(sam_path, chained, read_fastq_path, reference_fasta_path)

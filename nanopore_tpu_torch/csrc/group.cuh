@@ -1,8 +1,9 @@
 // The warps that hold one read's band in the realign, Viterbi and
 // forward-only kernels (csrc/realign.cu, csrc/viterbi.cu,
 // csrc/forward.cu): G = 1 warp up to W = 128, G = 2 at W = 256, 3 at
-// W = 384 and 4 at W = 512, warp wg of the group owning band cells
-// 32 C wg .. 32 C (wg + 1) - 1, lane l of it C adjacent cells.
+// W = 384, 4 at W = 512, 6 at W = 768 and 8 at W = 1024, warp wg of the
+// group owning band cells 32 C wg .. 32 C (wg + 1) - 1, lane l of it C
+// adjacent cells.
 //
 // Across the seam between two warps, values pass through a small shared
 // buffer of two alternating halves, x[2][G][2][N] words (per warp: its

@@ -66,7 +66,12 @@
 //    once), G = 3 at W = 384 and G = 4 at W = 512 (a stage of 25,344 and
 //    33,792 B, still static; at ~168 registers a thread three blocks of
 //    128 threads fit an SM, so 396 of 512 reads are resident at W = 512
-//    and the rest run in a second wave).  A diagonal's band shifts move
+//    and the rest run in a second wave), G = 6 at W = 768 and G = 8 at
+//    W = 1024 (a stage of 50,688 and 67,584 B, past the 48 KB of static
+//    shared memory: there it is dynamic, opted into at launch; at ~168
+//    registers two blocks of 192 threads fit an SM at W = 768 and one of
+//    256 at W = 1024, so 132 of 512 reads are resident at once and the
+//    mapping batch runs in four waves).  A diagonal's band shifts move
 //    one cell of eight arrays across each seam between two warps (the
 //    match state and its argmax by d2, states 2 and 4 and their field
 //    upward, states 1 and 3 and theirs downward): each warp's lane 0
@@ -145,6 +150,14 @@ template <int W>
 struct __align__(16) Stage {
   uint8_t cd[2][CH + 1][W];
 };
+
+// Dynamic shared memory a block takes: one read's stage where the group
+// has more than four warps (past the 48 KB of static shared memory),
+// else none
+template <int C, int G>
+__host__ __device__ constexpr int dynamic_smem() {
+  return G > 4 ? (int)sizeof(Stage<32 * C * G>) : 0;
+}
 
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -231,7 +244,14 @@ viterbi_kernel(Tables tab, const uint8_t* __restrict__ xyc,
   using Out = Word<C, Cell>;
   using Acc = std::conditional_t<sizeof(Out) == 8, uint64_t, uint32_t>;
   __shared__ Emit emit;
-  __shared__ Stage<W> stage[R];
+  Stage<W>* stage;  // the block's reads' stages
+  if constexpr (dynamic_smem<C, G>() > 0) {
+    extern __shared__ __align__(16) unsigned char stage_raw[];
+    stage = reinterpret_cast<Stage<W>*>(stage_raw);
+  } else {
+    __shared__ Stage<W> stage_static[R];
+    stage = stage_static;
+  }
   for (int i = threadIdx.x; i < 64; i += blockDim.x) {
     const int x = i >> 3, y = i & 7;
     emit.em[i] = (x < 5 && y < 5) ? tab.v[25 + x * 6 + y] : NEG;
@@ -435,10 +455,16 @@ int launch_width(int step, const Tables& t, int nreads, cudaStream_t s, const vo
                  const void* m, const void* n, int k_pad, void* score, void* fstate,
                  void* bp) {
   constexpr int R = grp::reads_per_block(G);
+  constexpr int smem = dynamic_smem<C, G>();
   auto kernel = step == STEP_FULL    ? viterbi_kernel<C, STEP_FULL, G>
                 : step == STEP_SHORT ? viterbi_kernel<C, STEP_SHORT, G>
                                 : viterbi_kernel<C, STEP_FIVE_WAY, G>;
-  kernel<<<(nreads + R - 1) / R, R * G * 32, 0, s>>>(
+  if constexpr (smem > 0) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(nreads + R - 1) / R, R * G * 32, smem, s>>>(
       t, (const uint8_t*)xyc, (const int32_t*)m, (const int32_t*)n, nreads, k_pad,
       (float*)score, (int32_t*)fstate, bp);
   return (int)cudaGetLastError();
@@ -446,7 +472,7 @@ int launch_width(int step, const Tables& t, int nreads, cudaStream_t s, const vo
 
 template <int C, int G>
 cudaError_t attrs_width(int step, cudaFuncAttributes* a, int* out) {
-  out[3] = 0;
+  out[3] = dynamic_smem<C, G>();
   out[4] = grp::reads_per_block(G) * G * 32;
   out[5] = grp::reads_per_block(G);
   return cudaFuncGetAttributes(a, step == STEP_FULL    ? viterbi_kernel<C, STEP_FULL, G>
@@ -467,7 +493,7 @@ extern "C" const char* np_cuda_error_string(int e) {
 // plane, bp (nreads, k_pad + 1, W) int8, and the caller may ask for
 // STEP_SHORT only where every gap state g has t[0 -> g] > 0 or
 // t[g -> g] > 0; STEP_FULL (2) writes the full plane, bp int16.  W is 32,
-// 64, 128, 256, 384 or 512.
+// 64, 128, 256, 384, 512, 768 or 1024.
 extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const void* m,
                                  const void* n, int nreads, int k_pad, int W,
                                  int step, void* score, void* fstate, void* bp,
@@ -477,6 +503,10 @@ extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const voi
   Tables t;
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
   cudaStream_t s = (cudaStream_t)stream;
+  if (W == 1024)
+    return launch_width<4, 8>(step, t, nreads, s, xyc, m, n, k_pad, score, fstate, bp);
+  if (W == 768)
+    return launch_width<4, 6>(step, t, nreads, s, xyc, m, n, k_pad, score, fstate, bp);
   if (W == 512)
     return launch_width<4, 4>(step, t, nreads, s, xyc, m, n, k_pad, score, fstate, bp);
   if (W == 384)
@@ -493,15 +523,19 @@ extern "C" int np_viterbi_launch(const float* tables, const void* xyc, const voi
 }
 
 // Registers, local memory (spill) bytes per thread, static and dynamic
-// shared memory bytes per block (no dynamic: the stage is static at
-// every width), threads per block and reads per block of the kernel at
+// shared memory bytes per block (dynamic: the stage at W = 768 and 1024,
+// static below), threads per block and reads per block of the kernel at
 // band width W (`step` as for the launch), into out[6].
 extern "C" int np_viterbi_attrs(int W, int step, int* out) {
   cudaFuncAttributes a;
   cudaError_t e;
   if (step < STEP_FIVE_WAY || step > STEP_FULL)
     return (int)cudaErrorInvalidValue;
-  if (W == 512)
+  if (W == 1024)
+    e = attrs_width<4, 8>(step, &a, out);
+  else if (W == 768)
+    e = attrs_width<4, 6>(step, &a, out);
+  else if (W == 512)
     e = attrs_width<4, 4>(step, &a, out);
   else if (W == 384)
     e = attrs_width<4, 3>(step, &a, out);

@@ -32,15 +32,16 @@
 // of csrc/traceback.cu, going down:
 //  * one warp per read, WARPS = 4 reads a block, but 2 for the full
 //    plane at W = 128 and the byte plane at W = 256, and 1 for the full
-//    plane at W = 256 and for both planes at W = 384 and 512
+//    plane at W = 256 and for both planes at W = 384 to 1024
 //    (walk::reads_per_block);
 //  * o[kstart] (kstart = min(m + n, k_pad)) first, as one warp-parallel
 //    sum of d1[1..kstart]: independent strided loads, then
 //    __reduce_add_sync; meanwhile the first chunks are in flight;
 //  * the warp streams the read's backpointer rows from kstart down into
 //    a shared-memory ring of chunks of CH diagonals (chunk c holds rows
-//    c*CH ..; CH = walk::chunk<W, T>(): 128, but 64 for the full plane's
-//    rows of more than 512 bytes), NBUF - 1 chunks ahead of the walk, by
+//    c*CH ..; CH = walk::chunk<W, T>(): 128, but 64 for rows of more
+//    than 512 bytes and 32 for the full plane's rows of more than 1024),
+//    NBUF - 1 chunks ahead of the walk, by
 //    16-byte cp.async copies, with the column-0 code word of each
 //    diagonal by 4-byte copies (csrc/walk.cuh); one warp scan per chunk
 //    turns bit 6 of those words into the chunk's o[k], carried down from
@@ -56,7 +57,11 @@
 //    the byte ring is K3's (149,680 and 198,832 B, one read a block), and
 //    the int16 ring, whose three chunks of 128 rows of 768 or 1,024 B
 //    would take 294,912 or 393,216 B, stages chunks of 64 diagonals:
-//    148,592 and 197,744 B, one read a block;
+//    148,592 and 197,744 B, one read a block; at W = 768 and 1024 the
+//    byte ring is K3's again (chunks of 64: 148,592 and 197,744 B), and
+//    the int16 rows of 1,536 and 2,048 B take chunks of 32 diagonals
+//    (three of 64 would take 294,912 and 393,216 B): 148,048 and
+//    197,200 B, one read a block;
 //  * one lane walks in shared memory only, jumping straight to its next
 //    diagonal (k - 1 or k - 2).  The walk is software-pipelined: the
 //    state decides the next cell before the current backpointer is
@@ -65,7 +70,8 @@
 //    each op into a shared op row (prefilled with 3) that the warp
 //    stores with 16-byte stores;
 //  * the rows above kstart are filled with 3 by 16-byte stores.
-// Serves W = 32, 64, 128, 256, 384 and 512, the Viterbi kernel's widths.
+// Serves W = 32, 64, 128, 256, 384, 512, 768 and 1024, the Viterbi
+// kernel's widths.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -191,6 +197,8 @@ int attrs_width(int* out) {
 
 template <typename T>
 int attrs_plane(int W, int* out) {
+  if (W == 1024) return attrs_width<1024, T>(out);
+  if (W == 768) return attrs_width<768, T>(out);
   if (W == 512) return attrs_width<512, T>(out);
   if (W == 384) return attrs_width<384, T>(out);
   if (W == 256) return attrs_width<256, T>(out);
@@ -226,7 +234,9 @@ template <typename T>
 int launch_plane(const void* bp, const void* xyc, const void* m, const void* n,
                  const void* fstate, int nreads, int k_pad, int W, void* ops, void* end,
                  cudaStream_t s) {
-  auto fn = W == 512   ? launch_at<512, T>
+  auto fn = W == 1024  ? launch_at<1024, T>
+            : W == 768 ? launch_at<768, T>
+            : W == 512 ? launch_at<512, T>
             : W == 384 ? launch_at<384, T>
             : W == 256 ? launch_at<256, T>
             : W == 128 ? launch_at<128, T>
@@ -243,7 +253,7 @@ int launch_plane(const void* bp, const void* xyc, const void* m, const void* n,
 // (nreads, k_pad + 1, W): the byte plane, int8, or (`full`) the full
 // plane, int16; xyc (nreads, k_pad, W) int8, m, n and fstate (nreads,)
 // int32, ops (nreads, k_pad + 1) int8 and end (nreads, 2) int32 out; W is
-// 32, 64, 128, 256, 384 or 512, and bp is 16-byte aligned.
+// 32, 64, 128, 256, 384, 512, 768 or 1024, and bp is 16-byte aligned.
 extern "C" int np_viterbi_walk_launch(const void* bp, const void* xyc, const void* m,
                                       const void* n, const void* fstate, int nreads,
                                       int k_pad, int W, int full, void* ops, void* end,

@@ -4,7 +4,8 @@
 // backpointers, W cells of type T a diagonal: bytes, or the Viterbi full
 // plane's 16-bit cells; one contiguous range a read) stream
 // into a shared-memory ring of NBUF chunks of chunk<W, T>() diagonals
-// (CH, or CH / 2 where a row is more than 512 bytes), NBUF - 1
+// (CH, CH / 2 where a row is more than 512 bytes, CH / 4 where it is
+// more than 1024), NBUF - 1
 // chunks ahead of the walk, by the lanes' cp.async copies: the rows 16
 // bytes a copy, the column-0 code word of each of the chunk's diagonals
 // (4 bytes a row of the packed band codes, W bytes apart) 4 bytes a
@@ -28,10 +29,14 @@ constexpr unsigned FULL = 0xffffffffu;
 // 16-bit rows at W = 384 and 512, the byte rows at W = 768 and 1024),
 // whose ring of three chunks of CH (294,912 and 393,216 bytes of rows at
 // W = 384 and 512's 16-bit rows, as many at 768 and 1024's bytes) would
-// not fit in the 232,448 a block may opt into
+// not fit in the 232,448 a block may opt into, and CH / 4 where a row is
+// more than 1024 bytes (the full plane's 16-bit rows at W = 768 and
+// 1024: three chunks of CH / 2 would take 294,912 and 393,216 bytes)
 template <int W, typename T>
 __host__ __device__ constexpr int chunk() {
-  return W * (int)sizeof(T) > 512 ? CH / 2 : CH;
+  return W * (int)sizeof(T) > 1024  ? CH / 4
+         : W * (int)sizeof(T) > 512 ? CH / 2
+                                    : CH;
 }
 
 template <int W, typename T = int8_t>
@@ -49,9 +54,10 @@ struct __align__(16) Stage {
 // W = 128, the byte rows at W = 256), whose ring of 4 reads (402,112
 // bytes either) would not fit in the 232,448 a block may opt into, and 1
 // where a row is more: the full plane at W = 256 and the byte rows at
-// W = 512 (198,832 bytes a read), the byte rows at W = 384 (149,680), and
-// the full plane at W = 384 and 512 and the byte rows at W = 768 and
-// 1024 on chunks of CH / 2 (148,592 and 197,744 either)
+// W = 512 (198,832 bytes a read), the byte rows at W = 384 (149,680), the
+// full plane at W = 384 and 512 and the byte rows at W = 768 and 1024 on
+// chunks of CH / 2 (148,592 and 197,744 either), and the full plane at
+// W = 768 and 1024 on chunks of CH / 4 (148,048 and 197,200)
 template <int W, typename T>
 __host__ __device__ constexpr int reads_per_block() {
   return W * (int)sizeof(T) > 256 ? 1 : W * (int)sizeof(T) > 128 ? 2 : WARPS;
@@ -166,7 +172,9 @@ __device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
 // at W = 512 (1 read), as the 16-bit rows at W = 128 (2 reads) and
 // W = 256 (1 read); the 16-bit rows at W = 384 and 512, on chunks of
 // CH / 2, 148,592 and 197,744 (1 read), as the byte rows at W = 768 and
-// 1024: every walker launches under the 232,448 a block may opt into.
+// 1024; the 16-bit rows at W = 768 and 1024, on chunks of CH / 4,
+// 148,048 and 197,200 (1 read): every walker launches under the 232,448
+// a block may opt into.
 template <int W, typename T>
 constexpr int stage_bytes() {
   return reads_per_block<W, T>() * (int)sizeof(Stage<W, T>);

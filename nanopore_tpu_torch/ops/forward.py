@@ -43,7 +43,7 @@ import ctypes
 import torch
 
 from nanopore_tpu_torch.kernels import build as kb
-from nanopore_tpu_torch.ops.pack import VITERBI_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
 from nanopore_tpu_torch.ops.pairhmm import KernelParams, kernel_tables
 from nanopore_tpu_torch.ops.realign import (
     NUM_STATES,
@@ -78,7 +78,8 @@ def kernel_attributes(W: int, two_term: bool = True) -> dict:
     """The compiled kernel's registers, local-memory (spill) bytes per
     thread, static and dynamic shared memory per block (its staged
     chunks are dynamic above W = 256), and threads and reads per block at
-    band width ``W`` (32, 64, 128, 256, 384 or 512), for the two-term or
+    band width ``W`` (32, 64, 128, 256, 384, 512, 768 or 1024), for the
+    two-term or
     the 5-way gap sum (needs the card: builds the kernel)."""
     lib = kb.library("forward", _SIG)
     vals = (ctypes.c_int * 6)()
@@ -122,10 +123,10 @@ def _launch(xyc, m, n, tables, two_term: bool) -> dict:
     ``switched`` (B,) int32: the first diagonal a read computed with the
     5-way sum after a failed check of the two-term sum, or -1."""
     B, k_pad, W = xyc.shape
-    if W not in VITERBI_BAND_WIDTHS or k_pad % 2:
+    if W not in KERNEL_BAND_WIDTHS or k_pad % 2:
         raise ValueError(
             "forward kernel serves W in %s and even k_pad, got W=%d k_pad=%d"
-            % (VITERBI_BAND_WIDTHS, W, k_pad)
+            % (KERNEL_BAND_WIDTHS, W, k_pad)
         )
     out = {"loglik": xyc.new_empty(B, dtype=torch.float32),
            "switched": xyc.new_empty(B, dtype=torch.int32)}

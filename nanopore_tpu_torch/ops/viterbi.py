@@ -67,9 +67,9 @@ import numpy as np
 import torch
 
 from nanopore_tpu_torch.kernels import build as kb
-from nanopore_tpu_torch.ops.pack import VITERBI_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
 from nanopore_tpu_torch.ops.pairhmm import KernelParams, kernel_tables
-from nanopore_tpu_torch.ops.realign import _check_inputs, _shift
+from nanopore_tpu_torch.ops.realign import _by_chunk, _check_inputs, _shift_at
 
 NUM_STATES = 5
 NEG = -1e30
@@ -148,9 +148,10 @@ def short_step(tables: torch.Tensor) -> bool:
 
 def kernel_attributes(W: int, step: int = SHORT) -> dict:
     """The compiled kernel's registers, local-memory (spill) bytes per
-    thread, static and dynamic shared memory per block (no dynamic: its
-    stage is static at every width), and threads and reads per block at
-    band width ``W`` (32, 64, 128, 256, 384 or 512), for its ``step``
+    thread, static and dynamic shared memory per block (its stage is
+    dynamic at W = 768 and 1024, static below), and threads and reads per
+    block at band width ``W`` (32, 64, 128, 256, 384, 512, 768 or 1024),
+    for its ``step``
     (``SHORT``, ``FIVE_WAY`` or ``FULL``; needs the card: builds the
     kernel)."""
     lib = kb.library("viterbi", _SIG)
@@ -185,9 +186,9 @@ def _launch(xyc, m, n, tables, step: int) -> dict:
     (:func:`viterbi_forward` picks it); one count per launch, on
     ``FULL_LAUNCHES`` for the full plane, else on ``LAUNCHES``."""
     B, k_pad, W = xyc.shape
-    if W not in VITERBI_BAND_WIDTHS:
+    if W not in KERNEL_BAND_WIDTHS:
         raise ValueError("viterbi kernel serves W in %s, got %d"
-                         % (VITERBI_BAND_WIDTHS, W))
+                         % (KERNEL_BAND_WIDTHS, W))
     out = {
         "score": xyc.new_empty(B, dtype=torch.float32),
         "fstate": xyc.new_empty(B, dtype=torch.int32),
@@ -233,7 +234,9 @@ def plain_forward(xyc, m, n, tables: torch.Tensor, full: bool) -> dict:
     """The Viterbi recursion on log ``tables`` (:func:`viterbi_tables` or
     :func:`viterbi_full_tables`), vectorised over batch, states and band,
     one loop step per diagonal: the kernel's arithmetic in its order,
-    writing the full plane (``full``) or the byte plane."""
+    writing the full plane (``full``) or the byte plane.  The emissions
+    and the band shifts' gather indices are looked up many diagonals at
+    a time (``ops.realign._by_chunk``), the bits of one at a time."""
     tab = tables.to(xyc.device)
     B, k_pad, W = xyc.shape
     dev = xyc.device
@@ -255,11 +258,15 @@ def plain_forward(xyc, m, n, tables: torch.Tensor, full: bool) -> dict:
     zero_i = torch.zeros((B, NUM_STATES, W), dtype=torch.int32, device=dev)
     weights = torch.tensor(_FULL_SHIFTS if full else _GAP_BITS,
                            dtype=torch.int32, device=dev)[None, :, None]
-    for k in range(1, k_pad + 1):
-        c = codes[:, k - 1]
+
+    def lookups(k0, k1):
+        # diagonals k0 .. k1 - 1: the emissions (B, D, 5, W) and the
+        # gather index (B, D, 5, W) of the shifts by (d2, d1 - 1, d1,
+        # d1 - 1, d1)
+        c = codes[:, k0 - 1:k1 - 1]
         x = (c >> 3) & 7
         y = c & 7
-        top = c[:, 0]
+        top = c[:, :, 0]
         d1 = (top >> 6) & 1
         d2 = d1 + ((top >> 7) & 1) - 1
         okx = x < 5
@@ -267,10 +274,19 @@ def plain_forward(xyc, m, n, tables: torch.Tensor, full: bool) -> dict:
         xs = x.clamp(max=5)
         ys = y.clamp(max=5)
         emit = torch.where(
-            torch.stack([okx & oky, okx, oky, okx, oky], dim=1),
+            torch.stack([okx & oky, okx, oky, okx, oky], dim=2),
             torch.stack([lemf[xs * 6 + ys], legf[6 + xs], legf[12 + ys],
-                         legf[18 + xs], legf[24 + ys]], dim=1),
+                         legf[18 + xs], legf[24 + ys]], dim=2),
             neg)
+        S = torch.stack([d2, d1 - 1, d1, d1 - 1, d1], dim=2)
+        return emit, base + S[..., None]
+
+    lookup = _by_chunk(lookups, 1, dev)
+    neg_pad = torch.full((B, NUM_STATES, 1), NEG, dtype=f32, device=dev)
+    zero_pad = torch.zeros((B, NUM_STATES, 1), dtype=torch.int32,
+                           device=dev)
+    for k in range(1, k_pad + 1):
+        emit, idx = lookup(k)
         # candidates [b, dest, src, w]: the match state reads diagonal
         # k - 2, the gap states k - 1
         src = torch.cat([prevprev[:, None],
@@ -281,9 +297,8 @@ def plain_forward(xyc, m, n, tables: torch.Tensor, full: bool) -> dict:
         for s in range(1, NUM_STATES):
             b = torch.where(cand[:, :, s] > v, s, b)
             v = torch.maximum(v, cand[:, :, s])
-        S = torch.stack([d2, d1 - 1, d1, d1 - 1, d1], dim=1)
-        v = _shift(v, S, NEG, base)
-        b = _shift(b, S, 0, base)
+        v = _shift_at(v, idx, neg_pad)
+        b = _shift_at(b, idx, zero_pad)
         new = torch.maximum(v + emit, neg)
         if full:  # p = bM + bD1 << 3 + bI1 << 6 + bD2 << 9 + bI2 << 12
             p = (b << weights).sum(dim=1)

@@ -34,7 +34,7 @@ from nanopore_tpu_torch.ops.dispatch import (
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
-from nanopore_tpu_torch.ops.pack import MEA, check_band_width
+from nanopore_tpu_torch.ops.pack import check_band_width
 from nanopore_tpu_torch.ops.pairhmm import KernelParams, make_kernel_params
 
 HEADER = (
@@ -123,7 +123,7 @@ def rescue(template_sam, complement_sam, twod_sam, working_dir, output_dir,
     nor the complement SAM maps.  Runs on the card unless
     ``device="cpu"``, in the preferred realign batches (512 reads on the
     card, 4 on the CPU)."""
-    check_band_width(band_width, device, MEA)
+    check_band_width(band_width, device)
     dev = resolve_device(device)
     batch_size = preferred_realign_batch_size(None, dev)
     os.makedirs(output_dir, exist_ok=True)

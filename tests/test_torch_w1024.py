@@ -34,8 +34,8 @@ match, a long deletion):
   8 GiB cap), each read within ``max_workspace_k``;
 * the width guard without a card: every entry point of the MEA path
   takes 513, 768 and 1024 past the guard, and refuses 1025 naming C11;
-  the Viterbi path's refuse 513 (tests/test_torch_widest_viterbi.py
-  holds them at 600).
+  so do the Viterbi path's (tests/test_torch_w1024_viterbi.py holds
+  their 513 to 1024).
 """
 
 import numpy as np
@@ -51,9 +51,7 @@ from nanopore_tpu_torch.align import realign as port_realign_stage
 from nanopore_tpu_torch.ops import dispatch
 from nanopore_tpu_torch.ops import realign as port_realign
 from nanopore_tpu_torch.ops.pack import (
-    MEA,
     SENT,
-    VITERBI,
     check_band_width,
     padded_width,
 )
@@ -359,7 +357,7 @@ def test_mea_entry_points_take_513_to_1024_past_the_guard(
         mapped, tmp_path, monkeypatch, w):  # noqa: F811
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
-    check_band_width(w, "cuda", MEA)
+    check_band_width(w, "cuda")
     for name, call in _mea_entry_points(mapped, tmp_path, w).items():
         with pytest.raises((ValueError, _PastTheGuard)) as err:
             call()
@@ -371,23 +369,25 @@ def test_mea_entry_points_take_513_to_1024_past_the_guard(
 
 def test_the_mea_path_refuses_1025_and_the_viterbi_path_513_naming_c11(
         mapped, tmp_path, monkeypatch):  # noqa: F811
-    """Each entry point refuses its path's width above the top before any
-    work (no chain, no pack), naming C11; the message gives both tops;
-    the CPU serves either width."""
+    """Each entry point refuses a width above the top of its path before
+    any work (no chain, no pack), naming C11: the MEA path's 1025 and
+    the Viterbi path's, which refused 513 until ROADMAP C11's sixth step
+    (tests/test_torch_w1024_viterbi.py holds its 513 to 1024), 1025
+    too; the message gives the top both paths share; the CPU serves
+    either."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
     calls = dict(_mea_entry_points(mapped, tmp_path, 1025),
-                 **_viterbi_entry_points(513))
+                 **_viterbi_entry_points(1025))
     for name, call in calls.items():
         with pytest.raises(ValueError, match="C11") as err:
             call()
-        assert "the MEA path's kernels take widths 2 to 1024" in str(
+        assert "both paths, MEA and Viterbi, take widths 2 to 1024" in str(
             err.value), name
-    for path, w in ((MEA, 1025), (VITERBI, 513)):
-        for device in ("cuda", None):
-            with pytest.raises(ValueError, match="C11"):
-                check_band_width(w, device, path)
-        check_band_width(w, "cpu", path)
+    for device in ("cuda", None):
+        with pytest.raises(ValueError, match="C11"):
+            check_band_width(1025, device)
+    check_band_width(1025, "cpu")
     assert not (tmp_path / "out.sam").exists()
     assert not (tmp_path / "r").exists()

@@ -31,12 +31,14 @@ lanes) and w = 256 (none):
   into four launches;
 * the width guard without a card: every entry point of either path
   takes 129, 200 and 256 past the guard, every path refuses 1, 1025 and
-  2048 and the Viterbi path 513, naming C11 (the MEA path serves 257 to
-  512 since ROADMAP C11's third step, tests/test_torch_widest.py, and
-  513 to 1024 since its fifth, tests/test_torch_w1024.py; the Viterbi
-  path 257 to 512 since its fourth, tests/test_torch_widest_viterbi.py),
-  and the CPU serves 600, in the W = 768 layout, on the Viterbi path too,
-  against the JAX package.
+  2048 and the Viterbi path's entry points alone 1025, naming C11 (the
+  MEA path serves 257 to 512 since ROADMAP C11's third step,
+  tests/test_torch_widest.py, and 513 to 1024 since its fifth,
+  tests/test_torch_w1024.py; the Viterbi path 257 to 512 since its
+  fourth, tests/test_torch_widest_viterbi.py, and 513 to 1024 since its
+  sixth, tests/test_torch_w1024_viterbi.py), and the CPU serves 600, in
+  the W = 768 layout, on the Viterbi path too, against the JAX
+  package.
 """
 
 import numpy as np
@@ -56,9 +58,7 @@ from nanopore_tpu_torch.align import realign as port_realign_stage
 from nanopore_tpu_torch.ops import dispatch
 from nanopore_tpu_torch.ops import realign as port_realign
 from nanopore_tpu_torch.ops.pack import (
-    MEA,
     SENT,
-    VITERBI,
     check_band_width,
     padded_width,
 )
@@ -367,7 +367,7 @@ def viterbi_entry_points_take(w, monkeypatch):
         elif err.type is RuntimeError:
             assert "no CUDA device" in str(err.value), name
     for device in ("cuda", None, "cpu"):
-        check_band_width(w, device, VITERBI)
+        check_band_width(w, device)
 
 
 @pytest.mark.parametrize("w", [129, 200, 256])
@@ -379,17 +379,18 @@ def test_viterbi_entry_points_take_129_to_256_past_the_guard(monkeypatch, w):
 
 
 @pytest.mark.parametrize("path, w", [(None, 1025), (None, 2048),
-                                     (None, 1), (VITERBI, 513)])
+                                     (None, 1), ("viterbi", 1025)])
 def test_every_path_refuses_1_and_257_and_above_naming_c11(
         mapped, tmp_path, monkeypatch, path, w):  # noqa: F811
     """Every path (``path`` None) refuses 1, 1025 and 2048 on the card,
-    and the Viterbi path 513, each entry point naming C11 before any
-    work.  The name keeps the cases this test once held: the Viterbi
-    path refused 257 and 300 until ROADMAP C11's fourth step, and the
-    MEA path until its third (both serve 257 to 512 now:
-    tests/test_torch_widest.py and tests/test_torch_widest_viterbi.py;
-    the MEA path 513 to 1024 since the fifth, tests/test_torch_w1024.py),
-    so widths above each path's top take their places."""
+    and the Viterbi path's entry points alone (``path`` "viterbi") 1025,
+    each entry point naming C11 before any work.  The name keeps the
+    cases this test once held: the Viterbi path refused 257 and 300
+    until ROADMAP C11's fourth step and 513 until its sixth, and the MEA
+    path 257 until its third (both serve 257 to 1024 now:
+    tests/test_torch_widest.py, tests/test_torch_widest_viterbi.py,
+    tests/test_torch_w1024.py and tests/test_torch_w1024_viterbi.py), so
+    widths above the paths' top take their places."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
@@ -400,9 +401,8 @@ def test_every_path_refuses_1_and_257_and_above_naming_c11(
         with pytest.raises(ValueError, match="C11"):
             call()
     for device in ("cuda", None):
-        for p in ((MEA, VITERBI) if path is None else (path,)):
-            with pytest.raises(ValueError, match="C11"):
-                check_band_width(w, device, p)
+        with pytest.raises(ValueError, match="C11"):
+            check_band_width(w, device)
     assert not (tmp_path / "out.sam").exists()
     assert not (tmp_path / "r").exists()
 

@@ -139,16 +139,16 @@ def test_no_viterbi_walk_leaves_the_live_band_on_random_codes():
 
 # ---- the forward-only kernel's pair vote (W = 256) ----------------------- #
 
-def _pair_vote_case(w=200):
+def _pair_vote_case(w=200, at=(100, 150, 200, 240, 280)):
     """Reads of w + 300 bases against their windows, each but the last
     with one N in its window where it enters the live band of width w at
-    its top (w + 100 to w + 280), under the default model with the first
-    delete state's emission of an N at NaN (as chip_smoke.py's pair vote
-    case)."""
+    its top (w + ``at``: w + 100 to w + 280), under the default model
+    with the first delete state's emission of an N at NaN (as
+    chip_smoke.py's pair vote case)."""
     rng = np.random.default_rng(17)
     pairs = []
     L = w + 300
-    for pos in (w + 100, w + 150, w + 200, w + 240, w + 280, None):
+    for pos in [w + a for a in at] + [None]:
         x = rng.integers(0, 4, L).astype(np.int8)
         y = np.where(rng.random(L) < 0.08, rng.integers(0, 4, L),
                      x).astype(np.int8)

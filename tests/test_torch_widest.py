@@ -40,10 +40,10 @@ long deletion, a long insertion; the five take the file past its time):
 * the width guard without a card: every entry point of the MEA path
   takes 257, 300, 384 and 512 past the guard (the Viterbi path's are
   tests/test_torch_widest_viterbi.py's), and the Viterbi path's kernel
-  wrappers take the W = 384 and 512 layouts and refuse 257 and 513
-  lanes; the MEA path refuses 1025 and the Viterbi path 513, naming
-  C11; and the CPU serves 600 (the EM sums against the JAX package's,
-  in the 768 lanes of the card's layout).
+  wrappers take the W = 384, 512, 768 and 1024 layouts and refuse 257
+  and 1025 lanes; every path refuses 1025, naming C11; and the CPU
+  serves 600 (the EM sums against the JAX package's, in the 768 lanes
+  of the card's layout).
 """
 
 import numpy as np
@@ -62,9 +62,7 @@ from nanopore_tpu_torch.align import realign as port_realign_stage
 from nanopore_tpu_torch.ops import dispatch
 from nanopore_tpu_torch.ops import realign as port_realign
 from nanopore_tpu_torch.ops.pack import (
-    MEA,
     SENT,
-    VITERBI,
     check_band_width,
     padded_width,
 )
@@ -478,7 +476,7 @@ def test_mea_entry_points_take_257_to_512_past_the_guard(
         mapped, tmp_path, monkeypatch, w):  # noqa: F811
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
-    check_band_width(w, "cuda", MEA)
+    check_band_width(w, "cuda")
     for name, call in _mea_entry_points(mapped, tmp_path, w).items():
         with pytest.raises((ValueError, _PastTheGuard)) as err:
             call()
@@ -491,12 +489,14 @@ def test_mea_entry_points_take_257_to_512_past_the_guard(
 def test_viterbi_entry_points_refuse_257_naming_c11():
     """The name keeps the case this test once held: the Viterbi path's
     entry points refused a band of 257 on the card, naming C11.  Since
-    ROADMAP C11's fourth step they serve 257 to 512
-    (tests/test_torch_widest_viterbi.py holds their guard), so this
-    holds the level below them: the Viterbi path's kernel wrappers (K4
-    at each step, K5 on both planes, K6 at both sums) take a batch in
-    the W = 384 and 512 layouts, and refuse one of 257 or 513 lanes,
-    which no layout has (a band of live width 257 lies in 384 lanes)."""
+    ROADMAP C11's fourth step they serve 257 to 512, and since its sixth
+    513 to 1024 (tests/test_torch_widest_viterbi.py and
+    tests/test_torch_w1024_viterbi.py hold their guard), so this holds
+    the level below them: the Viterbi path's kernel wrappers (K4 at each
+    step, K5 on both planes, K6 at both sums) take a batch in the
+    W = 384, 512, 768 and 1024 layouts, and refuse one of 257 or 1025
+    lanes, which no layout has (a band of live width 257 lies in 384
+    lanes, one of 1025 on the CPU alone)."""
     from nanopore_tpu_torch.ops import forward as port_forward
     from nanopore_tpu_torch.ops import viterbi as port_viterbi
     from nanopore_tpu_torch.ops.traceback import viterbi_walk
@@ -516,10 +516,10 @@ def test_viterbi_entry_points_refuse_257_naming_c11():
                       lambda bp=bp: viterbi_walk(bp, xyc, m, m, m)]
         return calls
 
-    for W in (384, 512):
+    for W in (384, 512, 768, 1024):
         for call in wrappers(W):
             call()
-    for W in (257, 513):
+    for W in (257, 1025):
         for call in wrappers(W):
             with pytest.raises(ValueError, match="serves? W in"):
                 call()
@@ -529,19 +529,19 @@ def test_every_path_refuses_513_naming_c11(mapped, tmp_path,
                                            monkeypatch):  # noqa: F811
     """The name keeps the case this test once held, every path's refusal
     of 513: since ROADMAP C11's fifth step the MEA path serves 513 to
-    1024 (tests/test_torch_w1024.py), so each path is held to its own
-    top, the MEA path refusing 1025 and the Viterbi path 513."""
+    1024 (tests/test_torch_w1024.py), and since its sixth the Viterbi
+    path too (tests/test_torch_w1024_viterbi.py), so every path is held
+    to the top both share, refusing 1025."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
     calls = dict(_mea_entry_points(mapped, tmp_path, 1025),
-                 **_viterbi_entry_points(513))
+                 **_viterbi_entry_points(1025))
     for name, call in calls.items():
         with pytest.raises(ValueError, match="C11"):
             call()
-    for path, w in ((MEA, 1025), (VITERBI, 513)):
-        with pytest.raises(ValueError, match="C11"):
-            check_band_width(w, "cuda", path)
+    with pytest.raises(ValueError, match="C11"):
+        check_band_width(1025, "cuda")
     assert not (tmp_path / "out.sam").exists()
     assert not (tmp_path / "r").exists()
 

@@ -45,8 +45,10 @@ W = 512) and 512 (none), on tests/test_torch_widths.py's reads:
   W = 384 and 512, on full planes at W = 512 spanning many chunks, gives
   the plain walker's ops and end cells, whatever the ring held before;
 * the width guard without a card: every Viterbi entry point takes 257,
-  300, 384 and 512 past the guard, and refuses 513 and 600 naming C11,
-  its message giving the Viterbi path's 2 to 512.
+  300, 384 and 512 past the guard, and twice each (514, 600, 768 and
+  1024: since ROADMAP C11's sixth step, tests/test_torch_w1024_viterbi.py
+  holds 513 to 1024), and refuses 1025 and 2048 naming C11, its message
+  giving both paths' 2 to 1024.
 """
 
 import numpy as np
@@ -57,8 +59,6 @@ from nanopore_tpu_torch.ops import viterbi as V
 from nanopore_tpu_torch.ops.forward import forward_loglik_plain, two_term_sum
 from nanopore_tpu_torch.ops.pack import (
     KERNEL_BAND_WIDTHS,
-    VITERBI,
-    VITERBI_BAND_WIDTHS,
     check_band_width,
     padded_width,
 )
@@ -336,22 +336,27 @@ def test_the_walkers_ring_of_64_diagonals_gives_the_plain_walk(plane):
 @pytest.mark.parametrize("w", [257, 300, 384, 512])
 def test_viterbi_entry_points_take_257_to_512_past_the_guard(w, monkeypatch):
     """``MappingEngine(decode="viterbi")``, ``PreparedViterbi`` and
-    ``PreparedForward`` take w past the guard on the card (the Viterbi
-    path's layouts are the MEA path's, to 512)."""
-    assert VITERBI_BAND_WIDTHS == KERNEL_BAND_WIDTHS[:6]
+    ``PreparedForward`` take w past the guard on the card, and 2 w too
+    (514 to 1024: the Viterbi path's layouts are the MEA path's, to 1024
+    since ROADMAP C11's sixth step; to 512 before it)."""
+    assert padded_width(w) in KERNEL_BAND_WIDTHS[4:6]
+    assert padded_width(2 * w) in KERNEL_BAND_WIDTHS[6:]
     viterbi_entry_points_take(w, monkeypatch)
+    viterbi_entry_points_take(2 * w, monkeypatch)
 
 
-@pytest.mark.parametrize("w", [513, 600])
+@pytest.mark.parametrize("w", [1025, 2048])
 def test_the_viterbi_path_refuses_513_and_above_naming_c11(w, monkeypatch):
-    """Above 512 every Viterbi entry point refuses the band on the card
-    before any work (no pack), naming C11, and the message gives the
-    Viterbi path's 2 to 512 (and the MEA path's 2 to 1024); the CPU
-    serves it."""
+    """The name keeps the width this test once refused: above 512 until
+    ROADMAP C11's sixth step, above 1024 since.  Every Viterbi entry
+    point refuses the band on the card before any work (no pack), naming
+    C11, and the message gives both paths' 2 to 1024; the CPU serves
+    it."""
     monkeypatch.setattr("nanopore_tpu_torch.ops.dispatch.pack_stream_pairs",
                         _past_the_guard)
     for name, call in _viterbi_entry_points(w).items():
         with pytest.raises(ValueError, match="C11") as err:
             call()
-        assert "the Viterbi path's 2 to 512" in str(err.value), name
-    check_band_width(w, "cpu", VITERBI)
+        assert "both paths, MEA and Viterbi, take widths 2 to 1024" in str(
+            err.value), name
+    check_band_width(w, "cpu")
