@@ -473,7 +473,7 @@
    are printed after the build.  On step 3's mapping batch (512 reads,
    the full band of 1024 lanes): the pack byte-identical and the
    walker's ops identical on every read, the decode to step 3's bars on
-   the first 8 reads at the full diagonal count, in as many launches as
+   the first 4 reads at the full diagonal count, in as many launches as
    its workspace plan (the 8 GiB cap over the EM mode's slot: 13 at
    this width); each timed on the whole batch.
    ``MappingEngine(band_width=1024)`` on the mapping workload, cold then
@@ -506,8 +506,8 @@
    threads and reads a block are printed after the build.  On step 3's
    mapping batch (512 reads, the full band of 1024 lanes), as in step
    19: the Viterbi's two steps and its full plane bit-identical to the
-   plain version's on the first 8 reads, the walker on each plane on
-   every read, the forward-only kernel's two sums on the first 8 reads;
+   plain version's on the first 4 reads, the walker on each plane on
+   every read, the forward-only kernel's two sums on the first 4 reads;
    each timed on the whole batch, the card's peak memory printed.  On
    step 13's 64 reads at live widths 600 (in W = 768, its top warp all
    dead lanes), 768, 900 (in W = 1024, one live lane in the top warp)
@@ -524,6 +524,43 @@
    ``MappingEngine(band_width=900, decode="viterbi")`` on 32 reads on
    the card and with ``device="cpu"``: records equal, the same
    launches; and step 16's refusals.
+23. Band widths 1025 to 2048 (ROADMAP C11, seventh step: the MEA
+   path), in the child of step 8 after step 22 (its cached card memory
+   released first; on that child's copies of the mapping workload and of
+   step 13's reads; ``chip_smoke.py --mea-w2048`` runs this step alone
+   after the build and the W = 1536 and 2048 attributes, on its own
+   copies): the W = 1536 and 2048 builds of the pack (a row of 2048
+   cells is the block's 128 threads' 16), the realign kernel in every
+   mode (a read's band on a thread-block cluster of two blocks of six or
+   eight warps, one an SM, csrc/group.cuh's cluster tier: each block
+   the W = 768 or 1024 build's columns and stage, every exchange a
+   cluster barrier, the EM sums' first fold block 1's warps onto block
+   0's through distributed shared memory) and the MEA walker (one read a
+   block, chunks of 32 diagonals), whose registers, local memory, shared
+   memory and clusters resident at once are printed after the build.  On
+   step 3's mapping batch (512 reads, the full band of 2048 lanes): the
+   pack byte-identical and the decode to step 3's bars on the first 4
+   reads at the full diagonal count, in as many launches as its
+   workspace plan (the 8 GiB cap over the EM mode's slot: ~26 at this
+   width), the walker's ops identical on every read and every walk from
+   the origin to its read's end cell; each timed on the whole batch, the
+   process's peak card memory printed.
+   ``MappingEngine(band_width=2048)`` on the mapping workload, cold then
+   warm, every counter set to 0 before the warm run: >= 99 % of
+   primaries at their origin; pack, realign and traceback launched,
+   nothing else.  On step 13's 64 reads at live widths 1100 (in
+   W = 1536), 1536, 1800 (in W = 2048) and 2048: the pack, every realign
+   mode and the MEA walker against their plain versions to step 13's
+   bars, the dead lanes checked, each timed there and as the same
+   reads' full band of the layout.  Then, each with every counter set
+   to 0 just before: ``MappingEngine(band_width=1800)`` on 32 reads on
+   the card against ``device="cpu"`` (records equal; pack, realign and
+   traceback launched, nothing else); ``cli realign --band-width 1800``
+   on step 13's 8 records against ``--device cpu`` (records identical;
+   the same launches); ``em_train`` at ``EmOptions(band_width=1800,
+   trials=1, iterations=2)`` (window pad 32) on 16 chained reads against
+   the CPU (3e-5 relative); and the refusals (the MEA path's of 2049 and
+   the Viterbi path's of 1025, in steps 16, 18, 19 and 21-23).
 20. Prints the script's wall time, one ``{"kernels": [...]}`` line (a
    ``launches_pipeline_path``, a ``launches_rescue_2d_path``, a
    ``launches_distributed_path``, the sum over the two ranks, a
@@ -543,7 +580,10 @@
    ``launches_w1024_map_path``, ``launches_w1024_engine_path``,
    ``launches_w1024_realign_path`` and ``launches_w1024_em_path`` and
    step 22's ``launches_viterbi_w1024_map_path`` and
-   ``launches_viterbi_w1024_engine_path`` on every row, step 13's
+   ``launches_viterbi_w1024_engine_path`` and step 23's
+   ``launches_w2048_map_path``, ``launches_w2048_engine_path``,
+   ``launches_w2048_realign_path`` and ``launches_w2048_em_path`` on
+   every row, step 13's
    ``*_w21`` and ``*_w48`` numbers, step 15's ``*_w96`` and ``*_w128``
    numbers and W = 128 attributes, steps 16's and 17's ``*_w200``,
    ``*_w256`` (the mapping batch) and ``*_live256`` (step 13's reads at
@@ -555,7 +595,10 @@
    rows (``*_5way_*`` the other step or sum), steps 21's and 22's
    ``*_w600``, ``*_w900``, ``*_live768``, ``*_live1024`` and ``*_w1024``
    (the mapping batch) numbers and W = 768 and 1024 attributes on each
-   path's rows;
+   path's rows, step 23's ``*_w1100``, ``*_w1800``, ``*_live1536``,
+   ``*_live2048`` and ``*_w2048`` (the mapping batch) numbers and
+   W = 1536 and 2048 attributes (with ``clusters_resident_*``) on the
+   MEA path's rows;
    ``viterbi_full`` and ``viterbi_traceback_full`` the full-plane modes
    of the Viterbi kernel and its walker) and, last, ``{"ok": true,
    "device": {...}}``.
@@ -619,10 +662,18 @@ WIDEST_PLAIN_READS = 16  # reads of the mapping batch the plain decode runs on
 W1024 = (768, 1024)
 W1024_LIVE = (600, 768, 900, 1024)  # dead lanes in W = 768; none; ...
 W1024_CPU = 900  # the live width of its card-against-CPU checks
-W1024_PLAIN_READS = 8  # reads of the mapping batch the plain decode runs on
+# reads of the mapping batch the plain versions run on (a depth cut for
+# the script's time, which phase 23 shares)
+W1024_PLAIN_READS = 4
 # phase 22: the Viterbi path at 513 to 1024 (K4 and K6 on one group of 6
 # or 8 warps); its live widths and plain reads are phase 21's
 W1024_DEAD = (600, 900)  # the top warp all dead; one live lane in it
+# phase 23: band widths 1025 to 2048 in the W = 1536 and 2048 kernels of
+# the MEA path (a read's band on a cluster of two blocks, one an SM)
+W2048 = (1536, 2048)
+W2048_LIVE = (1100, 1536, 1800, 2048)  # dead lanes in W = 1536; none; ...
+W2048_CPU = 1800  # the live width of its card-against-CPU checks
+W2048_PLAIN_READS = 4  # reads of the mapping batch the plain versions run on
 # em_train's window pad above W = 256: at the default 256 no read's sums
 # stay in f32 under the random start (0 of 16 at 300, 384 and 450, on
 # either device, as the JAX package's scan loses them), and an iteration
@@ -3871,18 +3922,25 @@ def mea_path_attributes(width: int) -> dict:
     tag = "_w%d" % width
     attrs = {}
     for mode, a in realign.kernel_attributes(width).items():
+        blocks = a["cluster_blocks"]
         print("realign %s W=%d: %d registers, %d bytes of local memory "
               "(spills) a thread, %d + %d bytes of static + dynamic shared "
-              "memory a block of %d threads and %d read(s)"
+              "memory a block of %d threads and %d read(s)%s"
               % (mode, width, a["registers"], a["local_bytes"],
                  a["static_smem"], a["dynamic_smem"], a["threads"],
-                 a["reads"]))
+                 a["reads"], "" if a["clusters"] is None else
+                 "; a read a cluster of %d blocks, %d clusters resident at "
+                 "once" % (blocks, a["clusters"])))
         attrs["realign" if mode == "decode" else "realign_" + mode] = {
             "registers" + tag: a["registers"],
             "local_bytes" + tag: a["local_bytes"],
             "smem_block" + tag: a["static_smem"] + a["dynamic_smem"],
-            "warps_per_read" + tag: a["threads"] // 32 // a["reads"],
+            "warps_per_read" + tag: a["threads"] // 32 // a["reads"]
+            * blocks,
         }
+        if a["clusters"] is not None:
+            attrs["realign" if mode == "decode" else "realign_" + mode][
+                "clusters_resident" + tag] = a["clusters"]
     a = pack.kernel_attributes(width)
     print("pack W=%d: %d registers, %d bytes of local memory a thread, %d "
           "bytes of static shared memory a block of %d threads (one read)"
@@ -3914,14 +3972,17 @@ def widths_attributes(widths, paths) -> dict:
 
 def mapping_batch_checks(pairs, params, dev, res: dict, width: int,
                          plain_reads: int, phase: str,
-                         viterbi: bool = False, mea: bool = True) -> None:
+                         viterbi: bool = False, mea: bool = True,
+                         pack_plain_all: bool = True) -> None:
     """K1, K2 decode and K3 at W = ``width`` on the mapping main path's
     batch (its 512 reads as a band of all ``width`` lanes, the diagonal
     count the engine gives it), each against its plain version to the
-    bars of step 3: the pack and the walker on every read, the decode on
-    the first ``plain_reads`` at the full diagonal count (a read's
-    outputs do not depend on its batch), in its workspace plan's
-    launches; with ``viterbi``, then the Viterbi path's kernels
+    bars of step 3: the pack (on the first ``plain_reads`` without
+    ``pack_plain_all``) and the walker on every read, every walk from
+    the origin to the read's end cell, the decode on the first
+    ``plain_reads`` at the full diagonal count (a read's outputs do not
+    depend on its batch), in its workspace plan's launches; with
+    ``viterbi``, then the Viterbi path's kernels
     (:func:`wide_viterbi_checks`, its plain versions on the first
     ``plain_reads``); with ``mea=False`` those alone (on the pack's
     codes); each timed on the whole batch, into ``res[kernel]`` under
@@ -3958,7 +4019,7 @@ def mapping_batch_checks(pairs, params, dev, res: dict, width: int,
     xyc = pack_xyc(stream, initx, m, n)
     if mea:
         mea_batch_checks(xyc, m, n, stream, initx, prep, params, row, width,
-                         P, phase)
+                         P, phase, B if pack_plain_all else P)
     if viterbi:
         wide_viterbi_checks(xyc, m, n, prep, params, row, width, P, phase)
     del xyc
@@ -3969,9 +4030,11 @@ def mapping_batch_checks(pairs, params, dev, res: dict, width: int,
 
 
 def mea_batch_checks(xyc, m, n, stream, initx, prep, params, row,
-                     width: int, P: int, phase: str) -> None:
-    """The MEA path's rows of :func:`mapping_batch_checks`: K1 on every
-    read, K2 decode on the first ``P``, K3 on every read."""
+                     width: int, P: int, phase: str, PK: int) -> None:
+    """The MEA path's rows of :func:`mapping_batch_checks`: K1 on the
+    first ``PK`` reads, K2 decode on the first ``P``, K3 on every read,
+    each walk from the origin to the read's end cell (m read and n
+    reference bases consumed)."""
     import torch
 
     from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
@@ -3988,15 +4051,23 @@ def mea_batch_checks(xyc, m, n, stream, initx, prep, params, row,
     B, k_pad = xyc.shape[:2]
     kend = prep["k_end"]
     need = int((prep["m"].astype(np.int64) + prep["n"] + 1).sum())
-    xyc_p, plain_ms = timed(lambda: pack_xyc_plain(stream, initx, m, n))
-    if not torch.equal(xyc, xyc_p):
+    xyc_p, plain_ms = timed(lambda: pack_xyc_plain(
+        stream[:PK], initx[:PK], m[:PK], n[:PK]))
+    if not torch.equal(xyc[:PK], xyc_p):
         fail("pack kernel at W=%d differs from its plain version" % width)
     del xyc_p
     row("pack", cuda_ms(lambda: pack_xyc(stream, initx, m, n), 10), plain_ms,
-        B, 0.0, (B * k_pad + B * width + 8 * B + B * k_pad * width)
+        PK, 0.0, (B * k_pad + B * width + 8 * B + B * k_pad * width)
         / HBM_BYTES_PER_S * 1e3, "bytes", 1)
 
-    out_k = realign.realign_decode(xyc, m, n, params, gg, mg, kend=kend)
+    # timed first, then the counted call whose outputs are kept: so the
+    # direction codes (B x k_pad x W bytes, 10.7 GB at 2048) are held once
+    ms = cuda_ms(lambda: realign.realign_decode(
+        xyc, m, n, params, gg, mg, kend=kend), 3)
+    out_k = {}
+    per_batch = launches_per_call(
+        realign.LAUNCHES, lambda: out_k.update(realign.realign_decode(
+            xyc, m, n, params, gg, mg, kend=kend)))
     out_p, plain_ms = timed(lambda: realign.realign_decode_plain(
         xyc[:P], m[:P], n[:P], params, gg, mg))
     for key in ("loglik", "score"):
@@ -4021,22 +4092,28 @@ def mea_batch_checks(xyc, m, n, stream, initx, prep, params, row,
     if ll_rel > 1e-5 or sc_rel > 1e-4 or cig_diff > 0.01 * P:
         fail("realign kernel at W=%d outside tolerance" % width)
     plan = realign.workspace_plan(kend, 0, width, mode=realign.DECODE)[1]
-    per_batch = launches_per_call(
-        realign.LAUNCHES,
-        lambda: realign.realign_decode(xyc, m, n, params, gg, mg, kend=kend))
+    print("  realign W=%d: %d launches, the workspace plan's %d"
+          % (width, per_batch, len(plan)))
     if per_batch != len(plan):
         fail("the decode at W=%d took %d launches, its plan %d"
              % (width, per_batch, len(plan)))
     bound, by = realign_bound(
         REALIGN_OPS_PER_CELL, width, need,
         B * k_pad * width + B * (k_pad + 1) * width + 16 * B)
-    row("realign", cuda_ms(lambda: realign.realign_decode(
-        xyc, m, n, params, gg, mg, kend=kend), 3), plain_ms, P, err, bound,
-        by, per_batch)
+    row("realign", ms, plain_ms, P, err, bound, by, per_batch)
 
     ops_p, plain_ms = timed(lambda: mea_walk_plain(dirs, xyc, m, n))
     if not torch.equal(ops_k, ops_p):
         fail("walker kernel at W=%d differs from its plain version" % width)
+    ops_np = ops_k.cpu().numpy()
+    read_bases = ((ops_np == 0) | (ops_np == 2)).sum(1)  # match, insert
+    ref_bases = ((ops_np == 0) | (ops_np == 1)).sum(1)   # match, delete
+    ends = int(((read_bases == prep["m"]) & (ref_bases == prep["n"])).sum())
+    print("  traceback W=%d: ops identical on %d reads, %d walks from the "
+          "origin to the read's end cell" % (width, B, ends))
+    if ends != B:
+        fail("%d of %d MEA walks at W=%d end short of their read's end cell"
+             % (B - ends, B, width))
     nbytes = walked_bytes(ops_k) + need - B + B * (k_pad + 1) + 8 * B
     row("traceback", cuda_ms(lambda: mea_walk(dirs, xyc, m, n), 10), plain_ms,
         B, 0.0, nbytes / HBM_BYTES_PER_S * 1e3, "bytes", 1)
@@ -4402,11 +4479,11 @@ def wider_phase(engine, pairs, fa: str, fq: str, wl: dict, dev, counters
 
 
 def refusal_check(ref, cfg, engine, pairs, dev, phase: str) -> None:
-    """On the card every path refuses 1025: the MEA path
-    (``MappingEngine`` with the MEA decode, ``PreparedRealign``) and the
-    Viterbi path (``MappingEngine(decode="viterbi")``,
-    ``PreparedViterbi``, ``PreparedForward``), each naming C11 before any
-    work (the rest of C11)."""
+    """On the card the MEA path (``MappingEngine`` with the MEA decode,
+    ``PreparedRealign``) refuses 2049 and the Viterbi path
+    (``MappingEngine(decode="viterbi")``, ``PreparedViterbi``,
+    ``PreparedForward``) 1025, each naming C11 before any work (the rest
+    of C11)."""
     import dataclasses
 
     from nanopore_tpu_torch.mapping.engine import MappingEngine
@@ -4418,7 +4495,7 @@ def refusal_check(ref, cfg, engine, pairs, dev, phase: str) -> None:
     )
 
     calls = {}
-    tops = {"mea": W1024[-1] + 1, "viterbi": W1024[-1] + 1}
+    tops = {"mea": W2048[-1] + 1, "viterbi": W1024[-1] + 1}
     for d, w in tops.items():
         c = dataclasses.replace(cfg, band_width=w, decode=d)
         calls[engine_name(c)] = (w, lambda c=c: MappingEngine(
@@ -4901,6 +4978,60 @@ def viterbi_w1024_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
     return {"res": res, "runs": runs}
 
 
+# ---- phase 23: band widths 1025 to 2048 in the W = 1536 and 2048 kernels ---- #
+
+def w2048_phase(engine, pairs, fa: str, fq: str, wl: dict, dev,
+                counters) -> dict:
+    """Phase 23 (its checks in the docstring's step 23): the W = 2048
+    builds on the mapping batch (the plain versions on its first 4
+    reads, the walks on all 512), the engine at W = 2048, the W = 1536
+    and 2048 builds at the live widths 1100, 1536, 1800 and 2048 on
+    phase 13's reads, the engine, ``realign`` and EM at 1800 card against
+    CPU, and the refusals of :func:`refusal_check`.  Returns the
+    kernels' ``*_w2048`` (the mapping batch) and live widths'
+    (``*_w1100``, ``*_live1536``, ...) numbers and each run's
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from nanopore_tpu_torch.io.seqio import read_fasta_dict
+
+    t_phase = time.perf_counter()
+    res, runs = {}, {}
+    top = W2048[-1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    mapping_batch_checks(pairs, engine.params, dev, res, top,
+                         W2048_PLAIN_READS, "phase 23", pack_plain_all=False)
+    print("phase 23: peak device memory of this process on the mapping "
+          "batch %.3f GB" % (torch.cuda.max_memory_allocated(dev) / 1e9))
+    wdir = os.path.join(os.path.dirname(fq), "w2048")
+    os.makedirs(wdir, exist_ok=True)
+    ref = read_fasta_dict(fa)
+    cfg = dataclasses.replace(engine.config, band_width=top, decode="mea")
+    runs["w2048_map"] = warm_engine_run(
+        ref, cfg, engine, fq, os.path.join(wdir, "map_w%d.sam" % top), dev,
+        counters, "phase 23", MEA_KERNELS)
+    torch.cuda.empty_cache()
+
+    # ---- live widths of 1100, 1536, 1800 and 2048 on phase 13's reads ----
+    for w in W2048_LIVE:
+        width_kernel_checks(wl["pairs"], w, dev, res, "phase 23",
+                            viterbi=False)
+
+    # ---- the engine, realign and EM at 1800, card against CPU ----
+    live = dataclasses.replace(cfg, band_width=W2048_CPU)
+    runs["w2048_engine"] = engine_card_vs_cpu(
+        ref, live, engine, fq, wdir, dev, counters, "phase 23", MEA_KERNELS)
+    runs["w2048_realign"] = realign_cli_check(wl, W2048_CPU, counters,
+                                              "phase 23")
+    runs["w2048_em"] = em_width_check(wl, W2048_CPU, dev, counters,
+                                      "phase 23")
+    refusal_check(ref, cfg, engine, pairs, dev, "phase 23")
+    print("phase 23 wall: %.1f s" % (time.perf_counter() - t_phase))
+    return {"res": res, "runs": runs}
+
+
 def full_plane_alone() -> int:
     """Run as ``chip_smoke.py --full-plane``: the kernels' build, then
     phase 14 alone on the mapping workload."""
@@ -5003,6 +5134,7 @@ PHASE_ALONE = {
     "--widest-1024": (21, w1024_phase, (mea_path_attributes,), W1024),
     "--viterbi-w1024": (22, viterbi_w1024_phase, (viterbi_path_attributes,),
                         W1024),
+    "--mea-w2048": (23, w2048_phase, (mea_path_attributes,), W2048),
 }
 
 
@@ -5024,11 +5156,14 @@ CPU_HALVES = {
     21: (("engine", W1024_CPU, "mea"), ("realign", W1024_CPU),
          ("em", W1024_CPU)),
     22: (("engine", W1024_CPU, "viterbi"),),
+    23: (("engine", W2048_CPU, "mea"), ("realign", W2048_CPU),
+         ("em", W2048_CPU)),
 }
 # the CPU halves' processes of a whole run: phases 21's and 22's at
 # W = 1024 (~300 s on one thread, then the Viterbi engine's) in a second
-# process, beside the first's ~600 s
-CPU_HALF_GROUPS = ((13, 15, 16, 17, 18, 19), (21, 22))
+# process, beside the first's ~600 s, and phase 23's at W = 2048 in a
+# third
+CPU_HALF_GROUPS = ((13, 15, 16, 17, 18, 19), (21, 22), (23,))
 CPU_HALF_WAIT = 900  # seconds a card phase waits for a CPU half
 # torch threads of the CPU halves: their plain versions are bound by
 # the cost of each small op, so more threads only take cores from the
@@ -5231,11 +5366,11 @@ def viterbi_child() -> int:
     """Run as ``chip_smoke.py --viterbi`` in a second child process,
     beside the parent's phases 5-7: phase 8 on its own copy of the
     mapping workload (the same seed, so the same batch), then phases 13,
-    14, 15, 17 and 22 (this process's cached card memory released before
-    each of the last two); their
-    kernel rows, the forward entry's and phases 13's, 14's, 15's, 17's
-    and 22's launch counts written to ``<workdir>/viterbi/result.json``
-    for the kernels line."""
+    14, 15, 17, 22 and 23 (this process's cached card memory released
+    before each of the last three); their
+    kernel rows, the forward entry's and phases 13's, 14's, 15's, 17's,
+    22's and 23's launch counts written to
+    ``<workdir>/viterbi/result.json`` for the kernels line."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -5264,17 +5399,20 @@ def viterbi_child() -> int:
     torch.cuda.empty_cache()  # before the W = 1024 planes
     viterbi_w1024 = viterbi_w1024_phase(engine, pairs, fa, fq, wl, dev,
                                         launch_counters())
+    torch.cuda.empty_cache()  # before the W = 2048 batches
+    w2048 = w2048_phase(engine, pairs, fa, fq, wl, dev, launch_counters())
     with open(os.path.join(workdir, "result.json"), "w") as fh:
         json.dump({"res": res, "forward_entry": entry, "widths": widths,
                    "full_plane": full, "wide": wide,
                    "viterbi_wider": viterbi_wider,
-                   "viterbi_w1024": viterbi_w1024}, fh)
+                   "viterbi_w1024": viterbi_w1024, "w2048": w2048}, fh)
     return 0
 
 
 def start_child(workdir: str, flag: str, args=(), env=None, log=None):
     """Start ``chip_smoke.py <flag> <args>`` (``--pipeline``: phases
-    10-12, 16, 18 and 19; ``--viterbi``: phases 8, 13, 14, 15, 17 and 22;
+    10-12, 16, 18 and 19; ``--viterbi``: phases 8, 13, 14, 15, 17, 22 and
+    23;
     ``--cpu-halves``: CPU halves), its output in ``<workdir>/<log, by
     default the flag without dashes>_child.log``, under ``env``
     (default: this process's); it is killed at exit if still running."""
@@ -5450,13 +5588,15 @@ def main() -> int:
             (WIDE_W, WIDER_W) + WIDEST_W + W1024,
             (mea_path_attributes, viterbi_path_attributes)).items():
         attrs.setdefault(name, {}).update(a)
+    for name, a in widths_attributes(W2048, (mea_path_attributes,)).items():
+        attrs.setdefault(name, {}).update(a)
     # seeding and chaining run only in the native library: build it here
     # so a failure stops the run before any timing
     print("native seedchain: %s" % native_index.get_lib()._name)
     dev = torch.device("cuda", 0)
     workdir = os.path.join(build.BUILD_DIR, "smoke")
     counters = launch_counters()
-    # the CPU halves of phases 13, 15-19, 21 and 22 beside every card phase
+    # the CPU halves of phases 13, 15-19 and 21-23 beside every card phase
     cpu = start_cpu_halves(CPU_HALF_GROUPS, dev)
     kend_guard_check()
     pipeline = start_child(workdir, "--pipeline")
@@ -5521,12 +5661,12 @@ def main() -> int:
         counters)
     mark("phase 21")
     phase8 = finish_child(vit_child, workdir, "--viterbi",
-                          "phases 8, 13, 14, 15, 17 and 22", t_start,
+                          "phases 8, 13, 14, 15, 17, 22 and 23", t_start,
                           os.path.join("viterbi", "result.json"))
     res.update(phase8["res"])
     other_runs = dict(post_launches, **vit_launches)
     for out in (phase8["widths"], phase8["wide"], phase8["viterbi_wider"],
-                w1024, phase8["viterbi_w1024"]):
+                w1024, phase8["viterbi_w1024"], phase8["w2048"]):
         for name, rows in out["res"].items():
             res[name].update(rows)
         other_runs.update(out["runs"])

@@ -48,7 +48,7 @@ from nanopore_tpu_torch.ops.dispatch import (
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
-from nanopore_tpu_torch.ops.pack import check_band_width
+from nanopore_tpu_torch.ops.pack import MEA, check_band_width
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.parallel.distributed import process_info
 
@@ -363,7 +363,7 @@ def em_train(
     An iteration that keeps no read raises ``FloatingPointError``.
     """
     opts = options or EmOptions()
-    check_band_width(opts.band_width, device)
+    check_band_width(opts.band_width, device, MEA)
     device = resolve_device(device)
     rng = np.random.default_rng(opts.seed)
 

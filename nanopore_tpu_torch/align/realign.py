@@ -38,7 +38,7 @@ from nanopore_tpu_torch.ops.dispatch import (
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
-from nanopore_tpu_torch.ops.pack import check_band_width, padded_width
+from nanopore_tpu_torch.ops.pack import MEA, check_band_width, padded_width
 from nanopore_tpu_torch.ops.pairhmm import make_kernel_params
 from nanopore_tpu_torch.ops.posteriors import rescore_from_post
 from nanopore_tpu_torch.ops.realign import DECODE, max_workspace_k
@@ -252,10 +252,11 @@ def realign_records(
     probability of the NEW alignment when ``rescore`` (the
     --rescoreByPosteriorProbIgnoringGaps analogue; records are not split
     then, as in the JAX package), else an empty list.  On the card the
-    band width must be one the MEA path's kernels serve, 2 to 1024
-    (ROADMAP C10, C11).
+    band width must be one the MEA path's kernels serve, 2 to 2048
+    (ROADMAP C10, C11; above 1024 a read's band on a cluster of two
+    blocks).
     """
-    check_band_width(band_width, device)
+    check_band_width(band_width, device, MEA)
     device = resolve_device(device)
     params = make_kernel_params(model or PairHmmModel.default())
     batch_size = preferred_realign_batch_size(batch_size, device)
@@ -413,9 +414,9 @@ def realign_sam_file(
     ``shard=(i, n)``: chain deterministically (same result on every
     host), realign and write only every n-th chained record starting at
     i.  Runs on the card unless ``device="cpu"``; there the band width
-    (2 to 1024) is checked before the SAM is chained (ROADMAP C10, C11).
+    (2 to 2048) is checked before the SAM is chained (ROADMAP C10, C11).
     """
-    check_band_width(band_width, device)
+    check_band_width(band_width, device, MEA)
     with tempfile.TemporaryDirectory() as tmp:
         chained = os.path.join(tmp, "chained.sam")
         chain_sam_file(sam_path, chained, read_fastq_path, reference_fasta_path)

@@ -186,7 +186,7 @@ def main(argv=None) -> int:
     # cells (--diagonalExpansion=10); 32 covers it at half the cells
     # of 64 (MapperSpec.band_width default)
     p.add_argument("--band-width", type=int, default=32,
-                   help="live band width; on the card 2 to 1024 (the MEA "
+                   help="live band width; on the card 2 to 2048 (the MEA "
                    "path's kernels), any width with --device cpu")
     add_device(p)
     p.set_defaults(fn=cmd_realign)

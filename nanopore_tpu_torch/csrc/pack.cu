@@ -31,12 +31,14 @@
 // chunk); then every thread builds 16 cells of a row from two runs of 16
 // buffer bytes and stores them as one 16-byte word, neighbouring threads
 // on neighbouring words.  Two block barriers a chunk; the kernel is
-// bound by its stores.  At W = 384 to 1024 a head of W symbols reaches
-// back past the chunk before (at 1024 four chunks back): it is copied
-// from the last chunk's buffer, whose own head held the W symbols before
-// that chunk, so every window's lookup stays inside what the two
-// buffers keep (CHUNK + W bytes each).  At W = 1024 a row is 64 threads'
-// 16 cells, so a pass of the block builds two rows.
+// bound by its stores.  At W = 384 to 2048 a head of W symbols reaches
+// back past the chunk before (at 1024 four chunks back, at 2048 eight):
+// it is copied from the last chunk's buffer, whose own head held the W
+// symbols before that chunk, so every window's lookup stays inside what
+// the two buffers keep (CHUNK + W bytes each).  At W = 1024 a row is 64
+// threads' 16 cells, so a pass of the block builds two rows; at 2048 a
+// row is the block's 128 threads' 16 cells, one row a pass (1536: 96
+// threads').
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -169,7 +171,11 @@ extern "C" const char* np_cuda_error_string(int e) {
 extern "C" int np_pack_attrs(int W, int* out) {
   cudaFuncAttributes a;
   cudaError_t e;
-  if (W == 1024)
+  if (W == 2048)
+    e = cudaFuncGetAttributes(&a, pack_kernel<2048>);
+  else if (W == 1536)
+    e = cudaFuncGetAttributes(&a, pack_kernel<1536>);
+  else if (W == 1024)
     e = cudaFuncGetAttributes(&a, pack_kernel<1024>);
   else if (W == 768)
     e = cudaFuncGetAttributes(&a, pack_kernel<768>);
@@ -195,8 +201,8 @@ extern "C" int np_pack_attrs(int W, int* out) {
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  W is
-// 32, 64, 128, 256, 384, 512, 768 or 1024 and `wl` the live band width,
-// 1 <= wl <= W.
+// 32, 64, 128, 256, 384, 512, 768, 1024, 1536 or 2048 and `wl` the live
+// band width, 1 <= wl <= W.
 extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
                               const void* m, const void* n, int nreads,
                               int k_pad, int W, int wl, void* xyc, void* stream) {
@@ -208,7 +214,11 @@ extern "C" int np_pack_launch(const void* stream_bytes, const void* initx,
   const int32_t* mm = (const int32_t*)m;
   const int32_t* nn = (const int32_t*)n;
   uint8_t* out = (uint8_t*)xyc;
-  if (W == 1024) {
+  if (W == 2048) {
+    pack_kernel<2048><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
+  } else if (W == 1536) {
+    pack_kernel<1536><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
+  } else if (W == 1024) {
     pack_kernel<1024><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);
   } else if (W == 768) {
     pack_kernel<768><<<grid, block, 0, s>>>(sb, ix, mm, nn, k_pad, wl, out);

@@ -276,10 +276,11 @@ struct Tables {
 };
 
 // The warps that hold one read's band (csrc/group.cuh): G warps (G =
-// W / 128 above W = 128, else 1); a seam exchange carries a lane 0's
-// first cell and a lane 31's last cell of at most XA arrays.
-template <int G>
-using Grp = grp::Group<G, XA>;
+// W / 128 above W = 128, else 1), on CB blocks of a cluster (CB = 2 at
+// W = 1536 and 2048, G = 6 and 8 a block); a seam exchange carries a
+// lane 0's first cell and a lane 31's last cell of at most XA arrays.
+template <int G, int CB = 1>
+using Grp = grp::Group<G, XA, CB>;
 
 // One Stage a read in realign_kernel, staged by the read's warps, in
 // chunks of K diagonals (realign_chunk).  Chunk q of phase A holds the
@@ -356,6 +357,17 @@ __device__ __forceinline__ void warp_copy(void* dst, const void* src, int nbytes
     cp_async16((char*)dst + i, (const char*)src + i);
 }
 
+// nrows rows of row_bytes (a multiple of 16) from global src, src_stride
+// bytes apart, to consecutive rows of shared dst, 16 bytes a copy, by
+// thread t of nt: a block's columns of a band's rows (the cluster tier)
+template <int row_bytes>
+__device__ __forceinline__ void rows_copy(void* dst, const void* src, int nrows,
+                                          size_t src_stride, int t, int nt) {
+  for (int i = t * 16; i < nrows * row_bytes; i += nt * 16)
+    cp_async16((char*)dst + i, (const char*)src + (size_t)(i / row_bytes) * src_stride +
+                                   i % row_bytes);
+}
+
 // shared-memory barriers of mea_kernel's ring (one arrival a lane)
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -405,8 +417,8 @@ __device__ __forceinline__ void fill_rows(void* base, int kq, int k_pad, int row
 // warp's lane 0's first cell, `fill` above the group's top warp), and
 // lo[i], the cell below a[i]'s first (for lane 0: the previous warp's
 // lane 31's last cell, `fill` below warp 0).  One exchange at G > 1.
-template <int C, int G, int N>
-__device__ __forceinline__ void seam(Grp<G>& g, const float (&a)[N][C], float fill,
+template <int C, int G, int N, int CB>
+__device__ __forceinline__ void seam(Grp<G, CB>& g, const float (&a)[N][C], float fill,
                                      float (&hi)[N], float (&lo)[N]) {
   if constexpr (G == 1) {
 #pragma unroll
@@ -499,8 +511,8 @@ __device__ __forceinline__ float recip(float x) { return __frcp_rn(x); }
 // NaN keys as 0 (fmaxf skips NaN, and a NaN or 0 maximum both mean
 // "no scale" to the caller).  At G > 1 the warps' maxima meet in one
 // exchange (the largest key of any order of them).
-template <int C, int G>
-__device__ __forceinline__ float band_max(const float (&v)[NS][C], Grp<G>& g) {
+template <int C, int G, int CB>
+__device__ __forceinline__ float band_max(const float (&v)[NS][C], Grp<G, CB>& g) {
   float mx = v[0][0];
 #pragma unroll
   for (int s = 0; s < NS; ++s)
@@ -511,8 +523,8 @@ __device__ __forceinline__ float band_max(const float (&v)[NS][C], Grp<G>& g) {
 }
 
 // group lane 0's value to every lane of the group (every lane calls)
-template <int G>
-__device__ __forceinline__ float from_lane0(float v, Grp<G>& g) {
+template <int G, int CB>
+__device__ __forceinline__ float from_lane0(float v, Grp<G, CB>& g) {
   return grp::from_lane0(g, v);
 }
 
@@ -619,11 +631,11 @@ __device__ __forceinline__ void emissions(const float* emf, const float* egf,
 
 // One forward anti-diagonal: nw from prev (k-1) and pp (k-2, scaled by r),
 // with the diagonal's emission factors e looked up beforehand.
-template <int C, int G>
+template <int C, int G, int CB>
 __device__ __forceinline__ void fwd_step(const float* tf, const float (&e)[NS][C], int d1,
                                          int d2, const float (&prev)[NS][C],
                                          const float (&pp)[NS][C], float r,
-                                         float (&nw)[NS][C], Grp<G>& g) {
+                                         float (&nw)[NS][C], Grp<G, CB>& g) {
   float t[NS][C], sh[NS][C], hi[NS], lo[NS];
   trans_sum<C>(tf, pp, 0, t[0]);
 #pragma unroll
@@ -641,10 +653,10 @@ __device__ __forceinline__ void fwd_step(const float* tf, const float (&e)[NS][C
 
 // loglik bookkeeping at the read's end diagonal (band-start mass, group
 // lane 0)
-template <int C, int G>
+template <int C, int G, int CB>
 __device__ __forceinline__ void end_check(int k, int kend, const float (&nw)[NS][C],
                                           float ls_hi, float ls_c, float& acc,
-                                          float& fin_end, Grp<G>& g) {
+                                          float& fin_end, Grp<G, CB>& g) {
   if (k != kend) return;  // group-uniform
   float fin = nw[0][0];
 #pragma unroll
@@ -659,15 +671,21 @@ __device__ __forceinline__ void end_check(int k, int kend, const float (&nw)[NS]
 // and sf[k] (even k's rescale inverse), returns the loglik in `acc` and
 // the band-start mass at kend in `fin_end`.  `cd` is the group's two code
 // chunks of K + 1 rows (row i of chunk q: diagonal q*K + i + 1, the
-// one-ahead emission lookup).
-template <int C, int G, bool MATCH = false, int K = CH>
+// one-ahead emission lookup).  At CB > 1 the band is the cluster's: a
+// block stages and computes its own 32 C G columns (a lane's column in
+// them its band cell less the block's first), stores them into the
+// band's rows, and rank 0 stores sf.  The CB > 1 code lies in discarded
+// branches at CB = 1 and declares nothing outside them (one more local,
+// even a constexpr one, renumbers the compiler's registers), so the
+// CB = 1 builds keep their machine code.
+template <int C, int G, bool MATCH = false, int K = CH, int CB = 1>
 __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
                                              const float* egf,
                                              uint8_t (*cd)[K + 1][32 * C * G],
                                              const uint8_t* xy, int k_pad, int kq, int kend,
-                                             float* fs, float* sf, Grp<G>& g, float& acc,
+                                             float* fs, float* sf, Grp<G, CB>& g, float& acc,
                                              float& fin_end) {
-  constexpr int W = 32 * C * G;
+  constexpr int W = 32 * C * G * CB;  // the band's (a block's: 32 C G)
   static_assert(K % 2 == 0, "the forward steps in pairs of diagonals");
   const int w0 = g.gl * C;
   float a[NS][C], b[NS][C];  // diagonals k0 (even) and k0 - 1
@@ -682,7 +700,11 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
   const int nqa = (kq + K - 1) / K;
   auto stage_codes = [&](int q) {
     const int r0 = q * K;
-    warp_copy(cd[q & 1][0], xy + (size_t)r0 * W, min(K + 1, k_pad - r0) * W, g.gl, 32 * G);
+    if constexpr (CB == 1)
+      warp_copy(cd[q & 1][0], xy + (size_t)r0 * W, min(K + 1, k_pad - r0) * W, g.gl, 32 * G);
+    else  // the block's columns, by the block's threads
+      rows_copy<32 * C * G>(cd[q & 1][0], xy + (size_t)r0 * W + grp::rank(g) * 32 * C * G,
+                            min(K + 1, k_pad - r0), W, g.gl - grp::rank(g) * 32 * G, 32 * G);
     cp_commit();
   };
   float ea[NS][C];  // emission factors of the next odd diagonal
@@ -691,7 +713,10 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
     cp_wait_all();
     grp::sync(g);
     uint8_t c0[C];
-    load_codes<C>(cd[0][0], w0, c0);
+    if constexpr (CB == 1)
+      load_codes<C>(cd[0][0], w0, c0);
+    else
+      load_codes<C>(cd[0][0], w0 - grp::rank(g) * 32 * C * G, c0);
     emissions<C>(emf, egf, c0, ea);
   }
 #pragma unroll 1
@@ -701,13 +726,18 @@ __device__ __forceinline__ void forward_pass(const float* tf, const float* emf,
       grp::sync(g);    // and every lane is done with chunk q - 1's buffer
     }
     if (q + 1 < nqa) stage_codes(q + 1);
-    const uint8_t(*rows)[W] = cd[q & 1];
+    const uint8_t(*rows)[32 * C * G] = cd[q & 1];
     const int nk = min(K, kq - q * K);
     for (int i = 0; i < nk; i += 2) {
       const int k0 = q * K + i;  // diagonals k0 + 1 (odd) and k0 + 2 (even)
       uint8_t cb[C], cc[C];
-      load_codes<C>(rows[i + 1], w0, cb);
-      load_codes<C>(rows[i + 2], w0, cc);
+      if constexpr (CB == 1) {
+        load_codes<C>(rows[i + 1], w0, cb);
+        load_codes<C>(rows[i + 2], w0, cc);
+      } else {
+        load_codes<C>(rows[i + 1], w0 - grp::rank(g) * 32 * C * G, cb);
+        load_codes<C>(rows[i + 2], w0 - grp::rank(g) * 32 * C * G, cc);
+      }
       float eb[NS][C], ec[NS][C];
       emissions<C>(emf, egf, cb, eb);
       // odd diagonal k0 + 1: no rescale
@@ -789,9 +819,9 @@ __device__ __forceinline__ void bwd_init(Bwd<C>& bw) {
 // the dead lanes, at and above the live width wl) and, on odd k and on
 // k = 0, the rescale by its band maximum `safe` (nw comes out rescaled;
 // safe and inv are 1 on the other diagonals).
-template <int C, int G>
+template <int C, int G, int CB>
 __device__ __forceinline__ void bwd_step(const float* tf, const Bwd<C>& bw, int k,
-                                         bool is_end, Grp<G>& g, int wl,
+                                         bool is_end, Grp<G, CB>& g, int wl,
                                          float (&dest)[NS][C], float (&nw)[NS][C],
                                          float& safe, float& inv) {
   const int w0 = g.gl * C;
@@ -885,14 +915,28 @@ __device__ __forceinline__ void bin_add(float* acc, int bin, float value) {
 // (floats), woff[r + 1] the end of its slot; dynamic shared memory holds
 // one Stage<W, realign_chunk(G)> a read of the block (realign_warps(G) /
 // G reads).
-template <int C, int G, int MODE>
+// At CB > 1 (W = 1536 and 2048: G = 6 and 8 warps a block, two_phase)
+// read r is held by cluster r, of CB blocks on CB SMs (csrc/group.cuh's
+// cluster tier): each block stages and computes its own 32 C G columns,
+// its Stage<32 C G, 4> that of the W = 768 or 1024 build; the read's
+// slot holds the whole band's states (the blocks write their own
+// columns), then the rescale inverses, which rank 0 writes (the rescale
+// is the cluster's band maximum); every exchange, band maximum and sync
+// is a cluster barrier.  The EM sums first fold the upper blocks' warps
+// onto the lower blocks', lane for lane, through distributed shared
+// memory (at CB = 2 block 1's onto block 0's: the fold's first step over
+// the 2 G warps), then block 0 folds as the one-block build.  Rank 0
+// writes the per-read scalars (loglik, the MEA score, the EM tables),
+// and no block leaves before its partner can no longer read its shared
+// memory (one cluster barrier last).
+template <int C, int G, int MODE, int CB = 1>
 __global__ void __launch_bounds__(realign_warps(G) * 32)
 realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __restrict__ m,
                const int32_t* __restrict__ n, int nreads, int k_pad, int wl,
                float* __restrict__ ws, const int64_t* __restrict__ woff,
                float* __restrict__ loglik, float* __restrict__ out1,
                void* __restrict__ out2, float* __restrict__ out3) {
-  constexpr int W = 32 * C * G;
+  constexpr int W = 32 * C * G * CB;        // the band's (a block's: 32 C G)
   constexpr int K = realign_chunk(G);       // diagonals a staged chunk
   constexpr int RB = realign_warps(G) / G;  // reads a block
   constexpr bool EM = MODE == EM_MODE;
@@ -902,6 +946,7 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   static_assert(EM || XP || two_phase(G),
                 "up to W = 512 the decode modes run mea_kernel, the gamma mode gamma_kernel");
   static_assert(RB * G == realign_warps(G), "a block holds whole groups");
+  static_assert(CB == 1 || (two_phase(G) && RB == 1), "a cluster holds one read");
   __shared__ float sm[NTAB];
   extern __shared__ __align__(16) unsigned char stage_raw[];
   uint32_t* xbuf = nullptr;
@@ -912,11 +957,15 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   for (int i = threadIdx.x; i < NTAB; i += blockDim.x) sm[i] = tab.v[i];
   __syncthreads();
   const int warp = threadIdx.x >> 5;
-  Grp<G> g = grp::make<G, XA>(warp, 1, xbuf);
+  Grp<G, CB> g = grp::make<G, XA, CB>(warp, 1, xbuf);
   const int lane = g.lane;
-  const int r = blockIdx.x * RB + warp / G;
+  int r;  // the read; a cluster's blocks hold one, so the test is the cluster's
+  if constexpr (CB == 1)
+    r = blockIdx.x * RB + warp / G;
+  else
+    r = blockIdx.x / CB;
   if (r >= nreads) return;  // only at G = 1 (RB = 1 otherwise)
-  Stage<W, K>& sg = reinterpret_cast<Stage<W, K>*>(stage_raw)[warp / G];
+  Stage<32 * C * G, K>& sg = reinterpret_cast<Stage<32 * C * G, K>*>(stage_raw)[warp / G];
   const float* tf = sm;
   const float* emf = sm + 25;
   const float* egf = sm + 61;
@@ -935,17 +984,17 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
 
   // rows past the read's own diagonals: what the skipped diagonals give
   if constexpr (XP)
-    fill_rows(out1 + (size_t)r * (k_pad + 1) * 4, kq, k_pad, 16, 0u, g.gl, 32 * G);
+    fill_rows(out1 + (size_t)r * (k_pad + 1) * 4, kq, k_pad, 16, 0u, g.gl, 32 * G * CB);
   if constexpr (MEA)
     fill_rows((int8_t*)out2 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W, 0x03030303u, g.gl,
-              32 * G);
+              32 * G * CB);
   if constexpr (GAM)
-    fill_rows(out3 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W * 4, 0u, g.gl, 32 * G);
+    fill_rows(out3 + (size_t)r * (k_pad + 1) * W, kq, k_pad, W * 4, 0u, g.gl, 32 * G * CB);
 
   // ---------------- phase A: forward, diagonals 1..kq ----------------
   float acc = 0.f, fin_end = 1.f;
-  forward_pass<C, G, false, K>(tf, emf, egf, sg.cd, xy, k_pad, kq, kend, fs, sf, g, acc,
-                               fin_end);
+  forward_pass<C, G, false, K, CB>(tf, emf, egf, sg.cd, xy, k_pad, kq, kend, fs, sf, g, acc,
+                                   fin_end);
   if (g.gl == 0) loglik[r] = acc;
 
   // ------- phase B: backward + the EM sums or the retire stream, kq..0 -------
@@ -976,22 +1025,41 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
   }
 
   // chunk q: slots s = 0..K-1 hold diagonal q*K + s (states, codes) and
-  // sf[q*K + s + 1]; diagonal 0 has no stored row
+  // sf[q*K + s + 1]; diagonal 0 has no stored row (the CB > 1 code as
+  // in forward_pass)
   auto stage_bwd = [&](int q) {
     const int buf = q & 1;
     const int lo = max(1, q * K), hi = min(kq, q * K + K - 1);
     if (hi >= lo) {
       const int s0 = lo - q * K, rows = hi - lo + 1;
-      warp_copy(sg.st[buf][s0], fs + (size_t)(lo - 1) * NS * W, rows * NS * W * 4, g.gl,
-                32 * G);
-      warp_copy(sg.cd[buf][s0], xy + (size_t)(lo - 1) * W, rows * W, g.gl, 32 * G);
+      if constexpr (CB == 1) {
+        warp_copy(sg.st[buf][s0], fs + (size_t)(lo - 1) * NS * W, rows * NS * W * 4, g.gl,
+                  32 * G);
+        warp_copy(sg.cd[buf][s0], xy + (size_t)(lo - 1) * W, rows * W, g.gl, 32 * G);
+      } else {  // the block's columns: a row of WB floats of each state
+        constexpr int WB = 32 * C * G;
+        const int rk = grp::rank(g);
+        rows_copy<WB * 4>(sg.st[buf][s0], fs + (size_t)(lo - 1) * NS * W + rk * WB, rows * NS,
+                          W * 4, g.gl - rk * 32 * G, 32 * G);
+        rows_copy<WB>(sg.cd[buf][s0], xy + (size_t)(lo - 1) * W + rk * WB, rows, W,
+                      g.gl - rk * 32 * G, 32 * G);
+      }
     }
-    if (g.gl < K && q * K + g.gl + 1 <= kq)
-      cp_async4(&sg.sf[buf][g.gl], sf + q * K + g.gl + 1);
+    if constexpr (CB == 1) {
+      if (g.gl < K && q * K + g.gl + 1 <= kq)
+        cp_async4(&sg.sf[buf][g.gl], sf + q * K + g.gl + 1);
+    } else {  // by the block's threads
+      const int t = g.gl - grp::rank(g) * 32 * G;
+      if (t < K && q * K + t + 1 <= kq) cp_async4(&sg.sf[buf][t], sf + q * K + t + 1);
+    }
     cp_commit();
   };
-  // phase A's stores are read back by other lanes' copies
-  __threadfence_block();
+  // phase A's stores are read back by other lanes' copies (at CB > 1 rank
+  // 0's rescale inverses by the other blocks too)
+  if constexpr (CB == 1)
+    __threadfence_block();
+  else
+    __threadfence();
   grp::sync(g);
   stage_bwd(kq / K);
 #pragma unroll 1
@@ -1005,8 +1073,14 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
       float fh[NS][C];  // forward states of diagonal k
       uint8_t ck[C];    // codes of diagonal k
       if (k >= 1) {
-        load_states<C, W>(sg.st[buf][s], w0, fh);
-        load_codes<C>(sg.cd[buf][s], w0, ck);
+        if constexpr (CB == 1) {
+          load_states<C, W>(sg.st[buf][s], w0, fh);
+          load_codes<C>(sg.cd[buf][s], w0, ck);
+        } else {  // the block's columns
+          constexpr int WB = 32 * C * G;
+          load_states<C, WB>(sg.st[buf][s], w0 - grp::rank(g) * WB, fh);
+          load_codes<C>(sg.cd[buf][s], w0 - grp::rank(g) * WB, ck);
+        }
       } else {
 #pragma unroll
         for (int st = 0; st < NS; ++st)
@@ -1170,7 +1244,34 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
     // state does not read
     if constexpr (G > 1) {
       float* red = reinterpret_cast<float*>(&sg);  // [warp - h][count][lane]
-      static_assert(G / 2 * 57 * 32 * 4 <= (int)sizeof(Stage<W, K>), "the sums fit the stage");
+      static_assert(G / 2 * 57 * 32 * 4 <= (int)sizeof(Stage<32 * C * G, K>),
+                    "the sums fit the stage");
+      if constexpr (CB > 1) {
+        // the upper half of the blocks still holding sums onto the lower,
+        // warp for warp and lane for lane (the fold's steps over the
+        // cluster's CB G warps while more than G hold sums): each upper
+        // block's warps write their sums into its own stage, and the
+        // lower block's read them there
+        static_assert((CB & (CB - 1)) == 0, "a power of two of blocks");
+        static_assert(G * 57 * 32 * 4 <= (int)sizeof(Stage<32 * C * G, K>),
+                      "the sums fit the stage");
+        const int rk = grp::rank(g), wb = g.wg - rk * G;
+#pragma unroll 1
+        for (int nb = CB; nb > 1; nb /= 2) {
+          const int hb = nb / 2;
+          grp::sync(g);  // the buffer is free
+          if (rk >= hb && rk < nb) {
+#pragma unroll
+            for (int i = 0; i < 57; ++i) red[(wb * 57 + i) * 32 + lane] = em[i];
+          }
+          grp::sync(g);
+          if (rk < nb - hb) {
+#pragma unroll
+            for (int i = 0; i < 57; ++i)
+              em[i] = em[i] + grp::remote_load(red + (wb * 57 + i) * 32 + lane, rk + hb);
+          }
+        }
+      }
 #pragma unroll 1
       for (int nw = G; nw > 1; nw = (nw + 1) / 2) {
         const int h = (nw + 1) / 2;
@@ -1209,6 +1310,8 @@ realign_kernel(Tables tab, const uint8_t* __restrict__ xyc, const int32_t* __res
         }
     }
   }
+  // no block leaves while another can still read its shared memory
+  if constexpr (CB > 1) grp::cluster_sync();
 }
 
 // floats of mea_kernel's workspace slot of a read of kq diagonals in
@@ -1705,12 +1808,49 @@ auto gamma_entry() {
     return gamma_kernel<C>;
 }
 
-template <int C, int G, int MODE>
+// realign_kernel's cluster launch at CB > 1 (a read a cluster of CB
+// blocks, nreads x CB blocks): its dynamic shared memory opted into,
+// the grid, the block and the cluster's dimension in `cfg`
+template <int C, int G, int MODE, int CB>
+cudaError_t cluster_config(int nreads, cudaStream_t s, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr) {
+  constexpr int smem = (int)sizeof(Stage<32 * C * G, realign_chunk(G)>);
+  cudaError_t e = cudaFuncSetAttribute(realign_kernel<C, G, MODE, CB>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(realign_kernel<C, G, MODE, CB>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(nreads * CB);
+  cfg.blockDim = dim3(realign_warps(G) * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CB;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return e;
+}
+
+template <int C, int G, int MODE, int CB = 1>
 int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, const void* m,
                 const void* n, int k_pad, int wl, void* ws, const void* woff, void* loglik,
                 void* out1, void* out2, void* out3) {
   constexpr int W = 32 * C * G;
-  if constexpr ((MODE == DECODE || MODE == DECODE_GAMMA) && !two_phase(G)) {
+  if constexpr (CB > 1) {  // a read a cluster of CB blocks
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t e = cluster_config<C, G, MODE, CB>(nreads, s, cfg, attr);
+    if (e == cudaSuccess)
+      e = cudaLaunchKernelEx(&cfg, realign_kernel<C, G, MODE, CB>, t, (const uint8_t*)xyc,
+                             (const int32_t*)m, (const int32_t*)n, nreads, k_pad, wl,
+                             (float*)ws, (const int64_t*)woff, (float*)loglik, (float*)out1,
+                             out2, (float*)out3);
+    if (e != cudaSuccess) return (int)e;
+  } else if constexpr ((MODE == DECODE || MODE == DECODE_GAMMA) && !two_phase(G)) {
     constexpr int smem = (int)sizeof(MeaStage<W, mea_segment(G)>);
     cudaError_t e = cudaFuncSetAttribute(mea_kernel<C, G, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1749,14 +1889,30 @@ int launch_mode(const Tables& t, int nreads, cudaStream_t s, const void* xyc, co
 }
 
 // registers, local bytes, static and dynamic shared memory, threads and
-// reads of a block
-template <int C, int G, int MODE>
+// reads of a block, blocks a cluster and the clusters that can be
+// resident at once (cudaOccupancyMaxActiveClusters; -1 without a
+// cluster)
+template <int C, int G, int MODE, int CB = 1>
 int attrs_mode(int* out) {
   constexpr int W = 32 * C * G;
   constexpr bool MEA = (MODE == DECODE || MODE == DECODE_GAMMA) && !two_phase(G);
   cudaFuncAttributes a;
   cudaError_t e;
-  if constexpr (MEA) {
+  out[6] = CB;
+  out[7] = -1;
+  if constexpr (CB > 1) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    e = cluster_config<C, G, MODE, CB>(1, nullptr, cfg, attr);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, realign_kernel<C, G, MODE, CB>);
+    int clusters = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(&clusters, realign_kernel<C, G, MODE, CB>, &cfg);
+    out[3] = (int)cfg.dynamicSmemBytes;
+    out[4] = realign_warps(G) * 32;
+    out[5] = 1;
+    out[7] = clusters;
+  } else if constexpr (MEA) {
     e = cudaFuncGetAttributes(&a, mea_kernel<C, G, MODE>);
     out[3] = (int)sizeof(MeaStage<W, mea_segment(G)>);
     out[4] = MEA_WARPS * 32 * G;
@@ -1778,32 +1934,32 @@ int attrs_mode(int* out) {
   return (int)e;
 }
 
-template <int C, int G>
+template <int C, int G, int CB = 1>
 int attrs_width(int mode, int* out) {
   switch (mode) {
     case DECODE:
-      return attrs_mode<C, G, DECODE>(out);
+      return attrs_mode<C, G, DECODE, CB>(out);
     case EM_MODE:
-      return attrs_mode<C, G, EM_MODE>(out);
+      return attrs_mode<C, G, EM_MODE, CB>(out);
     case GAMMA:
-      return attrs_mode<C, G, GAMMA>(out);
+      return attrs_mode<C, G, GAMMA, CB>(out);
     case DECODE_GAMMA:
-      return attrs_mode<C, G, DECODE_GAMMA>(out);
+      return attrs_mode<C, G, DECODE_GAMMA, CB>(out);
     case EXP:
-      return attrs_mode<C, G, EXP>(out);
+      return attrs_mode<C, G, EXP, CB>(out);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int C, int G>
+template <int C, int G, int CB = 1>
 int launch_width(int mode, const Tables& t, int nreads, cudaStream_t s, const void* xyc,
                  const void* m, const void* n, int k_pad, int wl, void* ws, const void* woff,
                  void* loglik, void* out1, void* out2, void* out3) {
-#define NP_MODE(M)                                                                          \
-  case M:                                                                                   \
-    return launch_mode<C, G, M>(t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1, \
-                                out2, out3);
+#define NP_MODE(M)                                                                              \
+  case M:                                                                                       \
+    return launch_mode<C, G, M, CB>(t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, out1, \
+                                    out2, out3);
   switch (mode) {
     NP_MODE(DECODE)
     NP_MODE(EM_MODE)
@@ -1823,9 +1979,14 @@ extern "C" const char* np_cuda_error_string(int e) {
 }
 
 // Registers, local memory (spill) bytes per thread, static and dynamic
-// shared memory bytes per block, threads per block and reads per block
-// of `mode` at band width W, into out[6].
+// shared memory bytes per block, threads per block, reads per block,
+// blocks per cluster (a read's at W = 1536 and 2048: 2) and the clusters
+// that can be resident at once (-1 at W <= 1024, which launch no
+// cluster; 0: the cluster cannot launch) of `mode` at band width W, into
+// out[8].
 extern "C" int np_realign_attrs(int mode, int W, int* out) {
+  if (W == 2048) return attrs_width<4, 8, 2>(mode, out);
+  if (W == 1536) return attrs_width<4, 6, 2>(mode, out);
   if (W == 1024) return attrs_width<4, 8>(mode, out);
   if (W == 768) return attrs_width<4, 6>(mode, out);
   if (W == 512) return attrs_width<4, 4>(mode, out);
@@ -1839,7 +2000,8 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 
 // Launch `mode` (DECODE 0, EM 1, GAMMA 2, DECODE_GAMMA 3, EXP 4) on
 // `stream`; returns cudaGetLastError() (0 on success).  W is 32, 64, 128,
-// 256, 384, 512, 768 or 1024 and `wl` the live band width, 1 <= wl <= W.  `tables` is host
+// 256, 384, 512, 768, 1024, 1536 or 2048 (the last two a read a cluster
+// of two blocks) and `wl` the live band width, 1 <= wl <= W.  `tables` is host
 // memory: 91 model floats, then gap gamma, match gamma and the exp
 // threshold (each mode reads what it uses).  `ws` is the workspace and
 // `woff` (nreads + 1,) int64 each read's offset in it and, last, the end
@@ -1851,7 +2013,7 @@ extern "C" int np_realign_attrs(int mode, int W, int* out) {
 // W = 256: mea_segment); in GAMMA (kq + 1) * W
 // floats of match rows and 2 * kp4 scales instead; above W = 512 every
 // mode runs realign_kernel and takes its slot (the states and the
-// rescale inverses); a read that needs
+// rescale inverses: at W = 1536 and 2048 the whole band's); a read that needs
 // more than woff[r + 1] - woff[r] traps on the device.  The outputs by
 // mode are those of realign_kernel, mea_kernel (DECODE, DECODE_GAMMA:
 // `out1` score, `out2` direction codes, `out3` the gamma band) and
@@ -1867,18 +2029,20 @@ extern "C" int np_realign_launch(int mode, const float* tables, const void* xyc,
   Tables t;
   for (int i = 0; i < NTAB; ++i) t.v[i] = tables[i];
   cudaStream_t s = (cudaStream_t)stream;
-#define NP_WIDTH(WIDTH, C, G)                                                              \
-  if (W == WIDTH)                                                                          \
-    return launch_width<C, G>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, \
-                              out1, out2, out3);
-  NP_WIDTH(1024, 4, 8)
-  NP_WIDTH(768, 4, 6)
-  NP_WIDTH(512, 4, 4)
-  NP_WIDTH(384, 4, 3)
-  NP_WIDTH(256, 4, 2)
-  NP_WIDTH(128, 4, 1)
-  NP_WIDTH(64, 2, 1)
-  NP_WIDTH(32, 1, 1)
+#define NP_WIDTH(WIDTH, C, G, CB)                                                              \
+  if (W == WIDTH)                                                                              \
+    return launch_width<C, G, CB>(mode, t, nreads, s, xyc, m, n, k_pad, wl, ws, woff, loglik, \
+                                  out1, out2, out3);
+  NP_WIDTH(2048, 4, 8, 2)
+  NP_WIDTH(1536, 4, 6, 2)
+  NP_WIDTH(1024, 4, 8, 1)
+  NP_WIDTH(768, 4, 6, 1)
+  NP_WIDTH(512, 4, 4, 1)
+  NP_WIDTH(384, 4, 3, 1)
+  NP_WIDTH(256, 4, 2, 1)
+  NP_WIDTH(128, 4, 1, 1)
+  NP_WIDTH(64, 2, 1, 1)
+  NP_WIDTH(32, 1, 1, 1)
 #undef NP_WIDTH
   return (int)cudaErrorInvalidValue;
 }

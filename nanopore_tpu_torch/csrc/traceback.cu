@@ -19,8 +19,8 @@
 //  * one warp per read, WARPS reads a block, so a batch of 512 reads
 //    spreads over 128 blocks and every SM (2 reads a block at W = 256,
 //    whose ring of 4 reads would not fit a block, and 1 at W = 384 to
-//    1024: walk::reads_per_block; above 512 the ring's chunks are 64
-//    diagonals, walk::chunk);
+//    2048: walk::reads_per_block; above 512 the ring's chunks are 64
+//    diagonals, above 1024 32, walk::chunk);
 //  * the warp streams the read's direction rows (one contiguous range
 //    of (m + n + 1) x W bytes) into a shared-memory ring of chunks of
 //    CH diagonals, NBUF - 1 chunks ahead of the walk, by 16-byte cp.async
@@ -40,8 +40,8 @@
 //    words);
 //  * each read stops at its own end: it walks diagonals 0..m + n and
 //    fills the rows past them with 3 by 16-byte stores.
-// Serves W = 32, 64, 128, 256, 384, 512, 768 and 1024, the band widths
-// of the realign kernel.
+// Serves W = 32, 64, 128, 256, 384, 512, 768, 1024, 1536 and 2048, the
+// band widths of the realign kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -145,12 +145,18 @@ extern "C" int np_walk_smem(int W) { return walk::smem_bytes(W); }
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  dirs
 // (nreads, k_pad + 1, W) int8, xyc (nreads, k_pad, W) int8, m and n
 // (nreads,) int32, ops (nreads, k_pad + 1) int8 out; W is 32, 64, 128,
-// 256, 384, 512, 768 or 1024, and dirs is 16-byte aligned.
+// 256, 384, 512, 768, 1024, 1536 or 2048, and dirs is 16-byte aligned.
 extern "C" int np_walk_launch(const void* dirs, const void* xyc, const void* m,
                               const void* n, int nreads, int k_pad, int W,
                               void* ops, void* stream) {
   if (nreads <= 0 || k_pad < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (W == 2048)
+    return launch<2048>(walk_kernel<2048>, nreads, s, (const int8_t*)dirs, (const uint8_t*)xyc,
+                        (const int32_t*)m, (const int32_t*)n, nreads, k_pad, (int8_t*)ops);
+  if (W == 1536)
+    return launch<1536>(walk_kernel<1536>, nreads, s, (const int8_t*)dirs, (const uint8_t*)xyc,
+                        (const int32_t*)m, (const int32_t*)n, nreads, k_pad, (int8_t*)ops);
   if (W == 1024)
     return launch<1024>(walk_kernel<1024>, nreads, s, (const int8_t*)dirs, (const uint8_t*)xyc,
                         (const int32_t*)m, (const int32_t*)n, nreads, k_pad, (int8_t*)ops);

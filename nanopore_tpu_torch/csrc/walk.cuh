@@ -31,7 +31,8 @@ constexpr unsigned FULL = 0xffffffffu;
 // W = 384 and 512's 16-bit rows, as many at 768 and 1024's bytes) would
 // not fit in the 232,448 a block may opt into, and CH / 4 where a row is
 // more than 1024 bytes (the full plane's 16-bit rows at W = 768 and
-// 1024: three chunks of CH / 2 would take 294,912 and 393,216 bytes)
+// 1024, the byte rows at W = 1536 and 2048: three chunks of CH / 2 would
+// take 294,912 and 393,216 bytes)
 template <int W, typename T>
 __host__ __device__ constexpr int chunk() {
   return W * (int)sizeof(T) > 1024  ? CH / 4
@@ -57,7 +58,8 @@ struct __align__(16) Stage {
 // W = 512 (198,832 bytes a read), the byte rows at W = 384 (149,680), the
 // full plane at W = 384 and 512 and the byte rows at W = 768 and 1024 on
 // chunks of CH / 2 (148,592 and 197,744 either), and the full plane at
-// W = 768 and 1024 on chunks of CH / 4 (148,048 and 197,200)
+// W = 768 and 1024 and the byte rows at W = 1536 and 2048 on chunks of
+// CH / 4 (148,048 and 197,200 either)
 template <int W, typename T>
 __host__ __device__ constexpr int reads_per_block() {
   return W * (int)sizeof(T) > 256 ? 1 : W * (int)sizeof(T) > 128 ? 2 : WARPS;
@@ -167,14 +169,15 @@ __device__ __forceinline__ void fill_none(int8_t* g, int nbytes, int lane) {
 
 // Dynamic shared memory a walker block takes at band width W with rows
 // of T: one Stage a read of the block (0 for a W other than 32, 64, 128,
-// 256, 384, 512, 768 and 1024).  The byte rows take 205,504 bytes at W = 128 (4
+// 256, 384, 512, 768, 1024, 1536 and 2048; the Viterbi walker builds
+// none above 1024).  The byte rows take 205,504 bytes at W = 128 (4
 // reads), 201,056 at W = 256 (2 reads), 149,680 at W = 384 and 198,832
 // at W = 512 (1 read), as the 16-bit rows at W = 128 (2 reads) and
 // W = 256 (1 read); the 16-bit rows at W = 384 and 512, on chunks of
 // CH / 2, 148,592 and 197,744 (1 read), as the byte rows at W = 768 and
 // 1024; the 16-bit rows at W = 768 and 1024, on chunks of CH / 4,
-// 148,048 and 197,200 (1 read): every walker launches under the 232,448
-// a block may opt into.
+// 148,048 and 197,200 (1 read), as the byte rows at W = 1536 and 2048:
+// every walker launches under the 232,448 a block may opt into.
 template <int W, typename T>
 constexpr int stage_bytes() {
   return reads_per_block<W, T>() * (int)sizeof(Stage<W, T>);
@@ -182,7 +185,9 @@ constexpr int stage_bytes() {
 
 template <typename T = int8_t>
 inline int smem_bytes(int W) {
-  return W == 1024 ? stage_bytes<1024, T>()
+  return W == 2048 ? stage_bytes<2048, T>()
+       : W == 1536 ? stage_bytes<1536, T>()
+       : W == 1024 ? stage_bytes<1024, T>()
        : W == 768 ? stage_bytes<768, T>()
        : W == 512 ? stage_bytes<512, T>()
        : W == 384 ? stage_bytes<384, T>()

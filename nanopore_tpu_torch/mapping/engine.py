@@ -139,9 +139,9 @@ class MappingEngine:
         device=None,
     ):
         self.config = config or MapperConfig()
-        # on the card either decode, MEA or Viterbi, serves widths 2 to
-        # 1024 (ROADMAP C10, C11)
-        check_band_width(self.config.band_width, device)
+        # on the card the MEA decode serves widths 2 to 2048 and the
+        # Viterbi 2 to 1024 (ROADMAP C10, C11): the decode names its path
+        check_band_width(self.config.band_width, device, self.config.decode)
         # the card unless the caller asks for the CPU; raises when no
         # card is present
         self.device = resolve_device(device)

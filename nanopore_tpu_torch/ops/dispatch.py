@@ -20,13 +20,14 @@ plane for any other; ``ops.viterbi``);
 counterpart of the JAX package's ``PallasForwardPlan``).
 
 A band of live width w (``band_width``) is laid into the narrowest of
-W = 32, 64, 128, 256, 384, 512, 768 and 1024 lanes that holds it
-(``ops.pack.padded_width``; the CPU keeps a band wider than 1024
-unpadded), its dead lanes all sentinel, on either device: so the CPU
-runs exactly the layout the card runs.  On the card the MEA path's
-kernels and the Viterbi path's serve W = 32 to 1024, so
-``PreparedRealign``, ``PreparedEm``, ``PreparedPosteriors``,
-``PreparedViterbi`` and ``PreparedForward`` take the live widths 2 to
+W = 32, 64, 128, 256, 384, 512, 768, 1024, 1536 and 2048 lanes that
+holds it (``ops.pack.padded_width``; the CPU keeps a band wider than
+2048 unpadded), its dead lanes all sentinel, on either device: so the
+CPU runs exactly the layout the card runs.  On the card the MEA path's
+kernels serve W = 32 to 2048 (above 1024 a read's band on a cluster of
+two blocks) and the Viterbi path's W = 32 to 1024, so
+``PreparedRealign``, ``PreparedEm`` and ``PreparedPosteriors`` take the
+live widths 2 to 2048, ``PreparedViterbi`` and ``PreparedForward`` 2 to
 1024 (``check_band_width``, ROADMAP C10, C11).  The
 batch carries w (``LitePack.band_width``) to the realign kernel's
 launches, and ``run()`` gives the gamma band and the flush sliced to
@@ -49,6 +50,8 @@ import torch
 
 from nanopore_tpu_torch.device import resolve_device
 from nanopore_tpu_torch.ops.pack import (
+    MEA,
+    VITERBI,
     check_band_width,
     pack_stream_pairs,
     pack_xyc,
@@ -312,12 +315,15 @@ def prepared_from_pairs(
     to ``k_max`` (k-bin bucketing) instead of tightening it.  The band of
     live width ``band_width`` is laid into ``padded_width(band_width)``
     lanes; the card refuses a width its kernels do not serve before any
-    work (``check_band_width``, ROADMAP C10, C11: 2 to 1024, on the MEA
-    path for the realign classes and on the Viterbi path for
+    work (``check_band_width``, ROADMAP C10, C11: 2 to 2048 on the MEA
+    path, for the realign classes, and 2 to 1024 on the Viterbi path, for
     ``PreparedViterbi`` and ``PreparedForward``)."""
     kwargs = dict(cls_kwargs)
     device = kwargs.pop("device", None)
-    check_band_width(band_width, device)
+    check_band_width(band_width, device,
+                     VITERBI if issubclass(prepared_cls, (PreparedViterbi,
+                                                          PreparedForward))
+                     else MEA)
     device = resolve_device(device)
     if not exact_k:
         k_max = _pairs_k_max(pairs, k_max)

@@ -43,7 +43,7 @@ import ctypes
 import torch
 
 from nanopore_tpu_torch.kernels import build as kb
-from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pack import VITERBI_BAND_WIDTHS
 from nanopore_tpu_torch.ops.pairhmm import KernelParams, kernel_tables
 from nanopore_tpu_torch.ops.realign import (
     NUM_STATES,
@@ -123,10 +123,10 @@ def _launch(xyc, m, n, tables, two_term: bool) -> dict:
     ``switched`` (B,) int32: the first diagonal a read computed with the
     5-way sum after a failed check of the two-term sum, or -1."""
     B, k_pad, W = xyc.shape
-    if W not in KERNEL_BAND_WIDTHS or k_pad % 2:
+    if W not in VITERBI_BAND_WIDTHS or k_pad % 2:
         raise ValueError(
             "forward kernel serves W in %s and even k_pad, got W=%d k_pad=%d"
-            % (KERNEL_BAND_WIDTHS, W, k_pad)
+            % (VITERBI_BAND_WIDTHS, W, k_pad)
         )
     out = {"loglik": xyc.new_empty(B, dtype=torch.float32),
            "switched": xyc.new_empty(B, dtype=torch.int32)}

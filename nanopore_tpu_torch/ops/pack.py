@@ -45,11 +45,17 @@ from nanopore_tpu_torch.ops.pairhmm import band_offsets_from_cigar
 K_ALIGN = 128
 SENT = (5 << 3) | 5  # all-sentinel packed code
 # W = 32 * band cells per lane (up to 4; above W = 128 a band is held
-# by a group of W / 128 warps of 4): the layouts of both paths, the MEA
-# path (pack, realign in every mode, the MEA walker) and the Viterbi path
-# (pack, the Viterbi, its walker, forward-only)
-KERNEL_BAND_WIDTHS = (32, 64, 128, 256, 384, 512, 768, 1024)
+# by a group of W / 128 warps of 4, above 1024 by a cluster of two
+# blocks of 6 or 8 warps): the layouts of the MEA path (pack, realign in
+# every mode, the MEA walker)
+KERNEL_BAND_WIDTHS = (32, 64, 128, 256, 384, 512, 768, 1024, 1536, 2048)
+# the layouts of the Viterbi path (the Viterbi, its walker, forward-only):
+# the MEA path's up to 1024 (C11 takes one path at a time above it)
+VITERBI_BAND_WIDTHS = KERNEL_BAND_WIDTHS[:8]
 MIN_BAND_WIDTH = 2  # the narrowest live width the card serves
+# the paths of ``check_band_width``, as ``MapperConfig.decode`` names them
+# (any path but VITERBI is the MEA path's)
+MEA, VITERBI = "mea", "viterbi"
 
 LAUNCHES = kb.LaunchCounter("pack")
 
@@ -57,33 +63,40 @@ LAUNCHES = kb.LaunchCounter("pack")
 def padded_width(band_width: int) -> int:
     """The lanes a band of live width ``band_width`` is laid into, on
     either device: the narrowest kernel width that holds it (32, 64, 128,
-    256, 384, 512, 768 or 1024); a wider band, which only the CPU
-    serves, keeps its own width."""
+    256, 384, 512, 768, 1024, 1536 or 2048); a wider band, which only the
+    CPU serves, keeps its own width."""
     for W in KERNEL_BAND_WIDTHS:
         if band_width <= W:
             return W
     return band_width
 
 
-def check_band_width(band_width: int, device=None) -> None:
-    """Refuse a band width the kernels do not serve, where ``device`` is
-    not the CPU (``None`` is the card), before an entry point does any
-    work (ROADMAP C10, C11).  On the card both paths serve every live
-    width from 2 to 1024, laid into their W = 32, 64, 128, 256, 384, 512,
-    768 or 1024 kernels: the MEA path (pack, realign in every mode, the
-    MEA walker) and the Viterbi path (pack, the Viterbi, its walker and
-    the forward-only kernel); every path refuses a band above 1024 (the
-    rest of C11).  The plain versions on the CPU serve any width; the
-    card gets no plain fallback."""
+def check_band_width(band_width: int, device=None, path: str = VITERBI
+                     ) -> None:
+    """Refuse a band width the kernels of ``path`` do not serve, where
+    ``device`` is not the CPU (``None`` is the card), before an entry
+    point does any work (ROADMAP C10, C11).  On the card the MEA path
+    (``MEA``: pack, realign in every mode, the MEA walker) serves every
+    live width from 2 to 2048, laid into its W = 32, 64, 128, 256, 384,
+    512, 768, 1024, 1536 or 2048 kernels (the last two a read's band on
+    a cluster of two blocks), and the Viterbi path (``VITERBI``, the
+    default: pack, the Viterbi, its walker and the forward-only kernel)
+    every width from 2 to 1024, in the same layouts up to 1024; the MEA
+    path refuses a band above 2048 and the Viterbi path one above 1024
+    (the rest of C11).  The plain versions on the CPU serve any width;
+    the card gets no plain fallback."""
     if torch.device("cuda" if device is None else device).type == "cpu":
         return
-    top = KERNEL_BAND_WIDTHS[-1]
+    top = (VITERBI_BAND_WIDTHS if path == VITERBI else KERNEL_BAND_WIDTHS)[-1]
     if not MIN_BAND_WIDTH <= band_width <= top:
         raise ValueError(
-            "band width %d is not served on the card: the kernels of both "
-            "paths, MEA and Viterbi, take widths %d to %d (ROADMAP C10; "
-            "wider bands are C11); pass device='cpu' to run the plain path "
-            "at any width" % (band_width, MIN_BAND_WIDTH, top))
+            "band width %d is not served on the card by the %s path: the "
+            "MEA path's kernels take widths %d to %d and the Viterbi "
+            "path's %d to %d (ROADMAP C10; wider bands are C11); pass "
+            "device='cpu' to run the plain path at any width"
+            % (band_width, "Viterbi" if path == VITERBI else "MEA",
+               MIN_BAND_WIDTH, KERNEL_BAND_WIDTHS[-1], MIN_BAND_WIDTH,
+               VITERBI_BAND_WIDTHS[-1]))
 
 
 _SIG = {

@@ -62,7 +62,9 @@ version below, operation for operation:
   lower, lane for lane, until one is left: at G = 2, 4 and 8 the
   butterfly's steps across warps, at G = 3 warp 2 onto warp 0, then
   warp 1, at G = 6 warps 3-5 onto 0-2, then warp 2 onto warp 0, then
-  warp 1).  The plain version adds in the same order.
+  warp 1; at W = 1536 and 2048, G = 12 and 16 warps on a cluster of two
+  blocks, the first step is block 1's warps onto block 0's, then the
+  fold of 6 or 8).  The plain version adds in the same order.
 * the gamma band is gamma[0] = (f_k[0] * b_k[0]) * g_k of every band
   cell, diagonal 0 included: the value the MEA reads;
 * the exp mode keeps 4 accumulators per band cell in diagonal k's band
@@ -90,7 +92,11 @@ and, every :func:`segment` diagonals, a checkpoint of the backward
 states it carries, from which two more warps recompute the backward for
 the MEA pass.  Above W = 512 (768 and 1024) every mode runs the forward,
 then the backward, on one group of W / 128 warps (:func:`two_phase`),
-in the EM mode's slot.
+in the EM mode's slot; at 1536 and 2048 (``CLUSTER_WIDTHS``) that group
+is 12 or 16 warps on a thread-block cluster of two blocks, one an SM
+(csrc/group.cuh's cluster tier), launched as nreads clusters, and the
+launch first asks the card how many such clusters fit at once: none
+raises.
 """
 
 from __future__ import annotations
@@ -126,6 +132,10 @@ SEGMENT = 8
 # other process (a parallel test run's workers)
 LOOKUP_DIAGS = 64
 
+# the band widths at which a read's band is held by a cluster of two
+# blocks (csrc/realign.cu, CB = 2)
+CLUSTER_WIDTHS = (1536, 2048)
+
 LAUNCHES = kb.LaunchCounter("realign")
 EM_LAUNCHES = kb.LaunchCounter("realign_em")
 GAMMA_LAUNCHES = kb.LaunchCounter("realign_gamma")
@@ -147,7 +157,8 @@ def two_phase(W: int) -> bool:
     """Whether every mode runs the kernel's forward-then-backward layout
     on one group at band width ``W``, with the EM mode's workspace slot:
     above 512 (csrc/realign.cu, ``two_phase``), where the decode modes'
-    three roles and the gamma mode's would not fit an SM."""
+    three roles and the gamma mode's would not fit an SM (at 1536 and
+    2048 the group spans the two blocks of a cluster)."""
     return W > 512
 
 
@@ -238,19 +249,55 @@ def max_workspace_k(W: int, mode: int = EM) -> int:
     return k
 
 
+def _attributes(mode: int, W: int) -> list:
+    """``np_realign_attrs`` of ``mode``'s build at band width ``W``, on
+    the current device: registers, local bytes, static and dynamic
+    shared memory, threads and reads a block, blocks a cluster and the
+    clusters resident at once (-1 without a cluster)."""
+    lib = kb.library("realign", _SIG)
+    vals = (ctypes.c_int * 8)()
+    kb.check(lib, lib.np_realign_attrs(mode, W, vals), "realign attrs")
+    return list(vals)
+
+
 def kernel_attributes(W: int) -> dict:
     """Per mode, the compiled kernel's registers, local-memory (spill)
-    bytes per thread, static and dynamic shared memory per block, and
-    threads and reads per block at band width ``W`` (needs the card:
-    builds the kernel)."""
-    lib = kb.library("realign", _SIG)
+    bytes per thread, static and dynamic shared memory per block,
+    threads and reads per block, blocks per cluster (2 at
+    ``CLUSTER_WIDTHS``, else 1) and the clusters the card can hold at
+    once (``cudaOccupancyMaxActiveClusters``; None without a cluster) at
+    band width ``W`` (needs the card: builds the kernel)."""
     out = {}
     for mode, name in MODE_NAMES.items():
-        vals = (ctypes.c_int * 6)()
-        kb.check(lib, lib.np_realign_attrs(mode, W, vals), "realign attrs")
+        vals = _attributes(mode, W)
         out[name] = dict(zip(("registers", "local_bytes", "static_smem",
-                              "dynamic_smem", "threads", "reads"), vals))
+                              "dynamic_smem", "threads", "reads",
+                              "cluster_blocks"), vals))
+        out[name]["clusters"] = None if vals[7] < 0 else vals[7]
     return out
+
+
+_clusters_fit = set()  # (mode, W, device index) the card was asked about
+
+
+def check_clusters(mode: int, W: int, device) -> None:
+    """Raise unless ``device`` can hold at least one cluster of ``mode``'s
+    build at band width ``W`` (one of ``CLUSTER_WIDTHS``: two blocks of
+    its shared memory), asked of the card once per build and device;
+    there is no fallback."""
+    key = (mode, W, torch.device(device).index)
+    if key in _clusters_fit:
+        return
+    with torch.cuda.device(device):
+        vals = _attributes(mode, W)
+    if vals[7] <= 0:
+        raise RuntimeError(
+            "the realign kernel's %s mode at W = %d holds a read on a "
+            "cluster of %d blocks of %d bytes of shared memory, and this "
+            "card can hold no such cluster (cudaOccupancyMaxActiveClusters "
+            "= %d)" % (MODE_NAMES[mode], W, vals[6], vals[2] + vals[3],
+                       vals[7]))
+    _clusters_fit.add(key)
 
 
 def _check_inputs(xyc, m, n):
@@ -319,6 +366,8 @@ def _launch(mode: int, counter, xyc, m, n, tables, outs, kend=None,
     wl = live_width(wl, W)
     if B == 0:
         return
+    if W in CLUSTER_WIDTHS:
+        check_clusters(mode, W, xyc.device)
     if kend is None:
         kend = (m.to(torch.int64) + n.to(torch.int64)).cpu().numpy()
     offsets, launches = workspace_plan(kend, 0, W, WORKSPACE_BYTES,  # m + n, 0
@@ -538,17 +587,18 @@ def em_lanes(W: int) -> int:
     owning W / L adjacent band cells: one warp's 32 up to W = 128 (a lane
     a cell below 32, the CPU's), then W / 4, the kernel's groups of
     W / 128 warps of 4 cells a lane (64 at W = 256, 96 at 384, 128 at
-    512, 192 at 768, 256 at 1024; the CPU's wider bands, laid into the
-    next power of two, follow the same rule)."""
+    512, 192 at 768, 256 at 1024, 384 and 512 on the clusters of
+    W = 1536 and 2048; the CPU's wider bands, laid into the next power of
+    two, follow the same rule)."""
     return min(W, 32) if W <= 128 else W // 4
 
 
 def em_width(W: int) -> int:
     """The lanes the EM mode's plain version lays a band of ``W`` lanes
-    into: from 129 to 1024 the kernel's layout (``ops.pack.padded_width``:
-    384 for 257 to 384, 768 for 513 to 768), so the lane sums add in the
-    kernel's order; elsewhere (a lane a cell up to 32, and the CPU's
-    bands above 1024) the next power of two."""
+    into: from 129 to 2048 the kernel's layout (``ops.pack.padded_width``:
+    384 for 257 to 384, 768 for 513 to 768, 1536 for 1025 to 1536), so
+    the lane sums add in the kernel's order; elsewhere (a lane a cell up
+    to 32, and the CPU's bands above 2048) the next power of two."""
     if 128 < W <= KERNEL_BAND_WIDTHS[-1]:
         return padded_width(W)
     return 1 << (W - 1).bit_length()
@@ -617,9 +667,10 @@ def realign_em_plain(xyc, m, n, params: KernelParams,
     lane sums want the kernel's layout: codes of another width are laid
     into :func:`em_width` lanes, their new lanes dead (all sentinel),
     which add +0.0 to every count (a band of 129 to 256 in 256 lanes,
-    257 to 384 in 384, 385 to 512 in 512, 513 to 768 in 768 and 769 to
-    1024 in 1024, as the card lays them; above 1024, which only the CPU
-    serves, 2,048 or more lanes, summed over ``em_lanes`` of them)."""
+    257 to 384 in 384, 385 to 512 in 512, 513 to 768 in 768, 769 to
+    1024 in 1024, 1025 to 1536 in 1536 and 1537 to 2048 in 2048, as the
+    card lays them; above 2048, which only the CPU serves, 4,096 or more
+    lanes, summed over ``em_lanes`` of them)."""
     W = xyc.shape[2]
     wl = live_width(band_width, W)
     xyc = pad_lanes(xyc, em_width(W))

@@ -32,12 +32,14 @@ them up to its start diagonal and subtracts them going down.
 The kernels (``csrc/traceback.cu``, ``csrc/viterbi_traceback.cu``, the
 latter with a walk of each plane) run one warp per read, stage its rows
 through shared memory and walk them with one lane; each serves its
-path's band widths (``KERNEL_BAND_WIDTHS``: 32, 64, 128, 256, 384, 512,
-768 and 1024), four reads a block, two where a row is 256 bytes and one
-where it is more (the full plane at 256 to 1024, the byte rows at 384 to
-1024; the rows above 512 bytes, the full plane's at 384 and 512 and the
-bytes at 768 and 1024, in chunks of 64 diagonals, the full plane's rows
-above 1024 bytes, at 768 and 1024, in chunks of 32, the others 128).
+path's band widths (the MEA walker ``KERNEL_BAND_WIDTHS``: 32, 64, 128,
+256, 384, 512, 768, 1024, 1536 and 2048; the Viterbi walker
+``VITERBI_BAND_WIDTHS``: the same to 1024), four reads a block, two
+where a row is 256 bytes and one where it is more (the full plane at 256
+to 1024, the byte rows at 384 to 2048; the rows above 512 bytes, the
+full plane's at 384 and 512 and the bytes at 768 and 1024, in chunks of
+64 diagonals, the rows above 1024 bytes, the full plane's at 768 and
+1024 and the bytes at 1536 and 2048, in chunks of 32, the others 128).
 The plain versions serve any width.
 """
 
@@ -50,7 +52,7 @@ import torch
 
 from nanopore_tpu_torch.io.sam import CIG
 from nanopore_tpu_torch.kernels import build as kb
-from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS, VITERBI_BAND_WIDTHS
 
 DIR_DIAG, DIR_DEL, DIR_INS, DIR_NONE = 0, 1, 2, 3
 OP_M, OP_D, OP_I, OP_NONE = 0, 1, 2, 3
@@ -90,11 +92,16 @@ def walker_shared_memory(W: int) -> dict:
     width ``W`` takes (bytes: 4 reads a block, 2 where a row is 256
     bytes, the full plane at W = 128 and the byte rows at W = 256, 1
     where it is more, the full plane at W = 256 to 1024 and the byte rows
-    at W = 384 to 1024; needs the card: builds the kernels)."""
-    return {"traceback": kb.library("traceback", _SIG).np_walk_smem(W),
-            "viterbi_traceback": viterbi_walker_attributes(W)["dynamic_smem"],
-            "viterbi_traceback_full": viterbi_walker_attributes(
-                W, True)["dynamic_smem"]}
+    at W = 384 to 2048; needs the card: builds the kernels).  Above 1024
+    only the MEA walker has a build: the Viterbi walkers' entries are
+    then absent."""
+    out = {"traceback": kb.library("traceback", _SIG).np_walk_smem(W)}
+    if W in VITERBI_BAND_WIDTHS:
+        out["viterbi_traceback"] = viterbi_walker_attributes(W)[
+            "dynamic_smem"]
+        out["viterbi_traceback_full"] = viterbi_walker_attributes(
+            W, True)["dynamic_smem"]
+    return out
 
 
 def _check_inputs(dirs, xyc, m, n, what="dirs", dtypes=(torch.int8,),
@@ -194,7 +201,8 @@ def viterbi_walk(bp, xyc, m, n, fstate):
     launch the kernel's walk of that plane, CPU tensors run the plain
     walker.
     """
-    _check_inputs(bp, xyc, m, n, "bp", (torch.int8, torch.int16))
+    _check_inputs(bp, xyc, m, n, "bp", (torch.int8, torch.int16),
+                  VITERBI_BAND_WIDTHS)
     if (fstate.device != bp.device or fstate.dtype != torch.int32
             or tuple(fstate.shape) != (bp.shape[0],)
             or not fstate.is_contiguous()):

@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from nanopore_tpu_torch.kernels import build as kb
-from nanopore_tpu_torch.ops.pack import KERNEL_BAND_WIDTHS
+from nanopore_tpu_torch.ops.pack import VITERBI_BAND_WIDTHS
 from nanopore_tpu_torch.ops.pairhmm import KernelParams, kernel_tables
 from nanopore_tpu_torch.ops.realign import _by_chunk, _check_inputs, _shift_at
 
@@ -186,9 +186,9 @@ def _launch(xyc, m, n, tables, step: int) -> dict:
     (:func:`viterbi_forward` picks it); one count per launch, on
     ``FULL_LAUNCHES`` for the full plane, else on ``LAUNCHES``."""
     B, k_pad, W = xyc.shape
-    if W not in KERNEL_BAND_WIDTHS:
+    if W not in VITERBI_BAND_WIDTHS:
         raise ValueError("viterbi kernel serves W in %s, got %d"
-                         % (KERNEL_BAND_WIDTHS, W))
+                         % (VITERBI_BAND_WIDTHS, W))
     out = {
         "score": xyc.new_empty(B, dtype=torch.float32),
         "fstate": xyc.new_empty(B, dtype=torch.int32),

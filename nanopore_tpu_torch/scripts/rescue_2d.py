@@ -9,7 +9,7 @@ runs through the pack kernel, the fused realign kernel in decode mode
 and the MEA walker (the realigner's path), and the metrics match the
 reference's gapped-column walk (muscle_compare_2d.py:72-88).  It runs on
 the card unless ``device="cpu"`` (``--device cpu``) asks for the plain
-PyTorch path; on the card the band width must be 2 to 1024 (ROADMAP C10,
+PyTorch path; on the card the band width must be 2 to 2048 (ROADMAP C10,
 C11).
 
 Usage: python -m nanopore_tpu_torch.scripts.rescue_2d \\
@@ -34,7 +34,7 @@ from nanopore_tpu_torch.ops.dispatch import (
     preferred_realign_batch_size,
     prepared_from_pairs,
 )
-from nanopore_tpu_torch.ops.pack import check_band_width
+from nanopore_tpu_torch.ops.pack import MEA, check_band_width
 from nanopore_tpu_torch.ops.pairhmm import KernelParams, make_kernel_params
 
 HEADER = (
@@ -123,7 +123,7 @@ def rescue(template_sam, complement_sam, twod_sam, working_dir, output_dir,
     nor the complement SAM maps.  Runs on the card unless
     ``device="cpu"``, in the preferred realign batches (512 reads on the
     card, 4 on the CPU)."""
-    check_band_width(band_width, device)
+    check_band_width(band_width, device, MEA)
     dev = resolve_device(device)
     batch_size = preferred_realign_batch_size(None, dev)
     os.makedirs(output_dir, exist_ok=True)

@@ -449,9 +449,9 @@ def test_realign_requires_global_records():
 @pytest.mark.parametrize("device", [None, "cuda", "meta"])
 def test_c10_realign_refuses_an_unserved_width_off_the_cpu(
         mapped, tmp_path, monkeypatch, device):
-    """At W = 1025 off the CPU (the card serves 2 to 1024 on the MEA path
-    since ROADMAP C11's fifth step; the case once used 160, 300, then
-    513),
+    """At W = 2049 off the CPU (the card serves 2 to 2048 on the MEA path
+    since ROADMAP C11's seventh step; the case once used 160, 300, 513,
+    then 1025),
     ``realign_records`` and ``realign_sam_file`` raise a ``ValueError``
     naming C10 before any work: before
     ``resolve_device`` (which would raise ``RuntimeError`` here, without
@@ -464,12 +464,12 @@ def test_c10_realign_refuses_an_unserved_width_off_the_cpu(
     recs = [SamRecord(qname="q", flag=0, rname="chrT", pos=0, mapq=0,
                       cigar=[(CIG.M, 8)], seq="ACGTACGT")]
     with pytest.raises(ValueError, match="C10"):
-        realign.realign_records(recs, {"chrT": "ACGTACGT"}, band_width=1025,
+        realign.realign_records(recs, {"chrT": "ACGTACGT"}, band_width=2049,
                                 device=device)
     out = tmp_path / "out.sam"
     with pytest.raises(ValueError, match="C10"):
         realign.realign_sam_file(mapped["sam"], str(out), mapped["fq"],
-                                 mapped["fa"], band_width=1025, device=device)
+                                 mapped["fa"], band_width=2049, device=device)
     assert not out.exists()
 
 
@@ -479,7 +479,7 @@ def test_c10_realign_subcommand_refuses_an_unserved_width(mapped, tmp_path):
     out = tmp_path / "out.sam"
     with pytest.raises(ValueError, match="C10"):
         cli.main(["realign", mapped["sam"], mapped["fq"], mapped["fa"],
-                  str(out), "--band-width", "1025"])
+                  str(out), "--band-width", "2049"])
     assert not out.exists()
 
 

@@ -444,7 +444,7 @@ def test_rescue_2d_refuses_an_unserved_width_off_the_cpu(rescue_dir,
     t, c, twod = rescue_dir["sams"]
     with pytest.raises(ValueError, match="C10"):
         rescue_2d.rescue(t, c, twod, str(rescue_dir["dir"]),
-                         str(tmp_path / "out"), band_width=1025, device=device)
+                         str(tmp_path / "out"), band_width=2049, device=device)
     assert not os.path.exists(tmp_path / "out")
 
 

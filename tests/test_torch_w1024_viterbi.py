@@ -50,19 +50,30 @@ reads:
 * the Viterbi plain version's lookups many diagonals at a time give the
   bits of one at a time, on both planes;
 * the width guard without a card: every Viterbi entry point takes 513,
-  600, 768, 900 and 1024 past the guard, and refuses 1025 naming C11.
+  600, 768, 900 and 1024 past the guard, and refuses 1025 naming C11;
+* the Viterbi path at w = 1100 on the CPU, laid into the MEA path's
+  W = 1536 layout since ROADMAP C11's seventh step (unpadded before):
+  both planes, the walks and the forward loglik the unpadded band's bit
+  for bit, and ``MappingEngine(band_width=1100, decode="viterbi")``'s
+  records those of the unpadded layout.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from nanopore_tpu_torch.io.seqio import read_fasta_dict
+from nanopore_tpu_torch.mapping.engine import MappingEngine
+from nanopore_tpu_torch.mapping.presets import MAPPER_REGISTRY
 from nanopore_tpu_torch.ops import realign as port_realign
 from nanopore_tpu_torch.ops import viterbi as V
 from nanopore_tpu_torch.ops.forward import forward_loglik_plain, two_term_sum
 from nanopore_tpu_torch.ops.pack import check_band_width, padded_width
 from nanopore_tpu_torch.ops.pairhmm import kernel_tables
 from nanopore_tpu_torch.ops.traceback import viterbi_walk_plain
+from test_torch_chain_realign import sam_records, write_small_inputs
 from test_torch_forward import _bits, _model_run
 from test_torch_viterbi_full import both_params, full_pairs
 from test_torch_wide import _past_the_guard, _viterbi_entry_points
@@ -308,14 +319,54 @@ def test_viterbi_entry_points_take_513_to_1024_past_the_guard(w, monkeypatch):
 
 def test_the_viterbi_path_refuses_1025_naming_c11(monkeypatch):
     """Above 1024 every Viterbi entry point refuses the band on the card
-    before any work (no pack), naming C11, and the message gives both
-    paths' 2 to 1024; the CPU serves it, in its own width."""
+    before any work (no pack), naming C11, and the message gives the
+    Viterbi path's 2 to 1024 beside the MEA path's 2 to 2048 (which
+    takes 1025 since ROADMAP C11's seventh step); the CPU serves it, in
+    the W = 1536 layout since that step (unpadded before: its records
+    are unchanged, test_the_viterbi_records_at_1100_are_unchanged_by_the_padded_layout)."""
     monkeypatch.setattr("nanopore_tpu_torch.ops.dispatch.pack_stream_pairs",
                         _past_the_guard)
     for name, call in _viterbi_entry_points(1025).items():
         with pytest.raises(ValueError, match="C11") as err:
             call()
-        assert "both paths, MEA and Viterbi, take widths 2 to 1024" in str(
-            err.value), name
+        assert ("the MEA path's kernels take widths 2 to 2048 and the "
+                "Viterbi path's 2 to 1024") in str(err.value), name
     check_band_width(1025, "cpu")
-    assert padded_width(1025) == 1025
+    check_band_width(1025, "cuda", "mea")
+    assert padded_width(1025) == 1536
+
+
+# ---- the CPU's Viterbi path at 1025 to 2048 (ROADMAP C11, seventh step) --- #
+
+def test_the_viterbi_records_at_1100_are_unchanged_by_the_padded_layout(
+        tmp_path, monkeypatch):
+    """A band of 1025 to 1536 lies in the W = 1536 layout on either device
+    since the MEA path's kernels serve it; the Viterbi path, whose
+    kernels stop at 1024, then runs its plain versions in that layout on
+    the CPU.  At w = 1100 both planes' live lanes, the scores, fstates,
+    walks and end cells, and the forward loglik (under both gap sums'
+    models) are the unpadded band's bit for bit, and
+    ``MappingEngine(band_width=1100, decode="viterbi")`` on the CPU
+    writes the records it wrote when such a band was unpadded."""
+    w = 1100
+    assert padded_width(w) == 1536
+    jp, pp = both_params("i")
+    pairs = full_pairs() + width_pairs()[:2]
+    padded_gives_unpadded((pairs, jp, pp, {w: _case(pairs, w)}), w)
+
+    fa, fq = write_small_inputs(tmp_path, 5, n_reads=4)
+    cfg = dataclasses.replace(MAPPER_REGISTRY["Viterbi"].config,
+                              band_width=w)
+    assert cfg.decode == "viterbi"
+    records = {}
+    for layout in ("padded", "unpadded"):
+        if layout == "unpadded":  # the layout before the seventh step
+            monkeypatch.setattr(
+                "nanopore_tpu_torch.ops.dispatch.padded_width",
+                lambda band: band if band > 1024 else padded_width(band))
+        sam = str(tmp_path / (layout + ".sam"))
+        MappingEngine(read_fasta_dict(fa), cfg, device="cpu").map_fastq(
+            fq, sam)
+        records[layout] = sam_records(sam)
+    assert len({r[0] for r in records["padded"]}) == 4
+    assert records["padded"] == records["unpadded"]

@@ -30,8 +30,8 @@ lanes) and w = 256 (none):
 * the decode's workspace plan puts the card's mapping batch at W = 256
   into four launches;
 * the width guard without a card: every entry point of either path
-  takes 129, 200 and 256 past the guard, every path refuses 1, 1025 and
-  2048 and the Viterbi path's entry points alone 1025, naming C11 (the
+  takes 129, 200 and 256 past the guard, every path refuses 1, 2049 and
+  4096 and the Viterbi path's entry points alone 1025, naming C11 (the
   MEA path serves 257 to 512 since ROADMAP C11's third step,
   tests/test_torch_widest.py, and 513 to 1024 since its fifth,
   tests/test_torch_w1024.py; the Viterbi path 257 to 512 since its
@@ -378,19 +378,21 @@ def test_viterbi_entry_points_take_129_to_256_past_the_guard(monkeypatch, w):
     viterbi_entry_points_take(w, monkeypatch)
 
 
-@pytest.mark.parametrize("path, w", [(None, 1025), (None, 2048),
+@pytest.mark.parametrize("path, w", [(None, 2049), (None, 4096),
                                      (None, 1), ("viterbi", 1025)])
 def test_every_path_refuses_1_and_257_and_above_naming_c11(
         mapped, tmp_path, monkeypatch, path, w):  # noqa: F811
-    """Every path (``path`` None) refuses 1, 1025 and 2048 on the card,
+    """Every path (``path`` None) refuses 1, 2049 and 4096 on the card,
     and the Viterbi path's entry points alone (``path`` "viterbi") 1025,
     each entry point naming C11 before any work.  The name keeps the
     cases this test once held: the Viterbi path refused 257 and 300
     until ROADMAP C11's fourth step and 513 until its sixth, and the MEA
     path 257 until its third (both serve 257 to 1024 now:
     tests/test_torch_widest.py, tests/test_torch_widest_viterbi.py,
-    tests/test_torch_w1024.py and tests/test_torch_w1024_viterbi.py), so
-    widths above the paths' top take their places."""
+    tests/test_torch_w1024.py and tests/test_torch_w1024_viterbi.py, and
+    the MEA path 1025 to 2048 since its seventh,
+    tests/test_torch_w2048.py), so widths above the paths' top take
+    their places."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)

@@ -41,8 +41,8 @@ long deletion, a long insertion; the five take the file past its time):
   takes 257, 300, 384 and 512 past the guard (the Viterbi path's are
   tests/test_torch_widest_viterbi.py's), and the Viterbi path's kernel
   wrappers take the W = 384, 512, 768 and 1024 layouts and refuse 257
-  and 1025 lanes; every path refuses 1025, naming C11; and the CPU
-  serves 600 (the EM sums against the JAX package's, in the 768 lanes
+  and 1025 lanes; the MEA path refuses 2049 and the Viterbi path 1025,
+  naming C11; and the CPU serves 600 (the EM sums against the JAX package's, in the 768 lanes
   of the card's layout).
 """
 
@@ -530,12 +530,14 @@ def test_every_path_refuses_513_naming_c11(mapped, tmp_path,
     """The name keeps the case this test once held, every path's refusal
     of 513: since ROADMAP C11's fifth step the MEA path serves 513 to
     1024 (tests/test_torch_w1024.py), and since its sixth the Viterbi
-    path too (tests/test_torch_w1024_viterbi.py), so every path is held
-    to the top both share, refusing 1025."""
+    path too (tests/test_torch_w1024_viterbi.py), and since its seventh
+    the MEA path 1025 to 2048 (tests/test_torch_w2048.py), so each path
+    is held to its top, the MEA path refusing 2049 and the Viterbi path
+    1025."""
     monkeypatch.setattr(port_realign_stage, "chain_sam_file",
                         _past_the_guard)
     monkeypatch.setattr(dispatch, "pack_stream_pairs", _past_the_guard)
-    calls = dict(_mea_entry_points(mapped, tmp_path, 1025),
+    calls = dict(_mea_entry_points(mapped, tmp_path, 2049),
                  **_viterbi_entry_points(1025))
     for name, call in calls.items():
         with pytest.raises(ValueError, match="C11"):

@@ -48,7 +48,8 @@ W = 512) and 512 (none), on tests/test_torch_widths.py's reads:
   300, 384 and 512 past the guard, and twice each (514, 600, 768 and
   1024: since ROADMAP C11's sixth step, tests/test_torch_w1024_viterbi.py
   holds 513 to 1024), and refuses 1025 and 2048 naming C11, its message
-  giving both paths' 2 to 1024.
+  giving the Viterbi path's 2 to 1024 (the MEA path's 2 to 2048 since
+  the seventh step).
 """
 
 import numpy as np
@@ -350,13 +351,13 @@ def test_the_viterbi_path_refuses_513_and_above_naming_c11(w, monkeypatch):
     """The name keeps the width this test once refused: above 512 until
     ROADMAP C11's sixth step, above 1024 since.  Every Viterbi entry
     point refuses the band on the card before any work (no pack), naming
-    C11, and the message gives both paths' 2 to 1024; the CPU serves
-    it."""
+    C11, and the message gives the Viterbi path's 2 to 1024 beside the
+    MEA path's 2 to 2048 (since the seventh step); the CPU serves it."""
     monkeypatch.setattr("nanopore_tpu_torch.ops.dispatch.pack_stream_pairs",
                         _past_the_guard)
     for name, call in _viterbi_entry_points(w).items():
         with pytest.raises(ValueError, match="C11") as err:
             call()
-        assert "both paths, MEA and Viterbi, take widths 2 to 1024" in str(
-            err.value), name
+        assert ("the MEA path's kernels take widths 2 to 2048 and the "
+                "Viterbi path's 2 to 1024") in str(err.value), name
     check_band_width(w, "cpu")

@@ -37,8 +37,8 @@ and at 32 and 64, where the layout has no dead lane:
   JAX package's;
 * on random codes at w = 21 no MEA or Viterbi op leaves the live band,
   and every dead lane's direction code is DIR_NONE;
-* ``check_band_width``: on the card the MEA path and the Viterbi path
-  both serve 2 to 1024, and their kernel wrappers take the layout a
+* ``check_band_width``: on the card the MEA path serves 2 to 2048 and
+  the Viterbi path 2 to 1024, and their kernel wrappers take the layout a
   served width is laid into and refuse a wider band's; the CPU serves
   any width on either.
 """
@@ -478,7 +478,7 @@ def test_no_op_leaves_the_live_band_on_random_codes():
 # ---- the widths the card serves (ROADMAP C10) ---------------------------- #
 
 GUARD_WIDTHS = (1, 2, 21, 32, 33, 48, 64, 65, 96, 128, 129, 160, 257, 384,
-                512, 513, 768, 1024, 1025)
+                512, 513, 768, 1024, 1025, 1536, 2048, 2049)
 
 
 def _path_wrappers(path, W):
@@ -509,28 +509,28 @@ def _path_wrappers(path, W):
 def test_check_band_width_serves_each_path_on_the_card(path, w,
                                                        monkeypatch):
     """On the card the MEA path (pack, realign, MEA walker) serves 2 to
-    1024 (since ROADMAP C11's fifth step; 2 to 512 since its third) and
-    so does the Viterbi path (pack, Viterbi, its walker, forward-only;
-    since its sixth step; 2 to 512 since its fourth, 2 to 256 before, 2
-    to 128 before its second), one guard for both, and each path's
-    kernel wrappers take the layout a served
-    width is laid into past their width check, and refuse a wider
-    band's; the CPU serves any width; each live width is laid into the
-    narrowest of 32, 64, 128, 256, 384, 512, 768 and 1024 lanes that
-    holds it."""
+    2048 (since ROADMAP C11's seventh step; 2 to 1024 since its fifth, 2
+    to 512 since its third) and the Viterbi path (pack, Viterbi, its
+    walker, forward-only) 2 to 1024 (since its sixth step; 2 to 512
+    since its fourth, 2 to 256 before, 2 to 128 before its second), one
+    guard that knows the path, and each path's kernel wrappers take the
+    layout a served width is laid into past their width check, and
+    refuse a wider band's; the CPU serves any width; each live width is
+    laid into the narrowest of 32, 64, 128, 256, 384, 512, 768, 1024,
+    1536 and 2048 lanes that holds it."""
     monkeypatch.setattr("nanopore_tpu_torch.kernels.build.library",
                         _past_the_width_check)
-    top = 1024
+    top = 2048 if path == "mea" else 1024
     served = 2 <= w <= top
     for device in ("cuda", None):
         if served:
-            check_band_width(w, device)
+            check_band_width(w, device, path)
         else:
             with pytest.raises(ValueError, match="C10"):
-                check_band_width(w, device)
-    check_band_width(w, "cpu")
-    want = next((W for W in (32, 64, 128, 256, 384, 512, 768, 1024)
-                 if w <= W), w)
+                check_band_width(w, device, path)
+    check_band_width(w, "cpu", path)
+    want = next((W for W in (32, 64, 128, 256, 384, 512, 768, 1024, 1536,
+                             2048) if w <= W), w)
     assert padded_width(w) == want
     for call in _path_wrappers(path, want):
         if w <= top:
